@@ -1,0 +1,146 @@
+"""Recommender inference app (port of ``bert4rec_tpu/apps/recommender.py``).
+
+Raw item-string histories -> ``prepare_inference(_batch)`` (append
+``[UNK]``, last-token mask) -> forward on ``device`` -> MLM logits of the
+masked slot -> seen items and special tokens excluded -> best items ->
+detokenize. ``ArtifactRecommender`` (exported artifacts) is not ported yet.
+"""
+
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from bert4rec_tpu_torch.core.device import resolve_device
+from bert4rec_tpu_torch.models.components.networks import Bert4RecEncoder
+
+_WANTED = ("input_word_ids", "input_mask", "masked_lm_positions")
+
+
+def build_exclusion_rows(sequences, tokenizer, special_token_ids,
+                         width: Optional[int] = None) -> np.ndarray:
+    """``[B, W]`` int32 exclusion rows: each history's seen item ids + the
+    special ids, padded with -1. ``width=None`` pads W to a power of two
+    (>= 8); a fixed ``width`` raises when a row cannot fit."""
+    seen_lists = [np.asarray(tokenizer.tokenize(list(s)), dtype=np.int32)
+                  for s in sequences]
+    specials = np.asarray(list(special_token_ids), np.int32)
+    longest = max((len(s) for s in seen_lists), default=0) + len(specials)
+    if width is None:
+        width = max(8, 1 << (max(longest, 1) - 1).bit_length())
+    elif longest > width:
+        raise ValueError(
+            f"a history of {longest - len(specials)} items (+"
+            f"{len(specials)} specials) exceeds the exclusion width "
+            f"{width}; re-export with a larger num_exclude")
+    rows = np.full((len(sequences), width), -1, dtype=np.int32)
+    for i, seen in enumerate(seen_lists):
+        row = np.concatenate([seen, specials])
+        rows[i, :len(row)] = row
+    return rows
+
+
+class Recommender:
+    """A model + params + dataloader on one device.
+
+    :param device: where the params are moved and every forward runs;
+        defaults to ``"cuda"`` and raises without CUDA unless ``"cpu"`` is
+        asked for.
+    """
+
+    def __init__(self, model, params, dataloader, device="cuda"):
+        self.device = resolve_device(device)
+        self.model = model
+        self.params = _to_device(params, self.device)
+        self.dataloader = dataloader
+
+    def _batch(self, feats: dict) -> dict:
+        ids = feats["input_word_ids"]
+        vocab = self.model.config.padded_vocab_size
+        if ids.size and (ids.min() < 0 or ids.max() >= vocab):
+            # an index past the table would fault on the device
+            raise ValueError(f"history holds item ids outside the model's "
+                             f"vocabulary of {vocab}")
+        return {k: torch.from_numpy(np.ascontiguousarray(feats[k]))
+                .to(self.device) for k in _WANTED}
+
+    @torch.inference_mode()
+    def __call__(self, sequence: List[str],
+                 use_mlm_head: bool = True) -> str:
+        """Recommend the next item for a raw item-string history."""
+        model_input = self.dataloader.prepare_inference(list(sequence))
+        seen_ids = np.asarray(
+            self.dataloader.tokenizer.tokenize(list(sequence)), dtype=np.int32)
+        outputs = self.model.apply(self.params, self._batch(model_input))
+
+        if use_mlm_head and "mlm_logits" in outputs:
+            logits = outputs["mlm_logits"][0, 0]  # the masked slot is slot 0
+        else:
+            # tied-embedding fallback on the masked position's hidden state
+            pos = int(model_input["masked_lm_positions"][0, 0])
+            hidden = outputs["sequence_output"][0, pos]
+            table = Bert4RecEncoder.get_embedding_table(
+                self.params["encoder"])
+            logits = table.float() @ hidden.float()
+            cfg = self.model.config
+            if cfg.padded_vocab_size > cfg.vocab_size:
+                logits[cfg.vocab_size:] = -1e9
+
+        vocab_size = logits.shape[-1]
+        mask = np.zeros(vocab_size, dtype=np.float32)
+        mask[seen_ids[seen_ids < vocab_size]] = -np.inf
+        for sid in self.model.special_token_ids:  # never recommended
+            mask[sid] = -np.inf
+        best = int(torch.argmax(logits + torch.from_numpy(mask)
+                                .to(logits.device)))
+        return self.dataloader.tokenizer.detokenize(best)
+
+    # ------------------------------------------------------------------ #
+    # batched serving
+    # ------------------------------------------------------------------ #
+
+    def recommend_batch(self, sequences, top_k: int = 1):
+        """Top-k next-item recommendations for many histories at once, best
+        first; seen items and special tokens are excluded."""
+        ids = self._dispatch_topk(sequences, top_k)
+        return self._decode_topk(ids)
+
+    @torch.inference_mode()
+    def _dispatch_topk(self, sequences, top_k: int) -> torch.Tensor:
+        """Prep + launch one request batch; returns the device ids
+        ``[B, k]`` without waiting for the device."""
+        tok = self.dataloader.tokenizer
+        feats = self.dataloader.prepare_inference_batch(
+            [list(s) for s in sequences])
+        exclude = build_exclusion_rows(sequences, tok,
+                                       self.model.special_token_ids)
+        ids, _ = self.model.rank_top_k(
+            self.params, self._batch(feats), int(top_k),
+            exclude=torch.from_numpy(exclude).to(self.device))
+        return ids[:, 0]
+
+    def _decode_topk(self, ids, k: Optional[int] = None) -> list:
+        tok = self.dataloader.tokenizer
+        rows = ids.cpu().numpy() if isinstance(ids, torch.Tensor) \
+            else np.asarray(ids)
+        if k is not None:
+            rows = rows[:, :k]
+        return [[tok.detokenize(int(t)) for t in row] for row in rows]
+
+    def recommend_stream(self, batches, top_k: int = 1,
+                         fetch_workers: int = 2):
+        """Pipelined :meth:`recommend_batch` over an iterable of history
+        batches: batch k+1 is launched while batch k's ids are copied back
+        on a worker thread. Yields one result list per batch, in order."""
+        from bert4rec_tpu_torch.utils.prefetch import fetch_pipelined
+        yield from fetch_pipelined(
+            batches,
+            dispatch=lambda seqs: self._dispatch_topk(seqs, top_k),
+            fetch=self._decode_topk,
+            workers=fetch_workers)
+
+
+def _to_device(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to_device(v, device) for k, v in tree.items()}
+    return tree.to(device)

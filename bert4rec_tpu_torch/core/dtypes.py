@@ -1,0 +1,21 @@
+"""Mixed-precision policy (port of ``bert4rec_tpu/core/dtypes.py``):
+fp32 params; matmuls in ``compute_dtype``; layer norm, softmax and logits
+always accumulate in fp32."""
+
+import dataclasses
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class DTypePolicy:
+    param_dtype: torch.dtype = torch.float32
+    compute_dtype: torch.dtype = torch.float32
+
+    @classmethod
+    def bf16(cls) -> "DTypePolicy":
+        return cls(param_dtype=torch.float32, compute_dtype=torch.bfloat16)
+
+    @classmethod
+    def f32(cls) -> "DTypePolicy":
+        return cls(param_dtype=torch.float32, compute_dtype=torch.float32)

@@ -1,0 +1,10 @@
+from bert4rec_tpu_torch.models.bert4rec_model import (
+    SPECIAL_TOKEN_IDS,
+    BERT4RecModel,
+)
+from bert4rec_tpu_torch.models.bert4rec_wrapper import BERT4RecModelWrapper
+from bert4rec_tpu_torch.models.components.networks import Bert4RecEncoder
+from bert4rec_tpu_torch.models.config import BERT4RecConfig
+
+__all__ = ["BERT4RecConfig", "BERT4RecModel", "BERT4RecModelWrapper",
+           "Bert4RecEncoder", "SPECIAL_TOKEN_IDS"]

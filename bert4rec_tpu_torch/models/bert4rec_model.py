@@ -1,0 +1,124 @@
+"""BERT4Rec model: encoder + tied-embedding MLM head + top-k ranking (port
+of ``bert4rec_tpu/models/bert4rec_model.py``, the inference half).
+
+The MLM head gathers the masked positions, applies dense + activation +
+LayerNorm, multiplies by the tied item-embedding table (a plain
+``torch.matmul``, as the JAX package leaves that product to XLA), adds the
+output bias and sets vocab-padding columns to -1e9.
+"""
+
+from typing import Optional, Sequence
+
+import torch
+
+from bert4rec_tpu_torch.core.device import resolve_device
+from bert4rec_tpu_torch.core.dtypes import DTypePolicy
+from bert4rec_tpu_torch.models.components import layers as L
+from bert4rec_tpu_torch.models.components.networks import Bert4RecEncoder
+from bert4rec_tpu_torch.models.config import BERT4RecConfig
+from bert4rec_tpu_torch.ops import sharded_topk
+
+# [PAD], [MASK], [UNK] — ids 0/1/2 by the dataloader's construction
+SPECIAL_TOKEN_IDS = [0, 1, 2]
+
+
+class BERT4RecModel:
+    """Encoder + MLM head over one param dict ``{"encoder", "mlm"}``."""
+
+    def __init__(self,
+                 encoder: Bert4RecEncoder = None,
+                 config: BERT4RecConfig = None,
+                 special_token_ids: Sequence[int] = tuple(SPECIAL_TOKEN_IDS),
+                 dtype_policy: Optional[DTypePolicy] = None):
+        if encoder is None:
+            if config is None:
+                raise ValueError("Provide either an encoder or a config")
+            encoder = Bert4RecEncoder(config, dtype_policy)
+        self.encoder = encoder
+        self.config = encoder.config
+        self.dtype_policy = dtype_policy or encoder.dtype_policy
+        self.special_token_ids = list(special_token_ids)
+
+    def init(self, generator: Optional[torch.Generator] = None,
+             device="cuda") -> dict:
+        """Fresh params (TF-style truncated normal from ``generator``,
+        sampled on the CPU, then moved to ``device``). ``device="meta"``
+        gives the structure and shapes only."""
+        if str(device) != "meta":
+            device = resolve_device(device)
+        cfg = self.config
+        encoder_params = self.encoder.init(generator, device)
+        mlm_params = {
+            "transform": L.init_dense(generator, cfg.hidden_size,
+                                      cfg.table_width,
+                                      cfg.initializer_range, device),
+            "transform_norm": L.init_layer_norm(cfg.table_width, device),
+            "output_bias": torch.zeros((cfg.padded_vocab_size,),
+                                       dtype=torch.float32, device=device),
+        }
+        return {"encoder": encoder_params, "mlm": mlm_params}
+
+    # ------------------------------------------------------------------ #
+
+    def mlm_transform(self, params: dict, sequence_output: torch.Tensor,
+                      masked_lm_positions: torch.Tensor) -> torch.Tensor:
+        """Gather masked positions and apply the MLM transform -> [B, P, W]."""
+        compute_dtype = self.dtype_policy.compute_dtype
+        idx = masked_lm_positions.long()[..., None].expand(
+            -1, -1, sequence_output.shape[-1])
+        x = torch.gather(sequence_output, 1, idx)
+        x = L.dense(params["mlm"]["transform"], x, compute_dtype)
+        x = L.get_activation(self.config.inner_activation)(x)
+        return L.layer_norm(params["mlm"]["transform_norm"], x)
+
+    def mlm_logits(self, params: dict, sequence_output: torch.Tensor,
+                   masked_lm_positions: torch.Tensor) -> torch.Tensor:
+        """Gather -> transform -> tied matmul -> fp32 logits ``[B, P, V]``
+        (operands in the compute dtype, fp32 sums)."""
+        compute_dtype = self.dtype_policy.compute_dtype
+        x = self.mlm_transform(params, sequence_output, masked_lm_positions)
+        table = Bert4RecEncoder.get_embedding_table(params["encoder"])
+        logits = torch.matmul(x.float(), table.to(compute_dtype).float().T)
+        logits = logits + params["mlm"]["output_bias"]
+        if self.config.padded_vocab_size > self.config.vocab_size:
+            # vocab-padding ids must never win a ranking
+            logits[..., self.config.vocab_size:] = -1e9
+        return logits
+
+    def apply(self, params: dict, inputs: dict) -> dict:
+        """Forward pass over the feature dict; ``mlm_logits`` is produced
+        iff ``masked_lm_positions`` is present."""
+        outputs = dict(self.encoder.apply(
+            params["encoder"], inputs["input_word_ids"],
+            inputs["input_mask"]))
+        if "masked_lm_positions" in inputs:
+            outputs["mlm_logits"] = self.mlm_logits(
+                params, outputs["sequence_output"],
+                inputs["masked_lm_positions"])
+        return outputs
+
+    def rank_top_k(self, params: dict, inputs: dict, k: int, *,
+                   exclude: Optional[torch.Tensor] = None,
+                   with_probabilities: bool = False) -> tuple:
+        """Top-k full-vocab ranking per masked position.
+
+        :param exclude: optional ``[B, E]`` int ids (< 0 = padding) knocked
+            out per batch row across all positions (an additive -1e9)
+        :param with_probabilities: return softmax probabilities of the
+            top-k items (one logsumexp over V) instead of logits
+        :returns: ``(top_ids [B, P, k], top_scores [B, P, k])``
+        """
+        logits = self.apply(params, inputs)["mlm_logits"]     # [B, P, V]
+        if exclude is not None:
+            bias = sharded_topk.exclusion_bias(exclude, logits.shape[-1])
+            logits = logits + bias[:, None, :]
+        values, ids = sharded_topk.topk_over_vocab(logits, k)
+        if with_probabilities:
+            lse = torch.logsumexp(logits, dim=-1, keepdim=True)
+            return ids, torch.exp(values - lse)
+        return ids, values
+
+    # ------------------------------------------------------------------ #
+
+    def get_config(self) -> dict:
+        return self.config.to_dict()

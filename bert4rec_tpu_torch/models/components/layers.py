@@ -1,0 +1,134 @@
+"""Primitive layers as (init, apply) function pairs over dict params
+(port of ``bert4rec_tpu/models/components/layers.py``).
+
+Params are nested dicts of tensors with the JAX package's paths and
+shapes, so a checkpoint carries across unchanged. Params live in fp32;
+matmuls run in ``compute_dtype``; layer norm accumulates in fp32.
+"""
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+LN_EPSILON = 1e-12  # reference LayerNorm epsilon
+
+
+def truncated_normal_init(generator: Optional[torch.Generator], shape,
+                          stddev: float, device="cpu") -> torch.Tensor:
+    """TF-style TruncatedNormal: a standard normal cut at +-2 sigma, then
+    scaled (no variance correction). Sampled on the CPU from ``generator``
+    so a seed gives the same params on every device; ``device="meta"``
+    gives shapes only (the load-time structure check)."""
+    device = torch.device(device)
+    if device.type == "meta":
+        return torch.empty(shape, dtype=torch.float32, device=device)
+    out = torch.empty(shape, dtype=torch.float32)
+    torch.nn.init.trunc_normal_(out, 0.0, 1.0, -2.0, 2.0,
+                                generator=generator)
+    return (out * stddev).to(device)
+
+
+# --------------------------------------------------------------------------- #
+# dense
+# --------------------------------------------------------------------------- #
+
+def init_dense(generator, in_dim: int, out_dim: int, stddev: float,
+               device="cpu") -> dict:
+    return {
+        "kernel": truncated_normal_init(generator, (in_dim, out_dim), stddev,
+                                        device),
+        "bias": torch.zeros((out_dim,), dtype=torch.float32, device=device),
+    }
+
+
+def dense(params: dict, x: torch.Tensor,
+          compute_dtype=torch.float32) -> torch.Tensor:
+    """``x @ kernel + bias`` with the output in ``compute_dtype``."""
+    kernel = params["kernel"].to(compute_dtype)
+    y = torch.matmul(x.to(compute_dtype), kernel)
+    return y + params["bias"].to(compute_dtype)
+
+
+# --------------------------------------------------------------------------- #
+# layer norm — fp32 accumulation
+# --------------------------------------------------------------------------- #
+
+def init_layer_norm(dim: int, device="cpu") -> dict:
+    return {"scale": torch.ones((dim,), dtype=torch.float32, device=device),
+            "bias": torch.zeros((dim,), dtype=torch.float32, device=device)}
+
+
+def layer_norm(params: dict, x: torch.Tensor,
+               epsilon: float = LN_EPSILON) -> torch.Tensor:
+    orig_dtype = x.dtype
+    x32 = x.float()
+    mean = x32.mean(dim=-1, keepdim=True)
+    var = (x32 - mean).square().mean(dim=-1, keepdim=True)
+    y = (x32 - mean) * torch.rsqrt(var + epsilon)
+    y = y * params["scale"] + params["bias"]
+    return y.to(orig_dtype)
+
+
+# --------------------------------------------------------------------------- #
+# embeddings
+# --------------------------------------------------------------------------- #
+
+def init_embedding(generator, vocab_size: int, width: int, stddev: float,
+                   device="cpu") -> dict:
+    return {"embedding": truncated_normal_init(
+        generator, (vocab_size, width), stddev, device)}
+
+
+def embedding_lookup(params: dict, ids: torch.Tensor,
+                     compute_dtype=torch.float32) -> torch.Tensor:
+    if "embedding_q" in params:
+        raise NotImplementedError(
+            "int8-quantized embedding tables are not ported yet")
+    return params["embedding"][ids.long()].to(compute_dtype)
+
+
+def init_position_embedding(generator, max_length: int, width: int,
+                            stddev: float, device="cpu") -> dict:
+    return {"embedding": truncated_normal_init(
+        generator, (max_length, width), stddev, device)}
+
+
+def position_embedding(params: dict, seq_len: int,
+                       compute_dtype=torch.float32) -> torch.Tensor:
+    return params["embedding"][:seq_len].to(compute_dtype)
+
+
+# --------------------------------------------------------------------------- #
+# activations — "gelu" is the exact (erf) form, "gelu_approx" the tanh form,
+# as in the JAX package. The fused encoder layer computes tanh gelu whatever
+# this table says (see ops/fused_encoder_layer.py).
+# --------------------------------------------------------------------------- #
+
+_ACTIVATIONS = {
+    "gelu": lambda x: F.gelu(x, approximate="none"),
+    "gelu_approx": lambda x: F.gelu(x, approximate="tanh"),
+    "relu": torch.relu,
+    "tanh": torch.tanh,
+    "linear": lambda x: x,
+}
+
+
+def get_activation(name: str):
+    try:
+        return _ACTIVATIONS[name]
+    except KeyError:
+        raise ValueError(
+            f"Unknown activation {name!r}; known: {sorted(_ACTIVATIONS)}")
+
+
+# --------------------------------------------------------------------------- #
+# attention mask
+# --------------------------------------------------------------------------- #
+
+def self_attention_mask(input_mask: torch.Tensor) -> torch.Tensor:
+    """2-D pad mask ``[B, S]`` -> additive fp32 bias ``[B, 1, 1, S]``:
+    0 for real tokens, -1e9 for padding."""
+    zero = torch.zeros((), dtype=torch.float32, device=input_mask.device)
+    neg = torch.full((), -1e9, dtype=torch.float32, device=input_mask.device)
+    return torch.where(input_mask[:, None, None, :] > 0, zero, neg)

@@ -1,0 +1,98 @@
+"""Encoder configuration (port of ``bert4rec_tpu/models/config.py``).
+
+The same frozen dataclass, fields, defaults and V1 aliases as the JAX
+package, so an ``encoder_config.json`` written by either package loads in
+the other. No framework import.
+"""
+
+import dataclasses
+import json
+from typing import Optional
+
+# Reference V1 kwarg names -> canonical names
+_V1_ALIASES = {
+    "num_hidden_layers": "num_layers",
+    "intermediate_size": "inner_dim",
+    "hidden_activation": "inner_activation",
+    "hidden_dropout_rate": "output_dropout",
+    "attention_dropout_rate": "attention_dropout",
+    "max_position_embeddings": "max_sequence_length",
+    "dropout_rate": "output_dropout",
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class BERT4RecConfig:
+    """Hyperparameters of the bidirectional encoder + MLM head.
+
+    Field meanings are documented in the JAX package's config; the port
+    reads every field so configs round-trip, and raises where a field
+    selects a path it does not run yet (temporal features, causal
+    attention, flash attention, int8 tables).
+    """
+    vocab_size: int
+    hidden_size: int = 768
+    num_layers: int = 12
+    num_attention_heads: int = 12
+    inner_dim: int = 3072
+    inner_activation: str = "gelu"
+    output_dropout: float = 0.1
+    attention_dropout: float = 0.1
+    max_sequence_length: int = 512
+    initializer_range: float = 0.02
+    embedding_width: Optional[int] = None
+    norm_first: bool = False
+    use_flash_attention: bool = False
+    use_fused_layer: bool = False
+    use_fused_loss: bool = False
+    vocab_pad_to: Optional[int] = None
+    max_predictions_per_seq: int = 40
+    use_temporal_embeddings: bool = False
+    temporal_buckets: int = 32
+    use_temporal_attention: bool = False
+    temporal_attention_buckets: int = 64
+    causal_attention: bool = False
+    remat: bool = False
+
+    def __post_init__(self):
+        if self.hidden_size % self.num_attention_heads != 0:
+            raise ValueError(
+                f"hidden_size={self.hidden_size} must be divisible by "
+                f"num_attention_heads={self.num_attention_heads}")
+
+    @property
+    def head_dim(self) -> int:
+        return self.hidden_size // self.num_attention_heads
+
+    @property
+    def table_width(self) -> int:
+        """Width of the item-embedding table (embedding_width if factorized)."""
+        return self.embedding_width or self.hidden_size
+
+    @property
+    def padded_vocab_size(self) -> int:
+        """Row count of the embedding table / output bias (>= vocab_size)."""
+        if not self.vocab_pad_to:
+            return self.vocab_size
+        m = self.vocab_pad_to
+        return ((self.vocab_size + m - 1) // m) * m
+
+    # ------------------------------------------------------------------ #
+
+    @classmethod
+    def from_dict(cls, d: dict, **overrides) -> "BERT4RecConfig":
+        d = {_V1_ALIASES.get(k, k): v for k, v in d.items()}
+        d.update(overrides)
+        known = {f.name for f in dataclasses.fields(cls)}
+        unknown = set(d) - known
+        if unknown:
+            raise ValueError(f"Unknown config keys: {sorted(unknown)}")
+        return cls(**d)
+
+    @classmethod
+    def from_json_file(cls, path, **overrides) -> "BERT4RecConfig":
+        with open(path) as f:
+            return cls.from_dict(json.load(f), **overrides)
+
+    def to_dict(self) -> dict:
+        return dataclasses.asdict(self)

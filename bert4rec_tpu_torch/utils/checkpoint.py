@@ -1,0 +1,98 @@
+"""Path-keyed npz checkpoints (port of ``bert4rec_tpu/utils/checkpoint.py``).
+
+Every array leaf of a nested param dict is stored in one ``.npz`` under its
+``/``-joined path, e.g. ``encoder/layers/layer_0/attention/qkv/kernel`` —
+the JAX package's format, so weights carry across in both directions.
+"""
+
+import os
+import pathlib
+import tempfile
+from typing import Dict
+
+import numpy as np
+import torch
+
+from bert4rec_tpu_torch.core.device import resolve_device
+
+_SEP = "/"
+
+
+def flatten(tree: dict, prefix: str = "") -> Dict[str, object]:
+    """Nested dict -> ``{path: leaf}``."""
+    flat = {}
+    for key, value in tree.items():
+        path = f"{prefix}{_SEP}{key}" if prefix else str(key)
+        if isinstance(value, dict):
+            flat.update(flatten(value, path))
+        else:
+            flat[path] = value
+    return flat
+
+
+def unflatten(flat: Dict[str, object]) -> dict:
+    """``{path: leaf}`` -> nested dict."""
+    tree: dict = {}
+    for path, leaf in flat.items():
+        *parents, last = path.split(_SEP)
+        node = tree
+        for part in parents:
+            node = node.setdefault(part, {})
+        node[last] = leaf
+    return tree
+
+
+def params_from_numpy(flat: Dict[str, np.ndarray], device="cuda") -> dict:
+    """The carry-across function: the JAX package's params as path-keyed
+    numpy arrays (an npz's contents, or a flattened JAX pytree) -> the
+    port's nested dict of tensors on ``device``. The layouts are the same,
+    so this only converts."""
+    device = resolve_device(device)
+    return unflatten({k: torch.from_numpy(np.array(v, copy=True)).to(device)
+                      for k, v in flat.items()})
+
+
+def params_to_numpy(params: dict) -> Dict[str, np.ndarray]:
+    """The port's params -> path-keyed numpy arrays (host copies)."""
+    return {k: v.detach().cpu().numpy() for k, v in flatten(params).items()}
+
+
+def save_pytree(path, tree: dict) -> None:
+    """Save every tensor or array leaf of ``tree`` to ``path`` (``.npz``),
+    atomically (a temporary file in the same directory, then a rename)."""
+    path = pathlib.Path(path)
+    leaves = {k: (v.detach().cpu().numpy() if isinstance(v, torch.Tensor)
+                  else np.asarray(v)) for k, v in flatten(tree).items()}
+    path.parent.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(dir=path.parent, suffix=".npz.tmp")
+    try:
+        with os.fdopen(fd, "wb") as f:
+            np.savez(f, **leaves)
+        os.replace(tmp, path)
+    except BaseException:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+        raise
+
+
+def load_npz(path) -> Dict[str, np.ndarray]:
+    """The path-keyed arrays of a checkpoint written by either package."""
+    path = pathlib.Path(path)
+    if not path.is_file():
+        raise FileNotFoundError(f"No checkpoint file at {path}")
+    with np.load(path, allow_pickle=False) as data:
+        return dict(data)
+
+
+def check_structure(flat: Dict[str, np.ndarray], target: dict,
+                    source="checkpoint") -> None:
+    """Raise unless ``flat`` holds every leaf of ``target`` (a param dict,
+    e.g. on the meta device) with its shape."""
+    for key, leaf in flatten(target).items():
+        if key not in flat:
+            raise KeyError(f"{source} is missing leaf {key!r}; it has "
+                           f"{sorted(flat)[:8]}...")
+        if tuple(flat[key].shape) != tuple(leaf.shape):
+            raise ValueError(f"{source} leaf {key!r} has shape "
+                             f"{tuple(flat[key].shape)}, expected "
+                             f"{tuple(leaf.shape)}")

@@ -1,0 +1,23 @@
+"""Path helpers (port of ``bert4rec_tpu/utils/utils.py``): model paths are
+anchored at the project root, overridable with ``BERT4REC_TPU_HOME``."""
+
+import os
+import pathlib
+
+
+def get_project_root() -> pathlib.Path:
+    env = os.environ.get("BERT4REC_TPU_HOME")
+    if env:
+        return pathlib.Path(env)
+    return pathlib.Path(__file__).resolve().parent.parent.parent
+
+
+def get_virtual_env_path() -> pathlib.Path:
+    env = os.environ.get("VIRTUAL_ENV")
+    if env:
+        return pathlib.Path(env)
+    return get_project_root()
+
+
+def get_default_model_save_path() -> pathlib.Path:
+    return get_project_root() / "saved_models"

@@ -1,0 +1,83 @@
+"""The port stands alone: importing every module of ``bert4rec_tpu_torch``
+imports neither JAX nor the JAX package, and its entry points refuse to
+fall back to the CPU when CUDA is absent."""
+
+import subprocess
+import sys
+import textwrap
+
+import numpy as np
+import pytest
+import torch
+
+from bert4rec_tpu_torch.apps import Recommender
+from bert4rec_tpu_torch.core import resolve_device
+from bert4rec_tpu_torch.dataloaders import BERT4RecDataloader
+from bert4rec_tpu_torch.models import BERT4RecConfig, BERT4RecModel
+from bert4rec_tpu_torch.models import BERT4RecModelWrapper
+from bert4rec_tpu_torch.ops import kernel_build
+from bert4rec_tpu_torch.utils.checkpoint import params_from_numpy
+
+
+def test_no_module_imports_jax_or_the_jax_package():
+    code = textwrap.dedent("""
+        import importlib, pkgutil, sys
+        import bert4rec_tpu_torch
+        names = [m.name for m in pkgutil.walk_packages(
+            bert4rec_tpu_torch.__path__, "bert4rec_tpu_torch.")]
+        for name in names:
+            importlib.import_module(name)
+        import chip_smoke
+        bad = sorted(m for m in sys.modules
+                     if m == "jax" or m.startswith("jax.")
+                     or m == "bert4rec_tpu" or m.startswith("bert4rec_tpu."))
+        print(len(names), bad)
+        assert len(names) >= 30 and not bad, bad
+    """)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def small_model():
+    return BERT4RecModel(config=BERT4RecConfig(
+        vocab_size=10, hidden_size=8, num_layers=1, num_attention_heads=2,
+        inner_dim=16, max_sequence_length=6))
+
+
+def test_default_device_raises_without_cuda(no_cuda, tmp_path):
+    with pytest.raises(RuntimeError, match="CUDA"):
+        resolve_device()
+    model = small_model()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        model.init(torch.Generator().manual_seed(0))
+    params = model.init(torch.Generator().manual_seed(0), device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Recommender(model, params, BERT4RecDataloader(6, 2))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        params_from_numpy({"a/b": np.zeros(3, np.float32)})
+    path = BERT4RecModelWrapper(model, params).save(tmp_path / "m", mode=2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        BERT4RecModelWrapper.load(path, mode=2)
+    # asking for the CPU is always allowed
+    wrapper, _ = BERT4RecModelWrapper.load(path, mode=2, device="cpu")
+    assert wrapper.params["mlm"]["output_bias"].device.type == "cpu"
+
+
+def test_kernel_sources_are_found_and_nothing_is_built_at_import():
+    assert kernel_build.kernel_sources() == ["fused_encoder_layer"]
+    assert kernel_build._libs == {}
+
+
+def test_chip_smoke_fails_without_cuda():
+    out = subprocess.run(
+        [sys.executable, "-c",
+         "import sys, torch; torch.cuda.is_available = lambda: False; "
+         "import chip_smoke; sys.exit(chip_smoke.main())"],
+        capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0 and '"ok"' not in out.stdout

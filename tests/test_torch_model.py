@@ -1,0 +1,269 @@
+"""The port's layers, unfused block, encoder, MLM head and top-k ranking
+held against the JAX package on the same params and inputs (fp32, CPU)."""
+
+import json
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from bert4rec_tpu.config import CONFIG_DIR as JAX_CONFIG_DIR
+from bert4rec_tpu.models import BERT4RecConfig as JaxConfig
+from bert4rec_tpu.models import BERT4RecModel as JaxModel
+from bert4rec_tpu.models.components import layers as JL
+from bert4rec_tpu.models.components.transformer import (
+    transformer_block as jax_transformer_block,
+)
+from bert4rec_tpu_torch.config import CONFIG_DIR, list_train_configs
+from bert4rec_tpu_torch.models import BERT4RecConfig, BERT4RecModel
+from bert4rec_tpu_torch.models.components import layers as L
+from bert4rec_tpu_torch.models.components.transformer import (
+    transformer_block,
+)
+from bert4rec_tpu_torch.utils.checkpoint import (
+    flatten, params_from_numpy, unflatten,
+)
+from tests.test_torch_cuda_kernels import inputs_np, layer_params_np
+
+B, S, H, N, F, V = 4, 24, 32, 4, 64, 61
+TOL = dict(rtol=1e-4, atol=1e-4)
+
+
+def model_kwargs(**over):
+    kw = dict(vocab_size=V, hidden_size=H, num_layers=2,
+              num_attention_heads=N, inner_dim=F, max_sequence_length=S,
+              max_predictions_per_seq=3)
+    kw.update(over)
+    return kw
+
+
+def random_params(jax_model, seed):
+    """JAX-initialised params with every leaf re-drawn (biases and LN
+    params included) as path-keyed numpy arrays."""
+    rng = np.random.default_rng(seed)
+    shapes = flatten(jax_model.init(jax.random.key(seed)))
+    flat = {}
+    for k, v in shapes.items():
+        noise = rng.normal(size=v.shape).astype(np.float32)
+        flat[k] = (1.0 + 0.1 * noise if k.endswith("/scale")
+                   else 0.5 * noise if k == "mlm/output_bias"
+                   else 0.1 * noise)
+    return flat
+
+
+def to_jax(flat):
+    return unflatten({k: jnp.asarray(v) for k, v in flat.items()})
+
+
+def features(seed, b=B, s=S, p=3):
+    rng = np.random.default_rng(seed + 100)
+    ids = rng.integers(3, V, size=(b, s)).astype(np.int32)
+    lengths = rng.integers(p, s + 1, size=b)
+    mask = (np.arange(s)[None, :] < lengths[:, None]).astype(np.int32)
+    positions = np.stack([np.sort(rng.choice(int(n), size=p, replace=False))
+                          for n in lengths]).astype(np.int32)
+    return {"input_word_ids": ids * mask, "input_mask": mask,
+            "masked_lm_positions": positions}
+
+
+class TestConfig:
+
+    def test_ships_the_same_json_configs(self):
+        names = sorted(p.stem for p in JAX_CONFIG_DIR.glob("*.json"))
+        assert list_train_configs() == names and len(names) == 13
+        for name in names:
+            assert json.loads((CONFIG_DIR / f"{name}.json").read_text()) \
+                == json.loads((JAX_CONFIG_DIR / f"{name}.json").read_text())
+
+    @pytest.mark.parametrize("d", [
+        dict(vocab_size=10, hidden_size=64, num_attention_heads=4),
+        dict(vocab_size=10, num_hidden_layers=3, intermediate_size=99,
+             hidden_activation="relu", dropout_rate=0.3,
+             attention_dropout_rate=0.2, max_position_embeddings=77,
+             hidden_size=16, num_attention_heads=2, vocab_pad_to=8),
+    ])
+    def test_from_dict_matches_jax(self, d):
+        ours, theirs = BERT4RecConfig.from_dict(d), JaxConfig.from_dict(d)
+        assert ours.to_dict() == theirs.to_dict()
+        assert (ours.padded_vocab_size, ours.head_dim, ours.table_width) \
+            == (theirs.padded_vocab_size, theirs.head_dim,
+                theirs.table_width)
+
+    def test_rejects_unknown_keys_and_bad_heads(self):
+        with pytest.raises(ValueError):
+            BERT4RecConfig.from_dict({"vocab_size": 5, "nope": 1})
+        with pytest.raises(ValueError):
+            BERT4RecConfig(vocab_size=5, hidden_size=30,
+                           num_attention_heads=4)
+
+
+class TestLayers:
+
+    @pytest.mark.parametrize("name", ["gelu", "gelu_approx", "relu",
+                                      "tanh", "linear"])
+    def test_activation_table_matches_jax(self, name):
+        x = np.linspace(-5, 5, 101).astype(np.float32)
+        np.testing.assert_allclose(
+            L.get_activation(name)(torch.from_numpy(x)).numpy(),
+            np.asarray(JL.get_activation(name)(jnp.asarray(x))),
+            rtol=1e-6, atol=1e-6)
+
+    def test_layer_norm_dense_and_mask_match_jax(self):
+        rng = np.random.default_rng(0)
+        x = rng.normal(size=(3, 5, H)).astype(np.float32) * 3 + 1
+        ln = {"scale": rng.normal(size=H).astype(np.float32),
+              "bias": rng.normal(size=H).astype(np.float32)}
+        dense = {"kernel": rng.normal(size=(H, 7)).astype(np.float32),
+                 "bias": rng.normal(size=7).astype(np.float32)}
+        t = {k: torch.from_numpy(v) for k, v in ln.items()}
+        np.testing.assert_allclose(
+            L.layer_norm(t, torch.from_numpy(x)).numpy(),
+            np.asarray(JL.layer_norm(ln, jnp.asarray(x))), **TOL)
+        td = {k: torch.from_numpy(v) for k, v in dense.items()}
+        np.testing.assert_allclose(
+            L.dense(td, torch.from_numpy(x)).numpy(),
+            np.asarray(JL.dense(dense, jnp.asarray(x))), **TOL)
+        mask = np.array([[1, 1, 0], [1, 0, 0]], np.int32)
+        np.testing.assert_array_equal(
+            L.self_attention_mask(torch.from_numpy(mask)).numpy(),
+            np.asarray(JL.self_attention_mask(jnp.asarray(mask))))
+
+    def test_truncated_normal_init_is_seeded_and_bounded(self):
+        a = L.truncated_normal_init(torch.Generator().manual_seed(3),
+                                    (4000,), 0.02)
+        b = L.truncated_normal_init(torch.Generator().manual_seed(3),
+                                    (4000,), 0.02)
+        assert torch.equal(a, b)
+        assert float(a.abs().max()) <= 0.04 + 1e-7
+        assert 0.015 < float(a.std()) < 0.02  # truncation, no correction
+
+
+class TestUnfusedBlock:
+
+    @pytest.mark.parametrize("norm_first", [False, True])
+    def test_matches_jax_transformer_block_erf_gelu(self, norm_first):
+        rng = np.random.default_rng(5)
+        flat = flatten(layer_params_np(rng, H, N, F))
+        x, mask = inputs_np(rng, B, S, H)
+        ref = jax_transformer_block(
+            to_jax(flat), jnp.asarray(x),
+            JL.self_attention_mask(jnp.asarray(mask)), num_heads=N,
+            inner_activation=JL.get_activation("gelu"),
+            output_dropout=0.0, attention_dropout=0.0, training=False,
+            norm_first=norm_first)
+        out = transformer_block(
+            params_from_numpy(flat, "cpu"), torch.from_numpy(x),
+            L.self_attention_mask(torch.from_numpy(mask)),
+            inner_activation=L.get_activation("gelu"),
+            norm_first=norm_first)
+        np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
+
+
+class TestModelParity:
+
+    @pytest.mark.parametrize("fused", [True, False],
+                             ids=["fused", "unfused"])
+    def test_encoder_and_mlm_logits_match_jax(self, fused):
+        kw = model_kwargs(use_fused_layer=fused, vocab_pad_to=8)
+        jax_model = JaxModel(config=JaxConfig(**kw))
+        model = BERT4RecModel(config=BERT4RecConfig(**kw))
+        assert model.encoder.fused_layer_routed(B, S) == fused
+        flat = random_params(jax_model, 1)
+        feats = features(1)
+        ref = jax_model.apply(to_jax(flat),
+                              {k: jnp.asarray(v) for k, v in feats.items()})
+        out = model.apply(params_from_numpy(flat, "cpu"),
+                          {k: torch.from_numpy(v) for k, v in feats.items()})
+        for key in ("sequence_output", "pooled_output", "mlm_logits"):
+            np.testing.assert_allclose(out[key].numpy(),
+                                       np.asarray(ref[key]), err_msg=key,
+                                       **TOL)
+        # vocab-padding columns never win
+        assert (out["mlm_logits"][..., V:] == -1e9).all()
+
+    def test_fused_and_unfused_differ_by_the_gelu_only(self):
+        """The fused path computes tanh gelu, the unfused erf gelu, as in
+        the JAX package: the outputs differ, but only slightly."""
+        outs = []
+        for fused in (True, False):
+            model = BERT4RecModel(config=BERT4RecConfig(
+                **model_kwargs(use_fused_layer=fused)))
+            flat = random_params(JaxModel(config=JaxConfig(
+                **model_kwargs())), 2)
+            feats = {k: torch.from_numpy(v)
+                     for k, v in features(2).items()}
+            outs.append(model.encoder.apply(
+                params_from_numpy(flat, "cpu")["encoder"],
+                feats["input_word_ids"],
+                feats["input_mask"])["sequence_output"])
+        diff = float((outs[0] - outs[1]).abs().max())
+        assert 0 < diff < 5e-2
+
+    def test_routing_follows_the_jax_law(self):
+        def routed(**over):
+            m = BERT4RecModel(config=BERT4RecConfig(**model_kwargs(**over)))
+            return m.encoder.fused_layer_routed(B, S)
+        assert routed(use_fused_layer=True)
+        assert not routed(use_fused_layer=False)
+        assert not routed(use_fused_layer=True, norm_first=True)
+        assert not routed(use_fused_layer=True,
+                          inner_activation="gelu_approx")
+        assert not routed(use_fused_layer=True, hidden_size=768,
+                          num_attention_heads=12, inner_dim=3072)
+
+    def test_unported_paths_raise(self):
+        feats = {k: torch.from_numpy(v) for k, v in features(0).items()}
+        for over in (dict(causal_attention=True),
+                     dict(use_flash_attention=True)):
+            model = BERT4RecModel(config=BERT4RecConfig(
+                **model_kwargs(**over)))
+            params = model.init(torch.Generator().manual_seed(0), "cpu")
+            with pytest.raises(NotImplementedError):
+                model.apply(params, feats)
+
+    def test_init_structure_matches_jax(self):
+        kw = model_kwargs(embedding_width=16)
+        jax_shapes = {k: tuple(v.shape) for k, v in flatten(
+            JaxModel(config=JaxConfig(**kw)).init(jax.random.key(0))).items()}
+        ours = BERT4RecModel(config=BERT4RecConfig(**kw)).init(
+            torch.Generator().manual_seed(0), "cpu")
+        assert {k: tuple(v.shape) for k, v in flatten(ours).items()} \
+            == jax_shapes
+
+
+class TestRankTopK:
+
+    @pytest.mark.parametrize("with_exclude", [False, True],
+                             ids=["plain", "exclude"])
+    def test_ids_and_scores_match_jax(self, with_exclude):
+        kw = model_kwargs(use_fused_layer=True)
+        jax_model = JaxModel(config=JaxConfig(**kw))
+        model = BERT4RecModel(config=BERT4RecConfig(**kw))
+        flat = random_params(jax_model, 3)
+        feats = features(3)
+        exclude = None
+        if with_exclude:
+            rng = np.random.default_rng(9)
+            exclude = rng.integers(0, V, size=(B, 12)).astype(np.int32)
+            exclude[:, -4:] = -1
+        k = 7
+        for probs in (False, True):
+            ids_j, sc_j = jax_model.rank_top_k(
+                to_jax(flat), {k_: jnp.asarray(v) for k_, v in feats.items()},
+                k, exclude=None if exclude is None else jnp.asarray(exclude),
+                with_probabilities=probs)
+            ids_t, sc_t = model.rank_top_k(
+                params_from_numpy(flat, "cpu"),
+                {k_: torch.from_numpy(v) for k_, v in feats.items()}, k,
+                exclude=None if exclude is None
+                else torch.from_numpy(exclude),
+                with_probabilities=probs)
+            # tie-free logits: the random output bias spreads them apart
+            np.testing.assert_array_equal(ids_t.numpy(), np.asarray(ids_j))
+            np.testing.assert_allclose(sc_t.numpy(), np.asarray(sc_j),
+                                       **TOL)
+            if exclude is not None:
+                for row, ex in zip(ids_t[:, 0].numpy(), exclude):
+                    assert not set(row) & set(ex[ex >= 0])
