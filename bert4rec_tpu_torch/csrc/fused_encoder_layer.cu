@@ -1,54 +1,71 @@
-// Fused post-LN transformer encoder layer, forward only, for Hopper (sm_90a).
+// Fused post-LN transformer encoder layer, forward and backward, for Hopper
+// (sm_90a).
 //
-// Replaces the TPU kernel bert4rec_tpu/ops/fused_encoder_layer.py:_fwd_kernel
-// (launched by _run_forward) for the inference case: no dropout, no causal
-// mask, no relative-time bias. It computes _layer_fwd_math step by step, with
-// the same rounding points (T is float or bf16, every sum is fp32):
+// Replaces the TPU kernels of bert4rec_tpu/ops/fused_encoder_layer.py:
+//   K1  _fwd_kernel (launched by _run_forward), with attention-probability
+//       and output dropout; no causal mask, no relative-time bias;
+//   K2  _bwd_kernel / _bwd_element (launched by _run_backward).
+// The forward computes _layer_fwd_math step by step, with the same rounding
+// points (T is float or bf16, every sum is fp32):
 //
 //   qkv  = T(x Wqkv + bqkv)
 //   p    = softmax_fp32(q k^T / sqrt(D) + (mask > 0 ? 0 : -1e9))   per head
-//   ctx  = T(T(p) v)
-//   x1   = T(LN1(x + ctx Wo + bo))
+//   ctx  = T(T(p * keep_h) v)
+//   x1   = T(LN1(x + (ctx Wo + bo) * keep_N))
 //   hact = T(gelu_tanh(x1 W1 + b1))
-//   y    = T(LN2(x1 + hact W2 + b2))
+//   y    = T(LN2(x1 + (hact W2 + b2) * keep_N+1))
+//
+// keep_* are 1 / (1 - rate) or 0 from the counter hash of common.cuh, the
+// same bits as the plain version's ops/dropout_bits.py; no mask is stored.
 //
 // Design. The TPU kernel holds one whole layer and one whole sequence in
 // ~14 MB of VMEM per grid cell; an H100 block has at most 227 KB of shared
 // memory, and one layer's fp32 weights alone are 786 KB at hidden 128. So
-// the layer is five launches of three kernels, each owning tiles that fit:
-//   gemm_bias_kernel         qkv projection, and W1 with the tanh-gelu epilogue
+// the forward is five launches of three kernels, each owning tiles that fit:
+//   gemm_kernel              qkv projection, and W1 with the tanh-gelu epilogue
 //   attention_kernel         one block per (query tile, head, sequence); two
 //                            passes over key tiles: the first finds each
 //                            row's max and sum, the second forms the
-//                            normalised probabilities, rounds them to T as
-//                            the TPU kernel does, and accumulates p v
+//                            normalised probabilities, applies the dropout
+//                            scale and rounds them to T as the TPU kernel
+//                            does, and accumulates p v
 //   gemm_residual_ln_kernel  Wo and W2: a block owns whole rows, so bias,
-//                            residual and LayerNorm run in the epilogue
-// Intermediates round-trip through device memory between launches (qkv,
-// ctx, x1, hact), which the TPU kernel kept in VMEM.
+//                            output dropout, residual and LayerNorm run in
+//                            the epilogue
+// In training the forward also writes what the backward reads: the
+// normalised LayerNorm inputs xhat (fp32) with their 1/std per row, and each
+// attention row's max and sum. The backward's values are then bitwise the
+// ones a recomputation would give (the same tile code over the same inputs);
+// saving them is a memory choice, not a change of function.
 //
-// Bound. ~99 MFLOP per sequence at S=200, H=128, F=512: the layer is bound by
-// operations, not bytes. These kernels are plain SIMT fp32 FMA loops (no
-// tensor cores, no TMA): right first; wgmma/TMA tiles are later work.
+// The backward (K2) computes _bwd_element's function in eleven launches plus
+// deterministic reductions: LN2 backward (a row kernel), the FFN (a dual
+// GEMM that recomputes x1 W1 + b1 and applies the gelu derivative), LN1
+// backward in the epilogue of the dx1 GEMM, the output projection, two
+// attention kernels (dq per query tile with the row sum
+// sum_j dp_ij p_ij computed as JAX does, not flash attention's dO.O; dk/dv
+// per key tile), and dx. The weight gradients reduce over all B*S rows:
+// the TPU grid accumulates them sequentially; here every block writes a
+// split-K partial and reduce_rows_kernel sums the partials in a fixed
+// order, so two runs give the same bits (no float atomics).
 //
-// Interface: one C entry point launching all five kernels on the caller's
-// stream; it returns the first non-zero cudaGetLastError() code.
+// Bound. ~99 MFLOP per sequence forward and ~198 backward at S=200, H=128,
+// F=512: the layer is bound by operations, not bytes. With bf16 operands
+// every product runs on the tensor cores with mma.sync m16n8k16 (fp32 sums):
+// the GEMM tiles, QK^T, dctx V^T and the attention accumulations; bf16
+// products are exact in fp32, so only the order of the sums differs from
+// the fp32 path, which stays on SIMT FMA loops (TF32 would change its
+// results). No TMA, copy pipelining or wgmma yet: later work.
+//
+// Interface: C entry points taking an array of device pointers (order in
+// ops/fused_encoder_layer.py), launching on the caller's stream; each
+// returns the first non-zero cudaGetLastError() code.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "common.cuh"
 
 namespace {
 
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
+using namespace b4r;
 
 constexpr float kNegMask = -1e9f;
 constexpr float kLnEps = 1e-12f;
@@ -60,54 +77,30 @@ __device__ __forceinline__ float gelu_tanh(float x) {
   return 0.5f * x * (1.0f + tanhf(inner));
 }
 
-// --------------------------------------------------------------------------
-// C[M, N] = T(epilogue(A[M, K] W[K, N] + bias[N])), epilogue = id or gelu.
-// 64 x 64 output tile per block, 256 threads, 4 x 4 outputs per thread.
-// --------------------------------------------------------------------------
-constexpr int GM_BM = 64, GM_BN = 64, GM_BK = 16, GM_PAD = 4;
+__device__ __forceinline__ float gelu_tanh_grad(float x) {
+  const float inner = kGeluC * (x + 0.044715f * x * x * x);
+  const float t = tanhf(inner);
+  const float dinner = kGeluC * (1.0f + 3.0f * 0.044715f * x * x);
+  return 0.5f * (1.0f + t) + 0.5f * x * (1.0f - t * t) * dinner;
+}
 
-template <typename T, bool kGelu>
+// --------------------------------------------------------------------------
+// C[M, N] = T(epilogue(A[M, K] W[K, N])): + bias, + bias then gelu, nothing,
+// or + R32 (an fp32 [M, N] matrix).
+// --------------------------------------------------------------------------
+enum { EPI_BIAS = 0, EPI_BIAS_GELU = 1, EPI_NONE = 2, EPI_ADD_F32 = 3 };
+
+template <typename T, int kEpi>
 __global__ void __launch_bounds__(256)
-gemm_bias_kernel(const T* __restrict__ A, const T* __restrict__ W,
-                 const float* __restrict__ bias, T* __restrict__ C,
-                 int M, int N, int K) {
+gemm_kernel(const T* __restrict__ A, const T* __restrict__ W,
+            const float* __restrict__ bias, const float* __restrict__ R32,
+            T* __restrict__ C, int M, int N, int K) {
   __shared__ float As[GM_BK][GM_BM + GM_PAD];
   __shared__ float Bs[GM_BK][GM_BN];
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
   const int row0 = blockIdx.x * GM_BM, col0 = blockIdx.y * GM_BN;
   float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < K; k0 += GM_BK) {
-    for (int l = tid; l < GM_BM * GM_BK; l += 256) {
-      const int r = l / GM_BK, c = l % GM_BK;
-      const int gr = row0 + r, gc = k0 + c;
-      As[c][r] = (gr < M && gc < K) ? to_f(A[(size_t)gr * K + gc]) : 0.f;
-    }
-    for (int l = tid; l < GM_BK * GM_BN; l += 256) {
-      const int r = l / GM_BN, c = l % GM_BN;
-      const int gr = k0 + r, gc = col0 + c;
-      Bs[r][c] = (gr < K && gc < N) ? to_f(W[(size_t)gr * N + gc]) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < GM_BK; ++kk) {
-      float a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = As[kk][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = Bs[kk][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
+  gemm_tile_nn(acc, A, W, M, N, K, row0, col0, As, Bs);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = row0 + ty + 16 * i;
@@ -116,89 +109,176 @@ gemm_bias_kernel(const T* __restrict__ A, const T* __restrict__ W,
     for (int j = 0; j < 4; ++j) {
       const int c = col0 + tx + 16 * j;
       if (c >= N) continue;
-      float v = acc[i][j] + bias[c];
-      if (kGelu) v = gelu_tanh(v);
+      float v = acc[i][j];
+      if (kEpi == EPI_BIAS || kEpi == EPI_BIAS_GELU) v += bias[c];
+      if (kEpi == EPI_BIAS_GELU) v = gelu_tanh(v);
+      if (kEpi == EPI_ADD_F32) v = R32[(size_t)r * N + c] + v;
       C[(size_t)r * N + c] = from_f<T>(v);
     }
   }
 }
 
+template <typename T, int kEpi>
+cudaError_t gemm(const T* A, const T* W, const float* bias, const float* R32, T* C,
+                 int M, int N, int K, cudaStream_t stream) {
+  gemm_kernel<T, kEpi><<<dim3(ceil_div(M, GM_BM), ceil_div(N, GM_BN)), 256, 0, stream>>>(
+      A, W, bias, R32, C, M, N, K);
+  return cudaGetLastError();
+}
+
 // --------------------------------------------------------------------------
-// Y[M, H] = T(LN(R + (A[M, K] W[K, H] + bias)) * gamma + beta), fp32 inside.
-// A block owns 32 whole rows: warp w holds rows 4w..4w+3, lane l holds
-// columns l, l+32, ..., l+32(TN-1) (H <= 32 TN), so row sums are warp
-// shuffles. TN is a template argument so no lane issues empty column slots.
+// Row-owning GEMM tile: acc = A[row0:+32, :K] W[:K, :H]. A block owns 32
+// whole rows: warp w holds rows 4w..4w+3, lane l holds columns l, l+32, ...,
+// l+32(TN-1) (H <= 32 TN), so row sums are warp shuffles.
 // --------------------------------------------------------------------------
 constexpr int LN_BM = 32, LN_BK = 16, LN_PAD = 4, LN_MAXTN = 16;
 
+// bf16 operands run on the tensor cores: warp w computes rows
+// 16 (w % 2) .. +15 and the 8-column blocks (w / 2) + 4 t, through
+// shared memory back to the row-owning layout. The region at As then holds
+// A [32][MMA_LD], B^T [Hp][MMA_LD] (bf16, Hp = H rounded up to 32) and the
+// fp32 tile [32][H + 1]: ln_tile_floats(H) covers both layouts.
+__host__ __device__ inline int ln_h_padded(int H) { return (H + 31) / 32 * 32; }
+
+__host__ __device__ inline size_t ln_tile_floats(int H) {
+  const size_t simt = (size_t)(LN_BK * (LN_BM + LN_PAD) + LN_BK * H);
+  const size_t mma = (size_t)(LN_BM + ln_h_padded(H)) * MMA_LD / 2 +
+                     (size_t)LN_BM * (H + 1);
+  return simt > mma ? simt : mma;
+}
+
+template <typename T, int TN>
+__device__ __forceinline__ void ln_gemm_tile(float acc[4][TN], const T* __restrict__ A,
+                                             const T* __restrict__ W, int M, int H,
+                                             int K, int row0, float* As, float* Bs) {
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  if constexpr (kIsBf16<T>) {
+    const int Hp = ln_h_padded(H);
+    __nv_bfloat16* Ah = reinterpret_cast<__nv_bfloat16*>(As);
+    __nv_bfloat16* Bh = Ah + LN_BM * MMA_LD;
+    float* Cs = reinterpret_cast<float*>(Bh + (size_t)Hp * MMA_LD);
+    const __nv_bfloat16 zero = __float2bfloat16(0.f);
+    const int mb = (warp & 1) * 16, nb = (warp >> 1) * 8;
+    float c[TN][4];
+#pragma unroll
+    for (int t = 0; t < TN; ++t)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) c[t][q] = 0.f;
+    for (int k0 = 0; k0 < K; k0 += MMA_BK) {
+      for (int l = tid; l < LN_BM * MMA_BK; l += 256) {
+        const int r = l / MMA_BK, kk = l % MMA_BK;
+        const int gr = row0 + r, gk = k0 + kk;
+        Ah[r * MMA_LD + kk] = (gr < M && gk < K) ? A[(size_t)gr * K + gk] : zero;
+      }
+      for (int l = tid; l < MMA_BK * Hp; l += 256) {
+        const int kk = l / Hp, n = l % Hp;
+        const int gk = k0 + kk;
+        Bh[n * MMA_LD + kk] = (gk < K && n < H) ? W[(size_t)gk * H + n] : zero;
+      }
+      __syncthreads();
+#pragma unroll
+      for (int kk = 0; kk < MMA_BK; kk += 16) {
+        uint32_t a[4], b[2];
+        load_a_frag(a, Ah, mb, kk);
+#pragma unroll
+        for (int t = 0; t < TN; ++t) {
+          const int n0 = nb + 32 * t;
+          if (n0 < Hp) {
+            load_b_frag(b, Bh, n0, kk);
+            mma_bf16(c[t], a, b);
+          }
+        }
+      }
+      __syncthreads();
+    }
+#pragma unroll
+    for (int t = 0; t < TN; ++t)
+      if (nb + 32 * t < Hp) spill_frag(Cs, H + 1, c[t], mb, nb + 32 * t, H);
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < TN; ++j) {
+        const int col = lane + 32 * j;
+        acc[i][j] = col < H ? Cs[(warp * 4 + i) * (H + 1) + col] : 0.f;
+      }
+    __syncthreads();
+  } else {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+    for (int k0 = 0; k0 < K; k0 += LN_BK) {
+      for (int l = tid; l < LN_BM * LN_BK; l += 256) {
+        const int r = l / LN_BK, c = l % LN_BK;
+        const int gr = row0 + r, gc = k0 + c;
+        As[c * (LN_BM + LN_PAD) + r] =
+            (gr < M && gc < K) ? to_f(A[(size_t)gr * K + gc]) : 0.f;
+      }
+      for (int l = tid; l < LN_BK * H; l += 256) {
+        const int r = l / H, c = l % H;
+        const int gr = k0 + r;
+        Bs[r * H + c] = (gr < K) ? to_f(W[(size_t)gr * H + c]) : 0.f;
+      }
+      __syncthreads();
+#pragma unroll
+      for (int kk = 0; kk < LN_BK; ++kk) {
+        float a[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) a[i] = As[kk * (LN_BM + LN_PAD) + warp * 4 + i];
+#pragma unroll
+        for (int j = 0; j < TN; ++j) {
+          const int c = lane + 32 * j;
+          if (c < H) {
+            const float b = Bs[kk * H + c];
+#pragma unroll
+            for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(a[i], b, acc[i][j]);
+          }
+        }
+      }
+      __syncthreads();
+    }
+  }
+}
+
+// Y = T(LN(R + (A W + bias) * keep) * gamma + beta); in training also
+// xhat (fp32 [M, H]) and rstd ([M]).
 template <typename T, int TN>
 __global__ void __launch_bounds__(256)
 gemm_residual_ln_kernel(const T* __restrict__ A, const T* __restrict__ W,
-                        const float* __restrict__ bias,
-                        const T* __restrict__ R,
-                        const float* __restrict__ gamma,
-                        const float* __restrict__ beta, T* __restrict__ Y,
+                        const float* __restrict__ bias, const T* __restrict__ R,
+                        const float* __restrict__ gamma, const float* __restrict__ beta,
+                        T* __restrict__ Y, float* __restrict__ xhat_out,
+                        float* __restrict__ rstd_out, Drop drop, int site, int S,
                         int M, int H, int K) {
   extern __shared__ float smem[];
-  float* As = smem;                              // [LN_BK][LN_BM + LN_PAD]
-  float* Bs = smem + LN_BK * (LN_BM + LN_PAD);   // [LN_BK][H]
+  float* As = smem;
+  float* Bs = smem + LN_BK * (LN_BM + LN_PAD);
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int row0 = blockIdx.x * LN_BM;
   float acc[4][TN];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < K; k0 += LN_BK) {
-    for (int l = tid; l < LN_BM * LN_BK; l += 256) {
-      const int r = l / LN_BK, c = l % LN_BK;
-      const int gr = row0 + r, gc = k0 + c;
-      As[c * (LN_BM + LN_PAD) + r] =
-          (gr < M && gc < K) ? to_f(A[(size_t)gr * K + gc]) : 0.f;
-    }
-    for (int l = tid; l < LN_BK * H; l += 256) {
-      const int r = l / H, c = l % H;
-      const int gr = k0 + r;
-      Bs[r * H + c] = (gr < K) ? to_f(W[(size_t)gr * H + c]) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < LN_BK; ++kk) {
-      float a[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = As[kk * (LN_BM + LN_PAD) + warp * 4 + i];
-#pragma unroll
-      for (int j = 0; j < TN; ++j) {
-        const int c = lane + 32 * j;
-        if (c < H) {
-          const float b = Bs[kk * H + c];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(a[i], b, acc[i][j]);
-        }
-      }
-    }
-    __syncthreads();
-  }
+  ln_gemm_tile<T, TN>(acc, A, W, M, H, K, row0, As, Bs);
 
   const float inv_h = 1.0f / (float)H;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = row0 + warp * 4 + i;  // the same for the whole warp
     if (r >= M) continue;
+    const int elem = r / S, srow = r % S;
+    const uint32_t sk = site_key(drop, elem, site);
     float sum = 0.f;
 #pragma unroll
     for (int j = 0; j < TN; ++j) {
       const int c = lane + 32 * j;
       if (c < H) {
-        const float u = to_f(R[(size_t)r * H + c]) + (acc[i][j] + bias[c]);
+        float v = acc[i][j] + bias[c];
+        if (drop.on) v *= keep_scale_k(drop, sk, (uint32_t)(srow * H + c));
+        const float u = to_f(R[(size_t)r * H + c]) + v;
         acc[i][j] = u;
         sum += u;
       }
     }
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
-    const float mean = sum * inv_h;
+    const float mean = warp_sum(sum) * inv_h;
     float sq = 0.f;
 #pragma unroll
     for (int j = 0; j < TN; ++j) {
@@ -208,77 +288,62 @@ gemm_residual_ln_kernel(const T* __restrict__ A, const T* __restrict__ W,
         sq += d * d;
       }
     }
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) sq += __shfl_xor_sync(0xffffffffu, sq, o);
-    const float rstd = rsqrtf(sq * inv_h + kLnEps);
+    const float rstd = rsqrtf(warp_sum(sq) * inv_h + kLnEps);
 #pragma unroll
     for (int j = 0; j < TN; ++j) {
       const int c = lane + 32 * j;
       if (c < H) {
-        const float yv = (acc[i][j] - mean) * rstd * gamma[c] + beta[c];
-        Y[(size_t)r * H + c] = from_f<T>(yv);
+        const float xh = (acc[i][j] - mean) * rstd;
+        Y[(size_t)r * H + c] = from_f<T>(xh * gamma[c] + beta[c]);
+        if (xhat_out) xhat_out[(size_t)r * H + c] = xh;
       }
     }
+    if (rstd_out && lane == 0) rstd_out[r] = rstd;
   }
 }
 
 // --------------------------------------------------------------------------
-// Masked multi-head attention over qkv [B*S, 3H] (q | k | v, head-major
-// columns inside each), ctx [B*S, H]. Block = (query tile, head, sequence),
-// 256 threads: thread (ty, tx) owns query rows ty + 16 i and, for scores,
-// key columns tx + 16 j; for the output, head columns tx + 16 j with
-// j < DJ (D <= 16 DJ; DJ a template argument so no thread issues empty
-// slots). The 16 threads of a row are one half-warp, so row reductions are
-// shuffles.
+// Attention over qkv [B*S, 3H] (q | k | v, head-major columns inside each).
+// Blocks are (tile of 64 rows, head, sequence), 256 threads: thread (ty, tx)
+// owns tile rows ty + 16 i and, for scores, key columns tx + 16 j; for head
+// outputs, head columns tx + 16 j with j < DJ (D <= 16 DJ). The 16 threads
+// of a row are one half-warp, so row reductions are shuffles.
 // --------------------------------------------------------------------------
 constexpr int AT_BQ = 64, AT_BKV = 64, AT_MAXD = 128;
 static_assert(AT_BQ == AT_BKV, "load_head_tile loads query and key tiles alike");
 
-__device__ __forceinline__ float half_warp_max(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-__device__ __forceinline__ float half_warp_sum(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
 template <typename T>
-__device__ __forceinline__ void load_head_tile(float* dst, const T* __restrict__ qkv,
+__device__ __forceinline__ void load_head_tile(float* dst, const T* __restrict__ src,
                                                size_t seq_row0, int t0, int S,
                                                int col0, int D, int ld) {
   for (int l = threadIdx.x; l < AT_BKV * D; l += 256) {
     const int r = l / D, d = l % D;
     const int t = t0 + r;
     dst[r * (D + 1) + d] =
-        (t < S) ? to_f(qkv[(seq_row0 + t) * (size_t)ld + col0 + d]) : 0.f;
+        (t < S) ? to_f(src[(seq_row0 + t) * (size_t)ld + col0 + d]) : 0.f;
   }
 }
 
-// scores of this thread's 4 x 4 (row, key) pairs for the key tile in Ks
+// the key tile's additive mask bias: -inf marks a key past the sequence
+__device__ __forceinline__ void load_mask_bias(float* mb, const int32_t* __restrict__ mask,
+                                               size_t seq_row0, int t0, int S) {
+  for (int c = threadIdx.x; c < AT_BKV; c += 256) {
+    const int t = t0 + c;
+    mb[c] = (t < S) ? (mask[seq_row0 + t] > 0 ? 0.f : kNegMask) : -INFINITY;
+  }
+}
+
+// scaled, masked scores of this thread's 4 x 4 (query, key) pairs (kMma:
+// on the tensor cores, through the [64][65] scratch tile `scr`)
+template <bool kMma>
 __device__ __forceinline__ void tile_scores(float s[4][4], const float* Qs,
                                             const float* Ks, const float* mb,
-                                            int tx, int ty, int D, float scale) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-  for (int d = 0; d < D; ++d) {
-    float q[4], k[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) q[i] = Qs[(ty + 16 * i) * (D + 1) + d];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) k[j] = Ks[(tx + 16 * j) * (D + 1) + d];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = fmaf(q[i], k[j], s[i][j]);
-  }
+                                            int tx, int ty, int D, float scale,
+                                            float* scr) {
+  tile_dots<kMma>(s, Qs, Ks, tx, ty, D, scr);
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
-    const float b = mb[tx + 16 * j];  // -inf marks a key past the sequence
+    const float b = mb[tx + 16 * j];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
       s[i][j] = (b == -INFINITY) ? -INFINITY : s[i][j] * scale + b;
@@ -288,7 +353,9 @@ __device__ __forceinline__ void tile_scores(float s[4][4], const float* Qs,
 template <typename T, int DJ>
 __global__ void __launch_bounds__(256)
 attention_kernel(const T* __restrict__ qkv, const int32_t* __restrict__ mask,
-                 T* __restrict__ ctx, int S, int H, int D, float scale) {
+                 T* __restrict__ ctx, float* __restrict__ stat_m,
+                 float* __restrict__ stat_l, Drop drop, int S, int H, int N, int D,
+                 float scale) {
   extern __shared__ float smem[];
   float* Qs = smem;                          // [AT_BQ][D + 1]
   float* Ks = Qs + AT_BQ * (D + 1);          // [AT_BKV][D + 1]
@@ -301,6 +368,8 @@ attention_kernel(const T* __restrict__ qkv, const int32_t* __restrict__ mask,
   const size_t seq_row0 = (size_t)b * S;
   const int ld = 3 * H;
   const int qcol = head * D, kcol = H + head * D, vcol = 2 * H + head * D;
+  constexpr bool kMma = kIsBf16<T>;
+  const uint32_t hk = site_key(drop, b, head);  // this block's site
 
   load_head_tile(Qs, qkv, seq_row0, q0, S, qcol, D, ld);
 
@@ -310,12 +379,9 @@ attention_kernel(const T* __restrict__ qkv, const int32_t* __restrict__ mask,
   for (int i = 0; i < 4; ++i) { m[i] = -INFINITY; l[i] = 0.f; }
   for (int t0 = 0; t0 < S; t0 += AT_BKV) {
     load_head_tile(Ks, qkv, seq_row0, t0, S, kcol, D, ld);
-    for (int c = tid; c < AT_BKV; c += 256) {
-      const int t = t0 + c;
-      mb[c] = (t < S) ? (mask[seq_row0 + t] > 0 ? 0.f : kNegMask) : -INFINITY;
-    }
+    load_mask_bias(mb, mask, seq_row0, t0, S);
     __syncthreads();
-    tile_scores(s, Qs, Ks, mb, tx, ty, D, scale);
+    tile_scores<kMma>(s, Qs, Ks, mb, tx, ty, D, scale, Ps);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       float tmax = fmaxf(fmaxf(s[i][0], s[i][1]), fmaxf(s[i][2], s[i][3]));
@@ -330,47 +396,71 @@ attention_kernel(const T* __restrict__ qkv, const int32_t* __restrict__ mask,
   }
   float inv_l[4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) inv_l[i] = 1.0f / l[i];
+  for (int i = 0; i < 4; ++i) {
+    inv_l[i] = 1.0f / l[i];
+    const int r = q0 + ty + 16 * i;
+    if (stat_m && tx == 0 && r < S) {
+      const size_t at = ((size_t)b * N + head) * S + r;
+      stat_m[at] = m[i];
+      stat_l[at] = l[i];
+    }
+  }
 
-  // pass 2: p = T(exp(s - m) / l), ctx += p v
-  float o[4][DJ];
+  // pass 2: p = T(exp(s - m) / l * keep), ctx += p v
+  float o[4][DJ], co[DJ][4];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int j = 0; j < DJ; ++j) o[i][j] = 0.f;
+    for (int j = 0; j < DJ; ++j) o[i][j] = co[j][i] = 0.f;
   for (int t0 = 0; t0 < S; t0 += AT_BKV) {
     load_head_tile(Ks, qkv, seq_row0, t0, S, kcol, D, ld);
     load_head_tile(Vs, qkv, seq_row0, t0, S, vcol, D, ld);
-    for (int c = tid; c < AT_BKV; c += 256) {
-      const int t = t0 + c;
-      mb[c] = (t < S) ? (mask[seq_row0 + t] > 0 ? 0.f : kNegMask) : -INFINITY;
-    }
+    load_mask_bias(mb, mask, seq_row0, t0, S);
     __syncthreads();
-    tile_scores(s, Qs, Ks, mb, tx, ty, D, scale);
+    tile_scores<kMma>(s, Qs, Ks, mb, tx, ty, D, scale, Ps);
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const float p = exp2f((s[i][j] - m[i]) * kLog2e) * inv_l[i];
-        Ps[(ty + 16 * i) * (AT_BKV + 1) + tx + 16 * j] = to_f(from_f<T>(p));
+        float p = exp2f((s[i][j] - m[i]) * kLog2e) * inv_l[i];
+        if (drop.on)
+          p *= keep_scale_k(drop, hk,
+                          (uint32_t)((q0 + ty + 16 * i) * S + t0 + tx + 16 * j));
+        Ps[(ty + 16 * i) * (AT_BKV + 1) + tx + 16 * j] = round_to<T>(p);
       }
     __syncthreads();
-    const int kv_len = min(AT_BKV, S - t0);
-    for (int c = 0; c < kv_len; ++c) {
-      float p[4];
+    if constexpr (kMma) {
+      // keys past the sequence have p = 0 and zero v rows: a full tile
+      mma_acc_64xD<DJ>(co, Ps, AT_BKV + 1, 1, Vs, D + 1, 1, D);
+    } else {
+      const int kv_len = min(AT_BKV, S - t0);
+      for (int c = 0; c < kv_len; ++c) {
+        float p[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) p[i] = Ps[(ty + 16 * i) * (AT_BKV + 1) + c];
+        for (int i = 0; i < 4; ++i) p[i] = Ps[(ty + 16 * i) * (AT_BKV + 1) + c];
 #pragma unroll
-      for (int j = 0; j < DJ; ++j) {
-        const int d = tx + 16 * j;
-        if (d < D) {
-          const float v = Vs[c * (D + 1) + d];
+        for (int j = 0; j < DJ; ++j) {
+          const int d = tx + 16 * j;
+          if (d < D) {
+            const float v = Vs[c * (D + 1) + d];
 #pragma unroll
-          for (int i = 0; i < 4; ++i) o[i][j] = fmaf(p[i], v, o[i][j]);
+            for (int i = 0; i < 4; ++i) o[i][j] = fmaf(p[i], v, o[i][j]);
+          }
         }
       }
     }
     __syncthreads();
+  }
+  if constexpr (kMma) {  // fragments -> the (ty, tx) layout, through Qs
+    spill_64xD<DJ>(Qs, D + 1, co, D);
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < DJ; ++j) {
+        const int d = tx + 16 * j;
+        if (d < D) o[i][j] = Qs[(ty + 16 * i) * (D + 1) + d];
+      }
   }
 
 #pragma unroll
@@ -390,111 +480,835 @@ size_t attention_smem_bytes(int D) {
          (size_t)(AT_BQ * (D + 1) + 2 * AT_BKV * (D + 1) + AT_BQ * (AT_BKV + 1) + AT_BKV);
 }
 
-size_t ln_smem_bytes(int H) {
-  return sizeof(float) * (size_t)(LN_BK * (LN_BM + LN_PAD) + LN_BK * H);
-}
-
-inline int ceil_div(long a, long b) { return (int)((a + b - 1) / b); }
-
-// the smallest power of two >= n (n >= 1)
-inline int pow2_at_least(int n) {
-  int p = 1;
-  while (p < n) p *= 2;
-  return p;
-}
-
 template <typename T, int DJ>
-cudaError_t launch_attention(const T* qkv, const int32_t* mask, T* ctx, int B,
-                             int S, int H, int N, int D, float scale,
-                             cudaStream_t stream) {
+cudaError_t launch_attention(const T* qkv, const int32_t* mask, T* ctx, float* stat_m,
+                             float* stat_l, Drop drop, int B, int S, int H, int N,
+                             int D, float scale, cudaStream_t stream) {
   const size_t smem = attention_smem_bytes(D);
   cudaError_t err = cudaFuncSetAttribute(
       attention_kernel<T, DJ>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   attention_kernel<T, DJ><<<dim3(ceil_div(S, AT_BQ), N, B), 256, smem, stream>>>(
-      qkv, mask, ctx, S, H, D, scale);
+      qkv, mask, ctx, stat_m, stat_l, drop, S, H, N, D, scale);
   return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t attention(const T* qkv, const int32_t* mask, T* ctx, float* stat_m,
+                      float* stat_l, Drop drop, int B, int S, int H, int N, int D,
+                      float scale, cudaStream_t stream) {
+  switch (pow2_at_least(ceil_div(D, 16))) {
+    case 1: return launch_attention<T, 1>(qkv, mask, ctx, stat_m, stat_l, drop, B, S, H, N, D, scale, stream);
+    case 2: return launch_attention<T, 2>(qkv, mask, ctx, stat_m, stat_l, drop, B, S, H, N, D, scale, stream);
+    case 4: return launch_attention<T, 4>(qkv, mask, ctx, stat_m, stat_l, drop, B, S, H, N, D, scale, stream);
+    case 8: return launch_attention<T, 8>(qkv, mask, ctx, stat_m, stat_l, drop, B, S, H, N, D, scale, stream);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 template <typename T, int TN>
 cudaError_t launch_gemm_ln(const T* A, const T* W, const float* bias, const T* R,
-                           const float* gamma, const float* beta, T* Y, int M,
-                           int H, int K, cudaStream_t stream) {
-  const size_t smem = ln_smem_bytes(H);
+                           const float* gamma, const float* beta, T* Y, float* xhat,
+                           float* rstd, Drop drop, int site, int S, int M, int H,
+                           int K, cudaStream_t stream) {
+  const size_t smem = sizeof(float) * ln_tile_floats(H);
   cudaError_t err = cudaFuncSetAttribute(
       gemm_residual_ln_kernel<T, TN>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   gemm_residual_ln_kernel<T, TN><<<ceil_div(M, LN_BM), 256, smem, stream>>>(
-      A, W, bias, R, gamma, beta, Y, M, H, K);
+      A, W, bias, R, gamma, beta, Y, xhat, rstd, drop, site, S, M, H, K);
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t attention(const T* qkv, const int32_t* mask, T* ctx, int B, int S,
-                      int H, int N, int D, float scale, cudaStream_t stream) {
-  switch (pow2_at_least(ceil_div(D, 16))) {
-    case 1: return launch_attention<T, 1>(qkv, mask, ctx, B, S, H, N, D, scale, stream);
-    case 2: return launch_attention<T, 2>(qkv, mask, ctx, B, S, H, N, D, scale, stream);
-    case 4: return launch_attention<T, 4>(qkv, mask, ctx, B, S, H, N, D, scale, stream);
-    case 8: return launch_attention<T, 8>(qkv, mask, ctx, B, S, H, N, D, scale, stream);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
-template <typename T>
 cudaError_t gemm_ln(const T* A, const T* W, const float* bias, const T* R,
-                    const float* gamma, const float* beta, T* Y, int M, int H,
-                    int K, cudaStream_t stream) {
+                    const float* gamma, const float* beta, T* Y, float* xhat,
+                    float* rstd, Drop drop, int site, int S, int M, int H, int K,
+                    cudaStream_t stream) {
+#define B4R_LN(TNV) \
+  launch_gemm_ln<T, TNV>(A, W, bias, R, gamma, beta, Y, xhat, rstd, drop, site, S, M, H, K, stream)
   switch (pow2_at_least(ceil_div(H, 32))) {
-    case 1: return launch_gemm_ln<T, 1>(A, W, bias, R, gamma, beta, Y, M, H, K, stream);
-    case 2: return launch_gemm_ln<T, 2>(A, W, bias, R, gamma, beta, Y, M, H, K, stream);
-    case 4: return launch_gemm_ln<T, 4>(A, W, bias, R, gamma, beta, Y, M, H, K, stream);
-    case 8: return launch_gemm_ln<T, 8>(A, W, bias, R, gamma, beta, Y, M, H, K, stream);
-    case 16: return launch_gemm_ln<T, 16>(A, W, bias, R, gamma, beta, Y, M, H, K, stream);
+    case 1: return B4R_LN(1);
+    case 2: return B4R_LN(2);
+    case 4: return B4R_LN(4);
+    case 8: return B4R_LN(8);
+    case 16: return B4R_LN(16);
     default: return cudaErrorInvalidValue;
   }
+#undef B4R_LN
 }
 
+// forward pointer order (ops/fused_encoder_layer.py _FWD_PTRS)
+enum FwdPtr {
+  F_X, F_MASK, F_WQKV, F_BQKV, F_WO, F_BO, F_G1, F_B1LN, F_W1, F_BF1, F_W2, F_BF2,
+  F_G2, F_B2LN, F_QKV, F_CTX, F_X1, F_HACT, F_Y, F_XHAT1, F_RSTD1, F_XHAT2,
+  F_RSTD2, F_STAT_M, F_STAT_L, F_COUNT
+};
+
 template <typename T>
-int layer_forward(const void* x, const int32_t* mask, const void* wqkv,
-                  const float* bqkv, const void* wo, const float* bo,
-                  const float* g1, const float* b1ln, const void* w1,
-                  const float* bf1, const void* w2, const float* bf2,
-                  const float* g2, const float* b2ln, void* qkv_buf,
-                  void* ctx_buf, void* x1_buf, void* h_buf, void* y, int B,
-                  int S, int H, int N, int F, float scale,
-                  cudaStream_t stream) {
-  const T* xt = static_cast<const T*>(x);
-  T* qkv = static_cast<T*>(qkv_buf);
-  T* ctx = static_cast<T*>(ctx_buf);
-  T* x1 = static_cast<T*>(x1_buf);
-  T* hact = static_cast<T*>(h_buf);
+int layer_forward(void* const* p, int B, int S, int H, int N, int F, float scale,
+                  Drop attn_drop, Drop out_drop, cudaStream_t stream) {
+  const T* x = static_cast<const T*>(p[F_X]);
+  const int32_t* mask = static_cast<const int32_t*>(p[F_MASK]);
+  T* qkv = static_cast<T*>(p[F_QKV]);
+  T* ctx = static_cast<T*>(p[F_CTX]);
+  T* x1 = static_cast<T*>(p[F_X1]);
+  T* hact = static_cast<T*>(p[F_HACT]);
+  auto f32 = [&](int i) { return static_cast<float*>(p[i]); };
+  auto wt = [&](int i) { return static_cast<const T*>(p[i]); };
   const int M = B * S, D = H / N;
   cudaError_t err;
 
   // 1. qkv = T(x Wqkv + bqkv)
-  gemm_bias_kernel<T, false><<<dim3(ceil_div(M, GM_BM), ceil_div(3 * H, GM_BN)), 256, 0, stream>>>(
-      xt, static_cast<const T*>(wqkv), bqkv, qkv, M, 3 * H, H);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-
-  // 2. ctx = T(T(softmax(q k^T * scale + mask bias)) v), per head
-  if ((err = attention<T>(qkv, mask, ctx, B, S, H, N, D, scale, stream)) != cudaSuccess)
+  if ((err = gemm<T, EPI_BIAS>(x, wt(F_WQKV), f32(F_BQKV), nullptr, qkv, M, 3 * H, H,
+                               stream)) != cudaSuccess)
     return (int)err;
-
-  // 3. x1 = T(LN1(x + ctx Wo + bo))
-  if ((err = gemm_ln<T>(ctx, static_cast<const T*>(wo), bo, xt, g1, b1ln, x1, M, H,
-                        H, stream)) != cudaSuccess)
+  // 2. ctx = T(T(softmax(q k^T * scale + mask bias) * keep) v), per head
+  if ((err = attention<T>(qkv, mask, ctx, f32(F_STAT_M), f32(F_STAT_L), attn_drop, B, S,
+                          H, N, D, scale, stream)) != cudaSuccess)
     return (int)err;
-
+  // 3. x1 = T(LN1(x + (ctx Wo + bo) * keep_N))
+  if ((err = gemm_ln<T>(ctx, wt(F_WO), f32(F_BO), x, f32(F_G1), f32(F_B1LN), x1,
+                        f32(F_XHAT1), f32(F_RSTD1), out_drop, N, S, M, H, H,
+                        stream)) != cudaSuccess)
+    return (int)err;
   // 4. hact = T(gelu_tanh(x1 W1 + b1))
-  gemm_bias_kernel<T, true><<<dim3(ceil_div(M, GM_BM), ceil_div(F, GM_BN)), 256, 0, stream>>>(
-      x1, static_cast<const T*>(w1), bf1, hact, M, F, H);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-
-  // 5. y = T(LN2(x1 + hact W2 + b2))
-  if ((err = gemm_ln<T>(hact, static_cast<const T*>(w2), bf2, x1, g2, b2ln,
-                        static_cast<T*>(y), M, H, F, stream)) != cudaSuccess)
+  if ((err = gemm<T, EPI_BIAS_GELU>(x1, wt(F_W1), f32(F_BF1), nullptr, hact, M, F, H,
+                                    stream)) != cudaSuccess)
     return (int)err;
+  // 5. y = T(LN2(x1 + (hact W2 + b2) * keep_N+1))
+  if ((err = gemm_ln<T>(hact, wt(F_W2), f32(F_BF2), x1, f32(F_G2), f32(F_B2LN),
+                        static_cast<T*>(p[F_Y]), f32(F_XHAT2), f32(F_RSTD2), out_drop,
+                        N + 1, S, M, H, F, stream)) != cudaSuccess)
+    return (int)err;
+  return 0;
+}
+
+// ==========================================================================
+// backward (K2)
+// ==========================================================================
+
+// LayerNorm backward over row-owned tiles. gin = dy (kGemm false) or
+// R32 + A Wt (kGemm true, the dx1 GEMM). Per row:
+//   dout = rstd * (gin g - mean(gin g) - xhat mean(gin g xhat))   (fp32)
+//   dmask = dout * keep(site)                                     (-> T)
+// and per-block column partials of sum(gin xhat), sum(gin), sum(dmask),
+// laid out part[block][3 H].
+template <typename T, int TN, bool kGemm>
+__global__ void __launch_bounds__(256)
+ln_bwd_kernel(const T* __restrict__ A, const T* __restrict__ Wt, int K,
+              const T* __restrict__ dy, const float* __restrict__ R32,
+              const float* __restrict__ xhat, const float* __restrict__ rstd,
+              const float* __restrict__ gamma, Drop drop, int site, int S,
+              float* __restrict__ dout32, T* __restrict__ dmask,
+              float* __restrict__ part, int M, int H) {
+  extern __shared__ float smem[];
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int row0 = blockIdx.x * LN_BM;
+  float acc[4][TN];
+  if (kGemm) {
+    ln_gemm_tile<T, TN>(acc, A, Wt, M, H, K, row0, smem,
+                        smem + LN_BK * (LN_BM + LN_PAD));
+  }
+  float* red = smem + (kGemm ? ln_tile_floats(H) : 0);  // [8 warps][3 H]
+  float p0[TN], p1[TN], p2[TN];
+#pragma unroll
+  for (int j = 0; j < TN; ++j) p0[j] = p1[j] = p2[j] = 0.f;
+  const float inv_h = 1.0f / (float)H;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = row0 + warp * 4 + i;  // the same for the whole warp
+    if (r >= M) continue;
+    const int elem = r / S, srow = r % S;
+    const uint32_t sk = site_key(drop, elem, site);
+    float g[TN], xh[TN];
+    float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+    for (int j = 0; j < TN; ++j) {
+      const int c = lane + 32 * j;
+      g[j] = xh[j] = 0.f;
+      if (c < H) {
+        const size_t at = (size_t)r * H + c;
+        g[j] = kGemm ? R32[at] + acc[i][j] : to_f(dy[at]);
+        xh[j] = xhat[at];
+        p0[j] += g[j] * xh[j];
+        p1[j] += g[j];
+        const float dxh = g[j] * gamma[c];
+        s1 += dxh;
+        s2 += dxh * xh[j];
+      }
+    }
+    const float mean1 = warp_sum(s1) * inv_h, mean2 = warp_sum(s2) * inv_h;
+    const float rs = rstd[r];
+#pragma unroll
+    for (int j = 0; j < TN; ++j) {
+      const int c = lane + 32 * j;
+      if (c < H) {
+        const size_t at = (size_t)r * H + c;
+        const float d = rs * (g[j] * gamma[c] - mean1 - xh[j] * mean2);
+        dout32[at] = d;
+        const float dm =
+            drop.on ? d * keep_scale_k(drop, sk, (uint32_t)(srow * H + c)) : d;
+        dmask[at] = from_f<T>(dm);
+        p2[j] += dm;
+      }
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < TN; ++j) {
+    const int c = lane + 32 * j;
+    if (c < H) {
+      red[warp * 3 * H + c] = p0[j];
+      red[warp * 3 * H + H + c] = p1[j];
+      red[warp * 3 * H + 2 * H + c] = p2[j];
+    }
+  }
+  __syncthreads();
+  for (int idx = tid; idx < 3 * H; idx += 256) {
+    float s = 0.f;
+    for (int w = 0; w < 8; ++w) s += red[w * 3 * H + idx];
+    part[(size_t)blockIdx.x * 3 * H + idx] = s;
+  }
+}
+
+template <typename T, int TN, bool kGemm>
+cudaError_t launch_ln_bwd(const T* A, const T* Wt, int K, const T* dy, const float* R32,
+                          const float* xhat, const float* rstd, const float* gamma,
+                          Drop drop, int site, int S, float* dout32, T* dmask,
+                          float* part, int M, int H, cudaStream_t stream) {
+  const size_t smem =
+      sizeof(float) * ((kGemm ? ln_tile_floats(H) : 0) + (size_t)8 * 3 * H);
+  cudaError_t err = cudaFuncSetAttribute(
+      ln_bwd_kernel<T, TN, kGemm>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  ln_bwd_kernel<T, TN, kGemm><<<ceil_div(M, LN_BM), 256, smem, stream>>>(
+      A, Wt, K, dy, R32, xhat, rstd, gamma, drop, site, S, dout32, dmask, part, M, H);
+  return cudaGetLastError();
+}
+
+template <typename T, bool kGemm>
+cudaError_t ln_bwd(const T* A, const T* Wt, int K, const T* dy, const float* R32,
+                   const float* xhat, const float* rstd, const float* gamma, Drop drop,
+                   int site, int S, float* dout32, T* dmask, float* part, int M, int H,
+                   cudaStream_t stream) {
+#define B4R_LNB(TNV)                                                                  \
+  launch_ln_bwd<T, TNV, kGemm>(A, Wt, K, dy, R32, xhat, rstd, gamma, drop, site, S, \
+                               dout32, dmask, part, M, H, stream)
+  switch (pow2_at_least(ceil_div(H, 32))) {
+    case 1: return B4R_LNB(1);
+    case 2: return B4R_LNB(2);
+    case 4: return B4R_LNB(4);
+    case 8: return B4R_LNB(8);
+    case 16: return B4R_LNB(16);
+    default: return cudaErrorInvalidValue;
+  }
+#undef B4R_LNB
+}
+
+// dHpre[M, F] = T((dF W2t)[r, c] * gelu'((X1 W1)[r, c] + bf1[c])): the FFN's
+// dhact and its gelu derivative in one pass, recomputing hpre with the
+// forward's own tile code; part[block row][F] holds the fp32 column sums
+// (dbf1's split partials).
+template <typename T>
+__global__ void __launch_bounds__(256)
+gelu_grad_gemm_kernel(const T* __restrict__ dF, const T* __restrict__ W2t,
+                      const T* __restrict__ X1, const T* __restrict__ W1,
+                      const float* __restrict__ bf1, T* __restrict__ dHpre,
+                      float* __restrict__ part, int M, int F, int H) {
+  __shared__ float As[GM_BK][GM_BM + GM_PAD];
+  __shared__ float Bs[GM_BK][GM_BN];
+  __shared__ float red[16][GM_BN];
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const int row0 = blockIdx.x * GM_BM, col0 = blockIdx.y * GM_BN;
+  float a1[4][4], a2[4][4];
+  gemm_tile_nn(a1, dF, W2t, M, F, H, row0, col0, As, Bs);
+  gemm_tile_nn(a2, X1, W1, M, F, H, row0, col0, As, Bs);
+  float colsum[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = row0 + ty + 16 * i;
+    if (r >= M) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int c = col0 + tx + 16 * j;
+      if (c >= F) continue;
+      const float v = a1[i][j] * gelu_tanh_grad(a2[i][j] + bf1[c]);
+      dHpre[(size_t)r * F + c] = from_f<T>(v);
+      colsum[j] += v;
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j) red[ty][tx + 16 * j] = colsum[j];
+  __syncthreads();
+  if (tid < GM_BN && col0 + tid < F) {
+    float s = 0.f;
+    for (int t = 0; t < 16; ++t) s += red[t][tid];
+    part[(size_t)blockIdx.x * F + col0 + tid] = s;
+  }
+}
+
+// Weight-gradient split-K partials: part[s][K1][N] = sum over rows m of
+// chunk s of A[m, k] B[m, n] (A [M, K1], B [M, N], row-major in T).
+template <typename T>
+__global__ void __launch_bounds__(256)
+wgrad_kernel(const T* __restrict__ A, const T* __restrict__ B, float* __restrict__ part,
+             int M, int K1, int N, int chunk) {
+  __shared__ float As[GM_BK][GM_BM + GM_PAD];  // [m][k]
+  __shared__ float Bs[GM_BK][GM_BN];           // [m][n]
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const int k0 = blockIdx.x * GM_BM, n0 = blockIdx.y * GM_BN, split = blockIdx.z;
+  const int m_begin = split * chunk, m_end = min(M, m_begin + chunk);
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  if constexpr (kIsBf16<T>) {
+    // tensor cores: A^T [k][m] and B^T [n][m] tiles, the rows m the
+    // contraction; warp w computes k rows 16 (w % 4) .. +15, n columns
+    // 32 (w / 4) .. +31
+    __shared__ __align__(16) __nv_bfloat16 Ah[GM_BM * MMA_LD];
+    __shared__ __align__(16) __nv_bfloat16 Bh[GM_BN * MMA_LD];
+    __shared__ float Cs[GM_BM * (GM_BN + 1)];
+    const __nv_bfloat16 zero = __float2bfloat16(0.f);
+    const int warp = tid / 32, mb = (warp & 3) * 16, nb = (warp >> 2) * 32;
+    float c[4][4];
+#pragma unroll
+    for (int t = 0; t < 4; ++t)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) c[t][q] = 0.f;
+    for (int m0 = m_begin; m0 < m_end; m0 += MMA_BK) {
+      for (int l = tid; l < MMA_BK * GM_BM; l += 256) {
+        const int mm = l / GM_BM, kk = l % GM_BM;
+        const int m = m0 + mm, k = k0 + kk;
+        Ah[kk * MMA_LD + mm] = (m < m_end && k < K1) ? A[(size_t)m * K1 + k] : zero;
+      }
+      for (int l = tid; l < MMA_BK * GM_BN; l += 256) {
+        const int mm = l / GM_BN, nn = l % GM_BN;
+        const int m = m0 + mm, n = n0 + nn;
+        Bh[nn * MMA_LD + mm] = (m < m_end && n < N) ? B[(size_t)m * N + n] : zero;
+      }
+      __syncthreads();
+#pragma unroll
+      for (int kk = 0; kk < MMA_BK; kk += 16) {
+        uint32_t a[4], b[2];
+        load_a_frag(a, Ah, mb, kk);
+#pragma unroll
+        for (int t = 0; t < 4; ++t) {
+          load_b_frag(b, Bh, nb + 8 * t, kk);
+          mma_bf16(c[t], a, b);
+        }
+      }
+      __syncthreads();
+    }
+#pragma unroll
+    for (int t = 0; t < 4; ++t) spill_frag(Cs, GM_BN + 1, c[t], mb, nb + 8 * t, GM_BN);
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = Cs[(ty + 16 * i) * (GM_BN + 1) + tx + 16 * j];
+  } else {
+    for (int m0 = m_begin; m0 < m_end; m0 += GM_BK) {
+      for (int l = tid; l < GM_BK * GM_BM; l += 256) {
+        const int mm = l / GM_BM, kk = l % GM_BM;
+        const int m = m0 + mm, k = k0 + kk;
+        As[mm][kk] = (m < m_end && k < K1) ? to_f(A[(size_t)m * K1 + k]) : 0.f;
+      }
+      for (int l = tid; l < GM_BK * GM_BN; l += 256) {
+        const int mm = l / GM_BN, nn = l % GM_BN;
+        const int m = m0 + mm, n = n0 + nn;
+        Bs[mm][nn] = (m < m_end && n < N) ? to_f(B[(size_t)m * N + n]) : 0.f;
+      }
+      __syncthreads();
+#pragma unroll
+      for (int mm = 0; mm < GM_BK; ++mm) {
+        float a[4], b[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) a[i] = As[mm][ty + 16 * i];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) b[j] = Bs[mm][tx + 16 * j];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+      }
+      __syncthreads();
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int k = k0 + ty + 16 * i;
+    if (k >= K1) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int n = n0 + tx + 16 * j;
+      if (n < N) part[((size_t)split * K1 + k) * N + n] = acc[i][j];
+    }
+  }
+}
+
+constexpr int WG_CHUNK = 512;  // rows per split-K partial
+inline int wgrad_splits(int M) { return ceil_div(M, WG_CHUNK); }
+
+// dW[K1, N] = A^T B, reduced over the M rows in two deterministic passes
+template <typename T>
+cudaError_t wgrad(const T* A, const T* B, float* scratch, float* dW, int M, int K1,
+                  int N, cudaStream_t stream) {
+  const int splits = wgrad_splits(M);
+  wgrad_kernel<T><<<dim3(ceil_div(K1, GM_BM), ceil_div(N, GM_BN), splits), 256, 0,
+                    stream>>>(A, B, scratch, M, K1, N, WG_CHUNK);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return reduce_rows(scratch, dW, splits, K1 * N, stream);
+}
+
+// Attention backward, per head (as _bwd_element):
+//   p   = softmax(s) recomputed from q, k and the saved row max / sum
+//   dd  = dctx v^T, dp = dd * keep, delta = sum_j dp_ij p_ij
+//   ds  = T(p (dp - delta))
+//   dq  = ds k * scale,  dk = ds^T q * scale,  dv = T(p * keep)^T dctx
+// attn_bwd_dq_kernel: one block per (query tile, head, sequence); writes dq,
+// delta and the dq columns' partial sums.
+template <typename T, int DJ>
+__global__ void __launch_bounds__(256)
+attn_bwd_dq_kernel(const T* __restrict__ qkv, const T* __restrict__ dctx,
+                   const int32_t* __restrict__ mask, const float* __restrict__ stat_m,
+                   const float* __restrict__ stat_l, Drop drop,
+                   float* __restrict__ delta_out, T* __restrict__ dqkv,
+                   float* __restrict__ part, int S, int H, int N, int D, float scale) {
+  extern __shared__ float smem[];
+  float* Qs = smem;                          // [64][D + 1]
+  float* Cs = Qs + AT_BQ * (D + 1);          // dctx rows of the query tile
+  float* Ks = Cs + AT_BQ * (D + 1);
+  float* Vs = Ks + AT_BKV * (D + 1);
+  float* Ps = Vs + AT_BKV * (D + 1);         // [64][65] ds
+  float* mb = Ps + AT_BQ * (AT_BKV + 1);     // [64]
+
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const int qt = blockIdx.x, q0 = qt * AT_BQ, head = blockIdx.y, b = blockIdx.z;
+  const size_t seq_row0 = (size_t)b * S;
+  const int ld = 3 * H;
+  constexpr bool kMma = kIsBf16<T>;
+  const uint32_t hk = site_key(drop, b, head);  // this block's site
+  const int qcol = head * D, kcol = H + head * D, vcol = 2 * H + head * D;
+  const size_t stat0 = ((size_t)b * N + head) * S;
+
+  load_head_tile(Qs, qkv, seq_row0, q0, S, qcol, D, ld);
+  load_head_tile(Cs, dctx, seq_row0, q0, S, head * D, D, H);
+  float m[4], inv_l[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = q0 + ty + 16 * i;
+    m[i] = r < S ? stat_m[stat0 + r] : 0.f;
+    inv_l[i] = r < S ? 1.0f / stat_l[stat0 + r] : 0.f;
+  }
+
+  float s[4][4], dd[4][4];
+  // pass A: delta_i = sum_j dp_ij p_ij
+  float dl[4] = {0.f, 0.f, 0.f, 0.f};
+  for (int t0 = 0; t0 < S; t0 += AT_BKV) {
+    load_head_tile(Ks, qkv, seq_row0, t0, S, kcol, D, ld);
+    load_head_tile(Vs, qkv, seq_row0, t0, S, vcol, D, ld);
+    load_mask_bias(mb, mask, seq_row0, t0, S);
+    __syncthreads();
+    tile_scores<kMma>(s, Qs, Ks, mb, tx, ty, D, scale, Ps);
+    tile_dots<kMma>(dd, Cs, Vs, tx, ty, D, Ps);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float p = exp2f((s[i][j] - m[i]) * kLog2e) * inv_l[i];
+        float dp = dd[i][j];
+        if (drop.on)
+          dp *= keep_scale_k(drop, hk,
+                           (uint32_t)((q0 + ty + 16 * i) * S + t0 + tx + 16 * j));
+        dl[i] += dp * p;
+      }
+    __syncthreads();
+  }
+  float delta[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    delta[i] = half_warp_sum(dl[i]);
+    const int r = q0 + ty + 16 * i;
+    if (tx == 0 && r < S) delta_out[stat0 + r] = delta[i];
+  }
+
+  // pass B: dq = T(ds) k
+  float o[4][DJ], co[DJ][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < DJ; ++j) o[i][j] = co[j][i] = 0.f;
+  for (int t0 = 0; t0 < S; t0 += AT_BKV) {
+    load_head_tile(Ks, qkv, seq_row0, t0, S, kcol, D, ld);
+    load_head_tile(Vs, qkv, seq_row0, t0, S, vcol, D, ld);
+    load_mask_bias(mb, mask, seq_row0, t0, S);
+    __syncthreads();
+    tile_scores<kMma>(s, Qs, Ks, mb, tx, ty, D, scale, Ps);
+    tile_dots<kMma>(dd, Cs, Vs, tx, ty, D, Ps);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float p = exp2f((s[i][j] - m[i]) * kLog2e) * inv_l[i];
+        float dp = dd[i][j];
+        if (drop.on)
+          dp *= keep_scale_k(drop, hk,
+                           (uint32_t)((q0 + ty + 16 * i) * S + t0 + tx + 16 * j));
+        Ps[(ty + 16 * i) * (AT_BKV + 1) + tx + 16 * j] = round_to<T>(p * (dp - delta[i]));
+      }
+    __syncthreads();
+    if constexpr (kMma) {
+      mma_acc_64xD<DJ>(co, Ps, AT_BKV + 1, 1, Ks, D + 1, 1, D);
+    } else {
+      const int kv_len = min(AT_BKV, S - t0);
+      for (int c = 0; c < kv_len; ++c) {
+        float pv[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) pv[i] = Ps[(ty + 16 * i) * (AT_BKV + 1) + c];
+#pragma unroll
+        for (int j = 0; j < DJ; ++j) {
+          const int d = tx + 16 * j;
+          if (d < D) {
+            const float kv = Ks[c * (D + 1) + d];
+#pragma unroll
+            for (int i = 0; i < 4; ++i) o[i][j] = fmaf(pv[i], kv, o[i][j]);
+          }
+        }
+      }
+    }
+    __syncthreads();
+  }
+  if constexpr (kMma) {  // fragments -> the (ty, tx) layout, through Qs
+    spill_64xD<DJ>(Qs, D + 1, co, D);
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < DJ; ++j) {
+        const int d = tx + 16 * j;
+        if (d < D) o[i][j] = Qs[(ty + 16 * i) * (D + 1) + d];
+      }
+  }
+
+  float colsum[DJ];
+#pragma unroll
+  for (int j = 0; j < DJ; ++j) colsum[j] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = q0 + ty + 16 * i;
+    if (r >= S) continue;
+#pragma unroll
+    for (int j = 0; j < DJ; ++j) {
+      const int d = tx + 16 * j;
+      if (d < D) {
+        const float v = o[i][j] * scale;
+        dqkv[(seq_row0 + r) * (size_t)ld + qcol + d] = from_f<T>(v);
+        colsum[j] += v;
+      }
+    }
+  }
+  float* red = Ps;  // [16][D], free after the last barrier
+#pragma unroll
+  for (int j = 0; j < DJ; ++j) {
+    const int d = tx + 16 * j;
+    if (d < D) red[ty * D + d] = colsum[j];
+  }
+  __syncthreads();
+  if (tid < D) {
+    float acc = 0.f;
+    for (int t = 0; t < 16; ++t) acc += red[t * D + tid];
+    part[((size_t)b * gridDim.x + qt) * ld + qcol + tid] = acc;
+  }
+}
+
+// attn_bwd_dkv_kernel: one block per (key tile, head, sequence); loops over
+// the query tiles; writes dk, dv and their columns' partial sums.
+template <typename T, int DJ>
+__global__ void __launch_bounds__(256)
+attn_bwd_dkv_kernel(const T* __restrict__ qkv, const T* __restrict__ dctx,
+                    const int32_t* __restrict__ mask, const float* __restrict__ stat_m,
+                    const float* __restrict__ stat_l, const float* __restrict__ delta,
+                    Drop drop, T* __restrict__ dqkv, float* __restrict__ part, int S,
+                    int H, int N, int D, float scale) {
+  extern __shared__ float smem[];
+  float* Ks = smem;                          // [64][D + 1] key tile
+  float* Vs = Ks + AT_BKV * (D + 1);
+  float* Qs = Vs + AT_BKV * (D + 1);         // query tile
+  float* Cs = Qs + AT_BQ * (D + 1);          // dctx rows of the query tile
+  float* Ss = Cs + AT_BQ * (D + 1);          // [64 q][65] T(ds)
+  float* Ws = Ss + AT_BQ * (AT_BKV + 1);     // [64 q][65] T(p * keep)
+  float* mb = Ws + AT_BQ * (AT_BKV + 1);     // [64]
+  float* rm = mb + AT_BKV;                   // query-row max, 1/sum, delta
+  float* rl = rm + AT_BQ;
+  float* rd = rl + AT_BQ;
+
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const int kt = blockIdx.x, k0 = kt * AT_BKV, head = blockIdx.y, b = blockIdx.z;
+  const size_t seq_row0 = (size_t)b * S;
+  const int ld = 3 * H;
+  constexpr bool kMma = kIsBf16<T>;
+  const uint32_t hk = site_key(drop, b, head);  // this block's site
+  const int qcol = head * D, kcol = H + head * D, vcol = 2 * H + head * D;
+  const size_t stat0 = ((size_t)b * N + head) * S;
+
+  load_head_tile(Ks, qkv, seq_row0, k0, S, kcol, D, ld);
+  load_head_tile(Vs, qkv, seq_row0, k0, S, vcol, D, ld);
+  load_mask_bias(mb, mask, seq_row0, k0, S);
+
+  float ok[4][DJ], ov[4][DJ], ck[DJ][4], cv[DJ][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < DJ; ++j) ok[i][j] = ov[i][j] = ck[j][i] = cv[j][i] = 0.f;
+  float s[4][4], dd[4][4];
+  for (int q0 = 0; q0 < S; q0 += AT_BQ) {
+    load_head_tile(Qs, qkv, seq_row0, q0, S, qcol, D, ld);
+    load_head_tile(Cs, dctx, seq_row0, q0, S, head * D, D, H);
+    for (int r = tid; r < AT_BQ; r += 256) {
+      const int t = q0 + r;
+      rm[r] = t < S ? stat_m[stat0 + t] : 0.f;
+      rl[r] = t < S ? 1.0f / stat_l[stat0 + t] : 0.f;
+      rd[r] = t < S ? delta[stat0 + t] : 0.f;
+    }
+    __syncthreads();
+    tile_scores<kMma>(s, Qs, Ks, mb, tx, ty, D, scale, Ss);
+    tile_dots<kMma>(dd, Cs, Vs, tx, ty, D, Ss);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int qr = ty + 16 * i;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int kc = tx + 16 * j;
+        const float p = exp2f((s[i][j] - rm[qr]) * kLog2e) * rl[qr];
+        float keep = 1.f;
+        if (drop.on)
+          keep = keep_scale_k(drop, hk, (uint32_t)((q0 + qr) * S + k0 + kc));
+        const float dp = drop.on ? dd[i][j] * keep : dd[i][j];
+        Ss[qr * (AT_BKV + 1) + kc] = round_to<T>(p * (dp - rd[qr]));
+        Ws[qr * (AT_BKV + 1) + kc] = round_to<T>(drop.on ? p * keep : p);
+      }
+    }
+    __syncthreads();
+    if constexpr (kMma) {
+      // rows are keys, the contraction runs over the query tile (query
+      // rows past the sequence have ds = p = 0 and zero q, dctx rows)
+      mma_acc_64xD<DJ>(ck, Ss, 1, AT_BKV + 1, Qs, D + 1, 1, D);
+      mma_acc_64xD<DJ>(cv, Ws, 1, AT_BKV + 1, Cs, D + 1, 1, D);
+    } else {
+      const int q_len = min(AT_BQ, S - q0);
+      for (int qr = 0; qr < q_len; ++qr) {
+        float sv[4], wv[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          sv[i] = Ss[qr * (AT_BKV + 1) + ty + 16 * i];
+          wv[i] = Ws[qr * (AT_BKV + 1) + ty + 16 * i];
+        }
+#pragma unroll
+        for (int j = 0; j < DJ; ++j) {
+          const int d = tx + 16 * j;
+          if (d < D) {
+            const float qv = Qs[qr * (D + 1) + d], cvv = Cs[qr * (D + 1) + d];
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              ok[i][j] = fmaf(sv[i], qv, ok[i][j]);
+              ov[i][j] = fmaf(wv[i], cvv, ov[i][j]);
+            }
+          }
+        }
+      }
+    }
+    __syncthreads();
+  }
+  if constexpr (kMma) {  // fragments -> the (ty, tx) layout, through Qs, Cs
+    spill_64xD<DJ>(Qs, D + 1, ck, D);
+    spill_64xD<DJ>(Cs, D + 1, cv, D);
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < DJ; ++j) {
+        const int d = tx + 16 * j;
+        if (d < D) {
+          ok[i][j] = Qs[(ty + 16 * i) * (D + 1) + d];
+          ov[i][j] = Cs[(ty + 16 * i) * (D + 1) + d];
+        }
+      }
+  }
+
+  float ksum[DJ], vsum[DJ];
+#pragma unroll
+  for (int j = 0; j < DJ; ++j) ksum[j] = vsum[j] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = k0 + ty + 16 * i;
+    if (r >= S) continue;
+#pragma unroll
+    for (int j = 0; j < DJ; ++j) {
+      const int d = tx + 16 * j;
+      if (d < D) {
+        const float kvv = ok[i][j] * scale, vv = ov[i][j];
+        dqkv[(seq_row0 + r) * (size_t)ld + kcol + d] = from_f<T>(kvv);
+        dqkv[(seq_row0 + r) * (size_t)ld + vcol + d] = from_f<T>(vv);
+        ksum[j] += kvv;
+        vsum[j] += vv;
+      }
+    }
+  }
+  float* red = Ss;  // [16][2 D], free after the last barrier
+#pragma unroll
+  for (int j = 0; j < DJ; ++j) {
+    const int d = tx + 16 * j;
+    if (d < D) {
+      red[ty * 2 * D + d] = ksum[j];
+      red[ty * 2 * D + D + d] = vsum[j];
+    }
+  }
+  __syncthreads();
+  if (tid < 2 * D) {
+    float acc = 0.f;
+    for (int t = 0; t < 16; ++t) acc += red[t * 2 * D + tid];
+    const int col = tid < D ? kcol + tid : vcol + tid - D;
+    part[((size_t)b * gridDim.x + kt) * ld + col] = acc;
+  }
+}
+
+size_t attn_bwd_dq_smem_bytes(int D) {
+  return sizeof(float) * (size_t)(4 * AT_BQ * (D + 1) + AT_BQ * (AT_BKV + 1) + AT_BKV);
+}
+size_t attn_bwd_dkv_smem_bytes(int D) {
+  return sizeof(float) *
+         (size_t)(4 * AT_BQ * (D + 1) + 2 * AT_BQ * (AT_BKV + 1) + AT_BKV + 3 * AT_BQ);
+}
+
+template <typename T, int DJ>
+cudaError_t launch_attn_bwd(const T* qkv, const T* dctx, const int32_t* mask,
+                            const float* stat_m, const float* stat_l, Drop drop,
+                            float* delta, T* dqkv, float* part, int B, int S, int H,
+                            int N, int D, float scale, cudaStream_t stream) {
+  const dim3 grid(ceil_div(S, AT_BQ), N, B);
+  size_t smem = attn_bwd_dq_smem_bytes(D);
+  cudaError_t err = cudaFuncSetAttribute(attn_bwd_dq_kernel<T, DJ>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+  if (err != cudaSuccess) return err;
+  attn_bwd_dq_kernel<T, DJ><<<grid, 256, smem, stream>>>(
+      qkv, dctx, mask, stat_m, stat_l, drop, delta, dqkv, part, S, H, N, D, scale);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  smem = attn_bwd_dkv_smem_bytes(D);
+  err = cudaFuncSetAttribute(attn_bwd_dkv_kernel<T, DJ>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  attn_bwd_dkv_kernel<T, DJ><<<grid, 256, smem, stream>>>(
+      qkv, dctx, mask, stat_m, stat_l, delta, drop, dqkv, part, S, H, N, D, scale);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t attn_bwd(const T* qkv, const T* dctx, const int32_t* mask,
+                     const float* stat_m, const float* stat_l, Drop drop, float* delta,
+                     T* dqkv, float* part, int B, int S, int H, int N, int D,
+                     float scale, cudaStream_t stream) {
+#define B4R_AB(DJV)                                                                  \
+  launch_attn_bwd<T, DJV>(qkv, dctx, mask, stat_m, stat_l, drop, delta, dqkv, part, \
+                          B, S, H, N, D, scale, stream)
+  switch (pow2_at_least(ceil_div(D, 16))) {
+    case 1: return B4R_AB(1);
+    case 2: return B4R_AB(2);
+    case 4: return B4R_AB(4);
+    case 8: return B4R_AB(8);
+    default: return cudaErrorInvalidValue;
+  }
+#undef B4R_AB
+}
+
+// backward pointer order (ops/fused_encoder_layer.py _BWD_PTRS)
+enum BwdPtr {
+  B_X, B_MASK, B_DY, B_WQKV_T, B_WO_T, B_W1, B_W1_T, B_W2_T, B_BF1, B_G1, B_G2,
+  B_QKV, B_CTX, B_X1, B_HACT, B_XHAT1, B_RSTD1, B_XHAT2, B_RSTD2, B_STAT_M,
+  B_STAT_L, B_DX, B_DWQKV, B_DBQKV, B_DWO, B_GLN1, B_DW1, B_DBF1, B_DW2, B_GLN2,
+  B_WORKSPACE, B_COUNT
+};
+
+// Carves the backward's scratch from one workspace; with base == nullptr
+// it only counts the bytes.
+template <typename T>
+struct BwdScratch {
+  float *dw_res, *du, *delta, *part_ln2, *part_ln1, *part_bf1, *part_qkv, *wsplit;
+  T *df, *dhpre, *dattn, *dctx, *dqkv;
+  size_t bytes;
+  BwdScratch(void* base, int B, int S, int H, int N, int F) {
+    const size_t M = (size_t)B * S;
+    const int nb_ln = ceil_div(M, LN_BM), nb_gm = ceil_div(M, GM_BM);
+    const size_t wmax = (size_t)(H * F > 3 * H * H ? H * F : 3 * H * H);
+    Carve c{static_cast<char*>(base), 0};
+    dw_res = c.take<float>(M * H);
+    du = c.take<float>(M * H);
+    delta = c.take<float>((size_t)B * N * S);
+    part_ln2 = c.take<float>((size_t)nb_ln * 3 * H);
+    part_ln1 = c.take<float>((size_t)nb_ln * 3 * H);
+    part_bf1 = c.take<float>((size_t)nb_gm * F);
+    part_qkv = c.take<float>((size_t)B * ceil_div(S, AT_BQ) * 3 * H);
+    wsplit = c.take<float>((size_t)wgrad_splits((int)M) * wmax);
+    df = c.take<T>(M * H);
+    dhpre = c.take<T>(M * F);
+    dattn = c.take<T>(M * H);
+    dctx = c.take<T>(M * H);
+    dqkv = c.take<T>(M * 3 * H);
+    bytes = c.used;
+  }
+};
+
+template <typename T>
+int layer_backward(void* const* p, int B, int S, int H, int N, int F, float scale,
+                   Drop attn_drop, Drop out_drop, cudaStream_t stream) {
+  auto f32 = [&](int i) { return static_cast<float*>(p[i]); };
+  auto wt = [&](int i) { return static_cast<const T*>(p[i]); };
+  const int32_t* mask = static_cast<const int32_t*>(p[B_MASK]);
+  const int M = B * S, D = H / N;
+  const int nb_ln = ceil_div(M, LN_BM), nb_gm = ceil_div(M, GM_BM);
+  BwdScratch<T> w(p[B_WORKSPACE], B, S, H, N, F);
+  cudaError_t err;
+#define B4R_TRY(call) \
+  if ((err = (call)) != cudaSuccess) return (int)err
+
+  // 1. LN2: dw_res = LN2'(dy), df = T(dw_res * keep_N+1); dg2, db2, dbf2
+  B4R_TRY((ln_bwd<T, false>(nullptr, nullptr, 0, wt(B_DY), nullptr, f32(B_XHAT2),
+                            f32(B_RSTD2), f32(B_G2), out_drop, N + 1, S, w.dw_res, w.df,
+                            w.part_ln2, M, H, stream)));
+  B4R_TRY(reduce_rows(w.part_ln2, f32(B_GLN2), nb_ln, 3 * H, stream));
+  // 2. dW2 = hact^T df
+  B4R_TRY(wgrad<T>(wt(B_HACT), w.df, w.wsplit, f32(B_DW2), M, F, H, stream));
+  // 3. dhpre = T((df W2^T) * gelu'(x1 W1 + b1)); dbf1
+  gelu_grad_gemm_kernel<T><<<dim3(nb_gm, ceil_div(F, GM_BN)), 256, 0, stream>>>(
+      w.df, wt(B_W2_T), wt(B_X1), wt(B_W1), f32(B_BF1), w.dhpre, w.part_bf1, M, F, H);
+  B4R_TRY(cudaGetLastError());
+  B4R_TRY(reduce_rows(w.part_bf1, f32(B_DBF1), nb_gm, F, stream));
+  // 4. dW1 = x1^T dhpre
+  B4R_TRY(wgrad<T>(wt(B_X1), w.dhpre, w.wsplit, f32(B_DW1), M, H, F, stream));
+  // 5. LN1: dx1 = dw_res + dhpre W1^T; du = LN1'(dx1), dattn = T(du * keep_N);
+  //    dg1, db1, dbo
+  B4R_TRY((ln_bwd<T, true>(w.dhpre, wt(B_W1_T), F, nullptr, w.dw_res, f32(B_XHAT1),
+                           f32(B_RSTD1), f32(B_G1), out_drop, N, S, w.du, w.dattn,
+                           w.part_ln1, M, H, stream)));
+  B4R_TRY(reduce_rows(w.part_ln1, f32(B_GLN1), nb_ln, 3 * H, stream));
+  // 6. dWo = ctx^T dattn
+  B4R_TRY(wgrad<T>(wt(B_CTX), w.dattn, w.wsplit, f32(B_DWO), M, H, H, stream));
+  // 7. dctx = T(dattn Wo^T)
+  B4R_TRY((gemm<T, EPI_NONE>(w.dattn, wt(B_WO_T), nullptr, nullptr, w.dctx, M, H, H,
+                             stream)));
+  // 8. attention: dq, dk, dv -> dqkv; dbqkv
+  B4R_TRY(attn_bwd<T>(wt(B_QKV), w.dctx, mask, f32(B_STAT_M), f32(B_STAT_L), attn_drop,
+                      w.delta, w.dqkv, w.part_qkv, B, S, H, N, D, scale, stream));
+  B4R_TRY(reduce_rows(w.part_qkv, f32(B_DBQKV), B * ceil_div(S, AT_BQ), 3 * H, stream));
+  // 9. dWqkv = x^T dqkv
+  B4R_TRY(wgrad<T>(wt(B_X), w.dqkv, w.wsplit, f32(B_DWQKV), M, H, 3 * H, stream));
+  // 10. dx = T(du + dqkv Wqkv^T)
+  B4R_TRY((gemm<T, EPI_ADD_F32>(w.dqkv, wt(B_WQKV_T), nullptr, w.du,
+                                static_cast<T*>(p[B_DX]), M, H, 3 * H, stream)));
+#undef B4R_TRY
   return 0;
 }
 
@@ -506,27 +1320,74 @@ extern "C" {
 int b4r_fused_layer_max_hidden() { return 32 * LN_MAXTN; }
 int b4r_fused_layer_max_head_dim() { return AT_MAXD; }
 
-// dtype: 0 = float32, 1 = bfloat16 for x, the four weight matrices, the
-// scratch buffers and y; biases and LayerNorm params are always float32.
-int b4r_fused_layer_fwd(int dtype, const void* x, const int32_t* mask,
-                        const void* wqkv, const float* bqkv, const void* wo,
-                        const float* bo, const float* g1, const float* b1ln,
-                        const void* w1, const float* bf1, const void* w2,
-                        const float* bf2, const float* g2, const float* b2ln,
-                        void* qkv_buf, void* ctx_buf, void* x1_buf,
-                        void* h_buf, void* y, int B, int S, int H, int N,
-                        int F, float scale, void* stream) {
+// Bytes of the workspace b4r_fused_layer_bwd carves its scratch from.
+size_t b4r_fused_layer_bwd_workspace_bytes(int dtype, int B, int S, int H, int N, int F) {
+  if (dtype == 1) return BwdScratch<__nv_bfloat16>(nullptr, B, S, H, N, F).bytes;
+  return BwdScratch<float>(nullptr, B, S, H, N, F).bytes;
+}
+
+// dtype: 0 = float32, 1 = bfloat16 for x, the weight matrices, the saved
+// activations and y; biases, LayerNorm params, statistics and gradients of
+// the weights are always float32. ptrs: _FWD_PTRS order; the six training
+// outputs (xhat1 .. stat_l) may be null at inference. A rate of 0 is
+// `*_on == 0`.
+int b4r_fused_layer_fwd(int dtype, void* const* ptrs, int B, int S, int H, int N,
+                        int F, float scale, unsigned seed, unsigned attn_threshold,
+                        float attn_scale, int attn_on, unsigned out_threshold,
+                        float out_scale, int out_on, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return layer_forward<float>(x, mask, wqkv, bqkv, wo, bo, g1, b1ln, w1, bf1,
-                                w2, bf2, g2, b2ln, qkv_buf, ctx_buf, x1_buf,
-                                h_buf, y, B, S, H, N, F, scale, st);
+  const Drop ad{seed, attn_threshold, attn_scale, attn_on};
+  const Drop od{seed, out_threshold, out_scale, out_on};
+  if (dtype == 0) return layer_forward<float>(ptrs, B, S, H, N, F, scale, ad, od, st);
   if (dtype == 1)
-    return layer_forward<__nv_bfloat16>(x, mask, wqkv, bqkv, wo, bo, g1, b1ln,
-                                        w1, bf1, w2, bf2, g2, b2ln, qkv_buf,
-                                        ctx_buf, x1_buf, h_buf, y, B, S, H, N,
-                                        F, scale, st);
+    return layer_forward<__nv_bfloat16>(ptrs, B, S, H, N, F, scale, ad, od, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// ptrs: _BWD_PTRS order. Gradients: dx in dtype; dwqkv [H, 3H], dbqkv [3H],
+// dwo [H, H], gln1 [3, H] = (dg1, db1, dbo), dw1 [H, F], dbf1 [F],
+// dw2 [F, H], gln2 [3, H] = (dg2, db2, dbf2), all float32.
+int b4r_fused_layer_bwd(int dtype, void* const* ptrs, int B, int S, int H, int N,
+                        int F, float scale, unsigned seed, unsigned attn_threshold,
+                        float attn_scale, int attn_on, unsigned out_threshold,
+                        float out_scale, int out_on, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Drop ad{seed, attn_threshold, attn_scale, attn_on};
+  const Drop od{seed, out_threshold, out_scale, out_on};
+  if (dtype == 0) return layer_backward<float>(ptrs, B, S, H, N, F, scale, ad, od, st);
+  if (dtype == 1)
+    return layer_backward<__nv_bfloat16>(ptrs, B, S, H, N, F, scale, ad, od, st);
   return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"
+
+namespace {
+
+// out[b][s][r][c] = keep scale of site site0 + s at (r, c): the masks the
+// layer kernels draw, written out so a check can hold them against the
+// plain version's ops/dropout_bits.py bit for bit.
+__global__ void keep_scale_kernel(float* __restrict__ out, Drop drop, int B, int site0,
+                                  int n_sites, int rows, int cols) {
+  const long total = (long)B * n_sites * rows * cols;
+  for (long i = (long)blockIdx.x * 256 + threadIdx.x; i < total;
+       i += (long)gridDim.x * 256) {
+    const int c = (int)(i % cols), r = (int)(i / cols % rows);
+    const int s = (int)(i / ((long)cols * rows) % n_sites);
+    const int b = (int)(i / ((long)cols * rows * n_sites));
+    out[i] = keep_scale(drop, b, site0 + s, (uint32_t)(r * cols + c));
+  }
+}
+
+}  // namespace
+
+extern "C" int b4r_dropout_keep_scale(float* out, unsigned seed, unsigned threshold,
+                                      float scale, int B, int site0, int n_sites,
+                                      int rows, int cols, void* stream) {
+  const Drop d{seed, threshold, scale, 1};
+  const long total = (long)B * n_sites * rows * cols;
+  const int blocks = (int)(total < 256L * 4096 ? (total + 255) / 256 : 4096);
+  keep_scale_kernel<<<blocks, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      out, d, B, site0, n_sites, rows, cols);
+  return (int)cudaGetLastError();
+}

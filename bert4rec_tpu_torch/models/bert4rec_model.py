@@ -1,10 +1,13 @@
-"""BERT4Rec model: encoder + tied-embedding MLM head + top-k ranking (port
-of ``bert4rec_tpu/models/bert4rec_model.py``, the inference half).
+"""BERT4Rec model: encoder + tied-embedding MLM head + loss + top-k ranking
+(port of ``bert4rec_tpu/models/bert4rec_model.py``).
 
 The MLM head gathers the masked positions, applies dense + activation +
 LayerNorm, multiplies by the tied item-embedding table (a plain
 ``torch.matmul``, as the JAX package leaves that product to XLA), adds the
-output bias and sets vocab-padding columns to -1e9.
+output bias and sets vocab-padding columns to -1e9. ``loss_and_metrics``
+routes as JAX does: the fused tied-softmax loss (``ops/fused_mlm_loss.py``)
+where ``config.use_fused_loss`` and the routing law allow it, else the
+logits path with ``trainers/trainer_utils.py``.
 """
 
 from typing import Optional, Sequence
@@ -85,12 +88,54 @@ class BERT4RecModel:
             logits[..., self.config.vocab_size:] = -1e9
         return logits
 
-    def apply(self, params: dict, inputs: dict) -> dict:
+    def _mlm_hidden_and_table(self, params: dict, inputs: dict, *,
+                              training: bool = False,
+                              seed: Optional[int] = None) -> tuple:
+        """Encoder forward + MLM transform of the masked positions + the
+        tied table: the front half of the fused-loss path."""
+        enc = self.encoder.apply(params["encoder"], inputs["input_word_ids"],
+                                 inputs["input_mask"], training=training,
+                                 seed=seed)
+        hidden = self.mlm_transform(params, enc["sequence_output"],
+                                    inputs["masked_lm_positions"])
+        return hidden, Bert4RecEncoder.get_embedding_table(params["encoder"])
+
+    def loss_and_metrics(self, params: dict, inputs: dict, *,
+                         training: bool = False,
+                         seed: Optional[int] = None) -> tuple:
+        """(masked-SCCE loss, {masked_accuracy, accuracy}) for a train or
+        eval step. With ``config.use_fused_loss`` the tied softmax, loss
+        and metrics run as the fused kernels (no ``[B, P, V]`` logits);
+        otherwise the same math over the logits path."""
+        from bert4rec_tpu_torch.ops import fused_mlm_loss
+        from bert4rec_tpu_torch.trainers import trainer_utils
+        labels = inputs["masked_lm_ids"]
+        cfg = self.config
+        if cfg.use_fused_loss and fused_mlm_loss.fused_loss_available(
+                cfg.padded_vocab_size, cfg.table_width):
+            hidden, table = self._mlm_hidden_and_table(
+                params, inputs, training=training, seed=seed)
+            return fused_mlm_loss.mlm_loss_and_metrics(
+                hidden, table, params["mlm"]["output_bias"], labels,
+                cfg.vocab_size)
+        logits = self.apply(params, inputs, training=training,
+                            seed=seed)["mlm_logits"]
+        loss = trainer_utils.masked_sparse_categorical_crossentropy(
+            labels, logits)
+        return loss, {
+            "masked_accuracy": trainer_utils.masked_accuracy(labels, logits),
+            "accuracy": trainer_utils.sparse_categorical_accuracy(labels,
+                                                                  logits),
+        }
+
+    def apply(self, params: dict, inputs: dict, *, training: bool = False,
+              seed: Optional[int] = None) -> dict:
         """Forward pass over the feature dict; ``mlm_logits`` is produced
-        iff ``masked_lm_positions`` is present."""
+        iff ``masked_lm_positions`` is present. Dropout runs only when
+        ``training`` with a ``seed``."""
         outputs = dict(self.encoder.apply(
             params["encoder"], inputs["input_word_ids"],
-            inputs["input_mask"]))
+            inputs["input_mask"], training=training, seed=seed))
         if "masked_lm_positions" in inputs:
             outputs["mlm_logits"] = self.mlm_logits(
                 params, outputs["sequence_output"],

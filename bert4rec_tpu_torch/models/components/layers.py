@@ -51,6 +51,25 @@ def dense(params: dict, x: torch.Tensor,
 
 
 # --------------------------------------------------------------------------- #
+# dropout
+# --------------------------------------------------------------------------- #
+
+def dropout(x: torch.Tensor, rate: float,
+            seed: Optional[int] = None) -> torch.Tensor:
+    """Inverted dropout (the JAX ``dropout``): each element is kept with
+    probability ``1 - rate`` and divided by it. The mask is drawn from a
+    ``torch.Generator`` on ``x``'s device seeded with ``seed``, so a seed
+    gives the same mask on every call; identity when ``seed`` is None or
+    ``rate`` is 0 (no seed means no dropout, as no rng does in JAX)."""
+    if seed is None or rate <= 0.0:
+        return x
+    keep = 1.0 - rate
+    gen = torch.Generator(device=x.device).manual_seed(int(seed))
+    kept = torch.rand(x.shape, generator=gen, device=x.device) < keep
+    return torch.where(kept, x / keep, torch.zeros_like(x))
+
+
+# --------------------------------------------------------------------------- #
 # layer norm — fp32 accumulation
 # --------------------------------------------------------------------------- #
 

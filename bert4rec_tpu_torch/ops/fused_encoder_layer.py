@@ -1,30 +1,33 @@
-"""Fused post-LN transformer encoder layer, forward (port of
+"""Fused post-LN transformer encoder layer, forward and backward (port of
 ``bert4rec_tpu/ops/fused_encoder_layer.py``).
 
-Replaces the TPU kernel ``bert4rec_tpu/ops/fused_encoder_layer.py:_fwd_kernel``
-(``_run_forward`` -> ``pl.pallas_call``) with the hand-written Hopper CUDA
-kernels of ``csrc/fused_encoder_layer.cu``: a tiled GEMM with a bias (or
-bias + tanh-gelu) epilogue for the qkv and W1 projections, a two-pass
-masked attention kernel per (query tile, head, sequence), and a GEMM whose
-block owns whole rows so bias, residual and LayerNorm run in its epilogue
-(Wo -> LN1, W2 -> LN2). The TPU kernel kept one layer and one sequence in
-~14 MB of VMEM per grid cell; an H100 block has at most 227 KB of shared
-memory, hence the split.
+Replaces the TPU kernels ``_fwd_kernel`` (K1, ``_run_forward``) and
+``_bwd_kernel`` / ``_bwd_element`` (K2, ``_run_backward``) of
+``bert4rec_tpu/ops/fused_encoder_layer.py`` with the hand-written Hopper
+CUDA kernels of ``csrc/fused_encoder_layer.cu``. The TPU kernel kept one
+layer and one sequence in ~14 MB of VMEM per grid cell; an H100 block has
+at most 227 KB of shared memory, so the forward is five launches (tiled
+GEMMs with bias / gelu / residual + dropout + LayerNorm epilogues and a
+two-pass attention kernel) and the backward eleven plus deterministic
+split reductions (see the source's header).
 
 Bound: about 2·S·H·3H + 4·S²·H + 2·S·H² + 4·S·H·F FLOP per sequence
-(99 MFLOP at S=200, H=128, F=512) against a few MB of activations: the
-layer is bound by operations. The first kernels are plain fp32 SIMT loops
-(no tensor cores); their times are in PERF.md.
+forward (99 MFLOP at S=200, H=128, F=512) and about twice that backward,
+against a few MB of activations: the layer is bound by operations. In
+bf16 the products run on the tensor cores (``mma.sync``); in fp32 they are
+SIMT loops. Their times are in PERF.md.
 
-What it computes is ``_layer_fwd_math`` with all rates 0: tanh-approximate
-gelu (whatever ``inner_activation`` says — the JAX kernel does the same),
-fp32 softmax/LayerNorm statistics, matmuls on operands in the input dtype
-with fp32 sums, and rounding to the input dtype at qkv, p, ctx, x1, the
-gelu output and y. Dropout, the causal mask and the relative-time bias are
-not ported yet and raise.
+What it computes is ``_layer_fwd_math`` and ``_bwd_element``:
+tanh-approximate gelu (whatever ``inner_activation`` says — the JAX kernel
+does the same), fp32 softmax/LayerNorm statistics, matmuls on operands in
+the input dtype with fp32 sums, rounding to the input dtype at qkv, p, ctx,
+x1, the gelu output and y, and dropout on the attention probabilities
+(site ``h`` per head) and on both sublayer outputs (sites ``N`` and
+``N + 1``) with the masks of ``ops/dropout_bits.py``. The causal mask and
+the relative-time bias are not ported yet and raise.
 
-Routing: a CPU tensor runs :func:`fused_encoder_layer_plain`; a CUDA
-tensor launches the kernels or raises.
+Routing: a CPU tensor runs the plain version (forward and backward); a
+CUDA tensor launches the kernels or raises.
 """
 
 import ctypes
@@ -32,11 +35,13 @@ import math
 
 import torch
 
+from bert4rec_tpu_torch.ops import dropout_bits
+
 NEG_INF = -1e9
 LN_EPS = 1e-12
 MAX_FUSED_SEQ_LEN = 512
 VMEM_BUDGET_BYTES = 14 * 1024 * 1024
-_SITES_PER_CELL = 64
+_SITES_PER_CELL = dropout_bits.SITES_PER_CELL
 _LOG2E = math.log2(math.e)
 _GELU_C = math.sqrt(2.0 / math.pi)
 
@@ -44,6 +49,8 @@ _W_ORDER = ("wqkv", "bqkv", "wo", "bo", "g1", "b1ln", "w1", "bf1",
             "w2", "bf2", "g2", "b2ln")
 _MATRICES = ("wqkv", "wo", "w1", "w2")  # cast to the input dtype
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_SAVED = ("qkv", "ctx", "x1", "hact", "xhat1", "rstd1", "xhat2", "rstd2",
+          "stat_m", "stat_l")
 
 
 # --------------------------------------------------------------------------- #
@@ -89,7 +96,8 @@ def fused_layer_supported(*, batch: int, seq_len: int, hidden: int,
 def flat_weights(params: dict) -> dict:
     """Layer-param dict -> flat 2-D operands, as the JAX ``_flat_weights``
     (qkv kernel ``[H,3,N,D]`` -> ``[H,3H]``, output kernel ``[N,D,H]`` ->
-    ``[H,H]``; vectors -> ``[1, n]``)."""
+    ``[H,H]``; vectors -> ``[1, n]``). The results are views, so autograd
+    carries gradients of the flat operands back to the params."""
     h = params["attention"]["qkv"]["kernel"].shape[0]
     three_h = 3 * h
     f = params["intermediate"]["kernel"].shape[1]
@@ -113,10 +121,19 @@ def flat_weights(params: dict) -> dict:
 # plain version — the same math in PyTorch, every cast where the kernel has it
 # --------------------------------------------------------------------------- #
 
-def _ln(w: torch.Tensor, g: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def _ln_fwd(w: torch.Tensor, g: torch.Tensor, b: torch.Tensor):
     mean = w.mean(dim=-1, keepdim=True)
     var = (w - mean).square().mean(dim=-1, keepdim=True)
-    return (w - mean) * torch.rsqrt(var + LN_EPS) * g + b
+    rstd = torch.rsqrt(var + LN_EPS)
+    xhat = (w - mean) * rstd
+    return xhat * g + b, xhat, rstd
+
+
+def _ln_bwd(dy, xhat, rstd, g):
+    dxhat = dy * g
+    mean1 = dxhat.mean(dim=-1, keepdim=True)
+    mean2 = (dxhat * xhat).mean(dim=-1, keepdim=True)
+    return rstd * (dxhat - mean1 - xhat * mean2)
 
 
 def _gelu_tanh(x: torch.Tensor) -> torch.Tensor:
@@ -124,43 +141,187 @@ def _gelu_tanh(x: torch.Tensor) -> torch.Tensor:
     return 0.5 * x * (1.0 + torch.tanh(inner))
 
 
-def fused_encoder_layer_plain(params: dict, x: torch.Tensor,
-                              input_mask: torch.Tensor, *,
-                              num_heads: int) -> torch.Tensor:
-    """Plain PyTorch version of the fused layer (``_layer_fwd_math`` at
-    rates 0, whole batch at once). Matmul operands in the input dtype are
-    widened to fp32, so a bf16 product is exact and sums are fp32, as on
-    the TPU."""
-    flat = flat_weights(params)
-    dtype, f32 = x.dtype, torch.float32
+def _gelu_tanh_grad(x: torch.Tensor) -> torch.Tensor:
+    inner = _GELU_C * (x + 0.044715 * x * x * x)
+    t = torch.tanh(inner)
+    dinner = _GELU_C * (1.0 + 3.0 * 0.044715 * x * x)
+    return 0.5 * (1.0 + t) + 0.5 * x * (1.0 - t * t) * dinner
+
+
+def _work_dtype(dtype):
+    """fp32 sums, as on the card; float64 stays float64 (gradcheck)."""
+    return torch.float64 if dtype == torch.float64 else torch.float32
+
+
+def dropout_keeps(seed: int, batch: int, seq_len: int, hidden: int,
+                  num_heads: int, attn_rate: float, out_rate: float,
+                  device, dtype=torch.float32):
+    """The layer's keep-scale tensors (``None`` at rate 0): per head
+    ``[B, N, S, S]`` on the probabilities, ``[B, S, H]`` on the attention
+    output (site N) and on the FFN output (site N + 1)."""
+    keep1 = keep2 = keep3 = None
+    if attn_rate > 0.0:
+        keep1 = dropout_bits.keep_scale(seed, batch, range(num_heads),
+                                        seq_len, seq_len, attn_rate, device,
+                                        dtype)
+    if out_rate > 0.0:
+        k = dropout_bits.keep_scale(seed, batch, (num_heads, num_heads + 1),
+                                    seq_len, hidden, out_rate, device, dtype)
+        keep2, keep3 = k[:, 0], k[:, 1]
+    return keep1, keep2, keep3
+
+
+def _forward_math(flat: dict, x: torch.Tensor, input_mask: torch.Tensor,
+                  num_heads: int, seed: int, attn_rate: float,
+                  out_rate: float) -> dict:
+    """``_layer_fwd_math`` over the whole batch; returns every residual
+    the backward needs."""
+    dtype = x.dtype
+    f32 = _work_dtype(dtype)
     b, s, h = x.shape
     d = h // num_heads
     w = {k: flat[k].to(dtype).to(f32) for k in _MATRICES}
+    v32 = {k: flat[k].to(f32) for k in _W_ORDER if k not in _MATRICES}
     scale = 1.0 / math.sqrt(d)
+    keep1, keep2, keep3 = dropout_keeps(seed, b, s, h, num_heads, attn_rate,
+                                        out_rate, x.device, f32)
 
-    qkv = (x.to(f32) @ w["wqkv"] + flat["bqkv"]).to(dtype).to(f32)
+    x32 = x.to(f32)
+    qkv = (x32 @ w["wqkv"] + v32["bqkv"]).to(dtype).to(f32)
     q, k, v = (t.reshape(b, s, num_heads, d).transpose(1, 2)
                for t in qkv.split(h, dim=-1))                  # [B,N,S,D]
     bias = torch.where(input_mask > 0, 0.0, NEG_INF).to(f32)[:, None, None]
     scores = q @ k.transpose(-1, -2) * scale + bias
     m = scores.amax(dim=-1, keepdim=True)
     e = torch.exp2((scores - m) * _LOG2E)
-    p = e * (1.0 / e.sum(dim=-1, keepdim=True))
-    ctx = p.to(dtype).to(f32) @ v                              # [B,N,S,D]
+    p = e * (1.0 / e.sum(dim=-1, keepdim=True))                # [B,N,S,S]
+    pk = p if keep1 is None else p * keep1
+    ctx = pk.to(dtype).to(f32) @ v                             # [B,N,S,D]
     ctx = ctx.transpose(1, 2).reshape(b, s, h).to(dtype).to(f32)
 
-    u = x.to(f32) + (ctx @ w["wo"] + flat["bo"])
-    x1 = _ln(u, flat["g1"], flat["b1ln"]).to(dtype).to(f32)
-    hact = _gelu_tanh(x1 @ w["w1"] + flat["bf1"]).to(dtype).to(f32)
-    f = hact @ w["w2"] + flat["bf2"]
-    return _ln(x1 + f, flat["g2"], flat["b2ln"]).to(dtype)
+    attn = ctx @ w["wo"] + v32["bo"]
+    if keep2 is not None:
+        attn = attn * keep2
+    u = x32 + attn
+    x1, xhat1, rstd1 = _ln_fwd(u, v32["g1"], v32["b1ln"])
+    x1 = x1.to(dtype).to(f32)
+    hpre = x1 @ w["w1"] + v32["bf1"]
+    hact = _gelu_tanh(hpre).to(dtype).to(f32)
+    f = hact @ w["w2"] + v32["bf2"]
+    if keep3 is not None:
+        f = f * keep3
+    y, xhat2, rstd2 = _ln_fwd(x1 + f, v32["g2"], v32["b2ln"])
+    return dict(w=w, qkv=qkv, q=q, k=k, v=v, p=p, keep1=keep1, ctx=ctx,
+                keep2=keep2, x1=x1, xhat1=xhat1, rstd1=rstd1, hpre=hpre,
+                hact=hact, keep3=keep3, xhat2=xhat2, rstd2=rstd2,
+                y=y.to(dtype))
+
+
+def fused_encoder_layer_plain(params: dict, x: torch.Tensor,
+                              input_mask: torch.Tensor, *,
+                              num_heads: int,
+                              attention_dropout: float = 0.0,
+                              output_dropout: float = 0.0,
+                              seed: int = 0) -> torch.Tensor:
+    """Plain PyTorch version of the fused layer's forward
+    (``_layer_fwd_math``, whole batch at once). Matmul operands in the
+    input dtype are widened to fp32, so a bf16 product is exact and sums
+    are fp32, as on the TPU."""
+    return _forward_math(flat_weights(params), x, input_mask, num_heads,
+                         seed, attention_dropout, output_dropout)["y"]
+
+
+def _rows_sum(t: torch.Tensor) -> torch.Tensor:
+    """Column sums over every leading axis, as ``[1, n]``."""
+    return t.reshape(-1, t.shape[-1]).sum(dim=0, keepdim=True)
+
+
+def _tn(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a^T b`` summed over all rows: ``[.., K1]`` x ``[.., N]`` ->
+    ``[K1, N]``."""
+    return a.reshape(-1, a.shape[-1]).T @ b.reshape(-1, b.shape[-1])
+
+
+def fused_encoder_layer_plain_backward(flat: dict, x: torch.Tensor,
+                                       input_mask: torch.Tensor,
+                                       dy: torch.Tensor, *, num_heads: int,
+                                       attention_dropout: float = 0.0,
+                                       output_dropout: float = 0.0,
+                                       seed: int = 0):
+    """Plain PyTorch version of the fused layer's backward
+    (``_bwd_element``, whole batch at once): recomputes the forward with
+    the same masks and returns ``(dx, {name: grad})`` with ``dx`` in the
+    input dtype and the 12 flat-operand gradients in the params' dtype."""
+    dtype = x.dtype
+    f32 = _work_dtype(dtype)
+    r = _forward_math(flat, x, input_mask, num_heads, seed,
+                      attention_dropout, output_dropout)
+    w = r["w"]
+    b, s, h = x.shape
+    d = h // num_heads
+    scale = 1.0 / math.sqrt(d)
+    g1, g2 = flat["g1"].to(f32), flat["g2"].to(f32)
+
+    def t(a):  # round to the input dtype, as JAX's ``.astype(dtype)``
+        return a.to(dtype).to(f32)
+
+    dy32 = dy.to(f32)
+    grads = {}
+    # ---- LN2 ----
+    grads["g2"] = _rows_sum(dy32 * r["xhat2"])
+    grads["b2ln"] = _rows_sum(dy32)
+    dw_res = _ln_bwd(dy32, r["xhat2"], r["rstd2"], g2)
+    # ---- FFN branch ----
+    df = dw_res if r["keep3"] is None else dw_res * r["keep3"]
+    grads["w2"] = _tn(r["hact"], t(df))
+    grads["bf2"] = _rows_sum(df)
+    dhact = t(df) @ w["w2"].T
+    dhpre = dhact * _gelu_tanh_grad(r["hpre"])
+    grads["w1"] = _tn(r["x1"], t(dhpre))
+    grads["bf1"] = _rows_sum(dhpre)
+    dx1 = dw_res + t(dhpre) @ w["w1"].T
+    # ---- LN1 ----
+    grads["g1"] = _rows_sum(dx1 * r["xhat1"])
+    grads["b1ln"] = _rows_sum(dx1)
+    du = _ln_bwd(dx1, r["xhat1"], r["rstd1"], g1)
+    # ---- attention output projection ----
+    dattn = du if r["keep2"] is None else du * r["keep2"]
+    grads["wo"] = _tn(r["ctx"], t(dattn))
+    grads["bo"] = _rows_sum(dattn)
+    dctx = t(t(dattn) @ w["wo"].T)
+    # ---- attention cores (same masks) ----
+    dctx_h = dctx.reshape(b, s, num_heads, d).transpose(1, 2)   # [B,N,S,D]
+    p, keep1 = r["p"], r["keep1"]
+    d_mat = p if keep1 is None else p * keep1
+    dv = t(d_mat).transpose(-1, -2) @ dctx_h
+    dd = dctx_h @ r["v"].transpose(-1, -2)
+    dp = dd if keep1 is None else dd * keep1
+    ds = t(p * (dp - (dp * p).sum(dim=-1, keepdim=True)))
+    dq = (ds @ r["k"]) * scale
+    dk = (ds.transpose(-1, -2) @ r["q"]) * scale
+
+    def merge(a):  # [B,N,S,D] -> [B,S,H]
+        return a.transpose(1, 2).reshape(b, s, h)
+
+    dqkv = torch.cat([merge(dq), merge(dk), merge(dv)], dim=-1)  # [B,S,3H]
+    grads["wqkv"] = _tn(x.to(f32), t(dqkv))
+    grads["bqkv"] = _rows_sum(dqkv)
+    dx = (du + t(dqkv) @ w["wqkv"].T).to(dtype)
+    return dx, {k: grads[k].to(flat[k].dtype) for k in _W_ORDER}
 
 
 # --------------------------------------------------------------------------- #
-# the kernel
+# the kernels
 # --------------------------------------------------------------------------- #
 
 _lib = None
+# device-pointer order of the C entry points (FwdPtr / BwdPtr in the source)
+_FWD_PTRS = ("x", "mask", *_W_ORDER, "qkv", "ctx", "x1", "hact", "y",
+             "xhat1", "rstd1", "xhat2", "rstd2", "stat_m", "stat_l")
+_BWD_PTRS = ("x", "mask", "dy", "wqkv_t", "wo_t", "w1", "w1_t", "w2_t", "bf1",
+             "g1", "g2", "qkv", "ctx", "x1", "hact", "xhat1", "rstd1",
+             "xhat2", "rstd2", "stat_m", "stat_l", "dx", "dwqkv", "dbqkv",
+             "dwo", "gln1", "dw1", "dbf1", "dw2", "gln2", "workspace")
 
 
 def _kernel_lib():
@@ -168,10 +329,17 @@ def _kernel_lib():
     if _lib is None:
         from bert4rec_tpu_torch.ops import kernel_build
         lib = kernel_build.load("fused_encoder_layer")
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.b4r_fused_layer_fwd.restype = ci
-        lib.b4r_fused_layer_fwd.argtypes = (
-            [ci] + [vp] * 19 + [ci] * 5 + [ctypes.c_float, vp])
+        vp, ci, cu = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
+        cf = ctypes.c_float
+        step_args = [ci, vp] + [ci] * 5 + [cf, cu, cu, cf, ci, cu, cf, ci, vp]
+        for fn in (lib.b4r_fused_layer_fwd, lib.b4r_fused_layer_bwd):
+            fn.restype = ci
+            fn.argtypes = step_args
+        lib.b4r_fused_layer_bwd_workspace_bytes.restype = ctypes.c_size_t
+        lib.b4r_fused_layer_bwd_workspace_bytes.argtypes = [ci] * 6
+        lib.b4r_dropout_keep_scale.restype = ci
+        lib.b4r_dropout_keep_scale.argtypes = [vp, cu, cu, cf] + [ci] * 5 \
+            + [vp]
         lib.b4r_fused_layer_max_hidden.restype = ci
         lib.b4r_fused_layer_max_hidden.argtypes = []
         lib.b4r_fused_layer_max_head_dim.restype = ci
@@ -206,11 +374,7 @@ def _check_operands(x, input_mask, flat, num_heads):
             raise TypeError(f"{name} must be float32, got {t.dtype}")
 
 
-def _launch(flat: dict, x: torch.Tensor, input_mask: torch.Tensor,
-            num_heads: int) -> torch.Tensor:
-    lib = _kernel_lib()
-    b, s, h = x.shape
-    f = flat["w1"].shape[1]
+def _check_kernel_limits(lib, b, h, num_heads):
     if h > lib.b4r_fused_layer_max_hidden() \
             or h // num_heads > lib.b4r_fused_layer_max_head_dim() \
             or b > 65535:
@@ -219,27 +383,170 @@ def _launch(flat: dict, x: torch.Tensor, input_mask: torch.Tensor,
             f"{lib.b4r_fused_layer_max_hidden()}, head dim <= "
             f"{lib.b4r_fused_layer_max_head_dim()} and batch <= 65535; "
             f"got hidden {h}, {num_heads} heads, batch {b}")
-    ops = {k: (flat[k].to(x.dtype) if k in _MATRICES else flat[k])
-           .contiguous() for k in _W_ORDER}
-    x = x.contiguous()
-    mask = input_mask.contiguous()
+
+
+def _drop_args(seed: int, attn_rate: float, out_rate: float) -> list:
+    """``seed, attn (threshold, scale, on), out (threshold, scale, on)``
+    for the C entry points."""
+    args = [int(seed) & dropout_bits.MASK32]
+    for rate in (attn_rate, out_rate):
+        on = rate > 0.0
+        args += [dropout_bits.threshold(rate) if on else 0,
+                 dropout_bits.keep_scale_value(rate) if on else 1.0, int(on)]
+    return args
+
+
+def _ptr_array(tensors: dict, order) -> ctypes.Array:
+    return (ctypes.c_void_p * len(order))(
+        *[tensors[k].data_ptr() if tensors.get(k) is not None else None
+          for k in order])
+
+
+def kernel_keep_scale(seed: int, batch: int, site0: int, n_sites: int,
+                      rows: int, cols: int, rate: float,
+                      device) -> torch.Tensor:
+    """The keep scales the CUDA kernels draw for sites ``site0 ..
+    site0 + n_sites - 1``, ``[batch, n_sites, rows, cols]``, written by the
+    kernels' own hash: a check holds them against
+    ``dropout_bits.keep_scale`` (no kernel of the layer calls this)."""
+    lib = _kernel_lib()
+    out = torch.empty((batch, n_sites, rows, cols), dtype=torch.float32,
+                      device=device)
+    err = lib.b4r_dropout_keep_scale(
+        out.data_ptr(), int(seed) & dropout_bits.MASK32,
+        dropout_bits.threshold(rate), dropout_bits.keep_scale_value(rate),
+        batch, site0, n_sites, rows, cols,
+        torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"keep-scale kernel launch failed: CUDA error "
+                           f"{err}")
+    return out
+
+
+def _launch_forward(flat: dict, x: torch.Tensor, input_mask: torch.Tensor,
+                    num_heads: int, seed: int, attn_rate: float,
+                    out_rate: float, save: bool):
+    """Launch K1; returns ``(y, saved)`` where ``saved`` holds the
+    activations and statistics the backward reads (empty unless
+    ``save``)."""
+    lib = _kernel_lib()
+    b, s, h = x.shape
+    _check_kernel_limits(lib, b, h, num_heads)
+    f = flat["w1"].shape[1]
     m = b * s
-    qkv = torch.empty((m, 3 * h), dtype=x.dtype, device=x.device)
-    ctx = torch.empty((m, h), dtype=x.dtype, device=x.device)
-    x1 = torch.empty((m, h), dtype=x.dtype, device=x.device)
-    hact = torch.empty((m, f), dtype=x.dtype, device=x.device)
-    y = torch.empty_like(x)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
+    dev, dt = x.device, x.dtype
+    ops = {k: (flat[k].to(dt) if k in _MATRICES else flat[k]).contiguous()
+           for k in _W_ORDER}
+    ops.update(x=x.contiguous(), mask=input_mask.contiguous(),
+               qkv=torch.empty((m, 3 * h), dtype=dt, device=dev),
+               ctx=torch.empty((m, h), dtype=dt, device=dev),
+               x1=torch.empty((m, h), dtype=dt, device=dev),
+               hact=torch.empty((m, f), dtype=dt, device=dev),
+               y=torch.empty_like(x))
+    if save:
+        f32 = dict(dtype=torch.float32, device=dev)
+        ops.update(xhat1=torch.empty((m, h), **f32),
+                   rstd1=torch.empty((m,), **f32),
+                   xhat2=torch.empty((m, h), **f32),
+                   rstd2=torch.empty((m,), **f32),
+                   stat_m=torch.empty((b, num_heads, s), **f32),
+                   stat_l=torch.empty((b, num_heads, s), **f32))
+    stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.b4r_fused_layer_fwd(
-        _DTYPE_CODE[x.dtype], x.data_ptr(), mask.data_ptr(),
-        *[ops[k].data_ptr() for k in _W_ORDER],
-        qkv.data_ptr(), ctx.data_ptr(), x1.data_ptr(), hact.data_ptr(),
-        y.data_ptr(), b, s, h, num_heads, f, 1.0 / math.sqrt(h // num_heads),
-        stream)
+        _DTYPE_CODE[dt], _ptr_array(ops, _FWD_PTRS), b, s, h, num_heads, f,
+        1.0 / math.sqrt(h // num_heads),
+        *_drop_args(seed, attn_rate, out_rate), stream)
     if err != 0:
         raise RuntimeError(f"fused_encoder_layer kernel launch failed: CUDA "
                            f"error {err}")
-    return y
+    saved = tuple(ops[k] for k in _SAVED) if save else ()
+    return ops["y"], saved
+
+
+def _launch_backward(flat: dict, x: torch.Tensor, input_mask: torch.Tensor,
+                     dy: torch.Tensor, saved: tuple, num_heads: int,
+                     seed: int, attn_rate: float, out_rate: float):
+    """Launch K2; returns ``(dx, {name: fp32 grad})``."""
+    lib = _kernel_lib()
+    b, s, h = x.shape
+    f = flat["w1"].shape[1]
+    dev, dt = x.device, x.dtype
+    f32 = dict(dtype=torch.float32, device=dev)
+    ops = dict(zip(_SAVED, saved))
+    ops.update(
+        x=x.contiguous(), mask=input_mask.contiguous(), dy=dy.contiguous(),
+        wqkv_t=flat["wqkv"].to(dt).t().contiguous(),
+        wo_t=flat["wo"].to(dt).t().contiguous(),
+        w1=flat["w1"].to(dt).contiguous(),
+        w1_t=flat["w1"].to(dt).t().contiguous(),
+        w2_t=flat["w2"].to(dt).t().contiguous(),
+        bf1=flat["bf1"].contiguous(), g1=flat["g1"].contiguous(),
+        g2=flat["g2"].contiguous(),
+        dx=torch.empty_like(x), dwqkv=torch.empty((h, 3 * h), **f32),
+        dbqkv=torch.empty((1, 3 * h), **f32), dwo=torch.empty((h, h), **f32),
+        gln1=torch.empty((3, h), **f32), dw1=torch.empty((h, f), **f32),
+        dbf1=torch.empty((1, f), **f32), dw2=torch.empty((f, h), **f32),
+        gln2=torch.empty((3, h), **f32))
+    nbytes = lib.b4r_fused_layer_bwd_workspace_bytes(
+        _DTYPE_CODE[dt], b, s, h, num_heads, f)
+    ops["workspace"] = torch.empty((nbytes,), dtype=torch.uint8, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.b4r_fused_layer_bwd(
+        _DTYPE_CODE[dt], _ptr_array(ops, _BWD_PTRS), b, s, h, num_heads, f,
+        1.0 / math.sqrt(h // num_heads),
+        *_drop_args(seed, attn_rate, out_rate), stream)
+    if err != 0:
+        raise RuntimeError(f"fused_encoder_layer backward kernel launch "
+                           f"failed: CUDA error {err}")
+    gln1, gln2 = ops["gln1"], ops["gln2"]
+    grads = dict(wqkv=ops["dwqkv"], bqkv=ops["dbqkv"], wo=ops["dwo"],
+                 bo=gln1[2:3], g1=gln1[0:1], b1ln=gln1[1:2], w1=ops["dw1"],
+                 bf1=ops["dbf1"], w2=ops["dw2"], bf2=gln2[2:3], g2=gln2[0:1],
+                 b2ln=gln2[1:2])
+    return ops["dx"], grads
+
+
+class _FusedLayer(torch.autograd.Function):
+    """K1 forward and K2 backward (the JAX ``custom_vjp``): the backward
+    reuses the forward's dropout masks by regenerating them from the
+    seed. A CPU ``x`` runs both plain versions; a CUDA ``x`` launches both
+    kernels."""
+
+    @staticmethod
+    def forward(ctx, x, input_mask, seed, num_heads, attn_rate, out_rate,
+                save, *flat_tuple):
+        flat = dict(zip(_W_ORDER, flat_tuple))
+        ctx.cfg = (int(seed), num_heads, attn_rate, out_rate)
+        if x.device.type == "cpu":
+            y = _forward_math(flat, x, input_mask, num_heads, seed,
+                              attn_rate, out_rate)["y"]
+            saved = ()
+        else:
+            y, saved = _launch_forward(flat, x, input_mask, num_heads, seed,
+                                       attn_rate, out_rate, save)
+            fused_encoder_layer.launches += 1
+        if save:
+            ctx.save_for_backward(x, input_mask, *flat_tuple, *saved)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        seed, num_heads, attn_rate, out_rate = ctx.cfg
+        x, input_mask, *rest = ctx.saved_tensors
+        flat = dict(zip(_W_ORDER, rest[:len(_W_ORDER)]))
+        if x.device.type == "cpu":
+            dx, grads = fused_encoder_layer_plain_backward(
+                flat, x, input_mask, dy, num_heads=num_heads,
+                attention_dropout=attn_rate, output_dropout=out_rate,
+                seed=seed)
+        else:
+            dx, grads = _launch_backward(flat, x, input_mask, dy,
+                                         tuple(rest[len(_W_ORDER):]),
+                                         num_heads, seed, attn_rate,
+                                         out_rate)
+            fused_encoder_layer.backward_launches += 1
+        dflat = tuple(grads[k].to(flat[k].dtype) for k in _W_ORDER)
+        return (dx, None, None, None, None, None, None, *dflat)
 
 
 def fused_encoder_layer(params: dict, x: torch.Tensor,
@@ -247,31 +554,34 @@ def fused_encoder_layer(params: dict, x: torch.Tensor,
                         num_heads: int,
                         attention_dropout: float = 0.0,
                         output_dropout: float = 0.0,
+                        seed=None,
                         causal: bool = False,
                         rel_bias=None) -> torch.Tensor:
     """Run one post-LN encoder layer: ``x [B, S, H]`` (float32 or
     bfloat16), ``input_mask [B, S]`` int32, ``params`` the JAX-layout
-    layer dict. Returns ``y`` like ``x``.
+    layer dict; ``seed`` (an int, default 0) selects the dropout masks.
+    Returns ``y`` like ``x``; differentiable in ``x`` and the params.
 
-    A CUDA ``x`` launches the kernels (and counts one launch in
-    ``fused_encoder_layer.launches``); a CPU ``x`` runs the plain version.
+    A CUDA ``x`` launches the kernels and counts each forward launch in
+    ``fused_encoder_layer.launches`` and each backward launch in
+    ``fused_encoder_layer.backward_launches``; a CPU ``x`` runs the plain
+    versions.
     """
     if causal:
         raise NotImplementedError("causal fused layer is not ported yet")
     if rel_bias is not None:
         raise NotImplementedError("rel_bias fused layer is not ported yet")
-    if attention_dropout > 0.0 or output_dropout > 0.0:
-        raise NotImplementedError("fused layer dropout is not ported yet")
     flat = flat_weights(params)
     _check_operands(x, input_mask, flat, num_heads)
-    if x.device.type == "cpu":
-        return fused_encoder_layer_plain(params, x, input_mask,
-                                         num_heads=num_heads)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no fused layer for device {x.device}")
-    y = _launch(flat, x, input_mask, num_heads)
-    fused_encoder_layer.launches += 1
-    return y
+    operands = tuple(flat[k] for k in _W_ORDER)
+    save = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (x, *operands))
+    return _FusedLayer.apply(x, input_mask, 0 if seed is None else int(seed),
+                             num_heads, float(attention_dropout),
+                             float(output_dropout), save, *operands)
 
 
 fused_encoder_layer.launches = 0
+fused_encoder_layer.backward_launches = 0

@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled on first
 use by ``nvcc`` for Hopper (``-gencode arch=compute_90a,code=sm_90a``)
-into ``csrc/_build/lib<name>-<hash>.so``; the hash is of the source, so an
-edited source rebuilds and an unchanged one loads from the cache. Nothing
+into ``csrc/_build/lib<name>-<hash>.so``; the hash is of the source and the
+shared ``*.cuh`` headers, so an edited source rebuilds and an unchanged one
+loads from the cache. Nothing
 is built at import time.
 """
 
@@ -39,9 +40,12 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> pathlib.Path:
-    src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha1(src.read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """The library's path, keyed by a hash of its source and of every
+    shared header under ``csrc/``."""
+    sha = hashlib.sha1((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        sha.update(header.read_bytes())
+    return BUILD_DIR / f"lib{name}-{sha.hexdigest()[:16]}.so"
 
 
 def build(names: Iterable[str]) -> None:

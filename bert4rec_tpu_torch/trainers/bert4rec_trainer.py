@@ -1,0 +1,344 @@
+"""BERT4Rec trainer: the train step and an explicit epoch loop (port of
+``bert4rec_tpu/trainers/bert4rec_trainer.py``).
+
+- train step = gradient of the model's masked-SCCE loss (the fused loss
+  kernels where the config routes there) -> clip + AdamW
+  (``trainers/optimizers``), params and moments updated in place;
+- metrics ``masked_accuracy`` and ``accuracy`` on the device, weighted into
+  exact epoch means by their position counts;
+- best-metric checkpointing and exact resume: the train state is the
+  params, the optimizer state, ``step``, ``seed``, ``epoch`` and
+  ``best_monitor``, and every dropout seed of a step is
+  ``fold_in(seed, step)`` (``fold_in(that, i)`` for microbatch ``i`` under
+  gradient accumulation), so a resumed run draws the same masks;
+- ``steps_per_call`` runs K optimizer steps per call as a plain loop (the
+  JAX ``lax.scan``; the same math), ``grad_accum_steps`` folds A
+  microbatches into one update weighted by their valid positions.
+
+One device; the multi-GPU layout is not ported yet.
+"""
+
+import itertools
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from bert4rec_tpu_torch.core.device import resolve_device
+from bert4rec_tpu_torch.ops.dropout_bits import fold_in
+from bert4rec_tpu_torch.trainers import optimizers, trainer_utils
+from bert4rec_tpu_torch.trainers.base_trainer import BaseTrainer
+from bert4rec_tpu_torch.trainers.callbacks import History, ModelCheckpoint
+from bert4rec_tpu_torch.utils import checkpoint as ckpt_lib
+
+_BATCH_KEYS = ("input_word_ids", "input_mask", "masked_lm_positions",
+               "masked_lm_ids")
+
+
+class BERT4RecTrainer(BaseTrainer):
+
+    def __init__(self, model, steps_per_call: int = 1,
+                 grad_accum_steps: int = 1):
+        """``steps_per_call``: optimizer steps per call of the step
+        function over a group of K batches (identical math to single
+        steps; logs come back per step). ``grad_accum_steps``: A
+        microbatches per optimizer update, their gradients combined
+        weighted by each one's count of valid MLM positions, so the update
+        equals that of one A-times-larger batch; trailing batches that do
+        not fill a group are dropped. The two are mutually exclusive."""
+        super().__init__(model)
+        self.steps_per_call = max(1, int(steps_per_call))
+        self.grad_accum_steps = max(1, int(grad_accum_steps))
+        if self.steps_per_call > 1 and self.grad_accum_steps > 1:
+            raise ValueError(
+                "steps_per_call and grad_accum_steps are mutually exclusive "
+                "dispatch modes: the first runs K optimizer steps per call, "
+                "the second folds A microbatches into one optimizer step — "
+                f"pick one (got steps_per_call={self.steps_per_call}, "
+                f"grad_accum_steps={self.grad_accum_steps})")
+        self.state = None   # {"params", "opt_state", "step", "seed"}
+        self.device = None
+        self._epochs_completed = None
+        self._best_monitor_value = None
+        self._custom_loss = False
+
+    # ------------------------------------------------------------------ #
+    # setup
+    # ------------------------------------------------------------------ #
+
+    def initialize_model(self, optimizer=None, loss=None,
+                         metrics: Optional[dict] = None,
+                         params: Optional[dict] = None, seed: int = 0,
+                         device="cuda") -> None:
+        """Build the optimizer/loss/metric defaults and the train state.
+        ``params`` (a nested dict of tensors) is moved to ``device``;
+        without it the model is initialised from ``seed``. A custom
+        ``loss`` or ``metrics`` routes the step through the logits path."""
+        self.device = resolve_device(device)
+        self.optimizer = optimizers.get(optimizer if optimizer is not None
+                                        else "adamw")
+        self._custom_loss = loss is not None or metrics is not None
+        self.loss = loss or trainer_utils.masked_sparse_categorical_crossentropy
+        self.metrics = metrics if metrics is not None else {
+            "masked_accuracy": trainer_utils.masked_accuracy,
+            "accuracy": trainer_utils.sparse_categorical_accuracy,
+        }
+        if params is None:
+            params = self.model.init(torch.Generator().manual_seed(seed),
+                                     self.device)
+        params = ckpt_lib.unflatten({
+            k: v.detach().to(self.device, torch.float32).clone()
+            .requires_grad_(True)
+            for k, v in ckpt_lib.flatten(params).items()})
+        self.state = {"params": params,
+                      "opt_state": self.optimizer.init(params),
+                      "step": 0, "seed": int(seed)}
+
+    # ------------------------------------------------------------------ #
+    # steps
+    # ------------------------------------------------------------------ #
+
+    def _put_batch(self, batch: dict) -> dict:
+        """Host numpy batch -> the tensors the step reads, on the device."""
+        return {k: torch.from_numpy(np.ascontiguousarray(batch[k]))
+                .to(self.device) for k in _BATCH_KEYS}
+
+    def _loss_and_logs(self, params, batch, training, seed):
+        if not self._custom_loss and hasattr(self.model, "loss_and_metrics"):
+            return self.model.loss_and_metrics(params, batch,
+                                               training=training, seed=seed)
+        logits = self.model.apply(params, batch, training=training,
+                                  seed=seed)["mlm_logits"]
+        labels = batch["masked_lm_ids"]
+        return self.loss(labels, logits), {
+            name: metric(labels, logits)
+            for name, metric in self.metrics.items()}
+
+    @staticmethod
+    def _counts(batch) -> dict:
+        labels = batch["masked_lm_ids"]
+        return {"_n_valid": trainer_utils.n_valid_positions(labels),
+                "_n_total": torch.tensor(float(labels.numel()),
+                                         device=labels.device),
+                "_n_real": trainer_utils.n_real_positions(labels)}
+
+    def _grads(self, batch, seed):
+        """(loss, logs, {path: grad}) of one batch at the current params;
+        a param the loss does not reach (the pooler) gets a zero grad."""
+        flat = ckpt_lib.flatten(self.state["params"])
+        loss, logs = self._loss_and_logs(self.state["params"], batch, True,
+                                         seed)
+        grads = torch.autograd.grad(loss, list(flat.values()),
+                                    allow_unused=True)
+        return loss.detach(), {k: v.detach() for k, v in logs.items()}, {
+            k: (torch.zeros_like(p) if g is None else g)
+            for (k, p), g in zip(flat.items(), grads)}
+
+    def _apply(self, grads) -> None:
+        self.state["opt_state"] = self.optimizer.update(
+            grads, self.state["opt_state"], self.state["params"])
+        self.state["step"] += 1
+
+    def train_step(self, batch: dict) -> dict:
+        """One optimizer step on a device batch; returns its logs."""
+        step_seed = fold_in(self.state["seed"], self.state["step"])
+        loss, logs, grads = self._grads(batch, step_seed)
+        self._apply(grads)
+        return {"loss": loss, **logs, **self._counts(batch)}
+
+    def accum_step(self, batches: list) -> dict:
+        """One optimizer step from ``len(batches)`` microbatches: the
+        gradient is ``sum(n_valid_a * g_a) / sum(n_valid_a)``, what one
+        big batch's valid-position mean gives. Logs are stacked per
+        microbatch."""
+        step_seed = fold_in(self.state["seed"], self.state["step"])
+        gsum, wsum, logs = None, 0.0, []
+        for idx, batch in enumerate(batches):
+            loss, blogs, grads = self._grads(batch, fold_in(step_seed, idx))
+            w = trainer_utils.n_valid_positions(batch["masked_lm_ids"])
+            if gsum is None:
+                gsum = {k: w * g for k, g in grads.items()}
+            else:
+                for k, g in grads.items():
+                    gsum[k] = gsum[k] + w * g
+            wsum = wsum + w
+            logs.append({"loss": loss, **blogs, **self._counts(batch)})
+        denom = torch.clamp(wsum, min=1.0)
+        self._apply({k: g / denom for k, g in gsum.items()})
+        return {k: torch.stack([lg[k] for lg in logs]) for k in logs[0]}
+
+    def eval_step(self, batch: dict) -> dict:
+        with torch.no_grad():
+            loss, logs = self._loss_and_logs(self.state["params"], batch,
+                                             False, None)
+        return {"loss": loss, **logs, **self._counts(batch)}
+
+    # ------------------------------------------------------------------ #
+    # train / validate
+    # ------------------------------------------------------------------ #
+
+    @staticmethod
+    def _accumulate(sums: dict, wsums: dict, logs: dict) -> None:
+        """Weight per-batch means by their position counts so the epoch
+        mean is the exact mean over positions: masked metrics by valid
+        positions, the unmasked ``accuracy``'s hits over all positions by
+        real-row positions."""
+        w_valid = logs.pop("_n_valid")
+        w_total = logs.pop("_n_total")
+        w_real = logs.pop("_n_real")
+        for k, v in logs.items():
+            if k == "accuracy":
+                sums[k] = sums.get(k, 0.0) + torch.sum(v * w_total)
+                wsums[k] = wsums.get(k, 0.0) + torch.sum(w_real)
+            else:
+                sums[k] = sums.get(k, 0.0) + torch.sum(v * w_valid)
+                wsums[k] = wsums.get(k, 0.0) + torch.sum(w_valid)
+
+    @staticmethod
+    def _means(sums: dict, wsums: dict) -> dict:
+        return {k: float(v) / max(float(wsums[k]), 1.0)
+                for k, v in sums.items()}
+
+    def train(self, train_ds, val_ds=None, checkpoint_path=None,
+              epochs: int = 50, batch_size: int = 256,
+              steps_per_epoch: Optional[int] = None,
+              validation_steps: Optional[int] = None, seed: int = 42,
+              verbose: bool = True) -> History:
+        """Epoch loop over a dataset with the JAX ``batches(batch_size,
+        shuffle=, seed=, drop_remainder=, pad_final_batch=)`` contract
+        yielding numpy dicts (fresh masks per epoch, shuffled with
+        ``seed + epoch``), with best-checkpointing and auto-resume from
+        ``checkpoint_path``. Without a train state it initialises one on
+        the card from ``seed``."""
+        if self.state is None:
+            self.initialize_model(seed=seed)
+        history = History()
+        callbacks = [history] + list(self.callbacks)
+        start_epoch = 0
+        if checkpoint_path is not None:
+            callbacks.append(ModelCheckpoint(checkpoint_path,
+                                             verbose=verbose))
+            try:
+                self.load_checkpoint(checkpoint_path)
+                if self._epochs_completed is not None:
+                    start_epoch = min(self._epochs_completed, epochs)
+                if verbose:
+                    print(f"[resume] restored train state from "
+                          f"{checkpoint_path} at step {self.state['step']} "
+                          f"(continuing at epoch {start_epoch + 1})")
+            except FileNotFoundError:
+                pass
+
+        for cb in callbacks:
+            cb.on_train_begin(self)
+
+        accum = self.grad_accum_steps > 1
+        group_k = self.grad_accum_steps if accum else self.steps_per_call
+        for epoch in range(start_epoch, epochs):
+            t0 = time.time()
+            sums, wsums = {}, {}
+            count = n_examples = 0
+            raw = train_ds.batches(batch_size, shuffle=True,
+                                   seed=seed + epoch, drop_remainder=True)
+            if steps_per_epoch:
+                raw = itertools.islice(
+                    raw, steps_per_epoch * (group_k if accum else 1))
+            raw = iter(raw)
+            while True:
+                group = list(itertools.islice(raw, group_k))
+                if not group:
+                    break
+                if accum:
+                    if len(group) < group_k:
+                        break   # a partial group would change the batch
+                    logs = self.accum_step([self._put_batch(b)
+                                            for b in group])
+                    self._accumulate(sums, wsums, logs)
+                    count += 1
+                    n_examples += sum(len(b["input_word_ids"])
+                                      for b in group)
+                else:
+                    for b in group:
+                        self._accumulate(sums, wsums,
+                                         self.train_step(self._put_batch(b)))
+                        count += 1
+                        n_examples += len(b["input_word_ids"])
+                        if steps_per_epoch and count >= steps_per_epoch:
+                            break
+                if steps_per_epoch and count >= steps_per_epoch:
+                    break
+            logs = self._means(sums, wsums)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            logs["examples_per_second"] = n_examples / max(
+                time.time() - t0, 1e-9)
+
+            if val_ds is not None:
+                val_logs = self.validate(val_ds, batch_size=batch_size,
+                                         validation_steps=validation_steps,
+                                         seed=seed + epoch)
+                logs.update({f"val_{k}": v for k, v in val_logs.items()})
+            if verbose:
+                msg = " ".join(f"{k}={v:.4f}" for k, v in sorted(logs.items()))
+                print(f"epoch {epoch + 1}/{epochs}: {msg}")
+            self._epochs_completed = epoch + 1
+            stop = False
+            for cb in callbacks:
+                cb.on_epoch_end(self, epoch, logs)
+                stop = stop or cb.stop_training
+            if stop:
+                break
+        for cb in callbacks:
+            cb.on_train_end(self)
+        return history
+
+    def validate(self, val_ds, batch_size: int = 256,
+                 validation_steps: Optional[int] = None,
+                 seed: int = 0) -> dict:
+        """Weighted metrics over the validation set (the final batch is
+        zero-padded; its fake rows carry no weight)."""
+        sums, wsums = {}, {}
+        for count, batch in enumerate(val_ds.batches(
+                batch_size, shuffle=False, seed=seed, pad_final_batch=True)):
+            if validation_steps and count >= validation_steps:
+                break
+            self._accumulate(sums, wsums,
+                             self.eval_step(self._put_batch(batch)))
+        return self._means(sums, wsums)
+
+    # ------------------------------------------------------------------ #
+    # persistence
+    # ------------------------------------------------------------------ #
+
+    def save_checkpoint(self, path) -> None:
+        best = self._best_monitor_value
+        tree = {"params": self.state["params"],
+                "opt_state": self.state["opt_state"],
+                "step": np.int64(self.state["step"]),
+                "seed": np.int64(self.state["seed"]),
+                "epoch": np.int32(self._epochs_completed or 0),
+                "best_monitor": np.float64(best if best is not None
+                                           else np.nan)}
+        ckpt_lib.save_pytree(path, tree)
+
+    def load_checkpoint(self, path) -> None:
+        if self.state is None:
+            raise RuntimeError("Call initialize_model before load_checkpoint")
+        target = {"params": self.state["params"],
+                  "opt_state": self.state["opt_state"],
+                  "step": 0, "seed": 0, "epoch": 0, "best_monitor": 0.0}
+        restored = ckpt_lib.load_pytree(path, target)
+        opt = restored["opt_state"]
+        self.state = {"params": restored["params"],
+                      "opt_state": {"count": int(opt["count"]),
+                                    "mu": opt["mu"], "nu": opt["nu"]},
+                      "step": int(restored["step"]),
+                      "seed": int(restored["seed"])}
+        self._epochs_completed = int(restored["epoch"]) or None
+        best = float(restored["best_monitor"])
+        self._best_monitor_value = best if np.isfinite(best) else None
+
+    @property
+    def params(self):
+        return self.state["params"] if self.state is not None else None

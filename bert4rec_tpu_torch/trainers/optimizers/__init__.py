@@ -1,0 +1,166 @@
+"""Optimizer factory (port of ``bert4rec_tpu/trainers/optimizers/__init__.py``):
+
+    clip_by_global_norm(5.0)
+    -> adamw(warmup+polynomial-decay schedule,
+             weight decay masked to exclude LayerNorm/layer_norm/bias/norm)
+
+written out as optax computes it, so a step matches the JAX chain:
+
+- the clip is ``g * 5 / ||g||`` where ``||g|| >= 5`` (optax's
+  ``(t / g_norm) * max_norm``), not ``torch.nn.utils.clip_grad_norm_``'s
+  division by ``||g|| + 1e-6``;
+- the learning rate of update ``n`` (counting from 0) is ``schedule(n)``,
+  so under warmup the first update is zero;
+- Adam's moments are bias-corrected with the count after the update, and
+  the update is ``mu_hat / (sqrt(nu_hat) + eps) + wd * p`` (decay only on
+  masked-in paths), times ``-lr``.
+
+The parameters are updated in place (the JAX chain returns new arrays);
+the optimizer state is ``{"count": int, "mu": tree, "nu": tree}`` with
+the moments in the params' nested layout.
+"""
+
+import re
+from typing import Callable, Dict, Sequence, Union
+
+import numpy as np
+import torch
+
+from bert4rec_tpu_torch.utils.checkpoint import flatten, unflatten
+
+DEFAULT_EXCLUDE_FROM_WEIGHT_DECAY = ("LayerNorm", "layer_norm", "bias",
+                                     "norm", "scale_bias")
+
+
+def create_warmup_poly_schedule(init_lr: float,
+                                num_train_steps: int,
+                                num_warmup_steps: int,
+                                power: float = 1.0,
+                                end_lr: float = 0.0) -> Callable[[int], float]:
+    """Linear warmup to ``init_lr`` then polynomial decay to ``end_lr``,
+    evaluated in float32 as the JAX schedule is."""
+    f32 = np.float32
+
+    def schedule(step: int) -> float:
+        step = f32(step)
+        if step < num_warmup_steps:
+            return float(f32(init_lr) * step
+                         / f32(max(1.0, float(num_warmup_steps))))
+        frac = np.clip(step / f32(num_train_steps), f32(0.0), f32(1.0))
+        decay = (f32(init_lr) - f32(end_lr)) * (f32(1.0) - frac) \
+            ** f32(power) + f32(end_lr)
+        return float(decay)
+    return schedule
+
+
+def weight_decay_mask(exclude_patterns: Sequence[str]
+                      ) -> Callable[[str], bool]:
+    """``path -> bool``: decay only params whose ``/``-joined path (e.g.
+    ``encoder/layers/layer_0/attention_norm/scale``) matches none of the
+    excluded patterns by ``re.search`` — the JAX mask's own strings."""
+    regexes = [re.compile(p) for p in exclude_patterns]
+    return lambda path: not any(r.search(path) for r in regexes)
+
+
+class AdamW:
+    """Global-norm clip, then AdamW with a schedule and a decay mask."""
+
+    def __init__(self, schedule: Callable[[int], float], b1: float = 0.9,
+                 b2: float = 0.999, eps: float = 1e-6,
+                 weight_decay: float = 0.01,
+                 decay_mask: Callable[[str], bool] = None,
+                 global_clipnorm: float = 5.0):
+        self.schedule = schedule
+        self.b1, self.b2, self.eps = b1, b2, eps
+        self.weight_decay = weight_decay
+        self.decay_mask = decay_mask or weight_decay_mask(
+            DEFAULT_EXCLUDE_FROM_WEIGHT_DECAY)
+        self.global_clipnorm = global_clipnorm
+
+    def init(self, params: dict) -> dict:
+        flat = flatten(params)
+        zeros = {k: torch.zeros_like(v, dtype=torch.float32)
+                 for k, v in flat.items()}
+        return {"count": 0, "mu": unflatten(zeros),
+                "nu": unflatten({k: torch.zeros_like(v)
+                                 for k, v in zeros.items()})}
+
+    @torch.no_grad()
+    def update(self, grads: Dict[str, torch.Tensor], state: dict,
+               params: dict) -> dict:
+        """Apply one update to ``params`` in place; returns the new
+        state. ``grads`` is ``{path: tensor}`` for every param path."""
+        flat = flatten(params)
+        paths = list(flat)
+        g = [grads[k].float() for k in paths]
+        # clip_by_global_norm: sqrt of the sum of every leaf's sum of
+        # squares; untouched below the bound, t / norm * bound at or above
+        norm = torch.stack([(t * t).sum() for t in g]).sum().sqrt()
+        below = norm < self.global_clipnorm
+        g = [torch.where(below, t, t / norm * self.global_clipnorm)
+             for t in g]
+
+        mu_flat, nu_flat = flatten(state["mu"]), flatten(state["nu"])
+        mu = [mu_flat[k] for k in paths]
+        nu = [nu_flat[k] for k in paths]
+        torch._foreach_mul_(mu, self.b1)
+        torch._foreach_add_(mu, g, alpha=1.0 - self.b1)
+        torch._foreach_mul_(nu, self.b2)
+        torch._foreach_addcmul_(nu, g, g, value=1.0 - self.b2)
+        count = state["count"] + 1
+        f32 = np.float32
+        bc1 = float(f32(1.0) - f32(self.b1) ** f32(count))
+        bc2 = float(f32(1.0) - f32(self.b2) ** f32(count))
+        mu_hat = torch._foreach_div(mu, bc1)
+        den = torch._foreach_div(nu, bc2)
+        torch._foreach_sqrt_(den)
+        torch._foreach_add_(den, self.eps)
+        upd = torch._foreach_div(mu_hat, den)
+        decay = [i for i, k in enumerate(paths) if self.decay_mask(k)]
+        if self.weight_decay and decay:
+            torch._foreach_add_([upd[i] for i in decay],
+                                [flat[paths[i]] for i in decay],
+                                alpha=self.weight_decay)
+        lr = self.schedule(state["count"])
+        torch._foreach_add_([flat[k] for k in paths], upd, alpha=-lr)
+        return {"count": count, "mu": state["mu"], "nu": state["nu"]}
+
+
+def create_adam_w_optimizer(
+        init_lr: float = 1e-4,
+        num_train_steps: int = 400000,
+        num_warmup_steps: int = 100,
+        weight_decay_rate: float = 0.01,
+        beta_1: float = 0.9,
+        beta_2: float = 0.999,
+        epsilon: float = 1e-6,
+        exclude_from_weight_decay: Sequence[str] =
+        DEFAULT_EXCLUDE_FROM_WEIGHT_DECAY,
+        global_clipnorm: float = 5.0,
+        power: float = 1.0) -> AdamW:
+    schedule = create_warmup_poly_schedule(
+        init_lr, num_train_steps, num_warmup_steps, power)
+    return AdamW(schedule, b1=beta_1, b2=beta_2, eps=epsilon,
+                 weight_decay=weight_decay_rate,
+                 decay_mask=weight_decay_mask(exclude_from_weight_decay),
+                 global_clipnorm=global_clipnorm)
+
+
+optimizers_map = {
+    "adamw": create_adam_w_optimizer,
+    "adam_w": create_adam_w_optimizer,
+}
+
+
+def get(identifier: Union[str, AdamW] = "adamw", **kwargs) -> AdamW:
+    """Factory (the JAX ``optimizers.get``)."""
+    if isinstance(identifier, AdamW):
+        return identifier
+    if identifier in optimizers_map:
+        return optimizers_map[identifier](**kwargs)
+    raise ValueError(f"{identifier} is not a known optimizer identifier!")
+
+
+__all__ = ["AdamW", "create_adam_w_optimizer", "create_warmup_poly_schedule",
+           "weight_decay_mask", "optimizers_map", "get",
+           "DEFAULT_EXCLUDE_FROM_WEIGHT_DECAY"]

@@ -96,3 +96,24 @@ def check_structure(flat: Dict[str, np.ndarray], target: dict,
             raise ValueError(f"{source} leaf {key!r} has shape "
                              f"{tuple(flat[key].shape)}, expected "
                              f"{tuple(leaf.shape)}")
+
+
+def load_pytree(path, target: dict) -> dict:
+    """Restore a tree saved by :func:`save_pytree` into ``target``'s
+    structure: a tensor leaf of ``target`` becomes a tensor on that leaf's
+    device with the stored values and dtype (keeping its
+    ``requires_grad``); any other leaf becomes the stored numpy value
+    (0-d arrays as Python scalars)."""
+    stored = load_npz(path)
+    out = {}
+    for key, leaf in flatten(target).items():
+        if key not in stored:
+            raise KeyError(f"Checkpoint {path} is missing leaf {key!r}; it "
+                           f"has {sorted(stored)[:8]}...")
+        value = stored[key]
+        if isinstance(leaf, torch.Tensor):
+            t = torch.from_numpy(np.array(value, copy=True)).to(leaf.device)
+            out[key] = t.requires_grad_(leaf.requires_grad)
+        else:
+            out[key] = value.item() if value.ndim == 0 else value
+    return unflatten(out)

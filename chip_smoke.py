@@ -20,7 +20,25 @@ Phases (any failure raises and the script exits non-zero):
               concurrent requests, each answer checked against the plain
               path on the card; then the bulk ``recommend_stream`` path at
               B=256. Kernel launch counts are reset before each path and
-              must equal layers x batches after it.
+              must equal layers x batches after it;
+5. training kernels — the dropout masks the CUDA hash draws, bit for bit
+              against the plain version's and at the keep rate; the
+              layer forward with dropout (0.2 / 0.5) and its backward at
+              B=32 and B=256 in fp32 and bf16; the tied-softmax loss
+              forward and backward at R=10,240 rows, V=3,709, W=128 —
+              each against its plain version, with kernel, plain and
+              library-yardstick times and the bound;
+6. training — ``BERT4RecTrainer.train()`` on the ml-1m_128 config at the
+              bench shape (B=256, S=200, P=40, bf16 compute, dropout
+              0.2 / 0.5, fused layer and fused loss), data by
+              ``bench.py``'s ``make_batch`` law: one step on the kernels
+              against the same step on the plain versions (loss, metrics,
+              every gradient); the launch counts of a 24-step run (layers
+              x steps for the layer forward and backward, steps for the
+              loss forward and backward); the step time and a device
+              breakdown; the loss falling on a repeated batch; and a
+              checkpointed run resumed by a new trainer, equal bit for bit
+              to the uninterrupted run.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the rest of
@@ -439,6 +457,472 @@ def check_serving(torch, rng, device):
     return launches
 
 
+# --------------------------------------------------------------------------- #
+# phase 5: the training kernels against their plain versions
+# --------------------------------------------------------------------------- #
+
+RATES = (0.2, 0.5)        # ml-1m_128's attention / output dropout
+N_ROWS = 256 * 40         # B x P masked rows of one train batch
+# kernel vs plain, max |a - b| over max |b| for gradients (they sum over
+# all B*S rows): fp32 differs in summation order only; in bf16 an order
+# difference can flip the rounding of an intermediate (ds, dhpre, dattn)
+GRAD_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
+LOSS_TOL = {"float32": 1e-4, "bfloat16": 2e-2}   # same measure, K3/K4
+
+
+def rel_err(a, b) -> float:
+    a, b = a.float(), b.float()
+    return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-6)
+
+
+def library_layer_train(params, x, mask, num_heads, rates):
+    """library_layer with dropout: SDPA's own dropout on the
+    probabilities and F.dropout on both outputs (a yardstick only)."""
+    import torch
+    import torch.nn.functional as F
+    from bert4rec_tpu_torch.ops.fused_encoder_layer import flat_weights
+    flat = {k: v.to(x.dtype) for k, v in flat_weights(params).items()}
+    b, s, h = x.shape
+    qkv = torch.matmul(x, flat["wqkv"]) + flat["bqkv"]
+    q, k, v = (t.view(b, s, num_heads, h // num_heads).transpose(1, 2)
+               for t in qkv.split(h, dim=-1))
+    bias = torch.where(mask > 0, 0.0, -1e9).to(x.dtype)[:, None, None, :]
+    ctx = F.scaled_dot_product_attention(q, k, v, attn_mask=bias,
+                                         dropout_p=rates[0])
+    ctx = ctx.transpose(1, 2).reshape(b, s, h)
+    attn = F.dropout(torch.matmul(ctx, flat["wo"]) + flat["bo"], rates[1])
+    x1 = F.layer_norm(x + attn, (h,), flat["g1"][0], flat["b1ln"][0],
+                      eps=1e-12)
+    hact = F.gelu(torch.matmul(x1, flat["w1"]) + flat["bf1"],
+                  approximate="tanh")
+    f = F.dropout(torch.matmul(hact, flat["w2"]) + flat["bf2"], rates[1])
+    return F.layer_norm(x1 + f, (h,), flat["g2"][0], flat["b2ln"][0],
+                        eps=1e-12)
+
+
+def layer_bwd_bound_ms(b, dtype_name):
+    """Least time for one layer's backward: its products (8SHF + 16SH^2 +
+    8S^2H FLOP per sequence, twice the forward's; the recomputation is
+    not counted) over the peak, or its bytes (x, dy, mask, fp32 params
+    read once; dx and the fp32 grads written once) over the HBM rate."""
+    s, h, f = SEQ, HIDDEN, INNER
+    flops = b * (8 * s * h * f + 16 * s * h * h + 8 * s * s * h)
+    es = 4 if dtype_name == "float32" else 2
+    params = 4 * (4 * h * h + 2 * h * f + 3 * h + h + 4 * h + f + h)
+    nbytes = 3 * b * s * h * es + b * s * 4 + 2 * params
+    t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
+    t_bytes = nbytes / HBM_BYTES_S * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                 else "bytes")
+
+
+def loss_bound_ms(rows, v, w, dtype_name, backward):
+    """K3: 2RVW FLOP; K4: 6RVW (the logits recomputed, then dh and
+    dtable); bytes: hidden, table, bias, labels read once, the outputs
+    written once."""
+    es = 4 if dtype_name == "float32" else 2
+    flops = (6 if backward else 2) * rows * v * w
+    nbytes = rows * w * es + v * w * es + v * 4 + rows * 4
+    nbytes += (rows * w * es + v * w * 4 + v * 4) if backward else rows * 4
+    t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
+    t_bytes = nbytes / HBM_BYTES_S * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                 else "bytes")
+
+
+def check_dropout_masks(torch, device):
+    from bert4rec_tpu_torch.ops import dropout_bits
+    from bert4rec_tpu_torch.ops import fused_encoder_layer as fel
+    for rate in RATES:
+        for site0, n, cols in ((0, HEADS, SEQ), (HEADS, 2, HIDDEN)):
+            got = fel.kernel_keep_scale(2024, 32, site0, n, SEQ, cols, rate,
+                                        device)
+            ref = dropout_bits.keep_scale(2024, 32, range(site0, site0 + n),
+                                          SEQ, cols, rate, device)
+            kept = float((got > 0).float().mean())
+            if not torch.equal(got, ref):
+                raise AssertionError(f"dropout masks differ (rate {rate}, "
+                                     f"sites {site0}..{site0 + n - 1})")
+            if abs(kept - (1 - rate)) > 3e-3:
+                raise AssertionError(f"keep rate {kept} for rate {rate}")
+            print(f"dropout masks rate={rate} sites {site0}..{site0 + n - 1}"
+                  f": kernel == plain ({got.numel()} elements), keep rate "
+                  f"{kept:.4f} (expected {1 - rate})", flush=True)
+
+
+def check_layer_training(torch, rng, device):
+    """K1 with dropout and K2 against their plain versions."""
+    import numpy as np
+    from bert4rec_tpu_torch.ops import fused_encoder_layer as fel
+    from bert4rec_tpu_torch.utils.checkpoint import flatten, unflatten
+    params = random_layer(rng, device)
+    flat = fel.flat_weights(params)
+    kw = dict(num_heads=HEADS, attention_dropout=RATES[0],
+              output_dropout=RATES[1], seed=4242)
+    rows = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).removeprefix("torch.")
+        for b in (32, STREAM_BATCH):
+            x = torch.from_numpy(rng.normal(size=(b, SEQ, HIDDEN))
+                                 .astype(np.float32)).to(device, dtype)
+            lengths = rng.integers(1, SEQ + 1, size=b)
+            mask = torch.from_numpy(
+                (np.arange(SEQ)[None, :] < lengths[:, None])
+                .astype(np.int32)).to(device)
+            dy = torch.from_numpy(rng.normal(size=(b, SEQ, HIDDEN))
+                                  .astype(np.float32)).to(device, dtype)
+            fwd = lambda: fel._launch_forward(   # noqa: E731
+                flat, x, mask, HEADS, kw["seed"], *RATES, True)
+            y, saved = fwd()
+            bwd = lambda: fel._launch_backward(  # noqa: E731
+                flat, x, mask, dy, saved, HEADS, kw["seed"], *RATES)
+            dx, grads = bwd()
+            torch.cuda.synchronize()
+            ref_y = fel.fused_encoder_layer_plain(params, x, mask, **kw)
+            ref_dx, ref_g = fel.fused_encoder_layer_plain_backward(
+                flat, x, mask, dy, **kw)
+            fwd_err = float((y.float() - ref_y.float()).abs().max())
+            bwd_err = max([rel_err(dx, ref_dx)]
+                          + [rel_err(grads[k], ref_g[k]) for k in grads])
+            if not (fwd_err <= TOL[name] and bwd_err <= GRAD_TOL[name]
+                    and bool(torch.isfinite(dx).all())):
+                raise AssertionError(
+                    f"layer training kernels {name} B={b}: forward err "
+                    f"{fwd_err} (tol {TOL[name]}), backward rel err "
+                    f"{bwd_err} (tol {GRAD_TOL[name]})")
+            again = bwd()
+            if not (torch.equal(again[0], dx) and all(
+                    torch.equal(again[1][k], grads[k]) for k in grads)):
+                raise AssertionError("layer backward is not deterministic")
+            # yardsticks: library composition, forward and autograd
+            lflat = {k: v.detach().clone().requires_grad_(True)
+                     for k, v in flatten(params).items()}
+            xl = x.detach().requires_grad_(True)
+            y_lib = library_layer_train(unflatten(lflat), xl, mask, HEADS,
+                                        RATES)
+            leaves = [xl, *lflat.values()]
+            lib_bwd = lambda: torch.autograd.grad(  # noqa: E731
+                y_lib, leaves, dy, retain_graph=True)
+            row = dict(
+                fwd=dict(max_abs_err=fwd_err, ms=time_ms(fwd),
+                         plain_ms=time_ms(lambda: fel.fused_encoder_layer_plain(
+                             params, x, mask, **kw)),
+                         library_ms=time_ms(lambda: library_layer_train(
+                             params, x, mask, HEADS, RATES)),
+                         **dict(zip(("bound_ms", "bound_by"),
+                                    layer_bound_ms(b, name)))),
+                bwd=dict(max_abs_err=float((dx.float() - ref_dx.float())
+                                           .abs().max()),
+                         max_rel_err=bwd_err, ms=time_ms(bwd),
+                         plain_ms=time_ms(
+                             lambda: fel.fused_encoder_layer_plain_backward(
+                                 flat, x, mask, dy, **kw), iters=5),
+                         library_ms=time_ms(lib_bwd),
+                         **dict(zip(("bound_ms", "bound_by"),
+                                    layer_bwd_bound_ms(b, name)))))
+            rows[(name, b)] = row
+            for part, r in row.items():
+                print(f"fused_encoder_layer {part} dropout {RATES} {name} "
+                      f"B={b}: err {r['max_abs_err']:.3g}"
+                      + (f" (rel {r['max_rel_err']:.3g}, tol "
+                         f"{GRAD_TOL[name]})" if part == "bwd" else
+                         f" (tol {TOL[name]})")
+                      + f" kernel_ms={r['ms']:.4f} plain_ms="
+                      f"{r['plain_ms']:.4f} library_ms={r['library_ms']:.4f}"
+                      f" bound_ms={r['bound_ms']:.5f} ({r['bound_by']})",
+                      flush=True)
+            if b == STREAM_BATCH and name == "bfloat16":
+                print("  per backward launch: " + device_breakdown(
+                    torch, bwd), flush=True)
+    return rows
+
+
+def check_loss_kernels(torch, rng, device):
+    """K3 and K4 against their plain versions at one train batch's rows."""
+    import numpy as np
+    import torch.nn.functional as F
+    from bert4rec_tpu_torch.ops import fused_mlm_loss as fml
+    rows = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).removeprefix("torch.")
+        hidden = torch.from_numpy(rng.normal(size=(N_ROWS, HIDDEN))
+                                  .astype(np.float32)).to(device, dtype)
+        table = torch.from_numpy((rng.normal(size=(VOCAB, HIDDEN)) * 0.1)
+                                 .astype(np.float32)).to(device)
+        bias = torch.from_numpy(rng.normal(size=VOCAB).astype(np.float32)) \
+            .to(device)
+        labels_np = rng.integers(3, VOCAB, size=N_ROWS).astype(np.int32)
+        labels_np[::9] = 0
+        labels = torch.from_numpy(labels_np).to(device)
+        t_s, b_m = table.to(dtype), fml._mask_bias(bias, VOCAB)
+        g = torch.ones((), device=device)
+        fwd = lambda: fml._launch_forward(hidden, t_s, b_m, labels)  # noqa
+        lse, sums = fwd()
+        bwd = lambda: fml._launch_backward(  # noqa: E731
+            hidden, t_s, b_m, labels, lse, g, sums[3:4])
+        dh, dt, db = bwd()
+        torch.cuda.synchronize()
+        ref_lse, ref_sums = fml.fused_mlm_loss_plain_forward(
+            hidden, t_s, b_m, labels)
+        rdh, rdt, rdb = fml.fused_mlm_loss_plain_backward(
+            hidden, t_s, b_m, labels, ref_lse, g, ref_sums[3])
+        fwd_err = max(rel_err(lse, ref_lse), rel_err(sums[:1],
+                                                      ref_sums[:1]))
+        bwd_err = max(rel_err(dh, rdh), rel_err(dt, rdt), rel_err(db, rdb))
+        if not (fwd_err <= LOSS_TOL[name] and bwd_err <= LOSS_TOL[name]
+                and torch.equal(sums[1:], ref_sums[1:])):
+            raise AssertionError(
+                f"loss kernels {name}: forward rel err {fwd_err}, counts "
+                f"{sums[1:].tolist()} vs {ref_sums[1:].tolist()}, backward "
+                f"rel err {bwd_err} (tol {LOSS_TOL[name]})")
+        again = bwd()
+        if not all(torch.equal(a, c) for a, c in zip(again, (dh, dt, db))):
+            raise AssertionError("loss backward is not deterministic")
+        # yardstick: the logits by matmul, then cross_entropy (and its
+        # autograd); it materialises the [R, V] logits the kernels avoid
+        hl = hidden.detach().requires_grad_(True)
+        tl = t_s.detach().requires_grad_(True)
+        bl = b_m.detach().requires_grad_(True)
+
+        def lib_fwd():
+            logits = torch.matmul(hl, tl.T).float() + bl
+            return F.cross_entropy(logits, labels.long(), ignore_index=0)
+
+        lib_loss = lib_fwd()
+        row = dict(
+            fwd=dict(max_abs_err=float((sums[0] - ref_sums[0]).abs()),
+                     max_rel_err=fwd_err, ms=time_ms(fwd),
+                     plain_ms=time_ms(lambda: fml.fused_mlm_loss_plain_forward(
+                         hidden, t_s, b_m, labels)),
+                     library_ms=time_ms(lib_fwd),
+                     **dict(zip(("bound_ms", "bound_by"), loss_bound_ms(
+                         N_ROWS, VOCAB, HIDDEN, name, False)))),
+            bwd=dict(max_abs_err=float((dh.float() - rdh.float()).abs().max()),
+                     max_rel_err=bwd_err, ms=time_ms(bwd),
+                     plain_ms=time_ms(lambda: fml.fused_mlm_loss_plain_backward(
+                         hidden, t_s, b_m, labels, ref_lse, g, ref_sums[3])),
+                     library_ms=time_ms(lambda: torch.autograd.grad(
+                         lib_loss, (hl, tl, bl), retain_graph=True)),
+                     **dict(zip(("bound_ms", "bound_by"), loss_bound_ms(
+                         N_ROWS, VOCAB, HIDDEN, name, True)))))
+        rows[name] = row
+        for part, r in row.items():
+            print(f"fused_mlm_loss {part} {name} R={N_ROWS} V={VOCAB} "
+                  f"W={HIDDEN}: rel err {r['max_rel_err']:.3g} (tol "
+                  f"{LOSS_TOL[name]}) kernel_ms={r['ms']:.4f} plain_ms="
+                  f"{r['plain_ms']:.4f} library_ms={r['library_ms']:.4f} "
+                  f"bound_ms={r['bound_ms']:.5f} ({r['bound_by']})",
+                  flush=True)
+    return rows
+
+
+# --------------------------------------------------------------------------- #
+# phase 6: training through BERT4RecTrainer.train()
+# --------------------------------------------------------------------------- #
+
+TRAIN_STEPS = 24
+STEP_TOL = {"loss": 2e-3, "metric": 0.0, "grad": 5e-2}
+
+
+def make_batch(seed, batch=STREAM_BATCH, npred=40):
+    """One ML-1M-shaped train batch (``bench.py``'s ``make_batch`` law):
+    random item ids, no padding, 40 distinct sorted masked positions."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(3, VOCAB, size=(batch, SEQ)).astype(np.int32)
+    positions = np.stack([np.sort(rng.choice(SEQ, size=npred, replace=False))
+                          for _ in range(batch)]).astype(np.int32)
+    return {"input_word_ids": ids,
+            "input_mask": np.ones((batch, SEQ), np.int32),
+            "masked_lm_positions": positions,
+            "masked_lm_ids": np.take_along_axis(ids, positions, axis=1),
+            "masked_lm_weights": np.ones((batch, npred), np.int32)}
+
+
+class SyntheticDataset:
+    """In-memory batches with the dataset contract ``train()`` reads."""
+
+    def __init__(self, n_batches, seed=0, repeat=False):
+        self.n_batches, self.seed, self.repeat = n_batches, seed, repeat
+
+    def batches(self, batch_size, shuffle=True, seed=None,
+                drop_remainder=False, pad_final_batch=False):
+        base = self.seed + 1000 * (seed or 0)
+        for i in range(self.n_batches):
+            yield make_batch(self.seed if self.repeat else base + i,
+                             batch_size)
+
+
+def new_trainer(torch, device, params=None, lr=1e-4, warmup=100):
+    from bert4rec_tpu_torch.config import load_train_config
+    from bert4rec_tpu_torch.core.dtypes import DTypePolicy
+    from bert4rec_tpu_torch.models import BERT4RecModel
+    from bert4rec_tpu_torch.trainers import BERT4RecTrainer, optimizers
+    config = load_train_config("ml-1m_128", vocab_size=VOCAB,
+                               use_fused_layer=True, use_fused_loss=True)
+    model = BERT4RecModel(config=config, dtype_policy=DTypePolicy.bf16())
+    trainer = BERT4RecTrainer(model)
+    trainer.initialize_model(
+        optimizer=optimizers.create_adam_w_optimizer(
+            init_lr=lr, num_warmup_steps=warmup), params=params, seed=SEED,
+        device=device)
+    return trainer
+
+
+def plain_kernels():
+    """Patches that send the CUDA branches of the layer and loss Functions
+    to the plain versions: the reference of the step check."""
+    from unittest import mock
+    from bert4rec_tpu_torch.ops import fused_encoder_layer as fel
+    from bert4rec_tpu_torch.ops import fused_mlm_loss as fml
+
+    def layer_fwd(flat, x, mask, num_heads, seed, a, o, save):
+        return fel._forward_math(flat, x, mask, num_heads, seed, a, o)["y"], ()
+
+    def layer_bwd(flat, x, mask, dy, saved, num_heads, seed, a, o):
+        return fel.fused_encoder_layer_plain_backward(
+            flat, x, mask, dy, num_heads=num_heads, attention_dropout=a,
+            output_dropout=o, seed=seed)
+
+    def loss_bwd(hidden, table, bias, labels, lse, g, n_valid):
+        return fml.fused_mlm_loss_plain_backward(hidden, table, bias, labels,
+                                                 lse, g, n_valid[0])
+
+    patches = [mock.patch.object(fel, "_launch_forward", layer_fwd),
+               mock.patch.object(fel, "_launch_backward", layer_bwd),
+               mock.patch.object(fml, "_launch_forward",
+                                 fml.fused_mlm_loss_plain_forward),
+               mock.patch.object(fml, "_launch_backward", loss_bwd)]
+    return patches
+
+
+def check_training(torch, device):
+    from contextlib import ExitStack
+    from bert4rec_tpu_torch.ops import fused_encoder_layer as fel
+    from bert4rec_tpu_torch.ops import fused_mlm_loss as fml
+    from bert4rec_tpu_torch.utils.checkpoint import flatten
+
+    trainer = new_trainer(torch, device)
+    cfg = trainer.model.config
+    if not trainer.model.encoder.fused_layer_routed(
+            STREAM_BATCH, SEQ, dropout_active=True, device=device):
+        raise AssertionError("training is not routed to the fused layer")
+    init = {k: v.detach().clone() for k, v in
+            flatten(trainer.state["params"]).items()}
+
+    # 2. one step on the kernels against the same step on the plain
+    #    versions, dropout on, the same seeds
+    batch = trainer._put_batch(make_batch(7))
+    loss_k, logs_k, grads_k = trainer._grads(batch, 99)
+    with ExitStack() as stack:
+        for patch in plain_kernels():
+            stack.enter_context(patch)
+        loss_p, logs_p, grads_p = trainer._grads(batch, 99)
+    torch.cuda.synchronize()
+    loss_err = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+    metric_err = max(abs(float(logs_k[k]) - float(logs_p[k]))
+                     for k in logs_k)
+    grad_err = {k: rel_err(grads_k[k], grads_p[k]) for k in grads_k
+                if float(grads_p[k].abs().max()) > 0}
+    worst = max(grad_err, key=grad_err.get)
+    print(f"train step, kernels vs plain (dropout {RATES}, bf16): loss "
+          f"{float(loss_k):.6f} vs {float(loss_p):.6f} (rel {loss_err:.3g},"
+          f" tol {STEP_TOL['loss']}), metrics max diff {metric_err:.3g}, "
+          f"{len(grad_err)} grads max rel err {grad_err[worst]:.3g} at "
+          f"{worst} (tol {STEP_TOL['grad']})", flush=True)
+    if not (loss_err <= STEP_TOL["loss"] and grad_err[worst]
+            <= STEP_TOL["grad"]
+            and metric_err <= 2.0 / float(trainer._counts(batch)["_n_valid"])):
+        raise AssertionError("the kernel step disagrees with the plain step")
+
+    # the main path: BERT4RecTrainer.train() for TRAIN_STEPS steps
+    for fn in (fel.fused_encoder_layer, fml.fused_mlm_loss):
+        fn.launches = fn.backward_launches = 0
+    t0 = time.perf_counter()
+    hist = trainer.train(SyntheticDataset(TRAIN_STEPS, seed=1), epochs=1,
+                         batch_size=STREAM_BATCH, seed=SEED, verbose=False)
+    wall = time.perf_counter() - t0
+    counts = dict(layer_fwd=fel.fused_encoder_layer.launches,
+                  layer_bwd=fel.fused_encoder_layer.backward_launches,
+                  loss_fwd=fml.fused_mlm_loss.launches,
+                  loss_bwd=fml.fused_mlm_loss.backward_launches)
+    want = dict(layer_fwd=cfg.num_layers * TRAIN_STEPS,
+                layer_bwd=cfg.num_layers * TRAIN_STEPS,
+                loss_fwd=TRAIN_STEPS, loss_bwd=TRAIN_STEPS)
+    loss = hist.history["loss"][0]
+    print(f"train(): {TRAIN_STEPS} steps of B={STREAM_BATCH} in {wall:.2f} s"
+          f" (first step included), epoch loss {loss:.4f}, masked_accuracy "
+          f"{hist.history['masked_accuracy'][0]:.4f}; launches {counts}",
+          flush=True)
+    if counts != want or trainer.state["step"] != TRAIN_STEPS \
+            or not math.isfinite(loss):
+        raise AssertionError(f"launches {counts}, expected {want}; step "
+                             f"{trainer.state['step']}")
+    moved = max(float((v.detach() - init[k]).abs().max())
+                for k, v in flatten(trainer.state["params"]).items())
+    if not moved > 0:
+        raise AssertionError("train() did not move the params")
+
+    # step time on the card: host clock around synchronised steps
+    step_ms = []
+    for i in range(10):
+        b = trainer._put_batch(make_batch(100 + i))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.train_step(b)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    median = sorted(step_ms)[len(step_ms) // 2]
+    print(f"train step B={STREAM_BATCH}: median {median:.3f} ms of 10 "
+          f"(min {min(step_ms):.3f}), {STREAM_BATCH / median * 1e3:.1f} "
+          f"examples/s", flush=True)
+    print("  one train step: " + device_breakdown(
+        torch, lambda: trainer.train_step(batch), calls=3, top=8),
+        flush=True)
+
+    # 3. the loss falls on one repeated batch at a raised learning rate
+    probe = make_batch(3)
+    start = new_trainer(torch, device, params=init)
+    before = float(start.eval_step(start._put_batch(probe))["loss"])
+    fast = new_trainer(torch, device, params=init, lr=1e-3, warmup=0)
+    fast.train(SyntheticDataset(12, seed=3, repeat=True), epochs=1,
+               batch_size=STREAM_BATCH, seed=SEED, verbose=False)
+    after = float(fast.eval_step(fast._put_batch(probe))["loss"])
+    print(f"repeated batch, lr 1e-3, 12 steps: eval loss {before:.4f} -> "
+          f"{after:.4f}", flush=True)
+    if not after < 0.99 * before:
+        raise AssertionError(f"loss did not fall on a repeated batch: "
+                             f"{before} -> {after}")
+
+    # 4. train() with a checkpoint, then a new trainer that auto-resumes
+    #    from it and continues, equals the uninterrupted run
+    ds, val = SyntheticDataset(3, seed=5), SyntheticDataset(1, seed=6)
+    whole = new_trainer(torch, device, params=init)
+    whole.train(ds, epochs=2, batch_size=STREAM_BATCH, seed=SEED,
+                verbose=False)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as tmp:
+        path = f"{tmp}/state.npz"
+        first = new_trainer(torch, device, params=init)
+        first.train(ds, val, checkpoint_path=path, epochs=1,
+                    batch_size=STREAM_BATCH, seed=SEED, verbose=False)
+        resumed = new_trainer(torch, device, params=init)
+        resumed.train(ds, val, checkpoint_path=path, epochs=2,
+                      batch_size=STREAM_BATCH, seed=SEED, verbose=False)
+    fa = flatten(whole.state["params"])
+    fb = flatten(resumed.state["params"])
+    if not (all(torch.equal(fa[k], fb[k]) for k in fa)
+            and whole.state["step"] == resumed.state["step"] == 6):
+        diff = max(float((fa[k] - fb[k]).abs().max()) for k in fa)
+        raise AssertionError(f"resume is not exact: steps "
+                             f"{whole.state['step']} / "
+                             f"{resumed.state['step']}, max param diff {diff}")
+    print(f"resume: checkpoint after epoch 1 (step 3), a new trainer "
+          f"resumed and ran epoch 2: params after step "
+          f"{resumed.state['step']} equal the uninterrupted run's bit for "
+          f"bit", flush=True)
+    return counts
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -470,16 +954,39 @@ def main() -> int:
     rng = np.random.default_rng(SEED)
     layer_rows = check_fused_layer(torch, rng, device)
     launches = check_serving(torch, rng, device)
+    check_dropout_masks(torch, device)
+    train_rows = check_layer_training(torch, rng, device)
+    loss_rows = check_loss_kernels(torch, rng, device)
+    counts = check_training(torch, device)
 
-    main_row = layer_rows[("float32", 32)]   # what the server runs
-    record = {"kernels": [{
-        "name": "fused_encoder_layer",
-        "route": "cuda",
-        "source": "bert4rec_tpu_torch/csrc/fused_encoder_layer.cu",
-        "replaces": "bert4rec_tpu/ops/fused_encoder_layer.py:241",
-        "launches": launches,
-        **main_row,
-    }]}
+    def entry(name, source, replaces, n, row):
+        return {"name": name, "route": "cuda",
+                "source": f"bert4rec_tpu_torch/csrc/{source}",
+                "replaces": replaces, "launches": n,
+                **{k: row[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                       "bound_ms", "bound_by",
+                                       "library_ms")}}
+
+    train_row = train_rows[("bfloat16", STREAM_BATCH)]   # the train shape
+    layer_src, loss_src = "fused_encoder_layer.cu", "fused_mlm_loss.cu"
+    record = {"kernels": [
+        # what the server runs: fp32, B=32
+        entry("fused_encoder_layer", layer_src,
+              "bert4rec_tpu/ops/fused_encoder_layer.py:241", launches,
+              layer_rows[("float32", 32)]),
+        entry("fused_encoder_layer_dropout", layer_src,
+              "bert4rec_tpu/ops/fused_encoder_layer.py:241",
+              counts["layer_fwd"], train_row["fwd"]),
+        entry("fused_encoder_layer_backward", layer_src,
+              "bert4rec_tpu/ops/fused_encoder_layer.py:265",
+              counts["layer_bwd"], train_row["bwd"]),
+        entry("fused_mlm_loss", loss_src,
+              "bert4rec_tpu/ops/fused_mlm_loss.py:111", counts["loss_fwd"],
+              loss_rows["bfloat16"]["fwd"]),
+        entry("fused_mlm_loss_backward", loss_src,
+              "bert4rec_tpu/ops/fused_mlm_loss.py:148", counts["loss_bwd"],
+              loss_rows["bfloat16"]["bwd"]),
+    ]}
     print(f"card: {card}", flush=True)
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {

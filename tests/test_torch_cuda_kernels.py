@@ -95,3 +95,150 @@ def test_fused_layer_rejects_head_dim_beyond_kernel(cuda_device):
         fel.fused_encoder_layer(p, torch.from_numpy(x).to(cuda_device),
                                 torch.from_numpy(mask).to(cuda_device),
                                 num_heads=1)
+
+
+# --------------------------------------------------------------------------- #
+# training: K1 with dropout, K2, and the fused loss K3 / K4
+# --------------------------------------------------------------------------- #
+
+def _rel_err(a, b):
+    """max |a - b| over max |b|: gradients are held relative to their
+    scale, since they sum over every row of the batch."""
+    a, b = a.float().cpu(), b.float().cpu()
+    return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-6)
+
+
+# fp32: the same math in another summation order; bf16: a sum-order
+# difference can flip the bf16 rounding of an intermediate (ds, dhpre,
+# dattn), which moves a gradient by up to a few bf16 ulps of its scale
+GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dims", [
+    (4, 24, 32, 4, 64), (3, 200, 128, 4, 512), (2, 37, 96, 4, 200),
+], ids=lambda d: "B{}_S{}_H{}_N{}_F{}".format(*d))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("rates", [(0.0, 0.0), (0.2, 0.5)],
+                         ids=["rate0", "dropout"])
+def test_fused_layer_train_kernels_match_plain(cuda_device, dims, dtype,
+                                               rates):
+    b, s, h, n, f = dims
+    rng = np.random.default_rng(sum(dims) + 7)
+    p = params_from_numpy(flatten(layer_params_np(rng, h, n, f)),
+                          cuda_device)
+    for leaf in flatten(p).values():
+        leaf.requires_grad_(True)
+    x, mask = inputs_np(rng, b, s, h)
+    xt = torch.from_numpy(x).to(cuda_device, dtype).requires_grad_(True)
+    mt = torch.from_numpy(mask).to(cuda_device)
+    dy = torch.from_numpy(rng.normal(size=(b, s, h)).astype(np.float32)) \
+        .to(cuda_device, dtype)
+    kw = dict(num_heads=n, attention_dropout=rates[0],
+              output_dropout=rates[1], seed=12345)
+    fwd0, bwd0 = (fel.fused_encoder_layer.launches,
+                  fel.fused_encoder_layer.backward_launches)
+    y = fel.fused_encoder_layer(p, xt, mt, **kw)
+    y.backward(dy)
+    torch.cuda.synchronize()
+    assert (fel.fused_encoder_layer.launches,
+            fel.fused_encoder_layer.backward_launches) == (fwd0 + 1, bwd0 + 1)
+    with torch.no_grad():
+        ref_y = fel.fused_encoder_layer_plain(p, xt, mt, **kw)
+        flat = {k: v.detach() for k, v in fel.flat_weights(p).items()}
+        ref_dx, ref_g = fel.fused_encoder_layer_plain_backward(
+            flat, xt.detach(), mt, dy, **kw)
+    tol = 1e-4 if dtype == torch.float32 else 8e-2
+    np.testing.assert_allclose(y.detach().float().cpu().numpy(),
+                               ref_y.float().cpu().numpy(), rtol=0, atol=tol)
+    assert _rel_err(xt.grad, ref_dx) <= GRAD_TOL[dtype]
+    got = {k: v.grad for k, v in flatten(p).items()}
+    names = dict(zip(fel._W_ORDER, [
+        "attention/qkv/kernel", "attention/qkv/bias",
+        "attention/output/kernel", "attention/output/bias",
+        "attention_norm/scale", "attention_norm/bias",
+        "intermediate/kernel", "intermediate/bias", "output/kernel",
+        "output/bias", "output_norm/scale", "output_norm/bias"]))
+    for k, path in names.items():
+        g = got[path].reshape(ref_g[k].shape)
+        assert _rel_err(g, ref_g[k]) <= GRAD_TOL[dtype], path
+
+
+@pytest.mark.cuda
+def test_fused_layer_backward_is_deterministic(cuda_device):
+    rng = np.random.default_rng(5)
+    b, s, h, n, f = 4, 200, 128, 4, 512
+    p = params_from_numpy(flatten(layer_params_np(rng, h, n, f)),
+                          cuda_device)
+    for leaf in flatten(p).values():
+        leaf.requires_grad_(True)
+    x, mask = inputs_np(rng, b, s, h)
+    xt = torch.from_numpy(x).to(cuda_device, torch.bfloat16)
+    mt = torch.from_numpy(mask).to(cuda_device)
+    runs = []
+    for _ in range(2):
+        y = fel.fused_encoder_layer(p, xt, mt, num_heads=n,
+                                    attention_dropout=0.2,
+                                    output_dropout=0.5, seed=3)
+        grads = torch.autograd.grad(y.float().square().sum(),
+                                    list(flatten(p).values()))
+        runs.append([g.clone() for g in grads])
+    for a, c in zip(*runs):
+        assert torch.equal(a, c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.2, 0.5])
+def test_kernel_dropout_masks_equal_plain_masks(cuda_device, rate):
+    from bert4rec_tpu_torch.ops import dropout_bits
+    b, n_sites, rows, cols = 8, 6, 200, 200
+    got = fel.kernel_keep_scale(777, b, 0, n_sites, rows, cols, rate,
+                                cuda_device)
+    ref = dropout_bits.keep_scale(777, b, range(n_sites), rows, cols, rate,
+                                  cuda_device)
+    assert torch.equal(got, ref)
+    assert abs(float((got > 0).float().mean()) - (1 - rate)) < 3e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(10240, 3709, 128), (300, 104, 32),
+                                   (77, 61, 256)],
+                         ids=lambda d: "R{}_V{}_W{}".format(*d))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_fused_loss_kernels_match_plain(cuda_device, shape, dtype):
+    from bert4rec_tpu_torch.ops import fused_mlm_loss as fml
+    r, vp, w = shape
+    v = vp - 3
+    rng = np.random.default_rng(r)
+    hidden = torch.from_numpy(rng.normal(size=(r, w)).astype(np.float32)) \
+        .to(cuda_device, dtype).requires_grad_(True)
+    table = torch.from_numpy((rng.normal(size=(vp, w)) * 0.1)
+                             .astype(np.float32)).to(cuda_device) \
+        .requires_grad_(True)
+    bias = torch.from_numpy(rng.normal(size=vp).astype(np.float32)) \
+        .to(cuda_device).requires_grad_(True)
+    labels_np = rng.integers(0, v, size=r).astype(np.int32)
+    labels_np[::7] = 0
+    labels = torch.from_numpy(labels_np).to(cuda_device)
+    fwd0, bwd0 = fml.fused_mlm_loss.launches, fml.fused_mlm_loss.backward_launches
+    loss, cv, ca, nv = fml.fused_mlm_loss(hidden, table, bias, labels, v)
+    loss.backward()
+    torch.cuda.synchronize()
+    assert (fml.fused_mlm_loss.launches,
+            fml.fused_mlm_loss.backward_launches) == (fwd0 + 1, bwd0 + 1)
+    with torch.no_grad():
+        t_s = table.to(dtype)
+        b_m = fml._mask_bias(bias, v)
+        lse, sums = fml.fused_mlm_loss_plain_forward(hidden, t_s, b_m, labels)
+        dh, dt, db = fml.fused_mlm_loss_plain_backward(
+            hidden, t_s, b_m, labels, lse, torch.ones(()).to(cuda_device),
+            sums[3])
+    # the loss sums R fp32 terms in another order; counts are exact unless
+    # a logit ties its row max within rounding (random logits: none)
+    assert abs(float(loss) - float(sums[0] / sums[3])) <= 1e-5 * float(loss)
+    assert [float(cv), float(ca), float(nv)] == sums[1:].tolist()
+    for got, ref in ((hidden.grad, dh), (table.grad, dt), (bias.grad, db)):
+        assert _rel_err(got, ref) <= (1e-4 if dtype == torch.float32
+                                      else 2e-2)

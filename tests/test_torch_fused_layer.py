@@ -1,14 +1,20 @@
 """The port's fused encoder layer (bert4rec_tpu_torch/ops/fused_encoder_layer.py)
 held against the JAX package's Pallas kernel, run in interpret mode on the
-CPU. The CUDA kernel itself is held against the plain version on a card
+CPU: the forward, and the backward's dx and 12 weight gradients at rate 0.
+Dropout, which JAX cannot run on the CPU (interpret mode stubs its PRNG),
+is held by its own laws: the keep rate, the plain backward against
+autograd through the plain forward with the same masks, and gradcheck.
+The CUDA kernels themselves are held against the plain versions on a card
 in tests/test_torch_cuda_kernels.py."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from bert4rec_tpu.ops import fused_encoder_layer as jax_fel
+from bert4rec_tpu_torch.ops import dropout_bits
 from bert4rec_tpu_torch.ops import fused_encoder_layer as fel
 from bert4rec_tpu_torch.utils.checkpoint import (
     flatten, params_from_numpy, unflatten,
@@ -86,11 +92,23 @@ class TestWrapperRaises:
         dict(output_dropout=0.5),
     ], ids=["causal", "rel_bias", "attention_dropout", "output_dropout"])
     def test_unported_variants_raise(self, kwargs):
+        """The causal and rel_bias variants are not ported and raise; the
+        dropout variants are ported: they run, apply their masks (the
+        output moves off the rate-0 output) and repeat under one seed."""
         _, torch_p, x, mask = both(0)
-        with pytest.raises(NotImplementedError):
-            fel.fused_encoder_layer(torch_p, torch.from_numpy(x),
-                                    torch.from_numpy(mask), num_heads=N,
-                                    **kwargs)
+        xt, mt = torch.from_numpy(x), torch.from_numpy(mask)
+        if "causal" in kwargs or "rel_bias" in kwargs:
+            with pytest.raises(NotImplementedError):
+                fel.fused_encoder_layer(torch_p, xt, mt, num_heads=N,
+                                        **kwargs)
+            return
+        out = fel.fused_encoder_layer(torch_p, xt, mt, num_heads=N, seed=7,
+                                      **kwargs)
+        again = fel.fused_encoder_layer(torch_p, xt, mt, num_heads=N,
+                                        seed=7, **kwargs)
+        base = fel.fused_encoder_layer(torch_p, xt, mt, num_heads=N)
+        assert torch.isfinite(out).all() and torch.equal(out, again)
+        assert float((out - base).abs().max()) > 1e-2
 
     def test_rejects_non_int32_mask(self):
         _, torch_p, x, mask = both(0)
@@ -118,3 +136,139 @@ class TestRoutingLawParity:
         est.pop("num_heads")
         assert fel.estimate_vmem_bytes(**est) \
             == jax_fel.estimate_vmem_bytes(**est)
+
+
+def _rel_err(a, b) -> float:
+    """max |a - b| over max |b|: gradients sum over every row."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-12))
+
+
+_JAX_PATHS = dict(zip(fel._W_ORDER, [
+    "attention/qkv/kernel", "attention/qkv/bias", "attention/output/kernel",
+    "attention/output/bias", "attention_norm/scale", "attention_norm/bias",
+    "intermediate/kernel", "intermediate/bias", "output/kernel",
+    "output/bias", "output_norm/scale", "output_norm/bias"]))
+
+
+class TestBackwardVersusJaxKernel:
+    """The plain backward (mirroring ``_bwd_element``) at rate 0 against
+    ``jax.grad`` through ``fused_encoder_layer(..., interpret=True)``, whose
+    custom VJP runs the backward Pallas kernel K2."""
+
+    # fp32: the same math in another summation order; bf16: an order
+    # difference can flip the bf16 rounding of an intermediate (ds, dhpre,
+    # dattn), one bf16 ulp (2^-8 relative) of that intermediate
+    @pytest.mark.parametrize("dtype,tol", [
+        (torch.float32, 1e-5), (torch.bfloat16, 5e-3)], ids=["fp32", "bf16"])
+    def test_dx_and_weight_grads_match_interpret_kernel(self, dtype, tol):
+        jax_p, torch_p, x, mask = both(11)
+        jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+        dy = np.random.default_rng(12).normal(size=(B, S, H)) \
+            .astype(np.float32)
+
+        def loss(p, xx):
+            y = jax_fel.fused_encoder_layer(p, xx, jnp.asarray(mask),
+                                            num_heads=N, interpret=True)
+            return jnp.sum(y.astype(jnp.float32) * dy)
+
+        gp, gx = jax.grad(loss, argnums=(0, 1))(
+            jax_p, jnp.asarray(x).astype(jdt))
+        for leaf in flatten(torch_p).values():
+            leaf.requires_grad_(True)
+        xt = torch.from_numpy(x).to(dtype).requires_grad_(True)
+        y = fel.fused_encoder_layer(torch_p, xt, torch.from_numpy(mask),
+                                    num_heads=N)
+        (y.float() * torch.from_numpy(dy)).sum().backward()
+        assert xt.grad.dtype == dtype
+        assert _rel_err(xt.grad.float().numpy(),
+                        np.asarray(gx, np.float32)) <= tol
+        gflat, ours = flatten(gp), flatten(torch_p)
+        for path in _JAX_PATHS.values():
+            assert ours[path].grad.shape == ours[path].shape
+            assert _rel_err(ours[path].grad.numpy(),
+                            np.asarray(gflat[path])) <= tol, path
+
+
+class TestDropout:
+
+    @pytest.mark.parametrize("rate", [0.2, 0.5])
+    def test_keep_rate_and_scale(self, rate):
+        keep1, keep2, keep3 = fel.dropout_keeps(3, 8, 50, 64, 4, rate, rate,
+                                                "cpu")
+        for k in (keep1, keep2, keep3):
+            kept = (k > 0).float()
+            assert abs(float(kept.mean()) - (1 - rate)) < 1e-2
+            assert set(torch.unique(k).tolist()) == {
+                0.0, float(np.float32(1 / (1 - rate)))}
+        # the two output sites and the heads draw different masks
+        assert not torch.equal(keep2, keep3)
+        assert not torch.equal(keep1[:, 0], keep1[:, 1])
+
+    def test_hash_is_the_documented_law(self):
+        """fmix32 matches murmur3's finaliser on known values, the int64
+        arithmetic stays inside 32 bits, and the threshold law is
+        uint32(rate * 2^32)."""
+        def fmix(h):
+            h ^= h >> 16
+            h = (h * 0x85EBCA6B) & 0xFFFFFFFF
+            h ^= h >> 13
+            h = (h * 0xC2B2AE35) & 0xFFFFFFFF
+            return h ^ (h >> 16)
+
+        def law(key, ctr):
+            k = fmix(key & 0xFFFFFFFF)
+            return fmix(k ^ ((ctr * 0x9E3779B9) & 0xFFFFFFFF))
+
+        keys = np.array([0, 1, 2 ** 31 - 1, 2 ** 32 - 1, 123456789])
+        ctrs = np.array([0, 7, 39999, 2 ** 31, 2 ** 32 - 1])
+        got = dropout_bits.bits(torch.from_numpy(keys)[:, None],
+                                torch.from_numpy(ctrs)[None, :])
+        want = [[law(int(k), int(c)) for c in ctrs] for k in keys]
+        assert got.tolist() == want
+        assert dropout_bits.threshold(0.2) == int(0.2 * 2 ** 32)
+        assert dropout_bits.threshold(1.0) == 2 ** 32 - 1
+
+    @pytest.mark.parametrize("rates", [(0.2, 0.0), (0.0, 0.5), (0.2, 0.5)],
+                             ids=["attention", "output", "both"])
+    def test_plain_backward_equals_autograd_with_the_same_masks(self, rates):
+        """The hand-written backward regenerates the forward's masks from
+        the seed: it equals autograd through the plain forward (fp32,
+        where every rounding point is the identity)."""
+        _, torch_p, x, mask = both(21)
+        kw = dict(num_heads=N, attention_dropout=rates[0],
+                  output_dropout=rates[1], seed=99)
+        flat = fel.flat_weights(torch_p)
+        xt, mt = torch.from_numpy(x), torch.from_numpy(mask)
+        dy = torch.from_numpy(np.random.default_rng(22)
+                              .normal(size=(B, S, H)).astype(np.float32))
+        dx, grads = fel.fused_encoder_layer_plain_backward(flat, xt, mt, dy,
+                                                           **kw)
+        leaves = {k: v.clone().requires_grad_(True) for k, v in flat.items()}
+        xg = xt.clone().requires_grad_(True)
+        y = fel._forward_math(leaves, xg, mt, N, 99, *rates)["y"]
+        auto = torch.autograd.grad(y, [xg, *leaves.values()], dy)
+        # fp32 sums in another order; the masks must be equal for this
+        # to hold at all (a differing mask moves grads by O(1))
+        assert _rel_err(dx.numpy(), auto[0].numpy()) <= 1e-5
+        for (k, _), g in zip(leaves.items(), auto[1:]):
+            assert _rel_err(grads[k].numpy(), g.numpy()) <= 1e-5, k
+
+    def test_gradcheck_float64(self):
+        """Analytic gradients of the autograd Function (the plain forward
+        and backward on the CPU) against finite differences, dropout on."""
+        rng = np.random.default_rng(31)
+        b, s, h, n, f = 2, 5, 8, 2, 12
+        flat = {k: torch.from_numpy(v.astype(np.float64))
+                for k, v in fel.flat_weights(
+                    unflatten(flatten(layer_params_np(rng, h, n, f)))).items()}
+        x, mask = inputs_np(rng, b, s, h)
+        xt = torch.from_numpy(x.astype(np.float64)).requires_grad_(True)
+        mt = torch.from_numpy(mask)
+        ops = [flat[k].clone().requires_grad_(True) for k in fel._W_ORDER]
+
+        def fn(xx, *w):
+            return fel._FusedLayer.apply(xx, mt, 5, n, 0.2, 0.5, True, *w)
+
+        assert torch.autograd.gradcheck(fn, (xt, *ops), eps=1e-6,
+                                        atol=1e-5, rtol=1e-4)

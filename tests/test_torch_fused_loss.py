@@ -1,0 +1,181 @@
+"""The port's fused tied-softmax loss (bert4rec_tpu_torch/ops/fused_mlm_loss.py)
+held against the JAX package's whole-table Pallas kernels K3/K4, run in
+interpret mode on the CPU: the forward scalars and all three gradients,
+on rows that are no multiple of the TPU's 256-row tile, with vocabulary
+padding and label-0 rows; the routing law; and the model's
+``loss_and_metrics`` on both of its paths. The CUDA kernels themselves are
+held against the plain versions on a card in
+tests/test_torch_cuda_kernels.py."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from bert4rec_tpu.models import BERT4RecConfig as JaxConfig
+from bert4rec_tpu.models import BERT4RecModel as JaxModel
+from bert4rec_tpu.ops import fused_mlm_loss as jax_fml
+from bert4rec_tpu_torch.models import BERT4RecConfig, BERT4RecModel
+from bert4rec_tpu_torch.ops import fused_mlm_loss as fml
+from bert4rec_tpu_torch.utils.checkpoint import (
+    flatten, params_from_numpy, unflatten,
+)
+
+
+def inputs(rows, v, vp, w, seed):
+    rng = np.random.default_rng(seed)
+    hidden = rng.normal(size=(rows, w)).astype(np.float32)
+    table = (rng.normal(size=(vp, w)) * 0.5).astype(np.float32)
+    bias = rng.normal(size=vp).astype(np.float32)
+    labels = rng.integers(1, v, size=rows).astype(np.int32)
+    labels[::5] = 0          # padding rows: no loss, still in `accuracy`
+    return hidden, table, bias, labels
+
+
+def _rel_err(a, b) -> float:
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-12))
+
+
+class TestPlainVersusJaxKernel:
+
+    # (rows, vocab, padded vocab, width): 300 rows pad to two 256-row
+    # tiles in JAX; 104 > 97 columns carry the -1e9 bias
+    @pytest.mark.parametrize("shape", [(300, 97, 104, 32), (256, 61, 61, 16)],
+                             ids=["ragged_padded", "aligned"])
+    # fp32: the same math in another order; bf16: the hidden and table are
+    # bf16 in both and dlog is rounded to bf16 in both, so only sum-order
+    # flips of that rounding differ
+    @pytest.mark.parametrize("dtype,tol", [
+        (torch.float32, 1e-5), (torch.bfloat16, 5e-3)], ids=["fp32", "bf16"])
+    def test_forward_and_grads_match_interpret_kernel(self, shape, dtype,
+                                                      tol):
+        rows, v, vp, w = shape
+        h, t, b, lab = inputs(rows, v, vp, w, rows + w)
+        jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+
+        def f(h_, t_, b_):
+            loss, cv, ca, nv = jax_fml.fused_mlm_loss(
+                h_, t_, b_, jnp.asarray(lab), v, True)
+            return loss, (cv, ca, nv)
+
+        (jloss, jcounts), jg = jax.value_and_grad(
+            f, argnums=(0, 1, 2), has_aux=True)(
+            jnp.asarray(h).astype(jdt), jnp.asarray(t), jnp.asarray(b))
+        ht = torch.from_numpy(h).to(dtype).requires_grad_(True)
+        tt = torch.from_numpy(t).requires_grad_(True)
+        bt = torch.from_numpy(b).requires_grad_(True)
+        loss, cv, ca, nv = fml.fused_mlm_loss(ht, tt, bt,
+                                              torch.from_numpy(lab), v)
+        loss.backward()
+        # the loss: fp32 sums of up to 300 terms in another order
+        assert abs(float(loss) - float(jloss)) <= 1e-5 * abs(float(jloss))
+        # the counts are exact (random logits: no tie within rounding)
+        assert [float(cv), float(ca), float(nv)] == \
+            [float(c) for c in jcounts]
+        for got, ref in ((ht.grad, jg[0]), (tt.grad, jg[1]),
+                         (bt.grad, jg[2])):
+            assert got.dtype == (dtype if got is ht.grad else torch.float32)
+            assert _rel_err(got.float().numpy(),
+                            np.asarray(ref, np.float32)) <= tol
+        # the padding columns' bias gets no gradient
+        assert not bt.grad[v:].any()
+
+    def test_mlm_loss_and_metrics_matches_jax(self):
+        h, t, b, lab = inputs(4 * 6, 50, 56, 16, 3)
+        jl, jlogs = jax_fml.mlm_loss_and_metrics(
+            jnp.asarray(h).reshape(4, 6, 16), jnp.asarray(t),
+            jnp.asarray(b), jnp.asarray(lab).reshape(4, 6), 50,
+            interpret=True)
+        tl, tlogs = fml.mlm_loss_and_metrics(
+            torch.from_numpy(h).reshape(4, 6, 16), torch.from_numpy(t),
+            torch.from_numpy(b), torch.from_numpy(lab).reshape(4, 6), 50)
+        assert abs(float(tl) - float(jl)) <= 1e-5 * float(jl)
+        for k in ("masked_accuracy", "accuracy"):
+            assert float(tlogs[k]) == pytest.approx(float(jlogs[k]),
+                                                    abs=1e-7)
+
+    def test_ties_count_as_correct(self):
+        """`correct` is label_logit >= row max: a label tied with the max
+        counts, as in the TPU kernel."""
+        hidden = torch.zeros((2, 4))
+        table = torch.zeros((5, 4))
+        bias = torch.tensor([0.0, 1.0, 1.0, 0.0, 0.0])
+        labels = torch.tensor([2, 3], dtype=torch.int32)
+        _, cv, ca, nv = fml.fused_mlm_loss(hidden, table, bias, labels, 5)
+        assert (float(cv), float(ca), float(nv)) == (1.0, 1.0, 2.0)
+
+    def test_cpu_wrapper_counts_no_launch_and_checks_operands(self):
+        h, t, b, lab = inputs(10, 20, 20, 8, 0)
+        before = fml.fused_mlm_loss.launches
+        fml.fused_mlm_loss(torch.from_numpy(h), torch.from_numpy(t),
+                           torch.from_numpy(b), torch.from_numpy(lab), 20)
+        assert fml.fused_mlm_loss.launches == before
+        with pytest.raises(TypeError):
+            fml.fused_mlm_loss(torch.from_numpy(h), torch.from_numpy(t),
+                               torch.from_numpy(b),
+                               torch.from_numpy(lab).long(), 20)
+        with pytest.raises(ValueError):
+            fml.fused_mlm_loss(torch.from_numpy(h), torch.from_numpy(t)[:, :4],
+                               torch.from_numpy(b), torch.from_numpy(lab), 20)
+
+
+class TestRoutingLawParity:
+
+    @pytest.mark.parametrize("vp", [61, 3709, 3712, 7000, 26744, 26752,
+                                    100000, 335000, 2 ** 21])
+    @pytest.mark.parametrize("w", [16, 64, 128, 256])
+    def test_routing_functions_match_jax(self, vp, w):
+        assert fml.estimate_vmem_bytes(vp, w) == \
+            jax_fml.estimate_vmem_bytes(vp, w)
+        assert fml.fused_loss_supported(vp, w) == \
+            jax_fml.fused_loss_supported(vp, w)
+        assert fml.fused_loss_available(vp, w) == \
+            jax_fml.fused_loss_available(vp, w)
+
+    def test_mask_bias_matches_jax(self):
+        b = np.random.default_rng(0).normal(size=16).astype(np.float32)
+        for v in (10, 16):
+            np.testing.assert_array_equal(
+                fml._mask_bias(torch.from_numpy(b), v).numpy(),
+                np.asarray(jax_fml._mask_bias(jnp.asarray(b), v)))
+
+    def test_ml1m_takes_the_whole_table_kernels(self):
+        assert fml.fused_loss_supported(3709, 128)
+        assert not fml.fused_loss_supported(26744, 128)   # ml-20m: K5-K7
+
+
+class TestModelLossAndMetrics:
+
+    @pytest.mark.parametrize("fused_loss", [True, False],
+                             ids=["fused_loss", "logits_path"])
+    def test_matches_jax_model(self, fused_loss):
+        kw = dict(vocab_size=61, hidden_size=32, num_layers=2,
+                  num_attention_heads=4, inner_dim=64, max_sequence_length=24,
+                  max_predictions_per_seq=3, use_fused_layer=True,
+                  use_fused_loss=fused_loss, vocab_pad_to=8)
+        jm = JaxModel(config=JaxConfig(**kw))
+        model = BERT4RecModel(config=BERT4RecConfig(**kw))
+        rng = np.random.default_rng(4)
+        flat = {k: (1.0 + 0.1 * rng.normal(size=v.shape)
+                    if k.endswith("/scale")
+                    else 0.5 * rng.normal(size=v.shape)).astype(np.float32)
+                for k, v in flatten(jm.init(jax.random.key(0))).items()}
+        ids = rng.integers(3, 61, size=(4, 24)).astype(np.int32)
+        pos = np.stack([np.sort(rng.choice(24, 3, replace=False))
+                        for _ in range(4)]).astype(np.int32)
+        labels = np.take_along_axis(ids, pos, axis=1)
+        labels[0, 2] = 0
+        feats = {"input_word_ids": ids, "input_mask": np.ones_like(ids),
+                 "masked_lm_positions": pos, "masked_lm_ids": labels}
+        jl, jlogs = jm.loss_and_metrics(
+            unflatten({k: jnp.asarray(v) for k, v in flat.items()}),
+            {k: jnp.asarray(v) for k, v in feats.items()})
+        tl, tlogs = model.loss_and_metrics(
+            params_from_numpy(flat, "cpu"),
+            {k: torch.from_numpy(v) for k, v in feats.items()})
+        assert abs(float(tl) - float(jl)) <= 1e-5 * float(jl)
+        for k in ("masked_accuracy", "accuracy"):
+            assert float(tlogs[k]) == pytest.approx(float(jlogs[k]),
+                                                    abs=1e-7)

@@ -14,7 +14,7 @@ from bert4rec_tpu_torch.apps import Recommender
 from bert4rec_tpu_torch.core import resolve_device
 from bert4rec_tpu_torch.dataloaders import BERT4RecDataloader
 from bert4rec_tpu_torch.models import BERT4RecConfig, BERT4RecModel
-from bert4rec_tpu_torch.models import BERT4RecModelWrapper
+from bert4rec_tpu_torch.models import BERT4RecModelWrapper, Bert4RecEncoder
 from bert4rec_tpu_torch.ops import kernel_build
 from bert4rec_tpu_torch.utils.checkpoint import params_from_numpy
 
@@ -69,8 +69,27 @@ def test_default_device_raises_without_cuda(no_cuda, tmp_path):
     assert wrapper.params["mlm"]["output_bias"].device.type == "cpu"
 
 
+def test_encoder_init_defaults_to_the_card(no_cuda):
+    encoder = Bert4RecEncoder(small_model().config)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        encoder.init(torch.Generator().manual_seed(0))
+    params = encoder.init(torch.Generator().manual_seed(0), device="cpu")
+    assert params["pooler"]["kernel"].device.type == "cpu"
+    assert encoder.init(device="meta")["pooler"]["kernel"].is_meta
+
+
+def test_trainer_defaults_to_the_card(no_cuda):
+    from bert4rec_tpu_torch.trainers import BERT4RecTrainer
+    trainer = BERT4RecTrainer(small_model())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        trainer.initialize_model()
+    trainer.initialize_model(device="cpu")
+    assert trainer.params["mlm"]["output_bias"].device.type == "cpu"
+
+
 def test_kernel_sources_are_found_and_nothing_is_built_at_import():
-    assert kernel_build.kernel_sources() == ["fused_encoder_layer"]
+    assert kernel_build.kernel_sources() == ["fused_encoder_layer",
+                                             "fused_mlm_loss"]
     assert kernel_build._libs == {}
 
 

@@ -267,3 +267,51 @@ class TestRankTopK:
             if exclude is not None:
                 for row, ex in zip(ids_t[:, 0].numpy(), exclude):
                     assert not set(row) & set(ex[ex >= 0])
+
+
+class TestTrainingMode:
+
+    def test_training_routing_follows_the_jax_law(self):
+        """With dropout active JAX fuses the layer only on the TPU; the
+        port reads that as the card. At rate 0 both fuse everywhere."""
+        enc = BERT4RecModel(config=BERT4RecConfig(
+            **model_kwargs(use_fused_layer=True))).encoder
+        assert not enc.fused_layer_routed(B, S, dropout_active=True,
+                                          device="cpu")
+        assert enc.fused_layer_routed(B, S, dropout_active=True,
+                                      device="cuda")
+        assert enc.fused_layer_routed(B, S, dropout_active=False,
+                                      device="cpu")
+
+    @pytest.mark.parametrize("fused", [True, False],
+                             ids=["fused", "unfused"])
+    def test_dropout_is_seeded_and_only_in_training(self, fused):
+        kw = model_kwargs(use_fused_layer=fused, attention_dropout=0.2,
+                          output_dropout=0.5)
+        model = BERT4RecModel(config=BERT4RecConfig(**kw))
+        params = params_from_numpy(random_params(JaxModel(config=JaxConfig(
+            **kw)), 5), "cpu")
+        feats = {k: torch.from_numpy(v) for k, v in features(5).items()}
+
+        def run(**kw_):
+            return model.apply(params, feats, **kw_)["mlm_logits"]
+
+        eval_out = run()
+        a, b = run(training=True, seed=3), run(training=True, seed=3)
+        assert torch.equal(a, b)
+        assert not torch.equal(a, run(training=True, seed=4))
+        assert float((a - eval_out).abs().max()) > 1e-2
+        # no seed, no dropout (the JAX encoder without an rng)
+        if not fused:
+            assert torch.equal(run(training=True), eval_out)
+
+    def test_rate_zero_training_equals_eval(self):
+        kw = model_kwargs(use_fused_layer=True, attention_dropout=0.0,
+                          output_dropout=0.0)
+        model = BERT4RecModel(config=BERT4RecConfig(**kw))
+        params = params_from_numpy(random_params(JaxModel(config=JaxConfig(
+            **kw)), 6), "cpu")
+        feats = {k: torch.from_numpy(v) for k, v in features(6).items()}
+        assert torch.equal(
+            model.apply(params, feats, training=True, seed=1)["mlm_logits"],
+            model.apply(params, feats)["mlm_logits"])
