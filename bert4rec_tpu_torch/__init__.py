@@ -7,10 +7,14 @@ kernel under ``csrc/``, built with ``nvcc`` at first use
 (``ops/kernel_build.py``).
 
 Ported so far: the serving path — ``BERT4RecModelWrapper.load`` ->
-``apps.Recommender`` -> ``apps.RecommenderService`` -> ``apps.ServingServer``
-— with the fused post-LN encoder-layer forward as a CUDA kernel
-(``ops/fused_encoder_layer.py``). Entry points take ``device=`` and default
-to ``"cuda"``; without CUDA they raise unless the CPU is asked for.
+``apps.Recommender`` -> ``apps.RecommenderService`` -> ``apps.ServingServer``;
+training — ``trainers.BERT4RecTrainer`` with its ``train()`` loop; and the
+host pipeline that feeds it — ``datasets`` and ``dataloaders``
+(``get_dataloader_factory()`` -> ``prepare_training``). The fused encoder
+layer (``ops/fused_encoder_layer.py``) and the fused tied-softmax loss,
+whole-table and vocab-tiled (``ops/fused_mlm_loss.py``), are CUDA kernels.
+Entry points take ``device=`` and default to ``"cuda"``; without CUDA they
+raise unless the CPU is asked for.
 
 Importing this package imports neither ``jax`` nor ``bert4rec_tpu``.
 """

@@ -1,44 +1,69 @@
 // Fused tied-softmax masked cross-entropy, forward and backward, for Hopper
 // (sm_90a).
 //
-// Replaces the whole-table TPU kernels of bert4rec_tpu/ops/fused_mlm_loss.py:
-//   K3  _fwd_kernel (launched by _run_forward)
-//   K4  _bwd_kernel (launched by _run_backward)
+// Replaces the TPU kernels of bert4rec_tpu/ops/fused_mlm_loss.py:
+//   K3  _fwd_kernel (launched by _run_forward)            whole-table forward
+//   K4  _bwd_kernel (launched by _run_backward)           whole-table backward
+//   K5  _fwd_kernel_tiled (_tiled_fwd_call, for _run_forward_tiled and
+//       _run_forward_tiled_stats)                         vocab-tiled forward
+//   K6  _bwd_merged_kernel (_run_backward_merged)         one-recompute backward
+//   K7  _bwd_dh_kernel + _bwd_dt_kernel (_run_backward_tiled)  two-sweep backward
 // over hidden [R, W] and the tied table [V, W] (both in T = float or bf16,
-// the table already cast to the hidden dtype as the JAX kernel streams it),
+// the table already cast to the hidden dtype as the JAX kernels stream it),
 // bias [V] fp32 with vocab-padding columns at -1e9, labels [R] int32
 // (0 = padding row):
 //
 //   logits = hidden table^T + bias                         (fp32, never stored)
 //   lse    = max + log(sum exp(logits - max))              per row, kept
 //   nll    = (lse - logits[label]) * (label > 0)
-//   correct = logits[label] >= max   (ties count, as the TPU kernel's rule)
+//   correct = logits[label] >= max and label >= 0  (ties count, as on the TPU)
 //   sums   = (sum nll, sum correct * w, sum correct, sum w)
 //   dlog   = (exp(logits - lse) - onehot) * w * g / max(n_valid, 1)
 //   dh     = T(T(dlog) table),  dtable = T(dlog)^T hidden,  dbias = sum dlog
 //
-// Design. The point of the TPU kernel is never to materialise the [R, V]
-// fp32 logits (152 MB at R = 10,240, V = 3,709). The TPU held the whole
-// table in VMEM; an H100 block has 227 KB, so every kernel streams the table
-// in 64-row vocabulary tiles and recomputes the logits tile it needs:
-//   loss_fwd_kernel    one block per 64-row tile, online max / sum over the
-//                      vocabulary tiles; emits lse and per-block partials
-//                      of the four sums (reduced in a second, ordered pass)
-//   loss_bwd_dh_kernel one block per 64-row tile; dh accumulated over the
-//                      vocabulary tiles
-//   loss_bwd_dt_kernel one block per (vocabulary tile, chunk of rows);
-//                      split partials of dtable and dbias, reduced in order
-// The backward reads the forward's lse instead of recomputing max and sum
-// (the JAX single-tile backward recomputes them; the difference is fp32
-// rounding, within the tolerance the tests state). No float atomics: two
-// runs give the same bits.
+// with w = label > 0, or label >= 0 under valid_ge_zero (the sharded loss's
+// label encoding: a local index, a positive sentinel past the table for a
+// remote label, -1 for none). A label outside [0, V) matches no column.
 //
-// Bound. 2 R V W = 9.7 GFLOP forward and about 3x that backward against
-// ~3.5 MB of inputs: bound by operations. With bf16 operands every product
-// (the logits tile, dlog . table, dlog^T . hidden) runs on the tensor cores
+// Design. The point of the TPU kernels is never to materialise the [R, V]
+// fp32 logits. The TPU held a whole table (K3/K4) or a 1,024-column tile
+// (K5-K7) in VMEM; an H100 block has 227 KB, so every kernel here streams
+// 64-row vocabulary tiles and recomputes the logits tile it needs:
+//   loss_fwd_kernel     K3: one block per 64-row tile, online max / sum over
+//                       all vocabulary tiles; lse and per-block partials of
+//                       the four sums (reduced in a second, ordered pass)
+//   loss_tiled_fwd_kernel + loss_tiled_merge_kernel
+//                       K5: one block per (64-row tile, vocabulary split),
+//                       partial (max, sum, label logit) per split; a second
+//                       pass merges the splits of each row in split order
+//                       into lse and the stats, and the sums as for K3
+//   loss_bwd_dh_kernel  K4 and K7's dh sweep: one block per 64-row tile, dh
+//                       accumulated over the vocabulary tiles from the lse
+//   loss_bwd_dt_kernel  K4's dtable sweep: one block per (vocabulary tile,
+//                       1,024-row split); split partials reduced in order
+//   loss_bwd_vt_kernel  one block per group of vocabulary tiles; for each
+//                       tile it sweeps all rows and writes that tile's
+//                       dtable / dbias once:
+//                         K7's dt sweep: a tile per group
+//                         K6: at most 128 groups, all rows, and the same
+//                             pass also adds dlog . table into a dh partial
+//                             of its group (first tile writes, later tiles
+//                             add); the group partials are reduced in group
+//                             order. Workspace: groups x R x W fp32, which
+//                             the JAX law (R x W x 4 <= 5.5 MB) bounds, and
+//                             which does not grow with V.
+// The backwards read the forward's lse (the JAX whole-table backward
+// recomputes max and sum; the difference is fp32 rounding, within the
+// tolerance the tests state). No float atomics: two runs give the same bits.
+//
+// Bound. 2 R V W FLOP forward, 6 R V W backward (the logits, dh, dtable; K7
+// recomputes the logits once more, which the bound does not count), against
+// megabytes of inputs: bound by operations. With bf16 operands every product runs on the tensor cores
 // with mma.sync (fp32 sums; the operands are bf16-exact, so only the order
 // of the sums differs from the fp32 loops, which fp32 operands keep). No
 // copy pipelining or wgmma yet: later work.
+
+#include <algorithm>
 
 #include "common.cuh"
 
@@ -48,7 +73,9 @@ using namespace b4r;
 
 constexpr int LT = 64;  // rows per row tile and per vocabulary tile
 constexpr int LOSS_MAXW = 256;
-constexpr int DT_CHUNK = 1024;  // rows per dtable split
+constexpr int DT_CHUNK = 1024;  // rows per dtable split (K4)
+constexpr int MERGED_GROUPS = 128;  // vocabulary-tile groups of K6 (~ one per SM)
+constexpr int FWD_BLOCKS = 1024;  // K5 splits the vocabulary until ~this many blocks
 
 template <typename T>
 __device__ __forceinline__ void load_rows(float* dst, const T* __restrict__ src,
@@ -63,6 +90,12 @@ __device__ __forceinline__ void load_rows(float* dst, const T* __restrict__ src,
 __device__ __forceinline__ void load_bias(float* bs, const float* __restrict__ bias,
                                           int v0, int V) {
   for (int c = threadIdx.x; c < LT; c += 256) bs[c] = (v0 + c < V) ? bias[v0 + c] : -INFINITY;
+}
+
+// whether a row carries loss weight: label > 0, or label >= 0 under the
+// sharded loss's encoding (valid_ge_zero)
+__device__ __forceinline__ bool row_valid(int lab, int valid_ge_zero) {
+  return valid_ge_zero ? lab >= 0 : lab > 0;
 }
 
 template <typename T>
@@ -141,6 +174,125 @@ loss_fwd_kernel(const T* __restrict__ hidden, const T* __restrict__ table,
   }
 }
 
+// K5, first pass: block (row tile, vocabulary split) runs the online max /
+// sum over the split's vocabulary tiles and writes the rows' partial
+// (max, sum of exp at that max, label logit) into part_*[split][row]; the
+// label logit is 0 where the label lies outside the split.
+template <typename T>
+__global__ void __launch_bounds__(256)
+loss_tiled_fwd_kernel(const T* __restrict__ hidden, const T* __restrict__ table,
+                      const float* __restrict__ bias, const int32_t* __restrict__ labels,
+                      float* __restrict__ part_m, float* __restrict__ part_s,
+                      float* __restrict__ part_ll, int R, int V, int W,
+                      int tiles_per_split) {
+  extern __shared__ float smem[];
+  float* Hs = smem;                    // [64][W + 1]
+  float* Ts = Hs + LT * (W + 1);       // [64][W + 1]
+  float* bs = Ts + LT * (W + 1);       // [64]
+  float* ll = bs + LT;                 // [64] label logits
+  float* scr = ll + LT;                // [64][65] tensor-core scratch
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const int r0 = blockIdx.x * LT, split = blockIdx.y;
+  const int v_begin = split * tiles_per_split * LT;
+  const int v_end = min(V, v_begin + tiles_per_split * LT);
+  constexpr bool kMma = kIsBf16<T>;
+
+  load_rows(Hs, hidden, r0, R, W);
+  for (int r = tid; r < LT; r += 256) ll[r] = 0.f;
+  int lab[4];
+  float m[4], l[4], s[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = r0 + ty + 16 * i;
+    lab[i] = r < R ? labels[r] : -1;
+    m[i] = -INFINITY;
+    l[i] = 0.f;
+  }
+  for (int v0 = v_begin; v0 < v_end; v0 += LT) {
+    load_rows(Ts, table, v0, V, W);
+    load_bias(bs, bias, v0, V);
+    __syncthreads();
+    tile_dots<kMma>(s, Hs, Ts, tx, ty, W, scr);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        s[i][j] += bs[tx + 16 * j];
+        if (v0 + tx + 16 * j == lab[i] && lab[i] < V) ll[ty + 16 * i] = s[i][j];
+      }
+      const float tmax = fmaxf(fmaxf(s[i][0], s[i][1]), fmaxf(s[i][2], s[i][3]));
+      const float m_new = fmaxf(m[i], half_warp_max(tmax));
+      float tsum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) tsum += expf(s[i][j] - m_new);
+      l[i] = l[i] * expf(m[i] - m_new) + half_warp_sum(tsum);
+      m[i] = m_new;
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int rr = ty + 16 * i, r = r0 + rr;
+    if (tx != 0 || r >= R) continue;
+    const size_t o = (size_t)split * R + r;
+    part_m[o] = m[i];
+    part_s[o] = l[i];
+    part_ll[o] = ll[rr];
+  }
+}
+
+// K5, second pass: one thread per row merges its splits in split order into
+// (max, sum, label logit) and lse, and the block's rows into partials of the
+// four sums (a fixed tree, then reduce_rows). Null lse / sums: the stats
+// entry; null m_out: the loss entry.
+__global__ void __launch_bounds__(256)
+loss_tiled_merge_kernel(const float* __restrict__ part_m, const float* __restrict__ part_s,
+                        const float* __restrict__ part_ll, const int32_t* __restrict__ labels,
+                        int R, int n_splits, float* __restrict__ lse_out,
+                        float* __restrict__ m_out, float* __restrict__ s_out,
+                        float* __restrict__ ll_out, float* __restrict__ part_sums) {
+  __shared__ float red[4][256];
+  const int tid = threadIdx.x, r = blockIdx.x * 256 + tid;
+  float v[4] = {0.f, 0.f, 0.f, 0.f};
+  if (r < R) {
+    float m = part_m[r];
+    for (int k = 1; k < n_splits; ++k) m = fmaxf(m, part_m[(size_t)k * R + r]);
+    float s = 0.f, ll = 0.f;
+    for (int k = 0; k < n_splits; ++k) {
+      const size_t o = (size_t)k * R + r;
+      s += part_s[o] * expf(part_m[o] - m);
+      ll += part_ll[o];
+    }
+    if (m_out != nullptr) {
+      m_out[r] = m;
+      s_out[r] = s;
+      ll_out[r] = ll;
+    }
+    if (lse_out != nullptr) {
+      const float lse = m + logf(s);
+      lse_out[r] = lse;
+      const int lab = labels[r];
+      const float w = lab > 0 ? 1.f : 0.f;
+      const float c = (ll >= m && lab >= 0) ? 1.f : 0.f;
+      v[0] = (lse - ll) * w;
+      v[1] = c * w;
+      v[2] = c;
+      v[3] = w;
+    }
+  }
+  if (part_sums == nullptr) return;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) red[q][tid] = v[q];
+  __syncthreads();
+  for (int stride = 128; stride > 0; stride >>= 1) {
+    if (tid < stride)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) red[q][tid] += red[q][tid + stride];
+    __syncthreads();
+  }
+  if (tid < 4) part_sums[(size_t)blockIdx.x * 4 + tid] = red[tid][0];
+}
+
 // dlog of this thread's 4 x 4 (row, vocab) pairs; s holds the logits
 __device__ __forceinline__ float dlog_of(float s, float lse, int col, int lab, float wr) {
   const float p = expf(s - lse);
@@ -152,8 +304,8 @@ __global__ void __launch_bounds__(256)
 loss_bwd_dh_kernel(const T* __restrict__ hidden, const T* __restrict__ table,
                    const float* __restrict__ bias, const int32_t* __restrict__ labels,
                    const float* __restrict__ lse, const float* __restrict__ g,
-                   const float* __restrict__ n_valid, T* __restrict__ dh, int R, int V,
-                   int W) {
+                   const float* __restrict__ n_valid, int valid_ge_zero,
+                   T* __restrict__ dh, int R, int V, int W) {
   extern __shared__ float smem[];
   float* Hs = smem;                    // [64][W + 1]
   float* Ts = Hs + LT * (W + 1);       // [64][W + 1]
@@ -172,7 +324,7 @@ loss_bwd_dh_kernel(const T* __restrict__ hidden, const T* __restrict__ table,
     const int r = r0 + ty + 16 * i;
     lab[i] = r < R ? labels[r] : -1;
     lr[i] = r < R ? lse[r] : 0.f;
-    wr[i] = lab[i] > 0 ? scale : 0.f;
+    wr[i] = row_valid(lab[i], valid_ge_zero) ? scale : 0.f;
   }
   float acc[4][WJ], cacc[WJ][4];
 #pragma unroll
@@ -239,6 +391,10 @@ loss_bwd_dh_kernel(const T* __restrict__ hidden, const T* __restrict__ table,
   }
 }
 
+// K4's dtable sweep: block (vocabulary tile, split of DT_CHUNK rows) writes
+// the tile's dtable / dbias partials of its split, reduced in order later.
+// K7 and K6 use loss_bwd_vt_kernel below; this one-tile form stays for K4,
+// which runs ~9% faster here than on the shared kernel (PERF.md).
 template <typename T, int WJ>
 __global__ void __launch_bounds__(256)
 loss_bwd_dt_kernel(const T* __restrict__ hidden, const T* __restrict__ table,
@@ -341,8 +497,207 @@ loss_bwd_dt_kernel(const T* __restrict__ hidden, const T* __restrict__ table,
   if (tid < LT && v0 + tid < V) part_db[(size_t)split * V + v0 + tid] = db;
 }
 
+// Adds a 64 x D fragment tile (mma_acc_64xD's layout) into out[row * ld +
+// col] for rows < n_rows, cols < D; `first` stores instead of adding. Each
+// element has one owning thread: no atomics.
+template <int DJ>
+__device__ __forceinline__ void add_64xD_global(float* out, int ld, const float c[DJ][4],
+                                                int D, int n_rows, bool first) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int mb = (warp & 3) * 16, n_base = (warp >> 2) * 8 * DJ;
+  const int r = mb + (lane >> 2);
+#pragma unroll
+  for (int q = 0; q < DJ; ++q) {
+    const int col = n_base + 8 * q + 2 * (lane & 3);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (r + 8 * h >= n_rows) continue;
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        if (col + e >= D) continue;
+        float* p = out + (size_t)(r + 8 * h) * ld + col + e;
+        *p = first ? c[q][2 * h + e] : *p + c[q][2 * h + e];
+      }
+    }
+  }
+}
+
+// A sweep over vocabulary tiles: block `group` takes the group's vocabulary
+// tiles in order and, for each, sweeps all R rows accumulating dtable in
+// registers and dbias, then writes both for that tile into dt / db once
+// (K7's dt sweep, a tile per group; K6). With kDh (K6) it also adds
+// dlog . table of every (row tile, vocabulary tile) into the group's dh
+// partial part_dh[group] (the first tile of the group stores).
+template <typename T, int WJ, bool kDh>
+__global__ void __launch_bounds__(256)
+loss_bwd_vt_kernel(const T* __restrict__ hidden, const T* __restrict__ table,
+                   const float* __restrict__ bias, const int32_t* __restrict__ labels,
+                   const float* __restrict__ lse, const float* __restrict__ g,
+                   const float* __restrict__ n_valid, int valid_ge_zero,
+                   float* __restrict__ dt, float* __restrict__ db_out,
+                   float* __restrict__ part_dh, int R, int V, int W, int n_groups) {
+  extern __shared__ float smem[];
+  float* Ts = smem;                    // [64 vocab][W + 1], the current tile
+  float* Hs = Ts + LT * (W + 1);       // [64 rows][W + 1]
+  float* Ds = Hs + LT * (W + 1);       // [64 rows][65] T(dlog)
+  float* Df = Ds + LT * (LT + 1);      // [64 rows][65] fp32 dlog
+  float* bs = Df + LT * (LT + 1);      // [64]
+  float* rl = bs + LT;                 // [64] row lse
+  float* rw = rl + LT;                 // [64] row weight
+  int* rlab = reinterpret_cast<int*>(rw + LT);  // [64] row label
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const int vtiles = (V + LT - 1) / LT, grp = blockIdx.x;
+  const int t_begin = (int)((long)grp * vtiles / n_groups);
+  const int t_end = (int)((long)(grp + 1) * vtiles / n_groups);
+  const float scale = g[0] / fmaxf(n_valid[0], 1.f);
+  float* dh_part = kDh ? part_dh + (size_t)grp * R * W : nullptr;
+  constexpr bool kMma = kIsBf16<T>;
+
+  for (int t = t_begin; t < t_end; ++t) {
+    const int v0 = t * LT;
+    load_rows(Ts, table, v0, V, W);
+    load_bias(bs, bias, v0, V);
+    float acc[4][WJ], cacc[WJ][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < WJ; ++j) acc[i][j] = cacc[j][i] = 0.f;
+    float db = 0.f;  // thread tid < 64 owns vocabulary column v0 + tid
+    float s[4][4];
+    for (int r0 = 0; r0 < R; r0 += LT) {
+      load_rows(Hs, hidden, r0, R, W);
+      for (int r = tid; r < LT; r += 256) {
+        const bool ok = r0 + r < R;
+        rlab[r] = ok ? labels[r0 + r] : -1;
+        rl[r] = ok ? lse[r0 + r] : 0.f;
+        rw[r] = (ok && row_valid(rlab[r], valid_ge_zero)) ? scale : 0.f;
+      }
+      __syncthreads();
+      tile_dots<kMma>(s, Hs, Ts, tx, ty, W, Df);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int rr = ty + 16 * i;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int c = tx + 16 * j;
+          const float dl = dlog_of(s[i][j] + bs[c], rl[rr], v0 + c, rlab[rr], rw[rr]);
+          Df[rr * (LT + 1) + c] = dl;
+          Ds[rr * (LT + 1) + c] = round_to<T>(dl);
+        }
+      }
+      __syncthreads();
+      const int rlen = min(LT, R - r0);
+      if (tid < LT)
+        for (int rr = 0; rr < rlen; ++rr) db += Df[rr * (LT + 1) + tid];
+      if constexpr (kMma) {
+        // rows are vocabulary entries, the contraction runs over the row
+        // tile (rows past R have dlog = 0 and zero hidden rows)
+        mma_acc_64xD<WJ>(cacc, Ds, 1, LT + 1, Hs, W + 1, 1, W);
+        if constexpr (kDh) {
+          // columns past the vocabulary meet zero table rows
+          float hc[WJ][4];
+#pragma unroll
+          for (int j = 0; j < WJ; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) hc[j][e] = 0.f;
+          mma_acc_64xD<WJ>(hc, Ds, LT + 1, 1, Ts, W + 1, 1, W);
+          add_64xD_global<WJ>(dh_part + (size_t)r0 * W, W, hc, W, rlen, t == t_begin);
+        }
+      } else {
+        for (int rr = 0; rr < rlen; ++rr) {
+          float dv[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) dv[i] = Ds[rr * (LT + 1) + ty + 16 * i];
+#pragma unroll
+          for (int j = 0; j < WJ; ++j) {
+            const int d = tx + 16 * j;
+            if (d < W) {
+              const float h = Hs[rr * (W + 1) + d];
+#pragma unroll
+              for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(dv[i], h, acc[i][j]);
+            }
+          }
+        }
+        if constexpr (kDh) {
+          float hacc[4][WJ];
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int j = 0; j < WJ; ++j) hacc[i][j] = 0.f;
+          const int vlen = min(LT, V - v0);
+          for (int c = 0; c < vlen; ++c) {
+            float dv[4];
+#pragma unroll
+            for (int i = 0; i < 4; ++i) dv[i] = Ds[(ty + 16 * i) * (LT + 1) + c];
+#pragma unroll
+            for (int j = 0; j < WJ; ++j) {
+              const int d = tx + 16 * j;
+              if (d < W) {
+                const float tv = Ts[c * (W + 1) + d];
+#pragma unroll
+                for (int i = 0; i < 4; ++i) hacc[i][j] = fmaf(dv[i], tv, hacc[i][j]);
+              }
+            }
+          }
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int rr = ty + 16 * i;
+            if (rr >= rlen) continue;
+#pragma unroll
+            for (int j = 0; j < WJ; ++j) {
+              const int d = tx + 16 * j;
+              if (d >= W) continue;
+              float* p = dh_part + (size_t)(r0 + rr) * W + d;
+              *p = t == t_begin ? hacc[i][j] : *p + hacc[i][j];
+            }
+          }
+        }
+      }
+      __syncthreads();
+    }
+    if constexpr (kMma) {  // fragments -> the (ty, tx) layout, through Ts
+      spill_64xD<WJ>(Ts, W + 1, cacc, W);
+      __syncthreads();
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < WJ; ++j) {
+          const int d = tx + 16 * j;
+          if (d < W) acc[i][j] = Ts[(ty + 16 * i) * (W + 1) + d];
+        }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int v = v0 + ty + 16 * i;
+      if (v >= V) continue;
+#pragma unroll
+      for (int j = 0; j < WJ; ++j) {
+        const int d = tx + 16 * j;
+        if (d < W) dt[(size_t)v * W + d] = acc[i][j];
+      }
+    }
+    if (tid < LT && v0 + tid < V) db_out[v0 + tid] = db;
+    __syncthreads();  // Ts is reloaded for the next tile
+  }
+}
+
+// dh = T(sum_g part[g]) over the groups in order (K6's dh reduction)
+template <typename T>
+__global__ void __launch_bounds__(256)
+reduce_rows_cast_kernel(const float* __restrict__ part, T* __restrict__ out, int rows,
+                        long n) {
+  const long i = (long)blockIdx.x * 256 + threadIdx.x;
+  if (i >= n) return;
+  float s = 0.f;
+  for (int r = 0; r < rows; ++r) s += part[(size_t)r * n + i];
+  out[i] = from_f<T>(s);
+}
+
 size_t fwd_smem_bytes(int W) {
   return sizeof(float) * (size_t)(2 * LT * (W + 1) + 6 * LT + LT * (LT + 1));
+}
+size_t tiled_fwd_smem_bytes(int W) {
+  return sizeof(float) * (size_t)(2 * LT * (W + 1) + 2 * LT + LT * (LT + 1));
 }
 size_t dh_smem_bytes(int W) {
   return sizeof(float) * (size_t)(2 * LT * (W + 1) + LT * (LT + 1) + LT);
@@ -350,9 +705,23 @@ size_t dh_smem_bytes(int W) {
 size_t dt_smem_bytes(int W) {
   return sizeof(float) * (size_t)(2 * LT * (W + 1) + 2 * LT * (LT + 1) + 4 * LT);
 }
+size_t vt_smem_bytes(int W) {
+  return sizeof(float) * (size_t)(2 * LT * (W + 1) + 2 * LT * (LT + 1) + 4 * LT);
+}
 
 int dt_splits(int R) { return ceil_div(R, DT_CHUNK); }
 
+// K5's vocabulary tiles per split: enough splits that row tiles x splits
+// reaches ~FWD_BLOCKS blocks, and no empty split
+int fwd_tiles_per_split(int R, int V) {
+  const int vtiles = ceil_div(V, LT);
+  const int want = std::min(vtiles, std::max(1, ceil_div(FWD_BLOCKS, ceil_div(R, LT))));
+  return ceil_div(vtiles, want);
+}
+int fwd_splits(int R, int V) { return ceil_div(ceil_div(V, LT), fwd_tiles_per_split(R, V)); }
+int merged_groups(int V) { return std::min(ceil_div(V, LT), MERGED_GROUPS); }
+
+// K3 / K4
 struct LossScratch {
   float *part_fwd, *part_dt, *part_db;
   size_t bytes;
@@ -361,6 +730,32 @@ struct LossScratch {
     part_fwd = c.take<float>((size_t)ceil_div(R, LT) * 4);
     part_dt = c.take<float>((size_t)dt_splits(R) * V * W);
     part_db = c.take<float>((size_t)dt_splits(R) * V);
+    bytes = c.used;
+  }
+};
+
+// K5: per-split row stats and per-block partial sums; no V x W term
+struct TiledFwdScratch {
+  float *part_m, *part_s, *part_ll, *part_sums;
+  size_t bytes;
+  TiledFwdScratch(void* base, int R, int V) {
+    Carve c{static_cast<char*>(base), 0};
+    const size_t n = (size_t)fwd_splits(R, V) * R;
+    part_m = c.take<float>(n);
+    part_s = c.take<float>(n);
+    part_ll = c.take<float>(n);
+    part_sums = c.take<float>((size_t)ceil_div(R, 256) * 4);
+    bytes = c.used;
+  }
+};
+
+// K6: one fp32 dh partial per vocabulary-tile group; K7 needs none
+struct TiledBwdScratch {
+  float* part_dh;
+  size_t bytes;
+  TiledBwdScratch(void* base, int R, int V, int W, int merged) {
+    Carve c{static_cast<char*>(base), 0};
+    part_dh = merged ? c.take<float>((size_t)merged_groups(V) * R * W) : nullptr;
     bytes = c.used;
   }
 };
@@ -381,26 +776,94 @@ int loss_forward(const void* hidden, const void* table, const float* bias,
   return (int)reduce_rows(w.part_fwd, sums, ceil_div(R, LT), 4, stream);
 }
 
+template <typename T>
+int tiled_forward(const void* hidden, const void* table, const float* bias,
+                  const int32_t* labels, float* lse, float* sums, float* m, float* s,
+                  float* ll, void* workspace, int R, int V, int W, cudaStream_t stream) {
+  TiledFwdScratch w(workspace, R, V);
+  const size_t smem = tiled_fwd_smem_bytes(W);
+  cudaError_t err = cudaFuncSetAttribute(
+      loss_tiled_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int n_splits = fwd_splits(R, V);
+  loss_tiled_fwd_kernel<T><<<dim3(ceil_div(R, LT), n_splits), 256, smem, stream>>>(
+      static_cast<const T*>(hidden), static_cast<const T*>(table), bias, labels, w.part_m,
+      w.part_s, w.part_ll, R, V, W, fwd_tiles_per_split(R, V));
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  const int blocks = ceil_div(R, 256);
+  loss_tiled_merge_kernel<<<blocks, 256, 0, stream>>>(
+      w.part_m, w.part_s, w.part_ll, labels, R, n_splits, lse, m, s, ll,
+      sums != nullptr ? w.part_sums : nullptr);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  return sums != nullptr ? (int)reduce_rows(w.part_sums, sums, blocks, 4, stream) : 0;
+}
+
 template <typename T, int WJ>
-int loss_backward_w(const T* hidden, const T* table, const float* bias,
-                    const int32_t* labels, const float* lse, const float* g,
-                    const float* n_valid, T* dh, float* dt, float* db, void* workspace,
-                    int R, int V, int W, cudaStream_t stream) {
-  LossScratch w(workspace, R, V, W);
-  size_t smem = dh_smem_bytes(W);
+cudaError_t launch_dh(const T* hidden, const T* table, const float* bias,
+                      const int32_t* labels, const float* lse, const float* g,
+                      const float* n_valid, int valid_ge_zero, T* dh, int R, int V, int W,
+                      cudaStream_t stream) {
+  const size_t smem = dh_smem_bytes(W);
   cudaError_t err = cudaFuncSetAttribute(loss_bwd_dh_kernel<T, WJ>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
-  if (err != cudaSuccess) return (int)err;
+  if (err != cudaSuccess) return err;
   loss_bwd_dh_kernel<T, WJ><<<ceil_div(R, LT), 256, smem, stream>>>(
-      hidden, table, bias, labels, lse, g, n_valid, dh, R, V, W);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  smem = dt_smem_bytes(W);
+      hidden, table, bias, labels, lse, g, n_valid, valid_ge_zero, dh, R, V, W);
+  return cudaGetLastError();
+}
+
+template <typename T, int WJ, bool kDh>
+cudaError_t launch_vt(const T* hidden, const T* table, const float* bias,
+                      const int32_t* labels, const float* lse, const float* g,
+                      const float* n_valid, int valid_ge_zero, float* dt, float* db,
+                      float* part_dh, int R, int V, int W, int groups,
+                      cudaStream_t stream) {
+  const size_t smem = vt_smem_bytes(W);
+  cudaError_t err = cudaFuncSetAttribute(loss_bwd_vt_kernel<T, WJ, kDh>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+  if (err != cudaSuccess) return err;
+  loss_bwd_vt_kernel<T, WJ, kDh><<<groups, 256, smem, stream>>>(
+      hidden, table, bias, labels, lse, g, n_valid, valid_ge_zero, dt, db, part_dh, R, V,
+      W, groups);
+  return cudaGetLastError();
+}
+
+// mode: 0 = K4 (dh sweep; its own dtable sweep over 1,024-row splits, reduced
+// in order),
+// 1 = K6 (one merged sweep; dh partials per group, reduced in order),
+// 2 = K7 (dh sweep; dtable sweep over all rows)
+template <typename T, int WJ>
+int loss_backward_w(int mode, const T* hidden, const T* table, const float* bias,
+                    const int32_t* labels, const float* lse, const float* g,
+                    const float* n_valid, int vge0, T* dh, float* dt, float* db,
+                    void* workspace, int R, int V, int W, cudaStream_t stream) {
+  const int vtiles = ceil_div(V, LT);
+  cudaError_t err;
+  if (mode == 1) {
+    TiledBwdScratch w(workspace, R, V, W, 1);
+    const int groups = merged_groups(V);
+    err = launch_vt<T, WJ, true>(hidden, table, bias, labels, lse, g, n_valid, vge0, dt, db,
+                                 w.part_dh, R, V, W, groups, stream);
+    if (err != cudaSuccess) return (int)err;
+    const long n = (long)R * W;
+    reduce_rows_cast_kernel<T><<<ceil_div(n, 256), 256, 0, stream>>>(w.part_dh, dh, groups, n);
+    return (int)cudaGetLastError();
+  }
+  err = launch_dh<T, WJ>(hidden, table, bias, labels, lse, g, n_valid, vge0, dh, R, V, W,
+                         stream);
+  if (err != cudaSuccess) return (int)err;
+  if (mode == 2)
+    return (int)launch_vt<T, WJ, false>(hidden, table, bias, labels, lse, g, n_valid, vge0,
+                                        dt, db, nullptr, R, V, W, vtiles, stream);
+  LossScratch w(workspace, R, V, W);
+  const int splits = dt_splits(R);
+  const size_t smem = dt_smem_bytes(W);
   err = cudaFuncSetAttribute(loss_bwd_dt_kernel<T, WJ>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const int splits = dt_splits(R);
-  loss_bwd_dt_kernel<T, WJ><<<dim3(ceil_div(V, LT), splits), 256, smem, stream>>>(
+  loss_bwd_dt_kernel<T, WJ><<<dim3(vtiles, splits), 256, smem, stream>>>(
       hidden, table, bias, labels, lse, g, n_valid, w.part_dt, w.part_db, R, V, W);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   if ((err = reduce_rows(w.part_dt, dt, splits, V * W, stream)) != cudaSuccess)
@@ -409,15 +872,16 @@ int loss_backward_w(const T* hidden, const T* table, const float* bias,
 }
 
 template <typename T>
-int loss_backward(const void* hidden, const void* table, const float* bias,
+int loss_backward(int mode, const void* hidden, const void* table, const float* bias,
                   const int32_t* labels, const float* lse, const float* g,
-                  const float* n_valid, void* dh, float* dt, float* db, void* workspace,
-                  int R, int V, int W, cudaStream_t stream) {
+                  const float* n_valid, int vge0, void* dh, float* dt, float* db,
+                  void* workspace, int R, int V, int W, cudaStream_t stream) {
   const T* h = static_cast<const T*>(hidden);
   const T* t = static_cast<const T*>(table);
   T* d = static_cast<T*>(dh);
-#define B4R_LB(WJV) \
-  loss_backward_w<T, WJV>(h, t, bias, labels, lse, g, n_valid, d, dt, db, workspace, R, V, W, stream)
+#define B4R_LB(WJV)                                                                   \
+  loss_backward_w<T, WJV>(mode, h, t, bias, labels, lse, g, n_valid, vge0, d, dt, db, \
+                          workspace, R, V, W, stream)
   switch (pow2_at_least(ceil_div(W, 16))) {
     case 1: return B4R_LB(1);
     case 2: return B4R_LB(2);
@@ -436,9 +900,19 @@ extern "C" {
 // Limit the wrapper checks before calling (ops/fused_mlm_loss.py).
 int b4r_mlm_loss_max_width() { return LOSS_MAXW; }
 
-// Bytes of the workspace both entry points carve their partials from.
+// Bytes of the workspace K3 / K4 carve their partials from.
 size_t b4r_mlm_loss_workspace_bytes(int R, int V, int W) {
   return LossScratch(nullptr, R, V, W).bytes;
+}
+
+// Bytes of K5's workspace: splits x R x 3 + the row-block sums, no V x W.
+size_t b4r_mlm_loss_tiled_fwd_workspace_bytes(int R, int V, int W) {
+  return TiledFwdScratch(nullptr, R, V).bytes;
+}
+
+// Bytes of K6's (merged = 1) or K7's (merged = 0) workspace.
+size_t b4r_mlm_loss_tiled_bwd_workspace_bytes(int R, int V, int W, int merged) {
+  return TiledBwdScratch(nullptr, R, V, W, merged).bytes;
 }
 
 // dtype: 0 = float32, 1 = bfloat16 for hidden and table (and dh). Writes
@@ -455,6 +929,23 @@ int b4r_mlm_loss_fwd(int dtype, const void* hidden, const void* table,
   return (int)cudaErrorInvalidValue;
 }
 
+// K5. Writes lse [R] and sums [4] as b4r_mlm_loss_fwd, and the per-row
+// stats m, s, ll [R] (max, sum of exp at it, label logit); any of the five
+// may be null (the stats entry passes null lse and sums).
+int b4r_mlm_loss_tiled_fwd(int dtype, const void* hidden, const void* table,
+                           const float* bias, const int32_t* labels, float* lse, float* sums,
+                           float* m, float* s, float* ll, void* workspace, int R, int V,
+                           int W, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return tiled_forward<float>(hidden, table, bias, labels, lse, sums, m, s, ll, workspace,
+                                R, V, W, st);
+  if (dtype == 1)
+    return tiled_forward<__nv_bfloat16>(hidden, table, bias, labels, lse, sums, m, s, ll,
+                                        workspace, R, V, W, st);
+  return (int)cudaErrorInvalidValue;
+}
+
 // g: the loss's cotangent (one float on the device); n_valid: sums[3] of
 // the forward. Writes dh [R, W] in dtype, dt [V, W] and db [V] in float32.
 int b4r_mlm_loss_bwd(int dtype, const void* hidden, const void* table,
@@ -463,11 +954,29 @@ int b4r_mlm_loss_bwd(int dtype, const void* hidden, const void* table,
                      float* db, void* workspace, int R, int V, int W, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return loss_backward<float>(hidden, table, bias, labels, lse, g, n_valid, dh, dt, db,
-                                workspace, R, V, W, st);
+    return loss_backward<float>(0, hidden, table, bias, labels, lse, g, n_valid, 0, dh, dt,
+                                db, workspace, R, V, W, st);
   if (dtype == 1)
-    return loss_backward<__nv_bfloat16>(hidden, table, bias, labels, lse, g, n_valid, dh,
-                                        dt, db, workspace, R, V, W, st);
+    return loss_backward<__nv_bfloat16>(0, hidden, table, bias, labels, lse, g, n_valid, 0,
+                                        dh, dt, db, workspace, R, V, W, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// K6 (merged = 1) or K7 (merged = 0), the backward of K5 from its lse;
+// valid_ge_zero = 1 weighs rows with label >= 0. Outputs as b4r_mlm_loss_bwd.
+int b4r_mlm_loss_tiled_bwd(int merged, int dtype, const void* hidden, const void* table,
+                           const float* bias, const int32_t* labels, const float* lse,
+                           const float* g, const float* n_valid, int valid_ge_zero,
+                           void* dh, float* dt, float* db, void* workspace, int R, int V,
+                           int W, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int mode = merged ? 1 : 2;
+  if (dtype == 0)
+    return loss_backward<float>(mode, hidden, table, bias, labels, lse, g, n_valid,
+                                valid_ge_zero, dh, dt, db, workspace, R, V, W, st);
+  if (dtype == 1)
+    return loss_backward<__nv_bfloat16>(mode, hidden, table, bias, labels, lse, g, n_valid,
+                                        valid_ge_zero, dh, dt, db, workspace, R, V, W, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -1,29 +1,35 @@
 """Fused tied-softmax masked cross-entropy, forward and backward (port of
-``bert4rec_tpu/ops/fused_mlm_loss.py``, the whole-table kernels).
+``bert4rec_tpu/ops/fused_mlm_loss.py``).
 
-Replaces the TPU kernels ``_fwd_kernel`` (K3, ``_run_forward``) and
-``_bwd_kernel`` (K4, ``_run_backward``) of
-``bert4rec_tpu/ops/fused_mlm_loss.py`` with the hand-written Hopper CUDA
-kernels of ``csrc/fused_mlm_loss.cu``. As on the TPU, the ``[R, V]`` fp32
-logits (152 MB at the ml-1m train shape) never reach device memory: every
-kernel streams the table in vocabulary tiles and recomputes the logits
-tile it needs. Bound: 2·R·V·W FLOP forward (9.7 GFLOP at R=10,240,
-V=3,709, W=128) and about 3x that backward against ~3.5 MB of inputs —
-bound by operations; bf16 products on the tensor cores, fp32 ones as SIMT
-loops (times in PERF.md).
+Replaces the TPU kernels of ``bert4rec_tpu/ops/fused_mlm_loss.py`` with
+the hand-written Hopper CUDA kernels of ``csrc/fused_mlm_loss.cu``:
 
-Semantics are the JAX kernel's: loss = mean NLL over labels > 0;
+- K3 ``_fwd_kernel`` and K4 ``_bwd_kernel``, the whole-table pair that JAX
+  runs where ``fused_loss_supported`` holds (ml-1m);
+- K5 ``_fwd_kernel_tiled``, K6 ``_bwd_merged_kernel`` and K7
+  ``_bwd_dh_kernel`` + ``_bwd_dt_kernel``, the vocab-tiled family JAX runs
+  for every larger table (ml-20m, reddit). The backward takes K6 or K7 by
+  JAX's own law (``merged_backward``, a copy of ``_run_backward_tiled``'s).
+
+As on the TPU, the ``[R, V]`` fp32 logits (1.1 GB at the ml-20m train
+shape) never reach device memory: every kernel streams the table in
+vocabulary tiles and recomputes the logits tile it needs. Bound: 2·R·V·W
+FLOP forward, 6·R·V·W (K4, K6) or 8·R·V·W (K7) backward, against a few MB
+of inputs — bound by operations; bf16 products on the tensor cores, fp32
+ones as SIMT loops (times in PERF.md).
+
+Semantics are the JAX kernels': loss = mean NLL over labels > 0;
 ``masked_accuracy`` = correct-and-valid / n_valid; ``accuracy`` = correct
-/ rows, where "correct" is ``label_logit >= row max`` (ties count).
-Vocab-padding columns are killed by -1e9 folded into the bias
-(``_mask_bias``). The backward reads the forward's per-row logsumexp where
-the JAX single-tile backward recomputes max and sum: the same function up
-to fp32 rounding.
+/ rows, where "correct" is ``label_logit >= row max`` and label >= 0 (ties
+count). Vocab-padding columns are killed by -1e9 folded into the bias
+(``_mask_bias``); JAX's extra padding of the vocabulary to 1,024 columns
+is not needed (the kernels mask the ragged last tile) and is not done.
+The backwards read the forward's per-row logsumexp where the JAX
+whole-table backward recomputes max and sum: the same function up to fp32
+rounding.
 
 Routing: a CPU tensor runs the plain version; a CUDA tensor launches the
-kernels or raises. A vocabulary the JAX package sends to its vocab-tiled
-kernels (K5-K7, ``fused_loss_supported`` false) raises on CUDA: those are
-not ported yet.
+kernels or raises.
 """
 
 import ctypes
@@ -58,6 +64,19 @@ def fused_loss_available(v_padded: int, width: int) -> bool:
     return 4 * v_padded * width <= 1 << 30
 
 
+# the merged-versus-two-sweep law of ``_run_backward_tiled`` (JAX
+# fused_mlm_loss.py:359-364, 655-661): K6 where the fp32 dh of the rows,
+# padded to BWD_ROW_TILE, fits _MERGED_DH_BYTES, K7 otherwise
+_MERGED_DH_BYTES = int(5.5 * 1024 * 1024)
+BWD_ROW_TILE = 1024
+
+
+def merged_backward(rows: int, width: int) -> bool:
+    """Whether JAX's tiled backward runs the merged K6 (else K7)."""
+    rows_padded = rows + ((-rows) % BWD_ROW_TILE)
+    return rows_padded * width * 4 <= _MERGED_DH_BYTES
+
+
 def _mask_bias(bias: torch.Tensor, vocab_size: int) -> torch.Tensor:
     """-1e9 on the vocab-padding columns, folded into the bias once."""
     if bias.shape[0] <= vocab_size:
@@ -74,30 +93,54 @@ def _logits(hidden, table, bias):
     return hidden.float() @ table.float().T + bias
 
 
+def _label_logit(logits, labels):
+    """Each row's logit at its label; 0 where the label matches no column
+    (the sharded loss's remote and invalid labels)."""
+    v = logits.shape[1]
+    labels = labels.long()
+    hit = (labels >= 0) & (labels < v)
+    ll = logits.gather(1, labels.clamp(0, v - 1)[:, None])[:, 0]
+    return torch.where(hit, ll, torch.zeros_like(ll))
+
+
+def fused_mlm_loss_plain_stats(hidden: torch.Tensor, table: torch.Tensor,
+                               bias: torch.Tensor, labels: torch.Tensor):
+    """Per-row ``(m, s, ll)`` [R]: the logits' max, the sum of
+    ``exp(logits - m)``, and the label logit (0 if no column matches) —
+    what JAX's ``_run_forward_tiled_stats`` returns. ``table`` in the
+    hidden dtype, ``bias`` masked."""
+    logits = _logits(hidden, table, bias)
+    m = logits.amax(dim=-1)
+    s = torch.exp(logits - m[:, None]).sum(dim=-1)
+    return m, s, _label_logit(logits, labels)
+
+
 def fused_mlm_loss_plain_forward(hidden: torch.Tensor, table: torch.Tensor,
                                  bias: torch.Tensor, labels: torch.Tensor):
     """``(lse [R], sums [4])`` with sums = (sum nll*w, sum correct*w,
-    sum correct, sum w); ``table`` in the hidden dtype, ``bias`` masked."""
-    logits = _logits(hidden, table, bias)
-    m = logits.amax(dim=-1)
-    lse = m + torch.log(torch.exp(logits - m[:, None]).sum(dim=-1))
-    ll = logits.gather(1, labels.long()[:, None])[:, 0]
+    sum correct, sum w), w = label > 0, correct = label logit >= max and
+    label >= 0: the plain version of K3 and of K5."""
+    m, s, ll = fused_mlm_loss_plain_stats(hidden, table, bias, labels)
+    lse = m + torch.log(s)
     w = (labels > 0).float()
-    correct = (ll >= m).float()
+    correct = ((ll >= m) & (labels >= 0)).float()
     sums = torch.stack([((lse - ll) * w).sum(), (correct * w).sum(),
                         correct.sum(), w.sum()])
     return lse, sums
 
 
 def fused_mlm_loss_plain_backward(hidden, table, bias, labels, lse, g,
-                                  n_valid):
+                                  n_valid, valid_ge_zero: bool = False):
     """``(dh, dtable, dbias)``: ``dlog = (softmax - onehot) * w * g /
-    max(n_valid, 1)``; dh in the hidden dtype, the others fp32."""
+    max(n_valid, 1)`` with w = label > 0 (label >= 0 under
+    ``valid_ge_zero``); dh in the hidden dtype, the others fp32. The plain
+    version of K4, K6 and K7."""
     logits = _logits(hidden, table, bias)
     scale = g.float().reshape(()) / torch.clamp(n_valid.float(), min=1.0)
-    onehot = torch.zeros_like(logits).scatter_(1, labels.long()[:, None],
-                                               1.0)
-    w = (labels > 0).float() * scale
+    col = torch.arange(logits.shape[1], device=logits.device)
+    onehot = (col[None, :] == labels.long()[:, None]).float()
+    valid = labels >= 0 if valid_ge_zero else labels > 0
+    w = valid.float() * scale
     dlog = (torch.exp(logits - lse[:, None]) - onehot) * w[:, None]
     dlog_t = dlog.to(hidden.dtype).float()
     dh = (dlog_t @ table.float()).to(hidden.dtype)
@@ -121,41 +164,76 @@ def _kernel_lib():
         lib.b4r_mlm_loss_fwd.argtypes = [ci] + [vp] * 7 + [ci] * 3 + [vp]
         lib.b4r_mlm_loss_bwd.restype = ci
         lib.b4r_mlm_loss_bwd.argtypes = [ci] + [vp] * 11 + [ci] * 3 + [vp]
-        lib.b4r_mlm_loss_workspace_bytes.restype = ctypes.c_size_t
-        lib.b4r_mlm_loss_workspace_bytes.argtypes = [ci] * 3
+        lib.b4r_mlm_loss_tiled_fwd.restype = ci
+        lib.b4r_mlm_loss_tiled_fwd.argtypes = [ci] + [vp] * 10 + [ci] * 3 \
+            + [vp]
+        lib.b4r_mlm_loss_tiled_bwd.restype = ci
+        lib.b4r_mlm_loss_tiled_bwd.argtypes = [ci, ci] + [vp] * 7 + [ci] \
+            + [vp] * 4 + [ci] * 3 + [vp]
+        for name, n in (("b4r_mlm_loss_workspace_bytes", 3),
+                        ("b4r_mlm_loss_tiled_fwd_workspace_bytes", 3),
+                        ("b4r_mlm_loss_tiled_bwd_workspace_bytes", 4)):
+            getattr(lib, name).restype = ctypes.c_size_t
+            getattr(lib, name).argtypes = [ci] * n
         lib.b4r_mlm_loss_max_width.restype = ci
         lib.b4r_mlm_loss_max_width.argtypes = []
         _lib = lib
     return _lib
 
 
-def _workspace(lib, rows, v, w, device):
-    return torch.empty((lib.b4r_mlm_loss_workspace_bytes(rows, v, w),),
-                       dtype=torch.uint8, device=device)
+def workspace_bytes(kernel: str, rows: int, v: int, w: int) -> int:
+    """Bytes of device workspace the library asks for: ``kernel`` is
+    ``"K3/K4"``, ``"K5"``, ``"K6"`` or ``"K7"``."""
+    lib = _kernel_lib()
+    if kernel == "K3/K4":
+        return lib.b4r_mlm_loss_workspace_bytes(rows, v, w)
+    if kernel == "K5":
+        return lib.b4r_mlm_loss_tiled_fwd_workspace_bytes(rows, v, w)
+    if kernel in ("K6", "K7"):
+        return lib.b4r_mlm_loss_tiled_bwd_workspace_bytes(
+            rows, v, w, int(kernel == "K6"))
+    raise ValueError(f"no kernel {kernel!r}")
+
+
+def _workspace(nbytes, device):
+    return torch.empty((nbytes,), dtype=torch.uint8, device=device)
+
+
+def _check_width(lib, w):
+    if w > lib.b4r_mlm_loss_max_width():
+        raise ValueError(f"fused loss kernels take width <= "
+                         f"{lib.b4r_mlm_loss_max_width()}, got {w}")
+
+
+def _raise_on(err, what):
+    if err != 0:
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
 
 
 def _launch_forward(hidden, table, bias, labels):
+    """K3: ``(lse [R], sums [4])``."""
     lib = _kernel_lib()
     rows, w = hidden.shape
     v = table.shape[0]
-    if w > lib.b4r_mlm_loss_max_width():
-        raise ValueError(f"fused loss kernel takes width <= "
-                         f"{lib.b4r_mlm_loss_max_width()}, got {w}")
+    _check_width(lib, w)
     dev = hidden.device
     lse = torch.empty((rows,), dtype=torch.float32, device=dev)
     sums = torch.empty((4,), dtype=torch.float32, device=dev)
-    ws = _workspace(lib, rows, v, w, dev)
-    err = lib.b4r_mlm_loss_fwd(
+    ws = _workspace(workspace_bytes("K3/K4", rows, v, w), dev)
+    _raise_on(lib.b4r_mlm_loss_fwd(
         _DTYPE_CODE[hidden.dtype], hidden.data_ptr(), table.data_ptr(),
         bias.data_ptr(), labels.data_ptr(), lse.data_ptr(), sums.data_ptr(),
-        ws.data_ptr(), rows, v, w, torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"fused_mlm_loss kernel launch failed: CUDA error "
-                           f"{err}")
+        ws.data_ptr(), rows, v, w, torch.cuda.current_stream(dev).cuda_stream),
+        "fused_mlm_loss")
     return lse, sums
 
 
 def _launch_backward(hidden, table, bias, labels, lse, g, n_valid):
+    """K4: ``(dh, dtable, dbias)``."""
     lib = _kernel_lib()
     rows, w = hidden.shape
     v = table.shape[0]
@@ -164,24 +242,76 @@ def _launch_backward(hidden, table, bias, labels, lse, g, n_valid):
     dt = torch.empty((v, w), dtype=torch.float32, device=dev)
     db = torch.empty((v,), dtype=torch.float32, device=dev)
     g = g.reshape(1).float().contiguous()
-    ws = _workspace(lib, rows, v, w, dev)
-    err = lib.b4r_mlm_loss_bwd(
+    ws = _workspace(workspace_bytes("K3/K4", rows, v, w), dev)
+    _raise_on(lib.b4r_mlm_loss_bwd(
         _DTYPE_CODE[hidden.dtype], hidden.data_ptr(), table.data_ptr(),
         bias.data_ptr(), labels.data_ptr(), lse.data_ptr(), g.data_ptr(),
         n_valid.data_ptr(), dh.data_ptr(), dt.data_ptr(), db.data_ptr(),
-        ws.data_ptr(), rows, v, w, torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"fused_mlm_loss backward kernel launch failed: "
-                           f"CUDA error {err}")
+        ws.data_ptr(), rows, v, w, torch.cuda.current_stream(dev).cuda_stream),
+        "fused_mlm_loss backward")
+    return dh, dt, db
+
+
+def _launch_tiled(hidden, table, bias, labels, stats):
+    """K5: ``(lse [R], sums [4])``, or with ``stats`` the per-row
+    ``(m, s, ll)`` [R] without the scalars."""
+    lib = _kernel_lib()
+    rows, w = hidden.shape
+    v = table.shape[0]
+    _check_width(lib, w)
+    dev = hidden.device
+    row = lambda: torch.empty((rows,), dtype=torch.float32,  # noqa: E731
+                              device=dev)
+    lse, sums = (None, None) if stats else (
+        row(), torch.empty((4,), dtype=torch.float32, device=dev))
+    m, s, ll = (row(), row(), row()) if stats else (None, None, None)
+    ws = _workspace(workspace_bytes("K5", rows, v, w), dev)
+    _raise_on(lib.b4r_mlm_loss_tiled_fwd(
+        _DTYPE_CODE[hidden.dtype], hidden.data_ptr(), table.data_ptr(),
+        bias.data_ptr(), labels.data_ptr(), _ptr(lse), _ptr(sums), _ptr(m),
+        _ptr(s), _ptr(ll), ws.data_ptr(), rows, v, w,
+        torch.cuda.current_stream(dev).cuda_stream), "fused_mlm_loss_tiled")
+    return (m, s, ll) if stats else (lse, sums)
+
+
+def _launch_forward_tiled(hidden, table, bias, labels):
+    return _launch_tiled(hidden, table, bias, labels, stats=False)
+
+
+def _launch_forward_tiled_stats(hidden, table, bias, labels):
+    return _launch_tiled(hidden, table, bias, labels, stats=True)
+
+
+def _launch_backward_tiled(hidden, table, bias, labels, lse, g, n_valid,
+                           merged, valid_ge_zero=False):
+    """K6 (``merged``) or K7: ``(dh, dtable, dbias)``."""
+    lib = _kernel_lib()
+    rows, w = hidden.shape
+    v = table.shape[0]
+    dev = hidden.device
+    dh = torch.empty_like(hidden)
+    dt = torch.empty((v, w), dtype=torch.float32, device=dev)
+    db = torch.empty((v,), dtype=torch.float32, device=dev)
+    g = g.reshape(1).float().contiguous()
+    kernel = "K6" if merged else "K7"
+    ws = _workspace(workspace_bytes(kernel, rows, v, w), dev)
+    _raise_on(lib.b4r_mlm_loss_tiled_bwd(
+        int(merged), _DTYPE_CODE[hidden.dtype], hidden.data_ptr(),
+        table.data_ptr(), bias.data_ptr(), labels.data_ptr(), lse.data_ptr(),
+        g.data_ptr(), n_valid.data_ptr(), int(valid_ge_zero), dh.data_ptr(),
+        dt.data_ptr(), db.data_ptr(), ws.data_ptr(), rows, v, w,
+        torch.cuda.current_stream(dev).cuda_stream),
+        f"fused_mlm_loss_tiled backward ({kernel})")
     return dh, dt, db
 
 
 class _FusedLoss(torch.autograd.Function):
-    """K3 forward and K4 backward (the JAX ``custom_vjp``); only the loss
-    carries a gradient, the three counts are metrics."""
+    """K3 forward and K4 backward, or (``tiled``) K5 forward and K6 / K7
+    backward: the JAX ``custom_vjp``s. Only the loss carries a gradient,
+    the three counts are metrics."""
 
     @staticmethod
-    def forward(ctx, hidden, table, bias, labels, vocab_size):
+    def forward(ctx, hidden, table, bias, labels, vocab_size, tiled):
         table_s = table.to(hidden.dtype).contiguous()
         bias_m = _mask_bias(bias, vocab_size).float().contiguous()
         hidden = hidden.contiguous()
@@ -189,11 +319,14 @@ class _FusedLoss(torch.autograd.Function):
         if hidden.device.type == "cpu":
             lse, sums = fused_mlm_loss_plain_forward(hidden, table_s, bias_m,
                                                      labels)
+        elif tiled:
+            lse, sums = _launch_forward_tiled(hidden, table_s, bias_m, labels)
+            fused_mlm_loss_tiled.launches += 1
         else:
             lse, sums = _launch_forward(hidden, table_s, bias_m, labels)
             fused_mlm_loss.launches += 1
         ctx.save_for_backward(hidden, table_s, bias_m, labels, lse, sums)
-        ctx.vocab_size = vocab_size
+        ctx.vocab_size, ctx.tiled = vocab_size, tiled
         ctx.dtypes = (table.dtype, bias.dtype)
         loss = sums[0] / torch.clamp(sums[3], min=1.0)
         cv, ca, nv = sums[1].clone(), sums[2].clone(), sums[3].clone()
@@ -206,6 +339,15 @@ class _FusedLoss(torch.autograd.Function):
         if hidden.device.type == "cpu":
             dh, dt, db = fused_mlm_loss_plain_backward(
                 hidden, table_s, bias_m, labels, lse, g_loss, sums[3])
+        elif ctx.tiled:
+            merged = merged_backward(*hidden.shape)
+            dh, dt, db = _launch_backward_tiled(
+                hidden, table_s, bias_m, labels, lse, g_loss, sums[3:4],
+                merged)
+            if merged:
+                fused_mlm_loss_tiled.merged_launches += 1
+            else:
+                fused_mlm_loss_tiled.two_sweep_launches += 1
         else:
             dh, dt, db = _launch_backward(hidden, table_s, bias_m, labels,
                                           lse, g_loss, sums[3:4])
@@ -213,17 +355,10 @@ class _FusedLoss(torch.autograd.Function):
         # the padding columns' bias is the constant -1e9: no gradient
         db[ctx.vocab_size:] = 0.0
         t_dtype, b_dtype = ctx.dtypes
-        return dh, dt.to(t_dtype), db.to(b_dtype), None, None
+        return dh, dt.to(t_dtype), db.to(b_dtype), None, None, None
 
 
-def fused_mlm_loss(hidden: torch.Tensor, table: torch.Tensor,
-                   bias: torch.Tensor, labels: torch.Tensor,
-                   vocab_size: int):
-    """``(loss_mean, masked_correct, all_correct, n_valid)`` over flat rows:
-    ``hidden [R, W]``, ``table [Vp, W]`` (the tied table, cast to the
-    hidden dtype inside), ``bias [Vp]``, ``labels [R]`` int32 (0 = pad).
-    A CUDA ``hidden`` launches K3 (and K4 in backward), counted in
-    ``fused_mlm_loss.launches`` / ``.backward_launches``."""
+def _check_operands(hidden, table, bias, labels):
     if hidden.dim() != 2 or labels.shape != (hidden.shape[0],):
         raise ValueError(f"hidden must be [R, W] and labels [R], got "
                          f"{tuple(hidden.shape)} and {tuple(labels.shape)}")
@@ -240,29 +375,75 @@ def fused_mlm_loss(hidden: torch.Tensor, table: torch.Tensor,
                              "device")
     if hidden.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no fused loss for device {hidden.device}")
-    return _FusedLoss.apply(hidden, table, bias, labels, int(vocab_size))
+
+
+def fused_mlm_loss(hidden: torch.Tensor, table: torch.Tensor,
+                   bias: torch.Tensor, labels: torch.Tensor,
+                   vocab_size: int):
+    """``(loss_mean, masked_correct, all_correct, n_valid)`` over flat rows:
+    ``hidden [R, W]``, ``table [Vp, W]`` (the tied table, cast to the
+    hidden dtype inside), ``bias [Vp]``, ``labels [R]`` int32 (0 = pad).
+    A CUDA ``hidden`` launches K3 (and K4 in backward), counted in
+    ``fused_mlm_loss.launches`` / ``.backward_launches``."""
+    _check_operands(hidden, table, bias, labels)
+    return _FusedLoss.apply(hidden, table, bias, labels, int(vocab_size),
+                            False)
 
 
 fused_mlm_loss.launches = 0
 fused_mlm_loss.backward_launches = 0
 
 
+def fused_mlm_loss_tiled(hidden: torch.Tensor, table: torch.Tensor,
+                         bias: torch.Tensor, labels: torch.Tensor,
+                         vocab_size: int):
+    """The vocab-tiled twin of :func:`fused_mlm_loss` (JAX
+    ``fused_mlm_loss_tiled``): the same contract for any vocabulary. A
+    CUDA ``hidden`` launches K5, counted in ``fused_mlm_loss_tiled.launches``,
+    and in backward K6 or K7 by :func:`merged_backward`, counted in
+    ``.merged_launches`` / ``.two_sweep_launches``."""
+    _check_operands(hidden, table, bias, labels)
+    return _FusedLoss.apply(hidden, table, bias, labels, int(vocab_size),
+                            True)
+
+
+fused_mlm_loss_tiled.launches = 0
+fused_mlm_loss_tiled.merged_launches = 0
+fused_mlm_loss_tiled.two_sweep_launches = 0
+
+
+def fused_mlm_loss_tiled_stats(hidden: torch.Tensor, table: torch.Tensor,
+                               bias: torch.Tensor, labels: torch.Tensor,
+                               vocab_size: int):
+    """Per-row ``(m, s, ll)`` [R] fp32 (JAX ``_run_forward_tiled_stats``,
+    for the vocab-sharded loss): the running max, the sum of exp at it, and
+    the label logit (0 if the label matches no column). A CUDA ``hidden``
+    launches K5 (counted in ``fused_mlm_loss_tiled.launches``)."""
+    _check_operands(hidden, table, bias, labels)
+    table_s = table.to(hidden.dtype).contiguous()
+    bias_m = _mask_bias(bias, vocab_size).float().contiguous()
+    hidden, labels = hidden.contiguous(), labels.contiguous()
+    if hidden.device.type == "cpu":
+        return fused_mlm_loss_plain_stats(hidden, table_s, bias_m, labels)
+    out = _launch_forward_tiled_stats(hidden, table_s, bias_m, labels)
+    fused_mlm_loss_tiled.launches += 1
+    return out
+
+
 def mlm_loss_and_metrics(hidden: torch.Tensor, table: torch.Tensor,
                          bias: torch.Tensor, labels: torch.Tensor,
                          vocab_size: int):
     """``(loss, {"masked_accuracy", "accuracy"})`` as the JAX
-    ``mlm_loss_and_metrics``; ``hidden`` is ``[B, P, W]`` or ``[R, W]``."""
+    ``mlm_loss_and_metrics``; ``hidden`` is ``[B, P, W]`` or ``[R, W]``.
+    The whole-table kernels where ``fused_loss_supported`` holds, the
+    vocab-tiled ones otherwise (JAX fused_mlm_loss.py:317-319)."""
     rows = hidden.shape[0] * hidden.shape[1] if hidden.dim() == 3 \
         else hidden.shape[0]
-    if not fused_loss_supported(table.shape[0], table.shape[1]) \
-            and hidden.device.type == "cuda":
-        raise NotImplementedError(
-            f"a {table.shape[0]} x {table.shape[1]} table takes the "
-            f"vocab-tiled loss kernels K5-K7 (bert4rec_tpu/ops/"
-            f"fused_mlm_loss.py _fwd_kernel_tiled, _bwd_merged_kernel, "
-            f"_bwd_dh_kernel/_bwd_dt_kernel), which are not ported yet")
-    loss, cv, ca, nv = fused_mlm_loss(
-        hidden.reshape(rows, hidden.shape[-1]), table, bias,
-        labels.reshape(rows).to(torch.int32), vocab_size)
+    fn = (fused_mlm_loss
+          if fused_loss_supported(table.shape[0], table.shape[1])
+          else fused_mlm_loss_tiled)
+    loss, cv, ca, nv = fn(hidden.reshape(rows, hidden.shape[-1]), table,
+                          bias, labels.reshape(rows).to(torch.int32),
+                          vocab_size)
     return loss, {"masked_accuracy": cv / torch.clamp(nv, min=1.0),
                   "accuracy": ca / rows}

@@ -1,0 +1,139 @@
+"""Time the whole-table loss kernels (K3 forward, K4 backward) and the
+ml-1m_128 train step of the port in one checkout, on one CUDA card:
+
+    python bert4rec_tpu_torch/tools/time_loss_step.py [--root DIR] [--reps 5]
+
+``DIR`` is the root of a checkout (by default the one holding this file):
+its ``bert4rec_tpu_torch`` is imported and its kernels are built from its
+own sources. To compare two commits, run it for both checkouts in one
+session on one card, in the order A, B, B, A. Prints one JSON line:
+per-rep times of K3 and K4 at chip_smoke's shape (R=10,240 rows, V=3,709,
+W=128, bf16; CUDA events over 50 launches), the device ms of each kernel
+inside one K4 launch (torch.profiler), and per-rep medians of the host wall
+of 20 synchronised train steps at B=256, bf16, on batches of ``bench.py``'s
+law."""
+
+import argparse
+import json
+import pathlib
+import subprocess
+import sys
+import time
+
+VOCAB, ROWS, WIDTH = 3709, 256 * 40, 128
+SEQ, BATCH, NPRED = 200, 256, 40
+
+
+def events_ms(torch, fn, iters=50, warmup=5):
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def kernel_ms(torch, fn, calls=5):
+    """Device ms per call of each CUDA kernel ``fn`` launches."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key[:60]: e.self_device_time_total / calls / 1e3
+            for e in prof.key_averages()
+            if getattr(e, "self_device_time_total", 0) > 0}
+
+
+def make_batch(np, seed):
+    """``bench.py``'s batch law: random ids, no padding, 40 distinct sorted
+    masked positions per sequence."""
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(3, VOCAB, size=(BATCH, SEQ)).astype(np.int32)
+    pos = np.stack([np.sort(rng.choice(SEQ, size=NPRED, replace=False))
+                    for _ in range(BATCH)]).astype(np.int32)
+    return {"input_word_ids": ids,
+            "input_mask": np.ones((BATCH, SEQ), np.int32),
+            "masked_lm_positions": pos,
+            "masked_lm_ids": np.take_along_axis(ids, pos, axis=1),
+            "masked_lm_weights": np.ones((BATCH, NPRED), np.int32)}
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--root", default=str(
+        pathlib.Path(__file__).resolve().parents[2]))
+    parser.add_argument("--reps", type=int, default=5)
+    args = parser.parse_args(argv)
+    sys.path.insert(0, str(pathlib.Path(args.root).resolve()))
+    import numpy as np
+    import torch
+    if not torch.cuda.is_available():
+        print("time_loss_step: no CUDA device", file=sys.stderr)
+        return 1
+    from bert4rec_tpu_torch.config import load_train_config
+    from bert4rec_tpu_torch.core.dtypes import DTypePolicy
+    from bert4rec_tpu_torch.models import BERT4RecModel
+    from bert4rec_tpu_torch.ops import fused_mlm_loss as fml
+    from bert4rec_tpu_torch.trainers import BERT4RecTrainer, optimizers
+    if not fml.__file__.startswith(str(pathlib.Path(args.root).resolve())):
+        raise RuntimeError(f"imported {fml.__file__}, not from {args.root}")
+    device = torch.device("cuda")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], check=True, capture_output=True,
+        text=True, timeout=60).stdout.strip().splitlines()[0]
+
+    rng = np.random.default_rng(0)
+    hidden = torch.from_numpy(rng.normal(size=(ROWS, WIDTH))
+                              .astype(np.float32)).to(device, torch.bfloat16)
+    table = torch.from_numpy((rng.normal(size=(VOCAB, WIDTH)) * 0.1)
+                             .astype(np.float32)).to(device, torch.bfloat16)
+    bias = fml._mask_bias(torch.from_numpy(
+        rng.normal(size=VOCAB).astype(np.float32)).to(device), VOCAB)
+    lab = rng.integers(3, VOCAB, size=ROWS).astype(np.int32)
+    lab[::9] = 0
+    labels = torch.from_numpy(lab).to(device)
+    g = torch.ones((), device=device)
+    fwd = lambda: fml._launch_forward(hidden, table, bias, labels)  # noqa
+    lse, sums = fwd()
+    bwd = lambda: fml._launch_backward(  # noqa: E731
+        hidden, table, bias, labels, lse, g, sums[3:4])
+
+    config = load_train_config("ml-1m_128", vocab_size=VOCAB,
+                               use_fused_layer=True, use_fused_loss=True)
+    trainer = BERT4RecTrainer(BERT4RecModel(config=config,
+                                            dtype_policy=DTypePolicy.bf16()))
+    trainer.initialize_model(
+        optimizer=optimizers.create_adam_w_optimizer(
+            init_lr=1e-4, num_warmup_steps=100), seed=0, device=device)
+    batches = [trainer._put_batch(make_batch(np, 100 + i)) for i in range(4)]
+    for b in batches:
+        trainer.train_step(b)
+
+    out = dict(root=args.root, card=card, k3_ms=[], k4_ms=[], step_ms=[])
+    for _ in range(args.reps):
+        out["k3_ms"].append(events_ms(torch, fwd))
+        out["k4_ms"].append(events_ms(torch, bwd))
+        walls = []
+        for i in range(20):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            trainer.train_step(batches[i % len(batches)])
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        out["step_ms"].append(sorted(walls)[len(walls) // 2])
+    out["k4_kernels_ms"] = kernel_ms(torch, bwd)
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -15,9 +15,14 @@
   JAX ``lax.scan``; the same math), ``grad_accum_steps`` folds A
   microbatches into one update weighted by their valid positions.
 
+- ``train()`` and ``validate()`` feed their batches through
+  ``utils.prefetch``: a host thread slices and masks batch k+1 and copies
+  it to the card (pinned memory, a side stream) while step k runs.
+
 One device; the multi-GPU layout is not ported yet.
 """
 
+import contextlib
 import itertools
 import time
 from typing import Optional
@@ -31,6 +36,7 @@ from bert4rec_tpu_torch.trainers import optimizers, trainer_utils
 from bert4rec_tpu_torch.trainers.base_trainer import BaseTrainer
 from bert4rec_tpu_torch.trainers.callbacks import History, ModelCheckpoint
 from bert4rec_tpu_torch.utils import checkpoint as ckpt_lib
+from bert4rec_tpu_torch.utils import prefetch as prefetch_lib
 
 _BATCH_KEYS = ("input_word_ids", "input_mask", "masked_lm_positions",
                "masked_lm_ids")
@@ -59,6 +65,7 @@ class BERT4RecTrainer(BaseTrainer):
                 f"grad_accum_steps={self.grad_accum_steps})")
         self.state = None   # {"params", "opt_state", "step", "seed"}
         self.device = None
+        self._put = None     # host batch -> device tensors (prefetch's put)
         self._epochs_completed = None
         self._best_monitor_value = None
         self._custom_loss = False
@@ -76,6 +83,7 @@ class BERT4RecTrainer(BaseTrainer):
         without it the model is initialised from ``seed``. A custom
         ``loss`` or ``metrics`` routes the step through the logits path."""
         self.device = resolve_device(device)
+        self._put = prefetch_lib.device_put(self.device, _BATCH_KEYS)
         self.optimizer = optimizers.get(optimizer if optimizer is not None
                                         else "adamw")
         self._custom_loss = loss is not None or metrics is not None
@@ -100,9 +108,15 @@ class BERT4RecTrainer(BaseTrainer):
     # ------------------------------------------------------------------ #
 
     def _put_batch(self, batch: dict) -> dict:
-        """Host numpy batch -> the tensors the step reads, on the device."""
-        return {k: torch.from_numpy(np.ascontiguousarray(batch[k]))
-                .to(self.device) for k in _BATCH_KEYS}
+        """Host numpy batch -> the tensors the step reads, on the device
+        (pinned staging and a side-stream copy on the card)."""
+        return self._put(batch)
+
+    def _prefetched(self, raw):
+        """``raw`` host batches placed on the device by a prefetch thread,
+        two ahead of the step; closed when the caller leaves early."""
+        return contextlib.closing(
+            prefetch_lib.prefetch(raw, self._put_batch, depth=2))
 
     def _loss_and_logs(self, params, batch, training, seed):
         if not self._custom_loss and hasattr(self.model, "loss_and_metrics"):
@@ -244,30 +258,27 @@ class BERT4RecTrainer(BaseTrainer):
             if steps_per_epoch:
                 raw = itertools.islice(
                     raw, steps_per_epoch * (group_k if accum else 1))
-            raw = iter(raw)
-            while True:
-                group = list(itertools.islice(raw, group_k))
-                if not group:
-                    break
-                if accum:
-                    if len(group) < group_k:
-                        break   # a partial group would change the batch
-                    logs = self.accum_step([self._put_batch(b)
-                                            for b in group])
-                    self._accumulate(sums, wsums, logs)
-                    count += 1
-                    n_examples += sum(len(b["input_word_ids"])
-                                      for b in group)
-                else:
-                    for b in group:
-                        self._accumulate(sums, wsums,
-                                         self.train_step(self._put_batch(b)))
+            with self._prefetched(raw) as placed:
+                while True:
+                    group = list(itertools.islice(placed, group_k))
+                    if not group:
+                        break
+                    if accum:
+                        if len(group) < group_k:
+                            break   # a partial group would change the batch
+                        self._accumulate(sums, wsums, self.accum_step(group))
                         count += 1
-                        n_examples += len(b["input_word_ids"])
-                        if steps_per_epoch and count >= steps_per_epoch:
-                            break
-                if steps_per_epoch and count >= steps_per_epoch:
-                    break
+                        n_examples += sum(len(b["input_word_ids"])
+                                          for b in group)
+                    else:
+                        for b in group:
+                            self._accumulate(sums, wsums, self.train_step(b))
+                            count += 1
+                            n_examples += len(b["input_word_ids"])
+                            if steps_per_epoch and count >= steps_per_epoch:
+                                break
+                    if steps_per_epoch and count >= steps_per_epoch:
+                        break
             logs = self._means(sums, wsums)
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
@@ -299,12 +310,13 @@ class BERT4RecTrainer(BaseTrainer):
         """Weighted metrics over the validation set (the final batch is
         zero-padded; its fake rows carry no weight)."""
         sums, wsums = {}, {}
-        for count, batch in enumerate(val_ds.batches(
-                batch_size, shuffle=False, seed=seed, pad_final_batch=True)):
-            if validation_steps and count >= validation_steps:
-                break
-            self._accumulate(sums, wsums,
-                             self.eval_step(self._put_batch(batch)))
+        raw = val_ds.batches(batch_size, shuffle=False, seed=seed,
+                             pad_final_batch=True)
+        if validation_steps:
+            raw = itertools.islice(raw, validation_steps)
+        with self._prefetched(raw) as placed:
+            for batch in placed:
+                self._accumulate(sums, wsums, self.eval_step(batch))
         return self._means(sums, wsums)
 
     # ------------------------------------------------------------------ #

@@ -1,5 +1,6 @@
-"""Path helpers (port of ``bert4rec_tpu/utils/utils.py``): model paths are
-anchored at the project root, overridable with ``BERT4REC_TPU_HOME``."""
+"""Path helpers (port of ``bert4rec_tpu/utils/utils.py``): data and model
+paths are anchored at the project root, overridable with
+``BERT4REC_TPU_HOME``."""
 
 import os
 import pathlib
@@ -17,6 +18,10 @@ def get_virtual_env_path() -> pathlib.Path:
     if env:
         return pathlib.Path(env)
     return get_project_root()
+
+
+def get_data_dir() -> pathlib.Path:
+    return get_project_root() / "data"
 
 
 def get_default_model_save_path() -> pathlib.Path:

@@ -242,3 +242,155 @@ def test_fused_loss_kernels_match_plain(cuda_device, shape, dtype):
     for got, ref in ((hidden.grad, dh), (table.grad, dt), (bias.grad, db)):
         assert _rel_err(got, ref) <= (1e-4 if dtype == torch.float32
                                       else 2e-2)
+
+
+# --------------------------------------------------------------------------- #
+# the vocab-tiled loss: K5 forward, K6 / K7 backward
+# --------------------------------------------------------------------------- #
+
+def _tiled_inputs(device, dtype, r, vp, w, labels="mixed"):
+    """``vp - 3`` real columns (3 config-padding columns at -1e9); labels
+    ``mixed`` (every 7th row 0), ``padding`` (all 0) or ``sharded`` (the
+    valid_ge_zero encoding: -1 none, a sentinel past the table remote)."""
+    from bert4rec_tpu_torch.ops import fused_mlm_loss as fml
+    v = vp - 3
+    rng = np.random.default_rng(r + w)
+    hidden = torch.from_numpy(rng.normal(size=(r, w)).astype(np.float32)) \
+        .to(device, dtype)
+    table = torch.from_numpy((rng.normal(size=(vp, w)) * 0.1)
+                             .astype(np.float32)).to(device)
+    bias = torch.from_numpy(rng.normal(size=vp).astype(np.float32)).to(device)
+    lab = rng.integers(1, v, size=r).astype(np.int32)
+    if labels == "mixed":
+        lab[::7] = 0
+    elif labels == "padding":
+        lab[:] = 0
+    else:
+        lab[::4] = -1
+        lab[1::4] = vp + 7
+    return (hidden, table.to(dtype), fml._mask_bias(bias, v),
+            torch.from_numpy(lab).to(device), v)
+
+
+# the ml-20m train shapes with ordinary labels; every label encoding at
+# the small shapes (V off every tile, W below and at the kernels' limit)
+TILED_CASES = [((10240, 26732, w), "mixed") for w in (128, 256)] + [
+    (shape, labels) for shape in ((300, 104, 32), (77, 61, 256), (130, 200, 40))
+    for labels in ("mixed", "padding", "sharded")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,labels", TILED_CASES,
+                         ids=lambda c: "R{}_V{}_W{}".format(*c)
+                         if isinstance(c, tuple) else c)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_tiled_loss_kernels_match_plain(cuda_device, shape, labels, dtype):
+    """K5 (loss and stats entries), K6 and K7 against the plain versions,
+    and two runs of each backward giving the same bits."""
+    from bert4rec_tpu_torch.ops import fused_mlm_loss as fml
+    r, vp, w = shape
+    h, t, b, lab, _ = _tiled_inputs(cuda_device, dtype, r, vp, w, labels)
+    vge0 = labels == "sharded"
+    lse, sums = fml._launch_forward_tiled(h, t, b, lab)
+    m, s, ll = fml._launch_forward_tiled_stats(h, t, b, lab)
+    torch.cuda.synchronize()
+    rlse, rsums = fml.fused_mlm_loss_plain_forward(h, t, b, lab)
+    rm, rs, rll = fml.fused_mlm_loss_plain_stats(h, t, b, lab)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    assert _rel_err(lse, rlse) <= 1e-5
+    assert abs(float(sums[0]) - float(rsums[0])) <= \
+        1e-5 * max(abs(float(rsums[0])), 1.0)
+    assert sums[1:].tolist() == rsums[1:].tolist()
+    for got, ref in ((m, rm), (s, rs), (ll, rll)):
+        assert _rel_err(got, ref) <= 1e-5
+    g = torch.full((), 0.5, device=cuda_device)
+    nv = rsums[3:4]
+    ref = fml.fused_mlm_loss_plain_backward(h, t, b, lab, rlse, g, nv[0],
+                                            valid_ge_zero=vge0)
+    for merged in (True, False):
+        got = fml._launch_backward_tiled(h, t, b, lab, lse, g, nv, merged,
+                                         valid_ge_zero=vge0)
+        again = fml._launch_backward_tiled(h, t, b, lab, lse, g, nv, merged,
+                                           valid_ge_zero=vge0)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, c) for a, c in zip(got, again))
+        for a, c in zip(got, ref):
+            if not bool(c.abs().any()):
+                assert not bool(a.abs().any())
+            else:
+                assert _rel_err(a, c) <= tol, ("K6" if merged else "K7")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,w,kernel", [(10240, 128, "K6"),
+                                           (10240, 256, "K7")])
+def test_tiled_autograd_launches_by_the_merged_law(cuda_device, rows, w,
+                                                   kernel):
+    """``mlm_loss_and_metrics`` at ml-20m's table launches K5 once and
+    then K6 (W=128) or K7 (W=256), and its gradients match the plain
+    backward."""
+    from bert4rec_tpu_torch.ops import fused_mlm_loss as fml
+    vp = 26732
+    h, t, b, lab, v = _tiled_inputs(cuda_device, torch.bfloat16, rows, vp, w)
+    assert not fml.fused_loss_supported(vp, w)
+    h = h.requires_grad_(True)
+    t32 = t.float().requires_grad_(True)
+    b32 = b.clone().requires_grad_(True)
+    f = fml.fused_mlm_loss_tiled
+    before = (f.launches, f.merged_launches, f.two_sweep_launches)
+    loss, logs = fml.mlm_loss_and_metrics(h.reshape(256, -1, w), t32, b32,
+                                          lab.reshape(256, -1), v)
+    loss.backward()
+    torch.cuda.synchronize()
+    after = (f.launches, f.merged_launches, f.two_sweep_launches)
+    assert after[0] - before[0] == 1
+    assert (after[1] - before[1], after[2] - before[2]) == \
+        ((1, 0) if kernel == "K6" else (0, 1))
+    with torch.no_grad():
+        rlse, rsums = fml.fused_mlm_loss_plain_forward(h, t, b, lab)
+        dh, dt, db = fml.fused_mlm_loss_plain_backward(
+            h, t, b, lab, rlse, torch.ones((), device=cuda_device), rsums[3])
+    db[v:] = 0
+    assert abs(float(loss) - float(rsums[0] / rsums[3])) <= 1e-5 * float(loss)
+    for got, ref in ((h.grad, dh), (t32.grad, dt), (b32.grad, db)):
+        assert _rel_err(got, ref) <= 2e-2
+
+
+@pytest.mark.cuda
+def test_tiled_workspace_does_not_grow_with_the_vocabulary(cuda_device):
+    """At Reddit's vocabulary and the train batch's rows no workspace of
+    K5-K7 holds a (rows / chunk) x V x W term, as K4's split dtable
+    partials do: K5 asks for splits x R x 3 floats, K6 for 128 dh
+    partials of R x W floats, K7 for none, and each is the same at V =
+    26,732 and V = 335,424."""
+    from bert4rec_tpu_torch.ops import fused_mlm_loss as fml
+    r, w = 10240, 128
+    split_partials = (r // 1024) * 335424 * w * 4
+    sizes = {k: [fml.workspace_bytes(k, r, v, w) for v in (26732, 335424)]
+             for k in ("K5", "K6", "K7")}
+    for k, (small, large) in sizes.items():
+        assert small == large, k
+    assert sizes["K7"][1] == 0
+    assert sizes["K6"][1] <= 128 * r * w * 4 + 256
+    assert sizes["K5"][1] <= 4 * (r * 3 * 16 + r)
+    assert max(s[1] for s in sizes.values()) < split_partials / 2
+
+
+@pytest.mark.cuda
+def test_device_put_copies_through_pinned_memory_on_a_side_stream(
+        cuda_device):
+    """The prefetch thread's placement: every key lands on the card equal
+    to its array, the copy has finished when ``put`` returns, and prefetch
+    keeps the order of the batches."""
+    from bert4rec_tpu_torch.utils import prefetch
+    put = prefetch.device_put(cuda_device, ("a", "b"))
+    rng = np.random.default_rng(0)
+    host = [{"a": rng.integers(0, 9, size=(256, 200)).astype(np.int32),
+             "b": rng.integers(0, 9, size=(256, 40)).astype(np.int32),
+             "c": np.zeros(3)} for _ in range(6)]
+    for want, got in zip(host, prefetch.prefetch(iter(host), put, depth=2)):
+        assert set(got) == {"a", "b"}
+        for k in got:
+            assert got[k].device.type == "cuda"
+            np.testing.assert_array_equal(got[k].cpu().numpy(), want[k])

@@ -1,0 +1,234 @@
+"""The port's vocab-tiled loss (K5 forward, K6 / K7 backward;
+bert4rec_tpu_torch/ops/fused_mlm_loss.py) held against the JAX package's
+Pallas kernels run in interpret mode on the CPU: ``_run_forward_tiled``,
+``_run_forward_tiled_stats``, ``_run_backward_merged`` and
+``_run_backward_tiled`` (two sweeps forced by patching
+``_MERGED_DH_BYTES``, as JAX's own test does), with the ``valid_ge_zero``
+label encoding, all-padding rows and vocabularies off every tile; the
+merged-versus-two-sweep law; and the autograd entry point. The CUDA
+kernels are held against these plain versions on a card in
+tests/test_torch_cuda_kernels.py.
+
+Tolerances, fp32: the loss sum within 2e-5 relative, lse and the stats
+within 1e-5, gradients within 3e-4 of their scale (the same math summed in
+another order). bf16 gradients: 5e-3 of their scale, because dlog is
+rounded to bf16 in both and a sum-order difference can flip that
+rounding."""
+
+from unittest import mock
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from bert4rec_tpu.ops import fused_mlm_loss as jax_fml
+from bert4rec_tpu_torch.ops import fused_mlm_loss as fml
+
+
+def inputs(rows, v, vp, w, seed, labels="mixed"):
+    """hidden [rows, w], table [vp, w], bias [vp], labels [rows]: ``vp - v``
+    config-padding columns; labels ``mixed`` (random, every 5th 0),
+    ``padding`` (all 0), ``sharded`` (the backward's valid_ge_zero
+    encoding: local ids, a sentinel past the table for remote labels, -1
+    for none) or ``sharded_fwd`` (the forward's: local ids with 0, -2 for
+    remote or none)."""
+    rng = np.random.default_rng(seed)
+    hidden = rng.normal(size=(rows, w)).astype(np.float32)
+    table = (rng.normal(size=(vp, w)) * 0.3).astype(np.float32)
+    bias = rng.normal(size=vp).astype(np.float32)
+    lab = rng.integers(1, v, size=rows).astype(np.int32)
+    if labels == "mixed":
+        lab[::5] = 0
+    elif labels == "padding":
+        lab[:] = 0
+    elif labels == "sharded":
+        lab[::4] = -1
+        lab[1::4] = vp + 7
+    elif labels == "sharded_fwd":
+        lab[::3] = -2
+        lab[1::6] = 0
+    return hidden, table, bias, lab
+
+
+def _rel_err(a, b) -> float:
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-12))
+
+
+def _plain_operands(h, t, b, lab, v, dtype):
+    ht = torch.from_numpy(h).to(dtype)
+    return (ht, torch.from_numpy(t).to(dtype),
+            fml._mask_bias(torch.from_numpy(b), v), torch.from_numpy(lab))
+
+
+# (rows, vocab, padded vocab, width): 300 rows are one JAX row tile off its
+# 1,024 grid; 97 < 104 columns carry the -1e9 bias and neither is a
+# multiple of a tile; 1,100 x 2,100 spans two row and three vocab tiles
+SHAPES = [(300, 97, 104, 32), (1100, 2100, 2100, 16)]
+SHAPE_IDS = ["ragged_padded", "two_row_tiles"]
+
+
+class TestForward:
+
+    @pytest.mark.parametrize("shape", SHAPES, ids=SHAPE_IDS)
+    @pytest.mark.parametrize("labels", ["mixed", "padding"])
+    def test_forward_matches_interpret_kernel(self, shape, labels):
+        rows, v, vp, w = shape
+        h, t, b, lab = inputs(rows, v, vp, w, rows + w, labels)
+        loss_sum, cv, ca, nv, lse, n = jax_fml._run_forward_tiled(
+            jnp.asarray(h), jnp.asarray(t), jnp.asarray(b), jnp.asarray(lab),
+            v, True)
+        plse, sums = fml.fused_mlm_loss_plain_forward(
+            *_plain_operands(h, t, b, lab, v, torch.float32))
+        assert n == rows
+        assert abs(float(sums[0]) - float(loss_sum)) <= \
+            2e-5 * max(abs(float(loss_sum)), 1e-6)
+        assert [float(x) for x in sums[1:]] == \
+            [float(cv), float(ca), float(nv)]
+        np.testing.assert_allclose(plse.numpy(),
+                                   np.asarray(lse)[:rows, 0], rtol=1e-5)
+        if labels == "padding":     # JAX's boundary sweep: loss 0, nv 0
+            assert float(sums[0]) == 0.0 and float(sums[3]) == 0.0
+
+    @pytest.mark.parametrize("shape", SHAPES, ids=SHAPE_IDS)
+    @pytest.mark.parametrize("labels", ["mixed", "sharded_fwd"])
+    def test_stats_match_interpret_kernel(self, shape, labels):
+        rows, v, vp, w = shape
+        h, t, b, lab = inputs(rows, v, vp, w, rows, labels)
+        m, s, ll = jax_fml._run_forward_tiled_stats(
+            jnp.asarray(h), jnp.asarray(t), jnp.asarray(b), jnp.asarray(lab),
+            v, True)
+        got = fml.fused_mlm_loss_tiled_stats(
+            torch.from_numpy(h), torch.from_numpy(t), torch.from_numpy(b),
+            torch.from_numpy(lab), v)
+        for g, r in zip(got, (m, s, ll)):
+            assert g.shape == (rows,)
+            np.testing.assert_allclose(g.numpy(), np.asarray(r)[:, 0],
+                                       rtol=1e-5, atol=1e-5)
+
+
+class TestBackward:
+
+    @pytest.mark.parametrize("shape", SHAPES, ids=SHAPE_IDS)
+    @pytest.mark.parametrize("two_sweep", [False, True],
+                             ids=["merged_K6", "two_sweep_K7"])
+    @pytest.mark.parametrize("labels", ["mixed", "sharded", "padding"])
+    def test_backward_matches_interpret_kernel(self, shape, two_sweep,
+                                               labels):
+        rows, v, vp, w = shape
+        vge0 = labels == "sharded"
+        h, t, b, lab = inputs(rows, v, vp, w, rows + 1, labels)
+        hj, tj, bj, labj = (jnp.asarray(x) for x in (h, t, b, lab))
+        _, _, _, nv, lse, _ = jax_fml._run_forward_tiled(hj, tj, bj, labj,
+                                                          v, True)
+        lse = lse[:rows]
+        g = jnp.float32(0.75)
+        run = jax_fml._run_backward_tiled if two_sweep \
+            else jax_fml._run_backward_merged
+        with mock.patch.object(jax_fml, "_MERGED_DH_BYTES",
+                               0 if two_sweep else jax_fml._MERGED_DH_BYTES):
+            jdh, jdt, jdb = run(hj, tj, bj, labj, lse, g, nv, v, True,
+                                valid_ge_zero=vge0)
+        ht, tt, bt, labt = _plain_operands(h, t, b, lab, v, torch.float32)
+        dh, dt, db = fml.fused_mlm_loss_plain_backward(
+            ht, tt, bt, labt, torch.from_numpy(np.asarray(lse)[:, 0]),
+            torch.tensor(0.75), torch.tensor(float(nv)), valid_ge_zero=vge0)
+        assert dh.shape == (rows, w) and dt.shape == (vp, w)
+        for got, ref in ((dh, jdh), (dt, jdt), (db, jdb)):
+            ref = np.asarray(ref)
+            if not np.abs(ref).any():       # all-padding rows: all zero
+                assert not got.numpy().any()
+                continue
+            assert _rel_err(got.numpy(), ref) <= 3e-4
+
+    @pytest.mark.parametrize("rows,w,merged", [
+        (1024, 1344, True), (1025, 1344, False), (10240, 128, True),
+        (10240, 256, False), (2048, 128, True), (300, 32, True)])
+    def test_merged_law_matches_jax(self, rows, w, merged):
+        """K6 where JAX runs ``_run_backward_merged``, K7 where it runs two
+        sweeps: ml-20m_128 (R = 256 x 40, W = 128) takes K6, ml-20m_256
+        takes K7."""
+        assert fml.merged_backward(rows, w) is merged
+
+        class Merged(Exception):
+            pass
+
+        class TwoSweep(Exception):
+            pass
+
+        with mock.patch.object(jax_fml, "_run_backward_merged",
+                               side_effect=Merged), \
+                mock.patch.object(jax_fml.pl, "pallas_call",
+                                  side_effect=TwoSweep), \
+                pytest.raises(Merged if merged else TwoSweep):
+            jax_fml._run_backward_tiled(
+                jnp.zeros((rows, w)), jnp.zeros((8, w)), jnp.zeros(8),
+                jnp.zeros(rows, jnp.int32), jnp.zeros((rows, 1)), 1.0, 1.0,
+                8, True)
+
+
+class TestAutograd:
+
+    @pytest.mark.parametrize("dtype,tol", [
+        (torch.float32, 3e-4), (torch.bfloat16, 5e-3)], ids=["fp32", "bf16"])
+    @pytest.mark.parametrize("two_sweep", [False, True],
+                             ids=["merged", "two_sweep"])
+    def test_fused_mlm_loss_tiled_matches_jax(self, dtype, tol, two_sweep):
+        rows, v, vp, w = 300, 97, 104, 32
+        h, t, b, lab = inputs(rows, v, vp, w, 11)
+        jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+        import jax
+
+        def f(h_, t_, b_):
+            loss, cv, ca, nv = jax_fml.fused_mlm_loss_tiled(
+                h_, t_, b_, jnp.asarray(lab), v, True)
+            return loss, (cv, ca, nv)
+
+        with mock.patch.object(jax_fml, "_MERGED_DH_BYTES",
+                               0 if two_sweep else jax_fml._MERGED_DH_BYTES):
+            (jloss, jcounts), jg = jax.value_and_grad(
+                f, argnums=(0, 1, 2), has_aux=True)(
+                jnp.asarray(h).astype(jdt), jnp.asarray(t), jnp.asarray(b))
+        ht = torch.from_numpy(h).to(dtype).requires_grad_(True)
+        tt = torch.from_numpy(t).requires_grad_(True)
+        bt = torch.from_numpy(b).requires_grad_(True)
+        before = (fml.fused_mlm_loss_tiled.launches,
+                  fml.fused_mlm_loss_tiled.merged_launches,
+                  fml.fused_mlm_loss_tiled.two_sweep_launches)
+        loss, cv, ca, nv = fml.fused_mlm_loss_tiled(ht, tt, bt,
+                                                    torch.from_numpy(lab), v)
+        loss.backward()
+        # the plain versions run on the CPU: nothing is counted
+        assert (fml.fused_mlm_loss_tiled.launches,
+                fml.fused_mlm_loss_tiled.merged_launches,
+                fml.fused_mlm_loss_tiled.two_sweep_launches) == before
+        assert abs(float(loss.detach()) - float(jloss)) <= \
+            2e-5 * abs(float(jloss))
+        assert [float(cv), float(ca), float(nv)] == \
+            [float(c) for c in jcounts]
+        for got, ref in ((ht.grad, jg[0]), (tt.grad, jg[1]),
+                         (bt.grad, jg[2])):
+            assert _rel_err(got.float().numpy(),
+                            np.asarray(ref, np.float32)) <= tol
+        assert not bt.grad[v:].any()
+
+    def test_mlm_loss_and_metrics_routes_a_large_table_to_the_tiled_loss(
+            self):
+        """A 7,000 x 64 table fails JAX's whole-table VMEM law, so both
+        packages take the tiled kernels; the loss and metrics agree."""
+        rows, v, vp, w = 24, 6990, 7000, 64
+        assert not fml.fused_loss_supported(vp, w)
+        h, t, b, lab = inputs(rows, v, vp, w, 5)
+        jl, jlogs = jax_fml.mlm_loss_and_metrics(
+            jnp.asarray(h).reshape(4, 6, w), jnp.asarray(t), jnp.asarray(b),
+            jnp.asarray(lab).reshape(4, 6), v, interpret=True)
+        with mock.patch.object(fml, "fused_mlm_loss",
+                               side_effect=AssertionError("K3 path")):
+            tl, tlogs = fml.mlm_loss_and_metrics(
+                torch.from_numpy(h).reshape(4, 6, w), torch.from_numpy(t),
+                torch.from_numpy(b), torch.from_numpy(lab).reshape(4, 6), v)
+        assert abs(float(tl) - float(jl)) <= 2e-5 * float(jl)
+        for k in ("masked_accuracy", "accuracy"):
+            assert float(tlogs[k]) == pytest.approx(float(jlogs[k]),
+                                                    abs=1e-7)
