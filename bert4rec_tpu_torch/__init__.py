@@ -10,9 +10,13 @@ Ported so far: the serving path — ``BERT4RecModelWrapper.load`` ->
 ``apps.Recommender`` -> ``apps.RecommenderService`` -> ``apps.ServingServer``;
 training — ``trainers.BERT4RecTrainer`` with its ``train()`` loop; and the
 host pipeline that feeds it — ``datasets`` and ``dataloaders``
-(``get_dataloader_factory()`` -> ``prepare_training``). The fused encoder
-layer (``ops/fused_encoder_layer.py``) and the fused tied-softmax loss,
-whole-table and vocab-tiled (``ops/fused_mlm_loss.py``), are CUDA kernels.
+(``get_dataloader_factory()`` -> ``prepare_training``); the SASRec family
+(``models.SASRecModel``, the ``"sasrec"`` preprocessor); and evaluation —
+``evaluation.BERT4RecEvaluator`` (101 sampled candidates, host or device
+negatives, or the full catalog). The fused encoder layer, bidirectional
+and causal (``ops/fused_encoder_layer.py``), and the fused tied-softmax
+loss, whole-table and vocab-tiled (``ops/fused_mlm_loss.py``), are CUDA
+kernels.
 Entry points take ``device=`` and default to ``"cuda"``; without CUDA they
 raise unless the CPU is asked for.
 

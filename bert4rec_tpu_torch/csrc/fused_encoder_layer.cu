@@ -3,13 +3,15 @@
 //
 // Replaces the TPU kernels of bert4rec_tpu/ops/fused_encoder_layer.py:
 //   K1  _fwd_kernel (launched by _run_forward), with attention-probability
-//       and output dropout; no causal mask, no relative-time bias;
-//   K2  _bwd_kernel / _bwd_element (launched by _run_backward).
+//       and output dropout, and its causal variant (causal=True, SASRec);
+//       no relative-time bias;
+//   K2  _bwd_kernel / _bwd_element (launched by _run_backward), causal too.
 // The forward computes _layer_fwd_math step by step, with the same rounding
 // points (T is float or bf16, every sum is fp32):
 //
 //   qkv  = T(x Wqkv + bqkv)
-//   p    = softmax_fp32(q k^T / sqrt(D) + (mask > 0 ? 0 : -1e9))   per head
+//   p    = softmax_fp32(q k^T / sqrt(D) + (mask > 0 ? 0 : -1e9)
+//                       [+ (key > query ? -1e9 : 0) if causal])     per head
 //   ctx  = T(T(p * keep_h) v)
 //   x1   = T(LN1(x + (ctx Wo + bo) * keep_N))
 //   hact = T(gelu_tanh(x1 W1 + b1))
@@ -49,8 +51,16 @@
 // split-K partial and reduce_rows_kernel sums the partials in a fixed
 // order, so two runs give the same bits (no float atomics).
 //
+// Causal (K1'' causal, SASRec). The same kernels with the triangle added to
+// the scores inside tile_scores (no dense bias in memory), and the key
+// tiles wholly after a query tile skipped (the dkv kernel skips the query
+// tiles wholly before its key tile) where that is exact: see causal_skip.
+// The saved row max and sum are the causal ones, so the backward
+// recomputes the same probabilities; the dropout counters are unchanged.
+//
 // Bound. ~99 MFLOP per sequence forward and ~198 backward at S=200, H=128,
-// F=512: the layer is bound by operations, not bytes. With bf16 operands
+// F=512 (causal: ~89 and ~178, the attention products over the lower
+// triangle only): the layer is bound by operations, not bytes. With bf16 operands
 // every product runs on the tensor cores with mma.sync m16n8k16 (fp32 sums):
 // the GEMM tiles, QK^T, dctx V^T and the attention accumulations; bf16
 // products are exact in fp32, so only the order of the sums differs from
@@ -333,21 +343,46 @@ __device__ __forceinline__ void load_mask_bias(float* mb, const int32_t* __restr
   }
 }
 
-// scaled, masked scores of this thread's 4 x 4 (query, key) pairs (kMma:
-// on the tensor cores, through the [64][65] scratch tile `scr`)
+// scaled, masked scores of this thread's 4 x 4 (query, key) pairs of the
+// query tile at q0 and the key tile at t0 (kMma: on the tensor cores,
+// through the [64][65] scratch tile `scr`). With `causal` a key after its
+// query adds a second -1e9 to the pad bias, as the TPU kernel's
+// pad_bias + causal_bias: a padded key above the diagonal scores -2e9, one
+// on or below it -1e9, so a row that sees only padding is uniform over
+// its keys j <= i, as in the TPU kernel.
 template <bool kMma>
 __device__ __forceinline__ void tile_scores(float s[4][4], const float* Qs,
                                             const float* Ks, const float* mb,
                                             int tx, int ty, int D, float scale,
-                                            float* scr) {
+                                            float* scr, int q0, int t0, int causal) {
   tile_dots<kMma>(s, Qs, Ks, tx, ty, D, scr);
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
     const float b = mb[tx + 16 * j];
+    const int key = t0 + tx + 16 * j;
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-      s[i][j] = (b == -INFINITY) ? -INFINITY : s[i][j] * scale + b;
+    for (int i = 0; i < 4; ++i) {
+      const float bias = (causal && key > q0 + ty + 16 * i) ? b + kNegMask : b;
+      s[i][j] = (b == -INFINITY) ? -INFINITY : s[i][j] * scale + bias;
+    }
   }
+}
+
+// Whether a causal block may skip the key tiles wholly after its query
+// tile. When the sequence's first key is real, every row sees it with a
+// score of O(1), so a key after the row (-1e9 or -2e9) adds exp(-1e9) = 0
+// to the row: the skip is exact. When the first key is padding, a row may
+// see only padding (all scores ~ -1e9, as a later real key's); then no
+// tile is skipped and the biases alone give the TPU kernel's rows.
+__device__ __forceinline__ int causal_skip(const int32_t* __restrict__ mask,
+                                           size_t seq_row0, int causal) {
+  return causal && mask[seq_row0] > 0;
+}
+
+// One past the last key tile a query tile at q0 reads (AT_BQ == AT_BKV
+// keeps the tiles aligned: the diagonal tile is the last).
+__device__ __forceinline__ int key_tiles_end(int q0, int S, int skip) {
+  return skip ? min(S, q0 + AT_BQ) : S;
 }
 
 template <typename T, int DJ>
@@ -355,7 +390,7 @@ __global__ void __launch_bounds__(256)
 attention_kernel(const T* __restrict__ qkv, const int32_t* __restrict__ mask,
                  T* __restrict__ ctx, float* __restrict__ stat_m,
                  float* __restrict__ stat_l, Drop drop, int S, int H, int N, int D,
-                 float scale) {
+                 float scale, int causal) {
   extern __shared__ float smem[];
   float* Qs = smem;                          // [AT_BQ][D + 1]
   float* Ks = Qs + AT_BQ * (D + 1);          // [AT_BKV][D + 1]
@@ -370,6 +405,7 @@ attention_kernel(const T* __restrict__ qkv, const int32_t* __restrict__ mask,
   const int qcol = head * D, kcol = H + head * D, vcol = 2 * H + head * D;
   constexpr bool kMma = kIsBf16<T>;
   const uint32_t hk = site_key(drop, b, head);  // this block's site
+  const int t_end = key_tiles_end(q0, S, causal_skip(mask, seq_row0, causal));
 
   load_head_tile(Qs, qkv, seq_row0, q0, S, qcol, D, ld);
 
@@ -377,11 +413,11 @@ attention_kernel(const T* __restrict__ qkv, const int32_t* __restrict__ mask,
   float m[4], l[4], s[4][4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) { m[i] = -INFINITY; l[i] = 0.f; }
-  for (int t0 = 0; t0 < S; t0 += AT_BKV) {
+  for (int t0 = 0; t0 < t_end; t0 += AT_BKV) {
     load_head_tile(Ks, qkv, seq_row0, t0, S, kcol, D, ld);
     load_mask_bias(mb, mask, seq_row0, t0, S);
     __syncthreads();
-    tile_scores<kMma>(s, Qs, Ks, mb, tx, ty, D, scale, Ps);
+    tile_scores<kMma>(s, Qs, Ks, mb, tx, ty, D, scale, Ps, q0, t0, causal);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       float tmax = fmaxf(fmaxf(s[i][0], s[i][1]), fmaxf(s[i][2], s[i][3]));
@@ -412,12 +448,12 @@ attention_kernel(const T* __restrict__ qkv, const int32_t* __restrict__ mask,
   for (int i = 0; i < 4; ++i)
 #pragma unroll
     for (int j = 0; j < DJ; ++j) o[i][j] = co[j][i] = 0.f;
-  for (int t0 = 0; t0 < S; t0 += AT_BKV) {
+  for (int t0 = 0; t0 < t_end; t0 += AT_BKV) {
     load_head_tile(Ks, qkv, seq_row0, t0, S, kcol, D, ld);
     load_head_tile(Vs, qkv, seq_row0, t0, S, vcol, D, ld);
     load_mask_bias(mb, mask, seq_row0, t0, S);
     __syncthreads();
-    tile_scores<kMma>(s, Qs, Ks, mb, tx, ty, D, scale, Ps);
+    tile_scores<kMma>(s, Qs, Ks, mb, tx, ty, D, scale, Ps, q0, t0, causal);
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -483,27 +519,31 @@ size_t attention_smem_bytes(int D) {
 template <typename T, int DJ>
 cudaError_t launch_attention(const T* qkv, const int32_t* mask, T* ctx, float* stat_m,
                              float* stat_l, Drop drop, int B, int S, int H, int N,
-                             int D, float scale, cudaStream_t stream) {
+                             int D, float scale, int causal, cudaStream_t stream) {
   const size_t smem = attention_smem_bytes(D);
   cudaError_t err = cudaFuncSetAttribute(
       attention_kernel<T, DJ>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   attention_kernel<T, DJ><<<dim3(ceil_div(S, AT_BQ), N, B), 256, smem, stream>>>(
-      qkv, mask, ctx, stat_m, stat_l, drop, S, H, N, D, scale);
+      qkv, mask, ctx, stat_m, stat_l, drop, S, H, N, D, scale, causal);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t attention(const T* qkv, const int32_t* mask, T* ctx, float* stat_m,
                       float* stat_l, Drop drop, int B, int S, int H, int N, int D,
-                      float scale, cudaStream_t stream) {
+                      float scale, int causal, cudaStream_t stream) {
+#define B4R_AT(DJV) \
+  launch_attention<T, DJV>(qkv, mask, ctx, stat_m, stat_l, drop, B, S, H, N, D, scale, \
+                           causal, stream)
   switch (pow2_at_least(ceil_div(D, 16))) {
-    case 1: return launch_attention<T, 1>(qkv, mask, ctx, stat_m, stat_l, drop, B, S, H, N, D, scale, stream);
-    case 2: return launch_attention<T, 2>(qkv, mask, ctx, stat_m, stat_l, drop, B, S, H, N, D, scale, stream);
-    case 4: return launch_attention<T, 4>(qkv, mask, ctx, stat_m, stat_l, drop, B, S, H, N, D, scale, stream);
-    case 8: return launch_attention<T, 8>(qkv, mask, ctx, stat_m, stat_l, drop, B, S, H, N, D, scale, stream);
+    case 1: return B4R_AT(1);
+    case 2: return B4R_AT(2);
+    case 4: return B4R_AT(4);
+    case 8: return B4R_AT(8);
     default: return cudaErrorInvalidValue;
   }
+#undef B4R_AT
 }
 
 template <typename T, int TN>
@@ -546,8 +586,8 @@ enum FwdPtr {
 };
 
 template <typename T>
-int layer_forward(void* const* p, int B, int S, int H, int N, int F, float scale,
-                  Drop attn_drop, Drop out_drop, cudaStream_t stream) {
+int layer_forward(void* const* p, int B, int S, int H, int N, int F, int causal,
+                  float scale, Drop attn_drop, Drop out_drop, cudaStream_t stream) {
   const T* x = static_cast<const T*>(p[F_X]);
   const int32_t* mask = static_cast<const int32_t*>(p[F_MASK]);
   T* qkv = static_cast<T*>(p[F_QKV]);
@@ -563,9 +603,10 @@ int layer_forward(void* const* p, int B, int S, int H, int N, int F, float scale
   if ((err = gemm<T, EPI_BIAS>(x, wt(F_WQKV), f32(F_BQKV), nullptr, qkv, M, 3 * H, H,
                                stream)) != cudaSuccess)
     return (int)err;
-  // 2. ctx = T(T(softmax(q k^T * scale + mask bias) * keep) v), per head
+  // 2. ctx = T(T(softmax(q k^T * scale + mask bias [+ causal bias]) * keep) v),
+  //    per head
   if ((err = attention<T>(qkv, mask, ctx, f32(F_STAT_M), f32(F_STAT_L), attn_drop, B, S,
-                          H, N, D, scale, stream)) != cudaSuccess)
+                          H, N, D, scale, causal, stream)) != cudaSuccess)
     return (int)err;
   // 3. x1 = T(LN1(x + (ctx Wo + bo) * keep_N))
   if ((err = gemm_ln<T>(ctx, wt(F_WO), f32(F_BO), x, f32(F_G1), f32(F_B1LN), x1,
@@ -876,7 +917,8 @@ attn_bwd_dq_kernel(const T* __restrict__ qkv, const T* __restrict__ dctx,
                    const int32_t* __restrict__ mask, const float* __restrict__ stat_m,
                    const float* __restrict__ stat_l, Drop drop,
                    float* __restrict__ delta_out, T* __restrict__ dqkv,
-                   float* __restrict__ part, int S, int H, int N, int D, float scale) {
+                   float* __restrict__ part, int S, int H, int N, int D, float scale,
+                   int causal) {
   extern __shared__ float smem[];
   float* Qs = smem;                          // [64][D + 1]
   float* Cs = Qs + AT_BQ * (D + 1);          // dctx rows of the query tile
@@ -893,6 +935,7 @@ attn_bwd_dq_kernel(const T* __restrict__ qkv, const T* __restrict__ dctx,
   const uint32_t hk = site_key(drop, b, head);  // this block's site
   const int qcol = head * D, kcol = H + head * D, vcol = 2 * H + head * D;
   const size_t stat0 = ((size_t)b * N + head) * S;
+  const int t_end = key_tiles_end(q0, S, causal_skip(mask, seq_row0, causal));
 
   load_head_tile(Qs, qkv, seq_row0, q0, S, qcol, D, ld);
   load_head_tile(Cs, dctx, seq_row0, q0, S, head * D, D, H);
@@ -907,12 +950,12 @@ attn_bwd_dq_kernel(const T* __restrict__ qkv, const T* __restrict__ dctx,
   float s[4][4], dd[4][4];
   // pass A: delta_i = sum_j dp_ij p_ij
   float dl[4] = {0.f, 0.f, 0.f, 0.f};
-  for (int t0 = 0; t0 < S; t0 += AT_BKV) {
+  for (int t0 = 0; t0 < t_end; t0 += AT_BKV) {
     load_head_tile(Ks, qkv, seq_row0, t0, S, kcol, D, ld);
     load_head_tile(Vs, qkv, seq_row0, t0, S, vcol, D, ld);
     load_mask_bias(mb, mask, seq_row0, t0, S);
     __syncthreads();
-    tile_scores<kMma>(s, Qs, Ks, mb, tx, ty, D, scale, Ps);
+    tile_scores<kMma>(s, Qs, Ks, mb, tx, ty, D, scale, Ps, q0, t0, causal);
     tile_dots<kMma>(dd, Cs, Vs, tx, ty, D, Ps);
 #pragma unroll
     for (int i = 0; i < 4; ++i)
@@ -941,12 +984,12 @@ attn_bwd_dq_kernel(const T* __restrict__ qkv, const T* __restrict__ dctx,
   for (int i = 0; i < 4; ++i)
 #pragma unroll
     for (int j = 0; j < DJ; ++j) o[i][j] = co[j][i] = 0.f;
-  for (int t0 = 0; t0 < S; t0 += AT_BKV) {
+  for (int t0 = 0; t0 < t_end; t0 += AT_BKV) {
     load_head_tile(Ks, qkv, seq_row0, t0, S, kcol, D, ld);
     load_head_tile(Vs, qkv, seq_row0, t0, S, vcol, D, ld);
     load_mask_bias(mb, mask, seq_row0, t0, S);
     __syncthreads();
-    tile_scores<kMma>(s, Qs, Ks, mb, tx, ty, D, scale, Ps);
+    tile_scores<kMma>(s, Qs, Ks, mb, tx, ty, D, scale, Ps, q0, t0, causal);
     tile_dots<kMma>(dd, Cs, Vs, tx, ty, D, Ps);
 #pragma unroll
     for (int i = 0; i < 4; ++i)
@@ -1032,7 +1075,7 @@ attn_bwd_dkv_kernel(const T* __restrict__ qkv, const T* __restrict__ dctx,
                     const int32_t* __restrict__ mask, const float* __restrict__ stat_m,
                     const float* __restrict__ stat_l, const float* __restrict__ delta,
                     Drop drop, T* __restrict__ dqkv, float* __restrict__ part, int S,
-                    int H, int N, int D, float scale) {
+                    int H, int N, int D, float scale, int causal) {
   extern __shared__ float smem[];
   float* Ks = smem;                          // [64][D + 1] key tile
   float* Vs = Ks + AT_BKV * (D + 1);
@@ -1064,7 +1107,10 @@ attn_bwd_dkv_kernel(const T* __restrict__ qkv, const T* __restrict__ dctx,
 #pragma unroll
     for (int j = 0; j < DJ; ++j) ok[i][j] = ov[i][j] = ck[j][i] = cv[j][i] = 0.f;
   float s[4][4], dd[4][4];
-  for (int q0 = 0; q0 < S; q0 += AT_BQ) {
+  // the query tiles wholly before this key tile see none of it (the
+  // mirror of key_tiles_end): their p and ds are 0 here
+  const int q_begin = causal_skip(mask, seq_row0, causal) ? k0 : 0;
+  for (int q0 = q_begin; q0 < S; q0 += AT_BQ) {
     load_head_tile(Qs, qkv, seq_row0, q0, S, qcol, D, ld);
     load_head_tile(Cs, dctx, seq_row0, q0, S, head * D, D, H);
     for (int r = tid; r < AT_BQ; r += 256) {
@@ -1074,7 +1120,7 @@ attn_bwd_dkv_kernel(const T* __restrict__ qkv, const T* __restrict__ dctx,
       rd[r] = t < S ? delta[stat0 + t] : 0.f;
     }
     __syncthreads();
-    tile_scores<kMma>(s, Qs, Ks, mb, tx, ty, D, scale, Ss);
+    tile_scores<kMma>(s, Qs, Ks, mb, tx, ty, D, scale, Ss, q0, k0, causal);
     tile_dots<kMma>(dd, Cs, Vs, tx, ty, D, Ss);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -1187,7 +1233,7 @@ template <typename T, int DJ>
 cudaError_t launch_attn_bwd(const T* qkv, const T* dctx, const int32_t* mask,
                             const float* stat_m, const float* stat_l, Drop drop,
                             float* delta, T* dqkv, float* part, int B, int S, int H,
-                            int N, int D, float scale, cudaStream_t stream) {
+                            int N, int D, float scale, int causal, cudaStream_t stream) {
   const dim3 grid(ceil_div(S, AT_BQ), N, B);
   size_t smem = attn_bwd_dq_smem_bytes(D);
   cudaError_t err = cudaFuncSetAttribute(attn_bwd_dq_kernel<T, DJ>,
@@ -1195,14 +1241,14 @@ cudaError_t launch_attn_bwd(const T* qkv, const T* dctx, const int32_t* mask,
                                          (int)smem);
   if (err != cudaSuccess) return err;
   attn_bwd_dq_kernel<T, DJ><<<grid, 256, smem, stream>>>(
-      qkv, dctx, mask, stat_m, stat_l, drop, delta, dqkv, part, S, H, N, D, scale);
+      qkv, dctx, mask, stat_m, stat_l, drop, delta, dqkv, part, S, H, N, D, scale, causal);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   smem = attn_bwd_dkv_smem_bytes(D);
   err = cudaFuncSetAttribute(attn_bwd_dkv_kernel<T, DJ>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   attn_bwd_dkv_kernel<T, DJ><<<grid, 256, smem, stream>>>(
-      qkv, dctx, mask, stat_m, stat_l, delta, drop, dqkv, part, S, H, N, D, scale);
+      qkv, dctx, mask, stat_m, stat_l, delta, drop, dqkv, part, S, H, N, D, scale, causal);
   return cudaGetLastError();
 }
 
@@ -1210,10 +1256,10 @@ template <typename T>
 cudaError_t attn_bwd(const T* qkv, const T* dctx, const int32_t* mask,
                      const float* stat_m, const float* stat_l, Drop drop, float* delta,
                      T* dqkv, float* part, int B, int S, int H, int N, int D,
-                     float scale, cudaStream_t stream) {
+                     float scale, int causal, cudaStream_t stream) {
 #define B4R_AB(DJV)                                                                  \
   launch_attn_bwd<T, DJV>(qkv, dctx, mask, stat_m, stat_l, drop, delta, dqkv, part, \
-                          B, S, H, N, D, scale, stream)
+                          B, S, H, N, D, scale, causal, stream)
   switch (pow2_at_least(ceil_div(D, 16))) {
     case 1: return B4R_AB(1);
     case 2: return B4R_AB(2);
@@ -1262,8 +1308,8 @@ struct BwdScratch {
 };
 
 template <typename T>
-int layer_backward(void* const* p, int B, int S, int H, int N, int F, float scale,
-                   Drop attn_drop, Drop out_drop, cudaStream_t stream) {
+int layer_backward(void* const* p, int B, int S, int H, int N, int F, int causal,
+                   float scale, Drop attn_drop, Drop out_drop, cudaStream_t stream) {
   auto f32 = [&](int i) { return static_cast<float*>(p[i]); };
   auto wt = [&](int i) { return static_cast<const T*>(p[i]); };
   const int32_t* mask = static_cast<const int32_t*>(p[B_MASK]);
@@ -1301,7 +1347,8 @@ int layer_backward(void* const* p, int B, int S, int H, int N, int F, float scal
                              stream)));
   // 8. attention: dq, dk, dv -> dqkv; dbqkv
   B4R_TRY(attn_bwd<T>(wt(B_QKV), w.dctx, mask, f32(B_STAT_M), f32(B_STAT_L), attn_drop,
-                      w.delta, w.dqkv, w.part_qkv, B, S, H, N, D, scale, stream));
+                      w.delta, w.dqkv, w.part_qkv, B, S, H, N, D, scale, causal,
+                      stream));
   B4R_TRY(reduce_rows(w.part_qkv, f32(B_DBQKV), B * ceil_div(S, AT_BQ), 3 * H, stream));
   // 9. dWqkv = x^T dqkv
   B4R_TRY(wgrad<T>(wt(B_X), w.dqkv, w.wsplit, f32(B_DWQKV), M, H, 3 * H, stream));
@@ -1329,34 +1376,39 @@ size_t b4r_fused_layer_bwd_workspace_bytes(int dtype, int B, int S, int H, int N
 // dtype: 0 = float32, 1 = bfloat16 for x, the weight matrices, the saved
 // activations and y; biases, LayerNorm params, statistics and gradients of
 // the weights are always float32. ptrs: _FWD_PTRS order; the six training
-// outputs (xhat1 .. stat_l) may be null at inference. A rate of 0 is
-// `*_on == 0`.
+// outputs (xhat1 .. stat_l) may be null at inference. causal != 0 adds the
+// TPU kernel's causal bias (K1'' causal). A rate of 0 is `*_on == 0`.
 int b4r_fused_layer_fwd(int dtype, void* const* ptrs, int B, int S, int H, int N,
-                        int F, float scale, unsigned seed, unsigned attn_threshold,
-                        float attn_scale, int attn_on, unsigned out_threshold,
-                        float out_scale, int out_on, void* stream) {
+                        int F, int causal, float scale, unsigned seed,
+                        unsigned attn_threshold, float attn_scale, int attn_on,
+                        unsigned out_threshold, float out_scale, int out_on,
+                        void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Drop ad{seed, attn_threshold, attn_scale, attn_on};
   const Drop od{seed, out_threshold, out_scale, out_on};
-  if (dtype == 0) return layer_forward<float>(ptrs, B, S, H, N, F, scale, ad, od, st);
+  if (dtype == 0)
+    return layer_forward<float>(ptrs, B, S, H, N, F, causal, scale, ad, od, st);
   if (dtype == 1)
-    return layer_forward<__nv_bfloat16>(ptrs, B, S, H, N, F, scale, ad, od, st);
+    return layer_forward<__nv_bfloat16>(ptrs, B, S, H, N, F, causal, scale, ad, od, st);
   return (int)cudaErrorInvalidValue;
 }
 
 // ptrs: _BWD_PTRS order. Gradients: dx in dtype; dwqkv [H, 3H], dbqkv [3H],
 // dwo [H, H], gln1 [3, H] = (dg1, db1, dbo), dw1 [H, F], dbf1 [F],
-// dw2 [F, H], gln2 [3, H] = (dg2, db2, dbf2), all float32.
+// dw2 [F, H], gln2 [3, H] = (dg2, db2, dbf2), all float32. causal must be
+// the forward's (its saved row statistics are of the causal scores).
 int b4r_fused_layer_bwd(int dtype, void* const* ptrs, int B, int S, int H, int N,
-                        int F, float scale, unsigned seed, unsigned attn_threshold,
-                        float attn_scale, int attn_on, unsigned out_threshold,
-                        float out_scale, int out_on, void* stream) {
+                        int F, int causal, float scale, unsigned seed,
+                        unsigned attn_threshold, float attn_scale, int attn_on,
+                        unsigned out_threshold, float out_scale, int out_on,
+                        void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Drop ad{seed, attn_threshold, attn_scale, attn_on};
   const Drop od{seed, out_threshold, out_scale, out_on};
-  if (dtype == 0) return layer_backward<float>(ptrs, B, S, H, N, F, scale, ad, od, st);
+  if (dtype == 0)
+    return layer_backward<float>(ptrs, B, S, H, N, F, causal, scale, ad, od, st);
   if (dtype == 1)
-    return layer_backward<__nv_bfloat16>(ptrs, B, S, H, N, F, scale, ad, od, st);
+    return layer_backward<__nv_bfloat16>(ptrs, B, S, H, N, F, causal, scale, ad, od, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -1,6 +1,5 @@
-"""Dataloaders: pipeline core + abstract factory (port of
-``bert4rec_tpu/dataloaders/__init__.py``; the samplers come with the
-evaluation slice of the port).
+"""Dataloaders: pipeline core, samplers + abstract factory (port of
+``bert4rec_tpu/dataloaders/__init__.py``).
 
 Mirrors reference ``bert4rec/dataloaders/__init__.py:13-60``.
 """
@@ -20,6 +19,7 @@ from bert4rec_tpu_torch.dataloaders.sequence_dataset import SequenceDataset, spl
 from bert4rec_tpu_torch.dataloaders.processed_dataset import ProcessedDataset, MaskingConfig
 from bert4rec_tpu_torch.dataloaders import dataloader_utils
 from bert4rec_tpu_torch.dataloaders import preprocessors
+from bert4rec_tpu_torch.dataloaders import samplers
 
 
 class BaseDataloaderFactory(abc.ABC):
@@ -70,7 +70,7 @@ __all__ = [
     "BERT4RecBeautyDataloader", "BERT4RecSteamDataloader",
     "BERT4RecRedditDataloader",
     "SequenceDataset", "ProcessedDataset", "MaskingConfig", "split_dataset",
-    "dataloader_utils", "preprocessors",
+    "dataloader_utils", "preprocessors", "samplers",
     "BaseDataloaderFactory", "BERT4RecDataloaderFactory",
     "get_dataloader_factory",
 ]

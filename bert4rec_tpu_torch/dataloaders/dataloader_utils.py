@@ -322,6 +322,59 @@ def make_batches(features: dict,
 
 
 # --------------------------------------------------------------------------- #
+# causal next-item features (SASRec)
+# --------------------------------------------------------------------------- #
+
+def next_item_features(input_ids: np.ndarray,
+                       lengths: np.ndarray,
+                       max_predictions_per_seq: int,
+                       pad_token_id: int,
+                       finetuning: Optional[np.ndarray] = None) -> dict:
+    """Next-item prediction features over a padded batch, one vectorized
+    pass (JAX ``dataloader_utils.next_item_features``, byte for byte).
+
+    The model input drops each row's final item; predictions sit at the
+    remaining positions with label = the following item, in the
+    ``masked_lm_*`` feature contract. Rows flagged ``finetuning`` predict
+    only at the last input position (the leave-one-out protocol); when a
+    row has more than ``max_predictions_per_seq`` predictable positions,
+    the LAST ones are kept.
+
+    :param input_ids: ``[N, S]`` padded int array (full sequences)
+    :param lengths: ``[N]`` true sequence lengths
+    :returns: ``input_word_ids`` ``[N, S]`` (final item dropped),
+        ``masked_lm_{positions,ids,weights}`` ``[N, P]`` int32
+    """
+    n, s = input_ids.shape
+    p = max_predictions_per_seq
+    lengths = np.asarray(lengths, dtype=np.int32)
+    rows = np.arange(n)
+
+    inp = np.asarray(input_ids, dtype=np.int32).copy()
+    has = lengths >= 1
+    inp[rows[has], lengths[has] - 1] = pad_token_id
+
+    if finetuning is None:
+        finetuning = np.zeros(n, dtype=bool)
+    k_all = np.maximum(lengths - 1, 0)
+    k = np.where(finetuning, np.minimum(k_all, 1),
+                 np.minimum(k_all, p)).astype(np.int32)
+    start = lengths - 1 - k                      # first predicted position
+    offs = np.arange(p, dtype=np.int32)[None, :]
+    valid = offs < k[:, None]
+    positions = np.where(valid, start[:, None] + offs, 0).astype(np.int32)
+    label_idx = np.minimum(positions + 1, s - 1)
+    ids = np.where(valid, input_ids[rows[:, None], label_idx], 0) \
+        .astype(np.int32)
+    return {
+        "input_word_ids": inp,
+        "masked_lm_positions": positions,
+        "masked_lm_ids": ids,
+        "masked_lm_weights": valid.astype(np.int32),
+    }
+
+
+# --------------------------------------------------------------------------- #
 # inference features: the deterministic (finetuning-mode) rows, which both
 # masking engines compute identically (no random draws)
 # --------------------------------------------------------------------------- #

@@ -1,6 +1,6 @@
 """Preprocessors (port of ``bert4rec_tpu/dataloaders/preprocessors``): the
-BERT4Rec one; the temporal and SASRec preprocessors come with their model
-slices."""
+BERT4Rec and SASRec ones; the temporal preprocessor comes with its model
+slice."""
 
 from bert4rec_tpu_torch.dataloaders.preprocessors.base_preprocessor import (
     BasePreprocessor,
@@ -8,9 +8,13 @@ from bert4rec_tpu_torch.dataloaders.preprocessors.base_preprocessor import (
 from bert4rec_tpu_torch.dataloaders.preprocessors.bert4rec_preprocessor import (
     BERT4RecPreprocessor,
 )
+from bert4rec_tpu_torch.dataloaders.preprocessors.sasrec_preprocessor import (
+    SASRecPreprocessor,
+)
 
 preprocessors_map = {
     "bert4rec": BERT4RecPreprocessor,
+    "sasrec": SASRecPreprocessor,
 }
 
 
@@ -24,5 +28,5 @@ def get(identifier="bert4rec", **kwargs):
     raise ValueError(f"{identifier} is not a known preprocessor identifier!")
 
 
-__all__ = ["BasePreprocessor", "BERT4RecPreprocessor", "preprocessors_map",
-           "get"]
+__all__ = ["BasePreprocessor", "BERT4RecPreprocessor", "SASRecPreprocessor",
+           "preprocessors_map", "get"]

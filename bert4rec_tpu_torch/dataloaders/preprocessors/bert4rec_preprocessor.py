@@ -157,8 +157,9 @@ class BERT4RecPreprocessor(BasePreprocessor):
                 "unprocessed sequence of data (i.e. a list of strings).")
         return self.prepare_inference_batch([data])
 
-    def prepare_inference_batch(self, sequences) -> dict:
-        """Many histories at once (the serving hot path)."""
+    def _inference_tokens(self, sequences) -> list:
+        """Each history trimmed to ``max_seq_len - 1`` with ``[UNK]``
+        appended as the prediction placeholder, tokenized."""
         tokens = []
         for data in sequences:
             if not isinstance(data, list):
@@ -169,6 +170,11 @@ class BERT4RecPreprocessor(BasePreprocessor):
             seq = list(data[-self.max_seq_len + 1:]) + ["[UNK]"]
             tokens.append(np.asarray(self.tokenizer.tokenize(seq),
                                      dtype=np.int32))
+        return tokens
+
+    def prepare_inference_batch(self, sequences) -> dict:
+        """Many histories at once (the serving hot path)."""
         return utils.inference_features(
-            tokens, self.max_seq_len, self.max_predictions_per_seq,
-            self.pad_token_id, self.mask_token_id)
+            self._inference_tokens(sequences), self.max_seq_len,
+            self.max_predictions_per_seq, self.pad_token_id,
+            self.mask_token_id)

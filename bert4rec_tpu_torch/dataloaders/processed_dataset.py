@@ -9,10 +9,10 @@ Here, masking is *re-applied vectorized per epoch* from an explicit seed:
 and produces fixed-shape int32 feature batches on demand — deterministic,
 reproducible, and cheap enough to overlap with device compute.
 
-Port of ``bert4rec_tpu/dataloaders/processed_dataset.py``, task ``"mlm"``;
-the ``"next_item"`` task (SASRec) waits for the SASRec slice of the port.
-``shard_for_process`` takes its defaults from ``torch.distributed`` when
-it is initialised, else (0, 1).
+Port of ``bert4rec_tpu/dataloaders/processed_dataset.py``, both tasks:
+``"mlm"`` (BERT4Rec) and ``"next_item"`` (SASRec). ``shard_for_process``
+takes its defaults from ``torch.distributed`` when it is initialised, else
+(0, 1).
 """
 
 import dataclasses
@@ -79,13 +79,7 @@ class ProcessedDataset:
             finetuning rows predict only the held-out last item). Both emit
             the same feature-dict contract.
         """
-        if task == "next_item":
-            raise NotImplementedError(
-                "the 'next_item' task (SASRec's causal features, "
-                "bert4rec_tpu/dataloaders/dataloader_utils.py "
-                "next_item_features) is not ported yet: it comes with the "
-                "SASRec slice of the port")
-        if task != "mlm":
+        if task not in ("mlm", "next_item"):
             raise ValueError(f"Unknown task {task!r}; "
                              f"expected 'mlm' or 'next_item'")
         self.task = task
@@ -248,7 +242,15 @@ class ProcessedDataset:
             "input_mask": input_mask,
         }
 
-        if self.apply_mlm:
+        if self.apply_mlm and self.task == "next_item":
+            features.update(utils.next_item_features(
+                input_ids, lengths, cfg.max_predictions_per_seq,
+                cfg.pad_token_id, finetuning=ft))
+            # the final item left the input: the mask shrinks with it
+            features["input_mask"] = (
+                np.arange(cfg.max_seq_len)[None, :]
+                < np.maximum(lengths - 1, 0)[:, None]).astype(np.int32)
+        elif self.apply_mlm:
             if _use_native():
                 int_seed = (int(seed) if seed is not None
                             else int(rng.integers(0, 2 ** 63)))

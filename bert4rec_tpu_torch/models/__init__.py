@@ -5,6 +5,7 @@ from bert4rec_tpu_torch.models.bert4rec_model import (
 from bert4rec_tpu_torch.models.bert4rec_wrapper import BERT4RecModelWrapper
 from bert4rec_tpu_torch.models.components.networks import Bert4RecEncoder
 from bert4rec_tpu_torch.models.config import BERT4RecConfig
+from bert4rec_tpu_torch.models.sasrec_model import SASRecModel
 
 __all__ = ["BERT4RecConfig", "BERT4RecModel", "BERT4RecModelWrapper",
-           "Bert4RecEncoder", "SPECIAL_TOKEN_IDS"]
+           "Bert4RecEncoder", "SASRecModel", "SPECIAL_TOKEN_IDS"]

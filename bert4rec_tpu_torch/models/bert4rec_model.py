@@ -7,7 +7,10 @@ LayerNorm, multiplies by the tied item-embedding table (a plain
 output bias and sets vocab-padding columns to -1e9. ``loss_and_metrics``
 routes as JAX does: the fused tied-softmax loss (``ops/fused_mlm_loss.py``)
 where ``config.use_fused_loss`` and the routing law allow it, else the
-logits path with ``trainers/trainer_utils.py``.
+logits path with ``trainers/trainer_utils.py``. For evaluation,
+``score_candidates`` scores only each position's candidates and
+``gt_ranks_full_vocab`` ranks the ground truth against the whole catalog
+(``ops/candidate_scoring.py``).
 """
 
 from typing import Optional, Sequence
@@ -100,6 +103,16 @@ class BERT4RecModel:
                                     inputs["masked_lm_positions"])
         return hidden, Bert4RecEncoder.get_embedding_table(params["encoder"])
 
+    def score_candidates(self, params: dict, inputs: dict,
+                         candidates: torch.Tensor) -> torch.Tensor:
+        """Candidate-only MLM logits ``[B, P, C]`` of ``candidates [B, P,
+        C]``: never builds the ``[B, P, V]`` full-vocab logits (the
+        sampled evaluation's path)."""
+        from bert4rec_tpu_torch.ops import candidate_scoring
+        hidden, table = self._mlm_hidden_and_table(params, inputs)
+        return candidate_scoring.score_candidates(
+            hidden, table, params["mlm"]["output_bias"], candidates)
+
     def loss_and_metrics(self, params: dict, inputs: dict, *,
                          training: bool = False,
                          seed: Optional[int] = None) -> tuple:
@@ -162,6 +175,43 @@ class BERT4RecModel:
             lse = torch.logsumexp(logits, dim=-1, keepdim=True)
             return ids, torch.exp(values - lse)
         return ids, values
+
+    # vocab width above which gt_ranks_full_vocab streams the table in
+    # tiles instead of materialising [B, P, V] fp32 logits (the JAX
+    # package's threshold)
+    TILED_RANK_VOCAB_THRESHOLD = 65536
+
+    def gt_ranks_full_vocab(self, params: dict, inputs: dict, *,
+                            exclude: Optional[torch.Tensor] = None,
+                            vocab_tile: Optional[int] = None
+                            ) -> torch.Tensor:
+        """1-based rank of each masked position's ground truth against the
+        whole catalog (the unsampled protocol): 1 + the non-excluded
+        catalog items whose logit ties or beats the ground truth's; the
+        ground-truth column never counts itself. Above
+        ``TILED_RANK_VOCAB_THRESHOLD`` (or with ``vocab_tile``) the same
+        law runs tile by tile (``candidate_scoring.gt_ranks_tiled``).
+
+        :param exclude: optional ``[B, E]`` int ids (< 0 = padding) removed
+            from the competitor set per batch row
+        :returns: ``[B, P]`` int32 ranks (>= 1)
+        """
+        gt_ids = inputs["masked_lm_ids"].long()
+        if (vocab_tile is not None or self.config.padded_vocab_size
+                > self.TILED_RANK_VOCAB_THRESHOLD):
+            from bert4rec_tpu_torch.ops import candidate_scoring
+            hidden, table = self._mlm_hidden_and_table(params, inputs)
+            return candidate_scoring.gt_ranks_tiled(
+                hidden, table, params["mlm"]["output_bias"], gt_ids,
+                vocab_size=self.config.vocab_size, exclude=exclude,
+                tile=vocab_tile or 8192)
+        logits = self.apply(params, inputs)["mlm_logits"]    # [B, P, V]
+        gt = torch.gather(logits, -1, gt_ids[..., None])
+        if exclude is not None:
+            logits = logits + sharded_topk.exclusion_bias(
+                exclude, logits.shape[-1])[:, None, :]
+        logits = logits.scatter(-1, gt_ids[..., None], -1e9)
+        return (logits >= gt).sum(-1, dtype=torch.int32) + 1
 
     # ------------------------------------------------------------------ #
 

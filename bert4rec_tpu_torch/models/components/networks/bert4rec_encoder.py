@@ -8,8 +8,11 @@ pooler on token 0. Each layer is the fused kernel
 it there, else the unfused block (``transformer.py``). In training,
 dropout follows the embedding LayerNorm and sits inside every layer; its
 seeds derive from one step seed (``fold_in(seed, i)``: 0 for the
-embeddings, ``1 + i`` for layer ``i``). Temporal features, causal
-attention and ``output_range`` are not ported yet and raise.
+embeddings, ``1 + i`` for layer ``i``). With ``causal_attention``
+(SASRec) position i attends to keys j <= i: the fused kernel builds the
+triangle itself, and the unfused block reads it folded into its additive
+bias, as in the JAX encoder. Temporal features and ``output_range`` are
+not ported yet and raise.
 """
 
 from typing import Optional
@@ -26,6 +29,7 @@ from bert4rec_tpu_torch.models.components.transformer import (
 from bert4rec_tpu_torch.models.config import BERT4RecConfig
 from bert4rec_tpu_torch.ops.dropout_bits import fold_in
 from bert4rec_tpu_torch.ops.fused_encoder_layer import (
+    causal_bias,
     fused_encoder_layer,
     fused_layer_supported,
 )
@@ -99,8 +103,6 @@ class Bert4RecEncoder:
         ``pooled_output [B, H]`` and ``encoder_outputs`` (one per layer).
         Dropout runs only when ``training`` and a ``seed`` is given."""
         cfg = self.config
-        if cfg.causal_attention:
-            raise NotImplementedError("causal attention is not ported yet")
         if "temporal_embeddings" in params \
                 or "temporal_attention_bias" in params:
             raise NotImplementedError(
@@ -134,7 +136,15 @@ class Bert4RecEncoder:
                 "the flash-attention kernel (bert4rec_tpu/ops/"
                 "flash_attention.py) is not ported yet")
         act = L.get_activation(cfg.inner_activation)
-        attn_bias = None if fused else L.self_attention_mask(input_mask)
+        causal = cfg.causal_attention
+        attn_bias = None
+        if not fused:
+            attn_bias = L.self_attention_mask(input_mask)
+            if causal:
+                # the dense triangle, for the unfused block only (JAX
+                # bert4rec_encoder.py:174-183); the fused kernel builds it
+                attn_bias = attn_bias + causal_bias(seq_len,
+                                                    input_mask.device)
 
         encoder_outputs = []
         for i in range(cfg.num_layers):
@@ -145,7 +155,8 @@ class Bert4RecEncoder:
                                         num_heads=cfg.num_attention_heads,
                                         attention_dropout=attn_rate,
                                         output_dropout=out_rate,
-                                        seed=seeds[1 + i] or 0)
+                                        seed=seeds[1 + i] or 0,
+                                        causal=causal)
             else:
                 x = transformer_block(layer_params, x, attn_bias,
                                       inner_activation=act,

@@ -11,8 +11,10 @@ The param layout is the JAX package's: qkv kernel ``[H, 3, N, D]`` and
 bias ``[3, N, D]``, output kernel ``[N, D, H]``. In training, dropout
 falls where the JAX block puts it: on the attention probabilities and on
 both sublayer outputs (JAX ``transformer.py:113,145,156``), with seeds
-``fold_in(seed, 0..2)``; autograd does the backward. No ``query_range``
-slicing and no flash-attention dispatch yet.
+``fold_in(seed, 0..2)``; autograd does the backward. Causal attention
+(SASRec) reaches the block as a triangle the caller has folded into
+``attn_bias`` (``[B, 1, S, S]``), as the JAX encoder folds it. No
+``query_range`` slicing and no flash-attention dispatch yet.
 """
 
 import math
@@ -57,8 +59,9 @@ def init_transformer_block(generator, hidden_size: int, num_heads: int,
 def _attention(params: dict, x: torch.Tensor, attn_bias: torch.Tensor,
                *, compute_dtype, attention_dropout: float = 0.0,
                seed: Optional[int] = None) -> torch.Tensor:
-    """Multi-head self-attention with an additive bias ``[B, 1, 1, S]``.
-    Scores and softmax in fp32; products in ``compute_dtype``."""
+    """Multi-head self-attention with an additive bias ``[B, 1, 1, S]``
+    (or ``[B, 1, S, S]`` with a causal triangle). Scores and softmax in
+    fp32; products in ``compute_dtype``."""
     head_dim = params["qkv"]["kernel"].shape[-1]
     qkv_kernel = params["qkv"]["kernel"].to(compute_dtype)
     qkv_bias = params["qkv"]["bias"].to(compute_dtype)

@@ -27,8 +27,8 @@ class BERT4RecConfig:
 
     Field meanings are documented in the JAX package's config; the port
     reads every field so configs round-trip, and raises where a field
-    selects a path it does not run yet (temporal features, causal
-    attention, flash attention, int8 tables).
+    selects a path it does not run yet (temporal features, flash
+    attention, int8 tables). ``causal_attention`` runs (SASRec).
     """
     vocab_size: int
     hidden_size: int = 768
@@ -96,3 +96,6 @@ class BERT4RecConfig:
 
     def to_dict(self) -> dict:
         return dataclasses.asdict(self)
+
+    def replace(self, **kwargs) -> "BERT4RecConfig":
+        return dataclasses.replace(self, **kwargs)

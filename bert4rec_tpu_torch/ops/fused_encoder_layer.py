@@ -23,8 +23,10 @@ does the same), fp32 softmax/LayerNorm statistics, matmuls on operands in
 the input dtype with fp32 sums, rounding to the input dtype at qkv, p, ctx,
 x1, the gelu output and y, and dropout on the attention probabilities
 (site ``h`` per head) and on both sublayer outputs (sites ``N`` and
-``N + 1``) with the masks of ``ops/dropout_bits.py``. The causal mask and
-the relative-time bias are not ported yet and raise.
+``N + 1``) with the masks of ``ops/dropout_bits.py``. With ``causal`` the
+scores add the TPU kernel's triangle, ``pad_bias + causal_bias`` (K1''
+causal, the SASRec family): a padded key after its query scores -2e9, one
+on or before it -1e9. The relative-time bias is not ported yet and raises.
 
 Routing: a CPU tensor runs the plain version (forward and backward); a
 CUDA tensor launches the kernels or raises.
@@ -171,9 +173,16 @@ def dropout_keeps(seed: int, batch: int, seq_len: int, hidden: int,
     return keep1, keep2, keep3
 
 
+def causal_bias(seq_len: int, device, dtype=torch.float32) -> torch.Tensor:
+    """``[S, S]`` additive triangle: 0 where key <= query, -1e9 after
+    (the TPU kernel's ``_causal_bias``)."""
+    idx = torch.arange(seq_len, device=device)
+    return torch.where(idx[None, :] <= idx[:, None], 0.0, NEG_INF).to(dtype)
+
+
 def _forward_math(flat: dict, x: torch.Tensor, input_mask: torch.Tensor,
                   num_heads: int, seed: int, attn_rate: float,
-                  out_rate: float) -> dict:
+                  out_rate: float, causal: bool = False) -> dict:
     """``_layer_fwd_math`` over the whole batch; returns every residual
     the backward needs."""
     dtype = x.dtype
@@ -191,6 +200,8 @@ def _forward_math(flat: dict, x: torch.Tensor, input_mask: torch.Tensor,
     q, k, v = (t.reshape(b, s, num_heads, d).transpose(1, 2)
                for t in qkv.split(h, dim=-1))                  # [B,N,S,D]
     bias = torch.where(input_mask > 0, 0.0, NEG_INF).to(f32)[:, None, None]
+    if causal:
+        bias = bias + causal_bias(s, x.device, f32)
     scores = q @ k.transpose(-1, -2) * scale + bias
     m = scores.amax(dim=-1, keepdim=True)
     e = torch.exp2((scores - m) * _LOG2E)
@@ -222,13 +233,14 @@ def fused_encoder_layer_plain(params: dict, x: torch.Tensor,
                               num_heads: int,
                               attention_dropout: float = 0.0,
                               output_dropout: float = 0.0,
-                              seed: int = 0) -> torch.Tensor:
+                              seed: int = 0,
+                              causal: bool = False) -> torch.Tensor:
     """Plain PyTorch version of the fused layer's forward
     (``_layer_fwd_math``, whole batch at once). Matmul operands in the
     input dtype are widened to fp32, so a bf16 product is exact and sums
     are fp32, as on the TPU."""
     return _forward_math(flat_weights(params), x, input_mask, num_heads,
-                         seed, attention_dropout, output_dropout)["y"]
+                         seed, attention_dropout, output_dropout, causal)["y"]
 
 
 def _rows_sum(t: torch.Tensor) -> torch.Tensor:
@@ -247,15 +259,17 @@ def fused_encoder_layer_plain_backward(flat: dict, x: torch.Tensor,
                                        dy: torch.Tensor, *, num_heads: int,
                                        attention_dropout: float = 0.0,
                                        output_dropout: float = 0.0,
-                                       seed: int = 0):
+                                       seed: int = 0,
+                                       causal: bool = False):
     """Plain PyTorch version of the fused layer's backward
     (``_bwd_element``, whole batch at once): recomputes the forward with
-    the same masks and returns ``(dx, {name: grad})`` with ``dx`` in the
-    input dtype and the 12 flat-operand gradients in the params' dtype."""
+    the same masks (and triangle) and returns ``(dx, {name: grad})`` with
+    ``dx`` in the input dtype and the 12 flat-operand gradients in the
+    params' dtype."""
     dtype = x.dtype
     f32 = _work_dtype(dtype)
     r = _forward_math(flat, x, input_mask, num_heads, seed,
-                      attention_dropout, output_dropout)
+                      attention_dropout, output_dropout, causal)
     w = r["w"]
     b, s, h = x.shape
     d = h // num_heads
@@ -331,7 +345,9 @@ def _kernel_lib():
         lib = kernel_build.load("fused_encoder_layer")
         vp, ci, cu = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
         cf = ctypes.c_float
-        step_args = [ci, vp] + [ci] * 5 + [cf, cu, cu, cf, ci, cu, cf, ci, vp]
+        # dtype, ptrs, B, S, H, N, F, causal, scale, seed, the two dropouts'
+        # (threshold, scale, on), stream
+        step_args = [ci, vp] + [ci] * 6 + [cf, cu, cu, cf, ci, cu, cf, ci, vp]
         for fn in (lib.b4r_fused_layer_fwd, lib.b4r_fused_layer_bwd):
             fn.restype = ci
             fn.argtypes = step_args
@@ -425,10 +441,10 @@ def kernel_keep_scale(seed: int, batch: int, site0: int, n_sites: int,
 
 def _launch_forward(flat: dict, x: torch.Tensor, input_mask: torch.Tensor,
                     num_heads: int, seed: int, attn_rate: float,
-                    out_rate: float, save: bool):
-    """Launch K1; returns ``(y, saved)`` where ``saved`` holds the
-    activations and statistics the backward reads (empty unless
-    ``save``)."""
+                    out_rate: float, save: bool, causal: bool = False):
+    """Launch K1 (K1'' causal with ``causal``); returns ``(y, saved)``
+    where ``saved`` holds the activations and statistics the backward
+    reads (empty unless ``save``)."""
     lib = _kernel_lib()
     b, s, h = x.shape
     _check_kernel_limits(lib, b, h, num_heads)
@@ -454,7 +470,7 @@ def _launch_forward(flat: dict, x: torch.Tensor, input_mask: torch.Tensor,
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.b4r_fused_layer_fwd(
         _DTYPE_CODE[dt], _ptr_array(ops, _FWD_PTRS), b, s, h, num_heads, f,
-        1.0 / math.sqrt(h // num_heads),
+        int(causal), 1.0 / math.sqrt(h // num_heads),
         *_drop_args(seed, attn_rate, out_rate), stream)
     if err != 0:
         raise RuntimeError(f"fused_encoder_layer kernel launch failed: CUDA "
@@ -465,8 +481,10 @@ def _launch_forward(flat: dict, x: torch.Tensor, input_mask: torch.Tensor,
 
 def _launch_backward(flat: dict, x: torch.Tensor, input_mask: torch.Tensor,
                      dy: torch.Tensor, saved: tuple, num_heads: int,
-                     seed: int, attn_rate: float, out_rate: float):
-    """Launch K2; returns ``(dx, {name: fp32 grad})``."""
+                     seed: int, attn_rate: float, out_rate: float,
+                     causal: bool = False):
+    """Launch K2 (causal with ``causal``, which must be the forward's);
+    returns ``(dx, {name: fp32 grad})``."""
     lib = _kernel_lib()
     b, s, h = x.shape
     f = flat["w1"].shape[1]
@@ -493,7 +511,7 @@ def _launch_backward(flat: dict, x: torch.Tensor, input_mask: torch.Tensor,
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.b4r_fused_layer_bwd(
         _DTYPE_CODE[dt], _ptr_array(ops, _BWD_PTRS), b, s, h, num_heads, f,
-        1.0 / math.sqrt(h // num_heads),
+        int(causal), 1.0 / math.sqrt(h // num_heads),
         *_drop_args(seed, attn_rate, out_rate), stream)
     if err != 0:
         raise RuntimeError(f"fused_encoder_layer backward kernel launch "
@@ -514,39 +532,46 @@ class _FusedLayer(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, input_mask, seed, num_heads, attn_rate, out_rate,
-                save, *flat_tuple):
+                save, causal, *flat_tuple):
         flat = dict(zip(_W_ORDER, flat_tuple))
-        ctx.cfg = (int(seed), num_heads, attn_rate, out_rate)
+        ctx.cfg = (int(seed), num_heads, attn_rate, out_rate, causal)
         if x.device.type == "cpu":
             y = _forward_math(flat, x, input_mask, num_heads, seed,
-                              attn_rate, out_rate)["y"]
+                              attn_rate, out_rate, causal)["y"]
             saved = ()
         else:
             y, saved = _launch_forward(flat, x, input_mask, num_heads, seed,
-                                       attn_rate, out_rate, save)
-            fused_encoder_layer.launches += 1
+                                       attn_rate, out_rate, save,
+                                       causal=causal)
+            if causal:
+                fused_encoder_layer.causal_launches += 1
+            else:
+                fused_encoder_layer.launches += 1
         if save:
             ctx.save_for_backward(x, input_mask, *flat_tuple, *saved)
         return y
 
     @staticmethod
     def backward(ctx, dy):
-        seed, num_heads, attn_rate, out_rate = ctx.cfg
+        seed, num_heads, attn_rate, out_rate, causal = ctx.cfg
         x, input_mask, *rest = ctx.saved_tensors
         flat = dict(zip(_W_ORDER, rest[:len(_W_ORDER)]))
         if x.device.type == "cpu":
             dx, grads = fused_encoder_layer_plain_backward(
                 flat, x, input_mask, dy, num_heads=num_heads,
                 attention_dropout=attn_rate, output_dropout=out_rate,
-                seed=seed)
+                seed=seed, causal=causal)
         else:
             dx, grads = _launch_backward(flat, x, input_mask, dy,
                                          tuple(rest[len(_W_ORDER):]),
                                          num_heads, seed, attn_rate,
-                                         out_rate)
-            fused_encoder_layer.backward_launches += 1
+                                         out_rate, causal=causal)
+            if causal:
+                fused_encoder_layer.causal_backward_launches += 1
+            else:
+                fused_encoder_layer.backward_launches += 1
         dflat = tuple(grads[k].to(flat[k].dtype) for k in _W_ORDER)
-        return (dx, None, None, None, None, None, None, *dflat)
+        return (dx, None, None, None, None, None, None, None, *dflat)
 
 
 def fused_encoder_layer(params: dict, x: torch.Tensor,
@@ -559,16 +584,15 @@ def fused_encoder_layer(params: dict, x: torch.Tensor,
                         rel_bias=None) -> torch.Tensor:
     """Run one post-LN encoder layer: ``x [B, S, H]`` (float32 or
     bfloat16), ``input_mask [B, S]`` int32, ``params`` the JAX-layout
-    layer dict; ``seed`` (an int, default 0) selects the dropout masks.
+    layer dict; ``seed`` (an int, default 0) selects the dropout masks;
+    ``causal`` lets position i attend to keys j <= i only (SASRec).
     Returns ``y`` like ``x``; differentiable in ``x`` and the params.
 
     A CUDA ``x`` launches the kernels and counts each forward launch in
-    ``fused_encoder_layer.launches`` and each backward launch in
-    ``fused_encoder_layer.backward_launches``; a CPU ``x`` runs the plain
-    versions.
+    ``fused_encoder_layer.launches`` (``causal_launches`` for the causal
+    variant) and each backward launch in ``backward_launches``
+    (``causal_backward_launches``); a CPU ``x`` runs the plain versions.
     """
-    if causal:
-        raise NotImplementedError("causal fused layer is not ported yet")
     if rel_bias is not None:
         raise NotImplementedError("rel_bias fused layer is not ported yet")
     flat = flat_weights(params)
@@ -580,8 +604,11 @@ def fused_encoder_layer(params: dict, x: torch.Tensor,
         t.requires_grad for t in (x, *operands))
     return _FusedLayer.apply(x, input_mask, 0 if seed is None else int(seed),
                              num_heads, float(attention_dropout),
-                             float(output_dropout), save, *operands)
+                             float(output_dropout), save, bool(causal),
+                             *operands)
 
 
 fused_encoder_layer.launches = 0
 fused_encoder_layer.backward_launches = 0
+fused_encoder_layer.causal_launches = 0
+fused_encoder_layer.causal_backward_launches = 0

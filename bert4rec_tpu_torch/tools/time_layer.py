@@ -1,0 +1,115 @@
+"""Time the fused layer kernels of the port in one checkout, on one CUDA
+card: K1' (forward with dropout) and K2 (backward), and their causal
+variants (K1'' causal) where the checkout has them:
+
+    python bert4rec_tpu_torch/tools/time_layer.py [--root DIR] [--reps 5]
+
+``DIR`` is the root of a checkout (by default the one holding this file):
+its ``bert4rec_tpu_torch`` is imported and its kernels are built from its
+own sources. To compare two commits, run it for both checkouts in one
+session on one card, in the order A, B, B, A. Prints one JSON line: per-rep
+times (CUDA events over 50 launches) at the train shape, B=256, S=200,
+H=128, 4 heads, F=512, bf16, right-padded rows of random length, dropout
+0.2 / 0.5 (ml-1m_128's) and 0.1 / 0.1 (ml-20m_128's)."""
+
+import argparse
+import inspect
+import json
+import pathlib
+import subprocess
+import sys
+
+B, S, H, N, F = 256, 200, 128, 4, 512
+RATES = {"ml-1m": (0.2, 0.5), "ml-20m": (0.1, 0.1)}
+
+
+def events_ms(torch, fn, iters=50, warmup=5):
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def layer_params(np, rng, device):
+    from bert4rec_tpu_torch.utils.checkpoint import params_from_numpy
+    d = H // N
+
+    def w(*shape, scale=0.05):
+        return (rng.normal(size=shape) * scale).astype(np.float32)
+
+    return params_from_numpy({
+        "attention/qkv/kernel": w(H, 3, N, d, scale=0.1),
+        "attention/qkv/bias": w(3, N, d, scale=0.02),
+        "attention/output/kernel": w(N, d, H),
+        "attention/output/bias": w(H, scale=0.02),
+        "attention_norm/scale": 1.0 + w(H, scale=0.1),
+        "attention_norm/bias": w(H, scale=0.02),
+        "intermediate/kernel": w(H, F),
+        "intermediate/bias": w(F, scale=0.02),
+        "output/kernel": w(F, H),
+        "output/bias": w(H, scale=0.02),
+        "output_norm/scale": 1.0 + w(H, scale=0.1),
+        "output_norm/bias": w(H, scale=0.02),
+    }, device)
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--root", default=str(
+        pathlib.Path(__file__).resolve().parents[2]))
+    parser.add_argument("--reps", type=int, default=5)
+    args = parser.parse_args(argv)
+    sys.path.insert(0, str(pathlib.Path(args.root).resolve()))
+    import numpy as np
+    import torch
+    if not torch.cuda.is_available():
+        print("time_layer: no CUDA device", file=sys.stderr)
+        return 1
+    from bert4rec_tpu_torch.ops import fused_encoder_layer as fel
+    if not fel.__file__.startswith(str(pathlib.Path(args.root).resolve())):
+        raise RuntimeError(f"imported {fel.__file__}, not from {args.root}")
+    device = torch.device("cuda")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], check=True, capture_output=True,
+        text=True, timeout=60).stdout.strip().splitlines()[0]
+    has_causal = "causal" in inspect.signature(fel._launch_forward).parameters
+
+    rng = np.random.default_rng(0)
+    flat = fel.flat_weights(layer_params(np, rng, device))
+    x, dy = (torch.from_numpy(rng.normal(size=(B, S, H)).astype(np.float32))
+             .to(device, torch.bfloat16) for _ in range(2))
+    lengths = rng.integers(1, S + 1, size=B)
+    mask = torch.from_numpy((np.arange(S)[None, :] < lengths[:, None])
+                            .astype(np.int32)).to(device)
+    cases = {}
+    for name, rates in RATES.items():
+        for causal in ((False, True) if has_causal else (False,)):
+            kw = {"causal": True} if causal else {}
+            y, saved = fel._launch_forward(flat, x, mask, N, 7, *rates, True,
+                                           **kw)
+            cases[f"{'causal' if causal else 'bidirectional'} {name}"] = (
+                lambda r=rates, k=kw: fel._launch_forward(
+                    flat, x, mask, N, 7, *r, True, **k),
+                lambda r=rates, k=kw, s=saved: fel._launch_backward(
+                    flat, x, mask, dy, s, N, 7, *r, **k))
+    out = dict(root=args.root, card=card, shape=[B, S, H, N, F])
+    for name in cases:
+        out[name] = {"fwd_ms": [], "bwd_ms": []}
+    for _ in range(args.reps):
+        for name, (fwd, bwd) in cases.items():
+            out[name]["fwd_ms"].append(events_ms(torch, fwd))
+            out[name]["bwd_ms"].append(events_ms(torch, bwd))
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

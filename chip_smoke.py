@@ -59,7 +59,25 @@ Phases (any failure raises and the script exits non-zero):
               once, K1 and K2 once per layer), ``validate()``, the step
               time, ``train()``'s time with the prefetch thread and the
               device idle share, a device breakdown, and the eval loss of
-              a repeated batch falling.
+              a repeated batch falling;
+10. causal kernels — K1'' causal forward and backward (SASRec) against
+              their plain versions at B=256, S=200, H=128, fp32 and bf16,
+              dropout off and at 0.1 / 0.1, with an all-pad row and a row
+              of length 1; kernel, plain, library (SDPA with the pad mask
+              plus the triangle) and bidirectional-kernel times, the bound;
+11. SASRec — the corpus through ``create_ml_20m_dataloader(preprocessor=
+              "sasrec").prepare_training(finetuning_split=0.1)``, then
+              phase 9's checks for ``SASRecModel`` on ml-20m_128: the
+              causal launches (2 forwards and 2 backwards per step, no
+              bidirectional ones, K5 and K6 once);
+12. evaluation — ``BERT4RecEvaluator(dataloader=..., seed=...)
+              .evaluate`` of the SASRec model and of phase 9's ml-20m_128
+              BERT4Rec model on their test splits: device negatives, host
+              negatives (a 4,096-row slice) and the full catalog; Valid
+              Ranks, the metrics' range, HR@k >= NDCG@k, layer launches per
+              batch, batches/s; one batch's 101-candidate ranks on the
+              kernels against the plain versions (fp32), equal but at ties
+              within 1e-3.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the rest of
@@ -168,13 +186,19 @@ def library_layer(params, x, mask, num_heads):
                         (h,), flat["g2"][0], flat["b2ln"][0], eps=1e-12)
 
 
-def layer_bound_ms(b, dtype_name, h=HIDDEN, f=INNER):
+def attention_pairs(s, causal):
+    """(query, key) pairs the attention products need per sequence and
+    head: all S^2, or the lower triangle's S(S+1)/2 when causal."""
+    return s * (s + 1) // 2 if causal else s * s
+
+
+def layer_bound_ms(b, dtype_name, h=HIDDEN, f=INNER, causal=False):
     """Least time for one layer on the card: the larger of its FLOP over
     the peak for the operand type and its bytes (x, mask and the fp32
     params read once, y written once) over the HBM rate."""
     s = SEQ
-    flops = b * (2 * s * h * 3 * h + 4 * s * s * h + 2 * s * h * h
-                 + 4 * s * h * f)
+    flops = b * (2 * s * h * 3 * h + 4 * attention_pairs(s, causal) * h
+                 + 2 * s * h * h + 4 * s * h * f)
     es = 4 if dtype_name == "float32" else 2
     params = 4 * (4 * h * h + 2 * h * f + 3 * h + h + 4 * h + f + h)
     nbytes = 2 * b * s * h * es + b * s * 4 + params
@@ -504,18 +528,25 @@ def rel_err(a, b) -> float:
     return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-6)
 
 
-def library_layer_train(params, x, mask, num_heads, rates):
+def library_layer_train(params, x, mask, num_heads, rates, causal=False):
     """library_layer with dropout: SDPA's own dropout on the
-    probabilities and F.dropout on both outputs (a yardstick only)."""
+    probabilities and F.dropout on both outputs (a yardstick only). With
+    ``causal`` SDPA reads the pad mask plus the triangle as one additive
+    mask ``[B, 1, S, S]``."""
     import torch
     import torch.nn.functional as F
-    from bert4rec_tpu_torch.ops.fused_encoder_layer import flat_weights
+    from bert4rec_tpu_torch.ops.fused_encoder_layer import (
+        causal_bias, flat_weights,
+    )
     flat = {k: v.to(x.dtype) for k, v in flat_weights(params).items()}
     b, s, h = x.shape
     qkv = torch.matmul(x, flat["wqkv"]) + flat["bqkv"]
     q, k, v = (t.view(b, s, num_heads, h // num_heads).transpose(1, 2)
                for t in qkv.split(h, dim=-1))
-    bias = torch.where(mask > 0, 0.0, -1e9).to(x.dtype)[:, None, None, :]
+    bias = torch.where(mask > 0, 0.0, -1e9)[:, None, None, :]
+    if causal:
+        bias = bias + causal_bias(s, x.device)
+    bias = bias.to(x.dtype)
     ctx = F.scaled_dot_product_attention(q, k, v, attn_mask=bias,
                                          dropout_p=rates[0])
     ctx = ctx.transpose(1, 2).reshape(b, s, h)
@@ -529,13 +560,15 @@ def library_layer_train(params, x, mask, num_heads, rates):
                         eps=1e-12)
 
 
-def layer_bwd_bound_ms(b, dtype_name, h=HIDDEN, f=INNER):
+def layer_bwd_bound_ms(b, dtype_name, h=HIDDEN, f=INNER, causal=False):
     """Least time for one layer's backward: its products (8SHF + 16SH^2 +
-    8S^2H FLOP per sequence, twice the forward's; the recomputation is
-    not counted) over the peak, or its bytes (x, dy, mask, fp32 params
-    read once; dx and the fp32 grads written once) over the HBM rate."""
+    8S^2H FLOP per sequence, twice the forward's; S^2 becomes S(S+1)/2
+    when causal; the recomputation is not counted) over the peak, or its
+    bytes (x, dy, mask, fp32 params read once; dx and the fp32 grads
+    written once) over the HBM rate."""
     s = SEQ
-    flops = b * (8 * s * h * f + 16 * s * h * h + 8 * s * s * h)
+    flops = b * (8 * s * h * f + 16 * s * h * h
+                 + 8 * attention_pairs(s, causal) * h)
     es = 4 if dtype_name == "float32" else 2
     params = 4 * (4 * h * h + 2 * h * f + 3 * h + h + 4 * h + f + h)
     nbytes = 3 * b * s * h * es + b * s * 4 + 2 * params
@@ -752,6 +785,123 @@ def check_loss_kernels(torch, rng, device):
     return rows
 
 
+CAUSAL_RATES = (0.1, 0.1)  # ml-20m_128's attention / output dropout
+
+
+def causal_inputs(torch, rng, device, dtype, b=STREAM_BATCH):
+    """x, an int32 mask with row 0 unpadded, row 1 of length 1 and row 2
+    all padding (the rest random right-padded lengths), and dy."""
+    import numpy as np
+    lengths = rng.integers(1, SEQ + 1, size=b)
+    lengths[:3] = [SEQ, 1, 0]
+    mask = torch.from_numpy((np.arange(SEQ)[None, :] < lengths[:, None])
+                            .astype(np.int32)).to(device)
+    x, dy = (torch.from_numpy(rng.normal(size=(b, SEQ, HIDDEN))
+                              .astype(np.float32)).to(device, dtype)
+             for _ in range(2))
+    return x, mask, dy
+
+
+def check_causal_layer(torch, rng, device):
+    """K1'' causal forward and backward against their plain versions at the
+    SASRec train shape (B=256, S=200, H=128): fp32 and bf16, dropout off
+    and at ml-20m_128's rates, with an all-pad row and a row of length 1;
+    kernel, plain and library-yardstick times, the bidirectional kernels
+    (K1', K2) on the same inputs for comparison, and the bound."""
+    from bert4rec_tpu_torch.ops import fused_encoder_layer as fel
+    from bert4rec_tpu_torch.utils.checkpoint import flatten, unflatten
+    params = random_layer(rng, device)
+    flat = fel.flat_weights(params)
+    b, seed = STREAM_BATCH, 4242
+    rows = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).removeprefix("torch.")
+        for rates in ((0.0, 0.0), CAUSAL_RATES):
+            x, mask, dy = causal_inputs(torch, rng, device, dtype)
+            kw = dict(num_heads=HEADS, attention_dropout=rates[0],
+                      output_dropout=rates[1], seed=seed, causal=True)
+
+            def fwd(causal=True):
+                return fel._launch_forward(flat, x, mask, HEADS, seed,
+                                           *rates, True, causal=causal)
+
+            y, saved = fwd()
+            bidir_saved = fwd(False)[1]
+
+            def bwd(causal=True):
+                return fel._launch_backward(
+                    flat, x, mask, dy, saved if causal else bidir_saved,
+                    HEADS, seed, *rates, causal=causal)
+
+            dx, grads = bwd()
+            torch.cuda.synchronize()
+            ref_y = fel.fused_encoder_layer_plain(params, x, mask, **kw)
+            ref_dx, ref_g = fel.fused_encoder_layer_plain_backward(
+                flat, x, mask, dy, **kw)
+            fwd_err = float((y.float() - ref_y.float()).abs().max())
+            bwd_err = max([rel_err(dx, ref_dx)]
+                          + [rel_err(grads[k], ref_g[k]) for k in grads])
+            if not (fwd_err <= TOL[name] and bwd_err <= GRAD_TOL[name]
+                    and bool(torch.isfinite(y).all())
+                    and bool(torch.isfinite(dx).all())):
+                raise AssertionError(
+                    f"causal layer kernels {name} dropout {rates}: forward "
+                    f"err {fwd_err} (tol {TOL[name]}), backward rel err "
+                    f"{bwd_err} (tol {GRAD_TOL[name]})")
+            again = bwd()
+            if not (torch.equal(again[0], dx) and all(
+                    torch.equal(again[1][k], grads[k]) for k in grads)):
+                raise AssertionError("causal layer backward is not "
+                                     "deterministic")
+            lflat = {k: v.detach().clone().requires_grad_(True)
+                     for k, v in flatten(params).items()}
+            xl = x.detach().requires_grad_(True)
+            y_lib = library_layer_train(unflatten(lflat), xl, mask, HEADS,
+                                        rates, causal=True)
+            leaves = [xl, *lflat.values()]
+            row = dict(
+                fwd=dict(max_abs_err=fwd_err, ms=time_ms(fwd),
+                         plain_ms=time_ms(lambda: fel.fused_encoder_layer_plain(
+                             params, x, mask, **kw)),
+                         library_ms=time_ms(lambda: library_layer_train(
+                             params, x, mask, HEADS, rates, causal=True)),
+                         bidirectional_ms=time_ms(lambda: fwd(False)),
+                         **dict(zip(("bound_ms", "bound_by"),
+                                    layer_bound_ms(b, name, causal=True)))),
+                bwd=dict(max_abs_err=float((dx.float() - ref_dx.float())
+                                           .abs().max()),
+                         max_rel_err=bwd_err, ms=time_ms(bwd),
+                         plain_ms=time_ms(
+                             lambda: fel.fused_encoder_layer_plain_backward(
+                                 flat, x, mask, dy, **kw), iters=5),
+                         library_ms=time_ms(lambda: torch.autograd.grad(
+                             y_lib, leaves, dy, retain_graph=True)),
+                         bidirectional_ms=time_ms(lambda: bwd(False)),
+                         **dict(zip(("bound_ms", "bound_by"),
+                                    layer_bwd_bound_ms(b, name,
+                                                       causal=True)))))
+            rows[(name, rates)] = row
+            for part, r in row.items():
+                print(f"fused_encoder_layer causal {part} dropout {rates} "
+                      f"{name} B={b} S={SEQ} H={HIDDEN} (all-pad row, "
+                      f"length-1 row): err {r['max_abs_err']:.3g}"
+                      + (f" (rel {r['max_rel_err']:.3g}, tol "
+                         f"{GRAD_TOL[name]})" if part == "bwd" else
+                         f" (tol {TOL[name]})")
+                      + f" kernel_ms={r['ms']:.4f} bidirectional_ms="
+                      f"{r['bidirectional_ms']:.4f} plain_ms="
+                      f"{r['plain_ms']:.4f} library_ms={r['library_ms']:.4f}"
+                      f" bound_ms={r['bound_ms']:.5f} ({r['bound_by']})",
+                      flush=True)
+            if name == "bfloat16" and rates == CAUSAL_RATES:
+                print("  per causal forward launch: " + device_breakdown(
+                    torch, fwd)[1], flush=True)
+                print("  per causal backward launch: " + device_breakdown(
+                    torch, bwd)[1], flush=True)
+            del y_lib, leaves, lflat, xl
+    return rows
+
+
 # --------------------------------------------------------------------------- #
 # phase 6: training through BERT4RecTrainer.train()
 # --------------------------------------------------------------------------- #
@@ -790,14 +940,17 @@ class SyntheticDataset:
 
 
 def new_trainer(torch, device, params=None, lr=1e-4, warmup=100,
-                config_name="ml-1m_128", vocab=VOCAB):
+                config_name="ml-1m_128", vocab=VOCAB, family="bert4rec"):
+    """A trainer of the ``family`` model (``bert4rec`` or ``sasrec``) on
+    ``config_name`` with the fused layer and loss, bf16 compute."""
     from bert4rec_tpu_torch.config import load_train_config
     from bert4rec_tpu_torch.core.dtypes import DTypePolicy
-    from bert4rec_tpu_torch.models import BERT4RecModel
+    from bert4rec_tpu_torch.models import BERT4RecModel, SASRecModel
     from bert4rec_tpu_torch.trainers import BERT4RecTrainer, optimizers
     config = load_train_config(config_name, vocab_size=vocab,
                                use_fused_layer=True, use_fused_loss=True)
-    model = BERT4RecModel(config=config, dtype_policy=DTypePolicy.bf16())
+    model_cls = {"bert4rec": BERT4RecModel, "sasrec": SASRecModel}[family]
+    model = model_cls(config=config, dtype_policy=DTypePolicy.bf16())
     trainer = BERT4RecTrainer(model)
     trainer.initialize_model(
         optimizer=optimizers.create_adam_w_optimizer(
@@ -813,13 +966,15 @@ def plain_kernels():
     from bert4rec_tpu_torch.ops import fused_encoder_layer as fel
     from bert4rec_tpu_torch.ops import fused_mlm_loss as fml
 
-    def layer_fwd(flat, x, mask, num_heads, seed, a, o, save):
-        return fel._forward_math(flat, x, mask, num_heads, seed, a, o)["y"], ()
+    def layer_fwd(flat, x, mask, num_heads, seed, a, o, save, causal=False):
+        return fel._forward_math(flat, x, mask, num_heads, seed, a, o,
+                                 causal)["y"], ()
 
-    def layer_bwd(flat, x, mask, dy, saved, num_heads, seed, a, o):
+    def layer_bwd(flat, x, mask, dy, saved, num_heads, seed, a, o,
+                  causal=False):
         return fel.fused_encoder_layer_plain_backward(
             flat, x, mask, dy, num_heads=num_heads, attention_dropout=a,
-            output_dropout=o, seed=seed)
+            output_dropout=o, seed=seed, causal=causal)
 
     def loss_bwd(hidden, table, bias, labels, lse, g, n_valid):
         return fml.fused_mlm_loss_plain_backward(hidden, table, bias, labels,
@@ -991,7 +1146,10 @@ def check_pipeline(home):
     the port was imported) and load it as a user would:
     ``create_ml_20m_dataloader(input_duplication_factor=5)
     .prepare_training(finetuning_split=0.1)`` under a record cap that
-    covers every rating (the size gate's existence-only mode)."""
+    covers every rating (the size gate's existence-only mode). The cap
+    stays set for every later load of the corpus (the SASRec pipeline, the
+    evaluator's item list): without it the size gate would not accept the
+    synthetic corpus."""
     import pathlib
     import numpy as np
     from bert4rec_tpu_torch import datasets
@@ -1007,14 +1165,11 @@ def check_pipeline(home):
     n_ratings = write_ml20m_corpus(home, seed=SEED, n_users=ML20M_USERS)
     write_s = time.perf_counter() - t0
     os.environ["BERT4REC_TPU_LOAD_N_RECORDS"] = str(n_ratings)
-    try:
-        t0 = time.perf_counter()
-        loader = get_dataloader_factory().create_ml_20m_dataloader(
-            input_duplication_factor=5)
-        splits = loader.prepare_training(finetuning_split=0.1)
-        prep_s = time.perf_counter() - t0
-    finally:
-        del os.environ["BERT4REC_TPU_LOAD_N_RECORDS"]
+    t0 = time.perf_counter()
+    loader = get_dataloader_factory().create_ml_20m_dataloader(
+        input_duplication_factor=5)
+    splits = loader.prepare_training(finetuning_split=0.1)
+    prep_s = time.perf_counter() - t0
     vocab = loader.tokenizer.get_vocab_size()
     native_on = processed_dataset._use_native()
     t0 = time.perf_counter()
@@ -1227,17 +1382,27 @@ class FixedBatches:
         yield from self.host
 
 
-def check_ml20m_training(torch, device, loader, splits, config_name):
+def check_ml20m_training(torch, device, loader, splits, config_name,
+                         family="bert4rec"):
     """``train()`` on ml-20m_128 (backward K6) or ml-20m_256 (K7) from the
     pipeline's datasets: B=256, bf16, fused layer and loss, full width and
-    depth. Returns the launch counts of the counted run and its timings."""
+    depth; ``family="sasrec"`` trains SASRecModel (the causal layer
+    kernels) from the ``"sasrec"`` preprocessor's datasets. Returns the
+    launch counts of the counted run, its timings and the trainer."""
     from bert4rec_tpu_torch.ops import fused_encoder_layer as fel
     from bert4rec_tpu_torch.ops import fused_mlm_loss as fml
     from bert4rec_tpu_torch.utils.checkpoint import flatten
     train_ds, val_ds, _ = splits
     vocab = loader.tokenizer.get_vocab_size()
-    trainer = new_trainer(torch, device, config_name=config_name, vocab=vocab)
+    trainer = new_trainer(torch, device, config_name=config_name, vocab=vocab,
+                          family=family)
+    label = config_name if family == "bert4rec" else f"sasrec {config_name}"
+    causal = family == "sasrec"
     cfg = trainer.model.config
+    if cfg.causal_attention != causal or train_ds.task != (
+            "next_item" if causal else "mlm"):
+        raise AssertionError(f"{label}: causal {cfg.causal_attention}, task "
+                             f"{train_ds.task}")
     rows = STREAM_BATCH * cfg.max_predictions_per_seq
     kernel = "K6" if fml.merged_backward(rows, cfg.table_width) else "K7"
     if not (trainer.model.encoder.fused_layer_routed(
@@ -1246,7 +1411,7 @@ def check_ml20m_training(torch, device, loader, splits, config_name):
                                              cfg.table_width)
             and kernel == {"ml-20m_128": "K6", "ml-20m_256": "K7"}[
                 config_name]):
-        raise AssertionError(f"{config_name} is not routed to the fused "
+        raise AssertionError(f"{label} is not routed to the fused "
                              f"layer, K5 and the expected backward")
     init = {k: v.detach().clone() for k, v in
             flatten(trainer.state["params"]).items()}
@@ -1254,14 +1419,15 @@ def check_ml20m_training(torch, device, loader, splits, config_name):
         STREAM_BATCH, seed=11, drop_remainder=True), 14))
     batch = trainer._put_batch(host[0])
     check_step_parity(torch, trainer, batch,
-                      f"{config_name}, dropout "
+                      f"{label}, dropout "
                       f"{(cfg.attention_dropout, cfg.output_dropout)}")
 
     # the main path: train() for ML20M_STEPS steps, counts from 0
     counted = (fel.fused_encoder_layer, fml.fused_mlm_loss,
                fml.fused_mlm_loss_tiled)
     for fn in counted:
-        for attr in ("launches", "backward_launches", "merged_launches",
+        for attr in ("launches", "backward_launches", "causal_launches",
+                     "causal_backward_launches", "merged_launches",
                      "two_sweep_launches"):
             if hasattr(fn, attr):
                 setattr(fn, attr, 0)
@@ -1272,18 +1438,22 @@ def check_ml20m_training(torch, device, loader, splits, config_name):
     wall = time.perf_counter() - t0
     counts = dict(layer_fwd=fel.fused_encoder_layer.launches,
                   layer_bwd=fel.fused_encoder_layer.backward_launches,
+                  causal_fwd=fel.fused_encoder_layer.causal_launches,
+                  causal_bwd=fel.fused_encoder_layer.causal_backward_launches,
                   K3=fml.fused_mlm_loss.launches,
                   K4=fml.fused_mlm_loss.backward_launches,
                   K5=fml.fused_mlm_loss_tiled.launches,
                   K6=fml.fused_mlm_loss_tiled.merged_launches,
                   K7=fml.fused_mlm_loss_tiled.two_sweep_launches)
-    n_layers = cfg.num_layers
-    want = dict(layer_fwd=n_layers * ML20M_STEPS,
-                layer_bwd=n_layers * ML20M_STEPS, K3=0, K4=0,
+    layer_steps = cfg.num_layers * ML20M_STEPS
+    want = dict(layer_fwd=0 if causal else layer_steps,
+                layer_bwd=0 if causal else layer_steps,
+                causal_fwd=layer_steps if causal else 0,
+                causal_bwd=layer_steps if causal else 0, K3=0, K4=0,
                 K5=ML20M_STEPS, K6=ML20M_STEPS if kernel == "K6" else 0,
                 K7=ML20M_STEPS if kernel == "K7" else 0)
     loss = hist.history["loss"][0]
-    print(f"{config_name} train(): {ML20M_STEPS} steps of B={STREAM_BATCH}"
+    print(f"{label} train(): {ML20M_STEPS} steps of B={STREAM_BATCH}"
           f" from the ML-20M pipeline in {wall:.2f} s (first step "
           f"included), epoch loss {loss:.4f}; launches {counts}", flush=True)
     if counts != want or not math.isfinite(loss):
@@ -1292,7 +1462,7 @@ def check_ml20m_training(torch, device, loader, splits, config_name):
                 for k, v in flatten(trainer.state["params"]).items())
     val = trainer.validate(val_ds, batch_size=STREAM_BATCH,
                            validation_steps=4)
-    print(f"{config_name} validate(): 4 batches, loss {val['loss']:.4f}, "
+    print(f"{label} validate(): 4 batches, loss {val['loss']:.4f}, "
           f"masked_accuracy {val['masked_accuracy']:.4f}", flush=True)
     if not (moved > 0 and math.isfinite(val["loss"])):
         raise AssertionError("train() did not move the params")
@@ -1316,32 +1486,174 @@ def check_ml20m_training(torch, device, loader, splits, config_name):
     device_ms, breakdown = device_breakdown(
         torch, lambda: trainer.train_step(batch), calls=3, top=10)
     idle = None if device_ms is None else 1 - device_ms / train_ms
-    print(f"{config_name} train step B={STREAM_BATCH}: median {median:.3f} "
+    print(f"{label} train step B={STREAM_BATCH}: median {median:.3f} "
           f"ms of 10 synchronised steps (min {min(step_ms):.3f}), "
           f"{STREAM_BATCH / median * 1e3:.1f} examples/s; train() with "
           f"prefetch {train_ms:.3f} ms per step over {ML20M_TIMED_STEPS}, "
           f"{STREAM_BATCH / train_ms * 1e3:.1f} examples/s; device idle "
           f"share of train() "
           + ("not measured" if idle is None else f"{idle:.3f}"), flush=True)
-    print(f"  one {config_name} train step: " + breakdown, flush=True)
+    print(f"  one {label} train step: " + breakdown, flush=True)
 
     # the eval loss of a repeated batch falls at a raised learning rate
     start = new_trainer(torch, device, params=init, config_name=config_name,
-                        vocab=vocab)
+                        vocab=vocab, family=family)
     probe = start._put_batch(host[12])
     before = float(start.eval_step(probe)["loss"])
     fast = new_trainer(torch, device, params=init, lr=1e-3, warmup=0,
-                       config_name=config_name, vocab=vocab)
+                       config_name=config_name, vocab=vocab, family=family)
     fast.train(FixedBatches([host[12]] * 12), epochs=1,
                batch_size=STREAM_BATCH, seed=SEED, verbose=False)
     after = float(fast.eval_step(probe)["loss"])
-    print(f"{config_name} repeated batch, lr 1e-3, 12 steps: eval loss "
+    print(f"{label} repeated batch, lr 1e-3, 12 steps: eval loss "
           f"{before:.4f} -> {after:.4f}", flush=True)
     if not after < 0.99 * before:
         raise AssertionError(f"loss did not fall on a repeated batch: "
                              f"{before} -> {after}")
     return dict(counts=counts, kernel=kernel, step_ms=median,
-                train_ms=train_ms, device_ms=device_ms, idle=idle)
+                train_ms=train_ms, device_ms=device_ms, idle=idle,
+                trainer=trainer)
+
+
+# --------------------------------------------------------------------------- #
+# phase 11: SASRec from the ML-20M pipeline; phase 12: evaluation
+# --------------------------------------------------------------------------- #
+
+def check_sasrec_pipeline():
+    """The same corpus through ``create_ml_20m_dataloader(preprocessor=
+    "sasrec").prepare_training(finetuning_split=0.1)``: next-item datasets
+    over the vocab of the BERT4Rec pipeline."""
+    from bert4rec_tpu_torch.dataloaders import get_dataloader_factory
+    t0 = time.perf_counter()
+    loader = get_dataloader_factory().create_ml_20m_dataloader(
+        preprocessor="sasrec")
+    splits = loader.prepare_training(finetuning_split=0.1)
+    prep_s = time.perf_counter() - t0
+    vocab = loader.tokenizer.get_vocab_size()
+    tasks = [ds.task for ds in splits]
+    print(f"sasrec pipeline: prepare_training(finetuning_split=0.1) "
+          f"{prep_s:.2f} s of host time; vocab {vocab}; sequences train "
+          f"{len(splits[0])} / val {len(splits[1])} / test {len(splits[2])}"
+          f"; tasks {tasks}", flush=True)
+    if vocab != ML20M_VOCAB or tasks != ["next_item"] * 3:
+        raise AssertionError(f"sasrec pipeline: vocab {vocab}, tasks {tasks}")
+    return loader, splits
+
+
+EVAL_SEED = 7
+HOST_EVAL_ROWS = 4096     # the host sampler's slice of the test split
+RANK_TIE = 1e-3           # kernel vs plain ranks may differ only at ties
+
+
+def valid_rows(ds) -> int:
+    """Rows of ``ds`` with a valid prediction slot."""
+    w = ds.materialize(0)["masked_lm_weights"]
+    return int((w.sum(axis=1) > 0).sum())
+
+
+def check_rank_parity(torch, device, model, params, sampler, test, label):
+    """One test batch's 101-candidate ranks on the kernels against the
+    plain versions (fp32 compute, the same params and candidates): ranks
+    may differ only where a negative's plain logit lies within RANK_TIE of
+    the ground truth's."""
+    from contextlib import ExitStack
+    import numpy as np
+    from bert4rec_tpu_torch.core.dtypes import DTypePolicy
+    fp32 = type(model)(config=model.config, dtype_policy=DTypePolicy.f32())
+    batch = next(test.batches(STREAM_BATCH, shuffle=False, seed=0))
+    labels, gt = batch["labels"], batch["masked_lm_ids"][:, :1]
+    rows = np.nonzero(batch["masked_lm_weights"][:, 0] > 0)[0]
+    without = [np.concatenate([labels[i][labels[i] != 0], gt[i]])
+               for i in rows]
+    vocab = np.asarray(sampler.vocab)
+    cand = np.zeros((len(labels), 1, 101), np.int32)
+    cand[rows, 0, :-1] = vocab[sampler.sample_batch(without, 100,
+                                                    seed=EVAL_SEED)]
+    cand[:, 0, -1] = gt[:, 0]
+    feats = {k: torch.from_numpy(np.ascontiguousarray(
+        v[:, :1] if k.startswith("masked_lm") else v)).to(device)
+        for k, v in batch.items() if k != "labels"}
+    cand_t = torch.from_numpy(cand).to(device)
+    with torch.no_grad():
+        kern = fp32.score_candidates(params, feats, cand_t)
+        with ExitStack() as stack:
+            for patch in plain_kernels():
+                stack.enter_context(patch)
+            plain = fp32.score_candidates(params, feats, cand_t)
+        rk = ((kern[..., :-1] >= kern[..., -1:]).sum(-1) + 1).cpu().numpy()
+        rp = ((plain[..., :-1] >= plain[..., -1:]).sum(-1) + 1).cpu().numpy()
+        tie = ((plain[..., :-1] - plain[..., -1:]).abs() < RANK_TIE) \
+            .any(-1).cpu().numpy()
+    logit_err = float((kern - plain).abs().max())
+    differ = rk != rp
+    print(f"{label} ranks, kernels vs plain (fp32, one batch of "
+          f"{STREAM_BATCH}, 101 candidates): candidate logits max abs diff "
+          f"{logit_err:.3g}; {int(differ.sum())} of {differ.size} ranks "
+          f"differ, {int(tie.sum())} positions hold a tie within "
+          f"{RANK_TIE}", flush=True)
+    if (differ & ~tie).any() or not np.isfinite(logit_err):
+        raise AssertionError(f"{label}: kernel ranks differ from the plain "
+                             f"ranks away from ties")
+
+
+def check_evaluation(torch, device, loader, splits, trainer, label):
+    """``BERT4RecEvaluator(dataloader=loader, seed=...).evaluate`` of a
+    trained model on its test split: device negatives (the default), host
+    negatives (a slice of HOST_EVAL_ROWS rows) and the full catalog.
+    Checks Valid Ranks, the metrics' range and HR@k >= NDCG@k, the layer
+    launches per batch, and the kernel ranks against the plain ranks.
+    Returns per protocol the metrics, batches/s and examples/s."""
+    import numpy as np
+    from bert4rec_tpu_torch.evaluation import BERT4RecEvaluator
+    from bert4rec_tpu_torch.ops import fused_encoder_layer as fel
+    test = splits[2]
+    model, params = trainer.model, trainer.params
+    counter = ("causal_launches" if model.config.causal_attention
+               else "launches")
+    device_ev = BERT4RecEvaluator(dataloader=loader, seed=EVAL_SEED)
+    t0 = time.perf_counter()
+    device_ev._prepare_sampler()
+    print(f"{label} evaluation: sampler from the dataloader's item list "
+          f"({len(device_ev.sampler.source)} ratings, "
+          f"{len(device_ev.sampler.vocab)} items) in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    host_ds = test.select(np.arange(min(HOST_EVAL_ROWS, len(test))))
+    runs = [("device negatives", device_ev, test),
+            ("host negatives", BERT4RecEvaluator(
+                sampler=device_ev.sampler, seed=EVAL_SEED,
+                device_negatives=False), host_ds),
+            ("full catalog", BERT4RecEvaluator(full_ranking=True), test)]
+    out = {}
+    for name, ev, ds in runs:
+        setattr(fel.fused_encoder_layer, counter, 0)
+        t0 = time.perf_counter()
+        res = ev.evaluate(model, params, ds, batch_size=STREAM_BATCH,
+                          progress_bar=False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n_batches = -(-len(ds) // STREAM_BATCH)
+        launches = getattr(fel.fused_encoder_layer, counter)
+        want = valid_rows(ds)
+        metrics = {k: v for k, v in res.items() if k != "Valid Ranks"}
+        print(f"{label} evaluate ({name}): {len(ds)} rows in {n_batches} "
+              f"batches of {STREAM_BATCH}, {wall:.2f} s, "
+              f"{n_batches / wall:.2f} batches/s, {len(ds) / wall:.1f} "
+              f"examples/s; fused layer {counter} {launches}; "
+              + json.dumps({k: round(float(v), 5) for k, v in res.items()}),
+              flush=True)
+        if res["Valid Ranks"] != want or not all(
+                0.0 <= v <= 1.0 for v in metrics.values()) or not all(
+                res[f"HR@{k}"] >= res[f"NDCG@{k}"] for k in (1, 5, 10)):
+            raise AssertionError(f"{label} {name}: {res}, expected "
+                                 f"{want} valid ranks")
+        if launches != model.config.num_layers * n_batches:
+            raise AssertionError(f"{label} {name}: {launches} layer "
+                                 f"launches for {n_batches} batches")
+        out[name] = dict(metrics=res, batches_per_s=n_batches / wall,
+                         examples_per_s=len(ds) / wall)
+    check_rank_parity(torch, device, model, params, device_ev.sampler, test,
+                      label)
+    return out
 
 
 def main() -> int:
@@ -1356,6 +1668,7 @@ def main() -> int:
     try:
         return run(torch, home)
     finally:
+        os.environ.pop("BERT4REC_TPU_LOAD_N_RECORDS", None)
         shutil.rmtree(home, ignore_errors=True)
 
 
@@ -1401,6 +1714,15 @@ def run(torch, home) -> int:
     tiled_rows = check_tiled_loss_kernels(torch, rng, device)
     ml20m = {name: check_ml20m_training(torch, device, loader, splits, name)
              for name in ("ml-20m_128", "ml-20m_256")}
+    causal_rows = check_causal_layer(torch, rng, device)
+    sasrec_loader, sasrec_splits = check_sasrec_pipeline()
+    sasrec = check_ml20m_training(torch, device, sasrec_loader,
+                                  sasrec_splits, "ml-20m_128",
+                                  family="sasrec")
+    check_evaluation(torch, device, sasrec_loader, sasrec_splits,
+                     sasrec["trainer"], "sasrec ml-20m_128")
+    check_evaluation(torch, device, loader, splits,
+                     ml20m["ml-20m_128"]["trainer"], "ml-20m_128")
 
     def entry(name, source, replaces, n, row):
         return {"name": name, "route": "cuda",
@@ -1413,6 +1735,8 @@ def run(torch, home) -> int:
     train_row = train_rows[("bfloat16", STREAM_BATCH)]   # the train shape
     wide_row = wide_rows[("bfloat16", STREAM_BATCH)]
     c128, c256 = ml20m["ml-20m_128"]["counts"], ml20m["ml-20m_256"]["counts"]
+    csas = sasrec["counts"]
+    causal_row = causal_rows[("bfloat16", CAUSAL_RATES)]   # SASRec's shape
     tiled_128 = tiled_rows[("bfloat16", N_ROWS, ML20M_VOCAB, 128)]
     tiled_256 = tiled_rows[("bfloat16", N_ROWS, ML20M_VOCAB, 256)]
     layer_src, loss_src = "fused_encoder_layer.cu", "fused_mlm_loss.cu"
@@ -1439,13 +1763,23 @@ def run(torch, home) -> int:
               loss_rows["bfloat16"]["fwd"]),
         entry("fused_mlm_loss_backward", loss_src, f"{loss_py}:148",
               counts["loss_bwd"], loss_rows["bfloat16"]["bwd"]),
-        # the vocab-tiled family; launches from both ML-20M train() runs
+        # the vocab-tiled family; launches from the three ML-20M train()
+        # runs (BERT4Rec ml-20m_128 and ml-20m_256, SASRec ml-20m_128)
         entry("fused_mlm_loss_tiled", loss_src, f"{loss_py}:375",
-              c128["K5"] + c256["K5"], tiled_128["K5"]),
+              c128["K5"] + c256["K5"] + csas["K5"], tiled_128["K5"]),
         entry("fused_mlm_loss_tiled_backward_merged", loss_src,
-              f"{loss_py}:502", c128["K6"] + c256["K6"], tiled_128["K6"]),
+              f"{loss_py}:502", c128["K6"] + c256["K6"] + csas["K6"],
+              tiled_128["K6"]),
         entry("fused_mlm_loss_tiled_backward_two_sweep", loss_src,
-              f"{loss_py}:602", c128["K7"] + c256["K7"], tiled_256["K7"]),
+              f"{loss_py}:602", c128["K7"] + c256["K7"] + csas["K7"],
+              tiled_256["K7"]),
+        # K1'' causal (SASRec): launches from its train() run
+        entry("fused_encoder_layer_causal", layer_src,
+              "bert4rec_tpu/ops/fused_encoder_layer.py:241",
+              csas["causal_fwd"], causal_row["fwd"]),
+        entry("fused_encoder_layer_causal_backward", layer_src,
+              "bert4rec_tpu/ops/fused_encoder_layer.py:265",
+              csas["causal_bwd"], causal_row["bwd"]),
     ]}
     print(f"card: {card}", flush=True)
     print(json.dumps(record), flush=True)

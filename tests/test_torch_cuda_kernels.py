@@ -188,6 +188,84 @@ def test_fused_layer_backward_is_deterministic(cuda_device):
         assert torch.equal(a, c)
 
 
+def causal_mask_np(rng, b, s):
+    """Row 0 unpadded, row 1 of length 1, row 2 all padding, row 3 padded
+    at the front (its first key is padding, so no key tile is skipped while
+    later real keys exist), the rest random right-padded lengths."""
+    lengths = rng.integers(1, s + 1, size=b)
+    lengths[:3] = [s, 1, 0][:min(3, b)]
+    mask = (np.arange(s)[None, :] < lengths[:, None]).astype(np.int32)
+    if b > 3:
+        mask[3] = (np.arange(s) >= s // 3).astype(np.int32)
+    return mask
+
+
+# S = 200 (the main path: 4 key tiles, the last ragged), 130 and 65 (one
+# and two keys past a tile boundary), 64 (exactly one tile)
+CAUSAL_DIMS = [(5, 200, 128, 4, 512), (4, 130, 32, 4, 64),
+               (4, 65, 96, 4, 200), (4, 64, 64, 2, 128)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dims", CAUSAL_DIMS,
+                         ids=lambda d: "B{}_S{}_H{}_N{}_F{}".format(*d))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("rates", [(0.0, 0.0), (0.1, 0.1)],
+                         ids=["rate0", "dropout"])
+def test_causal_layer_kernels_match_plain(cuda_device, dims, dtype, rates):
+    """K1'' causal and its backward against the plain versions, with an
+    all-pad row, a row of length 1 and a front-padded row, at sequence
+    lengths on and off the 64-key tile; the causal launches are counted
+    apart from the bidirectional ones; the backward repeats its bits."""
+    b, s, h, n, f = dims
+    rng = np.random.default_rng(sum(dims) + 11)
+    p = params_from_numpy(flatten(layer_params_np(rng, h, n, f)),
+                          cuda_device)
+    for leaf in flatten(p).values():
+        leaf.requires_grad_(True)
+    x = rng.normal(size=(b, s, h)).astype(np.float32)
+    mt = torch.from_numpy(causal_mask_np(rng, b, s)).to(cuda_device)
+    xt = torch.from_numpy(x).to(cuda_device, dtype).requires_grad_(True)
+    dy = torch.from_numpy(rng.normal(size=(b, s, h)).astype(np.float32)) \
+        .to(cuda_device, dtype)
+    kw = dict(num_heads=n, attention_dropout=rates[0],
+              output_dropout=rates[1], seed=777, causal=True)
+    f_ = fel.fused_encoder_layer
+    before = (f_.launches, f_.backward_launches, f_.causal_launches,
+              f_.causal_backward_launches)
+    y = fel.fused_encoder_layer(p, xt, mt, **kw)
+    y.backward(dy)
+    torch.cuda.synchronize()
+    assert (f_.launches, f_.backward_launches, f_.causal_launches,
+            f_.causal_backward_launches) == (before[0], before[1],
+                                             before[2] + 1, before[3] + 1)
+    with torch.no_grad():
+        ref_y = fel.fused_encoder_layer_plain(p, xt, mt, **kw)
+        flat = {k: v.detach() for k, v in fel.flat_weights(p).items()}
+        ref_dx, ref_g = fel.fused_encoder_layer_plain_backward(
+            flat, xt.detach(), mt, dy, **kw)
+    tol = 1e-4 if dtype == torch.float32 else 8e-2
+    np.testing.assert_allclose(y.detach().float().cpu().numpy(),
+                               ref_y.float().cpu().numpy(), rtol=0, atol=tol)
+    assert _rel_err(xt.grad, ref_dx) <= GRAD_TOL[dtype]
+    got = {k: v.grad for k, v in flatten(p).items()}
+    for k, path in zip(fel._W_ORDER, [
+            "attention/qkv/kernel", "attention/qkv/bias",
+            "attention/output/kernel", "attention/output/bias",
+            "attention_norm/scale", "attention_norm/bias",
+            "intermediate/kernel", "intermediate/bias", "output/kernel",
+            "output/bias", "output_norm/scale", "output_norm/bias"]):
+        g = got[path].reshape(ref_g[k].shape)
+        assert _rel_err(g, ref_g[k]) <= GRAD_TOL[dtype], path
+    y2, saved = fel._launch_forward(flat, xt.detach(), mt, n, 777, *rates,
+                                    True, causal=True)
+    runs = [fel._launch_backward(flat, xt.detach(), mt, dy, saved, n, 777,
+                                 *rates, causal=True) for _ in range(2)]
+    assert torch.equal(y2, y.detach()) and torch.equal(runs[0][0],
+                                                       runs[1][0])
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("rate", [0.2, 0.5])
 def test_kernel_dropout_masks_equal_plain_masks(cuda_device, rate):

@@ -92,12 +92,12 @@ class TestWrapperRaises:
         dict(output_dropout=0.5),
     ], ids=["causal", "rel_bias", "attention_dropout", "output_dropout"])
     def test_unported_variants_raise(self, kwargs):
-        """The causal and rel_bias variants are not ported and raise; the
-        dropout variants are ported: they run, apply their masks (the
-        output moves off the rate-0 output) and repeat under one seed."""
+        """The rel_bias variant is not ported and raises; the dropout and
+        causal variants are ported: they run, move the output off the
+        bidirectional rate-0 output and repeat under one seed."""
         _, torch_p, x, mask = both(0)
         xt, mt = torch.from_numpy(x), torch.from_numpy(mask)
-        if "causal" in kwargs or "rel_bias" in kwargs:
+        if "rel_bias" in kwargs:
             with pytest.raises(NotImplementedError):
                 fel.fused_encoder_layer(torch_p, xt, mt, num_heads=N,
                                         **kwargs)
@@ -268,7 +268,8 @@ class TestDropout:
         ops = [flat[k].clone().requires_grad_(True) for k in fel._W_ORDER]
 
         def fn(xx, *w):
-            return fel._FusedLayer.apply(xx, mt, 5, n, 0.2, 0.5, True, *w)
+            return fel._FusedLayer.apply(xx, mt, 5, n, 0.2, 0.5, True,
+                                         False, *w)
 
         assert torch.autograd.gradcheck(fn, (xt, *ops), eps=1e-6,
                                         atol=1e-5, rtol=1e-4)

@@ -214,14 +214,21 @@ class TestModelParity:
                           num_attention_heads=12, inner_dim=3072)
 
     def test_unported_paths_raise(self):
+        """Flash attention is not ported and raises; causal attention is
+        (the SASRec slice): it runs and moves the outputs."""
         feats = {k: torch.from_numpy(v) for k, v in features(0).items()}
-        for over in (dict(causal_attention=True),
-                     dict(use_flash_attention=True)):
-            model = BERT4RecModel(config=BERT4RecConfig(
-                **model_kwargs(**over)))
-            params = model.init(torch.Generator().manual_seed(0), "cpu")
-            with pytest.raises(NotImplementedError):
-                model.apply(params, feats)
+        model = BERT4RecModel(config=BERT4RecConfig(
+            **model_kwargs(use_flash_attention=True)))
+        params = model.init(torch.Generator().manual_seed(0), "cpu")
+        with pytest.raises(NotImplementedError):
+            model.apply(params, feats)
+        causal = BERT4RecModel(config=BERT4RecConfig(
+            **model_kwargs(causal_attention=True)))
+        out = causal.apply(params, feats)["mlm_logits"]
+        base = BERT4RecModel(config=BERT4RecConfig(**model_kwargs())) \
+            .apply(params, feats)["mlm_logits"]
+        assert torch.isfinite(out).all()
+        assert float((out - base).abs().max()) > 1e-3
 
     def test_init_structure_matches_jax(self):
         kw = model_kwargs(embedding_width=16)

@@ -220,14 +220,21 @@ def test_shard_for_process_defaults_without_a_process_group(monkeypatch,
 
 
 def test_next_item_task_waits_for_the_sasrec_slice():
+    """The ``next_item`` task came with the SASRec slice: it runs (the
+    final item leaves the input, each position predicts its successor);
+    its parity with the JAX package is in tests/test_torch_sasrec.py."""
     from bert4rec_tpu_torch.dataloaders.processed_dataset import (
         MaskingConfig, ProcessedDataset,
     )
     cfg = MaskingConfig(max_seq_len=4, max_predictions_per_seq=2,
                         mask_token_id=1, pad_token_id=0, unk_token_id=2)
-    with pytest.raises(NotImplementedError, match="SASRec"):
-        ProcessedDataset([np.arange(3, 6)], cfg, lambda: 10,
-                         task="next_item")
+    f = ProcessedDataset([np.arange(3, 6)], cfg, lambda: 10,
+                         task="next_item").materialize(0)
+    np.testing.assert_array_equal(f["input_word_ids"][0], [3, 4, 0, 0])
+    np.testing.assert_array_equal(f["input_mask"][0], [1, 1, 0, 0])
+    np.testing.assert_array_equal(f["masked_lm_ids"][0], [4, 5])
+    with pytest.raises(ValueError, match="Unknown task"):
+        ProcessedDataset([np.arange(3, 6)], cfg, lambda: 10, task="nope")
 
 
 # --------------------------------------------------------------------------- #
