@@ -30,7 +30,10 @@
 //                            row's max and sum, the second forms the
 //                            normalised probabilities, applies the dropout
 //                            scale and rounds them to T as the TPU kernel
-//                            does, and accumulates p v
+//                            does, and accumulates p v (attention.cuh: the
+//                            port's one attention implementation, shared
+//                            with flash attention's K8/K9; here q, k and v
+//                            are column blocks of the packed qkv)
 //   gemm_residual_ln_kernel  Wo and W2: a block owns whole rows, so bias,
 //                            output dropout, residual and LayerNorm run in
 //                            the epilogue
@@ -44,7 +47,7 @@
 // deterministic reductions: LN2 backward (a row kernel), the FFN (a dual
 // GEMM that recomputes x1 W1 + b1 and applies the gelu derivative), LN1
 // backward in the epilogue of the dx1 GEMM, the output projection, two
-// attention kernels (dq per query tile with the row sum
+// attention kernels of attention.cuh (dq per query tile with the row sum
 // sum_j dp_ij p_ij computed as JAX does, not flash attention's dO.O; dk/dv
 // per key tile), and dx. The weight gradients reduce over all B*S rows:
 // the TPU grid accumulates them sequentially; here every block writes a
@@ -71,15 +74,14 @@
 // ops/fused_encoder_layer.py), launching on the caller's stream; each
 // returns the first non-zero cudaGetLastError() code.
 
+#include "attention.cuh"
 #include "common.cuh"
 
 namespace {
 
 using namespace b4r;
 
-constexpr float kNegMask = -1e9f;
 constexpr float kLnEps = 1e-12f;
-constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kGeluC = 0.7978845608028654f;  // sqrt(2 / pi)
 
 __device__ __forceinline__ float gelu_tanh(float x) {
@@ -312,240 +314,6 @@ gemm_residual_ln_kernel(const T* __restrict__ A, const T* __restrict__ W,
   }
 }
 
-// --------------------------------------------------------------------------
-// Attention over qkv [B*S, 3H] (q | k | v, head-major columns inside each).
-// Blocks are (tile of 64 rows, head, sequence), 256 threads: thread (ty, tx)
-// owns tile rows ty + 16 i and, for scores, key columns tx + 16 j; for head
-// outputs, head columns tx + 16 j with j < DJ (D <= 16 DJ). The 16 threads
-// of a row are one half-warp, so row reductions are shuffles.
-// --------------------------------------------------------------------------
-constexpr int AT_BQ = 64, AT_BKV = 64, AT_MAXD = 128;
-static_assert(AT_BQ == AT_BKV, "load_head_tile loads query and key tiles alike");
-
-template <typename T>
-__device__ __forceinline__ void load_head_tile(float* dst, const T* __restrict__ src,
-                                               size_t seq_row0, int t0, int S,
-                                               int col0, int D, int ld) {
-  for (int l = threadIdx.x; l < AT_BKV * D; l += 256) {
-    const int r = l / D, d = l % D;
-    const int t = t0 + r;
-    dst[r * (D + 1) + d] =
-        (t < S) ? to_f(src[(seq_row0 + t) * (size_t)ld + col0 + d]) : 0.f;
-  }
-}
-
-// the key tile's additive mask bias: -inf marks a key past the sequence
-__device__ __forceinline__ void load_mask_bias(float* mb, const int32_t* __restrict__ mask,
-                                               size_t seq_row0, int t0, int S) {
-  for (int c = threadIdx.x; c < AT_BKV; c += 256) {
-    const int t = t0 + c;
-    mb[c] = (t < S) ? (mask[seq_row0 + t] > 0 ? 0.f : kNegMask) : -INFINITY;
-  }
-}
-
-// scaled, masked scores of this thread's 4 x 4 (query, key) pairs of the
-// query tile at q0 and the key tile at t0 (kMma: on the tensor cores,
-// through the [64][65] scratch tile `scr`). With `causal` a key after its
-// query adds a second -1e9 to the pad bias, as the TPU kernel's
-// pad_bias + causal_bias: a padded key above the diagonal scores -2e9, one
-// on or below it -1e9, so a row that sees only padding is uniform over
-// its keys j <= i, as in the TPU kernel.
-template <bool kMma>
-__device__ __forceinline__ void tile_scores(float s[4][4], const float* Qs,
-                                            const float* Ks, const float* mb,
-                                            int tx, int ty, int D, float scale,
-                                            float* scr, int q0, int t0, int causal) {
-  tile_dots<kMma>(s, Qs, Ks, tx, ty, D, scr);
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const float b = mb[tx + 16 * j];
-    const int key = t0 + tx + 16 * j;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float bias = (causal && key > q0 + ty + 16 * i) ? b + kNegMask : b;
-      s[i][j] = (b == -INFINITY) ? -INFINITY : s[i][j] * scale + bias;
-    }
-  }
-}
-
-// Whether a causal block may skip the key tiles wholly after its query
-// tile. When the sequence's first key is real, every row sees it with a
-// score of O(1), so a key after the row (-1e9 or -2e9) adds exp(-1e9) = 0
-// to the row: the skip is exact. When the first key is padding, a row may
-// see only padding (all scores ~ -1e9, as a later real key's); then no
-// tile is skipped and the biases alone give the TPU kernel's rows.
-__device__ __forceinline__ int causal_skip(const int32_t* __restrict__ mask,
-                                           size_t seq_row0, int causal) {
-  return causal && mask[seq_row0] > 0;
-}
-
-// One past the last key tile a query tile at q0 reads (AT_BQ == AT_BKV
-// keeps the tiles aligned: the diagonal tile is the last).
-__device__ __forceinline__ int key_tiles_end(int q0, int S, int skip) {
-  return skip ? min(S, q0 + AT_BQ) : S;
-}
-
-template <typename T, int DJ>
-__global__ void __launch_bounds__(256)
-attention_kernel(const T* __restrict__ qkv, const int32_t* __restrict__ mask,
-                 T* __restrict__ ctx, float* __restrict__ stat_m,
-                 float* __restrict__ stat_l, Drop drop, int S, int H, int N, int D,
-                 float scale, int causal) {
-  extern __shared__ float smem[];
-  float* Qs = smem;                          // [AT_BQ][D + 1]
-  float* Ks = Qs + AT_BQ * (D + 1);          // [AT_BKV][D + 1]
-  float* Vs = Ks + AT_BKV * (D + 1);         // [AT_BKV][D + 1]
-  float* Ps = Vs + AT_BKV * (D + 1);         // [AT_BQ][AT_BKV + 1]
-  float* mb = Ps + AT_BQ * (AT_BKV + 1);     // [AT_BKV]
-
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int q0 = blockIdx.x * AT_BQ, head = blockIdx.y, b = blockIdx.z;
-  const size_t seq_row0 = (size_t)b * S;
-  const int ld = 3 * H;
-  const int qcol = head * D, kcol = H + head * D, vcol = 2 * H + head * D;
-  constexpr bool kMma = kIsBf16<T>;
-  const uint32_t hk = site_key(drop, b, head);  // this block's site
-  const int t_end = key_tiles_end(q0, S, causal_skip(mask, seq_row0, causal));
-
-  load_head_tile(Qs, qkv, seq_row0, q0, S, qcol, D, ld);
-
-  // pass 1: running row max m and sum l of exp(s - m)
-  float m[4], l[4], s[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) { m[i] = -INFINITY; l[i] = 0.f; }
-  for (int t0 = 0; t0 < t_end; t0 += AT_BKV) {
-    load_head_tile(Ks, qkv, seq_row0, t0, S, kcol, D, ld);
-    load_mask_bias(mb, mask, seq_row0, t0, S);
-    __syncthreads();
-    tile_scores<kMma>(s, Qs, Ks, mb, tx, ty, D, scale, Ps, q0, t0, causal);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float tmax = fmaxf(fmaxf(s[i][0], s[i][1]), fmaxf(s[i][2], s[i][3]));
-      const float m_new = fmaxf(m[i], half_warp_max(tmax));
-      float tsum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) tsum += exp2f((s[i][j] - m_new) * kLog2e);
-      l[i] = l[i] * exp2f((m[i] - m_new) * kLog2e) + half_warp_sum(tsum);
-      m[i] = m_new;
-    }
-    __syncthreads();
-  }
-  float inv_l[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    inv_l[i] = 1.0f / l[i];
-    const int r = q0 + ty + 16 * i;
-    if (stat_m && tx == 0 && r < S) {
-      const size_t at = ((size_t)b * N + head) * S + r;
-      stat_m[at] = m[i];
-      stat_l[at] = l[i];
-    }
-  }
-
-  // pass 2: p = T(exp(s - m) / l * keep), ctx += p v
-  float o[4][DJ], co[DJ][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) o[i][j] = co[j][i] = 0.f;
-  for (int t0 = 0; t0 < t_end; t0 += AT_BKV) {
-    load_head_tile(Ks, qkv, seq_row0, t0, S, kcol, D, ld);
-    load_head_tile(Vs, qkv, seq_row0, t0, S, vcol, D, ld);
-    load_mask_bias(mb, mask, seq_row0, t0, S);
-    __syncthreads();
-    tile_scores<kMma>(s, Qs, Ks, mb, tx, ty, D, scale, Ps, q0, t0, causal);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        float p = exp2f((s[i][j] - m[i]) * kLog2e) * inv_l[i];
-        if (drop.on)
-          p *= keep_scale_k(drop, hk,
-                          (uint32_t)((q0 + ty + 16 * i) * S + t0 + tx + 16 * j));
-        Ps[(ty + 16 * i) * (AT_BKV + 1) + tx + 16 * j] = round_to<T>(p);
-      }
-    __syncthreads();
-    if constexpr (kMma) {
-      // keys past the sequence have p = 0 and zero v rows: a full tile
-      mma_acc_64xD<DJ>(co, Ps, AT_BKV + 1, 1, Vs, D + 1, 1, D);
-    } else {
-      const int kv_len = min(AT_BKV, S - t0);
-      for (int c = 0; c < kv_len; ++c) {
-        float p[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) p[i] = Ps[(ty + 16 * i) * (AT_BKV + 1) + c];
-#pragma unroll
-        for (int j = 0; j < DJ; ++j) {
-          const int d = tx + 16 * j;
-          if (d < D) {
-            const float v = Vs[c * (D + 1) + d];
-#pragma unroll
-            for (int i = 0; i < 4; ++i) o[i][j] = fmaf(p[i], v, o[i][j]);
-          }
-        }
-      }
-    }
-    __syncthreads();
-  }
-  if constexpr (kMma) {  // fragments -> the (ty, tx) layout, through Qs
-    spill_64xD<DJ>(Qs, D + 1, co, D);
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < DJ; ++j) {
-        const int d = tx + 16 * j;
-        if (d < D) o[i][j] = Qs[(ty + 16 * i) * (D + 1) + d];
-      }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = q0 + ty + 16 * i;
-    if (r >= S) continue;
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) {
-      const int d = tx + 16 * j;
-      if (d < D) ctx[(seq_row0 + r) * (size_t)H + head * D + d] = from_f<T>(o[i][j]);
-    }
-  }
-}
-
-size_t attention_smem_bytes(int D) {
-  return sizeof(float) *
-         (size_t)(AT_BQ * (D + 1) + 2 * AT_BKV * (D + 1) + AT_BQ * (AT_BKV + 1) + AT_BKV);
-}
-
-template <typename T, int DJ>
-cudaError_t launch_attention(const T* qkv, const int32_t* mask, T* ctx, float* stat_m,
-                             float* stat_l, Drop drop, int B, int S, int H, int N,
-                             int D, float scale, int causal, cudaStream_t stream) {
-  const size_t smem = attention_smem_bytes(D);
-  cudaError_t err = cudaFuncSetAttribute(
-      attention_kernel<T, DJ>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  attention_kernel<T, DJ><<<dim3(ceil_div(S, AT_BQ), N, B), 256, smem, stream>>>(
-      qkv, mask, ctx, stat_m, stat_l, drop, S, H, N, D, scale, causal);
-  return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t attention(const T* qkv, const int32_t* mask, T* ctx, float* stat_m,
-                      float* stat_l, Drop drop, int B, int S, int H, int N, int D,
-                      float scale, int causal, cudaStream_t stream) {
-#define B4R_AT(DJV) \
-  launch_attention<T, DJV>(qkv, mask, ctx, stat_m, stat_l, drop, B, S, H, N, D, scale, \
-                           causal, stream)
-  switch (pow2_at_least(ceil_div(D, 16))) {
-    case 1: return B4R_AT(1);
-    case 2: return B4R_AT(2);
-    case 4: return B4R_AT(4);
-    case 8: return B4R_AT(8);
-    default: return cudaErrorInvalidValue;
-  }
-#undef B4R_AT
-}
-
 template <typename T, int TN>
 cudaError_t launch_gemm_ln(const T* A, const T* W, const float* bias, const T* R,
                            const float* gamma, const float* beta, T* Y, float* xhat,
@@ -578,6 +346,12 @@ cudaError_t gemm_ln(const T* A, const T* W, const float* bias, const T* R,
 #undef B4R_LN
 }
 
+// head view of one section (0 q, 1 k, 2 v) of the packed [B*S, 3H] qkv
+template <typename P>
+Heads<P> packed(P* qkv, int S, int H, int D, int section) {
+  return {qkv + (size_t)section * H, (long long)S * 3 * H, D, 3 * H};
+}
+
 // forward pointer order (ops/fused_encoder_layer.py _FWD_PTRS)
 enum FwdPtr {
   F_X, F_MASK, F_WQKV, F_BQKV, F_WO, F_BO, F_G1, F_B1LN, F_W1, F_BF1, F_W2, F_BF2,
@@ -605,8 +379,11 @@ int layer_forward(void* const* p, int B, int S, int H, int N, int F, int causal,
     return (int)err;
   // 2. ctx = T(T(softmax(q k^T * scale + mask bias [+ causal bias]) * keep) v),
   //    per head
-  if ((err = attention<T>(qkv, mask, ctx, f32(F_STAT_M), f32(F_STAT_L), attn_drop, B, S,
-                          H, N, D, scale, causal, stream)) != cudaSuccess)
+  const T* cqkv = qkv;
+  if ((err = attention<T>(packed(cqkv, S, H, D, 0), packed(cqkv, S, H, D, 1),
+                          packed(cqkv, S, H, D, 2), mask, Heads<T>{ctx, (long long)S * H, D, H},
+                          f32(F_STAT_M), f32(F_STAT_L), attn_drop, B, S, N, D, scale,
+                          causal, stream)) != cudaSuccess)
     return (int)err;
   // 3. x1 = T(LN1(x + (ctx Wo + bo) * keep_N))
   if ((err = gemm_ln<T>(ctx, wt(F_WO), f32(F_BO), x, f32(F_G1), f32(F_B1LN), x1,
@@ -904,372 +681,6 @@ cudaError_t wgrad(const T* A, const T* B, float* scratch, float* dW, int M, int 
   return reduce_rows(scratch, dW, splits, K1 * N, stream);
 }
 
-// Attention backward, per head (as _bwd_element):
-//   p   = softmax(s) recomputed from q, k and the saved row max / sum
-//   dd  = dctx v^T, dp = dd * keep, delta = sum_j dp_ij p_ij
-//   ds  = T(p (dp - delta))
-//   dq  = ds k * scale,  dk = ds^T q * scale,  dv = T(p * keep)^T dctx
-// attn_bwd_dq_kernel: one block per (query tile, head, sequence); writes dq,
-// delta and the dq columns' partial sums.
-template <typename T, int DJ>
-__global__ void __launch_bounds__(256)
-attn_bwd_dq_kernel(const T* __restrict__ qkv, const T* __restrict__ dctx,
-                   const int32_t* __restrict__ mask, const float* __restrict__ stat_m,
-                   const float* __restrict__ stat_l, Drop drop,
-                   float* __restrict__ delta_out, T* __restrict__ dqkv,
-                   float* __restrict__ part, int S, int H, int N, int D, float scale,
-                   int causal) {
-  extern __shared__ float smem[];
-  float* Qs = smem;                          // [64][D + 1]
-  float* Cs = Qs + AT_BQ * (D + 1);          // dctx rows of the query tile
-  float* Ks = Cs + AT_BQ * (D + 1);
-  float* Vs = Ks + AT_BKV * (D + 1);
-  float* Ps = Vs + AT_BKV * (D + 1);         // [64][65] ds
-  float* mb = Ps + AT_BQ * (AT_BKV + 1);     // [64]
-
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int qt = blockIdx.x, q0 = qt * AT_BQ, head = blockIdx.y, b = blockIdx.z;
-  const size_t seq_row0 = (size_t)b * S;
-  const int ld = 3 * H;
-  constexpr bool kMma = kIsBf16<T>;
-  const uint32_t hk = site_key(drop, b, head);  // this block's site
-  const int qcol = head * D, kcol = H + head * D, vcol = 2 * H + head * D;
-  const size_t stat0 = ((size_t)b * N + head) * S;
-  const int t_end = key_tiles_end(q0, S, causal_skip(mask, seq_row0, causal));
-
-  load_head_tile(Qs, qkv, seq_row0, q0, S, qcol, D, ld);
-  load_head_tile(Cs, dctx, seq_row0, q0, S, head * D, D, H);
-  float m[4], inv_l[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = q0 + ty + 16 * i;
-    m[i] = r < S ? stat_m[stat0 + r] : 0.f;
-    inv_l[i] = r < S ? 1.0f / stat_l[stat0 + r] : 0.f;
-  }
-
-  float s[4][4], dd[4][4];
-  // pass A: delta_i = sum_j dp_ij p_ij
-  float dl[4] = {0.f, 0.f, 0.f, 0.f};
-  for (int t0 = 0; t0 < t_end; t0 += AT_BKV) {
-    load_head_tile(Ks, qkv, seq_row0, t0, S, kcol, D, ld);
-    load_head_tile(Vs, qkv, seq_row0, t0, S, vcol, D, ld);
-    load_mask_bias(mb, mask, seq_row0, t0, S);
-    __syncthreads();
-    tile_scores<kMma>(s, Qs, Ks, mb, tx, ty, D, scale, Ps, q0, t0, causal);
-    tile_dots<kMma>(dd, Cs, Vs, tx, ty, D, Ps);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = exp2f((s[i][j] - m[i]) * kLog2e) * inv_l[i];
-        float dp = dd[i][j];
-        if (drop.on)
-          dp *= keep_scale_k(drop, hk,
-                           (uint32_t)((q0 + ty + 16 * i) * S + t0 + tx + 16 * j));
-        dl[i] += dp * p;
-      }
-    __syncthreads();
-  }
-  float delta[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    delta[i] = half_warp_sum(dl[i]);
-    const int r = q0 + ty + 16 * i;
-    if (tx == 0 && r < S) delta_out[stat0 + r] = delta[i];
-  }
-
-  // pass B: dq = T(ds) k
-  float o[4][DJ], co[DJ][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) o[i][j] = co[j][i] = 0.f;
-  for (int t0 = 0; t0 < t_end; t0 += AT_BKV) {
-    load_head_tile(Ks, qkv, seq_row0, t0, S, kcol, D, ld);
-    load_head_tile(Vs, qkv, seq_row0, t0, S, vcol, D, ld);
-    load_mask_bias(mb, mask, seq_row0, t0, S);
-    __syncthreads();
-    tile_scores<kMma>(s, Qs, Ks, mb, tx, ty, D, scale, Ps, q0, t0, causal);
-    tile_dots<kMma>(dd, Cs, Vs, tx, ty, D, Ps);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = exp2f((s[i][j] - m[i]) * kLog2e) * inv_l[i];
-        float dp = dd[i][j];
-        if (drop.on)
-          dp *= keep_scale_k(drop, hk,
-                           (uint32_t)((q0 + ty + 16 * i) * S + t0 + tx + 16 * j));
-        Ps[(ty + 16 * i) * (AT_BKV + 1) + tx + 16 * j] = round_to<T>(p * (dp - delta[i]));
-      }
-    __syncthreads();
-    if constexpr (kMma) {
-      mma_acc_64xD<DJ>(co, Ps, AT_BKV + 1, 1, Ks, D + 1, 1, D);
-    } else {
-      const int kv_len = min(AT_BKV, S - t0);
-      for (int c = 0; c < kv_len; ++c) {
-        float pv[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) pv[i] = Ps[(ty + 16 * i) * (AT_BKV + 1) + c];
-#pragma unroll
-        for (int j = 0; j < DJ; ++j) {
-          const int d = tx + 16 * j;
-          if (d < D) {
-            const float kv = Ks[c * (D + 1) + d];
-#pragma unroll
-            for (int i = 0; i < 4; ++i) o[i][j] = fmaf(pv[i], kv, o[i][j]);
-          }
-        }
-      }
-    }
-    __syncthreads();
-  }
-  if constexpr (kMma) {  // fragments -> the (ty, tx) layout, through Qs
-    spill_64xD<DJ>(Qs, D + 1, co, D);
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < DJ; ++j) {
-        const int d = tx + 16 * j;
-        if (d < D) o[i][j] = Qs[(ty + 16 * i) * (D + 1) + d];
-      }
-  }
-
-  float colsum[DJ];
-#pragma unroll
-  for (int j = 0; j < DJ; ++j) colsum[j] = 0.f;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = q0 + ty + 16 * i;
-    if (r >= S) continue;
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) {
-      const int d = tx + 16 * j;
-      if (d < D) {
-        const float v = o[i][j] * scale;
-        dqkv[(seq_row0 + r) * (size_t)ld + qcol + d] = from_f<T>(v);
-        colsum[j] += v;
-      }
-    }
-  }
-  float* red = Ps;  // [16][D], free after the last barrier
-#pragma unroll
-  for (int j = 0; j < DJ; ++j) {
-    const int d = tx + 16 * j;
-    if (d < D) red[ty * D + d] = colsum[j];
-  }
-  __syncthreads();
-  if (tid < D) {
-    float acc = 0.f;
-    for (int t = 0; t < 16; ++t) acc += red[t * D + tid];
-    part[((size_t)b * gridDim.x + qt) * ld + qcol + tid] = acc;
-  }
-}
-
-// attn_bwd_dkv_kernel: one block per (key tile, head, sequence); loops over
-// the query tiles; writes dk, dv and their columns' partial sums.
-template <typename T, int DJ>
-__global__ void __launch_bounds__(256)
-attn_bwd_dkv_kernel(const T* __restrict__ qkv, const T* __restrict__ dctx,
-                    const int32_t* __restrict__ mask, const float* __restrict__ stat_m,
-                    const float* __restrict__ stat_l, const float* __restrict__ delta,
-                    Drop drop, T* __restrict__ dqkv, float* __restrict__ part, int S,
-                    int H, int N, int D, float scale, int causal) {
-  extern __shared__ float smem[];
-  float* Ks = smem;                          // [64][D + 1] key tile
-  float* Vs = Ks + AT_BKV * (D + 1);
-  float* Qs = Vs + AT_BKV * (D + 1);         // query tile
-  float* Cs = Qs + AT_BQ * (D + 1);          // dctx rows of the query tile
-  float* Ss = Cs + AT_BQ * (D + 1);          // [64 q][65] T(ds)
-  float* Ws = Ss + AT_BQ * (AT_BKV + 1);     // [64 q][65] T(p * keep)
-  float* mb = Ws + AT_BQ * (AT_BKV + 1);     // [64]
-  float* rm = mb + AT_BKV;                   // query-row max, 1/sum, delta
-  float* rl = rm + AT_BQ;
-  float* rd = rl + AT_BQ;
-
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int kt = blockIdx.x, k0 = kt * AT_BKV, head = blockIdx.y, b = blockIdx.z;
-  const size_t seq_row0 = (size_t)b * S;
-  const int ld = 3 * H;
-  constexpr bool kMma = kIsBf16<T>;
-  const uint32_t hk = site_key(drop, b, head);  // this block's site
-  const int qcol = head * D, kcol = H + head * D, vcol = 2 * H + head * D;
-  const size_t stat0 = ((size_t)b * N + head) * S;
-
-  load_head_tile(Ks, qkv, seq_row0, k0, S, kcol, D, ld);
-  load_head_tile(Vs, qkv, seq_row0, k0, S, vcol, D, ld);
-  load_mask_bias(mb, mask, seq_row0, k0, S);
-
-  float ok[4][DJ], ov[4][DJ], ck[DJ][4], cv[DJ][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) ok[i][j] = ov[i][j] = ck[j][i] = cv[j][i] = 0.f;
-  float s[4][4], dd[4][4];
-  // the query tiles wholly before this key tile see none of it (the
-  // mirror of key_tiles_end): their p and ds are 0 here
-  const int q_begin = causal_skip(mask, seq_row0, causal) ? k0 : 0;
-  for (int q0 = q_begin; q0 < S; q0 += AT_BQ) {
-    load_head_tile(Qs, qkv, seq_row0, q0, S, qcol, D, ld);
-    load_head_tile(Cs, dctx, seq_row0, q0, S, head * D, D, H);
-    for (int r = tid; r < AT_BQ; r += 256) {
-      const int t = q0 + r;
-      rm[r] = t < S ? stat_m[stat0 + t] : 0.f;
-      rl[r] = t < S ? 1.0f / stat_l[stat0 + t] : 0.f;
-      rd[r] = t < S ? delta[stat0 + t] : 0.f;
-    }
-    __syncthreads();
-    tile_scores<kMma>(s, Qs, Ks, mb, tx, ty, D, scale, Ss, q0, k0, causal);
-    tile_dots<kMma>(dd, Cs, Vs, tx, ty, D, Ss);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qr = ty + 16 * i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kc = tx + 16 * j;
-        const float p = exp2f((s[i][j] - rm[qr]) * kLog2e) * rl[qr];
-        float keep = 1.f;
-        if (drop.on)
-          keep = keep_scale_k(drop, hk, (uint32_t)((q0 + qr) * S + k0 + kc));
-        const float dp = drop.on ? dd[i][j] * keep : dd[i][j];
-        Ss[qr * (AT_BKV + 1) + kc] = round_to<T>(p * (dp - rd[qr]));
-        Ws[qr * (AT_BKV + 1) + kc] = round_to<T>(drop.on ? p * keep : p);
-      }
-    }
-    __syncthreads();
-    if constexpr (kMma) {
-      // rows are keys, the contraction runs over the query tile (query
-      // rows past the sequence have ds = p = 0 and zero q, dctx rows)
-      mma_acc_64xD<DJ>(ck, Ss, 1, AT_BKV + 1, Qs, D + 1, 1, D);
-      mma_acc_64xD<DJ>(cv, Ws, 1, AT_BKV + 1, Cs, D + 1, 1, D);
-    } else {
-      const int q_len = min(AT_BQ, S - q0);
-      for (int qr = 0; qr < q_len; ++qr) {
-        float sv[4], wv[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          sv[i] = Ss[qr * (AT_BKV + 1) + ty + 16 * i];
-          wv[i] = Ws[qr * (AT_BKV + 1) + ty + 16 * i];
-        }
-#pragma unroll
-        for (int j = 0; j < DJ; ++j) {
-          const int d = tx + 16 * j;
-          if (d < D) {
-            const float qv = Qs[qr * (D + 1) + d], cvv = Cs[qr * (D + 1) + d];
-#pragma unroll
-            for (int i = 0; i < 4; ++i) {
-              ok[i][j] = fmaf(sv[i], qv, ok[i][j]);
-              ov[i][j] = fmaf(wv[i], cvv, ov[i][j]);
-            }
-          }
-        }
-      }
-    }
-    __syncthreads();
-  }
-  if constexpr (kMma) {  // fragments -> the (ty, tx) layout, through Qs, Cs
-    spill_64xD<DJ>(Qs, D + 1, ck, D);
-    spill_64xD<DJ>(Cs, D + 1, cv, D);
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < DJ; ++j) {
-        const int d = tx + 16 * j;
-        if (d < D) {
-          ok[i][j] = Qs[(ty + 16 * i) * (D + 1) + d];
-          ov[i][j] = Cs[(ty + 16 * i) * (D + 1) + d];
-        }
-      }
-  }
-
-  float ksum[DJ], vsum[DJ];
-#pragma unroll
-  for (int j = 0; j < DJ; ++j) ksum[j] = vsum[j] = 0.f;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = k0 + ty + 16 * i;
-    if (r >= S) continue;
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) {
-      const int d = tx + 16 * j;
-      if (d < D) {
-        const float kvv = ok[i][j] * scale, vv = ov[i][j];
-        dqkv[(seq_row0 + r) * (size_t)ld + kcol + d] = from_f<T>(kvv);
-        dqkv[(seq_row0 + r) * (size_t)ld + vcol + d] = from_f<T>(vv);
-        ksum[j] += kvv;
-        vsum[j] += vv;
-      }
-    }
-  }
-  float* red = Ss;  // [16][2 D], free after the last barrier
-#pragma unroll
-  for (int j = 0; j < DJ; ++j) {
-    const int d = tx + 16 * j;
-    if (d < D) {
-      red[ty * 2 * D + d] = ksum[j];
-      red[ty * 2 * D + D + d] = vsum[j];
-    }
-  }
-  __syncthreads();
-  if (tid < 2 * D) {
-    float acc = 0.f;
-    for (int t = 0; t < 16; ++t) acc += red[t * 2 * D + tid];
-    const int col = tid < D ? kcol + tid : vcol + tid - D;
-    part[((size_t)b * gridDim.x + kt) * ld + col] = acc;
-  }
-}
-
-size_t attn_bwd_dq_smem_bytes(int D) {
-  return sizeof(float) * (size_t)(4 * AT_BQ * (D + 1) + AT_BQ * (AT_BKV + 1) + AT_BKV);
-}
-size_t attn_bwd_dkv_smem_bytes(int D) {
-  return sizeof(float) *
-         (size_t)(4 * AT_BQ * (D + 1) + 2 * AT_BQ * (AT_BKV + 1) + AT_BKV + 3 * AT_BQ);
-}
-
-template <typename T, int DJ>
-cudaError_t launch_attn_bwd(const T* qkv, const T* dctx, const int32_t* mask,
-                            const float* stat_m, const float* stat_l, Drop drop,
-                            float* delta, T* dqkv, float* part, int B, int S, int H,
-                            int N, int D, float scale, int causal, cudaStream_t stream) {
-  const dim3 grid(ceil_div(S, AT_BQ), N, B);
-  size_t smem = attn_bwd_dq_smem_bytes(D);
-  cudaError_t err = cudaFuncSetAttribute(attn_bwd_dq_kernel<T, DJ>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-  if (err != cudaSuccess) return err;
-  attn_bwd_dq_kernel<T, DJ><<<grid, 256, smem, stream>>>(
-      qkv, dctx, mask, stat_m, stat_l, drop, delta, dqkv, part, S, H, N, D, scale, causal);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  smem = attn_bwd_dkv_smem_bytes(D);
-  err = cudaFuncSetAttribute(attn_bwd_dkv_kernel<T, DJ>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  attn_bwd_dkv_kernel<T, DJ><<<grid, 256, smem, stream>>>(
-      qkv, dctx, mask, stat_m, stat_l, delta, drop, dqkv, part, S, H, N, D, scale, causal);
-  return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t attn_bwd(const T* qkv, const T* dctx, const int32_t* mask,
-                     const float* stat_m, const float* stat_l, Drop drop, float* delta,
-                     T* dqkv, float* part, int B, int S, int H, int N, int D,
-                     float scale, int causal, cudaStream_t stream) {
-#define B4R_AB(DJV)                                                                  \
-  launch_attn_bwd<T, DJV>(qkv, dctx, mask, stat_m, stat_l, drop, delta, dqkv, part, \
-                          B, S, H, N, D, scale, causal, stream)
-  switch (pow2_at_least(ceil_div(D, 16))) {
-    case 1: return B4R_AB(1);
-    case 2: return B4R_AB(2);
-    case 4: return B4R_AB(4);
-    case 8: return B4R_AB(8);
-    default: return cudaErrorInvalidValue;
-  }
-#undef B4R_AB
-}
-
 // backward pointer order (ops/fused_encoder_layer.py _BWD_PTRS)
 enum BwdPtr {
   B_X, B_MASK, B_DY, B_WQKV_T, B_WO_T, B_W1, B_W1_T, B_W2_T, B_BF1, B_G1, B_G2,
@@ -1346,9 +757,13 @@ int layer_backward(void* const* p, int B, int S, int H, int N, int F, int causal
   B4R_TRY((gemm<T, EPI_NONE>(w.dattn, wt(B_WO_T), nullptr, nullptr, w.dctx, M, H, H,
                              stream)));
   // 8. attention: dq, dk, dv -> dqkv; dbqkv
-  B4R_TRY(attn_bwd<T>(wt(B_QKV), w.dctx, mask, f32(B_STAT_M), f32(B_STAT_L), attn_drop,
-                      w.delta, w.dqkv, w.part_qkv, B, S, H, N, D, scale, causal,
-                      stream));
+  const T* qkv = wt(B_QKV);
+  B4R_TRY(attn_bwd<T>(packed(qkv, S, H, D, 0), packed(qkv, S, H, D, 1),
+                      packed(qkv, S, H, D, 2),
+                      Heads<const T>{w.dctx, (long long)S * H, D, H}, mask, f32(B_STAT_M),
+                      f32(B_STAT_L), attn_drop, w.delta, packed(w.dqkv, S, H, D, 0),
+                      packed(w.dqkv, S, H, D, 1), packed(w.dqkv, S, H, D, 2), w.part_qkv,
+                      B, S, N, D, scale, causal, stream));
   B4R_TRY(reduce_rows(w.part_qkv, f32(B_DBQKV), B * ceil_div(S, AT_BQ), 3 * H, stream));
   // 9. dWqkv = x^T dqkv
   B4R_TRY(wgrad<T>(wt(B_X), w.dqkv, w.wsplit, f32(B_DWQKV), M, H, 3 * H, stream));

@@ -1,4 +1,4 @@
-"""BERT4Rec model: encoder + tied-embedding MLM head + loss + top-k ranking
+"""BERT4Rec model: encoder + tied-embedding MLM head + loss + ranking
 (port of ``bert4rec_tpu/models/bert4rec_model.py``).
 
 The MLM head gathers the masked positions, applies dense + activation +
@@ -10,7 +10,8 @@ where ``config.use_fused_loss`` and the routing law allow it, else the
 logits path with ``trainers/trainer_utils.py``. For evaluation,
 ``score_candidates`` scores only each position's candidates and
 ``gt_ranks_full_vocab`` ranks the ground truth against the whole catalog
-(``ops/candidate_scoring.py``).
+(``ops/candidate_scoring.py``); ``rank_top_k``, ``rank_with_candidates``,
+``rank_full_vocab`` and ``rank_items`` rank as the JAX model does.
 """
 
 from typing import Optional, Sequence
@@ -19,6 +20,7 @@ import torch
 
 from bert4rec_tpu_torch.core.device import resolve_device
 from bert4rec_tpu_torch.core.dtypes import DTypePolicy
+from bert4rec_tpu_torch.models import model_utils
 from bert4rec_tpu_torch.models.components import layers as L
 from bert4rec_tpu_torch.models.components.networks import Bert4RecEncoder
 from bert4rec_tpu_torch.models.config import BERT4RecConfig
@@ -142,18 +144,64 @@ class BERT4RecModel:
         }
 
     def apply(self, params: dict, inputs: dict, *, training: bool = False,
-              seed: Optional[int] = None) -> dict:
+              seed: Optional[int] = None,
+              apply_prediction_mask: bool = False,
+              output_range: Optional[int] = None) -> dict:
         """Forward pass over the feature dict; ``mlm_logits`` is produced
         iff ``masked_lm_positions`` is present. Dropout runs only when
-        ``training`` with a ``seed``."""
+        ``training`` with a ``seed``. ``apply_prediction_mask`` adds -1e9
+        to the special tokens' logits (off by default, as in the
+        reference); ``output_range`` computes only the first positions of
+        the last encoder layer."""
         outputs = dict(self.encoder.apply(
             params["encoder"], inputs["input_word_ids"],
-            inputs["input_mask"], training=training, seed=seed))
+            inputs["input_mask"], training=training, seed=seed,
+            output_range=output_range))
         if "masked_lm_positions" in inputs:
-            outputs["mlm_logits"] = self.mlm_logits(
-                params, outputs["sequence_output"],
-                inputs["masked_lm_positions"])
+            logits = self.mlm_logits(params, outputs["sequence_output"],
+                                     inputs["masked_lm_positions"])
+            if apply_prediction_mask and self.special_token_ids:
+                # as wide as the logits (padded_vocab_size)
+                mask = torch.zeros((self.config.padded_vocab_size,),
+                                   dtype=torch.float32, device=logits.device)
+                mask[self.special_token_ids] = -1e9
+                logits = logits + mask
+            outputs["mlm_logits"] = logits
         return outputs
+
+    # ------------------------------------------------------------------ #
+    # ranking (JAX bert4rec_model.py:255-288, :385-394)
+    # ------------------------------------------------------------------ #
+
+    def rank_with_candidates(self, params: dict, inputs: dict,
+                             candidates: torch.Tensor, *,
+                             with_probabilities: bool = True) -> tuple:
+        """Rank per-position candidate lists ``candidates [B, P, C]``:
+        ``(rankings [B, P, C]`` ids best first, ``probabilities [B, P, V]``
+        softmax over the vocab, or None without ``with_probabilities``)."""
+        return model_utils.rank_items(
+            self.apply(params, inputs)["mlm_logits"], items=candidates,
+            with_probabilities=with_probabilities)
+
+    def rank_full_vocab(self, params: dict, inputs: dict, *,
+                        with_probabilities: bool = True) -> tuple:
+        """Rank the whole vocabulary per masked position: ``rankings
+        [B, P, V]`` best first, and the softmax probabilities (None without
+        ``with_probabilities``)."""
+        return model_utils.rank_items(
+            self.apply(params, inputs)["mlm_logits"],
+            with_probabilities=with_probabilities)
+
+    def rank_items(self, params: dict, encoder_input: dict,
+                   rank_items_list=None) -> tuple:
+        """The reference's signature: ``rank_items_list [B, P, C]`` ranks
+        those candidates, None the whole vocabulary."""
+        if rank_items_list is None:
+            return self.rank_full_vocab(params, encoder_input)
+        return self.rank_with_candidates(
+            params, encoder_input,
+            torch.as_tensor(rank_items_list,
+                            device=encoder_input["input_word_ids"].device))
 
     def rank_top_k(self, params: dict, inputs: dict, k: int, *,
                    exclude: Optional[torch.Tensor] = None,

@@ -34,6 +34,9 @@ class BERT4RecModelWrapper(ModelWrapper):
         super().__init__(model)
         self.params = params
 
+    def update_params(self, params: dict) -> None:
+        self.params = params
+
     def save(self, save_path: Union[str, pathlib.Path],
              tokenizer: Optional[tokenizers.BaseTokenizer] = None,
              mode: int = 0) -> pathlib.Path:

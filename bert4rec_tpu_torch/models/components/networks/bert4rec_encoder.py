@@ -11,13 +11,22 @@ seeds derive from one step seed (``fold_in(seed, i)``: 0 for the
 embeddings, ``1 + i`` for layer ``i``). With ``causal_attention``
 (SASRec) position i attends to keys j <= i: the fused kernel builds the
 triangle itself, and the unfused block reads it folded into its additive
-bias, as in the JAX encoder. Temporal features and ``output_range`` are
-not ported yet and raise.
+bias, as in the JAX encoder. Routing is JAX's (bert4rec_encoder.py:
+187-228): the fused layer where its law allows, else the unfused block,
+whose attention core is flash attention (``ops/flash_attention.py``,
+K8/K9) with ``use_flash_attention`` and the plain attention otherwise.
+``output_range`` computes only the first positions of the last layer (it
+takes the fused layer off, as in JAX), and ``remat`` wraps each unfused
+block in ``torch.utils.checkpoint``: its activations are recomputed in the
+backward instead of kept (the fused layer ignores it, as in JAX).
+Temporal features are not ported yet and raise.
 """
 
+import functools
 from typing import Optional
 
 import torch
+import torch.utils.checkpoint
 
 from bert4rec_tpu_torch.core.device import resolve_device
 from bert4rec_tpu_torch.core.dtypes import DTypePolicy
@@ -78,15 +87,16 @@ class Bert4RecEncoder:
 
     def fused_layer_routed(self, batch: int, seq_len: int,
                            dropout_active: bool = False,
-                           device=None) -> bool:
+                           device=None, output_range=None) -> bool:
         """The JAX encoder's routing law (bert4rec_encoder.py:194-213): the
-        fused, tanh-gelu layer runs only where JAX runs it. JAX runs it
-        with dropout only on the TPU; the port reads the TPU as the card,
-        so with dropout active it is fused on CUDA only, as JAX's CPU runs
-        it fused only at rate 0."""
+        fused, tanh-gelu layer runs only where JAX runs it, never with an
+        ``output_range``. JAX runs it with dropout only on the TPU; the
+        port reads the TPU as the card, so with dropout active it is fused
+        on CUDA only, as JAX's CPU runs it fused only at rate 0."""
         cfg = self.config
         on_card = device is not None and torch.device(device).type == "cuda"
         return (cfg.use_fused_layer and not cfg.norm_first
+                and output_range is None
                 and cfg.inner_activation == "gelu"
                 and (on_card or not dropout_active)
                 and fused_layer_supported(
@@ -97,11 +107,14 @@ class Bert4RecEncoder:
 
     def apply(self, params: dict, input_word_ids: torch.Tensor,
               input_mask: torch.Tensor, *, training: bool = False,
-              seed: Optional[int] = None) -> dict:
+              seed: Optional[int] = None,
+              output_range: Optional[int] = None) -> dict:
         """Forward pass: ``input_word_ids`` / ``input_mask`` are ``[B, S]``
-        ints (mask 1 for real tokens). Returns ``sequence_output [B, S, H]``,
-        ``pooled_output [B, H]`` and ``encoder_outputs`` (one per layer).
-        Dropout runs only when ``training`` and a ``seed`` is given."""
+        ints (mask 1 for real tokens). Returns ``sequence_output [B, S, H]``
+        (``[B, output_range, H]`` with ``output_range``: the last layer
+        computes only those positions), ``pooled_output [B, H]`` and
+        ``encoder_outputs`` (one per layer). Dropout runs only when
+        ``training`` and a ``seed`` is given."""
         cfg = self.config
         if "temporal_embeddings" in params \
                 or "temporal_attention_bias" in params:
@@ -128,21 +141,20 @@ class Bert4RecEncoder:
         out_rate = cfg.output_dropout if training else 0.0
         fused = self.fused_layer_routed(
             batch, seq_len, dropout_active=attn_rate > 0 or out_rate > 0,
-            device=input_word_ids.device)
+            device=input_word_ids.device, output_range=output_range)
         if seeds[0] is None:
             attn_rate = out_rate = 0.0
-        if not fused and cfg.use_flash_attention:
-            raise NotImplementedError(
-                "the flash-attention kernel (bert4rec_tpu/ops/"
-                "flash_attention.py) is not ported yet")
         act = L.get_activation(cfg.inner_activation)
         causal = cfg.causal_attention
         attn_bias = None
-        if not fused:
+        if not fused and (not cfg.use_flash_attention
+                          or output_range is not None):
+            # read by the plain attention only: every unfused layer, or the
+            # last one when output_range takes it off flash attention
             attn_bias = L.self_attention_mask(input_mask)
             if causal:
-                # the dense triangle, for the unfused block only (JAX
-                # bert4rec_encoder.py:174-183); the fused kernel builds it
+                # the dense triangle (JAX bert4rec_encoder.py:174-183); the
+                # fused and flash kernels build it themselves
                 attn_bias = attn_bias + causal_bias(seq_len,
                                                     input_mask.device)
 
@@ -158,13 +170,25 @@ class Bert4RecEncoder:
                                         seed=seeds[1 + i] or 0,
                                         causal=causal)
             else:
-                x = transformer_block(layer_params, x, attn_bias,
-                                      inner_activation=act,
-                                      norm_first=cfg.norm_first,
-                                      compute_dtype=compute_dtype,
-                                      output_dropout=cfg.output_dropout,
-                                      attention_dropout=cfg.attention_dropout,
-                                      seed=seeds[1 + i], training=training)
+                block = functools.partial(
+                    transformer_block, inner_activation=act,
+                    norm_first=cfg.norm_first, compute_dtype=compute_dtype,
+                    output_dropout=cfg.output_dropout,
+                    attention_dropout=cfg.attention_dropout,
+                    seed=seeds[1 + i], training=training,
+                    query_range=(output_range if i == cfg.num_layers - 1
+                                 else None),
+                    use_flash=cfg.use_flash_attention,
+                    input_mask=input_mask, causal=causal)
+                if cfg.remat:
+                    # the backward recomputes the block (the same dropout
+                    # masks: every one is drawn from a seed) instead of
+                    # holding its activations (JAX :267-271)
+                    x = torch.utils.checkpoint.checkpoint(
+                        block, layer_params, x, attn_bias,
+                        use_reentrant=False)
+                else:
+                    x = block(layer_params, x, attn_bias)
             encoder_outputs.append(x)
 
         sequence_output = encoder_outputs[-1]

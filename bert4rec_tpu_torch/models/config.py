@@ -7,6 +7,7 @@ the other. No framework import.
 
 import dataclasses
 import json
+import pathlib
 from typing import Optional
 
 # Reference V1 kwarg names -> canonical names
@@ -27,8 +28,9 @@ class BERT4RecConfig:
 
     Field meanings are documented in the JAX package's config; the port
     reads every field so configs round-trip, and raises where a field
-    selects a path it does not run yet (temporal features, flash
-    attention, int8 tables). ``causal_attention`` runs (SASRec).
+    selects a path it does not run yet (temporal features, int8 tables).
+    ``causal_attention`` (SASRec), ``use_flash_attention`` and ``remat``
+    run.
     """
     vocab_size: int
     hidden_size: int = 768
@@ -96,6 +98,12 @@ class BERT4RecConfig:
 
     def to_dict(self) -> dict:
         return dataclasses.asdict(self)
+
+    def to_json_file(self, path) -> None:
+        path = pathlib.Path(path)
+        path.parent.mkdir(parents=True, exist_ok=True)
+        with open(path, "w") as f:
+            json.dump(self.to_dict(), f, indent=2)
 
     def replace(self, **kwargs) -> "BERT4RecConfig":
         return dataclasses.replace(self, **kwargs)

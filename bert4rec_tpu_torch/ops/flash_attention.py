@@ -1,0 +1,353 @@
+"""Masked multi-head attention, forward and backward (port of
+``bert4rec_tpu/ops/flash_attention.py``).
+
+Replaces the TPU kernels ``_fwd_kernel`` (K8, launched by ``_forward``)
+and ``_bwd_kernel`` (K9, launched by ``_backward`` through the custom
+backward ``_flash_bwd``) of ``bert4rec_tpu/ops/flash_attention.py`` with
+the hand-written Hopper CUDA kernels of ``csrc/flash_attention.cu``, which
+run the port's one tiled attention implementation (``csrc/attention.cuh``,
+shared with the fused encoder layer). The TPU kernel holds whole [S, S]
+score matrices of a head group in VMEM; an H100 block has at most 227 KB
+of shared memory, so the kernels stream 64-key tiles (two passes per query
+tile forward; the backward reads the forward's row max and sum).
+
+Bound at the main path's shape (B=32, N=12, S=512, D=64, bf16): K8 moves
+100.7 MB for 25.8 GFLOP, K9 176 MB for 51.5 GFLOP; both are bound by bytes
+at the card's peaks (~0.030 and ~0.053 ms). Their times are in PERF.md.
+
+What it computes is the TPU kernel's: scores ``q k^T / sqrt(D)`` in fp32
+plus the pad bias (``mask > 0 ? 0 : -1e9``) and, with ``causal``, a second
+-1e9 after the diagonal; an fp32 softmax normalised as ``p * (1 / sum)``;
+the dropout scale on p, then p rounded to v's type before ``p v`` (fp32
+sums); the backward's ``dv = T(p keep)^T T(dO)``, ``dp = dO v^T keep``,
+``ds = T(p (dp - rowsum(dp p)))``, ``dq = ds k / sqrt(D)``,
+``dk = ds^T q / sqrt(D)``. Dropout masks come from the counter hash of
+``ops/dropout_bits.py`` (site = head, counter = row * S + col), not from
+the TPU's ``pltpu`` bits, which no other device reproduces: the kernels and
+the plain versions draw equal masks from equal seeds.
+
+Layout: q, k, v ``[B, N, S, D]`` (any batch, head and sequence strides,
+the last axis contiguous: the transposes of a ``[B, S, N, D]`` projection
+are taken without a copy), ``mask [B, S]`` (1 = real key).
+
+Routing: a CUDA tensor launches K8/K9 at every sequence length up to
+``MAX_KERNEL_SEQ_LEN`` and raises beyond it. A CPU tensor runs the plain
+versions: through ``mha_reference`` and autograd when the sequence is
+longer than ``MAX_FUSED_SEQ_LEN``, as the JAX package runs its
+``mha_reference`` there (its shape law, kept on the CPU for parity), and
+through the custom backward otherwise.
+"""
+
+import ctypes
+import math
+
+import torch
+
+from bert4rec_tpu_torch.ops import dropout_bits
+from bert4rec_tpu_torch.ops.fused_encoder_layer import (
+    _work_dtype, causal_bias,
+)
+
+NEG_INF = -1e9
+# The JAX package's shape law (flash_attention.py:32, :293-299): beyond
+# this sequence length it runs mha_reference instead of its kernel. It is
+# JAX's VMEM rule, not a limit of the Hopper kernels, which stream key
+# tiles: the port keeps it for CPU tensors only.
+MAX_FUSED_SEQ_LEN = 1024
+# The kernels' limit: they form the dropout counter row * S + col as a
+# signed 32-bit int (S^2 < 2^31).
+MAX_KERNEL_SEQ_LEN = 46340
+_LOG2E = math.log2(math.e)
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def attention_keep(seed: int, batch: int, num_heads: int, seq_len: int,
+                   rate: float, device, dtype=torch.float32):
+    """The keep scales K8/K9 draw, ``[B, N, S, S]`` (``None`` at rate 0):
+    site ``h`` per head, counter ``row * S + col``."""
+    if rate <= 0.0:
+        return None
+    return dropout_bits.keep_scale(seed, batch, range(num_heads), seq_len,
+                                   seq_len, rate, device, dtype)
+
+
+def _probs(q, k, mask, causal):
+    """fp32 ``softmax(q k^T / sqrt(D) + pad bias [+ causal bias])`` as the
+    kernels form it: exp2 of the shifted scores times ``1 / sum``."""
+    f32 = _work_dtype(q.dtype)
+    s = q.shape[2]
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    bias = torch.where(mask > 0, 0.0, NEG_INF).to(f32)[:, None, None, :]
+    if causal:
+        bias = bias + causal_bias(s, q.device, f32)
+    scores = q.to(f32) @ k.to(f32).transpose(-1, -2) * scale + bias
+    e = torch.exp2((scores - scores.amax(dim=-1, keepdim=True)) * _LOG2E)
+    return e * (1.0 / e.sum(dim=-1, keepdim=True))
+
+
+def mha_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  mask: torch.Tensor, dropout_rate: float = 0.0,
+                  seed=None, causal: bool = False) -> torch.Tensor:
+    """Plain PyTorch version of K8 (JAX's ``mha_reference`` with the
+    kernel's rounding points and the port's dropout masks; no dropout
+    without a ``seed``). Differentiable by autograd."""
+    b, n, s, _ = q.shape
+    f32 = _work_dtype(q.dtype)
+    p = _probs(q, k, mask, causal)
+    keep = attention_keep(seed or 0, b, n, s,
+                          dropout_rate if seed is not None else 0.0,
+                          q.device, f32)
+    if keep is not None:
+        p = p * keep
+    return (p.to(v.dtype).to(f32) @ v.to(f32)).to(q.dtype)
+
+
+def flash_attention_plain_backward(q, k, v, mask, do, *,
+                                   dropout_rate: float = 0.0, seed: int = 0,
+                                   causal: bool = False):
+    """Plain PyTorch version of K9 (``_bwd_kernel``, every head at once):
+    recomputes p and the same mask; returns ``(dq, dk, dv)`` in the inputs'
+    dtype."""
+    dtype = q.dtype
+    f32 = _work_dtype(dtype)
+    b, n, s, d = q.shape
+    scale = 1.0 / math.sqrt(d)
+
+    def t(a):  # round to the input dtype, as JAX's ``.astype(v.dtype)``
+        return a.to(dtype).to(f32)
+
+    p = _probs(q, k, mask, causal)
+    keep = attention_keep(seed, b, n, s, dropout_rate, q.device, f32)
+    d_mat = p if keep is None else p * keep
+    do32 = t(do)
+    dv = t(d_mat).transpose(-1, -2) @ do32
+    dd = do32 @ v.to(f32).transpose(-1, -2)
+    dp = dd if keep is None else dd * keep
+    ds = t(p * (dp - (dp * p).sum(dim=-1, keepdim=True)))
+    dq = (ds @ k.to(f32)) * scale
+    dk = (ds.transpose(-1, -2) @ q.to(f32)) * scale
+    return dq.to(dtype), dk.to(dtype), dv.to(dtype)
+
+
+# --------------------------------------------------------------------------- #
+# the kernels
+# --------------------------------------------------------------------------- #
+
+_lib = None
+# device-pointer order of the C entry points (FwdPtr / BwdPtr in the source)
+_FWD_PTRS = ("q", "k", "v", "mask", "o", "stat_m", "stat_l")
+_BWD_PTRS = ("q", "k", "v", "do", "mask", "stat_m", "stat_l", "delta", "dq",
+             "dk", "dv")
+_FWD_VIEWS = ("q", "k", "v", "o")
+_BWD_VIEWS = ("q", "k", "v", "do", "dq", "dk", "dv")
+
+
+def _kernel_lib():
+    global _lib
+    if _lib is None:
+        from bert4rec_tpu_torch.ops import kernel_build
+        lib = kernel_build.load("flash_attention")
+        vp, ci, cu, cf = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint,
+                          ctypes.c_float)
+        # dtype, ptrs, strides, B, N, S, D, causal, scale, seed, threshold,
+        # keep scale, on, stream
+        args = [ci, vp, vp] + [ci] * 5 + [cf, cu, cu, cf, ci, vp]
+        for fn in (lib.b4r_flash_fwd, lib.b4r_flash_bwd):
+            fn.restype = ci
+            fn.argtypes = args
+        lib.b4r_flash_max_head_dim.restype = ci
+        lib.b4r_flash_max_head_dim.argtypes = []
+        _lib = lib
+    return _lib
+
+
+def head_strides(t: torch.Tensor) -> tuple:
+    """The (batch, head, sequence) element strides of a ``[B, N, S, D]``
+    operand the kernels take: any of those, with the head-dim axis
+    contiguous and one head's span under 2^31 elements (the kernels index
+    inside a head in 32 bits); raises on any other layout."""
+    if t.dim() != 4 or (t.stride(3) != 1 and t.shape[3] > 1):
+        raise ValueError(f"flash attention kernels take [B, N, S, D] "
+                         f"operands with a contiguous last axis; got shape "
+                         f"{tuple(t.shape)}, strides {t.stride()}")
+    if (t.shape[2] - 1) * t.stride(2) + t.shape[3] >= 2 ** 31:
+        raise ValueError(f"flash attention kernels index one head in 32 "
+                         f"bits; sequence stride {t.stride(2)} spans too "
+                         f"far for S={t.shape[2]}")
+    return tuple(t.stride()[:3])
+
+
+def _empty_heads(like: torch.Tensor) -> torch.Tensor:
+    """An uninitialised ``[B, N, S, D]`` tensor laid out as ``like``'s axes
+    run: ``[B, S, N, D]`` in memory when ``like`` steps heads faster than
+    positions (a projection's transposed view: its grad then reshapes to
+    ``[B, S, H]`` without a copy), else contiguous."""
+    b, n, s, d = like.shape
+    kw = dict(dtype=like.dtype, device=like.device)
+    if like.stride(1) < like.stride(2):
+        return torch.empty((b, s, n, d), **kw).transpose(1, 2)
+    return torch.empty((b, n, s, d), **kw)
+
+
+def _drop_args(seed: int, rate: float) -> list:
+    on = rate > 0.0
+    return [int(seed) & dropout_bits.MASK32,
+            dropout_bits.threshold(rate) if on else 0,
+            dropout_bits.keep_scale_value(rate) if on else 1.0, int(on)]
+
+
+def _launch(fn, ops: dict, order, views, q, seed, rate, causal, what):
+    b, n, s, d = q.shape
+    lib = _kernel_lib()
+    if d > lib.b4r_flash_max_head_dim() or b > 65535 or n > 65535:
+        raise ValueError(f"flash attention kernels take head dim <= "
+                         f"{lib.b4r_flash_max_head_dim()} and B, N <= 65535;"
+                         f" got {tuple(q.shape)}")
+    ptrs = (ctypes.c_void_p * len(order))(
+        *[ops[k].data_ptr() if ops.get(k) is not None else None
+          for k in order])
+    strides = (ctypes.c_longlong * (3 * len(views)))(
+        *[x for name in views for x in head_strides(ops[name])])
+    err = fn(_DTYPE_CODE[q.dtype], ptrs, strides, b, n, s, d, int(causal),
+             1.0 / math.sqrt(d), *_drop_args(seed, rate),
+             torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"flash attention {what} kernel launch failed: "
+                           f"CUDA error {err}")
+
+
+def _launch_forward(q, k, v, mask, seed: int, rate: float, causal: bool,
+                    save: bool):
+    """Launch K8; returns ``(o, saved)``, ``saved`` the fp32 row max and
+    sum ``[B, N, S]`` K9 reads (empty unless ``save``)."""
+    b, n, s, _ = q.shape
+    ops = dict(q=q, k=k, v=v, mask=mask, o=_empty_heads(q))
+    if save:
+        ops.update(stat_m=torch.empty((b, n, s), dtype=torch.float32,
+                                      device=q.device),
+                   stat_l=torch.empty((b, n, s), dtype=torch.float32,
+                                      device=q.device))
+    _launch(_kernel_lib().b4r_flash_fwd, ops, _FWD_PTRS, _FWD_VIEWS, q, seed,
+            rate, causal, "forward")
+    return ops["o"], ((ops["stat_m"], ops["stat_l"]) if save else ())
+
+
+def _launch_backward(q, k, v, mask, do, saved: tuple, seed: int,
+                     rate: float, causal: bool):
+    """Launch K9 (causal and the rate must be the forward's: ``saved`` is
+    its row statistics); returns ``(dq, dk, dv)``."""
+    b, n, s, _ = q.shape
+    if do.stride(-1) != 1:
+        do = do.contiguous()
+    ops = dict(q=q, k=k, v=v, do=do, mask=mask, stat_m=saved[0],
+               stat_l=saved[1], dq=_empty_heads(q), dk=_empty_heads(k),
+               dv=_empty_heads(v),
+               delta=torch.empty((b, n, s), dtype=torch.float32,
+                                 device=q.device))
+    _launch(_kernel_lib().b4r_flash_bwd, ops, _BWD_PTRS, _BWD_VIEWS, q, seed,
+            rate, causal, "backward")
+    return ops["dq"], ops["dk"], ops["dv"]
+
+
+class _FlashAttention(torch.autograd.Function):
+    """K8 forward and K9 backward (the JAX ``custom_vjp``): the backward
+    regenerates the forward's dropout mask from the seed. CPU operands run
+    both plain versions; CUDA operands launch both kernels."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, mask, seed, rate, causal, save):
+        ctx.cfg = (seed, rate, causal)
+        if q.device.type == "cpu":
+            o = mha_reference(q, k, v, mask, rate, seed, causal)
+            saved = ()
+        else:
+            o, saved = _launch_forward(q, k, v, mask, seed, rate, causal,
+                                       save)
+            if causal:
+                flash_attention.causal_launches += 1
+            else:
+                flash_attention.launches += 1
+        if save:
+            ctx.save_for_backward(q, k, v, mask, *saved)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        seed, rate, causal = ctx.cfg
+        q, k, v, mask, *saved = ctx.saved_tensors
+        if q.device.type == "cpu":
+            dq, dk, dv = flash_attention_plain_backward(
+                q, k, v, mask, do, dropout_rate=rate, seed=seed,
+                causal=causal)
+        else:
+            dq, dk, dv = _launch_backward(q, k, v, mask, do, tuple(saved),
+                                          seed, rate, causal)
+            if causal:
+                flash_attention.causal_backward_launches += 1
+            else:
+                flash_attention.backward_launches += 1
+        return dq, dk, dv, None, None, None, None, None
+
+
+def _check_operands(q, k, v, mask):
+    if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"q, k, v must be one [B, N, S, D] shape, got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in (
+            torch.float32, torch.bfloat16, torch.float64):
+        raise TypeError(f"q, k, v must share float32 or bfloat16, got "
+                        f"{q.dtype}, {k.dtype}, {v.dtype}")
+    b, _, s, _ = q.shape
+    if tuple(mask.shape) != (b, s):
+        raise ValueError(f"mask must be [{b}, {s}], got {tuple(mask.shape)}")
+    if not all(t.device == q.device for t in (k, v, mask)):
+        raise ValueError("q, k, v and mask must lie on one device")
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no flash attention for device {q.device}")
+    if q.device.type == "cuda" and q.dtype not in _DTYPE_CODE:
+        raise TypeError(f"the kernels take float32 or bfloat16, got "
+                        f"{q.dtype}")
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    mask: torch.Tensor, dropout_rate: float = 0.0,
+                    seed=None, causal: bool = False) -> torch.Tensor:
+    """Masked MHA ``[B, N, S, D] -> [B, N, S, D]`` with optional fused
+    attention-probability dropout; differentiable in q, k and v.
+
+    :param mask: ``[B, S]``, 1 for real keys
+    :param seed: an int seeding the dropout masks (same seed, same mask;
+        the backward regenerates it). Without a seed there is no dropout,
+        as the JAX block runs none without an rng.
+    :param causal: query i sees keys j <= i only (SASRec); the triangle is
+        built in the kernel, no dense bias in memory.
+
+    A CUDA launch counts in ``flash_attention.launches`` and
+    ``backward_launches`` (``causal_launches`` and
+    ``causal_backward_launches`` for the causal variant).
+    """
+    _check_operands(q, k, v, mask)
+    rate = float(dropout_rate) if seed is not None else 0.0
+    if rate > 0.0 and q.shape[1] > dropout_bits.SITES_PER_CELL:
+        raise ValueError(f"dropout draws one site per head: at most "
+                         f"{dropout_bits.SITES_PER_CELL} heads, got "
+                         f"{q.shape[1]}")
+    seed = 0 if seed is None else int(seed)
+    mask = mask.to(torch.int32).contiguous()
+    if q.device.type == "cuda" and q.shape[2] > MAX_KERNEL_SEQ_LEN:
+        raise ValueError(f"flash attention kernels take S <= "
+                         f"{MAX_KERNEL_SEQ_LEN} (a 32-bit dropout counter); "
+                         f"got S={q.shape[2]}")
+    if q.device.type == "cpu" and q.shape[2] > MAX_FUSED_SEQ_LEN:
+        return mha_reference(q, k, v, mask, rate, seed, causal)
+    save = torch.is_grad_enabled() and any(t.requires_grad
+                                           for t in (q, k, v))
+    return _FlashAttention.apply(q, k, v, mask, seed, rate, bool(causal),
+                                 save)
+
+
+flash_attention.launches = 0
+flash_attention.backward_launches = 0
+flash_attention.causal_launches = 0
+flash_attention.causal_backward_launches = 0

@@ -77,7 +77,25 @@ Phases (any failure raises and the script exits non-zero):
               Ranks, the metrics' range, HR@k >= NDCG@k, layer launches per
               batch, batches/s; one batch's 101-candidate ranks on the
               kernels against the plain versions (fp32), equal but at ties
-              within 1e-3.
+              within 1e-3;
+13. flash kernels — K8 and K9 (flash attention forward and backward)
+              against their plain versions at the reference-default
+              shape (B=32, N=12, S=512, D=64) and a ragged one (3, 4,
+              130, 64): fp32 and bf16, dropout 0 and 0.2, bidirectional
+              and causal, with an all-pad row and a row of length 1, on
+              strided views of a [B, S, 3, N, D] projection (the same bits
+              as contiguous copies); two K9 runs giving the same bits;
+              kernel, plain and library (SDPA with the pad mask, plus the
+              triangle, as one additive mask) times and the bound;
+14. bert_base_512 — ``train()`` on the reference-default encoder (hidden
+              768, 12 layers, 12 heads, inner 3072, S=512, P=76, B=32,
+              bf16, dropout 0.2 / 0.5, flash attention, logits loss) with
+              data by ``make_batch``'s law: the kernel step against the
+              plain step; K8 and K9 12 times per step and no fused-layer
+              or fused-loss launch; the step time, ``train()``'s time, the
+              device idle share and breakdown; a ``remat=True`` step with
+              the same gradients, 24 K8 launches and a lower peak of
+              device memory; the eval loss of a repeated batch falling.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the rest of
@@ -213,21 +231,26 @@ def _kernel_name(key: str) -> str:
     return key.split("(")[0][:60]
 
 
-def device_breakdown(torch, fn, calls=5, top=6) -> tuple:
+def device_breakdown(torch, fn, calls=5, top=6, groups=None) -> tuple:
     """``(total, text)``: device ms per call of ``fn`` in all (None if the
     trace holds no device time) and a line naming its ``top`` costliest
-    CUDA kernels, from torch.profiler (CUPTI)."""
+    CUDA kernels, from torch.profiler (CUPTI); with ``groups`` ({label:
+    name substrings}) also the device time of each group of kernels. A
+    trace without device time is taken once more."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    rows = sorted(((_kernel_name(e.key), e.self_device_time_total
-                    / calls / 1e3) for e in prof.key_averages()
-                   if getattr(e, "self_device_time_total", 0) > 0),
-                  key=lambda r: -r[1])
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        rows = sorted(((_kernel_name(e.key), e.self_device_time_total
+                        / calls / 1e3) for e in prof.key_averages()
+                       if getattr(e, "self_device_time_total", 0) > 0),
+                      key=lambda r: -r[1])
+        if rows:
+            break
     if not rows:
         return None, "device time not measured"
     total = sum(ms for _, ms in rows)
@@ -235,7 +258,16 @@ def device_breakdown(torch, fn, calls=5, top=6) -> tuple:
     parts = [f"{name} {ms:.4f}" for name, ms in rows[:top]]
     if rest:
         parts.append(f"{len(rows) - top} others {rest:.4f}")
-    return total, f"device {total:.4f} ms = " + ", ".join(parts)
+    text = f"device {total:.4f} ms = " + ", ".join(parts)
+    if groups:
+        sums = dict.fromkeys(list(groups) + ["other"], 0.0)
+        for name, ms in rows:
+            label = next((g for g, keys in groups.items()
+                          if any(k in name for k in keys)), "other")
+            sums[label] += ms
+        text += "; by group: " + ", ".join(f"{g} {ms:.4f}"
+                                           for g, ms in sums.items())
+    return total, text
 
 
 def check_fused_layer(torch, rng, device):
@@ -910,16 +942,17 @@ TRAIN_STEPS = 24
 STEP_TOL = {"loss": 2e-3, "metric": 0.0, "grad": 5e-2}
 
 
-def make_batch(seed, batch=STREAM_BATCH, npred=40):
+def make_batch(seed, batch=STREAM_BATCH, npred=40, seq=SEQ):
     """One ML-1M-shaped train batch (``bench.py``'s ``make_batch`` law):
-    random item ids, no padding, 40 distinct sorted masked positions."""
+    random item ids, no padding, ``npred`` distinct sorted masked
+    positions."""
     import numpy as np
     rng = np.random.default_rng(seed)
-    ids = rng.integers(3, VOCAB, size=(batch, SEQ)).astype(np.int32)
-    positions = np.stack([np.sort(rng.choice(SEQ, size=npred, replace=False))
+    ids = rng.integers(3, VOCAB, size=(batch, seq)).astype(np.int32)
+    positions = np.stack([np.sort(rng.choice(seq, size=npred, replace=False))
                           for _ in range(batch)]).astype(np.int32)
     return {"input_word_ids": ids,
-            "input_mask": np.ones((batch, SEQ), np.int32),
+            "input_mask": np.ones((batch, seq), np.int32),
             "masked_lm_positions": positions,
             "masked_lm_ids": np.take_along_axis(ids, positions, axis=1),
             "masked_lm_weights": np.ones((batch, npred), np.int32)}
@@ -928,15 +961,16 @@ def make_batch(seed, batch=STREAM_BATCH, npred=40):
 class SyntheticDataset:
     """In-memory batches with the dataset contract ``train()`` reads."""
 
-    def __init__(self, n_batches, seed=0, repeat=False):
+    def __init__(self, n_batches, seed=0, repeat=False, **shape):
         self.n_batches, self.seed, self.repeat = n_batches, seed, repeat
+        self.shape = shape   # make_batch's npred and seq
 
     def batches(self, batch_size, shuffle=True, seed=None,
                 drop_remainder=False, pad_final_batch=False):
         base = self.seed + 1000 * (seed or 0)
         for i in range(self.n_batches):
             yield make_batch(self.seed if self.repeat else base + i,
-                             batch_size)
+                             batch_size, **self.shape)
 
 
 def new_trainer(torch, device, params=None, lr=1e-4, warmup=100,
@@ -960,9 +994,11 @@ def new_trainer(torch, device, params=None, lr=1e-4, warmup=100,
 
 
 def plain_kernels():
-    """Patches that send the CUDA branches of the layer and loss Functions
-    to the plain versions: the reference of the step check."""
+    """Patches that send the CUDA branches of the flash attention, layer
+    and loss Functions to the plain versions: the reference of the step
+    check."""
     from unittest import mock
+    from bert4rec_tpu_torch.ops import flash_attention as fa
     from bert4rec_tpu_torch.ops import fused_encoder_layer as fel
     from bert4rec_tpu_torch.ops import fused_mlm_loss as fml
 
@@ -985,7 +1021,16 @@ def plain_kernels():
         return fml.fused_mlm_loss_plain_backward(
             hidden, table, bias, labels, lse, g, n_valid[0], valid_ge_zero)
 
-    patches = [mock.patch.object(fel, "_launch_forward", layer_fwd),
+    def flash_fwd(q, k, v, mask, seed, rate, causal, save):
+        return fa.mha_reference(q, k, v, mask, rate, seed, causal), ()
+
+    def flash_bwd(q, k, v, mask, do, saved, seed, rate, causal):
+        return fa.flash_attention_plain_backward(
+            q, k, v, mask, do, dropout_rate=rate, seed=seed, causal=causal)
+
+    patches = [mock.patch.object(fa, "_launch_forward", flash_fwd),
+               mock.patch.object(fa, "_launch_backward", flash_bwd),
+               mock.patch.object(fel, "_launch_forward", layer_fwd),
                mock.patch.object(fel, "_launch_backward", layer_bwd),
                mock.patch.object(fml, "_launch_forward",
                                  fml.fused_mlm_loss_plain_forward),
@@ -1656,6 +1701,344 @@ def check_evaluation(torch, device, loader, splits, trainer, label):
     return out
 
 
+# --------------------------------------------------------------------------- #
+# phase 13: flash attention K8 / K9; phase 14: bert_base_512 training
+# --------------------------------------------------------------------------- #
+
+# the reference-default encoder's attention (B, N, S, D), a ragged shape,
+# and one past JAX's MAX_FUSED_SEQ_LEN (1,024), where a CUDA tensor still
+# runs the kernels
+FLASH_SHAPES = ((32, 12, 512, 64), (3, 4, 130, 64), (3, 2, 1100, 64))
+FLASH_RATE = 0.2          # bert_base_512's attention dropout (bench.py:75)
+# K8's forward, max abs against the plain version. Attention context is a
+# weighted mean of values: over a full row of unit-variance scores its
+# entries are ~0.07, and rms(o) of these batches is 0.2-0.7 (printed beside
+# each reading), not of order 1 as a layer's output, for which JAX's 8e-2
+# was set. The bf16 limit sits under a tenth of rms(o).
+FLASH_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+
+
+def flash_inputs(torch, rng, device, dims, dtype):
+    """q, k, v as strided views of one [B, S, 3, N, D] projection (what the
+    unfused block hands the kernels), an int32 mask with a full row, a row
+    of length 1, an all-pad row and (B > 3) a front-padded row, the rest
+    random right-padded lengths, and dO."""
+    import numpy as np
+    b, n, s, d = dims
+    proj = torch.from_numpy(rng.normal(size=(b, s, 3, n, d))
+                            .astype(np.float32)).to(device, dtype)
+    q, k, v = (proj[:, :, i].transpose(1, 2) for i in range(3))
+    lengths = rng.integers(1, s + 1, size=b)
+    lengths[:3] = [s, 1, 0]
+    mask = (np.arange(s)[None, :] < lengths[:, None]).astype(np.int32)
+    if b > 3:
+        mask[3] = (np.arange(s) >= s // 3).astype(np.int32)
+    do = torch.from_numpy(rng.normal(size=(b, n, s, d)).astype(np.float32)) \
+        .to(device, dtype)
+    return q, k, v, torch.from_numpy(mask).to(device), do
+
+
+def flash_bound_ms(dims, dtype_name, backward, causal):
+    """Least time for K8 (4 B N P D FLOP, P the (query, key) pairs: S^2,
+    or S(S+1)/2 causal; q, k, v, mask read once, o written once) or K9 (8 B
+    N P D FLOP; q, k, v, dO, mask read, dq, dk, dv written); the kernels'
+    recomputation of the scores is not counted."""
+    b, n, s, d = dims
+    es = 4 if dtype_name == "float32" else 2
+    flops = (8 if backward else 4) * b * n * attention_pairs(s, causal) * d
+    nbytes = (7 if backward else 4) * b * n * s * d * es + b * s * 4
+    t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
+    t_bytes = nbytes / HBM_BYTES_S * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                 else "bytes")
+
+
+def check_flash_kernels(torch, rng, device):
+    """K8 and K9 against their plain versions on strided views at
+    FLASH_SHAPES, fp32 and bf16, dropout 0 and FLASH_RATE, bidirectional
+    and causal; contiguous copies give the same bits, two K9 runs the same
+    bits; at dropout FLASH_RATE kernel, plain and library (SDPA) times and
+    the bound."""
+    import torch.nn.functional as F
+    from bert4rec_tpu_torch.ops import flash_attention as fa
+    rows = {}
+    for dims in FLASH_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).removeprefix("torch.")
+            q, k, v, mask, do = flash_inputs(torch, rng, device, dims, dtype)
+            copies = [t.contiguous() for t in (q, k, v)]
+            for causal, rate in itertools.product((False, True),
+                                                  (0.0, FLASH_RATE)):
+                fwd = lambda: fa._launch_forward(  # noqa: E731
+                    q, k, v, mask, 77, rate, causal, True)
+                o, saved = fwd()
+                bwd = lambda: fa._launch_backward(  # noqa: E731
+                    q, k, v, mask, do, saved, 77, rate, causal)
+                grads = bwd()
+                again = bwd()
+                o_c, saved_c = fa._launch_forward(*copies, mask, 77, rate,
+                                                  causal, True)
+                grads_c = fa._launch_backward(*copies, mask, do, saved_c, 77,
+                                              rate, causal)
+                torch.cuda.synchronize()
+                ref = fa.mha_reference(q, k, v, mask, rate, 77, causal)
+                ref_grads = fa.flash_attention_plain_backward(
+                    q, k, v, mask, do, dropout_rate=rate, seed=77,
+                    causal=causal)
+                fwd_err = float((o.float() - ref.float()).abs().max())
+                o_rms = float(ref.float().square().mean().sqrt())
+                bwd_err = max(rel_err(a, c) for a, c in zip(grads, ref_grads))
+                bwd_abs = max(float((a.float() - c.float()).abs().max())
+                              for a, c in zip(grads, ref_grads))
+                label = (f"flash attention {name} (B, N, S, D)={dims} "
+                         f"dropout {rate} {'causal' if causal else 'bidir'}")
+                if not (fwd_err <= FLASH_TOL[name]
+                        and bwd_err <= GRAD_TOL[name]
+                        and all(bool(torch.isfinite(g).all()) for g in grads)):
+                    raise AssertionError(
+                        f"{label}: forward err {fwd_err} (tol "
+                        f"{FLASH_TOL[name]}, rms(o) {o_rms:.3g}), backward "
+                        f"rel err {bwd_err} (tol {GRAD_TOL[name]})")
+                if not (torch.equal(o, o_c) and all(
+                        torch.equal(a, c) and torch.equal(a, e)
+                        for a, c, e in zip(grads, grads_c, again))):
+                    raise AssertionError(f"{label}: strided and contiguous "
+                                         f"operands, or two K9 runs, differ")
+                line = (f"{label} (all-pad row, length-1 row, strided views "
+                        f"= contiguous copies, K9 twice the same bits): "
+                        f"forward err {fwd_err:.3g} (tol {FLASH_TOL[name]}; "
+                        f"rms(o) {o_rms:.3g}), backward rel err "
+                        f"{bwd_err:.3g} (tol {GRAD_TOL[name]})")
+                del ref, ref_grads, grads_c, again, o_c, saved_c
+                if rate == 0.0:
+                    print(line, flush=True)
+                    continue
+                # yardstick: SDPA with the pad mask (and the triangle) as one
+                # additive mask, its own dropout, and its autograd
+                bias = torch.where(mask > 0, 0.0, -1e9)[:, None, None, :]
+                if causal:
+                    bias = bias + fa.causal_bias(dims[2], device)
+                bias = bias.to(dtype)
+                ql, kl, vl = (t.detach().requires_grad_(True)
+                              for t in (q, k, v))
+
+                def lib_fwd():
+                    return F.scaled_dot_product_attention(
+                        ql, kl, vl, attn_mask=bias, dropout_p=rate)
+
+                lib_out = lib_fwd()
+                heavy = dict(iters=5, warmup=1)
+                row = dict(
+                    fwd=dict(max_abs_err=fwd_err, ms=time_ms(fwd),
+                             plain_ms=time_ms(lambda: fa.mha_reference(
+                                 q, k, v, mask, rate, 77, causal), **heavy),
+                             library_ms=time_ms(lib_fwd),
+                             **dict(zip(("bound_ms", "bound_by"),
+                                        flash_bound_ms(dims, name, False,
+                                                       causal)))),
+                    bwd=dict(max_abs_err=bwd_abs, max_rel_err=bwd_err,
+                             ms=time_ms(bwd),
+                             plain_ms=time_ms(
+                                 lambda: fa.flash_attention_plain_backward(
+                                     q, k, v, mask, do, dropout_rate=rate,
+                                     seed=77, causal=causal), **heavy),
+                             library_ms=time_ms(lambda: torch.autograd.grad(
+                                 lib_out, (ql, kl, vl), do,
+                                 retain_graph=True)),
+                             **dict(zip(("bound_ms", "bound_by"),
+                                        flash_bound_ms(dims, name, True,
+                                                       causal)))))
+                rows[(dims, name, causal)] = row
+                print(line + "; " + "; ".join(
+                    f"{part}: kernel_ms={r['ms']:.4f} plain_ms="
+                    f"{r['plain_ms']:.4f} library_ms={r['library_ms']:.4f} "
+                    f"bound_ms={r['bound_ms']:.5f} ({r['bound_by']})"
+                    for part, r in row.items()), flush=True)
+                if dims == FLASH_SHAPES[0] and name == "bfloat16" \
+                        and not causal:
+                    print("  per K8 launch: " + device_breakdown(
+                        torch, fwd)[1], flush=True)
+                    print("  per K9 launch: " + device_breakdown(
+                        torch, bwd)[1], flush=True)
+                del lib_out, ql, kl, vl, bias
+            del q, k, v, mask, do, copies
+            torch.cuda.empty_cache()
+    return rows
+
+
+# bert_base_512 (tools/perf_guard.py:185-199): the encoder's defaults
+BASE_MODEL = dict(hidden_size=768, num_layers=12, num_attention_heads=12,
+                  inner_dim=3072)
+BASE_BATCH, BASE_SEQ, BASE_PRED = 32, 512, 76
+BASE_STEPS = 3
+BASE_TIMED_STEPS = 8
+
+
+def bert_base_trainer(torch, device, params=None, remat=False, lr=1e-4,
+                      warmup=100):
+    """The bert_base_512 path (tools/perf_guard.py:185-191): the reference-
+    default encoder on flash attention, logits loss, bf16 compute, fp32
+    params, ``create_adam_w_optimizer()``'s defaults, seed 0."""
+    from bert4rec_tpu_torch.core.dtypes import DTypePolicy
+    from bert4rec_tpu_torch.models import BERT4RecConfig, BERT4RecModel
+    from bert4rec_tpu_torch.trainers import BERT4RecTrainer, optimizers
+    config = BERT4RecConfig(
+        vocab_size=VOCAB, **BASE_MODEL,
+        max_sequence_length=BASE_SEQ, max_predictions_per_seq=BASE_PRED,
+        attention_dropout=0.2, output_dropout=0.5, use_fused_layer=False,
+        use_fused_loss=False, use_flash_attention=True, remat=remat)
+    trainer = BERT4RecTrainer(BERT4RecModel(config=config,
+                                            dtype_policy=DTypePolicy.bf16()))
+    trainer.initialize_model(
+        optimizer=optimizers.create_adam_w_optimizer(
+            init_lr=lr, num_warmup_steps=warmup), params=params, seed=SEED,
+        device=device)
+    return trainer
+
+
+def base_batch(seed):
+    return make_batch(seed, BASE_BATCH, BASE_PRED, BASE_SEQ)
+
+
+def check_bert_base_training(torch, device):
+    """``train()`` on bert_base_512: the kernel step against the plain
+    step, the launch counts of a BASE_STEPS-step run, the step times, the
+    device idle share and breakdown, a remat step, and the loss falling."""
+    from bert4rec_tpu_torch.ops import flash_attention as fa
+    from bert4rec_tpu_torch.ops import fused_encoder_layer as fel
+    from bert4rec_tpu_torch.ops import fused_mlm_loss as fml
+    from bert4rec_tpu_torch.utils.checkpoint import flatten
+    trainer = bert_base_trainer(torch, device)
+    cfg = trainer.model.config
+    if trainer.model.encoder.fused_layer_routed(
+            BASE_BATCH, BASE_SEQ, dropout_active=True, device=device) \
+            or not cfg.use_flash_attention or cfg.use_fused_loss:
+        raise AssertionError("bert_base_512 is not routed to flash attention "
+                             "and the logits loss")
+    init = {k: v.detach().clone() for k, v in
+            flatten(trainer.state["params"]).items()}
+    batch = trainer._put_batch(base_batch(7))
+    rates = (cfg.attention_dropout, cfg.output_dropout)
+    check_step_parity(torch, trainer, batch, f"bert_base_512, dropout {rates}")
+    torch.cuda.empty_cache()
+
+    # the main path: train() for BASE_STEPS steps, counts from 0
+    counted = {"flash": fa.flash_attention, "layer": fel.fused_encoder_layer,
+               "loss": fml.fused_mlm_loss, "tiled": fml.fused_mlm_loss_tiled}
+    attrs = ("launches", "backward_launches", "causal_launches",
+             "causal_backward_launches", "merged_launches",
+             "two_sweep_launches")
+    for fn in counted.values():
+        for attr in attrs:
+            if hasattr(fn, attr):
+                setattr(fn, attr, 0)
+    t0 = time.perf_counter()
+    hist = trainer.train(SyntheticDataset(BASE_STEPS, seed=1,
+                                          npred=BASE_PRED, seq=BASE_SEQ),
+                         epochs=1, batch_size=BASE_BATCH, seed=SEED,
+                         verbose=False)
+    wall = time.perf_counter() - t0
+    counts = {f"{key}.{attr}": getattr(fn, attr)
+              for key, fn in counted.items() for attr in attrs
+              if hasattr(fn, attr)}
+    want = {k: 0 for k in counts}
+    want["flash.launches"] = want["flash.backward_launches"] = \
+        cfg.num_layers * BASE_STEPS
+    loss = hist.history["loss"][0]
+    print(f"bert_base_512 train(): {BASE_STEPS} steps of B={BASE_BATCH} S="
+          f"{BASE_SEQ} in {wall:.2f} s (first step included), epoch loss "
+          f"{loss:.4f}; launches {counts}", flush=True)
+    if counts != want or not math.isfinite(loss):
+        raise AssertionError(f"launches {counts}, expected {want}")
+
+    # step time: host clock around synchronised steps; train() warm with its
+    # prefetch thread; the device time of one step
+    step_ms = []
+    for i in range(10):
+        b = trainer._put_batch(base_batch(100 + i))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.train_step(b)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    median = sorted(step_ms)[len(step_ms) // 2]
+    t0 = time.perf_counter()
+    trainer.train(SyntheticDataset(BASE_TIMED_STEPS, seed=2, npred=BASE_PRED,
+                                   seq=BASE_SEQ),
+                  epochs=1, batch_size=BASE_BATCH, seed=SEED + 1,
+                  verbose=False)
+    torch.cuda.synchronize()
+    train_ms = (time.perf_counter() - t0) * 1e3 / BASE_TIMED_STEPS
+    device_ms, breakdown = device_breakdown(
+        torch, lambda: trainer.train_step(batch), calls=3, top=10,
+        groups={"K8": ("attention_kernel",), "K9": ("attn_bwd",),
+                "GEMMs": ("nvjet", "gemm", "cutlass", "sm90_xmma"),
+                "optimizer": ("multi_tensor", "foreach")})
+    idle = None if device_ms is None else 1 - device_ms / train_ms
+    print(f"bert_base_512 train step B={BASE_BATCH}: median {median:.3f} ms "
+          f"of 10 synchronised steps (min {min(step_ms):.3f}), "
+          f"{BASE_BATCH / median * 1e3:.1f} examples/s; train() "
+          f"{train_ms:.3f} ms per step over {BASE_TIMED_STEPS}, "
+          f"{BASE_BATCH / train_ms * 1e3:.1f} examples/s; device idle share "
+          f"of train() " + ("not measured" if idle is None
+                            else f"{idle:.3f}"), flush=True)
+    print("  one bert_base_512 train step: " + breakdown, flush=True)
+    del trainer
+    torch.cuda.empty_cache()
+
+    # remat: the same gradients from the same params, K8 twice per layer,
+    # a lower peak of device memory
+    peaks, grads, fwd_launches = {}, {}, {}
+    for remat in (False, True):
+        t = bert_base_trainer(torch, device, params=init, remat=remat)
+        b = t._put_batch(base_batch(7))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = fa.flash_attention.launches
+        _, _, grads[remat] = t._grads(b, 99)
+        torch.cuda.synchronize()
+        fwd_launches[remat] = fa.flash_attention.launches - before
+        peaks[remat] = torch.cuda.max_memory_allocated() / 2 ** 30
+        if remat:
+            remat_ms = time_ms(lambda: t._grads(b, 99), iters=3, warmup=1)
+        else:
+            plain_ms = time_ms(lambda: t._grads(b, 99), iters=3, warmup=1)
+        del t, b
+        torch.cuda.empty_cache()
+    diff = max(float((grads[True][k] - grads[False][k]).abs().max())
+               for k in grads[False])
+    print(f"bert_base_512 remat=True: gradients equal the remat=False "
+          f"step's (max abs diff {diff:.3g}); K8 launches per step "
+          f"{fwd_launches[True]} (remat=False {fwd_launches[False]}); peak "
+          f"device memory {peaks[True]:.2f} GiB against {peaks[False]:.2f}; "
+          f"forward+backward {remat_ms:.3f} ms against {plain_ms:.3f}",
+          flush=True)
+    if not (diff == 0.0 and fwd_launches[True] == 2 * cfg.num_layers
+            and fwd_launches[False] == cfg.num_layers
+            and peaks[True] < peaks[False]):
+        raise AssertionError("remat changed the gradients, the K8 launches "
+                             "or did not lower the peak memory")
+    del grads
+
+    # the eval loss of a repeated batch falls
+    probe = base_batch(3)
+    fast = bert_base_trainer(torch, device, params=init, warmup=0)
+    before = float(fast.eval_step(fast._put_batch(probe))["loss"])
+    fast.train(SyntheticDataset(BASE_TIMED_STEPS, seed=3, repeat=True,
+                                npred=BASE_PRED, seq=BASE_SEQ),
+               epochs=1, batch_size=BASE_BATCH, seed=SEED, verbose=False)
+    after = float(fast.eval_step(fast._put_batch(probe))["loss"])
+    print(f"bert_base_512 repeated batch, lr 1e-4, {BASE_TIMED_STEPS} steps: "
+          f"eval loss {before:.4f} -> {after:.4f}", flush=True)
+    if not after < 0.99 * before:
+        raise AssertionError(f"loss did not fall on a repeated batch: "
+                             f"{before} -> {after}")
+    del fast
+    torch.cuda.empty_cache()
+    return dict(counts=counts, step_ms=median, train_ms=train_ms,
+                device_ms=device_ms, idle=idle, peaks=peaks)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1723,6 +2106,9 @@ def run(torch, home) -> int:
                      sasrec["trainer"], "sasrec ml-20m_128")
     check_evaluation(torch, device, loader, splits,
                      ml20m["ml-20m_128"]["trainer"], "ml-20m_128")
+    torch.cuda.empty_cache()
+    flash_rows = check_flash_kernels(torch, rng, device)
+    base = check_bert_base_training(torch, device)
 
     def entry(name, source, replaces, n, row):
         return {"name": name, "route": "cuda",
@@ -1740,6 +2126,9 @@ def run(torch, home) -> int:
     tiled_128 = tiled_rows[("bfloat16", N_ROWS, ML20M_VOCAB, 128)]
     tiled_256 = tiled_rows[("bfloat16", N_ROWS, ML20M_VOCAB, 256)]
     layer_src, loss_src = "fused_encoder_layer.cu", "fused_mlm_loss.cu"
+    # K8 / K9 at bert_base_512's shape and rates; launches from its train()
+    flash_row = flash_rows[(FLASH_SHAPES[0], "bfloat16", False)]
+    c_base = base["counts"]
     loss_py = "bert4rec_tpu/ops/fused_mlm_loss.py"
     record = {"kernels": [
         # what the server runs: fp32, B=32
@@ -1780,6 +2169,13 @@ def run(torch, home) -> int:
         entry("fused_encoder_layer_causal_backward", layer_src,
               "bert4rec_tpu/ops/fused_encoder_layer.py:265",
               csas["causal_bwd"], causal_row["bwd"]),
+        # K8 / K9 (bert_base_512): launches from its train() run
+        entry("flash_attention", "flash_attention.cu",
+              "bert4rec_tpu/ops/flash_attention.py:126",
+              c_base["flash.launches"], flash_row["fwd"]),
+        entry("flash_attention_backward", "flash_attention.cu",
+              "bert4rec_tpu/ops/flash_attention.py:141",
+              c_base["flash.backward_launches"], flash_row["bwd"]),
     ]}
     print(f"card: {card}", flush=True)
     print(json.dumps(record), flush=True)

@@ -472,3 +472,147 @@ def test_device_put_copies_through_pinned_memory_on_a_side_stream(
         for k in got:
             assert got[k].device.type == "cuda"
             np.testing.assert_array_equal(got[k].cpu().numpy(), want[k])
+
+
+# --------------------------------------------------------------------------- #
+# flash attention: K8 forward, K9 backward
+# --------------------------------------------------------------------------- #
+
+def flash_operands(device, dims, dtype, seed):
+    """q, k, v as strided views of one ``[B, S, 3, N, D]`` projection (the
+    layout the unfused block hands the kernels), a mask with a full row, a
+    row of length 1, an all-pad row and (B > 3) a front-padded one, and
+    dO."""
+    b, n, s, d = dims
+    rng = np.random.default_rng(seed)
+    proj = torch.from_numpy(rng.normal(size=(b, s, 3, n, d))
+                            .astype(np.float32)).to(device, dtype)
+    q, k, v = (proj[:, :, i].transpose(1, 2) for i in range(3))
+    mask = torch.from_numpy(causal_mask_np(rng, b, s)).to(device)
+    do = torch.from_numpy(rng.normal(size=(b, n, s, d)).astype(np.float32)) \
+        .to(device, dtype)
+    return q, k, v, mask, do
+
+
+# the main path's shape (B=32, N=12, S=512, D=64) and a ragged one
+FLASH_DIMS = [(32, 12, 512, 64), (3, 4, 130, 64)]
+# forward, absolute: attention context over a full row of unit-variance
+# scores is ~0.07 an entry (rms 0.2-0.7 over these batches' ragged rows), so
+# the bf16 limit is set well under it, not at the layers' 8e-2
+FLASH_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dims", FLASH_DIMS,
+                         ids=lambda d: "B{}_N{}_S{}_D{}".format(*d))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("rate", [0.0, 0.2], ids=["rate0", "dropout"])
+@pytest.mark.parametrize("causal", [False, True],
+                         ids=["bidirectional", "causal"])
+def test_flash_kernels_match_plain(cuda_device, dims, dtype, rate, causal):
+    """K8 and K9 against their plain versions on strided q, k, v: forward
+    within 1e-4 (fp32) or 2e-2 (bf16) absolute, gradients within GRAD_TOL
+    of their scale."""
+    from bert4rec_tpu_torch.ops import flash_attention as fa
+    q, k, v, mask, do = flash_operands(cuda_device, dims, dtype, sum(dims))
+    o, saved = fa._launch_forward(q, k, v, mask, 99, rate, causal, True)
+    grads = fa._launch_backward(q, k, v, mask, do, saved, 99, rate, causal)
+    torch.cuda.synchronize()
+    ref = fa.mha_reference(q, k, v, mask, rate, 99, causal)
+    ref_grads = fa.flash_attention_plain_backward(
+        q, k, v, mask, do, dropout_rate=rate, seed=99, causal=causal)
+    assert o.shape == q.shape and o.dtype == dtype
+    np.testing.assert_allclose(o.float().cpu().numpy(),
+                               ref.float().cpu().numpy(), rtol=0,
+                               atol=FLASH_TOL[dtype])
+    for name, got, want in zip("qkv", grads, ref_grads):
+        assert bool(torch.isfinite(got).all()), name
+        assert _rel_err(got, want) <= GRAD_TOL[dtype], name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_flash_strided_equals_contiguous_and_backward_repeats(cuda_device,
+                                                              dtype):
+    """The projection's views and their contiguous copies give the same
+    bits; two K9 runs give the same bits; autograd counts one launch of
+    each (causal apart)."""
+    from bert4rec_tpu_torch.ops import flash_attention as fa
+    q, k, v, mask, do = flash_operands(cuda_device, (3, 4, 130, 64), dtype, 5)
+    cq, ck, cv = (t.contiguous() for t in (q, k, v))
+    assert not q.is_contiguous() and cq.is_contiguous()
+    for causal in (False, True):
+        o1, s1 = fa._launch_forward(q, k, v, mask, 3, 0.2, causal, True)
+        o2, s2 = fa._launch_forward(cq, ck, cv, mask, 3, 0.2, causal, True)
+        g1 = fa._launch_backward(q, k, v, mask, do, s1, 3, 0.2, causal)
+        g2 = fa._launch_backward(cq, ck, cv, mask, do.transpose(1, 2)
+                                 .contiguous().transpose(1, 2), s2, 3, 0.2,
+                                 causal)
+        g3 = fa._launch_backward(q, k, v, mask, do, s1, 3, 0.2, causal)
+        torch.cuda.synchronize()
+        assert torch.equal(o1, o2)
+        for a, b, c in zip(g1, g2, g3):
+            assert torch.equal(a, b) and torch.equal(a, c)
+    f = fa.flash_attention
+    qs, ks, vs = (t.detach().requires_grad_(True) for t in (q, k, v))
+    before = (f.launches, f.backward_launches, f.causal_launches,
+              f.causal_backward_launches)
+    out = fa.flash_attention(qs, ks, vs, mask, 0.2, seed=3, causal=True)
+    out.backward(do)
+    torch.cuda.synchronize()
+    assert (f.launches, f.backward_launches, f.causal_launches,
+            f.causal_backward_launches) == (before[0], before[1],
+                                            before[2] + 1, before[3] + 1)
+    assert torch.equal(out.detach(), o1)
+    assert torch.equal(qs.grad, g1[0])
+
+
+@pytest.mark.cuda
+def test_flash_rejects_a_stride_it_does_not_take(cuda_device):
+    """A head-dim axis that is not contiguous raises before any launch."""
+    from bert4rec_tpu_torch.ops import flash_attention as fa
+    q, k, v, mask, _ = flash_operands(cuda_device, (2, 2, 64, 32),
+                                      torch.float32, 6)
+    wide = torch.zeros((2, 2, 64, 64), device=cuda_device)
+    before = fa.flash_attention.launches
+    with pytest.raises(ValueError, match="contiguous last axis"):
+        fa.flash_attention(wide[..., ::2], k, v, mask)
+    with pytest.raises(ValueError):
+        fa.head_strides(wide[..., ::2])
+    assert fa.flash_attention.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_flash_kernels_run_past_the_jax_sequence_limit(cuda_device, dtype):
+    """Past JAX's MAX_FUSED_SEQ_LEN a CUDA tensor still launches K8/K9 (the
+    plain route is the CPU's only), and they match the plain versions;
+    past MAX_KERNEL_SEQ_LEN the call raises before any launch."""
+    from bert4rec_tpu_torch.ops import flash_attention as fa
+    dims = (2, 2, fa.MAX_FUSED_SEQ_LEN + 76, 64)
+    q, k, v, mask, do = flash_operands(cuda_device, dims, dtype, 7)
+    qs, ks, vs = (t.detach().requires_grad_(True) for t in (q, k, v))
+    f = fa.flash_attention
+    before = (f.launches, f.backward_launches)
+    out = f(qs, ks, vs, mask, 0.2, seed=5)
+    out.backward(do)
+    torch.cuda.synchronize()
+    assert (f.launches, f.backward_launches) == (before[0] + 1,
+                                                 before[1] + 1)
+    ref = fa.mha_reference(q, k, v, mask, 0.2, 5)
+    np.testing.assert_allclose(out.detach().float().cpu().numpy(),
+                               ref.float().cpu().numpy(), rtol=0,
+                               atol=FLASH_TOL[dtype])
+    ref_grads = fa.flash_attention_plain_backward(
+        q, k, v, mask, do, dropout_rate=0.2, seed=5)
+    for name, got, want in zip("qkv", (qs.grad, ks.grad, vs.grad),
+                               ref_grads):
+        assert _rel_err(got, want) <= GRAD_TOL[dtype], name
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(fa, "MAX_KERNEL_SEQ_LEN", dims[2] - 1)
+        with pytest.raises(ValueError, match="S <="):
+            f(q, k, v, mask)
+    assert f.launches == before[0] + 1

@@ -214,19 +214,29 @@ class TestModelParity:
                           num_attention_heads=12, inner_dim=3072)
 
     def test_unported_paths_raise(self):
-        """Flash attention is not ported and raises; causal attention is
-        (the SASRec slice): it runs and moves the outputs."""
+        """Temporal features are not ported and raise; flash attention
+        (this slice) and causal attention (the SASRec slice) run: flash
+        gives the plain attention's outputs, causal moves them."""
         feats = {k: torch.from_numpy(v) for k, v in features(0).items()}
-        model = BERT4RecModel(config=BERT4RecConfig(
-            **model_kwargs(use_flash_attention=True)))
-        params = model.init(torch.Generator().manual_seed(0), "cpu")
+        base_model = BERT4RecModel(config=BERT4RecConfig(**model_kwargs()))
+        params = base_model.init(torch.Generator().manual_seed(0), "cpu")
+        base = base_model.apply(params, feats)["mlm_logits"]
+        flash = BERT4RecModel(config=BERT4RecConfig(
+            **model_kwargs(use_flash_attention=True))).apply(params, feats)
+        np.testing.assert_allclose(flash["mlm_logits"].numpy(),
+                                   base.numpy(), rtol=2e-4, atol=2e-4)
+        for flag in ("use_temporal_embeddings", "use_temporal_attention"):
+            with pytest.raises(NotImplementedError):
+                BERT4RecModel(config=BERT4RecConfig(
+                    **model_kwargs(**{flag: True}))).init(device="cpu")
+        temporal = dict(params, encoder=dict(
+            params["encoder"], temporal_attention_bias={
+                "embedding": torch.zeros((64, N))}))
         with pytest.raises(NotImplementedError):
-            model.apply(params, feats)
+            base_model.apply(temporal, feats)
         causal = BERT4RecModel(config=BERT4RecConfig(
             **model_kwargs(causal_attention=True)))
         out = causal.apply(params, feats)["mlm_logits"]
-        base = BERT4RecModel(config=BERT4RecConfig(**model_kwargs())) \
-            .apply(params, feats)["mlm_logits"]
         assert torch.isfinite(out).all()
         assert float((out - base).abs().max()) > 1e-3
 
@@ -322,3 +332,121 @@ class TestTrainingMode:
         assert torch.equal(
             model.apply(params, feats, training=True, seed=1)["mlm_logits"],
             model.apply(params, feats)["mlm_logits"])
+
+
+class TestSurfaceRepairs:
+    """The JAX surface the port lacked before the flash slice: the
+    wrapper's ``update_params``, ``BERT4RecConfig.to_json_file``,
+    ``model_utils`` (popularity bias, ``rank_items``) and the model's
+    ranking (``rank_with_candidates``, ``rank_full_vocab``,
+    ``rank_items``, ``apply_prediction_mask``), on tie-free logits."""
+
+    def test_wrapper_update_params_saves_what_jax_loads(self, tmp_path):
+        from bert4rec_tpu.models import BERT4RecModelWrapper as JaxWrapper
+        from bert4rec_tpu_torch.models import BERT4RecModelWrapper
+        kw = model_kwargs()
+        model = BERT4RecModel(config=BERT4RecConfig(**kw))
+        flat = random_params(JaxModel(config=JaxConfig(**kw)), 21)
+        wrapper = BERT4RecModelWrapper(model)
+        with pytest.raises(RuntimeError):
+            wrapper.save(tmp_path / "none", mode=2)
+        params = params_from_numpy(flat, "cpu")
+        wrapper.update_params(params)
+        assert wrapper.params is params
+        wrapper.save(tmp_path / "port", mode=2)
+        jwrapper, _ = JaxWrapper.load(tmp_path / "port", mode=2)
+        loaded = flatten(jwrapper.params)
+        assert set(loaded) == set(flat)
+        for k, v in flat.items():
+            np.testing.assert_array_equal(np.asarray(loaded[k]), v)
+        jwrapper.update_params(to_jax(flat))   # the JAX call it mirrors
+
+    def test_config_to_json_file_round_trips_like_jax(self, tmp_path):
+        kw = model_kwargs(use_flash_attention=True, remat=True,
+                          vocab_pad_to=8)
+        ours = BERT4RecConfig(**kw)
+        ours.to_json_file(tmp_path / "new" / "ours.json")
+        JaxConfig(**kw).to_json_file(tmp_path / "theirs.json")
+        assert BERT4RecConfig.from_json_file(tmp_path / "new" / "ours.json") \
+            == ours
+        assert json.loads((tmp_path / "new" / "ours.json").read_text()) \
+            == json.loads((tmp_path / "theirs.json").read_text())
+        assert JaxConfig.from_json_file(
+            tmp_path / "new" / "ours.json").to_dict() == ours.to_dict()
+
+    def test_init_output_bias_from_popularity_matches_jax(self):
+        from bert4rec_tpu.models import model_utils as jax_utils
+        from bert4rec_tpu_torch.models import model_utils
+        kw = model_kwargs(vocab_pad_to=8)
+        flat = random_params(JaxModel(config=JaxConfig(**kw)), 22)
+        counts = np.random.default_rng(22).integers(0, 50, size=V - 5)
+        params = params_from_numpy(flat, "cpu")
+        before = params["mlm"]["output_bias"].clone()
+        ours = model_utils.init_output_bias_from_popularity(params, counts,
+                                                            smoothing=0.5)
+        theirs = jax_utils.init_output_bias_from_popularity(
+            to_jax(flat), counts, smoothing=0.5)
+        np.testing.assert_allclose(ours["mlm"]["output_bias"].numpy(),
+                                   np.asarray(theirs["mlm"]["output_bias"]),
+                                   rtol=1e-6, atol=1e-6)
+        assert ours["mlm"]["output_bias"].dtype == torch.float32
+        assert torch.equal(params["mlm"]["output_bias"], before)
+        assert ours["encoder"] is params["encoder"]
+        with pytest.raises(ValueError):
+            model_utils.init_output_bias_from_popularity(params, counts, 0.0)
+        with pytest.raises(ValueError):
+            model_utils.init_output_bias_from_popularity(
+                params, np.ones(200))
+
+    @pytest.mark.parametrize("mode", ["vocab", "embeddings", "row_items",
+                                      "shared_items"])
+    def test_model_utils_rank_items_matches_jax(self, mode):
+        from bert4rec_tpu.models import model_utils as jax_utils
+        from bert4rec_tpu_torch.models import model_utils
+        rng = np.random.default_rng(23)
+        emb = rng.normal(size=(V, H)).astype(np.float32)
+        x = rng.normal(size=(B, 3, H if mode == "embeddings" else V)) \
+            .astype(np.float32)
+        items = {"row_items": rng.integers(0, V, size=(B, 3, 9)),
+                 "shared_items": rng.permutation(V)[:9]}.get(mode)
+        kw = {"embeddings": emb} if mode == "embeddings" else {}
+        ours = model_utils.rank_items(
+            torch.from_numpy(x),
+            **{k: torch.from_numpy(v) for k, v in kw.items()},
+            items=None if items is None else torch.from_numpy(items))
+        theirs = jax_utils.rank_items(
+            jnp.asarray(x), **{k: jnp.asarray(v) for k, v in kw.items()},
+            items=None if items is None else jnp.asarray(items))
+        np.testing.assert_array_equal(ours[0].numpy(), np.asarray(theirs[0]))
+        np.testing.assert_allclose(ours[1].numpy(), np.asarray(theirs[1]),
+                                   rtol=1e-5, atol=1e-6)
+
+    def test_model_ranking_and_prediction_mask_match_jax(self):
+        kw = model_kwargs(vocab_pad_to=8)
+        jax_model = JaxModel(config=JaxConfig(**kw))
+        model = BERT4RecModel(config=BERT4RecConfig(**kw))
+        flat = random_params(jax_model, 24)
+        feats = features(24)
+        jp, tp = to_jax(flat), params_from_numpy(flat, "cpu")
+        jf = {k: jnp.asarray(v) for k, v in feats.items()}
+        tf = {k: torch.from_numpy(v) for k, v in feats.items()}
+        masked = model.apply(tp, tf, apply_prediction_mask=True)
+        jmasked = jax_model.apply(jp, jf, apply_prediction_mask=True)
+        np.testing.assert_allclose(masked["mlm_logits"].numpy(),
+                                   np.asarray(jmasked["mlm_logits"]), **TOL)
+        assert (masked["mlm_logits"][..., :3] < -5e8).all()
+        cand = np.random.default_rng(24).integers(3, V, size=(B, 3, 11))
+        for ours, theirs in (
+                (model.rank_with_candidates(tp, tf, torch.from_numpy(cand)),
+                 jax_model.rank_with_candidates(jp, jf, jnp.asarray(cand))),
+                (model.rank_full_vocab(tp, tf),
+                 jax_model.rank_full_vocab(jp, jf)),
+                (model.rank_items(tp, tf, cand),
+                 jax_model.rank_items(jp, jf, cand)),
+                (model.rank_items(tp, tf), jax_model.rank_items(jp, jf))):
+            np.testing.assert_array_equal(ours[0].numpy(),
+                                          np.asarray(theirs[0]))
+            np.testing.assert_allclose(ours[1].numpy(), np.asarray(theirs[1]),
+                                       rtol=1e-4, atol=1e-6)
+        ids, probs = model.rank_full_vocab(tp, tf, with_probabilities=False)
+        assert probs is None and ids.shape == (B, 3, 64)
