@@ -6,6 +6,7 @@
 // Function, per (batch element b, head n), T float or bf16, sums in fp32:
 //
 //   s    = q k^T * scale + (mask > 0 ? 0 : -1e9) [+ (key > query ? -1e9 : 0)]
+//          [+ rel[b, n, query, key]]
 //   p    = exp(s - max_j s) * (1 / sum_j exp(s - max_j s))      (fp32)
 //   o    = T(T(p * keep) v)
 // and its backward (the TPU kernels' _bwd_kernel / _bwd_element):
@@ -38,7 +39,21 @@
 //   attn_bwd_dkv_kernel  one block per (key tile, head, batch element),
 //                        looping over the query tiles: dk and dv.
 // Both backward kernels read the forward's row statistics, so they recompute
-// its probabilities bit for bit. Weight-free: no split-K reduction, and two
+// its probabilities bit for bit.
+//
+// Relative bias (kRel, the fused layer's K1'' rel_bias / K2 dRel; the
+// temporal family's relative-time bias): rel is an fp32 [B, N, S, S] tensor
+// (JAX's head-major [B, N*S, S]) added to the scores after the pad and
+// causal biases, in fp32, as the TPU kernel adds it. Every kernel that forms
+// scores reads it straight from device memory in tile_scores' 4 x 4 pattern
+// (16 consecutive keys per half-warp, no shared-memory tile), so the
+// recomputed probabilities stay bitwise the forward's. attn_bwd_dq_kernel
+// writes its gradient drel = p (dp - delta) in fp32, before the rounding to
+// T the dq product reads, and zeros where causal_skip skips a key tile (p is
+// 0 there). kRel is a template switch: without it the kernels compile to
+// the code they ran before it existed (flash attention never passes rel).
+// It adds 4 B per (query, key) pair read per pass (two forward, three
+// backward) and 4 B written: bytes, not operations, bound what it adds. Weight-free: no split-K reduction, and two
 // runs give the same bits. The fused layer also asks for the column sums of
 // dq, dk and dv per tile (its qkv bias gradient): `part`, null for K8/K9.
 // With bf16 operands the products QK^T, dO V^T, p v, ds k, ds^T q and
@@ -107,11 +122,17 @@ __device__ __forceinline__ void load_mask_bias(float* mb, const int32_t* __restr
 // pad_bias + causal_bias: a padded key above the diagonal scores -2e9, one
 // on or below it -1e9, so a row that sees only padding is uniform over
 // its keys j <= i, as in the TPU kernels.
-template <bool kMma>
+//
+// With kRel, `rel` is this (batch element, head)'s [S, S] fp32 slab; its
+// entry (query, key) is added last, to the keys inside the sequence of the
+// query rows inside it (S = 200 leaves a partial last tile).
+template <bool kMma, bool kRel = false>
 __device__ __forceinline__ void tile_scores(float s[4][4], const float* Qs,
                                             const float* Ks, const float* mb,
                                             int tx, int ty, int D, float scale,
-                                            float* scr, int q0, int t0, int causal) {
+                                            float* scr, int q0, int t0, int causal,
+                                            const float* __restrict__ rel = nullptr,
+                                            int S = 0) {
   tile_dots<kMma>(s, Qs, Ks, tx, ty, D, scr);
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
@@ -121,8 +142,18 @@ __device__ __forceinline__ void tile_scores(float s[4][4], const float* Qs,
     for (int i = 0; i < 4; ++i) {
       const float bias = (causal && key > q0 + ty + 16 * i) ? b + kAttnNegMask : b;
       s[i][j] = (b == -INFINITY) ? -INFINITY : s[i][j] * scale + bias;
+      if constexpr (kRel) {
+        const int q = q0 + ty + 16 * i;
+        if (b != -INFINITY && q < S) s[i][j] += __ldg(rel + q * S + key);
+      }
     }
   }
+}
+
+// This (batch element, head)'s [S, S] slab of a [B, N, S, S] tensor.
+template <typename P>
+__device__ __forceinline__ P* head_slab(P* t, int b, int head, int N, int S) {
+  return t + ((size_t)b * N + head) * S * S;
 }
 
 // Whether a causal block may skip the key tiles wholly after its query
@@ -142,12 +173,13 @@ __device__ __forceinline__ int key_tiles_end(int q0, int S, int skip) {
   return skip ? min(S, q0 + AT_BQ) : S;
 }
 
-template <typename T, int DJ>
+template <typename T, int DJ, bool kRel>
 __global__ void __launch_bounds__(256)
 attention_kernel(Heads<const T> q, Heads<const T> k, Heads<const T> v,
                  const int32_t* __restrict__ mask, Heads<T> o,
                  float* __restrict__ stat_m, float* __restrict__ stat_l, Drop drop,
-                 int S, int N, int D, float scale, int causal) {
+                 int S, int N, int D, float scale, int causal,
+                 const float* __restrict__ rel) {
   extern __shared__ float smem[];
   float* Qs = smem;                          // [AT_BQ][D + 1]
   float* Ks = Qs + AT_BQ * (D + 1);          // [AT_BKV][D + 1]
@@ -164,6 +196,7 @@ attention_kernel(Heads<const T> q, Heads<const T> k, Heads<const T> v,
   constexpr bool kMma = kIsBf16<T>;
   const uint32_t hk = site_key(drop, b, head);  // this block's site
   const int t_end = key_tiles_end(q0, S, causal_skip(mask_row, causal));
+  const float* relh = kRel ? head_slab(rel, b, head, N, S) : nullptr;
 
   load_head_tile<true>(Qs, qh, q.ss, q0, S, D);
 
@@ -175,7 +208,7 @@ attention_kernel(Heads<const T> q, Heads<const T> k, Heads<const T> v,
     load_head_tile<true>(Ks, kh, k.ss, t0, S, D);
     load_mask_bias<true>(mb, mask_row, t0, S);
     __syncthreads();
-    tile_scores<kMma>(s, Qs, Ks, mb, tx, ty, D, scale, Ps, q0, t0, causal);
+    tile_scores<kMma, kRel>(s, Qs, Ks, mb, tx, ty, D, scale, Ps, q0, t0, causal, relh, S);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       float tmax = fmaxf(fmaxf(s[i][0], s[i][1]), fmaxf(s[i][2], s[i][3]));
@@ -211,7 +244,7 @@ attention_kernel(Heads<const T> q, Heads<const T> k, Heads<const T> v,
     load_head_tile<true>(Vs, vh, v.ss, t0, S, D);
     load_mask_bias<true>(mb, mask_row, t0, S);
     __syncthreads();
-    tile_scores<kMma>(s, Qs, Ks, mb, tx, ty, D, scale, Ps, q0, t0, causal);
+    tile_scores<kMma, kRel>(s, Qs, Ks, mb, tx, ty, D, scale, Ps, q0, t0, causal, relh, S);
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -275,29 +308,32 @@ inline size_t attention_smem_bytes(int D) {
          (size_t)(AT_BQ * (D + 1) + 2 * AT_BKV * (D + 1) + AT_BQ * (AT_BKV + 1) + AT_BKV);
 }
 
-template <typename T, int DJ>
+template <typename T, int DJ, bool kRel>
 cudaError_t launch_attention(Heads<const T> q, Heads<const T> k, Heads<const T> v,
                              const int32_t* mask, Heads<T> o, float* stat_m,
                              float* stat_l, Drop drop, int B, int S, int N, int D,
-                             float scale, int causal, cudaStream_t stream) {
+                             float scale, int causal, const float* rel,
+                             cudaStream_t stream) {
   const size_t smem = attention_smem_bytes(D);
-  cudaError_t err = cudaFuncSetAttribute(
-      attention_kernel<T, DJ>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t err = cudaFuncSetAttribute(attention_kernel<T, DJ, kRel>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
   if (err != cudaSuccess) return err;
-  attention_kernel<T, DJ><<<dim3(ceil_div(S, AT_BQ), N, B), 256, smem, stream>>>(
-      q, k, v, mask, o, stat_m, stat_l, drop, S, N, D, scale, causal);
+  attention_kernel<T, DJ, kRel><<<dim3(ceil_div(S, AT_BQ), N, B), 256, smem, stream>>>(
+      q, k, v, mask, o, stat_m, stat_l, drop, S, N, D, scale, causal, rel);
   return cudaGetLastError();
 }
 
-// o = attention(q, k, v); stat_m / stat_l ([B, N, S]) may be null
-template <typename T>
+// o = attention(q, k, v); stat_m / stat_l ([B, N, S]) may be null; with
+// kRel, rel ([B, N, S, S] fp32) is added to the scores
+template <typename T, bool kRel = false>
 cudaError_t attention(Heads<const T> q, Heads<const T> k, Heads<const T> v,
                       const int32_t* mask, Heads<T> o, float* stat_m, float* stat_l,
                       Drop drop, int B, int S, int N, int D, float scale, int causal,
-                      cudaStream_t stream) {
+                      cudaStream_t stream, const float* rel = nullptr) {
 #define B4R_AT(DJV) \
-  launch_attention<T, DJV>(q, k, v, mask, o, stat_m, stat_l, drop, B, S, N, D, scale, \
-                           causal, stream)
+  launch_attention<T, DJV, kRel>(q, k, v, mask, o, stat_m, stat_l, drop, B, S, N, D, \
+                                 scale, causal, rel, stream)
   switch (pow2_at_least(ceil_div(D, 16))) {
     case 1: return B4R_AT(1);
     case 2: return B4R_AT(2);
@@ -311,14 +347,14 @@ cudaError_t attention(Heads<const T> q, Heads<const T> k, Heads<const T> v,
 // attn_bwd_dq_kernel: one block per (query tile, head, batch element);
 // writes dq, delta and, with `part`, the dq columns' sums per tile
 // (part [B * n_query_tiles][3 N D], dq in the first N D columns).
-template <typename T, int DJ>
+template <typename T, int DJ, bool kRel>
 __global__ void __launch_bounds__(256)
 attn_bwd_dq_kernel(Heads<const T> q, Heads<const T> k, Heads<const T> v,
                    Heads<const T> dout, const int32_t* __restrict__ mask,
                    const float* __restrict__ stat_m, const float* __restrict__ stat_l,
                    Drop drop, float* __restrict__ delta_out, Heads<T> dq,
                    float* __restrict__ part, int S, int N, int D, float scale,
-                   int causal) {
+                   int causal, const float* __restrict__ rel, float* __restrict__ drel) {
   extern __shared__ float smem[];
   float* Qs = smem;                          // [64][D + 1]
   float* Cs = Qs + AT_BQ * (D + 1);          // dO rows of the query tile
@@ -337,6 +373,8 @@ attn_bwd_dq_kernel(Heads<const T> q, Heads<const T> k, Heads<const T> v,
   const uint32_t hk = site_key(drop, b, head);  // this block's site
   const size_t stat0 = ((size_t)b * N + head) * S;
   const int t_end = key_tiles_end(q0, S, causal_skip(mask_row, causal));
+  const float* relh = kRel ? head_slab(rel, b, head, N, S) : nullptr;
+  float* drelh = kRel ? head_slab(drel, b, head, N, S) : nullptr;
 
   load_head_tile(Qs, qh, q.ss, q0, S, D);
   load_head_tile(Cs, dout.at(b, head), dout.ss, q0, S, D);
@@ -356,7 +394,7 @@ attn_bwd_dq_kernel(Heads<const T> q, Heads<const T> k, Heads<const T> v,
     load_head_tile(Vs, vh, v.ss, t0, S, D);
     load_mask_bias(mb, mask_row, t0, S);
     __syncthreads();
-    tile_scores<kMma>(s, Qs, Ks, mb, tx, ty, D, scale, Ps, q0, t0, causal);
+    tile_scores<kMma, kRel>(s, Qs, Ks, mb, tx, ty, D, scale, Ps, q0, t0, causal, relh, S);
     tile_dots<kMma>(dd, Cs, Vs, tx, ty, D, Ps);
 #pragma unroll
     for (int i = 0; i < 4; ++i)
@@ -390,7 +428,7 @@ attn_bwd_dq_kernel(Heads<const T> q, Heads<const T> k, Heads<const T> v,
     load_head_tile(Vs, vh, v.ss, t0, S, D);
     load_mask_bias(mb, mask_row, t0, S);
     __syncthreads();
-    tile_scores<kMma>(s, Qs, Ks, mb, tx, ty, D, scale, Ps, q0, t0, causal);
+    tile_scores<kMma, kRel>(s, Qs, Ks, mb, tx, ty, D, scale, Ps, q0, t0, causal, relh, S);
     tile_dots<kMma>(dd, Cs, Vs, tx, ty, D, Ps);
 #pragma unroll
     for (int i = 0; i < 4; ++i)
@@ -401,7 +439,12 @@ attn_bwd_dq_kernel(Heads<const T> q, Heads<const T> k, Heads<const T> v,
         if (drop.on)
           dp *= keep_scale_k(drop, hk,
                              (uint32_t)((q0 + ty + 16 * i) * S + t0 + tx + 16 * j));
-        Ps[(ty + 16 * i) * (AT_BKV + 1) + tx + 16 * j] = round_to<T>(p * (dp - delta[i]));
+        const float ds = p * (dp - delta[i]);
+        if constexpr (kRel) {  // dRel: the fp32 ds, before the rounding
+          const int qr = q0 + ty + 16 * i, key = t0 + tx + 16 * j;
+          if (qr < S && key < S) drelh[qr * S + key] = ds;
+        }
+        Ps[(ty + 16 * i) * (AT_BKV + 1) + tx + 16 * j] = round_to<T>(ds);
       }
     __syncthreads();
     if constexpr (kMma) {
@@ -424,6 +467,16 @@ attn_bwd_dq_kernel(Heads<const T> q, Heads<const T> k, Heads<const T> v,
       }
     }
     __syncthreads();
+  }
+  if constexpr (kRel) {  // the key tiles causal_skip skipped: p = 0, dRel = 0
+    for (int t0 = t_end; t0 < S; t0 += AT_BKV)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int qr = q0 + ty + 16 * i, key = t0 + tx + 16 * j;
+          if (qr < S && key < S) drelh[qr * S + key] = 0.f;
+        }
   }
   if constexpr (kMma) {  // fragments -> the (ty, tx) layout, through Qs
     spill_64xD<DJ>(Qs, D + 1, co, D);
@@ -474,14 +527,14 @@ attn_bwd_dq_kernel(Heads<const T> q, Heads<const T> k, Heads<const T> v,
 // attn_bwd_dkv_kernel: one block per (key tile, head, batch element); loops
 // over the query tiles; writes dk, dv and, with `part`, their columns' sums
 // per tile (dk in columns N D .. 2 N D - 1, dv in 2 N D .. 3 N D - 1).
-template <typename T, int DJ>
+template <typename T, int DJ, bool kRel>
 __global__ void __launch_bounds__(256)
 attn_bwd_dkv_kernel(Heads<const T> q, Heads<const T> k, Heads<const T> v,
                     Heads<const T> dout, const int32_t* __restrict__ mask,
                     const float* __restrict__ stat_m, const float* __restrict__ stat_l,
                     const float* __restrict__ delta, Drop drop, Heads<T> dk,
                     Heads<T> dv, float* __restrict__ part, int S, int N, int D,
-                    float scale, int causal) {
+                    float scale, int causal, const float* __restrict__ rel) {
   extern __shared__ float smem[];
   float* Ks = smem;                          // [64][D + 1] key tile
   float* Vs = Ks + AT_BKV * (D + 1);
@@ -502,6 +555,7 @@ attn_bwd_dkv_kernel(Heads<const T> q, Heads<const T> k, Heads<const T> v,
   constexpr bool kMma = kIsBf16<T>;
   const uint32_t hk = site_key(drop, b, head);  // this block's site
   const size_t stat0 = ((size_t)b * N + head) * S;
+  const float* relh = kRel ? head_slab(rel, b, head, N, S) : nullptr;
 
   load_head_tile(Ks, k.at(b, head), k.ss, k0, S, D);
   load_head_tile(Vs, v.at(b, head), v.ss, k0, S, D);
@@ -526,7 +580,7 @@ attn_bwd_dkv_kernel(Heads<const T> q, Heads<const T> k, Heads<const T> v,
       rd[r] = t < S ? delta[stat0 + t] : 0.f;
     }
     __syncthreads();
-    tile_scores<kMma>(s, Qs, Ks, mb, tx, ty, D, scale, Ss, q0, k0, causal);
+    tile_scores<kMma, kRel>(s, Qs, Ks, mb, tx, ty, D, scale, Ss, q0, k0, causal, relh, S);
     tile_dots<kMma>(dd, Cs, Vs, tx, ty, D, Ss);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -639,43 +693,47 @@ inline size_t attn_bwd_dkv_smem_bytes(int D) {
          (size_t)(4 * AT_BQ * (D + 1) + 2 * AT_BQ * (AT_BKV + 1) + AT_BKV + 3 * AT_BQ);
 }
 
-template <typename T, int DJ>
+template <typename T, int DJ, bool kRel>
 cudaError_t launch_attn_bwd(Heads<const T> q, Heads<const T> k, Heads<const T> v,
                             Heads<const T> dout, const int32_t* mask,
                             const float* stat_m, const float* stat_l, Drop drop,
                             float* delta, Heads<T> dq, Heads<T> dk, Heads<T> dv,
                             float* part, int B, int S, int N, int D, float scale,
-                            int causal, cudaStream_t stream) {
+                            int causal, const float* rel, float* drel,
+                            cudaStream_t stream) {
   const dim3 grid(ceil_div(S, AT_BQ), N, B);
   size_t smem = attn_bwd_dq_smem_bytes(D);
-  cudaError_t err = cudaFuncSetAttribute(attn_bwd_dq_kernel<T, DJ>,
+  cudaError_t err = cudaFuncSetAttribute(attn_bwd_dq_kernel<T, DJ, kRel>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return err;
-  attn_bwd_dq_kernel<T, DJ><<<grid, 256, smem, stream>>>(
-      q, k, v, dout, mask, stat_m, stat_l, drop, delta, dq, part, S, N, D, scale, causal);
+  attn_bwd_dq_kernel<T, DJ, kRel><<<grid, 256, smem, stream>>>(
+      q, k, v, dout, mask, stat_m, stat_l, drop, delta, dq, part, S, N, D, scale, causal,
+      rel, drel);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   smem = attn_bwd_dkv_smem_bytes(D);
-  err = cudaFuncSetAttribute(attn_bwd_dkv_kernel<T, DJ>,
+  err = cudaFuncSetAttribute(attn_bwd_dkv_kernel<T, DJ, kRel>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  attn_bwd_dkv_kernel<T, DJ><<<grid, 256, smem, stream>>>(
+  attn_bwd_dkv_kernel<T, DJ, kRel><<<grid, 256, smem, stream>>>(
       q, k, v, dout, mask, stat_m, stat_l, delta, drop, dk, dv, part, S, N, D, scale,
-      causal);
+      causal, rel);
   return cudaGetLastError();
 }
 
 // dq, dk, dv of attention(q, k, v) for the output gradient dout, from the
-// forward's row statistics; delta is [B, N, S] scratch, part may be null
-template <typename T>
+// forward's row statistics; delta is [B, N, S] scratch, part may be null;
+// with kRel the scores add rel and drel ([B, N, S, S] fp32) gets its gradient
+template <typename T, bool kRel = false>
 cudaError_t attn_bwd(Heads<const T> q, Heads<const T> k, Heads<const T> v,
                      Heads<const T> dout, const int32_t* mask, const float* stat_m,
                      const float* stat_l, Drop drop, float* delta, Heads<T> dq,
                      Heads<T> dk, Heads<T> dv, float* part, int B, int S, int N, int D,
-                     float scale, int causal, cudaStream_t stream) {
-#define B4R_AB(DJV)                                                                   \
-  launch_attn_bwd<T, DJV>(q, k, v, dout, mask, stat_m, stat_l, drop, delta, dq, dk, dv, \
-                          part, B, S, N, D, scale, causal, stream)
+                     float scale, int causal, cudaStream_t stream,
+                     const float* rel = nullptr, float* drel = nullptr) {
+#define B4R_AB(DJV)                                                                      \
+  launch_attn_bwd<T, DJV, kRel>(q, k, v, dout, mask, stat_m, stat_l, drop, delta, dq, dk, \
+                                dv, part, B, S, N, D, scale, causal, rel, drel, stream)
   switch (pow2_at_least(ceil_div(D, 16))) {
     case 1: return B4R_AB(1);
     case 2: return B4R_AB(2);

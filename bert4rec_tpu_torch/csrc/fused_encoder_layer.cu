@@ -3,15 +3,17 @@
 //
 // Replaces the TPU kernels of bert4rec_tpu/ops/fused_encoder_layer.py:
 //   K1  _fwd_kernel (launched by _run_forward), with attention-probability
-//       and output dropout, and its causal variant (causal=True, SASRec);
-//       no relative-time bias;
-//   K2  _bwd_kernel / _bwd_element (launched by _run_backward), causal too.
+//       and output dropout, its causal variant (causal=True, SASRec) and its
+//       relative-bias variant (K1'' rel_bias, the temporal family);
+//   K2  _bwd_kernel / _bwd_element (launched by _run_backward), causal and
+//       with rel_bias too, then also writing dRel (K2 dRel).
 // The forward computes _layer_fwd_math step by step, with the same rounding
 // points (T is float or bf16, every sum is fp32):
 //
 //   qkv  = T(x Wqkv + bqkv)
 //   p    = softmax_fp32(q k^T / sqrt(D) + (mask > 0 ? 0 : -1e9)
-//                       [+ (key > query ? -1e9 : 0) if causal])     per head
+//                       [+ (key > query ? -1e9 : 0) if causal]
+//                       [+ rel[b, head] if rel_bias])                per head
 //   ctx  = T(T(p * keep_h) v)
 //   x1   = T(LN1(x + (ctx Wo + bo) * keep_N))
 //   hact = T(gelu_tanh(x1 W1 + b1))
@@ -60,6 +62,17 @@
 // tiles wholly before its key tile) where that is exact: see causal_skip.
 // The saved row max and sum are the causal ones, so the backward
 // recomputes the same probabilities; the dropout counters are unchanged.
+//
+// Relative bias (K1'' rel_bias, K2 dRel; the temporal family). rel is the
+// encoder's fp32 [B, N, S, S] relative-time bias, built once per step and
+// shared by every layer, as the TPU kernel streams it per cell. The
+// attention kernels read it as a compile-time variant of attention.cuh's
+// tiles (added after the pad and causal biases, before the softmax; the
+// saved row statistics include it), and the backward's dq kernel writes
+// dRel = p (dp - delta) in fp32 before rounding: the gradient the encoder
+// chains onto its (bucket, head) table. At ml-20m_128 (B=256, S=200, N=4)
+// rel and dRel are 164 MB each, against ~99 MFLOP per sequence: the bias
+// adds bytes, not operations.
 //
 // Bound. ~99 MFLOP per sequence forward and ~198 backward at S=200, H=128,
 // F=512 (causal: ~89 and ~178, the attention products over the lower
@@ -356,7 +369,7 @@ Heads<P> packed(P* qkv, int S, int H, int D, int section) {
 enum FwdPtr {
   F_X, F_MASK, F_WQKV, F_BQKV, F_WO, F_BO, F_G1, F_B1LN, F_W1, F_BF1, F_W2, F_BF2,
   F_G2, F_B2LN, F_QKV, F_CTX, F_X1, F_HACT, F_Y, F_XHAT1, F_RSTD1, F_XHAT2,
-  F_RSTD2, F_STAT_M, F_STAT_L, F_COUNT
+  F_RSTD2, F_STAT_M, F_STAT_L, F_REL, F_COUNT
 };
 
 template <typename T>
@@ -377,14 +390,18 @@ int layer_forward(void* const* p, int B, int S, int H, int N, int F, int causal,
   if ((err = gemm<T, EPI_BIAS>(x, wt(F_WQKV), f32(F_BQKV), nullptr, qkv, M, 3 * H, H,
                                stream)) != cudaSuccess)
     return (int)err;
-  // 2. ctx = T(T(softmax(q k^T * scale + mask bias [+ causal bias]) * keep) v),
-  //    per head
+  // 2. ctx = T(T(softmax(q k^T * scale + mask bias [+ causal bias] [+ rel])
+  //    * keep) v), per head
   const T* cqkv = qkv;
-  if ((err = attention<T>(packed(cqkv, S, H, D, 0), packed(cqkv, S, H, D, 1),
-                          packed(cqkv, S, H, D, 2), mask, Heads<T>{ctx, (long long)S * H, D, H},
-                          f32(F_STAT_M), f32(F_STAT_L), attn_drop, B, S, N, D, scale,
-                          causal, stream)) != cudaSuccess)
-    return (int)err;
+  const Heads<const T> hq = packed(cqkv, S, H, D, 0), hk = packed(cqkv, S, H, D, 1),
+                       hv = packed(cqkv, S, H, D, 2);
+  const Heads<T> hctx{ctx, (long long)S * H, D, H};
+  const float* rel = static_cast<const float*>(p[F_REL]);
+  err = rel ? attention<T, true>(hq, hk, hv, mask, hctx, f32(F_STAT_M), f32(F_STAT_L),
+                                 attn_drop, B, S, N, D, scale, causal, stream, rel)
+            : attention<T>(hq, hk, hv, mask, hctx, f32(F_STAT_M), f32(F_STAT_L),
+                           attn_drop, B, S, N, D, scale, causal, stream);
+  if (err != cudaSuccess) return (int)err;
   // 3. x1 = T(LN1(x + (ctx Wo + bo) * keep_N))
   if ((err = gemm_ln<T>(ctx, wt(F_WO), f32(F_BO), x, f32(F_G1), f32(F_B1LN), x1,
                         f32(F_XHAT1), f32(F_RSTD1), out_drop, N, S, M, H, H,
@@ -686,7 +703,7 @@ enum BwdPtr {
   B_X, B_MASK, B_DY, B_WQKV_T, B_WO_T, B_W1, B_W1_T, B_W2_T, B_BF1, B_G1, B_G2,
   B_QKV, B_CTX, B_X1, B_HACT, B_XHAT1, B_RSTD1, B_XHAT2, B_RSTD2, B_STAT_M,
   B_STAT_L, B_DX, B_DWQKV, B_DBQKV, B_DWO, B_GLN1, B_DW1, B_DBF1, B_DW2, B_GLN2,
-  B_WORKSPACE, B_COUNT
+  B_WORKSPACE, B_REL, B_DREL, B_COUNT
 };
 
 // Carves the backward's scratch from one workspace; with base == nullptr
@@ -756,14 +773,20 @@ int layer_backward(void* const* p, int B, int S, int H, int N, int F, int causal
   // 7. dctx = T(dattn Wo^T)
   B4R_TRY((gemm<T, EPI_NONE>(w.dattn, wt(B_WO_T), nullptr, nullptr, w.dctx, M, H, H,
                              stream)));
-  // 8. attention: dq, dk, dv -> dqkv; dbqkv
+  // 8. attention: dq, dk, dv -> dqkv; dbqkv; with rel, dRel
   const T* qkv = wt(B_QKV);
-  B4R_TRY(attn_bwd<T>(packed(qkv, S, H, D, 0), packed(qkv, S, H, D, 1),
-                      packed(qkv, S, H, D, 2),
-                      Heads<const T>{w.dctx, (long long)S * H, D, H}, mask, f32(B_STAT_M),
-                      f32(B_STAT_L), attn_drop, w.delta, packed(w.dqkv, S, H, D, 0),
-                      packed(w.dqkv, S, H, D, 1), packed(w.dqkv, S, H, D, 2), w.part_qkv,
-                      B, S, N, D, scale, causal, stream));
+  const Heads<const T> hq = packed(qkv, S, H, D, 0), hk = packed(qkv, S, H, D, 1),
+                       hv = packed(qkv, S, H, D, 2),
+                       hdo{w.dctx, (long long)S * H, D, H};
+  const Heads<T> hdq = packed(w.dqkv, S, H, D, 0), hdk = packed(w.dqkv, S, H, D, 1),
+                 hdv = packed(w.dqkv, S, H, D, 2);
+  const float* rel = static_cast<const float*>(p[B_REL]);
+  B4R_TRY((rel ? attn_bwd<T, true>(hq, hk, hv, hdo, mask, f32(B_STAT_M), f32(B_STAT_L),
+                                    attn_drop, w.delta, hdq, hdk, hdv, w.part_qkv, B, S,
+                                    N, D, scale, causal, stream, rel, f32(B_DREL))
+               : attn_bwd<T>(hq, hk, hv, hdo, mask, f32(B_STAT_M), f32(B_STAT_L),
+                             attn_drop, w.delta, hdq, hdk, hdv, w.part_qkv, B, S, N, D,
+                             scale, causal, stream)));
   B4R_TRY(reduce_rows(w.part_qkv, f32(B_DBQKV), B * ceil_div(S, AT_BQ), 3 * H, stream));
   // 9. dWqkv = x^T dqkv
   B4R_TRY(wgrad<T>(wt(B_X), w.dqkv, w.wsplit, f32(B_DWQKV), M, H, 3 * H, stream));
@@ -792,7 +815,9 @@ size_t b4r_fused_layer_bwd_workspace_bytes(int dtype, int B, int S, int H, int N
 // activations and y; biases, LayerNorm params, statistics and gradients of
 // the weights are always float32. ptrs: _FWD_PTRS order; the six training
 // outputs (xhat1 .. stat_l) may be null at inference. causal != 0 adds the
-// TPU kernel's causal bias (K1'' causal). A rate of 0 is `*_on == 0`.
+// TPU kernel's causal bias (K1'' causal); a non-null rel ([B, N, S, S]
+// float32) adds the relative bias (K1'' rel_bias). A rate of 0 is
+// `*_on == 0`.
 int b4r_fused_layer_fwd(int dtype, void* const* ptrs, int B, int S, int H, int N,
                         int F, int causal, float scale, unsigned seed,
                         unsigned attn_threshold, float attn_scale, int attn_on,
@@ -810,8 +835,9 @@ int b4r_fused_layer_fwd(int dtype, void* const* ptrs, int B, int S, int H, int N
 
 // ptrs: _BWD_PTRS order. Gradients: dx in dtype; dwqkv [H, 3H], dbqkv [3H],
 // dwo [H, H], gln1 [3, H] = (dg1, db1, dbo), dw1 [H, F], dbf1 [F],
-// dw2 [F, H], gln2 [3, H] = (dg2, db2, dbf2), all float32. causal must be
-// the forward's (its saved row statistics are of the causal scores).
+// dw2 [F, H], gln2 [3, H] = (dg2, db2, dbf2), all float32. causal and rel
+// must be the forward's (its saved row statistics are of those scores);
+// with rel, drel ([B, N, S, S] float32) receives dRel (K2 dRel).
 int b4r_fused_layer_bwd(int dtype, void* const* ptrs, int B, int S, int H, int N,
                         int F, int causal, float scale, unsigned seed,
                         unsigned attn_threshold, float attn_scale, int attn_on,

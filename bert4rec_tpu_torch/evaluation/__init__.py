@@ -1,6 +1,7 @@
 """Evaluation: rank metrics and the sampled / full-catalog evaluator (port
-of ``bert4rec_tpu/evaluation``; the baselines, the oracles and the quality
-harness come with a later slice)."""
+of ``bert4rec_tpu/evaluation``), and the quality harness's temporal gate
+(``quality_harness.run_smoke_temporal``); the baselines, the oracles and
+the harness's other modes come with a later slice."""
 
 from bert4rec_tpu_torch.evaluation import evaluation_metrics, evaluation_utils
 from bert4rec_tpu_torch.evaluation.evaluation_metrics import (

@@ -100,7 +100,9 @@ class BERT4RecModel:
         tied table: the front half of the fused-loss path."""
         enc = self.encoder.apply(params["encoder"], inputs["input_word_ids"],
                                  inputs["input_mask"], training=training,
-                                 seed=seed)
+                                 seed=seed,
+                                 input_timestamps=inputs.get(
+                                     "input_timestamps"))
         hidden = self.mlm_transform(params, enc["sequence_output"],
                                     inputs["masked_lm_positions"])
         return hidden, Bert4RecEncoder.get_embedding_table(params["encoder"])
@@ -156,7 +158,8 @@ class BERT4RecModel:
         outputs = dict(self.encoder.apply(
             params["encoder"], inputs["input_word_ids"],
             inputs["input_mask"], training=training, seed=seed,
-            output_range=output_range))
+            output_range=output_range,
+            input_timestamps=inputs.get("input_timestamps")))
         if "masked_lm_positions" in inputs:
             logits = self.mlm_logits(params, outputs["sequence_output"],
                                      inputs["masked_lm_positions"])

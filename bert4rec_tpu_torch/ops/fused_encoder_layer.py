@@ -3,8 +3,9 @@
 
 Replaces the TPU kernels ``_fwd_kernel`` (K1, ``_run_forward``) and
 ``_bwd_kernel`` / ``_bwd_element`` (K2, ``_run_backward``) of
-``bert4rec_tpu/ops/fused_encoder_layer.py`` with the hand-written Hopper
-CUDA kernels of ``csrc/fused_encoder_layer.cu``. The TPU kernel kept one
+``bert4rec_tpu/ops/fused_encoder_layer.py``, with their causal and
+relative-bias variants, with the hand-written Hopper CUDA kernels of
+``csrc/fused_encoder_layer.cu``. The TPU kernel kept one
 layer and one sequence in ~14 MB of VMEM per grid cell; an H100 block has
 at most 227 KB of shared memory, so the forward is five launches (tiled
 GEMMs with bias / gelu / residual + dropout + LayerNorm epilogues and a
@@ -26,7 +27,12 @@ x1, the gelu output and y, and dropout on the attention probabilities
 ``N + 1``) with the masks of ``ops/dropout_bits.py``. With ``causal`` the
 scores add the TPU kernel's triangle, ``pad_bias + causal_bias`` (K1''
 causal, the SASRec family): a padded key after its query scores -2e9, one
-on or before it -1e9. The relative-time bias is not ported yet and raises.
+on or before it -1e9. With ``rel_bias`` (K1'' rel_bias and K2 dRel, the
+temporal family) an fp32 ``[B, N, S, S]`` bias is added to the scores after
+the pad and causal biases, and the backward returns its gradient, ``dRel =
+p (dp - delta)`` in fp32 before the rounding to the compute dtype (JAX's
+``ds32``). It adds 4 bytes per score read and, backward, 4 written: at
+ml-20m_128 the bias and its gradient are 164 MB each.
 
 Routing: a CPU tensor runs the plain version (forward and backward); a
 CUDA tensor launches the kernels or raises.
@@ -182,9 +188,10 @@ def causal_bias(seq_len: int, device, dtype=torch.float32) -> torch.Tensor:
 
 def _forward_math(flat: dict, x: torch.Tensor, input_mask: torch.Tensor,
                   num_heads: int, seed: int, attn_rate: float,
-                  out_rate: float, causal: bool = False) -> dict:
+                  out_rate: float, causal: bool = False, rel=None) -> dict:
     """``_layer_fwd_math`` over the whole batch; returns every residual
-    the backward needs."""
+    the backward needs. ``rel`` ([B, N, S, S]) is added to the scores
+    last, in fp32, as the TPU kernel adds it."""
     dtype = x.dtype
     f32 = _work_dtype(dtype)
     b, s, h = x.shape
@@ -203,6 +210,8 @@ def _forward_math(flat: dict, x: torch.Tensor, input_mask: torch.Tensor,
     if causal:
         bias = bias + causal_bias(s, x.device, f32)
     scores = q @ k.transpose(-1, -2) * scale + bias
+    if rel is not None:
+        scores = scores + rel.to(f32)
     m = scores.amax(dim=-1, keepdim=True)
     e = torch.exp2((scores - m) * _LOG2E)
     p = e * (1.0 / e.sum(dim=-1, keepdim=True))                # [B,N,S,S]
@@ -234,13 +243,15 @@ def fused_encoder_layer_plain(params: dict, x: torch.Tensor,
                               attention_dropout: float = 0.0,
                               output_dropout: float = 0.0,
                               seed: int = 0,
-                              causal: bool = False) -> torch.Tensor:
+                              causal: bool = False,
+                              rel_bias=None) -> torch.Tensor:
     """Plain PyTorch version of the fused layer's forward
     (``_layer_fwd_math``, whole batch at once). Matmul operands in the
     input dtype are widened to fp32, so a bf16 product is exact and sums
     are fp32, as on the TPU."""
     return _forward_math(flat_weights(params), x, input_mask, num_heads,
-                         seed, attention_dropout, output_dropout, causal)["y"]
+                         seed, attention_dropout, output_dropout, causal,
+                         rel_bias)["y"]
 
 
 def _rows_sum(t: torch.Tensor) -> torch.Tensor:
@@ -260,16 +271,18 @@ def fused_encoder_layer_plain_backward(flat: dict, x: torch.Tensor,
                                        attention_dropout: float = 0.0,
                                        output_dropout: float = 0.0,
                                        seed: int = 0,
-                                       causal: bool = False):
+                                       causal: bool = False,
+                                       rel_bias=None):
     """Plain PyTorch version of the fused layer's backward
     (``_bwd_element``, whole batch at once): recomputes the forward with
-    the same masks (and triangle) and returns ``(dx, {name: grad})`` with
-    ``dx`` in the input dtype and the 12 flat-operand gradients in the
-    params' dtype."""
+    the same masks (triangle and relative bias) and returns ``(dx,
+    {name: grad})`` with ``dx`` in the input dtype and the 12 flat-operand
+    gradients in the params' dtype; with ``rel_bias`` also ``"rel"``, its
+    gradient ``[B, N, S, S]`` in fp32 (JAX's ``ds32``)."""
     dtype = x.dtype
     f32 = _work_dtype(dtype)
     r = _forward_math(flat, x, input_mask, num_heads, seed,
-                      attention_dropout, output_dropout, causal)
+                      attention_dropout, output_dropout, causal, rel_bias)
     w = r["w"]
     b, s, h = x.shape
     d = h // num_heads
@@ -310,7 +323,8 @@ def fused_encoder_layer_plain_backward(flat: dict, x: torch.Tensor,
     dv = t(d_mat).transpose(-1, -2) @ dctx_h
     dd = dctx_h @ r["v"].transpose(-1, -2)
     dp = dd if keep1 is None else dd * keep1
-    ds = t(p * (dp - (dp * p).sum(dim=-1, keepdim=True)))
+    ds32 = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
+    ds = t(ds32)
     dq = (ds @ r["k"]) * scale
     dk = (ds.transpose(-1, -2) @ r["q"]) * scale
 
@@ -321,7 +335,10 @@ def fused_encoder_layer_plain_backward(flat: dict, x: torch.Tensor,
     grads["wqkv"] = _tn(x.to(f32), t(dqkv))
     grads["bqkv"] = _rows_sum(dqkv)
     dx = (du + t(dqkv) @ w["wqkv"].T).to(dtype)
-    return dx, {k: grads[k].to(flat[k].dtype) for k in _W_ORDER}
+    grads = {k: grads[k].to(flat[k].dtype) for k in _W_ORDER}
+    if rel_bias is not None:
+        grads["rel"] = ds32
+    return dx, grads
 
 
 # --------------------------------------------------------------------------- #
@@ -331,11 +348,12 @@ def fused_encoder_layer_plain_backward(flat: dict, x: torch.Tensor,
 _lib = None
 # device-pointer order of the C entry points (FwdPtr / BwdPtr in the source)
 _FWD_PTRS = ("x", "mask", *_W_ORDER, "qkv", "ctx", "x1", "hact", "y",
-             "xhat1", "rstd1", "xhat2", "rstd2", "stat_m", "stat_l")
+             "xhat1", "rstd1", "xhat2", "rstd2", "stat_m", "stat_l", "rel")
 _BWD_PTRS = ("x", "mask", "dy", "wqkv_t", "wo_t", "w1", "w1_t", "w2_t", "bf1",
              "g1", "g2", "qkv", "ctx", "x1", "hact", "xhat1", "rstd1",
              "xhat2", "rstd2", "stat_m", "stat_l", "dx", "dwqkv", "dbqkv",
-             "dwo", "gln1", "dw1", "dbf1", "dw2", "gln2", "workspace")
+             "dwo", "gln1", "dw1", "dbf1", "dw2", "gln2", "workspace", "rel",
+             "drel")
 
 
 def _kernel_lib():
@@ -439,12 +457,23 @@ def kernel_keep_scale(seed: int, batch: int, site0: int, n_sites: int,
     return out
 
 
+def _check_rel(rel, b, n, s, device):
+    """The relative bias the kernels read: fp32 ``[B, N, S, S]``,
+    contiguous, on the layer's device."""
+    if rel.shape != (b, n, s, s) or rel.dtype != torch.float32 \
+            or rel.device != device or not rel.is_contiguous():
+        raise ValueError(f"rel_bias must be a contiguous float32 [{b}, {n}, "
+                         f"{s}, {s}] tensor on {device}, got {rel.dtype} "
+                         f"{tuple(rel.shape)} on {rel.device}")
+
+
 def _launch_forward(flat: dict, x: torch.Tensor, input_mask: torch.Tensor,
                     num_heads: int, seed: int, attn_rate: float,
-                    out_rate: float, save: bool, causal: bool = False):
-    """Launch K1 (K1'' causal with ``causal``); returns ``(y, saved)``
-    where ``saved`` holds the activations and statistics the backward
-    reads (empty unless ``save``)."""
+                    out_rate: float, save: bool, causal: bool = False,
+                    rel=None):
+    """Launch K1 (K1'' causal with ``causal``, K1'' rel_bias with ``rel``);
+    returns ``(y, saved)`` where ``saved`` holds the activations and
+    statistics the backward reads (empty unless ``save``)."""
     lib = _kernel_lib()
     b, s, h = x.shape
     _check_kernel_limits(lib, b, h, num_heads)
@@ -453,7 +482,9 @@ def _launch_forward(flat: dict, x: torch.Tensor, input_mask: torch.Tensor,
     dev, dt = x.device, x.dtype
     ops = {k: (flat[k].to(dt) if k in _MATRICES else flat[k]).contiguous()
            for k in _W_ORDER}
-    ops.update(x=x.contiguous(), mask=input_mask.contiguous(),
+    if rel is not None:
+        _check_rel(rel, b, num_heads, s, dev)
+    ops.update(x=x.contiguous(), mask=input_mask.contiguous(), rel=rel,
                qkv=torch.empty((m, 3 * h), dtype=dt, device=dev),
                ctx=torch.empty((m, h), dtype=dt, device=dev),
                x1=torch.empty((m, h), dtype=dt, device=dev),
@@ -482,9 +513,10 @@ def _launch_forward(flat: dict, x: torch.Tensor, input_mask: torch.Tensor,
 def _launch_backward(flat: dict, x: torch.Tensor, input_mask: torch.Tensor,
                      dy: torch.Tensor, saved: tuple, num_heads: int,
                      seed: int, attn_rate: float, out_rate: float,
-                     causal: bool = False):
-    """Launch K2 (causal with ``causal``, which must be the forward's);
-    returns ``(dx, {name: fp32 grad})``."""
+                     causal: bool = False, rel=None):
+    """Launch K2 (causal with ``causal``, K2 dRel with ``rel``; both must be
+    the forward's); returns ``(dx, {name: fp32 grad})``, with ``"rel"``
+    (dRel, ``[B, N, S, S]`` fp32) when ``rel`` is given."""
     lib = _kernel_lib()
     b, s, h = x.shape
     f = flat["w1"].shape[1]
@@ -505,6 +537,9 @@ def _launch_backward(flat: dict, x: torch.Tensor, input_mask: torch.Tensor,
         gln1=torch.empty((3, h), **f32), dw1=torch.empty((h, f), **f32),
         dbf1=torch.empty((1, f), **f32), dw2=torch.empty((f, h), **f32),
         gln2=torch.empty((3, h), **f32))
+    if rel is not None:
+        _check_rel(rel, b, num_heads, s, dev)
+        ops.update(rel=rel, drel=torch.empty_like(rel))
     nbytes = lib.b4r_fused_layer_bwd_workspace_bytes(
         _DTYPE_CODE[dt], b, s, h, num_heads, f)
     ops["workspace"] = torch.empty((nbytes,), dtype=torch.uint8, device=dev)
@@ -521,57 +556,71 @@ def _launch_backward(flat: dict, x: torch.Tensor, input_mask: torch.Tensor,
                  bo=gln1[2:3], g1=gln1[0:1], b1ln=gln1[1:2], w1=ops["dw1"],
                  bf1=ops["dbf1"], w2=ops["dw2"], bf2=gln2[2:3], g2=gln2[0:1],
                  b2ln=gln2[1:2])
+    if rel is not None:
+        grads["rel"] = ops["drel"]
     return ops["dx"], grads
+
+
+def _count(backward: bool, causal: bool, rel: bool) -> None:
+    """One launch of the CUDA kernels, in the counter of its variant: the
+    relative-bias launches (causal or not) apart, then the causal ones."""
+    kind = "rel_" if rel else "causal_" if causal else ""
+    name = f"{kind}backward_launches" if backward else f"{kind}launches"
+    setattr(fused_encoder_layer, name,
+            getattr(fused_encoder_layer, name) + 1)
 
 
 class _FusedLayer(torch.autograd.Function):
     """K1 forward and K2 backward (the JAX ``custom_vjp``): the backward
     reuses the forward's dropout masks by regenerating them from the
     seed. A CPU ``x`` runs both plain versions; a CUDA ``x`` launches both
-    kernels."""
+    kernels. ``operands`` are the 12 flat weights, then the relative bias
+    where there is one (differentiable: its gradient is dRel)."""
 
     @staticmethod
     def forward(ctx, x, input_mask, seed, num_heads, attn_rate, out_rate,
-                save, causal, *flat_tuple):
+                save, causal, *operands):
+        flat_tuple = operands[:len(_W_ORDER)]
+        rel = operands[len(_W_ORDER)] if len(operands) > len(_W_ORDER) \
+            else None
         flat = dict(zip(_W_ORDER, flat_tuple))
-        ctx.cfg = (int(seed), num_heads, attn_rate, out_rate, causal)
+        ctx.cfg = (int(seed), num_heads, attn_rate, out_rate, causal,
+                   rel is not None)
         if x.device.type == "cpu":
             y = _forward_math(flat, x, input_mask, num_heads, seed,
-                              attn_rate, out_rate, causal)["y"]
+                              attn_rate, out_rate, causal, rel)["y"]
             saved = ()
         else:
             y, saved = _launch_forward(flat, x, input_mask, num_heads, seed,
                                        attn_rate, out_rate, save,
-                                       causal=causal)
-            if causal:
-                fused_encoder_layer.causal_launches += 1
-            else:
-                fused_encoder_layer.launches += 1
+                                       causal=causal, rel=rel)
+            _count(False, causal, rel is not None)
         if save:
-            ctx.save_for_backward(x, input_mask, *flat_tuple, *saved)
+            rel_saved = () if rel is None else (rel,)
+            ctx.save_for_backward(x, input_mask, *rel_saved, *flat_tuple,
+                                  *saved)
         return y
 
     @staticmethod
     def backward(ctx, dy):
-        seed, num_heads, attn_rate, out_rate, causal = ctx.cfg
+        seed, num_heads, attn_rate, out_rate, causal, has_rel = ctx.cfg
         x, input_mask, *rest = ctx.saved_tensors
+        rel = rest.pop(0) if has_rel else None
         flat = dict(zip(_W_ORDER, rest[:len(_W_ORDER)]))
         if x.device.type == "cpu":
             dx, grads = fused_encoder_layer_plain_backward(
                 flat, x, input_mask, dy, num_heads=num_heads,
                 attention_dropout=attn_rate, output_dropout=out_rate,
-                seed=seed, causal=causal)
+                seed=seed, causal=causal, rel_bias=rel)
         else:
             dx, grads = _launch_backward(flat, x, input_mask, dy,
                                          tuple(rest[len(_W_ORDER):]),
                                          num_heads, seed, attn_rate,
-                                         out_rate, causal=causal)
-            if causal:
-                fused_encoder_layer.causal_backward_launches += 1
-            else:
-                fused_encoder_layer.backward_launches += 1
+                                         out_rate, causal=causal, rel=rel)
+            _count(True, causal, has_rel)
         dflat = tuple(grads[k].to(flat[k].dtype) for k in _W_ORDER)
-        return (dx, None, None, None, None, None, None, None, *dflat)
+        drel = (grads["rel"],) if has_rel else ()
+        return (dx, None, None, None, None, None, None, None, *dflat, *drel)
 
 
 def fused_encoder_layer(params: dict, x: torch.Tensor,
@@ -585,30 +634,39 @@ def fused_encoder_layer(params: dict, x: torch.Tensor,
     """Run one post-LN encoder layer: ``x [B, S, H]`` (float32 or
     bfloat16), ``input_mask [B, S]`` int32, ``params`` the JAX-layout
     layer dict; ``seed`` (an int, default 0) selects the dropout masks;
-    ``causal`` lets position i attend to keys j <= i only (SASRec).
-    Returns ``y`` like ``x``; differentiable in ``x`` and the params.
+    ``causal`` lets position i attend to keys j <= i only (SASRec);
+    ``rel_bias`` (``[B, num_heads, S, S]``, cast to fp32) is added to the
+    attention scores (the temporal family's relative-time bias, JAX's
+    ``rel_bias``). Returns ``y`` like ``x``; differentiable in ``x``, the
+    params and ``rel_bias``.
 
     A CUDA ``x`` launches the kernels and counts each forward launch in
     ``fused_encoder_layer.launches`` (``causal_launches`` for the causal
-    variant) and each backward launch in ``backward_launches``
-    (``causal_backward_launches``); a CPU ``x`` runs the plain versions.
+    variant, ``rel_launches`` for the relative-bias one) and each backward
+    launch in ``backward_launches`` (``causal_backward_launches``,
+    ``rel_backward_launches``); a CPU ``x`` runs the plain versions.
     """
-    if rel_bias is not None:
-        raise NotImplementedError("rel_bias fused layer is not ported yet")
     flat = flat_weights(params)
     _check_operands(x, input_mask, flat, num_heads)
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no fused layer for device {x.device}")
     operands = tuple(flat[k] for k in _W_ORDER)
+    if rel_bias is not None:
+        rel_bias = rel_bias.to(torch.float32).contiguous()
+        b, s, _ = x.shape
+        _check_rel(rel_bias, b, num_heads, s, x.device)
     save = torch.is_grad_enabled() and any(
-        t.requires_grad for t in (x, *operands))
+        t is not None and t.requires_grad for t in (x, rel_bias, *operands))
+    rel = () if rel_bias is None else (rel_bias,)
     return _FusedLayer.apply(x, input_mask, 0 if seed is None else int(seed),
                              num_heads, float(attention_dropout),
                              float(output_dropout), save, bool(causal),
-                             *operands)
+                             *operands, *rel)
 
 
 fused_encoder_layer.launches = 0
 fused_encoder_layer.backward_launches = 0
 fused_encoder_layer.causal_launches = 0
 fused_encoder_layer.causal_backward_launches = 0
+fused_encoder_layer.rel_launches = 0
+fused_encoder_layer.rel_backward_launches = 0

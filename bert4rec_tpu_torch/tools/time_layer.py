@@ -1,6 +1,8 @@
 """Time the fused layer kernels of the port in one checkout, on one CUDA
-card: K1' (forward with dropout) and K2 (backward), and their causal
-variants (K1'' causal) where the checkout has them:
+card: K1' (forward with dropout) and K2 (backward), and their causal and
+relative-bias variants (K1'' causal, K1'' rel_bias / K2 dRel) where the
+checkout has them, and flash attention's K8 / K9 (which run the same
+attention tiles) where it has ``ops/flash_attention.py``:
 
     python bert4rec_tpu_torch/tools/time_layer.py [--root DIR] [--reps 5]
 
@@ -10,7 +12,10 @@ own sources. To compare two commits, run it for both checkouts in one
 session on one card, in the order A, B, B, A. Prints one JSON line: per-rep
 times (CUDA events over 50 launches) at the train shape, B=256, S=200,
 H=128, 4 heads, F=512, bf16, right-padded rows of random length, dropout
-0.2 / 0.5 (ml-1m_128's) and 0.1 / 0.1 (ml-20m_128's)."""
+0.2 / 0.5 (ml-1m_128's) and 0.1 / 0.1 (ml-20m_128's); the relative bias
+(~ N(0, 1), fp32 [B, N, S, S]) at 0.1 / 0.1, the temporal ml-20m_128's;
+K8 / K9 at bert_base_512's attention shape, B=32, N=12, S=512, D=64, bf16,
+dropout 0.2, right-padded rows."""
 
 import argparse
 import inspect
@@ -20,6 +25,7 @@ import subprocess
 import sys
 
 B, S, H, N, F = 256, 200, 128, 4, 512
+FLASH_DIMS, FLASH_RATE = (32, 12, 512, 64), 0.2
 RATES = {"ml-1m": (0.2, 0.5), "ml-20m": (0.1, 0.1)}
 
 
@@ -80,7 +86,8 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], check=True, capture_output=True,
         text=True, timeout=60).stdout.strip().splitlines()[0]
-    has_causal = "causal" in inspect.signature(fel._launch_forward).parameters
+    launch_params = inspect.signature(fel._launch_forward).parameters
+    has_causal, has_rel = "causal" in launch_params, "rel" in launch_params
 
     rng = np.random.default_rng(0)
     flat = fel.flat_weights(layer_params(np, rng, device))
@@ -100,7 +107,36 @@ def main(argv=None) -> int:
                     flat, x, mask, N, 7, *r, True, **k),
                 lambda r=rates, k=kw, s=saved: fel._launch_backward(
                     flat, x, mask, dy, s, N, 7, *r, **k))
-    out = dict(root=args.root, card=card, shape=[B, S, H, N, F])
+    if has_rel:
+        rates = RATES["ml-20m"]
+        rel = torch.from_numpy(np.random.default_rng(1).normal(
+            size=(B, N, S, S)).astype(np.float32)).to(device)
+        y, saved = fel._launch_forward(flat, x, mask, N, 7, *rates, True,
+                                       rel=rel)
+        cases["rel ml-20m"] = (
+            lambda: fel._launch_forward(flat, x, mask, N, 7, *rates, True,
+                                        rel=rel),
+            lambda: fel._launch_backward(flat, x, mask, dy, saved, N, 7,
+                                         *rates, rel=rel))
+    if (pathlib.Path(fel.__file__).parent / "flash_attention.py").is_file():
+        from bert4rec_tpu_torch.ops import flash_attention as fa
+        frng = np.random.default_rng(2)   # the same inputs in every tree
+        fb, _, fs, _ = FLASH_DIMS
+        q, k, v, do = (torch.from_numpy(frng.normal(size=FLASH_DIMS)
+                                        .astype(np.float32))
+                       .to(device, torch.bfloat16) for _ in range(4))
+        flens = frng.integers(1, fs + 1, size=fb)
+        fmask = torch.from_numpy((np.arange(fs)[None, :] < flens[:, None])
+                                 .astype(np.int32)).to(device)
+        _, fsaved = fa._launch_forward(q, k, v, fmask, 7, FLASH_RATE, False,
+                                       True)
+        cases["flash bert_base_512"] = (
+            lambda: fa._launch_forward(q, k, v, fmask, 7, FLASH_RATE, False,
+                                       True),
+            lambda: fa._launch_backward(q, k, v, fmask, do, fsaved, 7,
+                                        FLASH_RATE, False))
+    out = dict(root=args.root, card=card, shape=[B, S, H, N, F],
+               flash_shape=list(FLASH_DIMS))
     for name in cases:
         out[name] = {"fwd_ms": [], "bwd_ms": []}
     for _ in range(args.reps):

@@ -40,6 +40,8 @@ from bert4rec_tpu_torch.utils import prefetch as prefetch_lib
 
 _BATCH_KEYS = ("input_word_ids", "input_mask", "masked_lm_positions",
                "masked_lm_ids")
+# carried when the batch has them (the temporal preprocessor's timestamps)
+_OPTIONAL_KEYS = ("input_timestamps",)
 
 
 class BERT4RecTrainer(BaseTrainer):
@@ -83,7 +85,8 @@ class BERT4RecTrainer(BaseTrainer):
         without it the model is initialised from ``seed``. A custom
         ``loss`` or ``metrics`` routes the step through the logits path."""
         self.device = resolve_device(device)
-        self._put = prefetch_lib.device_put(self.device, _BATCH_KEYS)
+        self._put = prefetch_lib.device_put(self.device, _BATCH_KEYS,
+                                            _OPTIONAL_KEYS)
         self.optimizer = optimizers.get(optimizer if optimizer is not None
                                         else "adamw")
         self._custom_loss = loss is not None or metrics is not None

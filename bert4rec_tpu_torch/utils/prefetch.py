@@ -60,9 +60,10 @@ def prefetch(iterator: Iterable, put: Optional[Callable] = None,
             thread.join(timeout=0.1)
 
 
-def device_put(device: torch.device, keys: Iterable[str]) -> Callable:
+def device_put(device: torch.device, keys: Iterable[str],
+               optional: Iterable[str] = ()) -> Callable:
     """A ``put`` for :func:`prefetch`: host numpy batch -> the tensors at
-    ``keys`` on ``device``.
+    ``keys``, and at those of ``optional`` the batch holds, on ``device``.
 
     On the card each array is staged in pinned host memory and sent with a
     non-blocking copy on a side stream. The tensors are marked as used by
@@ -72,17 +73,22 @@ def device_put(device: torch.device, keys: Iterable[str]) -> Callable:
     returns only after the copy's event has completed, so a batch is whole
     before the step sees it. On the CPU the arrays are wrapped, not copied.
     """
-    keys = tuple(keys)
+    keys, optional = tuple(keys), tuple(optional)
+
+    def present(batch: dict) -> tuple:
+        return keys + tuple(k for k in optional if k in batch)
+
     if device.type != "cuda":
         return lambda batch: {k: torch.from_numpy(np.ascontiguousarray(
-            batch[k])) for k in keys}
+            batch[k])) for k in present(batch)}
     side = torch.cuda.Stream(device)
     compute = torch.cuda.current_stream(device)
 
     def put(batch: dict) -> dict:
         with torch.cuda.device(device), torch.cuda.stream(side):
             out = {k: torch.from_numpy(np.ascontiguousarray(batch[k]))
-                   .pin_memory().to(device, non_blocking=True) for k in keys}
+                   .pin_memory().to(device, non_blocking=True)
+                   for k in present(batch)}
             done = torch.cuda.Event()
             done.record(side)
         for t in out.values():

@@ -95,7 +95,35 @@ Phases (any failure raises and the script exits non-zero):
               or fused-loss launch; the step time, ``train()``'s time, the
               device idle share and breakdown; a ``remat=True`` step with
               the same gradients, 24 K8 launches and a lower peak of
-              device memory; the eval loss of a repeated batch falling.
+              device memory; the eval loss of a repeated batch falling;
+15. relative-bias kernels — K1'' rel_bias and K2 dRel (the temporal
+              family's) against their plain versions at B=256, S=200,
+              H=128, N=4, F=512, fp32 and bf16, dropout 0.1 / 0.1,
+              bidirectional and causal, a relative bias ~ N(0, 1), with an
+              all-pad row and a row of length 1: the output, dx, the weight
+              gradients and dRel; dRel exactly 0 after the diagonal when
+              causal; two K2 runs giving the same bits of dRel; kernel,
+              plain, library (SDPA with pad + rel [+ triangle] as one
+              additive mask that requires grad, and the backend that ran)
+              and bias-free kernel times, and the bound (bytes);
+16. temporal training — the corpus through ``create_ml_20m_dataloader(
+              preprocessor="bert4rec_temporal").prepare_training(
+              extract_data=["movie_name", "timestamp"], finetuning_split=
+              0.1)``, then phase 9's checks for ml-20m_128 with
+              ``use_temporal_embeddings`` and ``use_temporal_attention``:
+              2 K1'' rel_bias and 2 K2 dRel launches per step (no other
+              layer launch), K5 and K6 once; two identical steps giving the
+              same bits of the temporal tables' gradients; the bucket laws
+              on the card equal to the CPU's at float32's log2 edges; the
+              sorted table gradient timed beside JAX's one-hot law, which
+              it equals within 1e-4 of the scale; the step's peak
+              device memory; then ``evaluate`` with 101 candidates and
+              device negatives, and the kernel ranks against the plain ranks;
+17. temporal learning gate — the quality harness's
+              ``run_smoke_temporal`` on the card: the temporal model and its
+              time-blind ablation trained on the planted copy-by-time-delta
+              world, their HR@1/5/10, and JAX's three checks (a failed
+              check fails the run).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the rest of
@@ -134,6 +162,28 @@ def card_line() -> str:
          "--format=csv,noheader"], check=True, capture_output=True,
         text=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def time_ms_blocks(fn, blocks=7, iters=10, warmup=5) -> tuple:
+    """``(median, lowest, highest)`` ms per call over ``blocks`` timed
+    blocks of ``iters`` calls each, after ``warmup`` calls: for the
+    yardsticks whose single readings wander between runs."""
+    import statistics
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(blocks):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / iters)
+    return statistics.median(times), min(times), max(times)
 
 
 def time_ms(fn, iters=20, warmup=3) -> float:
@@ -210,16 +260,18 @@ def attention_pairs(s, causal):
     return s * (s + 1) // 2 if causal else s * s
 
 
-def layer_bound_ms(b, dtype_name, h=HIDDEN, f=INNER, causal=False):
+def layer_bound_ms(b, dtype_name, h=HIDDEN, f=INNER, causal=False,
+                   extra_bytes=0):
     """Least time for one layer on the card: the larger of its FLOP over
     the peak for the operand type and its bytes (x, mask and the fp32
-    params read once, y written once) over the HBM rate."""
+    params read once, y written once, plus ``extra_bytes``: a relative
+    bias read once) over the HBM rate."""
     s = SEQ
     flops = b * (2 * s * h * 3 * h + 4 * attention_pairs(s, causal) * h
                  + 2 * s * h * h + 4 * s * h * f)
     es = 4 if dtype_name == "float32" else 2
     params = 4 * (4 * h * h + 2 * h * f + 3 * h + h + 4 * h + f + h)
-    nbytes = 2 * b * s * h * es + b * s * 4 + params
+    nbytes = 2 * b * s * h * es + b * s * 4 + params + extra_bytes
     t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
     t_bytes = nbytes / HBM_BYTES_S * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
@@ -560,11 +612,13 @@ def rel_err(a, b) -> float:
     return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-6)
 
 
-def library_layer_train(params, x, mask, num_heads, rates, causal=False):
+def library_layer_train(params, x, mask, num_heads, rates, causal=False,
+                        rel=None):
     """library_layer with dropout: SDPA's own dropout on the
     probabilities and F.dropout on both outputs (a yardstick only). With
     ``causal`` SDPA reads the pad mask plus the triangle as one additive
-    mask ``[B, 1, S, S]``."""
+    mask ``[B, 1, S, S]``; a relative bias ``rel`` ``[B, N, S, S]`` joins
+    that mask (which then requires grad where ``rel`` does)."""
     import torch
     import torch.nn.functional as F
     from bert4rec_tpu_torch.ops.fused_encoder_layer import (
@@ -578,6 +632,8 @@ def library_layer_train(params, x, mask, num_heads, rates, causal=False):
     bias = torch.where(mask > 0, 0.0, -1e9)[:, None, None, :]
     if causal:
         bias = bias + causal_bias(s, x.device)
+    if rel is not None:
+        bias = bias + rel
     bias = bias.to(x.dtype)
     ctx = F.scaled_dot_product_attention(q, k, v, attn_mask=bias,
                                          dropout_p=rates[0])
@@ -592,18 +648,20 @@ def library_layer_train(params, x, mask, num_heads, rates, causal=False):
                         eps=1e-12)
 
 
-def layer_bwd_bound_ms(b, dtype_name, h=HIDDEN, f=INNER, causal=False):
+def layer_bwd_bound_ms(b, dtype_name, h=HIDDEN, f=INNER, causal=False,
+                       extra_bytes=0):
     """Least time for one layer's backward: its products (8SHF + 16SH^2 +
     8S^2H FLOP per sequence, twice the forward's; S^2 becomes S(S+1)/2
     when causal; the recomputation is not counted) over the peak, or its
     bytes (x, dy, mask, fp32 params read once; dx and the fp32 grads
-    written once) over the HBM rate."""
+    written once; plus ``extra_bytes``: a relative bias read and its
+    gradient written) over the HBM rate."""
     s = SEQ
     flops = b * (8 * s * h * f + 16 * s * h * h
                  + 8 * attention_pairs(s, causal) * h)
     es = 4 if dtype_name == "float32" else 2
     params = 4 * (4 * h * h + 2 * h * f + 3 * h + h + 4 * h + f + h)
-    nbytes = 3 * b * s * h * es + b * s * 4 + 2 * params
+    nbytes = 3 * b * s * h * es + b * s * 4 + 2 * params + extra_bytes
     t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
     t_bytes = nbytes / HBM_BYTES_S * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
@@ -891,6 +949,9 @@ def check_causal_layer(torch, rng, device):
             y_lib = library_layer_train(unflatten(lflat), xl, mask, HEADS,
                                         rates, causal=True)
             leaves = [xl, *lflat.values()]
+            # SDPA's dense-mask backward wanders between runs: a median
+            lib_bwd = time_ms_blocks(lambda: torch.autograd.grad(
+                y_lib, leaves, dy, retain_graph=True))
             row = dict(
                 fwd=dict(max_abs_err=fwd_err, ms=time_ms(fwd),
                          plain_ms=time_ms(lambda: fel.fused_encoder_layer_plain(
@@ -906,8 +967,7 @@ def check_causal_layer(torch, rng, device):
                          plain_ms=time_ms(
                              lambda: fel.fused_encoder_layer_plain_backward(
                                  flat, x, mask, dy, **kw), iters=5),
-                         library_ms=time_ms(lambda: torch.autograd.grad(
-                             y_lib, leaves, dy, retain_graph=True)),
+                         library_ms=lib_bwd[0], library_range=lib_bwd[1:],
                          bidirectional_ms=time_ms(lambda: bwd(False)),
                          **dict(zip(("bound_ms", "bound_by"),
                                     layer_bwd_bound_ms(b, name,
@@ -923,7 +983,9 @@ def check_causal_layer(torch, rng, device):
                       + f" kernel_ms={r['ms']:.4f} bidirectional_ms="
                       f"{r['bidirectional_ms']:.4f} plain_ms="
                       f"{r['plain_ms']:.4f} library_ms={r['library_ms']:.4f}"
-                      f" bound_ms={r['bound_ms']:.5f} ({r['bound_by']})",
+                      + (" (median of 7 blocks of 10, {:.4f}-{:.4f})".format(
+                          *r["library_range"]) if part == "bwd" else "")
+                      + f" bound_ms={r['bound_ms']:.5f} ({r['bound_by']})",
                       flush=True)
             if name == "bfloat16" and rates == CAUSAL_RATES:
                 print("  per causal forward launch: " + device_breakdown(
@@ -973,17 +1035,26 @@ class SyntheticDataset:
                              batch_size, **self.shape)
 
 
+# the temporal family's switches (recency embeddings, relative-time bias)
+TEMPORAL_FLAGS = dict(use_temporal_embeddings=True,
+                      use_temporal_attention=True)
+
+
 def new_trainer(torch, device, params=None, lr=1e-4, warmup=100,
                 config_name="ml-1m_128", vocab=VOCAB, family="bert4rec"):
-    """A trainer of the ``family`` model (``bert4rec`` or ``sasrec``) on
-    ``config_name`` with the fused layer and loss, bf16 compute."""
+    """A trainer of the ``family`` model (``bert4rec``, ``sasrec`` or
+    ``temporal``: BERT4Rec with both temporal flags) on ``config_name``
+    with the fused layer and loss, bf16 compute."""
     from bert4rec_tpu_torch.config import load_train_config
     from bert4rec_tpu_torch.core.dtypes import DTypePolicy
     from bert4rec_tpu_torch.models import BERT4RecModel, SASRecModel
     from bert4rec_tpu_torch.trainers import BERT4RecTrainer, optimizers
-    config = load_train_config(config_name, vocab_size=vocab,
-                               use_fused_layer=True, use_fused_loss=True)
-    model_cls = {"bert4rec": BERT4RecModel, "sasrec": SASRecModel}[family]
+    config = load_train_config(
+        config_name, vocab_size=vocab, use_fused_layer=True,
+        use_fused_loss=True,
+        **(TEMPORAL_FLAGS if family == "temporal" else {}))
+    model_cls = {"bert4rec": BERT4RecModel, "sasrec": SASRecModel,
+                 "temporal": BERT4RecModel}[family]
     model = model_cls(config=config, dtype_policy=DTypePolicy.bf16())
     trainer = BERT4RecTrainer(model)
     trainer.initialize_model(
@@ -1002,15 +1073,16 @@ def plain_kernels():
     from bert4rec_tpu_torch.ops import fused_encoder_layer as fel
     from bert4rec_tpu_torch.ops import fused_mlm_loss as fml
 
-    def layer_fwd(flat, x, mask, num_heads, seed, a, o, save, causal=False):
+    def layer_fwd(flat, x, mask, num_heads, seed, a, o, save, causal=False,
+                  rel=None):
         return fel._forward_math(flat, x, mask, num_heads, seed, a, o,
-                                 causal)["y"], ()
+                                 causal, rel)["y"], ()
 
     def layer_bwd(flat, x, mask, dy, saved, num_heads, seed, a, o,
-                  causal=False):
+                  causal=False, rel=None):
         return fel.fused_encoder_layer_plain_backward(
             flat, x, mask, dy, num_heads=num_heads, attention_dropout=a,
-            output_dropout=o, seed=seed, causal=causal)
+            output_dropout=o, seed=seed, causal=causal, rel_bias=rel)
 
     def loss_bwd(hidden, table, bias, labels, lse, g, n_valid):
         return fml.fused_mlm_loss_plain_backward(hidden, table, bias, labels,
@@ -1414,6 +1486,7 @@ ML20M_STEPS = 12
 # train() timed warm over enough steps that the epoch's first masking chunk
 # (64 batches masked before the first is yielded) is a small share
 ML20M_TIMED_STEPS = 48
+TEMPORAL_TIMED_STEPS = 24   # phase 16: fewer, to keep the run's time
 
 
 class FixedBatches:
@@ -1428,12 +1501,15 @@ class FixedBatches:
 
 
 def check_ml20m_training(torch, device, loader, splits, config_name,
-                         family="bert4rec"):
+                         family="bert4rec", timed_steps=ML20M_TIMED_STEPS):
     """``train()`` on ml-20m_128 (backward K6) or ml-20m_256 (K7) from the
     pipeline's datasets: B=256, bf16, fused layer and loss, full width and
     depth; ``family="sasrec"`` trains SASRecModel (the causal layer
-    kernels) from the ``"sasrec"`` preprocessor's datasets. Returns the
-    launch counts of the counted run, its timings and the trainer."""
+    kernels) from the ``"sasrec"`` preprocessor's datasets, and
+    ``family="temporal"`` the temporal BERT4Rec (the relative-bias layer
+    kernels) from the ``"bert4rec_temporal"`` preprocessor's. Returns the
+    launch counts of the counted run, its timings, the step's peak device
+    memory, the trainer and the host batches it drew."""
     from bert4rec_tpu_torch.ops import fused_encoder_layer as fel
     from bert4rec_tpu_torch.ops import fused_mlm_loss as fml
     from bert4rec_tpu_torch.utils.checkpoint import flatten
@@ -1441,7 +1517,8 @@ def check_ml20m_training(torch, device, loader, splits, config_name,
     vocab = loader.tokenizer.get_vocab_size()
     trainer = new_trainer(torch, device, config_name=config_name, vocab=vocab,
                           family=family)
-    label = config_name if family == "bert4rec" else f"sasrec {config_name}"
+    label = config_name if family == "bert4rec" else \
+        f"{family} {config_name}"
     causal = family == "sasrec"
     cfg = trainer.model.config
     if cfg.causal_attention != causal or train_ds.task != (
@@ -1472,7 +1549,8 @@ def check_ml20m_training(torch, device, loader, splits, config_name,
                fml.fused_mlm_loss_tiled)
     for fn in counted:
         for attr in ("launches", "backward_launches", "causal_launches",
-                     "causal_backward_launches", "merged_launches",
+                     "causal_backward_launches", "rel_launches",
+                     "rel_backward_launches", "merged_launches",
                      "two_sweep_launches"):
             if hasattr(fn, attr):
                 setattr(fn, attr, 0)
@@ -1485,18 +1563,20 @@ def check_ml20m_training(torch, device, loader, splits, config_name,
                   layer_bwd=fel.fused_encoder_layer.backward_launches,
                   causal_fwd=fel.fused_encoder_layer.causal_launches,
                   causal_bwd=fel.fused_encoder_layer.causal_backward_launches,
+                  rel_fwd=fel.fused_encoder_layer.rel_launches,
+                  rel_bwd=fel.fused_encoder_layer.rel_backward_launches,
                   K3=fml.fused_mlm_loss.launches,
                   K4=fml.fused_mlm_loss.backward_launches,
                   K5=fml.fused_mlm_loss_tiled.launches,
                   K6=fml.fused_mlm_loss_tiled.merged_launches,
                   K7=fml.fused_mlm_loss_tiled.two_sweep_launches)
     layer_steps = cfg.num_layers * ML20M_STEPS
-    want = dict(layer_fwd=0 if causal else layer_steps,
-                layer_bwd=0 if causal else layer_steps,
-                causal_fwd=layer_steps if causal else 0,
-                causal_bwd=layer_steps if causal else 0, K3=0, K4=0,
-                K5=ML20M_STEPS, K6=ML20M_STEPS if kernel == "K6" else 0,
+    variant = {"sasrec": "causal", "temporal": "rel"}.get(family, "layer")
+    want = dict(layer_fwd=0, layer_bwd=0, causal_fwd=0, causal_bwd=0,
+                rel_fwd=0, rel_bwd=0, K3=0, K4=0, K5=ML20M_STEPS,
+                K6=ML20M_STEPS if kernel == "K6" else 0,
                 K7=ML20M_STEPS if kernel == "K7" else 0)
+    want[f"{variant}_fwd"] = want[f"{variant}_bwd"] = layer_steps
     loss = hist.history["loss"][0]
     print(f"{label} train(): {ML20M_STEPS} steps of B={STREAM_BATCH}"
           f" from the ML-20M pipeline in {wall:.2f} s (first step "
@@ -1516,9 +1596,9 @@ def check_ml20m_training(torch, device, loader, splits, config_name,
     # feeding the card, against the device time of one step
     t0 = time.perf_counter()
     trainer.train(train_ds, epochs=1, batch_size=STREAM_BATCH,
-                  steps_per_epoch=ML20M_TIMED_STEPS, seed=SEED + 1,
+                  steps_per_epoch=timed_steps, seed=SEED + 1,
                   verbose=False)
-    train_ms = (time.perf_counter() - t0) * 1e3 / ML20M_TIMED_STEPS
+    train_ms = (time.perf_counter() - t0) * 1e3 / timed_steps
     step_ms = []
     for b in host[1:11]:
         placed = trainer._put_batch(b)
@@ -1531,13 +1611,20 @@ def check_ml20m_training(torch, device, loader, splits, config_name,
     device_ms, breakdown = device_breakdown(
         torch, lambda: trainer.train_step(batch), calls=3, top=10)
     idle = None if device_ms is None else 1 - device_ms / train_ms
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    trainer.train_step(batch)
+    torch.cuda.synchronize()
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     print(f"{label} train step B={STREAM_BATCH}: median {median:.3f} "
           f"ms of 10 synchronised steps (min {min(step_ms):.3f}), "
           f"{STREAM_BATCH / median * 1e3:.1f} examples/s; train() with "
-          f"prefetch {train_ms:.3f} ms per step over {ML20M_TIMED_STEPS}, "
+          f"prefetch {train_ms:.3f} ms per step over {timed_steps}, "
           f"{STREAM_BATCH / train_ms * 1e3:.1f} examples/s; device idle "
           f"share of train() "
-          + ("not measured" if idle is None else f"{idle:.3f}"), flush=True)
+          + ("not measured" if idle is None else f"{idle:.3f}")
+          + f"; peak device memory of one step {peak_gib:.3f} GiB",
+          flush=True)
     print(f"  one {label} train step: " + breakdown, flush=True)
 
     # the eval loss of a repeated batch falls at a raised learning rate
@@ -1557,7 +1644,7 @@ def check_ml20m_training(torch, device, loader, splits, config_name,
                              f"{before} -> {after}")
     return dict(counts=counts, kernel=kernel, step_ms=median,
                 train_ms=train_ms, device_ms=device_ms, idle=idle,
-                trainer=trainer)
+                peak_gib=peak_gib, trainer=trainer, host=host)
 
 
 # --------------------------------------------------------------------------- #
@@ -1641,10 +1728,13 @@ def check_rank_parity(torch, device, model, params, sampler, test, label):
                              f"ranks away from ties")
 
 
-def check_evaluation(torch, device, loader, splits, trainer, label):
+def check_evaluation(torch, device, loader, splits, trainer, label,
+                     protocols=("device negatives", "host negatives",
+                                "full catalog")):
     """``BERT4RecEvaluator(dataloader=loader, seed=...).evaluate`` of a
-    trained model on its test split: device negatives (the default), host
-    negatives (a slice of HOST_EVAL_ROWS rows) and the full catalog.
+    trained model on its test split, by each of ``protocols``: device
+    negatives (the default), host negatives (a slice of HOST_EVAL_ROWS
+    rows) and the full catalog.
     Checks Valid Ranks, the metrics' range and HR@k >= NDCG@k, the layer
     launches per batch, and the kernel ranks against the plain ranks.
     Returns per protocol the metrics, batches/s and examples/s."""
@@ -1653,7 +1743,8 @@ def check_evaluation(torch, device, loader, splits, trainer, label):
     from bert4rec_tpu_torch.ops import fused_encoder_layer as fel
     test = splits[2]
     model, params = trainer.model, trainer.params
-    counter = ("causal_launches" if model.config.causal_attention
+    counter = ("rel_launches" if model.config.use_temporal_attention
+               else "causal_launches" if model.config.causal_attention
                else "launches")
     device_ev = BERT4RecEvaluator(dataloader=loader, seed=EVAL_SEED)
     t0 = time.perf_counter()
@@ -1668,6 +1759,7 @@ def check_evaluation(torch, device, loader, splits, trainer, label):
                 sampler=device_ev.sampler, seed=EVAL_SEED,
                 device_negatives=False), host_ds),
             ("full catalog", BERT4RecEvaluator(full_ranking=True), test)]
+    runs = [r for r in runs if r[0] in protocols]
     out = {}
     for name, ev, ds in runs:
         setattr(fel.fused_encoder_layer, counter, 0)
@@ -2039,6 +2131,303 @@ def check_bert_base_training(torch, device):
                 device_ms=device_ms, idle=idle, peaks=peaks)
 
 
+# --------------------------------------------------------------------------- #
+# phase 15: K1'' rel_bias / K2 dRel; phase 16: temporal training; phase 17:
+# the temporal learning gate
+# --------------------------------------------------------------------------- #
+
+def sdpa_backend(torch, fn) -> str:
+    """Which SDPA backend ``fn`` ran, read from its kernels' names."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = " ".join(e.key.lower() for e in prof.key_averages())
+    for label, keys in (("cudnn", ("cudnn",)), ("flash", ("flash",)),
+                        ("efficient", ("fmha", "efficient", "mem_eff"))):
+        if any(k in names for k in keys):
+            return label
+    return "math" if names else "not measured"
+
+
+def check_rel_layer(torch, rng, device):
+    """K1'' rel_bias and K2 dRel against their plain versions at the
+    temporal train shape (B=256, S=200, H=128, N=4, F=512): fp32 and bf16,
+    bidirectional and causal, dropout 0.1 / 0.1, a relative bias ~ N(0, 1),
+    an all-pad row and a row of length 1; dRel exactly 0 after the
+    diagonal when causal, two K2 runs with the same bits of dRel; kernel,
+    plain, library and bias-free kernel times, and the bound (the bias and
+    its gradient counted as bytes)."""
+    import numpy as np
+    from bert4rec_tpu_torch.ops import fused_encoder_layer as fel
+    from bert4rec_tpu_torch.utils.checkpoint import flatten, unflatten
+    params = random_layer(rng, device)
+    flat = fel.flat_weights(params)
+    b, seed, rates = STREAM_BATCH, 4243, CAUSAL_RATES
+    rel_bytes = 4 * b * HEADS * SEQ * SEQ
+    upper = torch.triu(torch.ones(SEQ, SEQ, dtype=torch.bool, device=device),
+                       1)
+    rows = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).removeprefix("torch.")
+        for causal in (False, True):
+            x, mask, dy = causal_inputs(torch, rng, device, dtype, b)
+            rel = torch.from_numpy(rng.normal(size=(b, HEADS, SEQ, SEQ))
+                                   .astype(np.float32)).to(device)
+            kw = dict(num_heads=HEADS, attention_dropout=rates[0],
+                      output_dropout=rates[1], seed=seed, causal=causal)
+
+            def fwd(r=rel):
+                return fel._launch_forward(flat, x, mask, HEADS, seed,
+                                           *rates, True, causal=causal,
+                                           rel=r)
+
+            y, saved = fwd()
+            bare_saved = fwd(None)[1]
+
+            def bwd(r=rel):
+                return fel._launch_backward(
+                    flat, x, mask, dy, saved if r is not None else bare_saved,
+                    HEADS, seed, *rates, causal=causal, rel=r)
+
+            dx, grads = bwd()
+            torch.cuda.synchronize()
+            ref_y = fel.fused_encoder_layer_plain(params, x, mask,
+                                                  rel_bias=rel, **kw)
+            ref_dx, ref_g = fel.fused_encoder_layer_plain_backward(
+                flat, x, mask, dy, rel_bias=rel, **kw)
+            fwd_err = float((y.float() - ref_y.float()).abs().max())
+            errs = {"dx": rel_err(dx, ref_dx),
+                    **{k: rel_err(grads[k], ref_g[k]) for k in grads}}
+            bwd_err = max(errs.values())
+            above = int((grads["rel"][..., upper] != 0).sum()) if causal \
+                else 0
+            if not (fwd_err <= TOL[name] and bwd_err <= GRAD_TOL[name]
+                    and above == 0 and bool(torch.isfinite(y).all())
+                    and bool(torch.isfinite(grads["rel"]).all())):
+                raise AssertionError(
+                    f"rel layer kernels {name} causal={causal}: forward err "
+                    f"{fwd_err} (tol {TOL[name]}), backward rel err "
+                    f"{bwd_err} (tol {GRAD_TOL[name]}), {above} non-zero "
+                    f"dRel entries after the diagonal")
+            again = bwd()
+            if not (torch.equal(again[1]["rel"], grads["rel"])
+                    and torch.equal(again[0], dx)):
+                raise AssertionError("K2 dRel does not repeat its bits")
+            lflat = {k: v.detach().clone().requires_grad_(True)
+                     for k, v in flatten(params).items()}
+            xl = x.detach().requires_grad_(True)
+            rl = rel.detach().clone().requires_grad_(True)
+            y_lib = library_layer_train(unflatten(lflat), xl, mask, HEADS,
+                                        rates, causal=causal, rel=rl)
+            leaves = [xl, rl, *lflat.values()]
+            lib_bwd = lambda: torch.autograd.grad(  # noqa: E731
+                y_lib, leaves, dy, retain_graph=True)
+            # the yardsticks as a median of blocks, with the allocator's
+            # state beside them (single readings wandered 3x between runs)
+            retries = torch.cuda.memory_stats().get("num_alloc_retries", 0)
+            lib = {"fwd": time_ms_blocks(lambda: library_layer_train(
+                       params, x, mask, HEADS, rates, causal=causal,
+                       rel=rel)),
+                   "bwd": time_ms_blocks(lib_bwd)}
+            retries = torch.cuda.memory_stats().get(
+                "num_alloc_retries", 0) - retries
+            reserved = torch.cuda.memory_reserved() / 2 ** 30
+            row = dict(
+                fwd=dict(max_abs_err=fwd_err, ms=time_ms(fwd),
+                         plain_ms=time_ms(lambda: fel.fused_encoder_layer_plain(
+                             params, x, mask, rel_bias=rel, **kw)),
+                         library_ms=lib["fwd"][0],
+                         library_range=lib["fwd"][1:],
+                         bias_free_ms=time_ms(lambda: fwd(None)),
+                         **dict(zip(("bound_ms", "bound_by"), layer_bound_ms(
+                             b, name, causal=causal,
+                             extra_bytes=rel_bytes)))),
+                bwd=dict(max_abs_err=float((dx.float() - ref_dx.float())
+                                           .abs().max()),
+                         max_rel_err=bwd_err, drel_rel_err=errs["rel"],
+                         ms=time_ms(bwd),
+                         plain_ms=time_ms(
+                             lambda: fel.fused_encoder_layer_plain_backward(
+                                 flat, x, mask, dy, rel_bias=rel, **kw),
+                             iters=5),
+                         library_ms=lib["bwd"][0],
+                         library_range=lib["bwd"][1:],
+                         bias_free_ms=time_ms(lambda: bwd(None)),
+                         **dict(zip(("bound_ms", "bound_by"),
+                                    layer_bwd_bound_ms(
+                                        b, name, causal=causal,
+                                        extra_bytes=2 * rel_bytes)))))
+            backend = sdpa_backend(torch, lib_bwd)
+            rows[(name, causal)] = row
+            for part, r in row.items():
+                print(f"fused_encoder_layer rel_bias {part} causal={causal} "
+                      f"dropout {rates} {name} B={b} S={SEQ} H={HIDDEN} "
+                      f"(all-pad row, length-1 row): err "
+                      f"{r['max_abs_err']:.3g}"
+                      + (f" (rel {r['max_rel_err']:.3g}, dRel rel "
+                         f"{r['drel_rel_err']:.3g}, tol {GRAD_TOL[name]})"
+                         if part == "bwd" else f" (tol {TOL[name]})")
+                      + f" kernel_ms={r['ms']:.4f} bias_free_ms="
+                      f"{r['bias_free_ms']:.4f} plain_ms={r['plain_ms']:.4f}"
+                      f" library_ms={r['library_ms']:.4f} (median of 7 "
+                      f"blocks of 10, {r['library_range'][0]:.4f}-"
+                      f"{r['library_range'][1]:.4f}; SDPA backend {backend}; "
+                      f"{retries} allocator retries, {reserved:.2f} GiB "
+                      f"reserved) bound_ms={r['bound_ms']:.5f} "
+                      f"({r['bound_by']})", flush=True)
+            if name == "bfloat16" and not causal:
+                print("  per rel_bias forward launch: " + device_breakdown(
+                    torch, fwd)[1], flush=True)
+                print("  per dRel backward launch: " + device_breakdown(
+                    torch, bwd)[1], flush=True)
+            del y_lib, leaves, lflat, xl, rl, again, grads, ref_g, saved
+            torch.cuda.empty_cache()
+    return rows
+
+
+def check_temporal_pipeline():
+    """The corpus through ``create_ml_20m_dataloader(preprocessor=
+    "bert4rec_temporal").prepare_training(extract_data=["movie_name",
+    "timestamp"], finetuning_split=0.1)``: masked-LM datasets whose batches
+    carry ``input_timestamps`` aligned with the items."""
+    from bert4rec_tpu_torch.dataloaders import get_dataloader_factory
+    t0 = time.perf_counter()
+    loader = get_dataloader_factory().create_ml_20m_dataloader(
+        preprocessor="bert4rec_temporal")
+    splits = loader.prepare_training(
+        extract_data=["movie_name", "timestamp"], finetuning_split=0.1)
+    prep_s = time.perf_counter() - t0
+    vocab = loader.tokenizer.get_vocab_size()
+    batch = next(splits[0].batches(STREAM_BATCH, seed=0))
+    real = batch["input_mask"] > 0
+    ts = batch.get("input_timestamps")
+    print(f"temporal pipeline: prepare_training(extract_data=[movie_name, "
+          f"timestamp], finetuning_split=0.1) {prep_s:.2f} s of host time; "
+          f"vocab {vocab}; sequences train {len(splits[0])} / val "
+          f"{len(splits[1])} / test {len(splits[2])}; batch keys "
+          f"{sorted(batch)}", flush=True)
+    if vocab != ML20M_VOCAB or ts is None or ts.shape != real.shape \
+            or not (ts[real] > 0).all() or (ts[~real] != 0).any():
+        raise AssertionError("temporal pipeline: no aligned timestamps")
+    return loader, splits
+
+
+def table_grad_onehot(torch, bucket, g, n_buckets, chunk_elems=1 << 26):
+    """JAX's law for the relative bias's table gradient, a yardstick for
+    the port's sorted reduction (never called by the port): the one-hot
+    contraction ``dtable[k, h] = sum of g[b, h, q, key] over bucket[b, q,
+    key] == k``, in chunks of sequences so the indicator never exceeds
+    ``chunk_elems`` values (the whole one would be 2.6 GB at B=256, S=200,
+    64 buckets); batched GEMMs over fixed chunks summed in order."""
+    b, n, s, _ = g.shape
+    per = max(1, chunk_elems // (s * s * n_buckets))
+    ar = torch.arange(n_buckets, device=g.device, dtype=bucket.dtype)
+    dtable = torch.zeros((n, n_buckets), dtype=torch.float32, device=g.device)
+    for i in range(0, b, per):
+        bk = bucket[i:i + per].reshape(-1, s * s)
+        oh = (bk[..., None] == ar).to(torch.float32)            # [c, SS, nb]
+        dtable += torch.bmm(g[i:i + per].reshape(-1, n, s * s), oh).sum(0)
+    return dtable.T.contiguous()
+
+
+def check_temporal_extras(torch, device, trainer, host_batch):
+    """Two identical steps give the same bits of both temporal tables'
+    gradients; the bucket laws on the card equal the CPU's at float32's
+    log2 edges and across int32 wraparound; the port's sorted table
+    gradient against JAX's one-hot law on this batch's bucket matrix, both
+    timed, each repeating its bits, and agreeing with each other."""
+    import numpy as np
+    from bert4rec_tpu_torch.models.components.networks import (
+        bert4rec_encoder as enc_mod,
+    )
+    Enc = enc_mod.Bert4RecEncoder
+    batch = trainer._put_batch(host_batch)
+    grads = [trainer._grads(batch, 99)[2] for _ in range(2)]
+    for path in ("encoder/temporal_attention_bias/embedding",
+                 "encoder/temporal_embeddings/embedding"):
+        if not torch.equal(grads[0][path], grads[1][path]):
+            raise AssertionError(f"{path}: two identical steps differ")
+    print(f"temporal tables: two identical steps give the same gradient "
+          f"bits (bias table grad max |.| "
+          f"{float(grads[0]['encoder/temporal_attention_bias/embedding'].abs().max()):.4g})",
+          flush=True)
+    del grads
+
+    base = [2 ** k + o for k in range(1, 31) for o in (-2, -1, 0)]
+    deltas = np.asarray(sorted(set([0] + base + [-d for d in base])),
+                        np.int64)
+    ts = np.stack([np.zeros_like(deltas), deltas], axis=1)
+    wrap = np.array([[2 ** 31 - 10, 2 ** 31 + 5, 2 ** 31 - 1, 2 ** 31, 0,
+                      -2 ** 31]], np.int64)
+    for stamps in (ts, wrap, 1_700_000_000 - ts):
+        mask = np.ones(stamps.shape, np.int32)
+        for law, n in ((Enc._time_bucket_matrix, 64),
+                       (Enc._recency_buckets, 32)):
+            cpu = law(torch.from_numpy(stamps), torch.from_numpy(mask), n)
+            card = law(torch.from_numpy(stamps).to(device),
+                       torch.from_numpy(mask).to(device), n)
+            if not torch.equal(card.cpu(), cpu):
+                raise AssertionError(f"{law.__name__}: the card's buckets "
+                                     f"differ from the CPU's")
+    print(f"bucket laws: the card equals the CPU at {len(deltas)} deltas "
+          f"2^k - 2 .. 2^k (k = 1..30, both signs) and across int32 "
+          f"wraparound", flush=True)
+
+    cfg = trainer.model.config
+    bucket = Enc._time_bucket_matrix(batch["input_timestamps"],
+                                     batch["input_mask"],
+                                     cfg.temporal_attention_buckets)
+    g = torch.randn((STREAM_BATCH, cfg.num_attention_heads, SEQ, SEQ),
+                    device=device)
+    out, ms = {}, {}
+    for name, fn in (("onehot", lambda *a: table_grad_onehot(torch, *a)),
+                     ("sorted", enc_mod.table_grad_sorted)):
+        out[name] = fn(bucket, g, cfg.temporal_attention_buckets)
+        if not torch.equal(out[name], fn(bucket, g,
+                                         cfg.temporal_attention_buckets)):
+            raise AssertionError(f"table gradient {name} does not repeat "
+                                 f"its bits")
+        ms[name] = time_ms(lambda: fn(bucket, g,
+                                      cfg.temporal_attention_buckets),
+                           iters=10)
+    agree = rel_err(out["sorted"], out["onehot"])
+    print(f"table gradient A/B (B={STREAM_BATCH}, N={cfg.num_attention_heads}"
+          f", S={SEQ}, {cfg.temporal_attention_buckets} buckets, bits "
+          f"repeat): " + ", ".join(f"{k} {v:.4f} ms" for k, v in ms.items())
+          + f" (onehot: JAX's law, a yardstick; sorted: the port's); they "
+          f"agree within {agree:.3g} of the scale", flush=True)
+    if not agree <= 1e-4:
+        raise AssertionError(f"the sorted table gradient differs from "
+                             f"JAX's one-hot law: {agree}")
+    return ms
+
+
+def check_temporal_gate(torch, device):
+    """The quality harness's temporal gate on the card: the temporal model
+    against its time-blind ablation on the planted copy-by-time-delta
+    world (JAX's generator, seeds, model, optimizer and 30 epochs), with
+    JAX's three checks."""
+    import types
+    from bert4rec_tpu_torch.evaluation import quality_harness
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_gate_") as tmp:
+        t0 = time.perf_counter()
+        rc = quality_harness.run_smoke_temporal(
+            types.SimpleNamespace(seed=42, out=tmp), device=device)
+        wall = time.perf_counter() - t0
+        with open(f"{tmp}/eval_results.json") as f:
+            payload = json.load(f)
+    print(f"temporal gate ({wall:.1f} s): temporal model "
+          f"{payload['results']}, time-blind ablation "
+          f"{payload['results_time_blind_ablation']}, checks "
+          f"{payload['checks']}", flush=True)
+    if rc != 0 or not all(payload["checks"].values()):
+        raise AssertionError(f"the temporal gate failed: {payload['checks']}")
+    return payload
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2109,6 +2498,18 @@ def run(torch, home) -> int:
     torch.cuda.empty_cache()
     flash_rows = check_flash_kernels(torch, rng, device)
     base = check_bert_base_training(torch, device)
+    rel_rows = check_rel_layer(torch, rng, device)
+    t_loader, t_splits = check_temporal_pipeline()
+    temporal = check_ml20m_training(torch, device, t_loader, t_splits,
+                                    "ml-20m_128", family="temporal",
+                                    timed_steps=TEMPORAL_TIMED_STEPS)
+    check_temporal_extras(torch, device, temporal["trainer"],
+                          temporal["host"][13])
+    check_evaluation(torch, device, t_loader, t_splits, temporal["trainer"],
+                     "temporal ml-20m_128", protocols=("device negatives",))
+    del temporal["trainer"]
+    torch.cuda.empty_cache()
+    check_temporal_gate(torch, device)
 
     def entry(name, source, replaces, n, row):
         return {"name": name, "route": "cuda",
@@ -2129,6 +2530,8 @@ def run(torch, home) -> int:
     # K8 / K9 at bert_base_512's shape and rates; launches from its train()
     flash_row = flash_rows[(FLASH_SHAPES[0], "bfloat16", False)]
     c_base = base["counts"]
+    rel_row = rel_rows[("bfloat16", False)]   # the temporal path's variant
+    c_temp = temporal["counts"]
     loss_py = "bert4rec_tpu/ops/fused_mlm_loss.py"
     record = {"kernels": [
         # what the server runs: fp32, B=32
@@ -2176,6 +2579,14 @@ def run(torch, home) -> int:
         entry("flash_attention_backward", "flash_attention.cu",
               "bert4rec_tpu/ops/flash_attention.py:141",
               c_base["flash.backward_launches"], flash_row["bwd"]),
+        # K1'' rel_bias / K2 dRel (temporal ml-20m_128): launches from its
+        # train() run
+        entry("fused_encoder_layer_rel", layer_src,
+              "bert4rec_tpu/ops/fused_encoder_layer.py:241",
+              c_temp["rel_fwd"], rel_row["fwd"]),
+        entry("fused_encoder_layer_rel_backward", layer_src,
+              "bert4rec_tpu/ops/fused_encoder_layer.py:315",
+              c_temp["rel_bwd"], rel_row["bwd"]),
     ]}
     print(f"card: {card}", flush=True)
     print(json.dumps(record), flush=True)

@@ -266,6 +266,88 @@ def test_causal_layer_kernels_match_plain(cuda_device, dims, dtype, rates):
                                                        runs[1][0])
 
 
+# S = 200 (the temporal path's: a partial last tile) and 130 (two keys past
+# a tile boundary), with a head dim of 32 and 8
+REL_DIMS = [(5, 200, 128, 4, 512), (4, 130, 32, 4, 64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dims", REL_DIMS,
+                         ids=lambda d: "B{}_S{}_H{}_N{}_F{}".format(*d))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("causal", [False, True],
+                         ids=["bidirectional", "causal_rel"])
+def test_rel_layer_kernels_match_plain(cuda_device, dims, dtype, causal):
+    """K1'' rel_bias and K2 dRel against the plain versions (dropout 0.1 /
+    0.1, ml-20m_128's), with an all-pad row, a row of length 1 and a
+    front-padded row: the output, dx, the weight gradients and dRel; dRel
+    is exactly 0 after the diagonal when causal, in every row whose first
+    key is real; the relative-bias launches are counted apart; two
+    backward runs give the same bits."""
+    b, s, h, n, f = dims
+    rng = np.random.default_rng(sum(dims) + 23)
+    p = params_from_numpy(flatten(layer_params_np(rng, h, n, f)),
+                          cuda_device)
+    for leaf in flatten(p).values():
+        leaf.requires_grad_(True)
+    mt = torch.from_numpy(causal_mask_np(rng, b, s)).to(cuda_device)
+    xt = torch.from_numpy(rng.normal(size=(b, s, h)).astype(np.float32)) \
+        .to(cuda_device, dtype).requires_grad_(True)
+    rel = torch.from_numpy(rng.normal(size=(b, n, s, s)).astype(np.float32)) \
+        .to(cuda_device).requires_grad_(True)
+    dy = torch.from_numpy(rng.normal(size=(b, s, h)).astype(np.float32)) \
+        .to(cuda_device, dtype)
+    rates = (0.1, 0.1)
+    kw = dict(num_heads=n, attention_dropout=rates[0],
+              output_dropout=rates[1], seed=555, causal=causal)
+    f_ = fel.fused_encoder_layer
+    names = ("launches", "backward_launches", "causal_launches",
+             "causal_backward_launches", "rel_launches",
+             "rel_backward_launches")
+    before = [getattr(f_, k) for k in names]
+    y = fel.fused_encoder_layer(p, xt, mt, rel_bias=rel, **kw)
+    y.backward(dy)
+    torch.cuda.synchronize()
+    assert [getattr(f_, k) for k in names] == before[:4] + [
+        before[4] + 1, before[5] + 1]
+    with torch.no_grad():
+        ref_y = fel.fused_encoder_layer_plain(p, xt, mt, rel_bias=rel, **kw)
+        flat = {k: v.detach() for k, v in fel.flat_weights(p).items()}
+        ref_dx, ref_g = fel.fused_encoder_layer_plain_backward(
+            flat, xt.detach(), mt, dy, rel_bias=rel.detach(), **kw)
+    tol = 1e-4 if dtype == torch.float32 else 8e-2
+    np.testing.assert_allclose(y.detach().float().cpu().numpy(),
+                               ref_y.float().cpu().numpy(), rtol=0, atol=tol)
+    assert _rel_err(xt.grad, ref_dx) <= GRAD_TOL[dtype]
+    assert _rel_err(rel.grad, ref_g["rel"]) <= GRAD_TOL[dtype]
+    got = {k: v.grad for k, v in flatten(p).items()}
+    for k, path in zip(fel._W_ORDER, [
+            "attention/qkv/kernel", "attention/qkv/bias",
+            "attention/output/kernel", "attention/output/bias",
+            "attention_norm/scale", "attention_norm/bias",
+            "intermediate/kernel", "intermediate/bias", "output/kernel",
+            "output/bias", "output_norm/scale", "output_norm/bias"]):
+        g = got[path].reshape(ref_g[k].shape)
+        assert _rel_err(g, ref_g[k]) <= GRAD_TOL[dtype], path
+    if causal:
+        # where a row's first key is real every query sees it, so p and dRel
+        # after the diagonal are exactly 0; a query that sees only padding
+        # (the front-padded row) spreads p over keys after it, as in JAX
+        upper = torch.triu(torch.ones(s, s, dtype=torch.bool,
+                                      device=cuda_device), 1)
+        seen = mt[:, 0] > 0
+        assert int((rel.grad[seen][..., upper] != 0).sum()) == 0
+    y2, saved = fel._launch_forward(flat, xt.detach(), mt, n, 555, *rates,
+                                    True, causal=causal, rel=rel.detach())
+    runs = [fel._launch_backward(flat, xt.detach(), mt, dy, saved, n, 555,
+                                 *rates, causal=causal, rel=rel.detach())
+            for _ in range(2)]
+    assert torch.equal(y2, y.detach())
+    assert torch.equal(runs[0][1]["rel"], runs[1][1]["rel"])
+    assert torch.equal(runs[0][1]["rel"], rel.grad)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("rate", [0.2, 0.5])
 def test_kernel_dropout_masks_equal_plain_masks(cuda_device, rate):

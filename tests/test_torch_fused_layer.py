@@ -87,21 +87,17 @@ class TestWrapperRaises:
 
     @pytest.mark.parametrize("kwargs", [
         dict(causal=True),
-        dict(rel_bias=torch.zeros(B, N, S, S)),
+        dict(rel_bias=torch.from_numpy(np.random.default_rng(0).normal(
+            size=(B, N, S, S)).astype(np.float32))),
         dict(attention_dropout=0.2),
         dict(output_dropout=0.5),
     ], ids=["causal", "rel_bias", "attention_dropout", "output_dropout"])
     def test_unported_variants_raise(self, kwargs):
-        """The rel_bias variant is not ported and raises; the dropout and
-        causal variants are ported: they run, move the output off the
-        bidirectional rate-0 output and repeat under one seed."""
+        """Every variant is ported, the relative bias too: each
+        runs, moves the output off the bidirectional rate-0 output and
+        repeats under one seed."""
         _, torch_p, x, mask = both(0)
         xt, mt = torch.from_numpy(x), torch.from_numpy(mask)
-        if "rel_bias" in kwargs:
-            with pytest.raises(NotImplementedError):
-                fel.fused_encoder_layer(torch_p, xt, mt, num_heads=N,
-                                        **kwargs)
-            return
         out = fel.fused_encoder_layer(torch_p, xt, mt, num_heads=N, seed=7,
                                       **kwargs)
         again = fel.fused_encoder_layer(torch_p, xt, mt, num_heads=N,

@@ -214,9 +214,10 @@ class TestModelParity:
                           num_attention_heads=12, inner_dim=3072)
 
     def test_unported_paths_raise(self):
-        """Temporal features are not ported and raise; flash attention
-        (this slice) and causal attention (the SASRec slice) run: flash
-        gives the plain attention's outputs, causal moves them."""
+        """Every encoder path of the config now runs: flash attention gives
+        the plain attention's outputs, the temporal flags build their
+        tables and run with or without timestamps (a zero bias table is a
+        no-op), and causal attention moves the outputs."""
         feats = {k: torch.from_numpy(v) for k, v in features(0).items()}
         base_model = BERT4RecModel(config=BERT4RecConfig(**model_kwargs()))
         params = base_model.init(torch.Generator().manual_seed(0), "cpu")
@@ -225,15 +226,29 @@ class TestModelParity:
             **model_kwargs(use_flash_attention=True))).apply(params, feats)
         np.testing.assert_allclose(flash["mlm_logits"].numpy(),
                                    base.numpy(), rtol=2e-4, atol=2e-4)
-        for flag in ("use_temporal_embeddings", "use_temporal_attention"):
-            with pytest.raises(NotImplementedError):
-                BERT4RecModel(config=BERT4RecConfig(
-                    **model_kwargs(**{flag: True}))).init(device="cpu")
+        stamps = torch.from_numpy(1_600_000_000 + np.cumsum(
+            np.random.default_rng(1).integers(60, 90_000, size=(B, S)),
+            axis=1))
+        for flag, table in (("use_temporal_embeddings", "temporal_embeddings"),
+                            ("use_temporal_attention",
+                             "temporal_attention_bias")):
+            model = BERT4RecModel(config=BERT4RecConfig(
+                **model_kwargs(**{flag: True})))
+            tparams = model.init(torch.Generator().manual_seed(0), "cpu")
+            assert table in tparams["encoder"]
+            for ts in (None, stamps):
+                out = model.apply(tparams, dict(feats, input_timestamps=ts)
+                                  if ts is not None else feats)["mlm_logits"]
+                assert out.shape == base.shape
+                assert torch.isfinite(out).all()
         temporal = dict(params, encoder=dict(
             params["encoder"], temporal_attention_bias={
                 "embedding": torch.zeros((64, N))}))
-        with pytest.raises(NotImplementedError):
-            base_model.apply(temporal, feats)
+        out = BERT4RecModel(config=BERT4RecConfig(**model_kwargs(
+            use_temporal_attention=True))).apply(
+            temporal, dict(feats, input_timestamps=stamps))["mlm_logits"]
+        np.testing.assert_allclose(out.numpy(), base.numpy(), rtol=1e-5,
+                                   atol=1e-5)
         causal = BERT4RecModel(config=BERT4RecConfig(
             **model_kwargs(causal_attention=True)))
         out = causal.apply(params, feats)["mlm_logits"]
