@@ -1,0 +1,838 @@
+// Flash attention on Hopper's warpgroup tensor cores (bf16 operands): the
+// K8 forward and the two K9 backward kernels of flash_attention.cu.
+//
+// One warpgroup (128 threads) per block; every tile is 64 rows of one head
+// ([64][DP] bf16, DP = 64 or 128 the head dim D zero-padded, each 64
+// columns one 8 KB block in the 128-byte swizzle wgmma reads: row r's
+// 16-byte chunk c at r * 128 + ((c ^ (r % 8)) * 16)). All threads fill the
+// tiles with cp.async 16-byte copies from the strided [B, N, S, D] views
+// (16-byte aligned base and strides; rows past S and columns past D are
+// zero-filled, which is exact for both products), a two-stage ring keeping
+// the next tile in flight while the products run on the current one.
+//
+// Products: scores X Y^T run as wgmma m64n64k16 with both operands K-major
+// in shared memory (fp32 accumulators in registers); the second product of
+// each step takes the rounded probabilities (or ds) straight from those
+// registers as its A operand: for 16-bit types the m64nNk16 accumulator
+// layout is the A-register layout, so element 4 j + 2 h + e of a thread's
+// 64 x 64 accumulator (row 16 warp + lane / 4 + 8 h, column 8 j +
+// 2 (lane % 4) + e) packs into k-block j / 2 with no exchange. B is then an
+// MN-major tile (the same swizzled bytes read with the transpose bit). A
+// row's 16 columns per thread reduce across the 4 lanes that share it.
+//
+// Every kernel forms a score with the same instruction, k-order and
+// epilogue (fmaf(acc, scale, bias), -inf for keys past S), so the
+// probabilities K9 recomputes from K8's row max and sum are K8's bit for
+// bit; the dkv kernel forms S^T = K Q^T, whose entries are the same sums.
+// JAX's rounding points hold: p is normalised in fp32 before the keep scale
+// and the rounding to bf16; dp = dd * keep is rounded before dp - delta
+// (__fmul_rn, which nvcc never contracts into the following add). K8 tests
+// each pair's dropout hash once and writes the result as one bit; K9 reads
+// the bits (see kept_k).
+#pragma once
+
+#include "attention.cuh"
+#include "common.cuh"
+
+namespace b4r {
+namespace hopper {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kRows = 64;      // rows of every tile (the wgmma M)
+constexpr int kThreads = 128;  // one warpgroup
+constexpr int kStages = 2;     // tiles of the streamed operands in flight
+constexpr int kBlockBytes = kRows * 128;  // one [64][64] bf16 swizzled block
+// Blocks an SM holds, which registers decide: at DP = 64 ptxas fits K8 in
+// 128 registers and the K9 kernels in 168 (4 and 3 blocks, against 3 and 2
+// at the 130-200 it takes unbounded); each warpgroup waits on its own
+// products and barriers, and more of them per SM hide more of those waits.
+template <int DP> constexpr int kFwdBlocks = DP == 64 ? 4 : 2;
+template <int DP> constexpr int kBwdBlocks = DP == 64 ? 3 : 1;
+
+__host__ __device__ constexpr int tile_bytes(int dp) { return kRows * dp * 2; }
+__device__ __forceinline__ int cdiv(int a, int b) { return (a + b - 1) / b; }
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// ---------------------------------------------------------------------------
+// asynchronous copies
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+// the copies' writes made visible to wgmma's (async-proxy) reads
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Rows t0 .. t0+63 of one head ([S, D] at src, row stride ss elements) into
+// the swizzled [64][DP] tile at shared address dst.
+template <int DP>
+__device__ __forceinline__ void load_tile(uint32_t dst, const bf16* src, int ss, int t0,
+                                          int S, int D) {
+  constexpr int kChunks = DP / 8;  // 16-byte chunks per row
+#pragma unroll
+  for (int i = 0; i < kRows * kChunks / kThreads; ++i) {
+    const int idx = threadIdx.x + i * kThreads;
+    const int r = idx / kChunks, c = idx % kChunks, t = t0 + r;
+    const int bytes = t < S ? min(16, max(0, 2 * (D - 8 * c))) : 0;
+    const bf16* from = bytes ? src + t * ss + 8 * c : src;
+    cp_async16(dst + (c >> 3) * kBlockBytes + r * 128 + (((c & 7) ^ (r & 7)) << 4), from,
+               bytes);
+  }
+}
+
+// mask[t0 .. t0+63] (int32) into shared memory, 0 past the sequence
+__device__ __forceinline__ void load_mask(uint32_t dst, const int32_t* mask_row, int t0,
+                                          int S) {
+  const int c = threadIdx.x, t = t0 + c;
+  if (c < kRows) cp_async4(dst + 4 * c, t < S ? mask_row + t : mask_row, t < S ? 4 : 0);
+}
+
+// ---------------------------------------------------------------------------
+// wgmma
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// keeps the compiler from moving register reads across the asynchronous
+// products that write (or read) them
+template <int N> __device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+__device__ __forceinline__ void fence_frags(uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) asm volatile("" : "+r"(a[i][r])::"memory");
+}
+
+// A shared-memory matrix descriptor in the 128-byte swizzle (the address,
+// strides in 16-byte units, layout type 1 in bits 62-63)
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+// k-block kk (head-dim columns 16 kk .. +15) of a tile as a K-major operand:
+// 8-row groups 1024 B apart, the block's 32 bytes inside the swizzle atom
+__device__ __forceinline__ uint64_t k_desc(uint32_t tile, int kk) {
+  return sw128_desc(tile + (kk >> 2) * kBlockBytes + (kk & 3) * 32, 16, 1024);
+}
+// k-block kk (tile rows 16 kk .. +15) of a tile as an MN-major B operand
+// (n = head dim): 8-row groups 1024 B apart, 64-column blocks kBlockBytes
+__device__ __forceinline__ uint64_t mn_desc(uint32_t tile, int kk) {
+  return sw128_desc(tile + kk * 16 * 128, kBlockBytes, 1024);
+}
+
+// the accumulator operands of one wgmma, eight at a time
+#define B4R_F8(i)                                                                     \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]),          \
+      "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+
+// d = A B (+ d when accumulate), m64n64k16: A and B K-major in shared memory
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db,
+                                             int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : B4R_F8(0), B4R_F8(8), B4R_F8(16), B4R_F8(24)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d = A B (+ d when accumulate), m64n64k16: A in registers, B MN-major in
+// shared memory
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4],
+                                             uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : B4R_F8(0), B4R_F8(8), B4R_F8(16), B4R_F8(24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+// d = A B (+ d when accumulate), m64n128k16: A in registers, B MN-major in
+// shared memory
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4],
+                                              uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : B4R_F8(0), B4R_F8(8), B4R_F8(16), B4R_F8(24),
+        B4R_F8(32), B4R_F8(40), B4R_F8(48), B4R_F8(56)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+#undef B4R_F8
+
+template <int DP>
+__device__ __forceinline__ void wgmma_rs(float (&d)[DP / 2], const uint32_t (&a)[4],
+                                         uint64_t db) {
+  if constexpr (DP == 64)
+    wgmma_rs_n64(d, a, db, 1);
+  else
+    wgmma_rs_n128(d, a, db, 1);
+}
+
+// Starts s = X Y^T over the head dim (X, Y tiles as K-major operands); the
+// caller fences before and commits and waits after.
+template <int DP>
+__device__ __forceinline__ void mma_nt(float (&s)[32], uint32_t X, uint32_t Y) {
+#pragma unroll
+  for (int kk = 0; kk < DP / 16; ++kk)
+    wgmma_ss_n64(s, k_desc(X, kk), k_desc(Y, kk), kk > 0);
+}
+
+// Starts acc += A B, A the 64 x 64 fragments a, B the tile at Bt read
+// MN-major (rows = the contraction, columns = the head dim).
+template <int DP>
+__device__ __forceinline__ void mma_rs(float (&acc)[DP / 2], const uint32_t (&a)[4][4],
+                                         uint32_t Bt) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) wgmma_rs<DP>(acc, a[kk], mn_desc(Bt, kk));
+}
+
+// 2^x on the special-function unit, subnormal results flushed to 0 (one
+// instruction; exp2f adds a subnormal range fix-up around it)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// x (a 64 x 64 accumulator) rounded to bf16 as A fragments: k-block kk's
+// register r packs elements 8 kk + 2 r and 8 kk + 2 r + 1
+__device__ __forceinline__ void to_frags(uint32_t (&a)[4][4], const float (&x)[32]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      a[kk][r] = pack_bf16(x[8 * kk + 2 * r], x[8 * kk + 2 * r + 1]);
+}
+
+// The score's epilogue, one law for every kernel: the pad bias kb of the key
+// (-inf past the sequence, where the zero-filled rows give acc = 0), a
+// second -1e9 for a key after its query when causal (so a row that sees
+// only padding is uniform over keys j <= i). kDiag: the tile holds such a
+// pair (causal, and its key tile starts at or after its query tile).
+template <bool kDiag>
+__device__ __forceinline__ float score(float acc, float scale, float kb, int key,
+                                       int query) {
+  const float bias = (kDiag && key > query) ? kb + kAttnNegMask : kb;
+  return fmaf(acc, scale, bias);
+}
+
+// f(std::bool_constant<diag>): one body compiled with and without the
+// causal comparisons
+template <typename F> __device__ __forceinline__ void with_diag(bool diag, F&& f) {
+  if (diag)
+    f(std::true_type{});
+  else
+    f(std::false_type{});
+}
+
+__device__ __forceinline__ float key_bias(int32_t m, int key, int S) {
+  return key < S ? (m > 0 ? 0.f : kAttnNegMask) : -INFINITY;
+}
+
+// s (queries as rows, keys as columns) -> scores, the key tile at t0 with
+// its mask in mask_s
+__device__ __forceinline__ void row_scores(float (&s)[32], const int32_t* mask_s, int t0,
+                                           int row0, int S, float scale, bool diag) {
+  const int tq = threadIdx.x & 3;
+  with_diag(diag, [&](auto kDiag) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int2 mv = *reinterpret_cast<const int2*>(mask_s + 8 * j + 2 * tq);
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int key = t0 + 8 * j + 2 * tq + e;
+        const float kb = key_bias(e ? mv.y : mv.x, key, S);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float& x = s[4 * j + 2 * h + e];
+          x = score<decltype(kDiag)::value>(x, scale, kb, key, row0 + 8 * h);
+        }
+      }
+    }
+  });
+}
+
+// sum over the 4 lanes that hold one accumulator row
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+// Rows row0, row0 + 8 of a [64 x DP] accumulator tile times mul into a head
+// of out (rows >= S and columns >= D dropped).
+template <int DP>
+__device__ __forceinline__ void store_rows(bf16* head, int ss, const float (&acc)[DP / 2],
+                                           int row0, int S, int D, float mul) {
+  const int tq = threadIdx.x & 3;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = row0 + 8 * h;
+    if (row >= S) continue;
+    bf16* p = head + row * ss;
+#pragma unroll
+    for (int j = 0; j < DP / 8; ++j) {
+      const int col = 8 * j + 2 * tq;
+      if (col >= D) continue;
+      const float x0 = acc[4 * j + 2 * h] * mul, x1 = acc[4 * j + 2 * h + 1] * mul;
+      if (col + 1 < D && (reinterpret_cast<uintptr_t>(p + col) & 3) == 0) {
+        *reinterpret_cast<__nv_bfloat162*>(p + col) = __floats2bfloat162_rn(x0, x1);
+      } else {
+        p[col] = __float2bfloat16_rn(x0);
+        if (col + 1 < D) p[col + 1] = __float2bfloat16_rn(x1);
+      }
+    }
+  }
+}
+
+// Dropout keep bits. K8 tests each (query, key) pair's hash once (common.cuh's
+// keep_scale_k law) and writes the results, one 32-bit word per thread and
+// tile pair: word t of tile pair (qt, kt) holds, at bit 4 j + 2 h + e, the
+// element K8's thread t holds there (query 64 qt + 16 (t / 32) + (t % 32) / 4
+// + 8 h, key 64 kt + 8 j + 2 (t % 4) + e). K9 reads the words instead of
+// hashing again (ops/dropout_bits.py tile_keep_bits is the plain packing).
+__device__ __forceinline__ bool kept_k(const Drop& d, uint32_t hk, uint32_t counter) {
+  return fmix32(hk ^ (counter * 0x9E3779B9u)) >= d.threshold;
+}
+// the first word of tile pair (qt, kt) of a head; `tiles` = ceil(S / 64)
+__device__ __forceinline__ size_t bits_at(int b, int head, int N, int tiles, int qt,
+                                          int kt) {
+  return ((((size_t)b * N + head) * tiles + qt) * tiles + kt) * kThreads;
+}
+// one tile pair's 128 words (512 bytes) into shared memory, by warp 0
+__device__ __forceinline__ void load_bits(uint32_t dst, const uint32_t* src) {
+  if (threadIdx.x < 32) cp_async16(dst + 16 * threadIdx.x, src + 4 * threadIdx.x, 16);
+}
+
+// the dynamic shared memory, its start rounded up to the 1024-byte swizzle
+// repeat (the launches ask for 1 KB more than the layout)
+__device__ __forceinline__ uint8_t* aligned_smem() {
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  const uint32_t a = smem_u32(smem_raw);
+  return smem_raw + (((a + 1023) & ~1023u) - a);
+}
+
+// ---------------------------------------------------------------------------
+// K8: one block per (64-query tile, head, batch element). The key tiles
+// stream twice: pass 1 (items 0 .. n-1) finds each row's max m and sum l;
+// pass 2 (items n .. 2n-1) recomputes the scores, forms
+// p = T(exp(s - m) * (1 / l) * keep) in registers and accumulates p v.
+// ---------------------------------------------------------------------------
+template <int DP>
+__global__ void __launch_bounds__(kThreads, kFwdBlocks<DP>)
+flash_fwd_kernel(Heads<const bf16> q, Heads<const bf16> k, Heads<const bf16> v,
+                 const int32_t* __restrict__ mask, Heads<bf16> o,
+                 float* __restrict__ stat_m, float* __restrict__ stat_l,
+                 uint32_t* __restrict__ keep_bits, Drop drop, int S, int N, int D,
+                 float scale, int causal) {
+  constexpr int kTile = tile_bytes(DP);
+  uint8_t* sm = aligned_smem();
+  const uint32_t Qs = smem_u32(sm), Ks = Qs + kTile, Vs = Ks + kStages * kTile,
+                 Ms = Vs + kStages * kTile;
+  const int32_t* mask_s = reinterpret_cast<const int32_t*>(sm + (Ms - Qs));
+
+  const int tid = threadIdx.x, tq = tid & 3;
+  const int q0 = blockIdx.x * kRows, head = blockIdx.y, b = blockIdx.z;
+  const int row0 = q0 + (tid >> 5) * 16 + ((tid & 31) >> 2);  // rows row0, row0 + 8
+  const int32_t* mask_row = mask + (size_t)b * S;
+  const int n = cdiv(key_tiles_end(q0, S, causal_skip(mask_row, causal)), kRows);
+  const uint32_t hk = site_key(drop, b, head);
+  const bf16* kh = k.at(b, head);
+  const bf16* vh = v.at(b, head);
+
+  auto prefetch = [&](int item) {
+    const int st = item % kStages, t0 = (item < n ? item : item - n) * kRows;
+    load_tile<DP>(Ks + st * kTile, kh, k.ss, t0, S, D);
+    if (item >= n) load_tile<DP>(Vs + st * kTile, vh, v.ss, t0, S, D);
+    load_mask(Ms + st * kRows * 4, mask_row, t0, S);
+  };
+  load_tile<DP>(Qs, q.at(b, head), q.ss, q0, S, D);
+  prefetch(0);
+  cp_async_commit();
+
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, inv_l[2] = {0.f, 0.f};
+  float acc[DP / 2], s[32];
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) s[i] = 0.f;
+  for (int item = 0; item < 2 * n; ++item) {
+    if (item + 1 < 2 * n) prefetch(item + 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    fence_async_smem();
+    __syncthreads();
+    const int st = item % kStages, t0 = (item < n ? item : item - n) * kRows;
+    wgmma_fence();
+    mma_nt<DP>(s, Qs, Ks + st * kTile);
+    wgmma_commit();
+    wgmma_wait();
+    fence_regs(s);
+    row_scores(s, mask_s + st * kRows, t0, row0, S, scale, causal && t0 >= q0);
+    if (item < n) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float mx = -INFINITY;
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          mx = fmaxf(mx, fmaxf(s[4 * j + 2 * h], s[4 * j + 2 * h + 1]));
+        const float m_new = fmaxf(m[h], quad_max(mx));
+        float sum = 0.f;
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            sum += ex2((s[4 * j + 2 * h + e] - m_new) * kAttnLog2e);
+        l[h] = l[h] * ex2((m[h] - m_new) * kAttnLog2e) + quad_sum(sum);
+        m[h] = m_new;
+      }
+      if (item == n - 1) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          inv_l[h] = 1.0f / l[h];
+          const int r = row0 + 8 * h;
+          if (stat_m && tq == 0 && r < S) {
+            const size_t at = ((size_t)b * N + head) * S + r;
+            stat_m[at] = m[h];
+            stat_l[at] = l[h];
+          }
+        }
+      }
+    } else {
+      uint32_t kept = 0;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int i = 4 * j + 2 * h + e;
+            float p = ex2((s[i] - m[h]) * kAttnLog2e) * inv_l[h];
+            if (drop.on) {
+              const bool keep = kept_k(drop, hk, (uint32_t)(row0 + 8 * h) * (uint32_t)S +
+                                                     (uint32_t)(t0 + 8 * j + 2 * tq + e));
+              p *= keep ? drop.scale : 0.f;
+              kept |= (uint32_t)keep << i;
+            }
+            s[i] = p;
+          }
+      if (keep_bits)
+        keep_bits[bits_at(b, head, N, gridDim.x, blockIdx.x, t0 / kRows) + tid] = kept;
+      uint32_t a[4][4];
+      to_frags(a, s);
+      fence_frags(a);
+      fence_regs(acc);
+      wgmma_fence();
+      mma_rs<DP>(acc, a, Vs + st * kTile);
+      wgmma_commit();
+      wgmma_wait();
+      fence_regs(acc);
+    }
+    __syncthreads();
+  }
+  store_rows<DP>(o.at(b, head), o.ss, acc, row0, S, D, 1.f);
+}
+
+// ---------------------------------------------------------------------------
+// K9, dq kernel: one block per (64-query tile, head, batch element); Q, dO
+// resident, the key and value tiles stream twice. Pass A (items 0 .. n-1)
+// sums JAX's delta = sum_j dp p per row; pass B (items n .. 2n-1) forms
+// ds = T(p (dp - delta)) in registers and accumulates dq += ds k.
+// ---------------------------------------------------------------------------
+template <int DP>
+__global__ void __launch_bounds__(kThreads, kBwdBlocks<DP>)
+flash_bwd_dq_kernel(Heads<const bf16> q, Heads<const bf16> k, Heads<const bf16> v,
+                    Heads<const bf16> dout, const int32_t* __restrict__ mask,
+                    const float* __restrict__ stat_m, const float* __restrict__ stat_l,
+                    const uint32_t* __restrict__ keep_bits, Drop drop,
+                    float* __restrict__ delta_out, Heads<bf16> dq, int S, int N, int D,
+                    float scale, int causal) {
+  constexpr int kTile = tile_bytes(DP);
+  uint8_t* sm = aligned_smem();
+  const uint32_t Qs = smem_u32(sm), Os = Qs + kTile, Ks = Os + kTile,
+                 Vs = Ks + kStages * kTile, Ms = Vs + kStages * kTile,
+                 Bs = Ms + kStages * kRows * 4;
+  const int32_t* mask_s = reinterpret_cast<const int32_t*>(sm + (Ms - Qs));
+  const uint32_t* bits_s = reinterpret_cast<const uint32_t*>(sm + (Bs - Qs));
+
+  const int tid = threadIdx.x, tq = tid & 3;
+  const int q0 = blockIdx.x * kRows, head = blockIdx.y, b = blockIdx.z;
+  const int row0 = q0 + (tid >> 5) * 16 + ((tid & 31) >> 2);
+  const int32_t* mask_row = mask + (size_t)b * S;
+  const int n = cdiv(key_tiles_end(q0, S, causal_skip(mask_row, causal)), kRows);
+  const size_t stat0 = ((size_t)b * N + head) * S;
+  const bf16* kh = k.at(b, head);
+  const bf16* vh = v.at(b, head);
+
+  auto prefetch = [&](int item) {
+    const int st = item % kStages, kt = item < n ? item : item - n, t0 = kt * kRows;
+    load_tile<DP>(Ks + st * kTile, kh, k.ss, t0, S, D);
+    load_tile<DP>(Vs + st * kTile, vh, v.ss, t0, S, D);
+    load_mask(Ms + st * kRows * 4, mask_row, t0, S);
+    if (drop.on)
+      load_bits(Bs + st * kThreads * 4,
+                keep_bits + bits_at(b, head, N, gridDim.x, blockIdx.x, kt));
+  };
+  load_tile<DP>(Qs, q.at(b, head), q.ss, q0, S, D);
+  load_tile<DP>(Os, dout.at(b, head), dout.ss, q0, S, D);
+  prefetch(0);
+  cp_async_commit();
+
+  float m[2], inv_l[2], dl[2] = {0.f, 0.f}, delta[2] = {0.f, 0.f};
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = row0 + 8 * h;
+    m[h] = r < S ? stat_m[stat0 + r] : 0.f;
+    inv_l[h] = r < S ? 1.0f / stat_l[stat0 + r] : 0.f;
+  }
+  float acc[DP / 2], s[32], dp[32];
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
+  for (int item = 0; item < 2 * n; ++item) {
+    if (item + 1 < 2 * n) prefetch(item + 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    fence_async_smem();
+    __syncthreads();
+    const int st = item % kStages, t0 = (item < n ? item : item - n) * kRows;
+    wgmma_fence();
+    mma_nt<DP>(s, Qs, Ks + st * kTile);
+    mma_nt<DP>(dp, Os, Vs + st * kTile);
+    wgmma_commit();
+    wgmma_wait();
+    fence_regs(s);
+    fence_regs(dp);
+    row_scores(s, mask_s + st * kRows, t0, row0, S, scale, causal && t0 >= q0);
+    // p and dp = dO v^T keep of element i (row row0 + 8 h); dp is rounded
+    // before it is used (__fmul_rn: never contracted into a later add)
+    const uint32_t kept = drop.on ? bits_s[st * kThreads + tid] : 0u;
+    auto p_dp = [&](int i, int h, float& p, float& d) {
+      p = ex2((s[i] - m[h]) * kAttnLog2e) * inv_l[h];
+      d = dp[i];
+      if (drop.on) d = __fmul_rn(d, (kept >> i) & 1u ? drop.scale : 0.f);
+    };
+    if (item < n) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            float p, d;
+            p_dp(4 * j + 2 * h + e, h, p, d);
+            dl[h] += __fmul_rn(d, p);
+          }
+      if (item == n - 1) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          delta[h] = quad_sum(dl[h]);
+          const int r = row0 + 8 * h;
+          if (tq == 0 && r < S) delta_out[stat0 + r] = delta[h];
+        }
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int i = 4 * j + 2 * h + e;
+            float p, d;
+            p_dp(i, h, p, d);
+            s[i] = p * (d - delta[h]);
+          }
+      uint32_t a[4][4];
+      to_frags(a, s);
+      fence_frags(a);
+      fence_regs(acc);
+      wgmma_fence();
+      mma_rs<DP>(acc, a, Ks + st * kTile);
+      wgmma_commit();
+      wgmma_wait();
+      fence_regs(acc);
+    }
+    __syncthreads();
+  }
+  store_rows<DP>(dq.at(b, head), dq.ss, acc, row0, S, D, scale);
+}
+
+// ---------------------------------------------------------------------------
+// K9, dkv kernel: one block per (64-key tile, head, batch element); K, V
+// resident, the query and dO tiles and the query rows' m, 1 / l and delta
+// stream. Keys are the M dimension: S^T = K Q^T and dP^T = V dO^T, so
+// T(p keep)^T and T(ds)^T come out in the A-register layout of
+// dv += T(p keep)^T dO and dk += T(ds)^T q (dO and Q read MN-major).
+// ---------------------------------------------------------------------------
+template <int DP>
+__global__ void __launch_bounds__(kThreads, kBwdBlocks<DP>)
+flash_bwd_dkv_kernel(Heads<const bf16> q, Heads<const bf16> k, Heads<const bf16> v,
+                     Heads<const bf16> dout, const int32_t* __restrict__ mask,
+                     const float* __restrict__ stat_m, const float* __restrict__ stat_l,
+                     const float* __restrict__ delta,
+                     const uint32_t* __restrict__ keep_bits, Drop drop, Heads<bf16> dk,
+                     Heads<bf16> dv, int S, int N, int D, float scale, int causal) {
+  constexpr int kTile = tile_bytes(DP);
+  uint8_t* sm = aligned_smem();
+  const uint32_t Ks = smem_u32(sm), Vs = Ks + kTile, Qs = Vs + kTile,
+                 Os = Qs + kStages * kTile;
+  // [kStages][3][64]: the streamed query rows' m, 1 / l, delta; then
+  // [kStages][128] keep-bit words
+  float* rows_s = reinterpret_cast<float*>(sm + 2 * kTile + 2 * kStages * kTile);
+  const uint32_t* bits_s =
+      reinterpret_cast<const uint32_t*>(rows_s + kStages * 3 * kRows);
+  const uint32_t Bs = smem_u32(bits_s);
+
+  const int tid = threadIdx.x, tq = tid & 3, g = (tid & 31) >> 2;
+  const int k0 = blockIdx.x * kRows, head = blockIdx.y, b = blockIdx.z;
+  const int key0 = k0 + (tid >> 5) * 16 + g;  // keys key0, key0 + 8
+  const int32_t* mask_row = mask + (size_t)b * S;
+  // the query tiles wholly before this key tile see none of it (the mirror
+  // of key_tiles_end): their p and ds are 0 here
+  const int qb = causal_skip(mask_row, causal) ? k0 : 0;
+  const int n = cdiv(S - qb, kRows);
+  const size_t stat0 = ((size_t)b * N + head) * S;
+  const bf16* qh = q.at(b, head);
+  const bf16* oh = dout.at(b, head);
+
+  float kb[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int key = key0 + 8 * h;
+    kb[h] = key_bias(key < S ? mask_row[key] : 0, key, S);
+  }
+  auto prefetch = [&](int item) {
+    const int st = item % kStages, t0 = qb + item * kRows;
+    load_tile<DP>(Qs + st * kTile, qh, q.ss, t0, S, D);
+    load_tile<DP>(Os + st * kTile, oh, dout.ss, t0, S, D);
+    if (drop.on)
+      load_bits(Bs + st * kThreads * 4,
+                keep_bits + bits_at(b, head, N, gridDim.x, t0 / kRows, blockIdx.x));
+  };
+  // query row stats of an item: plain loads into registers, stored into
+  // the item's stage (1 / l formed once per row) after the current step
+  float rm = 0.f, rl = 0.f, rd = 0.f;
+  auto fetch = [&](int item) {
+    const int t = qb + item * kRows + tid;
+    if (tid < kRows && t < S) {
+      rm = stat_m[stat0 + t];
+      rl = 1.0f / stat_l[stat0 + t];
+      rd = delta[stat0 + t];
+    } else {
+      rm = rl = rd = 0.f;
+    }
+  };
+  auto stash = [&](int item) {
+    float* r = rows_s + (item % kStages) * 3 * kRows;
+    if (tid < kRows) {
+      r[tid] = rm;
+      r[kRows + tid] = rl;
+      r[2 * kRows + tid] = rd;
+    }
+  };
+  load_tile<DP>(Ks, k.at(b, head), k.ss, k0, S, D);
+  load_tile<DP>(Vs, v.at(b, head), v.ss, k0, S, D);
+  prefetch(0);
+  cp_async_commit();
+  fetch(0);
+  stash(0);
+
+  float dk_acc[DP / 2], dv_acc[DP / 2], s[32], dp[32];
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
+  for (int item = 0; item < n; ++item) {
+    if (item + 1 < n) {
+      prefetch(item + 1);
+      fetch(item + 1);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();
+    fence_async_smem();
+    __syncthreads();
+    const int st = item % kStages, q0 = qb + item * kRows;
+    wgmma_fence();
+    mma_nt<DP>(s, Ks, Qs + st * kTile);
+    mma_nt<DP>(dp, Vs, Os + st * kTile);
+    wgmma_commit();
+    wgmma_wait();
+    fence_regs(s);
+    fence_regs(dp);
+    const float* r = rows_s + st * 3 * kRows;
+    // This thread's elements as K8 held them (the transpose of its layout):
+    // element (j, h, e) is bit 4 (2 warp + h) + 2 (j % 2) + g % 2 of word
+    // 32 (j / 2) + 8 tq + 4 e + g / 2.
+    uint32_t kept[4][2] = {};
+    if (drop.on)
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          kept[jj][e] = bits_s[st * kThreads + 32 * jj + 8 * tq + 4 * e + (g >> 1)] >>
+                        (8 * (tid >> 5) + (g & 1));
+    with_diag(causal && k0 >= q0, [&](auto kDiag) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int c = 8 * j + 2 * tq;
+        const float2 mv = *reinterpret_cast<const float2*>(r + c);
+        const float2 lv = *reinterpret_cast<const float2*>(r + kRows + c);
+        const float2 dl2 = *reinterpret_cast<const float2*>(r + 2 * kRows + c);
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int query = q0 + c + e;
+          const float mq = e ? mv.y : mv.x, iq = e ? lv.y : lv.x, dl = e ? dl2.y : dl2.x;
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int i = 4 * j + 2 * h + e, key = key0 + 8 * h;
+            const float sv =
+                score<decltype(kDiag)::value>(s[i], scale, kb[h], key, query);
+            const float p = ex2((sv - mq) * kAttnLog2e) * iq;
+            float keep = 1.f, d = dp[i];
+            if (drop.on) {
+              keep = (kept[j >> 1][e] >> (4 * h + 2 * (j & 1))) & 1u ? drop.scale : 0.f;
+              d = __fmul_rn(d, keep);
+            }
+            s[i] = drop.on ? p * keep : p;
+            dp[i] = p * (d - dl);
+          }
+        }
+      }
+    });
+    uint32_t ap[4][4], as[4][4];
+    to_frags(ap, s);
+    to_frags(as, dp);
+    fence_frags(ap);
+    fence_frags(as);
+    fence_regs(dv_acc);
+    fence_regs(dk_acc);
+    wgmma_fence();
+    mma_rs<DP>(dv_acc, ap, Os + st * kTile);
+    mma_rs<DP>(dk_acc, as, Qs + st * kTile);
+    wgmma_commit();
+    wgmma_wait();
+    fence_regs(dv_acc);
+    fence_regs(dk_acc);
+    if (item + 1 < n) stash(item + 1);
+    __syncthreads();
+  }
+  store_rows<DP>(dk.at(b, head), dk.ss, dk_acc, key0, S, D, scale);
+  store_rows<DP>(dv.at(b, head), dv.ss, dv_acc, key0, S, D, 1.f);
+}
+
+// ---------------------------------------------------------------------------
+// launches (ceil(S / 64), N, B) blocks of kThreads
+// ---------------------------------------------------------------------------
+inline size_t fwd_smem(int dp) {
+  return 1024 + (size_t)tile_bytes(dp) * (1 + 2 * kStages) + kStages * kRows * 4;
+}
+inline size_t dq_smem(int dp) {
+  return 1024 + (size_t)tile_bytes(dp) * (2 + 2 * kStages) + kStages * kRows * 4 +
+         kStages * kThreads * 4;
+}
+inline size_t dkv_smem(int dp) {
+  return 1024 + (size_t)tile_bytes(dp) * (2 + 2 * kStages) + kStages * 3 * kRows * 4 +
+         kStages * kThreads * 4;
+}
+
+template <typename K>
+cudaError_t allow_smem(K kernel, size_t bytes) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)bytes);
+}
+
+template <int DP>
+cudaError_t forward(Heads<const bf16> q, Heads<const bf16> k, Heads<const bf16> v,
+                    const int32_t* mask, Heads<bf16> o, float* stat_m, float* stat_l,
+                    uint32_t* keep_bits, Drop drop, int B, int S, int N, int D,
+                    float scale, int causal, cudaStream_t stream) {
+  const size_t smem = fwd_smem(DP);
+  cudaError_t err = allow_smem(flash_fwd_kernel<DP>, smem);
+  if (err != cudaSuccess) return err;
+  flash_fwd_kernel<DP><<<dim3(ceil_div(S, kRows), N, B), kThreads, smem, stream>>>(
+      q, k, v, mask, o, stat_m, stat_l, keep_bits, drop, S, N, D, scale, causal);
+  return cudaGetLastError();
+}
+
+template <int DP>
+cudaError_t backward(Heads<const bf16> q, Heads<const bf16> k, Heads<const bf16> v,
+                     Heads<const bf16> dout, const int32_t* mask, const float* stat_m,
+                     const float* stat_l, const uint32_t* keep_bits, Drop drop,
+                     float* delta, Heads<bf16> dq,
+                     Heads<bf16> dk, Heads<bf16> dv, int B, int S, int N, int D,
+                     float scale, int causal, cudaStream_t stream) {
+  const dim3 grid(ceil_div(S, kRows), N, B);
+  size_t smem = dq_smem(DP);
+  cudaError_t err = allow_smem(flash_bwd_dq_kernel<DP>, smem);
+  if (err != cudaSuccess) return err;
+  flash_bwd_dq_kernel<DP><<<grid, kThreads, smem, stream>>>(
+      q, k, v, dout, mask, stat_m, stat_l, keep_bits, drop, delta, dq, S, N, D, scale,
+      causal);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  smem = dkv_smem(DP);
+  if ((err = allow_smem(flash_bwd_dkv_kernel<DP>, smem)) != cudaSuccess) return err;
+  flash_bwd_dkv_kernel<DP><<<grid, kThreads, smem, stream>>>(
+      q, k, v, dout, mask, stat_m, stat_l, delta, keep_bits, drop, dk, dv, S, N, D, scale,
+      causal);
+  return cudaGetLastError();
+}
+
+}  // namespace hopper
+}  // namespace b4r

@@ -78,6 +78,45 @@ def keep_scale(seed: int, batch: int, sites, rows: int, cols: int,
     return torch.where(kept, scale.to(device), 0.0).to(dtype)
 
 
+# flash attention's bf16 kernels keep their probabilities' keep bits in
+# 64 x 64 tile pairs of TILE_WORDS 32-bit words (csrc/flash_hopper.cuh)
+TILE = 64
+TILE_WORDS = 128
+
+
+def tiles(seq_len: int) -> int:
+    return -(-seq_len // TILE)
+
+
+def tile_keep_bits(seed: int, batch: int, num_heads: int, seq_len: int,
+                   rate: float, device) -> torch.Tensor:
+    """The keep bits of flash attention's probabilities (site ``h`` per
+    head, counter ``row * S + col``) as its bf16 forward kernel writes
+    them: ``[B, N, T, T, 128]`` int32, ``T = tiles(S)``. Word
+    ``32 w + 4 g + c`` of tile pair ``(qt, kt)`` holds at bit
+    ``4 j + 2 h + e`` the pair (query ``64 qt + 16 w + g + 8 h``, key
+    ``64 kt + 8 j + 2 c + e``): the elements of thread ``32 w + 4 g + c``
+    of a ``wgmma`` accumulator. Pairs past the sequence hold their counter's
+    bit too (``row * S + col`` mod 2^32)."""
+    t = tiles(seq_len)
+    pad = t * TILE
+    elem = torch.arange(batch, dtype=torch.int64, device=device)
+    site = torch.arange(num_heads, dtype=torch.int64, device=device)
+    key = int(seed) + elem[:, None] * SITES_PER_CELL + site[None, :]
+    idx = torch.arange(pad, dtype=torch.int64, device=device)
+    counter = (idx[:, None] * seq_len + idx[None, :]) & MASK32
+    kept = (bits(key[:, :, None, None], counter[None, None])
+            >= threshold(rate)).to(torch.int64)
+    # [B, N, qt, w, h, g, kt, j, c, e] -> [B, N, qt, kt, w, g, c, j, h, e]
+    kept = kept.view(batch, num_heads, t, 4, 2, 8, t, 8, 4, 2).permute(
+        0, 1, 2, 6, 3, 5, 8, 7, 4, 9)
+    j, h, e = torch.meshgrid(*(torch.arange(n, device=device)
+                               for n in (8, 2, 2)), indexing="ij")
+    words = (kept << (4 * j + 2 * h + e)).sum(dim=(-3, -2, -1))
+    words = torch.where(words >= 2 ** 31, words - 2 ** 32, words)
+    return words.reshape(batch, num_heads, t, t, TILE_WORDS).to(torch.int32)
+
+
 def fold_in(seed: int, data: int) -> int:
     """A new 31-bit seed from ``seed`` and ``data`` (the port's
     ``jax.random.fold_in``): every dropout seed of a train step derives

@@ -4,16 +4,32 @@
 Replaces the TPU kernels ``_fwd_kernel`` (K8, launched by ``_forward``)
 and ``_bwd_kernel`` (K9, launched by ``_backward`` through the custom
 backward ``_flash_bwd``) of ``bert4rec_tpu/ops/flash_attention.py`` with
-the hand-written Hopper CUDA kernels of ``csrc/flash_attention.cu``, which
-run the port's one tiled attention implementation (``csrc/attention.cuh``,
-shared with the fused encoder layer). The TPU kernel holds whole [S, S]
-score matrices of a head group in VMEM; an H100 block has at most 227 KB
-of shared memory, so the kernels stream 64-key tiles (two passes per query
-tile forward; the backward reads the forward's row max and sum).
+the hand-written Hopper CUDA kernels of ``csrc/flash_attention.cu``. The
+TPU kernel holds whole [S, S] score matrices of a head group in VMEM; an
+H100 block has at most 227 KB of shared memory, so the kernels stream
+64-row tiles and recompute the scores (two passes per query tile forward;
+the backward reads the forward's row max and sum).
 
 Bound at the main path's shape (B=32, N=12, S=512, D=64, bf16): K8 moves
 100.7 MB for 25.8 GFLOP, K9 176 MB for 51.5 GFLOP; both are bound by bytes
 at the card's peaks (~0.030 and ~0.053 ms). Their times are in PERF.md.
+
+Design, by operand type (an explicit dispatch, not a fallback):
+
+- bf16 (the main path): ``csrc/flash_hopper.cuh``. One warpgroup per
+  64-row tile; tiles are copied as bf16 by ``cp.async`` into the 128-byte
+  swizzle ``wgmma`` reads, the next tile in flight while the products run;
+  every product is a ``wgmma`` with the scores in registers, and the
+  rounded probabilities (or ds) are the next product's register operand.
+  K9 is a dq kernel per query tile and a dk/dv kernel per key tile
+  (``S^T = K Q^T``, so keys are the rows of its products).
+- fp32: ``csrc/attention.cuh``'s SIMT tiles, the fused encoder layer's.
+
+Layout rule (``check_copy_alignment``): a bf16 q, k, v or dO has a
+16-byte aligned base and batch, head and sequence strides (dims of size 1
+aside), as the 16-byte copies read rows; anything else raises before a
+launch. The main path's views of one ``[B, S, 3, N, D]`` projection meet
+it (sequence stride 3 N D elements).
 
 What it computes is the TPU kernel's: scores ``q k^T / sqrt(D)`` in fp32
 plus the pad bias (``mask > 0 ? 0 : -1e9``) and, with ``causal``, a second
@@ -28,7 +44,8 @@ the plain versions draw equal masks from equal seeds.
 
 Layout: q, k, v ``[B, N, S, D]`` (any batch, head and sequence strides,
 the last axis contiguous: the transposes of a ``[B, S, N, D]`` projection
-are taken without a copy), ``mask [B, S]`` (1 = real key).
+are taken without a copy; bf16 within the rule above), ``mask [B, S]``
+(1 = real key).
 
 Routing: a CUDA tensor launches K8/K9 at every sequence length up to
 ``MAX_KERNEL_SEQ_LEN`` and raises beyond it. A CPU tensor runs the plain
@@ -135,9 +152,9 @@ def flash_attention_plain_backward(q, k, v, mask, do, *,
 
 _lib = None
 # device-pointer order of the C entry points (FwdPtr / BwdPtr in the source)
-_FWD_PTRS = ("q", "k", "v", "mask", "o", "stat_m", "stat_l")
+_FWD_PTRS = ("q", "k", "v", "mask", "o", "stat_m", "stat_l", "keep_bits")
 _BWD_PTRS = ("q", "k", "v", "do", "mask", "stat_m", "stat_l", "delta", "dq",
-             "dk", "dv")
+             "dk", "dv", "keep_bits")
 _FWD_VIEWS = ("q", "k", "v", "o")
 _BWD_VIEWS = ("q", "k", "v", "do", "dq", "dk", "dv")
 
@@ -174,7 +191,33 @@ def head_strides(t: torch.Tensor) -> tuple:
         raise ValueError(f"flash attention kernels index one head in 32 "
                          f"bits; sequence stride {t.stride(2)} spans too "
                          f"far for S={t.shape[2]}")
-    return tuple(t.stride()[:3])
+    # an axis of size 1 is never stepped: its stride is passed as 0
+    return tuple(t.stride(i) if t.shape[i] > 1 else 0 for i in range(3))
+
+
+def _misaligned(t: torch.Tensor) -> list:
+    """What keeps ``t`` from the bf16 kernels' 16-byte copies (empty if
+    nothing): its base, or a batch, head or sequence stride (axes of size 1
+    aside), that is not a multiple of 16 bytes."""
+    es = t.element_size()
+    bad = [f"base address {t.data_ptr()} is {t.data_ptr() % 16} bytes "
+           f"past a multiple of 16"] if t.data_ptr() % 16 else []
+    return bad + [
+        f"{axis} stride {t.stride(i)} elements is {t.stride(i) * es} bytes"
+        for i, axis in enumerate(("batch", "head", "sequence"))
+        if t.shape[i] > 1 and (t.stride(i) * es) % 16]
+
+
+def check_copy_alignment(t: torch.Tensor, name: str) -> None:
+    """The bf16 kernels read operand rows in 16-byte copies: raises unless
+    ``t``'s base and its batch, head and sequence strides (axes of size 1
+    aside) are multiples of 16 bytes."""
+    bad = _misaligned(t)
+    if bad:
+        raise ValueError(f"the bf16 flash attention kernels take operands "
+                         f"with a 16-byte aligned base and batch, head and "
+                         f"sequence strides; {name} of shape "
+                         f"{tuple(t.shape)}: " + "; ".join(bad))
 
 
 def _empty_heads(like: torch.Tensor) -> torch.Tensor:
@@ -218,29 +261,48 @@ def _launch(fn, ops: dict, order, views, q, seed, rate, causal, what):
 
 def _launch_forward(q, k, v, mask, seed: int, rate: float, causal: bool,
                     save: bool):
-    """Launch K8; returns ``(o, saved)``, ``saved`` the fp32 row max and
-    sum ``[B, N, S]`` K9 reads (empty unless ``save``)."""
+    """Launch K8; returns ``(o, saved)``, ``saved`` what K9 reads (empty
+    unless ``save``): the fp32 row max and sum ``[B, N, S]`` and, for bf16
+    with dropout, the keep bits (``dropout_bits.tile_keep_bits``' layout;
+    the tile pairs a causal block skips are left unwritten)."""
     b, n, s, _ = q.shape
+    if q.dtype == torch.bfloat16:
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            check_copy_alignment(t, name)
     ops = dict(q=q, k=k, v=v, mask=mask, o=_empty_heads(q))
     if save:
         ops.update(stat_m=torch.empty((b, n, s), dtype=torch.float32,
                                       device=q.device),
                    stat_l=torch.empty((b, n, s), dtype=torch.float32,
                                       device=q.device))
+        if q.dtype == torch.bfloat16 and rate > 0.0:
+            t = dropout_bits.tiles(s)
+            ops["keep_bits"] = torch.empty(
+                (b, n, t, t, dropout_bits.TILE_WORDS), dtype=torch.int32,
+                device=q.device)
     _launch(_kernel_lib().b4r_flash_fwd, ops, _FWD_PTRS, _FWD_VIEWS, q, seed,
             rate, causal, "forward")
-    return ops["o"], ((ops["stat_m"], ops["stat_l"]) if save else ())
+    return ops["o"], tuple(ops[name] for name in ("stat_m", "stat_l",
+                                                  "keep_bits") if name in ops)
 
 
 def _launch_backward(q, k, v, mask, do, saved: tuple, seed: int,
                      rate: float, causal: bool):
     """Launch K9 (causal and the rate must be the forward's: ``saved`` is
-    its row statistics); returns ``(dq, dk, dv)``."""
+    its row statistics and keep bits); returns ``(dq, dk, dv)``."""
     b, n, s, _ = q.shape
-    if do.stride(-1) != 1:
-        do = do.contiguous()
+    if do.stride(-1) != 1 or (do.dtype == torch.bfloat16
+                              and _misaligned(do)):
+        do = do.contiguous()   # dO is autograd's gradient, not a layout
+    if q.dtype == torch.bfloat16:
+        for name, t in (("q", q), ("k", k), ("v", v), ("do", do)):
+            check_copy_alignment(t, name)
+        if rate > 0.0 and len(saved) < 3:
+            raise ValueError("the bf16 backward kernels read the forward's "
+                             "keep bits: save them (save=True, rate > 0)")
     ops = dict(q=q, k=k, v=v, do=do, mask=mask, stat_m=saved[0],
-               stat_l=saved[1], dq=_empty_heads(q), dk=_empty_heads(k),
+               stat_l=saved[1], keep_bits=saved[2] if len(saved) > 2 else None,
+               dq=_empty_heads(q), dk=_empty_heads(k),
                dv=_empty_heads(v),
                delta=torch.empty((b, n, s), dtype=torch.float32,
                                  device=q.device))

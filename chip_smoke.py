@@ -1849,11 +1849,13 @@ def check_flash_kernels(torch, rng, device):
     """K8 and K9 against their plain versions on strided views at
     FLASH_SHAPES, fp32 and bf16, dropout 0 and FLASH_RATE, bidirectional
     and causal; contiguous copies give the same bits, two K9 runs the same
-    bits; at dropout FLASH_RATE kernel, plain and library (SDPA) times and
-    the bound."""
+    bits, bf16 K8's keep bits the plain packing's; kernel times at both
+    rates and, at FLASH_RATE, plain and library (SDPA) times and the bound
+    (kernel and library times medians of 7 blocks of 10 calls)."""
     import torch.nn.functional as F
+    from bert4rec_tpu_torch.ops import dropout_bits
     from bert4rec_tpu_torch.ops import flash_attention as fa
-    rows = {}
+    rows, rate0 = {}, {}
     for dims in FLASH_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
             name = str(dtype).removeprefix("torch.")
@@ -1896,14 +1898,30 @@ def check_flash_kernels(torch, rng, device):
                         for a, c, e in zip(grads, grads_c, again))):
                     raise AssertionError(f"{label}: strided and contiguous "
                                          f"operands, or two K9 runs, differ")
+                bits_note = ""
+                if dtype == torch.bfloat16 and rate > 0.0 and not causal:
+                    # a causal block leaves the tile pairs it skips unwritten
+                    want = dropout_bits.tile_keep_bits(77, *dims[:3], rate,
+                                                       device)
+                    if not torch.equal(saved[2], want):
+                        raise AssertionError(f"{label}: K8's keep bits are "
+                                             f"not the plain packing's")
+                    bits_note = ", keep bits = the plain packing's"
+                    del want
                 line = (f"{label} (all-pad row, length-1 row, strided views "
-                        f"= contiguous copies, K9 twice the same bits): "
-                        f"forward err {fwd_err:.3g} (tol {FLASH_TOL[name]}; "
-                        f"rms(o) {o_rms:.3g}), backward rel err "
-                        f"{bwd_err:.3g} (tol {GRAD_TOL[name]})")
+                        f"= contiguous copies, K9 twice the same bits"
+                        f"{bits_note}): forward err {fwd_err:.3g} (tol "
+                        f"{FLASH_TOL[name]}; rms(o) {o_rms:.3g}), backward "
+                        f"rel err {bwd_err:.3g} (tol {GRAD_TOL[name]})")
                 del ref, ref_grads, grads_c, again, o_c, saved_c
+                kernel = {"fwd": time_ms_blocks(fwd),
+                          "bwd": time_ms_blocks(bwd)}
                 if rate == 0.0:
-                    print(line, flush=True)
+                    rate0[(dims, name, causal)] = kernel
+                    print(line + "; " + "; ".join(
+                        f"{part}: kernel_ms={t[0]:.4f} ({t[1]:.4f}-"
+                        f"{t[2]:.4f})" for part, t in kernel.items()),
+                        flush=True)
                     continue
                 # yardstick: SDPA with the pad mask (and the triangle) as one
                 # additive mask, its own dropout, and its autograd
@@ -1919,40 +1937,44 @@ def check_flash_kernels(torch, rng, device):
                         ql, kl, vl, attn_mask=bias, dropout_p=rate)
 
                 lib_out = lib_fwd()
+                lib_bwd = lambda: torch.autograd.grad(  # noqa: E731
+                    lib_out, (ql, kl, vl), do, retain_graph=True)
+                lib = {"fwd": time_ms_blocks(lib_fwd),
+                       "bwd": time_ms_blocks(lib_bwd)}
+                backend = sdpa_backend(torch, lib_bwd)
                 heavy = dict(iters=5, warmup=1)
-                row = dict(
-                    fwd=dict(max_abs_err=fwd_err, ms=time_ms(fwd),
-                             plain_ms=time_ms(lambda: fa.mha_reference(
-                                 q, k, v, mask, rate, 77, causal), **heavy),
-                             library_ms=time_ms(lib_fwd),
-                             **dict(zip(("bound_ms", "bound_by"),
-                                        flash_bound_ms(dims, name, False,
-                                                       causal)))),
-                    bwd=dict(max_abs_err=bwd_abs, max_rel_err=bwd_err,
-                             ms=time_ms(bwd),
-                             plain_ms=time_ms(
-                                 lambda: fa.flash_attention_plain_backward(
-                                     q, k, v, mask, do, dropout_rate=rate,
-                                     seed=77, causal=causal), **heavy),
-                             library_ms=time_ms(lambda: torch.autograd.grad(
-                                 lib_out, (ql, kl, vl), do,
-                                 retain_graph=True)),
-                             **dict(zip(("bound_ms", "bound_by"),
-                                        flash_bound_ms(dims, name, True,
-                                                       causal)))))
+                plain = {"fwd": lambda: fa.mha_reference(
+                             q, k, v, mask, rate, 77, causal),
+                         "bwd": lambda: fa.flash_attention_plain_backward(
+                             q, k, v, mask, do, dropout_rate=rate, seed=77,
+                             causal=causal)}
+                row = {part: dict(
+                    max_abs_err=fwd_err if part == "fwd" else bwd_abs,
+                    ms=kernel[part][0], range=kernel[part][1:],
+                    rate0_ms=rate0[(dims, name, causal)][part][0],
+                    plain_ms=time_ms(plain[part], **heavy),
+                    library_ms=lib[part][0], library_range=lib[part][1:],
+                    **dict(zip(("bound_ms", "bound_by"), flash_bound_ms(
+                        dims, name, part == "bwd", causal))))
+                    for part in ("fwd", "bwd")}
+                row["bwd"]["max_rel_err"] = bwd_err
                 rows[(dims, name, causal)] = row
                 print(line + "; " + "; ".join(
-                    f"{part}: kernel_ms={r['ms']:.4f} plain_ms="
-                    f"{r['plain_ms']:.4f} library_ms={r['library_ms']:.4f} "
+                    f"{part}: kernel_ms={r['ms']:.4f} ({r['range'][0]:.4f}-"
+                    f"{r['range'][1]:.4f}; rate 0 {r['rate0_ms']:.4f}) "
+                    f"plain_ms={r['plain_ms']:.4f} library_ms="
+                    f"{r['library_ms']:.4f} ({r['library_range'][0]:.4f}-"
+                    f"{r['library_range'][1]:.4f}, SDPA backend {backend}) "
                     f"bound_ms={r['bound_ms']:.5f} ({r['bound_by']})"
-                    for part, r in row.items()), flush=True)
+                    for part, r in row.items()) + " (kernel and library: "
+                    "medians of 7 blocks of 10 calls)", flush=True)
                 if dims == FLASH_SHAPES[0] and name == "bfloat16" \
                         and not causal:
                     print("  per K8 launch: " + device_breakdown(
                         torch, fwd)[1], flush=True)
                     print("  per K9 launch: " + device_breakdown(
                         torch, bwd)[1], flush=True)
-                del lib_out, ql, kl, vl, bias
+                del lib_out, lib_bwd, ql, kl, vl, bias
             del q, k, v, mask, do, copies
             torch.cuda.empty_cache()
     return rows
@@ -2063,7 +2085,8 @@ def check_bert_base_training(torch, device):
     train_ms = (time.perf_counter() - t0) * 1e3 / BASE_TIMED_STEPS
     device_ms, breakdown = device_breakdown(
         torch, lambda: trainer.train_step(batch), calls=3, top=10,
-        groups={"K8": ("attention_kernel",), "K9": ("attn_bwd",),
+        groups={"K8": ("flash_fwd_kernel", "attention_kernel"),
+                "K9": ("flash_bwd", "attn_bwd"),
                 "GEMMs": ("nvjet", "gemm", "cutlass", "sm90_xmma"),
                 "optimizer": ("multi_tensor", "foreach")})
     idle = None if device_ms is None else 1 - device_ms / train_ms
@@ -2137,19 +2160,32 @@ def check_bert_base_training(torch, device):
 # --------------------------------------------------------------------------- #
 
 def sdpa_backend(torch, fn) -> str:
-    """Which SDPA backend ``fn`` ran, read from its kernels' names."""
+    """Which SDPA backend ``fn`` ran, read from its kernels' names (the
+    runtime's own records, memsets and copies set aside; a trace that
+    holds no kernel is taken once more)."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    names = " ".join(e.key.lower() for e in prof.key_averages())
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        kernels = sorted(
+            (e for e in prof.key_averages()
+             if getattr(e, "self_device_time_total", 0) > 0
+             and not e.key.startswith("cuda")
+             and not any(w in e.key.lower() for w in ("memset", "memcpy"))),
+            key=lambda e: -e.self_device_time_total)
+        if kernels:
+            break
+    names = " ".join(e.key.lower() for e in kernels)
     for label, keys in (("cudnn", ("cudnn",)), ("flash", ("flash",)),
                         ("efficient", ("fmha", "efficient", "mem_eff"))):
         if any(k in names for k in keys):
             return label
-    return "math" if names else "not measured"
+    # no known backend's name: say which kernels took the most time
+    return ("unnamed: " + ", ".join(_kernel_name(e.key) for e in kernels[:3])
+            if kernels else "not measured (no kernel in the trace)")
 
 
 def check_rel_layer(torch, rng, device):

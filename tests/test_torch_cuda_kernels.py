@@ -698,3 +698,100 @@ def test_flash_kernels_run_past_the_jax_sequence_limit(cuda_device, dtype):
         with pytest.raises(ValueError, match="S <="):
             f(q, k, v, mask)
     assert f.launches == before[0] + 1
+
+
+# bf16 runs the wgmma kernels of csrc/flash_hopper.cuh: every head dim they
+# pad (32, 40 -> 64; 128) and sequence lengths around the 64-row tiles
+FLASH_BF16_DIMS = [32, 40, 64, 128]
+FLASH_BF16_SEQS = [1, 63, 64, 65, 130, 512, 1100]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", FLASH_BF16_DIMS, ids=lambda d: f"D{d}")
+@pytest.mark.parametrize("s", FLASH_BF16_SEQS, ids=lambda s: f"S{s}")
+def test_flash_bf16_kernels_match_plain_at_each_head_dim_and_length(
+        cuda_device, d, s):
+    """The bf16 K8/K9 against the plain versions, bidirectional and causal,
+    dropout 0 and 0.2, on strided views with an all-pad row, a length-1 row
+    and a front-padded row: forward within 2e-2 absolute, gradients within
+    3e-2 of their scale."""
+    from bert4rec_tpu_torch.ops import flash_attention as fa
+    q, k, v, mask, do = flash_operands(cuda_device, (4, 2, s, d),
+                                       torch.bfloat16, s + d)
+    for causal, rate in ((False, 0.0), (False, 0.2), (True, 0.0),
+                         (True, 0.2)):
+        o, saved = fa._launch_forward(q, k, v, mask, 41, rate, causal, True)
+        grads = fa._launch_backward(q, k, v, mask, do, saved, 41, rate,
+                                    causal)
+        torch.cuda.synchronize()
+        ref = fa.mha_reference(q, k, v, mask, rate, 41, causal)
+        ref_grads = fa.flash_attention_plain_backward(
+            q, k, v, mask, do, dropout_rate=rate, seed=41, causal=causal)
+        label = f"causal={causal} rate={rate}"
+        assert float((o.float() - ref.float()).abs().max()) \
+            <= FLASH_TOL[torch.bfloat16], label
+        for name, got, want in zip("qkv", grads, ref_grads):
+            assert bool(torch.isfinite(got).all()), (name, label)
+            assert _rel_err(got, want) <= GRAD_TOL[torch.bfloat16], \
+                (name, label)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [32, 40, 128], ids=lambda d: f"D{d}")
+def test_flash_bf16_strided_equals_contiguous_and_backward_repeats(
+        cuda_device, d):
+    """At the padded head dims too, the projection's views and their
+    contiguous copies give the same bits, and two K9 runs the same bits."""
+    from bert4rec_tpu_torch.ops import flash_attention as fa
+    q, k, v, mask, do = flash_operands(cuda_device, (4, 3, 130, d),
+                                       torch.bfloat16, d)
+    copies = [t.contiguous() for t in (q, k, v)]
+    for causal in (False, True):
+        o1, s1 = fa._launch_forward(q, k, v, mask, 8, 0.2, causal, True)
+        o2, s2 = fa._launch_forward(*copies, mask, 8, 0.2, causal, True)
+        g1 = fa._launch_backward(q, k, v, mask, do, s1, 8, 0.2, causal)
+        g2 = fa._launch_backward(*copies, mask, do, s2, 8, 0.2, causal)
+        g3 = fa._launch_backward(q, k, v, mask, do, s1, 8, 0.2, causal)
+        torch.cuda.synchronize()
+        assert torch.equal(o1, o2)
+        for a, b, c in zip(g1, g2, g3):
+            assert torch.equal(a, b) and torch.equal(a, c)
+
+
+@pytest.mark.cuda
+def test_flash_bf16_rejects_a_misaligned_view(cuda_device):
+    """A bf16 view whose base or sequence stride is not a multiple of 16
+    bytes raises before any launch (the copies read 16-byte pieces)."""
+    from bert4rec_tpu_torch.ops import flash_attention as fa
+    q, k, v, mask, _ = flash_operands(cuda_device, (2, 2, 64, 64),
+                                      torch.bfloat16, 9)
+    flat = torch.zeros(q.numel() + 1, device=cuda_device,
+                       dtype=torch.bfloat16)
+    shifted = flat[1:].view(q.shape)                     # base 2 bytes off
+    wide = torch.zeros((2, 2, 64, 68), device=cuda_device,
+                       dtype=torch.bfloat16)[..., :64]   # rows 136 bytes apart
+    f = fa.flash_attention
+    before = (f.launches, f.backward_launches)
+    for bad in (shifted, wide):
+        with pytest.raises(ValueError, match="16-byte"):
+            f(bad, k, v, mask)
+        with pytest.raises(ValueError, match="16-byte"):
+            f(q, k, bad, mask)
+    assert (f.launches, f.backward_launches) == before
+
+
+@pytest.mark.cuda
+def test_flash_bf16_keep_bits_equal_the_plain_packing(cuda_device):
+    """K8 writes the keep bits K9 reads in dropout_bits.tile_keep_bits'
+    layout; the bf16 backward refuses to run at dropout without them."""
+    from bert4rec_tpu_torch.ops import dropout_bits
+    from bert4rec_tpu_torch.ops import flash_attention as fa
+    dims = (3, 4, 130, 64)
+    q, k, v, mask, do = flash_operands(cuda_device, dims, torch.bfloat16, 10)
+    _, saved = fa._launch_forward(q, k, v, mask, 12, 0.2, False, True)
+    torch.cuda.synchronize()
+    assert len(saved) == 3
+    assert torch.equal(saved[2], dropout_bits.tile_keep_bits(
+        12, *dims[:3], 0.2, cuda_device))
+    with pytest.raises(ValueError, match="keep bits"):
+        fa._launch_backward(q, k, v, mask, do, saved[:2], 12, 0.2, False)

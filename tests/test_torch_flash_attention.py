@@ -175,6 +175,83 @@ class TestPlainVersusJaxKernel:
                                dropout_rate=0.1, seed=1)
 
 
+class TestKernelLayoutRule:
+    """What the bf16 kernels take, decided in Python before any launch (the
+    kernels themselves run on a card: tests/test_torch_cuda_kernels.py)."""
+
+    @staticmethod
+    def projection_views(b=2, s=5, n=3, d=16, dtype=torch.bfloat16):
+        proj = torch.zeros((b, s, 3, n, d), dtype=dtype)
+        return [proj[:, :, i].transpose(1, 2) for i in range(3)]
+
+    def test_the_main_paths_views_and_contiguous_operands_pass(self):
+        for t in self.projection_views() + [torch.zeros((2, 3, 5, 16),
+                                                        dtype=torch.bfloat16)]:
+            fa.check_copy_alignment(t, "q")
+
+    @pytest.mark.parametrize("case", ["base", "sequence", "head"])
+    def test_a_misaligned_operand_is_refused(self, case):
+        if case == "base":
+            t = torch.zeros(2 * 3 * 5 * 16 + 1, dtype=torch.bfloat16)[1:] \
+                .view(2, 3, 5, 16)
+        elif case == "sequence":   # rows 40 bytes apart
+            t = torch.zeros((2, 3, 5, 20), dtype=torch.bfloat16)
+        else:                      # heads 20 elements (40 bytes) apart
+            t = torch.zeros((2, 5, 4, 20), dtype=torch.bfloat16) \
+                .transpose(1, 2)[..., :16]
+        what = "base address" if case == "base" else f"{case} stride"
+        with pytest.raises(ValueError, match=f"16-byte.*{what}"):
+            fa.check_copy_alignment(t, "k")
+
+    def test_axes_of_size_one_are_not_stepped(self):
+        t = torch.zeros((1, 1, 1, 16), dtype=torch.bfloat16).as_strided(
+            (1, 1, 1, 16), (3, 5, 7, 1))
+        fa.check_copy_alignment(t, "q")
+        assert fa.head_strides(t) == (0, 0, 0)
+        assert fa.head_strides(torch.zeros((2, 3, 5, 16))) == (240, 80, 16)
+
+    def test_the_wrapper_refuses_before_reaching_the_kernels(
+            self, monkeypatch):
+        def no_kernels():
+            raise AssertionError("the kernel library was reached")
+        monkeypatch.setattr(fa, "_kernel_lib", no_kernels)
+        q, k, v = self.projection_views()
+        mask = torch.ones((2, 5), dtype=torch.int32)
+        bad = torch.zeros(q.numel() + 1, dtype=torch.bfloat16)[1:] \
+            .view(q.shape)
+        with pytest.raises(ValueError, match="16-byte"):
+            fa._launch_forward(q, k, bad, mask, 3, 0.2, False, True)
+        stats = (torch.zeros((2, 3, 5)), torch.ones((2, 3, 5)))
+        with pytest.raises(ValueError, match="keep bits"):
+            fa._launch_backward(q, k, v, mask, torch.zeros_like(q), stats,
+                                3, 0.2, False)
+
+    @pytest.mark.parametrize("seq_len", [1, 64, 130])
+    def test_keep_bits_pack_the_keep_scale_mask(self, seq_len):
+        """dropout_bits.tile_keep_bits against keep_scale: each word holds
+        its wgmma thread's 32 (query, key) pairs at bit 4 j + 2 h + e."""
+        b, n, seed, rate = 2, 3, 17, 0.2
+        words = dropout_bits.tile_keep_bits(seed, b, n, seq_len, rate, "cpu")
+        t = dropout_bits.tiles(seq_len)
+        assert words.shape == (b, n, t, t, 128) and words.dtype == torch.int32
+        w = words.to(torch.int64) & 0xFFFFFFFF
+        unpacked = torch.zeros((b, n, 64 * t, 64 * t), dtype=torch.bool)
+        thread = torch.arange(128)
+        warp, g, c = thread // 32, thread % 32 // 4, thread % 4
+        for j in range(8):
+            for h in range(2):
+                for e in range(2):
+                    bit = (w >> (4 * j + 2 * h + e)) & 1
+                    for qt in range(t):
+                        for kt in range(t):
+                            unpacked[:, :, 64 * qt + 16 * warp + g + 8 * h,
+                                     64 * kt + 8 * j + 2 * c + e] = \
+                                bit[:, :, qt, kt].bool()
+        keep = dropout_bits.keep_scale(seed, b, range(n), seq_len, seq_len,
+                                       rate, "cpu") > 0
+        assert torch.equal(unpacked[:, :, :seq_len, :seq_len], keep)
+
+
 class TestDropout:
 
     RATE = 0.2
