@@ -28,7 +28,8 @@
 // Design. The point of the TPU kernels is never to materialise the [R, V]
 // fp32 logits. The TPU held a whole table (K3/K4) or a 1,024-column tile
 // (K5-K7) in VMEM; an H100 block has 227 KB, so every kernel here streams
-// 64-row vocabulary tiles and recomputes the logits tile it needs:
+// 64-row tiles and recomputes the logits tile it needs. By operand type
+// (an explicit dispatch on `dtype`, nothing caught):
 //   loss_fwd_kernel     K3: one block per 64-row tile, online max / sum over
 //                       all vocabulary tiles; lse and per-block partials of
 //                       the four sums (reduced in a second, ordered pass)
@@ -37,35 +38,55 @@
 //                       partial (max, sum, label logit) per split; a second
 //                       pass merges the splits of each row in split order
 //                       into lse and the stats, and the sums as for K3
-//   loss_bwd_dh_kernel  K4 and K7's dh sweep: one block per 64-row tile, dh
-//                       accumulated over the vocabulary tiles from the lse
+//   loss_bwd_dh_kernel  K4 (and K7's dh sweep in fp32): one block per
+//                       64-row tile, dh accumulated over the vocabulary
+//                       tiles from the lse
 //   loss_bwd_dt_kernel  K4's dtable sweep: one block per (vocabulary tile,
 //                       1,024-row split); split partials reduced in order
-//   loss_bwd_vt_kernel  one block per group of vocabulary tiles; for each
-//                       tile it sweeps all rows and writes that tile's
-//                       dtable / dbias once:
-//                         K7's dt sweep: a tile per group
-//                         K6: at most 128 groups, all rows, and the same
-//                             pass also adds dlog . table into a dh partial
-//                             of its group (first tile writes, later tiles
-//                             add); the group partials are reduced in group
-//                             order. Workspace: groups x R x W fp32, which
-//                             the JAX law (R x W x 4 <= 5.5 MB) bounds, and
-//                             which does not grow with V.
+//   bf16 K6 / K7        loss_hopper.cuh's wgmma kernels: bf16 tiles by
+//                       cp.async into the 128-byte swizzle, the logits and
+//                       dlog in registers, dlog rounded in place as the
+//                       next product's A operand. K7: a dh sweep (a hidden
+//                       row tile per cluster) and a dt sweep (a vocabulary
+//                       tile per cluster), each splitting its streamed tiles
+//                       over the cluster's blocks and summing their fp32
+//                       partials in rank order through distributed shared
+//                       memory: no workspace. K6: clusters of 8 vocabulary
+//                       tiles sweep the row tiles in step; per row tile
+//                       their dh contributions are summed through
+//                       distributed shared memory and written once into the
+//                       cluster's fp32 dh partial (at most 32 partials of
+//                       R x W, reduced in cluster order: 168 MB at R =
+//                       10,240, W = 128, any V). Layout rule, which the
+//                       wrapper checks first: hidden and table contiguous,
+//                       16-byte aligned base and rows (W a multiple of 8),
+//                       W <= 256 (zero-filled to 64, 128 or 256).
+//   fp32 K6 / K7        loss_bwd_vt_kernel: one block per group of
+//                       vocabulary tiles; for each tile it sweeps all rows
+//                       and writes that tile's dtable / dbias once (K7's dt
+//                       sweep: a tile per group, after loss_bwd_dh_kernel;
+//                       K6: at most 128 groups, and the same pass adds
+//                       dlog . table into its group's dh partial, reduced
+//                       in group order). fp32 operands keep SIMT loops.
 // The backwards read the forward's lse (the JAX whole-table backward
 // recomputes max and sum; the difference is fp32 rounding, within the
-// tolerance the tests state). No float atomics: two runs give the same bits.
+// tolerance the tests state). dlog is rounded to the hidden dtype before
+// both products and dbias sums the unrounded dlog, as JAX's kernels do. No
+// float atomics: two runs give the same bits. Workspaces do not grow with V
+// except K4's dtable splits (the whole-table path).
 //
 // Bound. 2 R V W FLOP forward, 6 R V W backward (the logits, dh, dtable; K7
 // recomputes the logits once more, which the bound does not count), against
-// megabytes of inputs: bound by operations. With bf16 operands every product runs on the tensor cores
-// with mma.sync (fp32 sums; the operands are bf16-exact, so only the order
-// of the sums differs from the fp32 loops, which fp32 operands keep). No
-// copy pipelining or wgmma yet: later work.
+// megabytes of inputs: bound by operations (0.213 ms for K6 at the ML-20M
+// batch, R = 10,240, V = 26,732, W = 128, and 0.425 ms for K7 at W = 256, at
+// 989 TFLOP/s). K3-K5 and K4 in bf16 run mma.sync on fp32-staged tiles
+// (the operands are bf16-exact, so only the order of the sums differs from
+// the fp32 loops).
 
 #include <algorithm>
 
 #include "common.cuh"
+#include "loss_hopper.cuh"
 
 namespace {
 
@@ -90,12 +111,6 @@ __device__ __forceinline__ void load_rows(float* dst, const T* __restrict__ src,
 __device__ __forceinline__ void load_bias(float* bs, const float* __restrict__ bias,
                                           int v0, int V) {
   for (int c = threadIdx.x; c < LT; c += 256) bs[c] = (v0 + c < V) ? bias[v0 + c] : -INFINITY;
-}
-
-// whether a row carries loss weight: label > 0, or label >= 0 under the
-// sharded loss's encoding (valid_ge_zero)
-__device__ __forceinline__ bool row_valid(int lab, int valid_ge_zero) {
-  return valid_ge_zero ? lab >= 0 : lab > 0;
 }
 
 template <typename T>
@@ -393,8 +408,7 @@ loss_bwd_dh_kernel(const T* __restrict__ hidden, const T* __restrict__ table,
 
 // K4's dtable sweep: block (vocabulary tile, split of DT_CHUNK rows) writes
 // the tile's dtable / dbias partials of its split, reduced in order later.
-// K7 and K6 use loss_bwd_vt_kernel below; this one-tile form stays for K4,
-// which runs ~9% faster here than on the shared kernel (PERF.md).
+// (fp32 K6 / K7 use loss_bwd_vt_kernel below, bf16 ones loss_hopper.cuh.)
 template <typename T, int WJ>
 __global__ void __launch_bounds__(256)
 loss_bwd_dt_kernel(const T* __restrict__ hidden, const T* __restrict__ table,
@@ -497,40 +511,16 @@ loss_bwd_dt_kernel(const T* __restrict__ hidden, const T* __restrict__ table,
   if (tid < LT && v0 + tid < V) part_db[(size_t)split * V + v0 + tid] = db;
 }
 
-// Adds a 64 x D fragment tile (mma_acc_64xD's layout) into out[row * ld +
-// col] for rows < n_rows, cols < D; `first` stores instead of adding. Each
-// element has one owning thread: no atomics.
-template <int DJ>
-__device__ __forceinline__ void add_64xD_global(float* out, int ld, const float c[DJ][4],
-                                                int D, int n_rows, bool first) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int mb = (warp & 3) * 16, n_base = (warp >> 2) * 8 * DJ;
-  const int r = mb + (lane >> 2);
-#pragma unroll
-  for (int q = 0; q < DJ; ++q) {
-    const int col = n_base + 8 * q + 2 * (lane & 3);
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      if (r + 8 * h >= n_rows) continue;
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        if (col + e >= D) continue;
-        float* p = out + (size_t)(r + 8 * h) * ld + col + e;
-        *p = first ? c[q][2 * h + e] : *p + c[q][2 * h + e];
-      }
-    }
-  }
-}
-
-// A sweep over vocabulary tiles: block `group` takes the group's vocabulary
-// tiles in order and, for each, sweeps all R rows accumulating dtable in
-// registers and dbias, then writes both for that tile into dt / db once
-// (K7's dt sweep, a tile per group; K6). With kDh (K6) it also adds
-// dlog . table of every (row tile, vocabulary tile) into the group's dh
-// partial part_dh[group] (the first tile of the group stores).
-template <typename T, int WJ, bool kDh>
+// fp32 K6 / K7 (bf16 runs loss_hopper.cuh): a sweep over vocabulary tiles.
+// Block `group` takes the group's vocabulary tiles in order and, for each,
+// sweeps all R rows accumulating dtable and dbias, then writes both for
+// that tile into dt / db once (K7's dt sweep, a tile per group; K6). With
+// kDh (K6) it also adds dlog . table of every (row tile, vocabulary tile)
+// into the group's dh partial part_dh[group] (the first tile of the group
+// stores).
+template <int WJ, bool kDh>
 __global__ void __launch_bounds__(256)
-loss_bwd_vt_kernel(const T* __restrict__ hidden, const T* __restrict__ table,
+loss_bwd_vt_kernel(const float* __restrict__ hidden, const float* __restrict__ table,
                    const float* __restrict__ bias, const int32_t* __restrict__ labels,
                    const float* __restrict__ lse, const float* __restrict__ g,
                    const float* __restrict__ n_valid, int valid_ge_zero,
@@ -539,9 +529,8 @@ loss_bwd_vt_kernel(const T* __restrict__ hidden, const T* __restrict__ table,
   extern __shared__ float smem[];
   float* Ts = smem;                    // [64 vocab][W + 1], the current tile
   float* Hs = Ts + LT * (W + 1);       // [64 rows][W + 1]
-  float* Ds = Hs + LT * (W + 1);       // [64 rows][65] T(dlog)
-  float* Df = Ds + LT * (LT + 1);      // [64 rows][65] fp32 dlog
-  float* bs = Df + LT * (LT + 1);      // [64]
+  float* Ds = Hs + LT * (W + 1);       // [64 rows][65] dlog
+  float* bs = Ds + LT * (LT + 1);      // [64]
   float* rl = bs + LT;                 // [64] row lse
   float* rw = rl + LT;                 // [64] row weight
   int* rlab = reinterpret_cast<int*>(rw + LT);  // [64] row label
@@ -551,17 +540,16 @@ loss_bwd_vt_kernel(const T* __restrict__ hidden, const T* __restrict__ table,
   const int t_end = (int)((long)(grp + 1) * vtiles / n_groups);
   const float scale = g[0] / fmaxf(n_valid[0], 1.f);
   float* dh_part = kDh ? part_dh + (size_t)grp * R * W : nullptr;
-  constexpr bool kMma = kIsBf16<T>;
 
   for (int t = t_begin; t < t_end; ++t) {
     const int v0 = t * LT;
     load_rows(Ts, table, v0, V, W);
     load_bias(bs, bias, v0, V);
-    float acc[4][WJ], cacc[WJ][4];
+    float acc[4][WJ];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int j = 0; j < WJ; ++j) acc[i][j] = cacc[j][i] = 0.f;
+      for (int j = 0; j < WJ; ++j) acc[i][j] = 0.f;
     float db = 0.f;  // thread tid < 64 owns vocabulary column v0 + tid
     float s[4][4];
     for (int r0 = 0; r0 < R; r0 += LT) {
@@ -573,98 +561,69 @@ loss_bwd_vt_kernel(const T* __restrict__ hidden, const T* __restrict__ table,
         rw[r] = (ok && row_valid(rlab[r], valid_ge_zero)) ? scale : 0.f;
       }
       __syncthreads();
-      tile_dots<kMma>(s, Hs, Ts, tx, ty, W, Df);
+      tile_dots<false>(s, Hs, Ts, tx, ty, W, Ds);
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int rr = ty + 16 * i;
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           const int c = tx + 16 * j;
-          const float dl = dlog_of(s[i][j] + bs[c], rl[rr], v0 + c, rlab[rr], rw[rr]);
-          Df[rr * (LT + 1) + c] = dl;
-          Ds[rr * (LT + 1) + c] = round_to<T>(dl);
+          Ds[rr * (LT + 1) + c] = dlog_of(s[i][j] + bs[c], rl[rr], v0 + c, rlab[rr], rw[rr]);
         }
       }
       __syncthreads();
       const int rlen = min(LT, R - r0);
       if (tid < LT)
-        for (int rr = 0; rr < rlen; ++rr) db += Df[rr * (LT + 1) + tid];
-      if constexpr (kMma) {
-        // rows are vocabulary entries, the contraction runs over the row
-        // tile (rows past R have dlog = 0 and zero hidden rows)
-        mma_acc_64xD<WJ>(cacc, Ds, 1, LT + 1, Hs, W + 1, 1, W);
-        if constexpr (kDh) {
-          // columns past the vocabulary meet zero table rows
-          float hc[WJ][4];
+        for (int rr = 0; rr < rlen; ++rr) db += Ds[rr * (LT + 1) + tid];
+      for (int rr = 0; rr < rlen; ++rr) {
+        float dv[4];
 #pragma unroll
-          for (int j = 0; j < WJ; ++j)
+        for (int i = 0; i < 4; ++i) dv[i] = Ds[rr * (LT + 1) + ty + 16 * i];
 #pragma unroll
-            for (int e = 0; e < 4; ++e) hc[j][e] = 0.f;
-          mma_acc_64xD<WJ>(hc, Ds, LT + 1, 1, Ts, W + 1, 1, W);
-          add_64xD_global<WJ>(dh_part + (size_t)r0 * W, W, hc, W, rlen, t == t_begin);
+        for (int j = 0; j < WJ; ++j) {
+          const int d = tx + 16 * j;
+          if (d < W) {
+            const float h = Hs[rr * (W + 1) + d];
+#pragma unroll
+            for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(dv[i], h, acc[i][j]);
+          }
         }
-      } else {
-        for (int rr = 0; rr < rlen; ++rr) {
+      }
+      if constexpr (kDh) {
+        float hacc[4][WJ];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < WJ; ++j) hacc[i][j] = 0.f;
+        const int vlen = min(LT, V - v0);
+        for (int c = 0; c < vlen; ++c) {
           float dv[4];
 #pragma unroll
-          for (int i = 0; i < 4; ++i) dv[i] = Ds[rr * (LT + 1) + ty + 16 * i];
+          for (int i = 0; i < 4; ++i) dv[i] = Ds[(ty + 16 * i) * (LT + 1) + c];
 #pragma unroll
           for (int j = 0; j < WJ; ++j) {
             const int d = tx + 16 * j;
             if (d < W) {
-              const float h = Hs[rr * (W + 1) + d];
+              const float tv = Ts[c * (W + 1) + d];
 #pragma unroll
-              for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(dv[i], h, acc[i][j]);
+              for (int i = 0; i < 4; ++i) hacc[i][j] = fmaf(dv[i], tv, hacc[i][j]);
             }
           }
         }
-        if constexpr (kDh) {
-          float hacc[4][WJ];
 #pragma unroll
-          for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < 4; ++i) {
+          const int rr = ty + 16 * i;
+          if (rr >= rlen) continue;
 #pragma unroll
-            for (int j = 0; j < WJ; ++j) hacc[i][j] = 0.f;
-          const int vlen = min(LT, V - v0);
-          for (int c = 0; c < vlen; ++c) {
-            float dv[4];
-#pragma unroll
-            for (int i = 0; i < 4; ++i) dv[i] = Ds[(ty + 16 * i) * (LT + 1) + c];
-#pragma unroll
-            for (int j = 0; j < WJ; ++j) {
-              const int d = tx + 16 * j;
-              if (d < W) {
-                const float tv = Ts[c * (W + 1) + d];
-#pragma unroll
-                for (int i = 0; i < 4; ++i) hacc[i][j] = fmaf(dv[i], tv, hacc[i][j]);
-              }
-            }
-          }
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const int rr = ty + 16 * i;
-            if (rr >= rlen) continue;
-#pragma unroll
-            for (int j = 0; j < WJ; ++j) {
-              const int d = tx + 16 * j;
-              if (d >= W) continue;
-              float* p = dh_part + (size_t)(r0 + rr) * W + d;
-              *p = t == t_begin ? hacc[i][j] : *p + hacc[i][j];
-            }
+          for (int j = 0; j < WJ; ++j) {
+            const int d = tx + 16 * j;
+            if (d >= W) continue;
+            float* p = dh_part + (size_t)(r0 + rr) * W + d;
+            *p = t == t_begin ? hacc[i][j] : *p + hacc[i][j];
           }
         }
       }
       __syncthreads();
-    }
-    if constexpr (kMma) {  // fragments -> the (ty, tx) layout, through Ts
-      spill_64xD<WJ>(Ts, W + 1, cacc, W);
-      __syncthreads();
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < WJ; ++j) {
-          const int d = tx + 16 * j;
-          if (d < W) acc[i][j] = Ts[(ty + 16 * i) * (W + 1) + d];
-        }
     }
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -706,7 +665,7 @@ size_t dt_smem_bytes(int W) {
   return sizeof(float) * (size_t)(2 * LT * (W + 1) + 2 * LT * (LT + 1) + 4 * LT);
 }
 size_t vt_smem_bytes(int W) {
-  return sizeof(float) * (size_t)(2 * LT * (W + 1) + 2 * LT * (LT + 1) + 4 * LT);
+  return sizeof(float) * (size_t)(2 * LT * (W + 1) + LT * (LT + 1) + 4 * LT);
 }
 
 int dt_splits(int R) { return ceil_div(R, DT_CHUNK); }
@@ -749,13 +708,15 @@ struct TiledFwdScratch {
   }
 };
 
-// K6: one fp32 dh partial per vocabulary-tile group; K7 needs none
+// K6: one fp32 dh partial per vocabulary-tile group (fp32) or per cluster
+// (bf16, loss_hopper.cuh); K7 needs none
 struct TiledBwdScratch {
   float* part_dh;
   size_t bytes;
-  TiledBwdScratch(void* base, int R, int V, int W, int merged) {
+  TiledBwdScratch(void* base, int dtype, int R, int V, int W, int merged) {
     Carve c{static_cast<char*>(base), 0};
-    part_dh = merged ? c.take<float>((size_t)merged_groups(V) * R * W) : nullptr;
+    const int parts = dtype == 1 ? loss_hopper::merged_clusters(V) : merged_groups(V);
+    part_dh = merged ? c.take<float>((size_t)parts * R * W) : nullptr;
     bytes = c.used;
   }
 };
@@ -813,25 +774,25 @@ cudaError_t launch_dh(const T* hidden, const T* table, const float* bias,
   return cudaGetLastError();
 }
 
-template <typename T, int WJ, bool kDh>
-cudaError_t launch_vt(const T* hidden, const T* table, const float* bias,
+template <int WJ, bool kDh>
+cudaError_t launch_vt(const float* hidden, const float* table, const float* bias,
                       const int32_t* labels, const float* lse, const float* g,
                       const float* n_valid, int valid_ge_zero, float* dt, float* db,
                       float* part_dh, int R, int V, int W, int groups,
                       cudaStream_t stream) {
   const size_t smem = vt_smem_bytes(W);
-  cudaError_t err = cudaFuncSetAttribute(loss_bwd_vt_kernel<T, WJ, kDh>,
+  cudaError_t err = cudaFuncSetAttribute(loss_bwd_vt_kernel<WJ, kDh>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return err;
-  loss_bwd_vt_kernel<T, WJ, kDh><<<groups, 256, smem, stream>>>(
+  loss_bwd_vt_kernel<WJ, kDh><<<groups, 256, smem, stream>>>(
       hidden, table, bias, labels, lse, g, n_valid, valid_ge_zero, dt, db, part_dh, R, V,
       W, groups);
   return cudaGetLastError();
 }
 
 // mode: 0 = K4 (dh sweep; its own dtable sweep over 1,024-row splits, reduced
-// in order),
+// in order); in fp32 also
 // 1 = K6 (one merged sweep; dh partials per group, reduced in order),
 // 2 = K7 (dh sweep; dtable sweep over all rows)
 template <typename T, int WJ>
@@ -841,22 +802,29 @@ int loss_backward_w(int mode, const T* hidden, const T* table, const float* bias
                     void* workspace, int R, int V, int W, cudaStream_t stream) {
   const int vtiles = ceil_div(V, LT);
   cudaError_t err;
-  if (mode == 1) {
-    TiledBwdScratch w(workspace, R, V, W, 1);
-    const int groups = merged_groups(V);
-    err = launch_vt<T, WJ, true>(hidden, table, bias, labels, lse, g, n_valid, vge0, dt, db,
-                                 w.part_dh, R, V, W, groups, stream);
-    if (err != cudaSuccess) return (int)err;
-    const long n = (long)R * W;
-    reduce_rows_cast_kernel<T><<<ceil_div(n, 256), 256, 0, stream>>>(w.part_dh, dh, groups, n);
-    return (int)cudaGetLastError();
+  if constexpr (!kIsBf16<T>) {
+    if (mode == 1) {
+      TiledBwdScratch w(workspace, 0, R, V, W, 1);
+      const int groups = merged_groups(V);
+      err = launch_vt<WJ, true>(hidden, table, bias, labels, lse, g, n_valid, vge0, dt, db,
+                                w.part_dh, R, V, W, groups, stream);
+      if (err != cudaSuccess) return (int)err;
+      const long n = (long)R * W;
+      reduce_rows_cast_kernel<T><<<ceil_div(n, 256), 256, 0, stream>>>(w.part_dh, dh,
+                                                                      groups, n);
+      return (int)cudaGetLastError();
+    }
+  } else if (mode != 0) {
+    return (int)cudaErrorInvalidValue;  // bf16 K6 / K7: tiled_backward_bf16
   }
   err = launch_dh<T, WJ>(hidden, table, bias, labels, lse, g, n_valid, vge0, dh, R, V, W,
                          stream);
   if (err != cudaSuccess) return (int)err;
-  if (mode == 2)
-    return (int)launch_vt<T, WJ, false>(hidden, table, bias, labels, lse, g, n_valid, vge0,
-                                        dt, db, nullptr, R, V, W, vtiles, stream);
+  if constexpr (!kIsBf16<T>) {
+    if (mode == 2)
+      return (int)launch_vt<WJ, false>(hidden, table, bias, labels, lse, g, n_valid, vge0,
+                                       dt, db, nullptr, R, V, W, vtiles, stream);
+  }
   LossScratch w(workspace, R, V, W);
   const int splits = dt_splits(R);
   const size_t smem = dt_smem_bytes(W);
@@ -893,6 +861,37 @@ int loss_backward(int mode, const void* hidden, const void* table, const float* 
 #undef B4R_LB
 }
 
+// bf16 K6 (merged) / K7 on loss_hopper.cuh's wgmma kernels; K6's cluster
+// partials reduced in cluster order
+template <int WP>
+int tiled_backward_bf16_w(int merged, const loss_hopper::BwdArgs& a, __nv_bfloat16* dh,
+                          float* dt, float* db, void* workspace, cudaStream_t stream) {
+  if (!merged) return (int)loss_hopper::two_sweep<WP>(a, dh, dt, db, stream);
+  TiledBwdScratch w(workspace, 1, a.R, a.V, a.W, 1);
+  cudaError_t err = loss_hopper::merged_sweep<WP>(a, dt, db, w.part_dh, stream);
+  if (err != cudaSuccess) return (int)err;
+  const long n = (long)a.R * a.W;
+  reduce_rows_cast_kernel<__nv_bfloat16><<<ceil_div(n, 256), 256, 0, stream>>>(
+      w.part_dh, dh, loss_hopper::merged_clusters(a.V), n);
+  return (int)cudaGetLastError();
+}
+
+// the copies' layout rule, which the wrapper checks first: 16-byte aligned
+// operands and rows (W a multiple of 8), W <= LOSS_MAXW
+int tiled_backward_bf16(int merged, const loss_hopper::BwdArgs& a, void* dh, float* dt,
+                        float* db, void* workspace, cudaStream_t stream) {
+  if ((reinterpret_cast<uintptr_t>(a.hidden) | reinterpret_cast<uintptr_t>(a.table) |
+       reinterpret_cast<uintptr_t>(dh)) % 16 != 0 ||
+      a.W % 8 != 0 || a.W > LOSS_MAXW)
+    return (int)cudaErrorInvalidValue;
+  __nv_bfloat16* d = static_cast<__nv_bfloat16*>(dh);
+  switch (loss_hopper::padded_width(a.W)) {
+    case 64: return tiled_backward_bf16_w<64>(merged, a, d, dt, db, workspace, stream);
+    case 128: return tiled_backward_bf16_w<128>(merged, a, d, dt, db, workspace, stream);
+    default: return tiled_backward_bf16_w<256>(merged, a, d, dt, db, workspace, stream);
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -910,9 +909,9 @@ size_t b4r_mlm_loss_tiled_fwd_workspace_bytes(int R, int V, int W) {
   return TiledFwdScratch(nullptr, R, V).bytes;
 }
 
-// Bytes of K6's (merged = 1) or K7's (merged = 0) workspace.
-size_t b4r_mlm_loss_tiled_bwd_workspace_bytes(int R, int V, int W, int merged) {
-  return TiledBwdScratch(nullptr, R, V, W, merged).bytes;
+// Bytes of K6's (merged = 1) or K7's (merged = 0) workspace in dtype.
+size_t b4r_mlm_loss_tiled_bwd_workspace_bytes(int dtype, int R, int V, int W, int merged) {
+  return TiledBwdScratch(nullptr, dtype, R, V, W, merged).bytes;
 }
 
 // dtype: 0 = float32, 1 = bfloat16 for hidden and table (and dh). Writes
@@ -970,13 +969,15 @@ int b4r_mlm_loss_tiled_bwd(int merged, int dtype, const void* hidden, const void
                            void* dh, float* dt, float* db, void* workspace, int R, int V,
                            int W, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int mode = merged ? 1 : 2;
   if (dtype == 0)
-    return loss_backward<float>(mode, hidden, table, bias, labels, lse, g, n_valid,
-                                valid_ge_zero, dh, dt, db, workspace, R, V, W, st);
-  if (dtype == 1)
-    return loss_backward<__nv_bfloat16>(mode, hidden, table, bias, labels, lse, g, n_valid,
-                                        valid_ge_zero, dh, dt, db, workspace, R, V, W, st);
+    return loss_backward<float>(merged ? 1 : 2, hidden, table, bias, labels, lse, g,
+                                n_valid, valid_ge_zero, dh, dt, db, workspace, R, V, W, st);
+  if (dtype == 1) {
+    const loss_hopper::BwdArgs a{static_cast<const __nv_bfloat16*>(hidden),
+                                 static_cast<const __nv_bfloat16*>(table),
+                                 bias, labels, lse, g, n_valid, valid_ge_zero, R, V, W};
+    return tiled_backward_bf16(merged, a, dh, dt, db, workspace, st);
+  }
   return (int)cudaErrorInvalidValue;
 }
 

@@ -18,6 +18,18 @@ FLOP forward, 6·R·V·W (K4, K6) or 8·R·V·W (K7) backward, against a few MB
 of inputs — bound by operations; bf16 products on the tensor cores, fp32
 ones as SIMT loops (times in PERF.md).
 
+By operand type (an explicit dispatch, nothing caught): bf16 K6/K7 run the
+``wgmma`` kernels of ``csrc/loss_hopper.cuh`` (bf16 tiles by ``cp.async``,
+the logits and dlog in registers; K7's two sweeps and K6 sum their fp32
+partials across a thread-block cluster through distributed shared
+memory, K6 into at most 32 dh partials of ``R x W`` that do not grow with
+V). fp32 K6/K7 and K3-K5 in both types run the earlier tiles. Layout rule
+of the bf16 K6/K7 (``check_copy_alignment``, raised before the library is
+reached): hidden and table contiguous with a 16-byte aligned base and
+rows, W a multiple of 8 up to 256 (zero-filled to 64, 128 or 256). The
+main path's gathered hidden rows and cast table meet it at every config
+width (64, 128, 256).
+
 Semantics are the JAX kernels': loss = mean NLL over labels > 0;
 ``masked_accuracy`` = correct-and-valid / n_valid; ``accuracy`` = correct
 / rows, where "correct" is ``label_logit >= row max`` and label >= 0 (ties
@@ -37,6 +49,7 @@ import ctypes
 import torch
 
 NEG_INF = -1e9
+LOSS_MAXW = 256     # the kernels' widest W (csrc/fused_mlm_loss.cu)
 ROW_TILE = 256
 VMEM_BUDGET_BYTES = 15 * 1024 * 1024
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -172,7 +185,7 @@ def _kernel_lib():
             + [vp] * 4 + [ci] * 3 + [vp]
         for name, n in (("b4r_mlm_loss_workspace_bytes", 3),
                         ("b4r_mlm_loss_tiled_fwd_workspace_bytes", 3),
-                        ("b4r_mlm_loss_tiled_bwd_workspace_bytes", 4)):
+                        ("b4r_mlm_loss_tiled_bwd_workspace_bytes", 5)):
             getattr(lib, name).restype = ctypes.c_size_t
             getattr(lib, name).argtypes = [ci] * n
         lib.b4r_mlm_loss_max_width.restype = ci
@@ -181,9 +194,11 @@ def _kernel_lib():
     return _lib
 
 
-def workspace_bytes(kernel: str, rows: int, v: int, w: int) -> int:
+def workspace_bytes(kernel: str, rows: int, v: int, w: int,
+                    dtype: torch.dtype = torch.bfloat16) -> int:
     """Bytes of device workspace the library asks for: ``kernel`` is
-    ``"K3/K4"``, ``"K5"``, ``"K6"`` or ``"K7"``."""
+    ``"K3/K4"``, ``"K5"``, ``"K6"`` or ``"K7"``; K6's depends on the
+    operand ``dtype`` (bf16, the main path's, runs other kernels)."""
     lib = _kernel_lib()
     if kernel == "K3/K4":
         return lib.b4r_mlm_loss_workspace_bytes(rows, v, w)
@@ -191,7 +206,7 @@ def workspace_bytes(kernel: str, rows: int, v: int, w: int) -> int:
         return lib.b4r_mlm_loss_tiled_fwd_workspace_bytes(rows, v, w)
     if kernel in ("K6", "K7"):
         return lib.b4r_mlm_loss_tiled_bwd_workspace_bytes(
-            rows, v, w, int(kernel == "K6"))
+            _DTYPE_CODE[dtype], rows, v, w, int(kernel == "K6"))
     raise ValueError(f"no kernel {kernel!r}")
 
 
@@ -282,9 +297,31 @@ def _launch_forward_tiled_stats(hidden, table, bias, labels):
     return _launch_tiled(hidden, table, bias, labels, stats=True)
 
 
+def check_copy_alignment(t: torch.Tensor, name: str) -> None:
+    """The bf16 K6/K7 kernels copy operand rows in 16-byte pieces: raises
+    unless ``t`` is a contiguous ``[rows, W]`` matrix with a 16-byte
+    aligned base and rows (W a multiple of 8) and W <= LOSS_MAXW."""
+    bad = []
+    if t.dim() != 2 or not t.is_contiguous():
+        bad.append("not a contiguous matrix")
+    if t.data_ptr() % 16:
+        bad.append(f"base {t.data_ptr() % 16} bytes past 16")
+    if t.dim() == 2 and (t.shape[1] % 8 or t.shape[1] > LOSS_MAXW):
+        bad.append(f"width {t.shape[1]} is not a multiple of 8 up to "
+                   f"{LOSS_MAXW}")
+    if bad:
+        raise ValueError(f"the bf16 tiled loss backward kernels take "
+                         f"contiguous operands with a 16-byte aligned base "
+                         f"and rows; {name} of shape {tuple(t.shape)}: "
+                         + "; ".join(bad))
+
+
 def _launch_backward_tiled(hidden, table, bias, labels, lse, g, n_valid,
                            merged, valid_ge_zero=False):
     """K6 (``merged``) or K7: ``(dh, dtable, dbias)``."""
+    if hidden.dtype == torch.bfloat16:
+        check_copy_alignment(hidden, "hidden")
+        check_copy_alignment(table, "table")
     lib = _kernel_lib()
     rows, w = hidden.shape
     v = table.shape[0]
@@ -294,7 +331,7 @@ def _launch_backward_tiled(hidden, table, bias, labels, lse, g, n_valid,
     db = torch.empty((v,), dtype=torch.float32, device=dev)
     g = g.reshape(1).float().contiguous()
     kernel = "K6" if merged else "K7"
-    ws = _workspace(workspace_bytes(kernel, rows, v, w), dev)
+    ws = _workspace(workspace_bytes(kernel, rows, v, w, hidden.dtype), dev)
     _raise_on(lib.b4r_mlm_loss_tiled_bwd(
         int(merged), _DTYPE_CODE[hidden.dtype], hidden.data_ptr(),
         table.data_ptr(), bias.data_ptr(), labels.data_ptr(), lse.data_ptr(),

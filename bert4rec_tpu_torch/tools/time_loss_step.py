@@ -1,5 +1,6 @@
-"""Time the whole-table loss kernels (K3 forward, K4 backward) and the
-ml-1m_128 train step of the port in one checkout, on one CUDA card:
+"""Time the loss kernels (K3 forward, K4 backward; the vocab-tiled
+backwards K6 and K7) and the ml-1m_128 train step of the port in one
+checkout, on one CUDA card:
 
     python bert4rec_tpu_torch/tools/time_loss_step.py [--root DIR] [--reps 5]
 
@@ -9,9 +10,12 @@ own sources. To compare two commits, run it for both checkouts in one
 session on one card, in the order A, B, B, A. Prints one JSON line:
 per-rep times of K3 and K4 at chip_smoke's shape (R=10,240 rows, V=3,709,
 W=128, bf16; CUDA events over 50 launches), the device ms of each kernel
-inside one K4 launch (torch.profiler), and per-rep medians of the host wall
+inside one K4 launch (torch.profiler), per-rep medians of the host wall
 of 20 synchronised train steps at B=256, bf16, on batches of ``bench.py``'s
-law."""
+law, and K6 at (R, V, W) = (10,240, 26,732, 128) and K7 at (10,240,
+26,732, 256), bf16, each as (median, lowest, highest) ms per call over 7
+blocks of 10 calls after 5 warm-up calls, with the device ms of each
+kernel inside one launch."""
 
 import argparse
 import json
@@ -22,6 +26,8 @@ import time
 
 VOCAB, ROWS, WIDTH = 3709, 256 * 40, 128
 SEQ, BATCH, NPRED = 200, 256, 40
+ML20M_VOCAB = 26732
+TILED = {"k6": (128, True), "k7": (256, False)}   # (width, merged)
 
 
 def events_ms(torch, fn, iters=50, warmup=5):
@@ -38,6 +44,43 @@ def events_ms(torch, fn, iters=50, warmup=5):
     return start.elapsed_time(end) / iters
 
 
+def blocks_ms(torch, fn, blocks=7, iters=10, warmup=5):
+    """``(median, lowest, highest)`` ms per call over ``blocks`` blocks."""
+    import statistics
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(blocks):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / iters)
+    return [statistics.median(times), min(times), max(times)]
+
+
+def tiled_backward(torch, np, fml, device, width, merged):
+    """K6 (``merged``) or K7 at the ML-20M train batch, as a callable."""
+    rng = np.random.default_rng(1)
+    h = torch.from_numpy(rng.normal(size=(ROWS, width)).astype(np.float32)) \
+        .to(device, torch.bfloat16)
+    t = torch.from_numpy((rng.normal(size=(ML20M_VOCAB, width)) * 0.1)
+                         .astype(np.float32)).to(device, torch.bfloat16)
+    b = torch.from_numpy(rng.normal(size=ML20M_VOCAB).astype(np.float32)) \
+        .to(device)
+    lab = rng.integers(3, ML20M_VOCAB, size=ROWS).astype(np.int32)
+    lab[::9] = 0
+    lab = torch.from_numpy(lab).to(device)
+    lse, sums = fml._launch_forward_tiled(h, t, b, lab)
+    g = torch.ones((), device=device)
+    return lambda: fml._launch_backward_tiled(h, t, b, lab, lse, g,
+                                              sums[3:4], merged)
+
+
 def kernel_ms(torch, fn, calls=5):
     """Device ms per call of each CUDA kernel ``fn`` launches."""
     from torch.profiler import ProfilerActivity, profile
@@ -47,7 +90,12 @@ def kernel_ms(torch, fn, calls=5):
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    return {e.key[:60]: e.self_device_time_total / calls / 1e3
+
+    def name(key):
+        key = key.replace("(anonymous namespace)::", "").removeprefix("void ")
+        return key.split("(")[0][:70]
+
+    return {name(e.key): e.self_device_time_total / calls / 1e3
             for e in prof.key_averages()
             if getattr(e, "self_device_time_total", 0) > 0}
 
@@ -131,6 +179,10 @@ def main(argv=None) -> int:
             walls.append((time.perf_counter() - t0) * 1e3)
         out["step_ms"].append(sorted(walls)[len(walls) // 2])
     out["k4_kernels_ms"] = kernel_ms(torch, bwd)
+    for key, (width, merged) in TILED.items():
+        fn = tiled_backward(torch, np, fml, device, width, merged)
+        out[f"{key}_ms"] = blocks_ms(torch, fn)
+        out[f"{key}_kernels_ms"] = kernel_ms(torch, fn)
     print(json.dumps(out), flush=True)
     return 0
 

@@ -27,7 +27,8 @@ Phases (any failure raises and the script exits non-zero):
               B=32 and B=256 in fp32 and bf16; the tied-softmax loss
               forward and backward at R=10,240 rows, V=3,709, W=128 —
               each against its plain version, with kernel, plain and
-              library-yardstick times and the bound;
+              library-yardstick times (kernel and yardstick as medians of
+              7 blocks of 10 calls, their ranges printed) and the bound;
 6. training — ``BERT4RecTrainer.train()`` on the ml-1m_128 config at the
               bench shape (B=256, S=200, P=40, bf16 compute, dropout
               0.2 / 0.5, fused layer and fused loss), data by
@@ -51,7 +52,11 @@ Phases (any failure raises and the script exits non-zero):
               versions at R=10,240, V=26,732, W=128 and 256, fp32 and
               bf16; K5 + K6 at Reddit's V=335,424 (R cut to 2,048 so the
               plain logits fit); the sharded loss's label encodings; two
-              runs giving the same bits; kernel, plain and library times;
+              runs giving the same bits; kernel, plain and library times
+              (kernel and yardstick as medians of 7 blocks, ranges
+              printed); each bf16 launch's kernels by device time at W=128
+              and 256 (K7's two sweeps apart); the new kernels' registers
+              and spills print with the build;
 9. ML-20M training — ``train()`` on ml-20m_128 (backward K6) and
               ml-20m_256 (backward K7) from the phase-7 datasets, B=256,
               bf16, full width and depth: the kernel step against the
@@ -134,6 +139,7 @@ import itertools
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -199,6 +205,24 @@ def time_ms(fn, iters=20, warmup=3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def blocks(fn, key="", **kw) -> dict:
+    """``{key}ms`` (the median of time_ms_blocks) and ``{key}range``
+    (lowest, highest); ``key`` "library" names a yardstick's."""
+    med, lo, hi = time_ms_blocks(fn, **kw)
+    prefix = f"{key}_" if key else ""
+    return {f"{prefix}ms": med, f"{prefix}range": (lo, hi)}
+
+
+def timing_text(r) -> str:
+    """A row's times: kernel and yardstick medians of 7 blocks with their
+    ranges, the plain version's, and the bound."""
+    return (f"kernel_ms={r['ms']:.4f} ({r['range'][0]:.4f}-"
+            f"{r['range'][1]:.4f}) plain_ms={r['plain_ms']:.4f} "
+            f"library_ms={r['library_ms']:.4f} ({r['library_range'][0]:.4f}-"
+            f"{r['library_range'][1]:.4f}) bound_ms={r['bound_ms']:.5f} "
+            f"({r['bound_by']}); kernel and library: medians of 7 blocks")
 
 
 # --------------------------------------------------------------------------- #
@@ -760,21 +784,23 @@ def check_layer_training(torch, rng, device, h=HIDDEN, n=HEADS, f=INNER,
         leaves = [xl, *lflat.values()]
         lib_bwd = lambda: torch.autograd.grad(  # noqa: E731
             y_lib, leaves, dy, retain_graph=True)
+        # kernel and yardstick as medians of 7 blocks: one block of the
+        # yardstick wandered 17-46% between runs
         row = dict(
-            fwd=dict(max_abs_err=fwd_err, ms=time_ms(fwd),
+            fwd=dict(max_abs_err=fwd_err, **blocks(fwd),
                      plain_ms=time_ms(lambda: fel.fused_encoder_layer_plain(
                          params, x, mask, **kw)),
-                     library_ms=time_ms(lambda: library_layer_train(
-                         params, x, mask, n, rates)),
+                     **blocks(lambda: library_layer_train(
+                         params, x, mask, n, rates), "library"),
                      **dict(zip(("bound_ms", "bound_by"),
                                 layer_bound_ms(b, name, h, f)))),
             bwd=dict(max_abs_err=float((dx.float() - ref_dx.float())
                                        .abs().max()),
-                     max_rel_err=bwd_err, ms=time_ms(bwd),
+                     max_rel_err=bwd_err, **blocks(bwd),
                      plain_ms=time_ms(
                          lambda: fel.fused_encoder_layer_plain_backward(
                              flat, x, mask, dy, **kw), iters=5),
-                     library_ms=time_ms(lib_bwd),
+                     **blocks(lib_bwd, "library"),
                      **dict(zip(("bound_ms", "bound_by"),
                                 layer_bwd_bound_ms(b, name, h, f)))))
         rows[(name, b)] = row
@@ -784,10 +810,7 @@ def check_layer_training(torch, rng, device, h=HIDDEN, n=HEADS, f=INNER,
                   + (f" (rel {r['max_rel_err']:.3g}, tol "
                      f"{GRAD_TOL[name]})" if part == "bwd" else
                      f" (tol {TOL[name]})")
-                  + f" kernel_ms={r['ms']:.4f} plain_ms="
-                  f"{r['plain_ms']:.4f} library_ms={r['library_ms']:.4f}"
-                  f" bound_ms={r['bound_ms']:.5f} ({r['bound_by']})",
-                  flush=True)
+                  + f" {timing_text(r)}", flush=True)
         if b == STREAM_BATCH and name == "bfloat16":
             print("  per backward launch: " + device_breakdown(
                 torch, bwd)[1], flush=True)
@@ -849,18 +872,18 @@ def check_loss_kernels(torch, rng, device):
         lib_loss = lib_fwd()
         row = dict(
             fwd=dict(max_abs_err=float((sums[0] - ref_sums[0]).abs()),
-                     max_rel_err=fwd_err, ms=time_ms(fwd),
+                     max_rel_err=fwd_err, **blocks(fwd),
                      plain_ms=time_ms(lambda: fml.fused_mlm_loss_plain_forward(
                          hidden, t_s, b_m, labels)),
-                     library_ms=time_ms(lib_fwd),
+                     **blocks(lib_fwd, "library"),
                      **dict(zip(("bound_ms", "bound_by"), loss_bound_ms(
                          N_ROWS, VOCAB, HIDDEN, name, False)))),
             bwd=dict(max_abs_err=float((dh.float() - rdh.float()).abs().max()),
-                     max_rel_err=bwd_err, ms=time_ms(bwd),
+                     max_rel_err=bwd_err, **blocks(bwd),
                      plain_ms=time_ms(lambda: fml.fused_mlm_loss_plain_backward(
                          hidden, t_s, b_m, labels, ref_lse, g, ref_sums[3])),
-                     library_ms=time_ms(lambda: torch.autograd.grad(
-                         lib_loss, (hl, tl, bl), retain_graph=True)),
+                     **blocks(lambda: torch.autograd.grad(
+                         lib_loss, (hl, tl, bl), retain_graph=True), "library"),
                      **dict(zip(("bound_ms", "bound_by"), loss_bound_ms(
                          N_ROWS, VOCAB, HIDDEN, name, True)))))
         rows[name] = row
@@ -868,10 +891,7 @@ def check_loss_kernels(torch, rng, device):
             tol = LOSS_FWD_TOL if part == "fwd" else LOSS_TOL[name]
             print(f"fused_mlm_loss {part} {name} R={N_ROWS} V={VOCAB} "
                   f"W={HIDDEN}: rel err {r['max_rel_err']:.3g} (tol "
-                  f"{tol}) kernel_ms={r['ms']:.4f} plain_ms="
-                  f"{r['plain_ms']:.4f} library_ms={r['library_ms']:.4f} "
-                  f"bound_ms={r['bound_ms']:.5f} ({r['bound_by']})",
-                  flush=True)
+                  f"{tol}) {timing_text(r)}", flush=True)
     return rows
 
 
@@ -1409,34 +1429,33 @@ def check_tiled_loss_kernels(torch, rng, device):
         lib_loss = lib_fwd()
         plain_bwd = lambda: fml.fused_mlm_loss_plain_backward(  # noqa: E731
             h, t, b, lab, ref_lse, g, ref_sums[3])
-        heavy = dtype == torch.float32 or reddit
+        # kernels and yardsticks as medians of 7 blocks (of 3 calls for
+        # fp32, of 10 otherwise)
+        heavy = dtype == torch.float32
         it = dict(iters=3, warmup=1) if heavy else {}
         shape = dict(rows=r, v=v, w=w)
         row = {"K5": dict(max_abs_err=float((sums[0] - ref_sums[0]).abs()),
-                          max_rel_err=fwd_err, ms=time_ms(fwd, **it),
+                          max_rel_err=fwd_err, **blocks(fwd, **it),
                           plain_ms=time_ms(lambda: fml.fused_mlm_loss_plain_forward(
-                              h, t, b, lab), **it),
-                          library_ms=time_ms(lib_fwd, **it),
+                              h, t, b, lab), iters=3, warmup=1),
+                          **blocks(lib_fwd, "library", **it),
                           **dict(zip(("bound_ms", "bound_by"), loss_bound_ms(
                               r, v, w, name, False))), **shape)}
         plain_bwd_ms = time_ms(plain_bwd, iters=2, warmup=1)
-        lib_bwd_ms = time_ms(lambda: torch.autograd.grad(
-            lib_loss, (hl, tl, bl), retain_graph=True), **it)
+        lib_bwd = blocks(lambda: torch.autograd.grad(
+            lib_loss, (hl, tl, bl), retain_graph=True), "library", **it)
         for k, f in bwd.items():
             row[k] = dict(max_abs_err=bwd_abs[k], max_rel_err=bwd_err[k],
-                          ms=time_ms(f, **it), plain_ms=plain_bwd_ms,
-                          library_ms=lib_bwd_ms,
+                          **blocks(f, **it), plain_ms=plain_bwd_ms, **lib_bwd,
                           **dict(zip(("bound_ms", "bound_by"), loss_bound_ms(
                               r, v, w, name, True))), **shape)
         rows[(name, r, v, w)] = row
         for k, x in row.items():
             print(f"tiled loss {k} {name} R={r} V={v} W={w}: rel err "
                   f"{x['max_rel_err']:.3g} (tol "
-                  f"{LOSS_FWD_TOL if k == 'K5' else tol}) kernel_ms="
-                  f"{x['ms']:.4f} plain_ms={x['plain_ms']:.4f} library_ms="
-                  f"{x['library_ms']:.4f} bound_ms={x['bound_ms']:.5f} "
-                  f"({x['bound_by']})", flush=True)
-        if not heavy and w == 128:
+                  f"{LOSS_FWD_TOL if k == 'K5' else tol}) {timing_text(x)}",
+                  flush=True)
+        if not heavy and not reddit:   # K7's two sweeps apart, at each W
             for k, f in [("K5", fwd)] + list(bwd.items()):
                 print(f"  per {k} launch: " + device_breakdown(
                     torch, f)[1], flush=True)
@@ -2506,6 +2525,17 @@ def run(torch, home) -> int:
         print(f"build {name}: {len(regs)} kernels, registers "
               f"{min(regs, default=0)}-{max(regs, default=0)}, spills "
               f"{spills or 'none'}", flush=True)
+        # the bf16 K6/K7 kernels one by one: registers and spills at each
+        # padded width (loss_sweep_kernel<WP, dt sweep>, loss_merged_kernel<WP>)
+        for i, ln in enumerate(lines):
+            hit = re.search(r"(loss_(?:sweep|merged)_kernel)ILi(\d+)E(?:Lb([01])E)?", ln)
+            if hit and "Compiling entry" in ln:
+                used = next((x for x in lines[i + 1:i + 4] if "Used" in x), "")
+                spill = next((x for x in lines[i + 1:i + 4] if "spill" in x), "")
+                args = hit.group(2) + (f", {'dt' if hit.group(3) == '1' else 'dh'}"
+                                       if hit.group(3) else "")
+                print(f"  {hit.group(1)}<{args}>: {used.split(':')[-1].strip()}; "
+                      f"{spill.strip()}", flush=True)
 
     rng = np.random.default_rng(SEED)
     layer_rows = check_fused_layer(torch, rng, device)

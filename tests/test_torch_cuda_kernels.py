@@ -433,10 +433,17 @@ def _tiled_inputs(device, dtype, r, vp, w, labels="mixed"):
 
 
 # the ml-20m train shapes with ordinary labels; every label encoding at
-# the small shapes (V off every tile, W below and at the kernels' limit)
+# the small shapes (V off every tile, W below and at the kernels' limit);
+# then each width the bf16 K6/K7 pad to (64, 128, 256) with R and V on,
+# below and past one 64-row tile; K6 at Reddit's vocabulary (R cut to
+# 2,048 so the plain logits fit), where each cluster takes many groups of
+# vocabulary tiles
 TILED_CASES = [((10240, 26732, w), "mixed") for w in (128, 256)] + [
     (shape, labels) for shape in ((300, 104, 32), (77, 61, 256), (130, 200, 40))
-    for labels in ("mixed", "padding", "sharded")]
+    for labels in ("mixed", "padding", "sharded")] + [
+    ((r, vp, w), labels) for w in (64, 128, 256) for r in (1, 63, 64, 65, 130)
+    for vp in (61, 65, 200) for labels in ("mixed", "padding", "sharded")] + [
+    ((2048, 335424, 128), "mixed")]
 
 
 @pytest.mark.cuda
@@ -518,19 +525,48 @@ def test_tiled_autograd_launches_by_the_merged_law(cuda_device, rows, w,
 
 
 @pytest.mark.cuda
+def test_tiled_bf16_rejects_a_misaligned_view(cuda_device):
+    """A bf16 hidden whose base is not 16-byte aligned, or whose width is
+    not a multiple of 8, raises before K6/K7 launch (their copies read
+    16-byte pieces of each row); nothing is counted."""
+    from bert4rec_tpu_torch.ops import fused_mlm_loss as fml
+    h, t, b, lab, v = _tiled_inputs(cuda_device, torch.bfloat16, 130, 200,
+                                    64)
+    flat = torch.zeros(h.numel() + 1, device=cuda_device,
+                       dtype=torch.bfloat16)
+    shifted = flat[1:].view(h.shape).copy_(h)           # base 2 bytes off
+    h36, t36, b36, lab36, v36 = _tiled_inputs(cuda_device, torch.bfloat16,
+                                              130, 200, 36)
+    f = fml.fused_mlm_loss_tiled
+    for hh, tt, bb, ll, vv in ((shifted, t, b, lab, v),
+                               (h36, t36, b36, lab36, v36)):
+        before = (f.merged_launches, f.two_sweep_launches)
+        hh = hh.detach().requires_grad_(True)
+        loss = f(hh, tt, bb, ll, vv)[0]
+        with pytest.raises(ValueError, match="16-byte"):
+            loss.backward()
+        assert (f.merged_launches, f.two_sweep_launches) == before
+
+
+@pytest.mark.cuda
 def test_tiled_workspace_does_not_grow_with_the_vocabulary(cuda_device):
     """At Reddit's vocabulary and the train batch's rows no workspace of
     K5-K7 holds a (rows / chunk) x V x W term, as K4's split dtable
-    partials do: K5 asks for splits x R x 3 floats, K6 for 128 dh
-    partials of R x W floats, K7 for none, and each is the same at V =
-    26,732 and V = 335,424."""
+    partials do: K5 asks for splits x R x 3 floats, K6 for at most 128 dh
+    partials of R x W floats (bf16: one per cluster, at most 32; fp32: one
+    per group of vocabulary tiles), K7 for none, and each is the same at
+    V = 26,732 and V = 335,424."""
     from bert4rec_tpu_torch.ops import fused_mlm_loss as fml
     r, w = 10240, 128
     split_partials = (r // 1024) * 335424 * w * 4
     sizes = {k: [fml.workspace_bytes(k, r, v, w) for v in (26732, 335424)]
              for k in ("K5", "K6", "K7")}
-    for k, (small, large) in sizes.items():
+    fp32 = {k: [fml.workspace_bytes(k, r, v, w, torch.float32)
+                for v in (26732, 335424)] for k in ("K6", "K7")}
+    for k, (small, large) in list(sizes.items()) + list(fp32.items()):
         assert small == large, k
+    assert fp32["K7"][1] == 0
+    assert fp32["K6"][1] <= 128 * r * w * 4 + 256
     assert sizes["K7"][1] == 0
     assert sizes["K6"][1] <= 128 * r * w * 4 + 256
     assert sizes["K5"][1] <= 4 * (r * 3 * 16 + r)

@@ -232,3 +232,84 @@ class TestAutograd:
         for k in ("masked_accuracy", "accuracy"):
             assert float(tlogs[k]) == pytest.approx(float(jlogs[k]),
                                                     abs=1e-7)
+
+
+class TestKernelLayoutRule:
+    """The bf16 K6/K7 kernels copy 16-byte pieces of each operand row into
+    shared memory: ``check_copy_alignment`` decides in Python, before the
+    kernel library is reached, which bf16 layouts they take; widths below
+    a wgmma width (64, 128, 256) are zero-filled, which the plain version
+    shows to be exact."""
+
+    @staticmethod
+    def _bf16(rows, w):
+        return torch.zeros((rows, w), dtype=torch.bfloat16)
+
+    @pytest.mark.parametrize("w", [8, 32, 40, 64, 128, 256])
+    def test_contiguous_rows_of_16_bytes_are_accepted(self, w):
+        fml.check_copy_alignment(self._bf16(77, w), "hidden")
+
+    @pytest.mark.parametrize("case", ["shifted_base", "width_36",
+                                      "width_264", "column_slice",
+                                      "transposed"])
+    def test_other_layouts_are_refused(self, case):
+        t = {"shifted_base": lambda: torch.zeros(
+                 77 * 64 + 1, dtype=torch.bfloat16)[1:].view(77, 64),
+             "width_36": lambda: self._bf16(77, 36),
+             "width_264": lambda: self._bf16(77, 264),
+             "column_slice": lambda: self._bf16(77, 72)[:, :64],
+             "transposed": lambda: self._bf16(64, 77).T}[case]()
+        with pytest.raises(ValueError, match="16-byte"):
+            fml.check_copy_alignment(t, "hidden")
+
+    def _operands(self, hidden, table):
+        rows, v = hidden.shape[0], table.shape[0]
+        return (hidden, table, torch.zeros(v), torch.ones(rows, dtype=torch.int32),
+                torch.zeros(rows), torch.ones(()), torch.ones(1))
+
+    def test_a_refused_layout_raises_before_the_kernel_library(self):
+        """A misaligned bf16 hidden or table raises ValueError without the
+        library being loaded; an aligned one goes on to it, and fp32
+        operands have no such rule."""
+        table = self._bf16(200, 64)
+        shifted = torch.zeros(130 * 64 + 1, dtype=torch.bfloat16)[1:] \
+            .view(130, 64)
+        reached = AssertionError("the kernel library was reached")
+        with mock.patch.object(fml, "_kernel_lib", side_effect=reached):
+            for merged in (True, False):
+                with pytest.raises(ValueError, match="16-byte"):
+                    fml._launch_backward_tiled(
+                        *self._operands(shifted, table), merged)
+                with pytest.raises(ValueError, match="16-byte"):
+                    fml._launch_backward_tiled(
+                        *self._operands(self._bf16(130, 64),
+                                        self._bf16(200, 72)[:, :64]), merged)
+                with pytest.raises(AssertionError, match="reached"):
+                    fml._launch_backward_tiled(
+                        *self._operands(self._bf16(130, 64), table), merged)
+                with pytest.raises(AssertionError, match="reached"):
+                    fml._launch_backward_tiled(
+                        *self._operands(shifted.float(), table.float()),
+                        merged)
+
+    @pytest.mark.parametrize("w", [8, 40, 72, 200])
+    def test_zero_filled_width_is_exact(self, w):
+        """W zero-filled to the kernels' width (64, 128 or 256) gives the
+        same dh, dtable and dbias on the first W columns and zeros past
+        them."""
+        wp = next(p for p in (64, 128, 256) if p >= w)
+        rows, v, vp = 70, 97, 104
+        h, t, b, lab = inputs(rows, v, vp, w, w)
+        ht, tt, bt, labt = _plain_operands(h, t, b, lab, v, torch.float32)
+        lse, sums = fml.fused_mlm_loss_plain_forward(ht, tt, bt, labt)
+        g = torch.tensor(0.75)
+        pad = lambda x: torch.nn.functional.pad(x, (0, wp - w))  # noqa: E731
+        ref = fml.fused_mlm_loss_plain_backward(ht, tt, bt, labt, lse, g,
+                                                sums[3])
+        got = fml.fused_mlm_loss_plain_backward(pad(ht), pad(tt), bt, labt,
+                                                lse, g, sums[3])
+        for a, r in zip(got[:2], ref[:2]):
+            assert a.shape[1] == wp
+            assert not a[:, w:].any()
+            torch.testing.assert_close(a[:, :w], r, rtol=1e-6, atol=1e-7)
+        torch.testing.assert_close(got[2], ref[2], rtol=1e-6, atol=1e-7)
