@@ -81,6 +81,25 @@ __device__ __forceinline__ float keep_scale(const Drop& d, int elem, int site,
 }
 
 // ---------------------------------------------------------------------------
+// the layer's LayerNorm epsilon and tanh-approximate gelu (JAX's kernel's,
+// whatever inner_activation says)
+// ---------------------------------------------------------------------------
+constexpr float kLnEps = 1e-12f;
+constexpr float kGeluC = 0.7978845608028654f;  // sqrt(2 / pi)
+
+__device__ __forceinline__ float gelu_tanh(float x) {
+  const float inner = kGeluC * (x + 0.044715f * x * x * x);
+  return 0.5f * x * (1.0f + tanhf(inner));
+}
+
+__device__ __forceinline__ float gelu_tanh_grad(float x) {
+  const float inner = kGeluC * (x + 0.044715f * x * x * x);
+  const float t = tanhf(inner);
+  const float dinner = kGeluC * (1.0f + 3.0f * 0.044715f * x * x);
+  return 0.5f * (1.0f + t) + 0.5f * x * (1.0f - t * t) * dinner;
+}
+
+// ---------------------------------------------------------------------------
 // warp reductions
 // ---------------------------------------------------------------------------
 __device__ __forceinline__ float warp_sum(float v) {

@@ -19,6 +19,13 @@
 // epilogue (fmaf(acc, scale, bias), -inf for keys past S), so the
 // probabilities K9 recomputes from K8's row max and sum are K8's bit for
 // bit; the dkv kernel forms S^T = K Q^T, whose entries are the same sums.
+// The fused encoder layer (layer_hopper.cuh) runs the same kernels on its
+// packed [B S, 3 H] qkv with two compile-time switches that K8/K9 leave off:
+// kRel adds its fp32 relative bias after the pad and causal biases (and the
+// dq kernel writes dRel), kPart writes the column sums of dq, dk and dv per
+// tile (its qkv bias gradient). DK (default DP) is the contraction the score
+// products run over: the layer's head dims up to 32 take DK = 32 of the
+// DP = 64 tiles, whose zero-filled columns add exact zeros to every sum.
 // JAX's rounding points hold: p is normalised in fp32 before the keep scale
 // and the rounding to bf16; dp = dd * keep is rounded before dp - delta
 // (__fmul_rn, which nvcc never contracts into the following add). K8 tests
@@ -121,6 +128,87 @@ __device__ __forceinline__ void store_rows(bf16* head, int ss, const float (&acc
   }
 }
 
+// The relative bias rel[q0 .. q0+63][k0 .. k0+63] of a head's slab into the
+// fp32 [64][kRelLd] block at dst (queries as rows; the padded stride keeps
+// the dkv kernel's transposed reads free of bank conflicts), zero past S.
+constexpr int kRelLd = kRows + 4;
+__device__ __forceinline__ void load_rel_block(uint32_t dst, const float* relh, int q0,
+                                               int k0, int S, int rel16) {
+  const int tid = threadIdx.x;
+  if (rel16) {
+#pragma unroll
+    for (int i = 0; i < kRows * kRows / 4 / kThreads; ++i) {
+      const int idx = tid + i * kThreads, r = idx >> 4, c = idx & 15;
+      const int q = q0 + r, key = k0 + 4 * c;
+      const bool ok = q < S && key < S;  // S % 4 == 0: the whole chunk or none
+      cp_async16(dst + (r * kRelLd + 4 * c) * 4, ok ? relh + q * S + key : relh, ok ? 16 : 0);
+    }
+  } else {
+    for (int i = 0; i < kRows * kRows / kThreads; ++i) {
+      const int idx = tid + i * kThreads, r = idx >> 6, c = idx & 63;
+      const int q = q0 + r, key = k0 + c;
+      const bool ok = q < S && key < S;
+      cp_async4(dst + (r * kRelLd + c) * 4, ok ? relh + q * S + key : relh, ok ? 4 : 0);
+    }
+  }
+}
+
+// The fused layer's relative bias (kRel): the stage's block of rel
+// (load_rel_block, queries as rows) added to the thread's scores (tile rows
+// rl0, rl0 + 8), after the pad and causal biases. Queries and keys past the
+// sequence were zero-filled: they add 0, as in the dkv kernel.
+__device__ __forceinline__ void add_rel(float (&s)[32], const float* rb, int rl0) {
+  const int tq = threadIdx.x & 3;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float* row = rb + (rl0 + 8 * h) * kRelLd;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float2 v = *reinterpret_cast<const float2*>(row + 8 * j + 2 * tq);
+      s[4 * j + 2 * h] += v.x;
+      s[4 * j + 2 * h + 1] += v.y;
+    }
+  }
+}
+
+// dRel's row of this thread (query r < S) at keys key, key + 1: one 8-byte
+// store where S is even, so that a quad writes whole 32-byte sectors
+__device__ __forceinline__ void store_pair(float* row, int key, int S, float a, float b) {
+  if ((S & 1) == 0 && key + 1 < S) {
+    *reinterpret_cast<float2*>(row + key) = make_float2(a, b);
+  } else {
+    if (key < S) row[key] = a;
+    if (key + 1 < S) row[key + 1] = b;
+  }
+}
+
+// The fused layer's bias-gradient partials (kPart): out[d] = the sum over
+// the tile's rows inside the sequence of acc * mul, column d < D, summed in
+// a fixed order (quads, then the 4 warps through red, [4][DP] floats of
+// shared memory no copy is writing).
+template <int DP>
+__device__ __forceinline__ void column_sums(const float (&acc)[DP / 2], float mul, int row0,
+                                            int S, int D, float* red, float* out) {
+  const int tq = threadIdx.x & 3, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  __syncthreads();  // red may hold a previous call's sums still being read
+#pragma unroll
+  for (int j = 0; j < DP / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      float v = 0.f;
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        if (row0 + 8 * h < S) v += acc[4 * j + 2 * h + e] * mul;
+      v += __shfl_xor_sync(0xffffffffu, v, 4);
+      v += __shfl_xor_sync(0xffffffffu, v, 8);
+      v += __shfl_xor_sync(0xffffffffu, v, 16);
+      if (lane < 4) red[warp * DP + 8 * j + 2 * tq + e] = v;
+    }
+  __syncthreads();
+  for (int c = threadIdx.x; c < D; c += kThreads)
+    out[c] = ((red[c] + red[DP + c]) + red[2 * DP + c]) + red[3 * DP + c];
+}
+
 // Dropout keep bits. K8 tests each (query, key) pair's hash once (common.cuh's
 // keep_scale_k law) and writes the results, one 32-bit word per thread and
 // tile pair: word t of tile pair (qt, kt) holds, at bit 4 j + 2 h + e, the
@@ -146,18 +234,19 @@ __device__ __forceinline__ void load_bits(uint32_t dst, const uint32_t* src) {
 // pass 2 (items n .. 2n-1) recomputes the scores, forms
 // p = T(exp(s - m) * (1 / l) * keep) in registers and accumulates p v.
 // ---------------------------------------------------------------------------
-template <int DP>
+template <int DP, bool kRel = false, int DK = DP>
 __global__ void __launch_bounds__(kThreads, kFwdBlocks<DP>)
 flash_fwd_kernel(Heads<const bf16> q, Heads<const bf16> k, Heads<const bf16> v,
                  const int32_t* __restrict__ mask, Heads<bf16> o,
                  float* __restrict__ stat_m, float* __restrict__ stat_l,
                  uint32_t* __restrict__ keep_bits, Drop drop, int S, int N, int D,
-                 float scale, int causal) {
+                 float scale, int causal, const float* __restrict__ rel, int rel16) {
   constexpr int kTile = tile_bytes(DP);
   uint8_t* sm = aligned_smem();
   const uint32_t Qs = smem_u32(sm), Ks = Qs + kTile, Vs = Ks + kStages * kTile,
-                 Ms = Vs + kStages * kTile;
+                 Ms = Vs + kStages * kTile, Rs = Ms + kStages * kRows * 4;
   const int32_t* mask_s = reinterpret_cast<const int32_t*>(sm + (Ms - Qs));
+  const float* rel_s = reinterpret_cast<const float*>(sm + (Rs - Qs));  // kRel
 
   const int tid = threadIdx.x, tq = tid & 3;
   const int q0 = blockIdx.x * kRows, head = blockIdx.y, b = blockIdx.z;
@@ -167,12 +256,14 @@ flash_fwd_kernel(Heads<const bf16> q, Heads<const bf16> k, Heads<const bf16> v,
   const uint32_t hk = site_key(drop, b, head);
   const bf16* kh = k.at(b, head);
   const bf16* vh = v.at(b, head);
+  const float* relh = kRel ? head_slab(rel, b, head, N, S) : nullptr;
 
   auto prefetch = [&](int item) {
     const int st = item % kStages, t0 = (item < n ? item : item - n) * kRows;
     load_tile<DP>(Ks + st * kTile, kh, k.ss, t0, S, D);
     if (item >= n) load_tile<DP>(Vs + st * kTile, vh, v.ss, t0, S, D);
     load_mask(Ms + st * kRows * 4, mask_row, t0, S);
+    if constexpr (kRel) load_rel_block(Rs + st * kRows * kRelLd * 4, relh, q0, t0, S, rel16);
   };
   load_tile<DP>(Qs, q.at(b, head), q.ss, q0, S, D);
   prefetch(0);
@@ -192,11 +283,12 @@ flash_fwd_kernel(Heads<const bf16> q, Heads<const bf16> k, Heads<const bf16> v,
     __syncthreads();
     const int st = item % kStages, t0 = (item < n ? item : item - n) * kRows;
     wgmma_fence();
-    mma_nt<DP>(s, Qs, Ks + st * kTile);
+    mma_nt<DK>(s, Qs, Ks + st * kTile);
     wgmma_commit();
     wgmma_wait();
     fence_regs(s);
     row_scores(s, mask_s + st * kRows, t0, row0, S, scale, causal && t0 >= q0);
+    if constexpr (kRel) add_rel(s, rel_s + st * kRows * kRelLd, row0 - q0);
     if (item < n) {
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
@@ -267,14 +359,20 @@ flash_fwd_kernel(Heads<const bf16> q, Heads<const bf16> k, Heads<const bf16> v,
 // sums JAX's delta = sum_j dp p per row; pass B (items n .. 2n-1) forms
 // ds = T(p (dp - delta)) in registers and accumulates dq += ds k.
 // ---------------------------------------------------------------------------
-template <int DP>
+//
+// The fused layer's variants: kRel adds its relative bias to the scores and
+// writes dRel = p (dp - delta) in fp32 before the rounding (zeros in the key
+// tiles causal_skip skips); kPart writes the dq columns' sums of the tile
+// (part [B * tiles][3 N D], dq in the first N D columns).
+template <int DP, bool kPart = false, bool kRel = false, int DK = DP>
 __global__ void __launch_bounds__(kThreads, kBwdBlocks<DP>)
 flash_bwd_dq_kernel(Heads<const bf16> q, Heads<const bf16> k, Heads<const bf16> v,
                     Heads<const bf16> dout, const int32_t* __restrict__ mask,
                     const float* __restrict__ stat_m, const float* __restrict__ stat_l,
                     const uint32_t* __restrict__ keep_bits, Drop drop,
                     float* __restrict__ delta_out, Heads<bf16> dq, int S, int N, int D,
-                    float scale, int causal) {
+                    float scale, int causal, const float* __restrict__ rel, int rel16,
+                    float* __restrict__ drel, float* __restrict__ part) {
   constexpr int kTile = tile_bytes(DP);
   uint8_t* sm = aligned_smem();
   const uint32_t Qs = smem_u32(sm), Os = Qs + kTile, Ks = Os + kTile,
@@ -282,6 +380,8 @@ flash_bwd_dq_kernel(Heads<const bf16> q, Heads<const bf16> k, Heads<const bf16> 
                  Bs = Ms + kStages * kRows * 4;
   const int32_t* mask_s = reinterpret_cast<const int32_t*>(sm + (Ms - Qs));
   const uint32_t* bits_s = reinterpret_cast<const uint32_t*>(sm + (Bs - Qs));
+  const uint32_t Rs = Bs + kStages * kThreads * 4;
+  const float* rel_s = reinterpret_cast<const float*>(sm + (Rs - Qs));  // kRel
 
   const int tid = threadIdx.x, tq = tid & 3;
   const int q0 = blockIdx.x * kRows, head = blockIdx.y, b = blockIdx.z;
@@ -291,6 +391,8 @@ flash_bwd_dq_kernel(Heads<const bf16> q, Heads<const bf16> k, Heads<const bf16> 
   const size_t stat0 = ((size_t)b * N + head) * S;
   const bf16* kh = k.at(b, head);
   const bf16* vh = v.at(b, head);
+  const float* relh = kRel ? head_slab(rel, b, head, N, S) : nullptr;
+  float* drelh = kRel ? head_slab(drel, b, head, N, S) : nullptr;
 
   auto prefetch = [&](int item) {
     const int st = item % kStages, kt = item < n ? item : item - n, t0 = kt * kRows;
@@ -300,6 +402,7 @@ flash_bwd_dq_kernel(Heads<const bf16> q, Heads<const bf16> k, Heads<const bf16> 
     if (drop.on)
       load_bits(Bs + st * kThreads * 4,
                 keep_bits + bits_at(b, head, N, gridDim.x, blockIdx.x, kt));
+    if constexpr (kRel) load_rel_block(Rs + st * kRows * kRelLd * 4, relh, q0, t0, S, rel16);
   };
   load_tile<DP>(Qs, q.at(b, head), q.ss, q0, S, D);
   load_tile<DP>(Os, dout.at(b, head), dout.ss, q0, S, D);
@@ -326,13 +429,14 @@ flash_bwd_dq_kernel(Heads<const bf16> q, Heads<const bf16> k, Heads<const bf16> 
     __syncthreads();
     const int st = item % kStages, t0 = (item < n ? item : item - n) * kRows;
     wgmma_fence();
-    mma_nt<DP>(s, Qs, Ks + st * kTile);
-    mma_nt<DP>(dp, Os, Vs + st * kTile);
+    mma_nt<DK>(s, Qs, Ks + st * kTile);
+    mma_nt<DK>(dp, Os, Vs + st * kTile);
     wgmma_commit();
     wgmma_wait();
     fence_regs(s);
     fence_regs(dp);
     row_scores(s, mask_s + st * kRows, t0, row0, S, scale, causal && t0 >= q0);
+    if constexpr (kRel) add_rel(s, rel_s + st * kRows * kRelLd, row0 - q0);
     // p and dp = dO v^T keep of element i (row row0 + 8 h); dp is rounded
     // before it is used (__fmul_rn: never contracted into a later add)
     const uint32_t kept = drop.on ? bits_s[st * kThreads + tid] : 0u;
@@ -372,6 +476,17 @@ flash_bwd_dq_kernel(Heads<const bf16> q, Heads<const bf16> k, Heads<const bf16> 
             p_dp(i, h, p, d);
             s[i] = p * (d - delta[h]);
           }
+      if constexpr (kRel) {  // dRel: the fp32 ds, before the rounding
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = row0 + 8 * h;
+          if (r >= S) continue;
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+            store_pair(drelh + r * S, t0 + 8 * j + 2 * tq, S, s[4 * j + 2 * h],
+                       s[4 * j + 2 * h + 1]);
+        }
+      }
       uint32_t a[4][4];
       to_frags(a, s);
       fence_frags(a);
@@ -384,7 +499,22 @@ flash_bwd_dq_kernel(Heads<const bf16> q, Heads<const bf16> k, Heads<const bf16> 
     }
     __syncthreads();
   }
+  if constexpr (kRel) {  // the key tiles causal_skip skipped: p = 0, dRel = 0
+    for (int t0 = n * kRows; t0 < S; t0 += kRows)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = row0 + 8 * h;
+        if (r >= S) continue;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) store_pair(drelh + r * S, t0 + 8 * j + 2 * tq, S, 0.f, 0.f);
+      }
+  }
   store_rows<DP>(dq.at(b, head), dq.ss, acc, row0, S, D, scale);
+  if constexpr (kPart) {
+    cp_async_wait<0>();
+    column_sums<DP>(acc, scale, row0, S, D, reinterpret_cast<float*>(sm),
+                    part + ((size_t)b * gridDim.x + blockIdx.x) * 3 * N * D + head * D);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -394,14 +524,22 @@ flash_bwd_dq_kernel(Heads<const bf16> q, Heads<const bf16> k, Heads<const bf16> 
 // T(p keep)^T and T(ds)^T come out in the A-register layout of
 // dv += T(p keep)^T dO and dk += T(ds)^T q (dO and Q read MN-major).
 // ---------------------------------------------------------------------------
-template <int DP>
+//
+// The fused layer's variants: kRel stages each query tile's [64 queries][64
+// keys] block of the relative bias through shared memory by cp.async (16-byte
+// copies when rel16: S a multiple of 4 and a 16-byte aligned slab; else
+// 4-byte ones) and adds it to the transposed scores; kPart writes the dk and
+// dv columns' sums of the tile (columns N D + head D .. and 2 N D + head D ..
+// of part).
+template <int DP, bool kPart = false, bool kRel = false, int DK = DP>
 __global__ void __launch_bounds__(kThreads, kBwdBlocks<DP>)
 flash_bwd_dkv_kernel(Heads<const bf16> q, Heads<const bf16> k, Heads<const bf16> v,
                      Heads<const bf16> dout, const int32_t* __restrict__ mask,
                      const float* __restrict__ stat_m, const float* __restrict__ stat_l,
                      const float* __restrict__ delta,
                      const uint32_t* __restrict__ keep_bits, Drop drop, Heads<bf16> dk,
-                     Heads<bf16> dv, int S, int N, int D, float scale, int causal) {
+                     Heads<bf16> dv, int S, int N, int D, float scale, int causal,
+                     const float* __restrict__ rel, int rel16, float* __restrict__ part) {
   constexpr int kTile = tile_bytes(DP);
   uint8_t* sm = aligned_smem();
   const uint32_t Ks = smem_u32(sm), Vs = Ks + kTile, Qs = Vs + kTile,
@@ -412,9 +550,13 @@ flash_bwd_dkv_kernel(Heads<const bf16> q, Heads<const bf16> k, Heads<const bf16>
   const uint32_t* bits_s =
       reinterpret_cast<const uint32_t*>(rows_s + kStages * 3 * kRows);
   const uint32_t Bs = smem_u32(bits_s);
+  // kRel: [kStages][64 queries][kRelLd] fp32 blocks of rel
+  const uint32_t Rs = Bs + kStages * kThreads * 4;
+  const float* rel_s = reinterpret_cast<const float*>(sm + (Rs - Ks));
 
   const int tid = threadIdx.x, tq = tid & 3, g = (tid & 31) >> 2;
   const int k0 = blockIdx.x * kRows, head = blockIdx.y, b = blockIdx.z;
+  const float* relh = kRel ? head_slab(rel, b, head, N, S) : nullptr;
   const int key0 = k0 + (tid >> 5) * 16 + g;  // keys key0, key0 + 8
   const int32_t* mask_row = mask + (size_t)b * S;
   // the query tiles wholly before this key tile see none of it (the mirror
@@ -438,6 +580,7 @@ flash_bwd_dkv_kernel(Heads<const bf16> q, Heads<const bf16> k, Heads<const bf16>
     if (drop.on)
       load_bits(Bs + st * kThreads * 4,
                 keep_bits + bits_at(b, head, N, gridDim.x, t0 / kRows, blockIdx.x));
+    if constexpr (kRel) load_rel_block(Rs + st * kRows * kRelLd * 4, relh, t0, k0, S, rel16);
   };
   // query row stats of an item: plain loads into registers, stored into
   // the item's stage (1 / l formed once per row) after the current step
@@ -483,13 +626,14 @@ flash_bwd_dkv_kernel(Heads<const bf16> q, Heads<const bf16> k, Heads<const bf16>
     __syncthreads();
     const int st = item % kStages, q0 = qb + item * kRows;
     wgmma_fence();
-    mma_nt<DP>(s, Ks, Qs + st * kTile);
-    mma_nt<DP>(dp, Vs, Os + st * kTile);
+    mma_nt<DK>(s, Ks, Qs + st * kTile);
+    mma_nt<DK>(dp, Vs, Os + st * kTile);
     wgmma_commit();
     wgmma_wait();
     fence_regs(s);
     fence_regs(dp);
     const float* r = rows_s + st * 3 * kRows;
+    const float* rb = rel_s + st * kRows * kRelLd + (key0 - k0);
     // This thread's elements as K8 held them (the transpose of its layout):
     // element (j, h, e) is bit 4 (2 warp + h) + 2 (j % 2) + g % 2 of word
     // 32 (j / 2) + 8 tq + 4 e + g / 2.
@@ -515,8 +659,8 @@ flash_bwd_dkv_kernel(Heads<const bf16> q, Heads<const bf16> k, Heads<const bf16>
 #pragma unroll
           for (int h = 0; h < 2; ++h) {
             const int i = 4 * j + 2 * h + e, key = key0 + 8 * h;
-            const float sv =
-                score<decltype(kDiag)::value>(s[i], scale, kb[h], key, query);
+            float sv = score<decltype(kDiag)::value>(s[i], scale, kb[h], key, query);
+            if constexpr (kRel) sv += rb[(c + e) * kRelLd + 8 * h];
             const float p = ex2((sv - mq) * kAttnLog2e) * iq;
             float keep = 1.f, d = dp[i];
             if (drop.on) {
@@ -548,21 +692,31 @@ flash_bwd_dkv_kernel(Heads<const bf16> q, Heads<const bf16> k, Heads<const bf16>
   }
   store_rows<DP>(dk.at(b, head), dk.ss, dk_acc, key0, S, D, scale);
   store_rows<DP>(dv.at(b, head), dv.ss, dv_acc, key0, S, D, 1.f);
+  if constexpr (kPart) {
+    cp_async_wait<0>();
+    float* out = part + ((size_t)b * gridDim.x + blockIdx.x) * 3 * N * D + head * D;
+    float* red = reinterpret_cast<float*>(sm);
+    column_sums<DP>(dk_acc, scale, key0, S, D, red, out + N * D);
+    column_sums<DP>(dv_acc, 1.f, key0, S, D, red, out + 2 * N * D);
+  }
 }
 
 // ---------------------------------------------------------------------------
 // launches (ceil(S / 64), N, B) blocks of kThreads
 // ---------------------------------------------------------------------------
-inline size_t fwd_smem(int dp) {
-  return 1024 + (size_t)tile_bytes(dp) * (1 + 2 * kStages) + kStages * kRows * 4;
+// the kRel variants' staged blocks of the relative bias
+inline size_t rel_smem(bool rel) { return rel ? (size_t)kStages * kRows * kRelLd * 4 : 0; }
+inline size_t fwd_smem(int dp, bool rel = false) {
+  return 1024 + (size_t)tile_bytes(dp) * (1 + 2 * kStages) + kStages * kRows * 4 +
+         rel_smem(rel);
 }
-inline size_t dq_smem(int dp) {
+inline size_t dq_smem(int dp, bool rel = false) {
   return 1024 + (size_t)tile_bytes(dp) * (2 + 2 * kStages) + kStages * kRows * 4 +
-         kStages * kThreads * 4;
+         kStages * kThreads * 4 + rel_smem(rel);
 }
-inline size_t dkv_smem(int dp) {
+inline size_t dkv_smem(int dp, bool rel = false) {
   return 1024 + (size_t)tile_bytes(dp) * (2 + 2 * kStages) + kStages * 3 * kRows * 4 +
-         kStages * kThreads * 4;
+         kStages * kThreads * 4 + rel_smem(rel);
 }
 
 template <int DP>
@@ -574,7 +728,7 @@ cudaError_t forward(Heads<const bf16> q, Heads<const bf16> k, Heads<const bf16> 
   cudaError_t err = allow_smem(flash_fwd_kernel<DP>, smem);
   if (err != cudaSuccess) return err;
   flash_fwd_kernel<DP><<<dim3(ceil_div(S, kRows), N, B), kThreads, smem, stream>>>(
-      q, k, v, mask, o, stat_m, stat_l, keep_bits, drop, S, N, D, scale, causal);
+      q, k, v, mask, o, stat_m, stat_l, keep_bits, drop, S, N, D, scale, causal, nullptr, 0);
   return cudaGetLastError();
 }
 
@@ -591,13 +745,13 @@ cudaError_t backward(Heads<const bf16> q, Heads<const bf16> k, Heads<const bf16>
   if (err != cudaSuccess) return err;
   flash_bwd_dq_kernel<DP><<<grid, kThreads, smem, stream>>>(
       q, k, v, dout, mask, stat_m, stat_l, keep_bits, drop, delta, dq, S, N, D, scale,
-      causal);
+      causal, nullptr, 0, nullptr, nullptr);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   smem = dkv_smem(DP);
   if ((err = allow_smem(flash_bwd_dkv_kernel<DP>, smem)) != cudaSuccess) return err;
   flash_bwd_dkv_kernel<DP><<<grid, kThreads, smem, stream>>>(
       q, k, v, dout, mask, stat_m, stat_l, delta, keep_bits, drop, dk, dv, S, N, D, scale,
-      causal);
+      causal, nullptr, 0, nullptr);
   return cudaGetLastError();
 }
 

@@ -76,12 +76,25 @@
 //
 // Bound. ~99 MFLOP per sequence forward and ~198 backward at S=200, H=128,
 // F=512 (causal: ~89 and ~178, the attention products over the lower
-// triangle only): the layer is bound by operations, not bytes. With bf16 operands
-// every product runs on the tensor cores with mma.sync m16n8k16 (fp32 sums):
-// the GEMM tiles, QK^T, dctx V^T and the attention accumulations; bf16
-// products are exact in fp32, so only the order of the sums differs from
-// the fp32 path, which stays on SIMT FMA loops (TF32 would change its
-// results). No TMA, copy pipelining or wgmma yet: later work.
+// triangle only): the layer is bound by operations, not bytes.
+//
+// Kernels, by operand type and shape (an explicit dispatch: the wrapper's
+// shape law, ops/fused_encoder_layer.py kernel_route, picks the entry
+// point; nothing is caught):
+//   bf16, H, head dim and F multiples of 8 (every layer config the repo
+//         trains or serves): layer_hopper.cuh, every product on wgmma with
+//         bf16 tiles brought in by cp.async into the 128-byte swizzle and
+//         the epilogues applied from the registers (b4r_fused_layer_fwd_wgmma
+//         / _bwd_wgmma); the attention core is flash_hopper.cuh's three
+//         kernels with the layer's switches (the relative bias, dRel, the
+//         dbqkv column sums). With attention dropout the forward writes the
+//         keep bits it draws and the backward reads them.
+//   other bf16 shapes: the kernels below with mma.sync m16n8k16 tiles (fp32
+//         sums) and attention.cuh's tiles.
+//   fp32: the kernels below as SIMT FMA loops (TF32 would change their
+//         results) and attention.cuh's SIMT tiles.
+// bf16 products are exact in fp32, so the paths differ only in the order of
+// their sums.
 //
 // Interface: C entry points taking an array of device pointers (order in
 // ops/fused_encoder_layer.py), launching on the caller's stream; each
@@ -89,25 +102,11 @@
 
 #include "attention.cuh"
 #include "common.cuh"
+#include "layer_hopper.cuh"
 
 namespace {
 
 using namespace b4r;
-
-constexpr float kLnEps = 1e-12f;
-constexpr float kGeluC = 0.7978845608028654f;  // sqrt(2 / pi)
-
-__device__ __forceinline__ float gelu_tanh(float x) {
-  const float inner = kGeluC * (x + 0.044715f * x * x * x);
-  return 0.5f * x * (1.0f + tanhf(inner));
-}
-
-__device__ __forceinline__ float gelu_tanh_grad(float x) {
-  const float inner = kGeluC * (x + 0.044715f * x * x * x);
-  const float t = tanhf(inner);
-  const float dinner = kGeluC * (1.0f + 3.0f * 0.044715f * x * x);
-  return 0.5f * (1.0f + t) + 0.5f * x * (1.0f - t * t) * dinner;
-}
 
 // --------------------------------------------------------------------------
 // C[M, N] = T(epilogue(A[M, K] W[K, N])): + bias, + bias then gelu, nothing,
@@ -369,7 +368,7 @@ Heads<P> packed(P* qkv, int S, int H, int D, int section) {
 enum FwdPtr {
   F_X, F_MASK, F_WQKV, F_BQKV, F_WO, F_BO, F_G1, F_B1LN, F_W1, F_BF1, F_W2, F_BF2,
   F_G2, F_B2LN, F_QKV, F_CTX, F_X1, F_HACT, F_Y, F_XHAT1, F_RSTD1, F_XHAT2,
-  F_RSTD2, F_STAT_M, F_STAT_L, F_REL, F_COUNT
+  F_RSTD2, F_STAT_M, F_STAT_L, F_REL, F_BITS, F_COUNT
 };
 
 template <typename T>
@@ -703,7 +702,7 @@ enum BwdPtr {
   B_X, B_MASK, B_DY, B_WQKV_T, B_WO_T, B_W1, B_W1_T, B_W2_T, B_BF1, B_G1, B_G2,
   B_QKV, B_CTX, B_X1, B_HACT, B_XHAT1, B_RSTD1, B_XHAT2, B_RSTD2, B_STAT_M,
   B_STAT_L, B_DX, B_DWQKV, B_DBQKV, B_DWO, B_GLN1, B_DW1, B_DBF1, B_DW2, B_GLN2,
-  B_WORKSPACE, B_REL, B_DREL, B_COUNT
+  B_WORKSPACE, B_REL, B_DREL, B_BITS, B_COUNT
 };
 
 // Carves the backward's scratch from one workspace; with base == nullptr
@@ -797,9 +796,186 @@ int layer_backward(void* const* p, int B, int S, int H, int N, int F, int causal
   return 0;
 }
 
+// ==========================================================================
+// bf16 on Hopper's warpgroup kernels (layer_hopper.cuh): the same steps, the
+// same rounding points, the same dropout sites and counters. The attention
+// core is flash_hopper.cuh's; with attention dropout the forward writes the
+// keep bits it draws ([B, N, T, T, 128] 32-bit words, T = ceil(S / 64)) and
+// the backward reads them.
+// ==========================================================================
+using bf16 = __nv_bfloat16;
+namespace lh = layer_hopper;
+
+int layer_forward_wgmma(void* const* p, int B, int S, int H, int N, int F, int causal,
+                        float scale, Drop attn_drop, Drop out_drop, cudaStream_t stream) {
+  const bf16* x = static_cast<const bf16*>(p[F_X]);
+  bf16* qkv = static_cast<bf16*>(p[F_QKV]);
+  bf16* ctx = static_cast<bf16*>(p[F_CTX]);
+  bf16* x1 = static_cast<bf16*>(p[F_X1]);
+  bf16* hact = static_cast<bf16*>(p[F_HACT]);
+  auto f32 = [&](int i) { return static_cast<float*>(p[i]); };
+  auto wt = [&](int i) { return static_cast<const bf16*>(p[i]); };
+  const int M = B * S, D = H / N;
+  cudaError_t err;
+#define B4R_TRY(call) \
+  if ((err = (call)) != cudaSuccess) return (int)err
+  // 1. qkv = T(x Wqkv + bqkv)
+  B4R_TRY(lh::gemm(x, wt(F_WQKV), f32(F_BQKV), nullptr, qkv, M, H, 3 * H, lh::kEpiBias,
+                   stream));
+  // 2. ctx = T(T(softmax(q k^T * scale + biases [+ rel]) * keep) v), per head
+  const bf16* cqkv = qkv;
+  const Heads<const bf16> hq = packed(cqkv, S, H, D, 0), hk = packed(cqkv, S, H, D, 1),
+                          hv = packed(cqkv, S, H, D, 2);
+  const Heads<bf16> hctx{ctx, (long long)S * H, D, H};
+  const float* rel = static_cast<const float*>(p[F_REL]);
+  uint32_t* bits = attn_drop.on ? static_cast<uint32_t*>(p[F_BITS]) : nullptr;
+  B4R_TRY((rel ? lh::attention_fwd<true>(hq, hk, hv, static_cast<const int32_t*>(p[F_MASK]),
+                                         hctx, f32(F_STAT_M), f32(F_STAT_L), bits, attn_drop,
+                                         B, S, N, D, scale, causal, rel, stream)
+               : lh::attention_fwd<false>(hq, hk, hv, static_cast<const int32_t*>(p[F_MASK]),
+                                          hctx, f32(F_STAT_M), f32(F_STAT_L), bits, attn_drop,
+                                          B, S, N, D, scale, causal, nullptr, stream)));
+  // 3. x1 = T(LN1(x + (ctx Wo + bo) * keep_N))
+  B4R_TRY(lh::ln_fwd(ctx, wt(F_WO), H, f32(F_BO), x, f32(F_G1), f32(F_B1LN), x1,
+                     f32(F_XHAT1), f32(F_RSTD1), out_drop, N, S, M, H, stream));
+  // 4. hact = T(gelu_tanh(x1 W1 + b1))
+  B4R_TRY(lh::gemm(x1, wt(F_W1), f32(F_BF1), nullptr, hact, M, H, F, lh::kEpiBiasGelu,
+                   stream));
+  // 5. y = T(LN2(x1 + (hact W2 + b2) * keep_N+1))
+  B4R_TRY(lh::ln_fwd(hact, wt(F_W2), F, f32(F_BF2), x1, f32(F_G2), f32(F_B2LN),
+                     static_cast<bf16*>(p[F_Y]), f32(F_XHAT2), f32(F_RSTD2), out_drop, N + 1,
+                     S, M, H, stream));
+#undef B4R_TRY
+  return 0;
+}
+
+// The wgmma backward's scratch, carved from one workspace (base == nullptr
+// only counts the bytes).
+struct WgmmaScratch {
+  float *dw_res, *du, *delta, *part_ln2, *part_ln1, *part_bf1, *part_qkv, *wsplit;
+  bf16 *df, *dhpre, *dattn, *dctx, *dqkv;
+  size_t bytes;
+  WgmmaScratch(void* base, int B, int S, int H, int N, int F) {
+    const int M = B * S;
+    size_t wmax = lh::wgrad_scratch(M, F, H);
+    wmax = std::max(wmax, lh::wgrad_scratch(M, H, F));
+    wmax = std::max(wmax, lh::wgrad_scratch(M, H, H));
+    wmax = std::max(wmax, lh::wgrad_scratch(M, H, 3 * H));
+    Carve c{static_cast<char*>(base), 0};
+    dw_res = c.take<float>((size_t)M * H);
+    du = c.take<float>((size_t)M * H);
+    delta = c.take<float>((size_t)B * N * S);
+    part_ln2 = c.take<float>((size_t)lh::ln_rows_blocks(M) * 3 * H);
+    part_ln1 = c.take<float>((size_t)lh::ln_blocks(M, H) * 3 * H);
+    part_bf1 = c.take<float>((size_t)lh::gelu_grad_blocks(M) * F);
+    part_qkv = c.take<float>((size_t)B * ceil_div(S, hopper::kRows) * 3 * H);
+    wsplit = c.take<float>(std::max(wmax, (size_t)1));
+    df = c.take<bf16>((size_t)M * H);
+    dhpre = c.take<bf16>((size_t)M * F);
+    dattn = c.take<bf16>((size_t)M * H);
+    dctx = c.take<bf16>((size_t)M * H);
+    dqkv = c.take<bf16>((size_t)M * 3 * H);
+    bytes = c.used;
+  }
+};
+
+int layer_backward_wgmma(void* const* p, int B, int S, int H, int N, int F, int causal,
+                         float scale, Drop attn_drop, Drop out_drop, cudaStream_t stream) {
+  auto f32 = [&](int i) { return static_cast<float*>(p[i]); };
+  auto wt = [&](int i) { return static_cast<const bf16*>(p[i]); };
+  const int32_t* mask = static_cast<const int32_t*>(p[B_MASK]);
+  const int M = B * S, D = H / N;
+  WgmmaScratch w(p[B_WORKSPACE], B, S, H, N, F);
+  const uint32_t* bits = static_cast<const uint32_t*>(p[B_BITS]);
+  if (attn_drop.on && !bits) return (int)cudaErrorInvalidValue;
+  cudaError_t err;
+#define B4R_TRY(call) \
+  if ((err = (call)) != cudaSuccess) return (int)err
+
+  // 1. LN2: dw_res = LN2'(dy), df = T(dw_res * keep_N+1); dg2, db2, dbf2
+  B4R_TRY(lh::ln_rows_bwd(wt(B_DY), f32(B_XHAT2), f32(B_RSTD2), f32(B_G2), out_drop, N + 1,
+                          S, w.dw_res, w.df, w.part_ln2, M, H, stream));
+  B4R_TRY(lh::sum_rows(w.part_ln2, f32(B_GLN2), lh::ln_rows_blocks(M), 3 * H, stream));
+  // 2. dW2 = hact^T df
+  B4R_TRY(lh::wgrad(wt(B_HACT), w.df, w.wsplit, f32(B_DW2), M, F, H, stream));
+  // 3. dhpre = T((df W2^T) * gelu'(x1 W1 + b1)); dbf1
+  B4R_TRY(lh::gelu_grad(w.df, wt(B_W2_T), wt(B_X1), wt(B_W1), f32(B_BF1), w.dhpre,
+                        w.part_bf1, M, F, H, stream));
+  B4R_TRY(lh::sum_rows(w.part_bf1, f32(B_DBF1), lh::gelu_grad_blocks(M), F, stream));
+  // 4. dW1 = x1^T dhpre
+  B4R_TRY(lh::wgrad(wt(B_X1), w.dhpre, w.wsplit, f32(B_DW1), M, H, F, stream));
+  // 5. LN1: dx1 = dw_res + dhpre W1^T; du = LN1'(dx1), dattn = T(du * keep_N);
+  //    dg1, db1, dbo
+  B4R_TRY(lh::ln_bwd(w.dhpre, wt(B_W1_T), F, w.dw_res, f32(B_XHAT1), f32(B_RSTD1), f32(B_G1),
+                     out_drop, N, S, w.du, w.dattn, w.part_ln1, M, H, stream));
+  B4R_TRY(lh::sum_rows(w.part_ln1, f32(B_GLN1), lh::ln_blocks(M, H), 3 * H, stream));
+  // 6. dWo = ctx^T dattn
+  B4R_TRY(lh::wgrad(wt(B_CTX), w.dattn, w.wsplit, f32(B_DWO), M, H, H, stream));
+  // 7. dctx = T(dattn Wo^T)
+  B4R_TRY(lh::gemm(w.dattn, wt(B_WO_T), nullptr, nullptr, w.dctx, M, H, H, lh::kEpiNone,
+                   stream));
+  // 8. attention: dq, dk, dv -> dqkv; dbqkv; with rel, dRel
+  const bf16* qkv = wt(B_QKV);
+  const Heads<const bf16> hq = packed(qkv, S, H, D, 0), hk = packed(qkv, S, H, D, 1),
+                          hv = packed(qkv, S, H, D, 2),
+                          hdo{w.dctx, (long long)S * H, D, H};
+  const Heads<bf16> hdq = packed(w.dqkv, S, H, D, 0), hdk = packed(w.dqkv, S, H, D, 1),
+                    hdv = packed(w.dqkv, S, H, D, 2);
+  const float* rel = static_cast<const float*>(p[B_REL]);
+  B4R_TRY((rel ? lh::attention_bwd<true>(hq, hk, hv, hdo, mask, f32(B_STAT_M), f32(B_STAT_L),
+                                         bits, attn_drop, w.delta, hdq, hdk, hdv, w.part_qkv,
+                                         B, S, N, D, scale, causal, rel, f32(B_DREL), stream)
+               : lh::attention_bwd<false>(hq, hk, hv, hdo, mask, f32(B_STAT_M),
+                                          f32(B_STAT_L), bits, attn_drop, w.delta, hdq, hdk,
+                                          hdv, w.part_qkv, B, S, N, D, scale, causal, nullptr,
+                                          nullptr, stream)));
+  B4R_TRY(lh::sum_rows(w.part_qkv, f32(B_DBQKV), B * ceil_div(S, hopper::kRows), 3 * H,
+                      stream));
+  // 9. dWqkv = x^T dqkv
+  B4R_TRY(lh::wgrad(wt(B_X), w.dqkv, w.wsplit, f32(B_DWQKV), M, H, 3 * H, stream));
+  // 10. dx = T(du + dqkv Wqkv^T)
+  B4R_TRY(lh::gemm(w.dqkv, wt(B_WQKV_T), nullptr, w.du, static_cast<bf16*>(p[B_DX]), M,
+                   3 * H, H, lh::kEpiAddF32, stream));
+#undef B4R_TRY
+  return 0;
+}
+
 }  // namespace
 
 extern "C" {
+
+// bf16 on the warpgroup kernels (ops/fused_encoder_layer.py kernel_route
+// sends a launch here): the same pointer orders and arguments as
+// b4r_fused_layer_fwd / _bwd, dtype 1 only; ptrs[keep_bits] ([B, N, T, T,
+// 128] 32-bit words, T = ceil(S / 64)) receives the forward's attention
+// keep bits when the attention dropout is on and is read by the backward.
+int b4r_fused_layer_fwd_wgmma(int dtype, void* const* ptrs, int B, int S, int H, int N,
+                              int F, int causal, float scale, unsigned seed,
+                              unsigned attn_threshold, float attn_scale, int attn_on,
+                              unsigned out_threshold, float out_scale, int out_on,
+                              void* stream) {
+  if (dtype != 1) return (int)cudaErrorInvalidValue;
+  const Drop ad{seed, attn_threshold, attn_scale, attn_on};
+  const Drop od{seed, out_threshold, out_scale, out_on};
+  return layer_forward_wgmma(ptrs, B, S, H, N, F, causal, scale, ad, od,
+                             static_cast<cudaStream_t>(stream));
+}
+
+int b4r_fused_layer_bwd_wgmma(int dtype, void* const* ptrs, int B, int S, int H, int N,
+                              int F, int causal, float scale, unsigned seed,
+                              unsigned attn_threshold, float attn_scale, int attn_on,
+                              unsigned out_threshold, float out_scale, int out_on,
+                              void* stream) {
+  if (dtype != 1) return (int)cudaErrorInvalidValue;
+  const Drop ad{seed, attn_threshold, attn_scale, attn_on};
+  const Drop od{seed, out_threshold, out_scale, out_on};
+  return layer_backward_wgmma(ptrs, B, S, H, N, F, causal, scale, ad, od,
+                              static_cast<cudaStream_t>(stream));
+}
+
+size_t b4r_fused_layer_bwd_wgmma_workspace_bytes(int B, int S, int H, int N, int F) {
+  return WgmmaScratch(nullptr, B, S, H, N, F).bytes;
+}
 
 // Limits the wrapper checks before calling (ops/fused_encoder_layer.py).
 int b4r_fused_layer_max_hidden() { return 32 * LN_MAXTN; }

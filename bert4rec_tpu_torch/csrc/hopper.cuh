@@ -1,6 +1,7 @@
 // Hopper building blocks shared by the port's warpgroup kernels (sm_90a):
-// flash attention's K8/K9 (flash_hopper.cuh) and the vocab-tiled loss
-// backwards K6/K7 (loss_hopper.cuh).
+// flash attention's K8/K9 (flash_hopper.cuh), the vocab-tiled loss
+// backwards K6/K7 (loss_hopper.cuh) and the fused encoder layer's K1/K2
+// (layer_hopper.cuh).
 //
 // Tiles are 64 rows of bf16 ([64][DP], DP a multiple of 64), each 64
 // columns one 8 KB block in the 128-byte swizzle wgmma reads: row r's
@@ -340,6 +341,42 @@ template <typename K>
 cudaError_t allow_smem(K kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               (int)bytes);
+}
+
+// ---------------------------------------------------------------------------
+// thread-block clusters (the loss backwards' and the layer's weight gradients')
+// ---------------------------------------------------------------------------
+constexpr int kMaxCluster = 8;  // the portable cluster size
+
+// `blocks` blocks of `threads` threads in clusters of `cluster` along x, with
+// `smem` bytes of dynamic shared memory
+template <typename... KArgs, typename... Args>
+cudaError_t launch_clusters_n(void (*kernel)(KArgs...), int blocks, int cluster, int threads,
+                              size_t smem, cudaStream_t stream, Args... args) {
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = cluster;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  if ((err = cudaLaunchKernelEx(&cfg, kernel, static_cast<KArgs>(args)...)) != cudaSuccess)
+    return err;
+  return cudaGetLastError();
+}
+
+// the same with one warpgroup a block
+template <typename... KArgs, typename... Args>
+cudaError_t launch_clusters(void (*kernel)(KArgs...), int blocks, int cluster, size_t smem,
+                            cudaStream_t stream, Args... args) {
+  return launch_clusters_n(kernel, blocks, cluster, kThreads, smem, stream, args...);
 }
 
 }  // namespace hopper

@@ -66,7 +66,6 @@ using namespace hopper;
 namespace cg = cooperative_groups;
 
 constexpr float kLog2e = 1.4426950408889634f;
-constexpr int kMaxCluster = 8;       // the portable cluster size
 constexpr int kSweepCtas = 1024;     // a sweep's clusters grow until ~this many blocks
 constexpr int kMergedClusters = 32;  // K6's clusters, and so its dh partials, at most
 constexpr int kStatBytes = 512;      // a stage's streamed row operands
@@ -516,28 +515,6 @@ inline int merged_cluster(int V) {
 inline int merged_clusters(int V) {
   const int vtiles = (V + kRows - 1) / kRows, c = merged_cluster(V);
   return std::min((vtiles + c - 1) / c, kMergedClusters);
-}
-
-template <typename... KArgs, typename... Args>
-cudaError_t launch_clusters(void (*kernel)(KArgs...), int blocks, int cluster, size_t smem,
-                            cudaStream_t stream, Args... args) {
-  cudaError_t err = allow_smem(kernel, smem);
-  if (err != cudaSuccess) return err;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(blocks);
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cudaLaunchAttribute attr;
-  attr.id = cudaLaunchAttributeClusterDimension;
-  attr.val.clusterDim.x = cluster;
-  attr.val.clusterDim.y = 1;
-  attr.val.clusterDim.z = 1;
-  cfg.attrs = &attr;
-  cfg.numAttrs = 1;
-  if ((err = cudaLaunchKernelEx(&cfg, kernel, static_cast<KArgs>(args)...)) != cudaSuccess)
-    return err;
-  return cudaGetLastError();
 }
 
 // K7: the dh sweep, then the dt sweep

@@ -14,9 +14,12 @@ split reductions (see the source's header).
 
 Bound: about 2·S·H·3H + 4·S²·H + 2·S·H² + 4·S·H·F FLOP per sequence
 forward (99 MFLOP at S=200, H=128, F=512) and about twice that backward,
-against a few MB of activations: the layer is bound by operations. In
-bf16 the products run on the tensor cores (``mma.sync``); in fp32 they are
-SIMT loops. Their times are in PERF.md.
+against a few MB of activations: the layer is bound by operations.
+``kernel_route`` picks the kernels by a shape law: bf16 with H, the head
+dim and F multiples of 8 runs the ``wgmma`` kernels of
+``csrc/layer_hopper.cuh`` (attention on ``csrc/flash_hopper.cuh``'s); any
+other bf16 shape the earlier ``mma.sync`` kernels (counted apart, in
+``mma_sync_launches``); fp32 the SIMT loops. Their times are in PERF.md.
 
 What it computes is ``_layer_fwd_math`` and ``_bwd_element``:
 tanh-approximate gelu (whatever ``inner_activation`` says — the JAX kernel
@@ -48,6 +51,11 @@ from bert4rec_tpu_torch.ops import dropout_bits
 NEG_INF = -1e9
 LN_EPS = 1e-12
 MAX_FUSED_SEQ_LEN = 512
+# the CUDA kernels' limits (b4r_fused_layer_max_hidden / _max_head_dim; the
+# batch is a grid dimension)
+MAX_KERNEL_HIDDEN = 512
+MAX_KERNEL_HEAD_DIM = 128
+MAX_KERNEL_BATCH = 65535
 VMEM_BUDGET_BYTES = 14 * 1024 * 1024
 _SITES_PER_CELL = dropout_bits.SITES_PER_CELL
 _LOG2E = math.log2(math.e)
@@ -58,7 +66,7 @@ _W_ORDER = ("wqkv", "bqkv", "wo", "bo", "g1", "b1ln", "w1", "bf1",
 _MATRICES = ("wqkv", "wo", "w1", "w2")  # cast to the input dtype
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _SAVED = ("qkv", "ctx", "x1", "hact", "xhat1", "rstd1", "xhat2", "rstd2",
-          "stat_m", "stat_l")
+          "stat_m", "stat_l", "keep_bits")
 
 
 # --------------------------------------------------------------------------- #
@@ -348,12 +356,13 @@ def fused_encoder_layer_plain_backward(flat: dict, x: torch.Tensor,
 _lib = None
 # device-pointer order of the C entry points (FwdPtr / BwdPtr in the source)
 _FWD_PTRS = ("x", "mask", *_W_ORDER, "qkv", "ctx", "x1", "hact", "y",
-             "xhat1", "rstd1", "xhat2", "rstd2", "stat_m", "stat_l", "rel")
+             "xhat1", "rstd1", "xhat2", "rstd2", "stat_m", "stat_l", "rel",
+             "keep_bits")
 _BWD_PTRS = ("x", "mask", "dy", "wqkv_t", "wo_t", "w1", "w1_t", "w2_t", "bf1",
              "g1", "g2", "qkv", "ctx", "x1", "hact", "xhat1", "rstd1",
              "xhat2", "rstd2", "stat_m", "stat_l", "dx", "dwqkv", "dbqkv",
              "dwo", "gln1", "dw1", "dbf1", "dw2", "gln2", "workspace", "rel",
-             "drel")
+             "drel", "keep_bits")
 
 
 def _kernel_lib():
@@ -366,11 +375,16 @@ def _kernel_lib():
         # dtype, ptrs, B, S, H, N, F, causal, scale, seed, the two dropouts'
         # (threshold, scale, on), stream
         step_args = [ci, vp] + [ci] * 6 + [cf, cu, cu, cf, ci, cu, cf, ci, vp]
-        for fn in (lib.b4r_fused_layer_fwd, lib.b4r_fused_layer_bwd):
+        for fn in (lib.b4r_fused_layer_fwd, lib.b4r_fused_layer_bwd,
+                   lib.b4r_fused_layer_fwd_wgmma,
+                   lib.b4r_fused_layer_bwd_wgmma):
             fn.restype = ci
             fn.argtypes = step_args
         lib.b4r_fused_layer_bwd_workspace_bytes.restype = ctypes.c_size_t
         lib.b4r_fused_layer_bwd_workspace_bytes.argtypes = [ci] * 6
+        lib.b4r_fused_layer_bwd_wgmma_workspace_bytes.restype = \
+            ctypes.c_size_t
+        lib.b4r_fused_layer_bwd_wgmma_workspace_bytes.argtypes = [ci] * 5
         lib.b4r_dropout_keep_scale.restype = ci
         lib.b4r_dropout_keep_scale.argtypes = [vp, cu, cu, cf] + [ci] * 5 \
             + [vp]
@@ -408,15 +422,51 @@ def _check_operands(x, input_mask, flat, num_heads):
             raise TypeError(f"{name} must be float32, got {t.dtype}")
 
 
-def _check_kernel_limits(lib, b, h, num_heads):
-    if h > lib.b4r_fused_layer_max_hidden() \
-            or h // num_heads > lib.b4r_fused_layer_max_head_dim() \
-            or b > 65535:
+def kernel_route(dtype, batch: int, hidden: int, num_heads: int,
+                 inner_dim: int) -> str:
+    """Which CUDA kernels run a layer of this shape (the shape law, decided
+    before any launch): ``"wgmma"`` (bf16 on the warpgroup kernels of
+    ``csrc/layer_hopper.cuh``, whose 16-byte copies need H, the head dim
+    and F to be multiples of 8), ``"mma_sync"`` (any other bf16 shape: the
+    earlier ``mma.sync`` kernels) or ``"simt"`` (fp32: the SIMT kernels).
+    Raises ValueError past every kernel's limits."""
+    d = hidden // num_heads
+    if hidden > MAX_KERNEL_HIDDEN or d > MAX_KERNEL_HEAD_DIM \
+            or batch > MAX_KERNEL_BATCH:
         raise ValueError(
-            f"fused layer kernel takes hidden <= "
-            f"{lib.b4r_fused_layer_max_hidden()}, head dim <= "
-            f"{lib.b4r_fused_layer_max_head_dim()} and batch <= 65535; "
-            f"got hidden {h}, {num_heads} heads, batch {b}")
+            f"fused layer kernel takes hidden <= {MAX_KERNEL_HIDDEN}, head "
+            f"dim <= {MAX_KERNEL_HEAD_DIM} and batch <= {MAX_KERNEL_BATCH};"
+            f" got hidden {hidden}, {num_heads} heads, batch {batch}")
+    if dtype == torch.float32:
+        return "simt"
+    if dtype != torch.bfloat16:
+        raise ValueError(f"no fused layer kernel for {dtype}")
+    if hidden % 8 == 0 and d % 8 == 0 and inner_dim % 8 == 0:
+        return "wgmma"
+    return "mma_sync"
+
+
+def _check_kernel_limits(lib):
+    if (lib.b4r_fused_layer_max_hidden(), lib.b4r_fused_layer_max_head_dim()) \
+            != (MAX_KERNEL_HIDDEN, MAX_KERNEL_HEAD_DIM):
+        raise RuntimeError("the kernel library's limits differ from "
+                           "MAX_KERNEL_HIDDEN / MAX_KERNEL_HEAD_DIM")
+
+
+def _aligned16(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself when its data starts on a 16-byte boundary (the
+    ``wgmma`` kernels' copies read 16 bytes at a time), else a fresh copy
+    (PyTorch's allocations are aligned)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def keep_bits_shape(batch: int, num_heads: int, seq_len: int) -> tuple:
+    """The attention dropout's keep bits the ``wgmma`` forward writes and
+    its backward reads: ``[B, N, T, T, 128]`` 32-bit words, T = ceil(S /
+    64) (``ops/dropout_bits.py`` ``tile_keep_bits`` is their plain
+    packing)."""
+    t = -(-seq_len // 64)
+    return (batch, num_heads, t, t, 128)
 
 
 def _drop_args(seed: int, attn_rate: float, out_rate: float) -> list:
@@ -474,17 +524,22 @@ def _launch_forward(flat: dict, x: torch.Tensor, input_mask: torch.Tensor,
     """Launch K1 (K1'' causal with ``causal``, K1'' rel_bias with ``rel``);
     returns ``(y, saved)`` where ``saved`` holds the activations and
     statistics the backward reads (empty unless ``save``)."""
-    lib = _kernel_lib()
     b, s, h = x.shape
-    _check_kernel_limits(lib, b, h, num_heads)
     f = flat["w1"].shape[1]
+    route = kernel_route(x.dtype, b, h, num_heads, f)
+    lib = _kernel_lib()
+    _check_kernel_limits(lib)
     m = b * s
     dev, dt = x.device, x.dtype
     ops = {k: (flat[k].to(dt) if k in _MATRICES else flat[k]).contiguous()
            for k in _W_ORDER}
+    x = x.contiguous()
+    if route == "wgmma":   # 16-byte copies and loads, vectors too
+        ops = {k: _aligned16(v) for k, v in ops.items()}
+        x = _aligned16(x)
     if rel is not None:
         _check_rel(rel, b, num_heads, s, dev)
-    ops.update(x=x.contiguous(), mask=input_mask.contiguous(), rel=rel,
+    ops.update(x=x, mask=input_mask.contiguous(), rel=rel,
                qkv=torch.empty((m, 3 * h), dtype=dt, device=dev),
                ctx=torch.empty((m, h), dtype=dt, device=dev),
                x1=torch.empty((m, h), dtype=dt, device=dev),
@@ -498,8 +553,15 @@ def _launch_forward(flat: dict, x: torch.Tensor, input_mask: torch.Tensor,
                    rstd2=torch.empty((m,), **f32),
                    stat_m=torch.empty((b, num_heads, s), **f32),
                    stat_l=torch.empty((b, num_heads, s), **f32))
+        if route == "wgmma" and attn_rate > 0.0:
+            ops["keep_bits"] = torch.empty(
+                keep_bits_shape(b, num_heads, s), dtype=torch.int32,
+                device=dev)
+    ops.setdefault("keep_bits", None)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.b4r_fused_layer_fwd(
+    entry = lib.b4r_fused_layer_fwd_wgmma if route == "wgmma" \
+        else lib.b4r_fused_layer_fwd
+    err = entry(
         _DTYPE_CODE[dt], _ptr_array(ops, _FWD_PTRS), b, s, h, num_heads, f,
         int(causal), 1.0 / math.sqrt(h // num_heads),
         *_drop_args(seed, attn_rate, out_rate), stream)
@@ -517,21 +579,30 @@ def _launch_backward(flat: dict, x: torch.Tensor, input_mask: torch.Tensor,
     """Launch K2 (causal with ``causal``, K2 dRel with ``rel``; both must be
     the forward's); returns ``(dx, {name: fp32 grad})``, with ``"rel"``
     (dRel, ``[B, N, S, S]`` fp32) when ``rel`` is given."""
-    lib = _kernel_lib()
     b, s, h = x.shape
     f = flat["w1"].shape[1]
+    route = kernel_route(x.dtype, b, h, num_heads, f)
+    lib = _kernel_lib()
     dev, dt = x.device, x.dtype
     f32 = dict(dtype=torch.float32, device=dev)
     ops = dict(zip(_SAVED, saved))
+    ops.setdefault("keep_bits", None)
+    if route == "wgmma" and attn_rate > 0.0 and ops["keep_bits"] is None:
+        raise ValueError("the wgmma backward with attention dropout reads "
+                         "the forward's keep bits (saved[-1])")
+    x, dy = x.contiguous(), dy.contiguous()
+    if route == "wgmma":
+        x, dy = _aligned16(x), _aligned16(dy)
     ops.update(
-        x=x.contiguous(), mask=input_mask.contiguous(), dy=dy.contiguous(),
-        wqkv_t=flat["wqkv"].to(dt).t().contiguous(),
-        wo_t=flat["wo"].to(dt).t().contiguous(),
-        w1=flat["w1"].to(dt).contiguous(),
-        w1_t=flat["w1"].to(dt).t().contiguous(),
-        w2_t=flat["w2"].to(dt).t().contiguous(),
-        bf1=flat["bf1"].contiguous(), g1=flat["g1"].contiguous(),
-        g2=flat["g2"].contiguous(),
+        x=x, mask=input_mask.contiguous(), dy=dy,
+        wqkv_t=_aligned16(flat["wqkv"].to(dt).t().contiguous()),
+        wo_t=_aligned16(flat["wo"].to(dt).t().contiguous()),
+        w1=_aligned16(flat["w1"].to(dt).contiguous()),
+        w1_t=_aligned16(flat["w1"].to(dt).t().contiguous()),
+        w2_t=_aligned16(flat["w2"].to(dt).t().contiguous()),
+        bf1=_aligned16(flat["bf1"].contiguous()),
+        g1=_aligned16(flat["g1"].contiguous()),
+        g2=_aligned16(flat["g2"].contiguous()),
         dx=torch.empty_like(x), dwqkv=torch.empty((h, 3 * h), **f32),
         dbqkv=torch.empty((1, 3 * h), **f32), dwo=torch.empty((h, h), **f32),
         gln1=torch.empty((3, h), **f32), dw1=torch.empty((h, f), **f32),
@@ -540,11 +611,17 @@ def _launch_backward(flat: dict, x: torch.Tensor, input_mask: torch.Tensor,
     if rel is not None:
         _check_rel(rel, b, num_heads, s, dev)
         ops.update(rel=rel, drel=torch.empty_like(rel))
-    nbytes = lib.b4r_fused_layer_bwd_workspace_bytes(
-        _DTYPE_CODE[dt], b, s, h, num_heads, f)
+    if route == "wgmma":
+        nbytes = lib.b4r_fused_layer_bwd_wgmma_workspace_bytes(
+            b, s, h, num_heads, f)
+        entry = lib.b4r_fused_layer_bwd_wgmma
+    else:
+        nbytes = lib.b4r_fused_layer_bwd_workspace_bytes(
+            _DTYPE_CODE[dt], b, s, h, num_heads, f)
+        entry = lib.b4r_fused_layer_bwd
     ops["workspace"] = torch.empty((nbytes,), dtype=torch.uint8, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.b4r_fused_layer_bwd(
+    err = entry(
         _DTYPE_CODE[dt], _ptr_array(ops, _BWD_PTRS), b, s, h, num_heads, f,
         int(causal), 1.0 / math.sqrt(h // num_heads),
         *_drop_args(seed, attn_rate, out_rate), stream)
@@ -561,13 +638,25 @@ def _launch_backward(flat: dict, x: torch.Tensor, input_mask: torch.Tensor,
     return ops["dx"], grads
 
 
-def _count(backward: bool, causal: bool, rel: bool) -> None:
+def _count(backward: bool, causal: bool, rel: bool,
+           route: str = "wgmma") -> None:
     """One launch of the CUDA kernels, in the counter of its variant: the
-    relative-bias launches (causal or not) apart, then the causal ones."""
+    relative-bias launches (causal or not) apart, then the causal ones; a
+    bf16 launch the shape law sends to the ``mma.sync`` kernels also in
+    ``mma_sync_launches`` / ``mma_sync_backward_launches``."""
     kind = "rel_" if rel else "causal_" if causal else ""
-    name = f"{kind}backward_launches" if backward else f"{kind}launches"
-    setattr(fused_encoder_layer, name,
-            getattr(fused_encoder_layer, name) + 1)
+    names = [f"{kind}backward_launches" if backward else f"{kind}launches"]
+    if route == "mma_sync":
+        names.append("mma_sync_backward_launches" if backward
+                     else "mma_sync_launches")
+    for name in names:
+        setattr(fused_encoder_layer, name,
+                getattr(fused_encoder_layer, name) + 1)
+
+
+def _route_of(x, flat, num_heads) -> str:
+    b, _, h = x.shape
+    return kernel_route(x.dtype, b, h, num_heads, flat["w1"].shape[1])
 
 
 class _FusedLayer(torch.autograd.Function):
@@ -594,7 +683,8 @@ class _FusedLayer(torch.autograd.Function):
             y, saved = _launch_forward(flat, x, input_mask, num_heads, seed,
                                        attn_rate, out_rate, save,
                                        causal=causal, rel=rel)
-            _count(False, causal, rel is not None)
+            _count(False, causal, rel is not None,
+                   _route_of(x, flat, num_heads))
         if save:
             rel_saved = () if rel is None else (rel,)
             ctx.save_for_backward(x, input_mask, *rel_saved, *flat_tuple,
@@ -617,7 +707,7 @@ class _FusedLayer(torch.autograd.Function):
                                          tuple(rest[len(_W_ORDER):]),
                                          num_heads, seed, attn_rate,
                                          out_rate, causal=causal, rel=rel)
-            _count(True, causal, has_rel)
+            _count(True, causal, has_rel, _route_of(x, flat, num_heads))
         dflat = tuple(grads[k].to(flat[k].dtype) for k in _W_ORDER)
         drel = (grads["rel"],) if has_rel else ()
         return (dx, None, None, None, None, None, None, None, *dflat, *drel)
@@ -644,7 +734,10 @@ def fused_encoder_layer(params: dict, x: torch.Tensor,
     ``fused_encoder_layer.launches`` (``causal_launches`` for the causal
     variant, ``rel_launches`` for the relative-bias one) and each backward
     launch in ``backward_launches`` (``causal_backward_launches``,
-    ``rel_backward_launches``); a CPU ``x`` runs the plain versions.
+    ``rel_backward_launches``); a bf16 launch the shape law
+    (``kernel_route``) sends to the ``mma.sync`` kernels also counts in
+    ``mma_sync_launches`` / ``mma_sync_backward_launches``. A CPU ``x``
+    runs the plain versions.
     """
     flat = flat_weights(params)
     _check_operands(x, input_mask, flat, num_heads)
@@ -670,3 +763,5 @@ fused_encoder_layer.causal_launches = 0
 fused_encoder_layer.causal_backward_launches = 0
 fused_encoder_layer.rel_launches = 0
 fused_encoder_layer.rel_backward_launches = 0
+fused_encoder_layer.mma_sync_launches = 0
+fused_encoder_layer.mma_sync_backward_launches = 0

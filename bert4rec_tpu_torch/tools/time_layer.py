@@ -4,7 +4,8 @@ relative-bias variants (K1'' causal, K1'' rel_bias / K2 dRel) where the
 checkout has them, and flash attention's K8 / K9 (which run the same
 attention tiles) where it has ``ops/flash_attention.py``:
 
-    python bert4rec_tpu_torch/tools/time_layer.py [--root DIR] [--reps 5]
+    python bert4rec_tpu_torch/tools/time_layer.py [--root DIR] [--reps 5] \
+        [--hidden 128 256]
 
 ``DIR`` is the root of a checkout (by default the one holding this file):
 its ``bert4rec_tpu_torch`` is imported and its kernels are built from its
@@ -14,8 +15,9 @@ times (CUDA events over 50 launches) at the train shape, B=256, S=200,
 H=128, 4 heads, F=512, bf16, right-padded rows of random length, dropout
 0.2 / 0.5 (ml-1m_128's) and 0.1 / 0.1 (ml-20m_128's); the relative bias
 (~ N(0, 1), fp32 [B, N, S, S]) at 0.1 / 0.1, the temporal ml-20m_128's;
-K8 / K9 at bert_base_512's attention shape, B=32, N=12, S=512, D=64, bf16,
-dropout 0.2, right-padded rows."""
+with ``--hidden 256`` also ml-20m_256's width (H=256, 8 heads, F=1024,
+dropout 0.1 / 0.1); K8 / K9 at bert_base_512's attention shape, B=32,
+N=12, S=512, D=64, bf16, dropout 0.2, right-padded rows."""
 
 import argparse
 import inspect
@@ -25,6 +27,7 @@ import subprocess
 import sys
 
 B, S, H, N, F = 256, 200, 128, 4, 512
+WIDE = (256, 8, 1024, (0.1, 0.1))   # ml-20m_256's H, N, F and dropout
 FLASH_DIMS, FLASH_RATE = (32, 12, 512, 64), 0.2
 RATES = {"ml-1m": (0.2, 0.5), "ml-20m": (0.1, 0.1)}
 
@@ -43,7 +46,7 @@ def events_ms(torch, fn, iters=50, warmup=5):
     return start.elapsed_time(end) / iters
 
 
-def layer_params(np, rng, device):
+def layer_params(np, rng, device, H=H, N=N, F=F):
     from bert4rec_tpu_torch.utils.checkpoint import params_from_numpy
     d = H // N
 
@@ -71,6 +74,9 @@ def main(argv=None) -> int:
     parser.add_argument("--root", default=str(
         pathlib.Path(__file__).resolve().parents[2]))
     parser.add_argument("--reps", type=int, default=5)
+    parser.add_argument("--hidden", type=int, nargs="+", default=[H],
+                        choices=[H, WIDE[0]],
+                        help="layer widths to time (256: ml-20m_256's)")
     args = parser.parse_args(argv)
     sys.path.insert(0, str(pathlib.Path(args.root).resolve()))
     import numpy as np
@@ -118,6 +124,18 @@ def main(argv=None) -> int:
                                         rel=rel),
             lambda: fel._launch_backward(flat, x, mask, dy, saved, N, 7,
                                          *rates, rel=rel))
+    if WIDE[0] in args.hidden:
+        wh, wn, wf, rates = WIDE
+        wflat = fel.flat_weights(layer_params(np, np.random.default_rng(3),
+                                              device, wh, wn, wf))
+        wx, wdy = (torch.from_numpy(np.random.default_rng(4 + i).normal(
+            size=(B, S, wh)).astype(np.float32)).to(device, torch.bfloat16)
+            for i in range(2))
+        y, wsaved = fel._launch_forward(wflat, wx, mask, wn, 7, *rates, True)
+        cases["bidirectional ml-20m_256"] = (
+            lambda: fel._launch_forward(wflat, wx, mask, wn, 7, *rates, True),
+            lambda: fel._launch_backward(wflat, wx, mask, wdy, wsaved, wn, 7,
+                                         *rates))
     if (pathlib.Path(fel.__file__).parent / "flash_attention.py").is_file():
         from bert4rec_tpu_torch.ops import flash_attention as fa
         frng = np.random.default_rng(2)   # the same inputs in every tree
@@ -137,6 +155,8 @@ def main(argv=None) -> int:
                                         FLASH_RATE, False))
     out = dict(root=args.root, card=card, shape=[B, S, H, N, F],
                flash_shape=list(FLASH_DIMS))
+    if WIDE[0] in args.hidden:
+        out["wide_shape"] = [B, S, *WIDE[:3]]
     for name in cases:
         out[name] = {"fwd_ms": [], "bwd_ms": []}
     for _ in range(args.reps):

@@ -29,6 +29,11 @@ Phases (any failure raises and the script exits non-zero):
               each against its plain version, with kernel, plain and
               library-yardstick times (kernel and yardstick as medians of
               7 blocks of 10 calls, their ranges printed) and the bound;
+              at B=256 in bf16 each launch's kernels by device time, the
+              forward's and the backward's, none of them one of the
+              earlier bf16 layer kernels (``LEGACY_BF16_LAYER``: the
+              shape law sends every bf16 layer of these shapes to
+              ``csrc/layer_hopper.cuh``);
 6. training — ``BERT4RecTrainer.train()`` on the ml-1m_128 config at the
               bench shape (B=256, S=200, P=40, bf16 compute, dropout
               0.2 / 0.5, fused layer and fused loss), data by
@@ -39,8 +44,10 @@ Phases (any failure raises and the script exits non-zero):
               loss forward and backward); the step time and a device
               breakdown; the loss falling on a repeated batch; and a
               checkpointed run resumed by a new trainer, equal bit for bit
-              to the uninterrupted run; then K1 with dropout and K2 at
-              ml-20m_256's width (H=256, 8 heads, F=1024, bf16, B=256);
+              to the uninterrupted run; no bf16 layer launch on the
+              earlier bf16 kernels (counters and breakdown); then K1 with
+              dropout and K2 at ml-20m_256's width (H=256, 8 heads,
+              F=1024, bf16, B=256);
 7. pipeline — an ML-20M-format corpus (the full 26,729-movie catalog,
               20,000 users) written from a seed into a temporary
               ``BERT4REC_TPU_HOME`` and loaded through
@@ -302,17 +309,29 @@ def layer_bound_ms(b, dtype_name, h=HIDDEN, f=INNER, causal=False,
                                  else "bytes")
 
 
+# The earlier bf16 layer kernels (csrc/fused_encoder_layer.cu's GEMM, LayerNorm
+# GEMM, FFN and weight-gradient tiles and csrc/attention.cuh's tiles): no bf16
+# launch at the main paths' shapes may reach them, since the shape law
+# (fused_encoder_layer.kernel_route) sends those to csrc/layer_hopper.cuh
+LEGACY_BF16_LAYER = re.compile(
+    r"^(gemm_kernel<__nv_bfloat16|gemm_residual_ln_kernel<__nv_bfloat16"
+    r"|ln_bwd_kernel<__nv_bfloat16, \d+, true>|gelu_grad_gemm_kernel<"
+    r"|wgrad_kernel<__nv_bfloat16|b4r::attention_kernel<|b4r::attn_bwd_)")
+
+
 def _kernel_name(key: str) -> str:
     key = key.replace("(anonymous namespace)::", "").removeprefix("void ")
     return key.split("(")[0][:60]
 
 
-def device_breakdown(torch, fn, calls=5, top=6, groups=None) -> tuple:
+def device_breakdown(torch, fn, calls=5, top=6, groups=None,
+                     forbid=None) -> tuple:
     """``(total, text)``: device ms per call of ``fn`` in all (None if the
     trace holds no device time) and a line naming its ``top`` costliest
     CUDA kernels, from torch.profiler (CUPTI); with ``groups`` ({label:
     name substrings}) also the device time of each group of kernels. A
-    trace without device time is taken once more."""
+    trace without device time is taken once more. With ``forbid`` (a
+    compiled pattern) a kernel whose name it matches raises."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -329,6 +348,10 @@ def device_breakdown(torch, fn, calls=5, top=6, groups=None) -> tuple:
             break
     if not rows:
         return None, "device time not measured"
+    hits = [name for name, _ in rows if forbid and forbid.search(name)]
+    if hits:
+        raise AssertionError(f"launch reached the earlier bf16 layer kernels: "
+                             f"{hits}")
     total = sum(ms for _, ms in rows)
     rest = sum(ms for _, ms in rows[top:])
     parts = [f"{name} {ms:.4f}" for name, ms in rows[:top]]
@@ -393,7 +416,9 @@ def check_fused_layer(torch, rng, device):
                   f"({bound_by})", flush=True)
             print("  per launch of the kernel: " + device_breakdown(
                 torch, lambda: fel.fused_encoder_layer(
-                    params, x, mask, num_heads=HEADS))[1], flush=True)
+                    params, x, mask, num_heads=HEADS),
+                forbid=LEGACY_BF16_LAYER if name == "bfloat16" else None)[1],
+                flush=True)
     return rows
 
 
@@ -812,8 +837,10 @@ def check_layer_training(torch, rng, device, h=HIDDEN, n=HEADS, f=INNER,
                      f" (tol {TOL[name]})")
                   + f" {timing_text(r)}", flush=True)
         if b == STREAM_BATCH and name == "bfloat16":
+            print("  per forward launch: " + device_breakdown(
+                torch, fwd, top=8, forbid=LEGACY_BF16_LAYER)[1], flush=True)
             print("  per backward launch: " + device_breakdown(
-                torch, bwd)[1], flush=True)
+                torch, bwd, top=10, forbid=LEGACY_BF16_LAYER)[1], flush=True)
     return rows
 
 
@@ -1009,9 +1036,9 @@ def check_causal_layer(torch, rng, device):
                       flush=True)
             if name == "bfloat16" and rates == CAUSAL_RATES:
                 print("  per causal forward launch: " + device_breakdown(
-                    torch, fwd)[1], flush=True)
+                    torch, fwd, forbid=LEGACY_BF16_LAYER)[1], flush=True)
                 print("  per causal backward launch: " + device_breakdown(
-                    torch, bwd)[1], flush=True)
+                    torch, bwd, forbid=LEGACY_BF16_LAYER)[1], flush=True)
             del y_lib, leaves, lflat, xl
     return rows
 
@@ -1184,6 +1211,8 @@ def check_training(torch, device):
     # the main path: BERT4RecTrainer.train() for TRAIN_STEPS steps
     for fn in (fel.fused_encoder_layer, fml.fused_mlm_loss):
         fn.launches = fn.backward_launches = 0
+    fel.fused_encoder_layer.mma_sync_launches = 0
+    fel.fused_encoder_layer.mma_sync_backward_launches = 0
     t0 = time.perf_counter()
     hist = trainer.train(SyntheticDataset(TRAIN_STEPS, seed=1), epochs=1,
                          batch_size=STREAM_BATCH, seed=SEED, verbose=False)
@@ -1191,10 +1220,12 @@ def check_training(torch, device):
     counts = dict(layer_fwd=fel.fused_encoder_layer.launches,
                   layer_bwd=fel.fused_encoder_layer.backward_launches,
                   loss_fwd=fml.fused_mlm_loss.launches,
-                  loss_bwd=fml.fused_mlm_loss.backward_launches)
+                  loss_bwd=fml.fused_mlm_loss.backward_launches,
+                  mma_sync=fel.fused_encoder_layer.mma_sync_launches
+                  + fel.fused_encoder_layer.mma_sync_backward_launches)
     want = dict(layer_fwd=cfg.num_layers * TRAIN_STEPS,
                 layer_bwd=cfg.num_layers * TRAIN_STEPS,
-                loss_fwd=TRAIN_STEPS, loss_bwd=TRAIN_STEPS)
+                loss_fwd=TRAIN_STEPS, loss_bwd=TRAIN_STEPS, mma_sync=0)
     loss = hist.history["loss"][0]
     print(f"train(): {TRAIN_STEPS} steps of B={STREAM_BATCH} in {wall:.2f} s"
           f" (first step included), epoch loss {loss:.4f}, masked_accuracy "
@@ -1223,8 +1254,8 @@ def check_training(torch, device):
           f"(min {min(step_ms):.3f}), {STREAM_BATCH / median * 1e3:.1f} "
           f"examples/s", flush=True)
     print("  one train step: " + device_breakdown(
-        torch, lambda: trainer.train_step(batch), calls=3, top=8)[1],
-        flush=True)
+        torch, lambda: trainer.train_step(batch), calls=3, top=8,
+        forbid=LEGACY_BF16_LAYER)[1], flush=True)
 
     # 3. the loss falls on one repeated batch at a raised learning rate
     probe = make_batch(3)
@@ -1570,7 +1601,8 @@ def check_ml20m_training(torch, device, loader, splits, config_name,
         for attr in ("launches", "backward_launches", "causal_launches",
                      "causal_backward_launches", "rel_launches",
                      "rel_backward_launches", "merged_launches",
-                     "two_sweep_launches"):
+                     "two_sweep_launches", "mma_sync_launches",
+                     "mma_sync_backward_launches"):
             if hasattr(fn, attr):
                 setattr(fn, attr, 0)
     t0 = time.perf_counter()
@@ -1588,13 +1620,15 @@ def check_ml20m_training(torch, device, loader, splits, config_name,
                   K4=fml.fused_mlm_loss.backward_launches,
                   K5=fml.fused_mlm_loss_tiled.launches,
                   K6=fml.fused_mlm_loss_tiled.merged_launches,
-                  K7=fml.fused_mlm_loss_tiled.two_sweep_launches)
+                  K7=fml.fused_mlm_loss_tiled.two_sweep_launches,
+                  mma_sync=fel.fused_encoder_layer.mma_sync_launches
+                  + fel.fused_encoder_layer.mma_sync_backward_launches)
     layer_steps = cfg.num_layers * ML20M_STEPS
     variant = {"sasrec": "causal", "temporal": "rel"}.get(family, "layer")
     want = dict(layer_fwd=0, layer_bwd=0, causal_fwd=0, causal_bwd=0,
                 rel_fwd=0, rel_bwd=0, K3=0, K4=0, K5=ML20M_STEPS,
                 K6=ML20M_STEPS if kernel == "K6" else 0,
-                K7=ML20M_STEPS if kernel == "K7" else 0)
+                K7=ML20M_STEPS if kernel == "K7" else 0, mma_sync=0)
     want[f"{variant}_fwd"] = want[f"{variant}_bwd"] = layer_steps
     loss = hist.history["loss"][0]
     print(f"{label} train(): {ML20M_STEPS} steps of B={STREAM_BATCH}"
@@ -1628,7 +1662,8 @@ def check_ml20m_training(torch, device, loader, splits, config_name,
         step_ms.append((time.perf_counter() - t0) * 1e3)
     median = sorted(step_ms)[len(step_ms) // 2]
     device_ms, breakdown = device_breakdown(
-        torch, lambda: trainer.train_step(batch), calls=3, top=10)
+        torch, lambda: trainer.train_step(batch), calls=3, top=10,
+        forbid=LEGACY_BF16_LAYER)
     idle = None if device_ms is None else 1 - device_ms / train_ms
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2335,9 +2370,9 @@ def check_rel_layer(torch, rng, device):
                       f"({r['bound_by']})", flush=True)
             if name == "bfloat16" and not causal:
                 print("  per rel_bias forward launch: " + device_breakdown(
-                    torch, fwd)[1], flush=True)
+                    torch, fwd, forbid=LEGACY_BF16_LAYER)[1], flush=True)
                 print("  per dRel backward launch: " + device_breakdown(
-                    torch, bwd)[1], flush=True)
+                    torch, bwd, forbid=LEGACY_BF16_LAYER)[1], flush=True)
             del y_lib, leaves, lflat, xl, rl, again, grads, ref_g, saved
             torch.cuda.empty_cache()
     return rows
@@ -2528,6 +2563,15 @@ def run(torch, home) -> int:
         # the bf16 K6/K7 kernels one by one: registers and spills at each
         # padded width (loss_sweep_kernel<WP, dt sweep>, loss_merged_kernel<WP>)
         for i, ln in enumerate(lines):
+            lay = re.search(r"12layer_hopper(\d+)(\w+)", ln)
+            if lay and "Compiling entry" in ln:
+                kname = lay.group(2)[:int(lay.group(1))]
+                targs = re.findall(r"Li(\d+)E", lay.group(2)[int(lay.group(1)):])
+                used = next((x for x in lines[i + 1:i + 4] if "Used" in x), "")
+                spill = next((x for x in lines[i + 1:i + 4] if "spill" in x), "")
+                print(f"  layer_hopper::{kname}<{', '.join(targs)}>: "
+                      f"{used.split(':')[-1].strip()}; {spill.strip()}",
+                      flush=True)
             hit = re.search(r"(loss_(?:sweep|merged)_kernel)ILi(\d+)E(?:Lb([01])E)?", ln)
             if hit and "Compiling entry" in ln:
                 used = next((x for x in lines[i + 1:i + 4] if "Used" in x), "")
@@ -2593,6 +2637,7 @@ def run(torch, home) -> int:
     tiled_128 = tiled_rows[("bfloat16", N_ROWS, ML20M_VOCAB, 128)]
     tiled_256 = tiled_rows[("bfloat16", N_ROWS, ML20M_VOCAB, 256)]
     layer_src, loss_src = "fused_encoder_layer.cu", "fused_mlm_loss.cu"
+    wgmma_src = "layer_hopper.cuh"   # bf16 K1 / K2 (fp32: layer_src)
     # K8 / K9 at bert_base_512's shape and rates; launches from its train()
     flash_row = flash_rows[(FLASH_SHAPES[0], "bfloat16", False)]
     c_base = base["counts"]
@@ -2604,17 +2649,17 @@ def run(torch, home) -> int:
         entry("fused_encoder_layer", layer_src,
               "bert4rec_tpu/ops/fused_encoder_layer.py:241", launches,
               layer_rows[("float32", 32)]),
-        entry("fused_encoder_layer_dropout", layer_src,
+        entry("fused_encoder_layer_dropout", wgmma_src,
               "bert4rec_tpu/ops/fused_encoder_layer.py:241",
               counts["layer_fwd"], train_row["fwd"]),
-        entry("fused_encoder_layer_backward", layer_src,
+        entry("fused_encoder_layer_backward", wgmma_src,
               "bert4rec_tpu/ops/fused_encoder_layer.py:265",
               counts["layer_bwd"], train_row["bwd"]),
         # ml-20m_256's width; launches from its train() run
-        entry("fused_encoder_layer_dropout_h256", layer_src,
+        entry("fused_encoder_layer_dropout_h256", wgmma_src,
               "bert4rec_tpu/ops/fused_encoder_layer.py:241",
               c256["layer_fwd"], wide_row["fwd"]),
-        entry("fused_encoder_layer_backward_h256", layer_src,
+        entry("fused_encoder_layer_backward_h256", wgmma_src,
               "bert4rec_tpu/ops/fused_encoder_layer.py:265",
               c256["layer_bwd"], wide_row["bwd"]),
         entry("fused_mlm_loss", loss_src, f"{loss_py}:111", counts["loss_fwd"],
@@ -2632,10 +2677,10 @@ def run(torch, home) -> int:
               f"{loss_py}:602", c128["K7"] + c256["K7"] + csas["K7"],
               tiled_256["K7"]),
         # K1'' causal (SASRec): launches from its train() run
-        entry("fused_encoder_layer_causal", layer_src,
+        entry("fused_encoder_layer_causal", wgmma_src,
               "bert4rec_tpu/ops/fused_encoder_layer.py:241",
               csas["causal_fwd"], causal_row["fwd"]),
-        entry("fused_encoder_layer_causal_backward", layer_src,
+        entry("fused_encoder_layer_causal_backward", wgmma_src,
               "bert4rec_tpu/ops/fused_encoder_layer.py:265",
               csas["causal_bwd"], causal_row["bwd"]),
         # K8 / K9 (bert_base_512): launches from its train() run
@@ -2647,10 +2692,10 @@ def run(torch, home) -> int:
               c_base["flash.backward_launches"], flash_row["bwd"]),
         # K1'' rel_bias / K2 dRel (temporal ml-20m_128): launches from its
         # train() run
-        entry("fused_encoder_layer_rel", layer_src,
+        entry("fused_encoder_layer_rel", wgmma_src,
               "bert4rec_tpu/ops/fused_encoder_layer.py:241",
               c_temp["rel_fwd"], rel_row["fwd"]),
-        entry("fused_encoder_layer_rel_backward", layer_src,
+        entry("fused_encoder_layer_rel_backward", wgmma_src,
               "bert4rec_tpu/ops/fused_encoder_layer.py:315",
               c_temp["rel_bwd"], rel_row["bwd"]),
     ]}

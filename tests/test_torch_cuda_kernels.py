@@ -348,6 +348,161 @@ def test_rel_layer_kernels_match_plain(cuda_device, dims, dtype, causal):
     assert torch.equal(runs[0][1]["rel"], rel.grad)
 
 
+# --------------------------------------------------------------------------- #
+# bf16 K1 / K2 on the warpgroup kernels (csrc/layer_hopper.cuh, attention on
+# csrc/flash_hopper.cuh's): each head dim they take, S = 1 and ragged
+# against the 64-row tiles, every variant
+# --------------------------------------------------------------------------- #
+
+_NAMES = ("attention/qkv/kernel", "attention/qkv/bias",
+          "attention/output/kernel", "attention/output/bias",
+          "attention_norm/scale", "attention_norm/bias",
+          "intermediate/kernel", "intermediate/bias", "output/kernel",
+          "output/bias", "output_norm/scale", "output_norm/bias")
+
+# (B, S, H, N, F): ml-20m_256's width (head dim 32) at S = 200; head dims
+# 16, 32 (S = 1), 64 and 128 at S ragged against 64; hidden sizes short of
+# the padded 256 and 512 (head dims 48 and 96, the columns split over two
+# warpgroups at 384)
+WGMMA_DIMS = [(2, 200, 256, 8, 1024), (3, 65, 64, 4, 128), (3, 1, 128, 4, 512),
+              (3, 130, 128, 2, 256), (2, 63, 256, 2, 512),
+              (3, 50, 192, 4, 200), (2, 70, 384, 4, 256)]
+# (attention, output) dropout, causal, relative bias
+WGMMA_VARIANTS = {"rate0": ((0.0, 0.0), False, False),
+                  "dropout": ((0.2, 0.5), False, False),
+                  "causal": ((0.1, 0.1), True, False),
+                  "rel": ((0.1, 0.1), False, True),
+                  "causal_rel": ((0.0, 0.0), True, True)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dims", WGMMA_DIMS,
+                         ids=lambda d: "B{}_S{}_H{}_N{}_F{}".format(*d))
+@pytest.mark.parametrize("variant", list(WGMMA_VARIANTS))
+def test_wgmma_layer_kernels_match_plain(cuda_device, dims, variant):
+    """The bf16 forward and backward on the wgmma kernels against the plain
+    versions (forward 8e-2 absolute, backward 3e-2 of each gradient's
+    scale, dRel too), with an all-pad row, a row of length 1 and a
+    front-padded row; counted in their variant's counters and never in
+    the mma.sync ones."""
+    b, s, h, n, f = dims
+    rates, causal, has_rel = WGMMA_VARIANTS[variant]
+    assert fel.kernel_route(torch.bfloat16, b, h, n, f) == "wgmma"
+    rng = np.random.default_rng(sum(dims) + 31)
+    p = params_from_numpy(flatten(layer_params_np(rng, h, n, f)),
+                          cuda_device)
+    for leaf in flatten(p).values():
+        leaf.requires_grad_(True)
+    mt = torch.from_numpy(causal_mask_np(rng, b, s)).to(cuda_device)
+    xt = torch.from_numpy(rng.normal(size=(b, s, h)).astype(np.float32)) \
+        .to(cuda_device, torch.bfloat16).requires_grad_(True)
+    dy = torch.from_numpy(rng.normal(size=(b, s, h)).astype(np.float32)) \
+        .to(cuda_device, torch.bfloat16)
+    rel = None
+    if has_rel:
+        rel = torch.from_numpy(rng.normal(size=(b, n, s, s))
+                               .astype(np.float32)).to(cuda_device) \
+            .requires_grad_(True)
+    kw = dict(num_heads=n, attention_dropout=rates[0],
+              output_dropout=rates[1], seed=99, causal=causal)
+    f_ = fel.fused_encoder_layer
+    kind = "rel_" if has_rel else "causal_" if causal else ""
+    names = (f"{kind}launches", f"{kind}backward_launches",
+             "mma_sync_launches", "mma_sync_backward_launches")
+    before = [getattr(f_, k) for k in names]
+    y = fel.fused_encoder_layer(p, xt, mt, rel_bias=rel, **kw)
+    y.backward(dy)
+    torch.cuda.synchronize()
+    assert [getattr(f_, k) for k in names] == [before[0] + 1, before[1] + 1,
+                                                before[2], before[3]]
+    with torch.no_grad():
+        ref_y = fel.fused_encoder_layer_plain(p, xt, mt, rel_bias=rel, **kw)
+        flat = {k: v.detach() for k, v in fel.flat_weights(p).items()}
+        ref_dx, ref_g = fel.fused_encoder_layer_plain_backward(
+            flat, xt.detach(), mt, dy,
+            rel_bias=None if rel is None else rel.detach(), **kw)
+    assert bool(torch.isfinite(y).all())
+    np.testing.assert_allclose(y.detach().float().cpu().numpy(),
+                               ref_y.float().cpu().numpy(), rtol=0, atol=8e-2)
+    assert _rel_err(xt.grad, ref_dx) <= GRAD_TOL[torch.bfloat16]
+    got = {k: v.grad for k, v in flatten(p).items()}
+    for k, path in zip(fel._W_ORDER, _NAMES):
+        g = got[path].reshape(ref_g[k].shape)
+        assert _rel_err(g, ref_g[k]) <= GRAD_TOL[torch.bfloat16], path
+    if has_rel:
+        assert _rel_err(rel.grad, ref_g["rel"]) <= GRAD_TOL[torch.bfloat16]
+
+
+@pytest.mark.cuda
+def test_wgmma_layer_backward_repeats_its_bits_at_h256(cuda_device):
+    """Two backward launches at ml-20m_256's width (dropout on, so the
+    forward's keep bits are read) give the same bits: the weight
+    gradients' cluster and partial sums run in a fixed order."""
+    b, s, h, n, f = 2, 200, 256, 8, 1024
+    rng = np.random.default_rng(41)
+    p = params_from_numpy(flatten(layer_params_np(rng, h, n, f)),
+                          cuda_device)
+    flat = fel.flat_weights(p)
+    x, mask = inputs_np(rng, b, s, h)
+    xt = torch.from_numpy(x).to(cuda_device, torch.bfloat16)
+    mt = torch.from_numpy(mask).to(cuda_device)
+    dy = torch.from_numpy(rng.normal(size=(b, s, h)).astype(np.float32)) \
+        .to(cuda_device, torch.bfloat16)
+    y, saved = fel._launch_forward(flat, xt, mt, n, 5, 0.1, 0.1, True)
+    assert saved[-1] is not None and tuple(saved[-1].shape) == \
+        fel.keep_bits_shape(b, n, s)
+    runs = [fel._launch_backward(flat, xt, mt, dy, saved, n, 5, 0.1, 0.1)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0][0], runs[1][0])
+    for k in runs[0][1]:
+        assert torch.equal(runs[0][1][k], runs[1][1][k]), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dims", [(3, 40, 36, 4, 72), (2, 65, 100, 4, 200)],
+                         ids=lambda d: "B{}_S{}_H{}_N{}_F{}".format(*d))
+def test_shape_law_routes_to_the_mma_sync_kernels(cuda_device, dims):
+    """A bf16 shape the wgmma kernels do not take (a hidden or head dim
+    not a multiple of 8) runs the earlier mma.sync kernels, counted apart, and
+    still matches the plain versions."""
+    b, s, h, n, f = dims
+    assert fel.kernel_route(torch.bfloat16, b, h, n, f) == "mma_sync"
+    rng = np.random.default_rng(sum(dims))
+    p = params_from_numpy(flatten(layer_params_np(rng, h, n, f)),
+                          cuda_device)
+    for leaf in flatten(p).values():
+        leaf.requires_grad_(True)
+    x, mask = inputs_np(rng, b, s, h)
+    xt = torch.from_numpy(x).to(cuda_device, torch.bfloat16) \
+        .requires_grad_(True)
+    mt = torch.from_numpy(mask).to(cuda_device)
+    dy = torch.from_numpy(rng.normal(size=(b, s, h)).astype(np.float32)) \
+        .to(cuda_device, torch.bfloat16)
+    kw = dict(num_heads=n, attention_dropout=0.2, output_dropout=0.5,
+              seed=8)
+    f_ = fel.fused_encoder_layer
+    names = ("launches", "backward_launches", "mma_sync_launches",
+             "mma_sync_backward_launches")
+    before = [getattr(f_, k) for k in names]
+    y = fel.fused_encoder_layer(p, xt, mt, **kw)
+    y.backward(dy)
+    torch.cuda.synchronize()
+    assert [getattr(f_, k) for k in names] == [v + 1 for v in before]
+    with torch.no_grad():
+        ref_y = fel.fused_encoder_layer_plain(p, xt, mt, **kw)
+        flat = {k: v.detach() for k, v in fel.flat_weights(p).items()}
+        ref_dx, ref_g = fel.fused_encoder_layer_plain_backward(
+            flat, xt.detach(), mt, dy, **kw)
+    np.testing.assert_allclose(y.detach().float().cpu().numpy(),
+                               ref_y.float().cpu().numpy(), rtol=0, atol=8e-2)
+    assert _rel_err(xt.grad, ref_dx) <= GRAD_TOL[torch.bfloat16]
+    got = {k: v.grad for k, v in flatten(p).items()}
+    for k, path in zip(fel._W_ORDER, _NAMES):
+        assert _rel_err(got[path].reshape(ref_g[k].shape),
+                        ref_g[k]) <= GRAD_TOL[torch.bfloat16], path
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("rate", [0.2, 0.5])
 def test_kernel_dropout_masks_equal_plain_masks(cuda_device, rate):

@@ -114,6 +114,54 @@ class TestWrapperRaises:
                                     num_heads=N)
 
 
+class TestKernelRoute:
+    """The shape law that sends a CUDA launch to its kernels, decided in
+    Python before any launch (so it is tested here, without a card)."""
+
+    @pytest.mark.parametrize("shape, dtype, route", [
+        # every layer config the repo trains: bf16 on the wgmma kernels
+        ((256, 128, 4, 512), torch.bfloat16, "wgmma"),    # ml-1m / ml-20m_128
+        ((256, 256, 8, 1024), torch.bfloat16, "wgmma"),   # ml-20m_256
+        ((2, 64, 4, 128), torch.bfloat16, "wgmma"),       # head dim 16
+        ((2, 256, 2, 512), torch.bfloat16, "wgmma"),      # head dim 128
+        ((2, 512, 4, 96), torch.bfloat16, "wgmma"),       # the widest hidden
+        ((4, 32, 4, 64), torch.bfloat16, "wgmma"),        # head dim 8
+        # a hidden, head dim or inner dim off the 16-byte copies: mma.sync
+        ((3, 36, 4, 72), torch.bfloat16, "mma_sync"),     # head dim 9
+        ((2, 100, 4, 200), torch.bfloat16, "mma_sync"),   # hidden 100
+        ((2, 96, 4, 100), torch.bfloat16, "mma_sync"),    # inner 100
+        ((2, 96, 8, 64), torch.bfloat16, "mma_sync"),     # head dim 12
+        # fp32 keeps its kernels at every shape
+        ((256, 128, 4, 512), torch.float32, "simt"),
+        ((3, 36, 4, 72), torch.float32, "simt"),
+    ], ids=lambda v: str(v).replace("torch.", "").replace(" ", ""))
+    def test_route(self, shape, dtype, route):
+        b, h, n, f = shape
+        assert fel.kernel_route(dtype, b, h, n, f) == route
+
+    @pytest.mark.parametrize("shape", [
+        (2, 520, 4, 64), (2, 256, 1, 64), (65536, 128, 4, 512),
+    ], ids=["hidden_520", "head_dim_256", "batch_65536"])
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                             ids=["fp32", "bf16"])
+    def test_beyond_every_kernel_raises(self, shape, dtype):
+        b, h, n, f = shape
+        with pytest.raises(ValueError):
+            fel.kernel_route(dtype, b, h, n, f)
+
+    def test_other_dtypes_raise(self):
+        with pytest.raises(ValueError):
+            fel.kernel_route(torch.float16, 2, 128, 4, 512)
+
+    @pytest.mark.parametrize("s, tiles", [(1, 1), (64, 1), (65, 2), (200, 4)])
+    def test_keep_bits_match_the_plain_packing(self, s, tiles):
+        """The wgmma forward's saved keep bits have the shape of
+        dropout_bits.tile_keep_bits, their plain packing."""
+        assert fel.keep_bits_shape(3, 2, s) == (3, 2, tiles, tiles, 128)
+        bits = dropout_bits.tile_keep_bits(7, 3, 2, s, 0.1, "cpu")
+        assert tuple(bits.shape) == fel.keep_bits_shape(3, 2, s)
+
+
 class TestRoutingLawParity:
 
     @pytest.mark.parametrize("shape", [
