@@ -30,58 +30,66 @@
 // (K5-K7) in VMEM; an H100 block has 227 KB, so every kernel here streams
 // 64-row tiles and recomputes the logits tile it needs. By operand type
 // (an explicit dispatch on `dtype`, nothing caught):
-//   loss_fwd_kernel     K3: one block per 64-row tile, online max / sum over
-//                       all vocabulary tiles; lse and per-block partials of
-//                       the four sums (reduced in a second, ordered pass)
-//   loss_tiled_fwd_kernel + loss_tiled_merge_kernel
-//                       K5: one block per (64-row tile, vocabulary split),
-//                       partial (max, sum, label logit) per split; a second
-//                       pass merges the splits of each row in split order
-//                       into lse and the stats, and the sums as for K3
-//   loss_bwd_dh_kernel  K4 (and K7's dh sweep in fp32): one block per
-//                       64-row tile, dh accumulated over the vocabulary
-//                       tiles from the lse
-//   loss_bwd_dt_kernel  K4's dtable sweep: one block per (vocabulary tile,
-//                       1,024-row split); split partials reduced in order
-//   bf16 K6 / K7        loss_hopper.cuh's wgmma kernels: bf16 tiles by
-//                       cp.async into the 128-byte swizzle, the logits and
-//                       dlog in registers, dlog rounded in place as the
-//                       next product's A operand. K7: a dh sweep (a hidden
-//                       row tile per cluster) and a dt sweep (a vocabulary
-//                       tile per cluster), each splitting its streamed tiles
-//                       over the cluster's blocks and summing their fp32
-//                       partials in rank order through distributed shared
-//                       memory: no workspace. K6: clusters of 8 vocabulary
-//                       tiles sweep the row tiles in step; per row tile
-//                       their dh contributions are summed through
-//                       distributed shared memory and written once into the
-//                       cluster's fp32 dh partial (at most 32 partials of
-//                       R x W, reduced in cluster order: 168 MB at R =
-//                       10,240, W = 128, any V). Layout rule, which the
-//                       wrapper checks first: hidden and table contiguous,
-//                       16-byte aligned base and rows (W a multiple of 8),
-//                       W <= 256 (zero-filled to 64, 128 or 256).
+//   loss_fwd_kernel     K3 (both types): one block per 64-row tile, online
+//                       max / sum over all vocabulary tiles (bf16 on
+//                       mma.sync from fp32-staged tiles); lse and per-block
+//                       partials of the four sums (reduced in a second,
+//                       ordered pass)
+//   bf16 K4-K7          loss_hopper.cuh's wgmma kernels: bf16 tiles by
+//                       cp.async into the 128-byte swizzle, the logits in
+//                       registers. K5: blocks of 128 hidden rows (two
+//                       warpgroups, the rows as register A fragments) share
+//                       each streamed vocabulary tile; one tile's online
+//                       max / sum of exponentials runs while the next tile's
+//                       product does; the vocabulary is split until the grid
+//                       holds ~1,024 blocks, and each split's per-row (max,
+//                       sum, label logit) goes to a workspace. K4 and K7: a
+//                       dh sweep (a hidden row tile per cluster) and a dt
+//                       sweep (a vocabulary tile per cluster), each splitting
+//                       its streamed tiles over the cluster's blocks and
+//                       summing their fp32 partials in rank order through
+//                       distributed shared memory: no workspace (K4 reads
+//                       K3's lse, K7 K5's; the function is the same). K6:
+//                       clusters of 8 vocabulary tiles sweep the row tiles
+//                       in step; per row tile their dh contributions are
+//                       summed through distributed shared memory and written
+//                       once into the cluster's fp32 dh partial (at most 32
+//                       partials of R x W, reduced in cluster order: 168 MB
+//                       at R = 10,240, W = 128, any V). Layout rule, which
+//                       the wrapper checks first: hidden and table
+//                       contiguous, 16-byte aligned base and rows (W a
+//                       multiple of 8), W <= 256 (zero-filled to 64, 128 or
+//                       256).
+//   fp32 K4, K5         SIMT tiles: loss_tiled_fwd_kernel (block
+//                       per (64-row tile, vocabulary split)),
+//                       loss_bwd_dh_kernel (block per 64-row tile, dh over
+//                       the vocabulary tiles from the lse) and
+//                       loss_bwd_dt_kernel (block per (vocabulary tile,
+//                       1,024-row split); split partials reduced in order)
+//   K5's second pass    loss_tiled_merge_kernel (both types): each row's
+//                       splits merged in split order into lse, the stats
+//                       and the four sums
 //   fp32 K6 / K7        loss_bwd_vt_kernel: one block per group of
 //                       vocabulary tiles; for each tile it sweeps all rows
 //                       and writes that tile's dtable / dbias once (K7's dt
 //                       sweep: a tile per group, after loss_bwd_dh_kernel;
 //                       K6: at most 128 groups, and the same pass adds
 //                       dlog . table into its group's dh partial, reduced
-//                       in group order). fp32 operands keep SIMT loops.
+//                       in group order).
 // The backwards read the forward's lse (the JAX whole-table backward
 // recomputes max and sum; the difference is fp32 rounding, within the
 // tolerance the tests state). dlog is rounded to the hidden dtype before
 // both products and dbias sums the unrounded dlog, as JAX's kernels do. No
 // float atomics: two runs give the same bits. Workspaces do not grow with V
-// except K4's dtable splits (the whole-table path).
+// except fp32 K4's dtable splits.
 //
 // Bound. 2 R V W FLOP forward, 6 R V W backward (the logits, dh, dtable; K7
 // recomputes the logits once more, which the bound does not count), against
-// megabytes of inputs: bound by operations (0.213 ms for K6 at the ML-20M
-// batch, R = 10,240, V = 26,732, W = 128, and 0.425 ms for K7 at W = 256, at
-// 989 TFLOP/s). K3-K5 and K4 in bf16 run mma.sync on fp32-staged tiles
-// (the operands are bf16-exact, so only the order of the sums differs from
-// the fp32 loops).
+// megabytes of inputs: bound by operations (0.071 ms for K5 and 0.213 ms for
+// K6 at the ML-20M batch, R = 10,240, V = 26,732, W = 128, at 989 TFLOP/s).
+// K5 also takes one exponential per (row, vocabulary entry): 274 M at that
+// batch, about as long on the special-function units as its products on
+// the tensor cores, which is why its design overlaps the two.
 
 #include <algorithm>
 
@@ -94,9 +102,9 @@ using namespace b4r;
 
 constexpr int LT = 64;  // rows per row tile and per vocabulary tile
 constexpr int LOSS_MAXW = 256;
-constexpr int DT_CHUNK = 1024;  // rows per dtable split (K4)
-constexpr int MERGED_GROUPS = 128;  // vocabulary-tile groups of K6 (~ one per SM)
-constexpr int FWD_BLOCKS = 1024;  // K5 splits the vocabulary until ~this many blocks
+constexpr int DT_CHUNK = 1024;  // rows per dtable split (fp32 K4)
+constexpr int MERGED_GROUPS = 128;  // vocabulary-tile groups of fp32 K6 (~ one per SM)
+constexpr int FWD_BLOCKS = 1024;  // fp32 K5 splits the vocabulary until ~this many blocks
 
 template <typename T>
 __device__ __forceinline__ void load_rows(float* dst, const T* __restrict__ src,
@@ -189,13 +197,13 @@ loss_fwd_kernel(const T* __restrict__ hidden, const T* __restrict__ table,
   }
 }
 
-// K5, first pass: block (row tile, vocabulary split) runs the online max /
-// sum over the split's vocabulary tiles and writes the rows' partial
-// (max, sum of exp at that max, label logit) into part_*[split][row]; the
-// label logit is 0 where the label lies outside the split.
-template <typename T>
+// fp32 K5, first pass (bf16: loss_hopper.cuh's loss_fwd_sweep_kernel):
+// block (row tile, vocabulary split) runs the online max / sum over the split's
+// vocabulary tiles and writes the rows' partial (max, sum of exp at that
+// max, label logit) into part_*[split][row]; the label logit is 0 where the
+// label lies outside the split.
 __global__ void __launch_bounds__(256)
-loss_tiled_fwd_kernel(const T* __restrict__ hidden, const T* __restrict__ table,
+loss_tiled_fwd_kernel(const float* __restrict__ hidden, const float* __restrict__ table,
                       const float* __restrict__ bias, const int32_t* __restrict__ labels,
                       float* __restrict__ part_m, float* __restrict__ part_s,
                       float* __restrict__ part_ll, int R, int V, int W,
@@ -205,12 +213,10 @@ loss_tiled_fwd_kernel(const T* __restrict__ hidden, const T* __restrict__ table,
   float* Ts = Hs + LT * (W + 1);       // [64][W + 1]
   float* bs = Ts + LT * (W + 1);       // [64]
   float* ll = bs + LT;                 // [64] label logits
-  float* scr = ll + LT;                // [64][65] tensor-core scratch
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
   const int r0 = blockIdx.x * LT, split = blockIdx.y;
   const int v_begin = split * tiles_per_split * LT;
   const int v_end = min(V, v_begin + tiles_per_split * LT);
-  constexpr bool kMma = kIsBf16<T>;
 
   load_rows(Hs, hidden, r0, R, W);
   for (int r = tid; r < LT; r += 256) ll[r] = 0.f;
@@ -227,7 +233,7 @@ loss_tiled_fwd_kernel(const T* __restrict__ hidden, const T* __restrict__ table,
     load_rows(Ts, table, v0, V, W);
     load_bias(bs, bias, v0, V);
     __syncthreads();
-    tile_dots<kMma>(s, Hs, Ts, tx, ty, W, scr);
+    tile_dots(s, Hs, Ts, tx, ty, W);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
 #pragma unroll
@@ -314,22 +320,22 @@ __device__ __forceinline__ float dlog_of(float s, float lse, int col, int lab, f
   return (p - (col == lab ? 1.f : 0.f)) * wr;
 }
 
-template <typename T, int WJ>
+// fp32 K4 and K7's fp32 dh sweep
+template <int WJ>
 __global__ void __launch_bounds__(256)
-loss_bwd_dh_kernel(const T* __restrict__ hidden, const T* __restrict__ table,
+loss_bwd_dh_kernel(const float* __restrict__ hidden, const float* __restrict__ table,
                    const float* __restrict__ bias, const int32_t* __restrict__ labels,
                    const float* __restrict__ lse, const float* __restrict__ g,
                    const float* __restrict__ n_valid, int valid_ge_zero,
-                   T* __restrict__ dh, int R, int V, int W) {
+                   float* __restrict__ dh, int R, int V, int W) {
   extern __shared__ float smem[];
   float* Hs = smem;                    // [64][W + 1]
   float* Ts = Hs + LT * (W + 1);       // [64][W + 1]
-  float* Ds = Ts + LT * (W + 1);       // [64][65] T(dlog)
+  float* Ds = Ts + LT * (W + 1);       // [64][65] dlog
   float* bs = Ds + LT * (LT + 1);      // [64]
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
   const int r0 = blockIdx.x * LT;
   const float scale = g[0] / fmaxf(n_valid[0], 1.f);
-  constexpr bool kMma = kIsBf16<T>;
 
   load_rows(Hs, hidden, r0, R, W);
   int lab[4];
@@ -341,58 +347,42 @@ loss_bwd_dh_kernel(const T* __restrict__ hidden, const T* __restrict__ table,
     lr[i] = r < R ? lse[r] : 0.f;
     wr[i] = row_valid(lab[i], valid_ge_zero) ? scale : 0.f;
   }
-  float acc[4][WJ], cacc[WJ][4];
+  float acc[4][WJ];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int j = 0; j < WJ; ++j) acc[i][j] = cacc[j][i] = 0.f;
+    for (int j = 0; j < WJ; ++j) acc[i][j] = 0.f;
   float s[4][4];
   for (int v0 = 0; v0 < V; v0 += LT) {
     load_rows(Ts, table, v0, V, W);
     load_bias(bs, bias, v0, V);
     __syncthreads();
-    tile_dots<kMma>(s, Hs, Ts, tx, ty, W, Ds);
+    tile_dots(s, Hs, Ts, tx, ty, W);
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int c = tx + 16 * j;
         Ds[(ty + 16 * i) * (LT + 1) + c] =
-            round_to<T>(dlog_of(s[i][j] + bs[c], lr[i], v0 + c, lab[i], wr[i]));
+            dlog_of(s[i][j] + bs[c], lr[i], v0 + c, lab[i], wr[i]);
       }
     __syncthreads();
-    if constexpr (kMma) {
-      // columns past the vocabulary: dlog = 0 and zero table rows
-      mma_acc_64xD<WJ>(cacc, Ds, LT + 1, 1, Ts, W + 1, 1, W);
-    } else {
-      const int vlen = min(LT, V - v0);
-      for (int c = 0; c < vlen; ++c) {
-        float dv[4];
+    const int vlen = min(LT, V - v0);
+    for (int c = 0; c < vlen; ++c) {
+      float dv[4];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) dv[i] = Ds[(ty + 16 * i) * (LT + 1) + c];
+      for (int i = 0; i < 4; ++i) dv[i] = Ds[(ty + 16 * i) * (LT + 1) + c];
 #pragma unroll
-        for (int j = 0; j < WJ; ++j) {
-          const int d = tx + 16 * j;
-          if (d < W) {
-            const float t = Ts[c * (W + 1) + d];
+      for (int j = 0; j < WJ; ++j) {
+        const int d = tx + 16 * j;
+        if (d < W) {
+          const float t = Ts[c * (W + 1) + d];
 #pragma unroll
-            for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(dv[i], t, acc[i][j]);
-          }
+          for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(dv[i], t, acc[i][j]);
         }
       }
     }
     __syncthreads();
-  }
-  if constexpr (kMma) {  // fragments -> the (ty, tx) layout, through Hs
-    spill_64xD<WJ>(Hs, W + 1, cacc, W);
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < WJ; ++j) {
-        const int d = tx + 16 * j;
-        if (d < W) acc[i][j] = Hs[(ty + 16 * i) * (W + 1) + d];
-      }
   }
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -401,17 +391,18 @@ loss_bwd_dh_kernel(const T* __restrict__ hidden, const T* __restrict__ table,
 #pragma unroll
     for (int j = 0; j < WJ; ++j) {
       const int d = tx + 16 * j;
-      if (d < W) dh[(size_t)r * W + d] = from_f<T>(acc[i][j]);
+      if (d < W) dh[(size_t)r * W + d] = acc[i][j];
     }
   }
 }
 
-// K4's dtable sweep: block (vocabulary tile, split of DT_CHUNK rows) writes
-// the tile's dtable / dbias partials of its split, reduced in order later.
-// (fp32 K6 / K7 use loss_bwd_vt_kernel below, bf16 ones loss_hopper.cuh.)
-template <typename T, int WJ>
+// fp32 K4's dtable sweep (bf16 K4 runs loss_hopper.cuh's sweeps): block
+// (vocabulary tile, split of DT_CHUNK rows) writes the tile's dtable / dbias
+// partials of its split, reduced in order later. (fp32 K6 / K7 use
+// loss_bwd_vt_kernel below.)
+template <int WJ>
 __global__ void __launch_bounds__(256)
-loss_bwd_dt_kernel(const T* __restrict__ hidden, const T* __restrict__ table,
+loss_bwd_dt_kernel(const float* __restrict__ hidden, const float* __restrict__ table,
                    const float* __restrict__ bias, const int32_t* __restrict__ labels,
                    const float* __restrict__ lse, const float* __restrict__ g,
                    const float* __restrict__ n_valid, float* __restrict__ part_dt,
@@ -419,9 +410,8 @@ loss_bwd_dt_kernel(const T* __restrict__ hidden, const T* __restrict__ table,
   extern __shared__ float smem[];
   float* Ts = smem;                    // [64 vocab][W + 1], this block's tile
   float* Hs = Ts + LT * (W + 1);       // [64 rows][W + 1]
-  float* Ds = Hs + LT * (W + 1);       // [64 rows][65] T(dlog)
-  float* Df = Ds + LT * (LT + 1);      // [64 rows][65] fp32 dlog
-  float* bs = Df + LT * (LT + 1);      // [64]
+  float* Ds = Hs + LT * (W + 1);       // [64 rows][65] dlog
+  float* bs = Ds + LT * (LT + 1);      // [64]
   float* rl = bs + LT;                 // [64] row lse
   float* rw = rl + LT;                 // [64] row weight
   int* rlab = reinterpret_cast<int*>(rw + LT);  // [64] row label
@@ -429,15 +419,14 @@ loss_bwd_dt_kernel(const T* __restrict__ hidden, const T* __restrict__ table,
   const int v0 = blockIdx.x * LT, split = blockIdx.y;
   const int m_begin = split * DT_CHUNK, m_end = min(R, m_begin + DT_CHUNK);
   const float scale = g[0] / fmaxf(n_valid[0], 1.f);
-  constexpr bool kMma = kIsBf16<T>;
 
   load_rows(Ts, table, v0, V, W);
   load_bias(bs, bias, v0, V);
-  float acc[4][WJ], cacc[WJ][4];
+  float acc[4][WJ];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int j = 0; j < WJ; ++j) acc[i][j] = cacc[j][i] = 0.f;
+    for (int j = 0; j < WJ; ++j) acc[i][j] = 0.f;
   float db = 0.f;  // thread tid < 64 owns vocabulary column v0 + tid
   float s[4][4];
   for (int r0 = m_begin; r0 < m_end; r0 += LT) {
@@ -449,54 +438,35 @@ loss_bwd_dt_kernel(const T* __restrict__ hidden, const T* __restrict__ table,
       rw[r] = (ok && rlab[r] > 0) ? scale : 0.f;
     }
     __syncthreads();
-    tile_dots<kMma>(s, Hs, Ts, tx, ty, W, Df);
+    tile_dots(s, Hs, Ts, tx, ty, W);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int rr = ty + 16 * i;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int c = tx + 16 * j;
-        const float dl = dlog_of(s[i][j] + bs[c], rl[rr], v0 + c, rlab[rr], rw[rr]);
-        Df[rr * (LT + 1) + c] = dl;
-        Ds[rr * (LT + 1) + c] = round_to<T>(dl);
+        Ds[rr * (LT + 1) + c] = dlog_of(s[i][j] + bs[c], rl[rr], v0 + c, rlab[rr], rw[rr]);
       }
     }
     __syncthreads();
     const int rlen = min(LT, m_end - r0);
     if (tid < LT)
-      for (int rr = 0; rr < rlen; ++rr) db += Df[rr * (LT + 1) + tid];
-    if constexpr (kMma) {
-      // rows are vocabulary entries, the contraction runs over the row
-      // tile (rows past the chunk have dlog = 0 and zero hidden rows)
-      mma_acc_64xD<WJ>(cacc, Ds, 1, LT + 1, Hs, W + 1, 1, W);
-    } else {
-      for (int rr = 0; rr < rlen; ++rr) {
-        float dv[4];
+      for (int rr = 0; rr < rlen; ++rr) db += Ds[rr * (LT + 1) + tid];
+    for (int rr = 0; rr < rlen; ++rr) {
+      float dv[4];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) dv[i] = Ds[rr * (LT + 1) + ty + 16 * i];
+      for (int i = 0; i < 4; ++i) dv[i] = Ds[rr * (LT + 1) + ty + 16 * i];
 #pragma unroll
-        for (int j = 0; j < WJ; ++j) {
-          const int d = tx + 16 * j;
-          if (d < W) {
-            const float h = Hs[rr * (W + 1) + d];
+      for (int j = 0; j < WJ; ++j) {
+        const int d = tx + 16 * j;
+        if (d < W) {
+          const float h = Hs[rr * (W + 1) + d];
 #pragma unroll
-            for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(dv[i], h, acc[i][j]);
-          }
+          for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(dv[i], h, acc[i][j]);
         }
       }
     }
     __syncthreads();
-  }
-  if constexpr (kMma) {  // fragments -> the (ty, tx) layout, through Ts
-    spill_64xD<WJ>(Ts, W + 1, cacc, W);
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < WJ; ++j) {
-        const int d = tx + 16 * j;
-        if (d < W) acc[i][j] = Ts[(ty + 16 * i) * (W + 1) + d];
-      }
   }
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -656,13 +626,13 @@ size_t fwd_smem_bytes(int W) {
   return sizeof(float) * (size_t)(2 * LT * (W + 1) + 6 * LT + LT * (LT + 1));
 }
 size_t tiled_fwd_smem_bytes(int W) {
-  return sizeof(float) * (size_t)(2 * LT * (W + 1) + 2 * LT + LT * (LT + 1));
+  return sizeof(float) * (size_t)(2 * LT * (W + 1) + 2 * LT);
 }
 size_t dh_smem_bytes(int W) {
   return sizeof(float) * (size_t)(2 * LT * (W + 1) + LT * (LT + 1) + LT);
 }
 size_t dt_smem_bytes(int W) {
-  return sizeof(float) * (size_t)(2 * LT * (W + 1) + 2 * LT * (LT + 1) + 4 * LT);
+  return sizeof(float) * (size_t)(2 * LT * (W + 1) + LT * (LT + 1) + 4 * LT);
 }
 size_t vt_smem_bytes(int W) {
   return sizeof(float) * (size_t)(2 * LT * (W + 1) + LT * (LT + 1) + 4 * LT);
@@ -670,25 +640,31 @@ size_t vt_smem_bytes(int W) {
 
 int dt_splits(int R) { return ceil_div(R, DT_CHUNK); }
 
-// K5's vocabulary tiles per split: enough splits that row tiles x splits
-// reaches ~FWD_BLOCKS blocks, and no empty split
+// fp32 K5's vocabulary tiles per split: enough splits that row tiles x
+// splits reaches ~FWD_BLOCKS blocks, and no empty split
 int fwd_tiles_per_split(int R, int V) {
   const int vtiles = ceil_div(V, LT);
   const int want = std::min(vtiles, std::max(1, ceil_div(FWD_BLOCKS, ceil_div(R, LT))));
   return ceil_div(vtiles, want);
 }
-int fwd_splits(int R, int V) { return ceil_div(ceil_div(V, LT), fwd_tiles_per_split(R, V)); }
+// K5's splits: fp32 by the tiles per split above, bf16 by loss_hopper.cuh's law
+int fwd_splits(int dtype, int R, int V, int W) {
+  if (dtype == 1) return loss_hopper::fwd_splits(R, V, W);
+  return ceil_div(ceil_div(V, LT), fwd_tiles_per_split(R, V));
+}
 int merged_groups(int V) { return std::min(ceil_div(V, LT), MERGED_GROUPS); }
 
-// K3 / K4
+// K3's per-block partial sums; fp32 K4's split dtable partials (bf16 K4
+// runs loss_hopper.cuh's sweeps, which need none)
 struct LossScratch {
   float *part_fwd, *part_dt, *part_db;
   size_t bytes;
-  LossScratch(void* base, int R, int V, int W) {
+  LossScratch(void* base, int dtype, int R, int V, int W) {
     Carve c{static_cast<char*>(base), 0};
     part_fwd = c.take<float>((size_t)ceil_div(R, LT) * 4);
-    part_dt = c.take<float>((size_t)dt_splits(R) * V * W);
-    part_db = c.take<float>((size_t)dt_splits(R) * V);
+    const size_t splits = dtype == 0 ? dt_splits(R) : 0;
+    part_dt = splits ? c.take<float>(splits * V * W) : nullptr;
+    part_db = splits ? c.take<float>(splits * V) : nullptr;
     bytes = c.used;
   }
 };
@@ -697,9 +673,9 @@ struct LossScratch {
 struct TiledFwdScratch {
   float *part_m, *part_s, *part_ll, *part_sums;
   size_t bytes;
-  TiledFwdScratch(void* base, int R, int V) {
+  TiledFwdScratch(void* base, int dtype, int R, int V, int W) {
     Carve c{static_cast<char*>(base), 0};
-    const size_t n = (size_t)fwd_splits(R, V) * R;
+    const size_t n = (size_t)fwd_splits(dtype, R, V, W) * R;
     part_m = c.take<float>(n);
     part_s = c.take<float>(n);
     part_ll = c.take<float>(n);
@@ -725,7 +701,7 @@ template <typename T>
 int loss_forward(const void* hidden, const void* table, const float* bias,
                  const int32_t* labels, float* lse, float* sums, void* workspace,
                  int R, int V, int W, cudaStream_t stream) {
-  LossScratch w(workspace, R, V, W);
+  LossScratch w(workspace, kIsBf16<T> ? 1 : 0, R, V, W);
   const size_t smem = fwd_smem_bytes(W);
   cudaError_t err = cudaFuncSetAttribute(
       loss_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -737,20 +713,46 @@ int loss_forward(const void* hidden, const void* table, const float* bias,
   return (int)reduce_rows(w.part_fwd, sums, ceil_div(R, LT), 4, stream);
 }
 
-template <typename T>
-int tiled_forward(const void* hidden, const void* table, const float* bias,
+// the copies' layout rule of loss_hopper.cuh's kernels, which the wrapper
+// checks first: 16-byte aligned operands and rows (W a multiple of 8),
+// W <= LOSS_MAXW
+bool hopper_layout(const void* hidden, const void* table, const void* dh, int W) {
+  return (reinterpret_cast<uintptr_t>(hidden) | reinterpret_cast<uintptr_t>(table) |
+          reinterpret_cast<uintptr_t>(dh)) % 16 == 0 &&
+         W % 8 == 0 && W <= LOSS_MAXW;
+}
+
+// K5: the first pass (fp32 loss_tiled_fwd_kernel, bf16 loss_hopper.cuh's
+// loss_fwd_sweep_kernel) writes each split's row stats; loss_tiled_merge_kernel
+// merges them in split order
+int tiled_forward(int dtype, const void* hidden, const void* table, const float* bias,
                   const int32_t* labels, float* lse, float* sums, float* m, float* s,
                   float* ll, void* workspace, int R, int V, int W, cudaStream_t stream) {
-  TiledFwdScratch w(workspace, R, V);
-  const size_t smem = tiled_fwd_smem_bytes(W);
-  cudaError_t err = cudaFuncSetAttribute(
-      loss_tiled_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  TiledFwdScratch w(workspace, dtype, R, V, W);
+  const int n_splits = fwd_splits(dtype, R, V, W);
+  cudaError_t err;
+  if (dtype == 1) {
+    if (!hopper_layout(hidden, table, nullptr, W)) return (int)cudaErrorInvalidValue;
+    const loss_hopper::FwdArgs a{static_cast<const __nv_bfloat16*>(hidden),
+                                 static_cast<const __nv_bfloat16*>(table),
+                                 bias, labels, w.part_m, w.part_s, w.part_ll,
+                                 R, V, W, n_splits};
+    switch (loss_hopper::padded_width(W)) {
+      case 64: err = loss_hopper::fwd_sweep<64>(a, stream); break;
+      case 128: err = loss_hopper::fwd_sweep<128>(a, stream); break;
+      default: err = loss_hopper::fwd_sweep<256>(a, stream); break;
+    }
+  } else {
+    const size_t smem = tiled_fwd_smem_bytes(W);
+    err = cudaFuncSetAttribute(loss_tiled_fwd_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    loss_tiled_fwd_kernel<<<dim3(ceil_div(R, LT), n_splits), 256, smem, stream>>>(
+        static_cast<const float*>(hidden), static_cast<const float*>(table), bias, labels,
+        w.part_m, w.part_s, w.part_ll, R, V, W, fwd_tiles_per_split(R, V));
+    err = cudaGetLastError();
+  }
   if (err != cudaSuccess) return (int)err;
-  const int n_splits = fwd_splits(R, V);
-  loss_tiled_fwd_kernel<T><<<dim3(ceil_div(R, LT), n_splits), 256, smem, stream>>>(
-      static_cast<const T*>(hidden), static_cast<const T*>(table), bias, labels, w.part_m,
-      w.part_s, w.part_ll, R, V, W, fwd_tiles_per_split(R, V));
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   const int blocks = ceil_div(R, 256);
   loss_tiled_merge_kernel<<<blocks, 256, 0, stream>>>(
       w.part_m, w.part_s, w.part_ll, labels, R, n_splits, lse, m, s, ll,
@@ -759,17 +761,17 @@ int tiled_forward(const void* hidden, const void* table, const float* bias,
   return sums != nullptr ? (int)reduce_rows(w.part_sums, sums, blocks, 4, stream) : 0;
 }
 
-template <typename T, int WJ>
-cudaError_t launch_dh(const T* hidden, const T* table, const float* bias,
+template <int WJ>
+cudaError_t launch_dh(const float* hidden, const float* table, const float* bias,
                       const int32_t* labels, const float* lse, const float* g,
-                      const float* n_valid, int valid_ge_zero, T* dh, int R, int V, int W,
-                      cudaStream_t stream) {
+                      const float* n_valid, int valid_ge_zero, float* dh, int R, int V,
+                      int W, cudaStream_t stream) {
   const size_t smem = dh_smem_bytes(W);
-  cudaError_t err = cudaFuncSetAttribute(loss_bwd_dh_kernel<T, WJ>,
+  cudaError_t err = cudaFuncSetAttribute(loss_bwd_dh_kernel<WJ>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return err;
-  loss_bwd_dh_kernel<T, WJ><<<ceil_div(R, LT), 256, smem, stream>>>(
+  loss_bwd_dh_kernel<WJ><<<ceil_div(R, LT), 256, smem, stream>>>(
       hidden, table, bias, labels, lse, g, n_valid, valid_ge_zero, dh, R, V, W);
   return cudaGetLastError();
 }
@@ -791,47 +793,41 @@ cudaError_t launch_vt(const float* hidden, const float* table, const float* bias
   return cudaGetLastError();
 }
 
-// mode: 0 = K4 (dh sweep; its own dtable sweep over 1,024-row splits, reduced
-// in order); in fp32 also
-// 1 = K6 (one merged sweep; dh partials per group, reduced in order),
-// 2 = K7 (dh sweep; dtable sweep over all rows)
-template <typename T, int WJ>
-int loss_backward_w(int mode, const T* hidden, const T* table, const float* bias,
+// The fp32 backwards. mode: 0 = K4 (dh sweep; its own dtable sweep over
+// 1,024-row splits, reduced in order), 1 = K6 (one merged sweep; dh
+// partials per group, reduced in order), 2 = K7 (dh sweep; dtable sweep
+// over all rows)
+template <int WJ>
+int loss_backward_w(int mode, const float* hidden, const float* table, const float* bias,
                     const int32_t* labels, const float* lse, const float* g,
-                    const float* n_valid, int vge0, T* dh, float* dt, float* db,
+                    const float* n_valid, int vge0, float* dh, float* dt, float* db,
                     void* workspace, int R, int V, int W, cudaStream_t stream) {
   const int vtiles = ceil_div(V, LT);
   cudaError_t err;
-  if constexpr (!kIsBf16<T>) {
-    if (mode == 1) {
-      TiledBwdScratch w(workspace, 0, R, V, W, 1);
-      const int groups = merged_groups(V);
-      err = launch_vt<WJ, true>(hidden, table, bias, labels, lse, g, n_valid, vge0, dt, db,
-                                w.part_dh, R, V, W, groups, stream);
-      if (err != cudaSuccess) return (int)err;
-      const long n = (long)R * W;
-      reduce_rows_cast_kernel<T><<<ceil_div(n, 256), 256, 0, stream>>>(w.part_dh, dh,
-                                                                      groups, n);
-      return (int)cudaGetLastError();
-    }
-  } else if (mode != 0) {
-    return (int)cudaErrorInvalidValue;  // bf16 K6 / K7: tiled_backward_bf16
+  if (mode == 1) {
+    TiledBwdScratch w(workspace, 0, R, V, W, 1);
+    const int groups = merged_groups(V);
+    err = launch_vt<WJ, true>(hidden, table, bias, labels, lse, g, n_valid, vge0, dt, db,
+                              w.part_dh, R, V, W, groups, stream);
+    if (err != cudaSuccess) return (int)err;
+    const long n = (long)R * W;
+    reduce_rows_cast_kernel<float><<<ceil_div(n, 256), 256, 0, stream>>>(w.part_dh, dh,
+                                                                        groups, n);
+    return (int)cudaGetLastError();
   }
-  err = launch_dh<T, WJ>(hidden, table, bias, labels, lse, g, n_valid, vge0, dh, R, V, W,
-                         stream);
+  err = launch_dh<WJ>(hidden, table, bias, labels, lse, g, n_valid, vge0, dh, R, V, W,
+                      stream);
   if (err != cudaSuccess) return (int)err;
-  if constexpr (!kIsBf16<T>) {
-    if (mode == 2)
-      return (int)launch_vt<WJ, false>(hidden, table, bias, labels, lse, g, n_valid, vge0,
-                                       dt, db, nullptr, R, V, W, vtiles, stream);
-  }
-  LossScratch w(workspace, R, V, W);
+  if (mode == 2)
+    return (int)launch_vt<WJ, false>(hidden, table, bias, labels, lse, g, n_valid, vge0,
+                                     dt, db, nullptr, R, V, W, vtiles, stream);
+  LossScratch w(workspace, 0, R, V, W);
   const int splits = dt_splits(R);
   const size_t smem = dt_smem_bytes(W);
-  err = cudaFuncSetAttribute(loss_bwd_dt_kernel<T, WJ>,
+  err = cudaFuncSetAttribute(loss_bwd_dt_kernel<WJ>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  loss_bwd_dt_kernel<T, WJ><<<dim3(vtiles, splits), 256, smem, stream>>>(
+  loss_bwd_dt_kernel<WJ><<<dim3(vtiles, splits), 256, smem, stream>>>(
       hidden, table, bias, labels, lse, g, n_valid, w.part_dt, w.part_db, R, V, W);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   if ((err = reduce_rows(w.part_dt, dt, splits, V * W, stream)) != cudaSuccess)
@@ -839,17 +835,16 @@ int loss_backward_w(int mode, const T* hidden, const T* table, const float* bias
   return (int)reduce_rows(w.part_db, db, splits, V, stream);
 }
 
-template <typename T>
 int loss_backward(int mode, const void* hidden, const void* table, const float* bias,
                   const int32_t* labels, const float* lse, const float* g,
                   const float* n_valid, int vge0, void* dh, float* dt, float* db,
                   void* workspace, int R, int V, int W, cudaStream_t stream) {
-  const T* h = static_cast<const T*>(hidden);
-  const T* t = static_cast<const T*>(table);
-  T* d = static_cast<T*>(dh);
-#define B4R_LB(WJV)                                                                   \
-  loss_backward_w<T, WJV>(mode, h, t, bias, labels, lse, g, n_valid, vge0, d, dt, db, \
-                          workspace, R, V, W, stream)
+  const float* h = static_cast<const float*>(hidden);
+  const float* t = static_cast<const float*>(table);
+  float* d = static_cast<float*>(dh);
+#define B4R_LB(WJV)                                                                 \
+  loss_backward_w<WJV>(mode, h, t, bias, labels, lse, g, n_valid, vge0, d, dt, db, \
+                       workspace, R, V, W, stream)
   switch (pow2_at_least(ceil_div(W, 16))) {
     case 1: return B4R_LB(1);
     case 2: return B4R_LB(2);
@@ -861,11 +856,11 @@ int loss_backward(int mode, const void* hidden, const void* table, const float* 
 #undef B4R_LB
 }
 
-// bf16 K6 (merged) / K7 on loss_hopper.cuh's wgmma kernels; K6's cluster
-// partials reduced in cluster order
+// bf16 K4 (two sweeps from K3's lse), K6 (merged) and K7 on loss_hopper.cuh's
+// wgmma kernels; K6's cluster partials reduced in cluster order
 template <int WP>
-int tiled_backward_bf16_w(int merged, const loss_hopper::BwdArgs& a, __nv_bfloat16* dh,
-                          float* dt, float* db, void* workspace, cudaStream_t stream) {
+int backward_bf16_w(int merged, const loss_hopper::BwdArgs& a, __nv_bfloat16* dh, float* dt,
+                    float* db, void* workspace, cudaStream_t stream) {
   if (!merged) return (int)loss_hopper::two_sweep<WP>(a, dh, dt, db, stream);
   TiledBwdScratch w(workspace, 1, a.R, a.V, a.W, 1);
   cudaError_t err = loss_hopper::merged_sweep<WP>(a, dt, db, w.part_dh, stream);
@@ -876,19 +871,14 @@ int tiled_backward_bf16_w(int merged, const loss_hopper::BwdArgs& a, __nv_bfloat
   return (int)cudaGetLastError();
 }
 
-// the copies' layout rule, which the wrapper checks first: 16-byte aligned
-// operands and rows (W a multiple of 8), W <= LOSS_MAXW
-int tiled_backward_bf16(int merged, const loss_hopper::BwdArgs& a, void* dh, float* dt,
-                        float* db, void* workspace, cudaStream_t stream) {
-  if ((reinterpret_cast<uintptr_t>(a.hidden) | reinterpret_cast<uintptr_t>(a.table) |
-       reinterpret_cast<uintptr_t>(dh)) % 16 != 0 ||
-      a.W % 8 != 0 || a.W > LOSS_MAXW)
-    return (int)cudaErrorInvalidValue;
+int backward_bf16(int merged, const loss_hopper::BwdArgs& a, void* dh, float* dt, float* db,
+                  void* workspace, cudaStream_t stream) {
+  if (!hopper_layout(a.hidden, a.table, dh, a.W)) return (int)cudaErrorInvalidValue;
   __nv_bfloat16* d = static_cast<__nv_bfloat16*>(dh);
   switch (loss_hopper::padded_width(a.W)) {
-    case 64: return tiled_backward_bf16_w<64>(merged, a, d, dt, db, workspace, stream);
-    case 128: return tiled_backward_bf16_w<128>(merged, a, d, dt, db, workspace, stream);
-    default: return tiled_backward_bf16_w<256>(merged, a, d, dt, db, workspace, stream);
+    case 64: return backward_bf16_w<64>(merged, a, d, dt, db, workspace, stream);
+    case 128: return backward_bf16_w<128>(merged, a, d, dt, db, workspace, stream);
+    default: return backward_bf16_w<256>(merged, a, d, dt, db, workspace, stream);
   }
 }
 
@@ -899,14 +889,16 @@ extern "C" {
 // Limit the wrapper checks before calling (ops/fused_mlm_loss.py).
 int b4r_mlm_loss_max_width() { return LOSS_MAXW; }
 
-// Bytes of the workspace K3 / K4 carve their partials from.
-size_t b4r_mlm_loss_workspace_bytes(int R, int V, int W) {
-  return LossScratch(nullptr, R, V, W).bytes;
+// Bytes of the workspace K3 / K4 carve their partials from in dtype: K3's
+// row-block sums, and fp32 K4's split dtable partials.
+size_t b4r_mlm_loss_workspace_bytes(int dtype, int R, int V, int W) {
+  return LossScratch(nullptr, dtype, R, V, W).bytes;
 }
 
-// Bytes of K5's workspace: splits x R x 3 + the row-block sums, no V x W.
-size_t b4r_mlm_loss_tiled_fwd_workspace_bytes(int R, int V, int W) {
-  return TiledFwdScratch(nullptr, R, V).bytes;
+// Bytes of K5's workspace in dtype: splits x R x 3 + the row-block sums, no
+// V x W.
+size_t b4r_mlm_loss_tiled_fwd_workspace_bytes(int dtype, int R, int V, int W) {
+  return TiledFwdScratch(nullptr, dtype, R, V, W).bytes;
 }
 
 // Bytes of K6's (merged = 1) or K7's (merged = 0) workspace in dtype.
@@ -935,29 +927,28 @@ int b4r_mlm_loss_tiled_fwd(int dtype, const void* hidden, const void* table,
                            const float* bias, const int32_t* labels, float* lse, float* sums,
                            float* m, float* s, float* ll, void* workspace, int R, int V,
                            int W, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return tiled_forward<float>(hidden, table, bias, labels, lse, sums, m, s, ll, workspace,
-                                R, V, W, st);
-  if (dtype == 1)
-    return tiled_forward<__nv_bfloat16>(hidden, table, bias, labels, lse, sums, m, s, ll,
-                                        workspace, R, V, W, st);
-  return (int)cudaErrorInvalidValue;
+  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
+  return tiled_forward(dtype, hidden, table, bias, labels, lse, sums, m, s, ll, workspace,
+                       R, V, W, static_cast<cudaStream_t>(stream));
 }
 
-// g: the loss's cotangent (one float on the device); n_valid: sums[3] of
-// the forward. Writes dh [R, W] in dtype, dt [V, W] and db [V] in float32.
+// K4. g: the loss's cotangent (one float on the device); n_valid: sums[3]
+// of the forward. Writes dh [R, W] in dtype, dt [V, W] and db [V] in
+// float32.
 int b4r_mlm_loss_bwd(int dtype, const void* hidden, const void* table,
                      const float* bias, const int32_t* labels, const float* lse,
                      const float* g, const float* n_valid, void* dh, float* dt,
                      float* db, void* workspace, int R, int V, int W, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return loss_backward<float>(0, hidden, table, bias, labels, lse, g, n_valid, 0, dh, dt,
-                                db, workspace, R, V, W, st);
-  if (dtype == 1)
-    return loss_backward<__nv_bfloat16>(0, hidden, table, bias, labels, lse, g, n_valid, 0,
-                                        dh, dt, db, workspace, R, V, W, st);
+    return loss_backward(0, hidden, table, bias, labels, lse, g, n_valid, 0, dh, dt, db,
+                         workspace, R, V, W, st);
+  if (dtype == 1) {
+    const loss_hopper::BwdArgs a{static_cast<const __nv_bfloat16*>(hidden),
+                                 static_cast<const __nv_bfloat16*>(table),
+                                 bias, labels, lse, g, n_valid, 0, R, V, W};
+    return backward_bf16(0, a, dh, dt, db, workspace, st);
+  }
   return (int)cudaErrorInvalidValue;
 }
 
@@ -970,13 +961,13 @@ int b4r_mlm_loss_tiled_bwd(int merged, int dtype, const void* hidden, const void
                            int W, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return loss_backward<float>(merged ? 1 : 2, hidden, table, bias, labels, lse, g,
-                                n_valid, valid_ge_zero, dh, dt, db, workspace, R, V, W, st);
+    return loss_backward(merged ? 1 : 2, hidden, table, bias, labels, lse, g, n_valid,
+                         valid_ge_zero, dh, dt, db, workspace, R, V, W, st);
   if (dtype == 1) {
     const loss_hopper::BwdArgs a{static_cast<const __nv_bfloat16*>(hidden),
                                  static_cast<const __nv_bfloat16*>(table),
                                  bias, labels, lse, g, n_valid, valid_ge_zero, R, V, W};
-    return tiled_backward_bf16(merged, a, dh, dt, db, workspace, st);
+    return backward_bf16(merged, a, dh, dt, db, workspace, st);
   }
   return (int)cudaErrorInvalidValue;
 }

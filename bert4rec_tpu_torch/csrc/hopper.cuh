@@ -1,7 +1,6 @@
 // Hopper building blocks shared by the port's warpgroup kernels (sm_90a):
-// flash attention's K8/K9 (flash_hopper.cuh), the vocab-tiled loss
-// backwards K6/K7 (loss_hopper.cuh) and the fused encoder layer's K1/K2
-// (layer_hopper.cuh).
+// flash attention's K8/K9 (flash_hopper.cuh), the loss kernels K4-K7
+// (loss_hopper.cuh) and the fused encoder layer's K1/K2 (layer_hopper.cuh).
 //
 // Tiles are 64 rows of bf16 ([64][DP], DP a multiple of 64), each 64
 // columns one 8 KB block in the 128-byte swizzle wgmma reads: row r's
@@ -65,19 +64,19 @@ __device__ __forceinline__ void fence_async_smem() {
 
 // Rows t0 .. t0+63 of a row-major [S, D] matrix at src (row stride ss
 // elements: a head, a hidden or a table) into the swizzled [64][DP] tile at
-// shared address dst.
-template <int DP>
+// shared address dst, by the block's NT threads; its 64-column blocks BS
+// bytes apart (a [64][DP] tile's own, or half of a 128-row tile's).
+template <int DP, int NT = kThreads, int BS = kBlockBytes>
 __device__ __forceinline__ void load_tile(uint32_t dst, const bf16* src, int ss, int t0,
                                           int S, int D) {
   constexpr int kChunks = DP / 8;  // 16-byte chunks per row
 #pragma unroll
-  for (int i = 0; i < kRows * kChunks / kThreads; ++i) {
-    const int idx = threadIdx.x + i * kThreads;
+  for (int i = 0; i < kRows * kChunks / NT; ++i) {
+    const int idx = threadIdx.x + i * NT;
     const int r = idx / kChunks, c = idx % kChunks, t = t0 + r;
     const int bytes = t < S ? min(16, max(0, 2 * (D - 8 * c))) : 0;
     const bf16* from = bytes ? src + t * ss + 8 * c : src;
-    cp_async16(dst + (c >> 3) * kBlockBytes + r * 128 + (((c & 7) ^ (r & 7)) << 4), from,
-               bytes);
+    cp_async16(dst + (c >> 3) * BS + r * 128 + (((c & 7) ^ (r & 7)) << 4), from, bytes);
   }
 }
 
@@ -157,6 +156,43 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)
       "%24, %25, %26, %27, %28, %29, %30, %31"
       "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
       : B4R_F8(0), B4R_F8(8), B4R_F8(16), B4R_F8(24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+// d = A B (+ d when accumulate), m64n64k16: A in registers, B K-major in
+// shared memory
+__device__ __forceinline__ void wgmma_rs_k_n64(float (&d)[32], const uint32_t (&a)[4],
+                                               uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : B4R_F8(0), B4R_F8(8), B4R_F8(16), B4R_F8(24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+// d = A B (+ d when accumulate), m64n128k16: A in registers, B K-major in
+// shared memory
+__device__ __forceinline__ void wgmma_rs_k_n128(float (&d)[64], const uint32_t (&a)[4],
+                                                uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : B4R_F8(0), B4R_F8(8), B4R_F8(16), B4R_F8(24),
+        B4R_F8(32), B4R_F8(40), B4R_F8(48), B4R_F8(56)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
 }
 

@@ -1,14 +1,26 @@
-// The vocab-tiled loss backwards on Hopper's warpgroup tensor cores (bf16
-// operands): K7's two sweeps (replacing _bwd_dh_kernel + _bwd_dt_kernel of
-// bert4rec_tpu/ops/fused_mlm_loss.py) and K6 (its _bwd_merged_kernel),
-// dispatched from fused_mlm_loss.cu. Bound by operations: 6 R V W FLOP
-// (K7 recomputes the logits: 8 R V W).
+// The loss kernels on Hopper's warpgroup tensor cores (bf16 operands),
+// dispatched from fused_mlm_loss.cu, replacing these of
+// bert4rec_tpu/ops/fused_mlm_loss.py: K5 (_fwd_kernel_tiled, for
+// _run_forward_tiled and _run_forward_tiled_stats), K7's two sweeps
+// (_bwd_dh_kernel + _bwd_dt_kernel), which also run K4 (_bwd_kernel) from
+// K3's lse, and K6 (_bwd_merged_kernel). Bound by operations: 2 R V W FLOP
+// forward, 6 R V W backward (K4 and K7 recompute the logits: 8 R V W).
 //
-// Every kernel is one warpgroup (128 threads) per block. Its resident tile
-// X and its streamed tiles Y are 64 rows of the hidden [R, W] or of the
-// table [V, W], bf16 in hopper.cuh's swizzle (W zero-filled to WP = 64, 128
-// or 256 columns: exact for both products), copied by cp.async in a
-// two-stage ring with the streamed rows' operands (bias, or lse and label).
+// K5 (loss_fwd_sweep_kernel, below the backwards) is two warpgroups a
+// block, 64 hidden rows each held as register A fragments, sharing each
+// streamed vocabulary tile: the table, re-read from L2 once per row
+// block, costs half the traffic of 64-row blocks. One exponential per (row, vocabulary
+// entry) takes about as long on the special-function units as the
+// products at W = 128, so each warpgroup keeps two accumulators and folds
+// tile j's logits into its online max and sum while tile j + 1's product
+// runs.
+//
+// Every backward kernel is one warpgroup (128 threads) per block. Its
+// resident tile X and its streamed tiles Y are 64 rows of the hidden [R, W]
+// or of the table [V, W], bf16 in hopper.cuh's swizzle (W zero-filled to
+// WP = 64, 128 or 256 columns: exact for both products), copied by cp.async
+// in a two-stage ring with the streamed rows' operands (bias, or lse and
+// label).
 // One step, for each streamed tile:
 //   s = X Y^T                     wgmma m64n64k16, both tiles K-major, fp32
 //                                 accumulators in registers
@@ -74,6 +86,17 @@ constexpr int kStatBytes = 512;      // a stage's streamed row operands
 template <int WP> constexpr int kSweepBlocks = WP == 64 ? 4 : WP == 128 ? 3 : 2;
 template <int WP> constexpr int kMergedBlocks = WP == 256 ? 1 : 2;
 template <int WP> constexpr int kLd = WP + 8;  // fp32 exchange tile row stride
+// K5: two warpgroups a block share each streamed vocabulary tile, 64 hidden
+// rows each; the splits of the vocabulary bring the grid to ~kFwdItems
+// blocks. Vocabulary entries a step: 128 at WP = 256 (m64n128 products, one
+// block an SM; 10% faster than 64 there on an H100), 64 below it, where two
+// blocks an SM fit (8% faster than 128 at WP = 128).
+constexpr int kFwdThreads = 2 * kThreads, kFwdRows = 2 * kRows;
+constexpr int kFwdItems = 1024;
+template <int WP> constexpr int kFwdN = WP == 256 ? 128 : 64;
+template <int WP> constexpr int kFwdBlocks = kFwdN<WP> == 64 ? 2 : 1;
+// ring stages: four, or three where four tiles would not fit shared memory
+template <int WP> constexpr int kFwdStages = kFwdN<WP> * WP * 2 > 32768 ? 3 : 4;
 
 struct BwdArgs {
   const bf16* hidden;     // [R, W]
@@ -486,6 +509,217 @@ loss_merged_kernel(BwdArgs a, float* dt, float* db, float* part_dh, int n_cluste
 }
 
 // ---------------------------------------------------------------------------
+// K5: block (row block, split) holds kFwdRows hidden rows, 64 per warpgroup
+// as register A fragments, and streams the split's vocabulary tiles of
+// kFwdN<WP> entries (with their bias) through a kFwdStages<WP> ring that
+// both warpgroups read. Per tile each warpgroup issues s = X Y^T into its
+// accumulator, then, while that product runs, folds the previous tile's
+// logits (held apart, the bias added) into its rows' online max and sum of
+// exponentials, and picks the label logit where the label's column lies in
+// that tile. The split's per-row (max, sum, label logit) go to
+// part_*[split][row]; the caller merges the splits in split order.
+// ---------------------------------------------------------------------------
+struct FwdArgs {
+  const bf16* hidden;     // [R, W]
+  const bf16* table;      // [V, W], the hidden dtype
+  const float* bias;      // [V], vocab padding at -1e9
+  const int32_t* labels;  // [R]
+  float *part_m, *part_s, *part_ll;  // [splits][R]
+  int R, V, W, splits;
+};
+
+// the register A fragments of this thread's warpgroup's 64 rows x0 .. of a
+// row-major [n, W] bf16 matrix (W a multiple of 8; rows past n and columns
+// past W are zeros): k-block kk's register 2 c + h holds row row0 + 8 h,
+// columns 16 kk + 8 c + 2 tq, +1
+template <int WP>
+__device__ __forceinline__ void load_frags(uint32_t (&xf)[WP / 16][4], const bf16* src,
+                                           int x0, int n, int W) {
+  const int tq = threadIdx.x & 3;
+  const int row0 = 16 * ((threadIdx.x >> 5) & 3) + ((threadIdx.x & 31) >> 2);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = x0 + row0 + 8 * h;
+    const uint32_t* row =
+        reinterpret_cast<const uint32_t*>(src + (size_t)(r < n ? r : 0) * W);
+#pragma unroll
+    for (int kk = 0; kk < WP / 16; ++kk)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int col = 16 * kk + 8 * c + 2 * tq;
+        xf[kk][2 * c + h] = (r < n && col < W) ? row[col / 2] : 0u;
+      }
+  }
+}
+
+// Starts s = X Y^T, X the register fragments, Y a tile of BN rows (BN / 64
+// halves of 64 rows, hopper.cuh's swizzle, 64-column blocks BN * 128 bytes
+// apart) as a K-major operand; the caller fences before and commits after.
+template <int WP, int BN>
+__device__ __forceinline__ void mma_frags_nt(float (&s)[BN / 2],
+                                             const uint32_t (&xf)[WP / 16][4], uint32_t Y) {
+#pragma unroll
+  for (int kk = 0; kk < WP / 16; ++kk) {
+    const uint64_t d = sw128_desc(Y + (kk >> 2) * (BN * 128) + (kk & 3) * 32, 16, 1024);
+    if constexpr (BN == 64)
+      wgmma_rs_k_n64(s, xf[kk], d, kk > 0);
+    else
+      wgmma_rs_k_n128(s, xf[kk], d, kk > 0);
+  }
+}
+
+// One vocabulary tile's products s plus the tile's bias (in bias_s) into
+// x: the logits of X rows row0 + 8 h, tile columns 8 j + 2 tq + e. With
+// kRagged the columns from vlim on lie past the vocabulary and get -inf.
+template <int BN, bool kRagged>
+__device__ __forceinline__ void add_bias(float (&x)[BN / 2], const float (&s)[BN / 2],
+                                         const float* bias_s, int vlim) {
+  const int tq = threadIdx.x & 3;
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    const int c = 8 * j + 2 * tq;
+    const float2 bv = *reinterpret_cast<const float2*>(bias_s + c);
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const float b = (kRagged && c + e >= vlim) ? -INFINITY : (e ? bv.y : bv.x);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) x[4 * j + 2 * h + e] = s[4 * j + 2 * h + e] + b;
+    }
+  }
+}
+
+// One tile's logits x folded into the rows' running max m, this thread's
+// share l of the sum of exp(logit - m), and ll, the logit at column rel[h]
+// of the tile where the label lies in it.
+template <int BN>
+__device__ __forceinline__ void fold_tile(const float (&x)[BN / 2], const int (&rel)[2],
+                                          float (&m)[2], float (&l)[2], float (&ll)[2]) {
+  const int tq = threadIdx.x & 3;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float tmax = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) tmax = fmaxf(tmax, x[4 * j + 2 * h + e]);
+    if ((unsigned)rel[h] < (unsigned)BN) {  // one lane of the quad holds it
+      const int d = rel[h] - 2 * tq;
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          if (8 * j + e == d) ll[h] = x[4 * j + 2 * h + e];
+    }
+    const float mn = fmaxf(m[h], quad_max(tmax));
+    const float ms = mn * kLog2e;
+    float sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) sum += ex2(fmaf(x[4 * j + 2 * h + e], kLog2e, -ms));
+    l[h] = fmaf(l[h], ex2((m[h] - mn) * kLog2e), sum);
+    m[h] = mn;
+  }
+}
+
+template <int WP>
+__global__ void __launch_bounds__(kFwdThreads, kFwdBlocks<WP>)
+loss_fwd_sweep_kernel(FwdArgs a) {
+  constexpr int BN = kFwdN<WP>, kTile = BN * WP * 2, kST = kFwdStages<WP>;
+  uint8_t* sm = aligned_smem();
+  const uint32_t Ys = smem_u32(sm), Bs = Ys + kST * kTile;
+  const float* bias_s = reinterpret_cast<const float*>(sm + kST * kTile);
+
+  const int tid = threadIdx.x, tq = tid & 3;
+  const int row0 = 16 * ((tid >> 5) & 3) + ((tid & 31) >> 2);
+  const int x0 = (int)blockIdx.x * kFwdRows + (tid >> 7) * kRows;
+  const int split = (int)blockIdx.y, vtiles = cdiv(a.V, BN);
+  const int t0 = (int)((long)split * vtiles / a.splits);
+  const int n = (int)((long)(split + 1) * vtiles / a.splits) - t0;
+
+  auto prefetch = [&](int item) {
+    const int st = item % kST, v0 = (t0 + item) * BN;
+#pragma unroll
+    for (int half = 0; half < BN / kRows; ++half)
+      load_tile<WP, kFwdThreads, BN * 128>(Ys + st * kTile + half * kBlockBytes, a.table,
+                                           a.W, v0 + half * kRows, a.V, a.W);
+    if (tid < BN) {
+      const bool ok = v0 + tid < a.V;
+      cp_async4(Bs + (st * BN + tid) * 4, ok ? a.bias + v0 + tid : a.bias, ok ? 4 : 0);
+    }
+  };
+#pragma unroll
+  for (int i = 0; i < kST - 1; ++i) {
+    if (i < n) prefetch(i);
+    cp_async_commit();
+  }
+
+  uint32_t xf[WP / 16][4];
+  load_frags<WP>(xf, a.hidden, x0, a.R, a.W);
+  // labels outside [0, V) match no column
+  int lab[2];
+  float m[2], l[2], ll[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = x0 + row0 + 8 * h, y = r < a.R ? a.labels[r] : -1;
+    lab[h] = (y >= 0 && y < a.V) ? y : -(1 << 30);
+    m[h] = -INFINITY;
+    l[h] = ll[h] = 0.f;
+  }
+  // One step of the ring: the barrier makes tile `item`'s copies visible to
+  // both warpgroups and, since every thread finished tile item - 1's
+  // product and read its bias before it, frees that tile's stage for tile
+  // item + kST - 1. Tile item - 1's logits (prev) are folded while
+  // tile item's product runs into cur; then cur plus the tile's bias
+  // becomes prev. (No product is in flight from one step to the next, and
+  // prev is never a product's register: ptxas then keeps the product
+  // asynchronous.)
+  float cur[BN / 2], prev[BN / 2];
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) cur[i] = 0.f;
+  for (int item = 0; item < n; ++item) {
+    cp_async_wait<kST - 2>();
+    fence_async_smem();
+    __syncthreads();
+    if (item + kST - 1 < n) prefetch(item + kST - 1);
+    cp_async_commit();
+    wgmma_fence();
+    mma_frags_nt<WP, BN>(cur, xf, Ys + (item % kST) * kTile);
+    wgmma_commit();
+    const int v0 = (t0 + item) * BN;
+    if (item > 0) {
+      const int rel[2] = {lab[0] - (v0 - BN), lab[1] - (v0 - BN)};
+      fold_tile<BN>(prev, rel, m, l, ll);
+    }
+    wgmma_wait();
+    fence_regs(cur);
+    const float* b = bias_s + (item % kST) * BN;
+    if (v0 + BN > a.V)
+      add_bias<BN, true>(prev, cur, b, a.V - v0);
+    else
+      add_bias<BN, false>(prev, cur, b, BN);
+  }
+  if (n > 0) {
+    const int v0 = (t0 + n - 1) * BN;
+    const int rel[2] = {lab[0] - v0, lab[1] - v0};
+    fold_tile<BN>(prev, rel, m, l, ll);
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = x0 + row0 + 8 * h;
+    const float ls = quad_sum(l[h]), lls = quad_sum(ll[h]);
+    if (tq == 0 && r < a.R) {
+      const size_t o = (size_t)split * a.R + r;
+      a.part_m[o] = m[h];
+      a.part_s[o] = ls;
+      a.part_ll[o] = lls;
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // launches
 // ---------------------------------------------------------------------------
 inline int padded_width(int W) { return W <= 64 ? 64 : W <= 128 ? 128 : 256; }
@@ -515,6 +749,29 @@ inline int merged_cluster(int V) {
 inline int merged_clusters(int V) {
   const int vtiles = (V + kRows - 1) / kRows, c = merged_cluster(V);
   return std::min((vtiles + c - 1) / c, kMergedClusters);
+}
+
+template <int WP>
+constexpr size_t kFwdSmem = 1024 + (size_t)kFwdN<WP> * (WP * 2 + 4) * kFwdStages<WP>;
+
+// K5's vocabulary splits: the fewest that bring (row blocks x splits) to
+// kFwdItems, at most one per vocabulary tile of kFwdN<WP> entries
+inline int fwd_splits(int R, int V, int W) {
+  const int wp = padded_width(W);
+  const int bn = wp == 64 ? kFwdN<64> : wp == 128 ? kFwdN<128> : kFwdN<256>;
+  const int rblocks = (R + kFwdRows - 1) / kFwdRows, vtiles = (V + bn - 1) / bn;
+  return std::max(1, std::min(vtiles, (kFwdItems + rblocks - 1) / rblocks));
+}
+
+// K5's first pass; a.splits = fwd_splits(R, V, W)
+template <int WP>
+cudaError_t fwd_sweep(const FwdArgs& a, cudaStream_t st) {
+  const size_t smem = kFwdSmem<WP>;
+  cudaError_t err = allow_smem(loss_fwd_sweep_kernel<WP>, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.R + kFwdRows - 1) / kFwdRows, a.splits);
+  loss_fwd_sweep_kernel<WP><<<grid, kFwdThreads, smem, st>>>(a);
+  return cudaGetLastError();
 }
 
 // K7: the dh sweep, then the dt sweep

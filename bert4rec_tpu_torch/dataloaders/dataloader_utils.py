@@ -283,6 +283,41 @@ def _selectable_vocab(vocab_size: int, special_token_ids: Sequence[int]) -> np.n
     return ids
 
 
+def apply_dynamic_masking_task(sequence: np.ndarray,
+                               max_selections_per_seq: int,
+                               mask_token_id: int,
+                               special_token_ids: Sequence[int],
+                               vocab_size: int,
+                               selection_rate: float = 0.2,
+                               mask_token_rate: float = 0.8,
+                               random_token_rate: float = 0.1,
+                               seed: Optional[int] = None) -> tuple:
+    """One sequence through :func:`apply_dynamic_masking_batch` with a
+    generator seeded by ``seed``: ``(masked_token_ids, masked_lm_positions,
+    masked_lm_ids)``, unpadded, in the sequence's dtype."""
+    sequence = np.asarray(sequence)
+    rng = np.random.default_rng(seed)
+    out = apply_dynamic_masking_batch(
+        sequence[None, :].astype(np.int32),
+        np.array([len(sequence)], dtype=np.int32),
+        max_selections_per_seq, mask_token_id, list(special_token_ids),
+        vocab_size, rng, selection_rate, mask_token_rate, random_token_rate)
+    w = out["masked_lm_weights"][0].astype(bool)
+    return (out["input_word_ids"][0].astype(sequence.dtype),
+            out["masked_lm_positions"][0][w].astype(sequence.dtype),
+            out["masked_lm_ids"][0][w].astype(sequence.dtype))
+
+
+def mask_last_token_only(sequence: np.ndarray, mask_token_id: int) -> tuple:
+    """``(sequence with its last token masked, [last position], [last
+    token])``: the evaluation task on one sequence."""
+    sequence = np.asarray(sequence).copy()
+    masked_lm_ids = np.array([sequence[-1]], dtype=sequence.dtype)
+    masked_lm_positions = np.array([len(sequence) - 1], dtype=sequence.dtype)
+    sequence[-1] = mask_token_id
+    return sequence, masked_lm_positions, masked_lm_ids
+
+
 # --------------------------------------------------------------------------- #
 # batching
 # --------------------------------------------------------------------------- #

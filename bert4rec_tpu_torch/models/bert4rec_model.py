@@ -268,3 +268,7 @@ class BERT4RecModel:
 
     def get_config(self) -> dict:
         return self.config.to_dict()
+
+    @classmethod
+    def from_config(cls, config: dict, **kwargs) -> "BERT4RecModel":
+        return cls(config=BERT4RecConfig.from_dict(config), **kwargs)

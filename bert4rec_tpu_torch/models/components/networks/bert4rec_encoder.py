@@ -369,3 +369,12 @@ class Bert4RecEncoder:
             raise NotImplementedError(
                 "int8-quantized embedding tables are not ported yet")
         return emb["embedding"]
+
+    def get_config(self) -> dict:
+        return self.config.to_dict()
+
+    @classmethod
+    def from_config(cls, config: dict,
+                    dtype_policy: Optional[DTypePolicy] = None
+                    ) -> "Bert4RecEncoder":
+        return cls(BERT4RecConfig.from_dict(config), dtype_policy)

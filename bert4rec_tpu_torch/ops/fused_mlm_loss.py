@@ -18,13 +18,16 @@ FLOP forward, 6·R·V·W (K4, K6) or 8·R·V·W (K7) backward, against a few MB
 of inputs — bound by operations; bf16 products on the tensor cores, fp32
 ones as SIMT loops (times in PERF.md).
 
-By operand type (an explicit dispatch, nothing caught): bf16 K6/K7 run the
+By operand type (an explicit dispatch, nothing caught): bf16 K4-K7 run the
 ``wgmma`` kernels of ``csrc/loss_hopper.cuh`` (bf16 tiles by ``cp.async``,
-the logits and dlog in registers; K7's two sweeps and K6 sum their fp32
-partials across a thread-block cluster through distributed shared
+the logits and dlog in registers). K5 holds 128 hidden rows a block as
+register fragments, overlaps one vocabulary tile's online softmax with
+the next tile's product, and merges its vocabulary splits in split order;
+K4 runs K7's two sweeps from K3's lse; K7's two sweeps and K6 sum their
+fp32 partials across a thread-block cluster through distributed shared
 memory, K6 into at most 32 dh partials of ``R x W`` that do not grow with
-V). fp32 K6/K7 and K3-K5 in both types run the earlier tiles. Layout rule
-of the bf16 K6/K7 (``check_copy_alignment``, raised before the library is
+V. fp32 K4-K7 and K3 in both types run the earlier tiles. Layout rule of
+the bf16 K4-K7 (``check_copy_alignment``, raised before the library is
 reached): hidden and table contiguous with a 16-byte aligned base and
 rows, W a multiple of 8 up to 256 (zero-filled to 64, 128 or 256). The
 main path's gathered hidden rows and cast table meet it at every config
@@ -183,8 +186,8 @@ def _kernel_lib():
         lib.b4r_mlm_loss_tiled_bwd.restype = ci
         lib.b4r_mlm_loss_tiled_bwd.argtypes = [ci, ci] + [vp] * 7 + [ci] \
             + [vp] * 4 + [ci] * 3 + [vp]
-        for name, n in (("b4r_mlm_loss_workspace_bytes", 3),
-                        ("b4r_mlm_loss_tiled_fwd_workspace_bytes", 3),
+        for name, n in (("b4r_mlm_loss_workspace_bytes", 4),
+                        ("b4r_mlm_loss_tiled_fwd_workspace_bytes", 4),
                         ("b4r_mlm_loss_tiled_bwd_workspace_bytes", 5)):
             getattr(lib, name).restype = ctypes.c_size_t
             getattr(lib, name).argtypes = [ci] * n
@@ -197,16 +200,18 @@ def _kernel_lib():
 def workspace_bytes(kernel: str, rows: int, v: int, w: int,
                     dtype: torch.dtype = torch.bfloat16) -> int:
     """Bytes of device workspace the library asks for: ``kernel`` is
-    ``"K3/K4"``, ``"K5"``, ``"K6"`` or ``"K7"``; K6's depends on the
-    operand ``dtype`` (bf16, the main path's, runs other kernels)."""
+    ``"K3/K4"``, ``"K5"``, ``"K6"`` or ``"K7"``, in the operand ``dtype``
+    (bf16, the main path's, runs other kernels than fp32: its K4 needs no
+    dtable partials, its K5 splits the vocabulary by another law)."""
     lib = _kernel_lib()
+    code = _DTYPE_CODE[dtype]
     if kernel == "K3/K4":
-        return lib.b4r_mlm_loss_workspace_bytes(rows, v, w)
+        return lib.b4r_mlm_loss_workspace_bytes(code, rows, v, w)
     if kernel == "K5":
-        return lib.b4r_mlm_loss_tiled_fwd_workspace_bytes(rows, v, w)
+        return lib.b4r_mlm_loss_tiled_fwd_workspace_bytes(code, rows, v, w)
     if kernel in ("K6", "K7"):
         return lib.b4r_mlm_loss_tiled_bwd_workspace_bytes(
-            _DTYPE_CODE[dtype], rows, v, w, int(kernel == "K6"))
+            code, rows, v, w, int(kernel == "K6"))
     raise ValueError(f"no kernel {kernel!r}")
 
 
@@ -238,7 +243,7 @@ def _launch_forward(hidden, table, bias, labels):
     dev = hidden.device
     lse = torch.empty((rows,), dtype=torch.float32, device=dev)
     sums = torch.empty((4,), dtype=torch.float32, device=dev)
-    ws = _workspace(workspace_bytes("K3/K4", rows, v, w), dev)
+    ws = _workspace(workspace_bytes("K3/K4", rows, v, w, hidden.dtype), dev)
     _raise_on(lib.b4r_mlm_loss_fwd(
         _DTYPE_CODE[hidden.dtype], hidden.data_ptr(), table.data_ptr(),
         bias.data_ptr(), labels.data_ptr(), lse.data_ptr(), sums.data_ptr(),
@@ -249,6 +254,7 @@ def _launch_forward(hidden, table, bias, labels):
 
 def _launch_backward(hidden, table, bias, labels, lse, g, n_valid):
     """K4: ``(dh, dtable, dbias)``."""
+    _check_layout(hidden, table)
     lib = _kernel_lib()
     rows, w = hidden.shape
     v = table.shape[0]
@@ -257,7 +263,7 @@ def _launch_backward(hidden, table, bias, labels, lse, g, n_valid):
     dt = torch.empty((v, w), dtype=torch.float32, device=dev)
     db = torch.empty((v,), dtype=torch.float32, device=dev)
     g = g.reshape(1).float().contiguous()
-    ws = _workspace(workspace_bytes("K3/K4", rows, v, w), dev)
+    ws = _workspace(workspace_bytes("K3/K4", rows, v, w, hidden.dtype), dev)
     _raise_on(lib.b4r_mlm_loss_bwd(
         _DTYPE_CODE[hidden.dtype], hidden.data_ptr(), table.data_ptr(),
         bias.data_ptr(), labels.data_ptr(), lse.data_ptr(), g.data_ptr(),
@@ -270,6 +276,7 @@ def _launch_backward(hidden, table, bias, labels, lse, g, n_valid):
 def _launch_tiled(hidden, table, bias, labels, stats):
     """K5: ``(lse [R], sums [4])``, or with ``stats`` the per-row
     ``(m, s, ll)`` [R] without the scalars."""
+    _check_layout(hidden, table)
     lib = _kernel_lib()
     rows, w = hidden.shape
     v = table.shape[0]
@@ -280,7 +287,7 @@ def _launch_tiled(hidden, table, bias, labels, stats):
     lse, sums = (None, None) if stats else (
         row(), torch.empty((4,), dtype=torch.float32, device=dev))
     m, s, ll = (row(), row(), row()) if stats else (None, None, None)
-    ws = _workspace(workspace_bytes("K5", rows, v, w), dev)
+    ws = _workspace(workspace_bytes("K5", rows, v, w, hidden.dtype), dev)
     _raise_on(lib.b4r_mlm_loss_tiled_fwd(
         _DTYPE_CODE[hidden.dtype], hidden.data_ptr(), table.data_ptr(),
         bias.data_ptr(), labels.data_ptr(), _ptr(lse), _ptr(sums), _ptr(m),
@@ -298,7 +305,7 @@ def _launch_forward_tiled_stats(hidden, table, bias, labels):
 
 
 def check_copy_alignment(t: torch.Tensor, name: str) -> None:
-    """The bf16 K6/K7 kernels copy operand rows in 16-byte pieces: raises
+    """The bf16 K4-K7 kernels copy operand rows in 16-byte pieces: raises
     unless ``t`` is a contiguous ``[rows, W]`` matrix with a 16-byte
     aligned base and rows (W a multiple of 8) and W <= LOSS_MAXW."""
     bad = []
@@ -310,18 +317,23 @@ def check_copy_alignment(t: torch.Tensor, name: str) -> None:
         bad.append(f"width {t.shape[1]} is not a multiple of 8 up to "
                    f"{LOSS_MAXW}")
     if bad:
-        raise ValueError(f"the bf16 tiled loss backward kernels take "
+        raise ValueError(f"the bf16 loss kernels K4-K7 take "
                          f"contiguous operands with a 16-byte aligned base "
                          f"and rows; {name} of shape {tuple(t.shape)}: "
                          + "; ".join(bad))
 
 
-def _launch_backward_tiled(hidden, table, bias, labels, lse, g, n_valid,
-                           merged, valid_ge_zero=False):
-    """K6 (``merged``) or K7: ``(dh, dtable, dbias)``."""
+def _check_layout(hidden, table):
+    """bf16 K4-K7's layout rule, before the library is reached."""
     if hidden.dtype == torch.bfloat16:
         check_copy_alignment(hidden, "hidden")
         check_copy_alignment(table, "table")
+
+
+def _launch_backward_tiled(hidden, table, bias, labels, lse, g, n_valid,
+                           merged, valid_ge_zero=False):
+    """K6 (``merged``) or K7: ``(dh, dtable, dbias)``."""
+    _check_layout(hidden, table)
     lib = _kernel_lib()
     rows, w = hidden.shape
     v = table.shape[0]

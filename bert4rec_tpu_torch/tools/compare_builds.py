@@ -1,0 +1,131 @@
+"""What two checkouts' kernels compute and compile to, on one CUDA card,
+without timing: the SASS of every kernel in a checkout's built libraries,
+and the bits of the loss kernels' outputs on fixed inputs.
+
+    python bert4rec_tpu_torch/tools/compare_builds.py --root A > a.json
+    python bert4rec_tpu_torch/tools/compare_builds.py --root B > b.json
+    python bert4rec_tpu_torch/tools/compare_builds.py --diff a.json b.json
+
+``--root`` builds the checkout's kernels from its own sources and prints
+one JSON line: ``sass``, a hash of each kernel's instructions (addresses,
+encodings and the per-file name of the anonymous namespace dropped), and
+``bits``, a hash of the outputs of K3, K4, K5 (both entries), K6 and K7
+in fp32 and of K3, K6 and K7 in bf16 at a few shapes (K6/K7 fed the plain
+forward's lse, so that they see the same input in both checkouts).
+``--diff`` prints which kernels and outputs are the same in both."""
+
+import argparse
+import hashlib
+import json
+import pathlib
+import re
+import subprocess
+import sys
+
+ANON = re.compile(r"_GLOBAL__N__[0-9a-f]+_\d+_\w+?_cu_[0-9a-f]+")
+LOSS_SHAPES = ((2048, 3709, 128), (333, 1000, 72))            # K3, K4
+TILED_SHAPES = ((2048, 26732, 128), (2048, 26732, 256), (333, 1000, 72))
+
+
+def sass_hashes(build_dir: pathlib.Path) -> dict:
+    """``{library:kernel: hash}`` of every kernel's SASS."""
+    out = {}
+    for so in sorted(build_dir.glob("lib*.so")):
+        lib = re.sub(r"-[0-9a-f]+$", "", so.stem)[3:]
+        text = subprocess.run(["/usr/local/cuda/bin/cuobjdump", "-sass", str(so)],
+                              capture_output=True, text=True, check=True).stdout
+        for block in text.split("Function : ")[1:]:
+            name, _, body = block.partition("\n")
+            lines = [re.sub(r"/\*[0-9a-f]{4,}\*/", "", ln).strip()
+                     for ln in body.splitlines()
+                     if ln.strip() and not re.fullmatch(r"\s*/\* 0x[0-9a-f]+ \*/\s*", ln)]
+            key = f"{lib}:{ANON.sub('ANON', name.strip())}"
+            out[key] = hashlib.sha1("\n".join(lines).encode()).hexdigest()[:12]
+    return out
+
+
+def output_hashes(torch, np, fml) -> dict:
+    device = torch.device("cuda")
+
+    def digest(*tensors):
+        h = hashlib.sha1()
+        for t in tensors:
+            h.update(t.detach().float().cpu().numpy().tobytes())
+        return h.hexdigest()[:12]
+
+    def operands(rows, v, w, dtype):
+        rng = np.random.default_rng(rows + v + w)
+        hidden = torch.from_numpy(rng.normal(size=(rows, w)).astype(np.float32))
+        table = torch.from_numpy((rng.normal(size=(v, w)) * 0.1).astype(np.float32))
+        bias = torch.from_numpy(rng.normal(size=v).astype(np.float32))
+        lab = rng.integers(0, v + 5, size=rows).astype(np.int32)
+        lab[::9] = 0
+        return (hidden.to(device, dtype), table.to(device, dtype), bias.to(device),
+                torch.from_numpy(lab).to(device))
+
+    g = torch.full((), 0.75, device=device)
+    out = {}
+    for name, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        for shape in LOSS_SHAPES:
+            h, t, b, lab = operands(*shape, dtype)
+            lse, sums = fml._launch_forward(h, t, b, lab)
+            out[f"{name} K3 {shape}"] = digest(lse, sums)
+            if dtype == torch.float32:
+                out[f"{name} K4 {shape}"] = digest(*fml._launch_backward(
+                    h, t, b, lab, lse, g, sums[3:4]))
+        for shape in TILED_SHAPES:
+            h, t, b, lab = operands(*shape, dtype)
+            if dtype == torch.float32:
+                out[f"{name} K5 {shape}"] = digest(
+                    *fml._launch_forward_tiled(h, t, b, lab))
+                out[f"{name} K5 stats {shape}"] = digest(
+                    *fml._launch_forward_tiled_stats(h, t, b, lab))
+            lse, sums = fml.fused_mlm_loss_plain_forward(h, t, b, lab)
+            for kernel, merged in (("K6", True), ("K7", False)):
+                out[f"{name} {kernel} {shape}"] = digest(*fml._launch_backward_tiled(
+                    h, t, b, lab, lse, g, sums[3:4], merged))
+    torch.cuda.synchronize()
+    return out
+
+
+def diff(a_path, b_path) -> None:
+    a, b = (json.loads(pathlib.Path(p).read_text()) for p in (a_path, b_path))
+    for part in ("sass", "bits"):
+        x, y = a[part], b[part]
+        same = [k for k in x if y.get(k) == x[k]]
+        other = [k for k in x if k in y and y[k] != x[k]]
+        print(f"{part}: {len(same)} the same, {len(other)} differ, "
+              f"{len(set(x) - set(y))} only in {a['root']}, "
+              f"{len(set(y) - set(x))} only in {b['root']}")
+        for k in other:
+            print(f"  differs: {k}")
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--root")
+    parser.add_argument("--diff", nargs=2)
+    args = parser.parse_args(argv)
+    if args.diff:
+        diff(*args.diff)
+        return 0
+    root = pathlib.Path(args.root).resolve()
+    sys.path.insert(0, str(root))
+    import numpy as np
+    import torch
+    if not torch.cuda.is_available():
+        print("compare_builds: no CUDA device", file=sys.stderr)
+        return 1
+    from bert4rec_tpu_torch.ops import fused_mlm_loss as fml
+    from bert4rec_tpu_torch.ops import kernel_build
+    if not fml.__file__.startswith(str(root)):
+        raise RuntimeError(f"imported {fml.__file__}, not from {root}")
+    kernel_build.build(kernel_build.kernel_sources())
+    print(json.dumps({"root": args.root,
+                      "sass": sass_hashes(kernel_build.BUILD_DIR),
+                      "bits": output_hashes(torch, np, fml)}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -20,6 +20,7 @@ dropout 0.1 / 0.1); K8 / K9 at bert_base_512's attention shape, B=32,
 N=12, S=512, D=64, bf16, dropout 0.2, right-padded rows."""
 
 import argparse
+import importlib
 import inspect
 import json
 import pathlib
@@ -137,7 +138,7 @@ def main(argv=None) -> int:
             lambda: fel._launch_backward(wflat, wx, mask, wdy, wsaved, wn, 7,
                                          *rates))
     if (pathlib.Path(fel.__file__).parent / "flash_attention.py").is_file():
-        from bert4rec_tpu_torch.ops import flash_attention as fa
+        fa = importlib.import_module("bert4rec_tpu_torch.ops.flash_attention")
         frng = np.random.default_rng(2)   # the same inputs in every tree
         fb, _, fs, _ = FLASH_DIMS
         q, k, v, do = (torch.from_numpy(frng.normal(size=FLASH_DIMS)

@@ -1,6 +1,6 @@
 """Time the loss kernels (K3 forward, K4 backward; the vocab-tiled
-backwards K6 and K7) and the ml-1m_128 train step of the port in one
-checkout, on one CUDA card:
+forward K5 and backwards K6 and K7) and the ml-1m_128 train step of the
+port in one checkout, on one CUDA card:
 
     python bert4rec_tpu_torch/tools/time_loss_step.py [--root DIR] [--reps 5]
 
@@ -12,7 +12,8 @@ per-rep times of K3 and K4 at chip_smoke's shape (R=10,240 rows, V=3,709,
 W=128, bf16; CUDA events over 50 launches), the device ms of each kernel
 inside one K4 launch (torch.profiler), per-rep medians of the host wall
 of 20 synchronised train steps at B=256, bf16, on batches of ``bench.py``'s
-law, and K6 at (R, V, W) = (10,240, 26,732, 128) and K7 at (10,240,
+law, K5 at (R, V, W) = (10,240, 26,732, 128), (10,240, 26,732, 256) and
+(2,048, 335,424, 128), K6 at (10,240, 26,732, 128) and K7 at (10,240,
 26,732, 256), bf16, each as (median, lowest, highest) ms per call over 7
 blocks of 10 calls after 5 warm-up calls, with the device ms of each
 kernel inside one launch."""
@@ -28,6 +29,10 @@ VOCAB, ROWS, WIDTH = 3709, 256 * 40, 128
 SEQ, BATCH, NPRED = 200, 256, 40
 ML20M_VOCAB = 26732
 TILED = {"k6": (128, True), "k7": (256, False)}   # (width, merged)
+# K5: (rows, vocabulary, width)
+TILED_FWD = {"k5_w128": (ROWS, ML20M_VOCAB, 128),
+             "k5_w256": (ROWS, ML20M_VOCAB, 256),
+             "k5_reddit": (2048, 335424, 128)}
 
 
 def events_ms(torch, fn, iters=50, warmup=5):
@@ -63,18 +68,30 @@ def blocks_ms(torch, fn, blocks=7, iters=10, warmup=5):
     return [statistics.median(times), min(times), max(times)]
 
 
+def tiled_operands(torch, np, device, rows, vocab, width):
+    """bf16 hidden and table, the bias and labels (every 9th row 0)."""
+    rng = np.random.default_rng(1)
+    h = torch.from_numpy(rng.normal(size=(rows, width)).astype(np.float32)) \
+        .to(device, torch.bfloat16)
+    t = torch.from_numpy((rng.normal(size=(vocab, width)) * 0.1)
+                         .astype(np.float32)).to(device, torch.bfloat16)
+    b = torch.from_numpy(rng.normal(size=vocab).astype(np.float32)) \
+        .to(device)
+    lab = rng.integers(3, vocab, size=rows).astype(np.int32)
+    lab[::9] = 0
+    return h, t, b, torch.from_numpy(lab).to(device)
+
+
+def tiled_forward(torch, np, fml, device, rows, vocab, width):
+    """K5 (the loss entry), as a callable."""
+    h, t, b, lab = tiled_operands(torch, np, device, rows, vocab, width)
+    return lambda: fml._launch_forward_tiled(h, t, b, lab)
+
+
 def tiled_backward(torch, np, fml, device, width, merged):
     """K6 (``merged``) or K7 at the ML-20M train batch, as a callable."""
-    rng = np.random.default_rng(1)
-    h = torch.from_numpy(rng.normal(size=(ROWS, width)).astype(np.float32)) \
-        .to(device, torch.bfloat16)
-    t = torch.from_numpy((rng.normal(size=(ML20M_VOCAB, width)) * 0.1)
-                         .astype(np.float32)).to(device, torch.bfloat16)
-    b = torch.from_numpy(rng.normal(size=ML20M_VOCAB).astype(np.float32)) \
-        .to(device)
-    lab = rng.integers(3, ML20M_VOCAB, size=ROWS).astype(np.int32)
-    lab[::9] = 0
-    lab = torch.from_numpy(lab).to(device)
+    h, t, b, lab = tiled_operands(torch, np, device, ROWS, ML20M_VOCAB,
+                                  width)
     lse, sums = fml._launch_forward_tiled(h, t, b, lab)
     g = torch.ones((), device=device)
     return lambda: fml._launch_backward_tiled(h, t, b, lab, lse, g,
@@ -179,6 +196,13 @@ def main(argv=None) -> int:
             walls.append((time.perf_counter() - t0) * 1e3)
         out["step_ms"].append(sorted(walls)[len(walls) // 2])
     out["k4_kernels_ms"] = kernel_ms(torch, bwd)
+    out["k5_kernels_ms"] = {}
+    for key, shape in TILED_FWD.items():
+        fn = tiled_forward(torch, np, fml, device, *shape)
+        out[f"{key}_ms"] = blocks_ms(torch, fn)
+        out["k5_kernels_ms"][key] = kernel_ms(torch, fn)
+        del fn
+        torch.cuda.empty_cache()
     for key, (width, merged) in TILED.items():
         fn = tiled_backward(torch, np, fml, device, width, merged)
         out[f"{key}_ms"] = blocks_ms(torch, fn)

@@ -13,7 +13,9 @@
   gradient accumulation), so a resumed run draws the same masks;
 - ``steps_per_call`` runs K optimizer steps per call as a plain loop (the
   JAX ``lax.scan``; the same math), ``grad_accum_steps`` folds A
-  microbatches into one update weighted by their valid positions.
+  microbatches into one update weighted by their valid positions, and
+  ``validate()`` runs one eval step per batch whatever
+  ``eval_steps_per_call`` (JAX's stacked eval dispatch; the same math).
 
 - ``train()`` and ``validate()`` feed their batches through
   ``utils.prefetch``: a host thread slices and masks batch k+1 and copies
@@ -46,16 +48,28 @@ _OPTIONAL_KEYS = ("input_timestamps",)
 
 class BERT4RecTrainer(BaseTrainer):
 
-    def __init__(self, model, steps_per_call: int = 1,
-                 grad_accum_steps: int = 1):
-        """``steps_per_call``: optimizer steps per call of the step
-        function over a group of K batches (identical math to single
-        steps; logs come back per step). ``grad_accum_steps``: A
-        microbatches per optimizer update, their gradients combined
-        weighted by each one's count of valid MLM positions, so the update
-        equals that of one A-times-larger batch; trailing batches that do
-        not fill a group are dropped. The two are mutually exclusive."""
+    def __init__(self, model, mesh=None, steps_per_call: int = 1,
+                 grad_accum_steps: int = 1, eval_steps_per_call: int = 1):
+        """JAX's signature. ``mesh``: the multi-GPU layout (ROADMAP.md,
+        queue A.5) is not ported yet; anything but None raises.
+        ``steps_per_call``: optimizer steps per call of the step function
+        over a group of K batches (identical math to single steps; logs
+        come back per step). ``grad_accum_steps``: A microbatches per
+        optimizer update, their gradients combined weighted by each one's
+        count of valid MLM positions, so the update equals that of one
+        A-times-larger batch; trailing batches that do not fill a group
+        are dropped. The two are mutually exclusive.
+        ``eval_steps_per_call``: JAX's stacked eval dispatch of K batches;
+        ``validate()`` runs the same math as a plain loop of one eval step
+        per batch, whatever K."""
+        if mesh is not None:
+            raise NotImplementedError(
+                "BERT4RecTrainer(mesh=...): the multi-GPU layout "
+                "(ROADMAP.md, queue A.5) is not ported yet; train on one "
+                "device")
         super().__init__(model)
+        self.mesh = None
+        self.eval_steps_per_call = max(1, int(eval_steps_per_call))
         self.steps_per_call = max(1, int(steps_per_call))
         self.grad_accum_steps = max(1, int(grad_accum_steps))
         if self.steps_per_call > 1 and self.grad_accum_steps > 1:
@@ -338,11 +352,13 @@ class BERT4RecTrainer(BaseTrainer):
         ckpt_lib.save_pytree(path, tree)
 
     def load_checkpoint(self, path) -> None:
+        """The train state from ``path``; ``epoch`` and ``best_monitor``
+        are optional records, absent in legacy checkpoints (as in JAX)."""
         if self.state is None:
             raise RuntimeError("Call initialize_model before load_checkpoint")
         target = {"params": self.state["params"],
                   "opt_state": self.state["opt_state"],
-                  "step": 0, "seed": 0, "epoch": 0, "best_monitor": 0.0}
+                  "step": 0, "seed": 0}
         restored = ckpt_lib.load_pytree(path, target)
         opt = restored["opt_state"]
         self.state = {"params": restored["params"],
@@ -350,9 +366,12 @@ class BERT4RecTrainer(BaseTrainer):
                                     "mu": opt["mu"], "nu": opt["nu"]},
                       "step": int(restored["step"]),
                       "seed": int(restored["seed"])}
-        self._epochs_completed = int(restored["epoch"]) or None
-        best = float(restored["best_monitor"])
-        self._best_monitor_value = best if np.isfinite(best) else None
+        self._epochs_completed = self._best_monitor_value = None
+        with np.load(path, allow_pickle=False) as data:
+            if "epoch" in data:
+                self._epochs_completed = int(data["epoch"]) or None
+            if "best_monitor" in data and np.isfinite(data["best_monitor"]):
+                self._best_monitor_value = float(data["best_monitor"])
 
     @property
     def params(self):

@@ -1,7 +1,8 @@
-"""Path helpers (port of ``bert4rec_tpu/utils/utils.py``): data and model
-paths are anchored at the project root, overridable with
+"""Path and config helpers (port of ``bert4rec_tpu/utils/utils.py``): data
+and model paths are anchored at the project root, overridable with
 ``BERT4REC_TPU_HOME``."""
 
+import json
 import os
 import pathlib
 
@@ -26,3 +27,12 @@ def get_data_dir() -> pathlib.Path:
 
 def get_default_model_save_path() -> pathlib.Path:
     return get_project_root() / "saved_models"
+
+
+def load_json_config(path: pathlib.Path) -> dict:
+    """A JSON config file as a dict."""
+    path = pathlib.Path(path)
+    if not path.is_file():
+        raise FileNotFoundError(f"Config file {path} does not exist.")
+    with open(path, "r", encoding="utf-8") as f:
+        return json.load(f)

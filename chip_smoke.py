@@ -29,6 +29,9 @@ Phases (any failure raises and the script exits non-zero):
               each against its plain version, with kernel, plain and
               library-yardstick times (kernel and yardstick as medians of
               7 blocks of 10 calls, their ranges printed) and the bound;
+              bf16 K3's and K4's kernels by device time, K4's only
+              ``csrc/loss_hopper.cuh``'s two sweeps (``BF16_LOSS_KERNELS``:
+              no route back to the earlier mma.sync loss tiles);
               at B=256 in bf16 each launch's kernels by device time, the
               forward's and the backward's, none of them one of the
               earlier bf16 layer kernels (``LEGACY_BF16_LAYER``: the
@@ -62,8 +65,11 @@ Phases (any failure raises and the script exits non-zero):
               runs giving the same bits; kernel, plain and library times
               (kernel and yardstick as medians of 7 blocks, ranges
               printed); each bf16 launch's kernels by device time at W=128
-              and 256 (K7's two sweeps apart); the new kernels' registers
-              and spills print with the build;
+              and 256 (K7's two sweeps apart), K5's (both entries, and at
+              Reddit's V) only ``loss_hopper.cuh``'s ``loss_fwd_sweep_kernel``,
+              the ordered merge and the row sums; the wgmma kernels'
+              registers and spills, and ptxas's notes where it serialised
+              a kernel's products, print with the build;
 9. ML-20M training — ``train()`` on ml-20m_128 (backward K6) and
               ml-20m_256 (backward K7) from the phase-7 datasets, B=256,
               bf16, full width and depth: the kernel step against the
@@ -142,6 +148,7 @@ The line before the last is the kernels' JSON record; the last line is
 the repository beside it, the script fails before printing either.
 """
 
+import importlib
 import itertools
 import json
 import math
@@ -319,23 +326,37 @@ LEGACY_BF16_LAYER = re.compile(
     r"|wgrad_kernel<__nv_bfloat16|b4r::attention_kernel<|b4r::attn_bwd_)")
 
 
+# The kernels a bf16 K4 and K5 launch may run (csrc/loss_hopper.cuh's
+# wgmma sweeps, K5's ordered merge and row sums), each with the one it must
+# run: the guard against a route back to the earlier mma.sync loss tiles
+BF16_LOSS_KERNELS = {
+    "K4": (re.compile(r"^b4r::loss_hopper::loss_sweep_kernel<"),
+           "loss_sweep_kernel<"),
+    "K5": (re.compile(r"^(b4r::loss_hopper::loss_fwd_sweep_kernel<"
+                      r"|loss_tiled_merge_kernel|b4r::reduce_rows_kernel)"),
+           "loss_fwd_sweep_kernel<"),
+}
+
+
 def _kernel_name(key: str) -> str:
     key = key.replace("(anonymous namespace)::", "").removeprefix("void ")
     return key.split("(")[0][:60]
 
 
 def device_breakdown(torch, fn, calls=5, top=6, groups=None,
-                     forbid=None) -> tuple:
+                     forbid=None, only=None) -> tuple:
     """``(total, text)``: device ms per call of ``fn`` in all (None if the
     trace holds no device time) and a line naming its ``top`` costliest
     CUDA kernels, from torch.profiler (CUPTI); with ``groups`` ({label:
     name substrings}) also the device time of each group of kernels. A
     trace without device time is taken once more. With ``forbid`` (a
-    compiled pattern) a kernel whose name it matches raises."""
+    compiled pattern) a kernel whose name it matches raises; with ``only``
+    ((pattern, required name)) a kernel whose name the pattern does not
+    match raises, and so does a trace without the required kernel."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    for _ in range(2):
+    for _ in range(3 if only else 2):   # the profiler can drop records
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(calls):
                 fn()
@@ -344,14 +365,21 @@ def device_breakdown(torch, fn, calls=5, top=6, groups=None,
                         / calls / 1e3) for e in prof.key_averages()
                        if getattr(e, "self_device_time_total", 0) > 0),
                       key=lambda r: -r[1])
-        if rows:
+        if rows and (not only or any(only[1] in n for n, _ in rows)):
             break
     if not rows:
+        if only:
+            raise AssertionError("no device time in three traces: the "
+                                 "launch's kernels could not be named")
         return None, "device time not measured"
     hits = [name for name, _ in rows if forbid and forbid.search(name)]
     if hits:
         raise AssertionError(f"launch reached the earlier bf16 layer kernels: "
                              f"{hits}")
+    if only and (any(not only[0].search(name) for name, _ in rows)
+                 or not any(only[1] in name for name, _ in rows)):
+        raise AssertionError(f"launch ran other kernels than {only[0].pattern}"
+                             f" (or not {only[1]}): {[n for n, _ in rows]}")
     total = sum(ms for _, ms in rows)
     rest = sum(ms for _, ms in rows[top:])
     parts = [f"{name} {ms:.4f}" for name, ms in rows[:top]]
@@ -919,6 +947,10 @@ def check_loss_kernels(torch, rng, device):
             print(f"fused_mlm_loss {part} {name} R={N_ROWS} V={VOCAB} "
                   f"W={HIDDEN}: rel err {r['max_rel_err']:.3g} (tol "
                   f"{tol}) {timing_text(r)}", flush=True)
+        if name == "bfloat16":   # K4 on csrc/loss_hopper.cuh's two sweeps
+            print("  per K3 launch: " + device_breakdown(torch, fwd)[1]
+                  + "\n  per K4 launch: " + device_breakdown(
+                      torch, bwd, only=BF16_LOSS_KERNELS["K4"])[1], flush=True)
     return rows
 
 
@@ -1116,7 +1148,7 @@ def plain_kernels():
     and loss Functions to the plain versions: the reference of the step
     check."""
     from unittest import mock
-    from bert4rec_tpu_torch.ops import flash_attention as fa
+    fa = importlib.import_module("bert4rec_tpu_torch.ops.flash_attention")
     from bert4rec_tpu_torch.ops import fused_encoder_layer as fel
     from bert4rec_tpu_torch.ops import fused_mlm_loss as fml
 
@@ -1486,10 +1518,14 @@ def check_tiled_loss_kernels(torch, rng, device):
                   f"{x['max_rel_err']:.3g} (tol "
                   f"{LOSS_FWD_TOL if k == 'K5' else tol}) {timing_text(x)}",
                   flush=True)
-        if not heavy and not reddit:   # K7's two sweeps apart, at each W
-            for k, f in [("K5", fwd)] + list(bwd.items()):
+        if not heavy:   # K7's two sweeps apart, at each W; bf16 K5's kernels
+            stats_fn = lambda: fml._launch_forward_tiled_stats(  # noqa: E731
+                h, t, b, lab)
+            launches = [("K5", fwd), ("K5 stats", stats_fn)]
+            for k, f in launches + ([] if reddit else list(bwd.items())):
                 print(f"  per {k} launch: " + device_breakdown(
-                    torch, f)[1], flush=True)
+                    torch, f, only=BF16_LOSS_KERNELS.get(k[:2]))[1],
+                    flush=True)
         del lib_loss, hl, tl, bl, h, t, b
         torch.cuda.empty_cache()
     ws = {k: fml.workspace_bytes(k, N_ROWS, REDDIT_VOCAB, 128)
@@ -1908,7 +1944,7 @@ def check_flash_kernels(torch, rng, device):
     (kernel and library times medians of 7 blocks of 10 calls)."""
     import torch.nn.functional as F
     from bert4rec_tpu_torch.ops import dropout_bits
-    from bert4rec_tpu_torch.ops import flash_attention as fa
+    fa = importlib.import_module("bert4rec_tpu_torch.ops.flash_attention")
     rows, rate0 = {}, {}
     for dims in FLASH_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
@@ -2072,7 +2108,7 @@ def check_bert_base_training(torch, device):
     """``train()`` on bert_base_512: the kernel step against the plain
     step, the launch counts of a BASE_STEPS-step run, the step times, the
     device idle share and breakdown, a remat step, and the loss falling."""
-    from bert4rec_tpu_torch.ops import flash_attention as fa
+    fa = importlib.import_module("bert4rec_tpu_torch.ops.flash_attention")
     from bert4rec_tpu_torch.ops import fused_encoder_layer as fel
     from bert4rec_tpu_torch.ops import fused_mlm_loss as fml
     from bert4rec_tpu_torch.utils.checkpoint import flatten
@@ -2560,8 +2596,10 @@ def run(torch, home) -> int:
         print(f"build {name}: {len(regs)} kernels, registers "
               f"{min(regs, default=0)}-{max(regs, default=0)}, spills "
               f"{spills or 'none'}", flush=True)
-        # the bf16 K6/K7 kernels one by one: registers and spills at each
-        # padded width (loss_sweep_kernel<WP, dt sweep>, loss_merged_kernel<WP>)
+        # the bf16 K4-K7 kernels one by one: registers and spills at each
+        # padded width (loss_fwd_sweep_kernel<WP>, loss_sweep_kernel<WP, dt
+        # sweep>, loss_merged_kernel<WP>), and ptxas's note where it had to
+        # serialise a kernel's wgmma
         for i, ln in enumerate(lines):
             lay = re.search(r"12layer_hopper(\d+)(\w+)", ln)
             if lay and "Compiling entry" in ln:
@@ -2572,7 +2610,8 @@ def run(torch, home) -> int:
                 print(f"  layer_hopper::{kname}<{', '.join(targs)}>: "
                       f"{used.split(':')[-1].strip()}; {spill.strip()}",
                       flush=True)
-            hit = re.search(r"(loss_(?:sweep|merged)_kernel)ILi(\d+)E(?:Lb([01])E)?", ln)
+            hit = re.search(r"(loss_(?:fwd_sweep|sweep|merged)_kernel)ILi(\d+)E"
+                            r"(?:Lb([01])E)?", ln)
             if hit and "Compiling entry" in ln:
                 used = next((x for x in lines[i + 1:i + 4] if "Used" in x), "")
                 spill = next((x for x in lines[i + 1:i + 4] if "spill" in x), "")
@@ -2580,6 +2619,10 @@ def run(torch, home) -> int:
                                        if hit.group(3) else "")
                 print(f"  {hit.group(1)}<{args}>: {used.split(':')[-1].strip()}; "
                       f"{spill.strip()}", flush=True)
+        for ln in lines:
+            if "Potential Performance Loss" in ln:
+                print(f"  ptxas: {ln.split(':', 1)[-1].strip()[:220]}",
+                      flush=True)
 
     rng = np.random.default_rng(SEED)
     layer_rows = check_fused_layer(torch, rng, device)
@@ -2638,6 +2681,7 @@ def run(torch, home) -> int:
     tiled_256 = tiled_rows[("bfloat16", N_ROWS, ML20M_VOCAB, 256)]
     layer_src, loss_src = "fused_encoder_layer.cu", "fused_mlm_loss.cu"
     wgmma_src = "layer_hopper.cuh"   # bf16 K1 / K2 (fp32: layer_src)
+    loss_wgmma = "loss_hopper.cuh"   # bf16 K4-K7 (fp32 and K3: loss_src)
     # K8 / K9 at bert_base_512's shape and rates; launches from its train()
     flash_row = flash_rows[(FLASH_SHAPES[0], "bfloat16", False)]
     c_base = base["counts"]
@@ -2664,17 +2708,22 @@ def run(torch, home) -> int:
               c256["layer_bwd"], wide_row["bwd"]),
         entry("fused_mlm_loss", loss_src, f"{loss_py}:111", counts["loss_fwd"],
               loss_rows["bfloat16"]["fwd"]),
-        entry("fused_mlm_loss_backward", loss_src, f"{loss_py}:148",
+        entry("fused_mlm_loss_backward", loss_wgmma, f"{loss_py}:148",
               counts["loss_bwd"], loss_rows["bfloat16"]["bwd"]),
-        # the vocab-tiled family; launches from the three ML-20M train()
-        # runs (BERT4Rec ml-20m_128 and ml-20m_256, SASRec ml-20m_128)
-        entry("fused_mlm_loss_tiled", loss_src, f"{loss_py}:375",
-              c128["K5"] + c256["K5"] + csas["K5"], tiled_128["K5"]),
-        entry("fused_mlm_loss_tiled_backward_merged", loss_src,
-              f"{loss_py}:502", c128["K6"] + c256["K6"] + csas["K6"],
+        # the vocab-tiled family; launches from the four ML-20M train()
+        # runs (BERT4Rec ml-20m_128 and ml-20m_256, SASRec ml-20m_128,
+        # temporal ml-20m_128), K5 at each width apart
+        entry("fused_mlm_loss_tiled", loss_wgmma, f"{loss_py}:375",
+              c128["K5"] + csas["K5"] + c_temp["K5"], tiled_128["K5"]),
+        entry("fused_mlm_loss_tiled_w256", loss_wgmma, f"{loss_py}:375",
+              c256["K5"], tiled_256["K5"]),
+        entry("fused_mlm_loss_tiled_backward_merged", loss_wgmma,
+              f"{loss_py}:502",
+              c128["K6"] + c256["K6"] + csas["K6"] + c_temp["K6"],
               tiled_128["K6"]),
-        entry("fused_mlm_loss_tiled_backward_two_sweep", loss_src,
-              f"{loss_py}:602", c128["K7"] + c256["K7"] + csas["K7"],
+        entry("fused_mlm_loss_tiled_backward_two_sweep", loss_wgmma,
+              f"{loss_py}:602",
+              c128["K7"] + c256["K7"] + csas["K7"] + c_temp["K7"],
               tiled_256["K7"]),
         # K1'' causal (SASRec): launches from its train() run
         entry("fused_encoder_layer_causal", wgmma_src,
@@ -2699,6 +2748,9 @@ def run(torch, home) -> int:
               "bert4rec_tpu/ops/fused_encoder_layer.py:315",
               c_temp["rel_bwd"], rel_row["bwd"]),
     ]}
+    idle = [k["name"] for k in record["kernels"] if not k["launches"]]
+    if idle:
+        raise AssertionError(f"kernels no main path launched: {idle}")
     print(f"card: {card}", flush=True)
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -8,6 +8,8 @@ without them; there ``tests/conftest.py`` (which imports JAX) is skipped:
 Without a card every test here skips.
 """
 
+import importlib
+
 import numpy as np
 import pytest
 import torch
@@ -682,8 +684,10 @@ def test_tiled_autograd_launches_by_the_merged_law(cuda_device, rows, w,
 @pytest.mark.cuda
 def test_tiled_bf16_rejects_a_misaligned_view(cuda_device):
     """A bf16 hidden whose base is not 16-byte aligned, or whose width is
-    not a multiple of 8, raises before K6/K7 launch (their copies read
-    16-byte pieces of each row); nothing is counted."""
+    not a multiple of 8, raises before K5 (both entries) and K6/K7 launch
+    (their copies read 16-byte pieces of each row), and before bf16 K4
+    launches after K3's forward, which takes any layout; nothing of K4-K7
+    is counted."""
     from bert4rec_tpu_torch.ops import fused_mlm_loss as fml
     h, t, b, lab, v = _tiled_inputs(cuda_device, torch.bfloat16, 130, 200,
                                     64)
@@ -692,15 +696,122 @@ def test_tiled_bf16_rejects_a_misaligned_view(cuda_device):
     shifted = flat[1:].view(h.shape).copy_(h)           # base 2 bytes off
     h36, t36, b36, lab36, v36 = _tiled_inputs(cuda_device, torch.bfloat16,
                                               130, 200, 36)
-    f = fml.fused_mlm_loss_tiled
+    f, w = fml.fused_mlm_loss_tiled, fml.fused_mlm_loss
     for hh, tt, bb, ll, vv in ((shifted, t, b, lab, v),
                                (h36, t36, b36, lab36, v36)):
-        before = (f.merged_launches, f.two_sweep_launches)
+        before = (f.launches, f.merged_launches, f.two_sweep_launches,
+                  w.backward_launches)
         hh = hh.detach().requires_grad_(True)
-        loss = f(hh, tt, bb, ll, vv)[0]
+        for entry in (f, fml.fused_mlm_loss_tiled_stats):
+            with pytest.raises(ValueError, match="16-byte"):
+                entry(hh, tt, bb, ll, vv)
+        with pytest.raises(ValueError, match="16-byte"):
+            fml._launch_backward_tiled(hh.detach(), tt, bb, ll,
+                                       torch.zeros(len(ll), device=cuda_device),
+                                       torch.ones((), device=cuda_device),
+                                       torch.ones(1, device=cuda_device), True)
+        loss = w(hh, tt, bb, ll, vv)[0]
         with pytest.raises(ValueError, match="16-byte"):
             loss.backward()
-        assert (f.merged_launches, f.two_sweep_launches) == before
+        assert (f.launches, f.merged_launches, f.two_sweep_launches,
+                w.backward_launches) == before
+
+
+def _edge_inputs(device, r, v, w, seed):
+    """bf16 hidden [r, w], table [v, w], an unmasked fp32 bias [v] and
+    labels that reach every edge of the column range: column 0 (a padding
+    row), column v - 1 (in the ragged last tile when v is off the tile),
+    v and past it (match no column), -1 and -2 (the sharded forward's
+    encodings), then random columns with every 7th row 0."""
+    rng = np.random.default_rng(seed)
+    hidden = torch.from_numpy(rng.normal(size=(r, w)).astype(np.float32)) \
+        .to(device, torch.bfloat16)
+    table = torch.from_numpy((rng.normal(size=(v, w)) * 0.1)
+                             .astype(np.float32)).to(device, torch.bfloat16)
+    bias = torch.from_numpy(rng.normal(size=v).astype(np.float32)).to(device)
+    lab = rng.integers(1, v, size=r).astype(np.int32)
+    lab[::7] = 0
+    edges = [0, v - 1, v, v + 40, -1, -2][:r]
+    lab[:len(edges)] = edges
+    return hidden, table, bias, torch.from_numpy(lab).to(device)
+
+
+# widths the bf16 kernels pad to; R and V on, below and past their tiles
+# (64 vocabulary rows, 64 and 128 hidden rows)
+EDGE_SHAPES = [(r, v, w) for w in (64, 128, 256)
+               for r, v in ((1, 61), (127, 64), (129, 200), (300, 1030))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", EDGE_SHAPES,
+                         ids=lambda d: "R{}_V{}_W{}".format(*d))
+def test_bf16_loss_kernels_at_the_label_edges(cuda_device, shape):
+    """bf16 K5 (loss and stats entries) and bf16 K4 (from K3's lse)
+    against their plain versions with labels at column 0, column V - 1,
+    V and past it, -1 and -2: the loss forward within 1e-5 of its scale,
+    counts equal, the stats within 1e-5; the backward within 2e-2 of each
+    gradient's scale; two runs of each giving the same bits."""
+    from bert4rec_tpu_torch.ops import fused_mlm_loss as fml
+    r, v, w = shape
+    h, t, b, lab = _edge_inputs(cuda_device, r, v, w, r * v + w)
+    lse, sums = fml._launch_forward_tiled(h, t, b, lab)
+    stats = fml._launch_forward_tiled_stats(h, t, b, lab)
+    rlse, rsums = fml.fused_mlm_loss_plain_forward(h, t, b, lab)
+    rstats = fml.fused_mlm_loss_plain_stats(h, t, b, lab)
+    assert _rel_err(lse, rlse) <= 1e-5
+    assert abs(float(sums[0]) - float(rsums[0])) <= \
+        1e-5 * max(abs(float(rsums[0])), 1.0)
+    assert sums[1:].tolist() == rsums[1:].tolist()
+    for got, ref in zip(stats, rstats):
+        assert _rel_err(got, ref) <= 1e-5
+    again = fml._launch_forward_tiled(h, t, b, lab)
+    assert torch.equal(again[0], lse) and torch.equal(again[1], sums)
+    assert all(torch.equal(a, c) for a, c in
+               zip(fml._launch_forward_tiled_stats(h, t, b, lab), stats))
+    # K4 from K3's lse, the whole-table path's pair
+    k3_lse, k3_sums = fml._launch_forward(h, t, b, lab)
+    g = torch.full((), 0.75, device=cuda_device)
+    got = fml._launch_backward(h, t, b, lab, k3_lse, g, k3_sums[3:4])
+    again = fml._launch_backward(h, t, b, lab, k3_lse, g, k3_sums[3:4])
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, c) for a, c in zip(got, again))
+    ref = fml.fused_mlm_loss_plain_backward(h, t, b, lab, rlse, g, rsums[3])
+    for a, c in zip(got, ref):
+        if not bool(c.abs().any()):
+            assert not bool(a.abs().any())
+        else:
+            assert _rel_err(a, c) <= 2e-2
+
+
+@pytest.mark.cuda
+def test_bf16_whole_table_workspace_does_not_grow_with_the_vocabulary(
+        cuda_device):
+    """bf16 K3/K4's workspace holds K3's row-block sums only (K4's sweeps
+    sum their partials through distributed shared memory): the same at
+    V = 3,709 and V = 335,424; fp32 K4 keeps its split dtable partials,
+    which grow with V."""
+    from bert4rec_tpu_torch.ops import fused_mlm_loss as fml
+    r, w = 10240, 128
+    bf16 = [fml.workspace_bytes("K3/K4", r, v, w) for v in (3709, 335424)]
+    fp32 = [fml.workspace_bytes("K3/K4", r, v, w, torch.float32)
+            for v in (3709, 335424)]
+    assert bf16[0] == bf16[1] == (r // 64) * 4 * 4
+    assert fp32[1] > fp32[0] >= (r // 1024) * 3709 * w * 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r,v,splits", [(10240, 26732, 13), (2048, 335424, 64),
+                                        (130, 200, 4), (1, 61, 1)])
+def test_bf16_tiled_forward_splits_the_vocabulary_by_its_law(cuda_device, r,
+                                                             v, splits):
+    """bf16 K5 splits the vocabulary until (128-row blocks x splits)
+    reaches 1,024, at most one split per 64-entry vocabulary tile; its
+    workspace is the splits' (max, sum, label logit) rows and the row-block
+    sums, each rounded up to 256 bytes."""
+    from bert4rec_tpu_torch.ops import fused_mlm_loss as fml
+    up = lambda n: -(-n // 256) * 256  # noqa: E731
+    want = 3 * up(splits * r * 4) + up(-(-r // 256) * 16)
+    assert fml.workspace_bytes("K5", r, v, 128) == want
 
 
 @pytest.mark.cuda
@@ -787,7 +898,7 @@ def test_flash_kernels_match_plain(cuda_device, dims, dtype, rate, causal):
     """K8 and K9 against their plain versions on strided q, k, v: forward
     within 1e-4 (fp32) or 2e-2 (bf16) absolute, gradients within GRAD_TOL
     of their scale."""
-    from bert4rec_tpu_torch.ops import flash_attention as fa
+    fa = importlib.import_module("bert4rec_tpu_torch.ops.flash_attention")
     q, k, v, mask, do = flash_operands(cuda_device, dims, dtype, sum(dims))
     o, saved = fa._launch_forward(q, k, v, mask, 99, rate, causal, True)
     grads = fa._launch_backward(q, k, v, mask, do, saved, 99, rate, causal)
@@ -812,7 +923,7 @@ def test_flash_strided_equals_contiguous_and_backward_repeats(cuda_device,
     """The projection's views and their contiguous copies give the same
     bits; two K9 runs give the same bits; autograd counts one launch of
     each (causal apart)."""
-    from bert4rec_tpu_torch.ops import flash_attention as fa
+    fa = importlib.import_module("bert4rec_tpu_torch.ops.flash_attention")
     q, k, v, mask, do = flash_operands(cuda_device, (3, 4, 130, 64), dtype, 5)
     cq, ck, cv = (t.contiguous() for t in (q, k, v))
     assert not q.is_contiguous() and cq.is_contiguous()
@@ -845,7 +956,7 @@ def test_flash_strided_equals_contiguous_and_backward_repeats(cuda_device,
 @pytest.mark.cuda
 def test_flash_rejects_a_stride_it_does_not_take(cuda_device):
     """A head-dim axis that is not contiguous raises before any launch."""
-    from bert4rec_tpu_torch.ops import flash_attention as fa
+    fa = importlib.import_module("bert4rec_tpu_torch.ops.flash_attention")
     q, k, v, mask, _ = flash_operands(cuda_device, (2, 2, 64, 32),
                                       torch.float32, 6)
     wide = torch.zeros((2, 2, 64, 64), device=cuda_device)
@@ -864,7 +975,7 @@ def test_flash_kernels_run_past_the_jax_sequence_limit(cuda_device, dtype):
     """Past JAX's MAX_FUSED_SEQ_LEN a CUDA tensor still launches K8/K9 (the
     plain route is the CPU's only), and they match the plain versions;
     past MAX_KERNEL_SEQ_LEN the call raises before any launch."""
-    from bert4rec_tpu_torch.ops import flash_attention as fa
+    fa = importlib.import_module("bert4rec_tpu_torch.ops.flash_attention")
     dims = (2, 2, fa.MAX_FUSED_SEQ_LEN + 76, 64)
     q, k, v, mask, do = flash_operands(cuda_device, dims, dtype, 7)
     qs, ks, vs = (t.detach().requires_grad_(True) for t in (q, k, v))
@@ -906,7 +1017,7 @@ def test_flash_bf16_kernels_match_plain_at_each_head_dim_and_length(
     dropout 0 and 0.2, on strided views with an all-pad row, a length-1 row
     and a front-padded row: forward within 2e-2 absolute, gradients within
     3e-2 of their scale."""
-    from bert4rec_tpu_torch.ops import flash_attention as fa
+    fa = importlib.import_module("bert4rec_tpu_torch.ops.flash_attention")
     q, k, v, mask, do = flash_operands(cuda_device, (4, 2, s, d),
                                        torch.bfloat16, s + d)
     for causal, rate in ((False, 0.0), (False, 0.2), (True, 0.0),
@@ -933,7 +1044,7 @@ def test_flash_bf16_strided_equals_contiguous_and_backward_repeats(
         cuda_device, d):
     """At the padded head dims too, the projection's views and their
     contiguous copies give the same bits, and two K9 runs the same bits."""
-    from bert4rec_tpu_torch.ops import flash_attention as fa
+    fa = importlib.import_module("bert4rec_tpu_torch.ops.flash_attention")
     q, k, v, mask, do = flash_operands(cuda_device, (4, 3, 130, d),
                                        torch.bfloat16, d)
     copies = [t.contiguous() for t in (q, k, v)]
@@ -953,7 +1064,7 @@ def test_flash_bf16_strided_equals_contiguous_and_backward_repeats(
 def test_flash_bf16_rejects_a_misaligned_view(cuda_device):
     """A bf16 view whose base or sequence stride is not a multiple of 16
     bytes raises before any launch (the copies read 16-byte pieces)."""
-    from bert4rec_tpu_torch.ops import flash_attention as fa
+    fa = importlib.import_module("bert4rec_tpu_torch.ops.flash_attention")
     q, k, v, mask, _ = flash_operands(cuda_device, (2, 2, 64, 64),
                                       torch.bfloat16, 9)
     flat = torch.zeros(q.numel() + 1, device=cuda_device,
@@ -976,7 +1087,7 @@ def test_flash_bf16_keep_bits_equal_the_plain_packing(cuda_device):
     """K8 writes the keep bits K9 reads in dropout_bits.tile_keep_bits'
     layout; the bf16 backward refuses to run at dropout without them."""
     from bert4rec_tpu_torch.ops import dropout_bits
-    from bert4rec_tpu_torch.ops import flash_attention as fa
+    fa = importlib.import_module("bert4rec_tpu_torch.ops.flash_attention")
     dims = (3, 4, 130, 64)
     q, k, v, mask, do = flash_operands(cuda_device, dims, torch.bfloat16, 10)
     _, saved = fa._launch_forward(q, k, v, mask, 12, 0.2, False, True)

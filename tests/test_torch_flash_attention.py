@@ -13,6 +13,8 @@ structure, and one train step on flash against the JAX trainer. The CUDA
 kernels themselves are held against the plain versions on a card in
 tests/test_torch_cuda_kernels.py."""
 
+import importlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -27,12 +29,14 @@ from bert4rec_tpu_torch.models import (
     BERT4RecConfig, BERT4RecModel, Bert4RecEncoder, SASRecModel,
 )
 from bert4rec_tpu_torch.ops import dropout_bits
-from bert4rec_tpu_torch.ops import flash_attention as fa
 from bert4rec_tpu_torch.utils import checkpoint
 from bert4rec_tpu_torch.utils.checkpoint import flatten, params_from_numpy
 from tests.test_torch_model import features, model_kwargs, random_params
 from tests.test_torch_model import to_jax
 from tests import test_torch_trainer as tt
+
+# the module: the package exports its function under the same name
+fa = importlib.import_module("bert4rec_tpu_torch.ops.flash_attention")
 
 # the JAX package's flash tolerances (tests/ops_tests/test_ops.py:28-56)
 FWD_TOL = dict(rtol=1e-5, atol=1e-5)

@@ -1,0 +1,197 @@
+"""The JAX package's surface the port lacked, held against the JAX package
+on the CPU: the trainer's constructor (``mesh``, ``eval_steps_per_call``)
+and its optional checkpoint records, the encoder's and the model's config
+round-trips, the package exports of ``utils``, ``ops`` and ``models``,
+``utils.load_json_config``, and the per-sequence masking laws
+``apply_dynamic_masking_task`` / ``mask_last_token_only``."""
+
+import json
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+import bert4rec_tpu.models as jax_models
+import bert4rec_tpu.ops as jax_ops
+import bert4rec_tpu.utils as jax_utils
+from bert4rec_tpu.dataloaders import dataloader_utils as jax_du
+from bert4rec_tpu.models import BERT4RecConfig as JaxConfig
+from bert4rec_tpu.models import BERT4RecModel as JaxModel
+from bert4rec_tpu.models import Bert4RecEncoder as JaxEncoder
+from bert4rec_tpu.trainers import BERT4RecTrainer as JaxTrainer
+from bert4rec_tpu.utils import checkpoint as jax_ckpt
+from bert4rec_tpu_torch import models, ops, utils
+from bert4rec_tpu_torch.dataloaders import dataloader_utils as du
+from bert4rec_tpu_torch.models import (
+    BERT4RecConfig, BERT4RecModel, Bert4RecEncoder,
+)
+from bert4rec_tpu_torch.trainers import BERT4RecTrainer, optimizers
+from bert4rec_tpu_torch.utils import checkpoint as ckpt
+from tests.test_torch_trainer import (
+    OPT, config_kwargs, dataset, host_params, jax_trainer,
+)
+
+
+def port_trainer(params, **trainer_kw):
+    trainer = BERT4RecTrainer(
+        BERT4RecModel(config=BERT4RecConfig(**config_kwargs())),
+        **trainer_kw)
+    trainer.initialize_model(
+        optimizer=optimizers.create_adam_w_optimizer(**OPT),
+        params=ckpt.params_from_numpy(params, "cpu"), device="cpu")
+    return trainer
+
+
+@pytest.fixture(scope="module")
+def jax_state():
+    trainer = jax_trainer()
+    return host_params(trainer), trainer
+
+
+class TestTrainerSurface:
+
+    def test_constructor_takes_jax_arguments_in_jax_order(self):
+        model = BERT4RecModel(config=BERT4RecConfig(**config_kwargs()))
+        t = BERT4RecTrainer(model, None, 2, 1, 3)
+        assert (t.mesh, t.steps_per_call, t.grad_accum_steps,
+                t.eval_steps_per_call) == (None, 2, 1, 3)
+        with pytest.raises(NotImplementedError, match="mesh"):
+            BERT4RecTrainer(model, mesh=object())
+        with pytest.raises(ValueError, match="mutually exclusive"):
+            BERT4RecTrainer(model, None, 2, 2)
+
+    @pytest.mark.parametrize("k", [1, 3])
+    def test_eval_steps_per_call_validates_as_jax(self, jax_state, k):
+        """validate() with eval_steps_per_call = k (JAX: a stacked eval
+        dispatch for full groups) gives JAX's metrics, the padded final
+        batch inside a partial group included; and the port's own result
+        is the same for every k."""
+        params, _ = jax_state
+        jt = JaxTrainer(JaxModel(config=JaxConfig(**config_kwargs())),
+                        eval_steps_per_call=k)
+        jt.initialize_model(rng=jax.random.key(0))
+        jt.state = jax_state[1].state
+        ours = port_trainer(params, eval_steps_per_call=k)
+        single = port_trainer(params)
+        val = dataset(n=72, seed=5)   # 5 batches of 16, the last padded
+        got = ours.validate(val, batch_size=16, seed=2)
+        theirs = jt.validate(val, batch_size=16, seed=2)
+        assert got == single.validate(val, batch_size=16, seed=2)
+        assert set(got) == set(theirs)
+        for key in got:
+            assert got[key] == pytest.approx(theirs[key], rel=1e-5, abs=1e-7)
+
+    def test_checkpoint_without_epoch_or_best_monitor_loads(
+            self, jax_state, tmp_path):
+        """Each package's checkpoint without the optional ``epoch`` and
+        ``best_monitor`` records (a legacy one) loads, leaving both unset;
+        with them, both packages read them back. (The two packages' optimizer
+        paths differ, ROADMAP.md A.2: each loads its own.)"""
+        params, jt = jax_state
+        ours = port_trainer(params)
+
+        def strip(name):
+            flat = ckpt.load_npz(tmp_path / f"{name}.npz")
+            np.savez(tmp_path / f"{name}_legacy.npz",
+                     **{k: v for k, v in flat.items()
+                        if k not in ("epoch", "best_monitor")})
+
+        for trainer, name in ((ours, "port"), (jt, "jax")):
+            trainer._epochs_completed, trainer._best_monitor_value = 4, 0.25
+            trainer.save_checkpoint(tmp_path / f"{name}.npz")
+            strip(name)
+        for trainer, name in ((port_trainer(params), "port"), (jt, "jax")):
+            trainer.load_checkpoint(tmp_path / f"{name}.npz")
+            assert (trainer._epochs_completed,
+                    trainer._best_monitor_value) == (4, 0.25), name
+            trainer.load_checkpoint(tmp_path / f"{name}_legacy.npz")
+            assert (trainer._epochs_completed,
+                    trainer._best_monitor_value) == (None, None), name
+        assert port_trainer(params).state["step"] == 0
+
+
+class TestConfigRoundTrips:
+
+    @pytest.mark.parametrize("over", [{}, dict(use_flash_attention=True,
+                                               remat=True)])
+    def test_encoder_get_config_and_from_config(self, over):
+        cfg = BERT4RecConfig(**config_kwargs(**over))
+        enc = Bert4RecEncoder(cfg)
+        assert enc.get_config() == JaxEncoder(
+            JaxConfig(**config_kwargs(**over))).get_config()
+        assert Bert4RecEncoder.from_config(enc.get_config()).config == cfg
+
+    @pytest.mark.parametrize("name", ["BERT4RecModel", "SASRecModel"])
+    def test_model_from_config(self, name):
+        """``from_config`` builds the class it is called on, with the
+        config JAX's class builds (SASRec's forces causal attention)."""
+        cls, jax_cls = getattr(models, name), getattr(jax_models, name)
+        d = BERT4RecConfig(**config_kwargs()).to_dict()
+        model = cls.from_config(d, special_token_ids=[0, 1])
+        assert type(model) is cls
+        assert model.special_token_ids == [0, 1]
+        assert model.get_config() == jax_cls.from_config(d).get_config()
+        assert model.config == BERT4RecConfig.from_dict(model.get_config())
+
+
+class TestExports:
+
+    @pytest.mark.parametrize("port,jax_pkg,missing", [
+        (utils, jax_utils, {"StepTimer", "hard_sync", "trace"}),
+        (ops, jax_ops, set()),
+        (models, jax_models, {"export", "quantization"}),
+    ], ids=["utils", "ops", "models"])
+    def test_package_exports_follow_jax(self, port, jax_pkg, missing):
+        """Every JAX export is exported by the port, but the modules not
+        ported yet (ROADMAP.md, queue A)."""
+        assert set(port.__all__) == set(jax_pkg.__all__) - missing
+        for name in port.__all__:
+            assert getattr(port, name) is not None
+
+    def test_load_json_config(self, tmp_path):
+        path = tmp_path / "c.json"
+        path.write_text(json.dumps({"hidden_size": 64, "layers": [1, 2]}))
+        assert utils.load_json_config(path) == \
+            jax_utils.load_json_config(path)
+        with pytest.raises(FileNotFoundError):
+            utils.load_json_config(tmp_path / "absent.json")
+
+    def test_pytree_exports_round_trip(self, tmp_path):
+        tree = {"a": {"b": np.arange(3, dtype=np.float32)},
+                "step": np.int64(7)}
+        utils.save_pytree(tmp_path / "t.npz", tree)
+        back = jax_ckpt.load_pytree(tmp_path / "t.npz", tree)
+        np.testing.assert_array_equal(back["a"]["b"], tree["a"]["b"])
+        got = utils.load_pytree(tmp_path / "t.npz",
+                                {"a": {"b": torch.zeros(3)}, "step": 0})
+        assert torch.equal(got["a"]["b"], torch.arange(3.0))
+        assert got["step"] == 7
+
+
+class TestPerSequenceMasking:
+
+    @pytest.mark.parametrize("seed", [0, 42, 7])
+    @pytest.mark.parametrize("rates", [(1.0, 0.0), (0.8, 0.1)])
+    @pytest.mark.parametrize("dtype", [np.int64, np.int32])
+    def test_apply_dynamic_masking_task_equals_jax(self, seed, rates, dtype):
+        seq = np.arange(3, 23, dtype=dtype)
+        kw = dict(max_selections_per_seq=5, mask_token_id=1,
+                  special_token_ids=[0, 2], vocab_size=50,
+                  selection_rate=0.2, mask_token_rate=rates[0],
+                  random_token_rate=rates[1], seed=seed)
+        ours = du.apply_dynamic_masking_task(seq, **kw)
+        theirs = jax_du.apply_dynamic_masking_task(seq, **kw)
+        for a, b in zip(ours, theirs):
+            assert a.dtype == b.dtype == dtype
+            np.testing.assert_array_equal(a, b)
+
+    @pytest.mark.parametrize("seq", [[5, 6, 7], [9]])
+    def test_mask_last_token_only_equals_jax(self, seq):
+        seq = np.array(seq, dtype=np.int64)
+        ours = du.mask_last_token_only(seq, 1)
+        theirs = jax_du.mask_last_token_only(seq, 1)
+        for a, b in zip(ours, theirs):
+            assert a.dtype == b.dtype
+            np.testing.assert_array_equal(a, b)
+        assert seq[-1] != 1   # the input is not masked in place

@@ -235,7 +235,7 @@ class TestAutograd:
 
 
 class TestKernelLayoutRule:
-    """The bf16 K6/K7 kernels copy 16-byte pieces of each operand row into
+    """The bf16 K4-K7 kernels copy 16-byte pieces of each operand row into
     shared memory: ``check_copy_alignment`` decides in Python, before the
     kernel library is reached, which bf16 layouts they take; widths below
     a wgmma width (64, 128, 256) are zero-filled, which the plain version
@@ -291,6 +291,41 @@ class TestKernelLayoutRule:
                     fml._launch_backward_tiled(
                         *self._operands(shifted.float(), table.float()),
                         merged)
+
+    @pytest.mark.parametrize("entry", ["K4", "K5", "K5_stats"])
+    def test_k4_and_k5_refuse_a_layout_before_the_kernel_library(self,
+                                                                 entry):
+        """bf16 K4 (from K3's lse) and K5 (both entries) run the same
+        copies: a misaligned base, a column slice or a width off the rule
+        raises ValueError without the library being loaded; an aligned bf16
+        layout and fp32 operands go on to it. K3, which stays on its
+        earlier tiles, takes any layout."""
+        table = self._bf16(200, 64)
+        shifted = torch.zeros(130 * 64 + 1, dtype=torch.bfloat16)[1:] \
+            .view(130, 64)
+
+        def launch(hidden, tbl):
+            ops = self._operands(hidden, tbl)
+            if entry == "K4":
+                return fml._launch_backward(*ops)
+            fn = {"K5": fml._launch_forward_tiled,
+                  "K5_stats": fml._launch_forward_tiled_stats}[entry]
+            return fn(*ops[:4])
+
+        reached = AssertionError("the kernel library was reached")
+        with mock.patch.object(fml, "_kernel_lib", side_effect=reached):
+            for hidden, tbl in ((shifted, table),
+                                (self._bf16(130, 64), self._bf16(200, 72)[:, :64]),
+                                (self._bf16(130, 36), self._bf16(200, 36)),
+                                (self._bf16(130, 264), self._bf16(200, 264))):
+                with pytest.raises(ValueError, match="16-byte"):
+                    launch(hidden, tbl)
+            for hidden, tbl in ((self._bf16(130, 64), table),
+                                (shifted.float(), table.float())):
+                with pytest.raises(AssertionError, match="reached"):
+                    launch(hidden, tbl)
+            with pytest.raises(AssertionError, match="reached"):
+                fml._launch_forward(*self._operands(shifted, table)[:4])
 
     @pytest.mark.parametrize("w", [8, 40, 72, 200])
     def test_zero_filled_width_is_exact(self, w):
