@@ -30,11 +30,18 @@
 // (K5-K7) in VMEM; an H100 block has 227 KB, so every kernel here streams
 // 64-row tiles and recomputes the logits tile it needs. By operand type
 // (an explicit dispatch on `dtype`, nothing caught):
-//   loss_fwd_kernel     K3 (both types): one block per 64-row tile, online
-//                       max / sum over all vocabulary tiles (bf16 on
-//                       mma.sync from fp32-staged tiles); lse and per-block
-//                       partials of the four sums (reduced in a second,
-//                       ordered pass)
+//   fp32 K3             loss_fwd_kernel: one block per 64-row tile, online
+//                       max / sum over all vocabulary tiles as SIMT loops;
+//                       lse and per-block partials of the four sums
+//                       (reduced in a second, ordered pass)
+//   bf16 K3             K5's two passes over the whole table: the sweep
+//                       below, then loss_tiled_merge_kernel, m / s / ll not
+//                       written. Split law: K5's (fwd_splits, mirrored
+//                       by ops/fused_mlm_loss.py whole_table_splits),
+//                       ~1,024 blocks; at ml-1m's batch (R = 10,240, V =
+//                       3,709, W = 128) 13 splits x 80 row blocks, which
+//                       measured faster than one split's 80 blocks on 132
+//                       SMs (PERF.md)
 //   bf16 K4-K7          loss_hopper.cuh's wgmma kernels: bf16 tiles by
 //                       cp.async into the 128-byte swizzle, the logits in
 //                       registers. K5: blocks of 128 hidden rows (two
@@ -86,7 +93,8 @@
 // Bound. 2 R V W FLOP forward, 6 R V W backward (the logits, dh, dtable; K7
 // recomputes the logits once more, which the bound does not count), against
 // megabytes of inputs: bound by operations (0.071 ms for K5 and 0.213 ms for
-// K6 at the ML-20M batch, R = 10,240, V = 26,732, W = 128, at 989 TFLOP/s).
+// K6 at the ML-20M batch, R = 10,240, V = 26,732, W = 128, and 0.00983 ms
+// for bf16 K3 at ml-1m's, at 989 TFLOP/s).
 // K5 also takes one exponential per (row, vocabulary entry): 274 M at that
 // batch, about as long on the special-function units as its products on
 // the tensor cores, which is why its design overlaps the two.
@@ -121,6 +129,7 @@ __device__ __forceinline__ void load_bias(float* bs, const float* __restrict__ b
   for (int c = threadIdx.x; c < LT; c += 256) bs[c] = (v0 + c < V) ? bias[v0 + c] : -INFINITY;
 }
 
+// fp32 K3 (bf16: loss_hopper.cuh's loss_fwd_sweep_kernel and the merge below)
 template <typename T>
 __global__ void __launch_bounds__(256)
 loss_fwd_kernel(const T* __restrict__ hidden, const T* __restrict__ table,
@@ -133,10 +142,8 @@ loss_fwd_kernel(const T* __restrict__ hidden, const T* __restrict__ table,
   float* bs = Ts + LT * (W + 1);       // [64]
   float* ll = bs + LT;                 // [64] label logits
   float* rowv = ll + LT;               // [4][64] per-row nll*w, c*w, c, w
-  float* scr = rowv + 4 * LT;          // [64][65] tensor-core scratch
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
   const int r0 = blockIdx.x * LT;
-  constexpr bool kMma = kIsBf16<T>;
 
   load_rows(Hs, hidden, r0, R, W);
   for (int r = tid; r < LT; r += 256) ll[r] = 0.f;
@@ -153,7 +160,7 @@ loss_fwd_kernel(const T* __restrict__ hidden, const T* __restrict__ table,
     load_rows(Ts, table, v0, V, W);
     load_bias(bs, bias, v0, V);
     __syncthreads();
-    tile_dots<kMma>(s, Hs, Ts, tx, ty, W, scr);
+    tile_dots(s, Hs, Ts, tx, ty, W);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
 #pragma unroll
@@ -623,7 +630,7 @@ reduce_rows_cast_kernel(const float* __restrict__ part, T* __restrict__ out, int
 }
 
 size_t fwd_smem_bytes(int W) {
-  return sizeof(float) * (size_t)(2 * LT * (W + 1) + 6 * LT + LT * (LT + 1));
+  return sizeof(float) * (size_t)(2 * LT * (W + 1) + 6 * LT);
 }
 size_t tiled_fwd_smem_bytes(int W) {
   return sizeof(float) * (size_t)(2 * LT * (W + 1) + 2 * LT);
@@ -654,28 +661,30 @@ int fwd_splits(int dtype, int R, int V, int W) {
 }
 int merged_groups(int V) { return std::min(ceil_div(V, LT), MERGED_GROUPS); }
 
-// K3's per-block partial sums; fp32 K4's split dtable partials (bf16 K4
-// runs loss_hopper.cuh's sweeps, which need none)
+// fp32 K3's per-block partial sums and fp32 K4's split dtable partials
+// (bf16 K3 carves TiledFwdScratch below; bf16 K4 runs loss_hopper.cuh's
+// sweeps, which need none)
 struct LossScratch {
   float *part_fwd, *part_dt, *part_db;
   size_t bytes;
-  LossScratch(void* base, int dtype, int R, int V, int W) {
+  LossScratch(void* base, int R, int V, int W) {
     Carve c{static_cast<char*>(base), 0};
     part_fwd = c.take<float>((size_t)ceil_div(R, LT) * 4);
-    const size_t splits = dtype == 0 ? dt_splits(R) : 0;
-    part_dt = splits ? c.take<float>(splits * V * W) : nullptr;
-    part_db = splits ? c.take<float>(splits * V) : nullptr;
+    const size_t splits = dt_splits(R);
+    part_dt = c.take<float>(splits * V * W);
+    part_db = c.take<float>(splits * V);
     bytes = c.used;
   }
 };
 
-// K5: per-split row stats and per-block partial sums; no V x W term
+// K5 and bf16 K3: per-split row stats and per-block partial sums; no V x W
+// term
 struct TiledFwdScratch {
   float *part_m, *part_s, *part_ll, *part_sums;
   size_t bytes;
-  TiledFwdScratch(void* base, int dtype, int R, int V, int W) {
+  TiledFwdScratch(void* base, int n_splits, int R) {
     Carve c{static_cast<char*>(base), 0};
-    const size_t n = (size_t)fwd_splits(dtype, R, V, W) * R;
+    const size_t n = (size_t)n_splits * R;
     part_m = c.take<float>(n);
     part_s = c.take<float>(n);
     part_ll = c.take<float>(n);
@@ -697,18 +706,18 @@ struct TiledBwdScratch {
   }
 };
 
-template <typename T>
-int loss_forward(const void* hidden, const void* table, const float* bias,
-                 const int32_t* labels, float* lse, float* sums, void* workspace,
-                 int R, int V, int W, cudaStream_t stream) {
-  LossScratch w(workspace, kIsBf16<T> ? 1 : 0, R, V, W);
+// fp32 K3 (bf16 K3 is tiled_forward's bf16 sweep over the whole table)
+int loss_forward_f32(const void* hidden, const void* table, const float* bias,
+                     const int32_t* labels, float* lse, float* sums, void* workspace,
+                     int R, int V, int W, cudaStream_t stream) {
+  LossScratch w(workspace, R, V, W);
   const size_t smem = fwd_smem_bytes(W);
   cudaError_t err = cudaFuncSetAttribute(
-      loss_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      loss_fwd_kernel<float>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  loss_fwd_kernel<T><<<ceil_div(R, LT), 256, smem, stream>>>(
-      static_cast<const T*>(hidden), static_cast<const T*>(table), bias, labels, lse,
-      w.part_fwd, R, V, W);
+  loss_fwd_kernel<float><<<ceil_div(R, LT), 256, smem, stream>>>(
+      static_cast<const float*>(hidden), static_cast<const float*>(table), bias, labels,
+      lse, w.part_fwd, R, V, W);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   return (int)reduce_rows(w.part_fwd, sums, ceil_div(R, LT), 4, stream);
 }
@@ -722,14 +731,15 @@ bool hopper_layout(const void* hidden, const void* table, const void* dh, int W)
          W % 8 == 0 && W <= LOSS_MAXW;
 }
 
-// K5: the first pass (fp32 loss_tiled_fwd_kernel, bf16 loss_hopper.cuh's
-// loss_fwd_sweep_kernel) writes each split's row stats; loss_tiled_merge_kernel
-// merges them in split order
+// K5 and bf16 K3: the first pass (fp32 loss_tiled_fwd_kernel, bf16
+// loss_hopper.cuh's loss_fwd_sweep_kernel) writes each of the n_splits
+// vocabulary splits' row stats; loss_tiled_merge_kernel merges them in split
+// order
 int tiled_forward(int dtype, const void* hidden, const void* table, const float* bias,
                   const int32_t* labels, float* lse, float* sums, float* m, float* s,
-                  float* ll, void* workspace, int R, int V, int W, cudaStream_t stream) {
-  TiledFwdScratch w(workspace, dtype, R, V, W);
-  const int n_splits = fwd_splits(dtype, R, V, W);
+                  float* ll, void* workspace, int R, int V, int W, int n_splits,
+                  cudaStream_t stream) {
+  TiledFwdScratch w(workspace, n_splits, R);
   cudaError_t err;
   if (dtype == 1) {
     if (!hopper_layout(hidden, table, nullptr, W)) return (int)cudaErrorInvalidValue;
@@ -821,7 +831,7 @@ int loss_backward_w(int mode, const float* hidden, const float* table, const flo
   if (mode == 2)
     return (int)launch_vt<WJ, false>(hidden, table, bias, labels, lse, g, n_valid, vge0,
                                      dt, db, nullptr, R, V, W, vtiles, stream);
-  LossScratch w(workspace, 0, R, V, W);
+  LossScratch w(workspace, R, V, W);
   const int splits = dt_splits(R);
   const size_t smem = dt_smem_bytes(W);
   err = cudaFuncSetAttribute(loss_bwd_dt_kernel<WJ>,
@@ -889,16 +899,18 @@ extern "C" {
 // Limit the wrapper checks before calling (ops/fused_mlm_loss.py).
 int b4r_mlm_loss_max_width() { return LOSS_MAXW; }
 
-// Bytes of the workspace K3 / K4 carve their partials from in dtype: K3's
-// row-block sums, and fp32 K4's split dtable partials.
+// Bytes of the workspace K3 / K4 carve their partials from in dtype: fp32
+// K3's row-block sums and fp32 K4's split dtable partials; bf16 K3's
+// vocabulary splits' row stats and its row-block sums (bf16 K4 needs none).
 size_t b4r_mlm_loss_workspace_bytes(int dtype, int R, int V, int W) {
-  return LossScratch(nullptr, dtype, R, V, W).bytes;
+  if (dtype == 1) return TiledFwdScratch(nullptr, fwd_splits(1, R, V, W), R).bytes;
+  return LossScratch(nullptr, R, V, W).bytes;
 }
 
 // Bytes of K5's workspace in dtype: splits x R x 3 + the row-block sums, no
 // V x W.
 size_t b4r_mlm_loss_tiled_fwd_workspace_bytes(int dtype, int R, int V, int W) {
-  return TiledFwdScratch(nullptr, dtype, R, V, W).bytes;
+  return TiledFwdScratch(nullptr, fwd_splits(dtype, R, V, W), R).bytes;
 }
 
 // Bytes of K6's (merged = 1) or K7's (merged = 0) workspace in dtype.
@@ -906,17 +918,19 @@ size_t b4r_mlm_loss_tiled_bwd_workspace_bytes(int dtype, int R, int V, int W, in
   return TiledBwdScratch(nullptr, dtype, R, V, W, merged).bytes;
 }
 
-// dtype: 0 = float32, 1 = bfloat16 for hidden and table (and dh). Writes
-// lse [R] and sums [4] = (sum nll * w, sum correct * w, sum correct, sum w).
+// K3. dtype: 0 = float32, 1 = bfloat16 for hidden and table (and dh).
+// Writes lse [R] and sums [4] = (sum nll * w, sum correct * w, sum correct,
+// sum w). bf16 runs K5's sweep over K5's vocabulary splits (fwd_splits)
+// and the ordered merge.
 int b4r_mlm_loss_fwd(int dtype, const void* hidden, const void* table,
                      const float* bias, const int32_t* labels, float* lse, float* sums,
                      void* workspace, int R, int V, int W, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return loss_forward<float>(hidden, table, bias, labels, lse, sums, workspace, R, V, W, st);
+    return loss_forward_f32(hidden, table, bias, labels, lse, sums, workspace, R, V, W, st);
   if (dtype == 1)
-    return loss_forward<__nv_bfloat16>(hidden, table, bias, labels, lse, sums, workspace,
-                                       R, V, W, st);
+    return tiled_forward(1, hidden, table, bias, labels, lse, sums, nullptr, nullptr,
+                         nullptr, workspace, R, V, W, fwd_splits(1, R, V, W), st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -929,7 +943,8 @@ int b4r_mlm_loss_tiled_fwd(int dtype, const void* hidden, const void* table,
                            int W, void* stream) {
   if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
   return tiled_forward(dtype, hidden, table, bias, labels, lse, sums, m, s, ll, workspace,
-                       R, V, W, static_cast<cudaStream_t>(stream));
+                       R, V, W, fwd_splits(dtype, R, V, W),
+                       static_cast<cudaStream_t>(stream));
 }
 
 // K4. g: the loss's cotangent (one float on the device); n_valid: sums[3]

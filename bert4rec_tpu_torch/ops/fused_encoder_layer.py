@@ -19,7 +19,13 @@ against a few MB of activations: the layer is bound by operations.
 dim and F multiples of 8 runs the ``wgmma`` kernels of
 ``csrc/layer_hopper.cuh`` (attention on ``csrc/flash_hopper.cuh``'s); any
 other bf16 shape the earlier ``mma.sync`` kernels (counted apart, in
-``mma_sync_launches``); fp32 the SIMT loops. Their times are in PERF.md.
+``mma_sync_launches``); an fp32 forward that saves nothing for a backward
+and draws no dropout (serving, evaluation) at H <= 256, head dim <= 64,
+H, head dim and F multiples of 8 the 3xTF32 ``wgmma`` kernels of
+``csrc/layer_tf32.cu`` (counted also in ``tf32_launches``; each launch
+transposes its weights and splits them into TF32 hi and lo parts itself,
+so nothing is cached); every other fp32 launch the SIMT loops. Their times
+are in PERF.md.
 
 What it computes is ``_layer_fwd_math`` and ``_bwd_element``:
 tanh-approximate gelu (whatever ``inner_activation`` says — the JAX kernel
@@ -56,6 +62,10 @@ MAX_FUSED_SEQ_LEN = 512
 MAX_KERNEL_HIDDEN = 512
 MAX_KERNEL_HEAD_DIM = 128
 MAX_KERNEL_BATCH = 65535
+# the 3xTF32 inference kernels' limits (b4r_fused_layer_tf32_max_hidden /
+# _max_head_dim in csrc/layer_tf32.cu)
+TF32_MAX_HIDDEN = 256
+TF32_MAX_HEAD_DIM = 64
 VMEM_BUDGET_BYTES = 14 * 1024 * 1024
 _SITES_PER_CELL = dropout_bits.SITES_PER_CELL
 _LOG2E = math.log2(math.e)
@@ -358,6 +368,8 @@ _lib = None
 _FWD_PTRS = ("x", "mask", *_W_ORDER, "qkv", "ctx", "x1", "hact", "y",
              "xhat1", "rstd1", "xhat2", "rstd2", "stat_m", "stat_l", "rel",
              "keep_bits")
+_TF32_PTRS = ("x", "mask", *_W_ORDER, "qkv", "ctx", "x1", "hact", "y", "rel",
+              "wt")
 _BWD_PTRS = ("x", "mask", "dy", "wqkv_t", "wo_t", "w1", "w1_t", "w2_t", "bf1",
              "g1", "g2", "qkv", "ctx", "x1", "hact", "xhat1", "rstd1",
              "xhat2", "rstd2", "stat_m", "stat_l", "dx", "dwqkv", "dbqkv",
@@ -396,6 +408,33 @@ def _kernel_lib():
     return _lib
 
 
+_tf32_lib = None
+
+
+def _kernel_lib_tf32():
+    global _tf32_lib
+    if _tf32_lib is None:
+        from bert4rec_tpu_torch.ops import kernel_build
+        lib = kernel_build.load("layer_tf32")
+        ci = ctypes.c_int
+        lib.b4r_fused_layer_fwd_tf32.restype = ci
+        lib.b4r_fused_layer_fwd_tf32.argtypes = [ctypes.c_void_p] + [ci] * 6 \
+            + [ctypes.c_float, ctypes.c_void_p]
+        for name in ("b4r_fused_layer_tf32_max_hidden",
+                     "b4r_fused_layer_tf32_max_head_dim"):
+            getattr(lib, name).restype = ci
+            getattr(lib, name).argtypes = []
+        lib.b4r_fused_layer_tf32_workspace_bytes.restype = ctypes.c_size_t
+        lib.b4r_fused_layer_tf32_workspace_bytes.argtypes = [ci, ci]
+        if (lib.b4r_fused_layer_tf32_max_hidden(),
+                lib.b4r_fused_layer_tf32_max_head_dim()) \
+                != (TF32_MAX_HIDDEN, TF32_MAX_HEAD_DIM):
+            raise RuntimeError("the 3xTF32 kernel library's limits differ "
+                               "from TF32_MAX_HIDDEN / TF32_MAX_HEAD_DIM")
+        _tf32_lib = lib
+    return _tf32_lib
+
+
 def _check_operands(x, input_mask, flat, num_heads):
     if x.dim() != 3:
         raise ValueError(f"x must be [B, S, H], got {tuple(x.shape)}")
@@ -423,13 +462,19 @@ def _check_operands(x, input_mask, flat, num_heads):
 
 
 def kernel_route(dtype, batch: int, hidden: int, num_heads: int,
-                 inner_dim: int) -> str:
+                 inner_dim: int, *, save: bool = True,
+                 attn_rate: float = 0.0, out_rate: float = 0.0) -> str:
     """Which CUDA kernels run a layer of this shape (the shape law, decided
     before any launch): ``"wgmma"`` (bf16 on the warpgroup kernels of
     ``csrc/layer_hopper.cuh``, whose 16-byte copies need H, the head dim
     and F to be multiples of 8), ``"mma_sync"`` (any other bf16 shape: the
-    earlier ``mma.sync`` kernels) or ``"simt"`` (fp32: the SIMT kernels).
-    Raises ValueError past every kernel's limits."""
+    earlier ``mma.sync`` kernels), ``"tf32"`` (an fp32 forward that saves
+    nothing for a backward, ``save`` False, at both dropout rates 0 — what
+    the encoder passes outside training — with H <= 256, head dim <= 64
+    and H, head dim and F multiples of 8: the 3xTF32 kernels of
+    ``csrc/layer_tf32.cu``) or ``"simt"`` (every other fp32 launch: the
+    SIMT kernels, whose row statistics the fp32 backward reads). Raises
+    ValueError past every kernel's limits."""
     d = hidden // num_heads
     if hidden > MAX_KERNEL_HIDDEN or d > MAX_KERNEL_HEAD_DIM \
             or batch > MAX_KERNEL_BATCH:
@@ -437,13 +482,15 @@ def kernel_route(dtype, batch: int, hidden: int, num_heads: int,
             f"fused layer kernel takes hidden <= {MAX_KERNEL_HIDDEN}, head "
             f"dim <= {MAX_KERNEL_HEAD_DIM} and batch <= {MAX_KERNEL_BATCH};"
             f" got hidden {hidden}, {num_heads} heads, batch {batch}")
+    aligned = hidden % 8 == 0 and d % 8 == 0 and inner_dim % 8 == 0
     if dtype == torch.float32:
+        if (not save and attn_rate == 0.0 and out_rate == 0.0 and aligned
+                and hidden <= TF32_MAX_HIDDEN and d <= TF32_MAX_HEAD_DIM):
+            return "tf32"
         return "simt"
     if dtype != torch.bfloat16:
         raise ValueError(f"no fused layer kernel for {dtype}")
-    if hidden % 8 == 0 and d % 8 == 0 and inner_dim % 8 == 0:
-        return "wgmma"
-    return "mma_sync"
+    return "wgmma" if aligned else "mma_sync"
 
 
 def _check_kernel_limits(lib):
@@ -517,6 +564,35 @@ def _check_rel(rel, b, n, s, device):
                          f"{tuple(rel.shape)} on {rel.device}")
 
 
+def _launch_forward_tf32(flat: dict, x: torch.Tensor,
+                         input_mask: torch.Tensor, num_heads: int,
+                         causal: bool, rel):
+    """K1 (fp32, inference: nothing saved, no dropout) on the 3xTF32
+    kernels of ``csrc/layer_tf32.cu``; returns ``y``. The launch writes the
+    weights' transposed TF32 hi and lo parts into its own workspace."""
+    lib = _kernel_lib_tf32()
+    b, s, h = x.shape
+    f = flat["w1"].shape[1]
+    m, dev = b * s, x.device
+    ops = {k: _aligned16(flat[k].contiguous()) if k not in _MATRICES
+           else flat[k].float().contiguous() for k in _W_ORDER}
+    f32 = dict(dtype=torch.float32, device=dev)
+    ws = lib.b4r_fused_layer_tf32_workspace_bytes(h, f)
+    ops.update(x=_aligned16(x.contiguous()), mask=input_mask.contiguous(),
+               wt=torch.empty((ws,), dtype=torch.uint8, device=dev), rel=rel,
+               qkv=torch.empty((m, 3 * h), **f32),
+               ctx=torch.empty((m, h), **f32), x1=torch.empty((m, h), **f32),
+               hact=torch.empty((m, f), **f32), y=torch.empty((b, s, h), **f32))
+    err = lib.b4r_fused_layer_fwd_tf32(
+        _ptr_array(ops, _TF32_PTRS), b, s, h, num_heads, f, int(causal),
+        1.0 / math.sqrt(h // num_heads),
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"fused_encoder_layer 3xTF32 kernel launch "
+                           f"failed: CUDA error {err}")
+    return ops["y"]
+
+
 def _launch_forward(flat: dict, x: torch.Tensor, input_mask: torch.Tensor,
                     num_heads: int, seed: int, attn_rate: float,
                     out_rate: float, save: bool, causal: bool = False,
@@ -526,7 +602,13 @@ def _launch_forward(flat: dict, x: torch.Tensor, input_mask: torch.Tensor,
     statistics the backward reads (empty unless ``save``)."""
     b, s, h = x.shape
     f = flat["w1"].shape[1]
-    route = kernel_route(x.dtype, b, h, num_heads, f)
+    route = kernel_route(x.dtype, b, h, num_heads, f, save=save,
+                         attn_rate=attn_rate, out_rate=out_rate)
+    if rel is not None:
+        _check_rel(rel, b, num_heads, s, x.device)
+    if route == "tf32":
+        return _launch_forward_tf32(flat, x, input_mask, num_heads, causal,
+                                    rel), ()
     lib = _kernel_lib()
     _check_kernel_limits(lib)
     m = b * s
@@ -537,8 +619,6 @@ def _launch_forward(flat: dict, x: torch.Tensor, input_mask: torch.Tensor,
     if route == "wgmma":   # 16-byte copies and loads, vectors too
         ops = {k: _aligned16(v) for k, v in ops.items()}
         x = _aligned16(x)
-    if rel is not None:
-        _check_rel(rel, b, num_heads, s, dev)
     ops.update(x=x, mask=input_mask.contiguous(), rel=rel,
                qkv=torch.empty((m, 3 * h), dtype=dt, device=dev),
                ctx=torch.empty((m, h), dtype=dt, device=dev),
@@ -643,20 +723,24 @@ def _count(backward: bool, causal: bool, rel: bool,
     """One launch of the CUDA kernels, in the counter of its variant: the
     relative-bias launches (causal or not) apart, then the causal ones; a
     bf16 launch the shape law sends to the ``mma.sync`` kernels also in
-    ``mma_sync_launches`` / ``mma_sync_backward_launches``."""
+    ``mma_sync_launches`` / ``mma_sync_backward_launches``, an fp32 one it
+    sends to the 3xTF32 kernels also in ``tf32_launches``."""
     kind = "rel_" if rel else "causal_" if causal else ""
     names = [f"{kind}backward_launches" if backward else f"{kind}launches"]
     if route == "mma_sync":
         names.append("mma_sync_backward_launches" if backward
                      else "mma_sync_launches")
+    if route == "tf32":
+        names.append("tf32_launches")
     for name in names:
         setattr(fused_encoder_layer, name,
                 getattr(fused_encoder_layer, name) + 1)
 
 
-def _route_of(x, flat, num_heads) -> str:
+def _route_of(x, flat, num_heads, **launch) -> str:
     b, _, h = x.shape
-    return kernel_route(x.dtype, b, h, num_heads, flat["w1"].shape[1])
+    return kernel_route(x.dtype, b, h, num_heads, flat["w1"].shape[1],
+                        **launch)
 
 
 class _FusedLayer(torch.autograd.Function):
@@ -684,7 +768,8 @@ class _FusedLayer(torch.autograd.Function):
                                        attn_rate, out_rate, save,
                                        causal=causal, rel=rel)
             _count(False, causal, rel is not None,
-                   _route_of(x, flat, num_heads))
+                   _route_of(x, flat, num_heads, save=save,
+                             attn_rate=attn_rate, out_rate=out_rate))
         if save:
             rel_saved = () if rel is None else (rel,)
             ctx.save_for_backward(x, input_mask, *rel_saved, *flat_tuple,
@@ -736,8 +821,9 @@ def fused_encoder_layer(params: dict, x: torch.Tensor,
     launch in ``backward_launches`` (``causal_backward_launches``,
     ``rel_backward_launches``); a bf16 launch the shape law
     (``kernel_route``) sends to the ``mma.sync`` kernels also counts in
-    ``mma_sync_launches`` / ``mma_sync_backward_launches``. A CPU ``x``
-    runs the plain versions.
+    ``mma_sync_launches`` / ``mma_sync_backward_launches``, and an fp32
+    launch it sends to the 3xTF32 kernels (inference) in
+    ``tf32_launches``. A CPU ``x`` runs the plain versions.
     """
     flat = flat_weights(params)
     _check_operands(x, input_mask, flat, num_heads)
@@ -765,3 +851,4 @@ fused_encoder_layer.rel_launches = 0
 fused_encoder_layer.rel_backward_launches = 0
 fused_encoder_layer.mma_sync_launches = 0
 fused_encoder_layer.mma_sync_backward_launches = 0
+fused_encoder_layer.tf32_launches = 0

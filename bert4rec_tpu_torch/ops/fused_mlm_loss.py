@@ -18,20 +18,21 @@ FLOP forward, 6·R·V·W (K4, K6) or 8·R·V·W (K7) backward, against a few MB
 of inputs — bound by operations; bf16 products on the tensor cores, fp32
 ones as SIMT loops (times in PERF.md).
 
-By operand type (an explicit dispatch, nothing caught): bf16 K4-K7 run the
+By operand type (an explicit dispatch, nothing caught): bf16 K3-K7 run the
 ``wgmma`` kernels of ``csrc/loss_hopper.cuh`` (bf16 tiles by ``cp.async``,
 the logits and dlog in registers). K5 holds 128 hidden rows a block as
-register fragments, overlaps one vocabulary tile's online softmax with
-the next tile's product, and merges its vocabulary splits in split order;
-K4 runs K7's two sweeps from K3's lse; K7's two sweeps and K6 sum their
-fp32 partials across a thread-block cluster through distributed shared
-memory, K6 into at most 32 dh partials of ``R x W`` that do not grow with
-V. fp32 K4-K7 and K3 in both types run the earlier tiles. Layout rule of
-the bf16 K4-K7 (``check_copy_alignment``, raised before the library is
-reached): hidden and table contiguous with a 16-byte aligned base and
-rows, W a multiple of 8 up to 256 (zero-filled to 64, 128 or 256). The
-main path's gathered hidden rows and cast table meet it at every config
-width (64, 128, 256).
+register fragments, overlaps one vocabulary tile's online softmax with the
+next tile's product, and merges its vocabulary splits in split order; K3 is
+the same sweep and merge over the whole table, its vocabulary split by K5's
+law (``whole_table_splits`` is its Python mirror); K4 runs K7's two sweeps
+from K3's lse; K7's two sweeps and K6 sum their fp32 partials across a
+thread-block cluster through distributed shared memory, K6 into at most 32
+dh partials of ``R x W`` that do not grow with V. fp32 K3-K7 run the
+earlier tiles. Layout rule of the bf16 K3-K7 (``check_copy_alignment``,
+raised before the library is reached): hidden and table contiguous with a
+16-byte aligned base and rows, W a multiple of 8 up to 256 (zero-filled to
+64, 128 or 256). The main path's gathered hidden rows and cast table meet
+it at every config width (64, 128, 256).
 
 Semantics are the JAX kernels': loss = mean NLL over labels > 0;
 ``masked_accuracy`` = correct-and-valid / n_valid; ``accuracy`` = correct
@@ -197,12 +198,62 @@ def _kernel_lib():
     return _lib
 
 
+# bf16 K5's blocks (csrc/loss_hopper.cuh kFwdRows, kFwdItems, kFwdN): 128
+# hidden rows each, the vocabulary split until the grid holds ~1,024 blocks,
+# a split at least one vocabulary tile of 64 entries (128 at W > 128)
+_FWD_ROWS, _FWD_ITEMS = 128, 1024
+
+
+def tiled_forward_splits(rows: int, v: int, w: int) -> int:
+    """bf16 K5's vocabulary splits (``loss_hopper::fwd_splits``): the
+    fewest that bring (128-row blocks x splits) to 1,024, at most one per
+    vocabulary tile."""
+    tile = 128 if w > 128 else 64
+    rblocks, vtiles = -(-rows // _FWD_ROWS), -(-v // tile)
+    return max(1, min(vtiles, -(-_FWD_ITEMS // rblocks)))
+
+
+def whole_table_splits(rows: int, v: int, w: int,
+                       dtype: torch.dtype = torch.bfloat16) -> int:
+    """K3's vocabulary splits. bf16 K3 runs K5's sweep over the whole table
+    and splits it by K5's law (``tiled_forward_splits``): at ml-1m's batch
+    (R = 10,240, V = 3,709, W = 128) 13 splits, 1,040 blocks, against one
+    split's 80 blocks on 132 SMs, which measured slower on the card
+    (PERF.md). fp32 K3 does not split (one block per 64-row tile): 1. The
+    library decides the splits itself (``fwd_splits`` in
+    csrc/fused_mlm_loss.cu); this mirror and ``whole_table_workspace_bytes``
+    are held against the library's workspace bytes by the card tests."""
+    if dtype != torch.bfloat16:
+        return 1
+    return tiled_forward_splits(rows, v, w)
+
+
+def _carved(*counts: int) -> int:
+    """Bytes of fp32 arrays of ``counts`` elements carved one after another,
+    each rounded up to 256 bytes (``Carve`` in csrc/common.cuh)."""
+    return sum(-(-4 * n // 256) * 256 for n in counts)
+
+
+def whole_table_workspace_bytes(rows: int, v: int, w: int,
+                                dtype: torch.dtype = torch.bfloat16) -> int:
+    """K3 / K4's workspace (``b4r_mlm_loss_workspace_bytes``): bf16 K3's
+    per-split row (max, sum, label logit) and its 256-row block sums
+    (bf16 K4 needs none); fp32 K3's 64-row block sums and fp32 K4's dtable
+    and dbias partials of 1,024-row splits."""
+    if dtype == torch.bfloat16:
+        n = whole_table_splits(rows, v, w, dtype) * rows
+        return _carved(n, n, n, -(-rows // 256) * 4)
+    splits = -(-rows // 1024)
+    return _carved(-(-rows // 64) * 4, splits * v * w, splits * v)
+
+
 def workspace_bytes(kernel: str, rows: int, v: int, w: int,
                     dtype: torch.dtype = torch.bfloat16) -> int:
     """Bytes of device workspace the library asks for: ``kernel`` is
     ``"K3/K4"``, ``"K5"``, ``"K6"`` or ``"K7"``, in the operand ``dtype``
-    (bf16, the main path's, runs other kernels than fp32: its K4 needs no
-    dtable partials, its K5 splits the vocabulary by another law)."""
+    (bf16, the main path's, runs other kernels than fp32: its K3 is K5's
+    sweep, its K4 needs no dtable partials, its K5 splits the vocabulary by
+    another law)."""
     lib = _kernel_lib()
     code = _DTYPE_CODE[dtype]
     if kernel == "K3/K4":
@@ -236,6 +287,7 @@ def _ptr(t):
 
 def _launch_forward(hidden, table, bias, labels):
     """K3: ``(lse [R], sums [4])``."""
+    _check_layout(hidden, table)
     lib = _kernel_lib()
     rows, w = hidden.shape
     v = table.shape[0]
@@ -305,7 +357,7 @@ def _launch_forward_tiled_stats(hidden, table, bias, labels):
 
 
 def check_copy_alignment(t: torch.Tensor, name: str) -> None:
-    """The bf16 K4-K7 kernels copy operand rows in 16-byte pieces: raises
+    """The bf16 K3-K7 kernels copy operand rows in 16-byte pieces: raises
     unless ``t`` is a contiguous ``[rows, W]`` matrix with a 16-byte
     aligned base and rows (W a multiple of 8) and W <= LOSS_MAXW."""
     bad = []
@@ -317,14 +369,14 @@ def check_copy_alignment(t: torch.Tensor, name: str) -> None:
         bad.append(f"width {t.shape[1]} is not a multiple of 8 up to "
                    f"{LOSS_MAXW}")
     if bad:
-        raise ValueError(f"the bf16 loss kernels K4-K7 take "
+        raise ValueError(f"the bf16 loss kernels K3-K7 take "
                          f"contiguous operands with a 16-byte aligned base "
                          f"and rows; {name} of shape {tuple(t.shape)}: "
                          + "; ".join(bad))
 
 
 def _check_layout(hidden, table):
-    """bf16 K4-K7's layout rule, before the library is reached."""
+    """bf16 K3-K7's layout rule, before the library is reached."""
     if hidden.dtype == torch.bfloat16:
         check_copy_alignment(hidden, "hidden")
         check_copy_alignment(table, "table")

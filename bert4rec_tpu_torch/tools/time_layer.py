@@ -17,7 +17,10 @@ H=128, 4 heads, F=512, bf16, right-padded rows of random length, dropout
 (~ N(0, 1), fp32 [B, N, S, S]) at 0.1 / 0.1, the temporal ml-20m_128's;
 with ``--hidden 256`` also ml-20m_256's width (H=256, 8 heads, F=1024,
 dropout 0.1 / 0.1); K8 / K9 at bert_base_512's attention shape, B=32,
-N=12, S=512, D=64, bf16, dropout 0.2, right-padded rows."""
+N=12, S=512, D=64, bf16, dropout 0.2, right-padded rows; and the serving
+forward, fp32, nothing saved, no dropout, at B=32 and B=256 (and H=256
+with ``--hidden 256``): whatever route the checkout's ``kernel_route``
+gives it (the SIMT kernels before the 3xTF32 ones existed)."""
 
 import argparse
 import importlib
@@ -137,6 +140,17 @@ def main(argv=None) -> int:
             lambda: fel._launch_forward(wflat, wx, mask, wn, 7, *rates, True),
             lambda: fel._launch_backward(wflat, wx, mask, wdy, wsaved, wn, 7,
                                          *rates))
+    serving = {}
+    for wh in args.hidden:
+        sn, sf = (N, F) if wh == H else WIDE[1:3]
+        sflat = flat if wh == H else wflat
+        sflat = {k: v.float() for k, v in sflat.items()}
+        sx = torch.from_numpy(np.random.default_rng(5).normal(
+            size=(B, S, wh)).astype(np.float32)).to(device)
+        for sb in (32, B):
+            serving[f"serving fp32 H={wh} B={sb}"] = (
+                lambda sflat=sflat, sx=sx, sb=sb, sn=sn: fel._launch_forward(
+                    sflat, sx[:sb], mask[:sb], sn, 0, 0.0, 0.0, False))
     if (pathlib.Path(fel.__file__).parent / "flash_attention.py").is_file():
         fa = importlib.import_module("bert4rec_tpu_torch.ops.flash_attention")
         frng = np.random.default_rng(2)   # the same inputs in every tree
@@ -160,10 +174,14 @@ def main(argv=None) -> int:
         out["wide_shape"] = [B, S, *WIDE[:3]]
     for name in cases:
         out[name] = {"fwd_ms": [], "bwd_ms": []}
+    for name in serving:
+        out[name] = {"fwd_ms": []}
     for _ in range(args.reps):
         for name, (fwd, bwd) in cases.items():
             out[name]["fwd_ms"].append(events_ms(torch, fwd))
             out[name]["bwd_ms"].append(events_ms(torch, bwd))
+        for name, fwd in serving.items():
+            out[name]["fwd_ms"].append(events_ms(torch, fwd))
     print(json.dumps(out), flush=True)
     return 0
 

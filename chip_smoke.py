@@ -13,6 +13,11 @@ Phases (any failure raises and the script exits non-zero):
               the serving path's shapes (ml-1m_128: S=200, H=128, 4 heads,
               F=512; B=32 and B=256; fp32 and bf16), with times of the
               kernel, the plain version and a PyTorch-library yardstick;
+              fp32 (what the server runs) on the 3xTF32 kernels of
+              ``csrc/layer_tf32.cu``, its bound at 165 TFLOP/s (3xTF32)
+              beside the 67 TFLOP/s of fp32 without tensor cores, and each
+              launch's kernels by device time, none of them one of the SIMT
+              layer kernels (``SIMT_FP32_LAYER``);
 4. serving  — an ml-1m_128 artifact (random weights from a seed, a
               synthetic 3706-item vocab) written in the JAX package's
               on-disk format, loaded onto the card, served over HTTP by
@@ -20,7 +25,8 @@ Phases (any failure raises and the script exits non-zero):
               concurrent requests, each answer checked against the plain
               path on the card; then the bulk ``recommend_stream`` path at
               B=256. Kernel launch counts are reset before each path and
-              must equal layers x batches after it;
+              must equal layers x batches after it, every one on the
+              3xTF32 kernels (``tf32_launches``);
 5. training kernels — the dropout masks the CUDA hash draws, bit for bit
               against the plain version's and at the keep rate; the
               layer forward with dropout (0.2 / 0.5) and its backward at
@@ -29,9 +35,11 @@ Phases (any failure raises and the script exits non-zero):
               each against its plain version, with kernel, plain and
               library-yardstick times (kernel and yardstick as medians of
               7 blocks of 10 calls, their ranges printed) and the bound;
-              bf16 K3's and K4's kernels by device time, K4's only
-              ``csrc/loss_hopper.cuh``'s two sweeps (``BF16_LOSS_KERNELS``:
-              no route back to the earlier mma.sync loss tiles);
+              bf16 K3's and K4's kernels by device time, K3's only
+              ``csrc/loss_hopper.cuh``'s ``loss_fwd_sweep_kernel``, the
+              ordered merge and the row sums, K4's only its two sweeps
+              (``BF16_LOSS_KERNELS``: no route back to the earlier mma.sync
+              loss tiles);
               at B=256 in bf16 each launch's kernels by device time, the
               forward's and the backward's, none of them one of the
               earlier bf16 layer kernels (``LEGACY_BF16_LAYER``: the
@@ -174,6 +182,9 @@ LOGIT_TOL = 1e-3      # served path vs plain path, masked-slot logits
 # FLOP/s by operand type (fp32 outside the tensor cores, bf16 inside)
 HBM_BYTES_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+# fp32 through 3xTF32: three TF32 tensor-core products (495 TFLOP/s) for each
+# fp32 one (the fp32 inference layer, csrc/layer_tf32.cu)
+TF32X3_FLOPS = 495e12 / 3
 
 
 def card_line() -> str:
@@ -299,21 +310,33 @@ def attention_pairs(s, causal):
 
 
 def layer_bound_ms(b, dtype_name, h=HIDDEN, f=INNER, causal=False,
-                   extra_bytes=0):
+                   extra_bytes=0, peak=None):
     """Least time for one layer on the card: the larger of its FLOP over
-    the peak for the operand type and its bytes (x, mask and the fp32
-    params read once, y written once, plus ``extra_bytes``: a relative
-    bias read once) over the HBM rate."""
+    the peak for the operand type (or ``peak`` FLOP/s) and its bytes (x,
+    mask and the fp32 params read once, y written once, plus
+    ``extra_bytes``: a relative bias read once) over the HBM rate."""
     s = SEQ
     flops = b * (2 * s * h * 3 * h + 4 * attention_pairs(s, causal) * h
                  + 2 * s * h * h + 4 * s * h * f)
     es = 4 if dtype_name == "float32" else 2
     params = 4 * (4 * h * h + 2 * h * f + 3 * h + h + 4 * h + f + h)
     nbytes = 2 * b * s * h * es + b * s * 4 + params + extra_bytes
-    t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
+    t_ops = flops / (peak or PEAK_FLOPS[dtype_name]) * 1e3
     t_bytes = nbytes / HBM_BYTES_S * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                  else "bytes")
+
+
+# The SIMT fp32 layer kernels (csrc/fused_encoder_layer.cu's GEMM and
+# LayerNorm GEMM, csrc/attention.cuh's tiles): no fp32 inference launch may
+# reach them, since the route law (fused_encoder_layer.kernel_route) sends
+# those to csrc/layer_tf32.cu's 3xTF32 kernels, which it must run
+SIMT_FP32_LAYER = re.compile(
+    r"^(gemm_kernel<float|gemm_residual_ln_kernel<float"
+    r"|b4r::attention_kernel<float)")
+TF32_LAYER = (re.compile(r"^(wt_split_kernel|gemm_tf32_kernel<"
+                         r"|ln_tf32_kernel<|attn_tf32_kernel<)"),
+              "attn_tf32_kernel<")
 
 
 # The earlier bf16 layer kernels (csrc/fused_encoder_layer.cu's GEMM, LayerNorm
@@ -330,6 +353,9 @@ LEGACY_BF16_LAYER = re.compile(
 # wgmma sweeps, K5's ordered merge and row sums), each with the one it must
 # run: the guard against a route back to the earlier mma.sync loss tiles
 BF16_LOSS_KERNELS = {
+    "K3": (re.compile(r"^(b4r::loss_hopper::loss_fwd_sweep_kernel<"
+                      r"|loss_tiled_merge_kernel|b4r::reduce_rows_kernel)"),
+           "loss_fwd_sweep_kernel<"),
     "K4": (re.compile(r"^b4r::loss_hopper::loss_sweep_kernel<"),
            "loss_sweep_kernel<"),
     "K5": (re.compile(r"^(b4r::loss_hopper::loss_fwd_sweep_kernel<"
@@ -374,8 +400,8 @@ def device_breakdown(torch, fn, calls=5, top=6, groups=None,
         return None, "device time not measured"
     hits = [name for name, _ in rows if forbid and forbid.search(name)]
     if hits:
-        raise AssertionError(f"launch reached the earlier bf16 layer kernels: "
-                             f"{hits}")
+        raise AssertionError(f"launch reached kernels it must not run "
+                             f"({forbid.pattern}): {hits}")
     if only and (any(not only[0].search(name) for name, _ in rows)
                  or not any(only[1] in name for name, _ in rows)):
         raise AssertionError(f"launch ran other kernels than {only[0].pattern}"
@@ -404,6 +430,7 @@ def check_fused_layer(torch, rng, device):
     rows = {}
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).removeprefix("torch.")
+        fp32 = dtype == torch.float32
         for b in (32, STREAM_BATCH):
             x = torch.from_numpy(rng.normal(size=(b, SEQ, HIDDEN))
                                  .astype(np.float32)).to(device, dtype)
@@ -411,8 +438,14 @@ def check_fused_layer(torch, rng, device):
             mask = torch.from_numpy(
                 (np.arange(SEQ)[None, :] < lengths[:, None])
                 .astype(np.int32)).to(device)
+            tf32_before = fel.fused_encoder_layer.tf32_launches
             out = fel.fused_encoder_layer(params, x, mask, num_heads=HEADS)
             torch.cuda.synchronize()
+            if fel.fused_encoder_layer.tf32_launches - tf32_before \
+                    != int(fp32):
+                raise AssertionError(f"fused layer {name} B={b}: the fp32 "
+                                     f"inference launch is not on the 3xTF32"
+                                     f" kernels (or a bf16 one is)")
             ref = fel.fused_encoder_layer_plain(params, x, mask,
                                                 num_heads=HEADS)
             err = float((out.float() - ref.float()).abs().max())
@@ -432,7 +465,11 @@ def check_fused_layer(torch, rng, device):
                 params, x, mask, num_heads=HEADS))
             library_ms = time_ms(lambda: library_layer(params, x, mask,
                                                        HEADS))
-            bound_ms, bound_by = layer_bound_ms(b, name)
+            # fp32 runs three TF32 products for each: its bound at 165
+            # TFLOP/s, the fp32 SIMT peak's beside it
+            bound_ms, bound_by = layer_bound_ms(
+                b, name, peak=TF32X3_FLOPS if fp32 else None)
+            simt_bound = layer_bound_ms(b, name)[0]
             rows[(name, b)] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                                    library_ms=library_ms, bound_ms=bound_ms,
                                    bound_by=bound_by)
@@ -441,12 +478,15 @@ def check_fused_layer(torch, rng, device):
                   f"(tol {TOL[name]}; library composition differs by "
                   f"{lib_err:.3g}) kernel_ms={ms:.4f} plain_ms={plain_ms:.4f}"
                   f" library_ms={library_ms:.4f} bound_ms={bound_ms:.5f} "
-                  f"({bound_by})", flush=True)
+                  f"({bound_by}"
+                  + (f" at 165 TFLOP/s, 3xTF32; {simt_bound:.5f} at 67 "
+                     f"TFLOP/s without tensor cores)" if fp32 else ")"),
+                  flush=True)
             print("  per launch of the kernel: " + device_breakdown(
                 torch, lambda: fel.fused_encoder_layer(
                     params, x, mask, num_heads=HEADS),
-                forbid=LEGACY_BF16_LAYER if name == "bfloat16" else None)[1],
-                flush=True)
+                forbid=SIMT_FP32_LAYER if fp32 else LEGACY_BF16_LAYER,
+                only=TF32_LAYER if fp32 else None)[1], flush=True)
     return rows
 
 
@@ -610,6 +650,7 @@ def check_serving(torch, rng, device):
         post(server.port, histories[0], ks[0])
         warm = service.stats
         fel.fused_encoder_layer.launches = 0
+        fel.fused_encoder_layer.tf32_launches = 0
         t0 = time.perf_counter()
         with ThreadPoolExecutor(max_workers=N_REQUESTS) as pool:
             answers = list(pool.map(lambda a: post(server.port, *a),
@@ -619,20 +660,22 @@ def check_serving(torch, rng, device):
                 f"http://127.0.0.1:{server.port}/healthz", timeout=30) as r:
             health = json.loads(r.read())
         launches = fel.fused_encoder_layer.launches
+        tf32 = fel.fused_encoder_layer.tf32_launches
     finally:
         server.stop()
     batches = health["batches"] - warm["batches"]
     if health["requests"] - warm["requests"] != N_REQUESTS \
             or health["errors"] != 0:
         raise AssertionError(f"healthz: {health}")
-    if launches != cfg.num_layers * batches:
+    if not launches == tf32 == cfg.num_layers * batches:
         raise AssertionError(
-            f"fused layer launched {launches} times for {batches} batches "
-            f"of {cfg.num_layers} layers")
+            f"fused layer launched {launches} times ({tf32} on the 3xTF32 "
+            f"kernels) for {batches} batches of {cfg.num_layers} layers")
     print(f"serving: {N_REQUESTS} concurrent HTTP requests in "
           f"{wall * 1e3:.1f} ms, {batches} batches (largest "
           f"{health['max_batch_observed']}), fused_encoder_layer launches "
-          f"{launches} = {cfg.num_layers} layers x {batches} batches",
+          f"{launches} = {cfg.num_layers} layers x {batches} batches, all "
+          f"on the 3xTF32 kernels",
           flush=True)
     check_answers(torch, rec, histories, ks, answers, "serving")
 
@@ -653,18 +696,22 @@ def check_serving(torch, rng, device):
     stream = [[history() for _ in range(STREAM_BATCH)]
               for _ in range(STREAM_BATCHES)]
     fel.fused_encoder_layer.launches = 0
+    fel.fused_encoder_layer.tf32_launches = 0
     results = list(rec.recommend_stream(stream, top_k=10))
     stream_launches = fel.fused_encoder_layer.launches
-    if stream_launches != cfg.num_layers * STREAM_BATCHES:
+    if not stream_launches == fel.fused_encoder_layer.tf32_launches \
+            == cfg.num_layers * STREAM_BATCHES:
         raise AssertionError(f"recommend_stream launched the fused layer "
-                             f"{stream_launches} times")
+                             f"{stream_launches} times ("
+                             f"{fel.fused_encoder_layer.tf32_launches} on "
+                             f"the 3xTF32 kernels)")
     print(f"recommend_stream: {STREAM_BATCHES} batches of {STREAM_BATCH}, "
           f"fused_encoder_layer launches {stream_launches}", flush=True)
     flat_hist = [h for b in stream for h in b]
     flat_ans = [a for r in results for a in r]
     check_answers(torch, rec, flat_hist, [10] * len(flat_hist), flat_ans,
                   "recommend_stream")
-    return launches
+    return launches, stream_launches
 
 
 # --------------------------------------------------------------------------- #
@@ -947,10 +994,11 @@ def check_loss_kernels(torch, rng, device):
             print(f"fused_mlm_loss {part} {name} R={N_ROWS} V={VOCAB} "
                   f"W={HIDDEN}: rel err {r['max_rel_err']:.3g} (tol "
                   f"{tol}) {timing_text(r)}", flush=True)
-        if name == "bfloat16":   # K4 on csrc/loss_hopper.cuh's two sweeps
-            print("  per K3 launch: " + device_breakdown(torch, fwd)[1]
-                  + "\n  per K4 launch: " + device_breakdown(
-                      torch, bwd, only=BF16_LOSS_KERNELS["K4"])[1], flush=True)
+        if name == "bfloat16":   # K3 and K4 on csrc/loss_hopper.cuh's kernels
+            print("  per K3 launch: " + device_breakdown(
+                torch, fwd, only=BF16_LOSS_KERNELS["K3"])[1]
+                + "\n  per K4 launch: " + device_breakdown(
+                    torch, bwd, only=BF16_LOSS_KERNELS["K4"])[1], flush=True)
     return rows
 
 
@@ -2626,7 +2674,7 @@ def run(torch, home) -> int:
 
     rng = np.random.default_rng(SEED)
     layer_rows = check_fused_layer(torch, rng, device)
-    launches = check_serving(torch, rng, device)
+    launches, stream_launches = check_serving(torch, rng, device)
     check_dropout_masks(torch, device)
     train_rows = check_layer_training(torch, rng, device)
     loss_rows = check_loss_kernels(torch, rng, device)
@@ -2679,9 +2727,9 @@ def run(torch, home) -> int:
     causal_row = causal_rows[("bfloat16", CAUSAL_RATES)]   # SASRec's shape
     tiled_128 = tiled_rows[("bfloat16", N_ROWS, ML20M_VOCAB, 128)]
     tiled_256 = tiled_rows[("bfloat16", N_ROWS, ML20M_VOCAB, 256)]
-    layer_src, loss_src = "fused_encoder_layer.cu", "fused_mlm_loss.cu"
-    wgmma_src = "layer_hopper.cuh"   # bf16 K1 / K2 (fp32: layer_src)
-    loss_wgmma = "loss_hopper.cuh"   # bf16 K4-K7 (fp32 and K3: loss_src)
+    tf32_src = "layer_tf32.cu"       # fp32 K1 at inference (serving)
+    wgmma_src = "layer_hopper.cuh"   # bf16 K1 / K2
+    loss_wgmma = "loss_hopper.cuh"   # bf16 K3-K7
     # K8 / K9 at bert_base_512's shape and rates; launches from its train()
     flash_row = flash_rows[(FLASH_SHAPES[0], "bfloat16", False)]
     c_base = base["counts"]
@@ -2689,10 +2737,14 @@ def run(torch, home) -> int:
     c_temp = temporal["counts"]
     loss_py = "bert4rec_tpu/ops/fused_mlm_loss.py"
     record = {"kernels": [
-        # what the server runs: fp32, B=32
-        entry("fused_encoder_layer", layer_src,
+        # what the server runs: fp32, B=32 (the HTTP burst's batches) and
+        # B=256 (recommend_stream's)
+        entry("fused_encoder_layer", tf32_src,
               "bert4rec_tpu/ops/fused_encoder_layer.py:241", launches,
               layer_rows[("float32", 32)]),
+        entry("fused_encoder_layer_b256", tf32_src,
+              "bert4rec_tpu/ops/fused_encoder_layer.py:241", stream_launches,
+              layer_rows[("float32", STREAM_BATCH)]),
         entry("fused_encoder_layer_dropout", wgmma_src,
               "bert4rec_tpu/ops/fused_encoder_layer.py:241",
               counts["layer_fwd"], train_row["fwd"]),
@@ -2706,7 +2758,7 @@ def run(torch, home) -> int:
         entry("fused_encoder_layer_backward_h256", wgmma_src,
               "bert4rec_tpu/ops/fused_encoder_layer.py:265",
               c256["layer_bwd"], wide_row["bwd"]),
-        entry("fused_mlm_loss", loss_src, f"{loss_py}:111", counts["loss_fwd"],
+        entry("fused_mlm_loss", loss_wgmma, f"{loss_py}:111", counts["loss_fwd"],
               loss_rows["bfloat16"]["fwd"]),
         entry("fused_mlm_loss_backward", loss_wgmma, f"{loss_py}:148",
               counts["loss_bwd"], loss_rows["bfloat16"]["bwd"]),

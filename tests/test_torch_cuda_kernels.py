@@ -15,7 +15,8 @@ import pytest
 import torch
 
 from bert4rec_tpu_torch.ops import fused_encoder_layer as fel
-from bert4rec_tpu_torch.utils.checkpoint import flatten, params_from_numpy
+from bert4rec_tpu_torch.utils.checkpoint import (flatten, params_from_numpy,
+                                                 unflatten)
 
 
 def layer_params_np(rng, h, n, f):
@@ -97,6 +98,146 @@ def test_fused_layer_rejects_head_dim_beyond_kernel(cuda_device):
         fel.fused_encoder_layer(p, torch.from_numpy(x).to(cuda_device),
                                 torch.from_numpy(mask).to(cuda_device),
                                 num_heads=1)
+
+
+# the 3xTF32 inference route (csrc/layer_tf32.cu): B 1, 32 and 256 at the
+# serving shape, ml-20m_256's width, head dims 64, 16 and 24, S 1, 37, 65,
+# 130 and 200 (keys on, one past and one short of the 64-key tiles)
+TF32_DIMS = [(1, 200, 128, 4, 512), (32, 200, 128, 4, 512),
+             (256, 200, 128, 4, 512), (3, 200, 256, 8, 1024),
+             (3, 65, 256, 4, 512), (4, 1, 128, 4, 512), (4, 130, 64, 4, 128),
+             (4, 37, 96, 4, 200)]
+
+
+def _sees_a_real_key(mask, causal):
+    """``[B, S]``: whether query s of sequence b attends to at least one
+    real key (all of them, or those at or before it when causal)."""
+    m = mask.bool()
+    return m.cummax(dim=1).values if causal else m.any(dim=1, keepdim=True) \
+        .expand_as(m)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dims", TF32_DIMS,
+                         ids=lambda d: "B{}_S{}_H{}_N{}_F{}".format(*d))
+@pytest.mark.parametrize("variant", ["plain", "causal", "rel", "causal_rel"])
+def test_fp32_inference_route_matches_plain(cuda_device, dims, variant):
+    """The fp32 forward without a gradient runs the 3xTF32 kernels (counted
+    in tf32_launches) and stays within 1e-4 of the plain version, with an
+    all-pad row, a row of length 1 and a front-padded row, causal and with a
+    relative bias; two runs give the same bits. A query that sees only
+    padding scores -1e9 + s for every key, where fp32's spacing is 64: which
+    keys win there turns on the last bits of s whenever |s| nears 32 (as
+    here at H = 256), for any two sums of s in different orders, so those
+    rows are held to be finite here and to the plain version in
+    test_fp32_inference_route_padding_only_rows, at scores well inside 32."""
+    b, s, h, n, f = dims
+    rng = np.random.default_rng(sum(dims) + len(variant))
+    p = params_from_numpy(flatten(layer_params_np(rng, h, n, f)),
+                          cuda_device)
+    mt = torch.from_numpy(causal_mask_np(rng, b, s)).to(cuda_device)
+    xt = torch.from_numpy(rng.normal(size=(b, s, h)).astype(np.float32)) \
+        .to(cuda_device)
+    kw = dict(num_heads=n, causal="causal" in variant)
+    if "rel" in variant:
+        kw["rel_bias"] = torch.from_numpy(rng.normal(size=(b, n, s, s))
+                                          .astype(np.float32)).to(cuda_device)
+    assert fel.kernel_route(torch.float32, b, h, n, f, save=False) == "tf32"
+    before = fel.fused_encoder_layer.tf32_launches
+    with torch.no_grad():
+        runs = [fel.fused_encoder_layer(p, xt, mt, **kw) for _ in range(2)]
+        ref = fel.fused_encoder_layer_plain(p, xt, mt, **kw)
+    torch.cuda.synchronize()
+    assert fel.fused_encoder_layer.tf32_launches == before + 2
+    assert runs[0].dtype == torch.float32 and runs[0].shape == xt.shape
+    seen = _sees_a_real_key(mt, kw["causal"])
+    assert bool(torch.isfinite(runs[0]).all())
+    np.testing.assert_allclose(runs[0][seen].cpu().numpy(),
+                               ref[seen].cpu().numpy(), rtol=0, atol=1e-4)
+    assert torch.equal(runs[0], runs[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True], ids=["bidirectional",
+                                                       "causal"])
+def test_fp32_inference_route_padding_only_rows(cuda_device, causal):
+    """Queries that see only padding attend uniformly to their keys, as the
+    TPU kernel's -1e9 bias makes them (not NaN, as -inf would): with inputs
+    small enough that every score stays well inside 32, the 3xTF32 route
+    equals the plain version within 1e-4 on every row, the all-pad row and
+    the front-padded row's early queries among them."""
+    b, s, h, n, f = 5, 130, 256, 8, 1024
+    rng = np.random.default_rng(17)
+    p = params_from_numpy(flatten(layer_params_np(rng, h, n, f)),
+                          cuda_device)
+    mt = torch.from_numpy(causal_mask_np(rng, b, s)).to(cuda_device)
+    xt = torch.from_numpy((0.05 * rng.normal(size=(b, s, h)))
+                          .astype(np.float32)).to(cuda_device)
+    with torch.no_grad():
+        y = fel.fused_encoder_layer(p, xt, mt, num_heads=n, causal=causal)
+        ref = fel.fused_encoder_layer_plain(p, xt, mt, num_heads=n,
+                                            causal=causal)
+    assert not bool(_sees_a_real_key(mt, causal).all())
+    np.testing.assert_allclose(y.cpu().numpy(), ref.cpu().numpy(), rtol=0,
+                               atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_fp32_training_forward_stays_on_the_simt_kernels(cuda_device):
+    """A forward that saves for a backward, or draws dropout, keeps the
+    SIMT kernels: the 3xTF32 count does not move."""
+    rng = np.random.default_rng(3)
+    p = params_from_numpy(flatten(layer_params_np(rng, 128, 4, 512)),
+                          cuda_device)
+    x, mask = inputs_np(rng, 2, 40, 128)
+    xt = torch.from_numpy(x).to(cuda_device)
+    mt = torch.from_numpy(mask).to(cuda_device)
+    before = fel.fused_encoder_layer.tf32_launches
+    fel.fused_encoder_layer(p, xt.requires_grad_(True), mt, num_heads=4)
+    with torch.no_grad():
+        fel.fused_encoder_layer(p, xt, mt, num_heads=4,
+                                attention_dropout=0.1, seed=3)
+    torch.cuda.synchronize()
+    assert fel.fused_encoder_layer.tf32_launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("write", ["foreach_add", "data_copy", "new_tensor"])
+def test_fp32_inference_route_reads_the_weights_as_they_are(cuda_device,
+                                                           write):
+    """The 3xTF32 route transposes and splits the weights in every launch:
+    after an optimizer's in-place step (``torch._foreach_add_``, as the
+    port's optimizer writes), a write through ``.data`` (which moves no
+    version counter) or new weight tensors at the old ones' addresses, the
+    next inference launch equals the plain layer on the new weights within
+    1e-4, as in a train-then-evaluate loop."""
+    rng = np.random.default_rng(11)
+    p = params_from_numpy(flatten(layer_params_np(rng, 128, 4, 512)),
+                          cuda_device)
+    x, mask = inputs_np(rng, 8, 200, 128)
+    xt = torch.from_numpy(x).to(cuda_device)
+    mt = torch.from_numpy(mask).to(cuda_device)
+    leaves = flatten(p)
+    steps = {k: torch.from_numpy(0.05 * rng.normal(size=tuple(t.shape))
+                                 .astype(np.float32)).to(cuda_device)
+             for k, t in leaves.items()}
+    with torch.no_grad():
+        first = fel.fused_encoder_layer(p, xt, mt, num_heads=4)
+        if write == "foreach_add":
+            torch._foreach_add_(list(leaves.values()), list(steps.values()))
+        elif write == "data_copy":
+            for k, t in leaves.items():
+                t.data.copy_(t.data + steps[k])
+        else:   # fresh tensors, at the freed ones' addresses if it can
+            new = {k: (t + steps[k]).cpu() for k, t in leaves.items()}
+            del p, leaves
+            p = unflatten({k: v.to(cuda_device) for k, v in new.items()})
+        y = fel.fused_encoder_layer(p, xt, mt, num_heads=4)
+        ref = fel.fused_encoder_layer_plain(p, xt, mt, num_heads=4)
+    torch.cuda.synchronize()
+    assert float((y - first).abs().max()) > 1e-2
+    np.testing.assert_allclose(y.cpu().numpy(), ref.cpu().numpy(), rtol=0,
+                               atol=1e-4)
 
 
 # --------------------------------------------------------------------------- #
@@ -684,10 +825,9 @@ def test_tiled_autograd_launches_by_the_merged_law(cuda_device, rows, w,
 @pytest.mark.cuda
 def test_tiled_bf16_rejects_a_misaligned_view(cuda_device):
     """A bf16 hidden whose base is not 16-byte aligned, or whose width is
-    not a multiple of 8, raises before K5 (both entries) and K6/K7 launch
-    (their copies read 16-byte pieces of each row), and before bf16 K4
-    launches after K3's forward, which takes any layout; nothing of K4-K7
-    is counted."""
+    not a multiple of 8, raises before K5 (both entries), K6/K7 and the
+    whole-table forward K3 (K5's sweep) launch: their copies read 16-byte
+    pieces of each row; nothing of K3-K7 is counted."""
     from bert4rec_tpu_torch.ops import fused_mlm_loss as fml
     h, t, b, lab, v = _tiled_inputs(cuda_device, torch.bfloat16, 130, 200,
                                     64)
@@ -700,7 +840,7 @@ def test_tiled_bf16_rejects_a_misaligned_view(cuda_device):
     for hh, tt, bb, ll, vv in ((shifted, t, b, lab, v),
                                (h36, t36, b36, lab36, v36)):
         before = (f.launches, f.merged_launches, f.two_sweep_launches,
-                  w.backward_launches)
+                  w.launches, w.backward_launches)
         hh = hh.detach().requires_grad_(True)
         for entry in (f, fml.fused_mlm_loss_tiled_stats):
             with pytest.raises(ValueError, match="16-byte"):
@@ -710,11 +850,10 @@ def test_tiled_bf16_rejects_a_misaligned_view(cuda_device):
                                        torch.zeros(len(ll), device=cuda_device),
                                        torch.ones((), device=cuda_device),
                                        torch.ones(1, device=cuda_device), True)
-        loss = w(hh, tt, bb, ll, vv)[0]
         with pytest.raises(ValueError, match="16-byte"):
-            loss.backward()
+            w(hh, tt, bb, ll, vv)
         assert (f.launches, f.merged_launches, f.two_sweep_launches,
-                w.backward_launches) == before
+                w.launches, w.backward_launches) == before
 
 
 def _edge_inputs(device, r, v, w, seed):
@@ -783,11 +922,52 @@ def test_bf16_loss_kernels_at_the_label_edges(cuda_device, shape):
             assert _rel_err(a, c) <= 2e-2
 
 
+@pytest.mark.parametrize("shape", EDGE_SHAPES,
+                         ids=lambda d: "R{}_V{}_W{}".format(*d))
+@pytest.mark.cuda
+def test_bf16_whole_table_forward_at_the_label_edges(cuda_device, shape):
+    """bf16 K3 (K5's sweep over the whole table, then the ordered merge)
+    against its plain version with labels at column 0, V - 1, V and past
+    it, -1 and -2: lse and the loss sum within 1e-4 relative, the counts
+    equal, two runs the same bits."""
+    from bert4rec_tpu_torch.ops import fused_mlm_loss as fml
+    r, v, w = shape
+    h, t, b, lab = _edge_inputs(cuda_device, r, v, w, r + v + w)
+    rlse, rsums = fml.fused_mlm_loss_plain_forward(h, t, b, lab)
+    lse, sums = fml._launch_forward(h, t, b, lab)
+    again = fml._launch_forward(h, t, b, lab)
+    torch.cuda.synchronize()
+    assert _rel_err(lse, rlse) <= 1e-4
+    assert abs(float(sums[0]) - float(rsums[0])) <= \
+        1e-4 * max(abs(float(rsums[0])), 1.0)
+    assert sums[1:].tolist() == rsums[1:].tolist()
+    assert torch.equal(again[0], lse) and torch.equal(again[1], sums)
+
+
+@pytest.mark.parametrize("shape", [
+    (10240, 3709, 128), (10240, 3709, 256), (10240, 3709, 64),
+    (300, 104, 32), (300, 104, 200), (77, 61, 256), (1, 61, 128),
+    (2048, 26732, 128), (130, 200, 64), (129, 4000, 256)],
+    ids=lambda d: "R{}_V{}_W{}".format(*d))
+@pytest.mark.cuda
+def test_bf16_whole_table_split_law_mirrors_the_library(cuda_device, shape):
+    """The library splits bf16 K3's vocabulary by its own law and sizes
+    its workspace by it (splits x R row stats): the Python mirror
+    ``whole_table_workspace_bytes`` (from ``whole_table_splits``) gives the
+    library's bytes at 64- and 128-entry vocabulary tiles, where the split
+    count is capped by the tiles and where it is not."""
+    from bert4rec_tpu_torch.ops import fused_mlm_loss as fml
+    r, v, w = shape
+    assert fml.workspace_bytes("K3/K4", r, v, w) == \
+        fml.whole_table_workspace_bytes(r, v, w)
+
+
 @pytest.mark.cuda
 def test_bf16_whole_table_workspace_does_not_grow_with_the_vocabulary(
         cuda_device):
-    """bf16 K3/K4's workspace holds K3's row-block sums only (K4's sweeps
-    sum their partials through distributed shared memory): the same at
+    """bf16 K3/K4's workspace is K3's split row stats and row-block sums
+    (K4's sweeps sum their partials through distributed shared memory):
+    the library's bytes are ``whole_table_workspace_bytes``'s, the same at
     V = 3,709 and V = 335,424; fp32 K4 keeps its split dtable partials,
     which grow with V."""
     from bert4rec_tpu_torch.ops import fused_mlm_loss as fml
@@ -795,7 +975,9 @@ def test_bf16_whole_table_workspace_does_not_grow_with_the_vocabulary(
     bf16 = [fml.workspace_bytes("K3/K4", r, v, w) for v in (3709, 335424)]
     fp32 = [fml.workspace_bytes("K3/K4", r, v, w, torch.float32)
             for v in (3709, 335424)]
-    assert bf16[0] == bf16[1] == (r // 64) * 4 * 4
+    assert bf16[0] == bf16[1] == fml.whole_table_workspace_bytes(r, 3709, w)
+    assert fp32 == [fml.whole_table_workspace_bytes(r, v, w, torch.float32)
+                    for v in (3709, 335424)]
     assert fp32[1] > fp32[0] >= (r // 1024) * 3709 * w * 4
 
 

@@ -7,6 +7,8 @@ autograd through the plain forward with the same masks, and gradcheck.
 The CUDA kernels themselves are held against the plain versions on a card
 in tests/test_torch_cuda_kernels.py."""
 
+import math
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -153,6 +155,65 @@ class TestKernelRoute:
         with pytest.raises(ValueError):
             fel.kernel_route(torch.float16, 2, 128, 4, 512)
 
+    @pytest.mark.parametrize("shape, launch, route", [
+        # what the server and the evaluator run: fp32, nothing saved, rate 0
+        ((32, 128, 4, 512), {}, "tf32"),              # ml-1m_128, B=32
+        ((256, 128, 4, 512), {}, "tf32"),             # recommend_stream
+        ((256, 256, 8, 1024), {}, "tf32"),            # ml-20m_256
+        ((2, 256, 4, 512), {}, "tf32"),               # head dim 64
+        ((2, 64, 8, 128), {}, "tf32"),                # head dim 8
+        # training: the backward reads the SIMT forward's row statistics
+        ((256, 128, 4, 512), dict(save=True), "simt"),
+        # dropout drawn: the SIMT kernels hash it
+        ((256, 128, 4, 512), dict(attn_rate=0.1), "simt"),
+        ((256, 128, 4, 512), dict(out_rate=0.1), "simt"),
+        # past the 3xTF32 kernels' shapes
+        ((2, 512, 4, 96), {}, "simt"),                # hidden 512
+        ((2, 256, 2, 64), {}, "simt"),                # head dim 128
+        ((3, 36, 4, 72), {}, "simt"),                 # head dim 9
+        ((2, 96, 4, 100), {}, "simt"),                # inner 100
+        # bf16 takes its own route whatever is saved
+        ((256, 128, 4, 512), {}, "wgmma"),
+    ], ids=lambda v: str(v).replace(" ", ""))
+    def test_fp32_inference_route(self, shape, launch, route):
+        """The fp32 forward that saves nothing and draws no dropout (the
+        encoder's rates outside training are exactly 0) runs the 3xTF32
+        kernels; training, dropout and shapes past them stay SIMT."""
+        b, h, n, f = shape
+        dtype = torch.bfloat16 if route == "wgmma" else torch.float32
+        kw = {**dict(save=False, attn_rate=0.0, out_rate=0.0), **launch}
+        assert fel.kernel_route(dtype, b, h, n, f, **kw) == route
+
+    def test_the_encoder_passes_rate_zero_outside_training(self):
+        """The route's condition is what the encoder passes at inference:
+        ``apply(training=False)`` calls the layer with both rates exactly
+        0.0 whatever the config's rates, and under ``no_grad`` nothing is
+        saved."""
+        from bert4rec_tpu_torch.models import BERT4RecConfig, BERT4RecModel
+        cfg = BERT4RecConfig(vocab_size=40, max_sequence_length=S,
+                             hidden_size=H, num_attention_heads=N,
+                             num_layers=2, inner_dim=F, use_fused_layer=True,
+                             attention_dropout=0.2, output_dropout=0.5)
+        model = BERT4RecModel(config=cfg)
+        params = model.init(torch.Generator().manual_seed(0), "cpu")
+        seen = []
+
+        def spy(p, x, mask, **kw):
+            seen.append((kw["attention_dropout"], kw["output_dropout"],
+                         torch.is_grad_enabled()))
+            return fel.fused_encoder_layer_plain(p, x, mask,
+                                                 num_heads=kw["num_heads"])
+
+        ids = torch.randint(3, 40, (B, S))
+        mask = torch.ones((B, S), dtype=torch.int32)
+        from unittest import mock
+        from bert4rec_tpu_torch.models.components.networks import \
+            bert4rec_encoder
+        with mock.patch.object(bert4rec_encoder, "fused_encoder_layer", spy), \
+                torch.no_grad():
+            model.encoder.apply(params["encoder"], ids, mask, training=False)
+        assert seen == [(0.0, 0.0, False)] * 2
+
     @pytest.mark.parametrize("s, tiles", [(1, 1), (64, 1), (65, 2), (200, 4)])
     def test_keep_bits_match_the_plain_packing(self, s, tiles):
         """The wgmma forward's saved keep bits have the shape of
@@ -160,6 +221,105 @@ class TestKernelRoute:
         assert fel.keep_bits_shape(3, 2, s) == (3, 2, tiles, tiles, 128)
         bits = dropout_bits.tile_keep_bits(7, 3, 2, s, 0.1, "cpu")
         assert tuple(bits.shape) == fel.keep_bits_shape(3, 2, s)
+
+
+def _rna_tf32(t: torch.Tensor) -> torch.Tensor:
+    """PTX's ``cvt.rna.tf32.f32`` emulated on the tensor's bits: 13 low
+    mantissa bits rounded off, to nearest, ties away from zero (the sign
+    and magnitude are apart, so adding half an ulp to the magnitude rounds
+    away from zero in both signs)."""
+    u = t.contiguous().view(torch.int32)
+    return ((u + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _mm_3xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The kernels' 3xTF32 product: hi = rna(v), lo = rna(v - hi), and
+    lo_a hi_b + hi_a lo_b first, hi_a hi_b last, in fp32."""
+    ah, bh = _rna_tf32(a), _rna_tf32(b)
+    al, bl = _rna_tf32(a - ah), _rna_tf32(b - bh)
+    return (al @ bh + ah @ bl) + ah @ bh
+
+
+def _mm_tf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """One pass of TF32, for contrast."""
+    return _rna_tf32(a) @ _rna_tf32(b)
+
+
+def _layer_with(mm, flat, x, mask, n):
+    """The fused layer's forward at rate 0 (``_layer_fwd_math``) with every
+    product — qkv, q k^T, p v, Wo, W1, W2 — taken by ``mm``."""
+    b, s, h = x.shape
+    d = h // n
+    w = {k: v.float() for k, v in flat.items()}
+    qkv = mm(x.reshape(-1, h), w["wqkv"]) + w["bqkv"]
+    q, k, v = (t.reshape(b, s, n, d).transpose(1, 2)
+               for t in qkv.split(h, dim=-1))
+    bias = torch.where(mask > 0, 0.0, -1e9)[:, None, None]
+    scores = mm(q, k.transpose(-1, -2)) * (1.0 / d ** 0.5) + bias
+    p = torch.softmax(scores, dim=-1)
+    ctx = mm(p, v).transpose(1, 2).reshape(b * s, h)
+    x1 = fel._ln_fwd(x.reshape(-1, h) + (mm(ctx, w["wo"]) + w["bo"]),
+                     w["g1"], w["b1ln"])[0]
+    hact = fel._gelu_tanh(mm(x1, w["w1"]) + w["bf1"])
+    y = fel._ln_fwd(x1 + (mm(hact, w["w2"]) + w["bf2"]), w["g2"],
+                    w["b2ln"])[0]
+    return y.reshape(b, s, h)
+
+
+class TestThreeTf32:
+    """The rounding law of the fp32 inference kernels (csrc/layer_tf32.cu),
+    emulated here on the CPU before any card time: each product in 3xTF32
+    keeps the layer within 1e-4 of the JAX fp32 kernel; one pass of TF32
+    is an order of magnitude further off."""
+
+    @pytest.mark.parametrize("v", [1.0, -1.0, 1.0 + 2.0 ** -11,
+                                   -(1.0 + 2.0 ** -11), 1.0 + 3 * 2.0 ** -12,
+                                   3.0e-39, 1.7e38])
+    def test_split_rounds_as_cvt_rna(self, v):
+        """The emulated split is cvt.rna's law, held against rounding in
+        float64 to 11 significant bits: ties away from zero (1 + 2^-11 lies
+        halfway between two TF32 values), subnormals (a fixed step of
+        2^-136) and the top of the range; hi + lo is a normal value to
+        2^-21 of it."""
+        t = torch.tensor([v], dtype=torch.float32)
+        x = float(t)
+        step = 2.0 ** (max(math.frexp(x)[1], -125) - 11)
+        want = math.copysign(math.floor(abs(x) / step + 0.5) * step, x)
+        hi = _rna_tf32(t)
+        lo = _rna_tf32(t - hi)
+        assert float(hi) == want
+        if v == 1.0 + 2.0 ** -11:
+            assert float(hi) == 1.0 + 2.0 ** -10
+        if abs(v) >= 2.0 ** -126:   # normal: lo carries 11 more bits
+            assert abs(float(hi) + float(lo) - float(t)) <= \
+                2.0 ** -21 * abs(v)
+
+    def test_product_error(self):
+        """3xTF32 products stay within a few fp32 ulps of the float64
+        product; one TF32 pass is ~2^-11 off."""
+        rng = np.random.default_rng(5)
+        a = torch.from_numpy(rng.normal(size=(64, 128)).astype(np.float32))
+        b = torch.from_numpy(rng.normal(size=(128, 96)).astype(np.float32))
+        exact = a.double() @ b.double()
+        scale = float(exact.abs().max())
+        err3 = float((_mm_3xtf32(a, b).double() - exact).abs().max()) / scale
+        err1 = float((_mm_tf32(a, b).double() - exact).abs().max()) / scale
+        assert err3 < 2e-6 and err1 > 50 * err3
+
+    @pytest.mark.parametrize("seed", [0, 1])
+    def test_layer_in_3xtf32_matches_interpret_kernel(self, seed):
+        jax_p, torch_p, x, mask = both(seed)
+        ref = np.asarray(jax_fel.fused_encoder_layer(
+            jax_p, jnp.asarray(x), jnp.asarray(mask), num_heads=N,
+            interpret=True))
+        flat = fel.flat_weights(torch_p)
+        xt, mt = torch.from_numpy(x), torch.from_numpy(mask)
+        got3 = _layer_with(_mm_3xtf32, flat, xt, mt, N).numpy()
+        got1 = _layer_with(_mm_tf32, flat, xt, mt, N).numpy()
+        err3 = float(np.abs(got3 - ref).max())
+        err1 = float(np.abs(got1 - ref).max())
+        assert err3 <= 1e-4, err3
+        assert err1 > 10 * err3
 
 
 class TestRoutingLawParity:

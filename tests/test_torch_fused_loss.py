@@ -146,6 +146,49 @@ class TestRoutingLawParity:
         assert not fml.fused_loss_supported(26744, 128)   # ml-20m: K5-K7
 
 
+class TestWholeTableSplitLaw:
+    """bf16 K3 runs K5's sweep over the whole table: its vocabulary splits
+    and its workspace, decided in Python before any launch (the card tests
+    hold the library's workspace to these)."""
+
+    @pytest.mark.parametrize("rows, v, w, splits", [
+        (10240, 3709, 128, 13),    # ml-1m's batch: 80 row blocks x 13
+        (10240, 3709, 64, 13),
+        (10240, 3709, 256, 13),    # 128-entry tiles at W > 128: 29 tiles
+        (300, 104, 32, 2),         # two 64-entry tiles, 3 row blocks
+        (1, 61, 128, 1),
+        (2048, 26732, 128, 64),
+    ], ids=lambda v: str(v))
+    def test_bf16_splits_by_the_tiled_forward_law(self, rows, v, w, splits):
+        assert fml.whole_table_splits(rows, v, w) == splits
+        assert fml.tiled_forward_splits(rows, v, w) == splits
+
+    def test_fp32_does_not_split(self):
+        assert fml.whole_table_splits(10240, 3709, 128, torch.float32) == 1
+
+    @pytest.mark.parametrize("rows, v, w", [(10240, 3709, 128),
+                                            (300, 104, 32), (77, 61, 256)],
+                             ids=lambda v: str(v))
+    def test_workspace_bytes(self, rows, v, w):
+        """bf16: the splits' (max, sum, label logit) rows and the 256-row
+        block sums, each carved to 256 bytes, with no V x W term; fp32: the
+        64-row block sums, then K4's dtable and dbias partials of 1,024-row
+        splits."""
+        up = lambda n: -(-n // 256) * 256  # noqa: E731
+        n = fml.whole_table_splits(rows, v, w) * rows
+        assert fml.whole_table_workspace_bytes(rows, v, w) == \
+            3 * up(4 * n) + up(16 * -(-rows // 256))
+        splits = -(-rows // 1024)
+        assert fml.whole_table_workspace_bytes(rows, v, w, torch.float32) \
+            == up(16 * -(-rows // 64)) + up(4 * splits * v * w) \
+            + up(4 * splits * v)
+
+    def test_bf16_workspace_does_not_grow_with_the_vocabulary(self):
+        r, w = 10240, 128
+        assert fml.whole_table_workspace_bytes(r, 3709, w) == \
+            fml.whole_table_workspace_bytes(r, 335424, w)
+
+
 class TestModelLossAndMetrics:
 
     @pytest.mark.parametrize("fused_loss", [True, False],

@@ -292,14 +292,14 @@ class TestKernelLayoutRule:
                         *self._operands(shifted.float(), table.float()),
                         merged)
 
-    @pytest.mark.parametrize("entry", ["K4", "K5", "K5_stats"])
+    @pytest.mark.parametrize("entry", ["K3", "K4", "K5", "K5_stats"])
     def test_k4_and_k5_refuse_a_layout_before_the_kernel_library(self,
                                                                  entry):
-        """bf16 K4 (from K3's lse) and K5 (both entries) run the same
-        copies: a misaligned base, a column slice or a width off the rule
-        raises ValueError without the library being loaded; an aligned bf16
-        layout and fp32 operands go on to it. K3, which stays on its
-        earlier tiles, takes any layout."""
+        """bf16 K3 (K5's sweep over the whole table), K4 (from K3's lse)
+        and K5 (both entries) run the same copies: a misaligned base, a
+        column slice or a width off the rule raises ValueError without the
+        library being loaded; an aligned bf16 layout and fp32 operands go
+        on to it."""
         table = self._bf16(200, 64)
         shifted = torch.zeros(130 * 64 + 1, dtype=torch.bfloat16)[1:] \
             .view(130, 64)
@@ -308,7 +308,8 @@ class TestKernelLayoutRule:
             ops = self._operands(hidden, tbl)
             if entry == "K4":
                 return fml._launch_backward(*ops)
-            fn = {"K5": fml._launch_forward_tiled,
+            fn = {"K3": fml._launch_forward,
+                  "K5": fml._launch_forward_tiled,
                   "K5_stats": fml._launch_forward_tiled_stats}[entry]
             return fn(*ops[:4])
 
@@ -324,8 +325,6 @@ class TestKernelLayoutRule:
                                 (shifted.float(), table.float())):
                 with pytest.raises(AssertionError, match="reached"):
                     launch(hidden, tbl)
-            with pytest.raises(AssertionError, match="reached"):
-                fml._launch_forward(*self._operands(shifted, table)[:4])
 
     @pytest.mark.parametrize("w", [8, 40, 72, 200])
     def test_zero_filled_width_is_exact(self, w):
