@@ -73,16 +73,20 @@
 //                       the vocabulary tiles from the lse) and
 //                       loss_bwd_dt_kernel (block per (vocabulary tile,
 //                       1,024-row split); split partials reduced in order)
+//   fp32 K6 / K7        loss_tf32.cuh's 3xTF32 wgmma kernels, the bf16
+//                       designs' sweeps and clusters with every product's
+//                       A operand in registers (.tf32 wgmma reads shared
+//                       memory only K-major): K7 loss_tf32_sweep_kernel's
+//                       dh and dt sweeps, no workspace; K6
+//                       loss_tf32_merged_kernel, the same <= 32 cluster dh
+//                       partials as bf16 K6. Layout rule, which the
+//                       wrapper meets by copying: hidden and table
+//                       contiguous, 16-byte aligned base and rows (W a
+//                       multiple of 4), W <= 256 (zero-filled to 64, 128
+//                       or 256).
 //   K5's second pass    loss_tiled_merge_kernel (both types): each row's
 //                       splits merged in split order into lse, the stats
 //                       and the four sums
-//   fp32 K6 / K7        loss_bwd_vt_kernel: one block per group of
-//                       vocabulary tiles; for each tile it sweeps all rows
-//                       and writes that tile's dtable / dbias once (K7's dt
-//                       sweep: a tile per group, after loss_bwd_dh_kernel;
-//                       K6: at most 128 groups, and the same pass adds
-//                       dlog . table into its group's dh partial, reduced
-//                       in group order).
 // The backwards read the forward's lse (the JAX whole-table backward
 // recomputes max and sum; the difference is fp32 rounding, within the
 // tolerance the tests state). dlog is rounded to the hidden dtype before
@@ -94,7 +98,8 @@
 // recomputes the logits once more, which the bound does not count), against
 // megabytes of inputs: bound by operations (0.071 ms for K5 and 0.213 ms for
 // K6 at the ML-20M batch, R = 10,240, V = 26,732, W = 128, and 0.00983 ms
-// for bf16 K3 at ml-1m's, at 989 TFLOP/s).
+// for bf16 K3 at ml-1m's, at 989 TFLOP/s; fp32 K6 there 1.274 ms at
+// 3xTF32's 165 TFLOP/s).
 // K5 also takes one exponential per (row, vocabulary entry): 274 M at that
 // batch, about as long on the special-function units as its products on
 // the tensor cores, which is why its design overlaps the two.
@@ -103,6 +108,7 @@
 
 #include "common.cuh"
 #include "loss_hopper.cuh"
+#include "loss_tf32.cuh"
 
 namespace {
 
@@ -111,7 +117,6 @@ using namespace b4r;
 constexpr int LT = 64;  // rows per row tile and per vocabulary tile
 constexpr int LOSS_MAXW = 256;
 constexpr int DT_CHUNK = 1024;  // rows per dtable split (fp32 K4)
-constexpr int MERGED_GROUPS = 128;  // vocabulary-tile groups of fp32 K6 (~ one per SM)
 constexpr int FWD_BLOCKS = 1024;  // fp32 K5 splits the vocabulary until ~this many blocks
 
 template <typename T>
@@ -405,8 +410,7 @@ loss_bwd_dh_kernel(const float* __restrict__ hidden, const float* __restrict__ t
 
 // fp32 K4's dtable sweep (bf16 K4 runs loss_hopper.cuh's sweeps): block
 // (vocabulary tile, split of DT_CHUNK rows) writes the tile's dtable / dbias
-// partials of its split, reduced in order later. (fp32 K6 / K7 use
-// loss_bwd_vt_kernel below.)
+// partials of its split, reduced in order later.
 template <int WJ>
 __global__ void __launch_bounds__(256)
 loss_bwd_dt_kernel(const float* __restrict__ hidden, const float* __restrict__ table,
@@ -488,136 +492,7 @@ loss_bwd_dt_kernel(const float* __restrict__ hidden, const float* __restrict__ t
   if (tid < LT && v0 + tid < V) part_db[(size_t)split * V + v0 + tid] = db;
 }
 
-// fp32 K6 / K7 (bf16 runs loss_hopper.cuh): a sweep over vocabulary tiles.
-// Block `group` takes the group's vocabulary tiles in order and, for each,
-// sweeps all R rows accumulating dtable and dbias, then writes both for
-// that tile into dt / db once (K7's dt sweep, a tile per group; K6). With
-// kDh (K6) it also adds dlog . table of every (row tile, vocabulary tile)
-// into the group's dh partial part_dh[group] (the first tile of the group
-// stores).
-template <int WJ, bool kDh>
-__global__ void __launch_bounds__(256)
-loss_bwd_vt_kernel(const float* __restrict__ hidden, const float* __restrict__ table,
-                   const float* __restrict__ bias, const int32_t* __restrict__ labels,
-                   const float* __restrict__ lse, const float* __restrict__ g,
-                   const float* __restrict__ n_valid, int valid_ge_zero,
-                   float* __restrict__ dt, float* __restrict__ db_out,
-                   float* __restrict__ part_dh, int R, int V, int W, int n_groups) {
-  extern __shared__ float smem[];
-  float* Ts = smem;                    // [64 vocab][W + 1], the current tile
-  float* Hs = Ts + LT * (W + 1);       // [64 rows][W + 1]
-  float* Ds = Hs + LT * (W + 1);       // [64 rows][65] dlog
-  float* bs = Ds + LT * (LT + 1);      // [64]
-  float* rl = bs + LT;                 // [64] row lse
-  float* rw = rl + LT;                 // [64] row weight
-  int* rlab = reinterpret_cast<int*>(rw + LT);  // [64] row label
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int vtiles = (V + LT - 1) / LT, grp = blockIdx.x;
-  const int t_begin = (int)((long)grp * vtiles / n_groups);
-  const int t_end = (int)((long)(grp + 1) * vtiles / n_groups);
-  const float scale = g[0] / fmaxf(n_valid[0], 1.f);
-  float* dh_part = kDh ? part_dh + (size_t)grp * R * W : nullptr;
-
-  for (int t = t_begin; t < t_end; ++t) {
-    const int v0 = t * LT;
-    load_rows(Ts, table, v0, V, W);
-    load_bias(bs, bias, v0, V);
-    float acc[4][WJ];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < WJ; ++j) acc[i][j] = 0.f;
-    float db = 0.f;  // thread tid < 64 owns vocabulary column v0 + tid
-    float s[4][4];
-    for (int r0 = 0; r0 < R; r0 += LT) {
-      load_rows(Hs, hidden, r0, R, W);
-      for (int r = tid; r < LT; r += 256) {
-        const bool ok = r0 + r < R;
-        rlab[r] = ok ? labels[r0 + r] : -1;
-        rl[r] = ok ? lse[r0 + r] : 0.f;
-        rw[r] = (ok && row_valid(rlab[r], valid_ge_zero)) ? scale : 0.f;
-      }
-      __syncthreads();
-      tile_dots<false>(s, Hs, Ts, tx, ty, W, Ds);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int rr = ty + 16 * i;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int c = tx + 16 * j;
-          Ds[rr * (LT + 1) + c] = dlog_of(s[i][j] + bs[c], rl[rr], v0 + c, rlab[rr], rw[rr]);
-        }
-      }
-      __syncthreads();
-      const int rlen = min(LT, R - r0);
-      if (tid < LT)
-        for (int rr = 0; rr < rlen; ++rr) db += Ds[rr * (LT + 1) + tid];
-      for (int rr = 0; rr < rlen; ++rr) {
-        float dv[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) dv[i] = Ds[rr * (LT + 1) + ty + 16 * i];
-#pragma unroll
-        for (int j = 0; j < WJ; ++j) {
-          const int d = tx + 16 * j;
-          if (d < W) {
-            const float h = Hs[rr * (W + 1) + d];
-#pragma unroll
-            for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(dv[i], h, acc[i][j]);
-          }
-        }
-      }
-      if constexpr (kDh) {
-        float hacc[4][WJ];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < WJ; ++j) hacc[i][j] = 0.f;
-        const int vlen = min(LT, V - v0);
-        for (int c = 0; c < vlen; ++c) {
-          float dv[4];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) dv[i] = Ds[(ty + 16 * i) * (LT + 1) + c];
-#pragma unroll
-          for (int j = 0; j < WJ; ++j) {
-            const int d = tx + 16 * j;
-            if (d < W) {
-              const float tv = Ts[c * (W + 1) + d];
-#pragma unroll
-              for (int i = 0; i < 4; ++i) hacc[i][j] = fmaf(dv[i], tv, hacc[i][j]);
-            }
-          }
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int rr = ty + 16 * i;
-          if (rr >= rlen) continue;
-#pragma unroll
-          for (int j = 0; j < WJ; ++j) {
-            const int d = tx + 16 * j;
-            if (d >= W) continue;
-            float* p = dh_part + (size_t)(r0 + rr) * W + d;
-            *p = t == t_begin ? hacc[i][j] : *p + hacc[i][j];
-          }
-        }
-      }
-      __syncthreads();
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int v = v0 + ty + 16 * i;
-      if (v >= V) continue;
-#pragma unroll
-      for (int j = 0; j < WJ; ++j) {
-        const int d = tx + 16 * j;
-        if (d < W) dt[(size_t)v * W + d] = acc[i][j];
-      }
-    }
-    if (tid < LT && v0 + tid < V) db_out[v0 + tid] = db;
-    __syncthreads();  // Ts is reloaded for the next tile
-  }
-}
-
-// dh = T(sum_g part[g]) over the groups in order (K6's dh reduction)
+// dh = T(sum_c part[c]) over the clusters in order (K6's dh reduction)
 template <typename T>
 __global__ void __launch_bounds__(256)
 reduce_rows_cast_kernel(const float* __restrict__ part, T* __restrict__ out, int rows,
@@ -641,9 +516,6 @@ size_t dh_smem_bytes(int W) {
 size_t dt_smem_bytes(int W) {
   return sizeof(float) * (size_t)(2 * LT * (W + 1) + LT * (LT + 1) + 4 * LT);
 }
-size_t vt_smem_bytes(int W) {
-  return sizeof(float) * (size_t)(2 * LT * (W + 1) + LT * (LT + 1) + 4 * LT);
-}
 
 int dt_splits(int R) { return ceil_div(R, DT_CHUNK); }
 
@@ -659,7 +531,6 @@ int fwd_splits(int dtype, int R, int V, int W) {
   if (dtype == 1) return loss_hopper::fwd_splits(R, V, W);
   return ceil_div(ceil_div(V, LT), fwd_tiles_per_split(R, V));
 }
-int merged_groups(int V) { return std::min(ceil_div(V, LT), MERGED_GROUPS); }
 
 // fp32 K3's per-block partial sums and fp32 K4's split dtable partials
 // (bf16 K3 carves TiledFwdScratch below; bf16 K4 runs loss_hopper.cuh's
@@ -693,14 +564,14 @@ struct TiledFwdScratch {
   }
 };
 
-// K6: one fp32 dh partial per vocabulary-tile group (fp32) or per cluster
-// (bf16, loss_hopper.cuh); K7 needs none
+// K6: one fp32 dh partial per cluster (loss_hopper.cuh's law, both
+// dtypes); K7 needs none
 struct TiledBwdScratch {
   float* part_dh;
   size_t bytes;
-  TiledBwdScratch(void* base, int dtype, int R, int V, int W, int merged) {
+  TiledBwdScratch(void* base, int R, int V, int W, int merged) {
     Carve c{static_cast<char*>(base), 0};
-    const int parts = dtype == 1 ? loss_hopper::merged_clusters(V) : merged_groups(V);
+    const int parts = loss_hopper::merged_clusters(V);
     part_dh = merged ? c.take<float>((size_t)parts * R * W) : nullptr;
     bytes = c.used;
   }
@@ -722,13 +593,15 @@ int loss_forward_f32(const void* hidden, const void* table, const float* bias,
   return (int)reduce_rows(w.part_fwd, sums, ceil_div(R, LT), 4, stream);
 }
 
-// the copies' layout rule of loss_hopper.cuh's kernels, which the wrapper
-// checks first: 16-byte aligned operands and rows (W a multiple of 8),
-// W <= LOSS_MAXW
-bool hopper_layout(const void* hidden, const void* table, const void* dh, int W) {
+// the copies' layout rule of the wgmma kernels (loss_hopper.cuh's in bf16,
+// which the wrapper checks first; loss_tf32.cuh's in fp32, which it meets
+// by copying): 16-byte aligned operands and rows (W a multiple of
+// 16 / sizeof(T)), W <= LOSS_MAXW
+template <typename T>
+bool wgmma_layout(const void* hidden, const void* table, const void* dh, int W) {
   return (reinterpret_cast<uintptr_t>(hidden) | reinterpret_cast<uintptr_t>(table) |
           reinterpret_cast<uintptr_t>(dh)) % 16 == 0 &&
-         W % 8 == 0 && W <= LOSS_MAXW;
+         W % (16 / sizeof(T)) == 0 && W <= LOSS_MAXW;
 }
 
 // K5 and bf16 K3: the first pass (fp32 loss_tiled_fwd_kernel, bf16
@@ -742,7 +615,8 @@ int tiled_forward(int dtype, const void* hidden, const void* table, const float*
   TiledFwdScratch w(workspace, n_splits, R);
   cudaError_t err;
   if (dtype == 1) {
-    if (!hopper_layout(hidden, table, nullptr, W)) return (int)cudaErrorInvalidValue;
+    if (!wgmma_layout<__nv_bfloat16>(hidden, table, nullptr, W))
+      return (int)cudaErrorInvalidValue;
     const loss_hopper::FwdArgs a{static_cast<const __nv_bfloat16*>(hidden),
                                  static_cast<const __nv_bfloat16*>(table),
                                  bias, labels, w.part_m, w.part_s, w.part_ll,
@@ -786,51 +660,17 @@ cudaError_t launch_dh(const float* hidden, const float* table, const float* bias
   return cudaGetLastError();
 }
 
-template <int WJ, bool kDh>
-cudaError_t launch_vt(const float* hidden, const float* table, const float* bias,
-                      const int32_t* labels, const float* lse, const float* g,
-                      const float* n_valid, int valid_ge_zero, float* dt, float* db,
-                      float* part_dh, int R, int V, int W, int groups,
-                      cudaStream_t stream) {
-  const size_t smem = vt_smem_bytes(W);
-  cudaError_t err = cudaFuncSetAttribute(loss_bwd_vt_kernel<WJ, kDh>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-  if (err != cudaSuccess) return err;
-  loss_bwd_vt_kernel<WJ, kDh><<<groups, 256, smem, stream>>>(
-      hidden, table, bias, labels, lse, g, n_valid, valid_ge_zero, dt, db, part_dh, R, V,
-      W, groups);
-  return cudaGetLastError();
-}
-
-// The fp32 backwards. mode: 0 = K4 (dh sweep; its own dtable sweep over
-// 1,024-row splits, reduced in order), 1 = K6 (one merged sweep; dh
-// partials per group, reduced in order), 2 = K7 (dh sweep; dtable sweep
-// over all rows)
+// fp32 K4: the dh sweep, then its own dtable sweep over 1,024-row splits,
+// reduced in order
 template <int WJ>
-int loss_backward_w(int mode, const float* hidden, const float* table, const float* bias,
+int loss_backward_w(const float* hidden, const float* table, const float* bias,
                     const int32_t* labels, const float* lse, const float* g,
-                    const float* n_valid, int vge0, float* dh, float* dt, float* db,
-                    void* workspace, int R, int V, int W, cudaStream_t stream) {
+                    const float* n_valid, float* dh, float* dt, float* db, void* workspace,
+                    int R, int V, int W, cudaStream_t stream) {
   const int vtiles = ceil_div(V, LT);
-  cudaError_t err;
-  if (mode == 1) {
-    TiledBwdScratch w(workspace, 0, R, V, W, 1);
-    const int groups = merged_groups(V);
-    err = launch_vt<WJ, true>(hidden, table, bias, labels, lse, g, n_valid, vge0, dt, db,
-                              w.part_dh, R, V, W, groups, stream);
-    if (err != cudaSuccess) return (int)err;
-    const long n = (long)R * W;
-    reduce_rows_cast_kernel<float><<<ceil_div(n, 256), 256, 0, stream>>>(w.part_dh, dh,
-                                                                        groups, n);
-    return (int)cudaGetLastError();
-  }
-  err = launch_dh<WJ>(hidden, table, bias, labels, lse, g, n_valid, vge0, dh, R, V, W,
-                      stream);
+  cudaError_t err = launch_dh<WJ>(hidden, table, bias, labels, lse, g, n_valid, 0, dh, R, V,
+                                  W, stream);
   if (err != cudaSuccess) return (int)err;
-  if (mode == 2)
-    return (int)launch_vt<WJ, false>(hidden, table, bias, labels, lse, g, n_valid, vge0,
-                                     dt, db, nullptr, R, V, W, vtiles, stream);
   LossScratch w(workspace, R, V, W);
   const int splits = dt_splits(R);
   const size_t smem = dt_smem_bytes(W);
@@ -845,16 +685,16 @@ int loss_backward_w(int mode, const float* hidden, const float* table, const flo
   return (int)reduce_rows(w.part_db, db, splits, V, stream);
 }
 
-int loss_backward(int mode, const void* hidden, const void* table, const float* bias,
+int loss_backward(const void* hidden, const void* table, const float* bias,
                   const int32_t* labels, const float* lse, const float* g,
-                  const float* n_valid, int vge0, void* dh, float* dt, float* db,
-                  void* workspace, int R, int V, int W, cudaStream_t stream) {
+                  const float* n_valid, void* dh, float* dt, float* db, void* workspace,
+                  int R, int V, int W, cudaStream_t stream) {
   const float* h = static_cast<const float*>(hidden);
   const float* t = static_cast<const float*>(table);
   float* d = static_cast<float*>(dh);
-#define B4R_LB(WJV)                                                                 \
-  loss_backward_w<WJV>(mode, h, t, bias, labels, lse, g, n_valid, vge0, d, dt, db, \
-                       workspace, R, V, W, stream)
+#define B4R_LB(WJV)                                                                  \
+  loss_backward_w<WJV>(h, t, bias, labels, lse, g, n_valid, d, dt, db, workspace, R, V, \
+                       W, stream)
   switch (pow2_at_least(ceil_div(W, 16))) {
     case 1: return B4R_LB(1);
     case 2: return B4R_LB(2);
@@ -866,29 +706,37 @@ int loss_backward(int mode, const void* hidden, const void* table, const float* 
 #undef B4R_LB
 }
 
-// bf16 K4 (two sweeps from K3's lse), K6 (merged) and K7 on loss_hopper.cuh's
-// wgmma kernels; K6's cluster partials reduced in cluster order
-template <int WP>
-int backward_bf16_w(int merged, const loss_hopper::BwdArgs& a, __nv_bfloat16* dh, float* dt,
-                    float* db, void* workspace, cudaStream_t stream) {
-  if (!merged) return (int)loss_hopper::two_sweep<WP>(a, dh, dt, db, stream);
-  TiledBwdScratch w(workspace, 1, a.R, a.V, a.W, 1);
-  cudaError_t err = loss_hopper::merged_sweep<WP>(a, dt, db, w.part_dh, stream);
+using loss_hopper::merged_sweep;
+using loss_hopper::two_sweep;
+using loss_tf32::merged_sweep;
+using loss_tf32::two_sweep;
+
+// K6 (merged) or K7 on the wgmma sweeps, by the operands' type: bf16 on
+// loss_hopper.cuh's (bf16 K4 too: K7's two sweeps from K3's lse), fp32 on
+// loss_tf32.cuh's 3xTF32 ones; K6's cluster partials reduced in cluster
+// order
+template <int WP, typename T, typename A>
+int tiled_backward_w(int merged, const A& a, T* dh, float* dt, float* db, void* workspace,
+                     cudaStream_t stream) {
+  if (!merged) return (int)two_sweep<WP>(a, dh, dt, db, stream);
+  TiledBwdScratch w(workspace, a.R, a.V, a.W, 1);
+  cudaError_t err = merged_sweep<WP>(a, dt, db, w.part_dh, stream);
   if (err != cudaSuccess) return (int)err;
   const long n = (long)a.R * a.W;
-  reduce_rows_cast_kernel<__nv_bfloat16><<<ceil_div(n, 256), 256, 0, stream>>>(
+  reduce_rows_cast_kernel<T><<<ceil_div(n, 256), 256, 0, stream>>>(
       w.part_dh, dh, loss_hopper::merged_clusters(a.V), n);
   return (int)cudaGetLastError();
 }
 
-int backward_bf16(int merged, const loss_hopper::BwdArgs& a, void* dh, float* dt, float* db,
-                  void* workspace, cudaStream_t stream) {
-  if (!hopper_layout(a.hidden, a.table, dh, a.W)) return (int)cudaErrorInvalidValue;
-  __nv_bfloat16* d = static_cast<__nv_bfloat16*>(dh);
+template <typename T, typename A>
+int tiled_backward(int merged, const A& a, void* dh, float* dt, float* db, void* workspace,
+                   cudaStream_t stream) {
+  if (!wgmma_layout<T>(a.hidden, a.table, dh, a.W)) return (int)cudaErrorInvalidValue;
+  T* d = static_cast<T*>(dh);
   switch (loss_hopper::padded_width(a.W)) {
-    case 64: return backward_bf16_w<64>(merged, a, d, dt, db, workspace, stream);
-    case 128: return backward_bf16_w<128>(merged, a, d, dt, db, workspace, stream);
-    default: return backward_bf16_w<256>(merged, a, d, dt, db, workspace, stream);
+    case 64: return tiled_backward_w<64>(merged, a, d, dt, db, workspace, stream);
+    case 128: return tiled_backward_w<128>(merged, a, d, dt, db, workspace, stream);
+    default: return tiled_backward_w<256>(merged, a, d, dt, db, workspace, stream);
   }
 }
 
@@ -913,9 +761,9 @@ size_t b4r_mlm_loss_tiled_fwd_workspace_bytes(int dtype, int R, int V, int W) {
   return TiledFwdScratch(nullptr, fwd_splits(dtype, R, V, W), R).bytes;
 }
 
-// Bytes of K6's (merged = 1) or K7's (merged = 0) workspace in dtype.
-size_t b4r_mlm_loss_tiled_bwd_workspace_bytes(int dtype, int R, int V, int W, int merged) {
-  return TiledBwdScratch(nullptr, dtype, R, V, W, merged).bytes;
+// Bytes of K6's (merged = 1) or K7's (merged = 0) workspace, either dtype.
+size_t b4r_mlm_loss_tiled_bwd_workspace_bytes(int R, int V, int W, int merged) {
+  return TiledBwdScratch(nullptr, R, V, W, merged).bytes;
 }
 
 // K3. dtype: 0 = float32, 1 = bfloat16 for hidden and table (and dh).
@@ -956,13 +804,13 @@ int b4r_mlm_loss_bwd(int dtype, const void* hidden, const void* table,
                      float* db, void* workspace, int R, int V, int W, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return loss_backward(0, hidden, table, bias, labels, lse, g, n_valid, 0, dh, dt, db,
-                         workspace, R, V, W, st);
+    return loss_backward(hidden, table, bias, labels, lse, g, n_valid, dh, dt, db, workspace,
+                         R, V, W, st);
   if (dtype == 1) {
     const loss_hopper::BwdArgs a{static_cast<const __nv_bfloat16*>(hidden),
                                  static_cast<const __nv_bfloat16*>(table),
                                  bias, labels, lse, g, n_valid, 0, R, V, W};
-    return backward_bf16(0, a, dh, dt, db, workspace, st);
+    return tiled_backward<__nv_bfloat16>(0, a, dh, dt, db, workspace, st);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -975,14 +823,16 @@ int b4r_mlm_loss_tiled_bwd(int merged, int dtype, const void* hidden, const void
                            void* dh, float* dt, float* db, void* workspace, int R, int V,
                            int W, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return loss_backward(merged ? 1 : 2, hidden, table, bias, labels, lse, g, n_valid,
-                         valid_ge_zero, dh, dt, db, workspace, R, V, W, st);
+  if (dtype == 0) {
+    const loss_tf32::Args a{static_cast<const float*>(hidden), static_cast<const float*>(table),
+                            bias, labels, lse, g, n_valid, valid_ge_zero, R, V, W};
+    return tiled_backward<float>(merged, a, dh, dt, db, workspace, st);
+  }
   if (dtype == 1) {
     const loss_hopper::BwdArgs a{static_cast<const __nv_bfloat16*>(hidden),
                                  static_cast<const __nv_bfloat16*>(table),
                                  bias, labels, lse, g, n_valid, valid_ge_zero, R, V, W};
-    return backward_bf16(merged, a, dh, dt, db, workspace, st);
+    return tiled_backward<__nv_bfloat16>(merged, a, dh, dt, db, workspace, st);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -70,151 +70,16 @@
 #include "attention.cuh"
 #include "common.cuh"
 #include "hopper.cuh"
+#include "tf32.cuh"
 
 namespace {
 
 using namespace b4r;
 using namespace b4r::hopper;
+using namespace b4r::tf32;
 
 constexpr int kKs = 32;            // fp32 columns of one panel row (128 bytes)
 constexpr int kPanel = kRows * 128;  // a 64-row panel
-
-// ---------------------------------------------------------------------------
-// 3xTF32 on wgmma
-// ---------------------------------------------------------------------------
-__device__ __forceinline__ uint32_t rna_tf32(float v) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(v));
-  return r;
-}
-__device__ __forceinline__ void split_tf32(float v, float& hi, float& lo) {
-  hi = __uint_as_float(rna_tf32(v));
-  lo = __uint_as_float(rna_tf32(__fsub_rn(v, hi)));
-}
-
-// a K-major operand's k-block: 8 fp32 (32 bytes) at column 8 kk of panel
-// rows starting at `panel` (8-row groups 1024 bytes apart)
-__device__ __forceinline__ uint64_t kdesc(uint32_t panel, int kk) {
-  return sw128_desc(panel + kk * 32, 16, 1024);
-}
-
-#define B4R_F8(i)                                                                     \
-  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]),          \
-      "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
-
-// d += A B, m64n64k8 .tf32, A and B K-major in shared memory
-__device__ __forceinline__ void wgmma_tf32_n64(float (&d)[32], uint64_t da, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1;\n}\n"
-      : B4R_F8(0), B4R_F8(8), B4R_F8(16), B4R_F8(24)
-      : "l"(da), "l"(db), "r"(1));
-}
-
-// d += A B, m64nNk8 .tf32 (N = 32, 64 or 128), A the registers a (the tf32
-// register fragment: row 16 warp + lane / 4 + 8 (r & 1), column lane % 4 +
-// 4 (r >> 1) for register r), B K-major in shared memory
-template <int N>
-__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[N / 2], const uint32_t (&a)[4],
-                                              uint64_t db) {
-  if constexpr (N == 128)
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, "
-        "%8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, "
-        "%24, %25, %26, %27, %28, %29, %30, %31, "
-        "%32, %33, %34, %35, %36, %37, %38, %39, "
-        "%40, %41, %42, %43, %44, %45, %46, %47, "
-        "%48, %49, %50, %51, %52, %53, %54, %55, "
-        "%56, %57, %58, %59, %60, %61, %62, %63"
-        "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
-        : B4R_F8(0), B4R_F8(8), B4R_F8(16), B4R_F8(24), B4R_F8(32), B4R_F8(40),
-          B4R_F8(48), B4R_F8(56)
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-  else if constexpr (N == 32)
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, "
-        "%8, %9, %10, %11, %12, %13, %14, %15"
-        "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
-        : B4R_F8(0), B4R_F8(8)
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-  else
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, "
-        "%8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, "
-        "%24, %25, %26, %27, %28, %29, %30, %31"
-        "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
-        : B4R_F8(0), B4R_F8(8), B4R_F8(16), B4R_F8(24)
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-#undef B4R_F8
-
-// d += A B over one k-block in 3xTF32, m64n64k8 from shared memory: lo hi,
-// hi lo, then hi hi; the lo copies of A and B lie `alo` / `blo` bytes past
-// their hi ones
-__device__ __forceinline__ void mma3(float (&d)[32], uint32_t a, uint32_t alo, uint32_t b,
-                                     uint32_t blo, int kk) {
-  wgmma_tf32_n64(d, kdesc(a + alo, kk), kdesc(b, kk));
-  wgmma_tf32_n64(d, kdesc(a, kk), kdesc(b + blo, kk));
-  wgmma_tf32_n64(d, kdesc(a, kk), kdesc(b, kk));
-}
-
-template <int N> __device__ __forceinline__ void wgmma_wait_n() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// ---------------------------------------------------------------------------
-// copies: ROWS rows x 32 columns of a row-major fp32 matrix (row stride ld,
-// n rows, K columns) from (r0, k0) into a swizzled panel at dst by the NT
-// threads of the block; rows past n and columns past K zero-filled (exact
-// for every product). split_panel then rewrites the chunks this thread
-// copied as their hi parts and writes their lo parts `lo` bytes further.
-// ---------------------------------------------------------------------------
-__device__ __forceinline__ uint32_t chunk_at(int r, int c) {
-  return r * 128 + ((c ^ (r & 7)) << 4);
-}
-
-template <int ROWS, int NT>
-__device__ __forceinline__ void copy_panel(uint32_t dst, const float* src, int ld, int r0,
-                                           int n, int k0, int K) {
-  static_assert(ROWS * 8 % NT == 0, "whole copies per thread");
-#pragma unroll
-  for (int i = 0; i < ROWS * 8 / NT; ++i) {
-    const int idx = threadIdx.x + i * NT, r = idx >> 3, c = idx & 7;
-    const int row = r0 + r, col = k0 + 4 * c;
-    const int bytes = row < n ? min(16, max(0, 4 * (K - col))) : 0;
-    cp_async16(dst + chunk_at(r, c), bytes ? src + (size_t)row * ld + col : src, bytes);
-  }
-}
-
-template <int ROWS, int NT>
-__device__ __forceinline__ void split_panel(uint8_t* panel, int lo) {
-#pragma unroll
-  for (int i = 0; i < ROWS * 8 / NT; ++i) {
-    const int idx = threadIdx.x + i * NT;
-    float4* p = reinterpret_cast<float4*>(panel + chunk_at(idx >> 3, idx & 7));
-    float4* q = reinterpret_cast<float4*>(panel + lo + chunk_at(idx >> 3, idx & 7));
-    float4 v = *p, h, l;
-    split_tf32(v.x, h.x, l.x);
-    split_tf32(v.y, h.y, l.y);
-    split_tf32(v.z, h.z, l.z);
-    split_tf32(v.w, h.w, l.w);
-    *p = h;
-    *q = l;
-  }
-}
 
 // The products' ring: ST stages, the copies of steps ks + 1 .. ks + ST - 1
 // in flight while step ks is split and its products run. One barrier a

@@ -16,7 +16,7 @@ shape) never reach device memory: every kernel streams the table in
 vocabulary tiles and recomputes the logits tile it needs. Bound: 2·R·V·W
 FLOP forward, 6·R·V·W (K4, K6) or 8·R·V·W (K7) backward, against a few MB
 of inputs — bound by operations; bf16 products on the tensor cores, fp32
-ones as SIMT loops (times in PERF.md).
+K6 / K7 there too in 3xTF32, fp32 K3-K5 as SIMT loops (times in PERF.md).
 
 By operand type (an explicit dispatch, nothing caught): bf16 K3-K7 run the
 ``wgmma`` kernels of ``csrc/loss_hopper.cuh`` (bf16 tiles by ``cp.async``,
@@ -27,12 +27,18 @@ the same sweep and merge over the whole table, its vocabulary split by K5's
 law (``whole_table_splits`` is its Python mirror); K4 runs K7's two sweeps
 from K3's lse; K7's two sweeps and K6 sum their fp32 partials across a
 thread-block cluster through distributed shared memory, K6 into at most 32
-dh partials of ``R x W`` that do not grow with V. fp32 K3-K7 run the
-earlier tiles. Layout rule of the bf16 K3-K7 (``check_copy_alignment``,
-raised before the library is reached): hidden and table contiguous with a
-16-byte aligned base and rows, W a multiple of 8 up to 256 (zero-filled to
-64, 128 or 256). The main path's gathered hidden rows and cast table meet
-it at every config width (64, 128, 256).
+dh partials of ``R x W`` that do not grow with V. fp32 K6 / K7 run the
+same sweeps and clusters in 3xTF32 on ``.tf32`` ``wgmma``
+(``csrc/loss_tf32.cuh``; every product's A operand from registers, since
+``.tf32`` reads shared memory only K-major; ``ops/tf32.py`` emulates its
+rounding law); fp32 K3-K5 run the earlier SIMT tiles. Layout rule of the
+bf16 K3-K7 (``check_copy_alignment``, raised before the library is
+reached): hidden and table contiguous with a 16-byte aligned base and rows,
+W a multiple of 8 up to 256 (zero-filled to 64, 128 or 256). The main
+path's gathered hidden rows and cast table meet it at every config width
+(64, 128, 256). fp32 K6 / K7 copy 16-byte pieces too, with W a multiple of
+4: an fp32 operand off that layout is copied into an aligned, zero-filled
+buffer first (``_tf32_operand``), which is exact.
 
 Semantics are the JAX kernels': loss = mean NLL over labels > 0;
 ``masked_accuracy`` = correct-and-valid / n_valid; ``accuracy`` = correct
@@ -189,7 +195,7 @@ def _kernel_lib():
             + [vp] * 4 + [ci] * 3 + [vp]
         for name, n in (("b4r_mlm_loss_workspace_bytes", 4),
                         ("b4r_mlm_loss_tiled_fwd_workspace_bytes", 4),
-                        ("b4r_mlm_loss_tiled_bwd_workspace_bytes", 5)):
+                        ("b4r_mlm_loss_tiled_bwd_workspace_bytes", 4)):
             getattr(lib, name).restype = ctypes.c_size_t
             getattr(lib, name).argtypes = [ci] * n
         lib.b4r_mlm_loss_max_width.restype = ci
@@ -253,7 +259,7 @@ def workspace_bytes(kernel: str, rows: int, v: int, w: int,
     ``"K3/K4"``, ``"K5"``, ``"K6"`` or ``"K7"``, in the operand ``dtype``
     (bf16, the main path's, runs other kernels than fp32: its K3 is K5's
     sweep, its K4 needs no dtable partials, its K5 splits the vocabulary by
-    another law)."""
+    another law; K6 and K7 need the same in both)."""
     lib = _kernel_lib()
     code = _DTYPE_CODE[dtype]
     if kernel == "K3/K4":
@@ -262,7 +268,7 @@ def workspace_bytes(kernel: str, rows: int, v: int, w: int,
         return lib.b4r_mlm_loss_tiled_fwd_workspace_bytes(code, rows, v, w)
     if kernel in ("K6", "K7"):
         return lib.b4r_mlm_loss_tiled_bwd_workspace_bytes(
-            code, rows, v, w, int(kernel == "K6"))
+            rows, v, w, int(kernel == "K6"))
     raise ValueError(f"no kernel {kernel!r}")
 
 
@@ -382,10 +388,26 @@ def _check_layout(hidden, table):
         check_copy_alignment(table, "table")
 
 
+def _tf32_operand(t: torch.Tensor) -> torch.Tensor:
+    """fp32 K6 / K7 copy operand rows in 16-byte pieces: ``t`` itself if it
+    is a contiguous matrix with a 16-byte aligned base and W a multiple of
+    4, else a copy into a new zero-filled ``[rows, W rounded up to 4]``
+    buffer (the zero columns are exact for every product)."""
+    w = t.shape[1]
+    if t.is_contiguous() and t.data_ptr() % 16 == 0 and w % 4 == 0:
+        return t
+    out = t.new_zeros((t.shape[0], -(-w // 4) * 4))
+    out[:, :w] = t
+    return out
+
+
 def _launch_backward_tiled(hidden, table, bias, labels, lse, g, n_valid,
                            merged, valid_ge_zero=False):
     """K6 (``merged``) or K7: ``(dh, dtable, dbias)``."""
     _check_layout(hidden, table)
+    width = hidden.shape[1]
+    if hidden.dtype == torch.float32:
+        hidden, table = _tf32_operand(hidden), _tf32_operand(table)
     lib = _kernel_lib()
     rows, w = hidden.shape
     v = table.shape[0]
@@ -403,6 +425,8 @@ def _launch_backward_tiled(hidden, table, bias, labels, lse, g, n_valid,
         dt.data_ptr(), db.data_ptr(), ws.data_ptr(), rows, v, w,
         torch.cuda.current_stream(dev).cuda_stream),
         f"fused_mlm_loss_tiled backward ({kernel})")
+    if w != width:
+        dh, dt = dh[:, :width].contiguous(), dt[:, :width].contiguous()
     return dh, dt, db
 
 

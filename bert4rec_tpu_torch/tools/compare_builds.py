@@ -8,7 +8,8 @@ and the bits of the loss kernels' outputs on fixed inputs.
 
 ``--root`` builds the checkout's kernels from its own sources and prints
 one JSON line: ``sass``, a hash of each kernel's instructions (addresses,
-encodings and the per-file name of the anonymous namespace dropped), and
+the control half of each encoding, the dump's padding and the per-file
+name of the anonymous namespace dropped), and
 ``bits``, a hash of the outputs of K3, K4, K5 (both entries), K6 and K7
 in fp32 and of K3, K6 and K7 in bf16 at a few shapes (K6/K7 fed the plain
 forward's lse, so that they see the same input in both checkouts).
@@ -36,7 +37,9 @@ def sass_hashes(build_dir: pathlib.Path) -> dict:
                               capture_output=True, text=True, check=True).stdout
         for block in text.split("Function : ")[1:]:
             name, _, body = block.partition("\n")
-            lines = [re.sub(r"/\*[0-9a-f]{4,}\*/", "", ln).strip()
+            # runs of spaces collapsed: cuobjdump pads every line to the
+            # module's longest instruction, which a new kernel can change
+            lines = [" ".join(re.sub(r"/\*[0-9a-f]{4,}\*/", "", ln).split())
                      for ln in body.splitlines()
                      if ln.strip() and not re.fullmatch(r"\s*/\* 0x[0-9a-f]+ \*/\s*", ln)]
             key = f"{lib}:{ANON.sub('ANON', name.strip())}"

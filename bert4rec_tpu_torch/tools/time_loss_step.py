@@ -14,9 +14,10 @@ inside one K4 launch (torch.profiler), per-rep medians of the host wall
 of 20 synchronised train steps at B=256, bf16, on batches of ``bench.py``'s
 law, K5 at (R, V, W) = (10,240, 26,732, 128), (10,240, 26,732, 256) and
 (2,048, 335,424, 128), K6 at (10,240, 26,732, 128) and K7 at (10,240,
-26,732, 256), bf16, each as (median, lowest, highest) ms per call over 7
-blocks of 10 calls after 5 warm-up calls, with the device ms of each
-kernel inside one launch."""
+26,732, 256), bf16, and the same K6 and K7 in fp32 (``k6_fp32``,
+``k7_fp32``), each as (median, lowest, highest) ms per call over 7 blocks
+of 10 calls after 5 warm-up calls, with the device ms of each kernel
+inside one launch."""
 
 import argparse
 import json
@@ -28,7 +29,9 @@ import time
 VOCAB, ROWS, WIDTH = 3709, 256 * 40, 128
 SEQ, BATCH, NPRED = 200, 256, 40
 ML20M_VOCAB = 26732
-TILED = {"k6": (128, True), "k7": (256, False)}   # (width, merged)
+# (width, merged, operand dtype name)
+TILED = {"k6": (128, True, "bfloat16"), "k7": (256, False, "bfloat16"),
+         "k6_fp32": (128, True, "float32"), "k7_fp32": (256, False, "float32")}
 # K5: (rows, vocabulary, width)
 TILED_FWD = {"k5_w128": (ROWS, ML20M_VOCAB, 128),
              "k5_w256": (ROWS, ML20M_VOCAB, 256),
@@ -68,13 +71,16 @@ def blocks_ms(torch, fn, blocks=7, iters=10, warmup=5):
     return [statistics.median(times), min(times), max(times)]
 
 
-def tiled_operands(torch, np, device, rows, vocab, width):
-    """bf16 hidden and table, the bias and labels (every 9th row 0)."""
+def tiled_operands(torch, np, device, rows, vocab, width,
+                   dtype_name="bfloat16"):
+    """hidden and table in ``dtype_name`` (bf16 by default), the bias and
+    labels (every 9th row 0)."""
+    dtype = getattr(torch, dtype_name)
     rng = np.random.default_rng(1)
     h = torch.from_numpy(rng.normal(size=(rows, width)).astype(np.float32)) \
-        .to(device, torch.bfloat16)
+        .to(device, dtype)
     t = torch.from_numpy((rng.normal(size=(vocab, width)) * 0.1)
-                         .astype(np.float32)).to(device, torch.bfloat16)
+                         .astype(np.float32)).to(device, dtype)
     b = torch.from_numpy(rng.normal(size=vocab).astype(np.float32)) \
         .to(device)
     lab = rng.integers(3, vocab, size=rows).astype(np.int32)
@@ -88,10 +94,11 @@ def tiled_forward(torch, np, fml, device, rows, vocab, width):
     return lambda: fml._launch_forward_tiled(h, t, b, lab)
 
 
-def tiled_backward(torch, np, fml, device, width, merged):
-    """K6 (``merged``) or K7 at the ML-20M train batch, as a callable."""
+def tiled_backward(torch, np, fml, device, width, merged, dtype_name):
+    """K6 (``merged``) or K7 at the ML-20M train batch in ``dtype_name``,
+    as a callable."""
     h, t, b, lab = tiled_operands(torch, np, device, ROWS, ML20M_VOCAB,
-                                  width)
+                                  width, dtype_name)
     lse, sums = fml._launch_forward_tiled(h, t, b, lab)
     g = torch.ones((), device=device)
     return lambda: fml._launch_backward_tiled(h, t, b, lab, lse, g,
@@ -203,8 +210,8 @@ def main(argv=None) -> int:
         out["k5_kernels_ms"][key] = kernel_ms(torch, fn)
         del fn
         torch.cuda.empty_cache()
-    for key, (width, merged) in TILED.items():
-        fn = tiled_backward(torch, np, fml, device, width, merged)
+    for key, (width, merged, dtype_name) in TILED.items():
+        fn = tiled_backward(torch, np, fml, device, width, merged, dtype_name)
         out[f"{key}_ms"] = blocks_ms(torch, fn)
         out[f"{key}_kernels_ms"] = kernel_ms(torch, fn)
     print(json.dumps(out), flush=True)

@@ -69,15 +69,19 @@ Phases (any failure raises and the script exits non-zero):
 8. tiled loss — K5 (loss and stats entries), K6 and K7 against their plain
               versions at R=10,240, V=26,732, W=128 and 256, fp32 and
               bf16; K5 + K6 at Reddit's V=335,424 (R cut to 2,048 so the
-              plain logits fit); the sharded loss's label encodings; two
-              runs giving the same bits; kernel, plain and library times
-              (kernel and yardstick as medians of 7 blocks, ranges
-              printed); each bf16 launch's kernels by device time at W=128
-              and 256 (K7's two sweeps apart), K5's (both entries, and at
-              Reddit's V) only ``loss_hopper.cuh``'s ``loss_fwd_sweep_kernel``,
-              the ordered merge and the row sums; the wgmma kernels'
-              registers and spills, and ptxas's notes where it serialised
-              a kernel's products, print with the build;
+              plain logits fit), fp32 and bf16; the sharded loss's label
+              encodings; two runs giving the same bits; kernel, plain and
+              library times (kernel and yardstick as medians of 7 blocks,
+              ranges printed); each launch's kernels by device time at
+              W=128 and 256 (K7's two sweeps apart), K5's (bf16: both
+              entries, and at Reddit's V) only ``loss_hopper.cuh``'s
+              ``loss_fwd_sweep_kernel``, the ordered merge and the row sums,
+              fp32 K6's and K7's only ``loss_tf32.cuh``'s 3xTF32 kernels
+              (``FP32_LOSS_KERNELS``: no route back to the SIMT sweeps);
+              fp32 K6 / K7's bounds at 3xTF32's 165 TFLOP/s beside 67
+              without tensor cores; the wgmma kernels' registers and
+              spills, and ptxas's notes where it serialised a kernel's
+              products, print with the build;
 9. ML-20M training — ``train()`` on ml-20m_128 (backward K6) and
               ml-20m_256 (backward K7) from the phase-7 datasets, B=256,
               bf16, full width and depth: the kernel step against the
@@ -149,7 +153,14 @@ Phases (any failure raises and the script exits non-zero):
               ``run_smoke_temporal`` on the card: the temporal model and its
               time-blind ablation trained on the planted copy-by-time-delta
               world, their HR@1/5/10, and JAX's three checks (a failed
-              check fails the run).
+              check fails the run);
+18. fp32 ML-20M training — phase 9's checks for ml-20m_128 (the quality
+              harness's ml20m preset: hidden 128, 2 layers, 4 heads, inner
+              512, S=200, P=40, B=256, V=26,732) under ``DTypePolicy.f32()``,
+              JAX's default policy and the one the harness's on-chip
+              ml20m and Reddit runs train with: the fp32 layer kernels, fp32
+              K5, and fp32 K6 once a step on ``loss_tf32.cuh``'s kernels;
+              its step time and device breakdown (no SIMT loss sweep in it).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the rest of
@@ -362,6 +373,19 @@ BF16_LOSS_KERNELS = {
                       r"|loss_tiled_merge_kernel|b4r::reduce_rows_kernel)"),
            "loss_fwd_sweep_kernel<"),
 }
+
+
+# The kernels an fp32 K6 / K7 launch may run (csrc/loss_tf32.cuh's 3xTF32
+# sweeps, K6's ordered dh reduction), each with the one it must run, and the
+# SIMT sweeps they replaced, which no fp32 training step may reach
+FP32_LOSS_KERNELS = {
+    "K6": (re.compile(r"^(b4r::loss_tf32::loss_tf32_merged_kernel<"
+                      r"|reduce_rows_cast_kernel<float>)"),
+           "loss_tf32_merged_kernel<"),
+    "K7": (re.compile(r"^b4r::loss_tf32::loss_tf32_sweep_kernel<"),
+           "loss_tf32_sweep_kernel<"),
+}
+SIMT_FP32_TILED_LOSS = re.compile(r"loss_bwd_vt_kernel|loss_bwd_dh_kernel")
 
 
 def _kernel_name(key: str) -> str:
@@ -792,16 +816,17 @@ def layer_bwd_bound_ms(b, dtype_name, h=HIDDEN, f=INNER, causal=False,
                                  else "bytes")
 
 
-def loss_bound_ms(rows, v, w, dtype_name, backward):
+def loss_bound_ms(rows, v, w, dtype_name, backward, peak=None):
     """Forwards (K3, K5): 2RVW FLOP; backwards (K4, K6, K7): 6RVW (the
     logits, then dh and dtable; a kernel's recomputation beyond that is
-    not counted, as for the layer); bytes: hidden, table, bias, labels
-    read once, the outputs written once."""
+    not counted, as for the layer) over the peak for the operand type (or
+    ``peak`` FLOP/s: fp32 K6 / K7 run 3xTF32); bytes: hidden, table,
+    bias, labels read once, the outputs written once."""
     es = 4 if dtype_name == "float32" else 2
     flops = (6 if backward else 2) * rows * v * w
     nbytes = rows * w * es + v * w * es + v * 4 + rows * 4
     nbytes += (rows * w * es + v * w * 4 + v * 4) if backward else rows * 4
-    t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
+    t_ops = flops / (peak or PEAK_FLOPS[dtype_name]) * 1e3
     t_bytes = nbytes / HBM_BYTES_S * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                  else "bytes")
@@ -1168,10 +1193,12 @@ TEMPORAL_FLAGS = dict(use_temporal_embeddings=True,
 
 
 def new_trainer(torch, device, params=None, lr=1e-4, warmup=100,
-                config_name="ml-1m_128", vocab=VOCAB, family="bert4rec"):
+                config_name="ml-1m_128", vocab=VOCAB, family="bert4rec",
+                fp32=False):
     """A trainer of the ``family`` model (``bert4rec``, ``sasrec`` or
     ``temporal``: BERT4Rec with both temporal flags) on ``config_name``
-    with the fused layer and loss, bf16 compute."""
+    with the fused layer and loss, bf16 compute (``fp32``: fp32, JAX's
+    default policy)."""
     from bert4rec_tpu_torch.config import load_train_config
     from bert4rec_tpu_torch.core.dtypes import DTypePolicy
     from bert4rec_tpu_torch.models import BERT4RecModel, SASRecModel
@@ -1182,7 +1209,8 @@ def new_trainer(torch, device, params=None, lr=1e-4, warmup=100,
         **(TEMPORAL_FLAGS if family == "temporal" else {}))
     model_cls = {"bert4rec": BERT4RecModel, "sasrec": SASRecModel,
                  "temporal": BERT4RecModel}[family]
-    model = model_cls(config=config, dtype_policy=DTypePolicy.bf16())
+    policy = DTypePolicy.f32() if fp32 else DTypePolicy.bf16()
+    model = model_cls(config=config, dtype_policy=policy)
     trainer = BERT4RecTrainer(model)
     trainer.initialize_model(
         optimizer=optimizers.create_adam_w_optimizer(
@@ -1258,7 +1286,9 @@ def check_step_parity(torch, trainer, batch, label):
     grad_err = {k: rel_err(grads_k[k], grads_p[k]) for k in grads_k
                 if float(grads_p[k].abs().max()) > 0}
     worst = max(grad_err, key=grad_err.get)
-    print(f"train step, kernels vs plain ({label}, bf16): loss "
+    dtype = trainer.model.dtype_policy.compute_dtype
+    print(f"train step, kernels vs plain ({label}, "
+          f"{str(dtype).removeprefix('torch.')}): loss "
           f"{float(loss_k):.6f} vs {float(loss_p):.6f} (rel {loss_err:.3g},"
           f" tol {STEP_TOL['loss']}), metrics max diff {metric_err:.3g}, "
           f"{len(grad_err)} grads max rel err {grad_err[worst]:.3g} at "
@@ -1482,14 +1512,15 @@ def tiled_operands(torch, rng, device, rows, v, w, dtype, labels="mixed"):
 def check_tiled_loss_kernels(torch, rng, device):
     """K5 (loss and stats entries), K6 and K7 against the plain versions
     at one ML-20M train batch (R=10,240, V=26,732; W=128 and 256; fp32 and
-    bf16), K5 + K6 at Reddit's vocabulary (V=335,424, W=128, bf16, R cut to
-    2,048 so that the plain version's [R, V] logits fit), the
+    bf16), K5 + K6 at Reddit's vocabulary (V=335,424, W=128, fp32 and bf16,
+    R cut to 2,048 so that the plain version's [R, V] logits fit), the
     ``valid_ge_zero`` encoding; two runs of each giving the same bits."""
     import torch.nn.functional as F
     from bert4rec_tpu_torch.ops import fused_mlm_loss as fml
     cases = [(N_ROWS, ML20M_VOCAB, w, dt) for w in (128, 256)
              for dt in (torch.float32, torch.bfloat16)]
-    cases.append((REDDIT_ROWS, REDDIT_VOCAB, 128, torch.bfloat16))
+    cases += [(REDDIT_ROWS, REDDIT_VOCAB, 128, dt)
+              for dt in (torch.float32, torch.bfloat16)]
     rows = {}
     for r, v, w, dtype in cases:
         name = str(dtype).removeprefix("torch.")
@@ -1555,25 +1586,34 @@ def check_tiled_loss_kernels(torch, rng, device):
         plain_bwd_ms = time_ms(plain_bwd, iters=2, warmup=1)
         lib_bwd = blocks(lambda: torch.autograd.grad(
             lib_loss, (hl, tl, bl), retain_graph=True), "library", **it)
+        # fp32 K6 / K7 run 3xTF32: their bound at its rate, and at fp32's
+        # without tensor cores beside it
+        peak = TF32X3_FLOPS if heavy else None
         for k, f in bwd.items():
             row[k] = dict(max_abs_err=bwd_abs[k], max_rel_err=bwd_err[k],
                           **blocks(f, **it), plain_ms=plain_bwd_ms, **lib_bwd,
                           **dict(zip(("bound_ms", "bound_by"), loss_bound_ms(
-                              r, v, w, name, True))), **shape)
+                              r, v, w, name, True, peak))), **shape)
         rows[(name, r, v, w)] = row
+        fp32_bound = loss_bound_ms(r, v, w, name, True)[0]
         for k, x in row.items():
             print(f"tiled loss {k} {name} R={r} V={v} W={w}: rel err "
                   f"{x['max_rel_err']:.3g} (tol "
-                  f"{LOSS_FWD_TOL if k == 'K5' else tol}) {timing_text(x)}",
-                  flush=True)
-        if not heavy:   # K7's two sweeps apart, at each W; bf16 K5's kernels
-            stats_fn = lambda: fml._launch_forward_tiled_stats(  # noqa: E731
-                h, t, b, lab)
-            launches = [("K5", fwd), ("K5 stats", stats_fn)]
-            for k, f in launches + ([] if reddit else list(bwd.items())):
-                print(f"  per {k} launch: " + device_breakdown(
-                    torch, f, only=BF16_LOSS_KERNELS.get(k[:2]))[1],
-                    flush=True)
+                  f"{LOSS_FWD_TOL if k == 'K5' else tol}) {timing_text(x)}"
+                  + (f"; bound at 67 TFLOP/s {fp32_bound:.5f}"
+                     if heavy and k != "K5" else ""), flush=True)
+        # each launch's kernels: K7's two sweeps apart, at each W; bf16
+        # K5's only its sweep and merge; fp32 K6 / K7 only loss_tf32.cuh's
+        stats_fn = lambda: fml._launch_forward_tiled_stats(  # noqa: E731
+            h, t, b, lab)
+        launches = [] if heavy else [("K5", fwd), ("K5 stats", stats_fn)]
+        if not (reddit and not heavy):
+            launches += list(bwd.items())
+        for k, f in launches:
+            only = (FP32_LOSS_KERNELS if heavy
+                    else BF16_LOSS_KERNELS).get(k[:2])
+            print(f"  per {k} launch: " + device_breakdown(
+                torch, f, only=only)[1], flush=True)
         del lib_loss, hl, tl, bl, h, t, b
         torch.cuda.empty_cache()
     ws = {k: fml.workspace_bytes(k, N_ROWS, REDDIT_VOCAB, 128)
@@ -1635,24 +1675,27 @@ class FixedBatches:
 
 
 def check_ml20m_training(torch, device, loader, splits, config_name,
-                         family="bert4rec", timed_steps=ML20M_TIMED_STEPS):
+                         family="bert4rec", timed_steps=ML20M_TIMED_STEPS,
+                         fp32=False):
     """``train()`` on ml-20m_128 (backward K6) or ml-20m_256 (K7) from the
-    pipeline's datasets: B=256, bf16, fused layer and loss, full width and
-    depth; ``family="sasrec"`` trains SASRecModel (the causal layer
-    kernels) from the ``"sasrec"`` preprocessor's datasets, and
-    ``family="temporal"`` the temporal BERT4Rec (the relative-bias layer
-    kernels) from the ``"bert4rec_temporal"`` preprocessor's. Returns the
-    launch counts of the counted run, its timings, the step's peak device
-    memory, the trainer and the host batches it drew."""
+    pipeline's datasets: B=256, bf16 (``fp32``: fp32), fused layer and
+    loss, full width and depth; ``family="sasrec"`` trains SASRecModel (the
+    causal layer kernels) from the ``"sasrec"`` preprocessor's datasets,
+    and ``family="temporal"`` the temporal BERT4Rec (the relative-bias
+    layer kernels) from the ``"bert4rec_temporal"`` preprocessor's. Returns
+    the launch counts of the counted run, its timings, the step's peak
+    device memory, the trainer and the host batches it drew."""
     from bert4rec_tpu_torch.ops import fused_encoder_layer as fel
     from bert4rec_tpu_torch.ops import fused_mlm_loss as fml
     from bert4rec_tpu_torch.utils.checkpoint import flatten
     train_ds, val_ds, _ = splits
     vocab = loader.tokenizer.get_vocab_size()
     trainer = new_trainer(torch, device, config_name=config_name, vocab=vocab,
-                          family=family)
+                          family=family, fp32=fp32)
     label = config_name if family == "bert4rec" else \
         f"{family} {config_name}"
+    if fp32:
+        label = f"fp32 {label}"
     causal = family == "sasrec"
     cfg = trainer.model.config
     if cfg.causal_attention != causal or train_ds.task != (
@@ -1747,7 +1790,7 @@ def check_ml20m_training(torch, device, loader, splits, config_name,
     median = sorted(step_ms)[len(step_ms) // 2]
     device_ms, breakdown = device_breakdown(
         torch, lambda: trainer.train_step(batch), calls=3, top=10,
-        forbid=LEGACY_BF16_LAYER)
+        forbid=SIMT_FP32_TILED_LOSS if fp32 else LEGACY_BF16_LAYER)
     idle = None if device_ms is None else 1 - device_ms / train_ms
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1767,11 +1810,12 @@ def check_ml20m_training(torch, device, loader, splits, config_name,
 
     # the eval loss of a repeated batch falls at a raised learning rate
     start = new_trainer(torch, device, params=init, config_name=config_name,
-                        vocab=vocab, family=family)
+                        vocab=vocab, family=family, fp32=fp32)
     probe = start._put_batch(host[12])
     before = float(start.eval_step(probe)["loss"])
     fast = new_trainer(torch, device, params=init, lr=1e-3, warmup=0,
-                       config_name=config_name, vocab=vocab, family=family)
+                       config_name=config_name, vocab=vocab, family=family,
+                       fp32=fp32)
     fast.train(FixedBatches([host[12]] * 12), epochs=1,
                batch_size=STREAM_BATCH, seed=SEED, verbose=False)
     after = float(fast.eval_step(probe)["loss"])
@@ -2711,6 +2755,11 @@ def run(torch, home) -> int:
     del temporal["trainer"]
     torch.cuda.empty_cache()
     check_temporal_gate(torch, device)
+    # phase 18: the fp32 ML-20M path (the quality harness's ml20m preset)
+    fp32_ml20m = check_ml20m_training(torch, device, loader, splits,
+                                      "ml-20m_128", fp32=True)
+    del fp32_ml20m["trainer"]
+    torch.cuda.empty_cache()
 
     def entry(name, source, replaces, n, row):
         return {"name": name, "route": "cuda",
@@ -2727,6 +2776,7 @@ def run(torch, home) -> int:
     causal_row = causal_rows[("bfloat16", CAUSAL_RATES)]   # SASRec's shape
     tiled_128 = tiled_rows[("bfloat16", N_ROWS, ML20M_VOCAB, 128)]
     tiled_256 = tiled_rows[("bfloat16", N_ROWS, ML20M_VOCAB, 256)]
+    tiled_fp32 = tiled_rows[("float32", N_ROWS, ML20M_VOCAB, 128)]
     tf32_src = "layer_tf32.cu"       # fp32 K1 at inference (serving)
     wgmma_src = "layer_hopper.cuh"   # bf16 K1 / K2
     loss_wgmma = "loss_hopper.cuh"   # bf16 K3-K7
@@ -2777,6 +2827,9 @@ def run(torch, home) -> int:
               f"{loss_py}:602",
               c128["K7"] + c256["K7"] + csas["K7"] + c_temp["K7"],
               tiled_256["K7"]),
+        # fp32 K6 (3xTF32): launches from the fp32 ml-20m_128 train() run
+        entry("fused_mlm_loss_tiled_backward_merged_fp32", "loss_tf32.cuh",
+              f"{loss_py}:502", fp32_ml20m["counts"]["K6"], tiled_fp32["K6"]),
         # K1'' causal (SASRec): launches from its train() run
         entry("fused_encoder_layer_causal", wgmma_src,
               "bert4rec_tpu/ops/fused_encoder_layer.py:241",

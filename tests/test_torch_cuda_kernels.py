@@ -856,6 +856,79 @@ def test_tiled_bf16_rejects_a_misaligned_view(cuda_device):
                 w.launches, w.backward_launches) == before
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["width_18", "shifted_base", "column_slice"])
+@pytest.mark.parametrize("merged", [True, False], ids=["K6", "K7"])
+def test_tiled_fp32_takes_any_layout_through_a_copy(cuda_device, case,
+                                                    merged):
+    """fp32 K6 / K7 copy 16-byte pieces of each row (W a multiple of 4):
+    a width off that rule, a base 4 bytes off 16 and a column slice run
+    through the wrapper's aligned, zero-filled copy and match the plain
+    backward within 1e-4, the gradients at the caller's width."""
+    from bert4rec_tpu_torch.ops import fused_mlm_loss as fml
+    w = 18 if case == "width_18" else 64
+    h, t, b, lab, _ = _tiled_inputs(cuda_device, torch.float32, 130, 200, w)
+    if case == "shifted_base":
+        def shift(x):
+            flat = torch.zeros(x.numel() + 1, device=cuda_device)
+            return flat[1:].view(x.shape).copy_(x)
+        h, t = shift(h), shift(t)
+        assert h.data_ptr() % 16 and t.data_ptr() % 16
+    elif case == "column_slice":
+        def widen(x):
+            wide = torch.zeros((x.shape[0], 72), device=cuda_device)
+            wide[:, :64] = x
+            return wide[:, :64]
+        h, t = widen(h), widen(t)
+        assert not h.is_contiguous()
+    lse, sums = fml.fused_mlm_loss_plain_forward(h, t, b, lab)
+    g = torch.full((), 0.5, device=cuda_device)
+    ref = fml.fused_mlm_loss_plain_backward(h, t, b, lab, lse, g, sums[3])
+    got = fml._launch_backward_tiled(h, t, b, lab, lse, g, sums[3:4], merged)
+    torch.cuda.synchronize()
+    for a, c in zip(got, ref):
+        assert a.shape == c.shape and a.is_contiguous()
+        assert _rel_err(a, c) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w,merged", [(128, True), (256, False), (256, True),
+                                      (128, False), (40, True), (40, False)],
+                         ids=lambda v: str(v))
+def test_tiled_fp32_launch_runs_only_the_tf32_kernels(cuda_device, w,
+                                                      merged):
+    """An fp32 K6 launch runs loss_tf32.cuh's merged kernel and the ordered
+    dh reduction, an fp32 K7 launch its two sweeps (dh, then dt); neither
+    reaches the SIMT sweeps they replaced (``loss_bwd_vt_kernel``, and for
+    K7 ``loss_bwd_dh_kernel``, which fp32 K4 keeps)."""
+    from torch.profiler import ProfilerActivity, profile
+    from bert4rec_tpu_torch.ops import fused_mlm_loss as fml
+    h, t, b, lab, _ = _tiled_inputs(cuda_device, torch.float32, 1000, 3000,
+                                    w)
+    lse, sums = fml._launch_forward_tiled(h, t, b, lab)
+    g = torch.ones((), device=cuda_device)
+    fn = lambda: fml._launch_backward_tiled(  # noqa: E731
+        h, t, b, lab, lse, g, sums[3:4], merged)
+    fn()
+    torch.cuda.synchronize()
+    want = ({"loss_tf32_merged_kernel<", "reduce_rows_cast_kernel<float>"}
+            if merged else {"loss_tf32_sweep_kernel<", "false>", "true>"})
+    for _ in range(3):   # the profiler can drop records
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.key for e in prof.key_averages()
+                 if getattr(e, "self_device_time_total", 0) > 0]
+        if all(any(k in n for n in names) for k in want):
+            break
+    forbid = ("loss_bwd_vt_kernel",) + (() if merged else
+                                        ("loss_bwd_dh_kernel",))
+    assert not [n for n in names if any(f in n for f in forbid)], names
+    assert all(any(k in n for n in names) for k in want), names
+    assert all("loss_tf32" in n or "reduce_rows_cast_kernel<float>" in n
+               for n in names), names
+
+
 def _edge_inputs(device, r, v, w, seed):
     """bf16 hidden [r, w], table [v, w], an unmasked fp32 bias [v] and
     labels that reach every edge of the column range: column 0 (a padding
@@ -1001,9 +1074,9 @@ def test_tiled_workspace_does_not_grow_with_the_vocabulary(cuda_device):
     """At Reddit's vocabulary and the train batch's rows no workspace of
     K5-K7 holds a (rows / chunk) x V x W term, as K4's split dtable
     partials do: K5 asks for splits x R x 3 floats, K6 for at most 128 dh
-    partials of R x W floats (bf16: one per cluster, at most 32; fp32: one
-    per group of vocabulary tiles), K7 for none, and each is the same at
-    V = 26,732 and V = 335,424."""
+    partials of R x W floats (one per cluster, at most 32, in both
+    dtypes), K7 for none, and each is the same at V = 26,732 and
+    V = 335,424."""
     from bert4rec_tpu_torch.ops import fused_mlm_loss as fml
     r, w = 10240, 128
     split_partials = (r // 1024) * 335424 * w * 4

@@ -18,6 +18,7 @@ import torch
 from bert4rec_tpu.ops import fused_encoder_layer as jax_fel
 from bert4rec_tpu_torch.ops import dropout_bits
 from bert4rec_tpu_torch.ops import fused_encoder_layer as fel
+from bert4rec_tpu_torch.ops import tf32
 from bert4rec_tpu_torch.utils.checkpoint import (
     flatten, params_from_numpy, unflatten,
 )
@@ -223,28 +224,6 @@ class TestKernelRoute:
         assert tuple(bits.shape) == fel.keep_bits_shape(3, 2, s)
 
 
-def _rna_tf32(t: torch.Tensor) -> torch.Tensor:
-    """PTX's ``cvt.rna.tf32.f32`` emulated on the tensor's bits: 13 low
-    mantissa bits rounded off, to nearest, ties away from zero (the sign
-    and magnitude are apart, so adding half an ulp to the magnitude rounds
-    away from zero in both signs)."""
-    u = t.contiguous().view(torch.int32)
-    return ((u + 0x1000) & -0x2000).view(torch.float32)
-
-
-def _mm_3xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """The kernels' 3xTF32 product: hi = rna(v), lo = rna(v - hi), and
-    lo_a hi_b + hi_a lo_b first, hi_a hi_b last, in fp32."""
-    ah, bh = _rna_tf32(a), _rna_tf32(b)
-    al, bl = _rna_tf32(a - ah), _rna_tf32(b - bh)
-    return (al @ bh + ah @ bl) + ah @ bh
-
-
-def _mm_tf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """One pass of TF32, for contrast."""
-    return _rna_tf32(a) @ _rna_tf32(b)
-
-
 def _layer_with(mm, flat, x, mask, n):
     """The fused layer's forward at rate 0 (``_layer_fwd_math``) with every
     product — qkv, q k^T, p v, Wo, W1, W2 — taken by ``mm``."""
@@ -285,8 +264,8 @@ class TestThreeTf32:
         x = float(t)
         step = 2.0 ** (max(math.frexp(x)[1], -125) - 11)
         want = math.copysign(math.floor(abs(x) / step + 0.5) * step, x)
-        hi = _rna_tf32(t)
-        lo = _rna_tf32(t - hi)
+        hi = tf32.rna_tf32(t)
+        lo = tf32.rna_tf32(t - hi)
         assert float(hi) == want
         if v == 1.0 + 2.0 ** -11:
             assert float(hi) == 1.0 + 2.0 ** -10
@@ -302,8 +281,10 @@ class TestThreeTf32:
         b = torch.from_numpy(rng.normal(size=(128, 96)).astype(np.float32))
         exact = a.double() @ b.double()
         scale = float(exact.abs().max())
-        err3 = float((_mm_3xtf32(a, b).double() - exact).abs().max()) / scale
-        err1 = float((_mm_tf32(a, b).double() - exact).abs().max()) / scale
+        err3 = float((tf32.mm_3xtf32(a, b).double() - exact).abs().max()) \
+            / scale
+        err1 = float((tf32.mm_tf32(a, b).double() - exact).abs().max()) \
+            / scale
         assert err3 < 2e-6 and err1 > 50 * err3
 
     @pytest.mark.parametrize("seed", [0, 1])
@@ -314,8 +295,8 @@ class TestThreeTf32:
             interpret=True))
         flat = fel.flat_weights(torch_p)
         xt, mt = torch.from_numpy(x), torch.from_numpy(mask)
-        got3 = _layer_with(_mm_3xtf32, flat, xt, mt, N).numpy()
-        got1 = _layer_with(_mm_tf32, flat, xt, mt, N).numpy()
+        got3 = _layer_with(tf32.mm_3xtf32, flat, xt, mt, N).numpy()
+        got1 = _layer_with(tf32.mm_tf32, flat, xt, mt, N).numpy()
         err3 = float(np.abs(got3 - ref).max())
         err1 = float(np.abs(got1 - ref).max())
         assert err3 <= 1e-4, err3

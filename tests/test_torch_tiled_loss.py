@@ -24,6 +24,7 @@ import torch
 
 from bert4rec_tpu.ops import fused_mlm_loss as jax_fml
 from bert4rec_tpu_torch.ops import fused_mlm_loss as fml
+from bert4rec_tpu_torch.ops import tf32
 
 
 def inputs(rows, v, vp, w, seed, labels="mixed"):
@@ -108,6 +109,24 @@ class TestForward:
                                        rtol=1e-5, atol=1e-5)
 
 
+def _jax_backward(h, t, b, lab, v, two_sweep, vge0):
+    """JAX's interpret-mode K6 (``_run_backward_merged``) or K7 (two sweeps,
+    forced as JAX's own test does) from its K5's lse, g = 0.75; returns the
+    numpy gradients, the lse and n_valid."""
+    rows = h.shape[0]
+    hj, tj, bj, labj = (jnp.asarray(x) for x in (h, t, b, lab))
+    _, _, _, nv, lse, _ = jax_fml._run_forward_tiled(hj, tj, bj, labj, v, True)
+    lse = lse[:rows]
+    run = jax_fml._run_backward_tiled if two_sweep \
+        else jax_fml._run_backward_merged
+    with mock.patch.object(jax_fml, "_MERGED_DH_BYTES",
+                           0 if two_sweep else jax_fml._MERGED_DH_BYTES):
+        grads = run(hj, tj, bj, labj, lse, jnp.float32(0.75), nv, v, True,
+                    valid_ge_zero=vge0)
+    return ([np.asarray(x) for x in grads], np.array(lse)[:, 0],
+            float(nv))
+
+
 class TestBackward:
 
     @pytest.mark.parametrize("shape", SHAPES, ids=SHAPE_IDS)
@@ -119,24 +138,13 @@ class TestBackward:
         rows, v, vp, w = shape
         vge0 = labels == "sharded"
         h, t, b, lab = inputs(rows, v, vp, w, rows + 1, labels)
-        hj, tj, bj, labj = (jnp.asarray(x) for x in (h, t, b, lab))
-        _, _, _, nv, lse, _ = jax_fml._run_forward_tiled(hj, tj, bj, labj,
-                                                          v, True)
-        lse = lse[:rows]
-        g = jnp.float32(0.75)
-        run = jax_fml._run_backward_tiled if two_sweep \
-            else jax_fml._run_backward_merged
-        with mock.patch.object(jax_fml, "_MERGED_DH_BYTES",
-                               0 if two_sweep else jax_fml._MERGED_DH_BYTES):
-            jdh, jdt, jdb = run(hj, tj, bj, labj, lse, g, nv, v, True,
-                                valid_ge_zero=vge0)
+        jgrads, lse, nv = _jax_backward(h, t, b, lab, v, two_sweep, vge0)
         ht, tt, bt, labt = _plain_operands(h, t, b, lab, v, torch.float32)
         dh, dt, db = fml.fused_mlm_loss_plain_backward(
-            ht, tt, bt, labt, torch.from_numpy(np.asarray(lse)[:, 0]),
-            torch.tensor(0.75), torch.tensor(float(nv)), valid_ge_zero=vge0)
+            ht, tt, bt, labt, torch.from_numpy(lse), torch.tensor(0.75),
+            torch.tensor(nv), valid_ge_zero=vge0)
         assert dh.shape == (rows, w) and dt.shape == (vp, w)
-        for got, ref in ((dh, jdh), (dt, jdt), (db, jdb)):
-            ref = np.asarray(ref)
+        for got, ref in zip((dh, dt, db), jgrads):
             if not np.abs(ref).any():       # all-padding rows: all zero
                 assert not got.numpy().any()
                 continue
@@ -166,6 +174,54 @@ class TestBackward:
                 jnp.zeros((rows, w)), jnp.zeros((8, w)), jnp.zeros(8),
                 jnp.zeros(rows, jnp.int32), jnp.zeros((rows, 1)), 1.0, 1.0,
                 8, True)
+
+
+class TestThreeTf32:
+    """The rounding law of fp32 K6 / K7 (csrc/loss_tf32.cuh), emulated on
+    the CPU with ``ops/tf32.py``: the logits, dh and dtable each a 3xTF32
+    product (hi / lo split by cvt.rna, three products summed in fp32), dlog
+    split where it is formed, dbias summing the unsplit dlog. The emulated
+    backward stays within TestBackward's 3e-4 of JAX's interpret K6 and K7
+    and within 1e-5 of the plain fp32 backward; one TF32 pass lands at
+    least 10x further from the plain fp32 backward."""
+
+    @staticmethod
+    def _backward(mm, h, t, b, lab, lse, g, n_valid, valid_ge_zero):
+        logits = mm(h, t.T) + b
+        scale = g / max(n_valid, 1.0)
+        col = torch.arange(logits.shape[1])
+        onehot = (col[None, :] == lab.long()[:, None]).float()
+        valid = lab >= 0 if valid_ge_zero else lab > 0
+        dlog = (torch.exp(logits - lse[:, None]) - onehot) \
+            * (valid.float() * scale)[:, None]
+        return mm(dlog, t), mm(dlog.T, h), dlog.sum(dim=0)
+
+    @pytest.mark.parametrize("shape", SHAPES, ids=SHAPE_IDS)
+    @pytest.mark.parametrize("two_sweep", [False, True],
+                             ids=["merged_K6", "two_sweep_K7"])
+    @pytest.mark.parametrize("labels", ["mixed", "sharded", "padding"])
+    def test_3xtf32_backward_matches_jax_and_plain(self, shape, two_sweep,
+                                                   labels):
+        rows, v, vp, w = shape
+        vge0 = labels == "sharded"
+        h, t, b, lab = inputs(rows, v, vp, w, rows + 1, labels)
+        jgrads, lse, nv = _jax_backward(h, t, b, lab, v, two_sweep, vge0)
+        ops = _plain_operands(h, t, b, lab, v, torch.float32)
+        lse_t = torch.from_numpy(lse)
+        plain = fml.fused_mlm_loss_plain_backward(
+            *ops, lse_t, torch.tensor(0.75), torch.tensor(nv),
+            valid_ge_zero=vge0)
+        got3 = self._backward(tf32.mm_3xtf32, *ops, lse_t, 0.75, nv, vge0)
+        got1 = self._backward(tf32.mm_tf32, *ops, lse_t, 0.75, nv, vge0)
+        for g3, g1, p, j in zip(got3, got1, plain, jgrads):
+            if not np.abs(j).any():     # all-padding rows: all zero
+                assert not g3.numpy().any() and not p.numpy().any()
+                continue
+            assert _rel_err(g3.numpy(), j) <= 3e-4
+            err3 = _rel_err(g3.numpy(), p.numpy())
+            err1 = _rel_err(g1.numpy(), p.numpy())
+            assert err3 <= 1e-5, err3
+            assert err1 >= 10 * err3, (err1, err3)
 
 
 class TestAutograd:
