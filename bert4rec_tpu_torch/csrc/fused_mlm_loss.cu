@@ -30,10 +30,6 @@
 // (K5-K7) in VMEM; an H100 block has 227 KB, so every kernel here streams
 // 64-row tiles and recomputes the logits tile it needs. By operand type
 // (an explicit dispatch on `dtype`, nothing caught):
-//   fp32 K3             loss_fwd_kernel: one block per 64-row tile, online
-//                       max / sum over all vocabulary tiles as SIMT loops;
-//                       lse and per-block partials of the four sums
-//                       (reduced in a second, ordered pass)
 //   bf16 K3             K5's two passes over the whole table: the sweep
 //                       below, then loss_tiled_merge_kernel, m / s / ll not
 //                       written. Split law: K5's (fwd_splits, mirrored
@@ -67,39 +63,41 @@
 //                       contiguous, 16-byte aligned base and rows (W a
 //                       multiple of 8), W <= 256 (zero-filled to 64, 128 or
 //                       256).
-//   fp32 K4, K5         SIMT tiles: loss_tiled_fwd_kernel (block
-//                       per (64-row tile, vocabulary split)),
-//                       loss_bwd_dh_kernel (block per 64-row tile, dh over
-//                       the vocabulary tiles from the lse) and
-//                       loss_bwd_dt_kernel (block per (vocabulary tile,
-//                       1,024-row split); split partials reduced in order)
-//   fp32 K6 / K7        loss_tf32.cuh's 3xTF32 wgmma kernels, the bf16
+//   fp32 K3, K4, K6, K7 loss_tf32.cuh's 3xTF32 wgmma kernels, the bf16
 //                       designs' sweeps and clusters with every product's
 //                       A operand in registers (.tf32 wgmma reads shared
-//                       memory only K-major): K7 loss_tf32_sweep_kernel's
-//                       dh and dt sweeps, no workspace; K6
+//                       memory only K-major). K3: loss_tf32_fwd_sweep_kernel
+//                       (a 64-row tile's A fragments split into hi / lo once,
+//                       held in registers at W <= 128; its two warpgroups
+//                       take the streamed vocabulary tiles in turn) over the
+//                       whole table's vocabulary splits (its own law, fwd_
+//                       splits, ~512 blocks, one an SM; mirrored by
+//                       whole_table_splits), then loss_tiled_merge_kernel.
+//                       K4 and K7: loss_tf32_sweep_kernel's dh and dt
+//                       sweeps, no workspace (K4 from K3's lse). K6:
 //                       loss_tf32_merged_kernel, the same <= 32 cluster dh
 //                       partials as bf16 K6. Layout rule, which the
 //                       wrapper meets by copying: hidden and table
 //                       contiguous, 16-byte aligned base and rows (W a
 //                       multiple of 4), W <= 256 (zero-filled to 64, 128
 //                       or 256).
-//   K5's second pass    loss_tiled_merge_kernel (both types): each row's
-//                       splits merged in split order into lse, the stats
-//                       and the four sums
+//   fp32 K5             SIMT tiles: loss_tiled_fwd_kernel (block per
+//                       (64-row tile, vocabulary split))
+//   the second pass     loss_tiled_merge_kernel (K3 and K5, both types):
+//                       each row's splits merged in split order into lse,
+//                       the stats and the four sums
 // The backwards read the forward's lse (the JAX whole-table backward
 // recomputes max and sum; the difference is fp32 rounding, within the
 // tolerance the tests state). dlog is rounded to the hidden dtype before
 // both products and dbias sums the unrounded dlog, as JAX's kernels do. No
-// float atomics: two runs give the same bits. Workspaces do not grow with V
-// except fp32 K4's dtable splits.
+// float atomics: two runs give the same bits. No workspace grows with V.
 //
 // Bound. 2 R V W FLOP forward, 6 R V W backward (the logits, dh, dtable; K7
 // recomputes the logits once more, which the bound does not count), against
 // megabytes of inputs: bound by operations (0.071 ms for K5 and 0.213 ms for
 // K6 at the ML-20M batch, R = 10,240, V = 26,732, W = 128, and 0.00983 ms
-// for bf16 K3 at ml-1m's, at 989 TFLOP/s; fp32 K6 there 1.274 ms at
-// 3xTF32's 165 TFLOP/s).
+// for bf16 K3 at ml-1m's, at 989 TFLOP/s; fp32 K6 there 1.274 ms and fp32
+// K3 / K4 at ml-1m's 0.059 / 0.177 ms at 3xTF32's 165 TFLOP/s).
 // K5 also takes one exponential per (row, vocabulary entry): 274 M at that
 // batch, about as long on the special-function units as its products on
 // the tensor cores, which is why its design overlaps the two.
@@ -116,7 +114,6 @@ using namespace b4r;
 
 constexpr int LT = 64;  // rows per row tile and per vocabulary tile
 constexpr int LOSS_MAXW = 256;
-constexpr int DT_CHUNK = 1024;  // rows per dtable split (fp32 K4)
 constexpr int FWD_BLOCKS = 1024;  // fp32 K5 splits the vocabulary until ~this many blocks
 
 template <typename T>
@@ -132,81 +129,6 @@ __device__ __forceinline__ void load_rows(float* dst, const T* __restrict__ src,
 __device__ __forceinline__ void load_bias(float* bs, const float* __restrict__ bias,
                                           int v0, int V) {
   for (int c = threadIdx.x; c < LT; c += 256) bs[c] = (v0 + c < V) ? bias[v0 + c] : -INFINITY;
-}
-
-// fp32 K3 (bf16: loss_hopper.cuh's loss_fwd_sweep_kernel and the merge below)
-template <typename T>
-__global__ void __launch_bounds__(256)
-loss_fwd_kernel(const T* __restrict__ hidden, const T* __restrict__ table,
-                const float* __restrict__ bias, const int32_t* __restrict__ labels,
-                float* __restrict__ lse_out, float* __restrict__ part, int R, int V,
-                int W) {
-  extern __shared__ float smem[];
-  float* Hs = smem;                    // [64][W + 1]
-  float* Ts = Hs + LT * (W + 1);       // [64][W + 1]
-  float* bs = Ts + LT * (W + 1);       // [64]
-  float* ll = bs + LT;                 // [64] label logits
-  float* rowv = ll + LT;               // [4][64] per-row nll*w, c*w, c, w
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int r0 = blockIdx.x * LT;
-
-  load_rows(Hs, hidden, r0, R, W);
-  for (int r = tid; r < LT; r += 256) ll[r] = 0.f;
-  int lab[4];
-  float m[4], l[4], s[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = r0 + ty + 16 * i;
-    lab[i] = r < R ? labels[r] : -1;
-    m[i] = -INFINITY;
-    l[i] = 0.f;
-  }
-  for (int v0 = 0; v0 < V; v0 += LT) {
-    load_rows(Ts, table, v0, V, W);
-    load_bias(bs, bias, v0, V);
-    __syncthreads();
-    tile_dots(s, Hs, Ts, tx, ty, W);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] += bs[tx + 16 * j];
-        if (v0 + tx + 16 * j == lab[i]) ll[ty + 16 * i] = s[i][j];
-      }
-      const float tmax = fmaxf(fmaxf(s[i][0], s[i][1]), fmaxf(s[i][2], s[i][3]));
-      const float m_new = fmaxf(m[i], half_warp_max(tmax));
-      float tsum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) tsum += expf(s[i][j] - m_new);
-      l[i] = l[i] * expf(m[i] - m_new) + half_warp_sum(tsum);
-      m[i] = m_new;
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int rr = ty + 16 * i, r = r0 + rr;
-    if (tx != 0) continue;
-    float nllw = 0.f, cw = 0.f, c = 0.f, w = 0.f;
-    if (r < R) {
-      const float lse = m[i] + logf(l[i]);
-      lse_out[r] = lse;
-      w = lab[i] > 0 ? 1.f : 0.f;
-      c = ll[rr] >= m[i] ? 1.f : 0.f;
-      nllw = (lse - ll[rr]) * w;
-      cw = c * w;
-    }
-    rowv[rr] = nllw;
-    rowv[LT + rr] = cw;
-    rowv[2 * LT + rr] = c;
-    rowv[3 * LT + rr] = w;
-  }
-  __syncthreads();
-  if (tid < 4) {
-    float acc = 0.f;
-    for (int rr = 0; rr < LT; ++rr) acc += rowv[tid * LT + rr];
-    part[(size_t)blockIdx.x * 4 + tid] = acc;
-  }
 }
 
 // fp32 K5, first pass (bf16: loss_hopper.cuh's loss_fwd_sweep_kernel):
@@ -326,172 +248,6 @@ loss_tiled_merge_kernel(const float* __restrict__ part_m, const float* __restric
   if (tid < 4) part_sums[(size_t)blockIdx.x * 4 + tid] = red[tid][0];
 }
 
-// dlog of this thread's 4 x 4 (row, vocab) pairs; s holds the logits
-__device__ __forceinline__ float dlog_of(float s, float lse, int col, int lab, float wr) {
-  const float p = expf(s - lse);
-  return (p - (col == lab ? 1.f : 0.f)) * wr;
-}
-
-// fp32 K4 and K7's fp32 dh sweep
-template <int WJ>
-__global__ void __launch_bounds__(256)
-loss_bwd_dh_kernel(const float* __restrict__ hidden, const float* __restrict__ table,
-                   const float* __restrict__ bias, const int32_t* __restrict__ labels,
-                   const float* __restrict__ lse, const float* __restrict__ g,
-                   const float* __restrict__ n_valid, int valid_ge_zero,
-                   float* __restrict__ dh, int R, int V, int W) {
-  extern __shared__ float smem[];
-  float* Hs = smem;                    // [64][W + 1]
-  float* Ts = Hs + LT * (W + 1);       // [64][W + 1]
-  float* Ds = Ts + LT * (W + 1);       // [64][65] dlog
-  float* bs = Ds + LT * (LT + 1);      // [64]
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int r0 = blockIdx.x * LT;
-  const float scale = g[0] / fmaxf(n_valid[0], 1.f);
-
-  load_rows(Hs, hidden, r0, R, W);
-  int lab[4];
-  float lr[4], wr[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = r0 + ty + 16 * i;
-    lab[i] = r < R ? labels[r] : -1;
-    lr[i] = r < R ? lse[r] : 0.f;
-    wr[i] = row_valid(lab[i], valid_ge_zero) ? scale : 0.f;
-  }
-  float acc[4][WJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < WJ; ++j) acc[i][j] = 0.f;
-  float s[4][4];
-  for (int v0 = 0; v0 < V; v0 += LT) {
-    load_rows(Ts, table, v0, V, W);
-    load_bias(bs, bias, v0, V);
-    __syncthreads();
-    tile_dots(s, Hs, Ts, tx, ty, W);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = tx + 16 * j;
-        Ds[(ty + 16 * i) * (LT + 1) + c] =
-            dlog_of(s[i][j] + bs[c], lr[i], v0 + c, lab[i], wr[i]);
-      }
-    __syncthreads();
-    const int vlen = min(LT, V - v0);
-    for (int c = 0; c < vlen; ++c) {
-      float dv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) dv[i] = Ds[(ty + 16 * i) * (LT + 1) + c];
-#pragma unroll
-      for (int j = 0; j < WJ; ++j) {
-        const int d = tx + 16 * j;
-        if (d < W) {
-          const float t = Ts[c * (W + 1) + d];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(dv[i], t, acc[i][j]);
-        }
-      }
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = r0 + ty + 16 * i;
-    if (r >= R) continue;
-#pragma unroll
-    for (int j = 0; j < WJ; ++j) {
-      const int d = tx + 16 * j;
-      if (d < W) dh[(size_t)r * W + d] = acc[i][j];
-    }
-  }
-}
-
-// fp32 K4's dtable sweep (bf16 K4 runs loss_hopper.cuh's sweeps): block
-// (vocabulary tile, split of DT_CHUNK rows) writes the tile's dtable / dbias
-// partials of its split, reduced in order later.
-template <int WJ>
-__global__ void __launch_bounds__(256)
-loss_bwd_dt_kernel(const float* __restrict__ hidden, const float* __restrict__ table,
-                   const float* __restrict__ bias, const int32_t* __restrict__ labels,
-                   const float* __restrict__ lse, const float* __restrict__ g,
-                   const float* __restrict__ n_valid, float* __restrict__ part_dt,
-                   float* __restrict__ part_db, int R, int V, int W) {
-  extern __shared__ float smem[];
-  float* Ts = smem;                    // [64 vocab][W + 1], this block's tile
-  float* Hs = Ts + LT * (W + 1);       // [64 rows][W + 1]
-  float* Ds = Hs + LT * (W + 1);       // [64 rows][65] dlog
-  float* bs = Ds + LT * (LT + 1);      // [64]
-  float* rl = bs + LT;                 // [64] row lse
-  float* rw = rl + LT;                 // [64] row weight
-  int* rlab = reinterpret_cast<int*>(rw + LT);  // [64] row label
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int v0 = blockIdx.x * LT, split = blockIdx.y;
-  const int m_begin = split * DT_CHUNK, m_end = min(R, m_begin + DT_CHUNK);
-  const float scale = g[0] / fmaxf(n_valid[0], 1.f);
-
-  load_rows(Ts, table, v0, V, W);
-  load_bias(bs, bias, v0, V);
-  float acc[4][WJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < WJ; ++j) acc[i][j] = 0.f;
-  float db = 0.f;  // thread tid < 64 owns vocabulary column v0 + tid
-  float s[4][4];
-  for (int r0 = m_begin; r0 < m_end; r0 += LT) {
-    load_rows(Hs, hidden, r0, m_end, W);
-    for (int r = tid; r < LT; r += 256) {
-      const bool ok = r0 + r < m_end;
-      rlab[r] = ok ? labels[r0 + r] : -1;
-      rl[r] = ok ? lse[r0 + r] : 0.f;
-      rw[r] = (ok && rlab[r] > 0) ? scale : 0.f;
-    }
-    __syncthreads();
-    tile_dots(s, Hs, Ts, tx, ty, W);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int rr = ty + 16 * i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = tx + 16 * j;
-        Ds[rr * (LT + 1) + c] = dlog_of(s[i][j] + bs[c], rl[rr], v0 + c, rlab[rr], rw[rr]);
-      }
-    }
-    __syncthreads();
-    const int rlen = min(LT, m_end - r0);
-    if (tid < LT)
-      for (int rr = 0; rr < rlen; ++rr) db += Ds[rr * (LT + 1) + tid];
-    for (int rr = 0; rr < rlen; ++rr) {
-      float dv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) dv[i] = Ds[rr * (LT + 1) + ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < WJ; ++j) {
-        const int d = tx + 16 * j;
-        if (d < W) {
-          const float h = Hs[rr * (W + 1) + d];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(dv[i], h, acc[i][j]);
-        }
-      }
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int v = v0 + ty + 16 * i;
-    if (v >= V) continue;
-#pragma unroll
-    for (int j = 0; j < WJ; ++j) {
-      const int d = tx + 16 * j;
-      if (d < W) part_dt[((size_t)split * V + v) * W + d] = acc[i][j];
-    }
-  }
-  if (tid < LT && v0 + tid < V) part_db[(size_t)split * V + v0 + tid] = db;
-}
-
 // dh = T(sum_c part[c]) over the clusters in order (K6's dh reduction)
 template <typename T>
 __global__ void __launch_bounds__(256)
@@ -504,21 +260,9 @@ reduce_rows_cast_kernel(const float* __restrict__ part, T* __restrict__ out, int
   out[i] = from_f<T>(s);
 }
 
-size_t fwd_smem_bytes(int W) {
-  return sizeof(float) * (size_t)(2 * LT * (W + 1) + 6 * LT);
-}
 size_t tiled_fwd_smem_bytes(int W) {
   return sizeof(float) * (size_t)(2 * LT * (W + 1) + 2 * LT);
 }
-size_t dh_smem_bytes(int W) {
-  return sizeof(float) * (size_t)(2 * LT * (W + 1) + LT * (LT + 1) + LT);
-}
-size_t dt_smem_bytes(int W) {
-  return sizeof(float) * (size_t)(2 * LT * (W + 1) + LT * (LT + 1) + 4 * LT);
-}
-
-int dt_splits(int R) { return ceil_div(R, DT_CHUNK); }
-
 // fp32 K5's vocabulary tiles per split: enough splits that row tiles x
 // splits reaches ~FWD_BLOCKS blocks, and no empty split
 int fwd_tiles_per_split(int R, int V) {
@@ -526,30 +270,16 @@ int fwd_tiles_per_split(int R, int V) {
   const int want = std::min(vtiles, std::max(1, ceil_div(FWD_BLOCKS, ceil_div(R, LT))));
   return ceil_div(vtiles, want);
 }
-// K5's splits: fp32 by the tiles per split above, bf16 by loss_hopper.cuh's law
-int fwd_splits(int dtype, int R, int V, int W) {
+// The vocabulary splits of K3 (whole_table) and K5: bf16 both by
+// loss_hopper.cuh's law, fp32 K3 by loss_tf32.cuh's, fp32 K5 by the tiles
+// per split above
+int fwd_splits(int dtype, int whole_table, int R, int V, int W) {
   if (dtype == 1) return loss_hopper::fwd_splits(R, V, W);
+  if (whole_table) return loss_tf32::fwd_splits(R, V, W);
   return ceil_div(ceil_div(V, LT), fwd_tiles_per_split(R, V));
 }
 
-// fp32 K3's per-block partial sums and fp32 K4's split dtable partials
-// (bf16 K3 carves TiledFwdScratch below; bf16 K4 runs loss_hopper.cuh's
-// sweeps, which need none)
-struct LossScratch {
-  float *part_fwd, *part_dt, *part_db;
-  size_t bytes;
-  LossScratch(void* base, int R, int V, int W) {
-    Carve c{static_cast<char*>(base), 0};
-    part_fwd = c.take<float>((size_t)ceil_div(R, LT) * 4);
-    const size_t splits = dt_splits(R);
-    part_dt = c.take<float>(splits * V * W);
-    part_db = c.take<float>(splits * V);
-    bytes = c.used;
-  }
-};
-
-// K5 and bf16 K3: per-split row stats and per-block partial sums; no V x W
-// term
+// K3 and K5: per-split row stats and per-block partial sums; no V x W term
 struct TiledFwdScratch {
   float *part_m, *part_s, *part_ll, *part_sums;
   size_t bytes;
@@ -577,22 +307,6 @@ struct TiledBwdScratch {
   }
 };
 
-// fp32 K3 (bf16 K3 is tiled_forward's bf16 sweep over the whole table)
-int loss_forward_f32(const void* hidden, const void* table, const float* bias,
-                     const int32_t* labels, float* lse, float* sums, void* workspace,
-                     int R, int V, int W, cudaStream_t stream) {
-  LossScratch w(workspace, R, V, W);
-  const size_t smem = fwd_smem_bytes(W);
-  cudaError_t err = cudaFuncSetAttribute(
-      loss_fwd_kernel<float>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  loss_fwd_kernel<float><<<ceil_div(R, LT), 256, smem, stream>>>(
-      static_cast<const float*>(hidden), static_cast<const float*>(table), bias, labels,
-      lse, w.part_fwd, R, V, W);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  return (int)reduce_rows(w.part_fwd, sums, ceil_div(R, LT), 4, stream);
-}
-
 // the copies' layout rule of the wgmma kernels (loss_hopper.cuh's in bf16,
 // which the wrapper checks first; loss_tf32.cuh's in fp32, which it meets
 // by copying): 16-byte aligned operands and rows (W a multiple of
@@ -604,14 +318,15 @@ bool wgmma_layout(const void* hidden, const void* table, const void* dh, int W) 
          W % (16 / sizeof(T)) == 0 && W <= LOSS_MAXW;
 }
 
-// K5 and bf16 K3: the first pass (fp32 loss_tiled_fwd_kernel, bf16
-// loss_hopper.cuh's loss_fwd_sweep_kernel) writes each of the n_splits
-// vocabulary splits' row stats; loss_tiled_merge_kernel merges them in split
-// order
-int tiled_forward(int dtype, const void* hidden, const void* table, const float* bias,
-                  const int32_t* labels, float* lse, float* sums, float* m, float* s,
-                  float* ll, void* workspace, int R, int V, int W, int n_splits,
+// K3 (whole_table) and K5: the first pass writes each of the n_splits
+// vocabulary splits' row stats (bf16 loss_hopper.cuh's loss_fwd_sweep_kernel;
+// fp32 K3 loss_tf32.cuh's loss_tf32_fwd_sweep_kernel, fp32 K5
+// loss_tiled_fwd_kernel); loss_tiled_merge_kernel merges them in split order
+int tiled_forward(int dtype, int whole_table, const void* hidden, const void* table,
+                  const float* bias, const int32_t* labels, float* lse, float* sums, float* m,
+                  float* s, float* ll, void* workspace, int R, int V, int W,
                   cudaStream_t stream) {
+  const int n_splits = fwd_splits(dtype, whole_table, R, V, W);
   TiledFwdScratch w(workspace, n_splits, R);
   cudaError_t err;
   if (dtype == 1) {
@@ -625,6 +340,17 @@ int tiled_forward(int dtype, const void* hidden, const void* table, const float*
       case 64: err = loss_hopper::fwd_sweep<64>(a, stream); break;
       case 128: err = loss_hopper::fwd_sweep<128>(a, stream); break;
       default: err = loss_hopper::fwd_sweep<256>(a, stream); break;
+    }
+  } else if (whole_table) {
+    if (!wgmma_layout<float>(hidden, table, nullptr, W)) return (int)cudaErrorInvalidValue;
+    const loss_tf32::FwdArgs a{static_cast<const float*>(hidden),
+                               static_cast<const float*>(table),
+                               bias, labels, w.part_m, w.part_s, w.part_ll,
+                               R, V, W, n_splits};
+    switch (loss_hopper::padded_width(W)) {
+      case 64: err = loss_tf32::fwd_sweep<64>(a, stream); break;
+      case 128: err = loss_tf32::fwd_sweep<128>(a, stream); break;
+      default: err = loss_tf32::fwd_sweep<256>(a, stream); break;
     }
   } else {
     const size_t smem = tiled_fwd_smem_bytes(W);
@@ -643,67 +369,6 @@ int tiled_forward(int dtype, const void* hidden, const void* table, const float*
       sums != nullptr ? w.part_sums : nullptr);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   return sums != nullptr ? (int)reduce_rows(w.part_sums, sums, blocks, 4, stream) : 0;
-}
-
-template <int WJ>
-cudaError_t launch_dh(const float* hidden, const float* table, const float* bias,
-                      const int32_t* labels, const float* lse, const float* g,
-                      const float* n_valid, int valid_ge_zero, float* dh, int R, int V,
-                      int W, cudaStream_t stream) {
-  const size_t smem = dh_smem_bytes(W);
-  cudaError_t err = cudaFuncSetAttribute(loss_bwd_dh_kernel<WJ>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-  if (err != cudaSuccess) return err;
-  loss_bwd_dh_kernel<WJ><<<ceil_div(R, LT), 256, smem, stream>>>(
-      hidden, table, bias, labels, lse, g, n_valid, valid_ge_zero, dh, R, V, W);
-  return cudaGetLastError();
-}
-
-// fp32 K4: the dh sweep, then its own dtable sweep over 1,024-row splits,
-// reduced in order
-template <int WJ>
-int loss_backward_w(const float* hidden, const float* table, const float* bias,
-                    const int32_t* labels, const float* lse, const float* g,
-                    const float* n_valid, float* dh, float* dt, float* db, void* workspace,
-                    int R, int V, int W, cudaStream_t stream) {
-  const int vtiles = ceil_div(V, LT);
-  cudaError_t err = launch_dh<WJ>(hidden, table, bias, labels, lse, g, n_valid, 0, dh, R, V,
-                                  W, stream);
-  if (err != cudaSuccess) return (int)err;
-  LossScratch w(workspace, R, V, W);
-  const int splits = dt_splits(R);
-  const size_t smem = dt_smem_bytes(W);
-  err = cudaFuncSetAttribute(loss_bwd_dt_kernel<WJ>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  loss_bwd_dt_kernel<WJ><<<dim3(vtiles, splits), 256, smem, stream>>>(
-      hidden, table, bias, labels, lse, g, n_valid, w.part_dt, w.part_db, R, V, W);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  if ((err = reduce_rows(w.part_dt, dt, splits, V * W, stream)) != cudaSuccess)
-    return (int)err;
-  return (int)reduce_rows(w.part_db, db, splits, V, stream);
-}
-
-int loss_backward(const void* hidden, const void* table, const float* bias,
-                  const int32_t* labels, const float* lse, const float* g,
-                  const float* n_valid, void* dh, float* dt, float* db, void* workspace,
-                  int R, int V, int W, cudaStream_t stream) {
-  const float* h = static_cast<const float*>(hidden);
-  const float* t = static_cast<const float*>(table);
-  float* d = static_cast<float*>(dh);
-#define B4R_LB(WJV)                                                                  \
-  loss_backward_w<WJV>(h, t, bias, labels, lse, g, n_valid, d, dt, db, workspace, R, V, \
-                       W, stream)
-  switch (pow2_at_least(ceil_div(W, 16))) {
-    case 1: return B4R_LB(1);
-    case 2: return B4R_LB(2);
-    case 4: return B4R_LB(4);
-    case 8: return B4R_LB(8);
-    case 16: return B4R_LB(16);
-    default: return (int)cudaErrorInvalidValue;
-  }
-#undef B4R_LB
 }
 
 using loss_hopper::merged_sweep;
@@ -747,18 +412,24 @@ extern "C" {
 // Limit the wrapper checks before calling (ops/fused_mlm_loss.py).
 int b4r_mlm_loss_max_width() { return LOSS_MAXW; }
 
-// Bytes of the workspace K3 / K4 carve their partials from in dtype: fp32
-// K3's row-block sums and fp32 K4's split dtable partials; bf16 K3's
-// vocabulary splits' row stats and its row-block sums (bf16 K4 needs none).
+// Bytes of K3's workspace in dtype: its vocabulary splits' row stats (splits
+// x R x 3, fwd_splits) and its row-block sums, no V x W. K4 needs none.
 size_t b4r_mlm_loss_workspace_bytes(int dtype, int R, int V, int W) {
-  if (dtype == 1) return TiledFwdScratch(nullptr, fwd_splits(1, R, V, W), R).bytes;
-  return LossScratch(nullptr, R, V, W).bytes;
+  return TiledFwdScratch(nullptr, fwd_splits(dtype, 1, R, V, W), R).bytes;
 }
 
 // Bytes of K5's workspace in dtype: splits x R x 3 + the row-block sums, no
 // V x W.
 size_t b4r_mlm_loss_tiled_fwd_workspace_bytes(int dtype, int R, int V, int W) {
-  return TiledFwdScratch(nullptr, fwd_splits(dtype, R, V, W), R).bytes;
+  return TiledFwdScratch(nullptr, fwd_splits(dtype, 0, R, V, W), R).bytes;
+}
+
+// The grid of K4's (and K7's) two sweeps in dtype, as launched: out[0..3] =
+// the dh sweep's blocks and cluster size, then the dt sweep's.
+void b4r_mlm_loss_sweep_grid(int dtype, int R, int V, int W, int* out) {
+  loss_hopper::sweep_clusters(R, V, dtype == 1 ? LT : loss_tf32::sweep_yn(W), out[1], out[3]);
+  out[0] = ceil_div(R, LT) * out[1];
+  out[2] = ceil_div(V, LT) * out[3];
 }
 
 // Bytes of K6's (merged = 1) or K7's (merged = 0) workspace, either dtype.
@@ -768,18 +439,14 @@ size_t b4r_mlm_loss_tiled_bwd_workspace_bytes(int R, int V, int W, int merged) {
 
 // K3. dtype: 0 = float32, 1 = bfloat16 for hidden and table (and dh).
 // Writes lse [R] and sums [4] = (sum nll * w, sum correct * w, sum correct,
-// sum w). bf16 runs K5's sweep over K5's vocabulary splits (fwd_splits)
-// and the ordered merge.
+// sum w): a sweep over the whole table's vocabulary splits (fwd_splits;
+// bf16 K5's sweep, fp32 loss_tf32.cuh's 3xTF32 one) and the ordered merge.
 int b4r_mlm_loss_fwd(int dtype, const void* hidden, const void* table,
                      const float* bias, const int32_t* labels, float* lse, float* sums,
                      void* workspace, int R, int V, int W, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return loss_forward_f32(hidden, table, bias, labels, lse, sums, workspace, R, V, W, st);
-  if (dtype == 1)
-    return tiled_forward(1, hidden, table, bias, labels, lse, sums, nullptr, nullptr,
-                         nullptr, workspace, R, V, W, fwd_splits(1, R, V, W), st);
-  return (int)cudaErrorInvalidValue;
+  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
+  return tiled_forward(dtype, 1, hidden, table, bias, labels, lse, sums, nullptr, nullptr,
+                       nullptr, workspace, R, V, W, static_cast<cudaStream_t>(stream));
 }
 
 // K5. Writes lse [R] and sums [4] as b4r_mlm_loss_fwd, and the per-row
@@ -790,22 +457,24 @@ int b4r_mlm_loss_tiled_fwd(int dtype, const void* hidden, const void* table,
                            float* m, float* s, float* ll, void* workspace, int R, int V,
                            int W, void* stream) {
   if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
-  return tiled_forward(dtype, hidden, table, bias, labels, lse, sums, m, s, ll, workspace,
-                       R, V, W, fwd_splits(dtype, R, V, W),
-                       static_cast<cudaStream_t>(stream));
+  return tiled_forward(dtype, 0, hidden, table, bias, labels, lse, sums, m, s, ll, workspace,
+                       R, V, W, static_cast<cudaStream_t>(stream));
 }
 
-// K4. g: the loss's cotangent (one float on the device); n_valid: sums[3]
-// of the forward. Writes dh [R, W] in dtype, dt [V, W] and db [V] in
-// float32.
+// K4: K7's two sweeps from K3's lse (bf16 loss_hopper.cuh's, fp32
+// loss_tf32.cuh's). g: the loss's cotangent (one float on the device);
+// n_valid: sums[3] of the forward. Writes dh [R, W] in dtype, dt [V, W] and
+// db [V] in float32; no workspace.
 int b4r_mlm_loss_bwd(int dtype, const void* hidden, const void* table,
                      const float* bias, const int32_t* labels, const float* lse,
                      const float* g, const float* n_valid, void* dh, float* dt,
                      float* db, void* workspace, int R, int V, int W, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return loss_backward(hidden, table, bias, labels, lse, g, n_valid, dh, dt, db, workspace,
-                         R, V, W, st);
+  if (dtype == 0) {
+    const loss_tf32::Args a{static_cast<const float*>(hidden), static_cast<const float*>(table),
+                            bias, labels, lse, g, n_valid, 0, R, V, W};
+    return tiled_backward<float>(0, a, dh, dt, db, workspace, st);
+  }
   if (dtype == 1) {
     const loss_hopper::BwdArgs a{static_cast<const __nv_bfloat16*>(hidden),
                                  static_cast<const __nv_bfloat16*>(table),

@@ -739,6 +739,13 @@ inline int sweep_cluster(int xtiles, int ytiles) {
   while (c < kMaxCluster && 2 * c <= ytiles && xtiles * c < kSweepCtas) c *= 2;
   return c;
 }
+// K7's (and K4's) two sweeps' cluster sizes at Y tiles of yn rows: the dh
+// sweep's (X = the 64-row tiles of the hidden), then the dt sweep's (X =
+// the 64-entry tiles of the vocabulary)
+inline void sweep_clusters(int R, int V, int yn, int& c_dh, int& c_dt) {
+  c_dh = sweep_cluster((R + kRows - 1) / kRows, (V + yn - 1) / yn);
+  c_dt = sweep_cluster((V + kRows - 1) / kRows, (R + yn - 1) / yn);
+}
 // K6's cluster size (vocabulary tiles per group) and cluster count
 inline int merged_cluster(int V) {
   const int vtiles = (V + kRows - 1) / kRows;
@@ -778,13 +785,13 @@ cudaError_t fwd_sweep(const FwdArgs& a, cudaStream_t st) {
 template <int WP>
 cudaError_t two_sweep(const BwdArgs& a, bf16* dh, float* dt, float* db, cudaStream_t st) {
   const int rtiles = (a.R + kRows - 1) / kRows, vtiles = (a.V + kRows - 1) / kRows;
-  int c = sweep_cluster(rtiles, vtiles);
-  cudaError_t err = launch_clusters(loss_sweep_kernel<WP, false>, rtiles * c, c,
+  int c_dh, c_dt;
+  sweep_clusters(a.R, a.V, kRows, c_dh, c_dt);
+  cudaError_t err = launch_clusters(loss_sweep_kernel<WP, false>, rtiles * c_dh, c_dh,
                                     sweep_smem(WP), st, a, dh, dt, db);
   if (err != cudaSuccess) return err;
-  c = sweep_cluster(vtiles, rtiles);
-  return launch_clusters(loss_sweep_kernel<WP, true>, vtiles * c, c, sweep_smem(WP), st, a,
-                         dh, dt, db);
+  return launch_clusters(loss_sweep_kernel<WP, true>, vtiles * c_dt, c_dt, sweep_smem(WP),
+                         st, a, dh, dt, db);
 }
 
 // K6's sweep; the caller reduces part_dh's merged_clusters(V) partials

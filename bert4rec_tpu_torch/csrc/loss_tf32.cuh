@@ -1,12 +1,16 @@
-// The fp32 vocab-tiled loss backwards on Hopper's warpgroup tensor cores in
-// 3xTF32 (tf32.cuh's law), dispatched from fused_mlm_loss.cu, replacing
-// these of bert4rec_tpu/ops/fused_mlm_loss.py in fp32: K7 (_bwd_dh_kernel
-// + _bwd_dt_kernel, launched by _run_backward_tiled) and K6
+// The fp32 loss kernels on Hopper's warpgroup tensor cores in 3xTF32
+// (tf32.cuh's law), dispatched from fused_mlm_loss.cu, replacing these of
+// bert4rec_tpu/ops/fused_mlm_loss.py in fp32: K3 (_fwd_kernel, launched by
+// _run_forward: loss_tf32_fwd_sweep_kernel over the whole table, then
+// fused_mlm_loss.cu's ordered merge), K4 (_bwd_kernel, launched by
+// _run_backward) and K7 (_bwd_dh_kernel + _bwd_dt_kernel, launched by
+// _run_backward_tiled): the two sweeps from the forward's lse, and K6
 // (_bwd_merged_kernel, launched by _run_backward_merged). They compute what
 // fused_mlm_loss.cu's header writes with T = float (rounding dlog to the
-// hidden dtype is then no rounding). Bound by operations: 6 R V W FLOP (K7
-// recomputes the logits: 8 R V W), three tensor-core products each, so at
-// most 495 / 3 = 165 TFLOP/s on an H100 SXM.
+// hidden dtype is then no rounding). Bound by operations: 2 R V W FLOP
+// forward, 6 R V W backward (K4 / K7 recompute the logits: 8 R V W), three
+// tensor-core products each, so at most 495 / 3 = 165 TFLOP/s on an H100
+// SXM.
 //
 // The crux: wgmma reads .tf32 operands from shared memory only K-major, and
 // of the three products per (row tile, vocabulary tile) only s = X Y^T
@@ -47,6 +51,16 @@
 // at W > 128, 32 vocabulary entries) and the dt sweep (X = a vocabulary
 // tile, Y = hidden rows; db sums each X row's unrounded dlog). No
 // workspace.
+//
+// K3's forward sweep (loss_tf32_fwd_sweep_kernel, after K6): s = X Y^T
+// only, X = 64 hidden rows whose A fragments each warpgroup holds split in
+// registers at WP <= 128 (128 registers at WP = 128), Y = the vocabulary
+// tiles of the block's split, which its two warpgroups take in turn; each
+// folds its tiles' logits into an online max / sum of exponentials and the
+// label logit in registers while the other's products run. Its splits bring
+// the grid to ~kFwdItems blocks (one an SM) and are merged in split order
+// by fused_mlm_loss.cu; the sweep takes any vocabulary range, so K5 could
+// run it too.
 //
 // K6: one recompute. A block holds a vocabulary tile X and sweeps the
 // hidden rows 32 at a time as the dt sweep does; for each it also forms the
@@ -776,21 +790,208 @@ loss_tf32_merged_kernel(Args a, float* dt, float* db, float* part_dh, int n_clus
 }
 
 // ---------------------------------------------------------------------------
+// K3's first pass: block (row tile x, split) holds hidden rows x0 .. +63 (the
+// X tile) and streams the split's vocabulary tiles of YN entries with their
+// bias, its two warpgroups taking them in turn, each with its own stage (a
+// tile lands raw by cp.async and each thread splits the chunks it copied).
+// At WP <= 128 each warpgroup holds the X tile's A fragments in registers,
+// split into hi / lo once; at WP = 256 (256 registers of fragments) it reads
+// and splits them from the raw X tile per step, as the sweeps do. Per tile:
+// s = X Y^T, then the tile's logits (its bias added, -inf past V) folded into
+// the warpgroup's running max and sum of exponentials and its label logit
+// while the other warpgroup's products run. The two warpgroups' row stats
+// are merged in order and the split's per-row (max, sum, label logit) go to
+// part_*[split][row]; the caller merges the splits in split order.
+// ---------------------------------------------------------------------------
+struct FwdArgs {
+  const float* hidden;    // [R, W]
+  const float* table;     // [V, W]
+  const float* bias;      // [V], vocab padding at -1e9
+  const int32_t* labels;  // [R]
+  float *part_m, *part_s, *part_ll;  // [splits][R]
+  int R, V, W, splits;
+};
+
+template <int WP> constexpr bool kFwdRegFrags = WP <= 128;
+constexpr int kFwdItems = 512;  // the splits bring the grid to ~this many blocks
+
+template <int WP>
+struct FwdShape {
+  static constexpr int G = kSweepWgs, YN = kSweepYn<WP>;
+  static constexpr int kYPlane = YN * WP * 4, kYStage = 2 * kYPlane;
+  static constexpr int kY = 0, kX = G * kYStage, kB = kX + kRows * WP * 4;
+  static constexpr int kM = kB + G * YN * 4;  // warpgroup 1's row stats [3][64]
+  static constexpr size_t kSmem = 1024 + (size_t)kM + 3 * kRows * 4;
+  static_assert(kSmem <= 227 * 1024, "a block's shared memory");
+};
+
+// s = X Y^T over WP columns, X's hi / lo A fragments in registers, Y's hi /
+// lo tiles (N rows) at shared address yt / yt + ylo
+template <int WP, int N>
+__device__ __forceinline__ void product_s_regs(float (&s)[N / 2],
+                                               const uint32_t (&xh)[WP / 8][4],
+                                               const uint32_t (&xl)[WP / 8][4], uint32_t yt,
+                                               int ylo) {
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) s[i] = 0.f;
+  fence_regs(s);
+  wgmma_fence();
+#pragma unroll
+  for (int kb = 0; kb < WP / 8; ++kb)
+    mma3_rs<N>(s, xh[kb], xl[kb], bdesc(yt, N, kb), bdesc(yt + ylo, N, kb));
+  wgmma_commit();
+  wgmma_wait_n<0>();
+  fence_regs(s);
+}
+
+template <int WP>
+__global__ void __launch_bounds__(kSweepWgs * kThreads, 1)
+loss_tf32_fwd_sweep_kernel(FwdArgs a) {
+  using L = FwdShape<WP>;
+  constexpr int G = L::G, YN = L::YN;
+  uint8_t* sm = aligned_smem();
+  const uint32_t base = smem_u32(sm);
+
+  const int wg = threadIdx.x / kThreads, lt = threadIdx.x % kThreads;
+  const int tq = lt & 3, row0 = frag_row();
+  const int x0 = (int)blockIdx.x * kRows, split = (int)blockIdx.y;
+  const int vtiles = cdiv(a.V, YN);
+  const int t0 = (int)((long)split * vtiles / a.splits);
+  const int n = (int)((long)(split + 1) * vtiles / a.splits) - t0;  // the split's tiles
+  // this warpgroup's stage and its tile's bias
+  uint8_t* yt = sm + L::kY + wg * L::kYStage;
+  const uint32_t ya = base + L::kY + wg * L::kYStage, ba = base + L::kB + wg * YN * 4;
+  const float* bias_s = reinterpret_cast<const float*>(sm + L::kB + wg * YN * 4);
+
+  auto prefetch = [&](int item) {
+    const int y0 = (t0 + item) * YN;
+#pragma unroll
+    for (int p = 0; p < WP / 32; ++p)
+      copy_panel_t<YN, kThreads>(lt, ya + p * YN * 128, a.table, a.W, y0, a.V, 32 * p, a.W);
+    if (lt < YN) {
+      const bool ok = y0 + lt < a.V;
+      cp_async4(ba + 4 * lt, ok ? a.bias + y0 + lt : a.bias, ok ? 4 : 0);
+    }
+  };
+#pragma unroll
+  for (int p = 0; p < WP / 32; ++p)
+    copy_panel_t<kRows, G * kThreads>(threadIdx.x, base + L::kX + p * kRows * 128, a.hidden,
+                                      a.W, x0, a.R, 32 * p, a.W);
+  if (wg < n) prefetch(wg);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();  // the X tile is complete for both warpgroups
+
+  uint32_t xh[kFwdRegFrags<WP> ? WP / 8 : 1][4], xl[kFwdRegFrags<WP> ? WP / 8 : 1][4];
+  if constexpr (kFwdRegFrags<WP>) {
+#pragma unroll
+    for (int kb = 0; kb < WP / 8; ++kb) frag_rows(xh[kb], xl[kb], sm + L::kX, kb);
+  }
+  // labels outside [0, V) match no column
+  int lab[2];
+  float m[2], l[2], ll[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = x0 + row0 + 8 * h, y = r < a.R ? a.labels[r] : -1;
+    lab[h] = (y >= 0 && y < a.V) ? y : -(1 << 30);
+    m[h] = -INFINITY;
+    l[h] = ll[h] = 0.f;
+  }
+  for (int item = wg; item < n; item += G) {
+    cp_async_wait<0>();
+#pragma unroll
+    for (int p = 0; p < WP / 32; ++p)
+      split_panel_t<YN, kThreads>(lt, yt + p * YN * 128, L::kYPlane);
+    fence_async_smem();
+    wg_sync(wg);
+    float s[YN / 2];
+    if constexpr (kFwdRegFrags<WP>)
+      product_s_regs<WP, YN>(s, xh, xl, ya, L::kYPlane);
+    else
+      product_s<WP, YN>(s, sm + L::kX, ya, L::kYPlane);
+    const int y0 = (t0 + item) * YN;
+    if (y0 + YN > a.V)
+      loss_hopper::add_bias<YN, true>(s, s, bias_s, a.V - y0);
+    else
+      loss_hopper::add_bias<YN, false>(s, s, bias_s, YN);
+    wg_sync(wg);  // every thread of the warpgroup is done with the stage
+    if (item + G < n) prefetch(item + G);
+    cp_async_commit();
+    const int rel[2] = {lab[0] - y0, lab[1] - y0};
+    loss_hopper::fold_tile<YN>(s, rel, m, l, ll);
+  }
+  cp_async_wait<0>();
+
+  // warpgroup 1's row stats merged into warpgroup 0's, then written
+  float* ms = reinterpret_cast<float*>(sm + L::kM);
+  float ls[2], lls[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    ls[h] = quad_sum(l[h]);
+    lls[h] = quad_sum(ll[h]);
+    if (wg == 1 && tq == 0) {
+      const int r = row0 + 8 * h;
+      ms[r] = m[h];
+      ms[kRows + r] = ls[h];
+      ms[2 * kRows + r] = lls[h];
+    }
+  }
+  __syncthreads();
+  if (wg != 0 || tq != 0) return;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = row0 + 8 * h, x = x0 + r;
+    if (x >= a.R) continue;
+    const float m1 = ms[r], mn = fmaxf(m[h], m1);
+    const size_t o = (size_t)split * a.R + x;
+    a.part_m[o] = mn;
+    a.part_s[o] = ls[h] * ex2((m[h] - mn) * kLog2e) + ms[kRows + r] * ex2((m1 - mn) * kLog2e);
+    a.part_ll[o] = lls[h] + ms[2 * kRows + r];
+  }
+}
+
+// ---------------------------------------------------------------------------
 // launches
 // ---------------------------------------------------------------------------
+// K3's vocabulary splits: the fewest that bring (64-row tiles x splits) to
+// kFwdItems, at most one per vocabulary tile of kSweepYn<WP> entries (one
+// block an SM: at ml-1m's batch, R = 10,240, V = 3,709, W = 128, 160 row
+// tiles x 4 splits of 14-15 tiles, 4.85 waves on 132 SMs)
+// kSweepYn<WP> at the width W pads to
+inline int sweep_yn(int W) {
+  return loss_hopper::padded_width(W) == 256 ? kSweepYn<256> : kSweepYn<128>;
+}
+
+inline int fwd_splits(int R, int V, int W) {
+  const int yn = sweep_yn(W);
+  const int rtiles = (R + kRows - 1) / kRows, vtiles = (V + yn - 1) / yn;
+  return std::max(1, std::min(vtiles, (kFwdItems + rtiles - 1) / rtiles));
+}
+
+// K3's first pass; a.splits = fwd_splits(R, V, W)
+template <int WP>
+cudaError_t fwd_sweep(const FwdArgs& a, cudaStream_t st) {
+  constexpr size_t smem = FwdShape<WP>::kSmem;
+  cudaError_t err = allow_smem(loss_tf32_fwd_sweep_kernel<WP>, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.R + kRows - 1) / kRows, a.splits);
+  loss_tf32_fwd_sweep_kernel<WP><<<grid, kSweepWgs * kThreads, smem, st>>>(a);
+  return cudaGetLastError();
+}
+
 // K7: the dh sweep, then the dt sweep
 template <int WP>
 cudaError_t two_sweep(const Args& a, float* dh, float* dt, float* db, cudaStream_t st) {
   constexpr int YN = kSweepYn<WP>, NT = kSweepWgs * kThreads;
   constexpr size_t smem = SweepShape<WP, YN>::kSmem;
   const int rtiles = (a.R + kRows - 1) / kRows, vtiles = (a.V + kRows - 1) / kRows;
-  int c = loss_hopper::sweep_cluster(rtiles, (a.V + YN - 1) / YN);
-  cudaError_t err = launch_clusters_n(loss_tf32_sweep_kernel<WP, YN, false>, rtiles * c, c,
-                                      NT, smem, st, a, dh, dt, db);
+  int c_dh, c_dt;
+  loss_hopper::sweep_clusters(a.R, a.V, YN, c_dh, c_dt);
+  cudaError_t err = launch_clusters_n(loss_tf32_sweep_kernel<WP, YN, false>, rtiles * c_dh,
+                                      c_dh, NT, smem, st, a, dh, dt, db);
   if (err != cudaSuccess) return err;
-  c = loss_hopper::sweep_cluster(vtiles, (a.R + YN - 1) / YN);
-  return launch_clusters_n(loss_tf32_sweep_kernel<WP, YN, true>, vtiles * c, c, NT, smem, st,
-                           a, dh, dt, db);
+  return launch_clusters_n(loss_tf32_sweep_kernel<WP, YN, true>, vtiles * c_dt, c_dt, NT,
+                           smem, st, a, dh, dt, db);
 }
 
 // K6's sweep; the caller reduces part_dh's loss_hopper::merged_clusters(V)

@@ -14,9 +14,10 @@ the hand-written Hopper CUDA kernels of ``csrc/fused_mlm_loss.cu``:
 As on the TPU, the ``[R, V]`` fp32 logits (1.1 GB at the ml-20m train
 shape) never reach device memory: every kernel streams the table in
 vocabulary tiles and recomputes the logits tile it needs. Bound: 2·R·V·W
-FLOP forward, 6·R·V·W (K4, K6) or 8·R·V·W (K7) backward, against a few MB
+FLOP forward, 6·R·V·W (K6) or 8·R·V·W (K4, K7) backward, against a few MB
 of inputs — bound by operations; bf16 products on the tensor cores, fp32
-K6 / K7 there too in 3xTF32, fp32 K3-K5 as SIMT loops (times in PERF.md).
+K3, K4, K6 and K7 there too in 3xTF32, fp32 K5 as SIMT loops (times in
+PERF.md).
 
 By operand type (an explicit dispatch, nothing caught): bf16 K3-K7 run the
 ``wgmma`` kernels of ``csrc/loss_hopper.cuh`` (bf16 tiles by ``cp.async``,
@@ -27,18 +28,22 @@ the same sweep and merge over the whole table, its vocabulary split by K5's
 law (``whole_table_splits`` is its Python mirror); K4 runs K7's two sweeps
 from K3's lse; K7's two sweeps and K6 sum their fp32 partials across a
 thread-block cluster through distributed shared memory, K6 into at most 32
-dh partials of ``R x W`` that do not grow with V. fp32 K6 / K7 run the
-same sweeps and clusters in 3xTF32 on ``.tf32`` ``wgmma``
-(``csrc/loss_tf32.cuh``; every product's A operand from registers, since
-``.tf32`` reads shared memory only K-major; ``ops/tf32.py`` emulates its
-rounding law); fp32 K3-K5 run the earlier SIMT tiles. Layout rule of the
-bf16 K3-K7 (``check_copy_alignment``, raised before the library is
-reached): hidden and table contiguous with a 16-byte aligned base and rows,
-W a multiple of 8 up to 256 (zero-filled to 64, 128 or 256). The main
-path's gathered hidden rows and cast table meet it at every config width
-(64, 128, 256). fp32 K6 / K7 copy 16-byte pieces too, with W a multiple of
-4: an fp32 operand off that layout is copied into an aligned, zero-filled
-buffer first (``_tf32_operand``), which is exact.
+dh partials of ``R x W`` that do not grow with V. fp32 K3, K4, K6 and K7
+run in 3xTF32 on ``.tf32`` ``wgmma`` (``csrc/loss_tf32.cuh``; every
+product's A operand from registers, since ``.tf32`` reads shared memory
+only K-major; ``ops/tf32.py`` emulates its rounding law): K4, K6 and K7
+the bf16 designs' sweeps and clusters, K3 a forward sweep of its own (a
+row tile's fragments split once and held in registers, two warpgroups
+taking the vocabulary tiles in turn) over vocabulary splits by its own law
+(``whole_table_splits``), merged in split order; fp32 K5 runs the earlier
+SIMT tiles. Layout rule of the bf16 K3-K7 (``check_copy_alignment``,
+raised before the library is reached): hidden and table contiguous with a
+16-byte aligned base and rows, W a multiple of 8 up to 256 (zero-filled to
+64, 128 or 256). The main path's gathered hidden rows and cast table meet
+it at every config width (64, 128, 256). fp32 K3, K4, K6 and K7 copy
+16-byte pieces too, with W a multiple of 4: an fp32 operand off that layout
+is copied into an aligned, zero-filled buffer first (``_tf32_operand``),
+which is exact.
 
 Semantics are the JAX kernels': loss = mean NLL over labels > 0;
 ``masked_accuracy`` = correct-and-valid / n_valid; ``accuracy`` = correct
@@ -200,6 +205,8 @@ def _kernel_lib():
             getattr(lib, name).argtypes = [ci] * n
         lib.b4r_mlm_loss_max_width.restype = ci
         lib.b4r_mlm_loss_max_width.argtypes = []
+        lib.b4r_mlm_loss_sweep_grid.restype = None
+        lib.b4r_mlm_loss_sweep_grid.argtypes = [ci] * 4 + [vp]
         _lib = lib
     return _lib
 
@@ -219,19 +226,30 @@ def tiled_forward_splits(rows: int, v: int, w: int) -> int:
     return max(1, min(vtiles, -(-_FWD_ITEMS // rblocks)))
 
 
+# fp32 K3's blocks (csrc/loss_tf32.cuh kFwdItems, kSweepYn): 64 hidden rows
+# each, the vocabulary split until the grid holds ~512 blocks, a split at
+# least one vocabulary tile of 64 entries (32 at W > 128)
+_TF32_FWD_ROWS, _TF32_FWD_ITEMS = 64, 512
+
+
 def whole_table_splits(rows: int, v: int, w: int,
                        dtype: torch.dtype = torch.bfloat16) -> int:
     """K3's vocabulary splits. bf16 K3 runs K5's sweep over the whole table
     and splits it by K5's law (``tiled_forward_splits``): at ml-1m's batch
     (R = 10,240, V = 3,709, W = 128) 13 splits, 1,040 blocks, against one
     split's 80 blocks on 132 SMs, which measured slower on the card
-    (PERF.md). fp32 K3 does not split (one block per 64-row tile): 1. The
-    library decides the splits itself (``fwd_splits`` in
-    csrc/fused_mlm_loss.cu); this mirror and ``whole_table_workspace_bytes``
-    are held against the library's workspace bytes by the card tests."""
-    if dtype != torch.bfloat16:
-        return 1
-    return tiled_forward_splits(rows, v, w)
+    (PERF.md). fp32 K3 runs its own 3xTF32 sweep, one block an SM, and
+    splits by its own law: the fewest splits that bring (64-row tiles x
+    splits) to 512, at most one per vocabulary tile (at ml-1m's batch 160
+    row tiles x 4 splits). The library decides the splits itself
+    (``fwd_splits`` in csrc/fused_mlm_loss.cu); this mirror and
+    ``whole_table_workspace_bytes`` are held against the library's
+    workspace bytes by the card tests."""
+    if dtype == torch.bfloat16:
+        return tiled_forward_splits(rows, v, w)
+    tile = 32 if w > 128 else 64
+    rtiles, vtiles = -(-rows // _TF32_FWD_ROWS), -(-v // tile)
+    return max(1, min(vtiles, -(-_TF32_FWD_ITEMS // rtiles)))
 
 
 def _carved(*counts: int) -> int:
@@ -242,24 +260,19 @@ def _carved(*counts: int) -> int:
 
 def whole_table_workspace_bytes(rows: int, v: int, w: int,
                                 dtype: torch.dtype = torch.bfloat16) -> int:
-    """K3 / K4's workspace (``b4r_mlm_loss_workspace_bytes``): bf16 K3's
-    per-split row (max, sum, label logit) and its 256-row block sums
-    (bf16 K4 needs none); fp32 K3's 64-row block sums and fp32 K4's dtable
-    and dbias partials of 1,024-row splits."""
-    if dtype == torch.bfloat16:
-        n = whole_table_splits(rows, v, w, dtype) * rows
-        return _carved(n, n, n, -(-rows // 256) * 4)
-    splits = -(-rows // 1024)
-    return _carved(-(-rows // 64) * 4, splits * v * w, splits * v)
+    """K3's workspace (``b4r_mlm_loss_workspace_bytes``), in either dtype:
+    the per-split row (max, sum, label logit) and the 256-row block sums,
+    with no V x W term. K4 needs none."""
+    n = whole_table_splits(rows, v, w, dtype) * rows
+    return _carved(n, n, n, -(-rows // 256) * 4)
 
 
 def workspace_bytes(kernel: str, rows: int, v: int, w: int,
                     dtype: torch.dtype = torch.bfloat16) -> int:
     """Bytes of device workspace the library asks for: ``kernel`` is
-    ``"K3/K4"``, ``"K5"``, ``"K6"`` or ``"K7"``, in the operand ``dtype``
-    (bf16, the main path's, runs other kernels than fp32: its K3 is K5's
-    sweep, its K4 needs no dtable partials, its K5 splits the vocabulary by
-    another law; K6 and K7 need the same in both)."""
+    ``"K3/K4"`` (K3's; K4 needs none), ``"K5"``, ``"K6"`` or ``"K7"``, in
+    the operand ``dtype`` (K3 and K5 split the vocabulary by another law in
+    each; K6 and K7 need the same in both)."""
     lib = _kernel_lib()
     code = _DTYPE_CODE[dtype]
     if kernel == "K3/K4":
@@ -291,9 +304,18 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+def sweep_grid(rows: int, v: int, w: int, dtype: torch.dtype) -> dict:
+    """The grid of K4's (and K7's) two sweeps as the library launches them:
+    ``{"dh": (blocks, cluster), "dt": (blocks, cluster)}``."""
+    out = (ctypes.c_int * 4)()
+    _kernel_lib().b4r_mlm_loss_sweep_grid(_DTYPE_CODE[dtype], rows, v, w,
+                                          out)
+    return {"dh": (out[0], out[1]), "dt": (out[2], out[3])}
+
+
 def _launch_forward(hidden, table, bias, labels):
     """K3: ``(lse [R], sums [4])``."""
-    _check_layout(hidden, table)
+    hidden, table = _kernel_operands(hidden, table)
     lib = _kernel_lib()
     rows, w = hidden.shape
     v = table.shape[0]
@@ -311,24 +333,8 @@ def _launch_forward(hidden, table, bias, labels):
 
 
 def _launch_backward(hidden, table, bias, labels, lse, g, n_valid):
-    """K4: ``(dh, dtable, dbias)``."""
-    _check_layout(hidden, table)
-    lib = _kernel_lib()
-    rows, w = hidden.shape
-    v = table.shape[0]
-    dev = hidden.device
-    dh = torch.empty_like(hidden)
-    dt = torch.empty((v, w), dtype=torch.float32, device=dev)
-    db = torch.empty((v,), dtype=torch.float32, device=dev)
-    g = g.reshape(1).float().contiguous()
-    ws = _workspace(workspace_bytes("K3/K4", rows, v, w, hidden.dtype), dev)
-    _raise_on(lib.b4r_mlm_loss_bwd(
-        _DTYPE_CODE[hidden.dtype], hidden.data_ptr(), table.data_ptr(),
-        bias.data_ptr(), labels.data_ptr(), lse.data_ptr(), g.data_ptr(),
-        n_valid.data_ptr(), dh.data_ptr(), dt.data_ptr(), db.data_ptr(),
-        ws.data_ptr(), rows, v, w, torch.cuda.current_stream(dev).cuda_stream),
-        "fused_mlm_loss backward")
-    return dh, dt, db
+    """K4: ``(dh, dtable, dbias)``, K7's two sweeps from K3's lse."""
+    return _backward(None, hidden, table, bias, labels, lse, g, n_valid)
 
 
 def _launch_tiled(hidden, table, bias, labels, stats):
@@ -388,11 +394,20 @@ def _check_layout(hidden, table):
         check_copy_alignment(table, "table")
 
 
+def _kernel_operands(hidden, table):
+    """``(hidden, table)`` as the kernels take them: bf16 held to the
+    layout rule (raises), fp32 copied onto it where off it."""
+    _check_layout(hidden, table)
+    if hidden.dtype == torch.float32:
+        return _tf32_operand(hidden), _tf32_operand(table)
+    return hidden, table
+
+
 def _tf32_operand(t: torch.Tensor) -> torch.Tensor:
-    """fp32 K6 / K7 copy operand rows in 16-byte pieces: ``t`` itself if it
-    is a contiguous matrix with a 16-byte aligned base and W a multiple of
-    4, else a copy into a new zero-filled ``[rows, W rounded up to 4]``
-    buffer (the zero columns are exact for every product)."""
+    """fp32 K3, K4, K6 and K7 copy operand rows in 16-byte pieces: ``t``
+    itself if it is a contiguous matrix with a 16-byte aligned base and W a
+    multiple of 4, else a copy into a new zero-filled ``[rows, W rounded up
+    to 4]`` buffer (the zero columns are exact for every product)."""
     w = t.shape[1]
     if t.is_contiguous() and t.data_ptr() % 16 == 0 and w % 4 == 0:
         return t
@@ -404,10 +419,16 @@ def _tf32_operand(t: torch.Tensor) -> torch.Tensor:
 def _launch_backward_tiled(hidden, table, bias, labels, lse, g, n_valid,
                            merged, valid_ge_zero=False):
     """K6 (``merged``) or K7: ``(dh, dtable, dbias)``."""
-    _check_layout(hidden, table)
+    return _backward(bool(merged), hidden, table, bias, labels, lse, g,
+                     n_valid, valid_ge_zero)
+
+
+def _backward(merged, hidden, table, bias, labels, lse, g, n_valid,
+              valid_ge_zero=False):
+    """K4 (``merged`` None, the whole-table entry) or K6 / K7:
+    ``(dh, dtable, dbias)`` at the caller's width."""
     width = hidden.shape[1]
-    if hidden.dtype == torch.float32:
-        hidden, table = _tf32_operand(hidden), _tf32_operand(table)
+    hidden, table = _kernel_operands(hidden, table)
     lib = _kernel_lib()
     rows, w = hidden.shape
     v = table.shape[0]
@@ -416,15 +437,23 @@ def _launch_backward_tiled(hidden, table, bias, labels, lse, g, n_valid,
     dt = torch.empty((v, w), dtype=torch.float32, device=dev)
     db = torch.empty((v,), dtype=torch.float32, device=dev)
     g = g.reshape(1).float().contiguous()
-    kernel = "K6" if merged else "K7"
-    ws = _workspace(workspace_bytes(kernel, rows, v, w, hidden.dtype), dev)
-    _raise_on(lib.b4r_mlm_loss_tiled_bwd(
-        int(merged), _DTYPE_CODE[hidden.dtype], hidden.data_ptr(),
-        table.data_ptr(), bias.data_ptr(), labels.data_ptr(), lse.data_ptr(),
-        g.data_ptr(), n_valid.data_ptr(), int(valid_ge_zero), dh.data_ptr(),
-        dt.data_ptr(), db.data_ptr(), ws.data_ptr(), rows, v, w,
-        torch.cuda.current_stream(dev).cuda_stream),
-        f"fused_mlm_loss_tiled backward ({kernel})")
+    ptrs = (hidden.data_ptr(), table.data_ptr(), bias.data_ptr(),
+            labels.data_ptr(), lse.data_ptr(), g.data_ptr(),
+            n_valid.data_ptr())
+    outs = (dh.data_ptr(), dt.data_ptr(), db.data_ptr())
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    code = _DTYPE_CODE[hidden.dtype]
+    if merged is None:
+        _raise_on(lib.b4r_mlm_loss_bwd(code, *ptrs, *outs, None, rows, v, w,
+                                       stream), "fused_mlm_loss backward")
+    else:
+        kernel = "K6" if merged else "K7"
+        ws = _workspace(workspace_bytes(kernel, rows, v, w, hidden.dtype),
+                        dev)
+        _raise_on(lib.b4r_mlm_loss_tiled_bwd(
+            int(merged), code, *ptrs, int(valid_ge_zero), *outs,
+            ws.data_ptr(), rows, v, w, stream),
+            f"fused_mlm_loss_tiled backward ({kernel})")
     if w != width:
         dh, dt = dh[:, :width].contiguous(), dt[:, :width].contiguous()
     return dh, dt, db

@@ -102,6 +102,10 @@ def diff(a_path, b_path) -> None:
               f"{len(set(y) - set(x))} only in {b['root']}")
         for k in other:
             print(f"  differs: {k}")
+        for k in sorted(set(x) - set(y)):
+            print(f"  only in {a['root']}: {k}")
+        for k in sorted(set(y) - set(x)):
+            print(f"  only in {b['root']}: {k}")
 
 
 def main(argv=None) -> int:

@@ -9,10 +9,13 @@ its ``bert4rec_tpu_torch`` is imported and its kernels are built from its
 own sources. To compare two commits, run it for both checkouts in one
 session on one card, in the order A, B, B, A. Prints one JSON line:
 per-rep times of K3 and K4 at chip_smoke's shape (R=10,240 rows, V=3,709,
-W=128, bf16; CUDA events over 50 launches), the device ms of each kernel
-inside one K4 launch (torch.profiler), per-rep medians of the host wall
-of 20 synchronised train steps at B=256, bf16, on batches of ``bench.py``'s
-law, K5 at (R, V, W) = (10,240, 26,732, 128), (10,240, 26,732, 256) and
+W=128, bf16; CUDA events over 50 launches) and of the same K3 and K4 in
+fp32 (``k3_fp32``, ``k4_fp32``: the quality harness's fp32 ml1m path), the
+device ms of each kernel inside one launch of K4 and of fp32 K3 and K4
+(torch.profiler), per-rep medians of the host wall of 20 synchronised
+train steps at B=256 on batches of ``bench.py``'s law, ml-1m_128 in bf16
+(``step``) and the harness's fp32 ml1m preset (``step_fp32``: the
+encoder's default dropout 0.1 / 0.1, no dtype policy), K5 at (R, V, W) = (10,240, 26,732, 128), (10,240, 26,732, 256) and
 (2,048, 335,424, 128), K6 at (10,240, 26,732, 128) and K7 at (10,240,
 26,732, 256), bf16, and the same K6 and K7 in fp32 (``k6_fp32``,
 ``k7_fp32``), each as (median, lowest, highest) ms per call over 7 blocks
@@ -152,7 +155,7 @@ def main(argv=None) -> int:
         return 1
     from bert4rec_tpu_torch.config import load_train_config
     from bert4rec_tpu_torch.core.dtypes import DTypePolicy
-    from bert4rec_tpu_torch.models import BERT4RecModel
+    from bert4rec_tpu_torch.models import BERT4RecConfig, BERT4RecModel
     from bert4rec_tpu_torch.ops import fused_mlm_loss as fml
     from bert4rec_tpu_torch.trainers import BERT4RecTrainer, optimizers
     if not fml.__file__.startswith(str(pathlib.Path(args.root).resolve())):
@@ -164,10 +167,11 @@ def main(argv=None) -> int:
         text=True, timeout=60).stdout.strip().splitlines()[0]
 
     rng = np.random.default_rng(0)
-    hidden = torch.from_numpy(rng.normal(size=(ROWS, WIDTH))
-                              .astype(np.float32)).to(device, torch.bfloat16)
-    table = torch.from_numpy((rng.normal(size=(VOCAB, WIDTH)) * 0.1)
-                             .astype(np.float32)).to(device, torch.bfloat16)
+    hidden32 = torch.from_numpy(rng.normal(size=(ROWS, WIDTH))
+                                .astype(np.float32)).to(device)
+    table32 = torch.from_numpy((rng.normal(size=(VOCAB, WIDTH)) * 0.1)
+                               .astype(np.float32)).to(device)
+    hidden, table = hidden32.to(torch.bfloat16), table32.to(torch.bfloat16)
     bias = fml._mask_bias(torch.from_numpy(
         rng.normal(size=VOCAB).astype(np.float32)).to(device), VOCAB)
     lab = rng.integers(3, VOCAB, size=ROWS).astype(np.int32)
@@ -178,6 +182,11 @@ def main(argv=None) -> int:
     lse, sums = fwd()
     bwd = lambda: fml._launch_backward(  # noqa: E731
         hidden, table, bias, labels, lse, g, sums[3:4])
+    fwd32 = lambda: fml._launch_forward(  # noqa: E731
+        hidden32, table32, bias, labels)
+    lse32, sums32 = fwd32()
+    bwd32 = lambda: fml._launch_backward(  # noqa: E731
+        hidden32, table32, bias, labels, lse32, g, sums32[3:4])
 
     config = load_train_config("ml-1m_128", vocab_size=VOCAB,
                                use_fused_layer=True, use_fused_loss=True)
@@ -187,22 +196,44 @@ def main(argv=None) -> int:
         optimizer=optimizers.create_adam_w_optimizer(
             init_lr=1e-4, num_warmup_steps=100), seed=0, device=device)
     batches = [trainer._put_batch(make_batch(np, 100 + i)) for i in range(4)]
+    # the quality harness's fp32 ml1m preset, built as the harness builds it
+    trainer32 = BERT4RecTrainer(BERT4RecModel(config=BERT4RecConfig(
+        vocab_size=VOCAB, max_sequence_length=SEQ,
+        max_predictions_per_seq=NPRED, hidden_size=WIDTH, num_layers=2,
+        num_attention_heads=4, inner_dim=512, use_fused_layer=True,
+        use_fused_loss=True)))
+    trainer32.initialize_model(
+        optimizer=optimizers.create_adam_w_optimizer(
+            init_lr=1e-4, num_warmup_steps=100), seed=0, device=device)
     for b in batches:
         trainer.train_step(b)
+        trainer32.train_step(b)
 
-    out = dict(root=args.root, card=card, k3_ms=[], k4_ms=[], step_ms=[])
-    for _ in range(args.reps):
-        out["k3_ms"].append(events_ms(torch, fwd))
-        out["k4_ms"].append(events_ms(torch, bwd))
+    def step_wall(tr):
         walls = []
         for i in range(20):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            trainer.train_step(batches[i % len(batches)])
+            tr.train_step(batches[i % len(batches)])
             torch.cuda.synchronize()
             walls.append((time.perf_counter() - t0) * 1e3)
-        out["step_ms"].append(sorted(walls)[len(walls) // 2])
+        return sorted(walls)[len(walls) // 2]
+
+    out = dict(root=args.root, card=card, k3_ms=[], k4_ms=[], step_ms=[],
+               k3_fp32_ms=[], k4_fp32_ms=[], step_fp32_ms=[])
+    for _ in range(args.reps):
+        out["k3_ms"].append(events_ms(torch, fwd))
+        out["k4_ms"].append(events_ms(torch, bwd))
+        out["step_ms"].append(step_wall(trainer))
+        out["k3_fp32_ms"].append(events_ms(torch, fwd32))
+        out["k4_fp32_ms"].append(events_ms(torch, bwd32))
+        out["step_fp32_ms"].append(step_wall(trainer32))
     out["k4_kernels_ms"] = kernel_ms(torch, bwd)
+    out["k3_fp32_kernels_ms"] = kernel_ms(torch, fwd32)
+    out["k4_fp32_kernels_ms"] = kernel_ms(torch, bwd32)
+    out["step_fp32_kernels_ms"] = kernel_ms(
+        torch, lambda: trainer32.train_step(batches[0]), calls=3)
+    del trainer32
     out["k5_kernels_ms"] = {}
     for key, shape in TILED_FWD.items():
         fn = tiled_forward(torch, np, fml, device, *shape)

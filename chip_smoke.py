@@ -34,12 +34,17 @@ Phases (any failure raises and the script exits non-zero):
               forward and backward at R=10,240 rows, V=3,709, W=128 —
               each against its plain version, with kernel, plain and
               library-yardstick times (kernel and yardstick as medians of
-              7 blocks of 10 calls, their ranges printed) and the bound;
-              bf16 K3's and K4's kernels by device time, K3's only
-              ``csrc/loss_hopper.cuh``'s ``loss_fwd_sweep_kernel``, the
-              ordered merge and the row sums, K4's only its two sweeps
+              7 blocks of 10 calls, their ranges printed) and the bound
+              (fp32 K3 / K4 at 3xTF32's 165 TFLOP/s beside 67 without
+              tensor cores); bf16 K3's and K4's kernels by device time,
+              K3's only ``csrc/loss_hopper.cuh``'s ``loss_fwd_sweep_kernel``,
+              the ordered merge and the row sums, K4's only its two sweeps
               (``BF16_LOSS_KERNELS``: no route back to the earlier mma.sync
-              loss tiles);
+              loss tiles); fp32 K3's only ``csrc/loss_tf32.cuh``'s
+              ``loss_tf32_fwd_sweep_kernel``, the merge and the row sums,
+              fp32 K4's only ``loss_tf32_sweep_kernel``'s two sweeps
+              (``FP32_LOSS_KERNELS``: no route back to the SIMT tiles), and
+              the sweeps' grid;
               at B=256 in bf16 each launch's kernels by device time, the
               forward's and the backward's, none of them one of the
               earlier bf16 layer kernels (``LEGACY_BF16_LAYER``: the
@@ -160,7 +165,16 @@ Phases (any failure raises and the script exits non-zero):
               JAX's default policy and the one the harness's on-chip
               ml20m and Reddit runs train with: the fp32 layer kernels, fp32
               K5, and fp32 K6 once a step on ``loss_tf32.cuh``'s kernels;
-              its step time and device breakdown (no SIMT loss sweep in it).
+              its step time and device breakdown (no SIMT loss sweep in it);
+19. fp32 ml-1m training — phase 6's checks for the quality harness's
+              ml1m preset as the harness builds it (``BERT4RecConfig``:
+              hidden 128, 2 layers, 4 heads, inner 512, S=200, P=40,
+              V=3,709, the fused layer and loss, no dtype policy: fp32,
+              JAX's default, dropout 0.1 / 0.1), B=256: the kernel step
+              against the plain step, the launch counts (fp32 K3 and K4 once
+              a step, on ``loss_tf32.cuh``'s 3xTF32 kernels), the step time,
+              ``train()``'s idle share and the device breakdown with no SIMT
+              loss kernel in it, the loss falling and the resume.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the rest of
@@ -379,6 +393,11 @@ BF16_LOSS_KERNELS = {
 # sweeps, K6's ordered dh reduction), each with the one it must run, and the
 # SIMT sweeps they replaced, which no fp32 training step may reach
 FP32_LOSS_KERNELS = {
+    "K3": (re.compile(r"^(b4r::loss_tf32::loss_tf32_fwd_sweep_kernel<"
+                      r"|loss_tiled_merge_kernel|b4r::reduce_rows_kernel)"),
+           "loss_tf32_fwd_sweep_kernel<"),
+    "K4": (re.compile(r"^b4r::loss_tf32::loss_tf32_sweep_kernel<"),
+           "loss_tf32_sweep_kernel<"),
     "K6": (re.compile(r"^(b4r::loss_tf32::loss_tf32_merged_kernel<"
                       r"|reduce_rows_cast_kernel<float>)"),
            "loss_tf32_merged_kernel<"),
@@ -386,6 +405,9 @@ FP32_LOSS_KERNELS = {
            "loss_tf32_sweep_kernel<"),
 }
 SIMT_FP32_TILED_LOSS = re.compile(r"loss_bwd_vt_kernel|loss_bwd_dh_kernel")
+# every SIMT loss kernel the port had: none may run on the fp32 ml-1m path
+SIMT_FP32_LOSS = re.compile(r"loss_fwd_kernel|loss_tiled_fwd_kernel"
+                            r"|loss_bwd_(vt|dh|dt)_kernel")
 
 
 def _kernel_name(key: str) -> str:
@@ -997,6 +1019,9 @@ def check_loss_kernels(torch, rng, device):
             return F.cross_entropy(logits, labels.long(), ignore_index=0)
 
         lib_loss = lib_fwd()
+        # fp32 K3 / K4 run 3xTF32: their bound at its rate (and at fp32's
+        # without tensor cores, printed beside)
+        peak = TF32X3_FLOPS if dtype == torch.float32 else None
         row = dict(
             fwd=dict(max_abs_err=float((sums[0] - ref_sums[0]).abs()),
                      max_rel_err=fwd_err, **blocks(fwd),
@@ -1004,7 +1029,7 @@ def check_loss_kernels(torch, rng, device):
                          hidden, t_s, b_m, labels)),
                      **blocks(lib_fwd, "library"),
                      **dict(zip(("bound_ms", "bound_by"), loss_bound_ms(
-                         N_ROWS, VOCAB, HIDDEN, name, False)))),
+                         N_ROWS, VOCAB, HIDDEN, name, False, peak)))),
             bwd=dict(max_abs_err=float((dh.float() - rdh.float()).abs().max()),
                      max_rel_err=bwd_err, **blocks(bwd),
                      plain_ms=time_ms(lambda: fml.fused_mlm_loss_plain_backward(
@@ -1012,18 +1037,30 @@ def check_loss_kernels(torch, rng, device):
                      **blocks(lambda: torch.autograd.grad(
                          lib_loss, (hl, tl, bl), retain_graph=True), "library"),
                      **dict(zip(("bound_ms", "bound_by"), loss_bound_ms(
-                         N_ROWS, VOCAB, HIDDEN, name, True)))))
+                         N_ROWS, VOCAB, HIDDEN, name, True, peak)))))
         rows[name] = row
         for part, r in row.items():
             tol = LOSS_FWD_TOL if part == "fwd" else LOSS_TOL[name]
+            fp32_bound = loss_bound_ms(N_ROWS, VOCAB, HIDDEN, name,
+                                       part == "bwd")[0]
             print(f"fused_mlm_loss {part} {name} R={N_ROWS} V={VOCAB} "
                   f"W={HIDDEN}: rel err {r['max_rel_err']:.3g} (tol "
-                  f"{tol}) {timing_text(r)}", flush=True)
-        if name == "bfloat16":   # K3 and K4 on csrc/loss_hopper.cuh's kernels
-            print("  per K3 launch: " + device_breakdown(
-                torch, fwd, only=BF16_LOSS_KERNELS["K3"])[1]
-                + "\n  per K4 launch: " + device_breakdown(
-                    torch, bwd, only=BF16_LOSS_KERNELS["K4"])[1], flush=True)
+                  f"{tol}) {timing_text(r)}"
+                  + (f"; bound at 67 TFLOP/s {fp32_bound:.5f}" if peak
+                     else ""), flush=True)
+        # K3 and K4 on csrc/loss_hopper.cuh's kernels (bf16) or
+        # csrc/loss_tf32.cuh's (fp32)
+        only = BF16_LOSS_KERNELS if peak is None else FP32_LOSS_KERNELS
+        print("  per K3 launch: " + device_breakdown(
+            torch, fwd, only=only["K3"])[1]
+            + "\n  per K4 launch: " + device_breakdown(
+                torch, bwd, only=only["K4"])[1], flush=True)
+        if peak:
+            print(f"  fp32 K4's sweeps (blocks, cluster): "
+                  f"{fml.sweep_grid(N_ROWS, VOCAB, HIDDEN, dtype)}; fp32 K3's "
+                  f"{fml.whole_table_splits(N_ROWS, VOCAB, HIDDEN, dtype)} "
+                  f"vocabulary splits x {-(-N_ROWS // 64)} row tiles",
+                  flush=True)
     return rows
 
 
@@ -1300,12 +1337,39 @@ def check_step_parity(torch, trainer, batch, label):
                              f"({label})")
 
 
-def check_training(torch, device):
+def harness_ml1m_trainer(torch, device, params=None, lr=1e-4, warmup=100):
+    """A trainer of the quality harness's ml1m preset, the model built as
+    the harness builds it: ``BERT4RecConfig`` at hidden 128, 2 layers, 4
+    heads, inner 512, S=200, P=40, V=3,709 with the fused layer and loss,
+    and no dtype policy (fp32, JAX's default; dropout the config's 0.1 /
+    0.1)."""
+    from bert4rec_tpu_torch.models import BERT4RecConfig, BERT4RecModel
+    from bert4rec_tpu_torch.trainers import BERT4RecTrainer, optimizers
+    model = BERT4RecModel(config=BERT4RecConfig(
+        vocab_size=VOCAB, max_sequence_length=SEQ, max_predictions_per_seq=40,
+        hidden_size=HIDDEN, num_layers=2, num_attention_heads=HEADS,
+        inner_dim=INNER, use_fused_layer=True, use_fused_loss=True))
+    trainer = BERT4RecTrainer(model)
+    trainer.initialize_model(
+        optimizer=optimizers.create_adam_w_optimizer(
+            init_lr=lr, num_warmup_steps=warmup), params=params, seed=SEED,
+        device=device)
+    return trainer
+
+
+def check_training(torch, device, new=None, label="ml-1m_128"):
+    """Phase 6's checks on the trainers ``new(params=..., lr=...,
+    warmup=...)`` makes (default: ml-1m_128 in bf16): the kernel step
+    against the plain step, the launch counts of a ``train()`` run, the
+    step time, ``train()``'s idle share and a device breakdown, the loss
+    falling on a repeated batch, and an exact resume."""
     from bert4rec_tpu_torch.ops import fused_encoder_layer as fel
     from bert4rec_tpu_torch.ops import fused_mlm_loss as fml
     from bert4rec_tpu_torch.utils.checkpoint import flatten
 
-    trainer = new_trainer(torch, device)
+    new = new or (lambda **kw: new_trainer(torch, device, **kw))
+    trainer = new()
+    fp32 = trainer.model.dtype_policy.compute_dtype == torch.float32
     cfg = trainer.model.config
     if not trainer.model.encoder.fused_layer_routed(
             STREAM_BATCH, SEQ, dropout_active=True, device=device):
@@ -1316,7 +1380,9 @@ def check_training(torch, device):
     # 2. one step on the kernels against the same step on the plain
     #    versions, dropout on, the same seeds
     batch = trainer._put_batch(make_batch(7))
-    check_step_parity(torch, trainer, batch, f"dropout {RATES}")
+    check_step_parity(torch, trainer, batch,
+                      f"{label}, dropout "
+                      f"{(cfg.attention_dropout, cfg.output_dropout)}")
 
     # the main path: BERT4RecTrainer.train() for TRAIN_STEPS steps
     for fn in (fel.fused_encoder_layer, fml.fused_mlm_loss):
@@ -1337,10 +1403,10 @@ def check_training(torch, device):
                 layer_bwd=cfg.num_layers * TRAIN_STEPS,
                 loss_fwd=TRAIN_STEPS, loss_bwd=TRAIN_STEPS, mma_sync=0)
     loss = hist.history["loss"][0]
-    print(f"train(): {TRAIN_STEPS} steps of B={STREAM_BATCH} in {wall:.2f} s"
-          f" (first step included), epoch loss {loss:.4f}, masked_accuracy "
-          f"{hist.history['masked_accuracy'][0]:.4f}; launches {counts}",
-          flush=True)
+    print(f"{label} train(): {TRAIN_STEPS} steps of B={STREAM_BATCH} in "
+          f"{wall:.2f} s (first step included), epoch loss {loss:.4f}, "
+          f"masked_accuracy {hist.history['masked_accuracy'][0]:.4f}; "
+          f"launches {counts}", flush=True)
     if counts != want or trainer.state["step"] != TRAIN_STEPS \
             or not math.isfinite(loss):
         raise AssertionError(f"launches {counts}, expected {want}; step "
@@ -1360,23 +1426,32 @@ def check_training(torch, device):
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
     median = sorted(step_ms)[len(step_ms) // 2]
-    print(f"train step B={STREAM_BATCH}: median {median:.3f} ms of 10 "
-          f"(min {min(step_ms):.3f}), {STREAM_BATCH / median * 1e3:.1f} "
-          f"examples/s", flush=True)
-    print("  one train step: " + device_breakdown(
+    # train() again, warm: its wall per step against one step's device time
+    t0 = time.perf_counter()
+    trainer.train(SyntheticDataset(TRAIN_STEPS, seed=2), epochs=1,
+                  batch_size=STREAM_BATCH, seed=SEED + 1, verbose=False)
+    train_ms = (time.perf_counter() - t0) * 1e3 / TRAIN_STEPS
+    device_ms, breakdown = device_breakdown(
         torch, lambda: trainer.train_step(batch), calls=3, top=8,
-        forbid=LEGACY_BF16_LAYER)[1], flush=True)
+        forbid=SIMT_FP32_LOSS if fp32 else LEGACY_BF16_LAYER)
+    idle = None if device_ms is None else 1 - device_ms / train_ms
+    print(f"{label} train step B={STREAM_BATCH}: median {median:.3f} ms of "
+          f"10 (min {min(step_ms):.3f}), {STREAM_BATCH / median * 1e3:.1f} "
+          f"examples/s; train() {train_ms:.3f} ms per step over "
+          f"{TRAIN_STEPS}; device idle share of train() "
+          + ("not measured" if idle is None else f"{idle:.3f}"), flush=True)
+    print(f"  one {label} train step: " + breakdown, flush=True)
 
     # 3. the loss falls on one repeated batch at a raised learning rate
     probe = make_batch(3)
-    start = new_trainer(torch, device, params=init)
+    start = new(params=init)
     before = float(start.eval_step(start._put_batch(probe))["loss"])
-    fast = new_trainer(torch, device, params=init, lr=1e-3, warmup=0)
+    fast = new(params=init, lr=1e-3, warmup=0)
     fast.train(SyntheticDataset(12, seed=3, repeat=True), epochs=1,
                batch_size=STREAM_BATCH, seed=SEED, verbose=False)
     after = float(fast.eval_step(fast._put_batch(probe))["loss"])
-    print(f"repeated batch, lr 1e-3, 12 steps: eval loss {before:.4f} -> "
-          f"{after:.4f}", flush=True)
+    print(f"{label} repeated batch, lr 1e-3, 12 steps: eval loss "
+          f"{before:.4f} -> {after:.4f}", flush=True)
     if not after < 0.99 * before:
         raise AssertionError(f"loss did not fall on a repeated batch: "
                              f"{before} -> {after}")
@@ -1384,15 +1459,15 @@ def check_training(torch, device):
     # 4. train() with a checkpoint, then a new trainer that auto-resumes
     #    from it and continues, equals the uninterrupted run
     ds, val = SyntheticDataset(3, seed=5), SyntheticDataset(1, seed=6)
-    whole = new_trainer(torch, device, params=init)
+    whole = new(params=init)
     whole.train(ds, epochs=2, batch_size=STREAM_BATCH, seed=SEED,
                 verbose=False)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as tmp:
         path = f"{tmp}/state.npz"
-        first = new_trainer(torch, device, params=init)
+        first = new(params=init)
         first.train(ds, val, checkpoint_path=path, epochs=1,
                     batch_size=STREAM_BATCH, seed=SEED, verbose=False)
-        resumed = new_trainer(torch, device, params=init)
+        resumed = new(params=init)
         resumed.train(ds, val, checkpoint_path=path, epochs=2,
                       batch_size=STREAM_BATCH, seed=SEED, verbose=False)
     fa = flatten(whole.state["params"])
@@ -1403,11 +1478,12 @@ def check_training(torch, device):
         raise AssertionError(f"resume is not exact: steps "
                              f"{whole.state['step']} / "
                              f"{resumed.state['step']}, max param diff {diff}")
-    print(f"resume: checkpoint after epoch 1 (step 3), a new trainer "
-          f"resumed and ran epoch 2: params after step "
+    print(f"{label} resume: checkpoint after epoch 1 (step 3), a new "
+          f"trainer resumed and ran epoch 2: params after step "
           f"{resumed.state['step']} equal the uninterrupted run's bit for "
           f"bit", flush=True)
-    return counts
+    return dict(counts=counts, step_ms=median, train_ms=train_ms,
+                device_ms=device_ms, idle=idle)
 
 
 # --------------------------------------------------------------------------- #
@@ -2688,10 +2764,10 @@ def run(torch, home) -> int:
         print(f"build {name}: {len(regs)} kernels, registers "
               f"{min(regs, default=0)}-{max(regs, default=0)}, spills "
               f"{spills or 'none'}", flush=True)
-        # the bf16 K4-K7 kernels one by one: registers and spills at each
-        # padded width (loss_fwd_sweep_kernel<WP>, loss_sweep_kernel<WP, dt
-        # sweep>, loss_merged_kernel<WP>), and ptxas's note where it had to
-        # serialise a kernel's wgmma
+        # the wgmma loss kernels one by one: registers and spills at each
+        # padded width (bf16 loss_fwd_sweep_kernel<WP>, loss_sweep_kernel<WP,
+        # dt sweep>, loss_merged_kernel<WP>; fp32 the loss_tf32_ ones), and
+        # ptxas's note where it had to serialise a kernel's wgmma
         for i, ln in enumerate(lines):
             lay = re.search(r"12layer_hopper(\d+)(\w+)", ln)
             if lay and "Compiling entry" in ln:
@@ -2702,13 +2778,15 @@ def run(torch, home) -> int:
                 print(f"  layer_hopper::{kname}<{', '.join(targs)}>: "
                       f"{used.split(':')[-1].strip()}; {spill.strip()}",
                       flush=True)
-            hit = re.search(r"(loss_(?:fwd_sweep|sweep|merged)_kernel)ILi(\d+)E"
-                            r"(?:Lb([01])E)?", ln)
+            hit = re.search(r"(loss_(?:tf32_)?(?:fwd_sweep|sweep|merged)_kernel)"
+                            r"ILi(\d+)E(?:Li(\d+)E)?(?:Lb([01])E)?", ln)
             if hit and "Compiling entry" in ln:
                 used = next((x for x in lines[i + 1:i + 4] if "Used" in x), "")
                 spill = next((x for x in lines[i + 1:i + 4] if "spill" in x), "")
-                args = hit.group(2) + (f", {'dt' if hit.group(3) == '1' else 'dh'}"
-                                       if hit.group(3) else "")
+                args = ", ".join(
+                    [hit.group(2)] + ([hit.group(3)] if hit.group(3) else [])
+                    + ([("dt" if hit.group(4) == "1" else "dh")]
+                       if hit.group(4) else []))
                 print(f"  {hit.group(1)}<{args}>: {used.split(':')[-1].strip()}; "
                       f"{spill.strip()}", flush=True)
         for ln in lines:
@@ -2722,7 +2800,7 @@ def run(torch, home) -> int:
     check_dropout_masks(torch, device)
     train_rows = check_layer_training(torch, rng, device)
     loss_rows = check_loss_kernels(torch, rng, device)
-    counts = check_training(torch, device)
+    counts = check_training(torch, device)["counts"]
     # ml-20m_256's layer width: H=256, 8 heads, F=1024, dropout 0.1
     wide_rows = check_layer_training(
         torch, rng, device, h=256, n=8, f=1024, rates=(0.1, 0.1),
@@ -2760,6 +2838,10 @@ def run(torch, home) -> int:
                                       "ml-20m_128", fp32=True)
     del fp32_ml20m["trainer"]
     torch.cuda.empty_cache()
+    # phase 19: the fp32 ml-1m path (the quality harness's ml1m preset)
+    fp32_ml1m = check_training(
+        torch, device, label="fp32 ml-1m_128 (harness ml1m)",
+        new=lambda **kw: harness_ml1m_trainer(torch, device, **kw))
 
     def entry(name, source, replaces, n, row):
         return {"name": name, "route": "cuda",
@@ -2830,6 +2912,13 @@ def run(torch, home) -> int:
         # fp32 K6 (3xTF32): launches from the fp32 ml-20m_128 train() run
         entry("fused_mlm_loss_tiled_backward_merged_fp32", "loss_tf32.cuh",
               f"{loss_py}:502", fp32_ml20m["counts"]["K6"], tiled_fp32["K6"]),
+        # fp32 K3 / K4 (3xTF32): launches from the fp32 ml-1m_128 train()
+        # run (the harness's ml1m preset)
+        entry("fused_mlm_loss_fp32", "loss_tf32.cuh", f"{loss_py}:111",
+              fp32_ml1m["counts"]["loss_fwd"], loss_rows["float32"]["fwd"]),
+        entry("fused_mlm_loss_backward_fp32", "loss_tf32.cuh",
+              f"{loss_py}:148", fp32_ml1m["counts"]["loss_bwd"],
+              loss_rows["float32"]["bwd"]),
         # K1'' causal (SASRec): launches from its train() run
         entry("fused_encoder_layer_causal", wgmma_src,
               "bert4rec_tpu/ops/fused_encoder_layer.py:241",

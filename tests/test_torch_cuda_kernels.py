@@ -900,7 +900,8 @@ def test_tiled_fp32_launch_runs_only_the_tf32_kernels(cuda_device, w,
     """An fp32 K6 launch runs loss_tf32.cuh's merged kernel and the ordered
     dh reduction, an fp32 K7 launch its two sweeps (dh, then dt); neither
     reaches the SIMT sweeps they replaced (``loss_bwd_vt_kernel``, and for
-    K7 ``loss_bwd_dh_kernel``, which fp32 K4 keeps)."""
+    K7 ``loss_bwd_dh_kernel``, since gone from the source with fp32 K4's
+    SIMT tiles)."""
     from torch.profiler import ProfilerActivity, profile
     from bert4rec_tpu_torch.ops import fused_mlm_loss as fml
     h, t, b, lab, _ = _tiled_inputs(cuda_device, torch.float32, 1000, 3000,
@@ -929,17 +930,18 @@ def test_tiled_fp32_launch_runs_only_the_tf32_kernels(cuda_device, w,
                for n in names), names
 
 
-def _edge_inputs(device, r, v, w, seed):
-    """bf16 hidden [r, w], table [v, w], an unmasked fp32 bias [v] and
-    labels that reach every edge of the column range: column 0 (a padding
-    row), column v - 1 (in the ragged last tile when v is off the tile),
-    v and past it (match no column), -1 and -2 (the sharded forward's
-    encodings), then random columns with every 7th row 0."""
+def _edge_inputs(device, r, v, w, seed, dtype=torch.bfloat16):
+    """hidden [r, w], table [v, w] (bf16 unless ``dtype``), an unmasked
+    fp32 bias [v] and labels that reach every edge of the column range:
+    column 0 (a padding row), column v - 1 (in the ragged last tile when v
+    is off the tile), v and past it (match no column), -1 and -2 (the
+    sharded forward's encodings), then random columns with every 7th row
+    0."""
     rng = np.random.default_rng(seed)
     hidden = torch.from_numpy(rng.normal(size=(r, w)).astype(np.float32)) \
-        .to(device, torch.bfloat16)
+        .to(device, dtype)
     table = torch.from_numpy((rng.normal(size=(v, w)) * 0.1)
-                             .astype(np.float32)).to(device, torch.bfloat16)
+                             .astype(np.float32)).to(device, dtype)
     bias = torch.from_numpy(rng.normal(size=v).astype(np.float32)).to(device)
     lab = rng.integers(1, v, size=r).astype(np.int32)
     lab[::7] = 0
@@ -1038,20 +1040,161 @@ def test_bf16_whole_table_split_law_mirrors_the_library(cuda_device, shape):
 @pytest.mark.cuda
 def test_bf16_whole_table_workspace_does_not_grow_with_the_vocabulary(
         cuda_device):
-    """bf16 K3/K4's workspace is K3's split row stats and row-block sums
-    (K4's sweeps sum their partials through distributed shared memory):
-    the library's bytes are ``whole_table_workspace_bytes``'s, the same at
-    V = 3,709 and V = 335,424; fp32 K4 keeps its split dtable partials,
-    which grow with V."""
+    """K3/K4's workspace is K3's split row stats and row-block sums (K4's
+    sweeps sum their partials through distributed shared memory), in both
+    dtypes: the library's bytes are ``whole_table_workspace_bytes``'s, the
+    same at V = 3,709 and V = 335,424 (fp32 K3's 4 splits at this batch
+    whatever the vocabulary; fp32 K4's split dtable partials are gone)."""
     from bert4rec_tpu_torch.ops import fused_mlm_loss as fml
     r, w = 10240, 128
     bf16 = [fml.workspace_bytes("K3/K4", r, v, w) for v in (3709, 335424)]
     fp32 = [fml.workspace_bytes("K3/K4", r, v, w, torch.float32)
             for v in (3709, 335424)]
     assert bf16[0] == bf16[1] == fml.whole_table_workspace_bytes(r, 3709, w)
-    assert fp32 == [fml.whole_table_workspace_bytes(r, v, w, torch.float32)
-                    for v in (3709, 335424)]
-    assert fp32[1] > fp32[0] >= (r // 1024) * 3709 * w * 4
+    assert fp32[0] == fp32[1] == fml.whole_table_workspace_bytes(
+        r, 3709, w, torch.float32)
+    assert fp32[0] < (r // 1024) * 3709 * w * 4 / 10
+
+
+@pytest.mark.parametrize("shape", [
+    (10240, 3709, 128), (10240, 3709, 256), (10240, 3709, 64),
+    (300, 104, 32), (300, 104, 200), (77, 61, 256), (1, 61, 128),
+    (2048, 26732, 128), (130, 200, 64), (129, 4000, 256), (6144, 3709, 64)],
+    ids=lambda d: "R{}_V{}_W{}".format(*d))
+@pytest.mark.cuda
+def test_fp32_whole_table_split_law_mirrors_the_library(cuda_device, shape):
+    """fp32 K3 splits the vocabulary by its own law (64-row tiles x splits
+    up to 512, at most one split per 64-entry tile, 32 at W > 128) and
+    sizes its workspace by it: the Python mirror gives the library's
+    bytes, where the split count is capped by the tiles and where not."""
+    from bert4rec_tpu_torch.ops import fused_mlm_loss as fml
+    r, v, w = shape
+    assert fml.workspace_bytes("K3/K4", r, v, w, torch.float32) == \
+        fml.whole_table_workspace_bytes(r, v, w, torch.float32)
+
+
+@pytest.mark.cuda
+def test_fp32_whole_table_sweep_grid_at_ml1m(cuda_device):
+    """fp32 K4 at ml-1m's batch runs fp32 K7's sweeps: the dh sweep's 160
+    row tiles in clusters of 8 (1,280 blocks) and the dt sweep's 58
+    vocabulary tiles in clusters of 8 (464 blocks, one an SM)."""
+    from bert4rec_tpu_torch.ops import fused_mlm_loss as fml
+    assert fml.sweep_grid(10240, 3709, 128, torch.float32) == \
+        {"dh": (1280, 8), "dt": (464, 8)}
+
+
+# fp32 K3 / K4 (3xTF32): ml-1m's batch at each width the kernels pad to,
+# then R and V on, below and past their tiles (64 rows; 64 vocabulary
+# entries, 32 at W > 128) with widths off every pad
+FP32_WHOLE_TABLE = [(10240, 3709, w) for w in (128, 64, 256)] + [
+    (r, v, w) for w in (40, 64, 128, 256)
+    for r, v in ((1, 61), (63, 64), (65, 200), (300, 1030))]
+
+
+@pytest.mark.parametrize("shape", FP32_WHOLE_TABLE,
+                         ids=lambda d: "R{}_V{}_W{}".format(*d))
+@pytest.mark.cuda
+def test_fp32_whole_table_kernels_match_plain(cuda_device, shape):
+    """fp32 K3 (loss_tf32.cuh's forward sweep and the ordered merge) and
+    fp32 K4 (fp32 K7's two sweeps from K3's lse) against their plain
+    versions with labels at column 0, V - 1, V and past it, -1 and -2: lse
+    and the loss sum within 1e-4 relative, the counts equal; each gradient
+    within 1e-4 of its scale; two runs of each the same bits."""
+    from bert4rec_tpu_torch.ops import fused_mlm_loss as fml
+    r, v, w = shape
+    h, t, b, lab = _edge_inputs(cuda_device, r, v, w, r + v + w,
+                                torch.float32)
+    rlse, rsums = fml.fused_mlm_loss_plain_forward(h, t, b, lab)
+    lse, sums = fml._launch_forward(h, t, b, lab)
+    again = fml._launch_forward(h, t, b, lab)
+    torch.cuda.synchronize()
+    assert _rel_err(lse, rlse) <= 1e-4
+    assert abs(float(sums[0]) - float(rsums[0])) <= \
+        1e-4 * max(abs(float(rsums[0])), 1.0)
+    assert sums[1:].tolist() == rsums[1:].tolist()
+    assert torch.equal(again[0], lse) and torch.equal(again[1], sums)
+    g = torch.full((), 0.75, device=cuda_device)
+    got = fml._launch_backward(h, t, b, lab, lse, g, sums[3:4])
+    again = fml._launch_backward(h, t, b, lab, lse, g, sums[3:4])
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, c) for a, c in zip(got, again))
+    ref = fml.fused_mlm_loss_plain_backward(h, t, b, lab, rlse, g, rsums[3])
+    for a, c in zip(got, ref):
+        assert a.shape == c.shape and a.dtype == torch.float32
+        if not bool(c.abs().any()):
+            assert not bool(a.abs().any())
+        else:
+            assert _rel_err(a, c) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["width_18", "shifted_base", "column_slice"])
+def test_fp32_whole_table_takes_any_layout_through_a_copy(cuda_device, case):
+    """fp32 K3 / K4 copy 16-byte pieces of each row (W a multiple of 4): a
+    width off that rule, a base 4 bytes off 16 and a column slice run
+    through the wrapper's aligned, zero-filled copy and match the plain
+    versions within 1e-4, the gradients at the caller's width."""
+    from bert4rec_tpu_torch.ops import fused_mlm_loss as fml
+    w = 18 if case == "width_18" else 64
+    h, t, b, lab, _ = _tiled_inputs(cuda_device, torch.float32, 130, 200, w)
+    if case == "shifted_base":
+        def shift(x):
+            flat = torch.zeros(x.numel() + 1, device=cuda_device)
+            return flat[1:].view(x.shape).copy_(x)
+        h, t = shift(h), shift(t)
+        assert h.data_ptr() % 16 and t.data_ptr() % 16
+    elif case == "column_slice":
+        def widen(x):
+            wide = torch.zeros((x.shape[0], 72), device=cuda_device)
+            wide[:, :64] = x
+            return wide[:, :64]
+        h, t = widen(h), widen(t)
+        assert not h.is_contiguous()
+    rlse, rsums = fml.fused_mlm_loss_plain_forward(h, t, b, lab)
+    lse, sums = fml._launch_forward(h, t, b, lab)
+    g = torch.full((), 0.5, device=cuda_device)
+    ref = fml.fused_mlm_loss_plain_backward(h, t, b, lab, rlse, g, rsums[3])
+    got = fml._launch_backward(h, t, b, lab, lse, g, sums[3:4])
+    torch.cuda.synchronize()
+    assert _rel_err(lse, rlse) <= 1e-4
+    assert sums[1:].tolist() == rsums[1:].tolist()
+    for a, c in zip(got, ref):
+        assert a.shape == c.shape and a.is_contiguous()
+        assert _rel_err(a, c) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w", [128, 64, 256])
+def test_fp32_whole_table_launch_runs_only_the_tf32_kernels(cuda_device, w):
+    """An fp32 K3 launch runs loss_tf32.cuh's forward sweep, the ordered
+    merge and the row sums; an fp32 K4 launch fp32 K7's two sweeps (dh,
+    then dt). Neither reaches a SIMT loss kernel."""
+    from torch.profiler import ProfilerActivity, profile
+    from bert4rec_tpu_torch.ops import fused_mlm_loss as fml
+    h, t, b, lab, _ = _tiled_inputs(cuda_device, torch.float32, 1000, 3000,
+                                    w)
+    lse, sums = fml._launch_forward(h, t, b, lab)
+    g = torch.ones((), device=cuda_device)
+    cases = {
+        "K3": (lambda: fml._launch_forward(h, t, b, lab),
+               {"loss_tf32_fwd_sweep_kernel<", "loss_tiled_merge_kernel",
+                "reduce_rows_kernel"}),
+        "K4": (lambda: fml._launch_backward(h, t, b, lab, lse, g, sums[3:4]),
+               {"loss_tf32_sweep_kernel<", "false>", "true>"})}
+    for k, (fn, want) in cases.items():
+        fn()
+        torch.cuda.synchronize()
+        for _ in range(3):   # the profiler can drop records
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+            names = [e.key for e in prof.key_averages()
+                     if getattr(e, "self_device_time_total", 0) > 0]
+            if all(any(x in n for n in names) for x in want):
+                break
+        assert all(any(x in n for n in names) for x in want), (k, names)
+        assert all("loss_tf32" in n or "loss_tiled_merge_kernel" in n
+                   or "reduce_rows_kernel" in n for n in names), (k, names)
 
 
 @pytest.mark.cuda

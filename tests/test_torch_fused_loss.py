@@ -18,6 +18,7 @@ from bert4rec_tpu.models import BERT4RecModel as JaxModel
 from bert4rec_tpu.ops import fused_mlm_loss as jax_fml
 from bert4rec_tpu_torch.models import BERT4RecConfig, BERT4RecModel
 from bert4rec_tpu_torch.ops import fused_mlm_loss as fml
+from bert4rec_tpu_torch.ops import tf32
 from bert4rec_tpu_torch.utils.checkpoint import (
     flatten, params_from_numpy, unflatten,
 )
@@ -147,9 +148,10 @@ class TestRoutingLawParity:
 
 
 class TestWholeTableSplitLaw:
-    """bf16 K3 runs K5's sweep over the whole table: its vocabulary splits
-    and its workspace, decided in Python before any launch (the card tests
-    hold the library's workspace to these)."""
+    """bf16 K3 runs K5's sweep over the whole table, fp32 K3 its own 3xTF32
+    sweep: their vocabulary splits and their workspace, decided in Python
+    before any launch (the card tests hold the library's workspace to
+    these)."""
 
     @pytest.mark.parametrize("rows, v, w, splits", [
         (10240, 3709, 128, 13),    # ml-1m's batch: 80 row blocks x 13
@@ -163,30 +165,153 @@ class TestWholeTableSplitLaw:
         assert fml.whole_table_splits(rows, v, w) == splits
         assert fml.tiled_forward_splits(rows, v, w) == splits
 
-    def test_fp32_does_not_split(self):
-        assert fml.whole_table_splits(10240, 3709, 128, torch.float32) == 1
+    @pytest.mark.parametrize("rows, v, w, splits", [
+        (10240, 3709, 128, 4),     # ml-1m's batch: 160 row tiles x 4
+        (10240, 3709, 64, 4),
+        (10240, 3709, 256, 4),     # 32-entry tiles at W > 128: 116 tiles
+        (6144, 3709, 64, 6),       # 96 row tiles
+        (300, 104, 32, 2),         # two 64-entry tiles, 5 row tiles
+        (77, 61, 256, 2),          # two 32-entry tiles
+        (1, 61, 128, 1),
+        (2048, 26732, 128, 16),
+    ], ids=lambda v: str(v))
+    def test_fp32_splits_by_its_own_law(self, rows, v, w, splits):
+        """fp32 K3: the fewest splits that bring (64-row tiles x splits)
+        to 512 blocks, one an SM, at most one per vocabulary tile of 64
+        entries (32 at W > 128)."""
+        assert fml.whole_table_splits(rows, v, w, torch.float32) == splits
 
     @pytest.mark.parametrize("rows, v, w", [(10240, 3709, 128),
                                             (300, 104, 32), (77, 61, 256)],
                              ids=lambda v: str(v))
     def test_workspace_bytes(self, rows, v, w):
-        """bf16: the splits' (max, sum, label logit) rows and the 256-row
-        block sums, each carved to 256 bytes, with no V x W term; fp32: the
-        64-row block sums, then K4's dtable and dbias partials of 1,024-row
-        splits."""
+        """Both dtypes: the splits' (max, sum, label logit) rows and the
+        256-row block sums, each carved to 256 bytes, with no V x W term
+        (K4 needs none), each dtype by its own split law."""
         up = lambda n: -(-n // 256) * 256  # noqa: E731
-        n = fml.whole_table_splits(rows, v, w) * rows
-        assert fml.whole_table_workspace_bytes(rows, v, w) == \
-            3 * up(4 * n) + up(16 * -(-rows // 256))
-        splits = -(-rows // 1024)
-        assert fml.whole_table_workspace_bytes(rows, v, w, torch.float32) \
-            == up(16 * -(-rows // 64)) + up(4 * splits * v * w) \
-            + up(4 * splits * v)
+        for dtype in (torch.bfloat16, torch.float32):
+            n = fml.whole_table_splits(rows, v, w, dtype) * rows
+            assert fml.whole_table_workspace_bytes(rows, v, w, dtype) == \
+                3 * up(4 * n) + up(16 * -(-rows // 256))
+
+    @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                             ids=["bf16", "fp32"])
+    def test_workspace_does_not_grow_with_the_vocabulary(self, dtype):
+        r, w = 10240, 128
+        assert fml.whole_table_workspace_bytes(r, 3709, w, dtype) == \
+            fml.whole_table_workspace_bytes(r, 335424, w, dtype)
 
     def test_bf16_workspace_does_not_grow_with_the_vocabulary(self):
         r, w = 10240, 128
         assert fml.whole_table_workspace_bytes(r, 3709, w) == \
             fml.whole_table_workspace_bytes(r, 335424, w)
+
+
+class TestThreeTf32:
+    """The rounding law of fp32 K3 / K4 (csrc/loss_tf32.cuh), emulated on
+    the CPU with ``ops/tf32.py``: K3's logits a 3xTF32 product (hi / lo
+    split by cvt.rna, three products summed in fp32), its max, sum of
+    exponentials, label logit and counts from them in fp32; K4 from that
+    lse, dh and dtable each a 3xTF32 product, dbias summing the unsplit
+    dlog. Against JAX's interpret-mode ``_run_forward`` / ``_run_backward``
+    and the plain fp32 versions: the forward's lse and loss sum within 1e-5
+    relative of the plain forward and the loss sum within 1e-4 of JAX's,
+    the counts equal on tie-free logits; the backward within 3e-4 of JAX's
+    and 1e-5 of the plain backward. One TF32 pass lands at least 10x
+    further from the plain versions."""
+
+    # (rows, vocab, padded vocab, width): ml-1m's shape cut to size (W =
+    # 128, V off every tile, rows off JAX's 256-row tile), and the
+    # temporal gate's width with config-padding columns
+    SHAPES = [(600, 371, 371, 128), (300, 97, 104, 64)]
+    IDS = ["ml1m_like", "w64_padded"]
+
+    @staticmethod
+    def _forward(mm, h, t, b, lab):
+        logits = mm(h, t.T) + b
+        m = logits.amax(dim=-1)
+        lse = m + torch.log(torch.exp(logits - m[:, None]).sum(dim=-1))
+        ll = fml._label_logit(logits, lab)
+        w = (lab > 0).float()
+        correct = ((ll >= m) & (lab >= 0)).float()
+        return lse, torch.stack([((lse - ll) * w).sum(), (correct * w).sum(),
+                                 correct.sum(), w.sum()])
+
+    @staticmethod
+    def _backward(mm, h, t, b, lab, lse, g, n_valid):
+        logits = mm(h, t.T) + b
+        col = torch.arange(logits.shape[1])
+        onehot = (col[None, :] == lab.long()[:, None]).float()
+        w = (lab > 0).float() * (g / max(n_valid, 1.0))
+        dlog = (torch.exp(logits - lse[:, None]) - onehot) * w[:, None]
+        return mm(dlog, t), mm(dlog.T, h), dlog.sum(dim=0)
+
+    @staticmethod
+    def _operands(shape, labels):
+        rows, v, vp, w = shape
+        h, t, b, lab = inputs(rows, v, vp, w, rows + w)
+        if labels == "padding":
+            lab[:] = 0
+        ops = (torch.from_numpy(h), torch.from_numpy(t),
+               fml._mask_bias(torch.from_numpy(b), v), torch.from_numpy(lab))
+        return (h, t, b, lab), ops
+
+    @pytest.mark.parametrize("shape", SHAPES, ids=IDS)
+    @pytest.mark.parametrize("labels", ["mixed", "padding"])
+    def test_3xtf32_forward_matches_jax_and_plain(self, shape, labels):
+        (h, t, b, lab), ops = self._operands(shape, labels)
+        loss_sum, cv, ca, nv, n = jax_fml._run_forward(
+            jnp.asarray(h), jnp.asarray(t), jnp.asarray(b), jnp.asarray(lab),
+            shape[1], True)
+        plse, psums = fml.fused_mlm_loss_plain_forward(*ops)
+        lse3, sums3 = self._forward(tf32.mm_3xtf32, *ops)
+        lse1, _ = self._forward(tf32.mm_tf32, *ops)
+        assert n == shape[0]
+        err3, err1 = _rel_err(lse3.numpy(), plse.numpy()), \
+            _rel_err(lse1.numpy(), plse.numpy())
+        assert err3 <= 1e-5, err3
+        assert err1 >= 10 * err3, (err1, err3)
+        ref = max(abs(float(psums[0])), 1e-6)
+        assert abs(float(sums3[0]) - float(psums[0])) <= 1e-5 * ref
+        assert abs(float(sums3[0]) - float(loss_sum)) <= \
+            1e-4 * max(abs(float(loss_sum)), 1e-6)
+        assert [float(x) for x in sums3[1:]] == \
+            [float(cv), float(ca), float(nv)] == \
+            [float(x) for x in psums[1:]]
+        if labels == "padding":
+            assert float(sums3[0]) == 0.0 and float(sums3[3]) == 0.0
+
+    @pytest.mark.parametrize("shape", SHAPES, ids=IDS)
+    @pytest.mark.parametrize("labels", ["mixed", "padding"])
+    def test_3xtf32_backward_matches_jax_and_plain(self, shape, labels):
+        """K4 reads K3's lse: the emulated backward takes the emulated
+        forward's, the plain backward the plain forward's, JAX's
+        whole-table backward recomputes its own."""
+        (h, t, b, lab), ops = self._operands(shape, labels)
+        _, _, _, nv, _ = jax_fml._run_forward(
+            jnp.asarray(h), jnp.asarray(t), jnp.asarray(b), jnp.asarray(lab),
+            shape[1], True)
+        jgrads = [np.asarray(x) for x in jax_fml._run_backward(
+            jnp.asarray(h), jnp.asarray(t), jnp.asarray(b), jnp.asarray(lab),
+            jnp.float32(0.75), nv, shape[1], True)]
+        nv = float(nv)
+        plse, _ = fml.fused_mlm_loss_plain_forward(*ops)
+        plain = fml.fused_mlm_loss_plain_backward(
+            *ops, plse, torch.tensor(0.75), torch.tensor(nv))
+        lse3, _ = self._forward(tf32.mm_3xtf32, *ops)
+        lse1, _ = self._forward(tf32.mm_tf32, *ops)
+        got3 = self._backward(tf32.mm_3xtf32, *ops, lse3, 0.75, nv)
+        got1 = self._backward(tf32.mm_tf32, *ops, lse1, 0.75, nv)
+        for g3, g1, p, j in zip(got3, got1, plain, jgrads):
+            assert g3.shape == p.shape == j.shape
+            if not np.abs(j).any():     # all-padding rows: all zero
+                assert not g3.numpy().any() and not p.numpy().any()
+                continue
+            assert _rel_err(g3.numpy(), j) <= 3e-4
+            err3 = _rel_err(g3.numpy(), p.numpy())
+            err1 = _rel_err(g1.numpy(), p.numpy())
+            assert err3 <= 1e-5, err3
+            assert err1 >= 10 * err3, (err1, err3)
 
 
 class TestModelLossAndMetrics:
