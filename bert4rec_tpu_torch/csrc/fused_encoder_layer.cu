@@ -91,15 +91,13 @@
 //         keep bits it draws and the backward reads them.
 //   other bf16 shapes: the kernels below with mma.sync m16n8k16 tiles (fp32
 //         sums) and attention.cuh's tiles.
-//   fp32 inference (nothing saved for a backward, no dropout: serving,
-//         evaluation; H <= 256, head dim <= 64, H, head dim and F multiples
-//         of 8): layer_tf32.cu's own entry point, every product on wgmma in
-//         3xTF32 (each operand split into TF32 hi and lo, three tensor-core
-//         products for each fp32 one: within a few fp32 ulps), attention in
-//         one pass with an online softmax (no row statistics to save).
-//   fp32 otherwise (training, dropout, wider shapes): the kernels below as
-//         SIMT FMA loops and attention.cuh's SIMT tiles; the backward reads
-//         their saved row statistics, so they stay until it moves too.
+//   fp32 with H <= 256, head dim <= 64, H, head dim and F multiples of 8
+//         (inference and training, every variant): layer_tf32.cu's own entry
+//         points, every product on wgmma in 3xTF32 (each operand split into
+//         TF32 hi and lo, three tensor-core products for each fp32 one:
+//         within a few fp32 ulps).
+//   fp32 off that rule (wider shapes): the kernels below as SIMT FMA loops
+//         and attention.cuh's SIMT tiles.
 // bf16 products are exact in fp32, so the bf16 paths differ only in the
 // order of their sums.
 //

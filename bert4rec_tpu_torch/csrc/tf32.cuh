@@ -1,6 +1,5 @@
 // 3xTF32 on Hopper's warpgroup tensor cores (sm_90a), shared by the fp32
-// inference layer (layer_tf32.cu) and the fp32 loss backwards
-// (loss_tf32.cuh).
+// layer (layer_tf32.cu) and the fp32 loss kernels (loss_tf32.cuh).
 //
 // Each fp32 operand is split into hi = cvt.rna.tf32(v) and lo =
 // cvt.rna.tf32(v - hi) (v - hi is exact in fp32), and a b accumulates
@@ -165,6 +164,84 @@ __device__ __forceinline__ void split_panel_t(int t, uint8_t* panel, int lo) {
 template <int ROWS, int NT>
 __device__ __forceinline__ void split_panel(uint8_t* panel, int lo) {
   split_panel_t<ROWS, NT>(threadIdx.x, panel, lo);
+}
+
+// ---------------------------------------------------------------------------
+// register A fragments read from shared memory in any order (ld.shared),
+// for the products whose contraction runs along a tile's rows; the k order
+// inside each 8-deep k-block is even-first (k position q holds row 2 q for
+// q < 4, 2 (q - 4) + 1 above), in the fragments and in the K-major B tiles
+// alike, which keeps the transposed reads free of bank conflicts
+// ---------------------------------------------------------------------------
+// this thread's first accumulator row in its warpgroup's 64
+__device__ __forceinline__ int frag_row() {
+  return 16 * ((threadIdx.x >> 5) & 3) + ((threadIdx.x & 31) >> 2);
+}
+
+// byte offset of element (row, col) of an fp32 tile of `rows` rows in
+// 32-column panels (panels rows * 128 bytes apart)
+__device__ __forceinline__ uint32_t at(int rows, int row, int col) {
+  return (col >> 5) * rows * 128 + chunk_at(row, (col & 31) >> 2) + (col & 3) * 4;
+}
+__device__ __forceinline__ float ld_at(const uint8_t* t, uint32_t off) {
+  return *reinterpret_cast<const float*>(t + off);
+}
+__device__ __forceinline__ void split_into(float v, uint32_t& hi, uint32_t& lo) {
+  float h, l;
+  split_tf32(v, h, l);
+  hi = __float_as_uint(h);
+  lo = __float_as_uint(l);
+}
+
+// k-block kb of the raw 64-row tile t read as [M = its rows][K = its
+// columns], split: register r holds (row0 + 8 (r & 1), 8 kb + tq + 4 (r >> 1))
+__device__ __forceinline__ void frag_rows(uint32_t (&hi)[4], uint32_t (&lo)[4],
+                                          const uint8_t* t, int kb) {
+  const int tq = threadIdx.x & 3, row0 = frag_row();
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+    split_into(ld_at(t, at(hopper::kRows, row0 + 8 * (r & 1), 8 * kb + tq + 4 * (r >> 1))),
+               hi[r], lo[r]);
+}
+
+// k-block kb of the transpose of a ROWS-row tile, [M = its columns m0 ..
+// m0 + 63][K = its rows, even-first]: register r holds (column m0 + row0 +
+// 8 (r & 1), row 8 kb + 2 tq + (r >> 1)). kSplit: t is raw and is split;
+// else t holds the hi parts and t + lo the lo parts.
+template <int ROWS, bool kSplit>
+__device__ __forceinline__ void frag_cols(uint32_t (&hi)[4], uint32_t (&lo)[4],
+                                          const uint8_t* t, int lo_off, int m0, int kb) {
+  const int tq = threadIdx.x & 3, row0 = frag_row();
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const uint32_t o = at(ROWS, 8 * kb + 2 * tq + (r >> 1), m0 + row0 + 8 * (r & 1));
+    if constexpr (kSplit) {
+      split_into(ld_at(t, o), hi[r], lo[r]);
+    } else {
+      hi[r] = __float_as_uint(ld_at(t, o));
+      lo[r] = __float_as_uint(ld_at(t + lo_off, o));
+    }
+  }
+}
+
+// d += A B over one k-block in 3xTF32, A from registers, B's hi and lo
+// K-major k-blocks at descriptors bh, bl: lo hi, hi lo, then hi hi
+template <int N>
+__device__ __forceinline__ void mma3_rs(float (&d)[N / 2], const uint32_t (&ahi)[4],
+                                        const uint32_t (&alo)[4], uint64_t bh, uint64_t bl) {
+  wgmma_tf32_rs<N>(d, alo, bh);
+  wgmma_tf32_rs<N>(d, ahi, bl);
+  wgmma_tf32_rs<N>(d, ahi, bh);
+}
+
+// k-block kb of a K-major tile of `rows` rows
+__device__ __forceinline__ uint64_t bdesc(uint32_t t, int rows, int kb) {
+  return kdesc(t + (kb >> 2) * rows * 128, kb & 3);
+}
+
+// k even-first inside each 8: the k position of column (or row) c
+__device__ __forceinline__ int kpos(int c) {
+  return (c & ~7) | ((c & 7) >> 1) | ((c & 1) << 2);
 }
 
 }  // namespace tf32

@@ -19,13 +19,12 @@ against a few MB of activations: the layer is bound by operations.
 dim and F multiples of 8 runs the ``wgmma`` kernels of
 ``csrc/layer_hopper.cuh`` (attention on ``csrc/flash_hopper.cuh``'s); any
 other bf16 shape the earlier ``mma.sync`` kernels (counted apart, in
-``mma_sync_launches``); an fp32 forward that saves nothing for a backward
-and draws no dropout (serving, evaluation) at H <= 256, head dim <= 64,
-H, head dim and F multiples of 8 the 3xTF32 ``wgmma`` kernels of
-``csrc/layer_tf32.cu`` (counted also in ``tf32_launches``; each launch
-transposes its weights and splits them into TF32 hi and lo parts itself,
-so nothing is cached); every other fp32 launch the SIMT loops. Their times
-are in PERF.md.
+``mma_sync_launches``); fp32 at H <= 256, head dim <= 64, H, head dim and F
+multiples of 8 the 3xTF32 ``wgmma`` kernels of ``csrc/layer_tf32.cu``,
+forward and backward, at inference and in training (counted also in
+``tf32_launches`` / ``tf32_backward_launches``; each launch splits its
+weights into TF32 hi and lo parts itself, so nothing is cached); fp32
+off that rule the SIMT loops. Their times are in PERF.md.
 
 What it computes is ``_layer_fwd_math`` and ``_bwd_element``:
 tanh-approximate gelu (whatever ``inner_activation`` says — the JAX kernel
@@ -62,7 +61,7 @@ MAX_FUSED_SEQ_LEN = 512
 MAX_KERNEL_HIDDEN = 512
 MAX_KERNEL_HEAD_DIM = 128
 MAX_KERNEL_BATCH = 65535
-# the 3xTF32 inference kernels' limits (b4r_fused_layer_tf32_max_hidden /
+# the 3xTF32 kernels' limits (b4r_fused_layer_tf32_max_hidden /
 # _max_head_dim in csrc/layer_tf32.cu)
 TF32_MAX_HIDDEN = 256
 TF32_MAX_HEAD_DIM = 64
@@ -206,10 +205,12 @@ def causal_bias(seq_len: int, device, dtype=torch.float32) -> torch.Tensor:
 
 def _forward_math(flat: dict, x: torch.Tensor, input_mask: torch.Tensor,
                   num_heads: int, seed: int, attn_rate: float,
-                  out_rate: float, causal: bool = False, rel=None) -> dict:
+                  out_rate: float, causal: bool = False, rel=None,
+                  mm=torch.matmul) -> dict:
     """``_layer_fwd_math`` over the whole batch; returns every residual
     the backward needs. ``rel`` ([B, N, S, S]) is added to the scores
-    last, in fp32, as the TPU kernel adds it."""
+    last, in fp32, as the TPU kernel adds it. ``mm`` takes every product
+    (the tests pass ``ops/tf32.py``'s 3xTF32 law)."""
     dtype = x.dtype
     f32 = _work_dtype(dtype)
     b, s, h = x.shape
@@ -221,31 +222,31 @@ def _forward_math(flat: dict, x: torch.Tensor, input_mask: torch.Tensor,
                                         out_rate, x.device, f32)
 
     x32 = x.to(f32)
-    qkv = (x32 @ w["wqkv"] + v32["bqkv"]).to(dtype).to(f32)
+    qkv = (mm(x32, w["wqkv"]) + v32["bqkv"]).to(dtype).to(f32)
     q, k, v = (t.reshape(b, s, num_heads, d).transpose(1, 2)
                for t in qkv.split(h, dim=-1))                  # [B,N,S,D]
     bias = torch.where(input_mask > 0, 0.0, NEG_INF).to(f32)[:, None, None]
     if causal:
         bias = bias + causal_bias(s, x.device, f32)
-    scores = q @ k.transpose(-1, -2) * scale + bias
+    scores = mm(q, k.transpose(-1, -2)) * scale + bias
     if rel is not None:
         scores = scores + rel.to(f32)
     m = scores.amax(dim=-1, keepdim=True)
     e = torch.exp2((scores - m) * _LOG2E)
     p = e * (1.0 / e.sum(dim=-1, keepdim=True))                # [B,N,S,S]
     pk = p if keep1 is None else p * keep1
-    ctx = pk.to(dtype).to(f32) @ v                             # [B,N,S,D]
+    ctx = mm(pk.to(dtype).to(f32), v)                          # [B,N,S,D]
     ctx = ctx.transpose(1, 2).reshape(b, s, h).to(dtype).to(f32)
 
-    attn = ctx @ w["wo"] + v32["bo"]
+    attn = mm(ctx, w["wo"]) + v32["bo"]
     if keep2 is not None:
         attn = attn * keep2
     u = x32 + attn
     x1, xhat1, rstd1 = _ln_fwd(u, v32["g1"], v32["b1ln"])
     x1 = x1.to(dtype).to(f32)
-    hpre = x1 @ w["w1"] + v32["bf1"]
+    hpre = mm(x1, w["w1"]) + v32["bf1"]
     hact = _gelu_tanh(hpre).to(dtype).to(f32)
-    f = hact @ w["w2"] + v32["bf2"]
+    f = mm(hact, w["w2"]) + v32["bf2"]
     if keep3 is not None:
         f = f * keep3
     y, xhat2, rstd2 = _ln_fwd(x1 + f, v32["g2"], v32["b2ln"])
@@ -277,10 +278,10 @@ def _rows_sum(t: torch.Tensor) -> torch.Tensor:
     return t.reshape(-1, t.shape[-1]).sum(dim=0, keepdim=True)
 
 
-def _tn(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def _tn(a: torch.Tensor, b: torch.Tensor, mm=torch.matmul) -> torch.Tensor:
     """``a^T b`` summed over all rows: ``[.., K1]`` x ``[.., N]`` ->
     ``[K1, N]``."""
-    return a.reshape(-1, a.shape[-1]).T @ b.reshape(-1, b.shape[-1])
+    return mm(a.reshape(-1, a.shape[-1]).T, b.reshape(-1, b.shape[-1]))
 
 
 def fused_encoder_layer_plain_backward(flat: dict, x: torch.Tensor,
@@ -290,17 +291,19 @@ def fused_encoder_layer_plain_backward(flat: dict, x: torch.Tensor,
                                        output_dropout: float = 0.0,
                                        seed: int = 0,
                                        causal: bool = False,
-                                       rel_bias=None):
+                                       rel_bias=None, mm=torch.matmul):
     """Plain PyTorch version of the fused layer's backward
     (``_bwd_element``, whole batch at once): recomputes the forward with
     the same masks (triangle and relative bias) and returns ``(dx,
     {name: grad})`` with ``dx`` in the input dtype and the 12 flat-operand
     gradients in the params' dtype; with ``rel_bias`` also ``"rel"``, its
-    gradient ``[B, N, S, S]`` in fp32 (JAX's ``ds32``)."""
+    gradient ``[B, N, S, S]`` in fp32 (JAX's ``ds32``). ``mm`` takes every
+    product, the forward's recomputed ones too."""
     dtype = x.dtype
     f32 = _work_dtype(dtype)
     r = _forward_math(flat, x, input_mask, num_heads, seed,
-                      attention_dropout, output_dropout, causal, rel_bias)
+                      attention_dropout, output_dropout, causal, rel_bias,
+                      mm)
     w = r["w"]
     b, s, h = x.shape
     d = h // num_heads
@@ -318,41 +321,41 @@ def fused_encoder_layer_plain_backward(flat: dict, x: torch.Tensor,
     dw_res = _ln_bwd(dy32, r["xhat2"], r["rstd2"], g2)
     # ---- FFN branch ----
     df = dw_res if r["keep3"] is None else dw_res * r["keep3"]
-    grads["w2"] = _tn(r["hact"], t(df))
+    grads["w2"] = _tn(r["hact"], t(df), mm)
     grads["bf2"] = _rows_sum(df)
-    dhact = t(df) @ w["w2"].T
+    dhact = mm(t(df), w["w2"].T)
     dhpre = dhact * _gelu_tanh_grad(r["hpre"])
-    grads["w1"] = _tn(r["x1"], t(dhpre))
+    grads["w1"] = _tn(r["x1"], t(dhpre), mm)
     grads["bf1"] = _rows_sum(dhpre)
-    dx1 = dw_res + t(dhpre) @ w["w1"].T
+    dx1 = dw_res + mm(t(dhpre), w["w1"].T)
     # ---- LN1 ----
     grads["g1"] = _rows_sum(dx1 * r["xhat1"])
     grads["b1ln"] = _rows_sum(dx1)
     du = _ln_bwd(dx1, r["xhat1"], r["rstd1"], g1)
     # ---- attention output projection ----
     dattn = du if r["keep2"] is None else du * r["keep2"]
-    grads["wo"] = _tn(r["ctx"], t(dattn))
+    grads["wo"] = _tn(r["ctx"], t(dattn), mm)
     grads["bo"] = _rows_sum(dattn)
-    dctx = t(t(dattn) @ w["wo"].T)
+    dctx = t(mm(t(dattn), w["wo"].T))
     # ---- attention cores (same masks) ----
     dctx_h = dctx.reshape(b, s, num_heads, d).transpose(1, 2)   # [B,N,S,D]
     p, keep1 = r["p"], r["keep1"]
     d_mat = p if keep1 is None else p * keep1
-    dv = t(d_mat).transpose(-1, -2) @ dctx_h
-    dd = dctx_h @ r["v"].transpose(-1, -2)
+    dv = mm(t(d_mat).transpose(-1, -2), dctx_h)
+    dd = mm(dctx_h, r["v"].transpose(-1, -2))
     dp = dd if keep1 is None else dd * keep1
     ds32 = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
     ds = t(ds32)
-    dq = (ds @ r["k"]) * scale
-    dk = (ds.transpose(-1, -2) @ r["q"]) * scale
+    dq = mm(ds, r["k"]) * scale
+    dk = mm(ds.transpose(-1, -2), r["q"]) * scale
 
     def merge(a):  # [B,N,S,D] -> [B,S,H]
         return a.transpose(1, 2).reshape(b, s, h)
 
     dqkv = torch.cat([merge(dq), merge(dk), merge(dv)], dim=-1)  # [B,S,3H]
-    grads["wqkv"] = _tn(x.to(f32), t(dqkv))
+    grads["wqkv"] = _tn(x.to(f32), t(dqkv), mm)
     grads["bqkv"] = _rows_sum(dqkv)
-    dx = (du + t(dqkv) @ w["wqkv"].T).to(dtype)
+    dx = (du + mm(t(dqkv), w["wqkv"].T)).to(dtype)
     grads = {k: grads[k].to(flat[k].dtype) for k in _W_ORDER}
     if rel_bias is not None:
         grads["rel"] = ds32
@@ -369,7 +372,12 @@ _FWD_PTRS = ("x", "mask", *_W_ORDER, "qkv", "ctx", "x1", "hact", "y",
              "xhat1", "rstd1", "xhat2", "rstd2", "stat_m", "stat_l", "rel",
              "keep_bits")
 _TF32_PTRS = ("x", "mask", *_W_ORDER, "qkv", "ctx", "x1", "hact", "y", "rel",
-              "wt")
+              "wt", "xhat1", "rstd1", "xhat2", "rstd2", "stat_m", "stat_l")
+_TF32_BWD_PTRS = ("x", "mask", "dy", "wqkv", "wo", "w1", "w2", "bf1", "g1",
+                  "g2", "qkv", "ctx", "x1", "hact", "xhat1", "rstd1", "xhat2",
+                  "rstd2", "stat_m", "stat_l", "dx", "dwqkv", "dbqkv", "dwo",
+                  "gln1", "dw1", "dbf1", "dw2", "gln2", "workspace", "rel",
+                  "drel")
 _BWD_PTRS = ("x", "mask", "dy", "wqkv_t", "wo_t", "w1", "w1_t", "w2_t", "bf1",
              "g1", "g2", "qkv", "ctx", "x1", "hact", "xhat1", "rstd1",
              "xhat2", "rstd2", "stat_m", "stat_l", "dx", "dwqkv", "dbqkv",
@@ -416,10 +424,15 @@ def _kernel_lib_tf32():
     if _tf32_lib is None:
         from bert4rec_tpu_torch.ops import kernel_build
         lib = kernel_build.load("layer_tf32")
-        ci = ctypes.c_int
-        lib.b4r_fused_layer_fwd_tf32.restype = ci
-        lib.b4r_fused_layer_fwd_tf32.argtypes = [ctypes.c_void_p] + [ci] * 6 \
-            + [ctypes.c_float, ctypes.c_void_p]
+        vp, ci, cu, cf = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint,
+                          ctypes.c_float)
+        # ptrs, B, S, H, N, F, causal, scale, seed, the two dropouts'
+        # (threshold, scale, on), stream
+        for fn in (lib.b4r_fused_layer_fwd_tf32, lib.b4r_fused_layer_bwd_tf32):
+            fn.restype = ci
+            fn.argtypes = [vp] + [ci] * 6 + [cf, cu, cu, cf, ci, cu, cf, ci, vp]
+        lib.b4r_fused_layer_bwd_tf32_workspace_bytes.restype = ctypes.c_size_t
+        lib.b4r_fused_layer_bwd_tf32_workspace_bytes.argtypes = [ci] * 5
         for name in ("b4r_fused_layer_tf32_max_hidden",
                      "b4r_fused_layer_tf32_max_head_dim"):
             getattr(lib, name).restype = ci
@@ -462,19 +475,18 @@ def _check_operands(x, input_mask, flat, num_heads):
 
 
 def kernel_route(dtype, batch: int, hidden: int, num_heads: int,
-                 inner_dim: int, *, save: bool = True,
-                 attn_rate: float = 0.0, out_rate: float = 0.0) -> str:
+                 inner_dim: int) -> str:
     """Which CUDA kernels run a layer of this shape (the shape law, decided
-    before any launch): ``"wgmma"`` (bf16 on the warpgroup kernels of
+    before any launch from the dtype and shape alone, so that one layer's
+    forward and backward take one route whatever the forward saves or
+    draws): ``"wgmma"`` (bf16 on the warpgroup kernels of
     ``csrc/layer_hopper.cuh``, whose 16-byte copies need H, the head dim
     and F to be multiples of 8), ``"mma_sync"`` (any other bf16 shape: the
-    earlier ``mma.sync`` kernels), ``"tf32"`` (an fp32 forward that saves
-    nothing for a backward, ``save`` False, at both dropout rates 0 — what
-    the encoder passes outside training — with H <= 256, head dim <= 64
-    and H, head dim and F multiples of 8: the 3xTF32 kernels of
-    ``csrc/layer_tf32.cu``) or ``"simt"`` (every other fp32 launch: the
-    SIMT kernels, whose row statistics the fp32 backward reads). Raises
-    ValueError past every kernel's limits."""
+    earlier ``mma.sync`` kernels), ``"tf32"`` (fp32 with H <= 256, head dim
+    <= 64 and H, head dim and F multiples of 8: the 3xTF32 kernels of
+    ``csrc/layer_tf32.cu``, forward and backward, any dropout, causal or
+    with a relative bias) or ``"simt"`` (every other fp32 shape: the SIMT
+    kernels). Raises ValueError past every kernel's limits."""
     d = hidden // num_heads
     if hidden > MAX_KERNEL_HIDDEN or d > MAX_KERNEL_HEAD_DIM \
             or batch > MAX_KERNEL_BATCH:
@@ -484,8 +496,7 @@ def kernel_route(dtype, batch: int, hidden: int, num_heads: int,
             f" got hidden {hidden}, {num_heads} heads, batch {batch}")
     aligned = hidden % 8 == 0 and d % 8 == 0 and inner_dim % 8 == 0
     if dtype == torch.float32:
-        if (not save and attn_rate == 0.0 and out_rate == 0.0 and aligned
-                and hidden <= TF32_MAX_HIDDEN and d <= TF32_MAX_HEAD_DIM):
+        if aligned and hidden <= TF32_MAX_HIDDEN and d <= TF32_MAX_HEAD_DIM:
             return "tf32"
         return "simt"
     if dtype != torch.bfloat16:
@@ -565,11 +576,12 @@ def _check_rel(rel, b, n, s, device):
 
 
 def _launch_forward_tf32(flat: dict, x: torch.Tensor,
-                         input_mask: torch.Tensor, num_heads: int,
+                         input_mask: torch.Tensor, num_heads: int, seed: int,
+                         attn_rate: float, out_rate: float, save: bool,
                          causal: bool, rel):
-    """K1 (fp32, inference: nothing saved, no dropout) on the 3xTF32
-    kernels of ``csrc/layer_tf32.cu``; returns ``y``. The launch writes the
-    weights' transposed TF32 hi and lo parts into its own workspace."""
+    """K1 in fp32 on the 3xTF32 kernels of ``csrc/layer_tf32.cu``; returns
+    ``(y, saved)`` as ``_launch_forward``. The launch writes the weights'
+    transposed TF32 hi and lo parts into its own workspace."""
     lib = _kernel_lib_tf32()
     b, s, h = x.shape
     f = flat["w1"].shape[1]
@@ -583,14 +595,28 @@ def _launch_forward_tf32(flat: dict, x: torch.Tensor,
                qkv=torch.empty((m, 3 * h), **f32),
                ctx=torch.empty((m, h), **f32), x1=torch.empty((m, h), **f32),
                hact=torch.empty((m, f), **f32), y=torch.empty((b, s, h), **f32))
+    if save:
+        ops.update(_saved_stats(b, s, h, num_heads, dev))
     err = lib.b4r_fused_layer_fwd_tf32(
         _ptr_array(ops, _TF32_PTRS), b, s, h, num_heads, f, int(causal),
-        1.0 / math.sqrt(h // num_heads),
+        1.0 / math.sqrt(h // num_heads), *_drop_args(seed, attn_rate, out_rate),
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"fused_encoder_layer 3xTF32 kernel launch "
                            f"failed: CUDA error {err}")
-    return ops["y"]
+    ops["keep_bits"] = None
+    return ops["y"], (tuple(ops[k] for k in _SAVED) if save else ())
+
+
+def _saved_stats(b, s, h, num_heads, dev) -> dict:
+    """The fp32 statistics a training forward writes for its backward."""
+    m, f32 = b * s, dict(dtype=torch.float32, device=dev)
+    return dict(xhat1=torch.empty((m, h), **f32),
+                rstd1=torch.empty((m,), **f32),
+                xhat2=torch.empty((m, h), **f32),
+                rstd2=torch.empty((m,), **f32),
+                stat_m=torch.empty((b, num_heads, s), **f32),
+                stat_l=torch.empty((b, num_heads, s), **f32))
 
 
 def _launch_forward(flat: dict, x: torch.Tensor, input_mask: torch.Tensor,
@@ -602,13 +628,12 @@ def _launch_forward(flat: dict, x: torch.Tensor, input_mask: torch.Tensor,
     statistics the backward reads (empty unless ``save``)."""
     b, s, h = x.shape
     f = flat["w1"].shape[1]
-    route = kernel_route(x.dtype, b, h, num_heads, f, save=save,
-                         attn_rate=attn_rate, out_rate=out_rate)
+    route = kernel_route(x.dtype, b, h, num_heads, f)
     if rel is not None:
         _check_rel(rel, b, num_heads, s, x.device)
     if route == "tf32":
-        return _launch_forward_tf32(flat, x, input_mask, num_heads, causal,
-                                    rel), ()
+        return _launch_forward_tf32(flat, x, input_mask, num_heads, seed,
+                                    attn_rate, out_rate, save, causal, rel)
     lib = _kernel_lib()
     _check_kernel_limits(lib)
     m = b * s
@@ -626,13 +651,7 @@ def _launch_forward(flat: dict, x: torch.Tensor, input_mask: torch.Tensor,
                hact=torch.empty((m, f), dtype=dt, device=dev),
                y=torch.empty_like(x))
     if save:
-        f32 = dict(dtype=torch.float32, device=dev)
-        ops.update(xhat1=torch.empty((m, h), **f32),
-                   rstd1=torch.empty((m,), **f32),
-                   xhat2=torch.empty((m, h), **f32),
-                   rstd2=torch.empty((m,), **f32),
-                   stat_m=torch.empty((b, num_heads, s), **f32),
-                   stat_l=torch.empty((b, num_heads, s), **f32))
+        ops.update(_saved_stats(b, s, h, num_heads, dev))
         if route == "wgmma" and attn_rate > 0.0:
             ops["keep_bits"] = torch.empty(
                 keep_bits_shape(b, num_heads, s), dtype=torch.int32,
@@ -662,6 +681,10 @@ def _launch_backward(flat: dict, x: torch.Tensor, input_mask: torch.Tensor,
     b, s, h = x.shape
     f = flat["w1"].shape[1]
     route = kernel_route(x.dtype, b, h, num_heads, f)
+    if route == "tf32":
+        return _launch_backward_tf32(flat, x, input_mask, dy, saved,
+                                     num_heads, seed, attn_rate, out_rate,
+                                     causal, rel)
     lib = _kernel_lib()
     dev, dt = x.device, x.dtype
     f32 = dict(dtype=torch.float32, device=dev)
@@ -718,29 +741,77 @@ def _launch_backward(flat: dict, x: torch.Tensor, input_mask: torch.Tensor,
     return ops["dx"], grads
 
 
+def _launch_backward_tf32(flat: dict, x: torch.Tensor,
+                          input_mask: torch.Tensor, dy: torch.Tensor,
+                          saved: tuple, num_heads: int, seed: int,
+                          attn_rate: float, out_rate: float, causal: bool,
+                          rel):
+    """K2 in fp32 on the 3xTF32 kernels of ``csrc/layer_tf32.cu``, from
+    the 3xTF32 forward's saves; returns ``(dx, {name: fp32 grad})`` as
+    ``_launch_backward``. The launch splits the weights into TF32 hi and lo
+    parts in its own workspace; an operand off the kernels' 16-byte rule
+    is copied first."""
+    lib = _kernel_lib_tf32()
+    b, s, h = x.shape
+    f = flat["w1"].shape[1]
+    dev = x.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    ops = {k: v for k, v in zip(_SAVED, saved) if k != "keep_bits"}
+    ops.update(
+        x=_aligned16(x.contiguous()), mask=input_mask.contiguous(),
+        dy=_aligned16(dy.contiguous()),
+        **{k: flat[k].float().contiguous() for k in _MATRICES},
+        **{k: _aligned16(flat[k].contiguous()) for k in ("bf1", "g1", "g2")},
+        dx=torch.empty((b, s, h), **f32), dwqkv=torch.empty((h, 3 * h), **f32),
+        dbqkv=torch.empty((1, 3 * h), **f32), dwo=torch.empty((h, h), **f32),
+        gln1=torch.empty((3, h), **f32), dw1=torch.empty((h, f), **f32),
+        dbf1=torch.empty((1, f), **f32), dw2=torch.empty((f, h), **f32),
+        gln2=torch.empty((3, h), **f32), rel=rel,
+        workspace=torch.empty(
+            (lib.b4r_fused_layer_bwd_tf32_workspace_bytes(b, s, h, num_heads,
+                                                          f),),
+            dtype=torch.uint8, device=dev))
+    if rel is not None:
+        _check_rel(rel, b, num_heads, s, dev)
+        ops["drel"] = torch.empty_like(rel)
+    err = lib.b4r_fused_layer_bwd_tf32(
+        _ptr_array(ops, _TF32_BWD_PTRS), b, s, h, num_heads, f, int(causal),
+        1.0 / math.sqrt(h // num_heads), *_drop_args(seed, attn_rate, out_rate),
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"fused_encoder_layer 3xTF32 backward kernel "
+                           f"launch failed: CUDA error {err}")
+    gln1, gln2 = ops["gln1"], ops["gln2"]
+    grads = dict(wqkv=ops["dwqkv"], bqkv=ops["dbqkv"], wo=ops["dwo"],
+                 bo=gln1[2:3], g1=gln1[0:1], b1ln=gln1[1:2], w1=ops["dw1"],
+                 bf1=ops["dbf1"], w2=ops["dw2"], bf2=gln2[2:3], g2=gln2[0:1],
+                 b2ln=gln2[1:2])
+    if rel is not None:
+        grads["rel"] = ops["drel"]
+    return ops["dx"], grads
+
+
 def _count(backward: bool, causal: bool, rel: bool,
            route: str = "wgmma") -> None:
     """One launch of the CUDA kernels, in the counter of its variant: the
     relative-bias launches (causal or not) apart, then the causal ones; a
     bf16 launch the shape law sends to the ``mma.sync`` kernels also in
     ``mma_sync_launches`` / ``mma_sync_backward_launches``, an fp32 one it
-    sends to the 3xTF32 kernels also in ``tf32_launches``."""
+    sends to the 3xTF32 kernels also in ``tf32_launches`` /
+    ``tf32_backward_launches``."""
     kind = "rel_" if rel else "causal_" if causal else ""
     names = [f"{kind}backward_launches" if backward else f"{kind}launches"]
-    if route == "mma_sync":
-        names.append("mma_sync_backward_launches" if backward
-                     else "mma_sync_launches")
-    if route == "tf32":
-        names.append("tf32_launches")
+    if route in ("mma_sync", "tf32"):
+        names.append(f"{route}_backward_launches" if backward
+                     else f"{route}_launches")
     for name in names:
         setattr(fused_encoder_layer, name,
                 getattr(fused_encoder_layer, name) + 1)
 
 
-def _route_of(x, flat, num_heads, **launch) -> str:
+def _route_of(x, flat, num_heads) -> str:
     b, _, h = x.shape
-    return kernel_route(x.dtype, b, h, num_heads, flat["w1"].shape[1],
-                        **launch)
+    return kernel_route(x.dtype, b, h, num_heads, flat["w1"].shape[1])
 
 
 class _FusedLayer(torch.autograd.Function):
@@ -768,8 +839,7 @@ class _FusedLayer(torch.autograd.Function):
                                        attn_rate, out_rate, save,
                                        causal=causal, rel=rel)
             _count(False, causal, rel is not None,
-                   _route_of(x, flat, num_heads, save=save,
-                             attn_rate=attn_rate, out_rate=out_rate))
+                   _route_of(x, flat, num_heads))
         if save:
             rel_saved = () if rel is None else (rel,)
             ctx.save_for_backward(x, input_mask, *rel_saved, *flat_tuple,
@@ -822,8 +892,8 @@ def fused_encoder_layer(params: dict, x: torch.Tensor,
     ``rel_backward_launches``); a bf16 launch the shape law
     (``kernel_route``) sends to the ``mma.sync`` kernels also counts in
     ``mma_sync_launches`` / ``mma_sync_backward_launches``, and an fp32
-    launch it sends to the 3xTF32 kernels (inference) in
-    ``tf32_launches``. A CPU ``x`` runs the plain versions.
+    launch it sends to the 3xTF32 kernels in ``tf32_launches`` /
+    ``tf32_backward_launches``. A CPU ``x`` runs the plain versions.
     """
     flat = flat_weights(params)
     _check_operands(x, input_mask, flat, num_heads)
@@ -852,3 +922,4 @@ fused_encoder_layer.rel_backward_launches = 0
 fused_encoder_layer.mma_sync_launches = 0
 fused_encoder_layer.mma_sync_backward_launches = 0
 fused_encoder_layer.tf32_launches = 0
+fused_encoder_layer.tf32_backward_launches = 0

@@ -12,7 +12,9 @@ the control half of each encoding, the dump's padding and the per-file
 name of the anonymous namespace dropped), and
 ``bits``, a hash of the outputs of K3, K4, K5 (both entries), K6 and K7
 in fp32 and of K3, K6 and K7 in bf16 at a few shapes (K6/K7 fed the plain
-forward's lse, so that they see the same input in both checkouts).
+forward's lse, so that they see the same input in both checkouts), and of
+the fp32 layer's served forward (K1: nothing saved, rate 0) at B=32 and
+256, ml-1m_128's width.
 ``--diff`` prints which kernels and outputs are the same in both."""
 
 import argparse
@@ -47,14 +49,15 @@ def sass_hashes(build_dir: pathlib.Path) -> dict:
     return out
 
 
+def digest(*tensors) -> str:
+    h = hashlib.sha1()
+    for t in tensors:
+        h.update(t.detach().float().cpu().numpy().tobytes())
+    return h.hexdigest()[:12]
+
+
 def output_hashes(torch, np, fml) -> dict:
     device = torch.device("cuda")
-
-    def digest(*tensors):
-        h = hashlib.sha1()
-        for t in tensors:
-            h.update(t.detach().float().cpu().numpy().tobytes())
-        return h.hexdigest()[:12]
 
     def operands(rows, v, w, dtype):
         rng = np.random.default_rng(rows + v + w)
@@ -91,6 +94,38 @@ def output_hashes(torch, np, fml) -> dict:
     return out
 
 
+def layer_hashes(torch, np, fel) -> dict:
+    """The fp32 served layer's output bits at ml-1m_128's width (H=128, 4
+    heads, F=512, S=200), right-padded rows, B=32 and 256."""
+    from bert4rec_tpu_torch.utils.checkpoint import params_from_numpy
+    device = torch.device("cuda")
+    rng = np.random.default_rng(128)
+    h, n, f, s, b = 128, 4, 512, 200, 256
+
+    def w(*shape, scale=0.05):
+        return (rng.normal(size=shape) * scale).astype(np.float32)
+
+    flat = fel.flat_weights(params_from_numpy({
+        "attention/qkv/kernel": w(h, 3, n, h // n, scale=0.1),
+        "attention/qkv/bias": w(3, n, h // n, scale=0.02),
+        "attention/output/kernel": w(n, h // n, h),
+        "attention/output/bias": w(h, scale=0.02),
+        "attention_norm/scale": 1.0 + w(h, scale=0.1),
+        "attention_norm/bias": w(h, scale=0.02),
+        "intermediate/kernel": w(h, f), "intermediate/bias": w(f, scale=0.02),
+        "output/kernel": w(f, h), "output/bias": w(h, scale=0.02),
+        "output_norm/scale": 1.0 + w(h, scale=0.1),
+        "output_norm/bias": w(h, scale=0.02)}, device))
+    x = torch.from_numpy(rng.normal(size=(b, s, h)).astype(np.float32)).to(device)
+    lengths = rng.integers(1, s + 1, size=b)
+    mask = torch.from_numpy((np.arange(s)[None, :] < lengths[:, None])
+                            .astype(np.int32)).to(device)
+    out = {f"fp32 K1 served B={bb}": digest(fel._launch_forward(
+        flat, x[:bb], mask[:bb], n, 0, 0.0, 0.0, False)[0]) for bb in (32, b)}
+    torch.cuda.synchronize()
+    return out
+
+
 def diff(a_path, b_path) -> None:
     a, b = (json.loads(pathlib.Path(p).read_text()) for p in (a_path, b_path))
     for part in ("sass", "bits"):
@@ -123,6 +158,7 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("compare_builds: no CUDA device", file=sys.stderr)
         return 1
+    from bert4rec_tpu_torch.ops import fused_encoder_layer as fel
     from bert4rec_tpu_torch.ops import fused_mlm_loss as fml
     from bert4rec_tpu_torch.ops import kernel_build
     if not fml.__file__.startswith(str(root)):
@@ -130,7 +166,8 @@ def main(argv=None) -> int:
     kernel_build.build(kernel_build.kernel_sources())
     print(json.dumps({"root": args.root,
                       "sass": sass_hashes(kernel_build.BUILD_DIR),
-                      "bits": output_hashes(torch, np, fml)}), flush=True)
+                      "bits": {**output_hashes(torch, np, fml),
+                               **layer_hashes(torch, np, fel)}}), flush=True)
     return 0
 
 

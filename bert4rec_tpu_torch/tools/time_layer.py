@@ -20,7 +20,12 @@ dropout 0.1 / 0.1); K8 / K9 at bert_base_512's attention shape, B=32,
 N=12, S=512, D=64, bf16, dropout 0.2, right-padded rows; and the serving
 forward, fp32, nothing saved, no dropout, at B=32 and B=256 (and H=256
 with ``--hidden 256``): whatever route the checkout's ``kernel_route``
-gives it (the SIMT kernels before the 3xTF32 ones existed)."""
+gives it (the SIMT kernels before the 3xTF32 ones existed). fp32 training
+(the JAX package's default precision): K1' and K2 at ml-1m's and ml-20m's
+rates and at rate 0 (so that the dropout hash's cost shows), causal and
+with the relative bias at ml-20m's, and at ml-20m_256's width with
+``--hidden 256``, by the checkout's route (the SIMT kernels before the
+3xTF32 training kernels existed)."""
 
 import argparse
 import importlib
@@ -124,10 +129,28 @@ def main(argv=None) -> int:
         y, saved = fel._launch_forward(flat, x, mask, N, 7, *rates, True,
                                        rel=rel)
         cases["rel ml-20m"] = (
-            lambda: fel._launch_forward(flat, x, mask, N, 7, *rates, True,
-                                        rel=rel),
-            lambda: fel._launch_backward(flat, x, mask, dy, saved, N, 7,
-                                         *rates, rel=rel))
+            lambda r=rates: fel._launch_forward(flat, x, mask, N, 7, *r,
+                                                True, rel=rel),
+            lambda r=rates, s=saved: fel._launch_backward(
+                flat, x, mask, dy, s, N, 7, *r, rel=rel))
+    # fp32 training: the same layer and inputs, widened
+    flat32 = {k: v.float() for k, v in flat.items()}
+    x32, dy32 = x.float(), dy.float()
+    fp32_cases = [(f"fp32 {name}", rates, {}) for name, rates in
+                  {**RATES, "rate0": (0.0, 0.0)}.items()]
+    if has_causal:
+        fp32_cases.append(("fp32 causal ml-20m", RATES["ml-20m"],
+                           {"causal": True}))
+    if has_rel:
+        fp32_cases.append(("fp32 rel ml-20m", RATES["ml-20m"], {"rel": rel}))
+    for name, r32, kw32 in fp32_cases:
+        y, s32 = fel._launch_forward(flat32, x32, mask, N, 7, *r32, True,
+                                     **kw32)
+        cases[name] = (
+            lambda r=r32, k=kw32: fel._launch_forward(
+                flat32, x32, mask, N, 7, *r, True, **k),
+            lambda r=r32, k=kw32, s=s32: fel._launch_backward(
+                flat32, x32, mask, dy32, s, N, 7, *r, **k))
     if WIDE[0] in args.hidden:
         wh, wn, wf, rates = WIDE
         wflat = fel.flat_weights(layer_params(np, np.random.default_rng(3),
@@ -140,6 +163,15 @@ def main(argv=None) -> int:
             lambda: fel._launch_forward(wflat, wx, mask, wn, 7, *rates, True),
             lambda: fel._launch_backward(wflat, wx, mask, wdy, wsaved, wn, 7,
                                          *rates))
+        wflat32 = {k: v.float() for k, v in wflat.items()}
+        wx32, wdy32 = wx.float(), wdy.float()
+        y, wsaved32 = fel._launch_forward(wflat32, wx32, mask, wn, 7, *rates,
+                                          True)
+        cases["fp32 ml-20m_256"] = (
+            lambda: fel._launch_forward(wflat32, wx32, mask, wn, 7, *rates,
+                                        True),
+            lambda: fel._launch_backward(wflat32, wx32, mask, wdy32, wsaved32,
+                                         wn, 7, *rates))
     serving = {}
     for wh in args.hidden:
         sn, sf = (N, F) if wh == H else WIDE[1:3]

@@ -36,7 +36,12 @@ Phases (any failure raises and the script exits non-zero):
               library-yardstick times (kernel and yardstick as medians of
               7 blocks of 10 calls, their ranges printed) and the bound
               (fp32 K3 / K4 at 3xTF32's 165 TFLOP/s beside 67 without
-              tensor cores); bf16 K3's and K4's kernels by device time,
+              tensor cores; the fp32 layer K1' / K2 likewise, on
+              ``csrc/layer_tf32.cu``'s 3xTF32 kernels: at B=256 each
+              launch's kernels by device time, only those
+              (``TF32_LAYER``, ``TF32_LAYER_BWD``), none of the SIMT layer
+              kernels (``SIMT_FP32_LAYER``)); bf16 K3's and K4's kernels
+              by device time,
               K3's only ``csrc/loss_hopper.cuh``'s ``loss_fwd_sweep_kernel``,
               the ordered merge and the row sums, K4's only its two sweeps
               (``BF16_LOSS_KERNELS``: no route back to the earlier mma.sync
@@ -165,7 +170,9 @@ Phases (any failure raises and the script exits non-zero):
               JAX's default policy and the one the harness's on-chip
               ml20m and Reddit runs train with: the fp32 layer kernels, fp32
               K5, and fp32 K6 once a step on ``loss_tf32.cuh``'s kernels;
-              its step time and device breakdown (no SIMT loss sweep in it);
+              its step time and device breakdown (no SIMT loss sweep and
+              no SIMT layer kernel in it: every fp32 layer launch, forward
+              and backward, counted on the 3xTF32 route);
 19. fp32 ml-1m training — phase 6's checks for the quality harness's
               ml1m preset as the harness builds it (``BERT4RecConfig``:
               hidden 128, 2 layers, 4 heads, inner 512, S=200, P=40,
@@ -174,7 +181,8 @@ Phases (any failure raises and the script exits non-zero):
               against the plain step, the launch counts (fp32 K3 and K4 once
               a step, on ``loss_tf32.cuh``'s 3xTF32 kernels), the step time,
               ``train()``'s idle share and the device breakdown with no SIMT
-              loss kernel in it, the loss falling and the resume.
+              loss or layer kernel in it (every fp32 layer launch counted
+              on the 3xTF32 route), the loss falling and the resume.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the rest of
@@ -208,8 +216,14 @@ LOGIT_TOL = 1e-3      # served path vs plain path, masked-slot logits
 HBM_BYTES_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 # fp32 through 3xTF32: three TF32 tensor-core products (495 TFLOP/s) for each
-# fp32 one (the fp32 inference layer, csrc/layer_tf32.cu)
+# fp32 one (the fp32 layer, csrc/layer_tf32.cu; the fp32 loss kernels)
 TF32X3_FLOPS = 495e12 / 3
+
+
+def layer_peak(dtype_name):
+    """The peak a layer kernel of this operand type can reach: fp32 runs
+    3xTF32 (csrc/layer_tf32.cu) at every layer shape chip_smoke drives."""
+    return TF32X3_FLOPS if dtype_name == "float32" else PEAK_FLOPS[dtype_name]
 
 
 def card_line() -> str:
@@ -337,7 +351,8 @@ def attention_pairs(s, causal):
 def layer_bound_ms(b, dtype_name, h=HIDDEN, f=INNER, causal=False,
                    extra_bytes=0, peak=None):
     """Least time for one layer on the card: the larger of its FLOP over
-    the peak for the operand type (or ``peak`` FLOP/s) and its bytes (x,
+    the layer's peak for the operand type (``layer_peak``, or ``peak``
+    FLOP/s) and its bytes (x,
     mask and the fp32 params read once, y written once, plus
     ``extra_bytes``: a relative bias read once) over the HBM rate."""
     s = SEQ
@@ -346,22 +361,30 @@ def layer_bound_ms(b, dtype_name, h=HIDDEN, f=INNER, causal=False,
     es = 4 if dtype_name == "float32" else 2
     params = 4 * (4 * h * h + 2 * h * f + 3 * h + h + 4 * h + f + h)
     nbytes = 2 * b * s * h * es + b * s * 4 + params + extra_bytes
-    t_ops = flops / (peak or PEAK_FLOPS[dtype_name]) * 1e3
+    t_ops = flops / (peak or layer_peak(dtype_name)) * 1e3
     t_bytes = nbytes / HBM_BYTES_S * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                  else "bytes")
 
 
-# The SIMT fp32 layer kernels (csrc/fused_encoder_layer.cu's GEMM and
-# LayerNorm GEMM, csrc/attention.cuh's tiles): no fp32 inference launch may
-# reach them, since the route law (fused_encoder_layer.kernel_route) sends
+# The SIMT fp32 layer kernels (csrc/fused_encoder_layer.cu's GEMM, LayerNorm
+# GEMM, LayerNorm backward, FFN and weight-gradient tiles, csrc/attention.cuh's
+# tiles): no fp32 layer launch at chip_smoke's shapes may reach them, forward
+# or backward, since the route law (fused_encoder_layer.kernel_route) sends
 # those to csrc/layer_tf32.cu's 3xTF32 kernels, which it must run
 SIMT_FP32_LAYER = re.compile(
     r"^(gemm_kernel<float|gemm_residual_ln_kernel<float"
-    r"|b4r::attention_kernel<float)")
+    r"|b4r::attention_kernel<float|b4r::attn_bwd_dq_kernel<float"
+    r"|b4r::attn_bwd_dkv_kernel<float|ln_bwd_kernel<float"
+    r"|gelu_grad_gemm_kernel<float|wgrad_kernel<float)")
 TF32_LAYER = (re.compile(r"^(wt_split_kernel|gemm_tf32_kernel<"
                          r"|ln_tf32_kernel<|attn_tf32_kernel<)"),
               "attn_tf32_kernel<")
+TF32_LAYER_BWD = (re.compile(
+    r"^(w_split_kernel|wt_split_kernel|gemm_tf32_kernel<|ln_tf32_kernel<"
+    r"|ln_rows_bwd_kernel<|attn_dq_tf32_kernel<|attn_dkv_tf32_kernel<"
+    r"|wgrad_tf32_kernel|colsum_kernel|b4r::reduce_rows_kernel)"),
+    "attn_dkv_tf32_kernel<")
 
 
 # The earlier bf16 layer kernels (csrc/fused_encoder_layer.cu's GEMM, LayerNorm
@@ -408,6 +431,12 @@ SIMT_FP32_TILED_LOSS = re.compile(r"loss_bwd_vt_kernel|loss_bwd_dh_kernel")
 # every SIMT loss kernel the port had: none may run on the fp32 ml-1m path
 SIMT_FP32_LOSS = re.compile(r"loss_fwd_kernel|loss_tiled_fwd_kernel"
                             r"|loss_bwd_(vt|dh|dt)_kernel")
+# what an fp32 train step may not reach: phase 19's the SIMT loss and layer
+# kernels, phase 18's the SIMT loss sweeps and layer kernels (its fp32 K5
+# stays on the SIMT tiles)
+SIMT_FP32_STEP = re.compile(f"{SIMT_FP32_LOSS.pattern}|{SIMT_FP32_LAYER.pattern}")
+SIMT_FP32_ML20M_STEP = re.compile(
+    f"{SIMT_FP32_TILED_LOSS.pattern}|{SIMT_FP32_LAYER.pattern}")
 
 
 def _kernel_name(key: str) -> str:
@@ -515,7 +544,7 @@ def check_fused_layer(torch, rng, device):
             # TFLOP/s, the fp32 SIMT peak's beside it
             bound_ms, bound_by = layer_bound_ms(
                 b, name, peak=TF32X3_FLOPS if fp32 else None)
-            simt_bound = layer_bound_ms(b, name)[0]
+            simt_bound = layer_bound_ms(b, name, peak=PEAK_FLOPS[name])[0]
             rows[(name, b)] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                                    library_ms=library_ms, bound_ms=bound_ms,
                                    bound_by=bound_by)
@@ -819,10 +848,11 @@ def library_layer_train(params, x, mask, num_heads, rates, causal=False,
 
 
 def layer_bwd_bound_ms(b, dtype_name, h=HIDDEN, f=INNER, causal=False,
-                       extra_bytes=0):
+                       extra_bytes=0, peak=None):
     """Least time for one layer's backward: its products (8SHF + 16SH^2 +
     8S^2H FLOP per sequence, twice the forward's; S^2 becomes S(S+1)/2
-    when causal; the recomputation is not counted) over the peak, or its
+    when causal; the recomputation is not counted) over the layer's peak
+    (``layer_peak``, or ``peak`` FLOP/s), or its
     bytes (x, dy, mask, fp32 params read once; dx and the fp32 grads
     written once; plus ``extra_bytes``: a relative bias read and its
     gradient written) over the HBM rate."""
@@ -832,7 +862,7 @@ def layer_bwd_bound_ms(b, dtype_name, h=HIDDEN, f=INNER, causal=False,
     es = 4 if dtype_name == "float32" else 2
     params = 4 * (4 * h * h + 2 * h * f + 3 * h + h + 4 * h + f + h)
     nbytes = 3 * b * s * h * es + b * s * 4 + 2 * params + extra_bytes
-    t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
+    t_ops = flops / (peak or layer_peak(dtype_name)) * 1e3
     t_bytes = nbytes / HBM_BYTES_S * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                  else "bytes")
@@ -878,7 +908,8 @@ def check_layer_training(torch, rng, device, h=HIDDEN, n=HEADS, f=INNER,
                          rates=RATES, cases=None):
     """K1 with dropout and K2 against their plain versions at width
     ``h`` (``n`` heads, inner ``f``), for each (dtype, batch) of ``cases``
-    (default fp32 and bf16 at B=32 and B=256)."""
+    (default fp32 and bf16 at B=32 and B=256); fp32's bounds at 3xTF32's
+    165 TFLOP/s, 67 without tensor cores printed beside."""
     import numpy as np
     from bert4rec_tpu_torch.ops import fused_encoder_layer as fel
     from bert4rec_tpu_torch.utils.checkpoint import flatten, unflatten
@@ -951,18 +982,28 @@ def check_layer_training(torch, rng, device, h=HIDDEN, n=HEADS, f=INNER,
                      **dict(zip(("bound_ms", "bound_by"),
                                 layer_bwd_bound_ms(b, name, h, f)))))
         rows[(name, b)] = row
+        simt = dict(fwd=layer_bound_ms(b, name, h, f, peak=PEAK_FLOPS[name]),
+                    bwd=layer_bwd_bound_ms(b, name, h, f,
+                                           peak=PEAK_FLOPS[name]))
         for part, r in row.items():
             print(f"fused_encoder_layer {part} dropout {rates} {name} "
                   f"B={b} H={h} N={n} F={f}: err {r['max_abs_err']:.3g}"
                   + (f" (rel {r['max_rel_err']:.3g}, tol "
                      f"{GRAD_TOL[name]})" if part == "bwd" else
                      f" (tol {TOL[name]})")
-                  + f" {timing_text(r)}", flush=True)
-        if b == STREAM_BATCH and name == "bfloat16":
+                  + f" {timing_text(r)}"
+                  + (f"; bound at 3xTF32's 165 TFLOP/s, {simt[part][0]:.5f} "
+                     f"at 67 without tensor cores" if name == "float32"
+                     else ""), flush=True)
+        if b == STREAM_BATCH:
+            fp32 = name == "float32"
+            forbid = SIMT_FP32_LAYER if fp32 else LEGACY_BF16_LAYER
             print("  per forward launch: " + device_breakdown(
-                torch, fwd, top=8, forbid=LEGACY_BF16_LAYER)[1], flush=True)
+                torch, fwd, top=8, forbid=forbid,
+                only=TF32_LAYER if fp32 else None)[1], flush=True)
             print("  per backward launch: " + device_breakdown(
-                torch, bwd, top=10, forbid=LEGACY_BF16_LAYER)[1], flush=True)
+                torch, bwd, top=10, forbid=forbid,
+                only=TF32_LAYER_BWD if fp32 else None)[1], flush=True)
     return rows
 
 
@@ -1387,8 +1428,9 @@ def check_training(torch, device, new=None, label="ml-1m_128"):
     # the main path: BERT4RecTrainer.train() for TRAIN_STEPS steps
     for fn in (fel.fused_encoder_layer, fml.fused_mlm_loss):
         fn.launches = fn.backward_launches = 0
-    fel.fused_encoder_layer.mma_sync_launches = 0
-    fel.fused_encoder_layer.mma_sync_backward_launches = 0
+    for attr in ("mma_sync_launches", "mma_sync_backward_launches",
+                 "tf32_launches", "tf32_backward_launches"):
+        setattr(fel.fused_encoder_layer, attr, 0)
     t0 = time.perf_counter()
     hist = trainer.train(SyntheticDataset(TRAIN_STEPS, seed=1), epochs=1,
                          batch_size=STREAM_BATCH, seed=SEED, verbose=False)
@@ -1398,10 +1440,15 @@ def check_training(torch, device, new=None, label="ml-1m_128"):
                   loss_fwd=fml.fused_mlm_loss.launches,
                   loss_bwd=fml.fused_mlm_loss.backward_launches,
                   mma_sync=fel.fused_encoder_layer.mma_sync_launches
-                  + fel.fused_encoder_layer.mma_sync_backward_launches)
-    want = dict(layer_fwd=cfg.num_layers * TRAIN_STEPS,
-                layer_bwd=cfg.num_layers * TRAIN_STEPS,
-                loss_fwd=TRAIN_STEPS, loss_bwd=TRAIN_STEPS, mma_sync=0)
+                  + fel.fused_encoder_layer.mma_sync_backward_launches,
+                  tf32_fwd=fel.fused_encoder_layer.tf32_launches,
+                  tf32_bwd=fel.fused_encoder_layer.tf32_backward_launches)
+    # fp32: every layer launch, forward and backward, on the 3xTF32 route
+    layer_steps = cfg.num_layers * TRAIN_STEPS
+    want = dict(layer_fwd=layer_steps, layer_bwd=layer_steps,
+                loss_fwd=TRAIN_STEPS, loss_bwd=TRAIN_STEPS, mma_sync=0,
+                tf32_fwd=layer_steps if fp32 else 0,
+                tf32_bwd=layer_steps if fp32 else 0)
     loss = hist.history["loss"][0]
     print(f"{label} train(): {TRAIN_STEPS} steps of B={STREAM_BATCH} in "
           f"{wall:.2f} s (first step included), epoch loss {loss:.4f}, "
@@ -1433,7 +1480,7 @@ def check_training(torch, device, new=None, label="ml-1m_128"):
     train_ms = (time.perf_counter() - t0) * 1e3 / TRAIN_STEPS
     device_ms, breakdown = device_breakdown(
         torch, lambda: trainer.train_step(batch), calls=3, top=8,
-        forbid=SIMT_FP32_LOSS if fp32 else LEGACY_BF16_LAYER)
+        forbid=SIMT_FP32_STEP if fp32 else LEGACY_BF16_LAYER)
     idle = None if device_ms is None else 1 - device_ms / train_ms
     print(f"{label} train step B={STREAM_BATCH}: median {median:.3f} ms of "
           f"10 (min {min(step_ms):.3f}), {STREAM_BATCH / median * 1e3:.1f} "
@@ -1805,7 +1852,8 @@ def check_ml20m_training(torch, device, loader, splits, config_name,
                      "causal_backward_launches", "rel_launches",
                      "rel_backward_launches", "merged_launches",
                      "two_sweep_launches", "mma_sync_launches",
-                     "mma_sync_backward_launches"):
+                     "mma_sync_backward_launches", "tf32_launches",
+                     "tf32_backward_launches"):
             if hasattr(fn, attr):
                 setattr(fn, attr, 0)
     t0 = time.perf_counter()
@@ -1825,13 +1873,18 @@ def check_ml20m_training(torch, device, loader, splits, config_name,
                   K6=fml.fused_mlm_loss_tiled.merged_launches,
                   K7=fml.fused_mlm_loss_tiled.two_sweep_launches,
                   mma_sync=fel.fused_encoder_layer.mma_sync_launches
-                  + fel.fused_encoder_layer.mma_sync_backward_launches)
+                  + fel.fused_encoder_layer.mma_sync_backward_launches,
+                  tf32_fwd=fel.fused_encoder_layer.tf32_launches,
+                  tf32_bwd=fel.fused_encoder_layer.tf32_backward_launches)
     layer_steps = cfg.num_layers * ML20M_STEPS
     variant = {"sasrec": "causal", "temporal": "rel"}.get(family, "layer")
+    # fp32: every layer launch, forward and backward, on the 3xTF32 route
     want = dict(layer_fwd=0, layer_bwd=0, causal_fwd=0, causal_bwd=0,
                 rel_fwd=0, rel_bwd=0, K3=0, K4=0, K5=ML20M_STEPS,
                 K6=ML20M_STEPS if kernel == "K6" else 0,
-                K7=ML20M_STEPS if kernel == "K7" else 0, mma_sync=0)
+                K7=ML20M_STEPS if kernel == "K7" else 0, mma_sync=0,
+                tf32_fwd=layer_steps if fp32 else 0,
+                tf32_bwd=layer_steps if fp32 else 0)
     want[f"{variant}_fwd"] = want[f"{variant}_bwd"] = layer_steps
     loss = hist.history["loss"][0]
     print(f"{label} train(): {ML20M_STEPS} steps of B={STREAM_BATCH}"
@@ -1866,7 +1919,7 @@ def check_ml20m_training(torch, device, loader, splits, config_name,
     median = sorted(step_ms)[len(step_ms) // 2]
     device_ms, breakdown = device_breakdown(
         torch, lambda: trainer.train_step(batch), calls=3, top=10,
-        forbid=SIMT_FP32_TILED_LOSS if fp32 else LEGACY_BF16_LAYER)
+        forbid=SIMT_FP32_ML20M_STEP if fp32 else LEGACY_BF16_LAYER)
     idle = None if device_ms is None else 1 - device_ms / train_ms
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2852,6 +2905,7 @@ def run(torch, home) -> int:
                                        "library_ms")}}
 
     train_row = train_rows[("bfloat16", STREAM_BATCH)]   # the train shape
+    fp32_row = train_rows[("float32", STREAM_BATCH)]
     wide_row = wide_rows[("bfloat16", STREAM_BATCH)]
     c128, c256 = ml20m["ml-20m_128"]["counts"], ml20m["ml-20m_256"]["counts"]
     csas = sasrec["counts"]
@@ -2859,7 +2913,7 @@ def run(torch, home) -> int:
     tiled_128 = tiled_rows[("bfloat16", N_ROWS, ML20M_VOCAB, 128)]
     tiled_256 = tiled_rows[("bfloat16", N_ROWS, ML20M_VOCAB, 256)]
     tiled_fp32 = tiled_rows[("float32", N_ROWS, ML20M_VOCAB, 128)]
-    tf32_src = "layer_tf32.cu"       # fp32 K1 at inference (serving)
+    tf32_src = "layer_tf32.cu"       # fp32 K1 (serving), K1' and K2
     wgmma_src = "layer_hopper.cuh"   # bf16 K1 / K2
     loss_wgmma = "loss_hopper.cuh"   # bf16 K3-K7
     # K8 / K9 at bert_base_512's shape and rates; launches from its train()
@@ -2883,6 +2937,16 @@ def run(torch, home) -> int:
         entry("fused_encoder_layer_backward", wgmma_src,
               "bert4rec_tpu/ops/fused_encoder_layer.py:265",
               counts["layer_bwd"], train_row["bwd"]),
+        # fp32 K1' / K2 (3xTF32): launches from the fp32 ml-20m_128 and
+        # ml-1m_128 train() runs (the harness's ml20m and ml1m presets)
+        entry("fused_encoder_layer_dropout_fp32", tf32_src,
+              "bert4rec_tpu/ops/fused_encoder_layer.py:241",
+              fp32_ml20m["counts"]["layer_fwd"]
+              + fp32_ml1m["counts"]["layer_fwd"], fp32_row["fwd"]),
+        entry("fused_encoder_layer_backward_fp32", tf32_src,
+              "bert4rec_tpu/ops/fused_encoder_layer.py:265",
+              fp32_ml20m["counts"]["layer_bwd"]
+              + fp32_ml1m["counts"]["layer_bwd"], fp32_row["bwd"]),
         # ml-20m_256's width; launches from its train() run
         entry("fused_encoder_layer_dropout_h256", wgmma_src,
               "bert4rec_tpu/ops/fused_encoder_layer.py:241",

@@ -25,7 +25,9 @@ from bert4rec_tpu_torch.utils.checkpoint import (
     flatten, params_from_numpy, unflatten,
 )
 from tests.test_torch_cuda_kernels import inputs_np, layer_params_np
-from tests.test_torch_fused_layer import _JAX_PATHS, _rel_err
+from tests.test_torch_fused_layer import (
+    _JAX_PATHS, _rel_err, backward_3xtf32_errs, dropout_3xtf32_err,
+)
 
 B, S, H, N, F = 4, 24, 32, 4, 64
 ALL_PAD = 2   # the row of `both` whose mask is all padding
@@ -201,3 +203,18 @@ class TestUnfusedCausalBlockVersusJax:
         np.testing.assert_allclose(out["sequence_output"].numpy(),
                                    np.asarray(ref["sequence_output"]),
                                    rtol=1e-4, atol=1e-4)
+
+
+class TestThreeTf32Causal:
+    """K2 causal's 3xTF32 law (csrc/layer_tf32.cu), emulated on the CPU:
+    within 3e-4 of the gradients' scale of ``jax.grad`` through the
+    interpret kernel at rate 0 (one TF32 pass at least 10x further off),
+    and within 1e-5 of the plain fp32 backward with dropout."""
+
+    def test_backward_in_3xtf32_matches_interpret_kernel(self):
+        err3, err1 = backward_3xtf32_errs(causal=True)
+        assert err3 <= 3e-4, err3
+        assert err1 >= 10 * err3, (err3, err1)
+
+    def test_backward_in_3xtf32_with_dropout_matches_plain(self):
+        assert dropout_3xtf32_err(causal=True) <= 1e-5

@@ -142,7 +142,7 @@ def test_fp32_inference_route_matches_plain(cuda_device, dims, variant):
     if "rel" in variant:
         kw["rel_bias"] = torch.from_numpy(rng.normal(size=(b, n, s, s))
                                           .astype(np.float32)).to(cuda_device)
-    assert fel.kernel_route(torch.float32, b, h, n, f, save=False) == "tf32"
+    assert fel.kernel_route(torch.float32, b, h, n, f) == "tf32"
     before = fel.fused_encoder_layer.tf32_launches
     with torch.no_grad():
         runs = [fel.fused_encoder_layer(p, xt, mt, **kw) for _ in range(2)]
@@ -184,21 +184,25 @@ def test_fp32_inference_route_padding_only_rows(cuda_device, causal):
 
 @pytest.mark.cuda
 def test_fp32_training_forward_stays_on_the_simt_kernels(cuda_device):
-    """A forward that saves for a backward, or draws dropout, keeps the
-    SIMT kernels: the 3xTF32 count does not move."""
+    """A forward that saves for a backward, or draws dropout, no longer
+    stays on the SIMT kernels: both count in tf32_launches, and the
+    backward in tf32_backward_launches."""
     rng = np.random.default_rng(3)
     p = params_from_numpy(flatten(layer_params_np(rng, 128, 4, 512)),
                           cuda_device)
     x, mask = inputs_np(rng, 2, 40, 128)
     xt = torch.from_numpy(x).to(cuda_device)
     mt = torch.from_numpy(mask).to(cuda_device)
-    before = fel.fused_encoder_layer.tf32_launches
-    fel.fused_encoder_layer(p, xt.requires_grad_(True), mt, num_heads=4)
+    f_ = fel.fused_encoder_layer
+    before = (f_.tf32_launches, f_.tf32_backward_launches)
+    y = fel.fused_encoder_layer(p, xt.requires_grad_(True), mt, num_heads=4)
+    y.sum().backward()
     with torch.no_grad():
         fel.fused_encoder_layer(p, xt, mt, num_heads=4,
                                 attention_dropout=0.1, seed=3)
     torch.cuda.synchronize()
-    assert fel.fused_encoder_layer.tf32_launches == before
+    assert (f_.tf32_launches, f_.tf32_backward_launches) == (
+        before[0] + 2, before[1] + 1)
 
 
 @pytest.mark.cuda
@@ -257,9 +261,12 @@ def _rel_err(a, b):
 GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
 
 
+# the 3xTF32 training route's shapes besides ml-1m's: the temporal gate's
+# layer (H=64, 4 heads, F=128) and ml-20m_256's width (H=256, 8 heads)
 @pytest.mark.cuda
 @pytest.mark.parametrize("dims", [
     (4, 24, 32, 4, 64), (3, 200, 128, 4, 512), (2, 37, 96, 4, 200),
+    (16, 50, 64, 4, 128), (3, 200, 256, 8, 1024),
 ], ids=lambda d: "B{}_S{}_H{}_N{}_F{}".format(*d))
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["fp32", "bf16"])
@@ -329,6 +336,126 @@ def test_fused_layer_backward_is_deterministic(cuda_device):
         runs.append([g.clone() for g in grads])
     for a, c in zip(*runs):
         assert torch.equal(a, c)
+
+
+# what an fp32 training launch may not reach: the SIMT layer kernels of
+# csrc/fused_encoder_layer.cu and csrc/attention.cuh, forward and backward
+SIMT_FP32_LAYER_KERNELS = (
+    "gemm_kernel<float", "gemm_residual_ln_kernel<float",
+    "attention_kernel<float", "attn_bwd_dq_kernel<float",
+    "attn_bwd_dkv_kernel<float", "ln_bwd_kernel<float",
+    "gelu_grad_gemm_kernel<float", "wgrad_kernel<float")
+TF32_LAYER_KERNELS = (
+    "wt_split_kernel", "w_split_kernel", "gemm_tf32_kernel<",
+    "ln_tf32_kernel<", "ln_rows_bwd_kernel<", "attn_tf32_kernel<",
+    "attn_dq_tf32_kernel<", "attn_dkv_tf32_kernel<", "wgrad_tf32_kernel",
+    "colsum_kernel", "reduce_rows_kernel")
+
+
+def _fp32_train_step(device, dims, rates=(0.1, 0.1), seed=9, causal=False,
+                     rel=False, mask=None):
+    """One fp32 forward with dropout and its backward through the wrapper:
+    ``(run, p, xt, mt, dy, kw)``, ``run()`` returning ``(y, dx, grads)``."""
+    b, s, h, n, f = dims
+    rng = np.random.default_rng(sum(dims) + seed)
+    p = params_from_numpy(flatten(layer_params_np(rng, h, n, f)), device)
+    leaves = list(flatten(p).values())
+    for leaf in leaves:
+        leaf.requires_grad_(True)
+    x, mk = inputs_np(rng, b, s, h)
+    mt = torch.from_numpy(mk if mask is None else mask).to(device)
+    xt = torch.from_numpy(x).to(device).requires_grad_(True)
+    dy = torch.from_numpy(rng.normal(size=(b, s, h)).astype(np.float32)) \
+        .to(device)
+    kw = dict(num_heads=n, attention_dropout=rates[0],
+              output_dropout=rates[1], seed=seed, causal=causal)
+    if rel:
+        kw["rel_bias"] = torch.from_numpy(rng.normal(size=(b, n, s, s))
+                                          .astype(np.float32)).to(device)
+
+    def run():
+        y = fel.fused_encoder_layer(p, xt, mt, **kw)
+        grads = torch.autograd.grad(y, [xt, *leaves], dy)
+        return y.detach(), grads[0], grads[1:]
+
+    return run, p, xt, mt, dy, kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dims", [(4, 200, 128, 4, 512),
+                                  (3, 200, 256, 8, 1024)],
+                         ids=["H128", "H256"])
+def test_fp32_layer_backward_repeats_its_bits(cuda_device, dims):
+    """Two fp32 training steps (dropout 0.1 / 0.1, one seed) give the same
+    bits of y, dx and every weight gradient: no float atomics, the split
+    partials summed in a fixed order."""
+    run, *_ = _fp32_train_step(cuda_device, dims)
+    a, c = run(), run()
+    torch.cuda.synchronize()
+    assert torch.equal(a[0], c[0]) and torch.equal(a[1], c[1])
+    assert all(torch.equal(g, h) for g, h in zip(a[2], c[2]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True], ids=["bidirectional",
+                                                       "causal"])
+def test_fp32_training_padding_only_rows_stay_finite(cuda_device, causal):
+    """A sequence of padding only, one of length 1 and a front-padded one
+    (queries that see only padding score -1e9 + s): y, dx and every
+    gradient of the 3xTF32 training route are finite, and with scores well
+    inside 32 (small inputs) they match the plain version's."""
+    dims = (5, 130, 128, 4, 512)
+    mask = causal_mask_np(np.random.default_rng(4), dims[0], dims[1])
+    run, p, xt, mt, dy, kw = _fp32_train_step(cuda_device, dims,
+                                              causal=causal, mask=mask)
+    with torch.no_grad():
+        xt.mul_(0.05)
+    y, dx, grads = run()
+    torch.cuda.synchronize()
+    assert not bool(_sees_a_real_key(mt, causal).all())
+    assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(dx).all())
+    assert all(bool(torch.isfinite(g).all()) for g in grads)
+    with torch.no_grad():
+        flat = {k: v.detach() for k, v in fel.flat_weights(p).items()}
+        ref_y = fel.fused_encoder_layer_plain(p, xt, mt, **kw)
+        ref_dx, _ = fel.fused_encoder_layer_plain_backward(
+            flat, xt.detach(), mt, dy, **kw)
+    np.testing.assert_allclose(y.cpu().numpy(), ref_y.cpu().numpy(), rtol=0,
+                               atol=1e-4)
+    assert _rel_err(dx, ref_dx) <= GRAD_TOL[torch.float32]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["shifted_base", "column_slice"])
+def test_fp32_training_takes_a_misaligned_operand_through_a_copy(
+        cuda_device, case):
+    """x and dy 4 bytes off a 16-byte boundary, or column slices of wider
+    rows, go through the wrapper's copy: the 3xTF32 forward and backward
+    give the bits of contiguous aligned operands."""
+    dims = (3, 65, 128, 4, 512)
+    run, p, xt, mt, dy, kw = _fp32_train_step(cuda_device, dims)
+    flat = {k: v.detach() for k, v in fel.flat_weights(p).items()}
+    x0 = xt.detach()
+    y0, saved = fel._launch_forward(flat, x0, mt, 4, 9, 0.1, 0.1, True)
+    want = fel._launch_backward(flat, x0, mt, dy, saved, 4, 9, 0.1, 0.1)
+
+    def odd(t):
+        if case == "shifted_base":
+            buf = torch.zeros(t.numel() + 1, device=cuda_device)
+            return buf[1:].view(t.shape).copy_(t)
+        wide = torch.zeros((*t.shape[:-1], t.shape[-1] + 8),
+                           device=cuda_device)
+        wide[..., :t.shape[-1]] = t
+        return wide[..., :t.shape[-1]]
+
+    xo, dyo = odd(x0), odd(dy)
+    assert (xo.data_ptr() % 16 and dyo.data_ptr() % 16) \
+        if case == "shifted_base" else not xo.is_contiguous()
+    y1, saved1 = fel._launch_forward(flat, xo, mt, 4, 9, 0.1, 0.1, True)
+    got = fel._launch_backward(flat, xo, mt, dyo, saved1, 4, 9, 0.1, 0.1)
+    torch.cuda.synchronize()
+    assert torch.equal(y1, y0) and torch.equal(got[0], want[0])
+    assert all(torch.equal(got[1][k], want[1][k]) for k in want[1])
 
 
 def causal_mask_np(rng, b, s):
@@ -1495,3 +1622,46 @@ def test_flash_bf16_keep_bits_equal_the_plain_packing(cuda_device):
         12, *dims[:3], 0.2, cuda_device))
     with pytest.raises(ValueError, match="keep bits"):
         fa._launch_backward(q, k, v, mask, do, saved[:2], 12, 0.2, False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["plain", "causal", "rel"])
+def test_fp32_training_launch_runs_only_the_tf32_kernels(cuda_device,
+                                                        variant):
+    """An fp32 training forward with dropout (saving for its backward) and
+    its backward run csrc/layer_tf32.cu's 3xTF32 kernels (and the ordered
+    row sums) only: no SIMT layer kernel, by the profiler's kernel names.
+    It stands last in the file, after the other kernel-name tests: run
+    early, its traces left theirs, hundreds of tests later, short of
+    records (the profiler drops records in long processes)."""
+    from torch.profiler import ProfilerActivity, profile
+    _, p, xt, mt, dy, kw = _fp32_train_step(cuda_device, (4, 200, 128, 4, 512),
+                                            causal=variant == "causal",
+                                            rel=variant == "rel")
+    flat = {k: v.detach() for k, v in fel.flat_weights(p).items()}
+    launch = dict(causal=kw["causal"], rel=kw.get("rel_bias"))
+
+    def run():
+        _, saved = fel._launch_forward(flat, xt.detach(), mt, 4, 9, 0.1, 0.1,
+                                       True, **launch)
+        return fel._launch_backward(flat, xt.detach(), mt, dy, saved, 4, 9,
+                                    0.1, 0.1, **launch)
+
+    run()
+    torch.cuda.synchronize()
+    want = ("attn_tf32_kernel<", "attn_dq_tf32_kernel<",
+            "attn_dkv_tf32_kernel<", "wgrad_tf32_kernel", "ln_rows_bwd_kernel<")
+    for _ in range(3):   # the profiler can drop records
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        names = [e.key for e in prof.key_averages()
+                 if getattr(e, "self_device_time_total", 0) > 0]
+        if all(any(k in n for n in names) for k in want):
+            break
+    assert not [n for n in names
+                if any(k in n for k in SIMT_FP32_LAYER_KERNELS)], names
+    assert all(any(k in n for n in names) for k in want), names
+    layer = [n for n in names if "tf32" in n or "split" in n
+             or "ln_rows" in n or "colsum" in n]
+    assert all(any(k in n for k in TF32_LAYER_KERNELS) for n in layer), names

@@ -117,6 +117,38 @@ class TestWrapperRaises:
                                     num_heads=N)
 
 
+# (B, H, N, F), the forward's launch arguments, the route
+ROUTE_CASES = [
+    # what the server and the evaluator run: fp32, nothing saved, rate 0
+    ((32, 128, 4, 512), {}, "tf32"),              # ml-1m_128, B=32
+    ((256, 128, 4, 512), {}, "tf32"),             # recommend_stream
+    ((256, 256, 8, 1024), {}, "tf32"),            # ml-20m_256
+    ((2, 256, 4, 512), {}, "tf32"),               # head dim 64
+    ((2, 64, 8, 128), {}, "tf32"),                # head dim 8
+    # training: the forward saves for the 3xTF32 backward
+    ((256, 128, 4, 512), dict(save=True), "tf32"),
+    # dropout drawn: the 3xTF32 kernels hash it
+    ((256, 128, 4, 512), dict(attn_rate=0.1), "tf32"),
+    ((256, 128, 4, 512), dict(out_rate=0.1), "tf32"),
+    # the temporal gate's layer, H=256, causal and with a relative bias
+    ((128, 64, 4, 128), dict(save=True, attn_rate=0.1, out_rate=0.1),
+     "tf32"),
+    ((256, 256, 8, 1024), dict(save=True, attn_rate=0.1, out_rate=0.1),
+     "tf32"),
+    ((256, 128, 4, 512), dict(save=True, causal=True), "tf32"),
+    ((256, 128, 4, 512), dict(save=True, rel=True, attn_rate=0.1), "tf32"),
+    # past the 3xTF32 kernels' shapes
+    ((2, 512, 4, 96), {}, "simt"),                # hidden 512
+    ((2, 256, 2, 64), {}, "simt"),                # head dim 128
+    ((3, 36, 4, 72), {}, "simt"),                 # head dim 9
+    ((2, 96, 4, 100), {}, "simt"),                # inner 100
+    ((2, 512, 4, 96), dict(save=True, attn_rate=0.1), "simt"),
+    # bf16 takes its own route whatever is saved
+    ((256, 128, 4, 512), {}, "wgmma"),
+    ((256, 128, 4, 512), dict(save=True, attn_rate=0.1), "wgmma"),
+]
+
+
 class TestKernelRoute:
     """The shape law that sends a CUDA launch to its kernels, decided in
     Python before any launch (so it is tested here, without a card)."""
@@ -134,9 +166,11 @@ class TestKernelRoute:
         ((2, 100, 4, 200), torch.bfloat16, "mma_sync"),   # hidden 100
         ((2, 96, 4, 100), torch.bfloat16, "mma_sync"),    # inner 100
         ((2, 96, 8, 64), torch.bfloat16, "mma_sync"),     # head dim 12
-        # fp32 keeps its kernels at every shape
-        ((256, 128, 4, 512), torch.float32, "simt"),
+        # fp32 inside the 3xTF32 rule on the 3xTF32 kernels, off it SIMT
+        ((256, 128, 4, 512), torch.float32, "tf32"),
         ((3, 36, 4, 72), torch.float32, "simt"),
+        ((128, 64, 4, 128), torch.float32, "tf32"),       # the temporal gate
+        ((256, 256, 8, 1024), torch.float32, "tf32"),     # H=256
     ], ids=lambda v: str(v).replace("torch.", "").replace(" ", ""))
     def test_route(self, shape, dtype, route):
         b, h, n, f = shape
@@ -156,34 +190,60 @@ class TestKernelRoute:
         with pytest.raises(ValueError):
             fel.kernel_route(torch.float16, 2, 128, 4, 512)
 
-    @pytest.mark.parametrize("shape, launch, route", [
-        # what the server and the evaluator run: fp32, nothing saved, rate 0
-        ((32, 128, 4, 512), {}, "tf32"),              # ml-1m_128, B=32
-        ((256, 128, 4, 512), {}, "tf32"),             # recommend_stream
-        ((256, 256, 8, 1024), {}, "tf32"),            # ml-20m_256
-        ((2, 256, 4, 512), {}, "tf32"),               # head dim 64
-        ((2, 64, 8, 128), {}, "tf32"),                # head dim 8
-        # training: the backward reads the SIMT forward's row statistics
-        ((256, 128, 4, 512), dict(save=True), "simt"),
-        # dropout drawn: the SIMT kernels hash it
-        ((256, 128, 4, 512), dict(attn_rate=0.1), "simt"),
-        ((256, 128, 4, 512), dict(out_rate=0.1), "simt"),
-        # past the 3xTF32 kernels' shapes
-        ((2, 512, 4, 96), {}, "simt"),                # hidden 512
-        ((2, 256, 2, 64), {}, "simt"),                # head dim 128
-        ((3, 36, 4, 72), {}, "simt"),                 # head dim 9
-        ((2, 96, 4, 100), {}, "simt"),                # inner 100
-        # bf16 takes its own route whatever is saved
-        ((256, 128, 4, 512), {}, "wgmma"),
-    ], ids=lambda v: str(v).replace(" ", ""))
+    @pytest.mark.parametrize("shape, launch, route", ROUTE_CASES,
+                             ids=lambda v: str(v).replace(" ", ""))
     def test_fp32_inference_route(self, shape, launch, route):
-        """The fp32 forward that saves nothing and draws no dropout (the
-        encoder's rates outside training are exactly 0) runs the 3xTF32
-        kernels; training, dropout and shapes past them stay SIMT."""
+        """Every fp32 launch inside the 3xTF32 rule runs the 3xTF32
+        kernels: the forward that saves nothing and draws no dropout (the
+        encoder's rates outside training are exactly 0), the training
+        forward, dropout, causal and with a relative bias; the law reads
+        the dtype and shape alone (``launch`` is what the forward is
+        called with, which ``test_backward_takes_the_forward_route`` passes
+        to the wrapper), and shapes past the kernels stay SIMT."""
         b, h, n, f = shape
         dtype = torch.bfloat16 if route == "wgmma" else torch.float32
-        kw = {**dict(save=False, attn_rate=0.0, out_rate=0.0), **launch}
-        assert fel.kernel_route(dtype, b, h, n, f, **kw) == route
+        assert fel.kernel_route(dtype, b, h, n, f) == route
+
+    @pytest.mark.parametrize("shape, launch, route", ROUTE_CASES,
+                             ids=lambda v: str(v).replace(" ", ""))
+    def test_backward_takes_the_forward_route(self, shape, launch, route,
+                                              monkeypatch):
+        """The wrapper's forward with ``launch``'s arguments (saving for a
+        backward) and its backward, which gets no save flag, pick the same
+        route: every route taken is recorded, and the kernel library is
+        stubbed to stop each launch before it reaches the card."""
+        b, h, n, f = shape
+        dtype = torch.bfloat16 if route == "wgmma" else torch.float32
+        seen, real = [], fel.kernel_route
+
+        def spy(*args):
+            seen.append(real(*args))
+            return seen[-1]
+
+        class Stop(Exception):
+            pass
+
+        def stop():
+            raise Stop
+
+        monkeypatch.setattr(fel, "kernel_route", spy)
+        monkeypatch.setattr(fel, "_kernel_lib", stop)
+        monkeypatch.setattr(fel, "_kernel_lib_tf32", stop)
+        flat = {k: torch.zeros(v.shape) for k, v in fel.flat_weights(
+            params_from_numpy(flatten(layer_params_np(
+                np.random.default_rng(0), h, n, f)), "cpu")).items()}
+        x = torch.zeros((b, 2, h), dtype=dtype)
+        mask = torch.ones((b, 2), dtype=torch.int32)
+        causal = launch.get("causal", False)
+        rel = torch.zeros((b, n, 2, 2)) if launch.get("rel") else None
+        rates = (launch.get("attn_rate", 0.0), launch.get("out_rate", 0.0))
+        with pytest.raises(Stop):
+            fel._launch_forward(flat, x, mask, n, 7, *rates,
+                                launch.get("save", True), causal, rel)
+        with pytest.raises(Stop):
+            fel._launch_backward(flat, x, mask, x, (), n, 7, *rates,
+                                 causal, rel)
+        assert seen == [route, route]
 
     def test_the_encoder_passes_rate_zero_outside_training(self):
         """The route's condition is what the encoder passes at inference:
@@ -246,10 +306,11 @@ def _layer_with(mm, flat, x, mask, n):
 
 
 class TestThreeTf32:
-    """The rounding law of the fp32 inference kernels (csrc/layer_tf32.cu),
+    """The rounding law of the fp32 layer kernels (csrc/layer_tf32.cu),
     emulated here on the CPU before any card time: each product in 3xTF32
-    keeps the layer within 1e-4 of the JAX fp32 kernel; one pass of TF32
-    is an order of magnitude further off."""
+    keeps the layer's forward within 1e-4 of the JAX fp32 kernel and its
+    backward within 3e-4 of the gradients' scale; one pass of TF32 is an
+    order of magnitude further off."""
 
     @pytest.mark.parametrize("v", [1.0, -1.0, 1.0 + 2.0 ** -11,
                                    -(1.0 + 2.0 ** -11), 1.0 + 3 * 2.0 ** -12,
@@ -301,6 +362,90 @@ class TestThreeTf32:
         err1 = float(np.abs(got1 - ref).max())
         assert err3 <= 1e-4, err3
         assert err1 > 10 * err3
+
+    # the backward's law (csrc/layer_tf32.cu's K2: every product, the
+    # forward's recomputed ones too, in 3xTF32); the causal and relative-
+    # bias variants' cases are in test_torch_causal_layer.py and
+    # test_torch_temporal.py
+    def test_backward_in_3xtf32_matches_interpret_kernel(self):
+        """At rate 0 the plain backward with every product in 3xTF32
+        stays within 3e-4 of the gradients' scale (the loss kernels'
+        bound) of ``jax.grad`` through the interpret kernel, for dx and the
+        12 weight gradients; one pass of TF32 is at least 10x further
+        off."""
+        err3, err1 = backward_3xtf32_errs()
+        assert err3 <= 3e-4, err3
+        assert err1 >= 10 * err3, (err3, err1)
+
+    def test_backward_in_3xtf32_with_dropout_matches_plain(self):
+        """With dropout (0.2 / 0.5, one seed, so the same masks) the
+        3xTF32 backward stays within 1e-5 of the gradients' scale of the
+        plain fp32 backward: dx and the 12 weight gradients."""
+        assert dropout_3xtf32_err() <= 1e-5
+
+
+def backward_3xtf32_errs(causal=False, rel=False):
+    """``(err3, err1)``: the plain backward at rate 0 with every product in
+    3xTF32 (``tf32.mm_3xtf32``) and in one TF32 pass, each against
+    ``jax.grad`` through JAX's interpret kernel, as the largest
+    ``_rel_err`` over dx, the 12 weight gradients and (``rel``) dRel;
+    CPU-small: B=2, S=16."""
+    rng = np.random.default_rng(41 + 2 * causal + rel)
+    b, s = 2, 16
+    flat_np = flatten(layer_params_np(rng, H, N, F))
+    x, mask = inputs_np(rng, b, s, H)
+    dy = rng.normal(size=(b, s, H)).astype(np.float32)
+    bias = rng.normal(size=(b, N, s, s)).astype(np.float32) if rel else None
+    jax_p = unflatten({k: jnp.asarray(v) for k, v in flat_np.items()})
+
+    def loss(p, xx, rr=None):
+        y = jax_fel.fused_encoder_layer(p, xx, jnp.asarray(mask),
+                                        num_heads=N, interpret=True,
+                                        causal=causal, rel_bias=rr)
+        return jnp.sum(y * dy)
+
+    args = (jax_p, jnp.asarray(x)) + (() if bias is None
+                                      else (jnp.asarray(bias),))
+    ref = jax.grad(loss, argnums=tuple(range(len(args))))(*args)
+    want = {"dx": np.asarray(ref[1]),
+            **{k: np.asarray(flatten(ref[0])[path])
+               for k, path in _JAX_PATHS.items()}}
+    if bias is not None:
+        want["rel"] = np.asarray(ref[2])
+    flat = fel.flat_weights(params_from_numpy(flat_np, "cpu"))
+    errs = []
+    for mm in (tf32.mm_3xtf32, tf32.mm_tf32):
+        dx, grads = fel.fused_encoder_layer_plain_backward(
+            flat, torch.from_numpy(x), torch.from_numpy(mask),
+            torch.from_numpy(dy), num_heads=N, causal=causal,
+            rel_bias=None if bias is None else torch.from_numpy(bias), mm=mm)
+        got = {"dx": dx.numpy(), **{k: g.numpy().reshape(want[k].shape)
+                                    for k, g in grads.items()}}
+        errs.append(max(_rel_err(got[k], want[k]) for k in want))
+    return tuple(errs)
+
+
+def dropout_3xtf32_err(causal=False, rel=False):
+    """The largest ``_rel_err`` of the 3xTF32 plain backward against the
+    fp32 one, dropout 0.2 / 0.5 under one seed (the same masks): dx, the
+    12 weight gradients and (``rel``) dRel; B=2, S=16."""
+    rng = np.random.default_rng(51 + 2 * causal + rel)
+    b, s = 2, 16
+    flat = fel.flat_weights(params_from_numpy(
+        flatten(layer_params_np(rng, H, N, F)), "cpu"))
+    x, mask = inputs_np(rng, b, s, H)
+    dy = torch.from_numpy(rng.normal(size=(b, s, H)).astype(np.float32))
+    bias = torch.from_numpy(rng.normal(size=(b, N, s, s)).astype(np.float32)) \
+        if rel else None
+    kw = dict(num_heads=N, attention_dropout=0.2, output_dropout=0.5,
+              seed=97, causal=causal, rel_bias=bias)
+    xt, mt = torch.from_numpy(x), torch.from_numpy(mask)
+    dx3, g3 = fel.fused_encoder_layer_plain_backward(
+        flat, xt, mt, dy, mm=tf32.mm_3xtf32, **kw)
+    dx, g = fel.fused_encoder_layer_plain_backward(flat, xt, mt, dy, **kw)
+    assert set(g3) == set(g) and (("rel" in g) == rel)
+    return max([_rel_err(dx3.numpy(), dx.numpy())]
+               + [_rel_err(g3[k].numpy(), g[k].numpy()) for k in g])
 
 
 class TestRoutingLawParity:

@@ -42,7 +42,9 @@ from bert4rec_tpu_torch.utils.checkpoint import (
     flatten, params_from_numpy, unflatten,
 )
 from tests.test_torch_cuda_kernels import inputs_np, layer_params_np
-from tests.test_torch_fused_layer import _JAX_PATHS, _rel_err
+from tests.test_torch_fused_layer import (
+    _JAX_PATHS, _rel_err, backward_3xtf32_errs, dropout_3xtf32_err,
+)
 
 B, S, H, N, F, V = 4, 24, 32, 4, 64, 61
 ALL_PAD = 2   # the row of `layer_inputs` whose mask is all padding
@@ -775,3 +777,23 @@ def test_jax_lookup_module_is_the_reference():
     got = encoder_module._RelLookup.apply(torch.from_numpy(table),
                                           torch.from_numpy(bucket))
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+class TestThreeTf32Rel:
+    """K2 dRel's 3xTF32 law (csrc/layer_tf32.cu), emulated on the CPU,
+    bidirectional and causal: dx, the 12 weight gradients and dRel within
+    3e-4 of their scale of ``jax.grad`` through the interpret kernel at
+    rate 0 (one TF32 pass at least 10x further off), and within 1e-5 of
+    the plain fp32 backward with dropout."""
+
+    @pytest.mark.parametrize("causal", [False, True],
+                             ids=["bidirectional", "causal_rel"])
+    def test_backward_in_3xtf32_matches_interpret_kernel(self, causal):
+        err3, err1 = backward_3xtf32_errs(causal=causal, rel=True)
+        assert err3 <= 3e-4, err3
+        assert err1 >= 10 * err3, (err3, err1)
+
+    @pytest.mark.parametrize("causal", [False, True],
+                             ids=["bidirectional", "causal_rel"])
+    def test_backward_in_3xtf32_with_dropout_matches_plain(self, causal):
+        assert dropout_3xtf32_err(causal=causal, rel=True) <= 1e-5
