@@ -1,4 +1,4 @@
 from bert4rec_tpu_torch.core.device import resolve_device
-from bert4rec_tpu_torch.core.dtypes import DTypePolicy
+from bert4rec_tpu_torch.core.dtypes import DTypePolicy, enable_fast_prng
 
-__all__ = ["DTypePolicy", "resolve_device"]
+__all__ = ["DTypePolicy", "enable_fast_prng", "resolve_device"]

@@ -7,6 +7,14 @@ import dataclasses
 import torch
 
 
+def enable_fast_prng() -> None:
+    """Nothing to switch: JAX's counterpart moves its default PRNG to the
+    TPU's cheaper 'rbg' bits, but the port's dropout is already a counter
+    hash (``ops/dropout_bits.py``, the same in the CUDA kernels), so it
+    changes no stream. Kept so that code written for the JAX package
+    (``bench.py``) runs unchanged."""
+
+
 @dataclasses.dataclass(frozen=True)
 class DTypePolicy:
     param_dtype: torch.dtype = torch.float32

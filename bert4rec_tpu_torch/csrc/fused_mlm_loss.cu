@@ -63,26 +63,27 @@
 //                       contiguous, 16-byte aligned base and rows (W a
 //                       multiple of 8), W <= 256 (zero-filled to 64, 128 or
 //                       256).
-//   fp32 K3, K4, K6, K7 loss_tf32.cuh's 3xTF32 wgmma kernels, the bf16
+//   fp32 K3-K7          loss_tf32.cuh's 3xTF32 wgmma kernels, the bf16
 //                       designs' sweeps and clusters with every product's
 //                       A operand in registers (.tf32 wgmma reads shared
-//                       memory only K-major). K3: loss_tf32_fwd_sweep_kernel
-//                       (a 64-row tile's A fragments split into hi / lo once,
-//                       held in registers at W <= 128; its two warpgroups
-//                       take the streamed vocabulary tiles in turn) over the
-//                       whole table's vocabulary splits (its own law, fwd_
-//                       splits, ~512 blocks, one an SM; mirrored by
-//                       whole_table_splits), then loss_tiled_merge_kernel.
-//                       K4 and K7: loss_tf32_sweep_kernel's dh and dt
-//                       sweeps, no workspace (K4 from K3's lse). K6:
+//                       memory only K-major). K3 and K5 (both entries):
+//                       loss_tf32_fwd_sweep_kernel (at W <= 128 blocks of
+//                       128 hidden rows, each warpgroup's 64 held as A
+//                       fragments split into hi / lo once, both sharing
+//                       each streamed vocabulary tile, as bf16 K5; at W =
+//                       256 64-row tiles whose warpgroups take the tiles in
+//                       turn) over the vocabulary splits (fwd_splits, one
+//                       block an SM: bf16 K5's law at W <= 128, ~512 blocks
+//                       at W = 256; mirrored by tiled_forward_splits), then
+//                       loss_tiled_merge_kernel. K4 and K7:
+//                       loss_tf32_sweep_kernel's dh and dt sweeps, no
+//                       workspace (K4 from K3's lse). K6:
 //                       loss_tf32_merged_kernel, the same <= 32 cluster dh
 //                       partials as bf16 K6. Layout rule, which the
 //                       wrapper meets by copying: hidden and table
 //                       contiguous, 16-byte aligned base and rows (W a
 //                       multiple of 4), W <= 256 (zero-filled to 64, 128
 //                       or 256).
-//   fp32 K5             SIMT tiles: loss_tiled_fwd_kernel (block per
-//                       (64-row tile, vocabulary split))
 //   the second pass     loss_tiled_merge_kernel (K3 and K5, both types):
 //                       each row's splits merged in split order into lse,
 //                       the stats and the four sums
@@ -96,13 +97,11 @@
 // recomputes the logits once more, which the bound does not count), against
 // megabytes of inputs: bound by operations (0.071 ms for K5 and 0.213 ms for
 // K6 at the ML-20M batch, R = 10,240, V = 26,732, W = 128, and 0.00983 ms
-// for bf16 K3 at ml-1m's, at 989 TFLOP/s; fp32 K6 there 1.274 ms and fp32
-// K3 / K4 at ml-1m's 0.059 / 0.177 ms at 3xTF32's 165 TFLOP/s).
-// K5 also takes one exponential per (row, vocabulary entry): 274 M at that
-// batch, about as long on the special-function units as its products on
-// the tensor cores, which is why its design overlaps the two.
-
-#include <algorithm>
+// for bf16 K3 at ml-1m's, at 989 TFLOP/s; fp32 K5 / K6 there 0.425 / 1.274
+// ms and fp32 K3 / K4 at ml-1m's 0.059 / 0.177 ms at 3xTF32's 165
+// TFLOP/s). K5 also takes one exponential per (row, vocabulary entry): 274
+// M at that batch, about as long on the special-function units as its bf16
+// products on the tensor cores, which is why its designs overlap the two.
 
 #include "common.cuh"
 #include "loss_hopper.cuh"
@@ -114,89 +113,7 @@ using namespace b4r;
 
 constexpr int LT = 64;  // rows per row tile and per vocabulary tile
 constexpr int LOSS_MAXW = 256;
-constexpr int FWD_BLOCKS = 1024;  // fp32 K5 splits the vocabulary until ~this many blocks
-
-template <typename T>
-__device__ __forceinline__ void load_rows(float* dst, const T* __restrict__ src,
-                                          int row0, int n_rows, int W) {
-  for (int l = threadIdx.x; l < LT * W; l += 256) {
-    const int r = l / W, d = l % W;
-    dst[r * (W + 1) + d] = (row0 + r < n_rows) ? to_f(src[(size_t)(row0 + r) * W + d]) : 0.f;
-  }
-}
-
-// the vocabulary tile's bias: -inf marks a column past the vocabulary
-__device__ __forceinline__ void load_bias(float* bs, const float* __restrict__ bias,
-                                          int v0, int V) {
-  for (int c = threadIdx.x; c < LT; c += 256) bs[c] = (v0 + c < V) ? bias[v0 + c] : -INFINITY;
-}
-
-// fp32 K5, first pass (bf16: loss_hopper.cuh's loss_fwd_sweep_kernel):
-// block (row tile, vocabulary split) runs the online max / sum over the split's
-// vocabulary tiles and writes the rows' partial (max, sum of exp at that
-// max, label logit) into part_*[split][row]; the label logit is 0 where the
-// label lies outside the split.
-__global__ void __launch_bounds__(256)
-loss_tiled_fwd_kernel(const float* __restrict__ hidden, const float* __restrict__ table,
-                      const float* __restrict__ bias, const int32_t* __restrict__ labels,
-                      float* __restrict__ part_m, float* __restrict__ part_s,
-                      float* __restrict__ part_ll, int R, int V, int W,
-                      int tiles_per_split) {
-  extern __shared__ float smem[];
-  float* Hs = smem;                    // [64][W + 1]
-  float* Ts = Hs + LT * (W + 1);       // [64][W + 1]
-  float* bs = Ts + LT * (W + 1);       // [64]
-  float* ll = bs + LT;                 // [64] label logits
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int r0 = blockIdx.x * LT, split = blockIdx.y;
-  const int v_begin = split * tiles_per_split * LT;
-  const int v_end = min(V, v_begin + tiles_per_split * LT);
-
-  load_rows(Hs, hidden, r0, R, W);
-  for (int r = tid; r < LT; r += 256) ll[r] = 0.f;
-  int lab[4];
-  float m[4], l[4], s[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = r0 + ty + 16 * i;
-    lab[i] = r < R ? labels[r] : -1;
-    m[i] = -INFINITY;
-    l[i] = 0.f;
-  }
-  for (int v0 = v_begin; v0 < v_end; v0 += LT) {
-    load_rows(Ts, table, v0, V, W);
-    load_bias(bs, bias, v0, V);
-    __syncthreads();
-    tile_dots(s, Hs, Ts, tx, ty, W);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] += bs[tx + 16 * j];
-        if (v0 + tx + 16 * j == lab[i] && lab[i] < V) ll[ty + 16 * i] = s[i][j];
-      }
-      const float tmax = fmaxf(fmaxf(s[i][0], s[i][1]), fmaxf(s[i][2], s[i][3]));
-      const float m_new = fmaxf(m[i], half_warp_max(tmax));
-      float tsum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) tsum += expf(s[i][j] - m_new);
-      l[i] = l[i] * expf(m[i] - m_new) + half_warp_sum(tsum);
-      m[i] = m_new;
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int rr = ty + 16 * i, r = r0 + rr;
-    if (tx != 0 || r >= R) continue;
-    const size_t o = (size_t)split * R + r;
-    part_m[o] = m[i];
-    part_s[o] = l[i];
-    part_ll[o] = ll[rr];
-  }
-}
-
-// K5, second pass: one thread per row merges its splits in split order into
+// K3 and K5, second pass: one thread per row merges its splits in split order into
 // (max, sum, label logit) and lse, and the block's rows into partials of the
 // four sums (a fixed tree, then reduce_rows). Null lse / sums: the stats
 // entry; null m_out: the loss entry.
@@ -260,23 +177,10 @@ reduce_rows_cast_kernel(const float* __restrict__ part, T* __restrict__ out, int
   out[i] = from_f<T>(s);
 }
 
-size_t tiled_fwd_smem_bytes(int W) {
-  return sizeof(float) * (size_t)(2 * LT * (W + 1) + 2 * LT);
-}
-// fp32 K5's vocabulary tiles per split: enough splits that row tiles x
-// splits reaches ~FWD_BLOCKS blocks, and no empty split
-int fwd_tiles_per_split(int R, int V) {
-  const int vtiles = ceil_div(V, LT);
-  const int want = std::min(vtiles, std::max(1, ceil_div(FWD_BLOCKS, ceil_div(R, LT))));
-  return ceil_div(vtiles, want);
-}
-// The vocabulary splits of K3 (whole_table) and K5: bf16 both by
-// loss_hopper.cuh's law, fp32 K3 by loss_tf32.cuh's, fp32 K5 by the tiles
-// per split above
-int fwd_splits(int dtype, int whole_table, int R, int V, int W) {
-  if (dtype == 1) return loss_hopper::fwd_splits(R, V, W);
-  if (whole_table) return loss_tf32::fwd_splits(R, V, W);
-  return ceil_div(ceil_div(V, LT), fwd_tiles_per_split(R, V));
+// The vocabulary splits of K3 and K5, by the operands' type: bf16 by
+// loss_hopper.cuh's law, fp32 by loss_tf32.cuh's
+int fwd_splits(int dtype, int R, int V, int W) {
+  return dtype == 1 ? loss_hopper::fwd_splits(R, V, W) : loss_tf32::fwd_splits(R, V, W);
 }
 
 // K3 and K5: per-split row stats and per-block partial sums; no V x W term
@@ -318,15 +222,14 @@ bool wgmma_layout(const void* hidden, const void* table, const void* dh, int W) 
          W % (16 / sizeof(T)) == 0 && W <= LOSS_MAXW;
 }
 
-// K3 (whole_table) and K5: the first pass writes each of the n_splits
-// vocabulary splits' row stats (bf16 loss_hopper.cuh's loss_fwd_sweep_kernel;
-// fp32 K3 loss_tf32.cuh's loss_tf32_fwd_sweep_kernel, fp32 K5
-// loss_tiled_fwd_kernel); loss_tiled_merge_kernel merges them in split order
-int tiled_forward(int dtype, int whole_table, const void* hidden, const void* table,
-                  const float* bias, const int32_t* labels, float* lse, float* sums, float* m,
-                  float* s, float* ll, void* workspace, int R, int V, int W,
-                  cudaStream_t stream) {
-  const int n_splits = fwd_splits(dtype, whole_table, R, V, W);
+// K3 and K5: the first pass writes each of the n_splits vocabulary splits'
+// row stats (bf16 loss_hopper.cuh's loss_fwd_sweep_kernel, fp32
+// loss_tf32.cuh's loss_tf32_fwd_sweep_kernel); loss_tiled_merge_kernel
+// merges them in split order
+int tiled_forward(int dtype, const void* hidden, const void* table, const float* bias,
+                  const int32_t* labels, float* lse, float* sums, float* m, float* s,
+                  float* ll, void* workspace, int R, int V, int W, cudaStream_t stream) {
+  const int n_splits = fwd_splits(dtype, R, V, W);
   TiledFwdScratch w(workspace, n_splits, R);
   cudaError_t err;
   if (dtype == 1) {
@@ -341,7 +244,7 @@ int tiled_forward(int dtype, int whole_table, const void* hidden, const void* ta
       case 128: err = loss_hopper::fwd_sweep<128>(a, stream); break;
       default: err = loss_hopper::fwd_sweep<256>(a, stream); break;
     }
-  } else if (whole_table) {
+  } else {
     if (!wgmma_layout<float>(hidden, table, nullptr, W)) return (int)cudaErrorInvalidValue;
     const loss_tf32::FwdArgs a{static_cast<const float*>(hidden),
                                static_cast<const float*>(table),
@@ -352,15 +255,6 @@ int tiled_forward(int dtype, int whole_table, const void* hidden, const void* ta
       case 128: err = loss_tf32::fwd_sweep<128>(a, stream); break;
       default: err = loss_tf32::fwd_sweep<256>(a, stream); break;
     }
-  } else {
-    const size_t smem = tiled_fwd_smem_bytes(W);
-    err = cudaFuncSetAttribute(loss_tiled_fwd_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    loss_tiled_fwd_kernel<<<dim3(ceil_div(R, LT), n_splits), 256, smem, stream>>>(
-        static_cast<const float*>(hidden), static_cast<const float*>(table), bias, labels,
-        w.part_m, w.part_s, w.part_ll, R, V, W, fwd_tiles_per_split(R, V));
-    err = cudaGetLastError();
   }
   if (err != cudaSuccess) return (int)err;
   const int blocks = ceil_div(R, 256);
@@ -415,13 +309,13 @@ int b4r_mlm_loss_max_width() { return LOSS_MAXW; }
 // Bytes of K3's workspace in dtype: its vocabulary splits' row stats (splits
 // x R x 3, fwd_splits) and its row-block sums, no V x W. K4 needs none.
 size_t b4r_mlm_loss_workspace_bytes(int dtype, int R, int V, int W) {
-  return TiledFwdScratch(nullptr, fwd_splits(dtype, 1, R, V, W), R).bytes;
+  return TiledFwdScratch(nullptr, fwd_splits(dtype, R, V, W), R).bytes;
 }
 
 // Bytes of K5's workspace in dtype: splits x R x 3 + the row-block sums, no
 // V x W.
 size_t b4r_mlm_loss_tiled_fwd_workspace_bytes(int dtype, int R, int V, int W) {
-  return TiledFwdScratch(nullptr, fwd_splits(dtype, 0, R, V, W), R).bytes;
+  return TiledFwdScratch(nullptr, fwd_splits(dtype, R, V, W), R).bytes;
 }
 
 // The grid of K4's (and K7's) two sweeps in dtype, as launched: out[0..3] =
@@ -445,7 +339,7 @@ int b4r_mlm_loss_fwd(int dtype, const void* hidden, const void* table,
                      const float* bias, const int32_t* labels, float* lse, float* sums,
                      void* workspace, int R, int V, int W, void* stream) {
   if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
-  return tiled_forward(dtype, 1, hidden, table, bias, labels, lse, sums, nullptr, nullptr,
+  return tiled_forward(dtype, hidden, table, bias, labels, lse, sums, nullptr, nullptr,
                        nullptr, workspace, R, V, W, static_cast<cudaStream_t>(stream));
 }
 
@@ -457,8 +351,8 @@ int b4r_mlm_loss_tiled_fwd(int dtype, const void* hidden, const void* table,
                            float* m, float* s, float* ll, void* workspace, int R, int V,
                            int W, void* stream) {
   if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
-  return tiled_forward(dtype, 0, hidden, table, bias, labels, lse, sums, m, s, ll, workspace,
-                       R, V, W, static_cast<cudaStream_t>(stream));
+  return tiled_forward(dtype, hidden, table, bias, labels, lse, sums, m, s, ll, workspace, R,
+                       V, W, static_cast<cudaStream_t>(stream));
 }
 
 // K4: K7's two sweeps from K3's lse (bf16 loss_hopper.cuh's, fp32

@@ -1,8 +1,10 @@
 // The fp32 loss kernels on Hopper's warpgroup tensor cores in 3xTF32
 // (tf32.cuh's law), dispatched from fused_mlm_loss.cu, replacing these of
 // bert4rec_tpu/ops/fused_mlm_loss.py in fp32: K3 (_fwd_kernel, launched by
-// _run_forward: loss_tf32_fwd_sweep_kernel over the whole table, then
-// fused_mlm_loss.cu's ordered merge), K4 (_bwd_kernel, launched by
+// _run_forward) and K5 (_fwd_kernel_tiled, launched by _tiled_fwd_call for
+// _run_forward_tiled and _run_forward_tiled_stats): one forward sweep,
+// loss_tf32_fwd_sweep_kernel, over the vocabulary splits, then
+// fused_mlm_loss.cu's ordered merge; K4 (_bwd_kernel, launched by
 // _run_backward) and K7 (_bwd_dh_kernel + _bwd_dt_kernel, launched by
 // _run_backward_tiled): the two sweeps from the forward's lse, and K6
 // (_bwd_merged_kernel, launched by _run_backward_merged). They compute what
@@ -52,15 +54,19 @@
 // tile, Y = hidden rows; db sums each X row's unrounded dlog). No
 // workspace.
 //
-// K3's forward sweep (loss_tf32_fwd_sweep_kernel, after K6): s = X Y^T
-// only, X = 64 hidden rows whose A fragments each warpgroup holds split in
-// registers at WP <= 128 (128 registers at WP = 128), Y = the vocabulary
-// tiles of the block's split, which its two warpgroups take in turn; each
-// folds its tiles' logits into an online max / sum of exponentials and the
-// label logit in registers while the other's products run. Its splits bring
-// the grid to ~kFwdItems blocks (one an SM) and are merged in split order
-// by fused_mlm_loss.cu; the sweep takes any vocabulary range, so K5 could
-// run it too.
+// K3's and K5's forward sweep (loss_tf32_fwd_sweep_kernel, after K6):
+// s = X Y^T only, Y = the vocabulary tiles of the block's split, each tile's
+// logits folded into an online max / sum of exponentials and the label
+// logit in registers. At WP <= 128 (fwd_rows) a block holds 128 hidden
+// rows, each warpgroup 64 of them as A fragments split in registers once
+// (128 registers at WP = 128), and both warpgroups multiply every streamed
+// tile, which crosses L2 and is split once per 128 rows; a tile's fold and
+// the next tile's split run while its product does. At WP = 256 (fwd_tiles:
+// 256 registers of fragments would not fit) a block holds 64 rows raw and
+// its two warpgroups take the tiles in turn. The splits bring the grid to
+// whole waves of one block an SM and are merged in split order by
+// fused_mlm_loss.cu, which writes lse and the sums (K3, K5's loss entry) or
+// the per-row stats (K5's stats entry).
 //
 // K6: one recompute. A block holds a vocabulary tile X and sweeps the
 // hidden rows 32 at a time as the dt sweep does; for each it also forms the
@@ -719,18 +725,21 @@ loss_tf32_merged_kernel(Args a, float* dt, float* db, float* part_dh, int n_clus
 }
 
 // ---------------------------------------------------------------------------
-// K3's first pass: block (row tile x, split) holds hidden rows x0 .. +63 (the
-// X tile) and streams the split's vocabulary tiles of YN entries with their
-// bias, its two warpgroups taking them in turn, each with its own stage (a
-// tile lands raw by cp.async and each thread splits the chunks it copied).
-// At WP <= 128 each warpgroup holds the X tile's A fragments in registers,
-// split into hi / lo once; at WP = 256 (256 registers of fragments) it reads
-// and splits them from the raw X tile per step, as the sweeps do. Per tile:
-// s = X Y^T, then the tile's logits (its bias added, -inf past V) folded into
-// the warpgroup's running max and sum of exponentials and its label logit
-// while the other warpgroup's products run. The two warpgroups' row stats
-// are merged in order and the split's per-row (max, sum, label logit) go to
-// part_*[split][row]; the caller merges the splits in split order.
+// K3's and K5's first pass, loss_tf32_fwd_sweep_kernel<WP>: per block (row
+// block, vocabulary split), the split's per-row (max, sum of exp at it,
+// label logit) into part_*[split][row]; the caller merges the splits in
+// split order. Labels outside [0, V) match no column. Two bodies by width:
+//
+// WP = 256, fwd_tiles: block (row tile x, split) holds hidden rows x0 ..
+// +63 (the X tile) raw and streams the split's vocabulary tiles of YN
+// entries with their bias, its two warpgroups taking them in turn, each
+// with its own stage (a tile lands raw by cp.async and each thread splits
+// the chunks it copied). The A fragments (256 registers at this width) are
+// read and split from the raw X tile per step, as the sweeps do. Per tile:
+// s = X Y^T, then the tile's logits (its bias added, -inf past V) folded
+// into the warpgroup's running max and sum of exponentials and its label
+// logit while the other warpgroup's products run. The two warpgroups' row
+// stats are merged in order.
 // ---------------------------------------------------------------------------
 struct FwdArgs {
   const float* hidden;    // [R, W]
@@ -741,8 +750,7 @@ struct FwdArgs {
   int R, V, W, splits;
 };
 
-template <int WP> constexpr bool kFwdRegFrags = WP <= 128;
-constexpr int kFwdItems = 512;  // the splits bring the grid to ~this many blocks
+constexpr int kFwdTileItems = 512;  // fwd_tiles' splits bring the grid to ~this many blocks
 
 template <int WP>
 struct FwdShape {
@@ -754,28 +762,8 @@ struct FwdShape {
   static_assert(kSmem <= 227 * 1024, "a block's shared memory");
 };
 
-// s = X Y^T over WP columns, X's hi / lo A fragments in registers, Y's hi /
-// lo tiles (N rows) at shared address yt / yt + ylo
-template <int WP, int N>
-__device__ __forceinline__ void product_s_regs(float (&s)[N / 2],
-                                               const uint32_t (&xh)[WP / 8][4],
-                                               const uint32_t (&xl)[WP / 8][4], uint32_t yt,
-                                               int ylo) {
-#pragma unroll
-  for (int i = 0; i < N / 2; ++i) s[i] = 0.f;
-  fence_regs(s);
-  wgmma_fence();
-#pragma unroll
-  for (int kb = 0; kb < WP / 8; ++kb)
-    mma3_rs<N>(s, xh[kb], xl[kb], bdesc(yt, N, kb), bdesc(yt + ylo, N, kb));
-  wgmma_commit();
-  wgmma_wait_n<0>();
-  fence_regs(s);
-}
-
 template <int WP>
-__global__ void __launch_bounds__(kSweepWgs * kThreads, 1)
-loss_tf32_fwd_sweep_kernel(FwdArgs a) {
+__device__ __forceinline__ void fwd_tiles(const FwdArgs& a) {
   using L = FwdShape<WP>;
   constexpr int G = L::G, YN = L::YN;
   uint8_t* sm = aligned_smem();
@@ -811,12 +799,6 @@ loss_tf32_fwd_sweep_kernel(FwdArgs a) {
   cp_async_wait<0>();
   __syncthreads();  // the X tile is complete for both warpgroups
 
-  uint32_t xh[kFwdRegFrags<WP> ? WP / 8 : 1][4], xl[kFwdRegFrags<WP> ? WP / 8 : 1][4];
-  if constexpr (kFwdRegFrags<WP>) {
-#pragma unroll
-    for (int kb = 0; kb < WP / 8; ++kb) frag_rows(xh[kb], xl[kb], sm + L::kX, kb);
-  }
-  // labels outside [0, V) match no column
   int lab[2];
   float m[2], l[2], ll[2];
 #pragma unroll
@@ -834,10 +816,7 @@ loss_tf32_fwd_sweep_kernel(FwdArgs a) {
     fence_async_smem();
     wg_sync(wg);
     float s[YN / 2];
-    if constexpr (kFwdRegFrags<WP>)
-      product_s_regs<WP, YN>(s, xh, xl, ya, L::kYPlane);
-    else
-      product_s<WP, YN>(s, sm + L::kX, ya, L::kYPlane);
+    product_s<WP, YN>(s, sm + L::kX, ya, L::kYPlane);
     const int y0 = (t0 + item) * YN;
     if (y0 + YN > a.V)
       loss_hopper::add_bias<YN, true>(s, s, bias_s, a.V - y0);
@@ -880,30 +859,198 @@ loss_tf32_fwd_sweep_kernel(FwdArgs a) {
 }
 
 // ---------------------------------------------------------------------------
+// WP <= 128, fwd_rows: block (row block x of 128 rows, split) streams the
+// split's vocabulary tiles of kFwdYn entries through a ring of kFwdStages
+// stages, both warpgroups reading each tile: a warpgroup holds its 64
+// hidden rows' A fragments in registers, split into hi / lo once, so each
+// table tile crosses L2 and is split once per 128 rows (half the traffic
+// and splits of fwd_tiles' 64). One step, tile i in stage i % kFwdStages:
+//   issue s = X Y^T on stage i into cur (one commit group, in flight while
+//   the CUDA cores work); prefetch tile i + 2 into the stage tile i - 1
+//   left; split tile i + 1 (each thread the chunks it copied, so no barrier
+//   between its copy and its split); fold tile i - 1's logits (prev) into
+//   the rows' max, sum of exponentials and label logit; wait for cur, add
+//   its bias into prev; one block barrier (tile i + 1 split, stage i free).
+// No product is in flight from one step to the next.
+// ---------------------------------------------------------------------------
+constexpr int kFwdYn = 64, kFwdStages = 3, kFwdBlockRows = 2 * kRows;
+constexpr int kFwdRowItems = 1024;  // fwd_rows' splits bring the grid to ~this many blocks
+
+template <int WP>
+struct FwdRowsShape {
+  static constexpr int kYPlane = kFwdYn * WP * 4, kYStage = 2 * kYPlane;
+  static constexpr int kB = kFwdStages * kYStage;  // the stages' bias [S][kFwdYn]
+  static constexpr int kX = 2 * kYStage;           // the raw X tiles, before the loop
+  static constexpr size_t kSmem = 1024 + (size_t)kB + kFwdStages * kFwdYn * 4;
+  static_assert(kSmem <= 227 * 1024, "a block's shared memory");
+  static_assert(2 * kRows * WP * 4 <= kYStage, "the X tiles fill one stage");
+};
+
+template <int WP>
+__device__ __forceinline__ void fwd_rows(const FwdArgs& a) {
+  using L = FwdRowsShape<WP>;
+  constexpr int YN = kFwdYn, S = kFwdStages, NT = kSweepWgs * kThreads;
+  uint8_t* sm = aligned_smem();
+  const uint32_t base = smem_u32(sm);
+
+  const int wg = threadIdx.x / kThreads, lt = threadIdx.x % kThreads;
+  const int tq = lt & 3, row0 = frag_row();
+  const int x0 = (int)blockIdx.x * kFwdBlockRows + wg * kRows, split = (int)blockIdx.y;
+  const int vtiles = cdiv(a.V, YN);
+  const int t0 = (int)((long)split * vtiles / a.splits);
+  const int n = (int)((long)(split + 1) * vtiles / a.splits) - t0;  // the split's tiles
+  const float* bias_s = reinterpret_cast<const float*>(sm + L::kB);
+
+  auto prefetch = [&](int item) {
+    const int st = item % S, y0 = (t0 + item) * YN;
+#pragma unroll
+    for (int p = 0; p < WP / 32; ++p)
+      copy_panel_t<YN, NT>(threadIdx.x, base + st * L::kYStage + p * YN * 128, a.table, a.W,
+                           y0, a.V, 32 * p, a.W);
+    if (threadIdx.x < YN) {
+      const bool ok = y0 + (int)threadIdx.x < a.V;
+      cp_async4(base + L::kB + 4 * (st * YN + threadIdx.x),
+                ok ? a.bias + y0 + threadIdx.x : a.bias, ok ? 4 : 0);
+    }
+  };
+  auto split_stage = [&](int item) {
+#pragma unroll
+    for (int p = 0; p < WP / 32; ++p)
+      split_panel_t<YN, NT>(threadIdx.x, sm + (item % S) * L::kYStage + p * YN * 128,
+                            L::kYPlane);
+  };
+  // this warpgroup's 64 rows raw into stage 2's space, tiles 0 and 1 into
+  // stages 0 and 1
+  const uint32_t xa = base + L::kX + wg * kRows * WP * 4;
+#pragma unroll
+  for (int p = 0; p < WP / 32; ++p)
+    copy_panel_t<kRows, kThreads>(lt, xa + p * kRows * 128, a.hidden, a.W, x0, a.R, 32 * p,
+                                  a.W);
+  cp_async_commit();
+  if (n > 0) prefetch(0);
+  cp_async_commit();
+  if (n > 1) prefetch(1);
+  cp_async_commit();
+  cp_async_wait<1>();
+  __syncthreads();  // the X tiles are complete
+  uint32_t xh[WP / 8][4], xl[WP / 8][4];
+#pragma unroll
+  for (int kb = 0; kb < WP / 8; ++kb)
+    frag_rows(xh[kb], xl[kb], sm + L::kX + wg * kRows * WP * 4, kb);
+  if (n > 0) split_stage(0);
+  fence_async_smem();
+  __syncthreads();  // tile 0 is split, every X fragment read: stage 2 is free
+
+  // labels outside [0, V) match no column
+  int lab[2];
+  float m[2], l[2], ll[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = x0 + row0 + 8 * h, y = r < a.R ? a.labels[r] : -1;
+    lab[h] = (y >= 0 && y < a.V) ? y : -(1 << 30);
+    m[h] = -INFINITY;
+    l[h] = ll[h] = 0.f;
+  }
+  float cur[YN / 2], prev[YN / 2];
+  for (int item = 0; item < n; ++item) {
+    const uint32_t ya = base + (item % S) * L::kYStage;
+#pragma unroll
+    for (int i = 0; i < YN / 2; ++i) cur[i] = 0.f;
+    fence_regs(cur);
+    wgmma_fence();
+#pragma unroll
+    for (int kb = 0; kb < WP / 8; ++kb)
+      mma3_rs<YN>(cur, xh[kb], xl[kb], bdesc(ya, YN, kb), bdesc(ya + L::kYPlane, YN, kb));
+    wgmma_commit();
+    if (item + 2 < n) prefetch(item + 2);
+    cp_async_commit();
+    if (item + 1 < n) {
+      cp_async_wait<1>();  // tile item + 1, this thread's chunks
+      split_stage(item + 1);
+      fence_async_smem();
+    }
+    const int v0 = (t0 + item) * YN;
+    if (item > 0) {
+      const int rel[2] = {lab[0] - (v0 - YN), lab[1] - (v0 - YN)};
+      loss_hopper::fold_tile<YN>(prev, rel, m, l, ll);
+    }
+    wgmma_wait_n<0>();
+    fence_regs(cur);
+    const float* b = bias_s + (item % S) * YN;
+    if (v0 + YN > a.V)
+      loss_hopper::add_bias<YN, true>(prev, cur, b, a.V - v0);
+    else
+      loss_hopper::add_bias<YN, false>(prev, cur, b, YN);
+    __syncthreads();  // tile item + 1 is split by all, stage item is free
+  }
+  if (n > 0) {
+    const int v0 = (t0 + n - 1) * YN;
+    const int rel[2] = {lab[0] - v0, lab[1] - v0};
+    loss_hopper::fold_tile<YN>(prev, rel, m, l, ll);
+  }
+  cp_async_wait<0>();
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = x0 + row0 + 8 * h;
+    const float ls = quad_sum(l[h]), lls = quad_sum(ll[h]);
+    if (tq == 0 && r < a.R) {
+      const size_t o = (size_t)split * a.R + r;
+      a.part_m[o] = m[h];
+      a.part_s[o] = ls;
+      a.part_ll[o] = lls;
+    }
+  }
+}
+
+template <int WP>
+__global__ void __launch_bounds__(kSweepWgs * kThreads, 1)
+loss_tf32_fwd_sweep_kernel(FwdArgs a) {
+  if constexpr (WP <= 128)
+    fwd_rows<WP>(a);
+  else
+    fwd_tiles<WP>(a);
+}
+
+// ---------------------------------------------------------------------------
 // launches
 // ---------------------------------------------------------------------------
-// K3's vocabulary splits: the fewest that bring (64-row tiles x splits) to
-// kFwdItems, at most one per vocabulary tile of kSweepYn<WP> entries (one
-// block an SM: at ml-1m's batch, R = 10,240, V = 3,709, W = 128, 160 row
-// tiles x 4 splits of 14-15 tiles, 4.85 waves on 132 SMs)
 // kSweepYn<WP> at the width W pads to
 inline int sweep_yn(int W) {
   return loss_hopper::padded_width(W) == 256 ? kSweepYn<256> : kSweepYn<128>;
 }
 
+// K3's and K5's vocabulary splits: the fewest that bring (row blocks x
+// splits) to a target, at most one per vocabulary tile. One block an SM, so
+// the target is a number of whole waves that the tail does not cut short:
+// fwd_rows (WP <= 128) 128-row blocks, kFwdYn-entry tiles, ~kFwdRowItems
+// blocks (bf16 K5's law: at ML-20M's batch, R = 10,240, V = 26,732, 80 row
+// blocks x 13 splits, 7.9 waves on 132 SMs, which measured 12% faster than
+// 7 splits' 4.2 waves on an H100); fwd_tiles (WP = 256) 64-row tiles,
+// kSweepYn<256>-entry tiles, ~kFwdTileItems blocks (160 x 4 there; 7
+// splits measured 3% slower).
 inline int fwd_splits(int R, int V, int W) {
-  const int yn = sweep_yn(W);
-  const int rtiles = (R + kRows - 1) / kRows, vtiles = (V + yn - 1) / yn;
-  return std::max(1, std::min(vtiles, (kFwdItems + rtiles - 1) / rtiles));
+  const bool rows = loss_hopper::padded_width(W) <= 128;
+  const int xr = rows ? kFwdBlockRows : kRows, yn = rows ? kFwdYn : kSweepYn<256>;
+  const int items = rows ? kFwdRowItems : kFwdTileItems;
+  const int rblocks = (R + xr - 1) / xr, vtiles = (V + yn - 1) / yn;
+  return std::max(1, std::min(vtiles, (items + rblocks - 1) / rblocks));
 }
 
-// K3's first pass; a.splits = fwd_splits(R, V, W)
+// K3's and K5's first pass; a.splits = fwd_splits(R, V, W)
 template <int WP>
 cudaError_t fwd_sweep(const FwdArgs& a, cudaStream_t st) {
-  constexpr size_t smem = FwdShape<WP>::kSmem;
+  size_t smem;
+  int xr;  // rows a block
+  if constexpr (WP <= 128) {
+    smem = FwdRowsShape<WP>::kSmem;
+    xr = kFwdBlockRows;
+  } else {
+    smem = FwdShape<WP>::kSmem;
+    xr = kRows;
+  }
   cudaError_t err = allow_smem(loss_tf32_fwd_sweep_kernel<WP>, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((a.R + kRows - 1) / kRows, a.splits);
+  const dim3 grid((a.R + xr - 1) / xr, a.splits);
   loss_tf32_fwd_sweep_kernel<WP><<<grid, kSweepWgs * kThreads, smem, st>>>(a);
   return cudaGetLastError();
 }

@@ -21,3 +21,11 @@ class ModelWrapper:
 
     def update_meta(self, updated_info: dict) -> None:
         self._meta_config.update(updated_info)
+
+    def delete_keys_from_meta(self, keys) -> None:
+        """Drops ``keys`` (one key, or a list of them) from the meta
+        config; an absent key is ignored."""
+        if isinstance(keys, str):
+            keys = [keys]
+        for key in keys:
+            self._meta_config.pop(key, None)

@@ -16,8 +16,7 @@ shape) never reach device memory: every kernel streams the table in
 vocabulary tiles and recomputes the logits tile it needs. Bound: 2·R·V·W
 FLOP forward, 6·R·V·W (K6) or 8·R·V·W (K4, K7) backward, against a few MB
 of inputs — bound by operations; bf16 products on the tensor cores, fp32
-K3, K4, K6 and K7 there too in 3xTF32, fp32 K5 as SIMT loops (times in
-PERF.md).
+K3-K7 there too in 3xTF32 (times in PERF.md).
 
 By operand type (an explicit dispatch, nothing caught): bf16 K3-K7 run the
 ``wgmma`` kernels of ``csrc/loss_hopper.cuh`` (bf16 tiles by ``cp.async``,
@@ -28,22 +27,23 @@ the same sweep and merge over the whole table, its vocabulary split by K5's
 law (``whole_table_splits`` is its Python mirror); K4 runs K7's two sweeps
 from K3's lse; K7's two sweeps and K6 sum their fp32 partials across a
 thread-block cluster through distributed shared memory, K6 into at most 32
-dh partials of ``R x W`` that do not grow with V. fp32 K3, K4, K6 and K7
-run in 3xTF32 on ``.tf32`` ``wgmma`` (``csrc/loss_tf32.cuh``; every
-product's A operand from registers, since ``.tf32`` reads shared memory
-only K-major; ``ops/tf32.py`` emulates its rounding law): K4, K6 and K7
-the bf16 designs' sweeps and clusters, K3 a forward sweep of its own (a
-row tile's fragments split once and held in registers, two warpgroups
-taking the vocabulary tiles in turn) over vocabulary splits by its own law
-(``whole_table_splits``), merged in split order; fp32 K5 runs the earlier
-SIMT tiles. Layout rule of the bf16 K3-K7 (``check_copy_alignment``,
+dh partials of ``R x W`` that do not grow with V. fp32 K3-K7 run in 3xTF32
+on ``.tf32`` ``wgmma`` (``csrc/loss_tf32.cuh``; every product's A operand
+from registers, since ``.tf32`` reads shared memory only K-major;
+``ops/tf32.py`` emulates its rounding law): K4, K6 and K7 the bf16
+designs' sweeps and clusters, K3 and K5 one forward sweep of their own (at
+W <= 128 bf16 K5's blocks: 128 rows, each warpgroup's 64 as fragments
+split once and held in registers, both sharing each streamed vocabulary
+tile; at W = 256 64-row tiles whose warpgroups take the tiles in turn)
+over vocabulary splits by its law (``tiled_forward_splits`` /
+``whole_table_splits`` with ``dtype``), merged in split order. Layout rule of the bf16 K3-K7 (``check_copy_alignment``,
 raised before the library is reached): hidden and table contiguous with a
 16-byte aligned base and rows, W a multiple of 8 up to 256 (zero-filled to
 64, 128 or 256). The main path's gathered hidden rows and cast table meet
-it at every config width (64, 128, 256). fp32 K3, K4, K6 and K7 copy
-16-byte pieces too, with W a multiple of 4: an fp32 operand off that layout
-is copied into an aligned, zero-filled buffer first (``_tf32_operand``),
-which is exact.
+it at every config width (64, 128, 256). fp32 K3-K7 copy 16-byte pieces
+too, with W a multiple of 4: an fp32 operand off that layout is copied
+into an aligned, zero-filled buffer first (``_tf32_operand``), which is
+exact.
 
 Semantics are the JAX kernels': loss = mean NLL over labels > 0;
 ``masked_accuracy`` = correct-and-valid / n_valid; ``accuracy`` = correct
@@ -211,45 +211,47 @@ def _kernel_lib():
     return _lib
 
 
-# bf16 K5's blocks (csrc/loss_hopper.cuh kFwdRows, kFwdItems, kFwdN): 128
-# hidden rows each, the vocabulary split until the grid holds ~1,024 blocks,
-# a split at least one vocabulary tile of 64 entries (128 at W > 128)
+# K5's blocks: bf16 (csrc/loss_hopper.cuh kFwdRows, kFwdN, kFwdItems) and
+# fp32 at W <= 128 (csrc/loss_tf32.cuh kFwdBlockRows, kFwdYn, kFwdRowItems)
+# 128 hidden rows each, vocabulary tiles of 64 entries (bf16 128 at W >
+# 128), the vocabulary split until the grid holds ~1,024 blocks; fp32 at
+# W > 128 (kRows, kSweepYn, kFwdTileItems) 64 rows, 32 entries, ~512
+# blocks; a split at least one vocabulary tile
 _FWD_ROWS, _FWD_ITEMS = 128, 1024
+_TF32_WIDE_FWD = (64, 32, 512)
 
 
-def tiled_forward_splits(rows: int, v: int, w: int) -> int:
-    """bf16 K5's vocabulary splits (``loss_hopper::fwd_splits``): the
-    fewest that bring (128-row blocks x splits) to 1,024, at most one per
-    vocabulary tile."""
-    tile = 128 if w > 128 else 64
-    rblocks, vtiles = -(-rows // _FWD_ROWS), -(-v // tile)
-    return max(1, min(vtiles, -(-_FWD_ITEMS // rblocks)))
-
-
-# fp32 K3's blocks (csrc/loss_tf32.cuh kFwdItems, kSweepYn): 64 hidden rows
-# each, the vocabulary split until the grid holds ~512 blocks, a split at
-# least one vocabulary tile of 64 entries (32 at W > 128)
-_TF32_FWD_ROWS, _TF32_FWD_ITEMS = 64, 512
+def tiled_forward_splits(rows: int, v: int, w: int,
+                         dtype: torch.dtype = torch.bfloat16) -> int:
+    """K5's vocabulary splits in the operand ``dtype``
+    (``loss_hopper::fwd_splits`` in bf16, ``loss_tf32::fwd_splits`` in
+    fp32, fp32 K3's law too): the fewest that bring (row blocks x splits)
+    to the target, at most one per vocabulary tile; 128-row blocks, 64-entry
+    tiles (128 in bf16 at W > 128) and 1,024 blocks, but fp32 at W > 128:
+    64-row tiles, 32-entry tiles, 512 blocks (at ML-20M's batch, R =
+    10,240, V = 26,732, W = 128, 80 row blocks x 13 splits in both
+    dtypes). The library decides the splits itself; this mirror and
+    ``tiled_forward_workspace_bytes`` are held against the library's
+    workspace bytes by the card tests."""
+    if dtype == torch.float32 and w > 128:
+        block, tile, items = _TF32_WIDE_FWD
+    else:
+        block, tile, items = _FWD_ROWS, (128 if w > 128 else 64), _FWD_ITEMS
+    rblocks, vtiles = -(-rows // block), -(-v // tile)
+    return max(1, min(vtiles, -(-items // rblocks)))
 
 
 def whole_table_splits(rows: int, v: int, w: int,
                        dtype: torch.dtype = torch.bfloat16) -> int:
-    """K3's vocabulary splits. bf16 K3 runs K5's sweep over the whole table
-    and splits it by K5's law (``tiled_forward_splits``): at ml-1m's batch
-    (R = 10,240, V = 3,709, W = 128) 13 splits, 1,040 blocks, against one
-    split's 80 blocks on 132 SMs, which measured slower on the card
-    (PERF.md). fp32 K3 runs its own 3xTF32 sweep, one block an SM, and
-    splits by its own law: the fewest splits that bring (64-row tiles x
-    splits) to 512, at most one per vocabulary tile (at ml-1m's batch 160
-    row tiles x 4 splits). The library decides the splits itself
-    (``fwd_splits`` in csrc/fused_mlm_loss.cu); this mirror and
-    ``whole_table_workspace_bytes`` are held against the library's
-    workspace bytes by the card tests."""
-    if dtype == torch.bfloat16:
-        return tiled_forward_splits(rows, v, w)
-    tile = 32 if w > 128 else 64
-    rtiles, vtiles = -(-rows // _TF32_FWD_ROWS), -(-v // tile)
-    return max(1, min(vtiles, -(-_TF32_FWD_ITEMS // rtiles)))
+    """K3's vocabulary splits: K3 is K5's sweep over the whole table in
+    either dtype and splits it by K5's law (``tiled_forward_splits``). In
+    bf16, at ml-1m's batch (R = 10,240, V = 3,709, W = 128), 13 splits,
+    1,040 blocks, against one split's 80 blocks on 132 SMs, which measured
+    slower on the card (PERF.md); in fp32 the same at W <= 128. The
+    library decides the splits itself (``fwd_splits`` in
+    csrc/fused_mlm_loss.cu); this mirror and ``whole_table_workspace_bytes``
+    are held against the library's workspace bytes by the card tests."""
+    return tiled_forward_splits(rows, v, w, dtype)
 
 
 def _carved(*counts: int) -> int:
@@ -258,13 +260,20 @@ def _carved(*counts: int) -> int:
     return sum(-(-4 * n // 256) * 256 for n in counts)
 
 
+def tiled_forward_workspace_bytes(rows: int, v: int, w: int,
+                                  dtype: torch.dtype = torch.bfloat16) -> int:
+    """K5's workspace (``b4r_mlm_loss_tiled_fwd_workspace_bytes``), in
+    either dtype: the per-split row (max, sum, label logit) and the 256-row
+    block sums, with no V x W term."""
+    n = tiled_forward_splits(rows, v, w, dtype) * rows
+    return _carved(n, n, n, -(-rows // 256) * 4)
+
+
 def whole_table_workspace_bytes(rows: int, v: int, w: int,
                                 dtype: torch.dtype = torch.bfloat16) -> int:
     """K3's workspace (``b4r_mlm_loss_workspace_bytes``), in either dtype:
-    the per-split row (max, sum, label logit) and the 256-row block sums,
-    with no V x W term. K4 needs none."""
-    n = whole_table_splits(rows, v, w, dtype) * rows
-    return _carved(n, n, n, -(-rows // 256) * 4)
+    K5's at the same shape. K4 needs none."""
+    return tiled_forward_workspace_bytes(rows, v, w, dtype)
 
 
 def workspace_bytes(kernel: str, rows: int, v: int, w: int,
@@ -272,7 +281,7 @@ def workspace_bytes(kernel: str, rows: int, v: int, w: int,
     """Bytes of device workspace the library asks for: ``kernel`` is
     ``"K3/K4"`` (K3's; K4 needs none), ``"K5"``, ``"K6"`` or ``"K7"``, in
     the operand ``dtype`` (K3 and K5 split the vocabulary by another law in
-    each; K6 and K7 need the same in both)."""
+    each dtype; K6 and K7 need the same in both)."""
     lib = _kernel_lib()
     code = _DTYPE_CODE[dtype]
     if kernel == "K3/K4":
@@ -340,7 +349,7 @@ def _launch_backward(hidden, table, bias, labels, lse, g, n_valid):
 def _launch_tiled(hidden, table, bias, labels, stats):
     """K5: ``(lse [R], sums [4])``, or with ``stats`` the per-row
     ``(m, s, ll)`` [R] without the scalars."""
-    _check_layout(hidden, table)
+    hidden, table = _kernel_operands(hidden, table)
     lib = _kernel_lib()
     rows, w = hidden.shape
     v = table.shape[0]
@@ -404,7 +413,7 @@ def _kernel_operands(hidden, table):
 
 
 def _tf32_operand(t: torch.Tensor) -> torch.Tensor:
-    """fp32 K3, K4, K6 and K7 copy operand rows in 16-byte pieces: ``t``
+    """fp32 K3-K7 copy operand rows in 16-byte pieces: ``t``
     itself if it is a contiguous matrix with a 16-byte aligned base and W a
     multiple of 4, else a copy into a new zero-filled ``[rows, W rounded up
     to 4]`` buffer (the zero columns are exact for every product)."""

@@ -15,12 +15,14 @@ device ms of each kernel inside one launch of K4 and of fp32 K3 and K4
 (torch.profiler), per-rep medians of the host wall of 20 synchronised
 train steps at B=256 on batches of ``bench.py``'s law, ml-1m_128 in bf16
 (``step``) and the harness's fp32 ml1m preset (``step_fp32``: the
-encoder's default dropout 0.1 / 0.1, no dtype policy), K5 at (R, V, W) = (10,240, 26,732, 128), (10,240, 26,732, 256) and
-(2,048, 335,424, 128), K6 at (10,240, 26,732, 128) and K7 at (10,240,
-26,732, 256), bf16, and the same K6 and K7 in fp32 (``k6_fp32``,
-``k7_fp32``), each as (median, lowest, highest) ms per call over 7 blocks
-of 10 calls after 5 warm-up calls, with the device ms of each kernel
-inside one launch."""
+encoder's default dropout 0.1 / 0.1, no dtype policy), K5 at (R, V, W) =
+(10,240, 26,732, 128), (10,240, 26,732, 256) and (2,048, 335,424, 128),
+K6 at (10,240, 26,732, 128) and K7 at (10,240, 26,732, 256), bf16, the
+same K5 shapes and (10,240, 335,424, 128), the Reddit preset's batch, in
+fp32 (``k5_fp32_*``: the loss entry), and the same K6 and K7 in fp32
+(``k6_fp32``, ``k7_fp32``), each as (median, lowest, highest) ms per call
+over 7 blocks of 10 calls after 5 warm-up calls, with the device ms of
+each kernel inside one launch."""
 
 import argparse
 import json
@@ -35,10 +37,14 @@ ML20M_VOCAB = 26732
 # (width, merged, operand dtype name)
 TILED = {"k6": (128, True, "bfloat16"), "k7": (256, False, "bfloat16"),
          "k6_fp32": (128, True, "float32"), "k7_fp32": (256, False, "float32")}
-# K5: (rows, vocabulary, width)
-TILED_FWD = {"k5_w128": (ROWS, ML20M_VOCAB, 128),
-             "k5_w256": (ROWS, ML20M_VOCAB, 256),
-             "k5_reddit": (2048, 335424, 128)}
+# K5: (rows, vocabulary, width, operand dtype name)
+TILED_FWD = {"k5_w128": (ROWS, ML20M_VOCAB, 128, "bfloat16"),
+             "k5_w256": (ROWS, ML20M_VOCAB, 256, "bfloat16"),
+             "k5_reddit": (2048, 335424, 128, "bfloat16"),
+             "k5_fp32_w128": (ROWS, ML20M_VOCAB, 128, "float32"),
+             "k5_fp32_w256": (ROWS, ML20M_VOCAB, 256, "float32"),
+             "k5_fp32_reddit": (2048, 335424, 128, "float32"),
+             "k5_fp32_reddit_r10240": (ROWS, 335424, 128, "float32")}
 
 
 def events_ms(torch, fn, iters=50, warmup=5):
@@ -91,9 +97,10 @@ def tiled_operands(torch, np, device, rows, vocab, width,
     return h, t, b, torch.from_numpy(lab).to(device)
 
 
-def tiled_forward(torch, np, fml, device, rows, vocab, width):
-    """K5 (the loss entry), as a callable."""
-    h, t, b, lab = tiled_operands(torch, np, device, rows, vocab, width)
+def tiled_forward(torch, np, fml, device, rows, vocab, width, dtype_name):
+    """K5 (the loss entry) in ``dtype_name``, as a callable."""
+    h, t, b, lab = tiled_operands(torch, np, device, rows, vocab, width,
+                                  dtype_name)
     return lambda: fml._launch_forward_tiled(h, t, b, lab)
 
 

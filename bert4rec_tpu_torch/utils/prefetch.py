@@ -19,10 +19,10 @@ import torch
 _END = object()
 
 
-def prefetch(iterator: Iterable, put: Optional[Callable] = None,
+def prefetch(iterator: Iterable, put_fn: Optional[Callable] = None,
              depth: int = 2) -> Iterator:
-    """Iterate ``iterator`` in a daemon thread, applying ``put`` (e.g. the
-    trainer's device placement) in that thread, yielding the results in
+    """Iterate ``iterator`` in a daemon thread, applying ``put_fn`` (e.g.
+    the trainer's device placement) in that thread, yielding the results in
     order. At most ``depth`` items are in flight. An exception of the
     producer re-raises at the consuming ``next()``; closing the generator
     early (a ``break``, ``steps_per_epoch``) retires the thread."""
@@ -34,7 +34,7 @@ def prefetch(iterator: Iterable, put: Optional[Callable] = None,
             for item in iterator:
                 if stop.is_set():
                     return
-                q.put(put(item) if put is not None else item)
+                q.put(put_fn(item) if put_fn is not None else item)
             q.put(_END)
         except BaseException as exc:  # noqa: BLE001 — re-raised at consumer
             q.put(exc)
@@ -62,7 +62,7 @@ def prefetch(iterator: Iterable, put: Optional[Callable] = None,
 
 def device_put(device: torch.device, keys: Iterable[str],
                optional: Iterable[str] = ()) -> Callable:
-    """A ``put`` for :func:`prefetch`: host numpy batch -> the tensors at
+    """A ``put_fn`` for :func:`prefetch`: host numpy batch -> the tensors at
     ``keys``, and at those of ``optional`` the batch holds, on ``device``.
 
     On the card each array is staged in pinned host memory and sent with a

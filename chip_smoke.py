@@ -78,20 +78,23 @@ Phases (any failure raises and the script exits non-zero):
               batches/s;
 8. tiled loss — K5 (loss and stats entries), K6 and K7 against their plain
               versions at R=10,240, V=26,732, W=128 and 256, fp32 and
-              bf16; K5 + K6 at Reddit's V=335,424 (R cut to 2,048 so the
-              plain logits fit), fp32 and bf16; the sharded loss's label
-              encodings; two runs giving the same bits; kernel, plain and
-              library times (kernel and yardstick as medians of 7 blocks,
-              ranges printed); each launch's kernels by device time at
-              W=128 and 256 (K7's two sweeps apart), K5's (bf16: both
-              entries, and at Reddit's V) only ``loss_hopper.cuh``'s
-              ``loss_fwd_sweep_kernel``, the ordered merge and the row sums,
-              fp32 K6's and K7's only ``loss_tf32.cuh``'s 3xTF32 kernels
-              (``FP32_LOSS_KERNELS``: no route back to the SIMT sweeps);
-              fp32 K6 / K7's bounds at 3xTF32's 165 TFLOP/s beside 67
-              without tensor cores; the wgmma kernels' registers and
-              spills, and ptxas's notes where it serialised a kernel's
-              products, print with the build;
+              bf16; K5 + K6 at Reddit's V=335,424 at R=2,048, fp32 and
+              bf16, and in fp32 at the Reddit preset's R=10,240 too (the
+              plain versions there in 2,048-row chunks); the sharded
+              loss's label encodings; two runs giving the same bits;
+              kernel, plain and library times (kernel and yardstick as
+              medians of 7 blocks, ranges printed), each kernel's share of
+              its bound and factor over the library; each launch's kernels
+              by device time at W=128 and 256 (K7's two sweeps apart),
+              K5's (both entries, and at Reddit's V) only
+              ``loss_hopper.cuh``'s ``loss_fwd_sweep_kernel`` in bf16 and
+              ``loss_tf32.cuh``'s ``loss_tf32_fwd_sweep_kernel`` in fp32,
+              the ordered merge and the row sums, fp32 K6's and K7's only
+              ``loss_tf32.cuh``'s 3xTF32 kernels (``FP32_LOSS_KERNELS``: no
+              route back to the SIMT tiles); fp32 K5-K7's bounds at
+              3xTF32's 165 TFLOP/s beside 67 without tensor cores; the
+              wgmma kernels' registers and spills, and ptxas's notes where
+              it serialised a kernel's products, print with the build;
 9. ML-20M training — ``train()`` on ml-20m_128 (backward K6) and
               ml-20m_256 (backward K7) from the phase-7 datasets, B=256,
               bf16, full width and depth: the kernel step against the
@@ -168,11 +171,11 @@ Phases (any failure raises and the script exits non-zero):
               harness's ml20m preset: hidden 128, 2 layers, 4 heads, inner
               512, S=200, P=40, B=256, V=26,732) under ``DTypePolicy.f32()``,
               JAX's default policy and the one the harness's on-chip
-              ml20m and Reddit runs train with: the fp32 layer kernels, fp32
-              K5, and fp32 K6 once a step on ``loss_tf32.cuh``'s kernels;
-              its step time and device breakdown (no SIMT loss sweep and
-              no SIMT layer kernel in it: every fp32 layer launch, forward
-              and backward, counted on the 3xTF32 route);
+              ml20m and Reddit runs train with: the fp32 layer kernels, and
+              fp32 K5 and K6 once a step on ``loss_tf32.cuh``'s kernels;
+              its step time and device breakdown with K5's device time (no
+              SIMT loss or layer kernel in it: every fp32 layer launch,
+              forward and backward, counted on the 3xTF32 route);
 19. fp32 ml-1m training — phase 6's checks for the quality harness's
               ml1m preset as the harness builds it (``BERT4RecConfig``:
               hidden 128, 2 layers, 4 heads, inner 512, S=200, P=40,
@@ -412,13 +415,16 @@ BF16_LOSS_KERNELS = {
 }
 
 
-# The kernels an fp32 K6 / K7 launch may run (csrc/loss_tf32.cuh's 3xTF32
-# sweeps, K6's ordered dh reduction), each with the one it must run, and the
-# SIMT sweeps they replaced, which no fp32 training step may reach
+# The kernels an fp32 K3-K7 launch may run (csrc/loss_tf32.cuh's 3xTF32
+# sweeps, K3's and K5's ordered merge and row sums, K6's ordered dh
+# reduction), each with the one it must run, and the SIMT kernels they
+# replaced, which no fp32 training step may reach
+FP32_FWD_KERNELS = (re.compile(r"^(b4r::loss_tf32::loss_tf32_fwd_sweep_kernel<"
+                               r"|loss_tiled_merge_kernel|b4r::reduce_rows_kernel)"),
+                    "loss_tf32_fwd_sweep_kernel<")
 FP32_LOSS_KERNELS = {
-    "K3": (re.compile(r"^(b4r::loss_tf32::loss_tf32_fwd_sweep_kernel<"
-                      r"|loss_tiled_merge_kernel|b4r::reduce_rows_kernel)"),
-           "loss_tf32_fwd_sweep_kernel<"),
+    "K3": FP32_FWD_KERNELS,
+    "K5": FP32_FWD_KERNELS,
     "K4": (re.compile(r"^b4r::loss_tf32::loss_tf32_sweep_kernel<"),
            "loss_tf32_sweep_kernel<"),
     "K6": (re.compile(r"^(b4r::loss_tf32::loss_tf32_merged_kernel<"
@@ -427,16 +433,12 @@ FP32_LOSS_KERNELS = {
     "K7": (re.compile(r"^b4r::loss_tf32::loss_tf32_sweep_kernel<"),
            "loss_tf32_sweep_kernel<"),
 }
-SIMT_FP32_TILED_LOSS = re.compile(r"loss_bwd_vt_kernel|loss_bwd_dh_kernel")
-# every SIMT loss kernel the port had: none may run on the fp32 ml-1m path
+# every SIMT loss kernel the port had
 SIMT_FP32_LOSS = re.compile(r"loss_fwd_kernel|loss_tiled_fwd_kernel"
                             r"|loss_bwd_(vt|dh|dt)_kernel")
-# what an fp32 train step may not reach: phase 19's the SIMT loss and layer
-# kernels, phase 18's the SIMT loss sweeps and layer kernels (its fp32 K5
-# stays on the SIMT tiles)
+# what an fp32 train step (phases 18 and 19) may not reach: the SIMT loss
+# and layer kernels
 SIMT_FP32_STEP = re.compile(f"{SIMT_FP32_LOSS.pattern}|{SIMT_FP32_LAYER.pattern}")
-SIMT_FP32_ML20M_STEP = re.compile(
-    f"{SIMT_FP32_TILED_LOSS.pattern}|{SIMT_FP32_LAYER.pattern}")
 
 
 def _kernel_name(key: str) -> str:
@@ -1100,7 +1102,7 @@ def check_loss_kernels(torch, rng, device):
             print(f"  fp32 K4's sweeps (blocks, cluster): "
                   f"{fml.sweep_grid(N_ROWS, VOCAB, HIDDEN, dtype)}; fp32 K3's "
                   f"{fml.whole_table_splits(N_ROWS, VOCAB, HIDDEN, dtype)} "
-                  f"vocabulary splits x {-(-N_ROWS // 64)} row tiles",
+                  f"vocabulary splits x {-(-N_ROWS // 128)} row blocks",
                   flush=True)
     return rows
 
@@ -1607,6 +1609,38 @@ def check_pipeline(home):
 # --------------------------------------------------------------------------- #
 
 REDDIT_VOCAB, REDDIT_ROWS = 335_424, 2048   # rows cut so the plain fits
+# the plain versions run in row chunks where [R, V] is larger than this
+PLAIN_ELEMS = REDDIT_ROWS * REDDIT_VOCAB
+
+
+def plain_tiled(torch, fml, h, t, b, lab):
+    """Callables of the plain versions over row chunks whose [rows, V]
+    logits hold at most PLAIN_ELEMS elements: ``forward()`` -> ``(lse,
+    sums)``, ``stats()`` -> ``(m, s, ll)`` and ``backward(lse, g, n_valid,
+    **kw)`` -> ``(dh, dt, db)``; per-row outputs concatenated, the sums, dt
+    and db summed over the chunks (one chunk: the plain versions as they
+    are)."""
+    step = max(1, PLAIN_ELEMS // t.shape[0])
+    chunks = [slice(i, i + step) for i in range(0, h.shape[0], step)]
+
+    def forward():
+        parts = [fml.fused_mlm_loss_plain_forward(h[c], t, b, lab[c])
+                 for c in chunks]
+        return (torch.cat([p[0] for p in parts]),
+                torch.stack([p[1] for p in parts]).sum(dim=0))
+
+    def stats():
+        parts = [fml.fused_mlm_loss_plain_stats(h[c], t, b, lab[c])
+                 for c in chunks]
+        return tuple(torch.cat([p[i] for p in parts]) for i in range(3))
+
+    def backward(lse, g, n_valid, **kw):
+        parts = [fml.fused_mlm_loss_plain_backward(
+            h[c], t, b, lab[c], lse[c], g, n_valid, **kw) for c in chunks]
+        return (torch.cat([p[0] for p in parts]),
+                sum(p[1] for p in parts), sum(p[2] for p in parts))
+
+    return forward, stats, backward
 
 
 def tiled_operands(torch, rng, device, rows, v, w, dtype, labels="mixed"):
@@ -1635,15 +1669,17 @@ def tiled_operands(torch, rng, device, rows, v, w, dtype, labels="mixed"):
 def check_tiled_loss_kernels(torch, rng, device):
     """K5 (loss and stats entries), K6 and K7 against the plain versions
     at one ML-20M train batch (R=10,240, V=26,732; W=128 and 256; fp32 and
-    bf16), K5 + K6 at Reddit's vocabulary (V=335,424, W=128, fp32 and bf16,
-    R cut to 2,048 so that the plain version's [R, V] logits fit), the
-    ``valid_ge_zero`` encoding; two runs of each giving the same bits."""
+    bf16), K5 + K6 at Reddit's vocabulary (V=335,424, W=128) at R=2,048
+    (fp32 and bf16) and at the Reddit preset's R=10,240 (fp32; the plain
+    versions in row chunks), the ``valid_ge_zero`` encoding; two runs of
+    each giving the same bits."""
     import torch.nn.functional as F
     from bert4rec_tpu_torch.ops import fused_mlm_loss as fml
     cases = [(N_ROWS, ML20M_VOCAB, w, dt) for w in (128, 256)
              for dt in (torch.float32, torch.bfloat16)]
     cases += [(REDDIT_ROWS, REDDIT_VOCAB, 128, dt)
               for dt in (torch.float32, torch.bfloat16)]
+    cases += [(N_ROWS, REDDIT_VOCAB, 128, torch.float32)]
     rows = {}
     for r, v, w, dtype in cases:
         name = str(dtype).removeprefix("torch.")
@@ -1659,12 +1695,13 @@ def check_tiled_loss_kernels(torch, rng, device):
             h, t, b, lab, lse, g, sums[3:4], m)) for k, m in kernels.items()}
         grads = {k: f() for k, f in bwd.items()}
         torch.cuda.synchronize()
-        ref_lse, ref_sums = fml.fused_mlm_loss_plain_forward(h, t, b, lab)
-        ref_stats = fml.fused_mlm_loss_plain_stats(h, t, b, lab)
+        plain_fwd, plain_stats, plain_bwd_fn = plain_tiled(
+            torch, fml, h, t, b, lab)
+        ref_lse, ref_sums = plain_fwd()
+        ref_stats = plain_stats()
         fwd_err = max([rel_err(lse, ref_lse), rel_err(sums[:1], ref_sums[:1])]
                       + [rel_err(a, c) for a, c in zip(stats, ref_stats)])
-        ref_grads = fml.fused_mlm_loss_plain_backward(h, t, b, lab, ref_lse,
-                                                      g, ref_sums[3])
+        ref_grads = plain_bwd_fn(ref_lse, g, ref_sums[3])
         bwd_err = {k: max(rel_err(a, c) for a, c in zip(out, ref_grads))
                    for k, out in grads.items()}
         bwd_abs = {k: max(float((a.float() - c.float()).abs().max())
@@ -1677,7 +1714,10 @@ def check_tiled_loss_kernels(torch, rng, device):
                 f"{fwd_err} (tol {LOSS_FWD_TOL}), counts "
                 f"{sums[1:].tolist()} vs {ref_sums[1:].tolist()}, backward "
                 f"rel err {bwd_err} (tol {tol})")
+        stats_fn = lambda: fml._launch_forward_tiled_stats(  # noqa: E731
+            h, t, b, lab)
         if not (torch.equal(fwd()[0], lse) and all(
+                torch.equal(a, c) for a, c in zip(stats_fn(), stats)) and all(
                 all(torch.equal(a, c) for a, c in zip(f(), grads[k]))
                 for k, f in bwd.items())):
             raise AssertionError(f"tiled loss {name} R={r} V={v} W={w}: two "
@@ -1692,44 +1732,42 @@ def check_tiled_loss_kernels(torch, rng, device):
             return F.cross_entropy(logits, lab.long(), ignore_index=0)
 
         lib_loss = lib_fwd()
-        plain_bwd = lambda: fml.fused_mlm_loss_plain_backward(  # noqa: E731
-            h, t, b, lab, ref_lse, g, ref_sums[3])
+        plain_bwd = lambda: plain_bwd_fn(ref_lse, g, ref_sums[3])  # noqa: E731
         # kernels and yardsticks as medians of 7 blocks (of 3 calls for
         # fp32, of 10 otherwise)
         heavy = dtype == torch.float32
         it = dict(iters=3, warmup=1) if heavy else {}
         shape = dict(rows=r, v=v, w=w)
+        # fp32 K5-K7 run 3xTF32: their bound at its rate, and at fp32's
+        # without tensor cores beside it
+        peak = TF32X3_FLOPS if heavy else None
         row = {"K5": dict(max_abs_err=float((sums[0] - ref_sums[0]).abs()),
                           max_rel_err=fwd_err, **blocks(fwd, **it),
-                          plain_ms=time_ms(lambda: fml.fused_mlm_loss_plain_forward(
-                              h, t, b, lab), iters=3, warmup=1),
+                          plain_ms=time_ms(plain_fwd, iters=3, warmup=1),
                           **blocks(lib_fwd, "library", **it),
                           **dict(zip(("bound_ms", "bound_by"), loss_bound_ms(
-                              r, v, w, name, False))), **shape)}
+                              r, v, w, name, False, peak))), **shape)}
         plain_bwd_ms = time_ms(plain_bwd, iters=2, warmup=1)
         lib_bwd = blocks(lambda: torch.autograd.grad(
             lib_loss, (hl, tl, bl), retain_graph=True), "library", **it)
-        # fp32 K6 / K7 run 3xTF32: their bound at its rate, and at fp32's
-        # without tensor cores beside it
-        peak = TF32X3_FLOPS if heavy else None
         for k, f in bwd.items():
             row[k] = dict(max_abs_err=bwd_abs[k], max_rel_err=bwd_err[k],
                           **blocks(f, **it), plain_ms=plain_bwd_ms, **lib_bwd,
                           **dict(zip(("bound_ms", "bound_by"), loss_bound_ms(
                               r, v, w, name, True, peak))), **shape)
         rows[(name, r, v, w)] = row
-        fp32_bound = loss_bound_ms(r, v, w, name, True)[0]
         for k, x in row.items():
+            fp32_bound = loss_bound_ms(r, v, w, name, k != "K5")[0]
             print(f"tiled loss {k} {name} R={r} V={v} W={w}: rel err "
                   f"{x['max_rel_err']:.3g} (tol "
                   f"{LOSS_FWD_TOL if k == 'K5' else tol}) {timing_text(x)}"
-                  + (f"; bound at 67 TFLOP/s {fp32_bound:.5f}"
-                     if heavy and k != "K5" else ""), flush=True)
-        # each launch's kernels: K7's two sweeps apart, at each W; bf16
-        # K5's only its sweep and merge; fp32 K6 / K7 only loss_tf32.cuh's
-        stats_fn = lambda: fml._launch_forward_tiled_stats(  # noqa: E731
-            h, t, b, lab)
-        launches = [] if heavy else [("K5", fwd), ("K5 stats", stats_fn)]
+                  + (f"; bound at 67 TFLOP/s {fp32_bound:.5f}" if heavy else "")
+                  + f"; {x['bound_ms'] / x['ms']:.1%} of the bound, "
+                  f"{x['ms'] / x['library_ms']:.3f}x the library", flush=True)
+        # each launch's kernels: K7's two sweeps apart, at each W; K5's
+        # (both entries) only its sweep, merge and row sums; fp32 K6 / K7
+        # only loss_tf32.cuh's
+        launches = [("K5", fwd), ("K5 stats", stats_fn)]
         if not (reddit and not heavy):
             launches += list(bwd.items())
         for k, f in launches:
@@ -1919,7 +1957,8 @@ def check_ml20m_training(torch, device, loader, splits, config_name,
     median = sorted(step_ms)[len(step_ms) // 2]
     device_ms, breakdown = device_breakdown(
         torch, lambda: trainer.train_step(batch), calls=3, top=10,
-        forbid=SIMT_FP32_ML20M_STEP if fp32 else LEGACY_BF16_LAYER)
+        forbid=SIMT_FP32_STEP if fp32 else LEGACY_BF16_LAYER,
+        groups={"K5": ("fwd_sweep_kernel", "loss_tiled_merge_kernel")})
     idle = None if device_ms is None else 1 - device_ms / train_ms
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2973,7 +3012,10 @@ def run(torch, home) -> int:
               f"{loss_py}:602",
               c128["K7"] + c256["K7"] + csas["K7"] + c_temp["K7"],
               tiled_256["K7"]),
-        # fp32 K6 (3xTF32): launches from the fp32 ml-20m_128 train() run
+        # fp32 K5 and K6 (3xTF32): launches from the fp32 ml-20m_128
+        # train() run (the harness's ml20m preset)
+        entry("fused_mlm_loss_tiled_fp32", "loss_tf32.cuh", f"{loss_py}:375",
+              fp32_ml20m["counts"]["K5"], tiled_fp32["K5"]),
         entry("fused_mlm_loss_tiled_backward_merged_fp32", "loss_tf32.cuh",
               f"{loss_py}:502", fp32_ml20m["counts"]["K6"], tiled_fp32["K6"]),
         # fp32 K3 / K4 (3xTF32): launches from the fp32 ml-1m_128 train()

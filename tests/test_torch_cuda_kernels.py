@@ -879,7 +879,12 @@ TILED_CASES = [((10240, 26732, w), "mixed") for w in (128, 256)] + [
                          ids=["fp32", "bf16"])
 def test_tiled_loss_kernels_match_plain(cuda_device, shape, labels, dtype):
     """K5 (loss and stats entries), K6 and K7 against the plain versions,
-    and two runs of each backward giving the same bits."""
+    and two runs of each giving the same bits: fp32 K5 on loss_tf32.cuh's
+    3xTF32 forward sweep, bf16 K5 on loss_hopper.cuh's. The forward's
+    bound: 1e-5 in bf16, whose products are exact in fp32; 1e-4 in fp32,
+    as for fp32 K3 (the same sweep), since a 3xTF32 product is a few fp32
+    ulps of each term off (a lone row's label logit of 0.25 at W=256 read
+    1.5e-5 of its scale)."""
     from bert4rec_tpu_torch.ops import fused_mlm_loss as fml
     r, vp, w = shape
     h, t, b, lab, _ = _tiled_inputs(cuda_device, dtype, r, vp, w, labels)
@@ -890,12 +895,17 @@ def test_tiled_loss_kernels_match_plain(cuda_device, shape, labels, dtype):
     rlse, rsums = fml.fused_mlm_loss_plain_forward(h, t, b, lab)
     rm, rs, rll = fml.fused_mlm_loss_plain_stats(h, t, b, lab)
     tol = 1e-4 if dtype == torch.float32 else 2e-2
-    assert _rel_err(lse, rlse) <= 1e-5
+    fwd_tol = 1e-4 if dtype == torch.float32 else 1e-5
+    assert _rel_err(lse, rlse) <= fwd_tol
     assert abs(float(sums[0]) - float(rsums[0])) <= \
-        1e-5 * max(abs(float(rsums[0])), 1.0)
+        fwd_tol * max(abs(float(rsums[0])), 1.0)
     assert sums[1:].tolist() == rsums[1:].tolist()
     for got, ref in ((m, rm), (s, rs), (ll, rll)):
-        assert _rel_err(got, ref) <= 1e-5
+        assert _rel_err(got, ref) <= fwd_tol
+    again = fml._launch_forward_tiled(h, t, b, lab)
+    assert torch.equal(again[0], lse) and torch.equal(again[1], sums)
+    assert all(torch.equal(a, c) for a, c in zip(
+        fml._launch_forward_tiled_stats(h, t, b, lab), (m, s, ll)))
     g = torch.full((), 0.5, device=cuda_device)
     nv = rsums[3:4]
     ref = fml.fused_mlm_loss_plain_backward(h, t, b, lab, rlse, g, nv[0],
@@ -985,13 +995,15 @@ def test_tiled_bf16_rejects_a_misaligned_view(cuda_device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", ["width_18", "shifted_base", "column_slice"])
-@pytest.mark.parametrize("merged", [True, False], ids=["K6", "K7"])
+@pytest.mark.parametrize("kernel", ["K5", "K6", "K7"])
 def test_tiled_fp32_takes_any_layout_through_a_copy(cuda_device, case,
-                                                    merged):
-    """fp32 K6 / K7 copy 16-byte pieces of each row (W a multiple of 4):
-    a width off that rule, a base 4 bytes off 16 and a column slice run
-    through the wrapper's aligned, zero-filled copy and match the plain
-    backward within 1e-4, the gradients at the caller's width."""
+                                                    kernel):
+    """fp32 K5 (both entries), K6 and K7 copy 16-byte pieces of each row (W
+    a multiple of 4): a width off that rule, a base 4 bytes off 16 and a
+    column slice run through the wrapper's aligned, zero-filled copy and
+    match the plain versions within 1e-4 (K5: lse, the loss sum and the
+    stats relative to their scale, the counts equal), the gradients at the
+    caller's width."""
     from bert4rec_tpu_torch.ops import fused_mlm_loss as fml
     w = 18 if case == "width_18" else 64
     h, t, b, lab, _ = _tiled_inputs(cuda_device, torch.float32, 130, 200, w)
@@ -1009,9 +1021,21 @@ def test_tiled_fp32_takes_any_layout_through_a_copy(cuda_device, case,
         h, t = widen(h), widen(t)
         assert not h.is_contiguous()
     lse, sums = fml.fused_mlm_loss_plain_forward(h, t, b, lab)
+    if kernel == "K5":
+        got_lse, got_sums = fml._launch_forward_tiled(h, t, b, lab)
+        stats = fml._launch_forward_tiled_stats(h, t, b, lab)
+        torch.cuda.synchronize()
+        assert _rel_err(got_lse, lse) <= 1e-4
+        assert abs(float(got_sums[0]) - float(sums[0])) <= \
+            1e-4 * max(abs(float(sums[0])), 1.0)
+        assert got_sums[1:].tolist() == sums[1:].tolist()
+        for a, c in zip(stats, fml.fused_mlm_loss_plain_stats(h, t, b, lab)):
+            assert a.shape == c.shape and _rel_err(a, c) <= 1e-4
+        return
     g = torch.full((), 0.5, device=cuda_device)
     ref = fml.fused_mlm_loss_plain_backward(h, t, b, lab, lse, g, sums[3])
-    got = fml._launch_backward_tiled(h, t, b, lab, lse, g, sums[3:4], merged)
+    got = fml._launch_backward_tiled(h, t, b, lab, lse, g, sums[3:4],
+                                     kernel == "K6")
     torch.cuda.synchronize()
     for a, c in zip(got, ref):
         assert a.shape == c.shape and a.is_contiguous()
@@ -1019,42 +1043,77 @@ def test_tiled_fp32_takes_any_layout_through_a_copy(cuda_device, case,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("w,merged", [(128, True), (256, False), (256, True),
-                                      (128, False), (40, True), (40, False)],
-                         ids=lambda v: str(v))
+@pytest.mark.parametrize("w,kernel,v", [
+    (128, "K6", 3000), (256, "K7", 3000), (256, "K6", 3000),
+    (128, "K7", 3000), (40, "K6", 3000), (40, "K7", 3000),
+    (64, "K5", 3000), (128, "K5", 3000), (256, "K5", 3000),
+    (128, "K5", 335424)], ids=lambda v: str(v))
 def test_tiled_fp32_launch_runs_only_the_tf32_kernels(cuda_device, w,
-                                                      merged):
+                                                      kernel, v):
     """An fp32 K6 launch runs loss_tf32.cuh's merged kernel and the ordered
     dh reduction, an fp32 K7 launch its two sweeps (dh, then dt); neither
     reaches the SIMT sweeps they replaced (``loss_bwd_vt_kernel``, and for
     K7 ``loss_bwd_dh_kernel``, since gone from the source with fp32 K4's
-    SIMT tiles)."""
+    SIMT tiles). An fp32 K5 launch, either entry, at each width and at
+    Reddit's vocabulary, runs only loss_tf32.cuh's forward sweep, the
+    ordered merge and (the loss entry) the row sums: no route back to the
+    SIMT tiles (``loss_tiled_fwd_kernel``, gone from the source)."""
     from torch.profiler import ProfilerActivity, profile
     from bert4rec_tpu_torch.ops import fused_mlm_loss as fml
-    h, t, b, lab, _ = _tiled_inputs(cuda_device, torch.float32, 1000, 3000,
-                                    w)
-    lse, sums = fml._launch_forward_tiled(h, t, b, lab)
+    rows = 1000
+    h, t, b, lab, _ = _tiled_inputs(cuda_device, torch.float32, rows, v, w)
     g = torch.ones((), device=cuda_device)
-    fn = lambda: fml._launch_backward_tiled(  # noqa: E731
-        h, t, b, lab, lse, g, sums[3:4], merged)
-    fn()
-    torch.cuda.synchronize()
-    want = ({"loss_tf32_merged_kernel<", "reduce_rows_cast_kernel<float>"}
-            if merged else {"loss_tf32_sweep_kernel<", "false>", "true>"})
-    for _ in range(3):   # the profiler can drop records
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            fn()
+    if kernel == "K5":
+        cases = [(lambda: fml._launch_forward_tiled(h, t, b, lab),
+                  {"loss_tf32_fwd_sweep_kernel<", "loss_tiled_merge_kernel",
+                   "reduce_rows_kernel"}),
+                 (lambda: fml._launch_forward_tiled_stats(h, t, b, lab),
+                  {"loss_tf32_fwd_sweep_kernel<", "loss_tiled_merge_kernel"})]
+        allowed = ("loss_tf32_fwd_sweep_kernel<", "loss_tiled_merge_kernel",
+                   "reduce_rows_kernel")
+        forbid = ("loss_tiled_fwd_kernel", "loss_fwd_kernel")
+    else:
+        merged = kernel == "K6"
+        lse, sums = fml._launch_forward_tiled(h, t, b, lab)
+        cases = [(lambda: fml._launch_backward_tiled(
+            h, t, b, lab, lse, g, sums[3:4], merged),
+            {"loss_tf32_merged_kernel<", "reduce_rows_cast_kernel<float>"}
+            if merged else {"loss_tf32_sweep_kernel<", "false>", "true>"})]
+        allowed = ("loss_tf32", "reduce_rows_cast_kernel<float>")
+        forbid = ("loss_bwd_vt_kernel",) + (() if merged else
+                                            ("loss_bwd_dh_kernel",))
+    for fn, want in cases:
+        fn()
+        torch.cuda.synchronize()
+        for _ in range(3):   # the profiler can drop records
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+            names = [e.key for e in prof.key_averages()
+                     if getattr(e, "self_device_time_total", 0) > 0]
+            if all(any(k in n for n in names) for k in want):
+                break
+        assert not [n for n in names if any(f in n for f in forbid)], names
+        assert all(any(k in n for n in names) for k in want), names
+        assert all(any(a in n for a in allowed) for n in names), names
+
+
+@pytest.mark.cuda
+def test_tiled_fp32_forward_repeats_its_bits(cuda_device):
+    """Two runs of fp32 K5, each entry, at ML-20M's batch and width (R =
+    10,240, V = 26,732, W = 128), at Reddit's vocabulary and at W = 256
+    give the same bits: every split's stats are merged in split order, no
+    atomics."""
+    from bert4rec_tpu_torch.ops import fused_mlm_loss as fml
+    for r, vp, w in ((10240, 26732, 128), (2048, 335424, 128),
+                     (1000, 26732, 256)):
+        h, t, b, lab, _ = _tiled_inputs(cuda_device, torch.float32, r, vp, w)
+        for fn in (fml._launch_forward_tiled,
+                   fml._launch_forward_tiled_stats):
+            one, two = fn(h, t, b, lab), fn(h, t, b, lab)
             torch.cuda.synchronize()
-        names = [e.key for e in prof.key_averages()
-                 if getattr(e, "self_device_time_total", 0) > 0]
-        if all(any(k in n for n in names) for k in want):
-            break
-    forbid = ("loss_bwd_vt_kernel",) + (() if merged else
-                                        ("loss_bwd_dh_kernel",))
-    assert not [n for n in names if any(f in n for f in forbid)], names
-    assert all(any(k in n for n in names) for k in want), names
-    assert all("loss_tf32" in n or "reduce_rows_cast_kernel<float>" in n
-               for n in names), names
+            assert all(torch.equal(a, c) for a, c in zip(one, two)), \
+                (r, vp, w, fn.__name__)
 
 
 def _edge_inputs(device, r, v, w, seed, dtype=torch.bfloat16):
@@ -1190,14 +1249,38 @@ def test_bf16_whole_table_workspace_does_not_grow_with_the_vocabulary(
     ids=lambda d: "R{}_V{}_W{}".format(*d))
 @pytest.mark.cuda
 def test_fp32_whole_table_split_law_mirrors_the_library(cuda_device, shape):
-    """fp32 K3 splits the vocabulary by its own law (64-row tiles x splits
-    up to 512, at most one split per 64-entry tile, 32 at W > 128) and
-    sizes its workspace by it: the Python mirror gives the library's
-    bytes, where the split count is capped by the tiles and where not."""
+    """fp32 K3 splits the vocabulary by fp32 K5's law (128-row blocks x
+    splits up to 1,024, at most one split per 64-entry tile; at W > 128
+    64-row tiles x splits up to 512, 32-entry tiles) and sizes its
+    workspace by it: the Python mirror gives the library's bytes, where
+    the split count is capped by the tiles and where not."""
     from bert4rec_tpu_torch.ops import fused_mlm_loss as fml
     r, v, w = shape
     assert fml.workspace_bytes("K3/K4", r, v, w, torch.float32) == \
         fml.whole_table_workspace_bytes(r, v, w, torch.float32)
+
+
+@pytest.mark.parametrize("shape", [
+    (10240, 26732, 128), (10240, 26732, 256), (10240, 26732, 64),
+    (2048, 335424, 128), (10240, 335424, 128), (300, 104, 32),
+    (77, 61, 256), (1, 61, 128), (130, 200, 40), (6144, 3709, 64)],
+    ids=lambda d: "R{}_V{}_W{}".format(*d))
+@pytest.mark.cuda
+def test_fp32_tiled_forward_split_law_mirrors_the_library(cuda_device,
+                                                          shape):
+    """fp32 K5 splits the vocabulary by its law (bf16 K5's at W <= 128:
+    128-row blocks x splits up to 1,024, at most one split per 64-entry
+    tile; at W > 128 64-row tiles x splits up to 512, 32-entry tiles) and
+    sizes its workspace by it: the Python mirror
+    ``tiled_forward_workspace_bytes`` (from ``tiled_forward_splits(...,
+    torch.float32)``) gives the library's bytes at ML-20M's and Reddit's
+    shapes, where the split count is capped by the tiles and where not."""
+    from bert4rec_tpu_torch.ops import fused_mlm_loss as fml
+    r, v, w = shape
+    assert fml.workspace_bytes("K5", r, v, w, torch.float32) == \
+        fml.tiled_forward_workspace_bytes(r, v, w, torch.float32)
+    assert fml.workspace_bytes("K5", r, v, w) == \
+        fml.tiled_forward_workspace_bytes(r, v, w)
 
 
 @pytest.mark.cuda
@@ -1252,6 +1335,36 @@ def test_fp32_whole_table_kernels_match_plain(cuda_device, shape):
             assert not bool(a.abs().any())
         else:
             assert _rel_err(a, c) <= 1e-4
+
+
+@pytest.mark.parametrize("shape", FP32_WHOLE_TABLE,
+                         ids=lambda d: "R{}_V{}_W{}".format(*d))
+@pytest.mark.cuda
+def test_fp32_tiled_forward_at_the_label_edges(cuda_device, shape):
+    """fp32 K5, both entries (loss_tf32.cuh's forward sweep over the
+    vocabulary splits, then the ordered merge), against the plain versions
+    with labels at column 0, V - 1, V and past it, -1 and -2 (a label
+    outside [0, V) matches no column): lse, the loss sum and the stats
+    within 1e-4 of their scale, the counts equal, two runs the same bits."""
+    from bert4rec_tpu_torch.ops import fused_mlm_loss as fml
+    r, v, w = shape
+    h, t, b, lab = _edge_inputs(cuda_device, r, v, w, r * v + w,
+                                torch.float32)
+    rlse, rsums = fml.fused_mlm_loss_plain_forward(h, t, b, lab)
+    rstats = fml.fused_mlm_loss_plain_stats(h, t, b, lab)
+    lse, sums = fml._launch_forward_tiled(h, t, b, lab)
+    stats = fml._launch_forward_tiled_stats(h, t, b, lab)
+    again = fml._launch_forward_tiled(h, t, b, lab)
+    stats_again = fml._launch_forward_tiled_stats(h, t, b, lab)
+    torch.cuda.synchronize()
+    assert _rel_err(lse, rlse) <= 1e-4
+    assert abs(float(sums[0]) - float(rsums[0])) <= \
+        1e-4 * max(abs(float(rsums[0])), 1.0)
+    assert sums[1:].tolist() == rsums[1:].tolist()
+    for got, ref in zip(stats, rstats):
+        assert got.shape == ref.shape and _rel_err(got, ref) <= 1e-4
+    assert torch.equal(again[0], lse) and torch.equal(again[1], sums)
+    assert all(torch.equal(a, c) for a, c in zip(stats_again, stats))
 
 
 @pytest.mark.cuda

@@ -160,25 +160,30 @@ class TestWholeTableSplitLaw:
         (300, 104, 32, 2),         # two 64-entry tiles, 3 row blocks
         (1, 61, 128, 1),
         (2048, 26732, 128, 64),
+        (10240, 26732, 128, 13),   # K5 at ML-20M's batch: 80 x 13
+        (10240, 26732, 256, 13),   # 209 tiles of 128 entries
+        (2048, 335424, 128, 64),   # Reddit's V, R cut to 2,048: 16 x 64
     ], ids=lambda v: str(v))
     def test_bf16_splits_by_the_tiled_forward_law(self, rows, v, w, splits):
         assert fml.whole_table_splits(rows, v, w) == splits
         assert fml.tiled_forward_splits(rows, v, w) == splits
 
     @pytest.mark.parametrize("rows, v, w, splits", [
-        (10240, 3709, 128, 4),     # ml-1m's batch: 160 row tiles x 4
-        (10240, 3709, 64, 4),
-        (10240, 3709, 256, 4),     # 32-entry tiles at W > 128: 116 tiles
-        (6144, 3709, 64, 6),       # 96 row tiles
-        (300, 104, 32, 2),         # two 64-entry tiles, 5 row tiles
+        (10240, 3709, 128, 13),    # ml-1m's batch: 80 row blocks x 13
+        (10240, 3709, 64, 13),
+        (10240, 3709, 256, 4),     # 64-row tiles, 32-entry tiles: 160 x 4
+        (6144, 3709, 64, 22),      # 48 row blocks
+        (300, 104, 32, 2),         # two 64-entry tiles, 3 row blocks
         (77, 61, 256, 2),          # two 32-entry tiles
         (1, 61, 128, 1),
-        (2048, 26732, 128, 16),
+        (2048, 26732, 128, 64),
     ], ids=lambda v: str(v))
     def test_fp32_splits_by_its_own_law(self, rows, v, w, splits):
-        """fp32 K3: the fewest splits that bring (64-row tiles x splits)
-        to 512 blocks, one an SM, at most one per vocabulary tile of 64
-        entries (32 at W > 128)."""
+        """fp32 K3 (fp32 K5's sweep over the whole table): the fewest
+        splits that bring (row blocks x splits) to the target, one block an
+        SM, at most one per vocabulary tile: 128-row blocks, 64-entry tiles
+        and 1,024 blocks (bf16's law) at W <= 128; 64-row tiles, 32-entry
+        tiles and 512 blocks at W > 128."""
         assert fml.whole_table_splits(rows, v, w, torch.float32) == splits
 
     @pytest.mark.parametrize("rows, v, w", [(10240, 3709, 128),

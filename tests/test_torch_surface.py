@@ -1,10 +1,13 @@
 """The JAX package's surface the port lacked, held against the JAX package
 on the CPU: the trainer's constructor (``mesh``, ``eval_steps_per_call``)
 and its optional checkpoint records, the encoder's and the model's config
-round-trips, the package exports of ``utils``, ``ops`` and ``models``,
-``utils.load_json_config``, and the per-sequence masking laws
-``apply_dynamic_masking_task`` / ``mask_last_token_only``."""
+round-trips, the package exports of ``utils``, ``ops``, ``models``,
+``core`` and ``models.components``, ``utils.load_json_config``, the
+per-sequence masking laws ``apply_dynamic_masking_task`` /
+``mask_last_token_only``, ``ModelWrapper.delete_keys_from_meta``,
+``prefetch``'s ``put_fn`` keyword and ``core.enable_fast_prng``."""
 
+import inspect
 import json
 
 import jax
@@ -12,22 +15,28 @@ import numpy as np
 import pytest
 import torch
 
+import bert4rec_tpu.core as jax_core
 import bert4rec_tpu.models as jax_models
+import bert4rec_tpu.models.components as jax_components
 import bert4rec_tpu.ops as jax_ops
 import bert4rec_tpu.utils as jax_utils
 from bert4rec_tpu.dataloaders import dataloader_utils as jax_du
 from bert4rec_tpu.models import BERT4RecConfig as JaxConfig
 from bert4rec_tpu.models import BERT4RecModel as JaxModel
 from bert4rec_tpu.models import Bert4RecEncoder as JaxEncoder
+from bert4rec_tpu.models.model_wrapper import ModelWrapper as JaxWrapper
 from bert4rec_tpu.trainers import BERT4RecTrainer as JaxTrainer
 from bert4rec_tpu.utils import checkpoint as jax_ckpt
-from bert4rec_tpu_torch import models, ops, utils
+from bert4rec_tpu.utils import prefetch as jax_prefetch
+from bert4rec_tpu_torch import core, models, ops, utils
+from bert4rec_tpu_torch.models import components
 from bert4rec_tpu_torch.dataloaders import dataloader_utils as du
 from bert4rec_tpu_torch.models import (
-    BERT4RecConfig, BERT4RecModel, Bert4RecEncoder,
+    BERT4RecConfig, BERT4RecModel, Bert4RecEncoder, ModelWrapper,
 )
 from bert4rec_tpu_torch.trainers import BERT4RecTrainer, optimizers
 from bert4rec_tpu_torch.utils import checkpoint as ckpt
+from bert4rec_tpu_torch.utils import prefetch as port_prefetch
 from tests.test_torch_trainer import (
     OPT, config_kwargs, dataset, host_params, jax_trainer,
 )
@@ -137,17 +146,34 @@ class TestConfigRoundTrips:
 
 class TestExports:
 
-    @pytest.mark.parametrize("port,jax_pkg,missing", [
-        (utils, jax_utils, {"StepTimer", "hard_sync", "trace"}),
-        (ops, jax_ops, set()),
-        (models, jax_models, {"export", "quantization"}),
-    ], ids=["utils", "ops", "models"])
-    def test_package_exports_follow_jax(self, port, jax_pkg, missing):
+    @pytest.mark.parametrize("port,jax_pkg,missing,extra", [
+        (utils, jax_utils, {"StepTimer", "hard_sync", "trace"}, set()),
+        (ops, jax_ops, set(), set()),
+        (models, jax_models, {"export", "quantization"}, set()),
+        (core, jax_core, {"MeshConfig", "create_mesh",
+                          "distributed_initialize", "batch_sharding",
+                          "replicated_sharding", "param_partition_specs",
+                          "param_shardings", "make_batch_specs"},
+         {"resolve_device"}),
+        (components, jax_components, set(), set()),
+    ], ids=["utils", "ops", "models", "core", "models.components"])
+    def test_package_exports_follow_jax(self, port, jax_pkg, missing, extra):
         """Every JAX export is exported by the port, but the modules not
-        ported yet (ROADMAP.md, queue A)."""
-        assert set(port.__all__) == set(jax_pkg.__all__) - missing
+        ported yet (ROADMAP.md, queue A: ``core``'s mesh and partitioning
+        names wait for A.5); ``core.resolve_device`` is the port's own."""
+        assert set(port.__all__) == (set(jax_pkg.__all__) - missing) | extra
         for name in port.__all__:
             assert getattr(port, name) is not None
+
+    def test_components_export_the_encoder_and_its_modules(self):
+        """``from ...models.components import Bert4RecEncoder, layers,
+        transformer`` works on the port as on JAX, the encoder being the
+        one ``models`` exports."""
+        assert components.Bert4RecEncoder is Bert4RecEncoder
+        assert components.layers.__name__ == \
+            "bert4rec_tpu_torch.models.components.layers"
+        assert components.transformer.__name__ == \
+            "bert4rec_tpu_torch.models.components.transformer"
 
     def test_load_json_config(self, tmp_path):
         path = tmp_path / "c.json"
@@ -167,6 +193,47 @@ class TestExports:
                                 {"a": {"b": torch.zeros(3)}, "step": 0})
         assert torch.equal(got["a"]["b"], torch.arange(3.0))
         assert got["step"] == 7
+
+
+class TestSurfaceCalls:
+    """Calls that work on the JAX package and work the same on the port."""
+
+    @pytest.mark.parametrize("keys", ["custom", ["custom", "tokenizer"],
+                                      ["absent"], []],
+                             ids=["one_key", "a_list", "absent", "none"])
+    def test_delete_keys_from_meta_follows_jax(self, keys):
+        """A key or a list of keys leaves the meta config; an absent key is
+        ignored."""
+        jax_w, port_w = JaxWrapper(object()), ModelWrapper(object())
+        for w in (jax_w, port_w):
+            w.update_meta({"custom": 1, "last_trained": "2024-01-01"})
+            w.delete_keys_from_meta(keys)
+        assert port_w.get_meta() == jax_w.get_meta()
+        assert "custom" not in port_w.get_meta() or keys in (["absent"], [])
+
+    @pytest.mark.parametrize("depth", [1, 2, 5])
+    def test_prefetch_takes_put_fn_by_keyword(self, depth):
+        """``prefetch(iterator, put_fn=..., depth=...)`` as on JAX: the same
+        parameter names, and the same items in order."""
+        assert list(inspect.signature(port_prefetch.prefetch).parameters) \
+            == list(inspect.signature(jax_prefetch.prefetch).parameters)
+        items = list(range(7))
+        put = lambda x: x * x + 1  # noqa: E731
+        assert list(port_prefetch.prefetch(iter(items), put_fn=put,
+                                           depth=depth)) == \
+            list(jax_prefetch.prefetch(iter(items), put_fn=put,
+                                       depth=depth)) == [put(x) for x in items]
+
+    def test_enable_fast_prng_is_a_documented_no_op(self):
+        """``core.enable_fast_prng()`` as ``bench.py`` calls it: no
+        argument, no result, and no random stream moves (the port's
+        dropout is a counter hash)."""
+        assert inspect.signature(core.enable_fast_prng) == \
+            inspect.signature(jax_core.enable_fast_prng)
+        assert core.enable_fast_prng.__doc__
+        before = torch.random.get_rng_state()
+        assert core.enable_fast_prng() is None
+        assert torch.equal(torch.random.get_rng_state(), before)
 
 
 class TestPerSequenceMasking:

@@ -32,8 +32,9 @@ def inputs(rows, v, vp, w, seed, labels="mixed"):
     config-padding columns; labels ``mixed`` (random, every 5th 0),
     ``padding`` (all 0), ``sharded`` (the backward's valid_ge_zero
     encoding: local ids, a sentinel past the table for remote labels, -1
-    for none) or ``sharded_fwd`` (the forward's: local ids with 0, -2 for
-    remote or none)."""
+    for none), ``sharded_fwd`` (the forward's: local ids with 0, -2 for
+    remote or none) or ``edges`` (every 7th 0, then column 0, the last
+    real and the last padded column, -1 and -2)."""
     rng = np.random.default_rng(seed)
     hidden = rng.normal(size=(rows, w)).astype(np.float32)
     table = (rng.normal(size=(vp, w)) * 0.3).astype(np.float32)
@@ -49,6 +50,9 @@ def inputs(rows, v, vp, w, seed, labels="mixed"):
     elif labels == "sharded_fwd":
         lab[::3] = -2
         lab[1::6] = 0
+    elif labels == "edges":
+        lab[::7] = 0
+        lab[:5] = [0, v - 1, vp - 1, -1, -2]
     return hidden, table, bias, lab
 
 
@@ -222,6 +226,132 @@ class TestThreeTf32:
             err1 = _rel_err(g1.numpy(), p.numpy())
             assert err3 <= 1e-5, err3
             assert err1 >= 10 * err3, (err1, err3)
+
+
+class TestThreeTf32Forward:
+    """The rounding law of fp32 K5 (csrc/loss_tf32.cuh's forward sweep,
+    fp32 K3's), emulated on the CPU with ``ops/tf32.py``: the logits a
+    3xTF32 product (hi / lo split by cvt.rna, three products summed in
+    fp32), the max, sum of exponentials, label logit, lse and sums from
+    them in fp32. Both entries against JAX's interpret-mode
+    ``_run_forward_tiled`` / ``_run_forward_tiled_stats`` and the plain
+    fp32 forward: lse, the loss sum and ``(m, s, ll)`` within 1e-4 of
+    JAX's and 1e-5 of the plain version's, the counts equal; one TF32 pass
+    lands at least 10x further from the plain version. ``edges`` puts
+    labels on the table's first, last real and last padded columns and at
+    -1 and -2, which match no column in either package. (A label at or
+    past the padded table's end also matches none in the port, where JAX's
+    padding of the vocabulary to 1,024 columns gives it a -1e9 column: a
+    difference by design, held against the plain version on the card.)"""
+
+    @staticmethod
+    def _stats(mm, h, t, b, lab):
+        logits = mm(h, t.T) + b
+        m = logits.amax(dim=-1)
+        s = torch.exp(logits - m[:, None]).sum(dim=-1)
+        return m, s, fml._label_logit(logits, lab)
+
+    @classmethod
+    def _forward(cls, mm, h, t, b, lab):
+        m, s, ll = cls._stats(mm, h, t, b, lab)
+        lse = m + torch.log(s)
+        w = (lab > 0).float()
+        correct = ((ll >= m) & (lab >= 0)).float()
+        return lse, torch.stack([((lse - ll) * w).sum(), (correct * w).sum(),
+                                 correct.sum(), w.sum()])
+
+    @staticmethod
+    def _closer(got3, got1, plain, jax_ref):
+        """Within 1e-4 of JAX's, 1e-5 of the plain version's, one TF32 pass
+        at least 10x further from the plain version."""
+        assert _rel_err(got3, jax_ref) <= 1e-4
+        err3, err1 = _rel_err(got3, plain), _rel_err(got1, plain)
+        assert err3 <= 1e-5, err3
+        assert err1 >= 10 * err3, (err1, err3)
+
+    @pytest.mark.parametrize("shape", SHAPES, ids=SHAPE_IDS)
+    @pytest.mark.parametrize("labels", ["mixed", "padding", "sharded_fwd",
+                                        "edges"])
+    def test_3xtf32_forward_matches_jax_and_plain(self, shape, labels):
+        rows, v, vp, w = shape
+        h, t, b, lab = inputs(rows, v, vp, w, rows + w, labels)
+        loss_sum, cv, ca, nv, jlse, n = jax_fml._run_forward_tiled(
+            jnp.asarray(h), jnp.asarray(t), jnp.asarray(b), jnp.asarray(lab),
+            v, True)
+        ops = _plain_operands(h, t, b, lab, v, torch.float32)
+        plse, psums = fml.fused_mlm_loss_plain_forward(*ops)
+        lse3, sums3 = self._forward(tf32.mm_3xtf32, *ops)
+        lse1, _ = self._forward(tf32.mm_tf32, *ops)
+        assert n == rows
+        self._closer(lse3.numpy(), lse1.numpy(), plse.numpy(),
+                     np.asarray(jlse)[:rows, 0])
+        assert abs(float(sums3[0]) - float(psums[0])) <= \
+            1e-5 * max(abs(float(psums[0])), 1e-6)
+        assert abs(float(sums3[0]) - float(loss_sum)) <= \
+            1e-4 * max(abs(float(loss_sum)), 1e-6)
+        assert [float(x) for x in sums3[1:]] == \
+            [float(cv), float(ca), float(nv)] == \
+            [float(x) for x in psums[1:]]
+        if labels == "padding":
+            assert float(sums3[0]) == 0.0 and float(sums3[3]) == 0.0
+
+    @pytest.mark.parametrize("shape", SHAPES, ids=SHAPE_IDS)
+    @pytest.mark.parametrize("labels", ["mixed", "padding", "sharded_fwd",
+                                        "edges"])
+    def test_3xtf32_stats_match_jax_and_plain(self, shape, labels):
+        rows, v, vp, w = shape
+        h, t, b, lab = inputs(rows, v, vp, w, rows, labels)
+        jstats = jax_fml._run_forward_tiled_stats(
+            jnp.asarray(h), jnp.asarray(t), jnp.asarray(b), jnp.asarray(lab),
+            v, True)
+        ops = _plain_operands(h, t, b, lab, v, torch.float32)
+        plain = fml.fused_mlm_loss_plain_stats(*ops)
+        got3 = self._stats(tf32.mm_3xtf32, *ops)
+        got1 = self._stats(tf32.mm_tf32, *ops)
+        for g3, g1, p, j in zip(got3, got1, plain, jstats):
+            assert g3.shape == (rows,)
+            self._closer(g3.numpy(), g1.numpy(), p.numpy(),
+                         np.asarray(j)[:, 0])
+
+
+class TestForwardSplitLaw:
+    """K5's vocabulary splits and workspace in each dtype, decided in
+    Python before any launch (the card tests hold the library's workspace
+    bytes to these): fp32 K5 runs fp32 K3's sweep and its law."""
+
+    @pytest.mark.parametrize("rows, v, w, splits", [
+        (10240, 26732, 128, 13),   # ML-20M's batch: 80 row blocks x 13
+        (10240, 26732, 256, 4),    # 64-row tiles, 32-entry tiles: 160 x 4
+        (10240, 26732, 64, 13),
+        (2048, 335424, 128, 64),   # Reddit's V, R cut to 2,048: 16 x 64
+        (10240, 335424, 128, 13),  # the Reddit preset's batch
+        (300, 104, 32, 2),         # two 64-entry tiles, 3 row blocks
+        (77, 61, 256, 2),          # two 32-entry tiles, 2 row tiles
+        (1, 61, 128, 1),
+    ], ids=lambda v: str(v))
+    def test_fp32_splits_by_the_tf32_sweep_law(self, rows, v, w, splits):
+        """fp32 K5 (and K3): 128-row blocks, 64-entry tiles and ~1,024
+        blocks at W <= 128, bf16 K5's law there; 64-row tiles, 32-entry
+        tiles and ~512 blocks at W > 128."""
+        assert fml.tiled_forward_splits(rows, v, w, torch.float32) == splits
+        assert fml.whole_table_splits(rows, v, w, torch.float32) == splits
+        if w <= 128:
+            assert fml.tiled_forward_splits(rows, v, w) == splits
+
+    @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                             ids=["bf16", "fp32"])
+    @pytest.mark.parametrize("rows, v, w", [
+        (10240, 26732, 128), (10240, 26732, 256), (2048, 335424, 128),
+        (10240, 335424, 128), (300, 104, 32)], ids=lambda v: str(v))
+    def test_workspace_bytes(self, rows, v, w, dtype):
+        """The splits' (max, sum, label logit) rows and the 256-row block
+        sums, each carved to 256 bytes, with no V x W term."""
+        up = lambda n: -(-n // 256) * 256  # noqa: E731
+        n = fml.tiled_forward_splits(rows, v, w, dtype) * rows
+        assert fml.tiled_forward_workspace_bytes(rows, v, w, dtype) == \
+            3 * up(4 * n) + up(16 * -(-rows // 256))
+        assert fml.tiled_forward_workspace_bytes(rows, v, w, dtype) == \
+            fml.whole_table_workspace_bytes(rows, v, w, dtype)
 
 
 class TestAutograd:
