@@ -1,7 +1,10 @@
 // Masked multi-head attention over 64 x 64 tiles, forward and backward, for
-// Hopper (sm_90a): the one attention implementation of the port, shared by
-// the fused encoder layer (fused_encoder_layer.cu, K1/K1''/K2) and flash
-// attention (flash_attention.cu, K8/K9).
+// Hopper (sm_90a): the SIMT / mma.sync tiles, shared by the fused
+// encoder layer's off-rule shapes (fused_encoder_layer.cu, K1/K1''/K2: fp32
+// off layer_tf32.cu's rule, bf16 off layer_hopper.cuh's) and fp32 flash
+// attention off its 3xTF32 rule (flash_attention.cu, K8/K9: a head dim that
+// is not a multiple of 8 up to 64; ops/flash_attention.py flash_route
+// "simt"). Every shape the repo ships runs the warpgroup kernels instead.
 //
 // Function, per (batch element b, head n), T float or bf16, sums in fp32:
 //

@@ -142,7 +142,6 @@ using namespace b4r::hopper;
 using namespace b4r::tf32;
 
 constexpr int kKs = 32;            // fp32 columns of one panel row (128 bytes)
-constexpr int kPanel = kRows * 128;  // a 64-row panel
 
 // The products' ring: ST stages, the copies of steps ks + 1 .. ks + ST - 1
 // in flight while step ks is split and its products run. One barrier a
@@ -596,81 +595,6 @@ __global__ void __launch_bounds__(256) w_split_kernel(WtJob job) {
 }
 
 // ---------------------------------------------------------------------------
-// attention tiles: [64][DP] (DP = the head dim rounded up to 32 or 64) in
-// DP / 32 panels, and their transposes [DP][64, even-first] in two panels
-// ---------------------------------------------------------------------------
-template <int DP> constexpr int kTileQ = DP / 32 * kPanel;
-template <int DP> constexpr int kTileT = 2 * DP * 128;
-
-// This thread's chunks of the raw [64][DP] tile at raw (as copy_panel<64,
-// 128> copied them) split: with kSame into hi / lo of the same layout at
-// hl (lo kTileQ further), with kTr transposed, (row r, column d) to row d,
-// column kpos(r), into hi / lo at tr (lo kTileT further)
-template <int DP, bool kSame, bool kTr>
-__device__ __forceinline__ void split_tile(const uint8_t* raw, uint8_t* hl, uint8_t* tr) {
-  const int tid = threadIdx.x & 127;
-#pragma unroll
-  for (int p = 0; p < DP / 32; ++p)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int idx = tid + 128 * i, r = idx >> 3, c = idx & 7;
-      const uint32_t off = p * kPanel + chunk_at(r, c);
-      const float4 v4 = *reinterpret_cast<const float4*>(raw + off);
-      const float v[4] = {v4.x, v4.y, v4.z, v4.w};
-      float h[4], l[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) split_tf32(v[e], h[e], l[e]);
-      if constexpr (kSame) {
-        *reinterpret_cast<float4*>(hl + off) = make_float4(h[0], h[1], h[2], h[3]);
-        *reinterpret_cast<float4*>(hl + kTileQ<DP> + off) = make_float4(l[0], l[1], l[2], l[3]);
-      }
-      if constexpr (kTr)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const uint32_t o = at(DP, 32 * p + 4 * c + e, kpos(r));
-          *reinterpret_cast<float*>(tr + o) = h[e];
-          *reinterpret_cast<float*>(tr + kTileT<DP> + o) = l[e];
-        }
-    }
-}
-
-// d += A B over one k-block in 3xTF32, A from registers, B's hi and lo
-// K-major k-blocks at bh, bl, with the first two passes in mma3's order for
-// B A: hi lo, lo hi, then hi hi (s^T = k q^T then sums what s = q k^T sums,
-// in the same order)
-__device__ __forceinline__ void mma3_rs_ba(float (&d)[32], const uint32_t (&ahi)[4],
-                                           const uint32_t (&alo)[4], uint64_t bh, uint64_t bl) {
-  wgmma_tf32_rs<64>(d, ahi, bl);
-  wgmma_tf32_rs<64>(d, alo, bh);
-  wgmma_tf32_rs<64>(d, ahi, bh);
-}
-
-// the 64 x 64 accumulator x (row r, column 8 j + 2 tq + e) as the register A
-// fragments of k-block j, split: k position tq holds column 8 j + 2 tq,
-// position tq + 4 column 8 j + 2 tq + 1 (the transposed B tiles' order)
-__device__ __forceinline__ void to_frags_tf32(uint32_t (&hi)[8][4], uint32_t (&lo)[8][4],
-                                              const float (&x)[32]) {
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-#pragma unroll
-    for (int r = 0; r < 4; ++r) split_into(x[4 * j + 2 * (r & 1) + (r >> 1)], hi[j][r], lo[j][r]);
-}
-
-// d += A B over the 64 keys (or queries) of a tile: A the fragments, B the
-// transposed [DP][64] tile at bt (lo kTileT further)
-template <int DP>
-__device__ __forceinline__ void mma3_frags(float (&d)[DP / 2], const uint32_t (&hi)[8][4],
-                                           const uint32_t (&lo)[8][4], uint32_t bt) {
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const uint32_t t = bt + (j >> 2) * DP * 128;
-    wgmma_tf32_rs<DP>(d, lo[j], kdesc(t, j & 3));
-    wgmma_tf32_rs<DP>(d, hi[j], kdesc(t + kTileT<DP>, j & 3));
-    wgmma_tf32_rs<DP>(d, hi[j], kdesc(t, j & 3));
-  }
-}
-
-// ---------------------------------------------------------------------------
 // attention forward, one pass: a warpgroup per (64-query tile, head,
 // sequence) over the packed [B*S, 3H] qkv
 // ---------------------------------------------------------------------------
@@ -741,8 +665,8 @@ attn_tf32_kernel(const float* __restrict__ qkv, const int32_t* __restrict__ mask
 #pragma unroll
       for (int p = 0; p < DP / 32; ++p)
         split_panel<64, 128>(sm + AS::kQo + p * kPanel, AS::kQ);
-    split_tile<DP, true, false>(sm + AS::kRo, sm + AS::kKo, nullptr);
-    split_tile<DP, false, true>(sm + AS::kRo + AS::kQ, nullptr, sm + AS::kVo);
+    split_tile<DP, 128, true, false>(threadIdx.x & 127, sm + AS::kRo, sm + AS::kKo, nullptr);
+    split_tile<DP, 128, false, true>(threadIdx.x & 127, sm + AS::kRo + AS::kQ, nullptr, sm + AS::kVo);
     if (tid < 64) {
       const int t = t0 + tid;
       mb[tid] = t < S ? (mask_row[t] > 0 ? 0.f : kAttnNegMask) : -INFINITY;
@@ -963,8 +887,8 @@ __global__ void __launch_bounds__(128) attn_dq_tf32_kernel(AttnBwdArgs a) {
         split_panel<64, 128>(sm + AS::kQo + p * kPanel, AS::kQ);
         split_panel<64, 128>(sm + AS::kDo + p * kPanel, AS::kQ);
       }
-    split_tile<DP, true, true>(sm + AS::kRo, sm + AS::kKo, sm + AS::kTo);
-    split_tile<DP, true, false>(sm + AS::kRo + AS::kQ, sm + AS::kVo, nullptr);
+    split_tile<DP, 128, true, true>(threadIdx.x & 127, sm + AS::kRo, sm + AS::kKo, sm + AS::kTo);
+    split_tile<DP, 128, true, false>(threadIdx.x & 127, sm + AS::kRo + AS::kQ, sm + AS::kVo, nullptr);
     if (tid < 64) {
       const int t = t0 + tid;
       mb[tid] = t < S ? (mask_row[t] > 0 ? 0.f : kAttnNegMask) : -INFINITY;
@@ -1103,8 +1027,8 @@ __global__ void __launch_bounds__(128) attn_dkv_tf32_kernel(AttnBwdArgs a) {
   for (int i = 0; i < DP / 2; ++i) dk[i] = dv[i] = 0.f;
   for (int q0 = q_begin; q0 < S; q0 += 64) {
     cp_async_wait<0>();
-    split_tile<DP, true, true>(sm + AS::kRo, sm + AS::kQo, sm + AS::kQTo);
-    split_tile<DP, true, true>(sm + AS::kRo + AS::kQ, sm + AS::kDo, sm + AS::kDTo);
+    split_tile<DP, 128, true, true>(threadIdx.x & 127, sm + AS::kRo, sm + AS::kQo, sm + AS::kQTo);
+    split_tile<DP, 128, true, true>(threadIdx.x & 127, sm + AS::kRo + AS::kQ, sm + AS::kDo, sm + AS::kDTo);
     if (tid < 64) {
       const int q = q0 + tid;
       const bool ok = q < S;

@@ -1,5 +1,6 @@
 // 3xTF32 on Hopper's warpgroup tensor cores (sm_90a), shared by the fp32
-// layer (layer_tf32.cu) and the fp32 loss kernels (loss_tf32.cuh).
+// layer (layer_tf32.cu), the fp32 loss kernels (loss_tf32.cuh) and fp32
+// flash attention (flash_tf32.cuh).
 //
 // Each fp32 operand is split into hi = cvt.rna.tf32(v) and lo =
 // cvt.rna.tf32(v - hi) (v - hi is exact in fp32), and a b accumulates
@@ -242,6 +243,84 @@ __device__ __forceinline__ uint64_t bdesc(uint32_t t, int rows, int kb) {
 // k even-first inside each 8: the k position of column (or row) c
 __device__ __forceinline__ int kpos(int c) {
   return (c & ~7) | ((c & 7) >> 1) | ((c & 1) << 2);
+}
+
+
+// ---------------------------------------------------------------------------
+// attention tiles (layer_tf32.cu's attention kernels, flash_tf32.cuh):
+// [64][DP] (DP = the head dim rounded up to 32 or 64) in DP / 32 panels, and
+// their transposes [DP][64, even-first] in two panels
+// ---------------------------------------------------------------------------
+constexpr int kPanel = hopper::kRows * 128;  // a 64-row panel of 32 columns
+template <int DP> constexpr int kTileQ = DP / 32 * kPanel;
+template <int DP> constexpr int kTileT = 2 * DP * 128;
+
+// This thread's chunks of the raw [64][DP] tile at raw (as copy_panel_t<64,
+// NT> copied them, t this thread's index among the NT) split: with kSame
+// into hi / lo of the same layout at hl (lo kTileQ further), with kTr
+// transposed, (row r, column d) to row d, column kpos(r), into hi / lo at
+// tr (lo kTileT further)
+template <int DP, int NT, bool kSame, bool kTr>
+__device__ __forceinline__ void split_tile(int t, const uint8_t* raw, uint8_t* hl, uint8_t* tr) {
+#pragma unroll
+  for (int p = 0; p < DP / 32; ++p)
+#pragma unroll
+    for (int i = 0; i < 64 * 8 / NT; ++i) {
+      const int idx = t + NT * i, r = idx >> 3, c = idx & 7;
+      const uint32_t off = p * kPanel + chunk_at(r, c);
+      const float4 v4 = *reinterpret_cast<const float4*>(raw + off);
+      const float v[4] = {v4.x, v4.y, v4.z, v4.w};
+      float h[4], l[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) split_tf32(v[e], h[e], l[e]);
+      if constexpr (kSame) {
+        *reinterpret_cast<float4*>(hl + off) = make_float4(h[0], h[1], h[2], h[3]);
+        *reinterpret_cast<float4*>(hl + kTileQ<DP> + off) = make_float4(l[0], l[1], l[2], l[3]);
+      }
+      if constexpr (kTr)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const uint32_t o = at(DP, 32 * p + 4 * c + e, kpos(r));
+          *reinterpret_cast<float*>(tr + o) = h[e];
+          *reinterpret_cast<float*>(tr + kTileT<DP> + o) = l[e];
+        }
+    }
+}
+
+// d += A B over one k-block in 3xTF32, A from registers, B's hi and lo
+// K-major k-blocks at bh, bl, with the first two passes in mma3's order for
+// B A: hi lo, lo hi, then hi hi (s^T = k q^T then sums what s = q k^T sums,
+// in the same order)
+__device__ __forceinline__ void mma3_rs_ba(float (&d)[32], const uint32_t (&ahi)[4],
+                                           const uint32_t (&alo)[4], uint64_t bh, uint64_t bl) {
+  wgmma_tf32_rs<64>(d, ahi, bl);
+  wgmma_tf32_rs<64>(d, alo, bh);
+  wgmma_tf32_rs<64>(d, ahi, bh);
+}
+
+// the 64 x 64 accumulator x (row r, column 8 j + 2 tq + e) as the register A
+// fragments of k-block j, split: k position tq holds column 8 j + 2 tq,
+// position tq + 4 column 8 j + 2 tq + 1 (the transposed B tiles' order)
+__device__ __forceinline__ void to_frags_tf32(uint32_t (&hi)[8][4], uint32_t (&lo)[8][4],
+                                              const float (&x)[32]) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) split_into(x[4 * j + 2 * (r & 1) + (r >> 1)], hi[j][r], lo[j][r]);
+}
+
+// d += A B over the 64 keys (or queries) of a tile: A the fragments, B the
+// transposed [DP][64] tile at bt (lo kTileT further)
+template <int DP>
+__device__ __forceinline__ void mma3_frags(float (&d)[DP / 2], const uint32_t (&hi)[8][4],
+                                           const uint32_t (&lo)[8][4], uint32_t bt) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const uint32_t t = bt + (j >> 2) * DP * 128;
+    wgmma_tf32_rs<DP>(d, lo[j], kdesc(t, j & 3));
+    wgmma_tf32_rs<DP>(d, hi[j], kdesc(t + kTileT<DP>, j & 3));
+    wgmma_tf32_rs<DP>(d, hi[j], kdesc(t, j & 3));
+  }
 }
 
 }  // namespace tf32

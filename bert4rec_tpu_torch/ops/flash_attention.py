@@ -7,12 +7,14 @@ backward ``_flash_bwd``) of ``bert4rec_tpu/ops/flash_attention.py`` with
 the hand-written Hopper CUDA kernels of ``csrc/flash_attention.cu``. The
 TPU kernel holds whole [S, S] score matrices of a head group in VMEM; an
 H100 block has at most 227 KB of shared memory, so the kernels stream
-64-row tiles and recompute the scores (two passes per query tile forward;
-the backward reads the forward's row max and sum).
+64-row tiles and recompute the scores (the backward reads the forward's
+row max and sum).
 
 Bound at the main path's shape (B=32, N=12, S=512, D=64, bf16): K8 moves
 100.7 MB for 25.8 GFLOP, K9 176 MB for 51.5 GFLOP; both are bound by bytes
-at the card's peaks (~0.030 and ~0.053 ms). Their times are in PERF.md.
+at the card's peaks (~0.030 and ~0.053 ms). In fp32 the same work is bound
+by operations: 0.156 and 0.312 ms at 3xTF32's 165 TFLOP/s. Their times are
+in PERF.md.
 
 Design, by operand type (an explicit dispatch, not a fallback):
 
@@ -23,13 +25,31 @@ Design, by operand type (an explicit dispatch, not a fallback):
   rounded probabilities (or ds) are the next product's register operand.
   K9 is a dq kernel per query tile and a dk/dv kernel per key tile
   (``S^T = K Q^T``, so keys are the rows of its products).
-- fp32: ``csrc/attention.cuh``'s SIMT tiles, the fused encoder layer's.
+- fp32 with a head dim that is a multiple of 8 up to 64 (``flash_route``
+  ``"tf32"``: every config the repo ships): ``csrc/flash_tf32.cuh``'s
+  3xTF32 ``wgmma`` kernels. K8 is one online-softmax pass, 128 queries a
+  block, the query rows' split fragments in registers and each key tile
+  split once for both warpgroups; K9 is a dq kernel and a dk/dv kernel.
+  The dq kernel forms ds with ``delta0 = dO . o`` (flash attention's form,
+  known before its one pass) while it sums JAX's ``sum_j dp_ij p_ij``
+  beside, and corrects dq by their difference at the end; the dk/dv
+  kernel reads JAX's sum. The backward reads the forward's output, saved
+  with its row statistics.
+- any other fp32 head dim (``"simt"``): ``csrc/attention.cuh``'s SIMT
+  tiles, the fused encoder layer's off-rule ones.
+
+A forward and its backward take one route, decided from the dtype and head
+dim alone before any launch. fp32 launches count in ``tf32_launches`` /
+``tf32_backward_launches`` or ``simt_launches`` /
+``simt_backward_launches`` besides the counters below.
 
 Layout rule (``check_copy_alignment``): a bf16 q, k, v or dO has a
 16-byte aligned base and batch, head and sequence strides (dims of size 1
 aside), as the 16-byte copies read rows; anything else raises before a
 launch. The main path's views of one ``[B, S, 3, N, D]`` projection meet
-it (sequence stride 3 N D elements).
+it (sequence stride 3 N D elements). The 3xTF32 kernels read by the same
+16-byte copies; an fp32 view that breaks the rule is copied to a
+contiguous buffer first (``_tf32_operand``).
 
 What it computes is the TPU kernel's: scores ``q k^T / sqrt(D)`` in fp32
 plus the pad bias (``mask > 0 ? 0 : -1e9``) and, with ``causal``, a second
@@ -74,6 +94,9 @@ MAX_FUSED_SEQ_LEN = 1024
 # The kernels' limit: they form the dropout counter row * S + col as a
 # signed 32-bit int (S^2 < 2^31).
 MAX_KERNEL_SEQ_LEN = 46340
+# The 3xTF32 kernels' head dims: multiples of 8 up to this (csrc/
+# flash_tf32.cuh kMaxHeadDim; the library's value is checked at load).
+TF32_MAX_HEAD_DIM = 64
 _LOG2E = math.log2(math.e)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -86,6 +109,24 @@ def attention_keep(seed: int, batch: int, num_heads: int, seq_len: int,
         return None
     return dropout_bits.keep_scale(seed, batch, range(num_heads), seq_len,
                                    seq_len, rate, device, dtype)
+
+
+def flash_route(dtype, head_dim: int) -> str:
+    """Which CUDA kernels run flash attention at this dtype and head dim
+    (decided before any launch, from these alone, so that a forward and its
+    backward take one route and the backward reads statistics of its own
+    route's scores): ``"wgmma"`` (bf16, ``csrc/flash_hopper.cuh``),
+    ``"tf32"`` (fp32 with a head dim that is a multiple of 8 up to
+    ``TF32_MAX_HEAD_DIM``: the 3xTF32 kernels of ``csrc/flash_tf32.cuh``)
+    or ``"simt"`` (any other fp32 head dim: ``csrc/attention.cuh``'s SIMT
+    tiles). Raises ValueError for another dtype."""
+    if dtype == torch.bfloat16:
+        return "wgmma"
+    if dtype != torch.float32:
+        raise ValueError(f"no flash attention kernel for {dtype}")
+    if head_dim % 8 == 0 and 0 < head_dim <= TF32_MAX_HEAD_DIM:
+        return "tf32"
+    return "simt"
 
 
 def _probs(q, k, mask, causal):
@@ -153,10 +194,10 @@ def flash_attention_plain_backward(q, k, v, mask, do, *,
 _lib = None
 # device-pointer order of the C entry points (FwdPtr / BwdPtr in the source)
 _FWD_PTRS = ("q", "k", "v", "mask", "o", "stat_m", "stat_l", "keep_bits")
-_BWD_PTRS = ("q", "k", "v", "do", "mask", "stat_m", "stat_l", "delta", "dq",
-             "dk", "dv", "keep_bits")
+_BWD_PTRS = ("q", "k", "v", "do", "o", "mask", "stat_m", "stat_l", "delta",
+             "dq", "dk", "dv", "keep_bits")
 _FWD_VIEWS = ("q", "k", "v", "o")
-_BWD_VIEWS = ("q", "k", "v", "do", "dq", "dk", "dv")
+_BWD_VIEWS = ("q", "k", "v", "do", "o", "dq", "dk", "dv")
 
 
 def _kernel_lib():
@@ -172,8 +213,12 @@ def _kernel_lib():
         for fn in (lib.b4r_flash_fwd, lib.b4r_flash_bwd):
             fn.restype = ci
             fn.argtypes = args
-        lib.b4r_flash_max_head_dim.restype = ci
-        lib.b4r_flash_max_head_dim.argtypes = []
+        for fn in (lib.b4r_flash_max_head_dim, lib.b4r_flash_tf32_max_head_dim):
+            fn.restype = ci
+            fn.argtypes = []
+        if lib.b4r_flash_tf32_max_head_dim() != TF32_MAX_HEAD_DIM:
+            raise RuntimeError("the kernel library's 3xTF32 head dims differ "
+                               "from TF32_MAX_HEAD_DIM")
         _lib = lib
     return _lib
 
@@ -220,6 +265,15 @@ def check_copy_alignment(t: torch.Tensor, name: str) -> None:
                          f"{tuple(t.shape)}: " + "; ".join(bad))
 
 
+def _tf32_operand(t: torch.Tensor) -> torch.Tensor:
+    """The 3xTF32 kernels copy operand rows in 16-byte pieces: ``t``
+    itself if it meets that rule (``_misaligned`` finds nothing), else a
+    contiguous copy (PyTorch's allocations are aligned, and a contiguous
+    ``[B, N, S, D]`` with D a multiple of 8 has aligned strides)."""
+    return t.clone(memory_format=torch.contiguous_format) if _misaligned(t) \
+        else t
+
+
 def _empty_heads(like: torch.Tensor) -> torch.Tensor:
     """An uninitialised ``[B, N, S, D]`` tensor laid out as ``like``'s axes
     run: ``[B, S, N, D]`` in memory when ``like`` steps heads faster than
@@ -250,7 +304,9 @@ def _launch(fn, ops: dict, order, views, q, seed, rate, causal, what):
         *[ops[k].data_ptr() if ops.get(k) is not None else None
           for k in order])
     strides = (ctypes.c_longlong * (3 * len(views)))(
-        *[x for name in views for x in head_strides(ops[name])])
+        *[x for name in views
+          for x in (head_strides(ops[name]) if ops.get(name) is not None
+                    else (0, 0, 0))])
     err = fn(_DTYPE_CODE[q.dtype], ptrs, strides, b, n, s, d, int(causal),
              1.0 / math.sqrt(d), *_drop_args(seed, rate),
              torch.cuda.current_stream(q.device).cuda_stream)
@@ -264,11 +320,15 @@ def _launch_forward(q, k, v, mask, seed: int, rate: float, causal: bool,
     """Launch K8; returns ``(o, saved)``, ``saved`` what K9 reads (empty
     unless ``save``): the fp32 row max and sum ``[B, N, S]`` and, for bf16
     with dropout, the keep bits (``dropout_bits.tile_keep_bits``' layout;
-    the tile pairs a causal block skips are left unwritten)."""
-    b, n, s, _ = q.shape
-    if q.dtype == torch.bfloat16:
+    the tile pairs a causal block skips are left unwritten), or, on the
+    3xTF32 route, ``o`` itself (its backward reads ``dO . o``)."""
+    b, n, s, d = q.shape
+    route = flash_route(q.dtype, d)
+    if route == "wgmma":
         for name, t in (("q", q), ("k", k), ("v", v)):
             check_copy_alignment(t, name)
+    elif route == "tf32":
+        q, k, v = (_tf32_operand(t) for t in (q, k, v))
     ops = dict(q=q, k=k, v=v, mask=mask, o=_empty_heads(q))
     if save:
         ops.update(stat_m=torch.empty((b, n, s), dtype=torch.float32,
@@ -282,26 +342,37 @@ def _launch_forward(q, k, v, mask, seed: int, rate: float, causal: bool,
                 device=q.device)
     _launch(_kernel_lib().b4r_flash_fwd, ops, _FWD_PTRS, _FWD_VIEWS, q, seed,
             rate, causal, "forward")
+    if save and route == "tf32":
+        ops["saved_o"] = ops["o"]
     return ops["o"], tuple(ops[name] for name in ("stat_m", "stat_l",
-                                                  "keep_bits") if name in ops)
+                                                  "keep_bits", "saved_o")
+                           if name in ops)
 
 
 def _launch_backward(q, k, v, mask, do, saved: tuple, seed: int,
                      rate: float, causal: bool):
     """Launch K9 (causal and the rate must be the forward's: ``saved`` is
-    its row statistics and keep bits); returns ``(dq, dk, dv)``."""
-    b, n, s, _ = q.shape
-    if do.stride(-1) != 1 or (do.dtype == torch.bfloat16
-                              and _misaligned(do)):
+    its row statistics and keep bits, or its output on the 3xTF32 route);
+    returns ``(dq, dk, dv)``."""
+    b, n, s, d = q.shape
+    route = flash_route(q.dtype, d)
+    if do.stride(-1) != 1 or (route == "wgmma" and _misaligned(do)):
         do = do.contiguous()   # dO is autograd's gradient, not a layout
-    if q.dtype == torch.bfloat16:
+    o = keep_bits = None
+    if route == "wgmma":
         for name, t in (("q", q), ("k", k), ("v", v), ("do", do)):
             check_copy_alignment(t, name)
         if rate > 0.0 and len(saved) < 3:
             raise ValueError("the bf16 backward kernels read the forward's "
                              "keep bits: save them (save=True, rate > 0)")
-    ops = dict(q=q, k=k, v=v, do=do, mask=mask, stat_m=saved[0],
-               stat_l=saved[1], keep_bits=saved[2] if len(saved) > 2 else None,
+        keep_bits = saved[2] if len(saved) > 2 else None
+    elif route == "tf32":
+        if len(saved) < 3:
+            raise ValueError("the 3xTF32 backward kernels read the forward's "
+                             "output: save it (save=True)")
+        q, k, v, do, o = (_tf32_operand(t) for t in (q, k, v, do, saved[2]))
+    ops = dict(q=q, k=k, v=v, do=do, o=o, mask=mask, stat_m=saved[0],
+               stat_l=saved[1], keep_bits=keep_bits,
                dq=_empty_heads(q), dk=_empty_heads(k),
                dv=_empty_heads(v),
                delta=torch.empty((b, n, s), dtype=torch.float32,
@@ -309,6 +380,18 @@ def _launch_backward(q, k, v, mask, do, saved: tuple, seed: int,
     _launch(_kernel_lib().b4r_flash_bwd, ops, _BWD_PTRS, _BWD_VIEWS, q, seed,
             rate, causal, "backward")
     return ops["dq"], ops["dk"], ops["dv"]
+
+
+def _count(backward: bool, causal: bool, route: str) -> None:
+    """One launch of the CUDA kernels: in ``causal_[backward_]launches`` or
+    ``[backward_]launches``, and an fp32 one also in its route's
+    ``tf32_[backward_]launches`` or ``simt_[backward_]launches``."""
+    part = "backward_launches" if backward else "launches"
+    names = [f"causal_{part}" if causal else part]
+    if route in ("tf32", "simt"):
+        names.append(f"{route}_{part}")
+    for name in names:
+        setattr(flash_attention, name, getattr(flash_attention, name) + 1)
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -325,10 +408,7 @@ class _FlashAttention(torch.autograd.Function):
         else:
             o, saved = _launch_forward(q, k, v, mask, seed, rate, causal,
                                        save)
-            if causal:
-                flash_attention.causal_launches += 1
-            else:
-                flash_attention.launches += 1
+            _count(False, causal, flash_route(q.dtype, q.shape[-1]))
         if save:
             ctx.save_for_backward(q, k, v, mask, *saved)
         return o
@@ -344,10 +424,7 @@ class _FlashAttention(torch.autograd.Function):
         else:
             dq, dk, dv = _launch_backward(q, k, v, mask, do, tuple(saved),
                                           seed, rate, causal)
-            if causal:
-                flash_attention.causal_backward_launches += 1
-            else:
-                flash_attention.backward_launches += 1
+            _count(True, causal, flash_route(q.dtype, q.shape[-1]))
         return dq, dk, dv, None, None, None, None, None
 
 
@@ -387,7 +464,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     A CUDA launch counts in ``flash_attention.launches`` and
     ``backward_launches`` (``causal_launches`` and
-    ``causal_backward_launches`` for the causal variant).
+    ``causal_backward_launches`` for the causal variant); an fp32 launch
+    also in its route's (``flash_route``) ``tf32_launches`` /
+    ``tf32_backward_launches`` or ``simt_launches`` /
+    ``simt_backward_launches``.
     """
     _check_operands(q, k, v, mask)
     rate = float(dropout_rate) if seed is not None else 0.0
@@ -413,3 +493,7 @@ flash_attention.launches = 0
 flash_attention.backward_launches = 0
 flash_attention.causal_launches = 0
 flash_attention.causal_backward_launches = 0
+flash_attention.tf32_launches = 0
+flash_attention.tf32_backward_launches = 0
+flash_attention.simt_launches = 0
+flash_attention.simt_backward_launches = 0

@@ -14,11 +14,15 @@ name of the anonymous namespace dropped), and
 in fp32 and of K3, K6 and K7 in bf16 at a few shapes (K6/K7 fed the plain
 forward's lse, so that they see the same input in both checkouts), and of
 the fp32 layer's served forward (K1: nothing saved, rate 0) at B=32 and
-256, ml-1m_128's width.
+256, ml-1m_128's width, and of flash attention's K8 (o and the row
+statistics) and K9 (dq, dk, dv) in both dtypes,
+at rates 0 and 0.2, bidirectional and causal, on strided views of one
+projection at FLASH_SHAPES, whatever route the checkout takes.
 ``--diff`` prints which kernels and outputs are the same in both."""
 
 import argparse
 import hashlib
+import importlib
 import json
 import pathlib
 import re
@@ -28,6 +32,7 @@ import sys
 ANON = re.compile(r"_GLOBAL__N__[0-9a-f]+_\d+_\w+?_cu_[0-9a-f]+")
 LOSS_SHAPES = ((2048, 3709, 128), (333, 1000, 72))            # K3, K4
 TILED_SHAPES = ((2048, 26732, 128), (2048, 26732, 256), (333, 1000, 72))
+FLASH_SHAPES = ((8, 12, 512, 64), (3, 4, 130, 64), (4, 2, 70, 32))    # K8, K9
 
 
 def sass_hashes(build_dir: pathlib.Path) -> dict:
@@ -126,6 +131,41 @@ def layer_hashes(torch, np, fel) -> dict:
     return out
 
 
+def flash_hashes(torch, np, fa) -> dict:
+    """K8's and K9's output bits on q, k, v as views of one [B, S, 3, N, D]
+    projection, a mask with a full row, a length-1 row and an all-pad row,
+    the rest random right-padded lengths."""
+    device = torch.device("cuda")
+    out = {}
+    for dims in FLASH_SHAPES:
+        b, n, s, d = dims
+        rng = np.random.default_rng(sum(dims))
+        proj = torch.from_numpy(rng.normal(size=(b, s, 3, n, d))
+                                .astype(np.float32)).to(device)
+        do = torch.from_numpy(rng.normal(size=(b, n, s, d))
+                              .astype(np.float32)).to(device)
+        lengths = rng.integers(1, s + 1, size=b)
+        lengths[:3] = [s, 1, 0]
+        mask = torch.from_numpy((np.arange(s)[None, :] < lengths[:, None])
+                                .astype(np.int32)).to(device)
+        for name, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+            q, k, v = (proj.to(dtype)[:, :, i].transpose(1, 2) for i in range(3))
+            for rate in (0.0, 0.2):
+                for causal in (False, True):
+                    key = (f"{name} flash {dims} rate {rate} "
+                           f"{'causal' if causal else 'bidirectional'}")
+                    o, saved = fa._launch_forward(q, k, v, mask, 5, rate, causal,
+                                                  True)
+                    grads = fa._launch_backward(q, k, v, mask, do.to(dtype), saved,
+                                                5, rate, causal)
+                    # the row statistics (bf16's keep bits are K9's input,
+                    # and a causal launch leaves some of them unwritten)
+                    out[f"{key} K8"] = digest(o, *saved[:2])
+                    out[f"{key} K9"] = digest(*grads)
+    torch.cuda.synchronize()
+    return out
+
+
 def diff(a_path, b_path) -> None:
     a, b = (json.loads(pathlib.Path(p).read_text()) for p in (a_path, b_path))
     for part in ("sass", "bits"):
@@ -161,13 +201,15 @@ def main(argv=None) -> int:
     from bert4rec_tpu_torch.ops import fused_encoder_layer as fel
     from bert4rec_tpu_torch.ops import fused_mlm_loss as fml
     from bert4rec_tpu_torch.ops import kernel_build
+    fa = importlib.import_module("bert4rec_tpu_torch.ops.flash_attention")
     if not fml.__file__.startswith(str(root)):
         raise RuntimeError(f"imported {fml.__file__}, not from {root}")
     kernel_build.build(kernel_build.kernel_sources())
     print(json.dumps({"root": args.root,
                       "sass": sass_hashes(kernel_build.BUILD_DIR),
                       "bits": {**output_hashes(torch, np, fml),
-                               **layer_hashes(torch, np, fel)}}), flush=True)
+                               **layer_hashes(torch, np, fel),
+                               **flash_hashes(torch, np, fa)}}), flush=True)
     return 0
 
 

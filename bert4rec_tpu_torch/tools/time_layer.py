@@ -25,7 +25,13 @@ gives it (the SIMT kernels before the 3xTF32 ones existed). fp32 training
 rates and at rate 0 (so that the dropout hash's cost shows), causal and
 with the relative bias at ml-20m's, and at ml-20m_256's width with
 ``--hidden 256``, by the checkout's route (the SIMT kernels before the
-3xTF32 training kernels existed)."""
+3xTF32 training kernels existed). fp32 K8 / K9 at bert_base_512's
+attention shape, at rate 0 and 0.2, bidirectional and causal, by the
+checkout's route (the SIMT tiles before the 3xTF32 flash kernels existed);
+with ``--base-step`` also the fp32 bert_base_512 train step (hidden 768,
+12 layers, S=512, P=76, B=32, no dtype policy, flash attention, the logits
+loss, dropout 0.2 / 0.5): the median of ``--reps`` x 5 synchronised
+``train_step`` calls on the host clock."""
 
 import argparse
 import importlib
@@ -38,6 +44,7 @@ import sys
 B, S, H, N, F = 256, 200, 128, 4, 512
 WIDE = (256, 8, 1024, (0.1, 0.1))   # ml-20m_256's H, N, F and dropout
 FLASH_DIMS, FLASH_RATE = (32, 12, 512, 64), 0.2
+BASE_VOCAB, BASE_PRED = 3709, 76   # bert_base_512's V and P (B, S: FLASH_DIMS)
 RATES = {"ml-1m": (0.2, 0.5), "ml-20m": (0.1, 0.1)}
 
 
@@ -78,6 +85,54 @@ def layer_params(np, rng, device, H=H, N=N, F=F):
     }, device)
 
 
+def base_step(np, torch, device, reps):
+    """Per-rep medians of 5 synchronised fp32 bert_base_512 train steps
+    (ms), after 2 warm-up steps; the batches follow chip_smoke's
+    ``make_batch`` law (random ids, no padding, P sorted masked
+    positions)."""
+    import time
+    from bert4rec_tpu_torch.models import BERT4RecConfig, BERT4RecModel
+    from bert4rec_tpu_torch.trainers import BERT4RecTrainer, optimizers
+    b, _, s, _ = FLASH_DIMS
+    config = BERT4RecConfig(
+        vocab_size=BASE_VOCAB, hidden_size=768, num_layers=12,
+        num_attention_heads=12, inner_dim=3072, max_sequence_length=s,
+        max_predictions_per_seq=BASE_PRED, attention_dropout=0.2,
+        output_dropout=0.5, use_fused_layer=False, use_fused_loss=False,
+        use_flash_attention=True)
+    trainer = BERT4RecTrainer(BERT4RecModel(config=config))
+    trainer.initialize_model(optimizer=optimizers.create_adam_w_optimizer(
+        init_lr=1e-4, num_warmup_steps=100), seed=0, device=device)
+
+    def batch(seed):
+        rng = np.random.default_rng(seed)
+        ids = rng.integers(3, BASE_VOCAB, size=(b, s)).astype(np.int32)
+        pos = np.stack([np.sort(rng.choice(s, size=BASE_PRED, replace=False))
+                        for _ in range(b)]).astype(np.int32)
+        return trainer._put_batch({
+            "input_word_ids": ids, "input_mask": np.ones((b, s), np.int32),
+            "masked_lm_positions": pos,
+            "masked_lm_ids": np.take_along_axis(ids, pos, axis=1),
+            "masked_lm_weights": np.ones((b, BASE_PRED), np.int32)})
+
+    batches = [batch(100 + i) for i in range(4)]
+    for i in range(2):
+        trainer.train_step(batches[i])
+    out = []
+    for _ in range(reps):
+        ms = []
+        for i in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            trainer.train_step(batches[i % len(batches)])
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        out.append(sorted(ms)[2])
+    del trainer
+    torch.cuda.empty_cache()
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--root", default=str(
@@ -86,6 +141,8 @@ def main(argv=None) -> int:
     parser.add_argument("--hidden", type=int, nargs="+", default=[H],
                         choices=[H, WIDE[0]],
                         help="layer widths to time (256: ml-20m_256's)")
+    parser.add_argument("--base-step", action="store_true",
+                        help="also time the fp32 bert_base_512 train step")
     args = parser.parse_args(argv)
     sys.path.insert(0, str(pathlib.Path(args.root).resolve()))
     import numpy as np
@@ -200,6 +257,18 @@ def main(argv=None) -> int:
                                        True),
             lambda: fa._launch_backward(q, k, v, fmask, do, fsaved, 7,
                                         FLASH_RATE, False))
+        # fp32 (the JAX package's default precision) by the checkout's route
+        q32, k32, v32, do32 = (t.float() for t in (q, k, v, do))
+        for rate in (0.0, FLASH_RATE):
+            for causal in (False, True):
+                _, s32 = fa._launch_forward(q32, k32, v32, fmask, 7, rate,
+                                            causal, True)
+                cases[f"flash fp32 bert_base_512 rate {rate} "
+                      f"{'causal' if causal else 'bidirectional'}"] = (
+                    lambda r=rate, c=causal: fa._launch_forward(
+                        q32, k32, v32, fmask, 7, r, c, True),
+                    lambda r=rate, c=causal, sv=s32: fa._launch_backward(
+                        q32, k32, v32, fmask, do32, sv, 7, r, c))
     out = dict(root=args.root, card=card, shape=[B, S, H, N, F],
                flash_shape=list(FLASH_DIMS))
     if WIDE[0] in args.hidden:
@@ -214,6 +283,11 @@ def main(argv=None) -> int:
             out[name]["bwd_ms"].append(events_ms(torch, bwd))
         for name, fwd in serving.items():
             out[name]["fwd_ms"].append(events_ms(torch, fwd))
+    if args.base_step:
+        del cases, serving
+        torch.cuda.empty_cache()
+        out["fp32 bert_base_512 step"] = {
+            "step_ms": base_step(np, torch, device, args.reps)}
     print(json.dumps(out), flush=True)
     return 0
 

@@ -129,7 +129,10 @@ Phases (any failure raises and the script exits non-zero):
               strided views of a [B, S, 3, N, D] projection (the same bits
               as contiguous copies); two K9 runs giving the same bits;
               kernel, plain and library (SDPA with the pad mask, plus the
-              triangle, as one additive mask) times and the bound;
+              triangle, as one additive mask) times and the bound; fp32 on
+              the 3xTF32 kernels of ``csrc/flash_tf32.cuh``
+              (``flash_route`` "tf32"), its bound at 165 TFLOP/s, and each
+              launch's kernels at the main shape, in both dtypes;
 14. bert_base_512 — ``train()`` on the reference-default encoder (hidden
               768, 12 layers, 12 heads, inner 3072, S=512, P=76, B=32,
               bf16, dropout 0.2 / 0.5, flash attention, logits loss) with
@@ -185,7 +188,17 @@ Phases (any failure raises and the script exits non-zero):
               a step, on ``loss_tf32.cuh``'s 3xTF32 kernels), the step time,
               ``train()``'s idle share and the device breakdown with no SIMT
               loss or layer kernel in it (every fp32 layer launch counted
-              on the 3xTF32 route), the loss falling and the resume.
+              on the 3xTF32 route), the loss falling and the resume;
+20. fp32 bert_base_512 — phase 14's configuration with no dtype policy
+              (fp32, the JAX package's default precision), full width and
+              depth, through ``train()``: the kernel step against the plain
+              step; K8 and K9 12 times per step, every one on the 3xTF32
+              route (``tf32_launches``, no ``simt_launches``), and no
+              fused-layer or fused-loss launch; the step time, ``train()``'s
+              time, the device idle share, the breakdown (no SIMT attention
+              kernel in it) and the peak memory of a step; one eval-mode
+              forward of the trained model (K8's inference entry: no
+              dropout, nothing saved) against the plain path.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the rest of
@@ -2180,16 +2193,17 @@ def flash_inputs(torch, rng, device, dims, dtype):
     return q, k, v, torch.from_numpy(mask).to(device), do
 
 
-def flash_bound_ms(dims, dtype_name, backward, causal):
+def flash_bound_ms(dims, dtype_name, backward, causal, peak=None):
     """Least time for K8 (4 B N P D FLOP, P the (query, key) pairs: S^2,
     or S(S+1)/2 causal; q, k, v, mask read once, o written once) or K9 (8 B
     N P D FLOP; q, k, v, dO, mask read, dq, dk, dv written); the kernels'
-    recomputation of the scores is not counted."""
+    recomputation of the scores is not counted. ``peak`` (FLOP/s) replaces
+    the dtype's: fp32 on 3xTF32 runs at most at TF32X3_FLOPS."""
     b, n, s, d = dims
     es = 4 if dtype_name == "float32" else 2
     flops = (8 if backward else 4) * b * n * attention_pairs(s, causal) * d
     nbytes = (7 if backward else 4) * b * n * s * d * es + b * s * 4
-    t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
+    t_ops = flops / (peak or PEAK_FLOPS[dtype_name]) * 1e3
     t_bytes = nbytes / HBM_BYTES_S * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                  else "bytes")
@@ -2211,6 +2225,10 @@ def check_flash_kernels(torch, rng, device):
             name = str(dtype).removeprefix("torch.")
             q, k, v, mask, do = flash_inputs(torch, rng, device, dims, dtype)
             copies = [t.contiguous() for t in (q, k, v)]
+            route = fa.flash_route(dtype, dims[3])
+            if dtype == torch.float32 and route != "tf32":
+                raise AssertionError(f"fp32 flash attention at {dims} is "
+                                     f"routed to {route}, not tf32")
             for causal, rate in itertools.product((False, True),
                                                   (0.0, FLASH_RATE)):
                 fwd = lambda: fa._launch_forward(  # noqa: E731
@@ -2235,7 +2253,8 @@ def check_flash_kernels(torch, rng, device):
                 bwd_abs = max(float((a.float() - c.float()).abs().max())
                               for a, c in zip(grads, ref_grads))
                 label = (f"flash attention {name} (B, N, S, D)={dims} "
-                         f"dropout {rate} {'causal' if causal else 'bidir'}")
+                         f"dropout {rate} {'causal' if causal else 'bidir'}"
+                         f" [{route}]")
                 if not (fwd_err <= FLASH_TOL[name]
                         and bwd_err <= GRAD_TOL[name]
                         and all(bool(torch.isfinite(g).all()) for g in grads)):
@@ -2305,7 +2324,8 @@ def check_flash_kernels(torch, rng, device):
                     plain_ms=time_ms(plain[part], **heavy),
                     library_ms=lib[part][0], library_range=lib[part][1:],
                     **dict(zip(("bound_ms", "bound_by"), flash_bound_ms(
-                        dims, name, part == "bwd", causal))))
+                        dims, name, part == "bwd", causal,
+                        TF32X3_FLOPS if route == "tf32" else None))))
                     for part in ("fwd", "bwd")}
                 row["bwd"]["max_rel_err"] = bwd_err
                 rows[(dims, name, causal)] = row
@@ -2318,12 +2338,12 @@ def check_flash_kernels(torch, rng, device):
                     f"bound_ms={r['bound_ms']:.5f} ({r['bound_by']})"
                     for part, r in row.items()) + " (kernel and library: "
                     "medians of 7 blocks of 10 calls)", flush=True)
-                if dims == FLASH_SHAPES[0] and name == "bfloat16" \
-                        and not causal:
-                    print("  per K8 launch: " + device_breakdown(
-                        torch, fwd)[1], flush=True)
-                    print("  per K9 launch: " + device_breakdown(
-                        torch, bwd)[1], flush=True)
+                if dims == FLASH_SHAPES[0] and not causal:
+                    forbid = SIMT_FP32_LAYER if route == "tf32" else None
+                    print(f"  per {name} K8 launch: " + device_breakdown(
+                        torch, fwd, forbid=forbid)[1], flush=True)
+                    print(f"  per {name} K9 launch: " + device_breakdown(
+                        torch, bwd, forbid=forbid)[1], flush=True)
                 del lib_out, lib_bwd, ql, kl, vl, bias
             del q, k, v, mask, do, copies
             torch.cuda.empty_cache()
@@ -2339,9 +2359,10 @@ BASE_TIMED_STEPS = 8
 
 
 def bert_base_trainer(torch, device, params=None, remat=False, lr=1e-4,
-                      warmup=100):
+                      warmup=100, fp32=False):
     """The bert_base_512 path (tools/perf_guard.py:185-191): the reference-
-    default encoder on flash attention, logits loss, bf16 compute, fp32
+    default encoder on flash attention, logits loss, bf16 compute (with
+    ``fp32`` no dtype policy: fp32 compute, the JAX package's default), fp32
     params, ``create_adam_w_optimizer()``'s defaults, seed 0."""
     from bert4rec_tpu_torch.core.dtypes import DTypePolicy
     from bert4rec_tpu_torch.models import BERT4RecConfig, BERT4RecModel
@@ -2351,8 +2372,8 @@ def bert_base_trainer(torch, device, params=None, remat=False, lr=1e-4,
         max_sequence_length=BASE_SEQ, max_predictions_per_seq=BASE_PRED,
         attention_dropout=0.2, output_dropout=0.5, use_fused_layer=False,
         use_fused_loss=False, use_flash_attention=True, remat=remat)
-    trainer = BERT4RecTrainer(BERT4RecModel(config=config,
-                                            dtype_policy=DTypePolicy.bf16()))
+    trainer = BERT4RecTrainer(BERT4RecModel(
+        config=config, dtype_policy=None if fp32 else DTypePolicy.bf16()))
     trainer.initialize_model(
         optimizer=optimizers.create_adam_w_optimizer(
             init_lr=lr, num_warmup_steps=warmup), params=params, seed=SEED,
@@ -2364,13 +2385,92 @@ def base_batch(seed):
     return make_batch(seed, BASE_BATCH, BASE_PRED, BASE_SEQ)
 
 
+FLASH_COUNTERS = ("launches", "backward_launches", "causal_launches",
+                  "causal_backward_launches", "tf32_launches",
+                  "tf32_backward_launches", "simt_launches",
+                  "simt_backward_launches")
+
+
+def base_train_counts(torch, trainer, want, label) -> dict:
+    """The main path: every launch counter of the flash attention, layer
+    and loss kernels set to 0, ``train()`` for BASE_STEPS steps, then the
+    counts, held to ``want`` (0 for every counter it does not name)."""
+    fa = importlib.import_module("bert4rec_tpu_torch.ops.flash_attention")
+    from bert4rec_tpu_torch.ops import fused_encoder_layer as fel
+    from bert4rec_tpu_torch.ops import fused_mlm_loss as fml
+    counted = {"flash": fa.flash_attention, "layer": fel.fused_encoder_layer,
+               "loss": fml.fused_mlm_loss, "tiled": fml.fused_mlm_loss_tiled}
+    attrs = FLASH_COUNTERS + ("merged_launches", "two_sweep_launches")
+    for fn in counted.values():
+        for attr in attrs:
+            if hasattr(fn, attr):
+                setattr(fn, attr, 0)
+    t0 = time.perf_counter()
+    hist = trainer.train(SyntheticDataset(BASE_STEPS, seed=1,
+                                          npred=BASE_PRED, seq=BASE_SEQ),
+                         epochs=1, batch_size=BASE_BATCH, seed=SEED,
+                         verbose=False)
+    wall = time.perf_counter() - t0
+    counts = {f"{key}.{attr}": getattr(fn, attr)
+              for key, fn in counted.items() for attr in attrs
+              if hasattr(fn, attr)}
+    want = {k: want.get(k, 0) for k in counts}
+    loss = hist.history["loss"][0]
+    print(f"{label} train(): {BASE_STEPS} steps of B={BASE_BATCH} S="
+          f"{BASE_SEQ} in {wall:.2f} s (first step included), epoch loss "
+          f"{loss:.4f}; launches {counts}", flush=True)
+    if counts != want or not math.isfinite(loss):
+        raise AssertionError(f"launches {counts}, expected {want}")
+    return counts
+
+
+def base_step_times(torch, trainer, batch, label, groups, forbid=None):
+    """The step time (the host clock around 10 synchronised steps; the
+    peak device memory of the first), ``train()``'s time per step over
+    BASE_TIMED_STEPS (warm, with its prefetch thread), and the device time
+    of one step by kernel (``forbid`` as in ``device_breakdown``)."""
+    step_ms = []
+    for i in range(10):
+        b = trainer._put_batch(base_batch(100 + i))
+        torch.cuda.synchronize()
+        if i == 0:
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        trainer.train_step(b)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        if i == 0:
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    median = sorted(step_ms)[len(step_ms) // 2]
+    t0 = time.perf_counter()
+    trainer.train(SyntheticDataset(BASE_TIMED_STEPS, seed=2, npred=BASE_PRED,
+                                   seq=BASE_SEQ),
+                  epochs=1, batch_size=BASE_BATCH, seed=SEED + 1,
+                  verbose=False)
+    torch.cuda.synchronize()
+    train_ms = (time.perf_counter() - t0) * 1e3 / BASE_TIMED_STEPS
+    device_ms, breakdown = device_breakdown(
+        torch, lambda: trainer.train_step(batch), calls=3, top=10,
+        groups=groups, forbid=forbid)
+    idle = None if device_ms is None else 1 - device_ms / train_ms
+    print(f"{label} train step B={BASE_BATCH}: median {median:.3f} ms of 10 "
+          f"synchronised steps (min {min(step_ms):.3f}), "
+          f"{BASE_BATCH / median * 1e3:.1f} examples/s; train() "
+          f"{train_ms:.3f} ms per step over {BASE_TIMED_STEPS}, "
+          f"{BASE_BATCH / train_ms * 1e3:.1f} examples/s; device idle share "
+          f"of train() " + ("not measured" if idle is None
+                            else f"{idle:.3f}")
+          + f"; peak device memory of a step {peak:.2f} GiB", flush=True)
+    print(f"  one {label} train step: " + breakdown, flush=True)
+    return dict(step_ms=median, train_ms=train_ms, device_ms=device_ms,
+                idle=idle, peak=peak)
+
+
 def check_bert_base_training(torch, device):
     """``train()`` on bert_base_512: the kernel step against the plain
     step, the launch counts of a BASE_STEPS-step run, the step times, the
     device idle share and breakdown, a remat step, and the loss falling."""
     fa = importlib.import_module("bert4rec_tpu_torch.ops.flash_attention")
-    from bert4rec_tpu_torch.ops import fused_encoder_layer as fel
-    from bert4rec_tpu_torch.ops import fused_mlm_loss as fml
     from bert4rec_tpu_torch.utils.checkpoint import flatten
     trainer = bert_base_trainer(torch, device)
     cfg = trainer.model.config
@@ -2387,67 +2487,15 @@ def check_bert_base_training(torch, device):
     torch.cuda.empty_cache()
 
     # the main path: train() for BASE_STEPS steps, counts from 0
-    counted = {"flash": fa.flash_attention, "layer": fel.fused_encoder_layer,
-               "loss": fml.fused_mlm_loss, "tiled": fml.fused_mlm_loss_tiled}
-    attrs = ("launches", "backward_launches", "causal_launches",
-             "causal_backward_launches", "merged_launches",
-             "two_sweep_launches")
-    for fn in counted.values():
-        for attr in attrs:
-            if hasattr(fn, attr):
-                setattr(fn, attr, 0)
-    t0 = time.perf_counter()
-    hist = trainer.train(SyntheticDataset(BASE_STEPS, seed=1,
-                                          npred=BASE_PRED, seq=BASE_SEQ),
-                         epochs=1, batch_size=BASE_BATCH, seed=SEED,
-                         verbose=False)
-    wall = time.perf_counter() - t0
-    counts = {f"{key}.{attr}": getattr(fn, attr)
-              for key, fn in counted.items() for attr in attrs
-              if hasattr(fn, attr)}
-    want = {k: 0 for k in counts}
-    want["flash.launches"] = want["flash.backward_launches"] = \
-        cfg.num_layers * BASE_STEPS
-    loss = hist.history["loss"][0]
-    print(f"bert_base_512 train(): {BASE_STEPS} steps of B={BASE_BATCH} S="
-          f"{BASE_SEQ} in {wall:.2f} s (first step included), epoch loss "
-          f"{loss:.4f}; launches {counts}", flush=True)
-    if counts != want or not math.isfinite(loss):
-        raise AssertionError(f"launches {counts}, expected {want}")
-
-    # step time: host clock around synchronised steps; train() warm with its
-    # prefetch thread; the device time of one step
-    step_ms = []
-    for i in range(10):
-        b = trainer._put_batch(base_batch(100 + i))
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        trainer.train_step(b)
-        torch.cuda.synchronize()
-        step_ms.append((time.perf_counter() - t0) * 1e3)
-    median = sorted(step_ms)[len(step_ms) // 2]
-    t0 = time.perf_counter()
-    trainer.train(SyntheticDataset(BASE_TIMED_STEPS, seed=2, npred=BASE_PRED,
-                                   seq=BASE_SEQ),
-                  epochs=1, batch_size=BASE_BATCH, seed=SEED + 1,
-                  verbose=False)
-    torch.cuda.synchronize()
-    train_ms = (time.perf_counter() - t0) * 1e3 / BASE_TIMED_STEPS
-    device_ms, breakdown = device_breakdown(
-        torch, lambda: trainer.train_step(batch), calls=3, top=10,
+    want = {"flash.launches": cfg.num_layers * BASE_STEPS,
+            "flash.backward_launches": cfg.num_layers * BASE_STEPS}
+    counts = base_train_counts(torch, trainer, want, "bert_base_512")
+    timed = base_step_times(
+        torch, trainer, batch, "bert_base_512",
         groups={"K8": ("flash_fwd_kernel", "attention_kernel"),
                 "K9": ("flash_bwd", "attn_bwd"),
                 "GEMMs": ("nvjet", "gemm", "cutlass", "sm90_xmma"),
                 "optimizer": ("multi_tensor", "foreach")})
-    idle = None if device_ms is None else 1 - device_ms / train_ms
-    print(f"bert_base_512 train step B={BASE_BATCH}: median {median:.3f} ms "
-          f"of 10 synchronised steps (min {min(step_ms):.3f}), "
-          f"{BASE_BATCH / median * 1e3:.1f} examples/s; train() "
-          f"{train_ms:.3f} ms per step over {BASE_TIMED_STEPS}, "
-          f"{BASE_BATCH / train_ms * 1e3:.1f} examples/s; device idle share "
-          f"of train() " + ("not measured" if idle is None
-                            else f"{idle:.3f}"), flush=True)
-    print("  one bert_base_512 train step: " + breakdown, flush=True)
     del trainer
     torch.cuda.empty_cache()
 
@@ -2500,8 +2548,68 @@ def check_bert_base_training(torch, device):
                              f"{before} -> {after}")
     del fast
     torch.cuda.empty_cache()
-    return dict(counts=counts, step_ms=median, train_ms=train_ms,
-                device_ms=device_ms, idle=idle, peaks=peaks)
+    return dict(counts=counts, **timed, peaks=peaks)
+
+
+def check_bert_base_fp32(torch, device):
+    """Phase 20: ``train()`` on bert_base_512 in fp32 (no dtype policy):
+    the kernel step against the plain step, the launch counts of a
+    BASE_STEPS-step run (12 K8 and 12 K9 a step, all on the 3xTF32 route),
+    the step time, device idle share, breakdown and peak memory, and one
+    eval-mode forward (K8's inference entry) against the plain path."""
+    from contextlib import ExitStack
+    fa = importlib.import_module("bert4rec_tpu_torch.ops.flash_attention")
+    trainer = bert_base_trainer(torch, device, fp32=True)
+    cfg = trainer.model.config
+    dtype = trainer.model.dtype_policy.compute_dtype
+    head_dim = cfg.hidden_size // cfg.num_attention_heads
+    if dtype != torch.float32 or fa.flash_route(dtype, head_dim) != "tf32" \
+            or trainer.model.encoder.fused_layer_routed(
+                BASE_BATCH, BASE_SEQ, dropout_active=True, device=device) \
+            or not cfg.use_flash_attention or cfg.use_fused_loss:
+        raise AssertionError("fp32 bert_base_512 is not routed to the 3xTF32 "
+                             "flash attention kernels and the logits loss")
+    batch = trainer._put_batch(base_batch(7))
+    rates = (cfg.attention_dropout, cfg.output_dropout)
+    check_step_parity(torch, trainer, batch,
+                      f"fp32 bert_base_512, dropout {rates}")
+    torch.cuda.empty_cache()
+
+    # the main path: train() for BASE_STEPS steps, counts from 0
+    want = {f"flash.{attr}": cfg.num_layers * BASE_STEPS for attr in (
+        "launches", "backward_launches", "tf32_launches",
+        "tf32_backward_launches")}
+    counts = base_train_counts(torch, trainer, want, "fp32 bert_base_512")
+    timed = base_step_times(
+        torch, trainer, batch, "fp32 bert_base_512", forbid=SIMT_FP32_LAYER,
+        groups={"K8": ("flash_fwd_tf32",),
+                "K9": ("flash_dq_tf32", "flash_dkv_tf32"),
+                "GEMMs": ("nvjet", "gemm", "cutlass", "sm90_xmma"),
+                "optimizer": ("multi_tensor", "foreach")})
+
+    # K8's inference entry: an eval-mode forward of the trained model, no
+    # dropout and nothing saved, against the plain path
+    before = {a: getattr(fa.flash_attention, a) for a in FLASH_COUNTERS}
+    loss_k = float(trainer.eval_step(batch)["loss"])
+    torch.cuda.synchronize()
+    moved = {a: getattr(fa.flash_attention, a) - before[a]
+             for a in FLASH_COUNTERS}
+    with ExitStack() as stack:
+        for patch in plain_kernels():
+            stack.enter_context(patch)
+        loss_p = float(trainer.eval_step(batch)["loss"])
+    eval_err = abs(loss_k - loss_p) / abs(loss_p)
+    want_eval = dict.fromkeys(FLASH_COUNTERS, 0)
+    want_eval.update(launches=cfg.num_layers, tf32_launches=cfg.num_layers)
+    print(f"fp32 bert_base_512 eval_step (K8 inference entry): loss "
+          f"{loss_k:.6f} vs plain {loss_p:.6f} (rel {eval_err:.3g}, tol "
+          f"{STEP_TOL['loss']}); launches {moved}", flush=True)
+    if moved != want_eval or not eval_err <= STEP_TOL["loss"]:
+        raise AssertionError(f"fp32 eval forward: launches {moved} (expected "
+                             f"{want_eval}), loss rel err {eval_err}")
+    del trainer
+    torch.cuda.empty_cache()
+    return dict(counts=counts, **timed)
 
 
 # --------------------------------------------------------------------------- #
@@ -2934,6 +3042,9 @@ def run(torch, home) -> int:
     fp32_ml1m = check_training(
         torch, device, label="fp32 ml-1m_128 (harness ml1m)",
         new=lambda **kw: harness_ml1m_trainer(torch, device, **kw))
+    torch.cuda.empty_cache()
+    # phase 20: fp32 bert_base_512 (fp32 K8/K9 on 3xTF32)
+    base_fp32 = check_bert_base_fp32(torch, device)
 
     def entry(name, source, replaces, n, row):
         return {"name": name, "route": "cuda",
@@ -2957,7 +3068,8 @@ def run(torch, home) -> int:
     loss_wgmma = "loss_hopper.cuh"   # bf16 K3-K7
     # K8 / K9 at bert_base_512's shape and rates; launches from its train()
     flash_row = flash_rows[(FLASH_SHAPES[0], "bfloat16", False)]
-    c_base = base["counts"]
+    flash_fp32 = flash_rows[(FLASH_SHAPES[0], "float32", False)]
+    c_base, c_base32 = base["counts"], base_fp32["counts"]
     rel_row = rel_rows[("bfloat16", False)]   # the temporal path's variant
     c_temp = temporal["counts"]
     loss_py = "bert4rec_tpu/ops/fused_mlm_loss.py"
@@ -3039,6 +3151,14 @@ def run(torch, home) -> int:
         entry("flash_attention_backward", "flash_attention.cu",
               "bert4rec_tpu/ops/flash_attention.py:141",
               c_base["flash.backward_launches"], flash_row["bwd"]),
+        # fp32 K8 / K9 (3xTF32): launches on the tf32 route from the fp32
+        # bert_base_512 train() run
+        entry("flash_attention_fp32", "flash_tf32.cuh",
+              "bert4rec_tpu/ops/flash_attention.py:126",
+              c_base32["flash.tf32_launches"], flash_fp32["fwd"]),
+        entry("flash_attention_backward_fp32", "flash_tf32.cuh",
+              "bert4rec_tpu/ops/flash_attention.py:141",
+              c_base32["flash.tf32_backward_launches"], flash_fp32["bwd"]),
         # K1'' rel_bias / K2 dRel (temporal ml-20m_128): launches from its
         # train() run
         entry("fused_encoder_layer_rel", wgmma_src,

@@ -1640,6 +1640,131 @@ def test_flash_kernels_run_past_the_jax_sequence_limit(cuda_device, dtype):
     assert f.launches == before[0] + 1
 
 
+# fp32 with a head dim that is a multiple of 8 up to 64 runs the 3xTF32
+# kernels of csrc/flash_tf32.cuh (flash_route "tf32"): the main path's shape,
+# ragged lengths, S = 1, one past JAX's 1,024, and the head dims 8-64
+FLASH_TF32_DIMS = [(32, 12, 512, 64), (3, 4, 130, 64), (2, 2, 1100, 64),
+                   (4, 2, 1, 64), (4, 3, 130, 32), (4, 2, 65, 8),
+                   (3, 2, 200, 40)]
+
+
+def _flash_counts(fa):
+    f = fa.flash_attention
+    return {name: getattr(f, name) for name in (
+        "tf32_launches", "tf32_backward_launches", "simt_launches",
+        "simt_backward_launches")}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dims", FLASH_TF32_DIMS,
+                         ids=lambda d: "B{}_N{}_S{}_D{}".format(*d))
+def test_flash_fp32_tf32_kernels_match_plain(cuda_device, dims):
+    """fp32 K8/K9 on the 3xTF32 route against their plain versions,
+    bidirectional and causal, dropout 0 and 0.2, on strided views with an
+    all-pad row, a length-1 row and a front-padded row: forward within 1e-4
+    absolute, gradients within 1e-4 of their scale; K8's inference entry
+    (nothing saved) gives the training entry's bits at rate 0."""
+    fa = importlib.import_module("bert4rec_tpu_torch.ops.flash_attention")
+    assert fa.flash_route(torch.float32, dims[3]) == "tf32"
+    q, k, v, mask, do = flash_operands(cuda_device, dims, torch.float32,
+                                       sum(dims) + 1)
+    for causal, rate in ((False, 0.0), (False, 0.2), (True, 0.0),
+                         (True, 0.2)):
+        o, saved = fa._launch_forward(q, k, v, mask, 43, rate, causal, True)
+        grads = fa._launch_backward(q, k, v, mask, do, saved, 43, rate,
+                                    causal)
+        torch.cuda.synchronize()
+        ref = fa.mha_reference(q, k, v, mask, rate, 43, causal)
+        ref_grads = fa.flash_attention_plain_backward(
+            q, k, v, mask, do, dropout_rate=rate, seed=43, causal=causal)
+        label = f"causal={causal} rate={rate}"
+        assert len(saved) == 3 and saved[2] is o, label
+        assert float((o - ref).abs().max()) <= FLASH_TOL[torch.float32], label
+        for name, got, want in zip("qkv", grads, ref_grads):
+            assert bool(torch.isfinite(got).all()), (name, label)
+            assert _rel_err(got, want) <= GRAD_TOL[torch.float32], \
+                (name, label)
+        if rate == 0.0:
+            served, none = fa._launch_forward(q, k, v, mask, 43, 0.0, causal,
+                                              False)
+            torch.cuda.synchronize()
+            assert none == () and torch.equal(served, o), label
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [8, 32, 40, 64], ids=lambda d: f"D{d}")
+def test_flash_fp32_tf32_strided_equals_contiguous_and_backward_repeats(
+        cuda_device, d):
+    """On the 3xTF32 route the projection's views and their contiguous
+    copies give the same bits, and two K9 runs the same bits."""
+    fa = importlib.import_module("bert4rec_tpu_torch.ops.flash_attention")
+    q, k, v, mask, do = flash_operands(cuda_device, (4, 3, 130, d),
+                                       torch.float32, d + 1)
+    copies = [t.contiguous() for t in (q, k, v)]
+    for causal in (False, True):
+        o1, s1 = fa._launch_forward(q, k, v, mask, 8, 0.2, causal, True)
+        o2, s2 = fa._launch_forward(*copies, mask, 8, 0.2, causal, True)
+        g1 = fa._launch_backward(q, k, v, mask, do, s1, 8, 0.2, causal)
+        g2 = fa._launch_backward(*copies, mask, do, s2, 8, 0.2, causal)
+        g3 = fa._launch_backward(q, k, v, mask, do, s1, 8, 0.2, causal)
+        torch.cuda.synchronize()
+        assert torch.equal(o1, o2)
+        for a, b, c in zip(g1, g2, g3):
+            assert torch.equal(a, b) and torch.equal(a, c)
+
+
+@pytest.mark.cuda
+def test_flash_fp32_takes_a_misaligned_view_through_a_copy(cuda_device):
+    """An fp32 view whose base is 4 bytes off the 16-byte rule is copied
+    and launches the 3xTF32 kernels (counted in ``tf32_launches``, none in
+    ``simt_launches``) with the aligned copy's bits."""
+    fa = importlib.import_module("bert4rec_tpu_torch.ops.flash_attention")
+    q, k, v, mask, do = flash_operands(cuda_device, (3, 2, 130, 64),
+                                       torch.float32, 11)
+    shifted = torch.zeros(v.numel() + 1, device=cuda_device)[1:] \
+        .view(v.shape).copy_(v)
+    assert fa._misaligned(shifted)
+    before = _flash_counts(fa)
+    ts = [t.detach().requires_grad_(True) for t in (q, k, shifted)]
+    out = fa.flash_attention(*ts, mask, 0.2, seed=4)
+    out.backward(do)
+    torch.cuda.synchronize()
+    after = _flash_counts(fa)
+    assert after == dict(before, tf32_launches=before["tf32_launches"] + 1,
+                         tf32_backward_launches=before[
+                             "tf32_backward_launches"] + 1)
+    o, saved = fa._launch_forward(q, k, v.contiguous(), mask, 4, 0.2, False,
+                                  True)
+    grads = fa._launch_backward(q, k, v.contiguous(), mask, do, saved, 4,
+                                0.2, False)
+    torch.cuda.synchronize()
+    assert torch.equal(out.detach(), o)
+    for t, g in zip(ts, grads):
+        assert torch.equal(t.grad, g)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d, route", [(64, "tf32"), (32, "tf32"),
+                                      (12, "simt")])
+def test_flash_fp32_counts_its_route(cuda_device, d, route):
+    """An fp32 forward and backward through autograd count one launch each
+    in their route's counters and none in the other's."""
+    fa = importlib.import_module("bert4rec_tpu_torch.ops.flash_attention")
+    q, k, v, mask, do = flash_operands(cuda_device, (2, 2, 70, d),
+                                       torch.float32, d)
+    before = _flash_counts(fa)
+    ts = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    out = fa.flash_attention(*ts, mask, 0.2, seed=6)
+    out.backward(do)
+    torch.cuda.synchronize()
+    want = dict(before)
+    want[f"{route}_launches"] += 1
+    want[f"{route}_backward_launches"] += 1
+    assert _flash_counts(fa) == want
+    ref = fa.mha_reference(q, k, v, mask, 0.2, 6)
+    assert float((out.detach() - ref).abs().max()) <= FLASH_TOL[torch.float32]
+
+
 # bf16 runs the wgmma kernels of csrc/flash_hopper.cuh: every head dim they
 # pad (32, 40 -> 64; 128) and sequence lengths around the 64-row tiles
 FLASH_BF16_DIMS = [32, 40, 64, 128]

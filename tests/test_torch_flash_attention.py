@@ -28,7 +28,7 @@ from bert4rec_tpu.ops.flash_attention import flash_attention as jax_flash
 from bert4rec_tpu_torch.models import (
     BERT4RecConfig, BERT4RecModel, Bert4RecEncoder, SASRecModel,
 )
-from bert4rec_tpu_torch.ops import dropout_bits
+from bert4rec_tpu_torch.ops import dropout_bits, tf32
 from bert4rec_tpu_torch.utils import checkpoint
 from bert4rec_tpu_torch.utils.checkpoint import flatten, params_from_numpy
 from tests.test_torch_model import features, model_kwargs, random_params
@@ -318,6 +318,246 @@ class TestDropout:
         assert torch.autograd.gradcheck(
             lambda *a: fa.flash_attention(*a, m, self.RATE, seed=3,
                                           causal=causal), ts)
+
+
+# --------------------------------------------------------------------------- #
+# the fp32 3xTF32 kernels' arithmetic (csrc/flash_tf32.cuh) and the route law
+# --------------------------------------------------------------------------- #
+
+TILE = 64   # the kernels' key / query tile
+
+
+def three_tf32_flash(q, k, v, mask, do, *, rate=0.0, seed=0, causal=False,
+                     mm=tf32.mm_3xtf32, corrected=True):
+    """The 3xTF32 kernels' arithmetic in plain PyTorch, every product
+    through ``mm``: K8's one online pass over 64-key tiles (the running max
+    and sum, the unnormalised exponentials scaled by keep after they join
+    the sum, o divided by the sum at the end; the row max and sum saved),
+    and K9 from those statistics: the dq kernel's ds0 with delta0 = dO . o,
+    JAX's delta = sum_j p dp keep beside it, dq = dq0 - (delta - delta0)
+    sum_j p k (``corrected``; without, dq = dq0 and dk from delta0), the
+    dk / dv kernel's ds from JAX's delta. Returns ``(o, dq, dk, dv)``."""
+    b, n, s, d = q.shape
+    scale = 1.0 / np.sqrt(d)
+    bias = torch.where(mask > 0, 0.0, -1e9)[:, None, None, :].expand(
+        b, n, s, s)
+    if causal:
+        bias = bias + fa.causal_bias(s, "cpu")
+    keep = fa.attention_keep(seed, b, n, s, rate, "cpu")
+    keep = torch.ones((b, n, s, s)) if keep is None else keep
+    log2e = float(np.log2(np.e))
+    o = torch.zeros((b, n, s, d))
+    m = torch.full((b, n, s, 1), -np.inf)
+    lsum = torch.zeros((b, n, s, 1))
+    for t0 in range(0, s, TILE):
+        kt, vt = k[:, :, t0:t0 + TILE], v[:, :, t0:t0 + TILE]
+        st = mm(q, kt.transpose(-1, -2)) * scale + bias[..., t0:t0 + TILE]
+        mn = torch.maximum(m, st.amax(-1, keepdim=True))
+        alpha = torch.exp2((m - mn) * log2e)
+        e = torch.exp2((st - mn) * log2e)
+        lsum = lsum * alpha + e.sum(-1, keepdim=True)
+        o = o * alpha + mm(e * keep[..., t0:t0 + TILE], vt)
+        m = mn
+    o = o * (1.0 / lsum)
+    delta0 = (do * o).sum(-1, keepdim=True)
+    p = torch.exp2((mm(q, k.transpose(-1, -2)) * scale + bias - m) * log2e) \
+        * (1.0 / lsum)
+    dpk = mm(do, v.transpose(-1, -2)) * keep
+    delta = (p * dpk).sum(-1, keepdim=True) if corrected else delta0
+    dq = mm(p * (dpk - delta0), k)
+    if corrected:
+        dq = dq - (delta - delta0) * mm(p, k)
+    dq = dq * scale
+    ds = p * (dpk - delta)
+    dk = mm(ds.transpose(-1, -2), q) * scale
+    dv = mm((p * keep).transpose(-1, -2), do)
+    return o, dq, dk, dv
+
+
+def scale_err(a, b) -> float:
+    """max |a - b| over the scale max |b|."""
+    return float((a - b).abs().max() / b.abs().max())
+
+
+class TestThreeTf32Flash:
+    """fp32 K8/K9's 3xTF32 arithmetic, emulated with ``ops/tf32.py``, held
+    to JAX's fp32 flash attention (interpret mode) and to the plain fp32
+    versions with dropout. Shapes: S=70 (a ragged second key tile), D=16,
+    a full row, a row of length 1 and an all-pad row."""
+
+    @staticmethod
+    def operands(seed, lengths=(70, 1, 0)):
+        q, k, v, mask = qkv_np(seed, lengths=lengths)
+        g = np.random.default_rng(seed + 100).normal(size=q.shape) \
+            .astype(np.float32)
+        return q, k, v, mask, g
+
+    @pytest.mark.parametrize("causal", [False, True],
+                             ids=["bidirectional", "causal"])
+    def test_matches_the_interpret_kernel(self, causal):
+        q, k, v, mask, g = self.operands(21)
+        ref, ref_grads = jax_run(q, k, v, mask, g, causal=causal)
+        out = three_tf32_flash(*(torch.from_numpy(a) for a in
+                                 (q, k, v, mask, g)), causal=causal)
+        assert float(np.abs(out[0].numpy() - np.asarray(ref)).max()) <= 1e-4
+        for a, b in zip(out[1:], ref_grads):
+            assert scale_err(a, torch.from_numpy(np.array(b))) <= 3e-4
+
+    @pytest.mark.parametrize("causal", [False, True],
+                             ids=["bidirectional", "causal"])
+    def test_matches_the_plain_versions_with_dropout(self, causal):
+        q, k, v, mask, g = (torch.from_numpy(a) for a in
+                            self.operands(22, lengths=(70, 40, 0)))
+        out = three_tf32_flash(q, k, v, mask, g, rate=0.2, seed=9,
+                               causal=causal)
+        ref = fa.mha_reference(q, k, v, mask, 0.2, 9, causal)
+        ref_grads = fa.flash_attention_plain_backward(
+            q, k, v, mask, g, dropout_rate=0.2, seed=9, causal=causal)
+        assert float((out[0] - ref).abs().max()) <= 1e-5
+        for a, b in zip(out[1:], ref_grads):
+            assert scale_err(a, b) <= 1e-5
+
+    @pytest.mark.parametrize("rate", [0.0, 0.2], ids=["rate0", "dropout"])
+    def test_a_row_on_one_key_gets_zero_q_and_k_gradients(self, rate):
+        """Where a row's probability is all on one key (S = 1), ds is 0 in
+        exact arithmetic and in the plain version; the kernels' corrected
+        delta keeps dq, dk at rounding noise of ~1e-13, where dO . o alone
+        leaves ~1e-7 (the plain fp32 path's own dq, dk are exactly 0)."""
+        q, k, v, mask = (torch.from_numpy(a) for a in qkv_np(
+            25, b=4, s=1, lengths=(1, 1, 0, 1)))
+        g = torch.from_numpy(np.random.default_rng(26).normal(
+            size=q.shape).astype(np.float32))
+        plain = fa.flash_attention_plain_backward(q, k, v, mask, g,
+                                                  dropout_rate=rate, seed=3)
+        assert float(plain[0].abs().max()) == float(plain[1].abs().max()) \
+            == 0.0
+        fixed = three_tf32_flash(q, k, v, mask, g, rate=rate, seed=3)
+        raw = three_tf32_flash(q, k, v, mask, g, rate=rate, seed=3,
+                               corrected=False)
+        assert max(float(t.abs().max()) for t in fixed[1:3]) <= 1e-11
+        assert max(float(t.abs().max()) for t in raw[1:3]) >= 1e-9
+
+    def test_one_tf32_pass_lands_an_order_of_magnitude_further_off(self):
+        q, k, v, mask, g = (torch.from_numpy(a) for a in self.operands(23))
+        ref = fa.mha_reference(q, k, v, mask)
+        ref_grads = fa.flash_attention_plain_backward(q, k, v, mask, g)
+        errs = {}
+        for name, mm in (("3x", tf32.mm_3xtf32), ("1x", tf32.mm_tf32)):
+            out = three_tf32_flash(q, k, v, mask, g, mm=mm)
+            errs[name] = max([float((out[0] - ref).abs().max())]
+                             + [scale_err(a, b)
+                                for a, b in zip(out[1:], ref_grads)])
+        assert errs["1x"] >= 10 * errs["3x"], errs
+
+
+class TestFlashRoute:
+    """``flash_route``: the dtype and head dim alone pick the kernels,
+    before any launch, and a forward and its backward take one route."""
+
+    @pytest.mark.parametrize("head_dim", [8, 16, 24, 32, 40, 48, 56, 64])
+    def test_fp32_multiples_of_8_up_to_64_run_tf32(self, head_dim):
+        assert fa.flash_route(torch.float32, head_dim) == "tf32"
+
+    @pytest.mark.parametrize("head_dim", [4, 12, 20, 63, 72, 96, 128])
+    def test_other_fp32_head_dims_run_simt(self, head_dim):
+        # 12: the harness's tiny preset (hidden 24, 2 heads)
+        assert fa.flash_route(torch.float32, head_dim) == "simt"
+
+    @pytest.mark.parametrize("head_dim", [12, 16, 64, 128])
+    def test_bf16_runs_wgmma(self, head_dim):
+        assert fa.flash_route(torch.bfloat16, head_dim) == "wgmma"
+
+    def test_other_dtypes_have_no_route(self):
+        with pytest.raises(ValueError, match="no flash attention kernel"):
+            fa.flash_route(torch.float64, 16)
+
+    def test_every_shipped_config_runs_tf32_in_fp32(self):
+        from bert4rec_tpu_torch.config import (list_train_configs,
+                                               load_train_config)
+        names = list_train_configs()
+        assert names
+        for name in names:
+            cfg = load_train_config(name, vocab_size=100)
+            d = cfg.hidden_size // cfg.num_attention_heads
+            assert fa.flash_route(torch.float32, d) == "tf32", name
+
+    @pytest.mark.parametrize("dtype, d, rate, route", [
+        (torch.float32, 16, 0.2, "tf32"), (torch.float32, 64, 0.0, "tf32"),
+        (torch.float32, 12, 0.2, "simt"), (torch.bfloat16, 16, 0.2, "wgmma")])
+    def test_backward_takes_the_forward_route(self, dtype, d, rate, route,
+                                              monkeypatch):
+        """The wrapper's forward (saving) and its backward pick the same
+        route: each call is recorded, and the kernel library is stubbed to
+        stop each launch before it reaches a card."""
+        seen, real = [], fa.flash_route
+
+        def spy(*args):
+            seen.append(real(*args))
+            return seen[-1]
+
+        class Stop(Exception):
+            pass
+
+        def stop():
+            raise Stop
+
+        monkeypatch.setattr(fa, "flash_route", spy)
+        monkeypatch.setattr(fa, "_kernel_lib", stop)
+        q = torch.zeros((2, 3, 5, d), dtype=dtype)
+        mask = torch.ones((2, 5), dtype=torch.int32)
+        with pytest.raises(Stop):
+            fa._launch_forward(q, q, q, mask, 7, rate, False, True)
+        saved = (torch.zeros((2, 3, 5)), torch.ones((2, 3, 5)), q)
+        with pytest.raises(Stop):
+            fa._launch_backward(q, q, q, mask, q, saved, 7, rate, False)
+        assert seen == [route, route]
+
+    def test_a_misaligned_fp32_view_is_copied_for_the_tf32_kernels(
+            self, monkeypatch):
+        """The 3xTF32 route copies an fp32 view that breaks the 16-byte
+        rule (here a base 4 bytes off) into a contiguous buffer; the main
+        path's views of one projection reach the library as they are."""
+        calls = []
+
+        class Lib:
+            @staticmethod
+            def b4r_flash_max_head_dim():
+                return 128
+
+            @staticmethod
+            def b4r_flash_fwd(dtype, ptrs, strides, *rest):
+                calls.append((list(ptrs)[:5], list(strides)))
+                return 0
+
+        monkeypatch.setattr(fa, "_kernel_lib", lambda: Lib)
+        monkeypatch.setattr(fa.torch.cuda, "current_stream",
+                            lambda device=None: type("S", (), {
+                                "cuda_stream": 0})())
+        b, s, n, d = 2, 5, 3, 16
+        proj = torch.zeros((b, s, 3, n, d))
+        q, k, v = (proj[:, :, i].transpose(1, 2) for i in range(3))
+        mask = torch.ones((b, s), dtype=torch.int32)
+        fa._launch_forward(q, k, v, mask, 7, 0.0, False, False)
+        assert calls[-1][0][:3] == [t.data_ptr() for t in (q, k, v)]
+        bad = torch.zeros(q.numel() + 1)[1:].view(q.shape)
+        assert fa._misaligned(bad)
+        fa._launch_forward(q, k, bad, mask, 7, 0.0, False, False)
+        ptrs, strides = calls[-1]
+        assert ptrs[2] != bad.data_ptr() and ptrs[2] % 16 == 0
+        assert strides[6:9] == [n * s * d, s * d, d]
+
+    def test_the_cpu_path_counts_no_route(self):
+        before = {name: getattr(fa.flash_attention, name) for name in (
+            "tf32_launches", "tf32_backward_launches", "simt_launches",
+            "simt_backward_launches")}
+        q, k, v, mask, g = self.operands_np()
+        port_run(q, k, v, mask, g)
+        assert before == {name: getattr(fa.flash_attention, name)
+                          for name in before}
+
+    @staticmethod
+    def operands_np():
+        return TestThreeTf32Flash.operands(24)
 
 
 # --------------------------------------------------------------------------- #
