@@ -1,7 +1,7 @@
-"""Evaluation: rank metrics and the sampled / full-catalog evaluator (port
-of ``bert4rec_tpu/evaluation``), and the quality harness's temporal gate
-(``quality_harness.run_smoke_temporal``); the baselines, the oracles and
-the harness's other modes come with a later slice."""
+"""Evaluation: rank metrics, the sampled / full-catalog evaluator, the
+popularity baseline, the Bayes oracles of the planted Markov worlds
+(``markov_oracle``, ``temporal_oracle``) and the quality harness
+(``quality_harness``; port of ``bert4rec_tpu/evaluation``)."""
 
 from bert4rec_tpu_torch.evaluation import evaluation_metrics, evaluation_utils
 from bert4rec_tpu_torch.evaluation.evaluation_metrics import (
@@ -9,6 +9,7 @@ from bert4rec_tpu_torch.evaluation.evaluation_metrics import (
     NDCG, NormalizedDiscountedCumulativeGain,
 )
 from bert4rec_tpu_torch.evaluation.base_evaluator import BaseEvaluator
+from bert4rec_tpu_torch.evaluation.baselines import PopularityScorer
 from bert4rec_tpu_torch.evaluation.bert4rec_evaluator import (
     BERT4RecEvaluator, default_metrics,
 )
@@ -30,4 +31,5 @@ __all__ = ["evaluation_metrics", "evaluation_utils", "Counter",
            "EvaluationMetric", "HitRatio", "HR", "MAP",
            "MeanAveragePrecision", "NDCG",
            "NormalizedDiscountedCumulativeGain", "BaseEvaluator",
-           "BERT4RecEvaluator", "default_metrics", "evaluators_map", "get"]
+           "BERT4RecEvaluator", "PopularityScorer", "default_metrics",
+           "evaluators_map", "get"]

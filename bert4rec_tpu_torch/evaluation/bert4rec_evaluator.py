@@ -56,8 +56,19 @@ def default_metrics() -> List[metrics_lib.EvaluationMetric]:
     ]
 
 
-def _params_device(params: dict) -> torch.device:
-    return next(iter(ckpt_lib.flatten(params).values())).device
+def _model_device(model, params) -> torch.device:
+    """The device a batch is scored on: the params' device, or, for a
+    scorer without params (``params=None``: the popularity floor, the
+    oracles), its ``device``. Never a CPU fallback."""
+    if params is not None:
+        return next(iter(ckpt_lib.flatten(params).values())).device
+    device = getattr(model, "device", None)
+    if device is None:
+        raise ValueError(
+            f"cannot place the batches: params is None and "
+            f"{type(model).__name__} has no `device`; pass the model's "
+            f"params, or give the scorer a device")
+    return torch.device(device)
 
 
 def _fetch(ranks) -> np.ndarray:
@@ -307,7 +318,7 @@ class BERT4RecEvaluator(BaseEvaluator):
         if not valid.any() and not self._static_shapes:
             return np.empty(0, dtype=np.int64)
 
-        device = _params_device(params)
+        device = _model_device(model, params)
         with torch.no_grad():
             if self.full_ranking:
                 ranks = self._evaluate_batch_full(model, params, batch,

@@ -198,7 +198,18 @@ Phases (any failure raises and the script exits non-zero):
               time, the device idle share, the breakdown (no SIMT attention
               kernel in it) and the peak memory of a step; one eval-mode
               forward of the trained model (K8's inference entry: no
-              dropout, nothing saved) against the plain path.
+              dropout, nothing saved) against the plain path;
+21. oracle gate — the quality harness's ``run_oracle`` at the ml1m
+              preset, family bert4rec, its full budget (80 epochs: the
+              trained model and the masking-rate-0.02 model, 2,560 steps
+              each, B=256, fp32, the fused layer and loss, 4 steps a
+              call), against the Bayes oracle of the planted Markov world:
+              every check of JAX's (HR@10 >= 0.94 and NDCG@10 >= 0.91 of
+              the oracle among them; a failed check fails the run), the
+              ratios, the wall time, train()'s time a step, one step's
+              device time and the idle share, and the launches by route:
+              every fp32 layer launch on 3xTF32 (``tf32_launches``), none on
+              the earlier bf16 kernels (``mma_sync_launches``).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the rest of
@@ -2922,6 +2933,98 @@ def check_temporal_gate(torch, device):
     return payload
 
 
+# --------------------------------------------------------------------------- #
+# phase 21: the quality harness's Markov-oracle gate at the ml1m preset
+# --------------------------------------------------------------------------- #
+
+ORACLE_SCALE = "ml1m"
+
+
+def check_oracle_gate(torch, device):
+    """``quality_harness.run_oracle`` at the ml1m preset (family bert4rec,
+    80 epochs, JAX's gates unchanged) on the card: every check must hold.
+    The layer and loss launches of the run are counted by route, and each
+    ``train()`` call is timed; one step of the last trained model is
+    traced for its device time."""
+    import types
+    from unittest import mock
+    from bert4rec_tpu_torch.evaluation import quality_harness
+    from bert4rec_tpu_torch.ops import fused_encoder_layer as fel
+    from bert4rec_tpu_torch.ops import fused_mlm_loss as fml
+    from bert4rec_tpu_torch.trainers import BERT4RecTrainer
+
+    trains = []
+    train = BERT4RecTrainer.train
+
+    def timed_train(self, *args, **kwargs):
+        step0, t0 = self.state["step"], time.perf_counter()
+        history = train(self, *args, **kwargs)
+        torch.cuda.synchronize()
+        trains.append((self, time.perf_counter() - t0,
+                       self.state["step"] - step0))
+        return history
+
+    layer_counters = ("launches", "backward_launches", "mma_sync_launches",
+                      "mma_sync_backward_launches", "tf32_launches",
+                      "tf32_backward_launches")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_oracle_") as tmp:
+        args = quality_harness.build_argparser().parse_args(
+            ["--oracle", "--oracle-scale", ORACLE_SCALE, "--out", tmp])
+        for attr in layer_counters:
+            setattr(fel.fused_encoder_layer, attr, 0)
+        fml.fused_mlm_loss.launches = fml.fused_mlm_loss.backward_launches = 0
+        t0 = time.perf_counter()
+        with mock.patch.object(BERT4RecTrainer, "train", timed_train):
+            rc = quality_harness.run_oracle(args, device=device)
+        wall = time.perf_counter() - t0
+        counts = dict(layer_fwd=fel.fused_encoder_layer.launches,
+                      layer_bwd=fel.fused_encoder_layer.backward_launches,
+                      loss_fwd=fml.fused_mlm_loss.launches,
+                      loss_bwd=fml.fused_mlm_loss.backward_launches,
+                      mma_sync=fel.fused_encoder_layer.mma_sync_launches
+                      + fel.fused_encoder_layer.mma_sync_backward_launches,
+                      tf32_fwd=fel.fused_encoder_layer.tf32_launches,
+                      tf32_bwd=fel.fused_encoder_layer.tf32_backward_launches)
+        with open(f"{tmp}/eval_results.json") as f:
+            payload = json.load(f)
+    steps = sum(n for _, _, n in trains)
+    train_s = sum(w for _, w, _ in trains)
+    train_ms = train_s * 1e3 / max(steps, 1)
+    trainer = trains[-1][0]
+    cfg = trainer.model.config
+    batch = trainer._put_batch(make_batch(
+        7, npred=cfg.max_predictions_per_seq, seq=cfg.max_sequence_length))
+    device_ms, breakdown = device_breakdown(
+        torch, lambda: trainer.train_step(batch), calls=3, top=8,
+        forbid=SIMT_FP32_STEP)
+    idle = None if device_ms is None else 1 - device_ms / train_ms
+    layers = cfg.num_layers
+    print(f"oracle gate ({ORACLE_SCALE}, bert4rec, "
+          f"{payload['generator']['epochs']} epochs): {wall:.1f} s, of "
+          f"which train() {train_s:.1f} s for {steps} steps in "
+          f"{len(trains)} runs ({train_ms:.3f} ms a step); ratios "
+          f"{payload['oracle_gap']} against gates {payload['gates']}; "
+          f"model {payload['results']}; bayes oracle "
+          f"{payload['results_bayes_oracle']}; floor "
+          f"{payload['results_popularity_floor']}; broken masking rate "
+          f"{payload['results_broken_masking_rate']}", flush=True)
+    print(f"oracle gate launches {counts} (layers x steps = "
+          f"{layers * steps}, steps {steps}); one step: device "
+          + ("not measured" if idle is None else
+             f"{device_ms:.3f} ms, idle share of train() {idle:.3f}")
+          + f"; {breakdown}", flush=True)
+    print(f"oracle gate checks {payload['checks']}", flush=True)
+    if not (counts["tf32_fwd"] == counts["layer_fwd"] > 0
+            and counts["tf32_bwd"] == counts["layer_bwd"] > 0
+            and counts["mma_sync"] == 0 and counts["loss_bwd"] > 0):
+        raise AssertionError(f"the oracle run's layer launches are not all "
+                             f"on the 3xTF32 route: {counts}")
+    if rc != 0 or not all(payload["checks"].values()):
+        raise AssertionError(f"the oracle gate failed: {payload['checks']}")
+    return dict(counts=counts, wall=wall, train_ms=train_ms,
+                device_ms=device_ms, idle=idle, payload=payload)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3045,6 +3148,9 @@ def run(torch, home) -> int:
     torch.cuda.empty_cache()
     # phase 20: fp32 bert_base_512 (fp32 K8/K9 on 3xTF32)
     base_fp32 = check_bert_base_fp32(torch, device)
+    torch.cuda.empty_cache()
+    # phase 21: the quality harness's ml1m oracle gate (fp32 K1'/K2, K3/K4)
+    oracle = check_oracle_gate(torch, device)["counts"]
 
     def entry(name, source, replaces, n, row):
         return {"name": name, "route": "cuda",
@@ -3089,15 +3195,18 @@ def run(torch, home) -> int:
               "bert4rec_tpu/ops/fused_encoder_layer.py:265",
               counts["layer_bwd"], train_row["bwd"]),
         # fp32 K1' / K2 (3xTF32): launches from the fp32 ml-20m_128 and
-        # ml-1m_128 train() runs (the harness's ml20m and ml1m presets)
+        # ml-1m_128 train() runs (the harness's ml20m and ml1m presets) and
+        # the ml1m oracle gate (its forwards with the evaluations' K1)
         entry("fused_encoder_layer_dropout_fp32", tf32_src,
               "bert4rec_tpu/ops/fused_encoder_layer.py:241",
               fp32_ml20m["counts"]["layer_fwd"]
-              + fp32_ml1m["counts"]["layer_fwd"], fp32_row["fwd"]),
+              + fp32_ml1m["counts"]["layer_fwd"] + oracle["layer_fwd"],
+              fp32_row["fwd"]),
         entry("fused_encoder_layer_backward_fp32", tf32_src,
               "bert4rec_tpu/ops/fused_encoder_layer.py:265",
               fp32_ml20m["counts"]["layer_bwd"]
-              + fp32_ml1m["counts"]["layer_bwd"], fp32_row["bwd"]),
+              + fp32_ml1m["counts"]["layer_bwd"] + oracle["layer_bwd"],
+              fp32_row["bwd"]),
         # ml-20m_256's width; launches from its train() run
         entry("fused_encoder_layer_dropout_h256", wgmma_src,
               "bert4rec_tpu/ops/fused_encoder_layer.py:241",
@@ -3131,11 +3240,13 @@ def run(torch, home) -> int:
         entry("fused_mlm_loss_tiled_backward_merged_fp32", "loss_tf32.cuh",
               f"{loss_py}:502", fp32_ml20m["counts"]["K6"], tiled_fp32["K6"]),
         # fp32 K3 / K4 (3xTF32): launches from the fp32 ml-1m_128 train()
-        # run (the harness's ml1m preset)
+        # run (the harness's ml1m preset) and the ml1m oracle gate
         entry("fused_mlm_loss_fp32", "loss_tf32.cuh", f"{loss_py}:111",
-              fp32_ml1m["counts"]["loss_fwd"], loss_rows["float32"]["fwd"]),
+              fp32_ml1m["counts"]["loss_fwd"] + oracle["loss_fwd"],
+              loss_rows["float32"]["fwd"]),
         entry("fused_mlm_loss_backward_fp32", "loss_tf32.cuh",
-              f"{loss_py}:148", fp32_ml1m["counts"]["loss_bwd"],
+              f"{loss_py}:148",
+              fp32_ml1m["counts"]["loss_bwd"] + oracle["loss_bwd"],
               loss_rows["float32"]["bwd"]),
         # K1'' causal (SASRec): launches from its train() run
         entry("fused_encoder_layer_causal", wgmma_src,
