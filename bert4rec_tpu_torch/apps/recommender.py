@@ -3,7 +3,8 @@
 Raw item-string histories -> ``prepare_inference(_batch)`` (append
 ``[UNK]``, last-token mask) -> forward on ``device`` -> MLM logits of the
 masked slot -> seen items and special tokens excluded -> best items ->
-detokenize. ``ArtifactRecommender`` (exported artifacts) is not ported yet.
+detokenize. ``ArtifactRecommender`` serves the same ranking from an
+exported program (``models/export.py``) without the model's code.
 """
 
 from typing import List, Optional
@@ -40,6 +41,19 @@ def build_exclusion_rows(sequences, tokenizer, special_token_ids,
     return rows
 
 
+def model_inputs(feats: dict, model, device) -> dict:
+    """The prepared numpy features a forward reads, as tensors on
+    ``device``; raises on item ids outside the model's vocabulary (an index
+    past the table would fault on the device)."""
+    ids = feats["input_word_ids"]
+    vocab = model.config.padded_vocab_size
+    if ids.size and (ids.min() < 0 or ids.max() >= vocab):
+        raise ValueError(f"history holds item ids outside the model's "
+                         f"vocabulary of {vocab}")
+    return {k: torch.from_numpy(np.ascontiguousarray(feats[k])).to(device)
+            for k in _WANTED}
+
+
 class Recommender:
     """A model + params + dataloader on one device.
 
@@ -55,14 +69,7 @@ class Recommender:
         self.dataloader = dataloader
 
     def _batch(self, feats: dict) -> dict:
-        ids = feats["input_word_ids"]
-        vocab = self.model.config.padded_vocab_size
-        if ids.size and (ids.min() < 0 or ids.max() >= vocab):
-            # an index past the table would fault on the device
-            raise ValueError(f"history holds item ids outside the model's "
-                             f"vocabulary of {vocab}")
-        return {k: torch.from_numpy(np.ascontiguousarray(feats[k]))
-                .to(self.device) for k in _WANTED}
+        return model_inputs(feats, self.model, self.device)
 
     @torch.inference_mode()
     def __call__(self, sequence: List[str],
@@ -138,6 +145,78 @@ class Recommender:
             dispatch=lambda seqs: self._dispatch_topk(seqs, top_k),
             fetch=self._decode_topk,
             workers=fetch_workers)
+
+
+class ArtifactRecommender:
+    """``recommend_batch`` over a weights-embedded exported program (a
+    ``models.export.export_top_k(..., num_exclude=E)`` artifact, e.g. from
+    ``load_artifact``) plus a dataloader (tokenizer + inference
+    preprocessing): the deployment where the serving process ships no model
+    code. A backend of :class:`~bert4rec_tpu_torch.apps.serving.
+    RecommenderService`.
+
+    ``k`` and the exclusion width are read off the program's input and
+    output shapes; it must have been exported WITH ``num_exclude``
+    (otherwise seen items could be recommended back). Inputs go to the
+    device the program's weights lie on.
+    """
+
+    def __init__(self, artifact, dataloader,
+                 special_token_ids=(0, 1, 2)):
+        from bert4rec_tpu_torch.models import export
+        ins = export.input_shapes(artifact)
+        if len(ins) != 4:
+            raise ValueError(
+                "the artifact must be exported with num_exclude=E "
+                "(export_top_k(..., num_exclude=...)) so seen items can "
+                f"be excluded; got {len(ins)} inputs")
+        self.artifact = artifact
+        self.dataloader = dataloader
+        self.special_token_ids = list(special_token_ids)
+        # public so a serving layer can validate requests before they
+        # reach a shared batch
+        self.exclusion_width = int(ins[3][1])
+        self.exported_k = int(export.output_shapes(artifact)[0][-1])
+        self.device = next(iter(artifact.state_dict.values())).device
+        self._call = artifact.module()
+
+    @property
+    def max_history_items(self) -> int:
+        """Longest history this artifact can exclude."""
+        return self.exclusion_width - len(self.special_token_ids)
+
+    def recommend_batch(self, sequences, top_k: Optional[int] = None):
+        """Top-k next-item recommendations, ranked by the artifact.
+
+        :param top_k: <= the exported k (defaults to it)
+        """
+        k = self.exported_k if top_k is None else int(top_k)
+        ids = self._dispatch_topk(sequences, k)
+        # decode only the requested k of the exported_k columns
+        return self._decode_topk(ids, k)
+
+    @torch.inference_mode()
+    def _dispatch_topk(self, sequences, top_k: Optional[int]):
+        """Prep + launch through the artifact; returns the device ids
+        ``[B, exported_k]`` without waiting for the device. ``top_k`` only
+        validates: the artifact always ranks its exported k."""
+        k = self.exported_k if top_k is None else int(top_k)
+        if k > self.exported_k:
+            raise ValueError(f"top_k={k} exceeds the artifact's exported "
+                             f"k={self.exported_k}")
+        feats = self.dataloader.prepare_inference_batch(
+            [list(s) for s in sequences])
+        exclude = build_exclusion_rows(sequences,
+                                       self.dataloader.tokenizer,
+                                       self.special_token_ids,
+                                       width=self.exclusion_width)
+        args = [torch.from_numpy(np.ascontiguousarray(feats[name],
+                                                      dtype=np.int32))
+                for name in _WANTED] + [torch.from_numpy(exclude)]
+        ids, _ = self._call(*(a.to(self.device) for a in args))
+        return ids[:, 0]   # the single masked position is slot 0
+
+    _decode_topk = Recommender._decode_topk
 
 
 def _to_device(tree, device):

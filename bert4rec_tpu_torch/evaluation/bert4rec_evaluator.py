@@ -107,12 +107,12 @@ class BERT4RecEvaluator(BaseEvaluator):
         ``fetch_workers``: threads that fetch the ranks from the card; 0
         fetches each batch before launching the next.
 
-        ``mesh``: the multi-GPU layout (ROADMAP.md, queue A.10) is not
+        ``mesh``: the multi-GPU layout (ROADMAP.md, queue A.5) is not
         ported yet; anything but None raises."""
         if mesh is not None:
             raise NotImplementedError(
                 "BERT4RecEvaluator(mesh=...): the multi-GPU layout "
-                "(ROADMAP.md, queue A.10) is not ported yet; evaluate on "
+                "(ROADMAP.md, queue A.5) is not ported yet; evaluate on "
                 "one device")
         sampler_config = {"sample_size": sample_size}
         if seed is not None:

@@ -95,9 +95,13 @@ def build_argparser():
                         "unbiased protocol; Krichene & Rendle 2020) under "
                         "results_full_ranking")
     p.add_argument("--int8", action="store_true",
-                   help="the int8 serving table's quality delta; "
-                        "models/quantization.py is not ported yet "
-                        "(ROADMAP.md, queue A.4), so this flag raises")
+                   help="additionally quantize the trained model's "
+                        "embedding table to int8 (models/quantization.py, "
+                        "the serving fast path) and re-run the sampled "
+                        "eval — emits results_int8 with the measured "
+                        "fp32->int8 metric delta and gates it "
+                        "(int8_ndcg10_drop gate when the preset defines "
+                        "one; a sanity bound otherwise)")
     p.add_argument("--device", default="cuda",
                    help="where to train and evaluate (default: the card; "
                         "'cpu' runs the kernels' plain versions)")
@@ -124,14 +128,40 @@ def platform_name(device) -> str:
     return device.type
 
 
-def refuse_int8(args):
-    """``--int8`` raises before any training: the quantized table
-    (models/quantization.py) is not ported, and the flag never skips
-    silently."""
-    if getattr(args, "int8", False):
-        raise NotImplementedError(
-            "--int8: models/quantization.py (ROADMAP.md, queue A.4) is not "
-            "ported yet; drop the flag")
+def int8_block(model, params, test, ekw, res_model, tag, hr=True) -> dict:
+    """JAX's ``results_int8``: the trained model's table quantized to int8
+    weights-only (models/quantization.py) and the sampled evaluation run
+    again through the quantized candidate-scoring path (the raw codes,
+    scales after the contraction: the real quantized serving quality);
+    the table's bytes both ways and the NDCG@10 (and, for the Markov
+    oracle, HR@10) drop against fp32."""
+    from bert4rec_tpu_torch.evaluation.markov_oracle import evaluate_scorer
+    from bert4rec_tpu_torch.models import quantization
+    qparams = quantization.quantize_params(params)
+    res_q = evaluate_scorer(model, qparams, test, **ekw)
+    print(f"[{tag}] int8-quantized model: {_r4(res_q)}", flush=True)
+    block = {
+        "results": _floats(res_q),
+        "table_bytes_fp32": quantization.table_bytes(params),
+        "table_bytes_int8": quantization.table_bytes(qparams),
+        "ndcg10_drop_vs_fp32": round(
+            float(res_model["NDCG@10"]) - float(res_q["NDCG@10"]), 4),
+    }
+    if hr:
+        block["hr10_drop_vs_fp32"] = round(
+            float(res_model["HR@10"]) - float(res_q["HR@10"]), 4)
+    return block
+
+
+def gate_int8(checks: dict, block: dict, gates: dict) -> None:
+    """The quantized serving path must hold quality: JAX's check of the
+    NDCG@10 drop at the preset's ``int8_ndcg10_drop`` (0.01 by default;
+    per-row symmetric int8 on a 128-wide table is a ~0.4% weight
+    perturbation, so a visible drop means a broken scale path)."""
+    drop_gate = gates.get("int8_ndcg10_drop", 0.01)
+    checks[f"int8_ndcg10_drop_within_{drop_gate}"] = (
+        block["ndcg10_drop_vs_fp32"] <= drop_gate)
+    block["gate_ndcg10_drop"] = drop_gate
 
 
 def _floats(d: dict) -> dict:
@@ -497,7 +527,6 @@ def run_oracle_temporal(args, *, device="cuda"):
     )
     from bert4rec_tpu_torch.models import BERT4RecConfig, BERT4RecModel
 
-    refuse_int8(args)
     if args.gap_curve:
         raise SystemExit(
             "--gap-curve is not implemented for --oracle-family temporal "
@@ -595,6 +624,9 @@ def run_oracle_temporal(args, *, device="cuda"):
         print(f"[temporal-oracle] full-ranking: {_r4(res_full)} "
               f"({full_block['ms_per_batch']:.1f} ms/batch)", flush=True)
 
+    int8 = (int8_block(model_obj, model_params, test, ekw, res_model,
+                       "temporal-oracle", hr=False) if args.int8 else None)
+
     o_ndcg = float(oracle["NDCG@10"])
     b_ndcg = float(blind["NDCG@10"])
     ndcg_ratio = float(res_model["NDCG@10"]) / max(o_ndcg, 1e-9)
@@ -631,6 +663,8 @@ def run_oracle_temporal(args, *, device="cuda"):
             float(full_block["results"]["NDCG@10"])
             <= float(full_block["results_temporal_bayes_ceiling"]
                      ["NDCG@10"]) + 0.03)
+    if int8 is not None:
+        gate_int8(checks, int8, gates)
     emit(args.out or f"{OUT_PREFIX}/oracle_{args.oracle_scale}_temporal", {
         "dataset": f"temporal markov-oracle benchmark "
                    f"({args.oracle_scale})",
@@ -659,6 +693,7 @@ def run_oracle_temporal(args, *, device="cuda"):
         "gates": gates,
         **({"results_full_ranking": full_block}
            if full_block is not None else {}),
+        **({"results_int8": int8} if int8 is not None else {}),
         "checks": checks,
     })
     ok = all(checks.values())
@@ -837,7 +872,6 @@ def run_oracle(args, *, device="cuda"):
         BERT4RecConfig, BERT4RecModel, SASRecModel,
     )
 
-    refuse_int8(args)
     device = resolve_device(device)
     on_card = device.type == "cuda"
     ps = dict(_ORACLE_PRESETS[args.oracle_scale])
@@ -975,6 +1009,9 @@ def run_oracle(args, *, device="cuda"):
         print(f"[oracle-bench] full-ranking: {_r4(res_full)} "
               f"({full_block['ms_per_batch']:.1f} ms/batch)", flush=True)
 
+    int8 = (int8_block(model_obj, model_params, test, ekw, res_model,
+                       "oracle-bench") if args.int8 else None)
+
     gap = ratios(res_model)
     gap_hr = float(res_model["HR@10"]) / max(float(oracle["HR@10"]), 1e-9)
     gap_ndcg = (float(res_model["NDCG@10"])
@@ -1004,6 +1041,8 @@ def run_oracle(args, *, device="cuda"):
     if ndcg_gate is not None:
         checks[f"model_reaches_{round(ndcg_gate * 100)}"
                "pct_of_oracle_ndcg10"] = gap_ndcg >= ndcg_gate
+    if int8 is not None:
+        gate_int8(checks, int8, gates)
     if full_block is not None and "oracle_gap" in full_block:
         # the model cannot beat the Bayes ceiling under the full protocol
         # either, and the preset may pin a floor (full_ndcg10)
@@ -1037,6 +1076,7 @@ def run_oracle(args, *, device="cuda"):
         **({"gap_curve": curve} if curve is not None else {}),
         **({"results_full_ranking": full_block}
            if full_block is not None else {}),
+        **({"results_int8": int8} if int8 is not None else {}),
         "checks": checks,
     })
     ok = all(checks.values())
@@ -1046,7 +1086,6 @@ def run_oracle(args, *, device="cuda"):
 
 def main(argv=None):
     args = build_argparser().parse_args(argv)
-    refuse_int8(args)
     if args.oracle and args.oracle_family == "temporal":
         return run_oracle_temporal(args, device=args.device)
     if args.oracle:

@@ -85,8 +85,18 @@ class BERT4RecModel:
         (operands in the compute dtype, fp32 sums)."""
         compute_dtype = self.dtype_policy.compute_dtype
         x = self.mlm_transform(params, sequence_output, masked_lm_positions)
-        table = Bert4RecEncoder.get_embedding_table(params["encoder"])
-        logits = torch.matmul(x.float(), table.to(compute_dtype).float().T)
+        emb = params["encoder"]["item_embeddings"]
+        if "embedding_q" in emb:
+            # int8 weights-only table (models/quantization.py): the product
+            # takes the raw codes (exact in the compute dtype), then each
+            # column is scaled; no dense dequantized [V, W] is built
+            logits = torch.matmul(
+                x.float(), emb["embedding_q"].to(compute_dtype).float().T)
+            logits = logits * emb["embedding_scale"]
+        else:
+            table = Bert4RecEncoder.get_embedding_table(params["encoder"])
+            logits = torch.matmul(x.float(),
+                                  table.to(compute_dtype).float().T)
         logits = logits + params["mlm"]["output_bias"]
         if self.config.padded_vocab_size > self.config.vocab_size:
             # vocab-padding ids must never win a ranking
@@ -95,9 +105,12 @@ class BERT4RecModel:
 
     def _mlm_hidden_and_table(self, params: dict, inputs: dict, *,
                               training: bool = False,
-                              seed: Optional[int] = None) -> tuple:
+                              seed: Optional[int] = None,
+                              dense_table: bool = True) -> tuple:
         """Encoder forward + MLM transform of the masked positions + the
-        tied table: the front half of the fused-loss path."""
+        tied table: the front half of the fused-loss path
+        (``dense_table=False`` skips the table: the quantized fast paths
+        read the raw quantized leaves)."""
         enc = self.encoder.apply(params["encoder"], inputs["input_word_ids"],
                                  inputs["input_mask"], training=training,
                                  seed=seed,
@@ -105,14 +118,23 @@ class BERT4RecModel:
                                      "input_timestamps"))
         hidden = self.mlm_transform(params, enc["sequence_output"],
                                     inputs["masked_lm_positions"])
-        return hidden, Bert4RecEncoder.get_embedding_table(params["encoder"])
+        table = (Bert4RecEncoder.get_embedding_table(params["encoder"])
+                 if dense_table else None)
+        return hidden, table
 
     def score_candidates(self, params: dict, inputs: dict,
                          candidates: torch.Tensor) -> torch.Tensor:
         """Candidate-only MLM logits ``[B, P, C]`` of ``candidates [B, P,
         C]``: never builds the ``[B, P, V]`` full-vocab logits (the
-        sampled evaluation's path)."""
+        sampled evaluation's path). An int8 table scales only the
+        gathered candidate rows' products."""
         from bert4rec_tpu_torch.ops import candidate_scoring
+        emb = params["encoder"]["item_embeddings"]
+        if "embedding_q" in emb:
+            hidden, _ = self._mlm_hidden_and_table(params, inputs,
+                                                   dense_table=False)
+            return candidate_scoring.score_candidates_quantized(
+                hidden, emb, params["mlm"]["output_bias"], candidates)
         hidden, table = self._mlm_hidden_and_table(params, inputs)
         return candidate_scoring.score_candidates(
             hidden, table, params["mlm"]["output_bias"], candidates)

@@ -101,10 +101,37 @@ def init_embedding(generator, vocab_size: int, width: int, stddev: float,
 
 def embedding_lookup(params: dict, ids: torch.Tensor,
                      compute_dtype=torch.float32) -> torch.Tensor:
+    """Gather rows of a dense (``embedding``) or int8 weights-only
+    quantized (``embedding_q`` + ``embedding_scale``, models/quantization.py)
+    table; quantized rows are scaled after the gather, so only the touched
+    rows pay the multiply."""
     if "embedding_q" in params:
-        raise NotImplementedError(
-            "int8-quantized embedding tables are not ported yet")
+        idx = ids.long()
+        rows = params["embedding_q"][idx].to(compute_dtype)
+        scale = params["embedding_scale"][idx].to(compute_dtype)
+        return rows * scale[..., None]
     return params["embedding"][ids.long()].to(compute_dtype)
+
+
+def quantize_embedding(params: dict) -> dict:
+    """Weights-only int8 quantization of an embedding table, symmetric
+    per-row (per-item) scales: ``q = round(row / s)`` (half to even, as
+    ``jnp.round``), ``s = max|row| / 127`` (at least float32's smallest
+    normal). Per-row scales keep the tied-softmax math exact to apply
+    after the logits product (``(h @ q^T) * s == h @ (q * s)^T``)."""
+    table = params["embedding"].detach().float()
+    scale = table.abs().amax(dim=1) / 127.0
+    scale = torch.clamp(scale, min=torch.finfo(torch.float32).tiny)
+    q = torch.clamp(torch.round(table / scale[:, None]), -127, 127) \
+        .to(torch.int8)
+    return {"embedding_q": q, "embedding_scale": scale}
+
+
+def dequantize_embedding(params: dict, dtype=torch.float32) -> torch.Tensor:
+    """Dense ``[V, W]`` table from a quantized one (the fallback of paths
+    without a quantized fast path)."""
+    return (params["embedding_q"].to(dtype)
+            * params["embedding_scale"][:, None].to(dtype))
 
 
 def init_position_embedding(generator, max_length: int, width: int,

@@ -363,11 +363,13 @@ class Bert4RecEncoder:
 
     @staticmethod
     def get_embedding_table(params: dict) -> torch.Tensor:
-        """The tied item-embedding table ``[V, W]``."""
+        """The tied item-embedding table ``[V, W]``. An int8-quantized
+        table (models/quantization.py) is dequantized here, the fallback;
+        the hot serving paths branch on the quantized form and never build
+        this dense tensor."""
         emb = params["item_embeddings"]
         if "embedding_q" in emb:
-            raise NotImplementedError(
-                "int8-quantized embedding tables are not ported yet")
+            return L.dequantize_embedding(emb)
         return emb["embedding"]
 
     def get_config(self) -> dict:

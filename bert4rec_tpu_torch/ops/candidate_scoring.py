@@ -1,6 +1,6 @@
 """Candidate scoring for the sampled and full-catalog evaluations (port of
-``bert4rec_tpu/ops/candidate_scoring.py``; the int8 and vocab-sharded
-variants wait for their slices).
+``bert4rec_tpu/ops/candidate_scoring.py``; the vocab-sharded variant waits
+for the multi-GPU layout).
 
 ``score_candidates`` computes only the C candidate logits of each masked
 position: gather the candidates' rows of the tied table and contract them
@@ -46,6 +46,20 @@ def score_candidates(hidden: torch.Tensor, table: torch.Tensor,
     """
     idx = candidates.long()
     return _logits_fp32(hidden, table[idx]) + output_bias[idx]
+
+
+def score_candidates_quantized(hidden: torch.Tensor, emb_params: dict,
+                               output_bias: torch.Tensor,
+                               candidates: torch.Tensor) -> torch.Tensor:
+    """Candidate-only logits from an int8 weights-only quantized table
+    (``embedding_q`` ``[V, W]`` int8 + ``embedding_scale`` ``[V]``;
+    models/quantization.py): the raw int8 rows are gathered and each
+    candidate's scale is applied after the contraction, the math of
+    :func:`score_candidates` on the dequantized table."""
+    idx = candidates.long()
+    q_rows = emb_params["embedding_q"][idx]                  # [B, P, C, W]
+    s_rows = emb_params["embedding_scale"][idx]              # [B, P, C]
+    return _logits_fp32(hidden, q_rows) * s_rows + output_bias[idx]
 
 
 def gt_ranks_tiled(hidden: torch.Tensor, table: torch.Tensor,

@@ -67,6 +67,12 @@ the last axis contiguous: the transposes of a ``[B, S, N, D]`` projection
 are taken without a copy; bf16 within the rule above), ``mask [B, S]``
 (1 = real key).
 
+A forward that saves nothing for K9 (inference) is the registered operator
+``torch.ops.bert4rec_tpu_torch.flash_attention_forward``
+(``flash_attention_forward``), so ``torch.export`` keeps K8 in an exported
+program as one call: its CUDA implementation launches K8, its CPU one is
+the plain version.
+
 Routing: a CUDA tensor launches K8/K9 at every sequence length up to
 ``MAX_KERNEL_SEQ_LEN`` and raises beyond it. A CPU tensor runs the plain
 versions: through ``mha_reference`` and autograd when the sequence is
@@ -400,17 +406,16 @@ class _FlashAttention(torch.autograd.Function):
     both plain versions; CUDA operands launch both kernels."""
 
     @staticmethod
-    def forward(ctx, q, k, v, mask, seed, rate, causal, save):
+    def forward(ctx, q, k, v, mask, seed, rate, causal):
         ctx.cfg = (seed, rate, causal)
         if q.device.type == "cpu":
             o = mha_reference(q, k, v, mask, rate, seed, causal)
             saved = ()
         else:
             o, saved = _launch_forward(q, k, v, mask, seed, rate, causal,
-                                       save)
+                                       True)
             _count(False, causal, flash_route(q.dtype, q.shape[-1]))
-        if save:
-            ctx.save_for_backward(q, k, v, mask, *saved)
+        ctx.save_for_backward(q, k, v, mask, *saved)
         return o
 
     @staticmethod
@@ -425,7 +430,35 @@ class _FlashAttention(torch.autograd.Function):
             dq, dk, dv = _launch_backward(q, k, v, mask, do, tuple(saved),
                                           seed, rate, causal)
             _count(True, causal, flash_route(q.dtype, q.shape[-1]))
-        return dq, dk, dv, None, None, None, None, None
+        return dq, dk, dv, None, None, None, None
+
+
+@torch.library.custom_op("bert4rec_tpu_torch::flash_attention_forward",
+                         mutates_args=())
+def flash_attention_forward(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, mask: torch.Tensor, seed: int,
+                            rate: float, causal: bool) -> torch.Tensor:
+    """K8 without the saves K9 reads (inference), laid out as
+    ``_empty_heads(q)``. This body is the CPU implementation, the plain
+    version; CUDA operands launch the kernels (below)."""
+    o = _empty_heads(q)
+    o.copy_(mha_reference(q, k, v, mask, rate, seed, causal))
+    return o
+
+
+@flash_attention_forward.register_kernel("cuda")
+def _flash_attention_forward_cuda(q, k, v, mask, seed, rate, causal):
+    o, _ = _launch_forward(q, k, v, mask, seed, rate, causal, False)
+    _count(False, causal, flash_route(q.dtype, q.shape[-1]))
+    want = _empty_heads(q)
+    if o.stride() != want.stride():   # an operand the launch copied
+        o = want.copy_(o)
+    return o
+
+
+@flash_attention_forward.register_fake
+def _flash_attention_forward_fake(q, k, v, mask, seed, rate, causal):
+    return _empty_heads(q)
 
 
 def _check_operands(q, k, v, mask):
@@ -483,10 +516,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"got S={q.shape[2]}")
     if q.device.type == "cpu" and q.shape[2] > MAX_FUSED_SEQ_LEN:
         return mha_reference(q, k, v, mask, rate, seed, causal)
-    save = torch.is_grad_enabled() and any(t.requires_grad
-                                           for t in (q, k, v))
-    return _FlashAttention.apply(q, k, v, mask, seed, rate, bool(causal),
-                                 save)
+    train = torch.is_grad_enabled() and any(t.requires_grad
+                                            for t in (q, k, v))
+    if not train:
+        return flash_attention_forward(q, k, v, mask, seed, rate,
+                                       bool(causal))
+    return _FlashAttention.apply(q, k, v, mask, seed, rate, bool(causal))
 
 
 flash_attention.launches = 0

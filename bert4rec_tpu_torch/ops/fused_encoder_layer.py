@@ -43,11 +43,17 @@ p (dp - delta)`` in fp32 before the rounding to the compute dtype (JAX's
 ml-20m_128 the bias and its gradient are 164 MB each.
 
 Routing: a CPU tensor runs the plain version (forward and backward); a
-CUDA tensor launches the kernels or raises.
+CUDA tensor launches the kernels or raises. A forward that saves nothing
+for a backward (inference: the served layer on every route) is the
+registered operator ``torch.ops.bert4rec_tpu_torch.fused_layer_forward``
+(``fused_layer_forward``), so ``torch.export`` keeps it in an exported
+program as one call; its CUDA implementation launches K1, its CPU one is
+the plain version, and its fake one gives the output's shape.
 """
 
 import ctypes
 import math
+from typing import List, Optional
 
 import torch
 
@@ -823,7 +829,7 @@ class _FusedLayer(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, input_mask, seed, num_heads, attn_rate, out_rate,
-                save, causal, *operands):
+                causal, *operands):
         flat_tuple = operands[:len(_W_ORDER)]
         rel = operands[len(_W_ORDER)] if len(operands) > len(_W_ORDER) \
             else None
@@ -836,14 +842,12 @@ class _FusedLayer(torch.autograd.Function):
             saved = ()
         else:
             y, saved = _launch_forward(flat, x, input_mask, num_heads, seed,
-                                       attn_rate, out_rate, save,
+                                       attn_rate, out_rate, True,
                                        causal=causal, rel=rel)
             _count(False, causal, rel is not None,
                    _route_of(x, flat, num_heads))
-        if save:
-            rel_saved = () if rel is None else (rel,)
-            ctx.save_for_backward(x, input_mask, *rel_saved, *flat_tuple,
-                                  *saved)
+        rel_saved = () if rel is None else (rel,)
+        ctx.save_for_backward(x, input_mask, *rel_saved, *flat_tuple, *saved)
         return y
 
     @staticmethod
@@ -865,7 +869,44 @@ class _FusedLayer(torch.autograd.Function):
             _count(True, causal, has_rel, _route_of(x, flat, num_heads))
         dflat = tuple(grads[k].to(flat[k].dtype) for k in _W_ORDER)
         drel = (grads["rel"],) if has_rel else ()
-        return (dx, None, None, None, None, None, None, None, *dflat, *drel)
+        return (dx, None, None, None, None, None, None, *dflat, *drel)
+
+
+@torch.library.custom_op("bert4rec_tpu_torch::fused_layer_forward",
+                         mutates_args=())
+def fused_layer_forward(x: torch.Tensor, input_mask: torch.Tensor,
+                        weights: List[torch.Tensor],
+                        rel_bias: Optional[torch.Tensor], num_heads: int,
+                        causal: bool, seed: int, attention_dropout: float,
+                        output_dropout: float) -> torch.Tensor:
+    """K1 (K1'' causal, K1'' ``rel_bias``) without the saves a backward
+    reads: ``weights`` are the 12 flat operands in ``_W_ORDER``; returns a
+    contiguous ``y`` like ``x``. This body is the CPU implementation, the
+    plain version; a CUDA ``x`` launches the kernels (below)."""
+    flat = dict(zip(_W_ORDER, weights))
+    return _forward_math(flat, x, input_mask, num_heads, seed,
+                         attention_dropout, output_dropout, causal,
+                         rel_bias)["y"].contiguous()
+
+
+@fused_layer_forward.register_kernel("cuda")
+def _fused_layer_forward_cuda(x, input_mask, weights, rel_bias, num_heads,
+                              causal, seed, attention_dropout,
+                              output_dropout):
+    flat = dict(zip(_W_ORDER, weights))
+    y, _ = _launch_forward(flat, x, input_mask, num_heads, seed,
+                           attention_dropout, output_dropout, False,
+                           causal=causal, rel=rel_bias)
+    _count(False, causal, rel_bias is not None,
+           _route_of(x, flat, num_heads))
+    return y.contiguous()
+
+
+@fused_layer_forward.register_fake
+def _fused_layer_forward_fake(x, input_mask, weights, rel_bias, num_heads,
+                              causal, seed, attention_dropout,
+                              output_dropout):
+    return x.new_empty(x.shape)
 
 
 def fused_encoder_layer(params: dict, x: torch.Tensor,
@@ -904,12 +945,18 @@ def fused_encoder_layer(params: dict, x: torch.Tensor,
         rel_bias = rel_bias.to(torch.float32).contiguous()
         b, s, _ = x.shape
         _check_rel(rel_bias, b, num_heads, s, x.device)
-    save = torch.is_grad_enabled() and any(
+    train = torch.is_grad_enabled() and any(
         t is not None and t.requires_grad for t in (x, rel_bias, *operands))
+    seed = 0 if seed is None else int(seed)
+    if not train:
+        return fused_layer_forward(x, input_mask, list(operands), rel_bias,
+                                   num_heads, bool(causal), seed,
+                                   float(attention_dropout),
+                                   float(output_dropout))
     rel = () if rel_bias is None else (rel_bias,)
-    return _FusedLayer.apply(x, input_mask, 0 if seed is None else int(seed),
+    return _FusedLayer.apply(x, input_mask, seed,
                              num_heads, float(attention_dropout),
-                             float(output_dropout), save, bool(causal),
+                             float(output_dropout), bool(causal),
                              *operands, *rel)
 
 

@@ -21,11 +21,12 @@ def exclusion_bias(batch_excludes: torch.Tensor, vocab_size: int,
     """Additive ``[B, V]`` fp32 bias: ``neg`` at each row's excluded ids, 0
     elsewhere. ``batch_excludes`` is ``[B, E]`` int; entries < 0 (padding)
     and ids >= ``vocab_size`` are dropped."""
-    b = batch_excludes.shape[0]
-    bias = torch.zeros((b, vocab_size), dtype=torch.float32,
-                       device=batch_excludes.device)
-    rows = torch.arange(b, device=batch_excludes.device)[:, None] \
-        .expand_as(batch_excludes)
-    keep = (batch_excludes >= 0) & (batch_excludes < vocab_size)
-    bias[rows[keep], batch_excludes[keep].long()] = neg
-    return bias
+    # dropped entries are sent to a spare column past the vocabulary, so
+    # the shapes never depend on the data (torch.export traces this)
+    ids = batch_excludes.long()
+    keep = (ids >= 0) & (ids < vocab_size)
+    ids = torch.where(keep, ids, vocab_size)
+    bias = torch.zeros((batch_excludes.shape[0], vocab_size + 1),
+                       dtype=torch.float32, device=batch_excludes.device)
+    bias.scatter_(1, ids, neg)
+    return bias[:, :vocab_size]

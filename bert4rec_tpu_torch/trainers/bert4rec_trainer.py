@@ -8,7 +8,8 @@
   exact epoch means by their position counts;
 - best-metric checkpointing and exact resume: the train state is the
   params, the optimizer state, ``step``, ``seed``, ``epoch`` and
-  ``best_monitor``, and every dropout seed of a step is
+  ``best_monitor``, saved in the JAX trainer's layout (either package
+  resumes the other's file), and every dropout seed of a step is
   ``fold_in(seed, step)`` (``fold_in(that, i)`` for microbatch ``i`` under
   gradient accumulation), so a resumed run draws the same masks;
 - ``steps_per_call`` runs K optimizer steps per call as a plain loop (the
@@ -39,6 +40,7 @@ from bert4rec_tpu_torch.trainers.base_trainer import BaseTrainer
 from bert4rec_tpu_torch.trainers.callbacks import History, ModelCheckpoint
 from bert4rec_tpu_torch.utils import checkpoint as ckpt_lib
 from bert4rec_tpu_torch.utils import prefetch as prefetch_lib
+from bert4rec_tpu_torch.utils import profiling
 
 _BATCH_KEYS = ("input_word_ids", "input_mask", "masked_lm_positions",
                "masked_lm_ids")
@@ -235,13 +237,17 @@ class BERT4RecTrainer(BaseTrainer):
               epochs: int = 50, batch_size: int = 256,
               steps_per_epoch: Optional[int] = None,
               validation_steps: Optional[int] = None, seed: int = 42,
-              verbose: bool = True) -> History:
+              verbose: bool = True, profile_dir: Optional[str] = None,
+              profile_steps: int = 5) -> History:
         """Epoch loop over a dataset with the JAX ``batches(batch_size,
         shuffle=, seed=, drop_remainder=, pad_final_batch=)`` contract
         yielding numpy dicts (fresh masks per epoch, shuffled with
         ``seed + epoch``), with best-checkpointing and auto-resume from
         ``checkpoint_path``. Without a train state it initialises one on
-        the card from ``seed``."""
+        the card from ``seed``. With ``profile_dir``, optimizer steps [1,
+        1 + ``profile_steps``) of this call (step 0 builds the kernels) are
+        traced into it (``utils.profiling.trace``), as JAX's
+        ``jax.profiler`` capture."""
         if self.state is None:
             self.initialize_model(seed=seed)
         history = History()
@@ -266,57 +272,79 @@ class BERT4RecTrainer(BaseTrainer):
 
         accum = self.grad_accum_steps > 1
         group_k = self.grad_accum_steps if accum else self.steps_per_call
-        for epoch in range(start_epoch, epochs):
-            t0 = time.time()
-            sums, wsums = {}, {}
-            count = n_examples = 0
-            raw = train_ds.batches(batch_size, shuffle=True,
-                                   seed=seed + epoch, drop_remainder=True)
-            if steps_per_epoch:
-                raw = itertools.islice(
-                    raw, steps_per_epoch * (group_k if accum else 1))
-            with self._prefetched(raw) as placed:
-                while True:
-                    group = list(itertools.islice(placed, group_k))
-                    if not group:
-                        break
-                    if accum:
-                        if len(group) < group_k:
-                            break   # a partial group would change the batch
-                        self._accumulate(sums, wsums, self.accum_step(group))
-                        count += 1
-                        n_examples += sum(len(b["input_word_ids"])
-                                          for b in group)
-                    else:
-                        for b in group:
-                            self._accumulate(sums, wsums, self.train_step(b))
-                            count += 1
-                            n_examples += len(b["input_word_ids"])
-                            if steps_per_epoch and count >= steps_per_epoch:
-                                break
-                    if steps_per_epoch and count >= steps_per_epoch:
-                        break
-            logs = self._means(sums, wsums)
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
-            logs["examples_per_second"] = n_examples / max(
-                time.time() - t0, 1e-9)
+        # profiling.trace of this call's optimizer steps [1, 1 +
+        # profile_steps), counted on the train state (JAX's capture)
+        profiler = contextlib.ExitStack()
+        step0 = self.state["step"]
 
-            if val_ds is not None:
-                val_logs = self.validate(val_ds, batch_size=batch_size,
-                                         validation_steps=validation_steps,
-                                         seed=seed + epoch)
-                logs.update({f"val_{k}": v for k, v in val_logs.items()})
-            if verbose:
-                msg = " ".join(f"{k}={v:.4f}" for k, v in sorted(logs.items()))
-                print(f"epoch {epoch + 1}/{epochs}: {msg}")
-            self._epochs_completed = epoch + 1
-            stop = False
-            for cb in callbacks:
-                cb.on_epoch_end(self, epoch, logs)
-                stop = stop or cb.stop_training
-            if stop:
-                break
+        def before_step():
+            if profile_dir is None:
+                return
+            if self.state["step"] - step0 == 1:
+                profiler.enter_context(profiling.trace(profile_dir))
+            elif self.state["step"] - step0 == 1 + profile_steps:
+                profiler.close()
+
+        with profiler:
+            for epoch in range(start_epoch, epochs):
+                t0 = time.time()
+                sums, wsums = {}, {}
+                count = n_examples = 0
+                raw = train_ds.batches(batch_size, shuffle=True,
+                                       seed=seed + epoch,
+                                       drop_remainder=True)
+                if steps_per_epoch:
+                    raw = itertools.islice(
+                        raw, steps_per_epoch * (group_k if accum else 1))
+                with self._prefetched(raw) as placed:
+                    while True:
+                        group = list(itertools.islice(placed, group_k))
+                        if not group:
+                            break
+                        if accum:
+                            if len(group) < group_k:
+                                break   # a partial group changes the batch
+                            before_step()
+                            self._accumulate(sums, wsums,
+                                             self.accum_step(group))
+                            count += 1
+                            n_examples += sum(len(b["input_word_ids"])
+                                              for b in group)
+                        else:
+                            for b in group:
+                                before_step()
+                                self._accumulate(sums, wsums,
+                                                 self.train_step(b))
+                                count += 1
+                                n_examples += len(b["input_word_ids"])
+                                if steps_per_epoch \
+                                        and count >= steps_per_epoch:
+                                    break
+                        if steps_per_epoch and count >= steps_per_epoch:
+                            break
+                logs = self._means(sums, wsums)
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+                logs["examples_per_second"] = n_examples / max(
+                    time.time() - t0, 1e-9)
+
+                if val_ds is not None:
+                    val_logs = self.validate(
+                        val_ds, batch_size=batch_size,
+                        validation_steps=validation_steps, seed=seed + epoch)
+                    logs.update({f"val_{k}": v
+                                 for k, v in val_logs.items()})
+                if verbose:
+                    msg = " ".join(f"{k}={v:.4f}"
+                                   for k, v in sorted(logs.items()))
+                    print(f"epoch {epoch + 1}/{epochs}: {msg}")
+                self._epochs_completed = epoch + 1
+                stop = False
+                for cb in callbacks:
+                    cb.on_epoch_end(self, epoch, logs)
+                    stop = stop or cb.stop_training
+                if stop:
+                    break
         for cb in callbacks:
             cb.on_train_end(self)
         return history
@@ -341,10 +369,19 @@ class BERT4RecTrainer(BaseTrainer):
     # ------------------------------------------------------------------ #
 
     def save_checkpoint(self, path) -> None:
+        """The train state in the JAX trainer's layout, so JAX's own
+        ``load_checkpoint`` restores it: ``params/...``, optax's
+        ``opt_state/1/0/{count,mu,nu}`` and ``opt_state/1/2/count``
+        (``optimizers.optax_paths``), ``step`` int32 and ``rng`` as JAX
+        computes it from the seed (``checkpoint.rng_key_data``); beside
+        them the port's whole ``seed`` (JAX's key keeps its low 32 bits
+        only; JAX's load reads by its own keys and ignores it), ``epoch``
+        and ``best_monitor``."""
         best = self._best_monitor_value
         tree = {"params": self.state["params"],
-                "opt_state": self.state["opt_state"],
-                "step": np.int64(self.state["step"]),
+                **optimizers.optax_paths(self.state["opt_state"]),
+                "step": np.int32(self.state["step"]),
+                "rng": ckpt_lib.rng_key_data(self.state["seed"]),
                 "seed": np.int64(self.state["seed"]),
                 "epoch": np.int32(self._epochs_completed or 0),
                 "best_monitor": np.float64(best if best is not None
@@ -352,26 +389,62 @@ class BERT4RecTrainer(BaseTrainer):
         ckpt_lib.save_pytree(path, tree)
 
     def load_checkpoint(self, path) -> None:
-        """The train state from ``path``; ``epoch`` and ``best_monitor``
-        are optional records, absent in legacy checkpoints (as in JAX)."""
+        """The train state from ``path``, in the JAX trainer's layout
+        (either package's file) or in the port's earlier one
+        (``opt_state/{count,mu,nu}``, ``seed``, no ``rng``). A file with a
+        ``seed`` resumes that seed; a JAX file's ``rng`` gives ``hi << 32 |
+        lo``. ``epoch`` and ``best_monitor`` are optional records, absent
+        in legacy checkpoints (as in JAX)."""
         if self.state is None:
             raise RuntimeError("Call initialize_model before load_checkpoint")
-        target = {"params": self.state["params"],
-                  "opt_state": self.state["opt_state"],
-                  "step": 0, "seed": 0}
-        restored = ckpt_lib.load_pytree(path, target)
-        opt = restored["opt_state"]
-        self.state = {"params": restored["params"],
-                      "opt_state": {"count": int(opt["count"]),
-                                    "mu": opt["mu"], "nu": opt["nu"]},
-                      "step": int(restored["step"]),
-                      "seed": int(restored["seed"])}
+        stored = ckpt_lib.load_npz(path)
+        source = f"Checkpoint {path}"
+        if f"{optimizers.ADAM_PATH}/count" in stored:
+            opt_prefix = optimizers.ADAM_PATH + "/"
+            count = optimizers.optax_count(stored, source)
+        elif "opt_state/count" in stored:     # the port's earlier layout
+            opt_prefix = "opt_state/"
+            count = int(stored["opt_state/count"])
+        else:
+            raise KeyError(f"{source} is missing leaf "
+                           f"{optimizers.ADAM_PATH + '/count'!r}; it has "
+                           f"{sorted(stored)[:8]}...")
+        if "seed" in stored:
+            seed = int(stored["seed"])
+            if "rng" in stored and not np.array_equal(
+                    stored["rng"], ckpt_lib.rng_key_data(seed)):
+                raise ValueError(f"{source} holds seed {seed} and an rng "
+                                 f"{stored['rng']} that is not its key")
+        elif "rng" in stored:
+            seed = ckpt_lib.seed_from_key_data(stored["rng"])
+        else:
+            raise KeyError(f"{source} is missing leaf 'rng'")
+        params = self._restore(stored, "params/", self.state["params"],
+                               source, requires_grad=True)
+        mu, nu = (self._restore(stored, f"{opt_prefix}{name}/",
+                                self.state["opt_state"][name], source)
+                  for name in ("mu", "nu"))
+        self.state = {"params": params,
+                      "opt_state": {"count": count, "mu": mu, "nu": nu},
+                      "step": int(stored["step"]), "seed": seed}
         self._epochs_completed = self._best_monitor_value = None
-        with np.load(path, allow_pickle=False) as data:
-            if "epoch" in data:
-                self._epochs_completed = int(data["epoch"]) or None
-            if "best_monitor" in data and np.isfinite(data["best_monitor"]):
-                self._best_monitor_value = float(data["best_monitor"])
+        if "epoch" in stored:
+            self._epochs_completed = int(stored["epoch"]) or None
+        if "best_monitor" in stored and np.isfinite(stored["best_monitor"]):
+            self._best_monitor_value = float(stored["best_monitor"])
+
+    @staticmethod
+    def _restore(stored: dict, prefix: str, like: dict, source: str,
+                 requires_grad: bool = False) -> dict:
+        """``like``'s tree of tensors from ``stored[prefix + path]``, with
+        the stored values and dtype on each leaf's device."""
+        flat = {k[len(prefix):]: v for k, v in stored.items()
+                if k.startswith(prefix)}
+        ckpt_lib.check_structure(flat, like, source)
+        return ckpt_lib.unflatten({
+            k: torch.from_numpy(np.array(flat[k], copy=True)).to(t.device)
+            .requires_grad_(requires_grad)
+            for k, t in ckpt_lib.flatten(like).items()})
 
     @property
     def params(self):

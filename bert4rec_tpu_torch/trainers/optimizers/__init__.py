@@ -17,7 +17,11 @@ written out as optax computes it, so a step matches the JAX chain:
 
 The parameters are updated in place (the JAX chain returns new arrays);
 the optimizer state is ``{"count": int, "mu": tree, "nu": tree}`` with
-the moments in the params' nested layout.
+the moments in the params' nested layout. On disk it takes optax's paths
+(``optax_paths`` / ``optax_count``): the chain's Adam state is
+``opt_state/1/0/{count,mu,nu}`` and its schedule's count
+``opt_state/1/2/count``, both int32 and both the port's one count, so
+either package resumes the other's train checkpoint.
 """
 
 import re
@@ -126,6 +130,44 @@ class AdamW:
         return {"count": count, "mu": state["mu"], "nu": state["nu"]}
 
 
+# where optax's chain(clip_by_global_norm, adamw) keeps its state: element 1
+# of the chain is adamw's own chain, whose element 0 is scale_by_adam
+# (count, mu, nu) and element 2 scale_by_schedule (count); the clip and the
+# masked weight decay keep no leaves
+ADAM_PATH = "opt_state/1/0"
+SCHEDULE_PATH = "opt_state/1/2"
+
+
+def optax_paths(state: dict) -> dict:
+    """The port's optimizer state as the leaves optax's chain saves, keyed
+    by their checkpoint paths: ``opt_state/1/0/count``, ``.../mu/<param
+    path>``, ``.../nu/<param path>`` and ``opt_state/1/2/count``. Each
+    count is the port's count as int32."""
+    count = np.int32(state["count"])
+    flat = {f"{ADAM_PATH}/count": count, f"{SCHEDULE_PATH}/count": count}
+    for name in ("mu", "nu"):
+        flat.update({f"{ADAM_PATH}/{name}/{k}": v
+                     for k, v in flatten(state[name]).items()})
+    return flat
+
+
+def optax_count(stored: dict, source="checkpoint") -> int:
+    """The count of a checkpoint's leaves in optax's layout (the moments
+    are ``ADAM_PATH/mu/...`` and ``ADAM_PATH/nu/...``, keyed by their param
+    paths). Raises ValueError when the Adam count and the schedule's count
+    differ: the port keeps one."""
+    counts = {p: int(stored[f"{p}/count"])
+              for p in (ADAM_PATH, SCHEDULE_PATH) if f"{p}/count" in stored}
+    if ADAM_PATH not in counts:
+        raise KeyError(f"{source} is missing leaf {ADAM_PATH + '/count'!r}")
+    if len(set(counts.values())) != 1:
+        raise ValueError(f"{source} keeps the Adam count {counts[ADAM_PATH]}"
+                         f" and the schedule count "
+                         f"{counts.get(SCHEDULE_PATH)}; the port's "
+                         f"optimizer keeps one count for both")
+    return counts[ADAM_PATH]
+
+
 def create_adam_w_optimizer(
         init_lr: float = 1e-4,
         num_train_steps: int = 400000,
@@ -163,4 +205,5 @@ def get(identifier: Union[str, AdamW] = "adamw", **kwargs) -> AdamW:
 
 __all__ = ["AdamW", "create_adam_w_optimizer", "create_warmup_poly_schedule",
            "weight_decay_mask", "optimizers_map", "get",
-           "DEFAULT_EXCLUDE_FROM_WEIGHT_DECAY"]
+           "DEFAULT_EXCLUDE_FROM_WEIGHT_DECAY", "optax_paths",
+           "optax_count", "ADAM_PATH", "SCHEDULE_PATH"]

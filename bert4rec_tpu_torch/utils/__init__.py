@@ -1,7 +1,7 @@
-"""Path, config and checkpoint helpers (JAX's exports, less the profiling
-trio, which is not ported yet)."""
+"""Path, config, checkpoint and profiling helpers (JAX's exports)."""
 
 from bert4rec_tpu_torch.utils.checkpoint import load_pytree, save_pytree
+from bert4rec_tpu_torch.utils.profiling import StepTimer, hard_sync, trace
 from bert4rec_tpu_torch.utils.utils import (
     get_data_dir,
     get_default_model_save_path,
@@ -18,4 +18,7 @@ __all__ = [
     "load_json_config",
     "load_pytree",
     "save_pytree",
+    "StepTimer",
+    "hard_sync",
+    "trace",
 ]

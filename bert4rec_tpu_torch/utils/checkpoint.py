@@ -3,6 +3,11 @@
 Every array leaf of a nested param dict is stored in one ``.npz`` under its
 ``/``-joined path, e.g. ``encoder/layers/layer_0/attention/qkv/kernel`` —
 the JAX package's format, so weights carry across in both directions.
+
+A train state's seed crosses as JAX's ``rng`` (``rng_key_data`` /
+``seed_from_key_data``): JAX stores ``key_data(jax.random.key(seed))``,
+which with its defaults (threefry, 64-bit mode off) is ``[0, seed mod
+2**32]`` as uint32, so a seed's high 32 bits do not survive JAX's key.
 """
 
 import os
@@ -16,6 +21,24 @@ import torch
 from bert4rec_tpu_torch.core.device import resolve_device
 
 _SEP = "/"
+
+
+def rng_key_data(seed: int) -> np.ndarray:
+    """The ``rng`` leaf JAX's trainer saves for ``jax.random.key(seed)``:
+    uint32 ``[0, seed mod 2**32]`` (threefry key data, 64-bit mode off)."""
+    return np.array([0, int(seed) & 0xFFFFFFFF], dtype=np.uint32)
+
+
+def seed_from_key_data(data) -> int:
+    """The seed a two-word threefry key stands for: ``hi << 32 | lo``.
+    Raises ValueError on key data of another shape or type (e.g. the four
+    words of the 'rbg' PRNG): no seed is guessed from it."""
+    data = np.asarray(data)
+    if data.shape != (2,) or data.dtype != np.uint32:
+        raise ValueError(f"rng key data of shape {data.shape} and dtype "
+                         f"{data.dtype} is not a threefry key ([2] uint32); "
+                         f"the port cannot take a seed from it")
+    return int(data[0]) << 32 | int(data[1])
 
 
 def flatten(tree: dict, prefix: str = "") -> Dict[str, object]:

@@ -209,7 +209,26 @@ Phases (any failure raises and the script exits non-zero):
               ratios, the wall time, train()'s time a step, one step's
               device time and the idle share, and the launches by route:
               every fp32 layer launch on 3xTF32 (``tf32_launches``), none on
-              the earlier bf16 kernels (``mma_sync_launches``).
+              the earlier bf16 kernels (``mma_sync_launches``); with
+              ``--int8``: the table's bytes (1,899,008 -> 489,588) and the
+              int8 model's NDCG@10 drop, whose check must hold;
+22. deployment — the harness's ml1m model (ml-1m_128 full width, fp32):
+              3 train steps checkpointed in the JAX trainer's layout, a new
+              trainer resumed from the file (params equal to the
+              uninterrupted run's bits); ``train(profile_dir=...)``'s trace
+              (the 3xTF32 layer kernels, no SIMT one); top-k (k=10) and
+              candidate-scoring artifacts, fp32 and int8, exported with a
+              symbolic batch, saved and loaded (their ``.pt2`` bytes);
+              ``ArtifactRecommender`` at B = 1, 32 and 256 and
+              ``ServingServer`` over it against the eager ``Recommender``
+              and the plain path, every call 2 layer launches on 3xTF32
+              (the profiler shows only ``layer_tf32.cu``'s layer kernels),
+              host wall and device time at B=32 beside the eager path's;
+              the int8 and candidate artifacts against the eager model; one
+              ``Ranker`` call; the three example scripts' flows
+              (``bert4rec_tpu_torch/examples``); one bf16 bert_base_512
+              artifact at B=4 against eager (12 K8 launches on
+              ``wgmma``); its seconds.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the rest of
@@ -221,6 +240,7 @@ import itertools
 import json
 import math
 import os
+import pathlib
 import re
 import shutil
 import subprocess
@@ -238,6 +258,11 @@ N_REQUESTS = 48
 STREAM_BATCH, STREAM_BATCHES = 256, 2
 TOL = {"float32": 1e-4, "bfloat16": 8e-2}  # kernel vs plain, max abs
 LOGIT_TOL = 1e-3      # served path vs plain path, masked-slot logits
+# a bf16 served path vs its plain version: top-k scores, relative to the
+# largest plain score. Over bert_base_512's 12 layers the rounding spreads:
+# phase 22 prints, beside the kernels' distance, that of a second valid
+# rounding of the plain version (p not rounded to bf16 before p.v)
+BF16_LOGIT_TOL = 2e-2
 # published H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, and
 # FLOP/s by operand type (fp32 outside the tensor cores, bf16 inside)
 HBM_BYTES_S = 3.35e12
@@ -2969,7 +2994,8 @@ def check_oracle_gate(torch, device):
                       "tf32_backward_launches")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_oracle_") as tmp:
         args = quality_harness.build_argparser().parse_args(
-            ["--oracle", "--oracle-scale", ORACLE_SCALE, "--out", tmp])
+            ["--oracle", "--oracle-scale", ORACLE_SCALE, "--int8", "--out",
+             tmp])
         for attr in layer_counters:
             setattr(fel.fused_encoder_layer, attr, 0)
         fml.fused_mlm_loss.launches = fml.fused_mlm_loss.backward_launches = 0
@@ -3013,7 +3039,20 @@ def check_oracle_gate(torch, device):
           + ("not measured" if idle is None else
              f"{device_ms:.3f} ms, idle share of train() {idle:.3f}")
           + f"; {breakdown}", flush=True)
+    int8 = payload["results_int8"]
+    print(f"oracle gate int8 table: {int8['table_bytes_fp32']} -> "
+          f"{int8['table_bytes_int8']} bytes; NDCG@10 drop "
+          f"{int8['ndcg10_drop_vs_fp32']}, HR@10 drop "
+          f"{int8['hr10_drop_vs_fp32']} (gate {int8['gate_ndcg10_drop']}); "
+          f"int8 model {int8['results']}", flush=True)
     print(f"oracle gate checks {payload['checks']}", flush=True)
+    if ORACLE_SCALE == "ml1m" and (int8["table_bytes_fp32"],
+                                   int8["table_bytes_int8"]) \
+            != (1_899_008, 489_588):
+        raise AssertionError(f"the ml1m int8 table's bytes: {int8}")
+    check = f"int8_ndcg10_drop_within_{int8['gate_ndcg10_drop']}"
+    if payload["checks"].get(check) is not True:
+        raise AssertionError(f"the int8 check failed: {int8}")
     if not (counts["tf32_fwd"] == counts["layer_fwd"] > 0
             and counts["tf32_bwd"] == counts["layer_bwd"] > 0
             and counts["mma_sync"] == 0 and counts["loss_bwd"] > 0):
@@ -3023,6 +3062,410 @@ def check_oracle_gate(torch, device):
         raise AssertionError(f"the oracle gate failed: {payload['checks']}")
     return dict(counts=counts, wall=wall, train_ms=train_ms,
                 device_ms=device_ms, idle=idle, payload=payload)
+
+
+# --------------------------------------------------------------------------- #
+# phase 22: the deployment surface at ml-1m_128 (train, checkpoint in the JAX
+# layout and resume, profile, export, serve the artifact, rank)
+# --------------------------------------------------------------------------- #
+
+DEPLOY_BATCHES = (1, 32, 256)
+DEPLOY_EXCLUDE = 256          # the exported exclusion width
+DEPLOY_CANDIDATES = 101       # the sampled protocol's 1 + 100 negatives
+
+
+def trace_kernels(torch, fn, need, tries=3) -> list:
+    """The CUDA kernels' names in a torch.profiler trace of ``fn``, taken
+    again (the profiler can drop records) until one holds ``need``."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [_kernel_name(e.key) for e in prof.key_averages()
+                 if getattr(e, "self_device_time_total", 0) > 0]
+        if any(need in n for n in names):
+            return names
+    raise AssertionError(f"no {need} kernel in {tries} traces: {names}")
+
+
+def layer_kernels_of(names) -> list:
+    """The fused layer's kernels among ``names``: the 3xTF32 ones must be
+    there, and no SIMT or earlier bf16 layer kernel may be."""
+    bad = [n for n in names if SIMT_FP32_LAYER.search(n)
+           or LEGACY_BF16_LAYER.search(n)]
+    tf32 = [n for n in names if TF32_LAYER[0].search(n)]
+    if bad or not any(TF32_LAYER[1] in n for n in tf32):
+        raise AssertionError(f"fp32 layer launches ran {bad or 'no'} "
+                             f"off-route kernels and 3xTF32 kernels {tf32}")
+    return tf32
+
+
+def check_topk_close(torch, got, want, label, k=10, tol=LOGIT_TOL):
+    """An artifact's (ids, scores) against the eager model's: scores within
+    ``tol``; ids equal at every rank whose neighbours' eager scores are
+    further apart than ``tol`` (the last rank's lower neighbour lies
+    outside the top k, so its id is held by its score alone). Returns the
+    count of ranks held id for id and the scores' largest difference."""
+    ids, vals = (t.float().cpu() for t in got)
+    wids, wvals = (t.float().cpu() for t in want)
+    err = float((vals - wvals).abs().max())
+    gaps = wvals[..., :-1] - wvals[..., 1:]
+    inf = torch.full_like(gaps[..., :1], math.inf)
+    margin = torch.minimum(torch.cat([inf, gaps], -1),
+                           torch.cat([gaps, torch.zeros_like(inf)], -1)) > tol
+    wrong = int((margin & (ids != wids)).sum())
+    if not (err <= tol and wrong == 0 and ids.shape[-1] == k):
+        raise AssertionError(f"{label}: scores differ by {err}, {wrong} ids "
+                             f"differ at ranks with a margin")
+    return int(margin.sum()), err
+
+
+def check_deployment(torch, device):
+    """Phase 22: the port's deployment flow at ml-1m_128 full width (the
+    harness's ml1m preset, fp32): a few train steps saved in the JAX
+    trainer's layout, reloaded and resumed bit for bit; ``train(
+    profile_dir=...)``'s trace; top-k and candidate-scoring artifacts, fp32
+    and int8, at a symbolic batch, saved and loaded; ``ArtifactRecommender``
+    and ``ServingServer`` over the fp32 one at B = 1, 32 and 256 against
+    the eager ``Recommender`` and the plain path, only 3xTF32 layer kernels
+    launched; one ``Ranker`` call; the three example flows; one bf16
+    bert_base_512 artifact (K8 on ``wgmma``) at B=4 against eager."""
+    from contextlib import ExitStack
+    from unittest import mock
+
+    import numpy as np
+    from bert4rec_tpu_torch.apps import (
+        ArtifactRecommender, Ranker, Recommender, RecommenderService,
+        ServingServer,
+    )
+    from bert4rec_tpu_torch.apps.recommender import build_exclusion_rows
+    from bert4rec_tpu_torch.dataloaders import BERT4RecDataloader
+    from bert4rec_tpu_torch.models import export, quantization
+    from bert4rec_tpu_torch.ops import fused_encoder_layer as fel
+    from bert4rec_tpu_torch.utils.checkpoint import flatten, load_npz
+    fa = importlib.import_module("bert4rec_tpu_torch.ops.flash_attention")
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(SEED + 22)
+    new = lambda **kw: harness_ml1m_trainer(torch, device, **kw)  # noqa: E731
+    init = {k: v.detach().clone()
+            for k, v in flatten(new().state["params"]).items()}
+    ds = SyntheticDataset(3, seed=11)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_deploy_")
+    try:
+        # 1. train, save in the JAX layout, reload and resume
+        whole = new(params=init)
+        whole.train(ds, epochs=2, batch_size=STREAM_BATCH, seed=SEED,
+                    verbose=False)
+        first = new(params=init)
+        first.train(ds, epochs=1, batch_size=STREAM_BATCH, seed=SEED,
+                    verbose=False)
+        first.save_checkpoint(f"{tmp}/state.npz")
+        stored = load_npz(f"{tmp}/state.npz")
+        layout = {k: (str(stored[k].dtype), stored[k].shape) for k in
+                  ("step", "rng", "opt_state/1/0/count",
+                   "opt_state/1/2/count")}
+        if layout != {"step": ("int32", ()), "rng": ("uint32", (2,)),
+                      "opt_state/1/0/count": ("int32", ()),
+                      "opt_state/1/2/count": ("int32", ())} \
+                or any(k.startswith("opt_state/mu") for k in stored):
+            raise AssertionError(f"the checkpoint is not in the JAX "
+                                 f"trainer's layout: {layout}")
+        resumed = new(params=init)
+        resumed.train(ds, checkpoint_path=f"{tmp}/state.npz", epochs=2,
+                      batch_size=STREAM_BATCH, seed=SEED, verbose=False)
+        fw, fr = flatten(whole.state["params"]), \
+            flatten(resumed.state["params"])
+        if not (resumed.state["step"] == whole.state["step"] == 6
+                and all(torch.equal(fw[k], fr[k]) for k in fw)):
+            raise AssertionError("the resume from the JAX-layout checkpoint "
+                                 "does not repeat the uninterrupted bits")
+        print(f"deployment: train 3 steps, checkpoint in the JAX layout "
+              f"({layout}), a new trainer resumed to step 6: params equal "
+              f"the uninterrupted run's bit for bit", flush=True)
+
+        # 2. train(profile_dir=...): the trace holds the 3xTF32 kernels
+        prof = new(params=init)
+        prof.train(SyntheticDataset(4, seed=12), epochs=1,
+                   batch_size=STREAM_BATCH, seed=SEED, verbose=False,
+                   profile_dir=f"{tmp}/prof", profile_steps=2)
+        traces = sorted(pathlib.Path(f"{tmp}/prof").glob("trace_*.json"))
+        events = json.loads(traces[0].read_text())["traceEvents"]
+        names = sorted({_kernel_name(e["name"]) for e in events
+                        if e.get("cat") == "kernel"})
+        tf32_fwd = [n for n in names if TF32_LAYER[0].search(n)]
+        tf32_bwd = [n for n in names if TF32_LAYER_BWD[0].search(n)]
+        if len(traces) != 1 or any(SIMT_FP32_STEP.search(n) for n in names) \
+                or TF32_LAYER[1] not in " ".join(tf32_fwd) \
+                or TF32_LAYER_BWD[1] not in " ".join(tf32_bwd):
+            raise AssertionError(f"train(profile_dir=...) wrote {traces}; "
+                                 f"its kernels: {names}")
+        print(f"deployment: train(profile_dir=..., profile_steps=2) wrote "
+              f"{traces[0].name} ({traces[0].stat().st_size} bytes): "
+              f"{len(names)} kernels, the 3xTF32 layer's among them "
+              f"({', '.join(sorted(set(tf32_fwd + tf32_bwd))[:6])}...), no "
+              f"SIMT one", flush=True)
+        del whole, first, prof
+        trainer = resumed
+        model, params = trainer.model, trainer.params
+        cfg = model.config
+
+        # 3. export, save and load: top-k and candidate scoring, fp32 and
+        #    int8, at a symbolic batch
+        arts, sizes, t_export = {}, {}, {}
+        for name, fn in (
+                ("top_k", lambda q: export.export_top_k(
+                    model, params, 10, num_exclude=DEPLOY_EXCLUDE,
+                    quantize=q)),
+                ("score_candidates", lambda q: export.export_score_candidates(
+                    model, params, DEPLOY_CANDIDATES, quantize=q))):
+            for q in (None, "int8"):
+                key = f"{name}{'_int8' if q else ''}"
+                t0 = time.perf_counter()
+                path = f"{tmp}/{key}.pt2"
+                export.save_artifact(fn(q), path)
+                arts[key] = export.load_artifact(path)
+                t_export[key] = time.perf_counter() - t0
+                sizes[key] = os.path.getsize(path)
+        limit = export.batch_limit(model)
+        b_sym = export.input_shapes(arts["top_k"])[0][0]
+        if not isinstance(b_sym, torch.SymInt) or limit < max(DEPLOY_BATCHES):
+            raise AssertionError(f"the artifact's batch is {b_sym} "
+                                 f"(limit {limit})")
+        print(f"deployment: artifacts (symbolic batch up to {limit}) "
+              f"export + save + load s "
+              f"{ {k: round(v, 1) for k, v in t_export.items()} }; .pt2 "
+              f"bytes {sizes}; item table bytes fp32 "
+              f"{quantization.table_bytes(params)}, int8 "
+              f"{quantization.table_bytes(quantization.quantize_params(params))}",
+              flush=True)
+
+        # 4. ArtifactRecommender and the service over the fp32 artifact,
+        #    against the eager Recommender and the plain path
+        items = [f"movie_{i:04d}" for i in range(N_ITEMS)]
+        dataloader = BERT4RecDataloader(cfg.max_sequence_length,
+                                        cfg.max_predictions_per_seq)
+        dataloader.generate_vocab(items)
+        if dataloader.tokenizer.get_vocab_size() != VOCAB:
+            raise AssertionError("the synthetic catalog's vocabulary")
+        eager = Recommender(model, params, dataloader, device=device)
+        rec = ArtifactRecommender(arts["top_k"], dataloader)
+
+        def history():
+            n = int(rng.integers(1, DEPLOY_EXCLUDE - 3))
+            return [items[j] for j in rng.choice(N_ITEMS, size=n,
+                                                 replace=False)]
+
+        same, artifact_launches = {}, {}
+        for b in DEPLOY_BATCHES:
+            hist = [history() for _ in range(b)]
+            fel.fused_encoder_layer.launches = 0
+            fel.fused_encoder_layer.tf32_launches = 0
+            got = rec.recommend_batch(hist)
+            launches = (fel.fused_encoder_layer.launches,
+                        fel.fused_encoder_layer.tf32_launches)
+            if launches != (cfg.num_layers,) * 2:
+                raise AssertionError(f"the fp32 artifact at B={b} launched "
+                                     f"{launches} (layer, 3xTF32)")
+            artifact_launches[b] = launches[0]
+            want = eager.recommend_batch(hist, top_k=10)
+            check_answers(torch, eager, hist, [10] * b, got,
+                          f"deployment artifact B={b}")
+            same[b] = sum(g == w for g, w in zip(got, want))
+        # the kernels one artifact call runs, and its host and device time
+        # at B=32 beside the eager path's
+        hist = [history() for _ in range(32)]
+        tf32 = layer_kernels_of(trace_kernels(
+            torch, lambda: rec.recommend_batch(hist), TF32_LAYER[1]))
+        timing = {}
+        for label, fn in (("artifact", lambda: rec.recommend_batch(hist)),
+                          ("eager", lambda: eager.recommend_batch(
+                              hist, top_k=10))):
+            wall = []
+            for _ in range(6):
+                t0 = time.perf_counter()
+                fn()                      # ends in a device->host copy
+                wall.append((time.perf_counter() - t0) * 1e3)
+            timing[label] = (sorted(wall)[3],
+                             *device_breakdown(torch, fn, calls=5, top=4))
+        print(f"deployment: ArtifactRecommender at B={DEPLOY_BATCHES}: "
+              f"lists equal to the eager Recommender's {same}; every call "
+              f"{cfg.num_layers} layer launches, all 3xTF32 "
+              f"({sorted(set(tf32))})", flush=True)
+        for label, (wall, dev, text) in timing.items():
+            print(f"recommend_batch B=32 {label}: host wall {wall:.3f} ms "
+                  f"(median of 6); {text}", flush=True)
+
+        service = RecommenderService(rec, max_k=10, batch_capacity=32,
+                                     max_wait_ms=2.0)
+        server = ServingServer(service, port=0).start()
+        try:
+            hist = [history() for _ in range(16)]
+            ks = [int(k) for k in rng.integers(1, 11, size=16)]
+            post(server.port, hist[0], ks[0])
+            with ThreadPoolExecutor(max_workers=16) as pool:
+                answers = list(pool.map(lambda a: post(server.port, *a),
+                                        zip(hist, ks)))
+        finally:
+            server.stop()
+        check_answers(torch, eager, hist, ks, answers,
+                      "deployment ServingServer over the artifact")
+
+        # the int8 top-k and both candidate-scoring artifacts against the
+        # eager model on the same (quantized) params
+        qparams = quantization.quantize_params(params)
+        hist = [history() for _ in range(32)]
+        feats = dataloader.prepare_inference_batch(hist)
+        batch = eager._batch(feats)
+        exclude = torch.from_numpy(build_exclusion_rows(
+            hist, dataloader.tokenizer, model.special_token_ids,
+            width=DEPLOY_EXCLUDE)).to(device)
+        args = [batch[k] for k in ("input_word_ids", "input_mask",
+                                   "masked_lm_positions")]
+        cands = torch.from_numpy(rng.integers(
+            3, VOCAB, (32, cfg.max_predictions_per_seq, DEPLOY_CANDIDATES))
+            .astype(np.int32)).to(device)
+        with torch.inference_mode():
+            held, q_err = check_topk_close(
+                torch, arts["top_k_int8"].module()(*args, exclude),
+                model.rank_top_k(qparams, batch, 10, exclude=exclude),
+                "int8 top-k artifact B=32")
+            s_err = {}
+            for key, p in (("score_candidates", params),
+                           ("score_candidates_int8", qparams)):
+                got = arts[key].module()(*args, cands)
+                want = model.score_candidates(p, batch, cands)
+                s_err[key] = float((got - want).abs().max())
+                if not (got.shape == want.shape
+                        and s_err[key] <= LOGIT_TOL):
+                    raise AssertionError(f"{key} artifact B=32: {s_err}")
+        print(f"deployment: int8 top-k artifact B=32 scores within "
+              f"{q_err:.3g} of the eager int8 model ({held} ranks held id "
+              f"for id); candidate-scoring artifacts max abs err {s_err}",
+              flush=True)
+
+        # 6. one Ranker call, its rank the count of logits >= the target's
+        ranker = Ranker(model, params, dataloader, device=device)
+        hist = history()
+        rank, text = ranker(hist, rank_item=items[7])
+        with torch.inference_mode():
+            logits = model.apply(params, eager._batch(
+                dataloader.prepare_inference(hist)))["mlm_logits"][0, 0]
+        want_rank = int((logits >= logits[dataloader.tokenizer.tokenize(
+            items[7])]).sum())
+        if rank != want_rank:
+            raise AssertionError(f"Ranker: {rank}, logits count {want_rank}")
+        print(f"deployment: Ranker: {text}", flush=True)
+        del trainer, resumed, eager, rec, arts
+        torch.cuda.empty_cache()
+
+        # 7. the port's three example flows, on the card
+        from bert4rec_tpu_torch.examples import (
+            ranker_app, save_and_load, serving_export,
+        )
+        t0 = time.perf_counter()
+        saved = save_and_load.main(device=str(device))
+        ranked = ranker_app.main(device=str(device))
+        exported = serving_export.main(f"{tmp}/examples", str(device))
+        t_examples = time.perf_counter() - t0
+        if not (saved["identical_outputs"] and saved["resumed_step"] == 6
+                and saved["resumed_seed"] == 7 and ranked["rank"] >= 1
+                and exported["int8_bytes"] < exported["fp32_bytes"]
+                and len(exported["recommended"]) == 3):
+            raise AssertionError(f"the example flows: {saved}, {ranked}, "
+                                 f"{exported}")
+        print(f"deployment: the three example flows ran on the card in "
+              f"{t_examples:.1f} s", flush=True)
+
+        # 5. one bf16 bert_base_512 artifact at B=4 against eager: K8 on
+        #    its wgmma route through the exported program
+        base = bert_base_trainer(torch, device)
+        bmodel, bparams = base.model, base.params
+        t0 = time.perf_counter()
+        bart = export.export_top_k(bmodel, bparams, 10)
+        export.save_artifact(bart, f"{tmp}/base.pt2")
+        bart = export.load_artifact(f"{tmp}/base.pt2")
+        t_base = time.perf_counter() - t0
+        bbatch = {k: v[:4] for k, v in base._put_batch(base_batch(9)).items()
+                  if k in ("input_word_ids", "input_mask",
+                           "masked_lm_positions")}
+        calls, launch = [], fa._launch_forward
+
+        def record(q, k, v, mask, seed, rate, causal, save):
+            calls.append((q, k, v, mask, seed, rate, causal))
+            return launch(q, k, v, mask, seed, rate, causal, save)
+
+        def unrounded(q, k, v, mask, seed, rate, causal, save):
+            return (fa._probs(q, k, mask, causal) @ v.float()).to(q.dtype), ()
+
+        before = {a: getattr(fa.flash_attention, a) for a in FLASH_COUNTERS}
+        with torch.inference_mode():
+            with mock.patch.object(fa, "_launch_forward", record):
+                got = bart.module()(bbatch["input_word_ids"],
+                                    bbatch["input_mask"],
+                                    bbatch["masked_lm_positions"])
+            torch.cuda.synchronize()
+            moved = {a: getattr(fa.flash_attention, a) - before[a]
+                     for a in FLASH_COUNTERS}
+            want = bmodel.rank_top_k(bparams, bbatch, 10)
+            # the plain version: the same eager call with every kernel
+            # launch sent to its plain PyTorch body
+            with ExitStack() as stack:
+                for patch in plain_kernels():
+                    stack.enter_context(patch)
+                plain = bmodel.rank_top_k(bparams, bbatch, 10)
+            with mock.patch.object(fa, "_launch_forward", unrounded):
+                spread = float((bmodel.rank_top_k(bparams, bbatch, 10)[1]
+                                .float() - plain[1].float()).abs().max())
+            # the bf16 K8 operator on each of the program's calls' operands
+            # (projection views) against its plain version
+            op_err = 0.0
+            for q, k, v, mask, seed, rate, causal in calls:
+                o = fa.flash_attention_forward(q, k, v, mask, seed, rate,
+                                               causal)
+                ref = fa.mha_reference(q, k, v, mask, rate, seed, causal)
+                if o.stride() != fa._empty_heads(q).stride():
+                    raise AssertionError(f"the K8 operator's output strides "
+                                         f"{o.stride()}")
+                op_err = max(op_err,
+                             float((o.float() - ref.float()).abs().max()))
+        want_moved = dict.fromkeys(FLASH_COUNTERS, 0)
+        want_moved["launches"] = bmodel.config.num_layers
+        if moved != want_moved:
+            raise AssertionError(f"the bf16 bert_base_512 artifact launched "
+                                 f"{moved}, expected {want_moved}")
+        if len(calls) != bmodel.config.num_layers \
+                or not op_err <= FLASH_TOL["bfloat16"]:
+            raise AssertionError(f"the bf16 K8 operator on the artifact's "
+                                 f"{len(calls)} calls' operands: max abs err "
+                                 f"{op_err} (tol {FLASH_TOL['bfloat16']})")
+        b_held, b_err = check_topk_close(torch, got, want,
+                                         "bf16 bert_base_512 artifact B=4")
+        p_tol = BF16_LOGIT_TOL * float(plain[1].float().abs().max())
+        p_held, p_err = check_topk_close(
+            torch, got, plain, "bf16 bert_base_512 artifact B=4 vs plain",
+            tol=p_tol)
+        print(f"deployment: bf16 bert_base_512 artifact (export + save + "
+              f"load {t_base:.1f} s, {os.path.getsize(f'{tmp}/base.pt2')} "
+              f"bytes) at B=4: K8 launches {moved['launches']} on wgmma, "
+              f"scores within {b_err:.3g} of eager ({b_held} ranks held id "
+              f"for id) and within {p_err:.3g} of the plain version (tol "
+              f"{p_tol:.3g}, {BF16_LOGIT_TOL} of its largest score; "
+              f"{p_held} ranks held id for id; a second plain rounding "
+              f"{spread:.3g} from it); the K8 operator on each "
+              f"call's operands within {op_err:.3g} of its plain version "
+              f"(tol {FLASH_TOL['bfloat16']})", flush=True)
+        del base, bart
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    seconds = time.perf_counter() - t_phase
+    print(f"deployment phase: {seconds:.1f} s", flush=True)
+    return dict(launches=artifact_launches, timing=timing, sizes=sizes,
+                seconds=seconds)
 
 
 def main() -> int:
@@ -3149,8 +3592,12 @@ def run(torch, home) -> int:
     # phase 20: fp32 bert_base_512 (fp32 K8/K9 on 3xTF32)
     base_fp32 = check_bert_base_fp32(torch, device)
     torch.cuda.empty_cache()
-    # phase 21: the quality harness's ml1m oracle gate (fp32 K1'/K2, K3/K4)
+    # phase 21: the quality harness's ml1m oracle gate (fp32 K1'/K2, K3/K4),
+    # with the int8 table's block
     oracle = check_oracle_gate(torch, device)["counts"]
+    torch.cuda.empty_cache()
+    # phase 22: the deployment surface (fp32 K1 through exported programs)
+    deployed = check_deployment(torch, device)
 
     def entry(name, source, replaces, n, row):
         return {"name": name, "route": "cuda",
@@ -3180,13 +3627,16 @@ def run(torch, home) -> int:
     c_temp = temporal["counts"]
     loss_py = "bert4rec_tpu/ops/fused_mlm_loss.py"
     record = {"kernels": [
-        # what the server runs: fp32, B=32 (the HTTP burst's batches) and
-        # B=256 (recommend_stream's)
+        # what the server runs: fp32, B=32 (the HTTP burst's batches, with
+        # the deployment phase's artifact call at B=32) and B=256
+        # (recommend_stream's, with its artifact call at B=256)
         entry("fused_encoder_layer", tf32_src,
-              "bert4rec_tpu/ops/fused_encoder_layer.py:241", launches,
+              "bert4rec_tpu/ops/fused_encoder_layer.py:241",
+              launches + deployed["launches"][32],
               layer_rows[("float32", 32)]),
         entry("fused_encoder_layer_b256", tf32_src,
-              "bert4rec_tpu/ops/fused_encoder_layer.py:241", stream_launches,
+              "bert4rec_tpu/ops/fused_encoder_layer.py:241",
+              stream_launches + deployed["launches"][STREAM_BATCH],
               layer_rows[("float32", STREAM_BATCH)]),
         entry("fused_encoder_layer_dropout", wgmma_src,
               "bert4rec_tpu/ops/fused_encoder_layer.py:241",

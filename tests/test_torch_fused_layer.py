@@ -598,8 +598,8 @@ class TestDropout:
         ops = [flat[k].clone().requires_grad_(True) for k in fel._W_ORDER]
 
         def fn(xx, *w):
-            return fel._FusedLayer.apply(xx, mt, 5, n, 0.2, 0.5, True,
-                                         False, *w)
+            return fel._FusedLayer.apply(xx, mt, 5, n, 0.2, 0.5, False,
+                                         *w)
 
         assert torch.autograd.gradcheck(fn, (xt, *ops), eps=1e-6,
                                         atol=1e-5, rtol=1e-4)

@@ -33,9 +33,10 @@ def test_no_module_imports_jax_or_the_jax_package():
                      or m == "bert4rec_tpu" or m.startswith("bert4rec_tpu."))
         print(len(names), bad)
         assert len(names) >= 30 and not bad, bad
-        # the host pipeline's, SASRec's, evaluation's and the quality
-        # harness's modules are among them, and importing them builds
-        # nothing (the masking engine compiles at first use)
+        # the host pipeline's, SASRec's, evaluation's, the quality
+        # harness's and the deployment surface's modules are among them,
+        # and importing them builds nothing (the masking engine compiles
+        # at first use)
         for mod in ("datasets.ml_20m", "datasets.reddit",
                     "dataloaders.concrete_dataloaders",
                     "dataloaders.processed_dataset", "dataloaders.native",
@@ -47,7 +48,10 @@ def test_no_module_imports_jax_or_the_jax_package():
                     "ops.candidate_scoring", "ops.negative_sampling",
                     "evaluation.baselines", "evaluation.markov_oracle",
                     "evaluation.temporal_oracle",
-                    "evaluation.quality_harness", "tools.quality_run"):
+                    "evaluation.quality_harness", "tools.quality_run",
+                    "models.export", "models.quantization", "apps.ranker",
+                    "utils.profiling", "examples.save_and_load",
+                    "examples.ranker_app", "examples.serving_export"):
             assert "bert4rec_tpu_torch." + mod in names, mod
         from bert4rec_tpu_torch.dataloaders import native
         assert native._lib is None

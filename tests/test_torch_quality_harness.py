@@ -2,9 +2,10 @@
 the presets and gate tables equal to JAX's dicts, the argument parser's
 defaults and choices, the tiny smoke learning and beating the popularity
 floor (both families), ``run_oracle`` and ``run_oracle_temporal`` end to
-end at a cut tiny preset emitting JAX's schema and checks, ``--int8``
-refused before any training, ``run_real`` exiting 2 without data, and
-every mode's default output directory under the port's own prefix."""
+end at a cut tiny preset emitting JAX's schema and checks, ``--int8``'s
+``results_int8`` block (JAX's keys and check; its drop equal to JAX's on
+the same params), ``run_real`` exiting 2 without data, and every mode's
+default output directory under the port's own prefix."""
 
 import json
 import pathlib
@@ -203,16 +204,22 @@ class TestRefusalsAndDefaults:
         ["--oracle"], ["--oracle", "--oracle-family", "temporal"],
         ["--smoke"]])
     def test_int8_raises_before_training(self, argv, monkeypatch):
-        def never(*a, **k):
-            raise AssertionError("training started")
+        """``--int8`` used to raise before any training; with
+        models/quantization.py ported, no mode raises on it: each reaches
+        ``train()`` (stopped there by a sentinel), the smoke mode ignoring
+        the flag as JAX's does."""
+        from bert4rec_tpu_torch.trainers import BERT4RecTrainer
 
-        monkeypatch.setattr(qh, "_oracle_trainer", never)
-        with pytest.raises(NotImplementedError, match="A.4"):
+        class Reached(Exception):
+            pass
+
+        def reached(*a, **k):
+            raise Reached
+
+        monkeypatch.setattr(BERT4RecTrainer, "train", reached)
+        with pytest.raises(Reached):
             qh.main(argv + ["--int8", "--device", "cpu"])
-        args = qh.build_argparser().parse_args(["--oracle", "--int8"])
-        for mode in (qh.run_oracle, qh.run_oracle_temporal):
-            with pytest.raises(NotImplementedError, match="A.4"):
-                mode(args, device="cpu")
+        assert qh.build_argparser().parse_args(["--oracle", "--int8"]).int8
 
     def test_real_mode_exits_without_data(self, tmp_path, capsys):
         rc = qh.main(["--dataset", "ml_1m", "--out", str(tmp_path),
@@ -239,13 +246,94 @@ class TestRefusalsAndDefaults:
 
     def test_cli_runs_as_a_module(self):
         """``python -m ...tools.quality_run`` parses JAX's flags and
-        dispatches (here to the ``--int8`` refusal, before any work)."""
+        dispatches (here to the temporal family's ``--gap-curve``
+        refusal, before any work)."""
         out = subprocess.run(
             [sys.executable, "-m", "bert4rec_tpu_torch.tools.quality_run",
              "--oracle", "--oracle-family", "temporal", "--int8",
-             "--device", "cpu"],
+             "--gap-curve", "1,2", "--device", "cpu"],
             capture_output=True, text=True, timeout=120, cwd=REPO)
-        assert out.returncode != 0 and "A.4" in out.stderr
+        assert out.returncode != 0 and "gap-curve" in out.stderr
+
+
+class TestInt8Block:
+    """``--int8``'s ``results_int8`` (JAX quality_harness.py:647-664,
+    :1120-1142) and its gate (:701-705, :1172-1181)."""
+
+    @pytest.mark.parametrize("family", ["bert4rec", "temporal"])
+    def test_block_has_jax_schema_and_check(self, family, cut_tiny,
+                                            emitted):
+        argv = ["--oracle", "--oracle-family", family, "--int8", "--device",
+                "cpu"]
+        rc = qh.main(argv + (["--oracle-epochs", "1"]
+                             if family == "temporal" else []))
+        (_, payload), = emitted
+        block = payload["results_int8"]
+        keys = {"results", "table_bytes_fp32", "table_bytes_int8",
+                "ndcg10_drop_vs_fp32", "gate_ndcg10_drop"}
+        assert set(block) == (keys | {"hr10_drop_vs_fp32"}
+                              if family == "bert4rec" else keys)
+        assert set(block["results"]) == METRICS
+        ps = qh._ORACLE_PRESETS["tiny"]
+        vocab, width = ps["n_items"] + 3, ps["model"]["hidden_size"]
+        assert (block["table_bytes_fp32"], block["table_bytes_int8"]) == \
+            (vocab * width * 4, vocab * width + vocab * 4)
+        assert block["gate_ndcg10_drop"] == 0.01
+        assert payload["checks"]["int8_ndcg10_drop_within_0.01"] == (
+            block["ndcg10_drop_vs_fp32"] <= 0.01)
+        assert block["ndcg10_drop_vs_fp32"] == round(
+            payload["results"]["NDCG@10"] - block["results"]["NDCG@10"], 4)
+        assert rc == (0 if all(payload["checks"].values()) else 1)
+
+    def test_drop_equals_jax_on_the_same_params(self, monkeypatch):
+        """The block's numbers from the port's harness equal JAX's
+        computation on the same params and test split (host negatives in
+        both packages): the drops within 1e-4, the bytes exactly."""
+        import functools
+
+        import jax
+
+        from bert4rec_tpu.evaluation import markov_oracle as jax_mo
+        from bert4rec_tpu.models import BERT4RecConfig as JaxConfig
+        from bert4rec_tpu.models import BERT4RecModel as JaxModel
+        from bert4rec_tpu.models import quantization as jax_q
+        from bert4rec_tpu_torch import evaluation
+        from bert4rec_tpu_torch.evaluation import markov_oracle as mo
+        from bert4rec_tpu_torch.models import BERT4RecConfig, BERT4RecModel
+        from bert4rec_tpu_torch.utils import checkpoint
+        from tests.test_torch_oracles import PRED, SEQ, TINY, loo_datasets
+        import bert4rec_tpu.evaluation as jax_evaluation
+
+        for pkg in (evaluation, jax_evaluation):
+            monkeypatch.setattr(pkg, "BERT4RecEvaluator", functools.partial(
+                pkg.BERT4RecEvaluator, device_negatives=False))
+        cat = mo.MarkovCatalog(n_items=TINY, seed=5)
+        train = cat.sample_sequences(300, 12, SEQ, seed=60)
+        source = [int(t) for q in train for t in q]
+        ds, jds = loo_datasets(cat.sample_sequences(200, 12, SEQ, seed=61))
+        kw = dict(vocab_size=cat.vocab_size, hidden_size=32, num_layers=2,
+                  num_attention_heads=4, inner_dim=64,
+                  max_sequence_length=SEQ, max_predictions_per_seq=PRED)
+        jmodel = JaxModel(config=JaxConfig(**kw))
+        jparams = jmodel.init(jax.random.key(8))
+        jparams["mlm"]["output_bias"] = np.random.default_rng(8).normal(
+            size=jparams["mlm"]["output_bias"].shape).astype(np.float32)
+        model = BERT4RecModel(config=BERT4RecConfig(**kw))
+        params = checkpoint.params_from_numpy(
+            {k: np.asarray(v) for k, v in checkpoint.flatten(
+                jax.tree_util.tree_map(np.asarray, jparams)).items()}, "cpu")
+        ekw = dict(source=source, sample_size=100, seed=0, batch_size=64)
+        res = mo.evaluate_scorer(model, params, ds, **ekw)
+        block = qh.int8_block(model, params, ds, ekw, res, "test")
+        jres = jax_mo.evaluate_scorer(jmodel, jparams, jds, **ekw)
+        jqp = jax_q.quantize_params(jparams)
+        jq = jax_mo.evaluate_scorer(jmodel, jqp, jds, **ekw)
+        for metric, key in (("NDCG@10", "ndcg10_drop_vs_fp32"),
+                            ("HR@10", "hr10_drop_vs_fp32")):
+            want = round(float(jres[metric]) - float(jq[metric]), 4)
+            assert abs(block[key] - want) <= 1e-4, (key, block[key], want)
+        assert block["table_bytes_fp32"] == jax_q.table_bytes(jparams)
+        assert block["table_bytes_int8"] == jax_q.table_bytes(jqp)
 
 
 def test_emit_schema(tmp_path):

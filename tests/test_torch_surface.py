@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+import bert4rec_tpu.apps as jax_apps
 import bert4rec_tpu.core as jax_core
 import bert4rec_tpu.models as jax_models
 import bert4rec_tpu.models.components as jax_components
@@ -28,7 +29,7 @@ from bert4rec_tpu.models.model_wrapper import ModelWrapper as JaxWrapper
 from bert4rec_tpu.trainers import BERT4RecTrainer as JaxTrainer
 from bert4rec_tpu.utils import checkpoint as jax_ckpt
 from bert4rec_tpu.utils import prefetch as jax_prefetch
-from bert4rec_tpu_torch import core, models, ops, utils
+from bert4rec_tpu_torch import apps, core, models, ops, utils
 from bert4rec_tpu_torch.models import components
 from bert4rec_tpu_torch.dataloaders import dataloader_utils as du
 from bert4rec_tpu_torch.models import (
@@ -95,8 +96,8 @@ class TestTrainerSurface:
             self, jax_state, tmp_path):
         """Each package's checkpoint without the optional ``epoch`` and
         ``best_monitor`` records (a legacy one) loads, leaving both unset;
-        with them, both packages read them back. (The two packages' optimizer
-        paths differ, ROADMAP.md A.2: each loads its own.)"""
+        with them, both packages read them back. (Each package loads the
+        other's train state too: tests/test_torch_train_state.py.)"""
         params, jt = jax_state
         ours = port_trainer(params)
 
@@ -147,20 +148,23 @@ class TestConfigRoundTrips:
 class TestExports:
 
     @pytest.mark.parametrize("port,jax_pkg,missing,extra", [
-        (utils, jax_utils, {"StepTimer", "hard_sync", "trace"}, set()),
+        (utils, jax_utils, set(), set()),
         (ops, jax_ops, set(), set()),
-        (models, jax_models, {"export", "quantization"}, set()),
+        (models, jax_models, set(), set()),
         (core, jax_core, {"MeshConfig", "create_mesh",
                           "distributed_initialize", "batch_sharding",
                           "replicated_sharding", "param_partition_specs",
                           "param_shardings", "make_batch_specs"},
          {"resolve_device"}),
         (components, jax_components, set(), set()),
-    ], ids=["utils", "ops", "models", "core", "models.components"])
+        (apps, jax_apps, set(), set()),
+    ], ids=["utils", "ops", "models", "core", "models.components", "apps"])
     def test_package_exports_follow_jax(self, port, jax_pkg, missing, extra):
         """Every JAX export is exported by the port, but the modules not
         ported yet (ROADMAP.md, queue A: ``core``'s mesh and partitioning
-        names wait for A.5); ``core.resolve_device`` is the port's own."""
+        names wait for A.5); ``core.resolve_device`` is the port's own.
+        ``utils``' profiling trio, ``models.export`` / ``quantization`` and
+        ``apps.Ranker`` / ``ArtifactRecommender`` are ported."""
         assert set(port.__all__) == (set(jax_pkg.__all__) - missing) | extra
         for name in port.__all__:
             assert getattr(port, name) is not None
