@@ -12,6 +12,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from bert4rec_tpu_torch.core import mesh as mesh_lib
 from bert4rec_tpu_torch.core.device import resolve_device
 from bert4rec_tpu_torch.models.components.networks import Bert4RecEncoder
 
@@ -60,10 +61,16 @@ class Recommender:
     :param device: where the params are moved and every forward runs;
         defaults to ``"cuda"`` and raises without CUDA unless ``"cpu"`` is
         asked for.
+    :param mesh: a ``core.mesh.Mesh`` whose rank holds ``params``' pieces
+        (vocab-sharded over 'model'); every rank of the mesh serves the
+        same requests, ranked by the model's shard-local top-k
+        (``rank_top_k(mesh=...)``); the device is the mesh's.
     """
 
-    def __init__(self, model, params, dataloader, device="cuda"):
-        self.device = resolve_device(device)
+    def __init__(self, model, params, dataloader, device="cuda", mesh=None):
+        self.mesh = mesh_lib.as_mesh(mesh, "Recommender")
+        self.device = (self.mesh.device if self.mesh is not None
+                       else resolve_device(device))
         self.model = model
         self.params = _to_device(params, self.device)
         self.dataloader = dataloader
@@ -78,7 +85,8 @@ class Recommender:
         model_input = self.dataloader.prepare_inference(list(sequence))
         seen_ids = np.asarray(
             self.dataloader.tokenizer.tokenize(list(sequence)), dtype=np.int32)
-        outputs = self.model.apply(self.params, self._batch(model_input))
+        outputs = self.model.apply(self.params, self._batch(model_input),
+                                   mesh=self.mesh)
 
         if use_mlm_head and "mlm_logits" in outputs:
             logits = outputs["mlm_logits"][0, 0]  # the masked slot is slot 0
@@ -87,7 +95,7 @@ class Recommender:
             pos = int(model_input["masked_lm_positions"][0, 0])
             hidden = outputs["sequence_output"][0, pos]
             table = Bert4RecEncoder.get_embedding_table(
-                self.params["encoder"])
+                self.model._whole(self.params, self.mesh)["encoder"])
             logits = table.float() @ hidden.float()
             cfg = self.model.config
             if cfg.padded_vocab_size > cfg.vocab_size:
@@ -123,7 +131,8 @@ class Recommender:
                                        self.model.special_token_ids)
         ids, _ = self.model.rank_top_k(
             self.params, self._batch(feats), int(top_k),
-            exclude=torch.from_numpy(exclude).to(self.device))
+            exclude=torch.from_numpy(exclude).to(self.device),
+            mesh=self.mesh)
         return ids[:, 0]
 
     def _decode_topk(self, ids, k: Optional[int] = None) -> list:

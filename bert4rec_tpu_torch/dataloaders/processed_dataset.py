@@ -152,8 +152,8 @@ class ProcessedDataset:
 
     def shard_for_process(self,
                           process_index: Optional[int] = None,
-                          process_count: Optional[int] = None
-                          ) -> "ProcessedDataset":
+                          process_count: Optional[int] = None,
+                          mesh=None) -> "ProcessedDataset":
         """This process's disjoint slice of the dataset for multi-host runs.
 
         Every process must call this on the SAME (identically-ordered)
@@ -163,9 +163,15 @@ class ProcessedDataset:
 
         Defaults come from ``torch.distributed`` (this process's rank and
         the world size) when it is initialised, else (0, 1); the JAX
-        package reads ``jax.process_index/process_count``.
+        package reads ``jax.process_index/process_count``. With a ``mesh``
+        (``core.mesh.Mesh``) they are its 'data' coordinate and the 'data'
+        axis's size: the ranks of one 'data' coordinate (its 'model'
+        ranks) get the same slice.
         """
         pi, pc = process_index, process_count
+        if mesh is not None:
+            pi = mesh.index("data") if pi is None else pi
+            pc = mesh.size("data") if pc is None else pc
         if pi is None or pc is None:
             rank, world = _distributed_rank_and_size()
             pi = rank if pi is None else pi

@@ -63,7 +63,8 @@ class PopularityScorer:
     # ------------------------------------------------------------------ #
 
     def score_candidates(self, params, batch: dict,
-                         candidates: torch.Tensor) -> torch.Tensor:
+                         candidates: torch.Tensor,
+                         mesh=None) -> torch.Tensor:
         """``[B, P, C]`` popularity scores of candidate item ids."""
         safe = candidates.clamp(0, self._scores.shape[0] - 1)
         scores = self._scores[safe.long()]

@@ -24,8 +24,18 @@ Three paths, as in the JAX package:
 
 Batches are masked on a host thread ahead of use (``utils.prefetch``) and
 the ranks are fetched from the card on ``fetch_workers`` threads, so the
-loop only prepares and launches. One device: a ``mesh`` (the multi-GPU
-layout) is not ported yet and raises.
+loop only prepares and launches.
+
+On a ``(data, model)`` mesh (``core/mesh.py``, one process per rank) each
+rank scores its 'data' slice of every batch (its dataset is its slice,
+``shard_for_process(mesh=...)``; the final batch is zero-padded so every
+rank runs the same batches) with its pieces of the params, the model's
+sharded scoring and ranking taking the ``mesh``, and the ``[B, P]`` ranks
+of every 'data' coordinate are put together on every rank before the
+metrics read them: every rank reports the global metrics. Device
+negatives draw from one seed on every rank (rank 0's when the evaluator
+has none), with the 'data' coordinate folded in when that axis has
+several.
 """
 
 import warnings
@@ -34,6 +44,9 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from bert4rec_tpu_torch.core import mesh as mesh_lib
+from bert4rec_tpu_torch.core import partitioning
+from bert4rec_tpu_torch.core.mesh import DATA_AXIS
 from bert4rec_tpu_torch.dataloaders.processed_dataset import (
     _distributed_rank_and_size,
 )
@@ -99,7 +112,8 @@ class BERT4RecEvaluator(BaseEvaluator):
         sampler cannot honour raises. False keeps the host path.
 
         ``static_shapes``: data-independent shapes (no P-slicing). Default:
-        on when ``torch.distributed`` runs more than one process.
+        on when ``torch.distributed`` runs more than one process without a
+        mesh; a mesh's ranks agree on each batch's width instead.
 
         ``full_ranking``: rank against the whole catalog instead of 100
         sampled negatives (the unbiased protocol); no sampler is built.
@@ -107,13 +121,10 @@ class BERT4RecEvaluator(BaseEvaluator):
         ``fetch_workers``: threads that fetch the ranks from the card; 0
         fetches each batch before launching the next.
 
-        ``mesh``: the multi-GPU layout (ROADMAP.md, queue A.5) is not
-        ported yet; anything but None raises."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "BERT4RecEvaluator(mesh=...): the multi-GPU layout "
-                "(ROADMAP.md, queue A.5) is not ported yet; evaluate on "
-                "one device")
+        ``mesh``: this rank's ``core.mesh.Mesh``: batches are its 'data'
+        slice, scored data-parallel, the params its pieces (anything but a
+        port mesh raises a TypeError)."""
+        self.mesh = mesh_lib.as_mesh(mesh, "BERT4RecEvaluator")
         sampler_config = {"sample_size": sample_size}
         if seed is not None:
             sampler_config["seed"] = seed
@@ -153,13 +164,26 @@ class BERT4RecEvaluator(BaseEvaluator):
     def _static_shapes(self) -> bool:
         if self.static_shapes is not None:
             return self.static_shapes
-        return _distributed_rank_and_size()[1] > 1
+        # a mesh agrees on each batch's shapes instead (_agreed_width)
+        return self.mesh is None and _distributed_rank_and_size()[1] > 1
 
-    @staticmethod
-    def _place(batch: dict, device, **extra) -> dict:
-        """The feature arrays of ``batch`` (and ``extra``) on ``device``."""
+    def _agreed_width(self, p_used: int) -> int:
+        """The P-slice width every rank of the mesh scores: the widest of
+        the 'data' slices' (their ranks are put together)."""
+        if self.mesh is None:
+            return p_used
+        return int(mesh_lib.all_reduce(
+            self.mesh, torch.tensor([p_used], device=self.mesh.device),
+            DATA_AXIS, "max")[0])
+
+    def _place(self, batch: dict, device, **extra) -> dict:
+        """The feature arrays of ``batch`` (and ``extra``) on ``device``
+        (on a mesh: this rank's 'data' slice, checked by ``place_batch``)."""
         arrays = {k: v for k, v in batch.items() if k not in _NOT_FEATURES}
         arrays.update(extra)
+        if self.mesh is not None:
+            partitioning.check_batch(self.mesh, arrays,
+                                     what="evaluation batch")
         return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
                 for k, v in arrays.items()}
 
@@ -236,13 +260,23 @@ class BERT4RecEvaluator(BaseEvaluator):
 
     def _batch_generator(self, device) -> torch.Generator:
         """This batch's generator: seeded with ``fold_in(seed, batch
-        index)``, so one evaluator seed repeats every draw."""
+        index)``, so one evaluator seed repeats every draw. Without a seed
+        a fresh one is drawn, on a mesh rank 0's for every rank."""
         if self._base_seed is None:
-            self._base_seed = (
-                self.seed if self.seed is not None
-                else int(np.random.SeedSequence().generate_state(1)[0]))
+            if self.seed is not None:
+                self._base_seed = self.seed
+            else:
+                seed = torch.tensor(
+                    int(np.random.SeedSequence().generate_state(1)[0]),
+                    dtype=torch.int64, device=device)
+                if self.mesh is not None:
+                    mesh_lib.broadcast_world(seed)
+                self._base_seed = int(seed)
+        seed = fold_in(self._base_seed, self._batch_counter)
+        if self.mesh is not None and self.mesh.size(DATA_AXIS) > 1:
+            seed = fold_in(seed, self.mesh.index(DATA_AXIS))
         gen = torch.Generator(device=device)
-        gen.manual_seed(fold_in(self._base_seed, self._batch_counter))
+        gen.manual_seed(seed)
         self._batch_counter += 1
         return gen
 
@@ -256,7 +290,7 @@ class BERT4RecEvaluator(BaseEvaluator):
         return ns.ranks_with_device_negatives(
             model, params, placed, logp=logp, vocab_ids=vocab_ids,
             without_idx=without, generator=gen,
-            sample_size=self.sample_size)
+            sample_size=self.sample_size, mesh=self.mesh)
 
     # ------------------------------------------------------------------ #
     # full-vocab (unsampled) ranking
@@ -272,7 +306,9 @@ class BERT4RecEvaluator(BaseEvaluator):
              np.where(valid, gt_ids, -1)], axis=1).astype(np.int32)
         placed = self._place(batch, device, exclude=exclude)
         exclude = placed.pop("exclude")
-        ranks = model.gt_ranks_full_vocab(params, placed, exclude=exclude)
+        ranks = model.gt_ranks_full_vocab(
+            params, placed, exclude=exclude,
+            **mesh_lib.mesh_kwargs(model.gt_ranks_full_vocab, self.mesh))
         # invalid positions -> 0, the contract of the sampled paths
         return torch.where(placed["masked_lm_weights"] > 0, ranks,
                            torch.zeros_like(ranks))
@@ -306,6 +342,7 @@ class BERT4RecEvaluator(BaseEvaluator):
         p_used = max(int(valid.sum(axis=1).max(initial=0)), 1)
         if self._static_shapes:
             p_used = p
+        p_used = self._agreed_width(p_used)
         if p_used < p:
             gt_ids = gt_ids[:, :p_used]
             valid = valid[:, :p_used]
@@ -315,7 +352,7 @@ class BERT4RecEvaluator(BaseEvaluator):
             batch["masked_lm_weights"] = weights[:, :p_used]
             p = p_used
 
-        if not valid.any() and not self._static_shapes:
+        if not valid.any() and not self._static_shapes and self.mesh is None:
             return np.empty(0, dtype=np.int64)
 
         device = _model_device(model, params)
@@ -334,6 +371,10 @@ class BERT4RecEvaluator(BaseEvaluator):
                                                   device)
         if ranks is None:
             return np.empty(0, dtype=np.int64)
+        if self.mesh is not None:
+            # every 'data' coordinate's ranks, in axis order, on every rank
+            ranks = mesh_lib.gather(self.mesh, ranks,
+                                    DATA_AXIS).reshape(-1, ranks.shape[-1])
         if not fetch:
             return ranks
         ranks = _fetch(ranks)
@@ -350,7 +391,8 @@ class BERT4RecEvaluator(BaseEvaluator):
         without_lists = [
             np.concatenate([seq_without[i], gt_ids[i, j:j + 1]])
             for i, j in zip(rows, cols)]
-        if not without_lists and not self._static_shapes:
+        if not without_lists and not self._static_shapes \
+                and self.mesh is None:
             return None
         candidates = np.zeros((b, p, self.sample_size + 1), dtype=np.int32)
         if without_lists:
@@ -359,7 +401,7 @@ class BERT4RecEvaluator(BaseEvaluator):
         candidates[..., -1] = gt_ids  # ground truth last (reference :101)
         placed = self._place(batch, device, candidates=candidates)
         return ns.ranks_from_candidates(model, params, placed,
-                                        placed.pop("candidates"))
+                                        placed.pop("candidates"), self.mesh)
 
     def evaluate(self, model, params=None, test_ds=None,
                  batch_size: int = 256, seed: int = 0,
@@ -376,8 +418,11 @@ class BERT4RecEvaluator(BaseEvaluator):
             self._base_seed = None   # fresh negatives per unseeded run
 
         if hasattr(test_ds, "batches"):
-            batches = prefetch(test_ds.batches(batch_size, shuffle=False,
-                                               seed=seed), depth=2)
+            # a mesh needs every rank to run the same batches: the final
+            # one is zero-padded (its fake rows carry weight 0)
+            batches = prefetch(test_ds.batches(
+                batch_size, shuffle=False, seed=seed,
+                pad_final_batch=self.mesh is not None), depth=2)
         else:
             batches = test_ds
         iterator = batches

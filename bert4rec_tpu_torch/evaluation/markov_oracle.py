@@ -238,7 +238,8 @@ class MarkovOracleScorer:
     # ------------------------------------------------------------------ #
 
     def score_candidates(self, params, batch: dict,
-                         candidates: torch.Tensor) -> torch.Tensor:
+                         candidates: torch.Tensor,
+                         mesh=None) -> torch.Tensor:
         prev = self._prev_tokens(batch)                   # [B, P]
         cand = candidates.long()                          # [B, P, C]
         s = self._s
@@ -356,20 +357,16 @@ def evaluate_scorer(scorer, params, test_ds, *, source: Sequence[int],
     """Run a model or scorer through the standard evaluator with a pinned
     sampler: model against oracle as a paired comparison (the same
     negatives law, seed and rank law). ``sampler='random'`` is the broken
-    shuffled-negatives variant. ``mesh``, the multi-GPU layout (ROADMAP.md,
-    queue A.5), is not ported yet: anything but None raises."""
+    shuffled-negatives variant. ``mesh`` scores over a device mesh
+    (``test_ds`` this rank's 'data' slice, ``params`` its pieces)."""
     from bert4rec_tpu_torch import evaluation
     from bert4rec_tpu_torch.dataloaders import samplers
 
-    if mesh is not None:
-        raise NotImplementedError(
-            "evaluate_scorer(mesh=...): the multi-GPU layout (ROADMAP.md, "
-            "queue A.5) is not ported yet; evaluate on one device")
     s = samplers.get(sampler, source=list(source),
                      vocab=list(dict.fromkeys(source)),
                      sample_size=sample_size, seed=seed)
     evaluator = evaluation.BERT4RecEvaluator(sampler=s,
                                              sample_size=sample_size,
-                                             seed=seed)
+                                             seed=seed, mesh=mesh)
     return evaluator.evaluate(scorer, params, test_ds,
                               batch_size=batch_size, progress_bar=False)

@@ -182,7 +182,8 @@ class TemporalOracleScorer:
         return torch.where(ctx_is_item[..., None], p, self._pop[ci])
 
     def score_candidates(self, params, batch: dict,
-                         candidates: torch.Tensor) -> torch.Tensor:
+                         candidates: torch.Tensor,
+                         mesh=None) -> torch.Tensor:
         prev1, prev2, no_ctx, no_second, regime = self._contexts(batch)
         cand = candidates.long()                          # [B, P, C]
         in_range = (cand >= 0) & (cand < self._vocab)

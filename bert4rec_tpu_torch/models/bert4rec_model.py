@@ -12,13 +12,27 @@ logits path with ``trainers/trainer_utils.py``. For evaluation,
 ``gt_ranks_full_vocab`` ranks the ground truth against the whole catalog
 (``ops/candidate_scoring.py``); ``rank_top_k``, ``rank_with_candidates``,
 ``rank_full_vocab`` and ``rank_items`` rank as the JAX model does.
+
+On a ``(data, model)`` mesh (``core/mesh.py``) the params are this rank's
+pieces (``core/partitioning.py``: the item table and the output bias
+row-sharded over 'model' where the axis divides the padded vocab) and the
+batch is its 'data' slice. ``loss_and_metrics``, ``score_candidates``,
+``rank_top_k``, ``gt_ranks_full_vocab`` and ``apply`` take the ``mesh``:
+the loss runs the vocab-sharded kernels (``ops/sharded_mlm_loss.py``,
+with ``config.use_fused_loss``), scoring and ranking run shard-local with
+only per-row results crossing the ranks, and any other path gathers the
+table over 'model' first (what GSPMD does for JAX). Losses and metrics
+are means over the global batch on every rank.
 """
 
 from typing import Optional, Sequence
 
 import torch
 
+from bert4rec_tpu_torch.core import mesh as mesh_lib
+from bert4rec_tpu_torch.core import partitioning
 from bert4rec_tpu_torch.core.device import resolve_device
+from bert4rec_tpu_torch.core.mesh import MODEL_AXIS
 from bert4rec_tpu_torch.core.dtypes import DTypePolicy
 from bert4rec_tpu_torch.models import model_utils
 from bert4rec_tpu_torch.models.components import layers as L
@@ -80,9 +94,12 @@ class BERT4RecModel:
         return L.layer_norm(params["mlm"]["transform_norm"], x)
 
     def mlm_logits(self, params: dict, sequence_output: torch.Tensor,
-                   masked_lm_positions: torch.Tensor) -> torch.Tensor:
+                   masked_lm_positions: torch.Tensor,
+                   offset: int = 0) -> torch.Tensor:
         """Gather -> transform -> tied matmul -> fp32 logits ``[B, P, V]``
-        (operands in the compute dtype, fp32 sums)."""
+        (operands in the compute dtype, fp32 sums). With ``offset`` the
+        params hold a vocab shard's block whose first row is item
+        ``offset`` (its columns past the vocabulary padded to -1e9)."""
         compute_dtype = self.dtype_policy.compute_dtype
         x = self.mlm_transform(params, sequence_output, masked_lm_positions)
         emb = params["encoder"]["item_embeddings"]
@@ -98,15 +115,17 @@ class BERT4RecModel:
             logits = torch.matmul(x.float(),
                                   table.to(compute_dtype).float().T)
         logits = logits + params["mlm"]["output_bias"]
-        if self.config.padded_vocab_size > self.config.vocab_size:
+        first_pad = max(self.config.vocab_size - offset, 0)
+        if first_pad < logits.shape[-1]:
             # vocab-padding ids must never win a ranking
-            logits[..., self.config.vocab_size:] = -1e9
+            logits[..., first_pad:] = -1e9
         return logits
 
     def _mlm_hidden_and_table(self, params: dict, inputs: dict, *,
                               training: bool = False,
                               seed: Optional[int] = None,
-                              dense_table: bool = True) -> tuple:
+                              dense_table: bool = True,
+                              mesh=None) -> tuple:
         """Encoder forward + MLM transform of the masked positions + the
         tied table: the front half of the fused-loss path
         (``dense_table=False`` skips the table: the quantized fast paths
@@ -115,21 +134,55 @@ class BERT4RecModel:
                                  inputs["input_mask"], training=training,
                                  seed=seed,
                                  input_timestamps=inputs.get(
-                                     "input_timestamps"))
+                                     "input_timestamps"), mesh=mesh)
         hidden = self.mlm_transform(params, enc["sequence_output"],
                                     inputs["masked_lm_positions"])
         table = (Bert4RecEncoder.get_embedding_table(params["encoder"])
                  if dense_table else None)
         return hidden, table
 
+    # ------------------------------------------------------------------ #
+    # the mesh
+    # ------------------------------------------------------------------ #
+
+    def _sharded(self, params: dict, mesh) -> bool:
+        """Whether ``params`` hold this rank's block of a table row-sharded
+        over ``mesh``'s 'model' axis."""
+        emb = params["encoder"]["item_embeddings"]
+        return "embedding" in emb and partitioning.vocab_sharded(
+            mesh, emb["embedding"].shape[0], self.config.padded_vocab_size)
+
+    def _whole(self, params: dict, mesh) -> dict:
+        """``params`` with a sharded table and bias gathered over 'model'
+        (differentiable: each rank's gradient lands on its block)."""
+        if not self._sharded(params, mesh):
+            return params
+        emb = params["encoder"]["item_embeddings"]
+        return {
+            "encoder": {**params["encoder"], "item_embeddings": {
+                **emb, "embedding": mesh_lib.gather_rows(
+                    mesh, emb["embedding"], MODEL_AXIS)}},
+            "mlm": {**params["mlm"], "output_bias": mesh_lib.gather_rows(
+                mesh, params["mlm"]["output_bias"], MODEL_AXIS)}}
+
     def score_candidates(self, params: dict, inputs: dict,
-                         candidates: torch.Tensor) -> torch.Tensor:
+                         candidates: torch.Tensor,
+                         mesh=None) -> torch.Tensor:
         """Candidate-only MLM logits ``[B, P, C]`` of ``candidates [B, P,
         C]``: never builds the ``[B, P, V]`` full-vocab logits (the
         sampled evaluation's path). An int8 table scales only the
-        gathered candidate rows' products."""
+        gathered candidate rows' products. ``mesh``: on vocab-sharded
+        params each rank scores the candidates it owns
+        (``candidate_scoring.score_candidates_sharded``)."""
         from bert4rec_tpu_torch.ops import candidate_scoring
+        mesh = mesh_lib.as_mesh(mesh, "score_candidates")
         emb = params["encoder"]["item_embeddings"]
+        if self._sharded(params, mesh):
+            hidden, table = self._mlm_hidden_and_table(params, inputs,
+                                                       mesh=mesh)
+            return candidate_scoring.score_candidates_sharded(
+                hidden, table, params["mlm"]["output_bias"], candidates,
+                mesh)
         if "embedding_q" in emb:
             hidden, _ = self._mlm_hidden_and_table(params, inputs,
                                                    dense_table=False)
@@ -141,11 +194,36 @@ class BERT4RecModel:
 
     def loss_and_metrics(self, params: dict, inputs: dict, *,
                          training: bool = False,
-                         seed: Optional[int] = None) -> tuple:
+                         seed: Optional[int] = None,
+                         mesh=None) -> tuple:
         """(masked-SCCE loss, {masked_accuracy, accuracy}) for a train or
         eval step. With ``config.use_fused_loss`` the tied softmax, loss
         and metrics run as the fused kernels (no ``[B, P, V]`` logits);
-        otherwise the same math over the logits path."""
+        otherwise the same math over the logits path.
+
+        ``mesh``: the params are this rank's pieces and ``inputs`` its
+        'data' slice; the loss and metrics are the global batch's. With
+        the table vocab-sharded (the 'model' axis > 1 divides the padded
+        vocab) and ``use_fused_loss``, the sharded kernels run
+        (``ops/sharded_mlm_loss.py``); otherwise the path below on the
+        gathered table."""
+        mesh = mesh_lib.as_mesh(mesh, "loss_and_metrics")
+        labels = inputs["masked_lm_ids"]
+        if self.config.use_fused_loss and self._sharded(params, mesh):
+            from bert4rec_tpu_torch.ops.sharded_mlm_loss import (
+                sharded_mlm_loss_and_metrics,
+            )
+            hidden, table = self._mlm_hidden_and_table(
+                params, inputs, training=training, seed=seed, mesh=mesh)
+            return sharded_mlm_loss_and_metrics(
+                hidden, table, params["mlm"]["output_bias"], labels,
+                self.config.vocab_size, mesh)
+        loss, logs = self._loss_and_metrics(self._whole(params, mesh),
+                                            inputs, training, seed)
+        from bert4rec_tpu_torch.trainers import trainer_utils
+        return trainer_utils.global_means(mesh, loss, logs, labels)
+
+    def _loss_and_metrics(self, params, inputs, training, seed) -> tuple:
         from bert4rec_tpu_torch.ops import fused_mlm_loss
         from bert4rec_tpu_torch.trainers import trainer_utils
         labels = inputs["masked_lm_ids"]
@@ -170,13 +248,15 @@ class BERT4RecModel:
     def apply(self, params: dict, inputs: dict, *, training: bool = False,
               seed: Optional[int] = None,
               apply_prediction_mask: bool = False,
-              output_range: Optional[int] = None) -> dict:
+              output_range: Optional[int] = None, mesh=None) -> dict:
         """Forward pass over the feature dict; ``mlm_logits`` is produced
         iff ``masked_lm_positions`` is present. Dropout runs only when
         ``training`` with a ``seed``. ``apply_prediction_mask`` adds -1e9
         to the special tokens' logits (off by default, as in the
         reference); ``output_range`` computes only the first positions of
-        the last encoder layer."""
+        the last encoder layer. ``mesh``: vocab-sharded params are
+        gathered over 'model' first (the whole ``[B, P, V]`` logits)."""
+        params = self._whole(params, mesh_lib.as_mesh(mesh, "apply"))
         outputs = dict(self.encoder.apply(
             params["encoder"], inputs["input_word_ids"],
             inputs["input_mask"], training=training, seed=seed,
@@ -228,24 +308,53 @@ class BERT4RecModel:
             torch.as_tensor(rank_items_list,
                             device=encoder_input["input_word_ids"].device))
 
+    def _local_logits(self, params: dict, inputs: dict, mesh
+                      ) -> torch.Tensor:
+        """This rank's block ``[B, P, V / mp]`` of the fp32 logits of
+        vocab-sharded params (the padding columns at -1e9)."""
+        enc = self.encoder.apply(params["encoder"], inputs["input_word_ids"],
+                                 inputs["input_mask"], mesh=mesh,
+                                 input_timestamps=inputs.get(
+                                     "input_timestamps"))
+        v_local = params["mlm"]["output_bias"].shape[0]
+        return self.mlm_logits(params, enc["sequence_output"],
+                               inputs["masked_lm_positions"],
+                               offset=mesh.index(MODEL_AXIS) * v_local)
+
     def rank_top_k(self, params: dict, inputs: dict, k: int, *,
+                   mesh=None,
                    exclude: Optional[torch.Tensor] = None,
                    with_probabilities: bool = False) -> tuple:
         """Top-k full-vocab ranking per masked position.
 
+        :param mesh: on vocab-sharded params each rank ranks its block and
+            only ``mp * k`` pairs cross the ranks (``ops/sharded_topk.py``);
+            the ``[B, P, V]`` logits are never gathered
         :param exclude: optional ``[B, E]`` int ids (< 0 = padding) knocked
             out per batch row across all positions (an additive -1e9)
         :param with_probabilities: return softmax probabilities of the
             top-k items (one logsumexp over V) instead of logits
         :returns: ``(top_ids [B, P, k], top_scores [B, P, k])``
         """
-        logits = self.apply(params, inputs)["mlm_logits"]     # [B, P, V]
+        mesh = mesh_lib.as_mesh(mesh, "rank_top_k")
+        if self._sharded(params, mesh):
+            logits = self._local_logits(params, inputs, mesh)
+            offset = mesh.index(MODEL_AXIS) * logits.shape[-1]
+        else:
+            logits = self.apply(params, inputs)["mlm_logits"]  # [B, P, V]
+            mesh, offset = None, 0
         if exclude is not None:
-            bias = sharded_topk.exclusion_bias(exclude, logits.shape[-1])
+            bias = sharded_topk.exclusion_bias(exclude, logits.shape[-1],
+                                               offset=offset)
             logits = logits + bias[:, None, :]
-        values, ids = sharded_topk.topk_over_vocab(logits, k)
+        values, ids = sharded_topk.topk_over_vocab(logits, k, mesh=mesh)
         if with_probabilities:
             lse = torch.logsumexp(logits, dim=-1, keepdim=True)
+            if mesh is not None:
+                # the global logsumexp from the blocks' (max, sum)
+                m = mesh_lib.all_reduce(mesh, lse.clone(), MODEL_AXIS, "max")
+                lse = m + torch.log(mesh_lib.all_reduce(
+                    mesh, torch.exp(lse - m), MODEL_AXIS))
             return ids, torch.exp(values - lse)
         return ids, values
 
@@ -256,8 +365,8 @@ class BERT4RecModel:
 
     def gt_ranks_full_vocab(self, params: dict, inputs: dict, *,
                             exclude: Optional[torch.Tensor] = None,
-                            vocab_tile: Optional[int] = None
-                            ) -> torch.Tensor:
+                            vocab_tile: Optional[int] = None,
+                            mesh=None) -> torch.Tensor:
         """1-based rank of each masked position's ground truth against the
         whole catalog (the unsampled protocol): 1 + the non-excluded
         catalog items whose logit ties or beats the ground truth's; the
@@ -267,9 +376,20 @@ class BERT4RecModel:
 
         :param exclude: optional ``[B, E]`` int ids (< 0 = padding) removed
             from the competitor set per batch row
+        :param mesh: on vocab-sharded params each rank counts the
+            competitors on its block (``candidate_scoring.gt_ranks_sharded``)
         :returns: ``[B, P]`` int32 ranks (>= 1)
         """
         gt_ids = inputs["masked_lm_ids"].long()
+        mesh = mesh_lib.as_mesh(mesh, "gt_ranks_full_vocab")
+        if self._sharded(params, mesh):
+            from bert4rec_tpu_torch.ops import candidate_scoring
+            hidden, table = self._mlm_hidden_and_table(params, inputs,
+                                                       mesh=mesh)
+            return candidate_scoring.gt_ranks_sharded(
+                hidden, table, params["mlm"]["output_bias"], gt_ids,
+                vocab_size=self.config.vocab_size, mesh=mesh,
+                exclude=exclude, tile=vocab_tile or 8192)
         if (vocab_tile is not None or self.config.padded_vocab_size
                 > self.TILED_RANK_VOCAB_THRESHOLD):
             from bert4rec_tpu_torch.ops import candidate_scoring

@@ -113,6 +113,24 @@ def embedding_lookup(params: dict, ids: torch.Tensor,
     return params["embedding"][ids.long()].to(compute_dtype)
 
 
+def sharded_embedding_lookup(params: dict, ids: torch.Tensor, mesh,
+                             compute_dtype=torch.float32) -> torch.Tensor:
+    """Rows of a table row-sharded on ``mesh``'s 'model' axis (``params``
+    holds this rank's block): each rank gathers the rows it owns, zeros
+    elsewhere, and the pieces are summed over 'model' (what GSPMD does to
+    JAX's ``jnp.take`` on the sharded table). The backward reaches only
+    the owned rows of the local block; the [PAD] row keeps its gradient,
+    as in JAX (no ``padding_idx``)."""
+    from bert4rec_tpu_torch.core import mesh as mesh_lib
+    table = params["embedding"]
+    v_local = table.shape[0]
+    local = ids.long() - mesh.index(mesh_lib.MODEL_AXIS) * v_local
+    owned = (local >= 0) & (local < v_local)
+    rows = table[torch.where(owned, local, torch.zeros_like(local))]
+    rows = torch.where(owned[..., None], rows, torch.zeros_like(rows))
+    return mesh_lib.psum(mesh, rows, mesh_lib.MODEL_AXIS).to(compute_dtype)
+
+
 def quantize_embedding(params: dict) -> dict:
     """Weights-only int8 quantization of an embedding table, symmetric
     per-row (per-item) scales: ``q = round(row / s)`` (half to even, as

@@ -42,6 +42,7 @@ from typing import Optional
 import torch
 import torch.utils.checkpoint
 
+from bert4rec_tpu_torch.core import partitioning
 from bert4rec_tpu_torch.core.device import resolve_device
 from bert4rec_tpu_torch.core.dtypes import DTypePolicy
 from bert4rec_tpu_torch.models.components import layers as L
@@ -206,7 +207,8 @@ class Bert4RecEncoder:
               input_mask: torch.Tensor, *, training: bool = False,
               seed: Optional[int] = None,
               output_range: Optional[int] = None,
-              input_timestamps: Optional[torch.Tensor] = None) -> dict:
+              input_timestamps: Optional[torch.Tensor] = None,
+              mesh=None) -> dict:
         """Forward pass: ``input_word_ids`` / ``input_mask`` are ``[B, S]``
         ints (mask 1 for real tokens); ``input_timestamps`` ``[B, S]`` ints
         (epoch seconds, the temporal preprocessor's), read by the temporal
@@ -214,13 +216,20 @@ class Bert4RecEncoder:
         (``[B, output_range, H]`` with ``output_range``: the last layer
         computes only those positions), ``pooled_output [B, H]`` and
         ``encoder_outputs`` (one per layer). Dropout runs only when
-        ``training`` and a ``seed`` is given."""
+        ``training`` and a ``seed`` is given. With a ``mesh`` whose
+        'model' axis row-shards the item table, the lookup is
+        :func:`layers.sharded_embedding_lookup`."""
         cfg = self.config
         compute_dtype = self.dtype_policy.compute_dtype
         batch, seq_len = input_word_ids.shape
 
-        x = L.embedding_lookup(params["item_embeddings"], input_word_ids,
-                               compute_dtype)
+        emb = params["item_embeddings"]
+        if "embedding" in emb and partitioning.vocab_sharded(
+                mesh, emb["embedding"].shape[0], cfg.padded_vocab_size):
+            x = L.sharded_embedding_lookup(emb, input_word_ids, mesh,
+                                           compute_dtype)
+        else:
+            x = L.embedding_lookup(emb, input_word_ids, compute_dtype)
         x = x + L.position_embedding(params["position_embeddings"], seq_len,
                                      compute_dtype)
         if "temporal_embeddings" in params:

@@ -1,6 +1,5 @@
 """Candidate scoring for the sampled and full-catalog evaluations (port of
-``bert4rec_tpu/ops/candidate_scoring.py``; the vocab-sharded variant waits
-for the multi-GPU layout).
+``bert4rec_tpu/ops/candidate_scoring.py``).
 
 ``score_candidates`` computes only the C candidate logits of each masked
 position: gather the candidates' rows of the tied table and contract them
@@ -10,6 +9,12 @@ truth against the whole catalog one vocabulary tile at a time, so the
 ``[B, P, V]`` logits never exist. Both are plain PyTorch: the JAX package
 leaves them to XLA, with no Pallas kernel.
 
+On a table row-sharded over a mesh's 'model' axis,
+``score_candidates_sharded`` gathers on each rank only the candidate rows
+it owns and sums the partial ``[B, P, C]`` logits over 'model', and
+``gt_ranks_sharded`` counts each rank's competitors on its own block and
+sums the counts: neither gathers the table.
+
 Operands are the hidden states' dtype (the table rows cast to it), products
 summed in fp32, as the JAX einsums with ``preferred_element_type=float32``.
 """
@@ -17,6 +22,9 @@ summed in fp32, as the JAX einsums with ``preferred_element_type=float32``.
 from typing import Optional
 
 import torch
+
+from bert4rec_tpu_torch.core import mesh as mesh_lib
+from bert4rec_tpu_torch.core.mesh import MODEL_AXIS
 
 
 def _logits_fp32(hidden: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
@@ -98,16 +106,77 @@ def gt_ranks_tiled(hidden: torch.Tensor, table: torch.Tensor,
         rows = torch.arange(b, device=table.device)[:, None] \
             .expand_as(exclude)
         excl[rows[keep], exclude[keep].long()] = True
+    return _beaten(hidden, table, output_bias, gt, gt_logit, vocab_size,
+                   excl, tile, 0) + 1
+
+
+def _beaten(hidden, table, output_bias, gt, gt_logit, vocab_size, excl,
+            tile, offset) -> torch.Tensor:
+    """``[B, P]`` int32: the catalog items among ``table``'s rows (ids
+    ``offset + row``) that are valid, not the ground truth, not excluded
+    (``excl`` over these rows) and score at least ``gt_logit``."""
+    vp = table.shape[0]
     h32 = hidden.float()
-    count = torch.zeros((b, p), dtype=torch.int32, device=table.device)
+    count = torch.zeros(gt.shape, dtype=torch.int32, device=table.device)
     for t0 in range(0, vp, tile):
         t1 = min(vp, t0 + tile)
         logits = h32 @ table[t0:t1].to(hidden.dtype).float().T \
             + output_bias[t0:t1]                              # [B, P, T]
-        ids = torch.arange(t0, t1, device=table.device)
+        ids = torch.arange(offset + t0, offset + t1, device=table.device)
         valid = (ids < vocab_size)[None, None, :] & (ids != gt[..., None])
         if excl is not None:
             valid = valid & ~excl[:, None, t0:t1]
         count += (valid & (logits >= gt_logit[..., None])).sum(
             -1, dtype=torch.int32)
-    return count + 1
+    return count
+
+
+def score_candidates_sharded(hidden: torch.Tensor, table: torch.Tensor,
+                             output_bias: torch.Tensor,
+                             candidates: torch.Tensor,
+                             mesh) -> torch.Tensor:
+    """Candidate-only logits ``[B, P, C]`` over a table row-sharded on
+    ``mesh``'s 'model' axis: ``table [V / mp, W]`` and ``output_bias
+    [V / mp]`` are this rank's block. Each rank scores the candidates it
+    owns (zero elsewhere) and the partial logits are summed over 'model':
+    the math of :func:`score_candidates`, on every rank.
+
+    :param hidden: ``[B, P, W]``, this rank's 'data' slice
+    :param candidates: ``[B, P, C]`` int candidate ids (valid vocab rows)
+    """
+    v_local = table.shape[0]
+    local = candidates.long() - mesh.index(MODEL_AXIS) * v_local
+    owned = (local >= 0) & (local < v_local)
+    safe = torch.where(owned, local, torch.zeros_like(local))
+    logits = _logits_fp32(hidden, table[safe]) + output_bias[safe]
+    partial = torch.where(owned, logits, torch.zeros_like(logits))
+    return mesh_lib.psum(mesh, partial, MODEL_AXIS)
+
+
+def gt_ranks_sharded(hidden: torch.Tensor, table: torch.Tensor,
+                     output_bias: torch.Tensor, gt_ids: torch.Tensor, *,
+                     vocab_size: int, mesh,
+                     exclude: Optional[torch.Tensor] = None,
+                     tile: int = 8192) -> torch.Tensor:
+    """:func:`gt_ranks_tiled`'s rank law over a table row-sharded on
+    ``mesh``'s 'model' axis (``table`` / ``output_bias`` this rank's
+    block): the ground truth's logit from its owner
+    (:func:`score_candidates_sharded`), each rank's count of competitors
+    on its block, the counts summed over 'model'."""
+    v_local = table.shape[0]
+    offset = mesh.index(MODEL_AXIS) * v_local
+    gt = gt_ids.long()
+    gt_logit = score_candidates_sharded(hidden, table, output_bias,
+                                        gt[..., None], mesh)[..., 0]
+    excl = None
+    if exclude is not None:
+        excl = torch.zeros((gt.shape[0], v_local), dtype=torch.bool,
+                           device=table.device)
+        local = exclude.long() - offset
+        keep = (exclude >= 0) & (local >= 0) & (local < v_local)
+        rows = torch.arange(gt.shape[0], device=table.device)[:, None] \
+            .expand_as(exclude)
+        excl[rows[keep], local[keep]] = True
+    count = _beaten(hidden, table, output_bias, gt, gt_logit, vocab_size,
+                    excl, tile, offset)
+    return mesh_lib.all_reduce(mesh, count, MODEL_AXIS) + 1

@@ -14,6 +14,8 @@ Pallas kernel.
 import numpy as np
 import torch
 
+from bert4rec_tpu_torch.core.mesh import mesh_kwargs
+
 
 def sample_negatives(generator: torch.Generator, logp: torch.Tensor,
                      without_idx: torch.Tensor, k: int,
@@ -53,12 +55,16 @@ def popularity_logp(probs, device) -> torch.Tensor:
 
 
 def ranks_from_candidates(model, params, batch: dict,
-                          candidates: torch.Tensor) -> torch.Tensor:
+                          candidates: torch.Tensor,
+                          mesh=None) -> torch.Tensor:
     """1-based ground-truth ranks ``[B, P]`` from ``candidates [B, P, C]``
     whose last column is the ground truth: 1 + the negatives scoring at
     least the ground truth's logit (ties rank ahead of it); invalid
-    positions get 0."""
-    cand = model.score_candidates(params, batch, candidates)
+    positions get 0. ``mesh`` goes to a ``score_candidates`` that takes
+    it (vocab-sharded params)."""
+    cand = model.score_candidates(params, batch, candidates,
+                                  **mesh_kwargs(model.score_candidates,
+                                                mesh))
     beaten = (cand[..., :-1] >= cand[..., -1:]).sum(-1, dtype=torch.int32)
     return torch.where(batch["masked_lm_weights"] > 0, beaten + 1,
                        torch.zeros_like(beaten))
@@ -69,7 +75,8 @@ def ranks_with_device_negatives(model, params, batch: dict, *,
                                 vocab_ids: torch.Tensor,
                                 without_idx: torch.Tensor,
                                 generator: torch.Generator,
-                                sample_size: int) -> torch.Tensor:
+                                sample_size: int,
+                                mesh=None) -> torch.Tensor:
     """Sample negatives -> candidate-only scoring -> ground-truth ranks
     ``[B, P]``, all on the device.
 
@@ -80,4 +87,4 @@ def ranks_with_device_negatives(model, params, batch: dict, *,
     negatives = vocab_ids[neg_idx.long()]                  # [B, P, k] ids
     gt = batch["masked_lm_ids"][..., None].to(negatives.dtype)
     candidates = torch.cat([negatives, gt], dim=-1)
-    return ranks_from_candidates(model, params, batch, candidates)
+    return ranks_from_candidates(model, params, batch, candidates, mesh)

@@ -22,7 +22,18 @@
   ``utils.prefetch``: a host thread slices and masks batch k+1 and copies
   it to the card (pinned memory, a side stream) while step k runs.
 
-One device; the multi-GPU layout is not ported yet.
+On a ``(data, model)`` mesh (``core/mesh.py``, one process per rank) the
+train state is this rank's pieces (``core/partitioning.py``: the item
+table, the output bias and their moments row-sharded over 'model'), each
+batch is this rank's 'data' slice (every rank of one 'data' coordinate
+gets the same one: ``ProcessedDataset.shard_for_process(mesh=...)``), the
+loss and metrics are the global batch's (``model.loss_and_metrics(mesh=
+...)``), every gradient is summed over 'data' in one all_reduce, the clip's
+norm adds the sharded leaves' squares over 'model' and the replicated ones
+once, and each 'data' coordinate draws its own dropout stream (the
+coordinate folded into the step seed when the axis has several). A
+checkpoint holds the whole tables in the JAX trainer's layout, written by
+rank 0; loading it into a mesh cuts each rank's pieces.
 """
 
 import contextlib
@@ -33,7 +44,10 @@ from typing import Optional
 import numpy as np
 import torch
 
+from bert4rec_tpu_torch.core import mesh as mesh_lib
+from bert4rec_tpu_torch.core import partitioning
 from bert4rec_tpu_torch.core.device import resolve_device
+from bert4rec_tpu_torch.core.mesh import DATA_AXIS, MODEL_AXIS
 from bert4rec_tpu_torch.ops.dropout_bits import fold_in
 from bert4rec_tpu_torch.trainers import optimizers, trainer_utils
 from bert4rec_tpu_torch.trainers.base_trainer import BaseTrainer
@@ -52,8 +66,8 @@ class BERT4RecTrainer(BaseTrainer):
 
     def __init__(self, model, mesh=None, steps_per_call: int = 1,
                  grad_accum_steps: int = 1, eval_steps_per_call: int = 1):
-        """JAX's signature. ``mesh``: the multi-GPU layout (ROADMAP.md,
-        queue A.5) is not ported yet; anything but None raises.
+        """JAX's signature. ``mesh``: this rank's ``core.mesh.Mesh``
+        (``core.create_mesh``); anything else raises a TypeError.
         ``steps_per_call``: optimizer steps per call of the step function
         over a group of K batches (identical math to single steps; logs
         come back per step). ``grad_accum_steps``: A microbatches per
@@ -64,13 +78,8 @@ class BERT4RecTrainer(BaseTrainer):
         ``eval_steps_per_call``: JAX's stacked eval dispatch of K batches;
         ``validate()`` runs the same math as a plain loop of one eval step
         per batch, whatever K."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "BERT4RecTrainer(mesh=...): the multi-GPU layout "
-                "(ROADMAP.md, queue A.5) is not ported yet; train on one "
-                "device")
         super().__init__(model)
-        self.mesh = None
+        self.mesh = mesh_lib.as_mesh(mesh, "BERT4RecTrainer")
         self.eval_steps_per_call = max(1, int(eval_steps_per_call))
         self.steps_per_call = max(1, int(steps_per_call))
         self.grad_accum_steps = max(1, int(grad_accum_steps))
@@ -87,6 +96,7 @@ class BERT4RecTrainer(BaseTrainer):
         self._epochs_completed = None
         self._best_monitor_value = None
         self._custom_loss = False
+        self._sharded_paths = frozenset()
 
     # ------------------------------------------------------------------ #
     # setup
@@ -99,8 +109,11 @@ class BERT4RecTrainer(BaseTrainer):
         """Build the optimizer/loss/metric defaults and the train state.
         ``params`` (a nested dict of tensors) is moved to ``device``;
         without it the model is initialised from ``seed``. A custom
-        ``loss`` or ``metrics`` routes the step through the logits path."""
-        self.device = resolve_device(device)
+        ``loss`` or ``metrics`` routes the step through the logits path.
+        On a mesh the state lives on the mesh's device, cut to this rank's
+        pieces (the whole ``params``, the same on every rank, go in)."""
+        self.device = (self.mesh.device if self.mesh is not None
+                       else resolve_device(device))
         self._put = prefetch_lib.device_put(self.device, _BATCH_KEYS,
                                             _OPTIONAL_KEYS)
         self.optimizer = optimizers.get(optimizer if optimizer is not None
@@ -118,6 +131,13 @@ class BERT4RecTrainer(BaseTrainer):
             k: v.detach().to(self.device, torch.float32).clone()
             .requires_grad_(True)
             for k, v in ckpt_lib.flatten(params).items()})
+        if self.mesh is not None:
+            params = partitioning.shard_state(self.mesh, params)
+            self._sharded_paths = frozenset(
+                k for k, v in ckpt_lib.flatten(params).items()
+                if partitioning.spec_for_path(k, v)
+                and partitioning.vocab_sharded(self.mesh, v.shape[0],
+                                               self._vocab_rows))
         self.state = {"params": params,
                       "opt_state": self.optimizer.init(params),
                       "step": 0, "seed": int(seed)}
@@ -126,9 +146,18 @@ class BERT4RecTrainer(BaseTrainer):
     # steps
     # ------------------------------------------------------------------ #
 
+    @property
+    def _vocab_rows(self) -> int:
+        """The whole item table's rows (what a sharded leaf gathers to)."""
+        config = getattr(self.model, "config", None)
+        return getattr(config, "padded_vocab_size", 0)
+
     def _put_batch(self, batch: dict) -> dict:
         """Host numpy batch -> the tensors the step reads, on the device
-        (pinned staging and a side-stream copy on the card)."""
+        (pinned staging and a side-stream copy on the card); on a mesh
+        the batch is this rank's 'data' slice (``place_batch``'s check)."""
+        if self.mesh is not None:
+            partitioning.check_batch(self.mesh, batch)
         return self._put(batch)
 
     def _prefetched(self, raw):
@@ -138,23 +167,38 @@ class BERT4RecTrainer(BaseTrainer):
             prefetch_lib.prefetch(raw, self._put_batch, depth=2))
 
     def _loss_and_logs(self, params, batch, training, seed):
+        mesh = {"mesh": self.mesh} if self.mesh is not None else {}
         if not self._custom_loss and hasattr(self.model, "loss_and_metrics"):
             return self.model.loss_and_metrics(params, batch,
-                                               training=training, seed=seed)
+                                               training=training, seed=seed,
+                                               **mesh)
         logits = self.model.apply(params, batch, training=training,
-                                  seed=seed)["mlm_logits"]
+                                  seed=seed, **mesh)["mlm_logits"]
         labels = batch["masked_lm_ids"]
-        return self.loss(labels, logits), {
-            name: metric(labels, logits)
-            for name, metric in self.metrics.items()}
+        # a custom loss is a mean over the slice's valid positions
+        return trainer_utils.global_means(
+            self.mesh, self.loss(labels, logits),
+            {name: metric(labels, logits)
+             for name, metric in self.metrics.items()}, labels)
 
-    @staticmethod
-    def _counts(batch) -> dict:
+    def _counts(self, batch) -> dict:
+        """The batch's position counts (the global batch's on a mesh)."""
         labels = batch["masked_lm_ids"]
-        return {"_n_valid": trainer_utils.n_valid_positions(labels),
-                "_n_total": torch.tensor(float(labels.numel()),
-                                         device=labels.device),
-                "_n_real": trainer_utils.n_real_positions(labels)}
+        counts = torch.stack([
+            trainer_utils.n_valid_positions(labels),
+            torch.tensor(float(labels.numel()), device=labels.device),
+            trainer_utils.n_real_positions(labels)])
+        if self.mesh is not None:
+            counts = mesh_lib.all_reduce(self.mesh, counts, DATA_AXIS)
+        return dict(zip(("_n_valid", "_n_total", "_n_real"), counts))
+
+    def _step_seed(self) -> int:
+        """``fold_in(seed, step)``; with several 'data' coordinates, this
+        rank's coordinate folded in (its own dropout stream)."""
+        seed = fold_in(self.state["seed"], self.state["step"])
+        if self.mesh is not None and self.mesh.size(DATA_AXIS) > 1:
+            seed = fold_in(seed, self.mesh.index(DATA_AXIS))
+        return seed
 
     def _grads(self, batch, seed):
         """(loss, logs, {path: grad}) of one batch at the current params;
@@ -169,14 +213,44 @@ class BERT4RecTrainer(BaseTrainer):
             for (k, p), g in zip(flat.items(), grads)}
 
     def _apply(self, grads) -> None:
+        sq_norm = None
+        if self.mesh is not None:
+            grads = self._sum_over_data(grads)
+            if self._sharded_paths:
+                sq_norm = self._global_sq_norm
         self.state["opt_state"] = self.optimizer.update(
-            grads, self.state["opt_state"], self.state["params"])
+            grads, self.state["opt_state"], self.state["params"],
+            sq_norm=sq_norm)
         self.state["step"] += 1
+
+    def _sum_over_data(self, grads: dict) -> dict:
+        """Every gradient summed over 'data', one all_reduce of a flat
+        buffer (each rank's gradient is its slice's share of the global
+        mean's)."""
+        if self.mesh.size(DATA_AXIS) == 1:
+            return grads
+        keys = list(grads)
+        flat = torch.cat([grads[k].float().reshape(-1) for k in keys])
+        mesh_lib.all_reduce(self.mesh, flat, DATA_AXIS)
+        out, i = {}, 0
+        for k in keys:
+            n = grads[k].numel()
+            out[k] = flat[i:i + n].view_as(grads[k]).to(grads[k].dtype)
+            i += n
+        return out
+
+    def _global_sq_norm(self, sums: dict) -> torch.Tensor:
+        """The clip's squared norm: the sharded leaves' sums of squares
+        added over 'model', the replicated leaves' counted once."""
+        sharded = [v for k, v in sums.items() if k in self._sharded_paths]
+        rest = [v for k, v in sums.items() if k not in self._sharded_paths]
+        total = mesh_lib.all_reduce(self.mesh, torch.stack(sharded).sum(),
+                                    MODEL_AXIS)
+        return torch.stack(rest).sum() + total
 
     def train_step(self, batch: dict) -> dict:
         """One optimizer step on a device batch; returns its logs."""
-        step_seed = fold_in(self.state["seed"], self.state["step"])
-        loss, logs, grads = self._grads(batch, step_seed)
+        loss, logs, grads = self._grads(batch, self._step_seed())
         self._apply(grads)
         return {"loss": loss, **logs, **self._counts(batch)}
 
@@ -185,18 +259,19 @@ class BERT4RecTrainer(BaseTrainer):
         gradient is ``sum(n_valid_a * g_a) / sum(n_valid_a)``, what one
         big batch's valid-position mean gives. Logs are stacked per
         microbatch."""
-        step_seed = fold_in(self.state["seed"], self.state["step"])
+        step_seed = self._step_seed()
         gsum, wsum, logs = None, 0.0, []
         for idx, batch in enumerate(batches):
             loss, blogs, grads = self._grads(batch, fold_in(step_seed, idx))
-            w = trainer_utils.n_valid_positions(batch["masked_lm_ids"])
+            counts = self._counts(batch)
+            w = counts["_n_valid"]
             if gsum is None:
                 gsum = {k: w * g for k, g in grads.items()}
             else:
                 for k, g in grads.items():
                     gsum[k] = gsum[k] + w * g
             wsum = wsum + w
-            logs.append({"loss": loss, **blogs, **self._counts(batch)})
+            logs.append({"loss": loss, **blogs, **counts})
         denom = torch.clamp(wsum, min=1.0)
         self._apply({k: g / denom for k, g in gsum.items()})
         return {k: torch.stack([lg[k] for lg in logs]) for k in logs[0]}
@@ -376,7 +451,8 @@ class BERT4RecTrainer(BaseTrainer):
         computes it from the seed (``checkpoint.rng_key_data``); beside
         them the port's whole ``seed`` (JAX's key keeps its low 32 bits
         only; JAX's load reads by its own keys and ignores it), ``epoch``
-        and ``best_monitor``."""
+        and ``best_monitor``. On a mesh every rank must call it: the
+        sharded leaves are gathered whole and rank 0 writes."""
         best = self._best_monitor_value
         tree = {"params": self.state["params"],
                 **optimizers.optax_paths(self.state["opt_state"]),
@@ -386,7 +462,8 @@ class BERT4RecTrainer(BaseTrainer):
                 "epoch": np.int32(self._epochs_completed or 0),
                 "best_monitor": np.float64(best if best is not None
                                            else np.nan)}
-        ckpt_lib.save_pytree(path, tree)
+        ckpt_lib.save_pytree(path, tree, mesh=self.mesh,
+                             vocab_rows=self._vocab_rows)
 
     def load_checkpoint(self, path) -> None:
         """The train state from ``path``, in the JAX trainer's layout
@@ -394,10 +471,13 @@ class BERT4RecTrainer(BaseTrainer):
         (``opt_state/{count,mu,nu}``, ``seed``, no ``rng``). A file with a
         ``seed`` resumes that seed; a JAX file's ``rng`` gives ``hi << 32 |
         lo``. ``epoch`` and ``best_monitor`` are optional records, absent
-        in legacy checkpoints (as in JAX)."""
+        in legacy checkpoints (as in JAX). On a mesh each rank cuts its
+        pieces from the whole leaves."""
         if self.state is None:
             raise RuntimeError("Call initialize_model before load_checkpoint")
         stored = ckpt_lib.load_npz(path)
+        if self.mesh is not None:
+            stored = partitioning.shard_flat(self.mesh, stored)
         source = f"Checkpoint {path}"
         if f"{optimizers.ADAM_PATH}/count" in stored:
             opt_prefix = optimizers.ADAM_PATH + "/"
@@ -448,4 +528,13 @@ class BERT4RecTrainer(BaseTrainer):
 
     @property
     def params(self):
+        """The params this rank holds (its pieces on a mesh)."""
         return self.state["params"] if self.state is not None else None
+
+    def gathered_params(self) -> dict:
+        """The whole params on every rank (on a mesh a collective: every
+        rank must call it)."""
+        if self.mesh is None:
+            return self.params
+        return partitioning.gather_state(self.mesh, self.params,
+                                         self._vocab_rows)

@@ -25,7 +25,7 @@ either package resumes the other's train checkpoint.
 """
 
 import re
-from typing import Callable, Dict, Sequence, Union
+from typing import Callable, Dict, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -91,15 +91,20 @@ class AdamW:
 
     @torch.no_grad()
     def update(self, grads: Dict[str, torch.Tensor], state: dict,
-               params: dict) -> dict:
+               params: dict, sq_norm: Optional[Callable] = None) -> dict:
         """Apply one update to ``params`` in place; returns the new
-        state. ``grads`` is ``{path: tensor}`` for every param path."""
+        state. ``grads`` is ``{path: tensor}`` for every param path.
+        ``sq_norm`` maps ``{path: leaf's sum of squares}`` to the global
+        squared norm (on a mesh: the sharded leaves' sums added over the
+        'model' axis, the replicated ones once); by default their sum."""
         flat = flatten(params)
         paths = list(flat)
         g = [grads[k].float() for k in paths]
         # clip_by_global_norm: sqrt of the sum of every leaf's sum of
         # squares; untouched below the bound, t / norm * bound at or above
-        norm = torch.stack([(t * t).sum() for t in g]).sum().sqrt()
+        sums = {k: (t * t).sum() for k, t in zip(paths, g)}
+        norm = (sq_norm(sums) if sq_norm is not None
+                else torch.stack(list(sums.values())).sum()).sqrt()
         below = norm < self.global_clipnorm
         g = [torch.where(below, t, t / norm * self.global_clipnorm)
              for t in g]

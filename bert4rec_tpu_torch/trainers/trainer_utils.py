@@ -1,9 +1,13 @@
 """Loss and metrics (port of ``bert4rec_tpu/trainers/trainer_utils.py``):
 masked sparse categorical cross-entropy over labels != 0, masked and plain
 argmax accuracy, and the position counts that weight epoch means. Plain
-tensor functions returning fp32 scalars."""
+tensor functions returning fp32 scalars; ``global_means`` turns a mesh
+rank's batch-slice means into the global batch's."""
 
 import torch
+
+from bert4rec_tpu_torch.core import mesh as mesh_lib
+from bert4rec_tpu_torch.core.mesh import DATA_AXIS
 
 
 def masked_sparse_categorical_crossentropy(y_true: torch.Tensor,
@@ -43,3 +47,27 @@ def sparse_categorical_accuracy(y_true: torch.Tensor, logits: torch.Tensor
                                 ) -> torch.Tensor:
     """Unmasked argmax accuracy."""
     return (logits.argmax(dim=-1) == y_true.long()).float().mean()
+
+
+def global_means(mesh, loss, logs: dict, labels) -> tuple:
+    """A rank's batch-slice means -> the global batch's, on every rank:
+    the loss and ``masked_accuracy`` weighted by the slices' valid
+    positions, ``accuracy`` by their rows. The loss's gradient on each
+    rank is its own slice's share, so the 'data' sum of the gradients
+    (the trainer's) is the global mean's."""
+    if mesh is None or mesh.size(DATA_AXIS) == 1:
+        return loss, logs
+    nv = (labels > 0).float().sum()
+    counts = mesh_lib.all_reduce(
+        mesh, torch.stack([nv, torch.tensor(float(labels.numel()),
+                                            device=nv.device)]),
+        DATA_AXIS)
+    n_valid = torch.clamp(counts[0], min=1.0)
+    loss = mesh_lib.psum(mesh, loss * nv, DATA_AXIS) / n_valid
+    out = {}
+    for k, v in logs.items():
+        w, total = ((labels.numel(), counts[1]) if k == "accuracy"
+                    else (nv, n_valid))
+        out[k] = mesh_lib.all_reduce(mesh, (v * w).detach().clone(),
+                                     DATA_AXIS) / total
+    return loss, out

@@ -80,12 +80,33 @@ def params_to_numpy(params: dict) -> Dict[str, np.ndarray]:
     return {k: v.detach().cpu().numpy() for k, v in flatten(params).items()}
 
 
-def save_pytree(path, tree: dict) -> None:
+def save_pytree(path, tree: dict, mesh=None, vocab_rows: int = 0) -> None:
     """Save every tensor or array leaf of ``tree`` to ``path`` (``.npz``),
-    atomically (a temporary file in the same directory, then a rename)."""
+    atomically (a temporary file in the same directory, then a rename).
+
+    With a ``mesh`` (JAX's multi-process save) the tree is this rank's
+    pieces: the vocab-sharded leaves (``vocab_rows`` rows whole) are
+    gathered first, a collective every rank joins; only world rank 0
+    writes, and every rank waits until the file is in place."""
     path = pathlib.Path(path)
+    flat = flatten(tree)
+    if mesh is not None:
+        from bert4rec_tpu_torch.core import mesh as mesh_lib
+        from bert4rec_tpu_torch.core import partitioning
+        flat = partitioning.gather_flat(mesh, flat, vocab_rows)
+        if mesh.rank != 0:
+            mesh_lib.barrier(mesh)
+            return
     leaves = {k: (v.detach().cpu().numpy() if isinstance(v, torch.Tensor)
-                  else np.asarray(v)) for k, v in flatten(tree).items()}
+                  else np.asarray(v)) for k, v in flat.items()}
+    try:
+        _write_npz(path, leaves)
+    finally:
+        if mesh is not None:
+            mesh_lib.barrier(mesh)
+
+
+def _write_npz(path: pathlib.Path, leaves: dict) -> None:
     path.parent.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(dir=path.parent, suffix=".npz.tmp")
     try:

@@ -228,7 +228,25 @@ Phases (any failure raises and the script exits non-zero):
               ``Ranker`` call; the three example scripts' flows
               (``bert4rec_tpu_torch/examples``); one bf16 bert_base_512
               artifact at B=4 against eager (12 K8 launches on
-              ``wgmma``); its seconds.
+              ``wgmma``); its seconds;
+23. mesh     — the (data, model) layout at reddit_128 width (fp32,
+              V=335,423 padded to 335,872, dropout 0): two ranks
+              (``MESH_SHAPE`` (1, 2); gloo sharing the one card, NCCL
+              where each rank has its own) started by
+              ``tools/mesh_run.py``, each running :func:`mesh_rank`: the
+              sharded loss at one train batch's 10,240 rows against the
+              one-process loss (1e-5 relative, equal counts, gradients
+              within 1e-4 of their scale), its K5 stats and K6
+              ``valid_ge_zero`` launches against their plain versions at
+              the shard's shape and label encodings (each rank in turn),
+              3 ``train()`` steps (one K5 stats and one K6 launch a step on
+              each rank, the layer on 3xTF32, no unsharded loss launch)
+              against the one-process trainer on the same batches (losses
+              1e-5 relative, the gathered table within 1e-5 of its scale),
+              ``rank_top_k`` and the sampled and full-catalog evaluations
+              against one process on the seed's params, the sharded run's
+              checkpoint reloaded in one process (the same logits), and
+              the step's wall on the ranks beside one process's.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the rest of
@@ -1285,13 +1303,13 @@ TRAIN_STEPS = 24
 STEP_TOL = {"loss": 2e-3, "metric": 0.0, "grad": 5e-2}
 
 
-def make_batch(seed, batch=STREAM_BATCH, npred=40, seq=SEQ):
+def make_batch(seed, batch=STREAM_BATCH, npred=40, seq=SEQ, vocab=None):
     """One ML-1M-shaped train batch (``bench.py``'s ``make_batch`` law):
-    random item ids, no padding, ``npred`` distinct sorted masked
-    positions."""
+    random item ids (of ``vocab``, default ML-1M's), no padding, ``npred``
+    distinct sorted masked positions."""
     import numpy as np
     rng = np.random.default_rng(seed)
-    ids = rng.integers(3, VOCAB, size=(batch, seq)).astype(np.int32)
+    ids = rng.integers(3, vocab or VOCAB, size=(batch, seq)).astype(np.int32)
     positions = np.stack([np.sort(rng.choice(seq, size=npred, replace=False))
                           for _ in range(batch)]).astype(np.int32)
     return {"input_word_ids": ids,
@@ -3468,6 +3486,531 @@ def check_deployment(torch, device):
                 seconds=seconds)
 
 
+# --------------------------------------------------------------------------- #
+# phase 23: the (data, model) mesh at reddit_128 width, ranks on the card(s)
+# --------------------------------------------------------------------------- #
+
+MESH_VOCAB = 335_423          # Reddit: 335,420 items + [PAD], [MASK], [UNK]
+MESH_PAD_TO = 1024            # -> 335,872 rows: 167,936 a shard at 'model' 2
+MESH_SHAPE = (1, 2)           # (data, model)
+MESH_STEPS = 3                # train() steps held against one process
+MESH_TIMED_STEPS = 5
+MESH_EVAL_ROWS = 512          # leave-one-out rows of the evaluation
+MESH_TOPK_ROWS = 32
+MESH_TOL = {"loss": 1e-5, "grad": 1e-4, "table": 1e-5, "metric": 1e-6}
+MESH_COUNTERS = ("sharded.launches", "sharded.merged_launches",
+                 "sharded.two_sweep_launches", "tiled.launches",
+                 "layer.tf32_launches", "layer.tf32_backward_launches")
+
+
+def mesh_counters(reset=False) -> dict:
+    """The launch counters of the sharded loss (K5's stats entry, K6, K7),
+    the unsharded tiled loss and the fp32 layer; with ``reset`` set to 0
+    first."""
+    from bert4rec_tpu_torch.ops import fused_encoder_layer as fel
+    from bert4rec_tpu_torch.ops import fused_mlm_loss as fml
+    from bert4rec_tpu_torch.ops import sharded_mlm_loss as sml
+    owners = {"sharded": sml.sharded_fused_mlm_loss,
+              "tiled": fml.fused_mlm_loss_tiled,
+              "layer": fel.fused_encoder_layer}
+    out = {}
+    for key in MESH_COUNTERS:
+        owner, attr = key.split(".")
+        if reset:
+            setattr(owners[owner], attr, 0)
+        out[key] = getattr(owners[owner], attr)
+    return out
+
+
+def mesh_model(torch):
+    """reddit_128 at its full width, the Reddit oracle preset's fp32, the
+    vocabulary padded to a multiple of 1,024, dropout 0 (parity)."""
+    from bert4rec_tpu_torch.config import load_train_config
+    from bert4rec_tpu_torch.core.dtypes import DTypePolicy
+    from bert4rec_tpu_torch.models import BERT4RecModel
+    config = load_train_config(
+        "reddit_128", vocab_size=MESH_VOCAB, vocab_pad_to=MESH_PAD_TO,
+        attention_dropout=0.0, output_dropout=0.0, use_fused_layer=True,
+        use_fused_loss=True)
+    return BERT4RecModel(config=config, dtype_policy=DTypePolicy.f32())
+
+
+def mesh_trainer(torch, device, mesh=None):
+    """A trainer of ``mesh_model`` from seed 0 (on a mesh: this rank's
+    pieces of the same params)."""
+    from bert4rec_tpu_torch.trainers import BERT4RecTrainer, optimizers
+    model = mesh_model(torch)
+    trainer = BERT4RecTrainer(model, mesh=mesh)
+    trainer.initialize_model(
+        optimizer=optimizers.create_adam_w_optimizer(init_lr=1e-3,
+                                                     num_warmup_steps=1),
+        params=model.init(torch.Generator().manual_seed(SEED), device),
+        seed=SEED, device=device)
+    return trainer
+
+
+class MeshBatches:
+    """train()'s dataset contract: one Reddit-vocabulary batch per call,
+    seeded by the epoch; on a mesh this rank's 'data' slice of it."""
+
+    def __init__(self, mesh=None):
+        self.mesh = mesh
+
+    def batches(self, batch_size, shuffle=True, seed=None,
+                drop_remainder=False, pad_final_batch=False):
+        from bert4rec_tpu_torch.core import partitioning
+        batch = make_batch(500 + (seed or 0), batch_size, vocab=MESH_VOCAB)
+        if self.mesh is not None:
+            batch = partitioning.global_slice(self.mesh, batch)
+        yield batch
+
+
+def mesh_loss_inputs(torch, device):
+    """One train batch's rows (B x P = 10,240, W=128) against the padded
+    Reddit table, fp32, labels with pads, label 0 and a shard boundary."""
+    import numpy as np
+    rng = np.random.default_rng(SEED + 23)
+    vp = -(-MESH_VOCAB // MESH_PAD_TO) * MESH_PAD_TO
+    gen = torch.Generator().manual_seed(SEED + 23)
+    hidden = torch.randn((N_ROWS, HIDDEN), generator=gen).to(device)
+    table = (torch.randn((vp, HIDDEN), generator=gen) * 0.1).to(device)
+    bias = torch.randn((vp,), generator=gen).to(device)
+    lab = rng.integers(3, MESH_VOCAB, size=N_ROWS).astype(np.int32)
+    lab[::9] = 0
+    lab[1], lab[2] = vp // 2, vp // 2 - 1   # the first row of shard 1, the
+    return hidden, table, bias, torch.from_numpy(lab).to(device)  # last of 0
+
+
+def mesh_eval_data():
+    """Leave-one-out test sequences over the Reddit vocabulary and the
+    sampler's source."""
+    import numpy as np
+    from bert4rec_tpu_torch.dataloaders.processed_dataset import (
+        MaskingConfig, ProcessedDataset,
+    )
+    rng = np.random.default_rng(SEED + 24)
+    seqs = [rng.integers(3, MESH_VOCAB, size=int(rng.integers(20, SEQ)))
+            .astype(np.int32) for _ in range(MESH_EVAL_ROWS)]
+    cfg = MaskingConfig(max_seq_len=SEQ, max_predictions_per_seq=40,
+                        mask_token_id=1, pad_token_id=0, unk_token_id=2,
+                        masked_lm_rate=0.2)
+    ds = ProcessedDataset(seqs, cfg, lambda: MESH_VOCAB,
+                          finetuning=np.full(len(seqs), True))
+    return ds, [int(t) for s in seqs for t in s]
+
+
+def mesh_evaluate(torch, model, params, mesh=None) -> dict:
+    """The sampled 101-candidate protocol (device negatives, seed 7) and the
+    full catalog, as ``{"sampled/...": x, "full/...": x}``."""
+    from bert4rec_tpu_torch.dataloaders import samplers
+    from bert4rec_tpu_torch.evaluation import BERT4RecEvaluator
+    ds, source = mesh_eval_data()
+    if mesh is not None:
+        ds = ds.shard_for_process(mesh=mesh)
+    sampler = samplers.get("pop_random", source=source,
+                           vocab=list(dict.fromkeys(source)),
+                           sample_size=100, seed=EVAL_SEED)
+    out = {}
+    for name, ev in (("sampled", BERT4RecEvaluator(
+            sampler=sampler, sample_size=100, seed=EVAL_SEED, mesh=mesh)),
+            ("full", BERT4RecEvaluator(full_ranking=True, mesh=mesh))):
+        with torch.no_grad():
+            got = ev.evaluate(model, params, ds, batch_size=128,
+                              progress_bar=False)
+        out.update({f"{name}/{k}": v for k, v in got.items()})
+    return out
+
+
+def mesh_probe_batch(torch, device, rows):
+    """A batch of ``rows`` Reddit-vocabulary rows with its exclusion rows
+    (the special tokens)."""
+    import numpy as np
+    b = make_batch(900, rows, npred=8, vocab=MESH_VOCAB)
+    inputs = {k: torch.from_numpy(b[k]).to(device)
+              for k in ("input_word_ids", "input_mask",
+                        "masked_lm_positions")}
+    excl = torch.from_numpy(np.tile(np.int32([0, 1, 2, -1]), (rows, 1))) \
+        .to(device)
+    return inputs, excl
+
+
+def one_at_a_time(mesh, fn):
+    """``fn()`` on each rank in turn (the others wait), so a time taken on
+    a card that ranks share is not shared with another rank's work."""
+    from bert4rec_tpu_torch.core import mesh as mesh_lib
+    out = None
+    for r in range(mesh.size("data") * mesh.size("model")):
+        if mesh.rank == r:
+            out = fn()
+        mesh_lib.barrier(mesh)
+    return out
+
+
+def mesh_rank(mesh, out):
+    """One rank of phase 23 (run by ``tools/mesh_run.py``): the sharded loss
+    against the one-process loss and its kernels against their plain
+    versions at the shard's shape; ``train()``; top-k, the evaluations and
+    a checkpoint on the mesh. Returns what the main process compares."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from bert4rec_tpu_torch.core import mesh as mesh_lib
+    from bert4rec_tpu_torch.core import partitioning
+    from bert4rec_tpu_torch.ops import fused_mlm_loss as fml
+    from bert4rec_tpu_torch.ops import sharded_mlm_loss as sml
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out, dev = pathlib.Path(out), mesh.device
+    res = {}
+
+    # (1) the sharded loss and its gradients against the one-process loss
+    # on the whole table, the kernels' operands recorded as they launch
+    h, table, bias, lab = mesh_loss_inputs(torch, dev)
+    m, mp = mesh.index("model"), mesh.size("model")
+    vl = table.shape[0] // mp
+    rows = partitioning.global_slice(mesh, {"h": h, "lab": lab})
+    hs = rows["h"].clone().requires_grad_(True)
+    ts = table[m * vl:(m + 1) * vl].clone().requires_grad_(True)
+    bs = bias[m * vl:(m + 1) * vl].clone().requires_grad_(True)
+    calls = {}
+    launch = {"K5": fml._launch_forward_tiled_stats,
+              "K6": fml._launch_backward_tiled}
+
+    def recording(key):
+        def fn(*args, **kw):
+            calls[key] = (args, kw)
+            return launch[key](*args, **kw)
+        return fn
+
+    fml._launch_forward_tiled_stats = recording("K5")
+    fml._launch_backward_tiled = recording("K6")
+    try:
+        mesh_counters(reset=True)
+        loss, cv, ca, nv = sml.sharded_fused_mlm_loss(
+            hs, ts, bs, rows["lab"], MESH_VOCAB, mesh)
+        loss.backward()
+        path = mesh_counters()
+    finally:
+        fml._launch_forward_tiled_stats = launch["K5"]
+        fml._launch_backward_tiled = launch["K6"]
+    if not (path["sharded.launches"] == path["sharded.merged_launches"] == 1
+            and calls["K6"][0][7] is True
+            and calls["K6"][1] == {"valid_ge_zero": True}):
+        raise AssertionError(f"rank {mesh.rank}: the sharded loss launched "
+                             f"{path} (want K5's stats entry and K6 with "
+                             f"valid_ge_zero once each)")
+    hw, tw, bw = (x.clone().requires_grad_(True) for x in (h, table, bias))
+    want = fml.fused_mlm_loss_tiled(hw, tw, bw, lab, MESH_VOCAB)
+    want[0].backward()
+    dh_want = partitioning.global_slice(mesh, {"g": hw.grad})["g"]
+    res["loss_err"] = abs(float(loss) - float(want[0])) / abs(float(want[0]))
+    res["counts_equal"] = all(float(a) == float(b) for a, b in
+                              zip((cv, ca, nv), want[1:]))
+    res["grad_err"] = max(
+        rel_err(hs.grad, dh_want),
+        rel_err(ts.grad, tw.grad[m * vl:(m + 1) * vl]),
+        rel_err(bs.grad, bw.grad[m * vl:(m + 1) * vl]))
+    del hw, tw, bw, want, dh_want
+    torch.cuda.empty_cache()
+
+    # (2) this shard's K5 stats and K6 (valid_ge_zero) launches against
+    # their plain versions on the recorded operands, each rank in turn
+    def kernel_rows():
+        (k5_args, _), (k6_args, k6_kw) = calls["K5"], calls["K6"]
+        th, tt, tb, tlab = k5_args
+        plain_fwd, plain_stats, _ = plain_tiled(torch, fml, th, tt, tb, tlab)
+        _, _, plain_bwd = plain_tiled(torch, fml, *k6_args[:4])
+        stats_fn = lambda: launch["K5"](*k5_args)  # noqa: E731
+        bwd_fn = lambda: launch["K6"](*k6_args, **k6_kw)  # noqa: E731
+        got, ref = stats_fn(), plain_stats()
+        err5 = max(rel_err(a, c) for a, c in zip(got, ref))
+        lse, g, nvalid = k6_args[4:7]
+        got6 = bwd_fn()
+        ref6 = plain_bwd(lse, g, nvalid[0], valid_ge_zero=True)
+        err6 = max(rel_err(a, c) for a, c in zip(got6, ref6))
+        abs6 = max(float((a - c).abs().max()) for a, c in zip(got6, ref6))
+        if not (err5 <= LOSS_FWD_TOL and err6 <= LOSS_TOL["float32"]):
+            raise AssertionError(f"rank {mesh.rank}: shard kernels against "
+                                 f"plain: K5 stats {err5}, K6 {err6}")
+        del got6, ref6
+        r_, v_, w_ = th.shape[0], tt.shape[0], tt.shape[1]
+        hl, tl, bl = (x.detach().clone().requires_grad_(True)
+                      for x in (th, tt, tb))
+        lib_lab = tlab.long().clamp(min=0)
+
+        def lib_fwd():
+            logits = torch.matmul(hl, tl.T) + bl
+            return F.cross_entropy(logits, lib_lab)
+
+        lib_loss = lib_fwd()
+        it = dict(iters=3, warmup=1)
+        out_rows = {
+            "K5": dict(max_abs_err=max(float((a - c).abs().max())
+                                       for a, c in zip(got, ref)),
+                       max_rel_err=err5, **blocks(stats_fn, **it),
+                       plain_ms=time_ms(plain_stats, iters=2, warmup=1),
+                       **blocks(lib_fwd, "library", **it),
+                       **dict(zip(("bound_ms", "bound_by"), loss_bound_ms(
+                           r_, v_, w_, "float32", False, TF32X3_FLOPS)))),
+            "K6": dict(max_abs_err=abs6, max_rel_err=err6,
+                       **blocks(bwd_fn, **it),
+                       plain_ms=time_ms(lambda: plain_bwd(
+                           lse, g, nvalid[0], valid_ge_zero=True),
+                           iters=2, warmup=1),
+                       **blocks(lambda: torch.autograd.grad(
+                           lib_loss, (hl, tl, bl), retain_graph=True),
+                           "library", **it),
+                       **dict(zip(("bound_ms", "bound_by"), loss_bound_ms(
+                           r_, v_, w_, "float32", True, TF32X3_FLOPS))))}
+        del lib_loss, hl, tl, bl
+        torch.cuda.empty_cache()
+        return out_rows
+
+    rows_k = one_at_a_time(mesh, kernel_rows)
+    for k, row in rows_k.items():
+        res.update({f"{k}/{key}": (np.asarray(v, dtype=np.float64)
+                                   if key != "bound_by" else np.asarray(v))
+                    for key, v in row.items()})
+    res["shard_shape"] = np.asarray([calls["K5"][0][0].shape[0],
+                                     calls["K5"][0][1].shape[0], HIDDEN])
+    del calls, h, table, bias, lab, hs, ts, bs, rows
+    torch.cuda.empty_cache()
+
+    # (3) train(): MESH_STEPS steps, the launches by route counted
+    trainer = mesh_trainer(torch, dev, mesh)
+    mesh_counters(reset=True)
+    hist = trainer.train(MeshBatches(mesh), epochs=MESH_STEPS,
+                         batch_size=STREAM_BATCH, steps_per_epoch=1,
+                         verbose=False)
+    torch.cuda.synchronize()
+    res.update({f"counts/{k}": v for k, v in mesh_counters().items()})
+    res["losses"] = np.asarray(hist.history["loss"])
+    whole = trainer.gathered_params()
+    if mesh.rank == 0:
+        emb = whole["encoder"]["item_embeddings"]["embedding"]
+        np.save(out / "mesh_table.npy", emb.detach().cpu().numpy())
+    del whole
+    # the step's wall, every rank synchronised (card and barrier) around it
+    batch = trainer._put_batch(next(MeshBatches(mesh).batches(
+        STREAM_BATCH, seed=0)))
+    walls = []
+    for _ in range(MESH_TIMED_STEPS + 1):
+        torch.cuda.synchronize()
+        mesh_lib.barrier(mesh)
+        t0 = time.perf_counter()
+        trainer.train_step(batch)
+        torch.cuda.synchronize()
+        mesh_lib.barrier(mesh)
+        walls.append((time.perf_counter() - t0) * 1e3)
+    res["step_ms"] = float(np.median(walls[1:]))
+    # the step's two largest all_reduces alone, over 'model': the
+    # lookup's sum ([B, S, H] fp32) and the loss's dh ([B x P, W])
+    for name, shape in (("lookup", (STREAM_BATCH, SEQ, HIDDEN)),
+                        ("dh", (N_ROWS, HIDDEN))):
+        x = torch.ones(shape, device=dev)
+        walls = []
+        for _ in range(MESH_TIMED_STEPS + 1):
+            torch.cuda.synchronize()
+            mesh_lib.barrier(mesh)
+            t0 = time.perf_counter()
+            mesh_lib.all_reduce(mesh, x, "model")
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        res[f"all_reduce_ms/{name}"] = float(np.median(walls[1:]))
+    trainer.save_checkpoint(out / "mesh_ckpt.npz")
+    probe, _ = mesh_probe_batch(torch, dev, 2)
+    with torch.no_grad():
+        res["ckpt_logits"] = trainer.model.apply(
+            trainer.params, probe, mesh=mesh)["mlm_logits"]
+    del trainer, batch
+    torch.cuda.empty_cache()
+
+    # (4) top-k and the evaluations on the seed's params (the one-process
+    # run computes them from the same bits)
+    model = mesh_model(torch)
+    params = partitioning.shard_state(mesh, model.init(
+        torch.Generator().manual_seed(SEED), dev))
+    inputs, excl = mesh_probe_batch(torch, dev, MESH_TOPK_ROWS)
+    with torch.no_grad():
+        ids, vals = model.rank_top_k(params, inputs, 10, mesh=mesh,
+                                     exclude=excl)
+    res.update(topk_ids=ids, topk_vals=vals)
+    res.update(mesh_evaluate(torch, model, params, mesh))
+    return res
+
+
+def check_mesh(torch, device):
+    """Phase 23: ``MESH_SHAPE`` ranks (gloo on one card; NCCL where every
+    rank has its own) at reddit_128 width through ``tools/mesh_run.py``,
+    each running :func:`mesh_rank`; here the one-process run of the same
+    trainer, top-k, evaluations and the sharded checkpoint reloaded.
+    Returns the sharded kernels' rows and their launches."""
+    import numpy as np
+    from bert4rec_tpu_torch.tools import mesh_run
+    t_phase = time.perf_counter()
+    dp, mp = MESH_SHAPE
+    world = dp * mp
+    out = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_mesh_"))
+    try:
+        records = mesh_run.launch(
+            [f"{pathlib.Path(__file__).resolve()}:mesh_rank"], data=dp,
+            model=mp, device="cuda", out=out, timeout=600)
+        ranks = mesh_run.load(out, "mesh_rank", world)
+        for rec in records:
+            print(f"mesh rank {rec['rank']} {rec['coords']} on "
+                  f"{rec['device']} ({rec['backend']}): "
+                  f"{rec['seconds']['mesh_rank']:.1f} s", flush=True)
+        for r, x in enumerate(ranks):
+            print(f"mesh rank {r}: sharded loss rel err "
+                  f"{float(x['loss_err']):.3g} (tol {MESH_TOL['loss']}), "
+                  f"counts equal {bool(x['counts_equal'])}, gradients "
+                  f"{float(x['grad_err']):.3g} of their scale (tol "
+                  f"{MESH_TOL['grad']}) against the one-process loss at "
+                  f"R={N_ROWS}, V={MESH_VOCAB}", flush=True)
+            if not (float(x["loss_err"]) <= MESH_TOL["loss"]
+                    and bool(x["counts_equal"])
+                    and float(x["grad_err"]) <= MESH_TOL["grad"]):
+                raise AssertionError(f"mesh rank {r}: the sharded loss "
+                                     f"against one process failed")
+            for k in ("K5", "K6"):
+                row = {key.split("/", 1)[1]: (str(v) if key.endswith(
+                    "bound_by") else v.tolist() if v.ndim else float(v))
+                    for key, v in x.items() if key.startswith(k + "/")}
+                print(f"mesh rank {r} {k}"
+                      f"{' stats' if k == 'K5' else ' valid_ge_zero'} at the "
+                      f"shard's shape {x['shard_shape'].tolist()}: rel err "
+                      f"{row['max_rel_err']:.3g} {timing_text(row)}",
+                      flush=True)
+            print(f"mesh rank {r} train() launches: "
+                  + ", ".join(f"{k.split('/', 1)[1]} {int(v)}"
+                              for k, v in x.items()
+                              if k.startswith("counts/")), flush=True)
+            want_n = MESH_STEPS
+            if not (int(x["counts/sharded.launches"]) == want_n
+                    and int(x["counts/sharded.merged_launches"]) == want_n
+                    and int(x["counts/sharded.two_sweep_launches"]) == 0
+                    and int(x["counts/tiled.launches"]) == 0
+                    and int(x["counts/layer.tf32_launches"]) == 2 * want_n):
+                raise AssertionError(f"mesh rank {r}: train() did not run "
+                                     f"the sharded kernels once a step")
+
+        # the one-process run: train() on the same global batches
+        one = mesh_trainer(torch, device)
+        hist = one.train(MeshBatches(), epochs=MESH_STEPS,
+                         batch_size=STREAM_BATCH, steps_per_epoch=1,
+                         verbose=False)
+        want = np.asarray(hist.history["loss"])
+        table = np.load(out / "mesh_table.npy")
+        ref_table = one.params["encoder"]["item_embeddings"]["embedding"] \
+            .detach().cpu().numpy()
+        table_err = float(np.abs(table - ref_table).max()
+                          / np.abs(ref_table).max())
+        moved = float(np.abs(ref_table - mesh_model(torch).init(
+            torch.Generator().manual_seed(SEED), "cpu")["encoder"][
+                "item_embeddings"]["embedding"].numpy()).max())
+        for r, x in enumerate(ranks):
+            err = float(np.abs(x["losses"] - want).max() / np.abs(want).max())
+            print(f"mesh rank {r}: {MESH_STEPS} train() steps' losses "
+                  f"{x['losses'].tolist()} against one process's "
+                  f"{want.tolist()}: rel err {err:.3g} (tol "
+                  f"{MESH_TOL['loss']})", flush=True)
+            if not err <= MESH_TOL["loss"]:
+                raise AssertionError(f"mesh rank {r}: step losses differ")
+        print(f"mesh: the gathered table after {MESH_STEPS} steps is "
+              f"{table_err:.3g} of its scale from one process's (tol "
+              f"{MESH_TOL['table']}; the steps moved it by {moved:.3g})",
+              flush=True)
+        if not (table_err <= MESH_TOL["table"] and moved > 1e-4):
+            raise AssertionError("mesh: the gathered table differs")
+        batch = one._put_batch(next(MeshBatches().batches(STREAM_BATCH,
+                                                          seed=0)))
+        walls = []
+        for _ in range(MESH_TIMED_STEPS + 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            one.train_step(batch)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        one_ms = float(np.median(walls[1:]))
+        card = card_line()
+        print(f"mesh step at reddit_128 width (fp32, B={STREAM_BATCH}, P=40): "
+              f"{world} ranks {[round(float(x['step_ms']), 3) for x in ranks]}"
+              f" ms (median of {MESH_TIMED_STEPS} synchronised steps), one "
+              f"process {one_ms:.3f} ms, on {card}; {world} ranks on one card "
+              f"measure correctness and overhead, not scaling"
+              if torch.cuda.device_count() < world else
+              f"mesh step: {world} ranks "
+              f"{[round(float(x['step_ms']), 3) for x in ranks]} ms, one "
+              f"process {one_ms:.3f} ms, on {card}", flush=True)
+        print(f"mesh all_reduce over 'model' alone "
+              f"({records[0]['backend']}): " + ", ".join(
+                  f"{k.split('/')[1]} {float(v):.3f} ms"
+                  for k, v in ranks[0].items()
+                  if k.startswith("all_reduce_ms/"))
+              + f" (median of {MESH_TIMED_STEPS}, every rank synchronised)",
+              flush=True)
+        del one, batch
+        torch.cuda.empty_cache()
+
+        # the checkpoint the sharded run wrote, in one process
+        again = mesh_trainer(torch, device)
+        again.load_checkpoint(out / "mesh_ckpt.npz")
+        probe, excl = mesh_probe_batch(torch, device, 2)
+        with torch.no_grad():
+            logits = again.model.apply(again.params, probe)["mlm_logits"]
+        ckpt_err = float((logits.cpu() - torch.from_numpy(
+            ranks[0]["ckpt_logits"])).abs().max())
+        print(f"mesh: the sharded run's checkpoint (step "
+              f"{again.state['step']}) in one process: logits within "
+              f"{ckpt_err:.3g} of the mesh's (tol {TOL['float32']})",
+              flush=True)
+        if not (ckpt_err <= TOL["float32"]
+                and again.state["step"] == MESH_STEPS + MESH_TIMED_STEPS + 1):
+            raise AssertionError("mesh: the checkpoint's logits differ")
+        del again
+        torch.cuda.empty_cache()
+
+        # top-k and the evaluations on the seed's params
+        model = mesh_model(torch)
+        params = model.init(torch.Generator().manual_seed(SEED), device)
+        inputs, excl = mesh_probe_batch(torch, device, MESH_TOPK_ROWS)
+        with torch.no_grad():
+            want_topk = model.rank_top_k(params, inputs, 10, exclude=excl)
+        metrics = mesh_evaluate(torch, model, params)
+        for r, x in enumerate(ranks):
+            held, err = check_topk_close(
+                torch, (torch.from_numpy(x["topk_ids"]),
+                        torch.from_numpy(x["topk_vals"])),
+                want_topk, f"mesh rank {r} rank_top_k")
+            diff = {k: abs(float(x[k]) - v) for k, v in metrics.items()}
+            print(f"mesh rank {r}: rank_top_k {held} ranks held id for id, "
+                  f"scores within {err:.3g}; evaluation (sampled and full "
+                  f"catalog, {int(metrics['full/Valid Ranks'])} positions) "
+                  f"largest metric difference {max(diff.values()):.3g}",
+                  flush=True)
+            bad = {k: d for k, d in diff.items()
+                   if d > MESH_TOL["metric"] * max(abs(metrics[k]), 1.0)}
+            if bad:
+                raise AssertionError(f"mesh rank {r}: metrics differ {bad}")
+        print(f"mesh evaluation: {json.dumps(metrics)}", flush=True)
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    seconds = time.perf_counter() - t_phase
+    print(f"mesh phase: {seconds:.1f} s", flush=True)
+
+    def row(k):
+        x = ranks[0]
+        return {key.split("/", 1)[1]: (str(v) if key.endswith("bound_by")
+                                       else float(v) if not v.ndim
+                                       else v.tolist())
+                for key, v in x.items() if key.startswith(k + "/")}
+
+    total = {k: sum(int(x[f"counts/{k}"]) for x in ranks)
+             for k in ("sharded.launches", "sharded.merged_launches")}
+    return {"K5": row("K5"), "K6": row("K6"), "launches": total,
+            "seconds": seconds}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3598,6 +4141,10 @@ def run(torch, home) -> int:
     torch.cuda.empty_cache()
     # phase 22: the deployment surface (fp32 K1 through exported programs)
     deployed = check_deployment(torch, device)
+    torch.cuda.empty_cache()
+    # phase 23: the (data, model) mesh at reddit_128 width (fp32 K5's
+    # stats entry and K6 with valid_ge_zero on each vocab shard)
+    meshed = check_mesh(torch, device)
 
     def entry(name, source, replaces, n, row):
         return {"name": name, "route": "cuda",
@@ -3728,6 +4275,15 @@ def run(torch, home) -> int:
         entry("fused_encoder_layer_rel_backward", wgmma_src,
               "bert4rec_tpu/ops/fused_encoder_layer.py:315",
               c_temp["rel_bwd"], rel_row["bwd"]),
+        # the vocab-sharded loss (phase 23): fp32 K5's stats entry and K6
+        # with valid_ge_zero on each rank's block of the Reddit table;
+        # launches from the ranks' train() runs, times at rank 0's shard
+        entry("fused_mlm_loss_tiled_stats_sharded_fp32", "loss_tf32.cuh",
+              f"{loss_py}:375", meshed["launches"]["sharded.launches"],
+              meshed["K5"]),
+        entry("fused_mlm_loss_tiled_backward_merged_sharded_fp32",
+              "loss_tf32.cuh", f"{loss_py}:502",
+              meshed["launches"]["sharded.merged_launches"], meshed["K6"]),
     ]}
     idle = [k["name"] for k in record["kernels"] if not k["launches"]]
     if idle:

@@ -340,8 +340,19 @@ class TestDeviceNegatives:
 class TestEvaluatorSurface:
 
     def test_mesh_raises(self):
-        with pytest.raises(NotImplementedError, match=r"queue A\.5"):
+        """A port mesh is taken (one rank here: the same metrics as without
+        it); anything else raises a TypeError naming it."""
+        from bert4rec_tpu_torch.core import create_mesh
+        with pytest.raises(TypeError, match="BERT4RecEvaluator.*object"):
             BERT4RecEvaluator(mesh=object())
+        seqs = eval_sequences(2)
+        ours_ds, _ = datasets(seqs, "mlm")
+        _, _, model, params = models("bert4rec", seed=4)
+        mesh = create_mesh(device="cpu")
+        runs = [BERT4RecEvaluator(full_ranking=True, mesh=m).evaluate(
+            model, params, ours_ds, batch_size=16, progress_bar=False)
+            for m in (None, mesh)]
+        assert runs[0] == runs[1] and runs[0]["Valid Ranks"] == len(seqs)
 
     def test_device_negatives_true_needs_an_int_vocab(self):
         seqs = eval_sequences(7, n=8)

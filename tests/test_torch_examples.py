@@ -1,12 +1,16 @@
 """The port's example flows (``bert4rec_tpu_torch/examples``) run end to
 end on the CPU as ``python -m`` scripts with ``--device cpu``, as
 ``tests/test_examples.py`` runs the JAX package's: save / load and a
-resumed training run, the Ranker app, and the serving export (fp32 and
-int8 artifacts, an ``ArtifactRecommender`` behind the service)."""
+resumed training run, the Ranker app, the serving export (fp32 and
+int8 artifacts, an ``ArtifactRecommender`` behind the service), and the
+multi-process training and sharded ranking on two gloo CPU ranks."""
 
 import pathlib
 import subprocess
 import sys
+
+import numpy as np
+import pytest
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 
@@ -48,3 +52,37 @@ def test_serving_export(tmp_path):
     recommended = eval(out.split("recommended: ", 1)[1].splitlines()[0])
     assert len(recommended) == 3 and all(
         r.startswith("Synthetic Feature No.") for r in recommended)
+
+
+@pytest.mark.parametrize("mp", [1, 2])
+def test_multihost_example(tmp_path, mp):
+    """Two gloo ranks train on their 'data' slices ((2, 1)) or share one
+    slice over a vocab-sharded table ((1, 2)): every rank reports the same
+    global loss."""
+    out = run("multihost_example", "--ranks", "2", "--model-parallelism",
+              str(mp), "--sequences", "64", "--batch-size", "16",
+              "--epochs", "1", "--hidden", "32", "--vocab-size", "200",
+              "--out", str(tmp_path))
+    shape = {"data": 2 // mp, "model": mp}
+    assert out.count(f"mesh {shape}") == 2
+    losses = [ln for ln in out.splitlines() if ln.startswith("final loss")]
+    assert len(losses) == 2 and losses[0] == losses[1]
+    rows = [int(np.load(tmp_path / f"train.rank{r}.npz")["rows"])
+            for r in range(2)]
+    assert rows == [64, 64]
+
+
+def test_sharded_ranking_example(tmp_path):
+    """rank_top_k over two vocab shards gives the dense ranking's top-k,
+    as tests/test_end_to_end.py asserts for JAX."""
+    out = run("sharded_ranking_example", "--ranks", "2", "--vocab-size",
+              "5000", "--hidden", "32", "--seq", "16", "--out",
+              str(tmp_path))
+    assert out.count("table block (2560, 32) of 5120 rows") == 2
+    for r in range(2):
+        res = np.load(tmp_path / f"rank.rank{r}.npz")
+        np.testing.assert_array_equal(res["top_ids"], res["dense_ids"])
+        np.testing.assert_allclose(res["top_probs"], res["dense_probs"],
+                                   rtol=1e-5)
+        assert res["top_ids"].shape == (4, 2, 10)
+        assert not np.isin(res["top_ids"], [0, 1, 2]).any()

@@ -34,7 +34,8 @@ def test_no_module_imports_jax_or_the_jax_package():
         print(len(names), bad)
         assert len(names) >= 30 and not bad, bad
         # the host pipeline's, SASRec's, evaluation's, the quality
-        # harness's and the deployment surface's modules are among them,
+        # harness's, the deployment surface's and the multi-GPU layout's
+        # modules are among them,
         # and importing them builds nothing (the masking engine compiles
         # at first use)
         for mod in ("datasets.ml_20m", "datasets.reddit",
@@ -51,7 +52,11 @@ def test_no_module_imports_jax_or_the_jax_package():
                     "evaluation.quality_harness", "tools.quality_run",
                     "models.export", "models.quantization", "apps.ranker",
                     "utils.profiling", "examples.save_and_load",
-                    "examples.ranker_app", "examples.serving_export"):
+                    "examples.ranker_app", "examples.serving_export",
+                    "core.mesh", "core.partitioning",
+                    "ops.sharded_mlm_loss", "tools.mesh_run",
+                    "examples.multihost_example",
+                    "examples.sharded_ranking_example"):
             assert "bert4rec_tpu_torch." + mod in names, mod
         from bert4rec_tpu_torch.dataloaders import native
         assert native._lib is None
@@ -123,3 +128,10 @@ def test_chip_smoke_fails_without_cuda():
          "import chip_smoke; sys.exit(chip_smoke.main())"],
         capture_output=True, text=True, timeout=120)
     assert out.returncode != 0 and '"ok"' not in out.stdout
+
+
+def test_mesh_defaults_to_the_card(no_cuda):
+    from bert4rec_tpu_torch.core import create_mesh
+    with pytest.raises(RuntimeError, match="CUDA"):
+        create_mesh()
+    assert create_mesh(device="cpu").device.type == "cpu"

@@ -210,7 +210,8 @@ class TestScorers:
             np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
     def test_dense_rank_path_refuses_catalog_scale(self, markov_pair):
-        scorer = mo.MarkovOracleScorer(markov_pair[0], device="cpu")
+        cat = markov_pair[0]
+        scorer = mo.MarkovOracleScorer(cat, device="cpu")
         scorer._vocab = mo.MarkovOracleScorer.DENSE_VOCAB_LIMIT + 1
         batch, _ = scoring_batch(markov_pair[0], 3)
         with pytest.raises(ValueError, match="DENSE_VOCAB_LIMIT"):
@@ -355,10 +356,22 @@ class TestEvaluateScorer:
         assert abs(device["HR@10"] - host["HR@10"]) <= 0.06
 
     def test_mesh_raises(self, markov_pair):
-        with pytest.raises(NotImplementedError, match="A.5"):
-            mo.evaluate_scorer(mo.MarkovOracleScorer(markov_pair[0],
-                                                     device="cpu"),
-                               None, [], source=[3, 4], mesh=object())
+        """``evaluate_scorer`` takes a port mesh (one rank here: the
+        metrics without it) and names anything else in a TypeError."""
+        from bert4rec_tpu_torch.core import create_mesh
+        cat = markov_pair[0]
+        scorer = mo.MarkovOracleScorer(cat, device="cpu")
+        with pytest.raises(TypeError, match="BERT4RecEvaluator.*object"):
+            mo.evaluate_scorer(scorer, None, [], source=[3, 4],
+                               mesh=object())
+        ds, _ = loo_datasets(cat.sample_sequences(64, 12, SEQ, seed=66))
+        source = [int(t) for s in cat.sample_sequences(300, 12, SEQ,
+                                                       seed=64) for t in s]
+        kw = dict(source=source, sample_size=100, seed=0, batch_size=32)
+        plain = mo.evaluate_scorer(scorer, None, ds, **kw)
+        meshed = mo.evaluate_scorer(scorer, None, ds, **kw,
+                                    mesh=create_mesh(device="cpu"))
+        assert meshed == plain and plain["Valid Ranks"] == 64
 
 
 class TestEvaluatorWithoutParams:

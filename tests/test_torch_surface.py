@@ -66,7 +66,10 @@ class TestTrainerSurface:
         t = BERT4RecTrainer(model, None, 2, 1, 3)
         assert (t.mesh, t.steps_per_call, t.grad_accum_steps,
                 t.eval_steps_per_call) == (None, 2, 1, 3)
-        with pytest.raises(NotImplementedError, match="mesh"):
+        # a port mesh is taken (one rank here); anything else is named
+        mesh = core.create_mesh(device="cpu")
+        assert BERT4RecTrainer(model, mesh).mesh is mesh
+        with pytest.raises(TypeError, match="BERT4RecTrainer.*object"):
             BERT4RecTrainer(model, mesh=object())
         with pytest.raises(ValueError, match="mutually exclusive"):
             BERT4RecTrainer(model, None, 2, 2)
@@ -147,25 +150,21 @@ class TestConfigRoundTrips:
 
 class TestExports:
 
-    @pytest.mark.parametrize("port,jax_pkg,missing,extra", [
-        (utils, jax_utils, set(), set()),
-        (ops, jax_ops, set(), set()),
-        (models, jax_models, set(), set()),
-        (core, jax_core, {"MeshConfig", "create_mesh",
-                          "distributed_initialize", "batch_sharding",
-                          "replicated_sharding", "param_partition_specs",
-                          "param_shardings", "make_batch_specs"},
-         {"resolve_device"}),
-        (components, jax_components, set(), set()),
-        (apps, jax_apps, set(), set()),
+    @pytest.mark.parametrize("port,jax_pkg,extra", [
+        (utils, jax_utils, set()),
+        (ops, jax_ops, set()),
+        (models, jax_models, set()),
+        (core, jax_core, {"resolve_device"}),
+        (components, jax_components, set()),
+        (apps, jax_apps, set()),
     ], ids=["utils", "ops", "models", "core", "models.components", "apps"])
-    def test_package_exports_follow_jax(self, port, jax_pkg, missing, extra):
-        """Every JAX export is exported by the port, but the modules not
-        ported yet (ROADMAP.md, queue A: ``core``'s mesh and partitioning
-        names wait for A.5); ``core.resolve_device`` is the port's own.
-        ``utils``' profiling trio, ``models.export`` / ``quantization`` and
-        ``apps.Ranker`` / ``ArtifactRecommender`` are ported."""
-        assert set(port.__all__) == (set(jax_pkg.__all__) - missing) | extra
+    def test_package_exports_follow_jax(self, port, jax_pkg, extra):
+        """Every JAX export is exported by the port: ``core``'s mesh and
+        partitioning names (the multi-GPU layout), ``utils``' profiling
+        trio, ``models.export`` / ``quantization`` and ``apps.Ranker`` /
+        ``ArtifactRecommender``; ``core.resolve_device`` is the port's
+        own."""
+        assert set(port.__all__) == set(jax_pkg.__all__) | extra
         for name in port.__all__:
             assert getattr(port, name) is not None
 
