@@ -23,7 +23,7 @@ import datetime
 import inspect
 import logging
 import os
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 import torch.distributed as dist
@@ -164,16 +164,29 @@ def mesh_kwargs(fn, mesh) -> dict:
 
 
 def create_mesh(mesh_config: Optional[MeshConfig] = None,
-                device=None) -> Mesh:
+                devices: Optional[Sequence] = None, device=None) -> Mesh:
     """This rank's 2-D ``(data, model)`` mesh over the world's ranks (a
-    one-rank world without ``torch.distributed``). ``device`` defaults to
-    the rank's device from :func:`distributed_initialize`, else ``cuda``."""
+    one-rank world without ``torch.distributed``). ``devices`` (JAX's
+    argument) lists the world's devices, one a rank in rank order: this
+    rank runs on its entry, and a list whose length is not the world size
+    raises. Otherwise ``device`` (this rank's own) defaults to the rank's
+    device from :func:`distributed_initialize`, else ``cuda``."""
     from bert4rec_tpu_torch.core.device import resolve_device
     mesh_config = mesh_config or MeshConfig()
     if dist.is_initialized():
         world, rank = dist.get_world_size(), dist.get_rank()
     else:
         world, rank = 1, 0
+    if devices is not None:
+        devices = list(devices)
+        if device is not None:
+            raise ValueError("create_mesh takes devices (the world's) or "
+                             "device (this rank's), not both")
+        if len(devices) != world:
+            raise ValueError(f"devices lists {len(devices)} devices for a "
+                             f"world of {world} ranks: one a rank, in rank "
+                             f"order")
+        device = devices[rank]
     dp, mp = mesh_config.resolve(world)
     dev = resolve_device(device if device is not None
                          else (_DEVICE if _DEVICE is not None else "cuda"))

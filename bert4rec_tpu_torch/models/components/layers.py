@@ -15,18 +15,20 @@ LN_EPSILON = 1e-12  # reference LayerNorm epsilon
 
 
 def truncated_normal_init(generator: Optional[torch.Generator], shape,
-                          stddev: float, device="cpu") -> torch.Tensor:
+                          stddev: float, device="cpu",
+                          dtype=torch.float32) -> torch.Tensor:
     """TF-style TruncatedNormal: a standard normal cut at +-2 sigma, then
-    scaled (no variance correction). Sampled on the CPU from ``generator``
-    so a seed gives the same params on every device; ``device="meta"``
+    scaled (no variance correction). Sampled in fp32 on the CPU from
+    ``generator`` so a seed gives the same params on every device, then
+    cast to ``dtype`` and scaled there (JAX's order); ``device="meta"``
     gives shapes only (the load-time structure check)."""
     device = torch.device(device)
     if device.type == "meta":
-        return torch.empty(shape, dtype=torch.float32, device=device)
+        return torch.empty(shape, dtype=dtype, device=device)
     out = torch.empty(shape, dtype=torch.float32)
     torch.nn.init.trunc_normal_(out, 0.0, 1.0, -2.0, 2.0,
                                 generator=generator)
-    return (out * stddev).to(device)
+    return (out.to(dtype) * stddev).to(device)
 
 
 # --------------------------------------------------------------------------- #
@@ -54,14 +56,15 @@ def dense(params: dict, x: torch.Tensor,
 # dropout
 # --------------------------------------------------------------------------- #
 
-def dropout(x: torch.Tensor, rate: float,
-            seed: Optional[int] = None) -> torch.Tensor:
+def dropout(x: torch.Tensor, rate: float, seed: Optional[int] = None,
+            training: bool = True) -> torch.Tensor:
     """Inverted dropout (the JAX ``dropout``): each element is kept with
     probability ``1 - rate`` and divided by it. The mask is drawn from a
     ``torch.Generator`` on ``x``'s device seeded with ``seed``, so a seed
-    gives the same mask on every call; identity when ``seed`` is None or
-    ``rate`` is 0 (no seed means no dropout, as no rng does in JAX)."""
-    if seed is None or rate <= 0.0:
+    gives the same mask on every call; identity when not ``training``,
+    when ``seed`` is None or when ``rate`` is 0 (no seed means no dropout,
+    as no rng does in JAX). JAX's order is ``(rng, x, rate, training)``."""
+    if not training or seed is None or rate <= 0.0:
         return x
     keep = 1.0 - rate
     gen = torch.Generator(device=x.device).manual_seed(int(seed))

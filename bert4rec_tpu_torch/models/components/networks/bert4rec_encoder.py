@@ -298,7 +298,8 @@ class Bert4RecEncoder:
                                         causal=causal, rel_bias=rel)
             else:
                 block = functools.partial(
-                    transformer_block, inner_activation=act,
+                    transformer_block, num_heads=cfg.num_attention_heads,
+                    inner_activation=act,
                     norm_first=cfg.norm_first, compute_dtype=compute_dtype,
                     output_dropout=cfg.output_dropout,
                     attention_dropout=cfg.attention_dropout,

@@ -119,19 +119,26 @@ def _attention(params: dict, x: torch.Tensor, attn_bias: torch.Tensor,
 
 
 def transformer_block(params: dict, x: torch.Tensor, attn_bias: torch.Tensor,
-                      *, inner_activation, norm_first: bool = False,
+                      *, num_heads: Optional[int] = None, inner_activation,
+                      norm_first: bool = False,
                       compute_dtype=torch.float32,
-                      output_dropout: float = 0.0,
-                      attention_dropout: float = 0.0,
+                      output_dropout: float = 0.1,
+                      attention_dropout: float = 0.1,
                       seed: Optional[int] = None,
                       training: bool = False,
                       query_range: Optional[int] = None,
                       use_flash: bool = False,
                       input_mask: Optional[torch.Tensor] = None,
                       causal: bool = False) -> torch.Tensor:
-    """One block; dropout only when ``training`` and ``seed`` is given.
-    With ``query_range`` the output holds the first ``query_range``
-    positions only."""
+    """One block; dropout only when ``training`` and ``seed`` is given,
+    at JAX's default rates (0.1 / 0.1). ``num_heads`` (JAX's keyword)
+    must agree with the heads of the qkv kernel ``[H, 3, N, D]``, which
+    the port reads the count from. With ``query_range`` the output holds
+    the first ``query_range`` positions only."""
+    heads = params["attention"]["qkv"]["kernel"].shape[2]
+    if num_heads is not None and num_heads != heads:
+        raise ValueError(f"num_heads={num_heads}, but the block's qkv "
+                         f"kernel holds {heads} heads")
     seeds = ([fold_in(seed, i) for i in range(3)]
              if training and seed is not None else [None] * 3)
     residual = x if query_range is None else x[:, :query_range]

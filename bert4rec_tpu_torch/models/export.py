@@ -26,7 +26,7 @@ needs only jax; ROADMAP.md §C).
 """
 
 import pathlib
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 
@@ -115,10 +115,27 @@ def _export(module: _Served, specs: list, batch_size: Optional[int]):
                                    strict=False)
 
 
+def _check_platforms(params: dict, platforms: Optional[Sequence[str]]):
+    """JAX's ``platforms`` names the lowering platforms; a port artifact
+    runs on the device its params lie on, so each platform named must be
+    that device's (``gpu`` and ``cuda`` name a CUDA card)."""
+    if platforms is None:
+        return
+    device = next(iter(checkpoint.flatten(params).values())).device.type
+    names = [str(p).lower() for p in ([platforms] if isinstance(
+        platforms, str) else platforms)]
+    if not names or any({"gpu": "cuda"}.get(n, n) != device for n in names):
+        raise ValueError(
+            f"platforms={list(names)}: a torch.export artifact runs on the "
+            f"device its params lie on ({device}); move the params there "
+            f"to export for another platform")
+
+
 def export_top_k(model, params: dict, k: int, *,
                  batch_size: Optional[int] = None,
                  num_positions: Optional[int] = None,
                  num_exclude: Optional[int] = None,
+                 platforms: Optional[Sequence[str]] = None,
                  quantize: Optional[str] = None
                  ) -> torch.export.ExportedProgram:
     """Export full-vocab top-k ranking (``model.rank_top_k``) with the
@@ -131,9 +148,13 @@ def export_top_k(model, params: dict, k: int, *,
         ``exclude [b, num_exclude]`` of item ids (< 0 = padding) removed
         from the ranking per row (seen items and special tokens,
         ``apps.ArtifactRecommender``)
+    :param platforms: JAX's lowering platforms: each must name the
+        device the params lie on, where the artifact runs (ValueError
+        otherwise)
     :param quantize: ``"int8"`` embeds the item table weights-only
         quantized (models/quantization.py)
     """
+    _check_platforms(params, platforms)
     cfg = model.config
     p = num_positions or cfg.max_predictions_per_seq
     s = cfg.max_sequence_length
@@ -148,12 +169,14 @@ def export_top_k(model, params: dict, k: int, *,
 def export_score_candidates(model, params: dict, num_candidates: int, *,
                             batch_size: Optional[int] = None,
                             num_positions: Optional[int] = None,
+                            platforms: Optional[Sequence[str]] = None,
                             quantize: Optional[str] = None
                             ) -> torch.export.ExportedProgram:
     """Export candidate-only scoring (``model.score_candidates``, the
     ``[B, P, C]`` path that never builds full-vocab logits) with the
-    weights in the program; ``quantize="int8"`` as in
+    weights in the program; ``platforms`` and ``quantize="int8"`` as in
     :func:`export_top_k`."""
+    _check_platforms(params, platforms)
     cfg = model.config
     p = num_positions or cfg.max_predictions_per_seq
     s = cfg.max_sequence_length

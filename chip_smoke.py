@@ -246,7 +246,23 @@ Phases (any failure raises and the script exits non-zero):
               ``rank_top_k`` and the sampled and full-catalog evaluations
               against one process on the seed's params, the sharded run's
               checkpoint reloaded in one process (the same logits), and
-              the step's wall on the ranks beside one process's.
+              the step's wall on the ranks beside one process's;
+24. tools    — the port's measurement tools (``bert4rec_tpu_torch/
+              tools``): ``bench``'s card run (the fused ml-1m_128 step
+              beside the unfused anchor, then the host CPU's step in a
+              subprocess: its JSON line, ``vs_baseline`` > 1); the bf16
+              kernels at the shapes only the shipped configs reach (the
+              layer at H=64 with F=64 and 256, at S=50 and at H=256 with
+              F=512; K3 / K4 at W=64 and 256; K5 / K6 at W=64; the merged
+              K6 at W=256, R=5,120) against their plain versions, with
+              kernel, plain and library times and the bound;
+              ``config_sweep`` over all 13 shipped configs at full width
+              and depth (bf16, B=256; the nine configs no earlier phase
+              builds held to the plain step first), each row's routes and
+              launches checked; ``serving_bench`` (16 clients x 400
+              requests, bf16 K1: p50 / p99); ``perf_guard``'s ten variants
+              against their budgets (its command line, in a process of its
+              own); its seconds.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the rest of
@@ -419,13 +435,12 @@ def attention_pairs(s, causal):
 
 
 def layer_bound_ms(b, dtype_name, h=HIDDEN, f=INNER, causal=False,
-                   extra_bytes=0, peak=None):
+                   extra_bytes=0, peak=None, s=SEQ):
     """Least time for one layer on the card: the larger of its FLOP over
     the layer's peak for the operand type (``layer_peak``, or ``peak``
     FLOP/s) and its bytes (x,
     mask and the fp32 params read once, y written once, plus
     ``extra_bytes``: a relative bias read once) over the HBM rate."""
-    s = SEQ
     flops = b * (2 * s * h * 3 * h + 4 * attention_pairs(s, causal) * h
                  + 2 * s * h * h + 4 * s * h * f)
     es = 4 if dtype_name == "float32" else 2
@@ -917,7 +932,7 @@ def library_layer_train(params, x, mask, num_heads, rates, causal=False,
 
 
 def layer_bwd_bound_ms(b, dtype_name, h=HIDDEN, f=INNER, causal=False,
-                       extra_bytes=0, peak=None):
+                       extra_bytes=0, peak=None, s=SEQ):
     """Least time for one layer's backward: its products (8SHF + 16SH^2 +
     8S^2H FLOP per sequence, twice the forward's; S^2 becomes S(S+1)/2
     when causal; the recomputation is not counted) over the layer's peak
@@ -925,7 +940,6 @@ def layer_bwd_bound_ms(b, dtype_name, h=HIDDEN, f=INNER, causal=False,
     bytes (x, dy, mask, fp32 params read once; dx and the fp32 grads
     written once; plus ``extra_bytes``: a relative bias read and its
     gradient written) over the HBM rate."""
-    s = SEQ
     flops = b * (8 * s * h * f + 16 * s * h * h
                  + 8 * attention_pairs(s, causal) * h)
     es = 4 if dtype_name == "float32" else 2
@@ -974,11 +988,12 @@ def check_dropout_masks(torch, device):
 
 
 def check_layer_training(torch, rng, device, h=HIDDEN, n=HEADS, f=INNER,
-                         rates=RATES, cases=None):
+                         rates=RATES, cases=None, seq=SEQ, trace=True):
     """K1 with dropout and K2 against their plain versions at width
-    ``h`` (``n`` heads, inner ``f``), for each (dtype, batch) of ``cases``
-    (default fp32 and bf16 at B=32 and B=256); fp32's bounds at 3xTF32's
-    165 TFLOP/s, 67 without tensor cores printed beside."""
+    ``h`` (``n`` heads, inner ``f``) and length ``seq``, for each (dtype,
+    batch) of ``cases`` (default fp32 and bf16 at B=32 and B=256); fp32's
+    bounds at 3xTF32's 165 TFLOP/s, 67 without tensor cores printed
+    beside; at B=256 each launch's kernels by device time (``trace``)."""
     import numpy as np
     from bert4rec_tpu_torch.ops import fused_encoder_layer as fel
     from bert4rec_tpu_torch.utils.checkpoint import flatten, unflatten
@@ -991,13 +1006,13 @@ def check_layer_training(torch, rng, device, h=HIDDEN, n=HEADS, f=INNER,
                       for b in (32, STREAM_BATCH)]
     for dtype, b in cases:
         name = str(dtype).removeprefix("torch.")
-        x = torch.from_numpy(rng.normal(size=(b, SEQ, h))
+        x = torch.from_numpy(rng.normal(size=(b, seq, h))
                              .astype(np.float32)).to(device, dtype)
-        lengths = rng.integers(1, SEQ + 1, size=b)
+        lengths = rng.integers(1, seq + 1, size=b)
         mask = torch.from_numpy(
-            (np.arange(SEQ)[None, :] < lengths[:, None])
+            (np.arange(seq)[None, :] < lengths[:, None])
             .astype(np.int32)).to(device)
-        dy = torch.from_numpy(rng.normal(size=(b, SEQ, h))
+        dy = torch.from_numpy(rng.normal(size=(b, seq, h))
                               .astype(np.float32)).to(device, dtype)
         fwd = lambda: fel._launch_forward(   # noqa: E731
             flat, x, mask, n, kw["seed"], *rates, True)
@@ -1040,7 +1055,7 @@ def check_layer_training(torch, rng, device, h=HIDDEN, n=HEADS, f=INNER,
                      **blocks(lambda: library_layer_train(
                          params, x, mask, n, rates), "library"),
                      **dict(zip(("bound_ms", "bound_by"),
-                                layer_bound_ms(b, name, h, f)))),
+                                layer_bound_ms(b, name, h, f, s=seq)))),
             bwd=dict(max_abs_err=float((dx.float() - ref_dx.float())
                                        .abs().max()),
                      max_rel_err=bwd_err, **blocks(bwd),
@@ -1049,14 +1064,17 @@ def check_layer_training(torch, rng, device, h=HIDDEN, n=HEADS, f=INNER,
                              flat, x, mask, dy, **kw), iters=5),
                      **blocks(lib_bwd, "library"),
                      **dict(zip(("bound_ms", "bound_by"),
-                                layer_bwd_bound_ms(b, name, h, f)))))
+                                layer_bwd_bound_ms(b, name, h, f,
+                                                   s=seq)))))
         rows[(name, b)] = row
-        simt = dict(fwd=layer_bound_ms(b, name, h, f, peak=PEAK_FLOPS[name]),
+        simt = dict(fwd=layer_bound_ms(b, name, h, f, peak=PEAK_FLOPS[name],
+                                       s=seq),
                     bwd=layer_bwd_bound_ms(b, name, h, f,
-                                           peak=PEAK_FLOPS[name]))
+                                           peak=PEAK_FLOPS[name], s=seq))
         for part, r in row.items():
             print(f"fused_encoder_layer {part} dropout {rates} {name} "
-                  f"B={b} H={h} N={n} F={f}: err {r['max_abs_err']:.3g}"
+                  f"B={b} S={seq} H={h} N={n} F={f}: err "
+                  f"{r['max_abs_err']:.3g}"
                   + (f" (rel {r['max_rel_err']:.3g}, tol "
                      f"{GRAD_TOL[name]})" if part == "bwd" else
                      f" (tol {TOL[name]})")
@@ -1064,7 +1082,7 @@ def check_layer_training(torch, rng, device, h=HIDDEN, n=HEADS, f=INNER,
                   + (f"; bound at 3xTF32's 165 TFLOP/s, {simt[part][0]:.5f} "
                      f"at 67 without tensor cores" if name == "float32"
                      else ""), flush=True)
-        if b == STREAM_BATCH:
+        if b == STREAM_BATCH and trace:
             fp32 = name == "float32"
             forbid = SIMT_FP32_LAYER if fp32 else LEGACY_BF16_LAYER
             print("  per forward launch: " + device_breakdown(
@@ -1076,17 +1094,20 @@ def check_layer_training(torch, rng, device, h=HIDDEN, n=HEADS, f=INNER,
     return rows
 
 
-def check_loss_kernels(torch, rng, device):
-    """K3 and K4 against their plain versions at one train batch's rows."""
+def check_loss_kernels(torch, rng, device, w=HIDDEN, dtypes=None,
+                       trace=True):
+    """K3 and K4 against their plain versions at one train batch's rows
+    and table width ``w``, in each of ``dtypes`` (default fp32 and
+    bf16); each launch's kernels by device time (``trace``)."""
     import numpy as np
     import torch.nn.functional as F
     from bert4rec_tpu_torch.ops import fused_mlm_loss as fml
     rows = {}
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype in dtypes or (torch.float32, torch.bfloat16):
         name = str(dtype).removeprefix("torch.")
-        hidden = torch.from_numpy(rng.normal(size=(N_ROWS, HIDDEN))
+        hidden = torch.from_numpy(rng.normal(size=(N_ROWS, w))
                                   .astype(np.float32)).to(device, dtype)
-        table = torch.from_numpy((rng.normal(size=(VOCAB, HIDDEN)) * 0.1)
+        table = torch.from_numpy((rng.normal(size=(VOCAB, w)) * 0.1)
                                  .astype(np.float32)).to(device)
         bias = torch.from_numpy(rng.normal(size=VOCAB).astype(np.float32)) \
             .to(device)
@@ -1139,7 +1160,7 @@ def check_loss_kernels(torch, rng, device):
                          hidden, t_s, b_m, labels)),
                      **blocks(lib_fwd, "library"),
                      **dict(zip(("bound_ms", "bound_by"), loss_bound_ms(
-                         N_ROWS, VOCAB, HIDDEN, name, False, peak)))),
+                         N_ROWS, VOCAB, w, name, False, peak)))),
             bwd=dict(max_abs_err=float((dh.float() - rdh.float()).abs().max()),
                      max_rel_err=bwd_err, **blocks(bwd),
                      plain_ms=time_ms(lambda: fml.fused_mlm_loss_plain_backward(
@@ -1147,28 +1168,29 @@ def check_loss_kernels(torch, rng, device):
                      **blocks(lambda: torch.autograd.grad(
                          lib_loss, (hl, tl, bl), retain_graph=True), "library"),
                      **dict(zip(("bound_ms", "bound_by"), loss_bound_ms(
-                         N_ROWS, VOCAB, HIDDEN, name, True, peak)))))
+                         N_ROWS, VOCAB, w, name, True, peak)))))
         rows[name] = row
         for part, r in row.items():
             tol = LOSS_FWD_TOL if part == "fwd" else LOSS_TOL[name]
-            fp32_bound = loss_bound_ms(N_ROWS, VOCAB, HIDDEN, name,
+            fp32_bound = loss_bound_ms(N_ROWS, VOCAB, w, name,
                                        part == "bwd")[0]
             print(f"fused_mlm_loss {part} {name} R={N_ROWS} V={VOCAB} "
-                  f"W={HIDDEN}: rel err {r['max_rel_err']:.3g} (tol "
+                  f"W={w}: rel err {r['max_rel_err']:.3g} (tol "
                   f"{tol}) {timing_text(r)}"
                   + (f"; bound at 67 TFLOP/s {fp32_bound:.5f}" if peak
                      else ""), flush=True)
         # K3 and K4 on csrc/loss_hopper.cuh's kernels (bf16) or
         # csrc/loss_tf32.cuh's (fp32)
         only = BF16_LOSS_KERNELS if peak is None else FP32_LOSS_KERNELS
-        print("  per K3 launch: " + device_breakdown(
-            torch, fwd, only=only["K3"])[1]
-            + "\n  per K4 launch: " + device_breakdown(
-                torch, bwd, only=only["K4"])[1], flush=True)
+        if trace:
+            print("  per K3 launch: " + device_breakdown(
+                torch, fwd, only=only["K3"])[1]
+                + "\n  per K4 launch: " + device_breakdown(
+                    torch, bwd, only=only["K4"])[1], flush=True)
         if peak:
             print(f"  fp32 K4's sweeps (blocks, cluster): "
-                  f"{fml.sweep_grid(N_ROWS, VOCAB, HIDDEN, dtype)}; fp32 K3's "
-                  f"{fml.whole_table_splits(N_ROWS, VOCAB, HIDDEN, dtype)} "
+                  f"{fml.sweep_grid(N_ROWS, VOCAB, w, dtype)}; fp32 K3's "
+                  f"{fml.whole_table_splits(N_ROWS, VOCAB, w, dtype)} "
                   f"vocabulary splits x {-(-N_ROWS // 128)} row blocks",
                   flush=True)
     return rows
@@ -1733,6 +1755,111 @@ def tiled_operands(torch, rng, device, rows, v, w, dtype, labels="mixed"):
         torch.from_numpy(lab).to(device)
 
 
+def check_tiled_case(torch, rng, device, r, v, w, dtype, kernels,
+                     trace=True):
+    """K5 (loss and stats entries) and the backward ``kernels`` ({name:
+    merged}: K6 True, K7 False) against the plain versions at R=``r``,
+    V=``v``, W=``w`` in ``dtype``; two runs of each giving the same bits;
+    kernel, plain and library times, the bound, and each launch's kernels
+    by device time (``trace``). Returns {kernel: row}."""
+    import torch.nn.functional as F
+    from bert4rec_tpu_torch.ops import fused_mlm_loss as fml
+    name = str(dtype).removeprefix("torch.")
+    tol = LOSS_TOL[name]
+    reddit = v == REDDIT_VOCAB
+    h, t, b, lab = tiled_operands(torch, rng, device, r, v, w, dtype)
+    g = torch.ones((), device=device)
+    fwd = lambda: fml._launch_forward_tiled(h, t, b, lab)  # noqa: E731
+    lse, sums = fwd()
+    stats = fml._launch_forward_tiled_stats(h, t, b, lab)
+    bwd = {k: (lambda m=m: fml._launch_backward_tiled(
+        h, t, b, lab, lse, g, sums[3:4], m)) for k, m in kernels.items()}
+    grads = {k: f() for k, f in bwd.items()}
+    torch.cuda.synchronize()
+    plain_fwd, plain_stats, plain_bwd_fn = plain_tiled(
+        torch, fml, h, t, b, lab)
+    ref_lse, ref_sums = plain_fwd()
+    ref_stats = plain_stats()
+    fwd_err = max([rel_err(lse, ref_lse), rel_err(sums[:1], ref_sums[:1])]
+                  + [rel_err(a, c) for a, c in zip(stats, ref_stats)])
+    ref_grads = plain_bwd_fn(ref_lse, g, ref_sums[3])
+    bwd_err = {k: max(rel_err(a, c) for a, c in zip(out, ref_grads))
+               for k, out in grads.items()}
+    bwd_abs = {k: max(float((a.float() - c.float()).abs().max())
+                      for a, c in zip(out, ref_grads))
+               for k, out in grads.items()}
+    if not (fwd_err <= LOSS_FWD_TOL and max(bwd_err.values()) <= tol
+            and torch.equal(sums[1:], ref_sums[1:])):
+        raise AssertionError(
+            f"tiled loss {name} R={r} V={v} W={w}: forward rel err "
+            f"{fwd_err} (tol {LOSS_FWD_TOL}), counts "
+            f"{sums[1:].tolist()} vs {ref_sums[1:].tolist()}, backward "
+            f"rel err {bwd_err} (tol {tol})")
+    stats_fn = lambda: fml._launch_forward_tiled_stats(  # noqa: E731
+        h, t, b, lab)
+    if not (torch.equal(fwd()[0], lse) and all(
+            torch.equal(a, c) for a, c in zip(stats_fn(), stats)) and all(
+            all(torch.equal(a, c) for a, c in zip(f(), grads[k]))
+            for k, f in bwd.items())):
+        raise AssertionError(f"tiled loss {name} R={r} V={v} W={w}: two "
+                             f"runs differ")
+    del grads, ref_grads
+    # yardstick: the logits by matmul, then cross_entropy (and its
+    # autograd); it materialises the [R, V] logits the kernels avoid
+    hl, tl, bl = (x.detach().requires_grad_(True) for x in (h, t, b))
+
+    def lib_fwd():
+        logits = torch.matmul(hl, tl.T).float() + bl
+        return F.cross_entropy(logits, lab.long(), ignore_index=0)
+
+    lib_loss = lib_fwd()
+    plain_bwd = lambda: plain_bwd_fn(ref_lse, g, ref_sums[3])  # noqa: E731
+    # kernels and yardsticks as medians of 7 blocks (of 3 calls for
+    # fp32, of 10 otherwise)
+    heavy = dtype == torch.float32
+    it = dict(iters=3, warmup=1) if heavy else {}
+    shape = dict(rows=r, v=v, w=w)
+    # fp32 K5-K7 run 3xTF32: their bound at its rate, and at fp32's
+    # without tensor cores beside it
+    peak = TF32X3_FLOPS if heavy else None
+    row = {"K5": dict(max_abs_err=float((sums[0] - ref_sums[0]).abs()),
+                      max_rel_err=fwd_err, **blocks(fwd, **it),
+                      plain_ms=time_ms(plain_fwd, iters=3, warmup=1),
+                      **blocks(lib_fwd, "library", **it),
+                      **dict(zip(("bound_ms", "bound_by"), loss_bound_ms(
+                          r, v, w, name, False, peak))), **shape)}
+    plain_bwd_ms = time_ms(plain_bwd, iters=2, warmup=1)
+    lib_bwd = blocks(lambda: torch.autograd.grad(
+        lib_loss, (hl, tl, bl), retain_graph=True), "library", **it)
+    for k, f in bwd.items():
+        row[k] = dict(max_abs_err=bwd_abs[k], max_rel_err=bwd_err[k],
+                      **blocks(f, **it), plain_ms=plain_bwd_ms, **lib_bwd,
+                      **dict(zip(("bound_ms", "bound_by"), loss_bound_ms(
+                          r, v, w, name, True, peak))), **shape)
+    for k, x in row.items():
+        fp32_bound = loss_bound_ms(r, v, w, name, k != "K5")[0]
+        print(f"tiled loss {k} {name} R={r} V={v} W={w}: rel err "
+              f"{x['max_rel_err']:.3g} (tol "
+              f"{LOSS_FWD_TOL if k == 'K5' else tol}) {timing_text(x)}"
+              + (f"; bound at 67 TFLOP/s {fp32_bound:.5f}" if heavy else "")
+              + f"; {x['bound_ms'] / x['ms']:.1%} of the bound, "
+              f"{x['ms'] / x['library_ms']:.3f}x the library", flush=True)
+    # each launch's kernels: K7's two sweeps apart, at each W; K5's
+    # (both entries) only its sweep, merge and row sums; fp32 K6 / K7
+    # only loss_tf32.cuh's
+    launches = [("K5", fwd), ("K5 stats", stats_fn)] if trace else []
+    if trace and not (reddit and not heavy):
+        launches += list(bwd.items())
+    for k, f in launches:
+        only = (FP32_LOSS_KERNELS if heavy
+                else BF16_LOSS_KERNELS).get(k[:2])
+        print(f"  per {k} launch: " + device_breakdown(
+            torch, f, only=only)[1], flush=True)
+    del lib_loss, hl, tl, bl, h, t, b
+    torch.cuda.empty_cache()
+    return row
+
+
 def check_tiled_loss_kernels(torch, rng, device):
     """K5 (loss and stats entries), K6 and K7 against the plain versions
     at one ML-20M train batch (R=10,240, V=26,732; W=128 and 256; fp32 and
@@ -1740,7 +1867,6 @@ def check_tiled_loss_kernels(torch, rng, device):
     (fp32 and bf16) and at the Reddit preset's R=10,240 (fp32; the plain
     versions in row chunks), the ``valid_ge_zero`` encoding; two runs of
     each giving the same bits."""
-    import torch.nn.functional as F
     from bert4rec_tpu_torch.ops import fused_mlm_loss as fml
     cases = [(N_ROWS, ML20M_VOCAB, w, dt) for w in (128, 256)
              for dt in (torch.float32, torch.bfloat16)]
@@ -1750,100 +1876,10 @@ def check_tiled_loss_kernels(torch, rng, device):
     rows = {}
     for r, v, w, dtype in cases:
         name = str(dtype).removeprefix("torch.")
-        tol = LOSS_TOL[name]
-        reddit = v == REDDIT_VOCAB
-        h, t, b, lab = tiled_operands(torch, rng, device, r, v, w, dtype)
-        g = torch.ones((), device=device)
-        fwd = lambda: fml._launch_forward_tiled(h, t, b, lab)  # noqa: E731
-        lse, sums = fwd()
-        stats = fml._launch_forward_tiled_stats(h, t, b, lab)
-        kernels = {"K6": True} if reddit else {"K6": True, "K7": False}
-        bwd = {k: (lambda m=m: fml._launch_backward_tiled(
-            h, t, b, lab, lse, g, sums[3:4], m)) for k, m in kernels.items()}
-        grads = {k: f() for k, f in bwd.items()}
-        torch.cuda.synchronize()
-        plain_fwd, plain_stats, plain_bwd_fn = plain_tiled(
-            torch, fml, h, t, b, lab)
-        ref_lse, ref_sums = plain_fwd()
-        ref_stats = plain_stats()
-        fwd_err = max([rel_err(lse, ref_lse), rel_err(sums[:1], ref_sums[:1])]
-                      + [rel_err(a, c) for a, c in zip(stats, ref_stats)])
-        ref_grads = plain_bwd_fn(ref_lse, g, ref_sums[3])
-        bwd_err = {k: max(rel_err(a, c) for a, c in zip(out, ref_grads))
-                   for k, out in grads.items()}
-        bwd_abs = {k: max(float((a.float() - c.float()).abs().max())
-                          for a, c in zip(out, ref_grads))
-                   for k, out in grads.items()}
-        if not (fwd_err <= LOSS_FWD_TOL and max(bwd_err.values()) <= tol
-                and torch.equal(sums[1:], ref_sums[1:])):
-            raise AssertionError(
-                f"tiled loss {name} R={r} V={v} W={w}: forward rel err "
-                f"{fwd_err} (tol {LOSS_FWD_TOL}), counts "
-                f"{sums[1:].tolist()} vs {ref_sums[1:].tolist()}, backward "
-                f"rel err {bwd_err} (tol {tol})")
-        stats_fn = lambda: fml._launch_forward_tiled_stats(  # noqa: E731
-            h, t, b, lab)
-        if not (torch.equal(fwd()[0], lse) and all(
-                torch.equal(a, c) for a, c in zip(stats_fn(), stats)) and all(
-                all(torch.equal(a, c) for a, c in zip(f(), grads[k]))
-                for k, f in bwd.items())):
-            raise AssertionError(f"tiled loss {name} R={r} V={v} W={w}: two "
-                                 f"runs differ")
-        del grads, ref_grads
-        # yardstick: the logits by matmul, then cross_entropy (and its
-        # autograd); it materialises the [R, V] logits the kernels avoid
-        hl, tl, bl = (x.detach().requires_grad_(True) for x in (h, t, b))
-
-        def lib_fwd():
-            logits = torch.matmul(hl, tl.T).float() + bl
-            return F.cross_entropy(logits, lab.long(), ignore_index=0)
-
-        lib_loss = lib_fwd()
-        plain_bwd = lambda: plain_bwd_fn(ref_lse, g, ref_sums[3])  # noqa: E731
-        # kernels and yardsticks as medians of 7 blocks (of 3 calls for
-        # fp32, of 10 otherwise)
-        heavy = dtype == torch.float32
-        it = dict(iters=3, warmup=1) if heavy else {}
-        shape = dict(rows=r, v=v, w=w)
-        # fp32 K5-K7 run 3xTF32: their bound at its rate, and at fp32's
-        # without tensor cores beside it
-        peak = TF32X3_FLOPS if heavy else None
-        row = {"K5": dict(max_abs_err=float((sums[0] - ref_sums[0]).abs()),
-                          max_rel_err=fwd_err, **blocks(fwd, **it),
-                          plain_ms=time_ms(plain_fwd, iters=3, warmup=1),
-                          **blocks(lib_fwd, "library", **it),
-                          **dict(zip(("bound_ms", "bound_by"), loss_bound_ms(
-                              r, v, w, name, False, peak))), **shape)}
-        plain_bwd_ms = time_ms(plain_bwd, iters=2, warmup=1)
-        lib_bwd = blocks(lambda: torch.autograd.grad(
-            lib_loss, (hl, tl, bl), retain_graph=True), "library", **it)
-        for k, f in bwd.items():
-            row[k] = dict(max_abs_err=bwd_abs[k], max_rel_err=bwd_err[k],
-                          **blocks(f, **it), plain_ms=plain_bwd_ms, **lib_bwd,
-                          **dict(zip(("bound_ms", "bound_by"), loss_bound_ms(
-                              r, v, w, name, True, peak))), **shape)
-        rows[(name, r, v, w)] = row
-        for k, x in row.items():
-            fp32_bound = loss_bound_ms(r, v, w, name, k != "K5")[0]
-            print(f"tiled loss {k} {name} R={r} V={v} W={w}: rel err "
-                  f"{x['max_rel_err']:.3g} (tol "
-                  f"{LOSS_FWD_TOL if k == 'K5' else tol}) {timing_text(x)}"
-                  + (f"; bound at 67 TFLOP/s {fp32_bound:.5f}" if heavy else "")
-                  + f"; {x['bound_ms'] / x['ms']:.1%} of the bound, "
-                  f"{x['ms'] / x['library_ms']:.3f}x the library", flush=True)
-        # each launch's kernels: K7's two sweeps apart, at each W; K5's
-        # (both entries) only its sweep, merge and row sums; fp32 K6 / K7
-        # only loss_tf32.cuh's
-        launches = [("K5", fwd), ("K5 stats", stats_fn)]
-        if not (reddit and not heavy):
-            launches += list(bwd.items())
-        for k, f in launches:
-            only = (FP32_LOSS_KERNELS if heavy
-                    else BF16_LOSS_KERNELS).get(k[:2])
-            print(f"  per {k} launch: " + device_breakdown(
-                torch, f, only=only)[1], flush=True)
-        del lib_loss, hl, tl, bl, h, t, b
-        torch.cuda.empty_cache()
+        kernels = ({"K6": True} if v == REDDIT_VOCAB
+                   else {"K6": True, "K7": False})
+        rows[(name, r, v, w)] = check_tiled_case(torch, rng, device, r, v, w,
+                                                 dtype, kernels)
     ws = {k: fml.workspace_bytes(k, N_ROWS, REDDIT_VOCAB, 128)
           for k in ("K3/K4", "K5", "K6", "K7")}
     print(f"tiled loss workspace at R={N_ROWS}, V={REDDIT_VOCAB}, W=128, as "
@@ -4011,6 +4047,176 @@ def check_mesh(torch, device):
             "seconds": seconds}
 
 
+# --------------------------------------------------------------------------- #
+# phase 24: the measurement tools, and the kernel shapes of the shipped
+# configs no earlier phase reaches
+# --------------------------------------------------------------------------- #
+
+# the shipped configs no earlier phase builds: each one's kernel step is held
+# against its plain step before the sweep times it
+NEW_CONFIGS = ("beauty_64", "beauty_128", "beauty_256", "ml-1m_64",
+               "ml-1m_256", "ml-20m_64", "steam_64", "steam_128", "steam_256")
+# one round of the sweep (24 steps a config), two of perf_guard (its 1-round
+# fused speedup read 1.52-2.10 over three runs): the phase cuts rounds, never
+# widths
+TOOL_ROUNDS = 1
+GUARD_ROUNDS = 2
+# the bf16 layer shapes only the sweep's configs reach: (H, N, F, S) and the
+# dropout rates of the first config named
+NEW_LAYER_SHAPES = {
+    "h64_f64_s50": (64, 2, 64, 50, (0.2, 0.5)),     # beauty_64
+    "h64": (64, 2, 256, 200, (0.2, 0.2)),           # ml-1m_64, ml-20m_64
+    "h64_s50": (64, 2, 256, 50, (0.1, 0.1)),        # steam_64
+    "s50": (128, 4, 512, 50, (0.2, 0.5)),           # beauty_128, steam_128
+    "h256_s50": (256, 8, 1024, 50, (0.2, 0.5)),     # beauty_256, steam_256
+    "h256_f512": (256, 8, 512, 200, (0.2, 0.5)),    # ml-1m_256
+}
+# bf16 K3 / K4 at the table widths of ml-1m_64 and ml-1m_256
+NEW_WHOLE_TABLE_WIDTHS = (64, 256)
+STEAM_VOCAB = 13_047      # 13,044 games + [PAD], [MASK], [UNK]
+# the bf16 tiled loss: (R, V, W, backward kernels): K5 and K6 at W=64 at
+# ml-20m_64's batch (beauty_64's and steam_64's run the same kernels), and
+# the merged K6 at W=256 at steam_256's R = 256 x 20 = 5,120 rows, whose dh
+# fits merged_backward's 5.77 MB
+NEW_TILED = {"w64": (N_ROWS, ML20M_VOCAB, 64, {"K6": True}),
+             "w256": (STREAM_BATCH * 20, STEAM_VOCAB, 256, {"K6": True})}
+SERVING_LOAD = dict(clients=16, requests=400)
+
+
+def config_shape(name) -> dict:
+    """A shipped config's kernel shape: hidden, inner, length, table
+    width and the tiled loss's backward."""
+    from bert4rec_tpu_torch.tools import config_sweep
+    o, _ = config_sweep.build_overrides(name, config_sweep.load(name))
+    return dict(h=o["hidden_size"], f=o["inner_dim"],
+                s=o["max_sequence_length"], w=o["hidden_size"],
+                **config_sweep.routes(o))
+
+
+def swept(rows, counter, **shape) -> int:
+    """The sweep's launches of ``counter`` over the configs of ``shape``."""
+    return sum(row["launches"][counter] for name, row in rows.items()
+               if all(config_shape(name)[k] == v for k, v in shape.items()))
+
+
+def run_perf_guard() -> tuple:
+    """``tools.perf_guard`` as its command line, ``GUARD_ROUNDS`` rounds,
+    in a process of its own (its budgets hold the tool's runs, not a process
+    that has run 23 phases): its exit code and report."""
+    proc = subprocess.run(
+        [sys.executable, "-m", "bert4rec_tpu_torch.tools.perf_guard",
+         "--rounds", str(GUARD_ROUNDS)], capture_output=True, text=True,
+        timeout=900, cwd=str(pathlib.Path(__file__).resolve().parent))
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("{")]
+    if not lines:
+        raise AssertionError(f"perf_guard gave no report (exit "
+                             f"{proc.returncode}): {proc.stderr[-2000:]}")
+    return proc.returncode, json.loads(lines[-1])
+
+
+def check_tools(torch, rng, device):
+    """Phase 24: ``tools.bench``'s card run (its JSON line, ``vs_baseline``
+    > 1); the kernels at the shapes only the shipped configs reach against
+    their plain versions; ``tools.config_sweep`` over all 13 configs at
+    full width and depth (the nine configs no earlier phase builds held to
+    the plain step first; each row's routes and launches checked);
+    ``tools.serving_bench`` (p50 / p99); ``tools.perf_guard``'s ten variants
+    against their budgets."""
+    from bert4rec_tpu_torch.ops import fused_encoder_layer as fel
+    from bert4rec_tpu_torch.tools import bench, config_sweep, serving_bench
+    t_phase = time.perf_counter()
+    out = {}
+
+    report = bench.card_report(device)
+    print(json.dumps(report["result"]), flush=True)
+    if not report["result"]["vs_baseline"] > 1:
+        raise AssertionError(f"bench: the card is not faster than the host "
+                             f"CPU: {report}")
+    out["bench"] = report
+    torch.cuda.empty_cache()
+
+    # the kernels at the new shapes against their plain versions, bf16,
+    # B=256 (the sweep's batch); no profiler trace of their launches: at
+    # the end of a long process the profiler drops records (PERF.md §7),
+    # and the launch counters of the sweep show the routes
+    out["layer"] = {
+        key: check_layer_training(
+            torch, rng, device, h=h, n=n, f=f, rates=rates,
+            cases=[(torch.bfloat16, STREAM_BATCH)], seq=s,
+            trace=False)[("bfloat16", STREAM_BATCH)]
+        for key, (h, n, f, s, rates) in NEW_LAYER_SHAPES.items()}
+    out["whole_table"] = {
+        w: check_loss_kernels(torch, rng, device, w=w,
+                              dtypes=(torch.bfloat16,),
+                              trace=False)["bfloat16"]
+        for w in NEW_WHOLE_TABLE_WIDTHS}
+    out["tiled"] = {key: check_tiled_case(torch, rng, device, r, v, w,
+                                          torch.bfloat16, kernels,
+                                          trace=False)
+                    for key, (r, v, w, kernels) in NEW_TILED.items()}
+    torch.cuda.empty_cache()
+
+    def parity(runner):
+        if runner.name in NEW_CONFIGS:
+            check_step_parity(torch, runner.trainer, runner.batches[0],
+                              f"{runner.name}, config_sweep")
+
+    t0 = time.perf_counter()
+    rows = config_sweep.sweep(config_sweep.config_names(), TOOL_ROUNDS,
+                              device, before_timing=parity)
+    steps = TOOL_ROUNDS * config_sweep.STEPS_PER_ROUND
+    for name, row in rows.items():
+        shape = config_shape(name)
+        layers = 2 * steps     # every shipped config has 2 layers
+        whole = row["loss_kernel"] == "whole_table"
+        want = dict(layer_fwd=layers, layer_bwd=layers, mma_sync_fwd=0,
+                    mma_sync_bwd=0, K3=steps * whole, K4=steps * whole,
+                    K5=steps * (not whole),
+                    K6=steps * (row["loss_backward"] == "K6"),
+                    K7=steps * (row["loss_backward"] == "K7"))
+        print(f"sweep {name}: {row['ms_per_step']:.4f} ms a step, "
+              f"{row['examples_per_sec']:.1f} examples/s, layer "
+              f"{row['layer_kernel']} (H={shape['h']} F={shape['f']} "
+              f"S={shape['s']}), loss {row['loss_kernel']} / "
+              f"{row['loss_backward']} (W={shape['w']}, V={row['vocab']}, "
+              f"R={STREAM_BATCH * row['npred']}); launches in {steps} "
+              f"steps {row['launches']}", flush=True)
+        if row["launches"] != want or row["layer_kernel"] != "wgmma":
+            raise AssertionError(f"sweep {name}: launches "
+                                 f"{row['launches']}, expected {want}; "
+                                 f"routes {row}")
+    print(f"sweep: 13 configs in {time.perf_counter() - t0:.1f} s, "
+          f"{len(NEW_CONFIGS)} held to the plain step", flush=True)
+    out["sweep"] = rows
+
+    fel.fused_encoder_layer.launches = 0
+    fel.fused_encoder_layer.mma_sync_launches = 0
+    served = serving_bench.run(device=device, **SERVING_LOAD)
+    out["serving_launches"] = fel.fused_encoder_layer.launches
+    print(f"serving_bench {json.dumps(served)}; K1 launches "
+          f"{out['serving_launches']} (bf16, wgmma)", flush=True)
+    # the warm request's batch, then each of the timed ones: 2 layers each
+    if out["serving_launches"] != 2 * (served["batches"] + 1) or \
+            fel.fused_encoder_layer.mma_sync_launches:
+        raise AssertionError(f"serving_bench: {out['serving_launches']} "
+                             f"layer launches for {served['batches']} + 1 "
+                             f"batches")
+    out["serving"] = served
+    torch.cuda.empty_cache()
+
+    rc, guard = run_perf_guard()
+    print(f"perf_guard ({GUARD_ROUNDS} rounds): {json.dumps(guard)}; "
+          + ("PASS" if rc == 0 and not guard["failures"] else
+             "FAIL: " + "; ".join(guard["failures"])), flush=True)
+    if rc != 0 or guard["failures"]:
+        raise AssertionError(f"perf_guard: exit {rc}, {guard['failures']}")
+    out["guard"] = guard
+    torch.cuda.empty_cache()
+    print(f"phase 24 (tools): {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4145,6 +4351,11 @@ def run(torch, home) -> int:
     # phase 23: the (data, model) mesh at reddit_128 width (fp32 K5's
     # stats entry and K6 with valid_ge_zero on each vocab shard)
     meshed = check_mesh(torch, device)
+    torch.cuda.empty_cache()
+    # phase 24: the tools (bench, config_sweep over the 13 configs,
+    # serving_bench, perf_guard) and the kernel shapes of those configs
+    tools = check_tools(torch, rng, device)
+    sweep = tools["sweep"]
 
     def entry(name, source, replaces, n, row):
         return {"name": name, "route": "cuda",
@@ -4185,12 +4396,17 @@ def run(torch, home) -> int:
               "bert4rec_tpu/ops/fused_encoder_layer.py:241",
               stream_launches + deployed["launches"][STREAM_BATCH],
               layer_rows[("float32", STREAM_BATCH)]),
+        # with the sweep's ml-1m_128, ml-20m_128 and reddit_128 (phase 24)
         entry("fused_encoder_layer_dropout", wgmma_src,
               "bert4rec_tpu/ops/fused_encoder_layer.py:241",
-              counts["layer_fwd"], train_row["fwd"]),
+              counts["layer_fwd"]
+              + swept(sweep, "layer_fwd", h=128, f=512, s=SEQ),
+              train_row["fwd"]),
         entry("fused_encoder_layer_backward", wgmma_src,
               "bert4rec_tpu/ops/fused_encoder_layer.py:265",
-              counts["layer_bwd"], train_row["bwd"]),
+              counts["layer_bwd"]
+              + swept(sweep, "layer_bwd", h=128, f=512, s=SEQ),
+              train_row["bwd"]),
         # fp32 K1' / K2 (3xTF32): launches from the fp32 ml-20m_128 and
         # ml-1m_128 train() runs (the harness's ml20m and ml1m presets) and
         # the ml1m oracle gate (its forwards with the evaluations' K1)
@@ -4204,32 +4420,40 @@ def run(torch, home) -> int:
               fp32_ml20m["counts"]["layer_bwd"]
               + fp32_ml1m["counts"]["layer_bwd"] + oracle["layer_bwd"],
               fp32_row["bwd"]),
-        # ml-20m_256's width; launches from its train() run
+        # ml-20m_256's width; launches from its train() run and the sweep's
         entry("fused_encoder_layer_dropout_h256", wgmma_src,
               "bert4rec_tpu/ops/fused_encoder_layer.py:241",
-              c256["layer_fwd"], wide_row["fwd"]),
+              c256["layer_fwd"]
+              + swept(sweep, "layer_fwd", h=256, f=1024, s=SEQ),
+              wide_row["fwd"]),
         entry("fused_encoder_layer_backward_h256", wgmma_src,
               "bert4rec_tpu/ops/fused_encoder_layer.py:265",
-              c256["layer_bwd"], wide_row["bwd"]),
-        entry("fused_mlm_loss", loss_wgmma, f"{loss_py}:111", counts["loss_fwd"],
+              c256["layer_bwd"]
+              + swept(sweep, "layer_bwd", h=256, f=1024, s=SEQ),
+              wide_row["bwd"]),
+        entry("fused_mlm_loss", loss_wgmma, f"{loss_py}:111",
+              counts["loss_fwd"] + swept(sweep, "K3", w=128),
               loss_rows["bfloat16"]["fwd"]),
         entry("fused_mlm_loss_backward", loss_wgmma, f"{loss_py}:148",
-              counts["loss_bwd"], loss_rows["bfloat16"]["bwd"]),
+              counts["loss_bwd"] + swept(sweep, "K4", w=128),
+              loss_rows["bfloat16"]["bwd"]),
         # the vocab-tiled family; launches from the four ML-20M train()
         # runs (BERT4Rec ml-20m_128 and ml-20m_256, SASRec ml-20m_128,
-        # temporal ml-20m_128), K5 at each width apart
+        # temporal ml-20m_128) and the sweep's configs, K5 at each width
+        # apart
         entry("fused_mlm_loss_tiled", loss_wgmma, f"{loss_py}:375",
-              c128["K5"] + csas["K5"] + c_temp["K5"], tiled_128["K5"]),
+              c128["K5"] + csas["K5"] + c_temp["K5"]
+              + swept(sweep, "K5", w=128), tiled_128["K5"]),
         entry("fused_mlm_loss_tiled_w256", loss_wgmma, f"{loss_py}:375",
-              c256["K5"], tiled_256["K5"]),
+              c256["K5"] + swept(sweep, "K5", w=256), tiled_256["K5"]),
         entry("fused_mlm_loss_tiled_backward_merged", loss_wgmma,
               f"{loss_py}:502",
-              c128["K6"] + c256["K6"] + csas["K6"] + c_temp["K6"],
-              tiled_128["K6"]),
+              c128["K6"] + c256["K6"] + csas["K6"] + c_temp["K6"]
+              + swept(sweep, "K6", w=128), tiled_128["K6"]),
         entry("fused_mlm_loss_tiled_backward_two_sweep", loss_wgmma,
               f"{loss_py}:602",
-              c128["K7"] + c256["K7"] + csas["K7"] + c_temp["K7"],
-              tiled_256["K7"]),
+              c128["K7"] + c256["K7"] + csas["K7"] + c_temp["K7"]
+              + swept(sweep, "K7", w=256), tiled_256["K7"]),
         # fp32 K5 and K6 (3xTF32): launches from the fp32 ml-20m_128
         # train() run (the harness's ml20m preset)
         entry("fused_mlm_loss_tiled_fp32", "loss_tf32.cuh", f"{loss_py}:375",
@@ -4285,6 +4509,37 @@ def run(torch, home) -> int:
               "loss_tf32.cuh", f"{loss_py}:502",
               meshed["launches"]["sharded.merged_launches"], meshed["K6"]),
     ]}
+    # phase 24: the shapes only the shipped configs reach, each held
+    # against its plain version there; launches from the sweep's configs
+    # of that shape, bf16 K1 from serving_bench
+    for key, (h, _, f, s, _) in NEW_LAYER_SHAPES.items():
+        row = tools["layer"][key]
+        record["kernels"] += [
+            entry(f"fused_encoder_layer_dropout_{key}", wgmma_src,
+                  "bert4rec_tpu/ops/fused_encoder_layer.py:241",
+                  swept(sweep, "layer_fwd", h=h, f=f, s=s), row["fwd"]),
+            entry(f"fused_encoder_layer_backward_{key}", wgmma_src,
+                  "bert4rec_tpu/ops/fused_encoder_layer.py:265",
+                  swept(sweep, "layer_bwd", h=h, f=f, s=s), row["bwd"])]
+    for w in NEW_WHOLE_TABLE_WIDTHS:
+        row = tools["whole_table"][w]
+        record["kernels"] += [
+            entry(f"fused_mlm_loss_w{w}", loss_wgmma, f"{loss_py}:111",
+                  swept(sweep, "K3", w=w), row["fwd"]),
+            entry(f"fused_mlm_loss_backward_w{w}", loss_wgmma,
+                  f"{loss_py}:148", swept(sweep, "K4", w=w), row["bwd"])]
+    record["kernels"] += [
+        entry("fused_mlm_loss_tiled_w64", loss_wgmma, f"{loss_py}:375",
+              swept(sweep, "K5", w=64), tools["tiled"]["w64"]["K5"]),
+        entry("fused_mlm_loss_tiled_backward_merged_w64", loss_wgmma,
+              f"{loss_py}:502", swept(sweep, "K6", w=64),
+              tools["tiled"]["w64"]["K6"]),
+        entry("fused_mlm_loss_tiled_backward_merged_w256", loss_wgmma,
+              f"{loss_py}:502", swept(sweep, "K6", w=256),
+              tools["tiled"]["w256"]["K6"]),
+        entry("fused_encoder_layer_bf16", wgmma_src,
+              "bert4rec_tpu/ops/fused_encoder_layer.py:241",
+              tools["serving_launches"], layer_rows[("bfloat16", 32)])]
     idle = [k["name"] for k in record["kernels"] if not k["launches"]]
     if idle:
         raise AssertionError(f"kernels no main path launched: {idle}")

@@ -1,6 +1,7 @@
 """The port stands alone: importing every module of ``bert4rec_tpu_torch``
-imports neither JAX nor the JAX package, and its entry points refuse to
-fall back to the CPU when CUDA is absent."""
+(and ``chip_smoke.py``) imports neither JAX, the JAX package, the root
+``bench.py`` nor ``tools/``, and its entry points refuse to fall back to
+the CPU when CUDA is absent."""
 
 import subprocess
 import sys
@@ -28,9 +29,11 @@ def test_no_module_imports_jax_or_the_jax_package():
         for name in names:
             importlib.import_module(name)
         import chip_smoke
+        # nor the JAX package's scripts: the root bench.py and tools/
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith("jax.")
-                     or m == "bert4rec_tpu" or m.startswith("bert4rec_tpu."))
+                     or m == "bert4rec_tpu" or m.startswith("bert4rec_tpu.")
+                     or m in ("bench", "tools") or m.startswith("tools."))
         print(len(names), bad)
         assert len(names) >= 30 and not bad, bad
         # the host pipeline's, SASRec's, evaluation's, the quality
@@ -56,7 +59,9 @@ def test_no_module_imports_jax_or_the_jax_package():
                     "core.mesh", "core.partitioning",
                     "ops.sharded_mlm_loss", "tools.mesh_run",
                     "examples.multihost_example",
-                    "examples.sharded_ranking_example"):
+                    "examples.sharded_ranking_example", "tools.bench",
+                    "tools.config_sweep", "tools.perf_guard",
+                    "tools.serving_bench", "tools.release_check"):
             assert "bert4rec_tpu_torch." + mod in names, mod
         from bert4rec_tpu_torch.dataloaders import native
         assert native._lib is None

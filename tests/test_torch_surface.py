@@ -5,12 +5,17 @@ round-trips, the package exports of ``utils``, ``ops``, ``models``,
 ``core`` and ``models.components``, ``utils.load_json_config``, the
 per-sequence masking laws ``apply_dynamic_masking_task`` /
 ``mask_last_token_only``, ``ModelWrapper.delete_keys_from_meta``,
-``prefetch``'s ``put_fn`` keyword and ``core.enable_fast_prng``."""
+``prefetch``'s ``put_fn`` keyword and ``core.enable_fast_prng``; and the
+arguments JAX's calls take: ``transformer_block``'s ``num_heads`` and
+default rates, ``layers.dropout``'s ``training``,
+``truncated_normal_init``'s ``dtype``, ``create_mesh``'s ``devices`` and
+the exports' ``platforms``."""
 
 import inspect
 import json
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -21,16 +26,22 @@ import bert4rec_tpu.models as jax_models
 import bert4rec_tpu.models.components as jax_components
 import bert4rec_tpu.ops as jax_ops
 import bert4rec_tpu.utils as jax_utils
+from bert4rec_tpu.core import mesh as jax_mesh
 from bert4rec_tpu.dataloaders import dataloader_utils as jax_du
 from bert4rec_tpu.models import BERT4RecConfig as JaxConfig
 from bert4rec_tpu.models import BERT4RecModel as JaxModel
 from bert4rec_tpu.models import Bert4RecEncoder as JaxEncoder
+from bert4rec_tpu.models import export as jax_export
+from bert4rec_tpu.models.components import layers as JL
+from bert4rec_tpu.models.components import transformer as jax_transformer
 from bert4rec_tpu.models.model_wrapper import ModelWrapper as JaxWrapper
 from bert4rec_tpu.trainers import BERT4RecTrainer as JaxTrainer
 from bert4rec_tpu.utils import checkpoint as jax_ckpt
 from bert4rec_tpu.utils import prefetch as jax_prefetch
 from bert4rec_tpu_torch import apps, core, models, ops, utils
-from bert4rec_tpu_torch.models import components
+from bert4rec_tpu_torch.models import components, export
+from bert4rec_tpu_torch.models.components import layers as L
+from bert4rec_tpu_torch.models.components import transformer
 from bert4rec_tpu_torch.dataloaders import dataloader_utils as du
 from bert4rec_tpu_torch.models import (
     BERT4RecConfig, BERT4RecModel, Bert4RecEncoder, ModelWrapper,
@@ -38,6 +49,7 @@ from bert4rec_tpu_torch.models import (
 from bert4rec_tpu_torch.trainers import BERT4RecTrainer, optimizers
 from bert4rec_tpu_torch.utils import checkpoint as ckpt
 from bert4rec_tpu_torch.utils import prefetch as port_prefetch
+from tests.test_torch_cuda_kernels import inputs_np, layer_params_np
 from tests.test_torch_trainer import (
     OPT, config_kwargs, dataset, host_params, jax_trainer,
 )
@@ -265,3 +277,150 @@ class TestPerSequenceMasking:
             assert a.dtype == b.dtype
             np.testing.assert_array_equal(a, b)
         assert seq[-1] != 1   # the input is not masked in place
+
+
+def _params(fn) -> dict:
+    return inspect.signature(fn).parameters
+
+
+class TestJaxArguments:
+    """Arguments JAX's calls take, which the port's took no part of."""
+
+    def _block_inputs(self, heads=4):
+        rng = np.random.default_rng(11)
+        flat = ckpt.flatten(layer_params_np(rng, 32, heads, 64))
+        x, mask = inputs_np(rng, 3, 10, 32)
+        return flat, x, mask
+
+    def test_transformer_block_takes_num_heads_with_jax_defaults(self):
+        flat, x, mask = self._block_inputs()
+        for name in ("num_heads", "output_dropout", "attention_dropout"):
+            assert name in _params(transformer.transformer_block)
+        for name in ("output_dropout", "attention_dropout"):
+            assert _params(transformer.transformer_block)[name].default \
+                == _params(jax_transformer.transformer_block)[name].default \
+                == 0.1
+        ref = jax_transformer.transformer_block(
+            jax.tree_util.tree_map(jnp.asarray, ckpt.unflatten(flat)),
+            jnp.asarray(x), JL.self_attention_mask(jnp.asarray(mask)),
+            num_heads=4, inner_activation=JL.get_activation("gelu"))
+        out = transformer.transformer_block(
+            ckpt.params_from_numpy(flat, "cpu"), torch.from_numpy(x),
+            L.self_attention_mask(torch.from_numpy(mask)), num_heads=4,
+            inner_activation=L.get_activation("gelu"))
+        np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-4,
+                                   atol=1e-4)
+        with pytest.raises(ValueError, match="num_heads=2.*4 heads"):
+            transformer.transformer_block(
+                ckpt.params_from_numpy(flat, "cpu"), torch.from_numpy(x),
+                L.self_attention_mask(torch.from_numpy(mask)), num_heads=2,
+                inner_activation=L.get_activation("gelu"))
+
+    def test_transformer_block_drops_at_the_default_rates(self):
+        """With a seed and the default rates a training block drops, as
+        JAX's does with an rng; rate 0 gives the eval output."""
+        flat, x, mask = self._block_inputs()
+        params = ckpt.params_from_numpy(flat, "cpu")
+        args = (params, torch.from_numpy(x),
+                L.self_attention_mask(torch.from_numpy(mask)))
+        kw = dict(num_heads=4, inner_activation=L.get_activation("gelu"))
+        evaluated = transformer.transformer_block(*args, **kw)
+        dropped = transformer.transformer_block(*args, seed=3,
+                                                training=True, **kw)
+        kept = transformer.transformer_block(
+            *args, seed=3, training=True, output_dropout=0.0,
+            attention_dropout=0.0, **kw)
+        jargs = (jax.tree_util.tree_map(jnp.asarray, ckpt.unflatten(flat)),
+                 jnp.asarray(x), JL.self_attention_mask(jnp.asarray(mask)))
+        jkw = dict(num_heads=4, inner_activation=JL.get_activation("gelu"))
+        jax_eval = jax_transformer.transformer_block(*jargs, **jkw)
+        jax_dropped = jax_transformer.transformer_block(
+            *jargs, rng=jax.random.key(3), training=True, **jkw)
+        assert not np.allclose(np.asarray(jax_dropped), np.asarray(jax_eval))
+        assert not torch.allclose(dropped, evaluated)
+        assert torch.equal(kept, evaluated)
+
+    @pytest.mark.parametrize("rate", [0.0, 0.3])
+    def test_dropout_takes_training(self, rate):
+        x = torch.arange(1.0, 2001.0)
+        assert "training" in _params(L.dropout)
+        assert torch.equal(L.dropout(x, rate, 7, training=False), x)
+        np.testing.assert_array_equal(
+            np.asarray(JL.dropout(jax.random.key(7), jnp.asarray(x.numpy()),
+                                  rate, False)), x.numpy())
+        dropped = L.dropout(x, rate, 7, training=True)
+        assert torch.equal(dropped, L.dropout(x, rate, 7))
+        kept = float((dropped != 0).float().mean())
+        assert abs(kept - (1 - rate)) < 0.05
+        assert torch.equal(dropped[dropped != 0], x[dropped != 0]
+                           / (1 - rate))
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                             ids=["fp32", "bf16"])
+    def test_truncated_normal_init_takes_dtype(self, dtype):
+        """Sampled in fp32, cast, then scaled in ``dtype`` (JAX's order):
+        JAX's dtype for the same name, the fp32 draw's values cast."""
+        assert _params(L.truncated_normal_init)["dtype"].default \
+            == torch.float32
+        out = L.truncated_normal_init(torch.Generator().manual_seed(3),
+                                      (64, 8), 0.02, dtype=dtype)
+        unit = L.truncated_normal_init(torch.Generator().manual_seed(3),
+                                       (64, 8), 1.0)
+        jdtype = {torch.float32: jnp.float32,
+                  torch.bfloat16: jnp.bfloat16}[dtype]
+        ref = JL.truncated_normal_init(jax.random.key(3), (64, 8), 0.02,
+                                       jdtype)
+        assert out.dtype == dtype and str(ref.dtype) == \
+            str(dtype).removeprefix("torch.")
+        assert torch.equal(out, unit.to(dtype) * 0.02)
+        assert float(out.float().abs().max()) <= 0.04 + 1e-3
+        meta = L.truncated_normal_init(None, (2, 3), 0.02, device="meta",
+                                       dtype=dtype)
+        assert meta.is_meta and meta.dtype == dtype
+
+    def test_create_mesh_takes_the_worlds_devices(self):
+        """``devices`` lists the world's devices: a one-rank world runs on
+        its one entry, with JAX's mesh shape; a list of another length,
+        or beside ``device``, raises."""
+        assert list(_params(core.create_mesh))[:2] == \
+            list(_params(jax_mesh.create_mesh))
+        mesh = core.create_mesh(devices=["cpu"])
+        jmesh = jax_mesh.create_mesh(devices=jax.devices()[:1])
+        assert mesh.device.type == "cpu"
+        assert (mesh.size("data"), mesh.size("model")) == \
+            tuple(jmesh.shape.values())
+        assert core.create_mesh(None, [torch.device("cpu")]).device.type \
+            == "cpu"
+        with pytest.raises(ValueError, match="2 devices for a world of 1"):
+            core.create_mesh(devices=["cpu", "cpu"])
+        with pytest.raises(ValueError, match="not both"):
+            core.create_mesh(devices=["cpu"], device="cpu")
+
+    @pytest.mark.parametrize("fn", ["export_top_k", "export_score_candidates"])
+    def test_exports_take_platforms(self, fn):
+        """``platforms`` as JAX's exports take it: the params' own device
+        exports; another platform raises, naming the rule."""
+        assert "platforms" in _params(getattr(export, fn))
+        assert "platforms" in _params(getattr(jax_export, fn))
+        model = BERT4RecModel(config=BERT4RecConfig(
+            vocab_size=30, hidden_size=16, num_layers=1,
+            num_attention_heads=2, inner_dim=32, max_sequence_length=8,
+            max_predictions_per_seq=2))
+        params = model.init(torch.Generator().manual_seed(0), device="cpu")
+        call = getattr(export, fn)
+        arg = 3
+        plain = call(model, params, arg, batch_size=2)
+        named = call(model, params, arg, batch_size=2, platforms=["cpu"])
+        ids = torch.randint(3, 30, (2, 8), dtype=torch.int32)
+        args = [ids, torch.ones_like(ids),
+                torch.tensor([[1, 5], [0, 7]], dtype=torch.int32)]
+        if fn == "export_score_candidates":
+            args.append(torch.randint(3, 30, (2, 2, 3), dtype=torch.int32))
+        for a, b in zip(torch.utils._pytree.tree_leaves(
+                plain.module()(*args)),
+                torch.utils._pytree.tree_leaves(named.module()(*args))):
+            assert torch.equal(a, b)
+        for bad in (["tpu"], ["cpu", "cuda"], ["gpu"], []):
+            with pytest.raises(ValueError, match="runs on the device its "
+                               "params lie on \\(cpu\\)"):
+                call(model, params, arg, platforms=bad)
