@@ -262,7 +262,29 @@ Phases (any failure raises and the script exits non-zero):
               launches checked; ``serving_bench`` (16 clients x 400
               requests, bf16 K1: p50 / p99); ``perf_guard``'s ten variants
               against their budgets (its command line, in a process of its
-              own); its seconds.
+              own); its seconds;
+25. examples — the port's example flows (``bert4rec_tpu_torch/examples``)
+              in the run's throwaway ``BERT4REC_TPU_HOME``: ``tools/
+              synth_corpus.py`` (as a tool, in a subprocess) writes full
+              ML-1M, Beauty and Steam corpora and ``--small`` ML-20M and
+              Reddit ones in their datasets' exact on-disk formats (Reddit's
+              zstd dump only where the zstandard package is installed: it
+              is printed as not run otherwise); the
+              ``bert4rec_<dataset>_example`` scripts train one epoch each
+              (fp32, full width and depth; the loss finite, the metrics in
+              [0, 1], the artifact on disk, every layer launch on the 3xTF32
+              route and the loss kernels the laws pick, then one of each
+              run's train batches through the kernel step against the plain
+              step); the chain over the ML-1M artifact (evaluation, the
+              Recommender, the Ranker, the HTTP server's demo request; the
+              answers against the plain path); the self-contained flows
+              (the lifecycle and SASRec held step for step against the plain
+              path, SASRec's K1'' causal on the route its shape law picks,
+              and its layer kernels at its shape against their plain
+              versions); then the quality harness's ``run_real`` at ML-1M,
+              8 epochs, dup 10 (HR@10 and NDCG@10 at least 5x their
+              popularity floor's), printed beside JAX's
+              ``quality_runs/ml1m_synthetic`` run; its seconds.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the rest of
@@ -988,19 +1010,22 @@ def check_dropout_masks(torch, device):
 
 
 def check_layer_training(torch, rng, device, h=HIDDEN, n=HEADS, f=INNER,
-                         rates=RATES, cases=None, seq=SEQ, trace=True):
+                         rates=RATES, cases=None, seq=SEQ, trace=True,
+                         causal=False):
     """K1 with dropout and K2 against their plain versions at width
     ``h`` (``n`` heads, inner ``f``) and length ``seq``, for each (dtype,
     batch) of ``cases`` (default fp32 and bf16 at B=32 and B=256); fp32's
     bounds at 3xTF32's 165 TFLOP/s, 67 without tensor cores printed
-    beside; at B=256 each launch's kernels by device time (``trace``)."""
+    beside; at B=256 each launch's kernels by device time (``trace``).
+    ``causal``: K1'' causal and its K2, by whatever route the shape law
+    gives."""
     import numpy as np
     from bert4rec_tpu_torch.ops import fused_encoder_layer as fel
     from bert4rec_tpu_torch.utils.checkpoint import flatten, unflatten
     params = random_layer(rng, device, h, n, f)
     flat = fel.flat_weights(params)
     kw = dict(num_heads=n, attention_dropout=rates[0],
-              output_dropout=rates[1], seed=4242)
+              output_dropout=rates[1], seed=4242, causal=causal)
     rows = {}
     cases = cases or [(dt, b) for dt in (torch.float32, torch.bfloat16)
                       for b in (32, STREAM_BATCH)]
@@ -1015,10 +1040,10 @@ def check_layer_training(torch, rng, device, h=HIDDEN, n=HEADS, f=INNER,
         dy = torch.from_numpy(rng.normal(size=(b, seq, h))
                               .astype(np.float32)).to(device, dtype)
         fwd = lambda: fel._launch_forward(   # noqa: E731
-            flat, x, mask, n, kw["seed"], *rates, True)
+            flat, x, mask, n, kw["seed"], *rates, True, causal)
         y, saved = fwd()
         bwd = lambda: fel._launch_backward(  # noqa: E731
-            flat, x, mask, dy, saved, n, kw["seed"], *rates)
+            flat, x, mask, dy, saved, n, kw["seed"], *rates, causal)
         dx, grads = bwd()
         torch.cuda.synchronize()
         ref_y = fel.fused_encoder_layer_plain(params, x, mask, **kw)
@@ -1042,7 +1067,7 @@ def check_layer_training(torch, rng, device, h=HIDDEN, n=HEADS, f=INNER,
                  for k, v in flatten(params).items()}
         xl = x.detach().requires_grad_(True)
         y_lib = library_layer_train(unflatten(lflat), xl, mask, n,
-                                    rates)
+                                    rates, causal)
         leaves = [xl, *lflat.values()]
         lib_bwd = lambda: torch.autograd.grad(  # noqa: E731
             y_lib, leaves, dy, retain_graph=True)
@@ -1053,9 +1078,10 @@ def check_layer_training(torch, rng, device, h=HIDDEN, n=HEADS, f=INNER,
                      plain_ms=time_ms(lambda: fel.fused_encoder_layer_plain(
                          params, x, mask, **kw)),
                      **blocks(lambda: library_layer_train(
-                         params, x, mask, n, rates), "library"),
+                         params, x, mask, n, rates, causal), "library"),
                      **dict(zip(("bound_ms", "bound_by"),
-                                layer_bound_ms(b, name, h, f, s=seq)))),
+                                layer_bound_ms(b, name, h, f, causal,
+                                               s=seq)))),
             bwd=dict(max_abs_err=float((dx.float() - ref_dx.float())
                                        .abs().max()),
                      max_rel_err=bwd_err, **blocks(bwd),
@@ -1064,15 +1090,17 @@ def check_layer_training(torch, rng, device, h=HIDDEN, n=HEADS, f=INNER,
                              flat, x, mask, dy, **kw), iters=5),
                      **blocks(lib_bwd, "library"),
                      **dict(zip(("bound_ms", "bound_by"),
-                                layer_bwd_bound_ms(b, name, h, f,
+                                layer_bwd_bound_ms(b, name, h, f, causal,
                                                    s=seq)))))
         rows[(name, b)] = row
-        simt = dict(fwd=layer_bound_ms(b, name, h, f, peak=PEAK_FLOPS[name],
-                                       s=seq),
-                    bwd=layer_bwd_bound_ms(b, name, h, f,
+        simt = dict(fwd=layer_bound_ms(b, name, h, f, causal,
+                                       peak=PEAK_FLOPS[name], s=seq),
+                    bwd=layer_bwd_bound_ms(b, name, h, f, causal,
                                            peak=PEAK_FLOPS[name], s=seq))
         for part, r in row.items():
             print(f"fused_encoder_layer {part} dropout {rates} {name} "
+                  + ("causal " if causal else "")
+                  + f"route {fel.kernel_route(dtype, b, h, n, f)} "
                   f"B={b} S={seq} H={h} N={n} F={f}: err "
                   f"{r['max_abs_err']:.3g}"
                   + (f" (rel {r['max_rel_err']:.3g}, tol "
@@ -3019,29 +3047,44 @@ def check_temporal_gate(torch, device):
 ORACLE_SCALE = "ml1m"
 
 
+class TrainCalls:
+    """While entered, ``BERT4RecTrainer.train`` records each call: the
+    trainer, its train dataset, the synchronised seconds and the steps."""
+
+    def __init__(self, torch):
+        self.torch, self.calls = torch, []
+
+    def __enter__(self):
+        from unittest import mock
+        from bert4rec_tpu_torch.trainers import BERT4RecTrainer
+        train = BERT4RecTrainer.train
+
+        def recorded(trainer, train_ds, *args, **kwargs):
+            step0 = trainer.state["step"] if trainer.state else 0
+            t0 = time.perf_counter()
+            history = train(trainer, train_ds, *args, **kwargs)
+            self.torch.cuda.synchronize()
+            self.calls.append((trainer, train_ds, time.perf_counter() - t0,
+                               trainer.state["step"] - step0))
+            return history
+
+        self._patch = mock.patch.object(BERT4RecTrainer, "train", recorded)
+        self._patch.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._patch.stop()
+
+
 def check_oracle_gate(torch, device):
     """``quality_harness.run_oracle`` at the ml1m preset (family bert4rec,
     80 epochs, JAX's gates unchanged) on the card: every check must hold.
     The layer and loss launches of the run are counted by route, and each
     ``train()`` call is timed; one step of the last trained model is
     traced for its device time."""
-    import types
-    from unittest import mock
     from bert4rec_tpu_torch.evaluation import quality_harness
     from bert4rec_tpu_torch.ops import fused_encoder_layer as fel
     from bert4rec_tpu_torch.ops import fused_mlm_loss as fml
-    from bert4rec_tpu_torch.trainers import BERT4RecTrainer
-
-    trains = []
-    train = BERT4RecTrainer.train
-
-    def timed_train(self, *args, **kwargs):
-        step0, t0 = self.state["step"], time.perf_counter()
-        history = train(self, *args, **kwargs)
-        torch.cuda.synchronize()
-        trains.append((self, time.perf_counter() - t0,
-                       self.state["step"] - step0))
-        return history
 
     layer_counters = ("launches", "backward_launches", "mma_sync_launches",
                       "mma_sync_backward_launches", "tf32_launches",
@@ -3054,9 +3097,10 @@ def check_oracle_gate(torch, device):
             setattr(fel.fused_encoder_layer, attr, 0)
         fml.fused_mlm_loss.launches = fml.fused_mlm_loss.backward_launches = 0
         t0 = time.perf_counter()
-        with mock.patch.object(BERT4RecTrainer, "train", timed_train):
+        with TrainCalls(torch) as recorded:
             rc = quality_harness.run_oracle(args, device=device)
         wall = time.perf_counter() - t0
+        trains = [(t, w, n) for t, _, w, n in recorded.calls]
         counts = dict(layer_fwd=fel.fused_encoder_layer.launches,
                       layer_bwd=fel.fused_encoder_layer.backward_launches,
                       loss_fwd=fml.fused_mlm_loss.launches,
@@ -4217,6 +4261,474 @@ def check_tools(torch, rng, device):
     return out
 
 
+# --------------------------------------------------------------------------- #
+# phase 25: the example flows on format-exact corpora, and the harness's
+# run_real at ML-1M
+# --------------------------------------------------------------------------- #
+
+REPO = pathlib.Path(__file__).resolve().parent
+# tools/synth_corpus.py's corpora: full ML-1M, Beauty and Steam (their bytes
+# pass the datasets' +-2% size gate), --small ML-20M and Reddit, loaded under
+# EXAMPLE_CAP records, above their row counts: a cap makes the gate
+# existence-only and cuts nothing
+EXAMPLE_CORPORA = (("ml_1m", False), ("beauty", False), ("steam", False),
+                   ("ml_20m", True), ("reddit", True))
+EXAMPLE_CAP = 100_000_000
+# Reddit's dump is zstd-compressed: tools/synth_corpus.py writes it and
+# datasets/reddit.py reads it through the zstandard package, which a
+# machine with a card may lack
+NEEDS_ZSTANDARD = ("reddit",)
+# each training example: its dataset, module and saved model's name
+EXAMPLE_TRAINING = (
+    ("ml_1m", "bert4rec_ml_1m_example", "bert4rec_ml-1m_128"),
+    ("beauty", "bert4rec_beauty_example", "bert4rec_beauty_128"),
+    ("steam", "bert4rec_steam_example", "bert4rec_steam_128"),
+    ("ml_20m", "bert4rec_ml_20m_example", "bert4rec_ml-20m_128"),
+    ("reddit", "bert4rec_reddit_example", "bert4rec_reddit_128"))
+ARTIFACT_FILES = ("checkpoints/best.npz", "encoder_config.json",
+                  "eval_results.json", "meta_config.json", "vocab.txt",
+                  "weights.npz")
+# the harness's real mode at JAX's quality_runs/ml1m_synthetic settings,
+# on the same generator and seed's corpus
+RUN_REAL = ("--dataset", "ml_1m", "--config", "ml-1m_128", "--epochs", "8",
+            "--dup", "10")
+JAX_REAL = "quality_runs/ml1m_synthetic/eval_results.json"
+REAL_OVER_FLOOR = 5       # HR@10 and NDCG@10 against the popularity floor's
+# sasrec_example's layer (B=64, S=16, hidden 48, 4 heads of 12, inner 96,
+# dropout 0.1 / 0.1): fp32 K1'' causal on the SIMT route (head dim 12)
+SASREC_LAYER = dict(b=64, s=16, h=48, n=4, f=96, rates=(0.1, 0.1))
+BY_HAND_TOL = 1e-5        # fp32 library loss vs float64 by hand
+
+
+def launch_counts(reset: bool = False) -> dict:
+    """Every launch counter of the layer, loss and flash attention kernels
+    (``tools/count_launches.COUNTERS``); ``reset`` sets them to 0 first."""
+    from bert4rec_tpu_torch.tools import count_launches
+    fns = count_launches.counted_functions()
+    names = [(n, a) for n, attrs in count_launches.COUNTERS.items()
+             for a in attrs]
+    if reset:
+        for name, attr in names:
+            setattr(fns[name], attr, 0)
+    return {f"{name}.{attr}": getattr(fns[name], attr)
+            for name, attr in names}
+
+
+def check_metrics(metrics: dict, label: str) -> None:
+    """The evaluator's keys, a positive rank count, the rates in [0, 1]."""
+    rates = {k: v for k, v in metrics.items() if k != "Valid Ranks"}
+    if not (metrics.get("Valid Ranks", 0) > 0 and len(rates) == 7 and all(
+            0.0 <= float(v) <= 1.0 for v in rates.values())):
+        raise AssertionError(f"{label}: metrics {metrics}")
+
+
+def check_layer_routes(counts: dict, label: str, route="tf32",
+                       causal=False) -> None:
+    """Every layer launch on ``route`` (the 3xTF32 kernels, or SIMT), in
+    the bidirectional or the causal counters only; no flash attention."""
+    lay = "fused_encoder_layer."
+    kind = "causal_" if causal else ""
+    fwd, bwd = counts[f"{lay}{kind}launches"], counts[
+        f"{lay}{kind}backward_launches"]
+    others = [k for k, v in counts.items() if v and k.startswith(lay) and k
+              not in (f"{lay}{kind}launches", f"{lay}{kind}backward_launches",
+                      f"{lay}tf32_launches", f"{lay}tf32_backward_launches")]
+    tf32 = (counts[f"{lay}tf32_launches"], counts[
+        f"{lay}tf32_backward_launches"])
+    flash = [k for k, v in counts.items()
+             if v and k.startswith("flash_attention.")]
+    want_tf32 = (fwd, bwd) if route == "tf32" else (0, 0)
+    if not (fwd > 0 and tf32 == want_tf32 and not others and not flash):
+        raise AssertionError(f"{label}: the layer launches are not all "
+                             f"{kind}{route}: {counts}")
+
+
+def check_loss_routes(counts: dict, want: dict, steps: int,
+                      label: str) -> None:
+    """The loss kernels the laws pick (``config_sweep.routes``): K3 / K4,
+    or K5 with K6 or K7; one backward a step."""
+    k = {name: counts[f"fused_mlm_loss{c}"] for name, c in (
+        ("K3", ".launches"), ("K4", ".backward_launches"),
+        ("K5", "_tiled.launches"), ("K6", "_tiled.merged_launches"),
+        ("K7", "_tiled.two_sweep_launches"))}
+    if want["loss_kernel"] == "whole_table":
+        ok = k["K3"] > 0 and k["K4"] == steps and not (
+            k["K5"] or k["K6"] or k["K7"])
+    else:
+        back = want["loss_backward"]
+        other = "K7" if back == "K6" else "K6"
+        ok = (k["K5"] > 0 and k[back] == steps and not k[other]
+              and not (k["K3"] or k["K4"]))
+    if not ok:
+        raise AssertionError(f"{label}: loss launches {k}, the laws say "
+                             f"{want} for {steps} steps")
+
+
+def nonzero(counts: dict) -> dict:
+    return {k: v for k, v in counts.items() if v}
+
+
+def example_datasets() -> list:
+    """The corpora phase 25 can make and read here: all five, less Reddit
+    where the zstandard package is absent (printed, not hidden)."""
+    import importlib.util
+    if importlib.util.find_spec("zstandard") is not None:
+        return [d for d, _ in EXAMPLE_CORPORA]
+    print(f"examples: no zstandard package on this machine: "
+          f"{list(NEEDS_ZSTANDARD)} not run (tools/synth_corpus.py cannot "
+          f"write the dump, datasets/reddit.py cannot read one)", flush=True)
+    return [d for d, _ in EXAMPLE_CORPORA if d not in NEEDS_ZSTANDARD]
+
+
+def make_example_corpora(home, names) -> float:
+    """``tools/synth_corpus.py``, unchanged, as a tool, for each corpus of
+    ``names``; phase 7's ML-20M corpus makes way for its ``--small``
+    one."""
+    t0 = time.perf_counter()
+    shutil.rmtree(pathlib.Path(home) / "data" / "ml-20m", ignore_errors=True)
+    for dataset, small in EXAMPLE_CORPORA:
+        if dataset not in names:
+            continue
+        proc = subprocess.run(
+            [sys.executable, str(REPO / "tools" / "synth_corpus.py"),
+             "--home", str(home), "--dataset", dataset,
+             *(["--small"] if small else [])],
+            capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            raise AssertionError(f"synth_corpus {dataset}: "
+                                 f"{proc.stderr[-2000:]}")
+    return time.perf_counter() - t0
+
+
+def check_trained(torch, trainer, train_ds, batch_size, steps, counts,
+                  label) -> tuple:
+    """One example's ``train()`` run against the laws, at the loader's P
+    (``config_sweep.routes``): every layer launch on the route the shape
+    law picks (causal where the model is), one backward a layer a step,
+    the loss kernels the laws pick; then one of its train batches through
+    the kernel step against the plain step. Returns the routes and P."""
+    from bert4rec_tpu_torch.tools import config_sweep
+    cfg = trainer.model.config
+    batch = trainer._put_batch(next(iter(train_ds.batches(
+        batch_size, shuffle=True, seed=0, drop_remainder=True))))
+    npred = batch["masked_lm_positions"].shape[1]
+    want = config_sweep.routes(
+        dict(cfg.to_dict(), max_predictions_per_seq=npred),
+        batch=batch_size, dtype_bytes=4)
+    check_layer_routes(counts, label, want["layer_kernel"],
+                       causal=cfg.causal_attention)
+    kind = "causal_" if cfg.causal_attention else ""
+    if counts[f"fused_encoder_layer.{kind}backward_launches"] != \
+            cfg.num_layers * steps:
+        raise AssertionError(f"{label}: {counts} for {steps} steps")
+    check_loss_routes(counts, want, steps, label)
+    check_step_parity(torch, trainer, batch, label)
+    return want, npred
+
+
+def check_training_example(torch, device, home, dataset, module_name,
+                           save_name) -> dict:
+    """One ``bert4rec_<dataset>_example`` on the card: the loss finite,
+    the metrics in range, the artifact on disk, every layer launch on the
+    3xTF32 route and the loss kernels the laws pick; then one of its train
+    batches through the trained model, the kernel step against the plain
+    step."""
+    module = importlib.import_module(
+        f"bert4rec_tpu_torch.examples.{module_name}")
+    small = dict(EXAMPLE_CORPORA)[dataset]
+    if small:
+        os.environ["BERT4REC_TPU_LOAD_N_RECORDS"] = str(EXAMPLE_CAP)
+    else:
+        os.environ.pop("BERT4REC_TPU_LOAD_N_RECORDS", None)
+    launch_counts(reset=True)
+    t0 = time.perf_counter()
+    with TrainCalls(torch) as recorded:
+        _, metrics, history = module.main(device=str(device))
+    seconds = time.perf_counter() - t0
+    counts = launch_counts()
+    (trainer, train_ds, train_s, steps), = recorded.calls
+    cfg = trainer.model.config
+    losses = history.history.get("loss", [])
+    if not (losses and all(math.isfinite(v) for v in losses) and steps > 0):
+        raise AssertionError(f"{module_name}: losses {losses}, {steps} "
+                             f"steps")
+    check_metrics(metrics, module_name)
+    saved = pathlib.Path(home) / "saved_models" / save_name
+    missing = [f for f in ARTIFACT_FILES if not (saved / f).is_file()]
+    if missing:
+        raise AssertionError(f"{module_name}: {saved} lacks {missing}")
+    want, npred = check_trained(torch, trainer, train_ds, STREAM_BATCH,
+                                steps, counts, module_name)
+    if want["layer_kernel"] != "tf32":
+        raise AssertionError(f"{module_name}: the law routes the layer to "
+                             f"{want}")
+    print(f"examples {module_name}: V={cfg.vocab_size} S="
+          f"{cfg.max_sequence_length} P={npred} "
+          f"H={cfg.hidden_size} B={STREAM_BATCH}, {len(train_ds)} train rows"
+          f", {steps} steps in {train_s:.1f} s of train() "
+          f"({train_s * 1e3 / steps:.3f} ms a step), loss "
+          f"{losses[-1]:.4f}; test HR@10 {metrics['HR@10']:.4f} NDCG@10 "
+          f"{metrics['NDCG@10']:.4f} over {metrics['Valid Ranks']} users; "
+          f"routes {want}; launches {nonzero(counts)}; {seconds:.1f} s",
+          flush=True)
+    del trainer
+    torch.cuda.empty_cache()
+    return dict(counts=counts, steps=steps, seconds=seconds)
+
+
+def check_ml1m_chain(torch, device, home) -> dict:
+    """Phase 25's chain over the ML-1M example's artifact: evaluation,
+    the Recommender, the Ranker and the HTTP server's demo request, every
+    layer launch on the 3xTF32 route; the Recommender's and the server's
+    answers against the plain path on the same artifact."""
+    from bert4rec_tpu_torch.apps import Recommender
+    from bert4rec_tpu_torch.dataloaders import get_dataloader_factory
+    from bert4rec_tpu_torch.examples import (
+        bert4rec_evaluation_example, ranker_app, recommender_app_example,
+        serving_server_example,
+    )
+    from bert4rec_tpu_torch.models import BERT4RecModelWrapper
+    os.environ.pop("BERT4REC_TPU_LOAD_N_RECORDS", None)
+    path = str(pathlib.Path(home) / "saved_models" / "bert4rec_ml-1m_128")
+    launch_counts(reset=True)
+    t0 = time.perf_counter()
+    metrics = bert4rec_evaluation_example.main(path, device=str(device))
+    recommended = recommender_app_example.main(path, device=str(device))
+    ranked = ranker_app.main(path, str(device))
+    served = serving_server_example.main(path, 0, "demo", str(device))
+    seconds = time.perf_counter() - t0
+    counts = launch_counts()
+    check_metrics(metrics, "bert4rec_evaluation_example")
+    with open(f"{path}/eval_results.json") as f:
+        if sorted(json.load(f)) != sorted(metrics):
+            raise AssertionError("eval_results.json lacks the metrics")
+    check_layer_routes(counts, "the ML-1M chain")
+    if counts["fused_encoder_layer.backward_launches"] or any(
+            v for k, v in counts.items() if k.startswith("fused_mlm_loss")):
+        raise AssertionError(f"the ML-1M chain trained: {counts}")
+    if not (ranked["rank"] >= 1 and sorted(
+            r for _, r in ranked["ranking"]) == [1, 2, 3]):
+        raise AssertionError(f"ranker_app: {ranked}")
+    print(f"examples chain: evaluation {metrics}; recommendation "
+          f"{recommended['history']} -> {recommended['recommendation']}; "
+          f"ranker {ranked}; served {served['response']}, healthz "
+          f"{served['healthz']}; launches {nonzero(counts)}; "
+          f"{seconds:.1f} s", flush=True)
+    wrapper, extras = BERT4RecModelWrapper.load(path, device=device)
+    rec = Recommender(wrapper.model, wrapper.params,
+                      get_dataloader_factory().create_ml_1m_dataloader(
+                          tokenizer=extras["tokenizer"]), device=device)
+    check_answers(torch, rec, [recommended["history"]], [1],
+                  [[recommended["recommendation"]]],
+                  "examples: recommender_app_example")
+    check_answers(torch, rec, [served["history"]], [5],
+                  [served["response"]["items"]],
+                  "examples: serving_server_example demo")
+    return dict(counts=counts, seconds=seconds)
+
+
+def check_self_contained_examples(torch, device) -> dict:
+    """The flows that need no corpus (and dataloader_usage_example on the
+    ML-1M corpus) on the card: the lifecycle (3xTF32 layer, K3 / K4) and
+    SASRec (K1'' causal on the route the shape law picks) held step for
+    step against the plain path; the loss walk-through's library loss
+    against the same numbers by hand; the temporal features' batch and the
+    two temporal models' logits."""
+    import numpy as np
+    from bert4rec_tpu_torch.examples import (
+        bert4rec_lifecycle_example, dataloader_usage_example,
+        loss_calculation_example, sasrec_example, temporal_features_example,
+    )
+    out, counts = {}, {}
+    t0 = time.perf_counter()
+    for name, module, batch_size in (
+            ("lifecycle", bert4rec_lifecycle_example, 32),
+            ("sasrec", sasrec_example, SASREC_LAYER["b"])):
+        launch_counts(reset=True)
+        with TrainCalls(torch) as recorded:
+            out[name] = module.main(device=str(device))
+        counts[name] = launch_counts()
+        (trainer, train_ds, _, steps), = recorded.calls
+        cfg = trainer.model.config
+        if name == "sasrec" and (
+                cfg.hidden_size, cfg.num_attention_heads, cfg.inner_dim,
+                cfg.max_sequence_length) != tuple(
+                SASREC_LAYER[k] for k in "hnfs"):
+            raise AssertionError(f"SASREC_LAYER is not the example's: {cfg}")
+        want, _ = check_trained(torch, trainer, train_ds, batch_size, steps,
+                                counts[name], f"{name} example")
+        print(f"examples {name}: routes {want}, {steps} steps; "
+              f"launches {nonzero(counts[name])}", flush=True)
+    life, sas = out["lifecycle"], out["sasrec"]
+    check_metrics(life["metrics"], "lifecycle example")
+    check_metrics(sas["results"], "sasrec example")
+    if not (all(math.isfinite(v) for v in life["loss"])
+            and len(life["files"]) == 4 and life["recommendation"]):
+        raise AssertionError(f"lifecycle example: {life}")
+    if not (0.0 <= sas["masked_accuracy"] <= 1.0 and len(sas["after"]) == 3):
+        raise AssertionError(f"sasrec example: {sas}")
+
+    launch_counts(reset=True)
+    walk = loss_calculation_example.main(device=str(device))
+    temporal = temporal_features_example.main(device=str(device))
+    counts["plain"] = launch_counts()
+    if not (abs(walk["manual_loss"] - walk["loss"]) <= BY_HAND_TOL
+            and math.isfinite(walk["loss"])):
+        raise AssertionError(f"loss_calculation_example: library "
+                             f"{walk['loss']}, by hand {walk['manual_loss']}")
+    for flag in ("use_temporal_embeddings", "use_temporal_attention"):
+        logits = temporal[flag]
+        if logits.shape[:2] != (8, 4) or not np.isfinite(logits).all():
+            raise AssertionError(f"temporal_features_example {flag}: "
+                                 f"{logits.shape}")
+    if nonzero(counts["plain"]):
+        # JAX's configs of these two: no fused layer, no kernel
+        raise AssertionError(f"the plain flows launched kernels: "
+                             f"{counts['plain']}")
+    os.environ.pop("BERT4REC_TPU_LOAD_N_RECORDS", None)
+    usage = dataloader_usage_example.main(device=str(device))
+    if not (usage["vocab_size"] == VOCAB and usage["batch"][
+            "input_word_ids"].shape == (STREAM_BATCH, SEQ)):
+        raise AssertionError(f"dataloader_usage_example: vocab "
+                             f"{usage['vocab_size']}, sizes {usage['sizes']}")
+    print(f"examples self-contained: loss walk-through {walk['loss']:.6f} "
+          f"(by hand {walk['manual_loss']:.6f}), lifecycle eval "
+          f"{life['metrics']}, sasrec {sas['results']} (masked accuracy "
+          f"{sas['masked_accuracy']:.3f}), dataloader_usage vocab "
+          f"{usage['vocab_size']} sizes {usage['sizes']}; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return counts
+
+
+def check_run_real(torch, device) -> dict:
+    """The harness's real mode (``tools/quality_run``'s default mode) at
+    ML-1M, 8 epochs, dup 10, on the synthetic corpus: HR@10 and NDCG@10
+    at least ``REAL_OVER_FLOOR`` times the popularity floor's, every layer
+    launch on the 3xTF32 route and K3 / K4 once a step; printed beside
+    JAX's run of ``JAX_REAL``."""
+    import numpy as np
+    from bert4rec_tpu_torch.evaluation import quality_harness
+    from bert4rec_tpu_torch.tools import config_sweep
+    os.environ.pop("BERT4REC_TPU_LOAD_N_RECORDS", None)
+    launch_counts(reset=True)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_real_") as tmp, \
+            TrainCalls(torch) as recorded:
+        rc = quality_harness.main([*RUN_REAL, "--device", str(device),
+                                   "--out", tmp])
+        with open(f"{tmp}/eval_results.json") as f:
+            payload = json.load(f)
+    seconds = time.perf_counter() - t0
+    counts = launch_counts()
+    (trainer, _, train_s, steps), = recorded.calls
+    want = config_sweep.routes(trainer.model.config.to_dict(),
+                               batch=STREAM_BATCH, dtype_bytes=4)   # P=40
+    with open(REPO / JAX_REAL) as f:
+        jax_run = json.load(f)
+    res, floor = payload["results"], payload["results_popularity_floor"]
+    jres, jfloor = jax_run["results"], jax_run["results_popularity_floor"]
+    over = {k: res[k] / floor[k] for k in ("HR@10", "NDCG@10")}
+    print(f"run_real ({' '.join(RUN_REAL)}; V={payload['vocab_size']}, "
+          f"{payload['epochs_ran']} epochs ran): "
+          f"HR@10 {res['HR@10']:.4f} NDCG@10 {res['NDCG@10']:.4f} (JAX "
+          f"{jres['HR@10']:.4f} / {jres['NDCG@10']:.4f}; distance "
+          f"{res['HR@10'] - jres['HR@10']:+.4f} / "
+          f"{res['NDCG@10'] - jres['NDCG@10']:+.4f}); popularity floor "
+          f"{floor['HR@10']:.4f} / {floor['NDCG@10']:.4f} (JAX "
+          f"{jfloor['HR@10']:.4f} / {jfloor['NDCG@10']:.4f}); over the floor"
+          f" {over['HR@10']:.2f}x / {over['NDCG@10']:.2f}x (needed "
+          f"{REAL_OVER_FLOOR}x); wall {payload['wall_seconds']:.1f} s (JAX "
+          f"{jax_run['wall_seconds']:.1f} s on its TPU), train() "
+          f"{train_s * 1e3 / steps:.3f} ms a step over {steps} steps; "
+          f"launches {nonzero(counts)}; {seconds:.1f} s", flush=True)
+    print(f"run_real results {res}; floor {floor}", flush=True)
+    check_layer_routes(counts, "run_real")
+    check_loss_routes(counts, want, steps, "run_real")
+    if not (rc == 0 and all(np.isfinite(list(res.values())))
+            and min(over.values()) >= REAL_OVER_FLOOR):
+        raise AssertionError(f"run_real: rc {rc}, {res} against the floor "
+                             f"{floor}")
+    del trainer
+    torch.cuda.empty_cache()
+    return dict(counts=counts, steps=steps, payload=payload)
+
+
+def credit_examples(record, examples, entry) -> None:
+    """Phase 25's launches in the kernels line, by kernel: the layer's
+    inference forwards (validation, evaluation, the apps; mostly at B=256)
+    to K1's B=256 row, one training forward per backward to K1', the loss
+    kernels to their fp32 rows; SASRec's causal layer (SIMT, off the
+    3xTF32 shape rule) as rows of its own, timed at its shape."""
+    ex_counts = [c["counts"] for c in examples["training"].values()] + [
+        examples["chain"]["counts"], examples["run_real"]["counts"],
+        *examples["self_contained"].values()]
+
+    def ex(key):
+        return sum(c[key] for c in ex_counts)
+
+    trained = ex("fused_encoder_layer.tf32_backward_launches")
+    if ex("fused_mlm_loss_tiled.two_sweep_launches"):
+        raise AssertionError("phase 25 ran fp32 K7, which has no row here")
+    credit = {
+        "fused_encoder_layer_b256":
+            ex("fused_encoder_layer.tf32_launches") - trained,
+        "fused_encoder_layer_dropout_fp32": trained,
+        "fused_encoder_layer_backward_fp32": trained,
+        "fused_mlm_loss_fp32": ex("fused_mlm_loss.launches"),
+        "fused_mlm_loss_backward_fp32": ex("fused_mlm_loss.backward_launches"),
+        "fused_mlm_loss_tiled_fp32": ex("fused_mlm_loss_tiled.launches"),
+        "fused_mlm_loss_tiled_backward_merged_fp32":
+            ex("fused_mlm_loss_tiled.merged_launches")}
+    for k in record["kernels"]:
+        k["launches"] += credit.get(k["name"], 0)
+    c_sas = examples["self_contained"]["sasrec"]
+    layer_src = "fused_encoder_layer.cu"
+    record["kernels"] += [
+        entry("fused_encoder_layer_causal_fp32_simt", layer_src,
+              "bert4rec_tpu/ops/fused_encoder_layer.py:241",
+              c_sas["fused_encoder_layer.causal_launches"],
+              examples["sasrec_layer"]["fwd"]),
+        entry("fused_encoder_layer_causal_backward_fp32_simt", layer_src,
+              "bert4rec_tpu/ops/fused_encoder_layer.py:265",
+              c_sas["fused_encoder_layer.causal_backward_launches"],
+              examples["sasrec_layer"]["bwd"])]
+    print(f"phase 25 launches in the kernels line: {credit}; SASRec's "
+          f"causal layer {c_sas['fused_encoder_layer.causal_launches']} + "
+          f"{c_sas['fused_encoder_layer.causal_backward_launches']}",
+          flush=True)
+
+
+def check_examples(torch, rng, device, home) -> dict:
+    """Phase 25: the corpora, the five training examples, the ML-1M chain,
+    the self-contained flows, SASRec's layer kernels at its shape against
+    their plain versions, and ``run_real`` at ML-1M; its seconds."""
+    t_phase = time.perf_counter()
+    names = example_datasets()
+    out = {"corpora_s": make_example_corpora(home, names)}
+    print(f"examples: corpora {names} in {out['corpora_s']:.1f} s",
+          flush=True)
+    os.environ["BERT4REC_TPU_EXAMPLE_EPOCHS"] = "1"
+    try:
+        out["training"] = {
+            dataset: check_training_example(torch, device, home, dataset,
+                                            module, saved)
+            for dataset, module, saved in EXAMPLE_TRAINING
+            if dataset in names}
+    finally:
+        os.environ.pop("BERT4REC_TPU_EXAMPLE_EPOCHS", None)
+    out["chain"] = check_ml1m_chain(torch, device, home)
+    out["self_contained"] = check_self_contained_examples(torch, device)
+    shape = SASREC_LAYER
+    out["sasrec_layer"] = check_layer_training(
+        torch, rng, device, h=shape["h"], n=shape["n"], f=shape["f"],
+        rates=shape["rates"], cases=[(torch.float32, shape["b"])],
+        seq=shape["s"], trace=False, causal=True)[("float32", shape["b"])]
+    out["run_real"] = check_run_real(torch, device)
+    print(f"phase 25 (examples): {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4356,6 +4868,10 @@ def run(torch, home) -> int:
     # serving_bench, perf_guard) and the kernel shapes of those configs
     tools = check_tools(torch, rng, device)
     sweep = tools["sweep"]
+    # phase 25: the example flows on format-exact corpora and run_real at
+    # ML-1M (fp32: K1 and K1'/K2 on 3xTF32, K3/K4 or K5 + K6; SASRec's K1''
+    # causal on the route its shape law picks)
+    examples = check_examples(torch, rng, device, home)
 
     def entry(name, source, replaces, n, row):
         return {"name": name, "route": "cuda",
@@ -4540,6 +5056,7 @@ def run(torch, home) -> int:
         entry("fused_encoder_layer_bf16", wgmma_src,
               "bert4rec_tpu/ops/fused_encoder_layer.py:241",
               tools["serving_launches"], layer_rows[("bfloat16", 32)])]
+    credit_examples(record, examples, entry)
     idle = [k["name"] for k in record["kernels"] if not k["launches"]]
     if idle:
         raise AssertionError(f"kernels no main path launched: {idle}")

@@ -1,6 +1,7 @@
 """The port stands alone: importing every module of ``bert4rec_tpu_torch``
 (and ``chip_smoke.py``) imports neither JAX, the JAX package, the root
-``bench.py`` nor ``tools/``, and its entry points refuse to fall back to
+``bench.py``, ``tools/`` nor the JAX package's ``examples/``, and its
+entry points refuse to fall back to
 the CPU when CUDA is absent."""
 
 import subprocess
@@ -29,11 +30,13 @@ def test_no_module_imports_jax_or_the_jax_package():
         for name in names:
             importlib.import_module(name)
         import chip_smoke
-        # nor the JAX package's scripts: the root bench.py and tools/
+        # nor the JAX package's scripts: the root bench.py, tools/ and
+        # examples/
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith("jax.")
                      or m == "bert4rec_tpu" or m.startswith("bert4rec_tpu.")
-                     or m in ("bench", "tools") or m.startswith("tools."))
+                     or m in ("bench", "tools", "examples")
+                     or m.startswith(("tools.", "examples.")))
         print(len(names), bad)
         assert len(names) >= 30 and not bad, bad
         # the host pipeline's, SASRec's, evaluation's, the quality
@@ -61,7 +64,20 @@ def test_no_module_imports_jax_or_the_jax_package():
                     "examples.multihost_example",
                     "examples.sharded_ranking_example", "tools.bench",
                     "tools.config_sweep", "tools.perf_guard",
-                    "tools.serving_bench", "tools.release_check"):
+                    "tools.serving_bench", "tools.release_check",
+                    "examples._common", "examples.bert4rec_ml_1m_example",
+                    "examples.bert4rec_beauty_example",
+                    "examples.bert4rec_steam_example",
+                    "examples.bert4rec_ml_20m_example",
+                    "examples.bert4rec_reddit_example",
+                    "examples.bert4rec_evaluation_example",
+                    "examples.recommender_app_example",
+                    "examples.serving_server_example",
+                    "examples.bert4rec_lifecycle_example",
+                    "examples.loss_calculation_example",
+                    "examples.temporal_features_example",
+                    "examples.sasrec_example",
+                    "examples.dataloader_usage_example"):
             assert "bert4rec_tpu_torch." + mod in names, mod
         from bert4rec_tpu_torch.dataloaders import native
         assert native._lib is None
