@@ -21,6 +21,13 @@
 - ``train()`` and ``validate()`` feed their batches through
   ``utils.prefetch``: a host thread slices and masks batch k+1 and copies
   it to the card (pinned memory, a side stream) while step k runs.
+- spans (``utils.profiling.span``, recorded under ``record_spans()`` and
+  in ``train(profile_dir=...)``'s trace): ``trainer.step`` around each
+  train step, inside it ``trainer.forward``, ``trainer.backward``,
+  ``trainer.optimizer`` and ``trainer.sync`` (a call that blocks the host
+  until the card has caught up); ``trainer.epoch_end`` from the end of an
+  epoch's batches to the end of its callbacks; ``pipeline.wait`` (in
+  ``utils.prefetch``) where the loop waits for its next batch.
 
 On a ``(data, model)`` mesh (``core/mesh.py``, one process per rank) the
 train state is this rank's pieces (``core/partitioning.py``: the item
@@ -184,10 +191,12 @@ class BERT4RecTrainer(BaseTrainer):
     def _counts(self, batch) -> dict:
         """The batch's position counts (the global batch's on a mesh)."""
         labels = batch["masked_lm_ids"]
-        counts = torch.stack([
-            trainer_utils.n_valid_positions(labels),
-            torch.tensor(float(labels.numel()), device=labels.device),
-            trainer_utils.n_real_positions(labels)])
+        n_valid = trainer_utils.n_valid_positions(labels)
+        # a copy from the host: on the card it waits for the stream
+        with profiling.span("trainer.sync"):
+            n_total = torch.tensor(float(labels.numel()), device=labels.device)
+        counts = torch.stack([n_valid, n_total,
+                              trainer_utils.n_real_positions(labels)])
         if self.mesh is not None:
             counts = mesh_lib.all_reduce(self.mesh, counts, DATA_AXIS)
         return dict(zip(("_n_valid", "_n_total", "_n_real"), counts))
@@ -200,17 +209,22 @@ class BERT4RecTrainer(BaseTrainer):
             seed = fold_in(seed, self.mesh.index(DATA_AXIS))
         return seed
 
-    def _grads(self, batch, seed):
-        """(loss, logs, {path: grad}) of one batch at the current params;
-        a param the loss does not reach (the pooler) gets a zero grad."""
-        flat = ckpt_lib.flatten(self.state["params"])
-        loss, logs = self._loss_and_logs(self.state["params"], batch, True,
-                                         seed)
-        grads = torch.autograd.grad(loss, list(flat.values()),
-                                    allow_unused=True)
-        return loss.detach(), {k: v.detach() for k, v in logs.items()}, {
-            k: (torch.zeros_like(p) if g is None else g)
-            for (k, p), g in zip(flat.items(), grads)}
+    def _grads(self, batch, seed=None):
+        """(loss, logs, {path: grad}) of one batch at the current params,
+        dropout from ``seed`` (None: the step's, ``_step_seed``); a param
+        the loss does not reach (the pooler) gets a zero grad."""
+        with profiling.span("trainer.forward"):
+            if seed is None:
+                seed = self._step_seed()
+            loss, logs = self._loss_and_logs(self.state["params"], batch,
+                                             True, seed)
+        with profiling.span("trainer.backward"):
+            flat = ckpt_lib.flatten(self.state["params"])
+            grads = torch.autograd.grad(loss, list(flat.values()),
+                                        allow_unused=True)
+            return loss.detach(), {k: v.detach() for k, v in logs.items()}, {
+                k: (torch.zeros_like(p) if g is None else g)
+                for (k, p), g in zip(flat.items(), grads)}
 
     def _apply(self, grads) -> None:
         sq_norm = None
@@ -218,9 +232,10 @@ class BERT4RecTrainer(BaseTrainer):
             grads = self._sum_over_data(grads)
             if self._sharded_paths:
                 sq_norm = self._global_sq_norm
-        self.state["opt_state"] = self.optimizer.update(
-            grads, self.state["opt_state"], self.state["params"],
-            sq_norm=sq_norm)
+        with profiling.span("trainer.optimizer"):
+            self.state["opt_state"] = self.optimizer.update(
+                grads, self.state["opt_state"], self.state["params"],
+                sq_norm=sq_norm)
         self.state["step"] += 1
 
     def _sum_over_data(self, grads: dict) -> dict:
@@ -250,31 +265,34 @@ class BERT4RecTrainer(BaseTrainer):
 
     def train_step(self, batch: dict) -> dict:
         """One optimizer step on a device batch; returns its logs."""
-        loss, logs, grads = self._grads(batch, self._step_seed())
-        self._apply(grads)
-        return {"loss": loss, **logs, **self._counts(batch)}
+        with profiling.span("trainer.step"):
+            loss, logs, grads = self._grads(batch)
+            self._apply(grads)
+            return {"loss": loss, **logs, **self._counts(batch)}
 
     def accum_step(self, batches: list) -> dict:
         """One optimizer step from ``len(batches)`` microbatches: the
         gradient is ``sum(n_valid_a * g_a) / sum(n_valid_a)``, what one
         big batch's valid-position mean gives. Logs are stacked per
         microbatch."""
-        step_seed = self._step_seed()
-        gsum, wsum, logs = None, 0.0, []
-        for idx, batch in enumerate(batches):
-            loss, blogs, grads = self._grads(batch, fold_in(step_seed, idx))
-            counts = self._counts(batch)
-            w = counts["_n_valid"]
-            if gsum is None:
-                gsum = {k: w * g for k, g in grads.items()}
-            else:
-                for k, g in grads.items():
-                    gsum[k] = gsum[k] + w * g
-            wsum = wsum + w
-            logs.append({"loss": loss, **blogs, **counts})
-        denom = torch.clamp(wsum, min=1.0)
-        self._apply({k: g / denom for k, g in gsum.items()})
-        return {k: torch.stack([lg[k] for lg in logs]) for k in logs[0]}
+        with profiling.span("trainer.step"):
+            step_seed = self._step_seed()
+            gsum, wsum, logs = None, 0.0, []
+            for idx, batch in enumerate(batches):
+                loss, blogs, grads = self._grads(batch,
+                                                 fold_in(step_seed, idx))
+                counts = self._counts(batch)
+                w = counts["_n_valid"]
+                if gsum is None:
+                    gsum = {k: w * g for k, g in grads.items()}
+                else:
+                    for k, g in grads.items():
+                        gsum[k] = gsum[k] + w * g
+                wsum = wsum + w
+                logs.append({"loss": loss, **blogs, **counts})
+            denom = torch.clamp(wsum, min=1.0)
+            self._apply({k: g / denom for k, g in gsum.items()})
+            return {k: torch.stack([lg[k] for lg in logs]) for k in logs[0]}
 
     def eval_step(self, batch: dict) -> dict:
         with torch.no_grad():
@@ -397,27 +415,29 @@ class BERT4RecTrainer(BaseTrainer):
                                     break
                         if steps_per_epoch and count >= steps_per_epoch:
                             break
-                logs = self._means(sums, wsums)
-                if self.device.type == "cuda":
-                    torch.cuda.synchronize(self.device)
-                logs["examples_per_second"] = n_examples / max(
-                    time.time() - t0, 1e-9)
+                with profiling.span("trainer.epoch_end"):
+                    logs = self._means(sums, wsums)
+                    if self.device.type == "cuda":
+                        torch.cuda.synchronize(self.device)
+                    logs["examples_per_second"] = n_examples / max(
+                        time.time() - t0, 1e-9)
 
-                if val_ds is not None:
-                    val_logs = self.validate(
-                        val_ds, batch_size=batch_size,
-                        validation_steps=validation_steps, seed=seed + epoch)
-                    logs.update({f"val_{k}": v
-                                 for k, v in val_logs.items()})
-                if verbose:
-                    msg = " ".join(f"{k}={v:.4f}"
-                                   for k, v in sorted(logs.items()))
-                    print(f"epoch {epoch + 1}/{epochs}: {msg}")
-                self._epochs_completed = epoch + 1
-                stop = False
-                for cb in callbacks:
-                    cb.on_epoch_end(self, epoch, logs)
-                    stop = stop or cb.stop_training
+                    if val_ds is not None:
+                        val_logs = self.validate(
+                            val_ds, batch_size=batch_size,
+                            validation_steps=validation_steps,
+                            seed=seed + epoch)
+                        logs.update({f"val_{k}": v
+                                     for k, v in val_logs.items()})
+                    if verbose:
+                        msg = " ".join(f"{k}={v:.4f}"
+                                       for k, v in sorted(logs.items()))
+                        print(f"epoch {epoch + 1}/{epochs}: {msg}")
+                    self._epochs_completed = epoch + 1
+                    stop = False
+                    for cb in callbacks:
+                        cb.on_epoch_end(self, epoch, logs)
+                        stop = stop or cb.stop_training
                 if stop:
                     break
         for cb in callbacks:

@@ -16,6 +16,8 @@ from typing import Callable, Iterable, Iterator, Optional
 import numpy as np
 import torch
 
+from bert4rec_tpu_torch.utils import profiling
+
 _END = object()
 
 
@@ -25,7 +27,9 @@ def prefetch(iterator: Iterable, put_fn: Optional[Callable] = None,
     the trainer's device placement) in that thread, yielding the results in
     order. At most ``depth`` items are in flight. An exception of the
     producer re-raises at the consuming ``next()``; closing the generator
-    early (a ``break``, ``steps_per_epoch``) retires the thread."""
+    early (a ``break``, ``steps_per_epoch``) retires the thread. The
+    consumer's wait for each item (the end of the items too) is a
+    ``pipeline.wait`` span."""
     q: "queue.Queue" = queue.Queue(maxsize=max(1, depth))
     stop = threading.Event()
 
@@ -43,7 +47,8 @@ def prefetch(iterator: Iterable, put_fn: Optional[Callable] = None,
     thread.start()
     try:
         while True:
-            item = q.get()
+            with profiling.span("pipeline.wait"):
+                item = q.get()
             if item is _END:
                 return
             if isinstance(item, BaseException):

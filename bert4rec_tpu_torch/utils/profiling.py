@@ -6,16 +6,114 @@ sweep, a served batch) can be captured as a Chrome trace in a directory;
 ``StepTimer`` gives streaming step-time / examples-per-second statistics
 (JAX's summary keys); ``hard_sync`` waits for a tensor's device, since
 CUDA launches return before the card finishes.
+
+``span(name)`` marks a region of the program (the trainer's step and its
+parts, the prefetch queue's wait). While ``record_spans()`` is open each
+span is kept in memory with its wall-clock start and end
+(``time.time_ns``, the clock of the CUDA profiler's events), the span
+that encloses it on its thread and the thread; inside ``trace`` they are
+also ``record_function`` ranges of the Chrome trace. Otherwise ``span``
+returns a shared no-op context.
 """
 
 import contextlib
 import os
 import pathlib
+import threading
 import time
 from typing import Optional
 
 import numpy as np
 import torch
+
+
+# the log of the open ``record_spans`` (None: spans are not recorded), and
+# whether spans also open ``record_function`` ranges (inside ``trace``)
+_log: Optional[list] = None
+_annotate = False
+_local = threading.local()
+
+
+class Span:
+    """One span: ``start_ns`` / ``end_ns`` on ``time.time_ns``, its
+    ``name``, the ``parent`` span open on the same thread when it began
+    (None at the top) and its ``thread`` (``threading.get_ident``)."""
+
+    __slots__ = ("start_ns", "end_ns", "name", "parent", "thread", "_log",
+                 "_range")
+
+    def __init__(self, name: str, log: list):
+        self.name, self._log = name, log
+        self.start_ns = self.end_ns = self.parent = self._range = None
+        self.thread = threading.get_ident()
+
+    def __enter__(self) -> "Span":
+        stack = _stack()
+        self.parent = stack[-1] if stack else None
+        stack.append(self)
+        if _annotate:
+            self._range = torch.profiler.record_function(self.name)
+            self._range.__enter__()
+        self.start_ns = time.time_ns()
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        self.end_ns = time.time_ns()
+        if self._range is not None:
+            self._range.__exit__(*exc)
+        _stack().pop()
+        if _log is self._log:       # closed after recording stopped: dropped
+            self._log.append(self)
+        return False
+
+
+class _NoSpan:
+    __slots__ = ()
+
+    def __enter__(self):
+        return None
+
+    def __exit__(self, *exc) -> bool:
+        return False
+
+
+_NO_SPAN = _NoSpan()
+
+
+def _stack() -> list:
+    stack = getattr(_local, "stack", None)
+    if stack is None:
+        stack = _local.stack = []
+    return stack
+
+
+def span(name: str):
+    """A context manager marking ``name``: a ``Span`` recorded into the
+    open ``record_spans`` log when it closes, or the shared no-op context
+    while nothing records."""
+    if _log is None:
+        return _NO_SPAN
+    return Span(name, _log)
+
+
+def open_spans() -> tuple:
+    """The names of the spans open on the calling thread, outermost
+    first."""
+    return tuple(s.name for s in _stack())
+
+
+@contextlib.contextmanager
+def record_spans():
+    """Record every span closed inside the region; yields the log, a list
+    of ``Span`` in the order they closed. Nothing is written anywhere.
+    Inside an open recording it yields that recording's log."""
+    global _log
+    outer = _log
+    _log = outer if outer is not None else []
+    try:
+        yield _log
+    finally:
+        _log = outer
 
 
 @contextlib.contextmanager
@@ -24,7 +122,9 @@ def trace(log_dir: Optional[str], enabled: bool = True):
     ``log_dir`` as ``trace_<pid>_<ns>.json`` (a Chrome trace; a no-op when
     disabled or ``log_dir`` is None). The card's kernels are traced when
     CUDA is available; the card is synchronised before the trace stops, so
-    kernels still in flight are in it."""
+    kernels still in flight are in it. The program's spans are recorded in
+    the region and are ranges of the trace, beside the kernels."""
+    global _annotate
     if not enabled or log_dir is None:
         yield
         return
@@ -32,10 +132,13 @@ def trace(log_dir: Optional[str], enabled: bool = True):
     cuda = torch.cuda.is_available()
     if cuda:
         acts.append(torch.profiler.ProfilerActivity.CUDA)
-    with torch.profiler.profile(activities=acts) as prof:
+    outer = _annotate
+    with torch.profiler.profile(activities=acts) as prof, record_spans():
+        _annotate = True
         try:
             yield
         finally:
+            _annotate = outer
             if cuda:
                 torch.cuda.synchronize()
     out = pathlib.Path(log_dir)
