@@ -11,6 +11,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from bert4rec_tpu_torch.ops.table_gradient import table_gather
+
 LN_EPSILON = 1e-12  # reference LayerNorm epsilon
 
 
@@ -107,13 +109,15 @@ def embedding_lookup(params: dict, ids: torch.Tensor,
     """Gather rows of a dense (``embedding``) or int8 weights-only
     quantized (``embedding_q`` + ``embedding_scale``, models/quantization.py)
     table; quantized rows are scaled after the gather, so only the touched
-    rows pay the multiply."""
+    rows pay the multiply. A dense table's gather is
+    ``ops.table_gradient.table_gather``: its backward, when there is one,
+    is the table-gradient kernel."""
     if "embedding_q" in params:
         idx = ids.long()
         rows = params["embedding_q"][idx].to(compute_dtype)
         scale = params["embedding_scale"][idx].to(compute_dtype)
         return rows * scale[..., None]
-    return params["embedding"][ids.long()].to(compute_dtype)
+    return table_gather(params["embedding"], ids, compute_dtype)
 
 
 def sharded_embedding_lookup(params: dict, ids: torch.Tensor, mesh,
@@ -122,14 +126,17 @@ def sharded_embedding_lookup(params: dict, ids: torch.Tensor, mesh,
     holds this rank's block): each rank gathers the rows it owns, zeros
     elsewhere, and the pieces are summed over 'model' (what GSPMD does to
     JAX's ``jnp.take`` on the sharded table). The backward reaches only
-    the owned rows of the local block; the [PAD] row keeps its gradient,
-    as in JAX (no ``padding_idx``)."""
+    the owned rows of the local block (``table_gather``'s kernel; the
+    rows it does not own read local row 0 and add it zeros); the [PAD] row
+    keeps its gradient, as in JAX (no ``padding_idx``)."""
     from bert4rec_tpu_torch.core import mesh as mesh_lib
     table = params["embedding"]
     v_local = table.shape[0]
-    local = ids.long() - mesh.index(mesh_lib.MODEL_AXIS) * v_local
+    local = ids.to(torch.int32) - mesh.index(mesh_lib.MODEL_AXIS) * v_local
     owned = (local >= 0) & (local < v_local)
-    rows = table[torch.where(owned, local, torch.zeros_like(local))]
+    rows = table_gather(table, torch.where(owned, local,
+                                           torch.zeros_like(local)),
+                        table.dtype)
     rows = torch.where(owned[..., None], rows, torch.zeros_like(rows))
     return mesh_lib.psum(mesh, rows, mesh_lib.MODEL_AXIS).to(compute_dtype)
 

@@ -285,6 +285,18 @@ Phases (any failure raises and the script exits non-zero):
               8 epochs, dup 10 (HR@10 and NDCG@10 at least 5x their
               popularity floor's), printed beside JAX's
               ``quality_runs/ml1m_synthetic`` run; its seconds.
+26. table gradient (runs after phase 5) — the item table's gather
+              backward (K10, ``csrc/table_grad.cu``) at ml-20m_128's batch
+              (R=51,200 with 27,623 [PAD] and 4,630 [MASK] ids, V=26,732,
+              H=128) and bert_base_512's (R=16,384, V=3,709, H=768), bf16:
+              exact on integer-valued rows, within its chain-of-adds bound
+              of a float64 sum on random rows, the same bits from two calls
+              (other widths and misaligned rows are the card tests'); the
+              kernel's device time (CUDA events behind a
+              sleep, so the host's launches are hidden), today's
+              ``table[ids.long()].to(bf16)`` backward (plain) and
+              ``F.embedding``'s dense backward (library), and the device
+              operations of each backward by the profiler.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the rest of
@@ -1417,13 +1429,14 @@ def new_trainer(torch, device, params=None, lr=1e-4, warmup=100,
 
 
 def plain_kernels():
-    """Patches that send the CUDA branches of the flash attention, layer
-    and loss Functions to the plain versions: the reference of the step
-    check."""
+    """Patches that send the CUDA branches of the flash attention, layer,
+    loss and table-gradient Functions to the plain versions: the reference
+    of the step check."""
     from unittest import mock
     fa = importlib.import_module("bert4rec_tpu_torch.ops.flash_attention")
     from bert4rec_tpu_torch.ops import fused_encoder_layer as fel
     from bert4rec_tpu_torch.ops import fused_mlm_loss as fml
+    from bert4rec_tpu_torch.ops import table_gradient as tg
 
     def layer_fwd(flat, x, mask, num_heads, seed, a, o, save, causal=False,
                   rel=None):
@@ -1461,7 +1474,8 @@ def plain_kernels():
                mock.patch.object(fml, "_launch_backward", loss_bwd),
                mock.patch.object(fml, "_launch_forward_tiled",
                                  fml.fused_mlm_loss_plain_forward),
-               mock.patch.object(fml, "_launch_backward_tiled", tiled_bwd)]
+               mock.patch.object(fml, "_launch_backward_tiled", tiled_bwd),
+               mock.patch.object(tg, "_launch", tg.table_gradient_plain)]
     return patches
 
 
@@ -1525,6 +1539,7 @@ def check_training(torch, device, new=None, label="ml-1m_128"):
     falling on a repeated batch, and an exact resume."""
     from bert4rec_tpu_torch.ops import fused_encoder_layer as fel
     from bert4rec_tpu_torch.ops import fused_mlm_loss as fml
+    from bert4rec_tpu_torch.ops import table_gradient as tg
     from bert4rec_tpu_torch.utils.checkpoint import flatten
 
     new = new or (lambda **kw: new_trainer(torch, device, **kw))
@@ -1550,6 +1565,7 @@ def check_training(torch, device, new=None, label="ml-1m_128"):
     for attr in ("mma_sync_launches", "mma_sync_backward_launches",
                  "tf32_launches", "tf32_backward_launches"):
         setattr(fel.fused_encoder_layer, attr, 0)
+    tg.table_gradient.launches = 0
     t0 = time.perf_counter()
     hist = trainer.train(SyntheticDataset(TRAIN_STEPS, seed=1), epochs=1,
                          batch_size=STREAM_BATCH, seed=SEED, verbose=False)
@@ -1561,11 +1577,13 @@ def check_training(torch, device, new=None, label="ml-1m_128"):
                   mma_sync=fel.fused_encoder_layer.mma_sync_launches
                   + fel.fused_encoder_layer.mma_sync_backward_launches,
                   tf32_fwd=fel.fused_encoder_layer.tf32_launches,
-                  tf32_bwd=fel.fused_encoder_layer.tf32_backward_launches)
+                  tf32_bwd=fel.fused_encoder_layer.tf32_backward_launches,
+                  K10=tg.table_gradient.launches)
     # fp32: every layer launch, forward and backward, on the 3xTF32 route
     layer_steps = cfg.num_layers * TRAIN_STEPS
     want = dict(layer_fwd=layer_steps, layer_bwd=layer_steps,
                 loss_fwd=TRAIN_STEPS, loss_bwd=TRAIN_STEPS, mma_sync=0,
+                K10=TRAIN_STEPS,
                 tf32_fwd=layer_steps if fp32 else 0,
                 tf32_bwd=layer_steps if fp32 else 0)
     loss = hist.history["loss"][0]
@@ -1979,6 +1997,7 @@ def check_ml20m_training(torch, device, loader, splits, config_name,
     device memory, the trainer and the host batches it drew."""
     from bert4rec_tpu_torch.ops import fused_encoder_layer as fel
     from bert4rec_tpu_torch.ops import fused_mlm_loss as fml
+    from bert4rec_tpu_torch.ops import table_gradient as tg
     from bert4rec_tpu_torch.utils.checkpoint import flatten
     train_ds, val_ds, _ = splits
     vocab = loader.tokenizer.get_vocab_size()
@@ -2025,6 +2044,7 @@ def check_ml20m_training(torch, device, loader, splits, config_name,
                      "tf32_backward_launches"):
             if hasattr(fn, attr):
                 setattr(fn, attr, 0)
+    tg.table_gradient.launches = 0
     t0 = time.perf_counter()
     hist = trainer.train(train_ds, epochs=1, batch_size=STREAM_BATCH,
                          steps_per_epoch=ML20M_STEPS, seed=SEED,
@@ -2041,6 +2061,7 @@ def check_ml20m_training(torch, device, loader, splits, config_name,
                   K5=fml.fused_mlm_loss_tiled.launches,
                   K6=fml.fused_mlm_loss_tiled.merged_launches,
                   K7=fml.fused_mlm_loss_tiled.two_sweep_launches,
+                  K10=tg.table_gradient.launches,
                   mma_sync=fel.fused_encoder_layer.mma_sync_launches
                   + fel.fused_encoder_layer.mma_sync_backward_launches,
                   tf32_fwd=fel.fused_encoder_layer.tf32_launches,
@@ -2051,7 +2072,8 @@ def check_ml20m_training(torch, device, loader, splits, config_name,
     want = dict(layer_fwd=0, layer_bwd=0, causal_fwd=0, causal_bwd=0,
                 rel_fwd=0, rel_bwd=0, K3=0, K4=0, K5=ML20M_STEPS,
                 K6=ML20M_STEPS if kernel == "K6" else 0,
-                K7=ML20M_STEPS if kernel == "K7" else 0, mma_sync=0,
+                K7=ML20M_STEPS if kernel == "K7" else 0, K10=ML20M_STEPS,
+                mma_sync=0,
                 tf32_fwd=layer_steps if fp32 else 0,
                 tf32_bwd=layer_steps if fp32 else 0)
     want[f"{variant}_fwd"] = want[f"{variant}_bwd"] = layer_steps
@@ -2510,14 +2532,17 @@ FLASH_COUNTERS = ("launches", "backward_launches", "causal_launches",
 
 
 def base_train_counts(torch, trainer, want, label) -> dict:
-    """The main path: every launch counter of the flash attention, layer
-    and loss kernels set to 0, ``train()`` for BASE_STEPS steps, then the
-    counts, held to ``want`` (0 for every counter it does not name)."""
+    """The main path: every launch counter of the flash attention, layer,
+    loss and table-gradient kernels set to 0, ``train()`` for BASE_STEPS
+    steps, then the counts, held to ``want`` (0 for every counter it does
+    not name, but ``table.launches``: one a step)."""
     fa = importlib.import_module("bert4rec_tpu_torch.ops.flash_attention")
     from bert4rec_tpu_torch.ops import fused_encoder_layer as fel
     from bert4rec_tpu_torch.ops import fused_mlm_loss as fml
+    from bert4rec_tpu_torch.ops import table_gradient as tg
     counted = {"flash": fa.flash_attention, "layer": fel.fused_encoder_layer,
-               "loss": fml.fused_mlm_loss, "tiled": fml.fused_mlm_loss_tiled}
+               "loss": fml.fused_mlm_loss, "tiled": fml.fused_mlm_loss_tiled,
+               "table": tg.table_gradient}
     attrs = FLASH_COUNTERS + ("merged_launches", "two_sweep_launches")
     for fn in counted.values():
         for attr in attrs:
@@ -2533,6 +2558,7 @@ def base_train_counts(torch, trainer, want, label) -> dict:
               for key, fn in counted.items() for attr in attrs
               if hasattr(fn, attr)}
     want = {k: want.get(k, 0) for k in counts}
+    want["table.launches"] = BASE_STEPS
     loss = hist.history["loss"][0]
     print(f"{label} train(): {BASE_STEPS} steps of B={BASE_BATCH} S="
           f"{BASE_SEQ} in {wall:.2f} s (first step included), epoch loss "
@@ -2897,6 +2923,154 @@ def check_rel_layer(torch, rng, device):
                     torch, bwd, forbid=LEGACY_BF16_LAYER)[1], flush=True)
             del y_lib, leaves, lflat, xl, rl, again, grads, ref_g, saved
             torch.cuda.empty_cache()
+    return rows
+
+
+# phase 26: K10, the item table's gradient. (R, V, H, [PAD] ids, [MASK]
+# ids): ml-20m_128's batch (B=256, S=200) as PERF.md counts it, and
+# bert_base_512's (B=32, S=512, ML-1M users: ~73% padding, P=76)
+TABLE_GRAD_SHAPES = {"ml-20m_128": (51_200, 26_732, 128, 27_623, 4_630),
+                     "bert_base_512": (16_384, 3_709, 768, 11_900, 2_432)}
+
+
+def table_grad_ids(torch, rng, device, r, v, pad, mask):
+    """int32 ids of a batch: ``pad`` zeros, ``mask`` [MASK] ids (v - 1),
+    the rest items log-uniform over [1, v - 2] (a rank-frequency curve of
+    slope -1)."""
+    import numpy as np
+    items = np.exp(rng.uniform(0.0, np.log(max(v - 2, 1)), r)).astype(
+        np.int32)
+    ids = np.minimum(items, v - 1) % v
+    at = rng.permutation(r)
+    ids[at[:pad]] = 0
+    ids[at[pad:pad + mask]] = v - 1
+    return torch.from_numpy(ids.astype(np.int32)).to(device)
+
+
+def time_device_ms(torch, fn, iters=10, blocks=7) -> float:
+    """Median device ms per call: each block of ``iters`` calls is queued
+    behind a sleeping kernel, so the events time the device, not the
+    host's launches."""
+    import statistics
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(blocks):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(100_000_000)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / iters)
+    return statistics.median(times)
+
+
+def device_ops(torch, fn) -> dict:
+    """The device operations (kernels, memsets, copies) of one call of
+    ``fn`` by name, ``[count, device us]``, from torch.profiler, taken again
+    if it dropped them."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        ops = {_kernel_name(e.key): [e.count, round(
+            e.self_device_time_total, 2)] for e in prof.key_averages()
+               if getattr(e, "self_device_time_total", 0) > 0}
+        if ops:
+            return ops
+    raise AssertionError("the profiler recorded no device operation")
+
+
+def check_table_grad_case(torch, rng, device, r, v, h, dtype, pad, mask):
+    """K10 at one shape against float64 sums: exact on integer-valued rows
+    (every sum is exact in fp32 there, so a dropped or doubled row shows),
+    within the kernel's chain-of-adds bound on random rows, the same bits
+    from two calls, one launch counted a call. Returns the largest error."""
+    from bert4rec_tpu_torch.ops import table_gradient as tg
+    ids = table_grad_ids(torch, rng, device, r, v, pad, mask)
+    label = f"K10 R={r} V={v} H={h} {str(dtype).removeprefix('torch.')}"
+
+    ints = torch.randint(-4, 5, (r, h), device=device).to(dtype)
+    got = tg.table_gradient(ints, ids, v)
+    want = tg.table_gradient_plain(ints.double(), ids, v)
+    if not torch.equal(got.double(), want):
+        raise AssertionError(f"{label}: integer rows not exact, max err "
+                             f"{float((got.double() - want).abs().max())}")
+    g = torch.randn((r, h), device=device).to(dtype)
+    before = tg.table_gradient.launches
+    got = tg.table_gradient(g, ids, v)
+    again = tg.table_gradient(g, ids, v)
+    if tg.table_gradient.launches - before != 2:
+        raise AssertionError(f"{label}: launches counted "
+                             f"{tg.table_gradient.launches - before} for 2")
+    if not torch.equal(got.view(torch.int32), again.view(torch.int32)):
+        raise AssertionError(f"{label}: two calls gave different bits")
+    want = tg.table_gradient_plain(g.double(), ids, v)
+    abs_sum = tg.table_gradient_plain(g.double().abs(), ids, v)
+    # the kernel's longest chain of fp32 adds: 32 in a piece, then a warp's
+    # 32 pieces, or a thread group's tiles of 32 positions (>= 8 groups)
+    # and the groups
+    tiles = -(-r // 32)
+    depth = 64 + max(32, -(-tiles // 8))
+    err = (got.double() - want).abs()
+    bound = depth * 2.0 ** -24 * abs_sum
+    if bool((err > bound).any()):
+        raise AssertionError(f"{label}: error {float(err.max()):.3g} past "
+                             f"the {depth}-add bound")
+    return float(err.max())
+
+
+def check_table_gradient(torch, rng, device) -> dict:
+    """Phase 26: K10 at the two cells' shapes, with times and each
+    backward's device operations."""
+    import torch.nn.functional as F
+    from bert4rec_tpu_torch.ops import table_gradient as tg
+    rows = {}
+    for name, (r, v, h, pad, mask) in TABLE_GRAD_SHAPES.items():
+        err = check_table_grad_case(torch, rng, device, r, v, h,
+                                    torch.bfloat16, pad, mask)
+        ids = table_grad_ids(torch, rng, device, r, v, pad, mask)
+        g = torch.randn((r, h), device=device).to(torch.bfloat16)
+        table = torch.randn((v, h), device=device, requires_grad=True)
+        today = table[ids.long()].to(torch.bfloat16)
+        library = F.embedding(ids.long(), table).to(torch.bfloat16)
+        ours = tg.table_gather(table, ids, torch.bfloat16)
+
+        def backward(y):
+            return lambda: torch.autograd.grad(y, table, g, retain_graph=True)
+
+        row = {"max_abs_err": err,
+               "ms": time_device_ms(torch, lambda: tg.table_gradient(
+                   g, ids, v)),
+               "plain_ms": time_device_ms(torch, backward(today), iters=3,
+                                          blocks=3),
+               "library_ms": time_device_ms(torch, backward(library)),
+               "bound_ms": (r * h * 2 + r * 4 + v * h * 4) / HBM_BYTES_S
+               * 1e3, "bound_by": "bytes",
+               "ops": device_ops(torch, backward(ours)),
+               "plain_ops": device_ops(torch, backward(today))}
+        n_ops = sum(n for n, _ in row["ops"].values())
+        n_plain = sum(n for n, _ in row["plain_ops"].values())
+        if any("indexing_backward" in k for k in row["ops"]) or not any(
+                "b4r::table_grad" in k for k in row["ops"]):
+            raise AssertionError(f"K10 {name}: backward ops {row['ops']}")
+        print(f"K10 {name} (R={r}, V={v}, H={h}, bf16): {row['ms']:.4f} ms "
+              f"(bound {row['bound_ms']:.4f}, bytes), plain (today's "
+              f"index backward) {row['plain_ms']:.4f} ms, library "
+              f"(F.embedding backward) {row['library_ms']:.4f} ms, max err "
+              f"{err:.3g}; backward ops {n_ops} {row['ops']} vs plain "
+              f"{n_plain} {row['plain_ops']}", flush=True)
+        if n_ops > n_plain:
+            raise AssertionError(f"K10 {name}: {n_ops} device operations "
+                                 f"a backward, today's {n_plain}")
+        rows[name] = row
     return rows
 
 
@@ -4805,6 +4979,7 @@ def run(torch, home) -> int:
     layer_rows = check_fused_layer(torch, rng, device)
     launches, stream_launches = check_serving(torch, rng, device)
     check_dropout_masks(torch, device)
+    table_rows = check_table_gradient(torch, rng, device)
     train_rows = check_layer_training(torch, rng, device)
     loss_rows = check_loss_kernels(torch, rng, device)
     counts = check_training(torch, device)["counts"]
@@ -5056,6 +5231,12 @@ def run(torch, home) -> int:
         entry("fused_encoder_layer_bf16", wgmma_src,
               "bert4rec_tpu/ops/fused_encoder_layer.py:241",
               tools["serving_launches"], layer_rows[("bfloat16", 32)])]
+    # K10 at ml-20m_128's batch; launches from its counted train()
+    record["kernels"].append(entry(
+        "table_gradient", "table_grad.cu",
+        "bert4rec_tpu/models/components/layers.py embedding_lookup "
+        "(jnp.take; XLA's scatter-add, no TPU kernel)",
+        c128["K10"], table_rows["ml-20m_128"]))
     credit_examples(record, examples, entry)
     idle = [k["name"] for k in record["kernels"] if not k["launches"]]
     if idle:

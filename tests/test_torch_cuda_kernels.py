@@ -1862,6 +1862,154 @@ def test_flash_bf16_keep_bits_equal_the_plain_packing(cuda_device):
         fa._launch_backward(q, k, v, mask, do, saved[:2], 12, 0.2, False)
 
 
+# K10, the item table's gradient, at the two benchmark cells' batches:
+# (R, V, H, [PAD] ids, [MASK] ids)
+TABLE_GRAD_CELLS = {"ml20m_128": (51_200, 26_732, 128, 27_623, 4_630),
+                    "bert_base_512": (16_384, 3_709, 768, 11_900, 2_432)}
+
+
+def _table_grad_ids(device, r, v, pad, mask, seed=0):
+    rng = np.random.default_rng(seed)
+    ids = np.exp(rng.uniform(0.0, np.log(v - 2), r)).astype(np.int32)
+    at = rng.permutation(r)
+    ids[at[:pad]] = 0
+    ids[at[pad:pad + mask]] = v - 1
+    return torch.from_numpy(ids).to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cell", sorted(TABLE_GRAD_CELLS))
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "fp32"])
+def test_table_grad_kernel_matches_plain(cuda_device, cell, dtype):
+    """K10 against the plain fp32 version (float64 sums here). On
+    integer-valued rows every sum is exact in fp32 whatever its order, so
+    the kernel must equal it exactly: a dropped or doubled row shows. On
+    random rows only the order of the fp32 adds differs: the error stays
+    under depth * 2^-24 * (the row's sum of |g|), depth the kernel's
+    longest chain of adds (32 in a piece, then 32 pieces or a thread
+    group's tiles and the groups)."""
+    from bert4rec_tpu_torch.ops import table_gradient as tg
+    r, v, h, pad, mask = TABLE_GRAD_CELLS[cell]
+    ids = _table_grad_ids(cuda_device, r, v, pad, mask)
+    ints = torch.randint(-4, 5, (r, h), device=cuda_device).to(dtype)
+    got = tg.table_gradient(ints, ids, v)
+    assert got.dtype == torch.float32 and got.shape == (v, h)
+    assert torch.equal(got.double(), tg.table_gradient_plain(
+        ints.double(), ids, v))
+    g = torch.randn((r, h), device=cuda_device).to(dtype)
+    got = tg.table_gradient(g, ids, v).double()
+    want = tg.table_gradient_plain(g.double(), ids, v)
+    depth = 64 + max(32, -(-r // 32) // 8 + 1)   # tiles of 32 positions
+    bound = depth * 2.0 ** -24 * tg.table_gradient_plain(
+        g.double().abs(), ids, v)
+    assert bool(((got - want).abs() <= bound).all())
+    untouched = torch.ones(v, dtype=torch.bool, device=cuda_device)
+    untouched[ids.long()] = False
+    assert bool((got[untouched] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cell", sorted(TABLE_GRAD_CELLS))
+def test_table_grad_kernel_repeats_its_bits(cuda_device, cell):
+    """No float atomics: two calls give the same bits."""
+    from bert4rec_tpu_torch.ops import table_gradient as tg
+    r, v, h, pad, mask = TABLE_GRAD_CELLS[cell]
+    ids = _table_grad_ids(cuda_device, r, v, pad, mask, seed=1)
+    g = torch.randn((r, h), device=cuda_device).to(torch.bfloat16)
+    a = tg.table_gradient(g, ids, v)
+    b = tg.table_gradient(g, ids, v)
+    assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h, dtype", [
+    (36, torch.bfloat16), (48, torch.bfloat16), (50, torch.float32),
+    (64, torch.float32), (100, torch.float32), (256, torch.bfloat16)])
+@pytest.mark.parametrize("misaligned", [False, True])
+def test_table_grad_kernel_at_any_width(cuda_device, h, dtype, misaligned):
+    """Rows off the 16-byte rule (H not a multiple of the vector width, a
+    misaligned base) take the scalar path; a ragged last tile; exact on
+    integer-valued rows."""
+    from bert4rec_tpu_torch.ops import table_gradient as tg
+    r, v = 1_001, 97
+    ids = _table_grad_ids(cuda_device, r, v, 300, 80, seed=2)
+    g = torch.randint(-4, 5, (r * h + 1,), device=cuda_device).to(dtype)
+    g = (g[1:] if misaligned else g[:-1]).view(r, h)
+    got = tg.table_gradient(g, ids, v)
+    assert torch.equal(got.double(), tg.table_gradient_plain(
+        g.double(), ids, v))
+
+
+@pytest.mark.cuda
+def test_table_grad_counts_one_launch_per_backward(cuda_device):
+    from bert4rec_tpu_torch.ops import table_gradient as tg
+    table = torch.randn(300, 64, device=cuda_device, requires_grad=True)
+    ids = _table_grad_ids(cuda_device, 2_000, 300, 700, 200).view(10, 200)
+    before = tg.table_gradient.launches
+    for _ in range(3):
+        y = tg.table_gather(table, ids, torch.bfloat16)
+        torch.autograd.grad(y, table, torch.ones_like(y))
+    assert tg.table_gradient.launches - before == 3
+    with torch.no_grad():
+        tg.table_gather(table, ids, torch.bfloat16)
+    assert tg.table_gradient.launches - before == 3
+
+
+# the benchmark cells' routes at two layers (tests/test_torch_spans.py's)
+TABLE_GRAD_ROUTES = {
+    "fused_layer": dict(hidden_size=128, num_attention_heads=4,
+                        inner_dim=512, seq=200, pred=40, batch=32),
+    "flash_attention": dict(hidden_size=768, num_attention_heads=12,
+                            inner_dim=3072, seq=512, pred=76, batch=4,
+                            use_fused_layer=False, use_fused_loss=False,
+                            use_flash_attention=True)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", sorted(TABLE_GRAD_ROUTES))
+def test_train_steps_take_the_table_grad_kernel(cuda_device, route):
+    """A traced ``train()`` holds ``b4r::table_grad`` kernels and no
+    ``indexing_backward_kernel`` (the MLM head's position gather is
+    ``torch.gather``, so the item table is the only indexed gather with a
+    gradient), and ``table_gradient.launches`` equals the steps trained."""
+    from torch.profiler import ProfilerActivity, profile
+    from bert4rec_tpu_torch.core.dtypes import DTypePolicy
+    from bert4rec_tpu_torch.dataloaders.processed_dataset import (
+        MaskingConfig, ProcessedDataset)
+    from bert4rec_tpu_torch.models import BERT4RecConfig, BERT4RecModel
+    from bert4rec_tpu_torch.ops import table_gradient as tg
+    from bert4rec_tpu_torch.trainers import BERT4RecTrainer
+    kw = dict(TABLE_GRAD_ROUTES[route])
+    seq, pred, batch = kw.pop("seq"), kw.pop("pred"), kw.pop("batch")
+    vocab, steps = 515, 3
+    cfg = dict(vocab_size=vocab, num_layers=2, max_sequence_length=seq,
+               max_predictions_per_seq=pred, attention_dropout=0.1,
+               output_dropout=0.1, use_fused_layer=True, use_fused_loss=True)
+    cfg.update(kw)
+    rng = np.random.default_rng(0)
+    seqs = [rng.integers(3, vocab, size=rng.integers(4, seq + 1))
+            .astype(np.int32) for _ in range(steps * batch)]
+    ds = ProcessedDataset(seqs, MaskingConfig(
+        max_seq_len=seq, max_predictions_per_seq=pred, mask_token_id=1,
+        pad_token_id=0, unk_token_id=2, masked_lm_rate=0.3), lambda: vocab)
+    t = BERT4RecTrainer(BERT4RecModel(config=BERT4RecConfig(**cfg),
+                                      dtype_policy=DTypePolicy.bf16()))
+    t.initialize_model(seed=0, device=cuda_device)
+    t.train(ds, epochs=1, batch_size=batch, verbose=False)   # builds
+    for _ in range(3):   # the profiler can drop records
+        before = tg.table_gradient.launches
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t.train(ds, epochs=1, batch_size=batch, verbose=False)
+            torch.cuda.synchronize()
+        names = [e.key for e in prof.key_averages()
+                 if getattr(e, "self_device_time_total", 0) > 0]
+        if any("b4r::table_grad" in n for n in names):
+            break
+    assert tg.table_gradient.launches - before == steps
+    assert not [n for n in names if "indexing_backward" in n], names
+    assert any("b4r::table_grad_combine" in n for n in names), names
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("variant", ["plain", "causal", "rel"])
 def test_fp32_training_launch_runs_only_the_tf32_kernels(cuda_device,
