@@ -40,7 +40,11 @@
 //         from registers). Layout rule: q, k, v and dO have a 16-byte
 //         aligned base and batch, head and sequence strides (the wrapper
 //         raises on anything else; the main path's views of one
-//         [B, S, 3, N, D] projection meet it); D <= 128.
+//         [B, S, 3, N, D] projection meet it); D <= 128, and latent
+//         attention's queries and keys of D = 192 against values of
+//         Dv = 128 (the kernels at DP = 192, DV = 128: wide tiles for q, k,
+//         dq, dk, 128-wide ones for v, o, dO, dv; dq and dk accumulate 192
+//         columns, n192 products).
 //   fp32  with D a multiple of 8 up to 64 (ops/flash_attention.py
 //         flash_route "tf32", every shipped config): flash_tf32.cuh's 3xTF32
 //         wgmma kernels (K8 one online pass, 128 queries a block; K9 a dq
@@ -144,30 +148,34 @@ int backward_fp32(void* const* p, const long long* st, int B, int N, int S, int 
 
 using hopper::bf16;
 
-int forward_bf16(void* const* p, const long long* st, int B, int N, int S, int D,
+template <int V> using Width = std::integral_constant<int, V>;
+
+int forward_bf16(void* const* p, const long long* st, int B, int N, int S, int D, int Dv,
                  int causal, float scale, Drop drop, cudaStream_t stream) {
   for (int i = 0; i < 3; ++i)
     if (!aligned16(p[i], st + 3 * i)) return (int)cudaErrorInvalidValue;
-  auto run = [&](auto dp) {
-    return (int)hopper::forward<decltype(dp)::value>(
+  auto run = [&](auto dp, auto dv) {
+    return (int)hopper::forward<decltype(dp)::value, decltype(dv)::value>(
         view<const bf16>(p[F_Q], st), view<const bf16>(p[F_K], st + 3),
         view<const bf16>(p[F_V], st + 6), static_cast<const int32_t*>(p[F_MASK]),
         view<bf16>(p[F_O], st + 9), static_cast<float*>(p[F_STAT_M]),
         static_cast<float*>(p[F_STAT_L]), static_cast<uint32_t*>(p[F_BITS]), drop, B,
         S, N, D, scale, causal, stream);
   };
-  if (D <= 64) return run(std::integral_constant<int, 64>{});
-  if (D <= 128) return run(std::integral_constant<int, 128>{});
+  if (Dv != D) return D == 192 && Dv == 128 ? run(Width<192>{}, Width<128>{})
+                                            : (int)cudaErrorInvalidValue;
+  if (D <= 64) return run(Width<64>{}, Width<64>{});
+  if (D <= 128) return run(Width<128>{}, Width<128>{});
   return (int)cudaErrorInvalidValue;
 }
 
-int backward_bf16(void* const* p, const long long* st, int B, int N, int S, int D,
+int backward_bf16(void* const* p, const long long* st, int B, int N, int S, int D, int Dv,
                   int causal, float scale, Drop drop, cudaStream_t stream) {
   for (int i = 0; i < 4; ++i)
     if (!aligned16(p[i], st + 3 * i)) return (int)cudaErrorInvalidValue;
   if (drop.on && !p[B_BITS]) return (int)cudaErrorInvalidValue;
-  auto run = [&](auto dp) {
-    return (int)hopper::backward<decltype(dp)::value>(
+  auto run = [&](auto dp, auto dv) {
+    return (int)hopper::backward<decltype(dp)::value, decltype(dv)::value>(
         view<const bf16>(p[B_Q], st), view<const bf16>(p[B_K], st + 3),
         view<const bf16>(p[B_V], st + 6), view<const bf16>(p[B_DO], st + 9),
         static_cast<const int32_t*>(p[B_MASK]), static_cast<const float*>(p[B_STAT_M]),
@@ -176,8 +184,10 @@ int backward_bf16(void* const* p, const long long* st, int B, int N, int S, int 
         view<bf16>(p[B_DK], st + V_DK), view<bf16>(p[B_DV], st + V_DV), B, S, N, D, scale,
         causal, stream);
   };
-  if (D <= 64) return run(std::integral_constant<int, 64>{});
-  if (D <= 128) return run(std::integral_constant<int, 128>{});
+  if (Dv != D) return D == 192 && Dv == 128 ? run(Width<192>{}, Width<128>{})
+                                            : (int)cudaErrorInvalidValue;
+  if (D <= 64) return run(Width<64>{}, Width<64>{});
+  if (D <= 128) return run(Width<128>{}, Width<128>{});
   return (int)cudaErrorInvalidValue;
 }
 
@@ -196,15 +206,17 @@ int b4r_flash_tf32_max_head_dim() { return flash_tf32::kMaxHeadDim; }
 // order; stat_m / stat_l ([B, N, S] fp32, the row max and sum K9 reads) may
 // be null, and so may keep_bits (bf16 only: [B, N, T, T, 128] 32-bit words,
 // T = ceil(S / 64), the dropout keep bits K9 reads; unused for fp32).
-// strides: (batch, head, sequence) element strides of q, k, v, o. causal != 0
-// adds the TPU kernel's causal bias. A rate of 0 is on == 0.
+// strides: (batch, head, sequence) element strides of q, k, v, o. D is the
+// head dim of q and k, Dv that of v and o (bf16 only where they differ).
+// causal != 0 adds the TPU kernel's causal bias. A rate of 0 is on == 0.
 int b4r_flash_fwd(int dtype, void* const* ptrs, const long long* strides, int B, int N,
-                  int S, int D, int causal, float scale, unsigned seed,
+                  int S, int D, int Dv, int causal, float scale, unsigned seed,
                   unsigned threshold, float keep_scale, int on, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Drop drop{seed, threshold, keep_scale, on};
-  if (dtype == 0) return forward_fp32(ptrs, strides, B, N, S, D, causal, scale, drop, st);
-  if (dtype == 1) return forward_bf16(ptrs, strides, B, N, S, D, causal, scale, drop, st);
+  if (dtype == 0 && Dv == D)
+    return forward_fp32(ptrs, strides, B, N, S, D, causal, scale, drop, st);
+  if (dtype == 1) return forward_bf16(ptrs, strides, B, N, S, D, Dv, causal, scale, drop, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -215,14 +227,14 @@ int b4r_flash_fwd(int dtype, void* const* ptrs, const long long* strides, int B,
 // scores); with bf16 and dropout, keep_bits are the forward's (fp32 hashes
 // anew).
 int b4r_flash_bwd(int dtype, void* const* ptrs, const long long* strides, int B, int N,
-                  int S, int D, int causal, float scale, unsigned seed,
+                  int S, int D, int Dv, int causal, float scale, unsigned seed,
                   unsigned threshold, float keep_scale, int on, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Drop drop{seed, threshold, keep_scale, on};
-  if (dtype == 0)
+  if (dtype == 0 && Dv == D)
     return backward_fp32(ptrs, strides, B, N, S, D, causal, scale, drop, st);
   if (dtype == 1)
-    return backward_bf16(ptrs, strides, B, N, S, D, causal, scale, drop, st);
+    return backward_bf16(ptrs, strides, B, N, S, D, Dv, causal, scale, drop, st);
   return (int)cudaErrorInvalidValue;
 }
 

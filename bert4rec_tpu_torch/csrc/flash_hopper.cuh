@@ -26,6 +26,12 @@
 // tile (its qkv bias gradient). DK (default DP) is the contraction the score
 // products run over: the layer's head dims up to 32 take DK = 32 of the
 // DP = 64 tiles, whose zero-filled columns add exact zeros to every sum.
+// DV (default DP) is the value width, for latent attention's values that
+// are narrower than its queries and keys: v, o, dO and dv take [64][DV]
+// tiles and DV wide accumulators, the dp = dO v^T product contracts over DV,
+// while q, k, dq and dk keep the [64][DP] tiles (K8/K9 at DP = DK = 192,
+// DV = 128; the value width is then exactly DV). With DV = DP every kernel
+// is the code it was before.
 // JAX's rounding points hold: p is normalised in fp32 before the keep scale
 // and the rounding to bf16; dp = dd * keep is rounded before dp - delta
 // (__fmul_rn, which nvcc never contracts into the following add). K8 tests
@@ -44,7 +50,7 @@ namespace hopper {
 // 128 registers and the K9 kernels in 168 (4 and 3 blocks, against 3 and 2
 // at the 130-200 it takes unbounded); each warpgroup waits on its own
 // products and barriers, and more of them per SM hide more of those waits.
-template <int DP> constexpr int kFwdBlocks = DP == 64 ? 4 : 2;
+template <int DP> constexpr int kFwdBlocks = DP == 64 ? 4 : 2;  // DP = 192: 2
 template <int DP> constexpr int kBwdBlocks = DP == 64 ? 3 : 1;
 
 // mask[t0 .. t0+63] (int32) into shared memory, 0 past the sequence
@@ -234,17 +240,18 @@ __device__ __forceinline__ void load_bits(uint32_t dst, const uint32_t* src) {
 // pass 2 (items n .. 2n-1) recomputes the scores, forms
 // p = T(exp(s - m) * (1 / l) * keep) in registers and accumulates p v.
 // ---------------------------------------------------------------------------
-template <int DP, bool kRel = false, int DK = DP>
+template <int DP, bool kRel = false, int DK = DP, int DV = DP>
 __global__ void __launch_bounds__(kThreads, kFwdBlocks<DP>)
 flash_fwd_kernel(Heads<const bf16> q, Heads<const bf16> k, Heads<const bf16> v,
                  const int32_t* __restrict__ mask, Heads<bf16> o,
                  float* __restrict__ stat_m, float* __restrict__ stat_l,
                  uint32_t* __restrict__ keep_bits, Drop drop, int S, int N, int D,
                  float scale, int causal, const float* __restrict__ rel, int rel16) {
-  constexpr int kTile = tile_bytes(DP);
+  constexpr int kTile = tile_bytes(DP), kTileV = tile_bytes(DV);
+  const int Dv = DV == DP ? D : DV;  // the value width
   uint8_t* sm = aligned_smem();
   const uint32_t Qs = smem_u32(sm), Ks = Qs + kTile, Vs = Ks + kStages * kTile,
-                 Ms = Vs + kStages * kTile, Rs = Ms + kStages * kRows * 4;
+                 Ms = Vs + kStages * kTileV, Rs = Ms + kStages * kRows * 4;
   const int32_t* mask_s = reinterpret_cast<const int32_t*>(sm + (Ms - Qs));
   const float* rel_s = reinterpret_cast<const float*>(sm + (Rs - Qs));  // kRel
 
@@ -261,7 +268,7 @@ flash_fwd_kernel(Heads<const bf16> q, Heads<const bf16> k, Heads<const bf16> v,
   auto prefetch = [&](int item) {
     const int st = item % kStages, t0 = (item < n ? item : item - n) * kRows;
     load_tile<DP>(Ks + st * kTile, kh, k.ss, t0, S, D);
-    if (item >= n) load_tile<DP>(Vs + st * kTile, vh, v.ss, t0, S, D);
+    if (item >= n) load_tile<DV>(Vs + st * kTileV, vh, v.ss, t0, S, Dv);
     load_mask(Ms + st * kRows * 4, mask_row, t0, S);
     if constexpr (kRel) load_rel_block(Rs + st * kRows * kRelLd * 4, relh, q0, t0, S, rel16);
   };
@@ -270,9 +277,9 @@ flash_fwd_kernel(Heads<const bf16> q, Heads<const bf16> k, Heads<const bf16> v,
   cp_async_commit();
 
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, inv_l[2] = {0.f, 0.f};
-  float acc[DP / 2], s[32];
+  float acc[DV / 2], s[32];
 #pragma unroll
-  for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < DV / 2; ++i) acc[i] = 0.f;
 #pragma unroll
   for (int i = 0; i < 32; ++i) s[i] = 0.f;
   for (int item = 0; item < 2 * n; ++item) {
@@ -343,14 +350,14 @@ flash_fwd_kernel(Heads<const bf16> q, Heads<const bf16> k, Heads<const bf16> v,
       fence_frags(a);
       fence_regs(acc);
       wgmma_fence();
-      mma_rs<DP>(acc, a, Vs + st * kTile);
+      mma_rs<DV>(acc, a, Vs + st * kTileV);
       wgmma_commit();
       wgmma_wait();
       fence_regs(acc);
     }
     __syncthreads();
   }
-  store_rows<DP>(o.at(b, head), o.ss, acc, row0, S, D, 1.f);
+  store_rows<DV>(o.at(b, head), o.ss, acc, row0, S, Dv, 1.f);
 }
 
 // ---------------------------------------------------------------------------
@@ -364,7 +371,7 @@ flash_fwd_kernel(Heads<const bf16> q, Heads<const bf16> k, Heads<const bf16> v,
 // writes dRel = p (dp - delta) in fp32 before the rounding (zeros in the key
 // tiles causal_skip skips); kPart writes the dq columns' sums of the tile
 // (part [B * tiles][3 N D], dq in the first N D columns).
-template <int DP, bool kPart = false, bool kRel = false, int DK = DP>
+template <int DP, bool kPart = false, bool kRel = false, int DK = DP, int DV = DP>
 __global__ void __launch_bounds__(kThreads, kBwdBlocks<DP>)
 flash_bwd_dq_kernel(Heads<const bf16> q, Heads<const bf16> k, Heads<const bf16> v,
                     Heads<const bf16> dout, const int32_t* __restrict__ mask,
@@ -373,10 +380,12 @@ flash_bwd_dq_kernel(Heads<const bf16> q, Heads<const bf16> k, Heads<const bf16> 
                     float* __restrict__ delta_out, Heads<bf16> dq, int S, int N, int D,
                     float scale, int causal, const float* __restrict__ rel, int rel16,
                     float* __restrict__ drel, float* __restrict__ part) {
-  constexpr int kTile = tile_bytes(DP);
+  constexpr int kTile = tile_bytes(DP), kTileV = tile_bytes(DV);
+  constexpr int DKV = DV == DP ? DK : DV;  // the dp = dO v^T contraction
+  const int Dv = DV == DP ? D : DV;
   uint8_t* sm = aligned_smem();
-  const uint32_t Qs = smem_u32(sm), Os = Qs + kTile, Ks = Os + kTile,
-                 Vs = Ks + kStages * kTile, Ms = Vs + kStages * kTile,
+  const uint32_t Qs = smem_u32(sm), Os = Qs + kTile, Ks = Os + kTileV,
+                 Vs = Ks + kStages * kTile, Ms = Vs + kStages * kTileV,
                  Bs = Ms + kStages * kRows * 4;
   const int32_t* mask_s = reinterpret_cast<const int32_t*>(sm + (Ms - Qs));
   const uint32_t* bits_s = reinterpret_cast<const uint32_t*>(sm + (Bs - Qs));
@@ -397,7 +406,7 @@ flash_bwd_dq_kernel(Heads<const bf16> q, Heads<const bf16> k, Heads<const bf16> 
   auto prefetch = [&](int item) {
     const int st = item % kStages, kt = item < n ? item : item - n, t0 = kt * kRows;
     load_tile<DP>(Ks + st * kTile, kh, k.ss, t0, S, D);
-    load_tile<DP>(Vs + st * kTile, vh, v.ss, t0, S, D);
+    load_tile<DV>(Vs + st * kTileV, vh, v.ss, t0, S, Dv);
     load_mask(Ms + st * kRows * 4, mask_row, t0, S);
     if (drop.on)
       load_bits(Bs + st * kThreads * 4,
@@ -405,7 +414,7 @@ flash_bwd_dq_kernel(Heads<const bf16> q, Heads<const bf16> k, Heads<const bf16> 
     if constexpr (kRel) load_rel_block(Rs + st * kRows * kRelLd * 4, relh, q0, t0, S, rel16);
   };
   load_tile<DP>(Qs, q.at(b, head), q.ss, q0, S, D);
-  load_tile<DP>(Os, dout.at(b, head), dout.ss, q0, S, D);
+  load_tile<DV>(Os, dout.at(b, head), dout.ss, q0, S, Dv);
   prefetch(0);
   cp_async_commit();
 
@@ -430,7 +439,7 @@ flash_bwd_dq_kernel(Heads<const bf16> q, Heads<const bf16> k, Heads<const bf16> 
     const int st = item % kStages, t0 = (item < n ? item : item - n) * kRows;
     wgmma_fence();
     mma_nt<DK>(s, Qs, Ks + st * kTile);
-    mma_nt<DK>(dp, Os, Vs + st * kTile);
+    mma_nt<DKV>(dp, Os, Vs + st * kTileV);
     wgmma_commit();
     wgmma_wait();
     fence_regs(s);
@@ -531,7 +540,7 @@ flash_bwd_dq_kernel(Heads<const bf16> q, Heads<const bf16> k, Heads<const bf16> 
 // 4-byte ones) and adds it to the transposed scores; kPart writes the dk and
 // dv columns' sums of the tile (columns N D + head D .. and 2 N D + head D ..
 // of part).
-template <int DP, bool kPart = false, bool kRel = false, int DK = DP>
+template <int DP, bool kPart = false, bool kRel = false, int DK = DP, int DV = DP>
 __global__ void __launch_bounds__(kThreads, kBwdBlocks<DP>)
 flash_bwd_dkv_kernel(Heads<const bf16> q, Heads<const bf16> k, Heads<const bf16> v,
                      Heads<const bf16> dout, const int32_t* __restrict__ mask,
@@ -540,13 +549,16 @@ flash_bwd_dkv_kernel(Heads<const bf16> q, Heads<const bf16> k, Heads<const bf16>
                      const uint32_t* __restrict__ keep_bits, Drop drop, Heads<bf16> dk,
                      Heads<bf16> dv, int S, int N, int D, float scale, int causal,
                      const float* __restrict__ rel, int rel16, float* __restrict__ part) {
-  constexpr int kTile = tile_bytes(DP);
+  constexpr int kTile = tile_bytes(DP), kTileV = tile_bytes(DV);
+  constexpr int DKV = DV == DP ? DK : DV;  // the dP^T = V dO^T contraction
+  const int Dv = DV == DP ? D : DV;
   uint8_t* sm = aligned_smem();
-  const uint32_t Ks = smem_u32(sm), Vs = Ks + kTile, Qs = Vs + kTile,
+  const uint32_t Ks = smem_u32(sm), Vs = Ks + kTile, Qs = Vs + kTileV,
                  Os = Qs + kStages * kTile;
   // [kStages][3][64]: the streamed query rows' m, 1 / l, delta; then
   // [kStages][128] keep-bit words
-  float* rows_s = reinterpret_cast<float*>(sm + 2 * kTile + 2 * kStages * kTile);
+  float* rows_s =
+      reinterpret_cast<float*>(sm + kTile + kTileV + kStages * (kTile + kTileV));
   const uint32_t* bits_s =
       reinterpret_cast<const uint32_t*>(rows_s + kStages * 3 * kRows);
   const uint32_t Bs = smem_u32(bits_s);
@@ -576,7 +588,7 @@ flash_bwd_dkv_kernel(Heads<const bf16> q, Heads<const bf16> k, Heads<const bf16>
   auto prefetch = [&](int item) {
     const int st = item % kStages, t0 = qb + item * kRows;
     load_tile<DP>(Qs + st * kTile, qh, q.ss, t0, S, D);
-    load_tile<DP>(Os + st * kTile, oh, dout.ss, t0, S, D);
+    load_tile<DV>(Os + st * kTileV, oh, dout.ss, t0, S, Dv);
     if (drop.on)
       load_bits(Bs + st * kThreads * 4,
                 keep_bits + bits_at(b, head, N, gridDim.x, t0 / kRows, blockIdx.x));
@@ -604,15 +616,17 @@ flash_bwd_dkv_kernel(Heads<const bf16> q, Heads<const bf16> k, Heads<const bf16>
     }
   };
   load_tile<DP>(Ks, k.at(b, head), k.ss, k0, S, D);
-  load_tile<DP>(Vs, v.at(b, head), v.ss, k0, S, D);
+  load_tile<DV>(Vs, v.at(b, head), v.ss, k0, S, Dv);
   prefetch(0);
   cp_async_commit();
   fetch(0);
   stash(0);
 
-  float dk_acc[DP / 2], dv_acc[DP / 2], s[32], dp[32];
+  float dk_acc[DP / 2], dv_acc[DV / 2], s[32], dp[32];
 #pragma unroll
-  for (int i = 0; i < DP / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+  for (int i = 0; i < DP / 2; ++i) dk_acc[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < DV / 2; ++i) dv_acc[i] = 0.f;
 #pragma unroll
   for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
   for (int item = 0; item < n; ++item) {
@@ -627,7 +641,7 @@ flash_bwd_dkv_kernel(Heads<const bf16> q, Heads<const bf16> k, Heads<const bf16>
     const int st = item % kStages, q0 = qb + item * kRows;
     wgmma_fence();
     mma_nt<DK>(s, Ks, Qs + st * kTile);
-    mma_nt<DK>(dp, Vs, Os + st * kTile);
+    mma_nt<DKV>(dp, Vs, Os + st * kTileV);
     wgmma_commit();
     wgmma_wait();
     fence_regs(s);
@@ -681,7 +695,7 @@ flash_bwd_dkv_kernel(Heads<const bf16> q, Heads<const bf16> k, Heads<const bf16>
     fence_regs(dv_acc);
     fence_regs(dk_acc);
     wgmma_fence();
-    mma_rs<DP>(dv_acc, ap, Os + st * kTile);
+    mma_rs<DV>(dv_acc, ap, Os + st * kTileV);
     mma_rs<DP>(dk_acc, as, Qs + st * kTile);
     wgmma_commit();
     wgmma_wait();
@@ -691,13 +705,13 @@ flash_bwd_dkv_kernel(Heads<const bf16> q, Heads<const bf16> k, Heads<const bf16>
     __syncthreads();
   }
   store_rows<DP>(dk.at(b, head), dk.ss, dk_acc, key0, S, D, scale);
-  store_rows<DP>(dv.at(b, head), dv.ss, dv_acc, key0, S, D, 1.f);
+  store_rows<DV>(dv.at(b, head), dv.ss, dv_acc, key0, S, Dv, 1.f);
   if constexpr (kPart) {
     cp_async_wait<0>();
     float* out = part + ((size_t)b * gridDim.x + blockIdx.x) * 3 * N * D + head * D;
     float* red = reinterpret_cast<float*>(sm);
     column_sums<DP>(dk_acc, scale, key0, S, D, red, out + N * D);
-    column_sums<DP>(dv_acc, 1.f, key0, S, D, red, out + 2 * N * D);
+    column_sums<DV>(dv_acc, 1.f, key0, S, D, red, out + 2 * N * D);
   }
 }
 
@@ -706,33 +720,37 @@ flash_bwd_dkv_kernel(Heads<const bf16> q, Heads<const bf16> k, Heads<const bf16>
 // ---------------------------------------------------------------------------
 // the kRel variants' staged blocks of the relative bias
 inline size_t rel_smem(bool rel) { return rel ? (size_t)kStages * kRows * kRelLd * 4 : 0; }
-inline size_t fwd_smem(int dp, bool rel = false) {
-  return 1024 + (size_t)tile_bytes(dp) * (1 + 2 * kStages) + kStages * kRows * 4 +
-         rel_smem(rel);
+// dv: the value width (default dp)
+inline size_t fwd_smem(int dp, bool rel = false, int dv = 0) {
+  dv = dv ? dv : dp;
+  return 1024 + (size_t)tile_bytes(dp) * (1 + kStages) + (size_t)tile_bytes(dv) * kStages +
+         kStages * kRows * 4 + rel_smem(rel);
 }
-inline size_t dq_smem(int dp, bool rel = false) {
-  return 1024 + (size_t)tile_bytes(dp) * (2 + 2 * kStages) + kStages * kRows * 4 +
-         kStages * kThreads * 4 + rel_smem(rel);
+inline size_t dq_smem(int dp, bool rel = false, int dv = 0) {
+  dv = dv ? dv : dp;
+  return 1024 + (size_t)(tile_bytes(dp) + tile_bytes(dv)) * (1 + kStages) +
+         kStages * kRows * 4 + kStages * kThreads * 4 + rel_smem(rel);
 }
-inline size_t dkv_smem(int dp, bool rel = false) {
-  return 1024 + (size_t)tile_bytes(dp) * (2 + 2 * kStages) + kStages * 3 * kRows * 4 +
-         kStages * kThreads * 4 + rel_smem(rel);
+inline size_t dkv_smem(int dp, bool rel = false, int dv = 0) {
+  dv = dv ? dv : dp;
+  return 1024 + (size_t)(tile_bytes(dp) + tile_bytes(dv)) * (1 + kStages) +
+         kStages * 3 * kRows * 4 + kStages * kThreads * 4 + rel_smem(rel);
 }
 
-template <int DP>
+template <int DP, int DV = DP>
 cudaError_t forward(Heads<const bf16> q, Heads<const bf16> k, Heads<const bf16> v,
                     const int32_t* mask, Heads<bf16> o, float* stat_m, float* stat_l,
                     uint32_t* keep_bits, Drop drop, int B, int S, int N, int D,
                     float scale, int causal, cudaStream_t stream) {
-  const size_t smem = fwd_smem(DP);
-  cudaError_t err = allow_smem(flash_fwd_kernel<DP>, smem);
+  const size_t smem = fwd_smem(DP, false, DV);
+  cudaError_t err = allow_smem(flash_fwd_kernel<DP, false, DP, DV>, smem);
   if (err != cudaSuccess) return err;
-  flash_fwd_kernel<DP><<<dim3(ceil_div(S, kRows), N, B), kThreads, smem, stream>>>(
+  flash_fwd_kernel<DP, false, DP, DV><<<dim3(ceil_div(S, kRows), N, B), kThreads, smem, stream>>>(
       q, k, v, mask, o, stat_m, stat_l, keep_bits, drop, S, N, D, scale, causal, nullptr, 0);
   return cudaGetLastError();
 }
 
-template <int DP>
+template <int DP, int DV = DP>
 cudaError_t backward(Heads<const bf16> q, Heads<const bf16> k, Heads<const bf16> v,
                      Heads<const bf16> dout, const int32_t* mask, const float* stat_m,
                      const float* stat_l, const uint32_t* keep_bits, Drop drop,
@@ -740,16 +758,17 @@ cudaError_t backward(Heads<const bf16> q, Heads<const bf16> k, Heads<const bf16>
                      Heads<bf16> dk, Heads<bf16> dv, int B, int S, int N, int D,
                      float scale, int causal, cudaStream_t stream) {
   const dim3 grid(ceil_div(S, kRows), N, B);
-  size_t smem = dq_smem(DP);
-  cudaError_t err = allow_smem(flash_bwd_dq_kernel<DP>, smem);
+  size_t smem = dq_smem(DP, false, DV);
+  cudaError_t err = allow_smem(flash_bwd_dq_kernel<DP, false, false, DP, DV>, smem);
   if (err != cudaSuccess) return err;
-  flash_bwd_dq_kernel<DP><<<grid, kThreads, smem, stream>>>(
+  flash_bwd_dq_kernel<DP, false, false, DP, DV><<<grid, kThreads, smem, stream>>>(
       q, k, v, dout, mask, stat_m, stat_l, keep_bits, drop, delta, dq, S, N, D, scale,
       causal, nullptr, 0, nullptr, nullptr);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  smem = dkv_smem(DP);
-  if ((err = allow_smem(flash_bwd_dkv_kernel<DP>, smem)) != cudaSuccess) return err;
-  flash_bwd_dkv_kernel<DP><<<grid, kThreads, smem, stream>>>(
+  smem = dkv_smem(DP, false, DV);
+  if ((err = allow_smem(flash_bwd_dkv_kernel<DP, false, false, DP, DV>, smem)) != cudaSuccess)
+    return err;
+  flash_bwd_dkv_kernel<DP, false, false, DP, DV><<<grid, kThreads, smem, stream>>>(
       q, k, v, dout, mask, stat_m, stat_l, delta, keep_bits, drop, dk, dv, S, N, D, scale,
       causal, nullptr, 0, nullptr);
   return cudaGetLastError();

@@ -217,6 +217,32 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
 }
 
+// d = A B (+ d when accumulate), m64n192k16: A in registers, B MN-major in
+// shared memory (the dq and dk products of latent attention's 192-wide keys)
+__device__ __forceinline__ void wgmma_rs_n192(float (&d)[96], const uint32_t (&a)[4],
+                                              uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95"
+      "}, {%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
+      : B4R_F8(0), B4R_F8(8), B4R_F8(16), B4R_F8(24),
+        B4R_F8(32), B4R_F8(40), B4R_F8(48), B4R_F8(56),
+        B4R_F8(64), B4R_F8(72), B4R_F8(80), B4R_F8(88)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
 // d = A B (+ d when accumulate), m64n256k16: A in registers, B MN-major in
 // shared memory
 __device__ __forceinline__ void wgmma_rs_n256(float (&d)[128], const uint32_t (&a)[4],
@@ -293,6 +319,8 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[DP / 2], const uint32_t (&a)
     wgmma_rs_n64(d, a, db, 1);
   else if constexpr (DP == 128)
     wgmma_rs_n128(d, a, db, 1);
+  else if constexpr (DP == 192)
+    wgmma_rs_n192(d, a, db, 1);
   else
     wgmma_rs_n256(d, a, db, 1);
 }

@@ -46,6 +46,7 @@ from bert4rec_tpu_torch.core import partitioning
 from bert4rec_tpu_torch.core.device import resolve_device
 from bert4rec_tpu_torch.core.dtypes import DTypePolicy
 from bert4rec_tpu_torch.models.components import layers as L
+from bert4rec_tpu_torch.models.components import mla_moe
 from bert4rec_tpu_torch.models.components.transformer import (
     init_transformer_block,
     transformer_block,
@@ -130,12 +131,28 @@ class _RelLookup(torch.autograd.Function):
 
 
 class Bert4RecEncoder:
-    """Stateless module: ``init`` makes the param dict, ``apply`` runs it."""
+    """Stateless module: ``init`` makes the param dict, ``apply`` runs it.
+    A config with ``block="mla_moe"`` makes and runs DeepSeek-V3's decoder
+    block instead (``components/mla_moe.py``: its own params, no position
+    table), with the routers' fixed selection bias held here, drawn from
+    the config's seed on first use."""
 
     def __init__(self, config: BERT4RecConfig,
                  dtype_policy: Optional[DTypePolicy] = None):
         self.config = config
         self.dtype_policy = dtype_policy or DTypePolicy.f32()
+        if config.block == "mla_moe":
+            mla_moe.check_config(config)
+        self._selection_bias = {}
+
+    def selection_bias(self, device) -> torch.Tensor:
+        """The MoE layers' fixed selection bias on ``device`` (a
+        ``block="mla_moe"`` config's; ``mla_moe.selection_bias``)."""
+        key = str(torch.device(device))
+        if key not in self._selection_bias:
+            self._selection_bias[key] = mla_moe.selection_bias(
+                self.config, device)
+        return self._selection_bias[key]
 
     def init(self, generator: Optional[torch.Generator] = None,
              device="cuda") -> dict:
@@ -144,6 +161,8 @@ class Bert4RecEncoder:
         if str(device) != "meta":
             device = resolve_device(device)
         cfg = self.config
+        if cfg.block == "mla_moe":
+            return mla_moe.init_params(generator, cfg, device)
         std = cfg.initializer_range
         g = generator
         params = {
@@ -221,6 +240,11 @@ class Bert4RecEncoder:
         :func:`layers.sharded_embedding_lookup`."""
         cfg = self.config
         compute_dtype = self.dtype_policy.compute_dtype
+        if cfg.block == "mla_moe":
+            return mla_moe.apply(
+                params, input_word_ids, input_mask, cfg, compute_dtype,
+                self.selection_bias(input_word_ids.device),
+                output_range=output_range, mesh=mesh)
         batch, seq_len = input_word_ids.shape
 
         emb = params["item_embeddings"]

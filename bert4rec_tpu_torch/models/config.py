@@ -22,6 +22,17 @@ _V1_ALIASES = {
 }
 
 
+BLOCKS = ("bert", "mla_moe")
+# the fields only the "mla_moe" block reads: a "bert" config writes none of
+# them, so its dict is the JAX package's, key for key
+MLA_MOE_FIELDS = ("block", "qk_nope_head_dim", "qk_rope_head_dim",
+                  "v_head_dim", "kv_lora_rank", "rope_theta", "rms_norm_eps",
+                  "first_k_dense_replace", "n_routed_experts",
+                  "num_experts_per_tok", "n_shared_experts",
+                  "moe_intermediate_size", "routed_scaling_factor",
+                  "norm_topk_prob", "router_bias_std", "router_bias_seed")
+
+
 @dataclasses.dataclass(frozen=True)
 class BERT4RecConfig:
     """Hyperparameters of the bidirectional encoder + MLM head.
@@ -55,12 +66,41 @@ class BERT4RecConfig:
     temporal_attention_buckets: int = 64
     causal_attention: bool = False
     remat: bool = False
+    # the block kind: "bert" (the post-LN BERT block above) or "mla_moe"
+    # (DeepSeek-V3's decoder block: latent attention and sparse experts,
+    # models/components/mla_moe.py). The fields below are read by
+    # "mla_moe" only; their defaults are Moonlight-16B-A3B's.
+    block: str = "bert"
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
+    kv_lora_rank: int = 512
+    rope_theta: float = 50000.0
+    rms_norm_eps: float = 1e-5
+    first_k_dense_replace: int = 1
+    n_routed_experts: int = 64
+    num_experts_per_tok: int = 6
+    n_shared_experts: int = 2
+    moe_intermediate_size: int = 1408
+    routed_scaling_factor: float = 2.446
+    norm_topk_prob: bool = True
+    # the routers' selection bias (held fixed): N(0, std^2) per expert and
+    # MoE layer, drawn from this seed (mla_moe.selection_bias)
+    router_bias_std: float = 0.01
+    router_bias_seed: int = 0
 
     def __post_init__(self):
         if self.hidden_size % self.num_attention_heads != 0:
             raise ValueError(
                 f"hidden_size={self.hidden_size} must be divisible by "
                 f"num_attention_heads={self.num_attention_heads}")
+        if self.block not in BLOCKS:
+            raise ValueError(f"block={self.block!r}; known: {BLOCKS}")
+        if self.block == "mla_moe" and not (
+                0 < self.num_experts_per_tok <= self.n_routed_experts):
+            raise ValueError(
+                f"num_experts_per_tok={self.num_experts_per_tok} must lie "
+                f"in [1, n_routed_experts={self.n_routed_experts}]")
 
     @property
     def head_dim(self) -> int:
@@ -97,7 +137,11 @@ class BERT4RecConfig:
             return cls.from_dict(json.load(f), **overrides)
 
     def to_dict(self) -> dict:
-        return dataclasses.asdict(self)
+        d = dataclasses.asdict(self)
+        if self.block == "bert":
+            for name in MLA_MOE_FIELDS:
+                del d[name]
+        return d
 
     def to_json_file(self, path) -> None:
         path = pathlib.Path(path)

@@ -62,6 +62,14 @@ sums); the backward's ``dv = T(p keep)^T T(dO)``, ``dp = dO v^T keep``,
 the TPU's ``pltpu`` bits, which no other device reproduces: the kernels and
 the plain versions draw equal masks from equal seeds.
 
+Value width: v (and so o, dO and dv) may be narrower than q and k, as in
+latent attention, where scores contract over ``DK`` = 192 (128 dims
+without and 64 with rotary positions) and values are ``DV`` = 128 wide.
+The plain versions take any pair; bf16 CUDA tensors launch it for the
+pairs of ``WIDE_PAIRS`` (``flash_hopper.cuh`` instantiated at ``DP`` =
+DK, ``DV``), and fp32 CUDA tensors raise for it. The scale is
+``1 / sqrt(DK)``.
+
 Layout: q, k, v ``[B, N, S, D]`` (any batch, head and sequence strides,
 the last axis contiguous: the transposes of a ``[B, S, N, D]`` projection
 are taken without a copy; bf16 within the rule above), ``mask [B, S]``
@@ -103,6 +111,10 @@ MAX_KERNEL_SEQ_LEN = 46340
 # The 3xTF32 kernels' head dims: multiples of 8 up to this (csrc/
 # flash_tf32.cuh kMaxHeadDim; the library's value is checked at load).
 TF32_MAX_HEAD_DIM = 64
+# (query-key width, value width) pairs the bf16 kernels take with values
+# narrower than queries (csrc/flash_attention.cu forward_bf16): latent
+# attention's 128 + 64 rotary dims against 128-wide values
+WIDE_PAIRS = ((192, 128),)
 _LOG2E = math.log2(math.e)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -213,9 +225,9 @@ def _kernel_lib():
         lib = kernel_build.load("flash_attention")
         vp, ci, cu, cf = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint,
                           ctypes.c_float)
-        # dtype, ptrs, strides, B, N, S, D, causal, scale, seed, threshold,
-        # keep scale, on, stream
-        args = [ci, vp, vp] + [ci] * 5 + [cf, cu, cu, cf, ci, vp]
+        # dtype, ptrs, strides, B, N, S, D, DV, causal, scale, seed,
+        # threshold, keep scale, on, stream
+        args = [ci, vp, vp] + [ci] * 6 + [cf, cu, cu, cf, ci, vp]
         for fn in (lib.b4r_flash_fwd, lib.b4r_flash_bwd):
             fn.restype = ci
             fn.argtypes = args
@@ -280,12 +292,14 @@ def _tf32_operand(t: torch.Tensor) -> torch.Tensor:
         else t
 
 
-def _empty_heads(like: torch.Tensor) -> torch.Tensor:
+def _empty_heads(like: torch.Tensor, d=None) -> torch.Tensor:
     """An uninitialised ``[B, N, S, D]`` tensor laid out as ``like``'s axes
     run: ``[B, S, N, D]`` in memory when ``like`` steps heads faster than
     positions (a projection's transposed view: its grad then reshapes to
-    ``[B, S, H]`` without a copy), else contiguous."""
-    b, n, s, d = like.shape
+    ``[B, S, H]`` without a copy), else contiguous. ``d`` (default
+    ``like``'s) is its last axis: the output of narrower values."""
+    b, n, s, dl = like.shape
+    d = dl if d is None else d
     kw = dict(dtype=like.dtype, device=like.device)
     if like.stride(1) < like.stride(2):
         return torch.empty((b, s, n, d), **kw).transpose(1, 2)
@@ -301,8 +315,11 @@ def _drop_args(seed: int, rate: float) -> list:
 
 def _launch(fn, ops: dict, order, views, q, seed, rate, causal, what):
     b, n, s, d = q.shape
+    dv = ops["v"].shape[-1]
     lib = _kernel_lib()
-    if d > lib.b4r_flash_max_head_dim() or b > 65535 or n > 65535:
+    wide = (d, dv) in WIDE_PAIRS and q.dtype == torch.bfloat16
+    if (d > lib.b4r_flash_max_head_dim() and not wide) or b > 65535 \
+            or n > 65535:
         raise ValueError(f"flash attention kernels take head dim <= "
                          f"{lib.b4r_flash_max_head_dim()} and B, N <= 65535;"
                          f" got {tuple(q.shape)}")
@@ -313,8 +330,8 @@ def _launch(fn, ops: dict, order, views, q, seed, rate, causal, what):
         *[x for name in views
           for x in (head_strides(ops[name]) if ops.get(name) is not None
                     else (0, 0, 0))])
-    err = fn(_DTYPE_CODE[q.dtype], ptrs, strides, b, n, s, d, int(causal),
-             1.0 / math.sqrt(d), *_drop_args(seed, rate),
+    err = fn(_DTYPE_CODE[q.dtype], ptrs, strides, b, n, s, d, dv,
+             int(causal), 1.0 / math.sqrt(d), *_drop_args(seed, rate),
              torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash attention {what} kernel launch failed: "
@@ -335,7 +352,7 @@ def _launch_forward(q, k, v, mask, seed: int, rate: float, causal: bool,
             check_copy_alignment(t, name)
     elif route == "tf32":
         q, k, v = (_tf32_operand(t) for t in (q, k, v))
-    ops = dict(q=q, k=k, v=v, mask=mask, o=_empty_heads(q))
+    ops = dict(q=q, k=k, v=v, mask=mask, o=_empty_heads(q, v.shape[-1]))
     if save:
         ops.update(stat_m=torch.empty((b, n, s), dtype=torch.float32,
                                       device=q.device),
@@ -441,7 +458,7 @@ def flash_attention_forward(q: torch.Tensor, k: torch.Tensor,
     """K8 without the saves K9 reads (inference), laid out as
     ``_empty_heads(q)``. This body is the CPU implementation, the plain
     version; CUDA operands launch the kernels (below)."""
-    o = _empty_heads(q)
+    o = _empty_heads(q, v.shape[-1])
     o.copy_(mha_reference(q, k, v, mask, rate, seed, causal))
     return o
 
@@ -450,7 +467,7 @@ def flash_attention_forward(q: torch.Tensor, k: torch.Tensor,
 def _flash_attention_forward_cuda(q, k, v, mask, seed, rate, causal):
     o, _ = _launch_forward(q, k, v, mask, seed, rate, causal, False)
     _count(False, causal, flash_route(q.dtype, q.shape[-1]))
-    want = _empty_heads(q)
+    want = _empty_heads(q, v.shape[-1])
     if o.stride() != want.stride():   # an operand the launch copied
         o = want.copy_(o)
     return o
@@ -458,14 +475,22 @@ def _flash_attention_forward_cuda(q, k, v, mask, seed, rate, causal):
 
 @flash_attention_forward.register_fake
 def _flash_attention_forward_fake(q, k, v, mask, seed, rate, causal):
-    return _empty_heads(q)
+    return _empty_heads(q, v.shape[-1])
 
 
 def _check_operands(q, k, v, mask):
-    if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
-        raise ValueError(f"q, k, v must be one [B, N, S, D] shape, got "
-                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
-                         f"{tuple(v.shape)}")
+    if q.dim() != 4 or k.shape != q.shape or v.dim() != 4 \
+            or v.shape[:3] != q.shape[:3]:
+        raise ValueError(f"q and k must be one [B, N, S, D] shape and v "
+                         f"[B, N, S, DV], got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    wide = v.shape[-1] != q.shape[-1]
+    if wide and q.device.type == "cuda" and (
+            q.dtype != torch.bfloat16
+            or (q.shape[-1], v.shape[-1]) not in WIDE_PAIRS):
+        raise ValueError(f"the kernels take values narrower than queries "
+                         f"in bf16 at (DK, DV) in {WIDE_PAIRS}; got "
+                         f"{q.dtype} at ({q.shape[-1]}, {v.shape[-1]})")
     if not (q.dtype == k.dtype == v.dtype) or q.dtype not in (
             torch.float32, torch.bfloat16, torch.float64):
         raise TypeError(f"q, k, v must share float32 or bfloat16, got "
@@ -485,7 +510,8 @@ def _check_operands(q, k, v, mask):
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     mask: torch.Tensor, dropout_rate: float = 0.0,
                     seed=None, causal: bool = False) -> torch.Tensor:
-    """Masked MHA ``[B, N, S, D] -> [B, N, S, D]`` with optional fused
+    """Masked MHA ``[B, N, S, D] -> [B, N, S, DV]`` (DV: v's last axis,
+    D unless values are narrower, module docstring) with optional fused
     attention-probability dropout; differentiable in q, k and v.
 
     :param mask: ``[B, S]``, 1 for real keys

@@ -106,20 +106,30 @@ class AdamW:
         norm = (sq_norm(sums) if sq_norm is not None
                 else torch.stack(list(sums.values())).sum()).sqrt()
         below = norm < self.global_clipnorm
+        mu_flat, nu_flat = flatten(state["mu"]), flatten(state["nu"])
+        count = state["count"] + 1
+        f32 = np.float32
+        bc1 = float(f32(1.0) - f32(self.b1) ** f32(count))
+        bc2 = float(f32(1.0) - f32(self.b2) ** f32(count))
+        lr = self.schedule(state["count"])
+        for group in _groups(paths, g):
+            self._step(group, [g[i] for i in group],
+                       [paths[i] for i in group], flat, mu_flat, nu_flat,
+                       norm, below, bc1, bc2, lr)
+        return {"count": count, "mu": state["mu"], "nu": state["nu"]}
+
+    def _step(self, group, g, paths, flat, mu_flat, nu_flat, norm, below,
+              bc1, bc2, lr) -> None:
+        """The clip and the AdamW update of the leaves ``paths`` (their
+        gradients ``g``), in place."""
         g = [torch.where(below, t, t / norm * self.global_clipnorm)
              for t in g]
-
-        mu_flat, nu_flat = flatten(state["mu"]), flatten(state["nu"])
         mu = [mu_flat[k] for k in paths]
         nu = [nu_flat[k] for k in paths]
         torch._foreach_mul_(mu, self.b1)
         torch._foreach_add_(mu, g, alpha=1.0 - self.b1)
         torch._foreach_mul_(nu, self.b2)
         torch._foreach_addcmul_(nu, g, g, value=1.0 - self.b2)
-        count = state["count"] + 1
-        f32 = np.float32
-        bc1 = float(f32(1.0) - f32(self.b1) ** f32(count))
-        bc2 = float(f32(1.0) - f32(self.b2) ** f32(count))
         mu_hat = torch._foreach_div(mu, bc1)
         den = torch._foreach_div(nu, bc2)
         torch._foreach_sqrt_(den)
@@ -130,9 +140,27 @@ class AdamW:
             torch._foreach_add_([upd[i] for i in decay],
                                 [flat[paths[i]] for i in decay],
                                 alpha=self.weight_decay)
-        lr = self.schedule(state["count"])
         torch._foreach_add_([flat[k] for k in paths], upd, alpha=-lr)
-        return {"count": count, "mu": state["mu"], "nu": state["nu"]}
+
+
+# elements of the leaves one pass of the update takes: its clipped
+# gradients and Adam's temporaries (four fp32 copies) stay within 4 x 4
+# bytes of this, so a model of billions of parameters updates without
+# four copies of itself; any model under it updates in one pass
+GROUP_ELEMENTS = 1 << 28
+
+
+def _groups(paths: list, g: list) -> list:
+    """Consecutive runs of leaf indices, each of at most ``GROUP_ELEMENTS``
+    elements (a larger leaf alone)."""
+    out, run, size = [], [], 0
+    for i, t in enumerate(g):
+        if run and size + t.numel() > GROUP_ELEMENTS:
+            out.append(run)
+            run, size = [], 0
+        run.append(i)
+        size += t.numel()
+    return out + [run] if run else out
 
 
 # where optax's chain(clip_by_global_norm, adamw) keeps its state: element 1

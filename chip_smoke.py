@@ -297,6 +297,17 @@ Phases (any failure raises and the script exits non-zero):
               ``table[ids.long()].to(bf16)`` backward (plain) and
               ``F.embedding``'s dense backward (library), and the device
               operations of each backward by the profiler.
+27. Moonlight (runs after phase 25) — the ``mla_moe`` block of the
+              benchmark's ``moonlight_5L.train``: K11, the grouped expert
+              GEMM (``csrc/expert_gemm.cu``), forward and backward at
+              Moonlight's layer (76,800 rows, H=2,048, I=1,408, 64 experts,
+              skewed, two empty) and K8 / K9 at (B, N, S, DK, DV) = (64, 16,
+              200, 192, 128), causal, each against its plain version with
+              kernel, plain and library times (``torch._grouped_mm``,
+              SDPA) and the bound; then ``train()`` of the
+              moonlight-16b-a3b_5L config on the cell's traffic: the launch
+              counts of that run (the kernels line's) and each MoE layer's
+              load as it trains.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the rest of
@@ -4903,6 +4914,382 @@ def check_examples(torch, rng, device, home) -> dict:
     return out
 
 
+# Moonlight-16B-A3B's block as the benchmark's moonlight_5L.train runs it
+MOON_CONFIG = REPO / "benchmark/configs/moonlight-16b-a3b_5L.json"
+MOON_TRAFFIC = REPO / "benchmark/traffic/ml20m_users_next.json"
+MOON_EXPERT = (76_800, 2048, 1408, 64)   # rows (64 x 200 tokens x 6), H, I, E
+MOON_EMPTY = (5, 40)                     # experts with no rows
+MOON_FLASH = (64, 16, 200, 192, 128)     # B, N, S, DK, DV (causal)
+MOON_STEPS = 150                         # the counted train()'s steps
+MOON_MARKS = (1, 25, 50, 100, 150)       # steps whose router load prints
+EXPERT_TOL = 1e-2   # K11 vs plain, relative to the output's norm: both sum
+                    # the same bf16 products in fp32 in another order, which
+                    # flips bf16 roundings of g, u, dg, du by one unit
+
+
+def expert_counts(np, rows, experts, seed=0):
+    """Rows per expert from a skewed law (share 1 / (1 + rank)^0.6, ranks
+    shuffled), ``MOON_EMPTY`` empty."""
+    rng = np.random.default_rng(seed)
+    share = rng.permutation(1.0 / (1.0 + np.arange(experts)) ** 0.6)
+    share[list(MOON_EMPTY)] = 0.0
+    counts = np.floor(share / share.sum() * rows).astype(np.int64)
+    counts[np.argmax(counts)] += rows - counts.sum()
+    return counts
+
+
+def expert_bound_ms(rows, h, i, e, backward):
+    """K11's least time: 6 R H I operations forward (gate, up, down), 12
+    backward (dA, dx's two, the three weight gradients); bytes: forward x,
+    the bf16 weights, g, u, act written and act read, y written; backward
+    dy, x, g, u, act and the weights read, dg and du written and read twice,
+    dx written, the fp32 weight gradients written."""
+    w = 3 * e * h * i * 2
+    if backward:
+        flops = 12 * rows * h * i
+        nbytes = 2 * rows * (2 * h + 3 * i) + w + 2 * rows * i * 2 * 3 \
+            + 2 * rows * h + 2 * w
+    else:
+        flops = 6 * rows * h * i
+        nbytes = 2 * rows * (2 * h + 4 * i) + w
+    t_ops = flops / PEAK_FLOPS["bfloat16"] * 1e3
+    t_bytes = nbytes / HBM_BYTES_S * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                 else "bytes")
+
+
+def grouped_mm_library(torch, x, counts, wg, wu, wd, dy):
+    """K11's forward and backward by ``torch._grouped_mm`` with PyTorch's
+    elementwise SwiGLU and its derivative, the yardstick; None where this
+    torch lacks it or refuses the shapes (printed)."""
+    gmm = getattr(torch, "_grouped_mm", None)
+    if gmm is None:
+        print("K11 yardstick: this torch has no _grouped_mm", flush=True)
+        return None
+    F = torch.nn.functional
+    offs = torch.cumsum(counts, 0).to(torch.int32)
+    wgt, wut, wdt = (w.transpose(-1, -2).contiguous().transpose(-1, -2)
+                     for w in (wg, wu, wd))
+
+    def fwd():
+        g, u = gmm(x, wgt, offs=offs), gmm(x, wut, offs=offs)
+        act = F.silu(g) * u
+        return gmm(act, wdt, offs=offs), g, u, act
+
+    _, g, u, act = fwd()
+
+    def bwd():
+        da = gmm(dy, wd.transpose(-1, -2), offs=offs)
+        sig = torch.sigmoid(g)
+        dg = da * u * (sig * (1 + g * (1 - sig)))
+        du = da * (g * sig)
+        dx = gmm(dg, wg.transpose(-1, -2), offs=offs) \
+            + gmm(du, wu.transpose(-1, -2), offs=offs)
+        return (dx, gmm(x.T, dg, offs=offs), gmm(x.T, du, offs=offs),
+                gmm(act.T, dy, offs=offs))
+
+    try:
+        bwd()
+    except (RuntimeError, TypeError, ValueError) as err:
+        print(f"K11 yardstick: _grouped_mm refused: {str(err)[:300]}",
+              flush=True)
+        return None
+    return fwd, bwd
+
+
+def check_expert_gemm(torch, device) -> dict:
+    """K11 forward and backward against the plain version at
+    ``MOON_EXPERT`` (Moonlight's layer at the cell's batch, skewed rows,
+    two empty experts): every output within ``EXPERT_TOL`` of its scale,
+    the empty experts' gradients 0, two backward runs the same bits; kernel,
+    plain, ``_grouped_mm`` times and the bound."""
+    import numpy as np
+    from bert4rec_tpu_torch.ops import expert_gemm as eg
+    rows, h, i, e = MOON_EXPERT
+    rng = np.random.default_rng(SEED)
+
+    def t(*shape, scale=1.0):
+        return (torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+                * scale).to(device, torch.bfloat16)
+    counts = torch.from_numpy(expert_counts(np, rows, e)).to(device)
+    x, dy = t(rows, h), t(rows, h)
+    wg, wu, wd = t(e, h, i, scale=0.02), t(e, h, i, scale=0.02), \
+        t(e, i, h, scale=0.02)
+    c32 = counts.to(torch.int32)
+    fwd = lambda: eg._launch_forward(x, c32, wg, wu, wd)  # noqa: E731
+    y, g, u, act, sched = fwd()
+    bwd = lambda: eg._launch_backward(  # noqa: E731
+        dy, x, c32, wg, wu, wd, g, u, act, sched)
+    grads, again = bwd(), bwd()
+    want = eg.expert_mlp_plain_forward(x, c32, wg, wu, wd)
+    ref = eg.expert_mlp_plain_backward(dy, x, c32, wg, wu, wd, *want[1:])
+    torch.cuda.synchronize()
+    errs = {}
+    for name, a, b in zip(("y", "g", "u", "act", "dx", "dwg", "dwu", "dwd"),
+                          (y, g, u, act, *grads), (*want, *ref)):
+        errs[name] = rel_err(a, b)
+        if not (errs[name] <= EXPERT_TOL and bool(torch.isfinite(a).all())):
+            raise AssertionError(f"K11 at {MOON_EXPERT}: {name} rel err "
+                                 f"{errs[name]} (tol {EXPERT_TOL})")
+    empty = list(MOON_EMPTY)
+    if not all(bool((w[empty] == 0).all()) for w in grads[1:]):
+        raise AssertionError("K11: an empty expert's gradient is not 0")
+    if not all(torch.equal(a, b) for a, b in zip(grads, again)):
+        raise AssertionError("K11: two backward runs differ")
+    fwd_abs = max(float((a.float() - b.float()).abs().max())
+                  for a, b in zip((y, g, u, act), want))
+    bwd_abs = max(float((a.float() - b.float()).abs().max())
+                  for a, b in zip(grads, ref))
+    del want, ref, again
+    kernel = {"fwd": time_ms_blocks(fwd), "bwd": time_ms_blocks(bwd)}
+    heavy = dict(iters=3, warmup=1)
+    plain = {"fwd": time_ms(lambda: eg.expert_mlp_plain_forward(
+                 x, c32, wg, wu, wd), **heavy),
+             "bwd": time_ms(lambda: eg.expert_mlp_plain_backward(
+                 dy, x, c32, wg, wu, wd, g, u, act), **heavy)}
+    lib = grouped_mm_library(torch, x, counts, wg, wu, wd, dy)
+    lib_ms = ({part: time_ms_blocks(fn) for part, fn in
+               zip(("fwd", "bwd"), lib)} if lib else {})
+    row = {part: dict(
+        max_abs_err=fwd_abs if part == "fwd" else bwd_abs,
+        ms=kernel[part][0], range=kernel[part][1:], plain_ms=plain[part],
+        library_ms=lib_ms[part][0] if lib_ms else None,
+        **dict(zip(("bound_ms", "bound_by"), expert_bound_ms(
+            rows, h, i, e, part == "bwd"))))
+        for part in ("fwd", "bwd")}
+    print(f"K11 (R, H, I, E)={MOON_EXPERT}, rows per expert "
+          f"{int(counts.max())} most, experts {empty} empty (rel errs "
+          + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+          + f"; tol {EXPERT_TOL}; two backward runs the same bits): "
+          + "; ".join(
+              f"{part}: kernel_ms={r['ms']:.4f} ({r['range'][0]:.4f}-"
+              f"{r['range'][1]:.4f}) plain_ms={r['plain_ms']:.4f} "
+              f"library_ms={r['library_ms'] if r['library_ms'] is None else round(r['library_ms'], 4)} "  # noqa: E501
+              f"(_grouped_mm) bound_ms={r['bound_ms']:.4f} ({r['bound_by']},"
+              f" {100 * r['bound_ms'] / r['ms']:.1f}% of it)"
+              for part, r in row.items()), flush=True)
+    print("  per K11 forward: " + device_breakdown(torch, fwd)[1], flush=True)
+    print("  per K11 backward: " + device_breakdown(torch, bwd)[1],
+          flush=True)
+    del x, dy, wg, wu, wd, y, g, u, act, grads, lib
+    torch.cuda.empty_cache()
+    return row
+
+
+def check_mla_flash(torch, rng, device) -> dict:
+    """K8 / K9 at ``MOON_FLASH`` (latent attention's 192-wide queries and
+    keys against 128-wide values), causal, dropout 0, on the block's
+    strided views, against the plain versions; kernel, plain and SDPA
+    times and the bound."""
+    import numpy as np
+    import torch.nn.functional as F
+    fa = importlib.import_module("bert4rec_tpu_torch.ops.flash_attention")
+    b, n, s, dk, dv = MOON_FLASH
+
+    def t(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32)) \
+            .to(device, torch.bfloat16)
+    q, k = t(b, s, n, dk).transpose(1, 2), t(b, s, n, dk).transpose(1, 2)
+    v = t(b, s, n, 2 * dv)[..., dv:].transpose(1, 2)
+    do = t(b, n, s, dv)
+    lengths = rng.integers(1, s + 1, size=b)
+    lengths[:2] = [s, 1]
+    # front-padded, as the next-item batches are
+    mask = torch.from_numpy((np.arange(s)[None, :] >= s - lengths[:, None])
+                            .astype(np.int32)).to(device)
+    fwd = lambda: fa._launch_forward(q, k, v, mask, 0, 0.0, True, True)  # noqa: E731,E501
+    o, saved = fwd()
+    bwd = lambda: fa._launch_backward(q, k, v, mask, do, saved, 0, 0.0, True)  # noqa: E731,E501
+    grads = bwd()
+    ref = fa.mha_reference(q, k, v, mask, 0.0, 0, True)
+    ref_grads = fa.flash_attention_plain_backward(
+        q, k, v, mask, do, dropout_rate=0.0, seed=0, causal=True)
+    torch.cuda.synchronize()
+    fwd_err = float((o.float() - ref.float()).abs().max())
+    bwd_err = max(rel_err(a, c) for a, c in zip(grads, ref_grads))
+    bwd_abs = max(float((a.float() - c.float()).abs().max())
+                  for a, c in zip(grads, ref_grads))
+    label = f"flash attention bfloat16 (B, N, S, DK, DV)={MOON_FLASH} causal"
+    if not (fwd_err <= FLASH_TOL["bfloat16"]
+            and bwd_err <= GRAD_TOL["bfloat16"]
+            and [tuple(g.shape[-1:]) for g in grads] == [(dk,), (dk,), (dv,)]):
+        raise AssertionError(f"{label}: forward err {fwd_err}, backward rel "
+                             f"err {bwd_err}")
+    del ref, ref_grads
+    kernel = {"fwd": time_ms_blocks(fwd), "bwd": time_ms_blocks(bwd)}
+    heavy = dict(iters=3, warmup=1)
+    plain = {"fwd": time_ms(lambda: fa.mha_reference(
+                 q, k, v, mask, 0.0, 0, True), **heavy),
+             "bwd": time_ms(lambda: fa.flash_attention_plain_backward(
+                 q, k, v, mask, do, dropout_rate=0.0, seed=0, causal=True),
+                 **heavy)}
+    bias = (torch.where(mask > 0, 0.0, -1e9)[:, None, None, :]
+            + fa.causal_bias(s, device)).to(torch.bfloat16)
+    ql, kl, vl = (x.detach().requires_grad_(True) for x in (q, k, v))
+
+    def lib_fwd():
+        return F.scaled_dot_product_attention(ql, kl, vl, attn_mask=bias)
+
+    lib_out = lib_fwd()
+    lib_bwd = lambda: torch.autograd.grad(  # noqa: E731
+        lib_out, (ql, kl, vl), do, retain_graph=True)
+    lib = {"fwd": time_ms_blocks(lib_fwd), "bwd": time_ms_blocks(lib_bwd)}
+    backend = sdpa_backend(torch, lib_bwd)
+    pairs = b * n * attention_pairs(s, True)
+    heads = b * n * s
+    bounds = {
+        "fwd": (2 * pairs * (dk + dv),
+                heads * 2 * (2 * dk + 2 * dv) + b * s * 4),
+        "bwd": (4 * pairs * (dk + dv),
+                heads * (2 * (4 * dk + 3 * dv) + 8) + b * s * 4)}
+    row = {}
+    for part, (flops, nbytes) in bounds.items():
+        t_ops = flops / PEAK_FLOPS["bfloat16"] * 1e3
+        t_bytes = nbytes / HBM_BYTES_S * 1e3
+        row[part] = dict(
+            max_abs_err=fwd_err if part == "fwd" else bwd_abs,
+            ms=kernel[part][0], range=kernel[part][1:],
+            plain_ms=plain[part], library_ms=lib[part][0],
+            bound_ms=max(t_ops, t_bytes),
+            bound_by="operations" if t_ops >= t_bytes else "bytes")
+    print(f"{label}: forward err {fwd_err:.3g} (tol {FLASH_TOL['bfloat16']}),"
+          f" backward rel err {bwd_err:.3g} (tol {GRAD_TOL['bfloat16']}); "
+          + "; ".join(
+              f"{part}: kernel_ms={r['ms']:.4f} ({r['range'][0]:.4f}-"
+              f"{r['range'][1]:.4f}) plain_ms={r['plain_ms']:.4f} "
+              f"library_ms={r['library_ms']:.4f} (SDPA backend {backend}) "
+              f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']})"
+              for part, r in row.items()), flush=True)
+    del q, k, v, do, o, saved, grads, lib_out, lib_bwd, ql, kl, vl, bias
+    torch.cuda.empty_cache()
+    return row
+
+
+def check_moonlight_training(torch, device) -> dict:
+    """``BERT4RecTrainer.train()`` of a ``SASRecModel`` built from the
+    benchmark's moonlight-16b-a3b_5L config (5 layers at the published
+    widths, B=64, S=200, next-item, the cell's AdamW) over a corpus of the
+    cell's traffic, ``MOON_STEPS`` steps: the run's launch counts (K11 once
+    a MoE layer a step each way, K8 / K9 causal at 192 / 128 once a layer,
+    K10 once a step, no row dropped), the loss finite, and per MoE layer
+    the router's load as training goes (at ``MOON_MARKS``): the most rows
+    on one expert, the sorted loads' top, the experts left with no row,
+    and the share of the router's input in its mean direction (||mean
+    x||^2 / mean ||x||^2: near 1, every token scores the experts alike)."""
+    from benchmark import traffic_gen
+    from bert4rec_tpu_torch.core.dtypes import DTypePolicy
+    from bert4rec_tpu_torch.dataloaders.processed_dataset import (
+        MaskingConfig, ProcessedDataset)
+    from bert4rec_tpu_torch.models import BERT4RecConfig, SASRecModel
+    from bert4rec_tpu_torch.models.components import mla_moe
+    from bert4rec_tpu_torch.ops import expert_gemm as eg
+    from bert4rec_tpu_torch.ops import table_gradient as tg
+    from bert4rec_tpu_torch.trainers import BERT4RecTrainer, optimizers
+    fa = importlib.import_module("bert4rec_tpu_torch.ops.flash_attention")
+    conf = json.loads(MOON_CONFIG.read_text())
+    traffic = json.loads(MOON_TRAFFIC.read_text())
+    cfg = dict(conf["model"], router_bias_seed=SEED)
+    opt = conf["optimizer"]
+    batch = int(conf["training"]["batch_size"])
+    seqs = traffic_gen.corpus(traffic, SEED, device)
+    masking = MaskingConfig(
+        max_seq_len=cfg["max_sequence_length"],
+        max_predictions_per_seq=cfg["max_predictions_per_seq"],
+        mask_token_id=1, pad_token_id=0, unk_token_id=2)
+    ds = ProcessedDataset(seqs[:batch * (MOON_STEPS + 8)], masking,
+                          lambda: cfg["vocab_size"], task=traffic["task"])
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    held = torch.cuda.memory_allocated(device)
+    trainer = BERT4RecTrainer(SASRecModel(
+        config=BERT4RecConfig.from_dict(cfg),
+        dtype_policy=DTypePolicy.bf16()))
+    trainer.initialize_model(
+        optimizer=optimizers.create_adam_w_optimizer(
+            init_lr=opt["lr"], num_train_steps=opt["train_steps"],
+            num_warmup_steps=opt["warmup"],
+            weight_decay_rate=opt["weight_decay"], beta_1=opt["b1"],
+            beta_2=opt["b2"], epsilon=opt["eps"],
+            exclude_from_weight_decay=opt["exclude"],
+            global_clipnorm=opt["clip"]),
+        seed=SEED, device=device)
+    moe_layers = cfg["num_layers"] - cfg["first_k_dense_replace"]
+    n_exp = cfg["n_routed_experts"]
+    loads, means, pads = [], [], []
+    route, step = mla_moe.route, trainer.train_step
+
+    def recorded_route(p, x, bias, c):
+        out = route(p, x, bias, c)
+        loads.append(torch.bincount(out[0].reshape(-1), minlength=n_exp))
+        if len(pads) in MOON_MARKS:
+            mean = x.mean(0, dtype=torch.float32)
+            energy = torch.linalg.vector_norm(x, dim=-1,
+                                              dtype=torch.float32)
+            means.append(mean.square().sum() / energy.square().mean())
+        return out
+
+    def recorded_step(b):
+        pads.append((b["input_mask"] == 0).float().mean())
+        return step(b)
+
+    counters = (lambda: (eg.expert_mlp.launches,
+                         eg.expert_mlp.backward_launches,
+                         fa.flash_attention.causal_launches,
+                         fa.flash_attention.causal_backward_launches,
+                         tg.table_gradient.launches))
+    mla_moe.route, trainer.train_step = recorded_route, recorded_step
+    mla_moe.routing_counts.reset()
+    before = counters()
+    t0 = time.perf_counter()
+    try:
+        hist = trainer.train(ds, epochs=1, batch_size=batch,
+                             steps_per_epoch=MOON_STEPS, seed=SEED,
+                             verbose=False)
+        torch.cuda.synchronize()
+    finally:
+        mla_moe.route, trainer.train_step = route, step
+    wall = time.perf_counter() - t0
+    got = dict(zip(("K11", "K11_backward", "flash", "flash_backward", "K10"),
+                   (a - b for a, b in zip(counters(), before))))
+    want = dict(K11=moe_layers * MOON_STEPS,
+                K11_backward=moe_layers * MOON_STEPS,
+                flash=cfg["num_layers"] * MOON_STEPS,
+                flash_backward=cfg["num_layers"] * MOON_STEPS,
+                K10=MOON_STEPS)
+    routing = mla_moe.routing_counts.read()
+    tokens = batch * cfg["max_sequence_length"]
+    if got != want or routing["dropped_rows"] or routing["routed_rows"] != (
+            tokens * cfg["num_experts_per_tok"] * moe_layers * MOON_STEPS):
+        raise AssertionError(f"moonlight train(): launches {got}, want "
+                             f"{want}; routing {routing}")
+    losses = [float(v) for v in hist.history.get("loss", [])]
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"moonlight train(): loss {losses}")
+    peak = torch.cuda.max_memory_allocated(device)
+    table = torch.stack(loads).view(MOON_STEPS, moe_layers, n_exp).cpu()
+    mean_share = torch.stack(means).view(len(MOON_MARKS), moe_layers).cpu()
+    pad = float(torch.stack(pads).mean())
+    print(f"moonlight train() (moonlight-16b-a3b_5L, B={batch}, the cell's "
+          f"AdamW, {MOON_STEPS} steps in {wall:.1f} s, peak {peak} B with "
+          f"{held} B held before): launches {got} (want {want}), routing "
+          f"{routing}, epoch loss {losses}, [PAD] share {pad:.3f}",
+          flush=True)
+    for layer in range(moe_layers):
+        top = table[:, layer].sort(dim=-1, descending=True).values
+        print(f"  MoE layer {cfg['first_k_dense_replace'] + layer}: most "
+              f"rows on one expert (of {tokens} tokens) at steps "
+              + ", ".join(f"{k}: {int(top[k - 1, 0])}" for k in MOON_MARKS)
+              + f"; step {MOON_STEPS}'s sorted top 8 "
+              f"{top[-1, :8].tolist()}, experts with no row "
+              f"{int((top[-1] == 0).sum())}; mean-direction share of the "
+              f"router's input at those steps "
+              + ", ".join(f"{v:.3f}" for v in mean_share[:, layer].tolist()),
+              flush=True)
+    del trainer, hist
+    torch.cuda.empty_cache()
+    return {"counts": got, "routing": routing, "peak_bytes": peak}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5047,6 +5434,12 @@ def run(torch, home) -> int:
     # ML-1M (fp32: K1 and K1'/K2 on 3xTF32, K3/K4 or K5 + K6; SASRec's K1''
     # causal on the route its shape law picks)
     examples = check_examples(torch, rng, device, home)
+    torch.cuda.empty_cache()
+    # phase 27: Moonlight-16B-A3B's block (moonlight_5L.train): K11 and
+    # K8 / K9 at 192 / 128 at the cell's shapes, then a counted train()
+    expert_row = check_expert_gemm(torch, device)
+    mla_row = check_mla_flash(torch, rng, device)
+    moon = check_moonlight_training(torch, device)
 
     def entry(name, source, replaces, n, row):
         return {"name": name, "route": "cuda",
@@ -5237,6 +5630,23 @@ def run(torch, home) -> int:
         "bert4rec_tpu/models/components/layers.py embedding_lookup "
         "(jnp.take; XLA's scatter-add, no TPU kernel)",
         c128["K10"], table_rows["ml-20m_128"]))
+    # K11 and K8 / K9 at 192 / 128 (moonlight_5L.train); launches from
+    # phase 27's counted train()
+    record["kernels"] += [
+        entry("expert_mlp", "expert_gemm.cu",
+              "no TPU kernel (the JAX package has no experts): the mla_moe "
+              "block's routed SwiGLU experts", moon["counts"]["K11"],
+              expert_row["fwd"]),
+        entry("expert_mlp_backward", "expert_gemm.cu",
+              "no TPU kernel (the JAX package has no experts): the mla_moe "
+              "block's routed SwiGLU experts",
+              moon["counts"]["K11_backward"], expert_row["bwd"]),
+        entry("flash_attention_dk192_dv128", "flash_attention.cu",
+              "bert4rec_tpu/ops/flash_attention.py:126",
+              moon["counts"]["flash"], mla_row["fwd"]),
+        entry("flash_attention_dk192_dv128_backward", "flash_attention.cu",
+              "bert4rec_tpu/ops/flash_attention.py:141",
+              moon["counts"]["flash_backward"], mla_row["bwd"])]
     credit_examples(record, examples, entry)
     idle = [k["name"] for k in record["kernels"] if not k["launches"]]
     if idle:

@@ -1925,14 +1925,16 @@ def test_table_grad_kernel_repeats_its_bits(cuda_device, cell):
 @pytest.mark.cuda
 @pytest.mark.parametrize("h, dtype", [
     (36, torch.bfloat16), (48, torch.bfloat16), (50, torch.float32),
-    (64, torch.float32), (100, torch.float32), (256, torch.bfloat16)])
+    (64, torch.float32), (100, torch.float32), (256, torch.bfloat16),
+    (2048, torch.bfloat16), (2048, torch.float32)])
 @pytest.mark.parametrize("misaligned", [False, True])
 def test_table_grad_kernel_at_any_width(cuda_device, h, dtype, misaligned):
     """Rows off the 16-byte rule (H not a multiple of the vector width, a
     misaligned base) take the scalar path; a ragged last tile; exact on
-    integer-valued rows."""
+    integer-valued rows. H = 2,048 at the moonlight_5L cell's batch: R =
+    12,800 rows over ML-20M's V = 26,732."""
     from bert4rec_tpu_torch.ops import table_gradient as tg
-    r, v = 1_001, 97
+    r, v = (12_800, 26_732) if h == 2048 else (1_001, 97)
     ids = _table_grad_ids(cuda_device, r, v, 300, 80, seed=2)
     g = torch.randint(-4, 5, (r * h + 1,), device=cuda_device).to(dtype)
     g = (g[1:] if misaligned else g[:-1]).view(r, h)
@@ -2051,3 +2053,228 @@ def test_fp32_training_launch_runs_only_the_tf32_kernels(cuda_device,
     layer = [n for n in names if "tf32" in n or "split" in n
              or "ln_rows" in n or "colsum" in n]
     assert all(any(k in n for k in TF32_LAYER_KERNELS) for n in layer), names
+
+
+# --------------------------------------------------------------------------- #
+# latent attention's K8 / K9: queries and keys of 192, values of 128
+# --------------------------------------------------------------------------- #
+
+def wide_operands(device, b, n, s, seed):
+    """q [B, N, S, 192], k as q, v [B, N, S, 128] laid out as the mla_moe
+    block hands them over (q and k transposed views of [B, S, N, 192], v
+    the last 128 columns of a [B, S, N, 256] projection), a mask from
+    ``causal_mask_np`` and dO."""
+    rng = np.random.default_rng(seed)
+
+    def t(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32)) \
+            .to(device, torch.bfloat16)
+    q, k = t(b, s, n, 192).transpose(1, 2), t(b, s, n, 192).transpose(1, 2)
+    v = t(b, s, n, 256)[..., 128:].transpose(1, 2)
+    mask = torch.from_numpy(causal_mask_np(rng, b, s)).to(device)
+    return q, k, v, mask, t(b, n, s, 128)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bns", [(4, 2, 1), (4, 2, 65), (4, 3, 130),
+                                 (64, 16, 200)],
+                         ids=lambda d: "B{}_N{}_S{}".format(*d))
+def test_flash_wide_keys_match_plain(cuda_device, bns):
+    """K8 / K9 at (DK, DV) = (192, 128) against the plain versions, causal
+    and bidirectional, dropout 0 and 0.2, at Moonlight's cell shape (B=64,
+    N=16, S=200) among others: forward within 2e-2 absolute, gradients
+    within 3e-2 of their scale (bf16's limits: sum-order differences flip
+    bf16 roundings); dq and dk 192 wide, dv 128."""
+    fa = importlib.import_module("bert4rec_tpu_torch.ops.flash_attention")
+    q, k, v, mask, do = wide_operands(cuda_device, *bns, sum(bns))
+    for causal, rate in ((True, 0.0), (False, 0.0), (True, 0.2)):
+        o, saved = fa._launch_forward(q, k, v, mask, 5, rate, causal, True)
+        grads = fa._launch_backward(q, k, v, mask, do, saved, 5, rate,
+                                    causal)
+        torch.cuda.synchronize()
+        ref = fa.mha_reference(q, k, v, mask, rate, 5, causal)
+        ref_grads = fa.flash_attention_plain_backward(
+            q, k, v, mask, do, dropout_rate=rate, seed=5, causal=causal)
+        label = f"causal={causal} rate={rate}"
+        assert o.shape == (*q.shape[:3], 128), label
+        assert float((o.float() - ref.float()).abs().max()) \
+            <= FLASH_TOL[torch.bfloat16], label
+        for name, got, want in zip("qkv", grads, ref_grads):
+            assert got.shape == want.shape, (name, label)
+            assert bool(torch.isfinite(got).all()), (name, label)
+            assert _rel_err(got, want) <= GRAD_TOL[torch.bfloat16], \
+                (name, label)
+
+
+@pytest.mark.cuda
+def test_flash_wide_keys_through_autograd_count_and_repeat(cuda_device):
+    """``flash_attention`` at 192 / 128: one causal launch each way, the
+    views' and their contiguous copies' bits equal, two K9 runs equal."""
+    fa = importlib.import_module("bert4rec_tpu_torch.ops.flash_attention")
+    q, k, v, mask, do = wide_operands(cuda_device, 4, 3, 130, 3)
+    f = fa.flash_attention
+    before = (f.causal_launches, f.causal_backward_launches)
+    ts = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    out = f(*ts, mask, causal=True)
+    out.backward(do)
+    assert (f.causal_launches - before[0],
+            f.causal_backward_launches - before[1]) == (1, 1)
+    copies = [t.contiguous() for t in (q, k, v)]
+    o1, s1 = fa._launch_forward(q, k, v, mask, 0, 0.0, True, True)
+    o2, s2 = fa._launch_forward(*copies, mask, 0, 0.0, True, True)
+    g1 = fa._launch_backward(q, k, v, mask, do, s1, 0, 0.0, True)
+    g2 = fa._launch_backward(*copies, mask, do, s2, 0, 0.0, True)
+    torch.cuda.synchronize()
+    assert torch.equal(o1, o2) and torch.equal(out.detach(), o1)
+    for a, b, c in zip(g1, g2, (t.grad for t in ts)):
+        assert torch.equal(a, b) and torch.equal(a, c)
+
+
+@pytest.mark.cuda
+def test_flash_wide_keys_refuse_fp32_and_other_pairs(cuda_device):
+    fa = importlib.import_module("bert4rec_tpu_torch.ops.flash_attention")
+    q, k, v, mask, _ = wide_operands(cuda_device, 2, 2, 64, 4)
+    with pytest.raises(ValueError):
+        fa.flash_attention(q.float(), k.float(), v.float(), mask)
+    with pytest.raises(ValueError):
+        fa.flash_attention(q[..., :160], k[..., :160], v, mask)
+
+
+# --------------------------------------------------------------------------- #
+# K11, the grouped expert GEMM
+# --------------------------------------------------------------------------- #
+
+def expert_operands(device, rows, h, i, counts, seed):
+    rng = np.random.default_rng(seed)
+
+    def t(*shape, scale=1.0):
+        return torch.from_numpy((rng.normal(size=shape) * scale)
+                                .astype(np.float32)).to(device)
+    e = len(counts)
+    return (t(rows, h).to(torch.bfloat16),
+            torch.tensor(counts, dtype=torch.int32, device=device),
+            t(e, h, i, scale=0.02), t(e, h, i, scale=0.02),
+            t(e, i, h, scale=0.02), t(rows, h).to(torch.bfloat16))
+
+
+def _cell_counts(rows=76_800, experts=64):
+    """Moonlight's layer at the cell's batch (12,800 tokens x 6): a skewed
+    split with two empty experts."""
+    share = 1.0 / (1.0 + np.random.default_rng(1).permutation(experts)) \
+        ** 0.6
+    share[[5, 40]] = 0.0
+    counts = np.floor(share / share.sum() * rows).astype(np.int64)
+    counts[np.argmax(counts)] += rows - counts.sum()
+    return counts.tolist()
+
+
+EXPERT_CASES = {
+    "moonlight": (76_800, 2048, 1408, _cell_counts()),
+    "ragged": (1_001, 256, 200, [0, 1, 127, 128, 129, 0, 300, 316]),
+    "one_expert": (130, 128, 192, [0, 0, 130, 0]),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(EXPERT_CASES))
+def test_expert_gemm_kernels_match_plain(cuda_device, case):
+    """K11 forward and backward against the plain version on uneven and
+    empty experts: y, g, u, the activation and dx within 1e-2 of their
+    scale, the fp32 weight gradients within 1e-2 (both sum the same bf16
+    products in fp32 in another order, which can flip a bf16 rounding of
+    g, u, dg or du by one unit, 2^-8); an empty expert's gradients 0."""
+    from bert4rec_tpu_torch.ops import expert_gemm as eg
+    rows, h, i, counts = EXPERT_CASES[case]
+    x, c, wg, wu, wd, dy = expert_operands(cuda_device, rows, h, i, counts,
+                                           rows)
+    bf = [w.to(torch.bfloat16) for w in (wg, wu, wd)]
+    got = eg._launch_forward(x, c, *bf)
+    want = eg.expert_mlp_plain_forward(x, c, *bf)
+    for name, a, b in zip(("y", "g", "u", "act"), got[:4], want):
+        assert a.shape == b.shape and a.dtype == torch.bfloat16, name
+        assert _rel_err(a, b) <= 1e-2, name
+    grads = eg._launch_backward(dy, x, c, *bf, *got[1:4], got[4])
+    ref = eg.expert_mlp_plain_backward(dy, x, c, *bf, *want[1:])
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dx", "dwg", "dwu", "dwd"), grads, ref):
+        assert a.shape == b.shape, name
+        assert bool(torch.isfinite(a).all()), name
+        assert _rel_err(a, b) <= 1e-2, name
+    empty = [e for e, n in enumerate(counts) if n == 0]
+    for g in grads[1:]:
+        assert bool((g[empty] == 0).all())
+
+
+@pytest.mark.cuda
+def test_expert_gemm_autograd_counts_and_repeats(cuda_device):
+    """``expert_mlp`` through autograd: one launch each way, fp32 weight
+    gradients, the same bits from two runs (no atomics)."""
+    from bert4rec_tpu_torch.ops import expert_gemm as eg
+    rows, h, i, counts = EXPERT_CASES["ragged"]
+    x, c, wg, wu, wd, dy = expert_operands(cuda_device, rows, h, i, counts,
+                                           9)
+    runs = []
+    for _ in range(2):
+        before = (eg.expert_mlp.launches, eg.expert_mlp.backward_launches)
+        xs = x.detach().requires_grad_(True)
+        ws = [w.detach().requires_grad_(True) for w in (wg, wu, wd)]
+        y = eg.expert_mlp(xs, c, *ws)
+        y.backward(dy)
+        assert (eg.expert_mlp.launches - before[0],
+                eg.expert_mlp.backward_launches - before[1]) == (1, 1)
+        assert all(w.grad.dtype == torch.float32 for w in ws)
+        runs.append([y.detach(), xs.grad] + [w.grad for w in ws])
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+@pytest.mark.cuda
+def test_expert_gemm_refuses_fp32_rows(cuda_device):
+    from bert4rec_tpu_torch.ops import expert_gemm as eg
+    x, c, wg, wu, wd, _ = expert_operands(cuda_device, 64, 128, 64,
+                                          [32, 32], 2)
+    with pytest.raises(ValueError):
+        eg.expert_mlp(x.float(), c, wg, wu, wd)
+
+
+@pytest.mark.cuda
+def test_mla_moe_train_step_runs_the_kernels(cuda_device):
+    """A small ``mla_moe`` SASRec trains through ``train_step`` on the card:
+    flash attention at 192 / 128 once a layer each way, K11 once a MoE layer
+    each way, no row dropped, the loss finite."""
+    from bert4rec_tpu_torch.core.dtypes import DTypePolicy
+    from bert4rec_tpu_torch.models import BERT4RecConfig, SASRecModel
+    from bert4rec_tpu_torch.models.components import mla_moe
+    from bert4rec_tpu_torch.ops import expert_gemm as eg
+    from bert4rec_tpu_torch.trainers import BERT4RecTrainer
+    fa = importlib.import_module("bert4rec_tpu_torch.ops.flash_attention")
+    cfg = BERT4RecConfig(
+        vocab_size=503, hidden_size=256, num_layers=3, num_attention_heads=2,
+        inner_dim=512, max_sequence_length=64, max_predictions_per_seq=63,
+        block="mla_moe", output_dropout=0.0, attention_dropout=0.0,
+        use_flash_attention=True, n_routed_experts=8, num_experts_per_tok=2,
+        moe_intermediate_size=128)
+    trainer = BERT4RecTrainer(SASRecModel(config=cfg,
+                                          dtype_policy=DTypePolicy.bf16()))
+    trainer.initialize_model(seed=0, device=cuda_device)
+    rng = np.random.default_rng(0)
+    ids = rng.integers(3, 503, size=(8, 64)).astype(np.int32)
+    lens = rng.integers(2, 65, size=8)
+    mask = (np.arange(64)[None] < lens[:, None]).astype(np.int32)
+    pos = np.tile(np.arange(63, dtype=np.int32), (8, 1))
+    lab = np.where(pos < lens[:, None] - 1, ids[:, 1:], 0).astype(np.int32)
+    batch = {k: torch.from_numpy(v).to(cuda_device) for k, v in dict(
+        input_word_ids=ids * mask, input_mask=mask,
+        masked_lm_positions=pos, masked_lm_ids=lab).items()}
+    f, em = fa.flash_attention, eg.expert_mlp
+    before = (f.causal_launches, f.causal_backward_launches, em.launches,
+              em.backward_launches)
+    mla_moe.routing_counts.reset()
+    logs = trainer.train_step(batch)
+    after = (f.causal_launches, f.causal_backward_launches, em.launches,
+             em.backward_launches)
+    assert [a - b for a, b in zip(after, before)] == [3, 3, 2, 2]
+    assert bool(torch.isfinite(logs["loss"]))
+    counts = mla_moe.routing_counts.read()
+    assert counts["routed_rows"] == 2 * 8 * 64 * 2
+    assert counts["dropped_rows"] == 0

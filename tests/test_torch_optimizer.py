@@ -99,3 +99,31 @@ def test_factory():
     assert optimizers.get(opt) is opt
     with pytest.raises(ValueError):
         optimizers.get("nope")
+
+
+@pytest.mark.parametrize("elements", [1, 64, 100])
+def test_an_update_in_groups_of_leaves_gives_the_same_bits(monkeypatch,
+                                                           elements):
+    """A model over ``GROUP_ELEMENTS`` updates a group of leaves at a time
+    (its temporaries bounded); the clip's norm is the whole model's, so
+    every leaf gets the bits of the update in one pass."""
+    rng = np.random.default_rng(4)
+    start, grads = tree(rng), [tree(rng, 3.0) for _ in range(2)]
+
+    def run():
+        opt = optimizers.create_adam_w_optimizer(
+            init_lr=1e-2, num_warmup_steps=0, global_clipnorm=5.0)
+        params = unflatten({k: torch.from_numpy(v.copy())
+                            for k, v in start.items()})
+        state = opt.init(params)
+        for g in grads:
+            state = opt.update({k: torch.from_numpy(v) for k, v in
+                                g.items()}, state, params)
+        return flatten(params), flatten(state["mu"])
+    whole = run()
+    monkeypatch.setattr(optimizers, "GROUP_ELEMENTS", elements)
+    assert len(optimizers._groups(list(PATHS), [
+        torch.zeros(s) for s in PATHS.values()])) > 1
+    grouped = run()
+    for a, b in zip(whole, grouped):
+        assert all(torch.equal(a[k], b[k]) for k in a)
