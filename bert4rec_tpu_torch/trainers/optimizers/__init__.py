@@ -30,6 +30,7 @@ from typing import Callable, Dict, Optional, Sequence, Union
 import numpy as np
 import torch
 
+from bert4rec_tpu_torch.ops import adamw
 from bert4rec_tpu_torch.utils.checkpoint import flatten, unflatten
 
 DEFAULT_EXCLUDE_FROM_WEIGHT_DECAY = ("LayerNorm", "layer_norm", "bias",
@@ -96,71 +97,34 @@ class AdamW:
         state. ``grads`` is ``{path: tensor}`` for every param path.
         ``sq_norm`` maps ``{path: leaf's sum of squares}`` to the global
         squared norm (on a mesh: the sharded leaves' sums added over the
-        'model' axis, the replicated ones once); by default their sum."""
+        'model' axis, the replicated ones once); by default their sum.
+        On the card the update is ``ops/adamw.py``'s kernels, on the CPU
+        its plain version."""
         flat = flatten(params)
         paths = list(flat)
-        g = [grads[k].float() for k in paths]
-        # clip_by_global_norm: sqrt of the sum of every leaf's sum of
-        # squares; untouched below the bound, t / norm * bound at or above
-        sums = {k: (t * t).sum() for k, t in zip(paths, g)}
-        norm = (sq_norm(sums) if sq_norm is not None
-                else torch.stack(list(sums.values())).sum()).sqrt()
-        below = norm < self.global_clipnorm
         mu_flat, nu_flat = flatten(state["mu"]), flatten(state["nu"])
-        count = state["count"] + 1
+        hook = None if sq_norm is None else (
+            lambda sums: sq_norm(dict(zip(paths, sums))))
+        adamw.adamw_update([flat[k] for k in paths],
+                           [grads[k] for k in paths],
+                           [mu_flat[k] for k in paths],
+                           [nu_flat[k] for k in paths],
+                           [bool(self.decay_mask(k)) for k in paths],
+                           self.hyper(state["count"]), hook)
+        return {"count": state["count"] + 1, "mu": state["mu"],
+                "nu": state["nu"]}
+
+    def hyper(self, count: int) -> adamw.Hyper:
+        """The scalars of the update that follows ``count`` updates: the
+        schedule's rate at ``count`` and the bias corrections with the count
+        after it, in float32 as optax computes them."""
         f32 = np.float32
-        bc1 = float(f32(1.0) - f32(self.b1) ** f32(count))
-        bc2 = float(f32(1.0) - f32(self.b2) ** f32(count))
-        lr = self.schedule(state["count"])
-        for group in _groups(paths, g):
-            self._step(group, [g[i] for i in group],
-                       [paths[i] for i in group], flat, mu_flat, nu_flat,
-                       norm, below, bc1, bc2, lr)
-        return {"count": count, "mu": state["mu"], "nu": state["nu"]}
-
-    def _step(self, group, g, paths, flat, mu_flat, nu_flat, norm, below,
-              bc1, bc2, lr) -> None:
-        """The clip and the AdamW update of the leaves ``paths`` (their
-        gradients ``g``), in place."""
-        g = [torch.where(below, t, t / norm * self.global_clipnorm)
-             for t in g]
-        mu = [mu_flat[k] for k in paths]
-        nu = [nu_flat[k] for k in paths]
-        torch._foreach_mul_(mu, self.b1)
-        torch._foreach_add_(mu, g, alpha=1.0 - self.b1)
-        torch._foreach_mul_(nu, self.b2)
-        torch._foreach_addcmul_(nu, g, g, value=1.0 - self.b2)
-        mu_hat = torch._foreach_div(mu, bc1)
-        den = torch._foreach_div(nu, bc2)
-        torch._foreach_sqrt_(den)
-        torch._foreach_add_(den, self.eps)
-        upd = torch._foreach_div(mu_hat, den)
-        decay = [i for i, k in enumerate(paths) if self.decay_mask(k)]
-        if self.weight_decay and decay:
-            torch._foreach_add_([upd[i] for i in decay],
-                                [flat[paths[i]] for i in decay],
-                                alpha=self.weight_decay)
-        torch._foreach_add_([flat[k] for k in paths], upd, alpha=-lr)
-
-
-# elements of the leaves one pass of the update takes: its clipped
-# gradients and Adam's temporaries (four fp32 copies) stay within 4 x 4
-# bytes of this, so a model of billions of parameters updates without
-# four copies of itself; any model under it updates in one pass
-GROUP_ELEMENTS = 1 << 28
-
-
-def _groups(paths: list, g: list) -> list:
-    """Consecutive runs of leaf indices, each of at most ``GROUP_ELEMENTS``
-    elements (a larger leaf alone)."""
-    out, run, size = [], [], 0
-    for i, t in enumerate(g):
-        if run and size + t.numel() > GROUP_ELEMENTS:
-            out.append(run)
-            run, size = [], 0
-        run.append(i)
-        size += t.numel()
-    return out + [run] if run else out
+        return adamw.Hyper(
+            lr=self.schedule(count),
+            bc1=float(f32(1.0) - f32(self.b1) ** f32(count + 1)),
+            bc2=float(f32(1.0) - f32(self.b2) ** f32(count + 1)),
+            b1=self.b1, b2=self.b2, eps=self.eps,
+            weight_decay=self.weight_decay, clip=self.global_clipnorm)
 
 
 # where optax's chain(clip_by_global_norm, adamw) keeps its state: element 1

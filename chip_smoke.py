@@ -308,6 +308,16 @@ Phases (any failure raises and the script exits non-zero):
               moonlight-16b-a3b_5L config on the cell's traffic: the launch
               counts of that run (the kernels line's) and each MoE layer's
               load as it trains.
+28. update (inside phases 14 and 27) — K12, the trainer's clip and AdamW
+              update (``csrc/adamw.cu``): every counted ``train()`` holds it
+              to three launches a step; on the trained leaves of phase 14's
+              bert_base_512 and phase 27's moonlight-16b-a3b_5L trainers,
+              with random gradients, each leaf's sum of squares against
+              float64, the update against the plain chain under K12's norm,
+              two calls' bits (where the copies fit), and K12's device time
+              against the 32-byte bound, the plain chain and
+              ``torch._fused_adamw_`` (library), with each call's host time
+              and device operations.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the rest of
@@ -1441,9 +1451,10 @@ def new_trainer(torch, device, params=None, lr=1e-4, warmup=100,
 
 def plain_kernels():
     """Patches that send the CUDA branches of the flash attention, layer,
-    loss and table-gradient Functions to the plain versions: the reference
-    of the step check."""
+    loss and table-gradient Functions and of the update to the plain
+    versions: the reference of the step check."""
     from unittest import mock
+    from bert4rec_tpu_torch.ops import adamw
     fa = importlib.import_module("bert4rec_tpu_torch.ops.flash_attention")
     from bert4rec_tpu_torch.ops import fused_encoder_layer as fel
     from bert4rec_tpu_torch.ops import fused_mlm_loss as fml
@@ -1486,7 +1497,8 @@ def plain_kernels():
                mock.patch.object(fml, "_launch_forward_tiled",
                                  fml.fused_mlm_loss_plain_forward),
                mock.patch.object(fml, "_launch_backward_tiled", tiled_bwd),
-               mock.patch.object(tg, "_launch", tg.table_gradient_plain)]
+               mock.patch.object(tg, "_launch", tg.table_gradient_plain),
+               mock.patch.object(adamw, "_launch", adamw.adamw_update_plain)]
     return patches
 
 
@@ -1548,6 +1560,7 @@ def check_training(torch, device, new=None, label="ml-1m_128"):
     against the plain step, the launch counts of a ``train()`` run, the
     step time, ``train()``'s idle share and a device breakdown, the loss
     falling on a repeated batch, and an exact resume."""
+    from bert4rec_tpu_torch.ops import adamw
     from bert4rec_tpu_torch.ops import fused_encoder_layer as fel
     from bert4rec_tpu_torch.ops import fused_mlm_loss as fml
     from bert4rec_tpu_torch.ops import table_gradient as tg
@@ -1576,7 +1589,7 @@ def check_training(torch, device, new=None, label="ml-1m_128"):
     for attr in ("mma_sync_launches", "mma_sync_backward_launches",
                  "tf32_launches", "tf32_backward_launches"):
         setattr(fel.fused_encoder_layer, attr, 0)
-    tg.table_gradient.launches = 0
+    tg.table_gradient.launches = adamw.adamw_update.launches = 0
     t0 = time.perf_counter()
     hist = trainer.train(SyntheticDataset(TRAIN_STEPS, seed=1), epochs=1,
                          batch_size=STREAM_BATCH, seed=SEED, verbose=False)
@@ -1589,12 +1602,13 @@ def check_training(torch, device, new=None, label="ml-1m_128"):
                   + fel.fused_encoder_layer.mma_sync_backward_launches,
                   tf32_fwd=fel.fused_encoder_layer.tf32_launches,
                   tf32_bwd=fel.fused_encoder_layer.tf32_backward_launches,
-                  K10=tg.table_gradient.launches)
+                  K10=tg.table_gradient.launches,
+                  K12=adamw.adamw_update.launches)
     # fp32: every layer launch, forward and backward, on the 3xTF32 route
     layer_steps = cfg.num_layers * TRAIN_STEPS
     want = dict(layer_fwd=layer_steps, layer_bwd=layer_steps,
                 loss_fwd=TRAIN_STEPS, loss_bwd=TRAIN_STEPS, mma_sync=0,
-                K10=TRAIN_STEPS,
+                K10=TRAIN_STEPS, K12=3 * TRAIN_STEPS,
                 tf32_fwd=layer_steps if fp32 else 0,
                 tf32_bwd=layer_steps if fp32 else 0)
     loss = hist.history["loss"][0]
@@ -2006,6 +2020,7 @@ def check_ml20m_training(torch, device, loader, splits, config_name,
     layer kernels) from the ``"bert4rec_temporal"`` preprocessor's. Returns
     the launch counts of the counted run, its timings, the step's peak
     device memory, the trainer and the host batches it drew."""
+    from bert4rec_tpu_torch.ops import adamw
     from bert4rec_tpu_torch.ops import fused_encoder_layer as fel
     from bert4rec_tpu_torch.ops import fused_mlm_loss as fml
     from bert4rec_tpu_torch.ops import table_gradient as tg
@@ -2055,7 +2070,7 @@ def check_ml20m_training(torch, device, loader, splits, config_name,
                      "tf32_backward_launches"):
             if hasattr(fn, attr):
                 setattr(fn, attr, 0)
-    tg.table_gradient.launches = 0
+    tg.table_gradient.launches = adamw.adamw_update.launches = 0
     t0 = time.perf_counter()
     hist = trainer.train(train_ds, epochs=1, batch_size=STREAM_BATCH,
                          steps_per_epoch=ML20M_STEPS, seed=SEED,
@@ -2073,6 +2088,7 @@ def check_ml20m_training(torch, device, loader, splits, config_name,
                   K6=fml.fused_mlm_loss_tiled.merged_launches,
                   K7=fml.fused_mlm_loss_tiled.two_sweep_launches,
                   K10=tg.table_gradient.launches,
+                  K12=adamw.adamw_update.launches,
                   mma_sync=fel.fused_encoder_layer.mma_sync_launches
                   + fel.fused_encoder_layer.mma_sync_backward_launches,
                   tf32_fwd=fel.fused_encoder_layer.tf32_launches,
@@ -2084,7 +2100,7 @@ def check_ml20m_training(torch, device, loader, splits, config_name,
                 rel_fwd=0, rel_bwd=0, K3=0, K4=0, K5=ML20M_STEPS,
                 K6=ML20M_STEPS if kernel == "K6" else 0,
                 K7=ML20M_STEPS if kernel == "K7" else 0, K10=ML20M_STEPS,
-                mma_sync=0,
+                K12=3 * ML20M_STEPS, mma_sync=0,
                 tf32_fwd=layer_steps if fp32 else 0,
                 tf32_bwd=layer_steps if fp32 else 0)
     want[f"{variant}_fwd"] = want[f"{variant}_bwd"] = layer_steps
@@ -2544,16 +2560,18 @@ FLASH_COUNTERS = ("launches", "backward_launches", "causal_launches",
 
 def base_train_counts(torch, trainer, want, label) -> dict:
     """The main path: every launch counter of the flash attention, layer,
-    loss and table-gradient kernels set to 0, ``train()`` for BASE_STEPS
-    steps, then the counts, held to ``want`` (0 for every counter it does
-    not name, but ``table.launches``: one a step)."""
+    loss, table-gradient and update kernels set to 0, ``train()`` for
+    BASE_STEPS steps, then the counts, held to ``want`` (0 for every counter
+    it does not name, but ``table.launches``: one a step, and
+    ``adamw.launches``: three a step)."""
     fa = importlib.import_module("bert4rec_tpu_torch.ops.flash_attention")
+    from bert4rec_tpu_torch.ops import adamw
     from bert4rec_tpu_torch.ops import fused_encoder_layer as fel
     from bert4rec_tpu_torch.ops import fused_mlm_loss as fml
     from bert4rec_tpu_torch.ops import table_gradient as tg
     counted = {"flash": fa.flash_attention, "layer": fel.fused_encoder_layer,
                "loss": fml.fused_mlm_loss, "tiled": fml.fused_mlm_loss_tiled,
-               "table": tg.table_gradient}
+               "table": tg.table_gradient, "adamw": adamw.adamw_update}
     attrs = FLASH_COUNTERS + ("merged_launches", "two_sweep_launches")
     for fn in counted.values():
         for attr in attrs:
@@ -2570,6 +2588,7 @@ def base_train_counts(torch, trainer, want, label) -> dict:
               if hasattr(fn, attr)}
     want = {k: want.get(k, 0) for k in counts}
     want["table.launches"] = BASE_STEPS
+    want["adamw.launches"] = 3 * BASE_STEPS
     loss = hist.history["loss"][0]
     print(f"{label} train(): {BASE_STEPS} steps of B={BASE_BATCH} S="
           f"{BASE_SEQ} in {wall:.2f} s (first step included), epoch loss "
@@ -2650,7 +2669,9 @@ def check_bert_base_training(torch, device):
         groups={"K8": ("flash_fwd_kernel", "attention_kernel"),
                 "K9": ("flash_bwd", "attn_bwd"),
                 "GEMMs": ("nvjet", "gemm", "cutlass", "sm90_xmma"),
-                "optimizer": ("multi_tensor", "foreach")})
+                "optimizer": ("multi_tensor", "foreach", "adamw")})
+    # phase 28: K12 on the trained leaves (the last use of this trainer)
+    update = check_adamw_leaves(torch, device, "bert_base_512", trainer)
     del trainer
     torch.cuda.empty_cache()
 
@@ -2703,7 +2724,7 @@ def check_bert_base_training(torch, device):
                              f"{before} -> {after}")
     del fast
     torch.cuda.empty_cache()
-    return dict(counts=counts, **timed, peaks=peaks)
+    return dict(counts=counts, **timed, peaks=peaks, adamw=update)
 
 
 def check_bert_base_fp32(torch, device):
@@ -2980,23 +3001,27 @@ def time_device_ms(torch, fn, iters=10, blocks=7) -> float:
     return statistics.median(times)
 
 
-def device_ops(torch, fn) -> dict:
+def device_ops(torch, fn, need=()) -> dict:
     """The device operations (kernels, memsets, copies) of one call of
     ``fn`` by name, ``[count, device us]``, from torch.profiler, taken again
-    if it dropped them."""
+    if it dropped them: none, or (up to five traces, then the last is
+    returned as it is) one named by a part in ``need``."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):
+    ops = {}
+    for _ in range(5):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
         ops = {_kernel_name(e.key): [e.count, round(
             e.self_device_time_total, 2)] for e in prof.key_averages()
                if getattr(e, "self_device_time_total", 0) > 0}
-        if ops:
+        if ops and all(any(k in name for name in ops) for k in need):
             return ops
-    raise AssertionError("the profiler recorded no device operation")
+    if not ops:
+        raise AssertionError("the profiler recorded no device operation")
+    return ops
 
 
 def check_table_grad_case(torch, rng, device, r, v, h, dtype, pad, mask):
@@ -5175,13 +5200,16 @@ def check_moonlight_training(torch, device) -> dict:
     the router's load as training goes (at ``MOON_MARKS``): the most rows
     on one expert, the sorted loads' top, the experts left with no row,
     and the share of the router's input in its mean direction (||mean
-    x||^2 / mean ||x||^2: near 1, every token scores the experts alike)."""
+    x||^2 / mean ||x||^2: near 1, every token scores the experts alike);
+    K12 three launches a step, then phase 28's ``check_adamw_leaves`` on
+    the trained leaves."""
     from benchmark import traffic_gen
     from bert4rec_tpu_torch.core.dtypes import DTypePolicy
     from bert4rec_tpu_torch.dataloaders.processed_dataset import (
         MaskingConfig, ProcessedDataset)
     from bert4rec_tpu_torch.models import BERT4RecConfig, SASRecModel
     from bert4rec_tpu_torch.models.components import mla_moe
+    from bert4rec_tpu_torch.ops import adamw
     from bert4rec_tpu_torch.ops import expert_gemm as eg
     from bert4rec_tpu_torch.ops import table_gradient as tg
     from bert4rec_tpu_torch.trainers import BERT4RecTrainer, optimizers
@@ -5236,7 +5264,8 @@ def check_moonlight_training(torch, device) -> dict:
                          eg.expert_mlp.backward_launches,
                          fa.flash_attention.causal_launches,
                          fa.flash_attention.causal_backward_launches,
-                         tg.table_gradient.launches))
+                         tg.table_gradient.launches,
+                         adamw.adamw_update.launches))
     mla_moe.route, trainer.train_step = recorded_route, recorded_step
     mla_moe.routing_counts.reset()
     before = counters()
@@ -5247,15 +5276,18 @@ def check_moonlight_training(torch, device) -> dict:
                              verbose=False)
         torch.cuda.synchronize()
     finally:
-        mla_moe.route, trainer.train_step = route, step
+        # the instance's patch goes (a bound method kept on its own
+        # instance is a cycle that holds the trainer's 30 GB)
+        mla_moe.route = route
+        del trainer.train_step
     wall = time.perf_counter() - t0
-    got = dict(zip(("K11", "K11_backward", "flash", "flash_backward", "K10"),
-                   (a - b for a, b in zip(counters(), before))))
+    got = dict(zip(("K11", "K11_backward", "flash", "flash_backward", "K10",
+                    "K12"), (a - b for a, b in zip(counters(), before))))
     want = dict(K11=moe_layers * MOON_STEPS,
                 K11_backward=moe_layers * MOON_STEPS,
                 flash=cfg["num_layers"] * MOON_STEPS,
                 flash_backward=cfg["num_layers"] * MOON_STEPS,
-                K10=MOON_STEPS)
+                K10=MOON_STEPS, K12=3 * MOON_STEPS)
     routing = mla_moe.routing_counts.read()
     tokens = batch * cfg["max_sequence_length"]
     if got != want or routing["dropped_rows"] or routing["routed_rows"] != (
@@ -5285,9 +5317,159 @@ def check_moonlight_training(torch, device) -> dict:
               f"router's input at those steps "
               + ", ".join(f"{v:.3f}" for v in mean_share[:, layer].tolist()),
               flush=True)
-    del trainer, hist
+    del hist
     torch.cuda.empty_cache()
-    return {"counts": got, "routing": routing, "peak_bytes": peak}
+    # phase 28: K12 on the trained leaves (the last use of this trainer)
+    update = check_adamw_leaves(torch, device, "moonlight_5L", trainer)
+    del trainer
+    torch.cuda.empty_cache()
+    return {"counts": got, "routing": routing, "peak_bytes": peak,
+            "adamw": update}
+
+
+# phase 28: K12, the trainer's clip and AdamW update (csrc/adamw.cu), on
+# the leaves of phases 14 and 27's trainers
+ADAMW_COUNT = 150         # the optimizer count of the timed updates
+ADAMW_KERNELS = ("adamw_sumsq_kernel", "adamw_leaf_sums_kernel",
+                 "adamw_update_kernel")
+ADAMW_HELD = 1 << 28      # past these elements only some leaves are held
+                          # against the plain chain (its copies take room)
+
+
+def host_ms(torch, fn, calls=10) -> float:
+    """Median host ms a call takes to return (its launches), the device
+    drained between calls."""
+    import statistics
+    times = []
+    for _ in range(calls):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return statistics.median(times)
+
+
+def check_adamw_leaves(torch, device, name, trainer) -> dict:
+    """K12 on a trained cell's own params and moments with random fp32
+    gradients (as the trainer hands them) at ``ADAMW_COUNT``: each leaf's
+    sum of squares against float64, the update of the leaves held (all of
+    them up to ``ADAMW_HELD`` elements, else the largest and the eight
+    smallest) against the plain chain under the kernels' norm, two calls'
+    bits; then device ms of K12, the plain chain and
+    ``torch._fused_adamw_`` (library: AdamW without the clip, timed only)
+    against the 32-byte bound, each call's host ms, and the device
+    operations of a call."""
+    from bert4rec_tpu_torch.ops import adamw
+    from bert4rec_tpu_torch.utils.checkpoint import flatten
+    opt, state = trainer.optimizer, trainer.state
+    flat = flatten(state["params"])
+    paths = list(flat)
+    p = [flat[k].detach() for k in paths]
+    m = [flatten(state["opt_state"]["mu"])[k] for k in paths]
+    v = [flatten(state["opt_state"]["nu"])[k] for k in paths]
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    g = [torch.randn(t.shape, device=device, generator=gen) * 1e-3
+         for t in p]
+    decay = [bool(opt.decay_mask(k)) for k in paths]
+    hyper = opt.hyper(ADAMW_COUNT)
+    elements = sum(t.numel() for t in p)
+    order = sorted(range(len(p)), key=lambda i: p[i].numel())
+    held = (order if elements <= ADAMW_HELD
+            else sorted(set(order[:8] + order[-1:])))
+    copies = [[x[i].clone() for i in held] for x in (p, m, v)]
+    seen = []
+
+    def hook(sums):
+        seen.append(torch.stack(sums))
+        return seen[-1].sum()
+
+    before = adamw.adamw_update.launches
+    adamw.adamw_update(p, g, m, v, decay, hyper, sq_norm=hook)
+    torch.cuda.synchronize()
+    if adamw.adamw_update.launches - before != 3:
+        raise AssertionError(f"K12 {name}: "
+                             f"{adamw.adamw_update.launches - before} "
+                             f"launches for one update")
+    sums = seen[0].double()
+    want = torch.stack([t.double().square().sum() for t in g])
+    sum_err = float(((sums - want).abs() / want).max())
+    sq = float(seen[0].sum())
+    adamw.adamw_update_plain(
+        copies[0], [g[i] for i in held], copies[1], copies[2],
+        [decay[i] for i in held], hyper,
+        sq_norm=lambda s: torch.tensor(sq, device=device))
+    # params: the optax test's 1e-7 + lr 1e-5, its 1e-7 one unit in the
+    # last place past 1; moments: against their leaf's largest
+    p_err, p_ok = 0.0, True
+    for i, c in zip(held, copies[0]):
+        err = (p[i] - c).abs()
+        ulp = torch.nextafter(c.abs(), torch.full_like(c, math.inf)) - c.abs()
+        p_ok &= bool((err <= ulp.clamp_min(1e-7) + hyper.lr * 1e-5).all())
+        p_err = max(p_err, float(err.max()))
+    mv_err = max(float((x[i] - c).abs().max() / c.abs().max())
+                 for x, cs in ((m, copies[1]), (v, copies[2]))
+                 for i, c in zip(held, cs))
+    del copies
+    if not (sum_err <= 1e-5 and p_ok and mv_err <= 1e-6):
+        raise AssertionError(f"K12 {name}: leaf sums rel err {sum_err:.3g},"
+                             f" params {p_err:.3g}, moments {mv_err:.3g}")
+    start = [[t.clone() for t in x] for x in (p, m, v)] \
+        if elements <= ADAMW_HELD else None
+    if start is not None:
+        runs = []
+        for _ in range(2):
+            for x, s0 in zip((p, m, v), start):
+                for t, s in zip(x, s0):
+                    t.copy_(s)
+            adamw.adamw_update(p, g, m, v, decay, hyper)
+            runs.append([t.clone() for x in (p, m, v) for t in x])
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(*runs)):
+            raise AssertionError(f"K12 {name}: two calls gave other bits")
+        del runs, start
+
+    def kernel():
+        adamw.adamw_update(p, g, m, v, decay, hyper)
+
+    def plain():
+        adamw.adamw_update_plain(p, g, m, v, decay, hyper)
+
+    steps = [torch.tensor(float(ADAMW_COUNT), device=device) for _ in p]
+
+    def library():
+        torch._fused_adamw_(p, g, m, v, [], steps, lr=hyper.lr,
+                            beta1=opt.b1, beta2=opt.b2,
+                            weight_decay=opt.weight_decay, eps=opt.eps,
+                            amsgrad=False, maximize=False)
+
+    row = {"leaves": len(p), "elements": elements,
+           "max_abs_err": p_err, "sum_rel_err": sum_err,
+           "moment_rel_err": mv_err,
+           "ms": time_device_ms(torch, kernel),
+           "plain_ms": time_device_ms(torch, plain, iters=3, blocks=3),
+           "library_ms": time_device_ms(torch, library),
+           "bound_ms": 32 * elements / HBM_BYTES_S * 1e3, "bound_by": "bytes",
+           "host_ms": host_ms(torch, kernel),
+           "plain_host_ms": host_ms(torch, plain, calls=5),
+           "ops": device_ops(torch, kernel, need=ADAMW_KERNELS),
+           "plain_ops": sum(n for n, _ in device_ops(torch, plain).values())}
+    n_ops = sum(n for n, _ in row["ops"].values())
+    dropped = [k for k in ADAMW_KERNELS
+               if not any(k in op for op in row["ops"])]
+    print(f"K12 {name} ({len(p)} leaves, {elements} elements, fp32 g): "
+          f"{row['ms']:.4f} ms (bound {row['bound_ms']:.4f}, bytes: "
+          f"{100 * row['bound_ms'] / row['ms']:.1f}%), plain chain "
+          f"{row['plain_ms']:.4f} ms, library (torch._fused_adamw_, no "
+          f"clip) {row['library_ms']:.4f} ms; host ms a call {row['host_ms']:.3f}"
+          f" (plain {row['plain_host_ms']:.3f}); {n_ops} device operations "
+          f"a call {row['ops']} (plain: {row['plain_ops']}; not in the "
+          f"profiler's trace: {dropped or 'none'}); leaf "
+          f"sums rel err {sum_err:.3g}, params max err {p_err:.3g} over "
+          f"{len(held)} leaves held, moments {mv_err:.3g} of their leaf's "
+          f"largest", flush=True)
+    del g, steps
+    return row
 
 
 def main() -> int:
@@ -5647,6 +5829,16 @@ def run(torch, home) -> int:
         entry("flash_attention_dk192_dv128_backward", "flash_attention.cu",
               "bert4rec_tpu/ops/flash_attention.py:141",
               moon["counts"]["flash_backward"], mla_row["bwd"])]
+    # K12 at the leaves of phases 27 and 14; launches from their counted
+    # train()
+    record["kernels"] += [
+        entry(f"adamw_update_{name}", "adamw.cu",
+              "no TPU kernel: optax's chain(clip_by_global_norm, adamw), "
+              "left to XLA", n, row)
+        for name, n, row in (
+            ("moonlight_5L", moon["counts"]["K12"], moon["adamw"]),
+            ("bert_base_512", base["counts"]["adamw.launches"],
+             base["adamw"]))]
     credit_examples(record, examples, entry)
     idle = [k["name"] for k in record["kernels"] if not k["launches"]]
     if idle:

@@ -1974,12 +1974,15 @@ def test_train_steps_take_the_table_grad_kernel(cuda_device, route):
     """A traced ``train()`` holds ``b4r::table_grad`` kernels and no
     ``indexing_backward_kernel`` (the MLM head's position gather is
     ``torch.gather``, so the item table is the only indexed gather with a
-    gradient), and ``table_gradient.launches`` equals the steps trained."""
+    gradient), and ``table_gradient.launches`` equals the steps trained.
+    The update is K12's: ``b4r::adamw`` kernels, no foreach
+    ``multi_tensor_apply_kernel``, three launches a step."""
     from torch.profiler import ProfilerActivity, profile
     from bert4rec_tpu_torch.core.dtypes import DTypePolicy
     from bert4rec_tpu_torch.dataloaders.processed_dataset import (
         MaskingConfig, ProcessedDataset)
     from bert4rec_tpu_torch.models import BERT4RecConfig, BERT4RecModel
+    from bert4rec_tpu_torch.ops import adamw
     from bert4rec_tpu_torch.ops import table_gradient as tg
     from bert4rec_tpu_torch.trainers import BERT4RecTrainer
     kw = dict(TABLE_GRAD_ROUTES[route])
@@ -2000,17 +2003,232 @@ def test_train_steps_take_the_table_grad_kernel(cuda_device, route):
     t.initialize_model(seed=0, device=cuda_device)
     t.train(ds, epochs=1, batch_size=batch, verbose=False)   # builds
     for _ in range(3):   # the profiler can drop records
-        before = tg.table_gradient.launches
+        before = tg.table_gradient.launches, adamw.adamw_update.launches
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             t.train(ds, epochs=1, batch_size=batch, verbose=False)
             torch.cuda.synchronize()
         names = [e.key for e in prof.key_averages()
                  if getattr(e, "self_device_time_total", 0) > 0]
-        if any("b4r::table_grad" in n for n in names):
+        if any("b4r::table_grad" in n for n in names) and any(
+                "b4r::adamw" in n for n in names):
             break
-    assert tg.table_gradient.launches - before == steps
+    assert tg.table_gradient.launches - before[0] == steps
+    assert adamw.adamw_update.launches - before[1] == 3 * steps
     assert not [n for n in names if "indexing_backward" in n], names
     assert any("b4r::table_grad_combine" in n for n in names), names
+    assert not [n for n in names if "multi_tensor_apply" in n], names
+    assert any("adamw_update_kernel" in n for n in names), names
+
+
+# K12, the clip and AdamW update: leaves of 1, 7, 768 and 2^20 + 3 elements,
+# a bf16 gradient (2^16 + 5), a zero gradient (300) and a leaf whose
+# pointers are off the 16-byte rule (1,001 elements, scalar loads); the
+# decay flag alternates
+ADAMW_SIZES = (1, 7, 768, (1 << 20) + 3, (1 << 16) + 5, 300, 1_001)
+
+
+def _adamw_leaves(device, grad_scale, seed=0):
+    """(p, g, m, v) lists at ``ADAMW_SIZES``: random params, gradients
+    times ``grad_scale``, the moments zero (``AdamW.init``'s: as in the
+    optax test, the updates then stay near 1, which its bound assumes)."""
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+
+    def rand(n, scale=1.0):
+        return (torch.randn(n, generator=gen) * scale).to(device)
+
+    p = [rand(n) for n in ADAMW_SIZES]
+    m = [torch.zeros(n, device=device) for n in ADAMW_SIZES]
+    v = [torch.zeros(n, device=device) for n in ADAMW_SIZES]
+    g = [rand(n, grad_scale) for n in ADAMW_SIZES]
+    g[4] = g[4].to(torch.bfloat16)
+    g[5] = torch.zeros_like(g[5])
+    for x in (p, m, v, g):        # a view one element past a 16-byte base
+        x[6] = torch.cat([x[6][:1], x[6]])[1:]
+    return p, g, m, v
+
+
+def _assert_adamw_close(kern, plain, lr):
+    """Params within the optax test's bound, 1e-7 + lr 1e-5, its 1e-7 (the
+    last rounding of a parameter near 1) taken as one unit in the last
+    place of a larger one; moments within 1e-6 of their leaf's largest."""
+    for a, b in zip(kern[0], plain[0]):
+        ulp = torch.nextafter(b.abs(), torch.full_like(b, np.inf)) - b.abs()
+        assert bool(((a - b).abs() <= ulp.clamp_min(1e-7) + lr * 1e-5)
+                    .all()), float((a - b).abs().max())
+    for a, b in zip(kern[2] + kern[3], plain[2] + plain[3]):
+        assert float((a - b).abs().max()) <= 1e-6 * float(b.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grad_scale", [3.0, 1e-4],
+                         ids=["clipped", "unclipped"])
+@pytest.mark.parametrize("weight_decay", [0.1, 0.0],
+                         ids=["decay", "no_decay"])
+@pytest.mark.parametrize("warmup", [0, 2], ids=["warmup0", "warmup2"])
+def test_adamw_kernels_match_plain(cuda_device, grad_scale, weight_decay,
+                                   warmup):
+    """Three updates through K12 against the plain chain, each from the
+    same state (the chain's copies take K12's result before the next, so
+    one update's rounding is held, not three compounded) and the chain
+    clipping by K12's norm (which is held against a float64 norm):
+    ``_assert_adamw_close``; three launches an update, none on the plain
+    route."""
+    from bert4rec_tpu_torch.ops import adamw
+    from bert4rec_tpu_torch.trainers import optimizers
+    opt = optimizers.create_adam_w_optimizer(
+        init_lr=1e-2, num_train_steps=20, num_warmup_steps=warmup,
+        weight_decay_rate=weight_decay)
+    decay = [i % 2 == 0 for i in range(len(ADAMW_SIZES))]
+    kern = list(_adamw_leaves(cuda_device, grad_scale))
+    plain = [[t.clone() for t in x] for x in kern]
+    norms = []
+    for step in range(3):
+        gs = _adamw_leaves(cuda_device, grad_scale, seed=step + 1)[1]
+        kern[1], plain[1] = gs, [t.clone() for t in gs]
+        hyper = opt.hyper(step)
+        before = adamw.adamw_update.launches
+        norm = adamw.adamw_update(*kern, decay, hyper)
+        assert adamw.adamw_update.launches - before == 3
+        adamw.adamw_update_plain(*plain, decay, hyper,
+                                 sq_norm=lambda sums: norm * norm)
+        assert adamw.adamw_update.launches - before == 3
+        torch.cuda.synchronize()
+        norms.append(float(torch.stack([t.double().square().sum()
+                                        for t in gs]).sum().sqrt()))
+        assert abs(float(norm) - norms[-1]) <= 1e-6 * norms[-1]
+        _assert_adamw_close(kern, plain, hyper.lr)
+        for i in (0, 2, 3):
+            for a, b in zip(kern[i], plain[i]):
+                b.copy_(a)
+    assert (min(norms) > 5.0) if grad_scale > 1 else (max(norms) < 5.0)
+
+
+@pytest.mark.cuda
+def test_adamw_kernels_repeat_their_bits(cuda_device):
+    """No float atomics: two runs of three updates from one start give the
+    same params and moments, bit for bit, with the clip active."""
+    from bert4rec_tpu_torch.ops import adamw
+    from bert4rec_tpu_torch.trainers import optimizers
+    opt = optimizers.create_adam_w_optimizer(init_lr=1e-2,
+                                              num_warmup_steps=0)
+    decay = [True] * len(ADAMW_SIZES)
+    runs = []
+    for _ in range(2):
+        leaves = list(_adamw_leaves(cuda_device, 3.0))
+        for step in range(3):
+            leaves[1] = _adamw_leaves(cuda_device, 3.0, seed=step + 1)[1]
+            adamw.adamw_update(*leaves, decay, opt.hyper(step))
+        runs.append(leaves[0] + leaves[2] + leaves[3])
+    torch.cuda.synchronize()
+    assert all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+               for a, b in zip(*runs))
+
+
+@pytest.mark.cuda
+def test_adamw_kernels_hand_the_hook_one_sum_a_leaf(cuda_device):
+    """With ``sq_norm`` (a mesh) the hook gets one 0-d fp32 sum of squares
+    a leaf, and the square root of what it returns clips: under a hook that
+    doubles the squared norm, K12 and the plain chain (given K12's norm)
+    agree by ``_assert_adamw_close``."""
+    from bert4rec_tpu_torch.ops import adamw
+    from bert4rec_tpu_torch.trainers import optimizers
+    opt = optimizers.create_adam_w_optimizer(init_lr=1e-2,
+                                             num_warmup_steps=0)
+    decay = [True] * len(ADAMW_SIZES)
+    kern = _adamw_leaves(cuda_device, 3.0)
+    plain = [[t.clone() for t in x] for x in kern]
+    seen = []
+
+    def hook(sums):
+        seen.append(sums)
+        return 2 * torch.stack(sums).sum()
+
+    hyper = opt.hyper(0)
+    norm = adamw.adamw_update(*kern, decay, hyper, sq_norm=hook)
+    again = adamw.adamw_update_plain(
+        *plain, decay, hyper, sq_norm=lambda sums: (seen.append(sums),
+                                                     norm * norm)[1])
+    torch.cuda.synchronize()
+    got, want = seen
+    assert len(got) == len(ADAMW_SIZES)
+    assert all(t.shape == () and t.dtype == torch.float32 and t.is_cuda
+               for t in got)
+    torch.testing.assert_close(torch.stack(got), torch.stack(want),
+                               rtol=1e-6, atol=0)
+    assert float(norm) == float((2 * torch.stack(got).sum()).sqrt())
+    assert float(again) == float(norm)
+    _assert_adamw_close(kern, plain, hyper.lr)
+
+
+@pytest.mark.cuda
+def test_adamw_kernels_past_2_to_the_31_elements(cuda_device):
+    """Offsets past 2^31: one leaf of 2^31 + 2^20 + 3 elements (p, m, v
+    fp32, g bf16: ~30 GB) and a leaf of 7 after it. Leaves that are views
+    of one small buffer would race, since the update writes p, m and v in
+    place, so the big leaf's content repeats with a period of 2^20 instead:
+    every period's update must equal the first's bit for bit (the same
+    inputs and arithmetic at any offset), its sum of squares the periods'
+    sum, and the first period the plain chain's update under that norm."""
+    from bert4rec_tpu_torch.ops import adamw
+    from bert4rec_tpu_torch.trainers import optimizers
+    period, reps = 1 << 20, (1 << 11) + 1
+    n = period * reps + 3
+    gen = torch.Generator(device="cpu").manual_seed(5)
+    base_p = torch.randn(period, generator=gen).to(cuda_device)
+    base_g = (torch.randn(period, generator=gen) * 1e-3).to(
+        cuda_device, torch.bfloat16)
+
+    def periodic(base, dtype):
+        out = torch.empty(n, dtype=dtype, device=cuda_device)
+        out[:period * reps].view(reps, period).copy_(base)
+        out[period * reps:] = base[:3]
+        return out
+
+    p, g = periodic(base_p, torch.float32), periodic(base_g, torch.bfloat16)
+    m, v = torch.zeros_like(p), torch.zeros_like(p)
+    small = [torch.ones(7, device=cuda_device) for _ in range(4)]
+    opt = optimizers.create_adam_w_optimizer(init_lr=1e-2,
+                                             num_warmup_steps=0)
+    hyper = opt.hyper(0)
+    seen = []
+
+    def hook(sums):
+        seen.append(torch.stack(sums))
+        return torch.stack(sums).sum()
+
+    adamw.adamw_update([p, small[0]], [g, small[1]], [m, small[2]],
+                       [v, small[3]], [True, True], hyper, sq_norm=hook)
+    torch.cuda.synchronize()
+    (sums,) = seen
+    base_sq = base_g.double().square()
+    want = reps * float(base_sq.sum()) + float(base_sq[:3].sum())
+    assert abs(float(sums[0]) - want) <= 1e-5 * want
+    assert float(sums[1]) == 7.0
+    for x in (p, m, v):
+        rows = x[:period * reps].view(reps, period)
+        assert bool((rows == rows[0]).all())
+        assert torch.equal(x[period * reps:], rows[0, :3])
+    sq = float(sums.sum())
+    ref = [base_p.clone(), base_g.clone(), torch.zeros_like(base_p),
+           torch.zeros_like(base_p)]
+    adamw.adamw_update_plain(*[[t] for t in ref], [True], hyper,
+                             sq_norm=lambda s: torch.tensor(
+                                 sq, device=cuda_device))
+    _assert_adamw_close([[p[:period]], None, [m[:period]], [v[:period]]],
+                        [[ref[0]], None, [ref[2]], [ref[3]]], hyper.lr)
+    del p, g, m, v, rows
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.cuda
+def test_adamw_kernels_refuse_a_strided_param(cuda_device):
+    from bert4rec_tpu_torch.ops import adamw
+    p, g, m, v = (torch.zeros(8, 2, device=cuda_device) for _ in range(4))
+    hyper = adamw.Hyper(lr=1e-3, bc1=0.1, bc2=1e-3, b1=0.9, b2=0.999,
+                        eps=1e-6, weight_decay=0.0, clip=5.0)
+    with pytest.raises(ValueError, match="contiguous"):
+        adamw.adamw_update([p[:, 0]], [g[:, 0]], [m[:, 0]], [v[:, 0]],
+                           [False], hyper)
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("variant", ["plain", "causal", "rel"])

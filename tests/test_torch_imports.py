@@ -136,7 +136,7 @@ def test_trainer_defaults_to_the_card(no_cuda):
 
 
 def test_kernel_sources_are_found_and_nothing_is_built_at_import():
-    assert kernel_build.kernel_sources() == ["expert_gemm",
+    assert kernel_build.kernel_sources() == ["adamw", "expert_gemm",
                                              "flash_attention",
                                              "fused_encoder_layer",
                                              "fused_mlm_loss", "layer_tf32",
