@@ -33,7 +33,7 @@ process per config, the interleaved ml-1m_128 sentinel and the
 normalisation by it, cool-downs, retried windows, min-of-rounds and the
 degraded-state verdicts. The card is local, so the configs run one after
 another in one process, each timed as synchronised calls whose median is
-reported, as ``chip_smoke.py`` does (PERF.md §2).
+reported, as ``time_loss_step.py`` times the train step.
 """
 
 import argparse

@@ -8,8 +8,8 @@ The first form builds the preset's world and model as
 ``quality_harness.run_oracle`` does (family bert4rec, the same seeds) and
 trains two copies of the model from the same params on the same batches
 and dropout seeds: one on the fused layer and loss kernels, one with
-every kernel call sent to its plain PyTorch version (``chip_smoke.
-plain_kernels``). It prints the two losses' relative difference per step
+every kernel call sent to its plain PyTorch version (``tools/
+plain_kernels.py``). It prints the two losses' relative difference per step
 (the largest so far at each of a few steps) and each parameter's distance
 between the copies, relative to its scale, at those steps; then the same
 for two plain copies whose second starts one float32 ulp away in every
@@ -39,8 +39,8 @@ CHECKPOINTS = (1, 3, 10, 30, 100, 300, 1000, 3000)
 def plain(stack):
     """Enter the patches that send every kernel call to its plain
     version."""
-    import chip_smoke
-    for patch in chip_smoke.plain_kernels():
+    from bert4rec_tpu_torch.tools.plain_kernels import plain_kernels
+    for patch in plain_kernels():
         stack.enter_context(patch)
 
 

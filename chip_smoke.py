@@ -1,323 +1,68 @@
 #!/usr/bin/env python3
-"""Smoke test of the PyTorch/CUDA port (``bert4rec_tpu_torch``) on one
-NVIDIA GPU: the quickest proof that the port still starts on the card.
+"""The card checks of the PyTorch/CUDA port (``bert4rec_tpu_torch``) that
+no other home holds, on one NVIDIA GPU: each kernel's time beside its
+plain version, its library yardstick and its bound at the main path's
+shapes (PERF.md's kernel table; the ``kernels`` record), with its distance
+from the plain version on the inputs it times; and the flows only the
+card runs, each counted ``train()`` with its route, launch counts and
+step parity. A kernel's values at every shape and edge are the card
+tests' (``tests/test_torch_cuda_kernels.py``), ``train()``'s throughput at
+a benchmark cell's configuration ``benchmark/``'s, and operations and
+bytes ``benchmark/roofline.py``'s. Times are device ms, medians of blocks
+queued behind a sleeping kernel (``time_device_ms``).
 
     python3 chip_smoke.py
 
 Phases (any failure raises and the script exits non-zero):
 
-1. device   — the card's name and power limit, as nvidia-smi reports them;
-2. build    — every CUDA source under ``bert4rec_tpu_torch/csrc/`` built
-              with nvcc for sm_90a, all at once;
-3. kernels  — each kernel against its plain PyTorch version on the card at
-              the serving path's shapes (ml-1m_128: S=200, H=128, 4 heads,
-              F=512; B=32 and B=256; fp32 and bf16), with times of the
-              kernel, the plain version and a PyTorch-library yardstick;
-              fp32 (what the server runs) on the 3xTF32 kernels of
-              ``csrc/layer_tf32.cu``, its bound at 165 TFLOP/s (3xTF32)
-              beside the 67 TFLOP/s of fp32 without tensor cores, and each
-              launch's kernels by device time, none of them one of the SIMT
-              layer kernels (``SIMT_FP32_LAYER``);
-4. serving  — an ml-1m_128 artifact (random weights from a seed, a
-              synthetic 3706-item vocab) written in the JAX package's
-              on-disk format, loaded onto the card, served over HTTP by
-              ``RecommenderService`` + ``ServingServer`` to a few dozen
-              concurrent requests, each answer checked against the plain
-              path on the card; then the bulk ``recommend_stream`` path at
-              B=256. Kernel launch counts are reset before each path and
-              must equal layers x batches after it, every one on the
-              3xTF32 kernels (``tf32_launches``);
-5. training kernels — the dropout masks the CUDA hash draws, bit for bit
-              against the plain version's and at the keep rate; the
-              layer forward with dropout (0.2 / 0.5) and its backward at
-              B=32 and B=256 in fp32 and bf16; the tied-softmax loss
-              forward and backward at R=10,240 rows, V=3,709, W=128 —
-              each against its plain version, with kernel, plain and
-              library-yardstick times (kernel and yardstick as medians of
-              7 blocks of 10 calls, their ranges printed) and the bound
-              (fp32 K3 / K4 at 3xTF32's 165 TFLOP/s beside 67 without
-              tensor cores; the fp32 layer K1' / K2 likewise, on
-              ``csrc/layer_tf32.cu``'s 3xTF32 kernels: at B=256 each
-              launch's kernels by device time, only those
-              (``TF32_LAYER``, ``TF32_LAYER_BWD``), none of the SIMT layer
-              kernels (``SIMT_FP32_LAYER``)); bf16 K3's and K4's kernels
-              by device time,
-              K3's only ``csrc/loss_hopper.cuh``'s ``loss_fwd_sweep_kernel``,
-              the ordered merge and the row sums, K4's only its two sweeps
-              (``BF16_LOSS_KERNELS``: no route back to the earlier mma.sync
-              loss tiles); fp32 K3's only ``csrc/loss_tf32.cuh``'s
-              ``loss_tf32_fwd_sweep_kernel``, the merge and the row sums,
-              fp32 K4's only ``loss_tf32_sweep_kernel``'s two sweeps
-              (``FP32_LOSS_KERNELS``: no route back to the SIMT tiles), and
-              the sweeps' grid;
-              at B=256 in bf16 each launch's kernels by device time, the
-              forward's and the backward's, none of them one of the
-              earlier bf16 layer kernels (``LEGACY_BF16_LAYER``: the
-              shape law sends every bf16 layer of these shapes to
-              ``csrc/layer_hopper.cuh``);
-6. training — ``BERT4RecTrainer.train()`` on the ml-1m_128 config at the
-              bench shape (B=256, S=200, P=40, bf16 compute, dropout
-              0.2 / 0.5, fused layer and fused loss), data by
-              ``bench.py``'s ``make_batch`` law: one step on the kernels
-              against the same step on the plain versions (loss, metrics,
-              every gradient); the launch counts of a 24-step run (layers
-              x steps for the layer forward and backward, steps for the
-              loss forward and backward); the step time and a device
-              breakdown; the loss falling on a repeated batch; and a
-              checkpointed run resumed by a new trainer, equal bit for bit
-              to the uninterrupted run; no bf16 layer launch on the
-              earlier bf16 kernels (counters and breakdown); then K1 with
-              dropout and K2 at ml-20m_256's width (H=256, 8 heads,
-              F=1024, bf16, B=256);
-7. pipeline — an ML-20M-format corpus (the full 26,729-movie catalog,
-              20,000 users) written from a seed into a temporary
-              ``BERT4REC_TPU_HOME`` and loaded through
-              ``create_ml_20m_dataloader(input_duplication_factor=5)
-              .prepare_training(finetuning_split=0.1)`` under a record
-              cap: vocab 26,732, the native masking engine, host seconds,
-              batches/s;
-8. tiled loss — K5 (loss and stats entries), K6 and K7 against their plain
-              versions at R=10,240, V=26,732, W=128 and 256, fp32 and
-              bf16; K5 + K6 at Reddit's V=335,424 at R=2,048, fp32 and
-              bf16, and in fp32 at the Reddit preset's R=10,240 too (the
-              plain versions there in 2,048-row chunks); the sharded
-              loss's label encodings; two runs giving the same bits;
-              kernel, plain and library times (kernel and yardstick as
-              medians of 7 blocks, ranges printed), each kernel's share of
-              its bound and factor over the library; each launch's kernels
-              by device time at W=128 and 256 (K7's two sweeps apart),
-              K5's (both entries, and at Reddit's V) only
-              ``loss_hopper.cuh``'s ``loss_fwd_sweep_kernel`` in bf16 and
-              ``loss_tf32.cuh``'s ``loss_tf32_fwd_sweep_kernel`` in fp32,
-              the ordered merge and the row sums, fp32 K6's and K7's only
-              ``loss_tf32.cuh``'s 3xTF32 kernels (``FP32_LOSS_KERNELS``: no
-              route back to the SIMT tiles); fp32 K5-K7's bounds at
-              3xTF32's 165 TFLOP/s beside 67 without tensor cores; the
-              wgmma kernels' registers and spills, and ptxas's notes where
-              it serialised a kernel's products, print with the build;
-9. ML-20M training — ``train()`` on ml-20m_128 (backward K6) and
-              ml-20m_256 (backward K7) from the phase-7 datasets, B=256,
-              bf16, full width and depth: the kernel step against the
-              plain step, the launch counts per step (K5 once, K6 or K7
-              once, K1 and K2 once per layer), ``validate()``, the step
-              time, ``train()``'s time with the prefetch thread and the
-              device idle share, a device breakdown, and the eval loss of
-              a repeated batch falling;
-10. causal kernels — K1'' causal forward and backward (SASRec) against
-              their plain versions at B=256, S=200, H=128, fp32 and bf16,
-              dropout off and at 0.1 / 0.1, with an all-pad row and a row
-              of length 1; kernel, plain, library (SDPA with the pad mask
-              plus the triangle) and bidirectional-kernel times, the bound;
-11. SASRec — the corpus through ``create_ml_20m_dataloader(preprocessor=
-              "sasrec").prepare_training(finetuning_split=0.1)``, then
-              phase 9's checks for ``SASRecModel`` on ml-20m_128: the
-              causal launches (2 forwards and 2 backwards per step, no
-              bidirectional ones, K5 and K6 once);
-12. evaluation — ``BERT4RecEvaluator(dataloader=..., seed=...)
-              .evaluate`` of the SASRec model and of phase 9's ml-20m_128
-              BERT4Rec model on their test splits: device negatives, host
-              negatives (a 4,096-row slice) and the full catalog; Valid
-              Ranks, the metrics' range, HR@k >= NDCG@k, layer launches per
-              batch, batches/s; one batch's 101-candidate ranks on the
-              kernels against the plain versions (fp32), equal but at ties
-              within 1e-3;
-13. flash kernels — K8 and K9 (flash attention forward and backward)
-              against their plain versions at the reference-default
-              shape (B=32, N=12, S=512, D=64) and a ragged one (3, 4,
-              130, 64): fp32 and bf16, dropout 0 and 0.2, bidirectional
-              and causal, with an all-pad row and a row of length 1, on
-              strided views of a [B, S, 3, N, D] projection (the same bits
-              as contiguous copies); two K9 runs giving the same bits;
-              kernel, plain and library (SDPA with the pad mask, plus the
-              triangle, as one additive mask) times and the bound; fp32 on
-              the 3xTF32 kernels of ``csrc/flash_tf32.cuh``
-              (``flash_route`` "tf32"), its bound at 165 TFLOP/s, and each
-              launch's kernels at the main shape, in both dtypes;
-14. bert_base_512 — ``train()`` on the reference-default encoder (hidden
-              768, 12 layers, 12 heads, inner 3072, S=512, P=76, B=32,
-              bf16, dropout 0.2 / 0.5, flash attention, logits loss) with
-              data by ``make_batch``'s law: the kernel step against the
-              plain step; K8 and K9 12 times per step and no fused-layer
-              or fused-loss launch; the step time, ``train()``'s time, the
-              device idle share and breakdown; a ``remat=True`` step with
-              the same gradients, 24 K8 launches and a lower peak of
-              device memory; the eval loss of a repeated batch falling;
-15. relative-bias kernels — K1'' rel_bias and K2 dRel (the temporal
-              family's) against their plain versions at B=256, S=200,
-              H=128, N=4, F=512, fp32 and bf16, dropout 0.1 / 0.1,
-              bidirectional and causal, a relative bias ~ N(0, 1), with an
-              all-pad row and a row of length 1: the output, dx, the weight
-              gradients and dRel; dRel exactly 0 after the diagonal when
-              causal; two K2 runs giving the same bits of dRel; kernel,
-              plain, library (SDPA with pad + rel [+ triangle] as one
-              additive mask that requires grad, and the backend that ran)
-              and bias-free kernel times, and the bound (bytes);
-16. temporal training — the corpus through ``create_ml_20m_dataloader(
-              preprocessor="bert4rec_temporal").prepare_training(
-              extract_data=["movie_name", "timestamp"], finetuning_split=
-              0.1)``, then phase 9's checks for ml-20m_128 with
-              ``use_temporal_embeddings`` and ``use_temporal_attention``:
-              2 K1'' rel_bias and 2 K2 dRel launches per step (no other
-              layer launch), K5 and K6 once; two identical steps giving the
-              same bits of the temporal tables' gradients; the bucket laws
-              on the card equal to the CPU's at float32's log2 edges; the
-              sorted table gradient timed beside JAX's one-hot law, which
-              it equals within 1e-4 of the scale; the step's peak
-              device memory; then ``evaluate`` with 101 candidates and
-              device negatives, and the kernel ranks against the plain ranks;
-17. temporal learning gate — the quality harness's
-              ``run_smoke_temporal`` on the card: the temporal model and its
-              time-blind ablation trained on the planted copy-by-time-delta
-              world, their HR@1/5/10, and JAX's three checks (a failed
-              check fails the run);
-18. fp32 ML-20M training — phase 9's checks for ml-20m_128 (the quality
-              harness's ml20m preset: hidden 128, 2 layers, 4 heads, inner
-              512, S=200, P=40, B=256, V=26,732) under ``DTypePolicy.f32()``,
-              JAX's default policy and the one the harness's on-chip
-              ml20m and Reddit runs train with: the fp32 layer kernels, and
-              fp32 K5 and K6 once a step on ``loss_tf32.cuh``'s kernels;
-              its step time and device breakdown with K5's device time (no
-              SIMT loss or layer kernel in it: every fp32 layer launch,
-              forward and backward, counted on the 3xTF32 route);
-19. fp32 ml-1m training — phase 6's checks for the quality harness's
-              ml1m preset as the harness builds it (``BERT4RecConfig``:
-              hidden 128, 2 layers, 4 heads, inner 512, S=200, P=40,
-              V=3,709, the fused layer and loss, no dtype policy: fp32,
-              JAX's default, dropout 0.1 / 0.1), B=256: the kernel step
-              against the plain step, the launch counts (fp32 K3 and K4 once
-              a step, on ``loss_tf32.cuh``'s 3xTF32 kernels), the step time,
-              ``train()``'s idle share and the device breakdown with no SIMT
-              loss or layer kernel in it (every fp32 layer launch counted
-              on the 3xTF32 route), the loss falling and the resume;
-20. fp32 bert_base_512 — phase 14's configuration with no dtype policy
-              (fp32, the JAX package's default precision), full width and
-              depth, through ``train()``: the kernel step against the plain
-              step; K8 and K9 12 times per step, every one on the 3xTF32
-              route (``tf32_launches``, no ``simt_launches``), and no
-              fused-layer or fused-loss launch; the step time, ``train()``'s
-              time, the device idle share, the breakdown (no SIMT attention
-              kernel in it) and the peak memory of a step; one eval-mode
-              forward of the trained model (K8's inference entry: no
-              dropout, nothing saved) against the plain path;
-21. oracle gate — the quality harness's ``run_oracle`` at the ml1m
-              preset, family bert4rec, its full budget (80 epochs: the
-              trained model and the masking-rate-0.02 model, 2,560 steps
-              each, B=256, fp32, the fused layer and loss, 4 steps a
-              call), against the Bayes oracle of the planted Markov world:
-              every check of JAX's (HR@10 >= 0.94 and NDCG@10 >= 0.91 of
-              the oracle among them; a failed check fails the run), the
-              ratios, the wall time, train()'s time a step, one step's
-              device time and the idle share, and the launches by route:
-              every fp32 layer launch on 3xTF32 (``tf32_launches``), none on
-              the earlier bf16 kernels (``mma_sync_launches``); with
-              ``--int8``: the table's bytes (1,899,008 -> 489,588) and the
-              int8 model's NDCG@10 drop, whose check must hold;
-22. deployment — the harness's ml1m model (ml-1m_128 full width, fp32):
-              3 train steps checkpointed in the JAX trainer's layout, a new
-              trainer resumed from the file (params equal to the
-              uninterrupted run's bits); ``train(profile_dir=...)``'s trace
-              (the 3xTF32 layer kernels, no SIMT one); top-k (k=10) and
-              candidate-scoring artifacts, fp32 and int8, exported with a
-              symbolic batch, saved and loaded (their ``.pt2`` bytes);
-              ``ArtifactRecommender`` at B = 1, 32 and 256 and
-              ``ServingServer`` over it against the eager ``Recommender``
-              and the plain path, every call 2 layer launches on 3xTF32
-              (the profiler shows only ``layer_tf32.cu``'s layer kernels),
-              host wall and device time at B=32 beside the eager path's;
-              the int8 and candidate artifacts against the eager model; one
-              ``Ranker`` call; the three example scripts' flows
-              (``bert4rec_tpu_torch/examples``); one bf16 bert_base_512
-              artifact at B=4 against eager (12 K8 launches on
-              ``wgmma``); its seconds;
-23. mesh     — the (data, model) layout at reddit_128 width (fp32,
-              V=335,423 padded to 335,872, dropout 0): two ranks
-              (``MESH_SHAPE`` (1, 2); gloo sharing the one card, NCCL
-              where each rank has its own) started by
-              ``tools/mesh_run.py``, each running :func:`mesh_rank`: the
-              sharded loss at one train batch's 10,240 rows against the
-              one-process loss (1e-5 relative, equal counts, gradients
-              within 1e-4 of their scale), its K5 stats and K6
-              ``valid_ge_zero`` launches against their plain versions at
-              the shard's shape and label encodings (each rank in turn),
-              3 ``train()`` steps (one K5 stats and one K6 launch a step on
-              each rank, the layer on 3xTF32, no unsharded loss launch)
-              against the one-process trainer on the same batches (losses
-              1e-5 relative, the gathered table within 1e-5 of its scale),
-              ``rank_top_k`` and the sampled and full-catalog evaluations
-              against one process on the seed's params, the sharded run's
-              checkpoint reloaded in one process (the same logits), and
-              the step's wall on the ranks beside one process's;
-24. tools    — the port's measurement tools (``bert4rec_tpu_torch/
-              tools``): ``bench``'s card run (the fused ml-1m_128 step
-              beside the unfused anchor, then the host CPU's step in a
-              subprocess: its JSON line, ``vs_baseline`` > 1); the bf16
-              kernels at the shapes only the shipped configs reach (the
-              layer at H=64 with F=64 and 256, at S=50 and at H=256 with
-              F=512; K3 / K4 at W=64 and 256; K5 / K6 at W=64; the merged
-              K6 at W=256, R=5,120) against their plain versions, with
-              kernel, plain and library times and the bound;
-              ``config_sweep`` over all 13 shipped configs at full width
-              and depth (bf16, B=256; the nine configs no earlier phase
-              builds held to the plain step first), each row's routes and
-              launches checked; ``serving_bench`` (16 clients x 400
-              requests, bf16 K1: p50 / p99); ``perf_guard``'s ten variants
-              against their budgets (its command line, in a process of its
-              own); its seconds;
-25. examples — the port's example flows (``bert4rec_tpu_torch/examples``)
-              in the run's throwaway ``BERT4REC_TPU_HOME``: ``tools/
-              synth_corpus.py`` (as a tool, in a subprocess) writes full
-              ML-1M, Beauty and Steam corpora and ``--small`` ML-20M and
-              Reddit ones in their datasets' exact on-disk formats (Reddit's
-              zstd dump only where the zstandard package is installed: it
-              is printed as not run otherwise); the
-              ``bert4rec_<dataset>_example`` scripts train one epoch each
-              (fp32, full width and depth; the loss finite, the metrics in
-              [0, 1], the artifact on disk, every layer launch on the 3xTF32
-              route and the loss kernels the laws pick, then one of each
-              run's train batches through the kernel step against the plain
-              step); the chain over the ML-1M artifact (evaluation, the
-              Recommender, the Ranker, the HTTP server's demo request; the
-              answers against the plain path); the self-contained flows
-              (the lifecycle and SASRec held step for step against the plain
-              path, SASRec's K1'' causal on the route its shape law picks,
-              and its layer kernels at its shape against their plain
-              versions); then the quality harness's ``run_real`` at ML-1M,
-              8 epochs, dup 10 (HR@10 and NDCG@10 at least 5x their
-              popularity floor's), printed beside JAX's
-              ``quality_runs/ml1m_synthetic`` run; its seconds.
-26. table gradient (runs after phase 5) — the item table's gather
-              backward (K10, ``csrc/table_grad.cu``) at ml-20m_128's batch
-              (R=51,200 with 27,623 [PAD] and 4,630 [MASK] ids, V=26,732,
-              H=128) and bert_base_512's (R=16,384, V=3,709, H=768), bf16:
-              exact on integer-valued rows, within its chain-of-adds bound
-              of a float64 sum on random rows, the same bits from two calls
-              (other widths and misaligned rows are the card tests'); the
-              kernel's device time (CUDA events behind a
-              sleep, so the host's launches are hidden), today's
-              ``table[ids.long()].to(bf16)`` backward (plain) and
-              ``F.embedding``'s dense backward (library), and the device
-              operations of each backward by the profiler.
-27. Moonlight (runs after phase 25) — the ``mla_moe`` block of the
-              benchmark's ``moonlight_5L.train``: K11, the grouped expert
-              GEMM (``csrc/expert_gemm.cu``), forward and backward at
-              Moonlight's layer (76,800 rows, H=2,048, I=1,408, 64 experts,
-              skewed, two empty) and K8 / K9 at (B, N, S, DK, DV) = (64, 16,
-              200, 192, 128), causal, each against its plain version with
-              kernel, plain and library times (``torch._grouped_mm``,
-              SDPA) and the bound; then ``train()`` of the
-              moonlight-16b-a3b_5L config on the cell's traffic: the launch
-              counts of that run (the kernels line's) and each MoE layer's
-              load as it trains.
-28. update (inside phases 14 and 27) — K12, the trainer's clip and AdamW
-              update (``csrc/adamw.cu``): every counted ``train()`` holds it
-              to three launches a step; on the trained leaves of phase 14's
-              bert_base_512 and phase 27's moonlight-16b-a3b_5L trainers,
-              with random gradients, each leaf's sum of squares against
-              float64, the update against the plain chain under K12's norm,
-              two calls' bits (where the copies fit), and K12's device time
-              against the 32-byte bound, the plain chain and
-              ``torch._fused_adamw_`` (library), with each call's host time
-              and device operations.
+1. device: the card's name and power limit (nvidia-smi);
+2. build: every ``csrc/`` source for sm_90a, each kernel's registers and
+   spills;
+3. K1 at ml-1m_128's shape, fp32 (3xTF32) and bf16, B=32 and 256;
+4. serving: an ml-1m_128 artifact in the JAX package's format over HTTP
+   and ``recommend_stream``, every answer against the plain path;
+5. K1' / K2 at B=256 (fp32 and bf16), K3 / K4 at R=10,240, V=3,709;
+6. ``train()`` of ml-1m_128 in bf16: step parity, launches, step time,
+   idle share, breakdown, the loss falling, an exact resume; K1' / K2 at
+   ml-20m_256's width;
+7. pipeline: an ML-20M-format corpus through ``prepare_training``;
+8. tiled loss: K5 (both entries), K6, K7 at V=26,732, W=128 and 256; K5
+   and K6 at Reddit's V=335,424;
+9. ``train()`` of ml-20m_128 (K6) and ml-20m_256 (K7): step parity,
+   launches, ``validate()``, the loss falling; ml-20m_256's step times;
+10. K1'' causal / K2 at B=256, dropout 0 and 0.1, the bidirectional
+    kernels beside;
+11. SASRec: the ``"sasrec"`` pipeline, then phase 9's checks and times;
+12. evaluation: device negatives, host negatives and the full catalog,
+    the ranks against the plain path;
+13. K8 / K9 at (32, 12, 512, 64), (3, 4, 130, 64), (3, 2, 1100, 64), fp32
+    and bf16, dropout 0 and 0.2, causal or not;
+14. bert_base_512 ``train()`` in bf16: step parity, flash launches, a
+    remat step (the same gradients, a lower peak), the loss falling;
+15. K1'' rel_bias / K2 dRel at B=256, causal or not;
+16. temporal training: phase 9 for the ``"bert4rec_temporal"``
+    pipeline, the tables' gradient bits, the bucket laws, evaluation;
+17. temporal gate: the quality harness's ``run_smoke_temporal``;
+18. fp32 ML-20M: phase 9 for the harness's ml20m preset;
+19. fp32 ml-1m: phase 6 for the harness's ml1m preset;
+20. fp32 bert_base_512: step parity, 3xTF32 flash launches, step time,
+    idle share, breakdown, peak memory, an eval forward against plain;
+21. oracle gate: ``run_oracle`` at the ml1m preset with ``--int8``;
+22. deployment: a JAX-layout checkpoint resumed bit for bit, a profiled
+    ``train()``, fp32 and int8 artifacts at B = 1, 32 and 256, the
+    Ranker, the example scripts, a bf16 bert_base_512 artifact;
+23. mesh: two ranks at reddit_128 width through ``tools/mesh_run.py``
+    against one process; the shard's K5 stats and K6 timed;
+24. tools: bench, config_sweep over the 13 configs, serving_bench,
+    perf_guard; the bf16 kernels at the shapes only those reach;
+25. examples: the synthetic corpora, the training examples, the ML-1M
+    chain, the self-contained flows, SASRec's SIMT causal layer, ``run_real``;
+26. (after phase 4) K10 at ml-20m_128's and bert_base_512's batches, each
+    backward's device operations;
+27. (after phase 25) K11 and K8 / K9 at (DK, DV) = (192, 128), then a
+    counted ``train()`` of moonlight-16b-a3b_5L: launches, router load;
+28. (inside phases 14 and 27) K12, three launches a step in every
+    counted ``train()``; its times, host ms and device operations.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the rest of
@@ -338,6 +83,10 @@ import tempfile
 import time
 import urllib.request
 from concurrent.futures import ThreadPoolExecutor
+from unittest import mock
+
+from benchmark import roofline, roofline_mla_moe
+from bert4rec_tpu_torch.tools.plain_kernels import plain_kernels
 
 SEED = 0
 VOCAB = 3709          # ML-1M items + [PAD], [MASK], [UNK]
@@ -352,19 +101,11 @@ LOGIT_TOL = 1e-3      # served path vs plain path, masked-slot logits
 # phase 22 prints, beside the kernels' distance, that of a second valid
 # rounding of the plain version (p not rounded to bf16 before p.v)
 BF16_LOGIT_TOL = 2e-2
-# published H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, and
-# FLOP/s by operand type (fp32 outside the tensor cores, bf16 inside)
-HBM_BYTES_S = 3.35e12
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
-# fp32 through 3xTF32: three TF32 tensor-core products (495 TFLOP/s) for each
-# fp32 one (the fp32 layer, csrc/layer_tf32.cu; the fp32 loss kernels)
-TF32X3_FLOPS = 495e12 / 3
-
-
-def layer_peak(dtype_name):
-    """The peak a layer kernel of this operand type can reach: fp32 runs
-    3xTF32 (csrc/layer_tf32.cu) at every layer shape chip_smoke drives."""
-    return TF32X3_FLOPS if dtype_name == "float32" else PEAK_FLOPS[dtype_name]
+# the sleeping kernel a timed block is queued behind: cycles of the card's
+# clock a second (an H100's boost clock; a slower clock sleeps longer), and
+# the longest sleep, for calls that wait on the card themselves
+CLOCK_HZ = 2e9
+SLEEP_MAX_S = 0.05
 
 
 def card_line() -> str:
@@ -375,63 +116,95 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms_blocks(fn, blocks=7, iters=10, warmup=5) -> tuple:
-    """``(median, lowest, highest)`` ms per call over ``blocks`` timed
-    blocks of ``iters`` calls each, after ``warmup`` calls: for the
-    yardsticks whose single readings wander between runs."""
+def time_device_ms(fn, iters=5, blocks=7, warmup=2) -> tuple:
+    """``(median, lowest, highest, host_gaps)`` ms a call over ``blocks``
+    blocks of ``iters`` calls after ``warmup`` calls: each block is queued
+    behind a kernel that sleeps half as long again as the host took to
+    queue as many calls (the last warm-up call's), so the events time the
+    device, not the host's launches. ``host_gaps``: that sleep was past
+    ``SLEEP_MAX_S`` and cut to it, so the blocks may hold the host's gaps
+    between launches."""
     import statistics
     import torch
     for _ in range(warmup):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
         fn()
+        host_s = time.perf_counter() - t0
     torch.cuda.synchronize()
+    host_gaps = 1.5 * iters * host_s > SLEEP_MAX_S
+    cycles = int(min(1.5 * iters * host_s, SLEEP_MAX_S) * CLOCK_HZ)
     times = []
     for _ in range(blocks):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
         start.record()
         for _ in range(iters):
             fn()
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end) / iters)
-    return statistics.median(times), min(times), max(times)
+    return statistics.median(times), min(times), max(times), host_gaps
 
 
-def time_ms(fn, iters=20, warmup=3) -> float:
-    import torch
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def blocks(fn, key="", **kw) -> dict:
-    """``{key}ms`` (the median of time_ms_blocks) and ``{key}range``
-    (lowest, highest); ``key`` "library" names a yardstick's."""
-    med, lo, hi = time_ms_blocks(fn, **kw)
+def timed(fn, key="", **kw) -> dict:
+    """``{key}_ms`` (time_device_ms's median), ``{key}_range`` (lowest,
+    highest) and, where its sleep was cut, ``{key}_host_gaps``; no
+    ``key``: the kernel's ``ms``, ``range`` and ``host_gaps``."""
+    med, lo, hi, gaps = time_device_ms(fn, **kw)
     prefix = f"{key}_" if key else ""
-    return {f"{prefix}ms": med, f"{prefix}range": (lo, hi)}
+    return {f"{prefix}ms": med, f"{prefix}range": (lo, hi),
+            **({f"{prefix}host_gaps": True} if gaps else {})}
+
+
+# the plain versions: fewer, shorter blocks (they run 10-100x the kernels)
+PLAIN = dict(iters=2, blocks=3, warmup=1)
+
+
+def bound(fn, *args, peak=None, extra_flops=0, extra_bytes=0) -> dict:
+    """``bound_ms`` and ``bound_by``: the least time ``fn`` of
+    ``benchmark/roofline.py`` or ``roofline_mla_moe.py`` gives at ``args``,
+    its operations and bytes read off its call of ``_bound``, with
+    ``extra_flops`` and ``extra_bytes`` added (a causal pair count, a
+    relative bias) and ``peak`` FLOP/s in place of its own (fp32's 3xTF32
+    or 67 TFLOP/s line)."""
+    seen = []
+    with mock.patch.object(sys.modules[fn.__module__], "_bound",
+                           lambda *a: seen.append(a) or 0.0):
+        fn(*args)
+    (flops, nbytes, own), = seen
+    f, b, p = flops + extra_flops, nbytes + extra_bytes, peak or own
+    return {"bound_ms": roofline._bound(f, b, p) * 1e3,
+            "bound_by": "operations" if f / p >= b / roofline.HBM_BYTES_S
+            else "bytes"}
+
+
+def unpaired(b, s, width, causal) -> int:
+    """(query, key) pairs times ``b`` and ``width`` the causal triangle
+    skips: roofline.py counts all S^2 of them."""
+    return b * width * (s * s - s * (s + 1) // 2) if causal else 0
 
 
 def timing_text(r) -> str:
-    """A row's times: kernel and yardstick medians of 7 blocks with their
-    ranges, the plain version's, and the bound."""
-    return (f"kernel_ms={r['ms']:.4f} ({r['range'][0]:.4f}-"
-            f"{r['range'][1]:.4f}) plain_ms={r['plain_ms']:.4f} "
-            f"library_ms={r['library_ms']:.4f} ({r['library_range'][0]:.4f}-"
-            f"{r['library_range'][1]:.4f}) bound_ms={r['bound_ms']:.5f} "
-            f"({r['bound_by']}); kernel and library: medians of 7 blocks")
+    """A row's distance from its plain version, and its times: the
+    kernel's, the plain version's and the library yardstick's as medians
+    of blocks with their ranges (those whose blocks may hold the host's
+    gaps named), and the bound."""
+    gaps = [k for k in ("kernel", "plain", "library")
+            if r.get("host_gaps" if k == "kernel" else f"{k}_host_gaps")]
+    lib = r["library_ms"] is not None and r["library_range"]
+    return (f"max_abs_err={r['max_abs_err']:.3g} "
+            f"kernel_ms={r['ms']:.4f} ({r['range'][0]:.4f}-"
+            f"{r['range'][1]:.4f}) plain_ms={r['plain_ms']:.4f} library_ms="
+            + (f"{r['library_ms']:.4f} ({lib[0]:.4f}-{lib[1]:.4f})" if lib
+               else "None") + f" bound_ms={r['bound_ms']:.5f} "
+            f"({r['bound_by']}); device time, medians of blocks"
+            + (f" (host gaps included: {', '.join(gaps)})" if gaps else ""))
 
 
 # --------------------------------------------------------------------------- #
-# phase 3: kernels against their plain versions
+# phase 3: the served layer's kernel times
 # --------------------------------------------------------------------------- #
 
 def random_layer(rng, device, h=HIDDEN, n=HEADS, f=INNER):
@@ -458,53 +231,6 @@ def random_layer(rng, device, h=HIDDEN, n=HEADS, f=INNER):
         "output_norm/scale": 1.0 + w(h, scale=0.1),
         "output_norm/bias": w(h, scale=0.02),
     }, device)
-
-
-def library_layer(params, x, mask, num_heads):
-    """The same layer from PyTorch library calls (torch.matmul,
-    scaled_dot_product_attention, layer_norm): a speed yardstick only; the
-    port never calls it."""
-    import torch
-    import torch.nn.functional as F
-    from bert4rec_tpu_torch.ops.fused_encoder_layer import flat_weights
-    flat = {k: v.to(x.dtype) for k, v in flat_weights(params).items()}
-    b, s, h = x.shape
-    qkv = torch.matmul(x, flat["wqkv"]) + flat["bqkv"]
-    q, k, v = (t.view(b, s, num_heads, h // num_heads).transpose(1, 2)
-               for t in qkv.split(h, dim=-1))
-    bias = torch.where(mask > 0, 0.0, -1e9).to(x.dtype)[:, None, None, :]
-    ctx = F.scaled_dot_product_attention(q, k, v, attn_mask=bias)
-    ctx = ctx.transpose(1, 2).reshape(b, s, h)
-    x1 = F.layer_norm(x + torch.matmul(ctx, flat["wo"]) + flat["bo"], (h,),
-                      flat["g1"][0], flat["b1ln"][0], eps=1e-12)
-    hact = F.gelu(torch.matmul(x1, flat["w1"]) + flat["bf1"],
-                  approximate="tanh")
-    return F.layer_norm(x1 + torch.matmul(hact, flat["w2"]) + flat["bf2"],
-                        (h,), flat["g2"][0], flat["b2ln"][0], eps=1e-12)
-
-
-def attention_pairs(s, causal):
-    """(query, key) pairs the attention products need per sequence and
-    head: all S^2, or the lower triangle's S(S+1)/2 when causal."""
-    return s * (s + 1) // 2 if causal else s * s
-
-
-def layer_bound_ms(b, dtype_name, h=HIDDEN, f=INNER, causal=False,
-                   extra_bytes=0, peak=None, s=SEQ):
-    """Least time for one layer on the card: the larger of its FLOP over
-    the layer's peak for the operand type (``layer_peak``, or ``peak``
-    FLOP/s) and its bytes (x,
-    mask and the fp32 params read once, y written once, plus
-    ``extra_bytes``: a relative bias read once) over the HBM rate."""
-    flops = b * (2 * s * h * 3 * h + 4 * attention_pairs(s, causal) * h
-                 + 2 * s * h * h + 4 * s * h * f)
-    es = 4 if dtype_name == "float32" else 2
-    params = 4 * (4 * h * h + 2 * h * f + 3 * h + h + 4 * h + f + h)
-    nbytes = 2 * b * s * h * es + b * s * 4 + params + extra_bytes
-    t_ops = flops / (peak or layer_peak(dtype_name)) * 1e3
-    t_bytes = nbytes / HBM_BYTES_S * 1e3
-    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
-                                 else "bytes")
 
 
 # The SIMT fp32 layer kernels (csrc/fused_encoder_layer.cu's GEMM, LayerNorm
@@ -546,10 +272,8 @@ BF16_LOSS_KERNELS = {
            "loss_fwd_sweep_kernel<"),
     "K4": (re.compile(r"^b4r::loss_hopper::loss_sweep_kernel<"),
            "loss_sweep_kernel<"),
-    "K5": (re.compile(r"^(b4r::loss_hopper::loss_fwd_sweep_kernel<"
-                      r"|loss_tiled_merge_kernel|b4r::reduce_rows_kernel)"),
-           "loss_fwd_sweep_kernel<"),
 }
+BF16_LOSS_KERNELS["K5"] = BF16_LOSS_KERNELS["K3"]
 
 
 # The kernels an fp32 K3-K7 launch may run (csrc/loss_tf32.cuh's 3xTF32
@@ -638,6 +362,10 @@ def device_breakdown(torch, fn, calls=5, top=6, groups=None,
 
 
 def check_fused_layer(torch, rng, device):
+    """K1 at the serving path's shape, fp32 and bf16, B=32 and B=256: the
+    kernel's, plain version's and library composition's times, the bound
+    (fp32's at 3xTF32's 165 TFLOP/s, 67 without tensor cores beside it),
+    and each launch's kernels (fp32's the 3xTF32 ones only)."""
     from bert4rec_tpu_torch.ops import fused_encoder_layer as fel
     import numpy as np
     params = random_layer(rng, device)
@@ -645,6 +373,7 @@ def check_fused_layer(torch, rng, device):
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).removeprefix("torch.")
         fp32 = dtype == torch.float32
+        peak = roofline.TF32X3_FLOPS if fp32 else None
         for b in (32, STREAM_BATCH):
             x = torch.from_numpy(rng.normal(size=(b, SEQ, HIDDEN))
                                  .astype(np.float32)).to(device, dtype)
@@ -652,55 +381,29 @@ def check_fused_layer(torch, rng, device):
             mask = torch.from_numpy(
                 (np.arange(SEQ)[None, :] < lengths[:, None])
                 .astype(np.int32)).to(device)
-            tf32_before = fel.fused_encoder_layer.tf32_launches
-            out = fel.fused_encoder_layer(params, x, mask, num_heads=HEADS)
-            torch.cuda.synchronize()
-            if fel.fused_encoder_layer.tf32_launches - tf32_before \
-                    != int(fp32):
-                raise AssertionError(f"fused layer {name} B={b}: the fp32 "
-                                     f"inference launch is not on the 3xTF32"
-                                     f" kernels (or a bf16 one is)")
-            ref = fel.fused_encoder_layer_plain(params, x, mask,
-                                                num_heads=HEADS)
-            err = float((out.float() - ref.float()).abs().max())
-            lib_err = float((library_layer(params, x, mask, HEADS).float()
-                             - ref.float()).abs().max())
-            if not (out.shape == x.shape and out.dtype == dtype
-                    and bool(torch.isfinite(out).all())):
-                raise AssertionError(f"fused layer output malformed "
-                                     f"({name}, B={b})")
-            if not err <= TOL[name]:
-                raise AssertionError(
-                    f"fused layer {name} B={b}: max abs err {err} > "
-                    f"{TOL[name]}")
-            ms = time_ms(lambda: fel.fused_encoder_layer(
-                params, x, mask, num_heads=HEADS))
-            plain_ms = time_ms(lambda: fel.fused_encoder_layer_plain(
-                params, x, mask, num_heads=HEADS))
-            library_ms = time_ms(lambda: library_layer(params, x, mask,
-                                                       HEADS))
-            # fp32 runs three TF32 products for each: its bound at 165
-            # TFLOP/s, the fp32 SIMT peak's beside it
-            bound_ms, bound_by = layer_bound_ms(
-                b, name, peak=TF32X3_FLOPS if fp32 else None)
-            simt_bound = layer_bound_ms(b, name, peak=PEAK_FLOPS[name])[0]
-            rows[(name, b)] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                                   library_ms=library_ms, bound_ms=bound_ms,
-                                   bound_by=bound_by)
+            kernel, plain = (lambda f=f: f(params, x, mask, num_heads=HEADS)
+                             for f in (fel.fused_encoder_layer,
+                                       fel.fused_encoder_layer_plain))
+            row = dict(
+                max_abs_err=held(f"K1 {name} B={b}", [kernel()], [plain()],
+                                 TOL[name], False),
+                **timed(kernel), **timed(plain, "plain", **PLAIN),
+                **timed(lambda: library_layer(params, x, mask, HEADS,
+                                              (0.0, 0.0)), "library"),
+                **bound(roofline.layer_forward_s, b, SEQ, HIDDEN, INNER,
+                        name, peak=peak))
+            rows[(name, b)] = row
+            simt = bound(roofline.layer_forward_s, b, SEQ, HIDDEN, INNER,
+                         name, peak=roofline.PEAK_FLOPS[name])["bound_ms"]
             print(f"fused_encoder_layer {name} B={b} S={SEQ} H={HIDDEN} "
-                  f"N={HEADS} F={INNER}: max_abs_err={err:.3g} "
-                  f"(tol {TOL[name]}; library composition differs by "
-                  f"{lib_err:.3g}) kernel_ms={ms:.4f} plain_ms={plain_ms:.4f}"
-                  f" library_ms={library_ms:.4f} bound_ms={bound_ms:.5f} "
-                  f"({bound_by}"
-                  + (f" at 165 TFLOP/s, 3xTF32; {simt_bound:.5f} at 67 "
-                     f"TFLOP/s without tensor cores)" if fp32 else ")"),
+                  f"N={HEADS} F={INNER}: {timing_text(row)}"
+                  + (f"; bound at 165 TFLOP/s, 3xTF32; {simt:.5f} at 67 "
+                     f"TFLOP/s without tensor cores" if fp32 else ""),
                   flush=True)
             print("  per launch of the kernel: " + device_breakdown(
-                torch, lambda: fel.fused_encoder_layer(
-                    params, x, mask, num_heads=HEADS),
-                forbid=SIMT_FP32_LAYER if fp32 else LEGACY_BF16_LAYER,
-                only=TF32_LAYER if fp32 else None)[1], flush=True)
+                torch, kernel, only=TF32_LAYER if fp32 else None,
+                forbid=SIMT_FP32_LAYER if fp32 else LEGACY_BF16_LAYER)[1],
+                flush=True)
     return rows
 
 
@@ -765,7 +468,6 @@ def check_answers(torch, rec, histories, ks, answers, label):
     plain score is further than LOGIT_TOL from both neighbours equals the
     plain id at that rank, and every served id scores within LOGIT_TOL of
     the plain k-th best."""
-    import numpy as np
     from bert4rec_tpu_torch.apps.recommender import build_exclusion_rows
     from bert4rec_tpu_torch.ops.sharded_topk import exclusion_bias
     tok = rec.dataloader.tokenizer
@@ -929,20 +631,11 @@ def check_serving(torch, rng, device):
 
 
 # --------------------------------------------------------------------------- #
-# phase 5: the training kernels against their plain versions
+# phase 5: the training kernels' times
 # --------------------------------------------------------------------------- #
 
 RATES = (0.2, 0.5)        # ml-1m_128's attention / output dropout
 N_ROWS = 256 * 40         # B x P masked rows of one train batch
-# kernel vs plain, max |a - b| over max |b| for gradients (they sum over
-# all B*S rows): fp32 differs in summation order only; in bf16 an order
-# difference can flip the rounding of an intermediate (ds, dhpre, dattn)
-GRAD_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
-LOSS_TOL = {"float32": 1e-4, "bfloat16": 2e-2}   # same measure, K3-K7
-# the loss forwards (lse, loss sum, per-row stats): kernel and plain take the
-# same operands in either dtype with fp32 sums, so only the order of the
-# sums differs; a vocabulary tile skipped would move lse by ~1e-3 of itself
-LOSS_FWD_TOL = 1e-4
 
 
 def rel_err(a, b) -> float:
@@ -950,13 +643,59 @@ def rel_err(a, b) -> float:
     return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-6)
 
 
-def library_layer_train(params, x, mask, num_heads, rates, causal=False,
-                        rel=None):
-    """library_layer with dropout: SDPA's own dropout on the
-    probabilities and F.dropout on both outputs (a yardstick only). With
-    ``causal`` SDPA reads the pad mask plus the triangle as one additive
-    mask ``[B, 1, S, S]``; a relative bias ``rel`` ``[B, N, S, S]`` joins
-    that mask (which then requires grad where ``rel`` does)."""
+# a row's kernel against its plain version on the inputs it times, at the
+# card tests' limits: gradients relative to their scale (a bf16 sum-order
+# difference flips a rounding of ds, dhpre or dattn); the loss (K3-K7) the
+# same measure, its forwards (lse, the loss sum, per-row stats) only summed
+# in another order; K11's outputs (bf16 roundings of g, u, dg, du flip)
+GRAD_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
+LOSS_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+LOSS_FWD_TOL = 1e-4
+EXPERT_TOL = 1e-2
+
+
+def held(label, got, want, tol, rel=True) -> float:
+    """The kernel's outputs ``got`` against the plain version's ``want``
+    (sequences of tensors), each within ``tol`` of its scale (``rel_err``)
+    or, without ``rel``, in absolute terms; raises past it, or at a value
+    that is not finite. Returns the largest absolute difference, the row's
+    ``max_abs_err``."""
+    errs = [(float((a.float() - c.float()).abs().max()), rel_err(a, c))
+            for a, c in zip(got, want, strict=True)]
+    if not all((r if rel else a) <= tol for a, r in errs):
+        raise AssertionError(f"{label}: kernel against plain, (abs, rel) "
+                             f"errs {errs}, tol {tol} "
+                             f"{'relative' if rel else 'absolute'}")
+    return max(a for a, _ in errs)
+
+
+def library_loss(torch, h, t, b, lab) -> tuple:
+    """``(forward, backward)``: the tied-softmax loss from library calls,
+    the [R, V] logits by matmul then cross_entropy, and its autograd (a
+    yardstick: it materialises the logits the kernels avoid; a negative
+    label, the sharded loss's none or remote, counts as padding)."""
+    import torch.nn.functional as F
+    hl, tl, bl = (x.detach().requires_grad_(True) for x in (h, t, b))
+    lab = lab.long().clamp(min=0)
+
+    def forward():
+        logits = torch.matmul(hl, tl.T).float() + bl
+        return F.cross_entropy(logits, lab, ignore_index=0)
+
+    loss = forward()
+    return forward, lambda: torch.autograd.grad(loss, (hl, tl, bl),
+                                                retain_graph=True)
+
+
+def library_layer(params, x, mask, num_heads, rates, causal=False,
+                  rel=None):
+    """The layer from PyTorch library calls (torch.matmul,
+    scaled_dot_product_attention with its own dropout on the
+    probabilities, F.dropout on both outputs, layer_norm): a speed
+    yardstick only; the port never calls it. With ``causal`` SDPA reads
+    the pad mask plus the triangle as one additive mask ``[B, 1, S, S]``;
+    a relative bias ``rel`` ``[B, N, S, S]`` joins that mask (which then
+    requires grad where ``rel`` does)."""
     import torch
     import torch.nn.functional as F
     from bert4rec_tpu_torch.ops.fused_encoder_layer import (
@@ -986,163 +725,123 @@ def library_layer_train(params, x, mask, num_heads, rates, causal=False,
                         eps=1e-12)
 
 
-def layer_bwd_bound_ms(b, dtype_name, h=HIDDEN, f=INNER, causal=False,
-                       extra_bytes=0, peak=None, s=SEQ):
-    """Least time for one layer's backward: its products (8SHF + 16SH^2 +
-    8S^2H FLOP per sequence, twice the forward's; S^2 becomes S(S+1)/2
-    when causal; the recomputation is not counted) over the layer's peak
-    (``layer_peak``, or ``peak`` FLOP/s), or its
-    bytes (x, dy, mask, fp32 params read once; dx and the fp32 grads
-    written once; plus ``extra_bytes``: a relative bias read and its
-    gradient written) over the HBM rate."""
-    flops = b * (8 * s * h * f + 16 * s * h * h
-                 + 8 * attention_pairs(s, causal) * h)
-    es = 4 if dtype_name == "float32" else 2
-    params = 4 * (4 * h * h + 2 * h * f + 3 * h + h + 4 * h + f + h)
-    nbytes = 3 * b * s * h * es + b * s * 4 + 2 * params + extra_bytes
-    t_ops = flops / (peak or layer_peak(dtype_name)) * 1e3
-    t_bytes = nbytes / HBM_BYTES_S * 1e3
-    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
-                                 else "bytes")
-
-
-def loss_bound_ms(rows, v, w, dtype_name, backward, peak=None):
-    """Forwards (K3, K5): 2RVW FLOP; backwards (K4, K6, K7): 6RVW (the
-    logits, then dh and dtable; a kernel's recomputation beyond that is
-    not counted, as for the layer) over the peak for the operand type (or
-    ``peak`` FLOP/s: fp32 K6 / K7 run 3xTF32); bytes: hidden, table,
-    bias, labels read once, the outputs written once."""
-    es = 4 if dtype_name == "float32" else 2
-    flops = (6 if backward else 2) * rows * v * w
-    nbytes = rows * w * es + v * w * es + v * 4 + rows * 4
-    nbytes += (rows * w * es + v * w * 4 + v * 4) if backward else rows * 4
-    t_ops = flops / (peak or PEAK_FLOPS[dtype_name]) * 1e3
-    t_bytes = nbytes / HBM_BYTES_S * 1e3
-    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
-                                 else "bytes")
-
-
-def check_dropout_masks(torch, device):
-    from bert4rec_tpu_torch.ops import dropout_bits
+def layer_rows(torch, flat, params, x, mask, dy, n, rates, seed, causal=False,
+               rel=None, bare=False):
+    """K1 with dropout (K1'' causal; with ``rel`` K1'' rel_bias) and its K2
+    by the route the shape law gives: ``({"fwd": row, "bwd": row}, fwd,
+    bwd)``, each row the kernel's, plain version's and library's times and
+    the bound (fp32's at 3xTF32's 165 TFLOP/s); with ``bare``, ``bare_ms``
+    too: the kernel without the triangle, or without the bias."""
     from bert4rec_tpu_torch.ops import fused_encoder_layer as fel
-    for rate in RATES:
-        for site0, n, cols in ((0, HEADS, SEQ), (HEADS, 2, HIDDEN)):
-            got = fel.kernel_keep_scale(2024, 32, site0, n, SEQ, cols, rate,
-                                        device)
-            ref = dropout_bits.keep_scale(2024, 32, range(site0, site0 + n),
-                                          SEQ, cols, rate, device)
-            kept = float((got > 0).float().mean())
-            if not torch.equal(got, ref):
-                raise AssertionError(f"dropout masks differ (rate {rate}, "
-                                     f"sites {site0}..{site0 + n - 1})")
-            if abs(kept - (1 - rate)) > 3e-3:
-                raise AssertionError(f"keep rate {kept} for rate {rate}")
-            print(f"dropout masks rate={rate} sites {site0}..{site0 + n - 1}"
-                  f": kernel == plain ({got.numel()} elements), keep rate "
-                  f"{kept:.4f} (expected {1 - rate})", flush=True)
+    from bert4rec_tpu_torch.utils.checkpoint import flatten, unflatten
+    b, s, h = x.shape
+    f = flat["w1"].shape[1]
+    name = str(x.dtype).removeprefix("torch.")
+    kw = dict(num_heads=n, attention_dropout=rates[0],
+              output_dropout=rates[1], seed=seed, causal=causal)
+
+    def fwd(causal=causal, rel=rel):
+        return fel._launch_forward(flat, x, mask, n, seed, *rates, True,
+                                   causal=causal, rel=rel)
+
+    saved = {True: fwd()[1]}
+    if bare:
+        saved[False] = (fwd(False) if rel is None else fwd(rel=None))[1]
+
+    def bwd(full=True):
+        args = dict(causal=causal, rel=rel) if full else (
+            dict(causal=False, rel=None) if rel is None
+            else dict(causal=causal, rel=None))
+        return fel._launch_backward(flat, x, mask, dy, saved[full], n, seed,
+                                    *rates, **args)
+
+    lflat = {k: v.detach().clone().requires_grad_(True)
+             for k, v in flatten(params).items()}
+    xl = x.detach().requires_grad_(True)
+    rl = None if rel is None else rel.detach().clone().requires_grad_(True)
+    y_lib = library_layer(unflatten(lflat), xl, mask, n, rates, causal, rl)
+    leaves = [xl, *([] if rl is None else [rl]), *lflat.values()]
+    peak = roofline.TF32X3_FLOPS if name == "float32" else None
+    lost = unpaired(b, s, h, causal)
+    extra = 0 if rel is None else rel.numel() * 4
+    label = f"layer {name} B={b} S={s} H={h} F={f} causal={causal} rates " \
+        f"{rates} rel={rel is not None}"
+    ref_dx, ref_g = fel.fused_encoder_layer_plain_backward(
+        flat, x, mask, dy, rel_bias=rel, **kw)
+    dx, grads = bwd()
+    errs = dict(fwd=held(label, [fwd()[0]], [fel.fused_encoder_layer_plain(
+                    params, x, mask, rel_bias=rel, **kw)], TOL[name], False),
+                bwd=held(label, [dx, *grads.values()],
+                         [ref_dx, *(ref_g[k] for k in grads)],
+                         GRAD_TOL[name]))
+    del ref_dx, ref_g, dx, grads
+    rows = dict(
+        fwd=dict(max_abs_err=errs["fwd"], **timed(fwd),
+                 **timed(lambda: fel.fused_encoder_layer_plain(
+                     params, x, mask, rel_bias=rel, **kw), "plain", **PLAIN),
+                 **timed(lambda: library_layer(
+                     params, x, mask, n, rates, causal, rel), "library"),
+                 **bound(roofline.layer_forward_s, b, s, h, f, name,
+                         peak=peak, extra_flops=-4 * lost,
+                         extra_bytes=extra)),
+        bwd=dict(max_abs_err=errs["bwd"], **timed(bwd),
+                 **timed(lambda: fel.fused_encoder_layer_plain_backward(
+                     flat, x, mask, dy, rel_bias=rel, **kw), "plain",
+                     **PLAIN),
+                 **timed(lambda: torch.autograd.grad(
+                     y_lib, leaves, dy, retain_graph=True), "library"),
+                 **bound(roofline.layer_backward_s, b, s, h, f, name,
+                         peak=peak, extra_flops=-8 * lost,
+                         extra_bytes=2 * extra)))
+    if bare:
+        rows["fwd"]["bare_ms"] = time_device_ms(
+            lambda: fwd(False) if rel is None else fwd(rel=None))[0]
+        rows["bwd"]["bare_ms"] = time_device_ms(lambda: bwd(False))[0]
+    del y_lib, leaves, lflat, xl, rl
+    return rows, fwd, bwd
 
 
 def check_layer_training(torch, rng, device, h=HIDDEN, n=HEADS, f=INNER,
                          rates=RATES, cases=None, seq=SEQ, trace=True,
                          causal=False):
-    """K1 with dropout and K2 against their plain versions at width
-    ``h`` (``n`` heads, inner ``f``) and length ``seq``, for each (dtype,
-    batch) of ``cases`` (default fp32 and bf16 at B=32 and B=256); fp32's
-    bounds at 3xTF32's 165 TFLOP/s, 67 without tensor cores printed
-    beside; at B=256 each launch's kernels by device time (``trace``).
-    ``causal``: K1'' causal and its K2, by whatever route the shape law
-    gives."""
+    """``layer_rows`` at width ``h`` (``n`` heads, inner ``f``), length
+    ``seq``, for each (dtype, batch) of ``cases`` (default fp32 and bf16 at
+    B=256), fp32's bound at 67 TFLOP/s beside; at B=256 each launch's
+    kernels by device time (``trace``), none off the route."""
     import numpy as np
     from bert4rec_tpu_torch.ops import fused_encoder_layer as fel
-    from bert4rec_tpu_torch.utils.checkpoint import flatten, unflatten
     params = random_layer(rng, device, h, n, f)
     flat = fel.flat_weights(params)
-    kw = dict(num_heads=n, attention_dropout=rates[0],
-              output_dropout=rates[1], seed=4242, causal=causal)
     rows = {}
-    cases = cases or [(dt, b) for dt in (torch.float32, torch.bfloat16)
-                      for b in (32, STREAM_BATCH)]
+    cases = cases or [(dt, STREAM_BATCH)
+                      for dt in (torch.float32, torch.bfloat16)]
     for dtype, b in cases:
         name = str(dtype).removeprefix("torch.")
-        x = torch.from_numpy(rng.normal(size=(b, seq, h))
-                             .astype(np.float32)).to(device, dtype)
+        x, dy = (torch.from_numpy(rng.normal(size=(b, seq, h))
+                                  .astype(np.float32)).to(device, dtype)
+                 for _ in range(2))
         lengths = rng.integers(1, seq + 1, size=b)
         mask = torch.from_numpy(
             (np.arange(seq)[None, :] < lengths[:, None])
             .astype(np.int32)).to(device)
-        dy = torch.from_numpy(rng.normal(size=(b, seq, h))
-                              .astype(np.float32)).to(device, dtype)
-        fwd = lambda: fel._launch_forward(   # noqa: E731
-            flat, x, mask, n, kw["seed"], *rates, True, causal)
-        y, saved = fwd()
-        bwd = lambda: fel._launch_backward(  # noqa: E731
-            flat, x, mask, dy, saved, n, kw["seed"], *rates, causal)
-        dx, grads = bwd()
-        torch.cuda.synchronize()
-        ref_y = fel.fused_encoder_layer_plain(params, x, mask, **kw)
-        ref_dx, ref_g = fel.fused_encoder_layer_plain_backward(
-            flat, x, mask, dy, **kw)
-        fwd_err = float((y.float() - ref_y.float()).abs().max())
-        bwd_err = max([rel_err(dx, ref_dx)]
-                      + [rel_err(grads[k], ref_g[k]) for k in grads])
-        if not (fwd_err <= TOL[name] and bwd_err <= GRAD_TOL[name]
-                and bool(torch.isfinite(dx).all())):
-            raise AssertionError(
-                f"layer training kernels {name} B={b}: forward err "
-                f"{fwd_err} (tol {TOL[name]}), backward rel err "
-                f"{bwd_err} (tol {GRAD_TOL[name]})")
-        again = bwd()
-        if not (torch.equal(again[0], dx) and all(
-                torch.equal(again[1][k], grads[k]) for k in grads)):
-            raise AssertionError("layer backward is not deterministic")
-        # yardsticks: library composition, forward and autograd
-        lflat = {k: v.detach().clone().requires_grad_(True)
-                 for k, v in flatten(params).items()}
-        xl = x.detach().requires_grad_(True)
-        y_lib = library_layer_train(unflatten(lflat), xl, mask, n,
-                                    rates, causal)
-        leaves = [xl, *lflat.values()]
-        lib_bwd = lambda: torch.autograd.grad(  # noqa: E731
-            y_lib, leaves, dy, retain_graph=True)
-        # kernel and yardstick as medians of 7 blocks: one block of the
-        # yardstick wandered 17-46% between runs
-        row = dict(
-            fwd=dict(max_abs_err=fwd_err, **blocks(fwd),
-                     plain_ms=time_ms(lambda: fel.fused_encoder_layer_plain(
-                         params, x, mask, **kw)),
-                     **blocks(lambda: library_layer_train(
-                         params, x, mask, n, rates, causal), "library"),
-                     **dict(zip(("bound_ms", "bound_by"),
-                                layer_bound_ms(b, name, h, f, causal,
-                                               s=seq)))),
-            bwd=dict(max_abs_err=float((dx.float() - ref_dx.float())
-                                       .abs().max()),
-                     max_rel_err=bwd_err, **blocks(bwd),
-                     plain_ms=time_ms(
-                         lambda: fel.fused_encoder_layer_plain_backward(
-                             flat, x, mask, dy, **kw), iters=5),
-                     **blocks(lib_bwd, "library"),
-                     **dict(zip(("bound_ms", "bound_by"),
-                                layer_bwd_bound_ms(b, name, h, f, causal,
-                                                   s=seq)))))
+        row, fwd, bwd = layer_rows(torch, flat, params, x, mask, dy, n,
+                                   rates, 4242, causal)
         rows[(name, b)] = row
-        simt = dict(fwd=layer_bound_ms(b, name, h, f, causal,
-                                       peak=PEAK_FLOPS[name], s=seq),
-                    bwd=layer_bwd_bound_ms(b, name, h, f, causal,
-                                           peak=PEAK_FLOPS[name], s=seq))
+        lost = unpaired(b, seq, h, causal)
+        simt = dict(fwd=bound(roofline.layer_forward_s, b, seq, h, f, name,
+                              peak=roofline.PEAK_FLOPS[name],
+                              extra_flops=-4 * lost),
+                    bwd=bound(roofline.layer_backward_s, b, seq, h, f, name,
+                              peak=roofline.PEAK_FLOPS[name],
+                              extra_flops=-8 * lost))
         for part, r in row.items():
             print(f"fused_encoder_layer {part} dropout {rates} {name} "
                   + ("causal " if causal else "")
                   + f"route {fel.kernel_route(dtype, b, h, n, f)} "
-                  f"B={b} S={seq} H={h} N={n} F={f}: err "
-                  f"{r['max_abs_err']:.3g}"
-                  + (f" (rel {r['max_rel_err']:.3g}, tol "
-                     f"{GRAD_TOL[name]})" if part == "bwd" else
-                     f" (tol {TOL[name]})")
-                  + f" {timing_text(r)}"
-                  + (f"; bound at 3xTF32's 165 TFLOP/s, {simt[part][0]:.5f} "
-                     f"at 67 without tensor cores" if name == "float32"
-                     else ""), flush=True)
+                  f"B={b} S={seq} H={h} N={n} F={f}: {timing_text(r)}"
+                  + (f"; bound at 3xTF32's 165 TFLOP/s, "
+                     f"{simt[part]['bound_ms']:.5f} at 67 without tensor "
+                     f"cores" if name == "float32" else ""), flush=True)
         if b == STREAM_BATCH and trace:
             fp32 = name == "float32"
             forbid = SIMT_FP32_LAYER if fp32 else LEGACY_BF16_LAYER
@@ -1152,108 +851,6 @@ def check_layer_training(torch, rng, device, h=HIDDEN, n=HEADS, f=INNER,
             print("  per backward launch: " + device_breakdown(
                 torch, bwd, top=10, forbid=forbid,
                 only=TF32_LAYER_BWD if fp32 else None)[1], flush=True)
-    return rows
-
-
-def check_loss_kernels(torch, rng, device, w=HIDDEN, dtypes=None,
-                       trace=True):
-    """K3 and K4 against their plain versions at one train batch's rows
-    and table width ``w``, in each of ``dtypes`` (default fp32 and
-    bf16); each launch's kernels by device time (``trace``)."""
-    import numpy as np
-    import torch.nn.functional as F
-    from bert4rec_tpu_torch.ops import fused_mlm_loss as fml
-    rows = {}
-    for dtype in dtypes or (torch.float32, torch.bfloat16):
-        name = str(dtype).removeprefix("torch.")
-        hidden = torch.from_numpy(rng.normal(size=(N_ROWS, w))
-                                  .astype(np.float32)).to(device, dtype)
-        table = torch.from_numpy((rng.normal(size=(VOCAB, w)) * 0.1)
-                                 .astype(np.float32)).to(device)
-        bias = torch.from_numpy(rng.normal(size=VOCAB).astype(np.float32)) \
-            .to(device)
-        labels_np = rng.integers(3, VOCAB, size=N_ROWS).astype(np.int32)
-        labels_np[::9] = 0
-        labels = torch.from_numpy(labels_np).to(device)
-        t_s, b_m = table.to(dtype), fml._mask_bias(bias, VOCAB)
-        g = torch.ones((), device=device)
-        fwd = lambda: fml._launch_forward(hidden, t_s, b_m, labels)  # noqa
-        lse, sums = fwd()
-        bwd = lambda: fml._launch_backward(  # noqa: E731
-            hidden, t_s, b_m, labels, lse, g, sums[3:4])
-        dh, dt, db = bwd()
-        torch.cuda.synchronize()
-        ref_lse, ref_sums = fml.fused_mlm_loss_plain_forward(
-            hidden, t_s, b_m, labels)
-        rdh, rdt, rdb = fml.fused_mlm_loss_plain_backward(
-            hidden, t_s, b_m, labels, ref_lse, g, ref_sums[3])
-        fwd_err = max(rel_err(lse, ref_lse), rel_err(sums[:1],
-                                                      ref_sums[:1]))
-        bwd_err = max(rel_err(dh, rdh), rel_err(dt, rdt), rel_err(db, rdb))
-        if not (fwd_err <= LOSS_FWD_TOL and bwd_err <= LOSS_TOL[name]
-                and torch.equal(sums[1:], ref_sums[1:])):
-            raise AssertionError(
-                f"loss kernels {name}: forward rel err {fwd_err} (tol "
-                f"{LOSS_FWD_TOL}), counts {sums[1:].tolist()} vs "
-                f"{ref_sums[1:].tolist()}, backward rel err {bwd_err} (tol "
-                f"{LOSS_TOL[name]})")
-        again = bwd()
-        if not all(torch.equal(a, c) for a, c in zip(again, (dh, dt, db))):
-            raise AssertionError("loss backward is not deterministic")
-        # yardstick: the logits by matmul, then cross_entropy (and its
-        # autograd); it materialises the [R, V] logits the kernels avoid
-        hl = hidden.detach().requires_grad_(True)
-        tl = t_s.detach().requires_grad_(True)
-        bl = b_m.detach().requires_grad_(True)
-
-        def lib_fwd():
-            logits = torch.matmul(hl, tl.T).float() + bl
-            return F.cross_entropy(logits, labels.long(), ignore_index=0)
-
-        lib_loss = lib_fwd()
-        # fp32 K3 / K4 run 3xTF32: their bound at its rate (and at fp32's
-        # without tensor cores, printed beside)
-        peak = TF32X3_FLOPS if dtype == torch.float32 else None
-        row = dict(
-            fwd=dict(max_abs_err=float((sums[0] - ref_sums[0]).abs()),
-                     max_rel_err=fwd_err, **blocks(fwd),
-                     plain_ms=time_ms(lambda: fml.fused_mlm_loss_plain_forward(
-                         hidden, t_s, b_m, labels)),
-                     **blocks(lib_fwd, "library"),
-                     **dict(zip(("bound_ms", "bound_by"), loss_bound_ms(
-                         N_ROWS, VOCAB, w, name, False, peak)))),
-            bwd=dict(max_abs_err=float((dh.float() - rdh.float()).abs().max()),
-                     max_rel_err=bwd_err, **blocks(bwd),
-                     plain_ms=time_ms(lambda: fml.fused_mlm_loss_plain_backward(
-                         hidden, t_s, b_m, labels, ref_lse, g, ref_sums[3])),
-                     **blocks(lambda: torch.autograd.grad(
-                         lib_loss, (hl, tl, bl), retain_graph=True), "library"),
-                     **dict(zip(("bound_ms", "bound_by"), loss_bound_ms(
-                         N_ROWS, VOCAB, w, name, True, peak)))))
-        rows[name] = row
-        for part, r in row.items():
-            tol = LOSS_FWD_TOL if part == "fwd" else LOSS_TOL[name]
-            fp32_bound = loss_bound_ms(N_ROWS, VOCAB, w, name,
-                                       part == "bwd")[0]
-            print(f"fused_mlm_loss {part} {name} R={N_ROWS} V={VOCAB} "
-                  f"W={w}: rel err {r['max_rel_err']:.3g} (tol "
-                  f"{tol}) {timing_text(r)}"
-                  + (f"; bound at 67 TFLOP/s {fp32_bound:.5f}" if peak
-                     else ""), flush=True)
-        # K3 and K4 on csrc/loss_hopper.cuh's kernels (bf16) or
-        # csrc/loss_tf32.cuh's (fp32)
-        only = BF16_LOSS_KERNELS if peak is None else FP32_LOSS_KERNELS
-        if trace:
-            print("  per K3 launch: " + device_breakdown(
-                torch, fwd, only=only["K3"])[1]
-                + "\n  per K4 launch: " + device_breakdown(
-                    torch, bwd, only=only["K4"])[1], flush=True)
-        if peak:
-            print(f"  fp32 K4's sweeps (blocks, cluster): "
-                  f"{fml.sweep_grid(N_ROWS, VOCAB, w, dtype)}; fp32 K3's "
-                  f"{fml.whole_table_splits(N_ROWS, VOCAB, w, dtype)} "
-                  f"vocabulary splits x {-(-N_ROWS // 128)} row blocks",
-                  flush=True)
     return rows
 
 
@@ -1274,107 +871,47 @@ def causal_inputs(torch, rng, device, dtype, b=STREAM_BATCH):
     return x, mask, dy
 
 
-def check_causal_layer(torch, rng, device):
-    """K1'' causal forward and backward against their plain versions at the
-    SASRec train shape (B=256, S=200, H=128): fp32 and bf16, dropout off
-    and at ml-20m_128's rates, with an all-pad row and a row of length 1;
-    kernel, plain and library-yardstick times, the bidirectional kernels
-    (K1', K2) on the same inputs for comparison, and the bound."""
+def check_masked_layer(torch, rng, device, rel=False):
+    """``layer_rows`` for K1'' causal at the SASRec train shape (B=256,
+    S=200, H=128), dropout off and at ml-20m_128's rates, the bidirectional
+    kernels beside; with ``rel`` K1'' rel_bias and K2 dRel at the temporal
+    one (a relative bias ~ N(0, 1), counted as bytes in the bound), at
+    those rates, causal or not, the bias-free kernels beside. fp32 and
+    bf16, an all-pad and a length-1 row; bf16's launches at ml-20m_128's
+    rates (rel_bias: bidirectional) by device time, none on the earlier
+    kernels. Rows by (dtype, rates), with ``rel`` by (dtype, causal)."""
+    import numpy as np
     from bert4rec_tpu_torch.ops import fused_encoder_layer as fel
-    from bert4rec_tpu_torch.utils.checkpoint import flatten, unflatten
     params = random_layer(rng, device)
     flat = fel.flat_weights(params)
-    b, seed = STREAM_BATCH, 4242
+    cases = ([(CAUSAL_RATES, False), (CAUSAL_RATES, True)] if rel
+             else [((0.0, 0.0), True), (CAUSAL_RATES, True)])
     rows = {}
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).removeprefix("torch.")
-        for rates in ((0.0, 0.0), CAUSAL_RATES):
+        for rates, causal in cases:
             x, mask, dy = causal_inputs(torch, rng, device, dtype)
-            kw = dict(num_heads=HEADS, attention_dropout=rates[0],
-                      output_dropout=rates[1], seed=seed, causal=True)
-
-            def fwd(causal=True):
-                return fel._launch_forward(flat, x, mask, HEADS, seed,
-                                           *rates, True, causal=causal)
-
-            y, saved = fwd()
-            bidir_saved = fwd(False)[1]
-
-            def bwd(causal=True):
-                return fel._launch_backward(
-                    flat, x, mask, dy, saved if causal else bidir_saved,
-                    HEADS, seed, *rates, causal=causal)
-
-            dx, grads = bwd()
-            torch.cuda.synchronize()
-            ref_y = fel.fused_encoder_layer_plain(params, x, mask, **kw)
-            ref_dx, ref_g = fel.fused_encoder_layer_plain_backward(
-                flat, x, mask, dy, **kw)
-            fwd_err = float((y.float() - ref_y.float()).abs().max())
-            bwd_err = max([rel_err(dx, ref_dx)]
-                          + [rel_err(grads[k], ref_g[k]) for k in grads])
-            if not (fwd_err <= TOL[name] and bwd_err <= GRAD_TOL[name]
-                    and bool(torch.isfinite(y).all())
-                    and bool(torch.isfinite(dx).all())):
-                raise AssertionError(
-                    f"causal layer kernels {name} dropout {rates}: forward "
-                    f"err {fwd_err} (tol {TOL[name]}), backward rel err "
-                    f"{bwd_err} (tol {GRAD_TOL[name]})")
-            again = bwd()
-            if not (torch.equal(again[0], dx) and all(
-                    torch.equal(again[1][k], grads[k]) for k in grads)):
-                raise AssertionError("causal layer backward is not "
-                                     "deterministic")
-            lflat = {k: v.detach().clone().requires_grad_(True)
-                     for k, v in flatten(params).items()}
-            xl = x.detach().requires_grad_(True)
-            y_lib = library_layer_train(unflatten(lflat), xl, mask, HEADS,
-                                        rates, causal=True)
-            leaves = [xl, *lflat.values()]
-            # SDPA's dense-mask backward wanders between runs: a median
-            lib_bwd = time_ms_blocks(lambda: torch.autograd.grad(
-                y_lib, leaves, dy, retain_graph=True))
-            row = dict(
-                fwd=dict(max_abs_err=fwd_err, ms=time_ms(fwd),
-                         plain_ms=time_ms(lambda: fel.fused_encoder_layer_plain(
-                             params, x, mask, **kw)),
-                         library_ms=time_ms(lambda: library_layer_train(
-                             params, x, mask, HEADS, rates, causal=True)),
-                         bidirectional_ms=time_ms(lambda: fwd(False)),
-                         **dict(zip(("bound_ms", "bound_by"),
-                                    layer_bound_ms(b, name, causal=True)))),
-                bwd=dict(max_abs_err=float((dx.float() - ref_dx.float())
-                                           .abs().max()),
-                         max_rel_err=bwd_err, ms=time_ms(bwd),
-                         plain_ms=time_ms(
-                             lambda: fel.fused_encoder_layer_plain_backward(
-                                 flat, x, mask, dy, **kw), iters=5),
-                         library_ms=lib_bwd[0], library_range=lib_bwd[1:],
-                         bidirectional_ms=time_ms(lambda: bwd(False)),
-                         **dict(zip(("bound_ms", "bound_by"),
-                                    layer_bwd_bound_ms(b, name,
-                                                       causal=True)))))
-            rows[(name, rates)] = row
+            bias = torch.from_numpy(
+                rng.normal(size=(STREAM_BATCH, HEADS, SEQ, SEQ)).astype(
+                    np.float32)).to(device) if rel else None
+            row, fwd, bwd = layer_rows(torch, flat, params, x, mask, dy,
+                                       HEADS, rates, 4243 if rel else 4242,
+                                       causal, bias, bare=True)
+            rows[(name, causal if rel else rates)] = row
+            kind = f"rel_bias causal={causal}" if rel else "causal"
             for part, r in row.items():
-                print(f"fused_encoder_layer causal {part} dropout {rates} "
-                      f"{name} B={b} S={SEQ} H={HIDDEN} (all-pad row, "
-                      f"length-1 row): err {r['max_abs_err']:.3g}"
-                      + (f" (rel {r['max_rel_err']:.3g}, tol "
-                         f"{GRAD_TOL[name]})" if part == "bwd" else
-                         f" (tol {TOL[name]})")
-                      + f" kernel_ms={r['ms']:.4f} bidirectional_ms="
-                      f"{r['bidirectional_ms']:.4f} plain_ms="
-                      f"{r['plain_ms']:.4f} library_ms={r['library_ms']:.4f}"
-                      + (" (median of 7 blocks of 10, {:.4f}-{:.4f})".format(
-                          *r["library_range"]) if part == "bwd" else "")
-                      + f" bound_ms={r['bound_ms']:.5f} ({r['bound_by']})",
-                      flush=True)
-            if name == "bfloat16" and rates == CAUSAL_RATES:
-                print("  per causal forward launch: " + device_breakdown(
-                    torch, fwd, forbid=LEGACY_BF16_LAYER)[1], flush=True)
-                print("  per causal backward launch: " + device_breakdown(
-                    torch, bwd, forbid=LEGACY_BF16_LAYER)[1], flush=True)
-            del y_lib, leaves, lflat, xl
+                print(f"fused_encoder_layer {kind} {part} dropout {rates} "
+                      f"{name} B={STREAM_BATCH} S={SEQ} H={HIDDEN} (all-pad "
+                      f"row, length-1 row): {timing_text(r)}; "
+                      f"{'bias_free' if rel else 'bidirectional'}_ms="
+                      f"{r['bare_ms']:.4f}", flush=True)
+            if name == "bfloat16" and rates == CAUSAL_RATES \
+                    and not (rel and causal):
+                for part, fn in (("forward", fwd), ("backward", bwd)):
+                    print(f"  per {kind} {part} launch: " + device_breakdown(
+                        torch, fn, forbid=LEGACY_BF16_LAYER)[1], flush=True)
+            del bias, fwd, bwd
+            torch.cuda.empty_cache()
     return rows
 
 
@@ -1449,57 +986,31 @@ def new_trainer(torch, device, params=None, lr=1e-4, warmup=100,
     return trainer
 
 
-def plain_kernels():
-    """Patches that send the CUDA branches of the flash attention, layer,
-    loss and table-gradient Functions and of the update to the plain
-    versions: the reference of the step check."""
-    from unittest import mock
+def train_counts(reset=False) -> dict:
+    """The launch counters a counted ``train()`` is held to, by kernel:
+    the layer's by route and variant, K3 / K4 (the whole-table loss), K5,
+    K6, K7 (the tiled one), K10 and K12; ``reset`` sets them to 0 first."""
     from bert4rec_tpu_torch.ops import adamw
-    fa = importlib.import_module("bert4rec_tpu_torch.ops.flash_attention")
     from bert4rec_tpu_torch.ops import fused_encoder_layer as fel
     from bert4rec_tpu_torch.ops import fused_mlm_loss as fml
     from bert4rec_tpu_torch.ops import table_gradient as tg
-
-    def layer_fwd(flat, x, mask, num_heads, seed, a, o, save, causal=False,
-                  rel=None):
-        return fel._forward_math(flat, x, mask, num_heads, seed, a, o,
-                                 causal, rel)["y"], ()
-
-    def layer_bwd(flat, x, mask, dy, saved, num_heads, seed, a, o,
-                  causal=False, rel=None):
-        return fel.fused_encoder_layer_plain_backward(
-            flat, x, mask, dy, num_heads=num_heads, attention_dropout=a,
-            output_dropout=o, seed=seed, causal=causal, rel_bias=rel)
-
-    def loss_bwd(hidden, table, bias, labels, lse, g, n_valid):
-        return fml.fused_mlm_loss_plain_backward(hidden, table, bias, labels,
-                                                 lse, g, n_valid[0])
-
-    def tiled_bwd(hidden, table, bias, labels, lse, g, n_valid, merged,
-                  valid_ge_zero=False):
-        return fml.fused_mlm_loss_plain_backward(
-            hidden, table, bias, labels, lse, g, n_valid[0], valid_ge_zero)
-
-    def flash_fwd(q, k, v, mask, seed, rate, causal, save):
-        return fa.mha_reference(q, k, v, mask, rate, seed, causal), ()
-
-    def flash_bwd(q, k, v, mask, do, saved, seed, rate, causal):
-        return fa.flash_attention_plain_backward(
-            q, k, v, mask, do, dropout_rate=rate, seed=seed, causal=causal)
-
-    patches = [mock.patch.object(fa, "_launch_forward", flash_fwd),
-               mock.patch.object(fa, "_launch_backward", flash_bwd),
-               mock.patch.object(fel, "_launch_forward", layer_fwd),
-               mock.patch.object(fel, "_launch_backward", layer_bwd),
-               mock.patch.object(fml, "_launch_forward",
-                                 fml.fused_mlm_loss_plain_forward),
-               mock.patch.object(fml, "_launch_backward", loss_bwd),
-               mock.patch.object(fml, "_launch_forward_tiled",
-                                 fml.fused_mlm_loss_plain_forward),
-               mock.patch.object(fml, "_launch_backward_tiled", tiled_bwd),
-               mock.patch.object(tg, "_launch", tg.table_gradient_plain),
-               mock.patch.object(adamw, "_launch", adamw.adamw_update_plain)]
-    return patches
+    layer, loss = fel.fused_encoder_layer, fml.fused_mlm_loss
+    tiled = fml.fused_mlm_loss_tiled
+    names = {f"{kind}_{part}": (layer, f"{prefix}{attr}")
+             for kind, prefix in (("layer", ""), ("causal", "causal_"),
+                                  ("rel", "rel_"), ("mma_sync", "mma_sync_"),
+                                  ("tf32", "tf32_"))
+             for part, attr in (("fwd", "launches"),
+                                ("bwd", "backward_launches"))}
+    names.update(K3=(loss, "launches"), K4=(loss, "backward_launches"),
+                 K5=(tiled, "launches"), K6=(tiled, "merged_launches"),
+                 K7=(tiled, "two_sweep_launches"),
+                 K10=(tg.table_gradient, "launches"),
+                 K12=(adamw.adamw_update, "launches"))
+    if reset:
+        for owner, attr in names.values():
+            setattr(owner, attr, 0)
+    return {k: getattr(owner, attr) for k, (owner, attr) in names.items()}
 
 
 def check_step_parity(torch, trainer, batch, label):
@@ -1560,10 +1071,6 @@ def check_training(torch, device, new=None, label="ml-1m_128"):
     against the plain step, the launch counts of a ``train()`` run, the
     step time, ``train()``'s idle share and a device breakdown, the loss
     falling on a repeated batch, and an exact resume."""
-    from bert4rec_tpu_torch.ops import adamw
-    from bert4rec_tpu_torch.ops import fused_encoder_layer as fel
-    from bert4rec_tpu_torch.ops import fused_mlm_loss as fml
-    from bert4rec_tpu_torch.ops import table_gradient as tg
     from bert4rec_tpu_torch.utils.checkpoint import flatten
 
     new = new or (lambda **kw: new_trainer(torch, device, **kw))
@@ -1584,38 +1091,24 @@ def check_training(torch, device, new=None, label="ml-1m_128"):
                       f"{(cfg.attention_dropout, cfg.output_dropout)}")
 
     # the main path: BERT4RecTrainer.train() for TRAIN_STEPS steps
-    for fn in (fel.fused_encoder_layer, fml.fused_mlm_loss):
-        fn.launches = fn.backward_launches = 0
-    for attr in ("mma_sync_launches", "mma_sync_backward_launches",
-                 "tf32_launches", "tf32_backward_launches"):
-        setattr(fel.fused_encoder_layer, attr, 0)
-    tg.table_gradient.launches = adamw.adamw_update.launches = 0
+    train_counts(reset=True)
     t0 = time.perf_counter()
     hist = trainer.train(SyntheticDataset(TRAIN_STEPS, seed=1), epochs=1,
                          batch_size=STREAM_BATCH, seed=SEED, verbose=False)
     wall = time.perf_counter() - t0
-    counts = dict(layer_fwd=fel.fused_encoder_layer.launches,
-                  layer_bwd=fel.fused_encoder_layer.backward_launches,
-                  loss_fwd=fml.fused_mlm_loss.launches,
-                  loss_bwd=fml.fused_mlm_loss.backward_launches,
-                  mma_sync=fel.fused_encoder_layer.mma_sync_launches
-                  + fel.fused_encoder_layer.mma_sync_backward_launches,
-                  tf32_fwd=fel.fused_encoder_layer.tf32_launches,
-                  tf32_bwd=fel.fused_encoder_layer.tf32_backward_launches,
-                  K10=tg.table_gradient.launches,
-                  K12=adamw.adamw_update.launches)
+    counts = train_counts()
     # fp32: every layer launch, forward and backward, on the 3xTF32 route
     layer_steps = cfg.num_layers * TRAIN_STEPS
-    want = dict(layer_fwd=layer_steps, layer_bwd=layer_steps,
-                loss_fwd=TRAIN_STEPS, loss_bwd=TRAIN_STEPS, mma_sync=0,
-                K10=TRAIN_STEPS, K12=3 * TRAIN_STEPS,
+    want = dict.fromkeys(counts, 0)
+    want.update(layer_fwd=layer_steps, layer_bwd=layer_steps, K3=TRAIN_STEPS,
+                K4=TRAIN_STEPS, K10=TRAIN_STEPS, K12=3 * TRAIN_STEPS,
                 tf32_fwd=layer_steps if fp32 else 0,
                 tf32_bwd=layer_steps if fp32 else 0)
     loss = hist.history["loss"][0]
     print(f"{label} train(): {TRAIN_STEPS} steps of B={STREAM_BATCH} in "
           f"{wall:.2f} s (first step included), epoch loss {loss:.4f}, "
           f"masked_accuracy {hist.history['masked_accuracy'][0]:.4f}; "
-          f"launches {counts}", flush=True)
+          f"launches {nonzero(counts)}", flush=True)
     if counts != want or trainer.state["step"] != TRAIN_STEPS \
             or not math.isfinite(loss):
         raise AssertionError(f"launches {counts}, expected {want}; step "
@@ -1803,11 +1296,9 @@ def plain_tiled(torch, fml, h, t, b, lab):
     return forward, stats, backward
 
 
-def tiled_operands(torch, rng, device, rows, v, w, dtype, labels="mixed"):
+def tiled_operands(torch, rng, device, rows, v, w, dtype):
     """hidden [rows, w], the table at the hidden dtype, the masked bias and
-    int32 labels: ``mixed`` (every 9th row 0) or the sharded loss's
-    encodings, ``sharded`` (valid_ge_zero: -1 none, a sentinel past the
-    table for a remote label) and ``sharded_fwd`` (-2 remote or none)."""
+    int32 labels (every 9th row 0)."""
     import numpy as np
     from bert4rec_tpu_torch.ops import fused_mlm_loss as fml
     hidden = torch.from_numpy(rng.normal(size=(rows, w)).astype(np.float32)) \
@@ -1816,129 +1307,102 @@ def tiled_operands(torch, rng, device, rows, v, w, dtype, labels="mixed"):
                              .astype(np.float32)).to(device, dtype)
     bias = torch.from_numpy(rng.normal(size=v).astype(np.float32)).to(device)
     lab = rng.integers(3, v, size=rows).astype(np.int32)
-    if labels == "mixed":
-        lab[::9] = 0
-    elif labels == "sharded":
-        lab[::4], lab[1::4] = -1, v + 7
-    else:
-        lab[::3], lab[1::6] = -2, 0
+    lab[::9] = 0
     return hidden, table, fml._mask_bias(bias, v), \
         torch.from_numpy(lab).to(device)
 
 
-def check_tiled_case(torch, rng, device, r, v, w, dtype, kernels,
-                     trace=True):
-    """K5 (loss and stats entries) and the backward ``kernels`` ({name:
-    merged}: K6 True, K7 False) against the plain versions at R=``r``,
-    V=``v``, W=``w`` in ``dtype``; two runs of each giving the same bits;
-    kernel, plain and library times, the bound, and each launch's kernels
-    by device time (``trace``). Returns {kernel: row}."""
-    import torch.nn.functional as F
+def check_loss_case(torch, rng, device, r, v, w, dtype, kernels,
+                    trace=True):
+    """The loss kernels at R=``r``, V=``v``, W=``w`` in ``dtype``: K3 and
+    K4 (``kernels`` {"K4": None}), or K5 (loss and stats entries) and the
+    backward ``kernels`` ({name: merged}: K6 True, K7 False). Kernel, plain
+    and library times and the bound (fp32's at 3xTF32's 165 TFLOP/s, 67
+    beside it), and each launch's kernels by device time (``trace``), only
+    those of its route. Returns {kernel: row}."""
     from bert4rec_tpu_torch.ops import fused_mlm_loss as fml
     name = str(dtype).removeprefix("torch.")
-    tol = LOSS_TOL[name]
     reddit = v == REDDIT_VOCAB
+    whole = "K4" in kernels
     h, t, b, lab = tiled_operands(torch, rng, device, r, v, w, dtype)
     g = torch.ones((), device=device)
-    fwd = lambda: fml._launch_forward_tiled(h, t, b, lab)  # noqa: E731
+    if whole:
+        fwd = lambda: fml._launch_forward(h, t, b, lab)  # noqa: E731
+    else:
+        fwd = lambda: fml._launch_forward_tiled(h, t, b, lab)  # noqa: E731
     lse, sums = fwd()
-    stats = fml._launch_forward_tiled_stats(h, t, b, lab)
-    bwd = {k: (lambda m=m: fml._launch_backward_tiled(
-        h, t, b, lab, lse, g, sums[3:4], m)) for k, m in kernels.items()}
-    grads = {k: f() for k, f in bwd.items()}
-    torch.cuda.synchronize()
-    plain_fwd, plain_stats, plain_bwd_fn = plain_tiled(
-        torch, fml, h, t, b, lab)
-    ref_lse, ref_sums = plain_fwd()
-    ref_stats = plain_stats()
-    fwd_err = max([rel_err(lse, ref_lse), rel_err(sums[:1], ref_sums[:1])]
-                  + [rel_err(a, c) for a, c in zip(stats, ref_stats)])
-    ref_grads = plain_bwd_fn(ref_lse, g, ref_sums[3])
-    bwd_err = {k: max(rel_err(a, c) for a, c in zip(out, ref_grads))
-               for k, out in grads.items()}
-    bwd_abs = {k: max(float((a.float() - c.float()).abs().max())
-                      for a, c in zip(out, ref_grads))
-               for k, out in grads.items()}
-    if not (fwd_err <= LOSS_FWD_TOL and max(bwd_err.values()) <= tol
-            and torch.equal(sums[1:], ref_sums[1:])):
-        raise AssertionError(
-            f"tiled loss {name} R={r} V={v} W={w}: forward rel err "
-            f"{fwd_err} (tol {LOSS_FWD_TOL}), counts "
-            f"{sums[1:].tolist()} vs {ref_sums[1:].tolist()}, backward "
-            f"rel err {bwd_err} (tol {tol})")
     stats_fn = lambda: fml._launch_forward_tiled_stats(  # noqa: E731
         h, t, b, lab)
-    if not (torch.equal(fwd()[0], lse) and all(
-            torch.equal(a, c) for a, c in zip(stats_fn(), stats)) and all(
-            all(torch.equal(a, c) for a, c in zip(f(), grads[k]))
-            for k, f in bwd.items())):
-        raise AssertionError(f"tiled loss {name} R={r} V={v} W={w}: two "
-                             f"runs differ")
-    del grads, ref_grads
-    # yardstick: the logits by matmul, then cross_entropy (and its
-    # autograd); it materialises the [R, V] logits the kernels avoid
-    hl, tl, bl = (x.detach().requires_grad_(True) for x in (h, t, b))
-
-    def lib_fwd():
-        logits = torch.matmul(hl, tl.T).float() + bl
-        return F.cross_entropy(logits, lab.long(), ignore_index=0)
-
-    lib_loss = lib_fwd()
-    plain_bwd = lambda: plain_bwd_fn(ref_lse, g, ref_sums[3])  # noqa: E731
-    # kernels and yardsticks as medians of 7 blocks (of 3 calls for
-    # fp32, of 10 otherwise)
+    bwd = {k: (lambda m=m: fml._launch_backward(
+        h, t, b, lab, lse, g, sums[3:4]) if whole
+        else fml._launch_backward_tiled(h, t, b, lab, lse, g, sums[3:4], m))
+        for k, m in kernels.items()}
+    plain_fwd, plain_stats, plain_bwd_fn = plain_tiled(torch, fml, h, t,
+                                                       b, lab)
+    label = f"loss {name} R={r} V={v} W={w}"
+    fk = "K3" if whole else "K5"
+    rlse, rsums = plain_fwd()
+    held(label + " counts", [sums[1:]], [rsums[1:]], 0.0, False)
+    errs = {fk: held(label, [lse, sums[:1]] + ([] if whole else [
+        *stats_fn()]), [rlse, rsums[:1]] + ([] if whole else [
+            *plain_stats()]), LOSS_FWD_TOL)}
+    del rlse, rsums
+    ref = plain_bwd_fn(lse, g, sums[3])
+    errs.update({k: held(f"{label} {k}", f(), ref, LOSS_TOL[name])
+                 for k, f in bwd.items()})
+    del ref
+    lib_fwd, lib_bwd_fn = library_loss(torch, h, t, b, lab)
+    # K5-K7 in blocks of 3 calls for fp32, 5 otherwise
     heavy = dtype == torch.float32
-    it = dict(iters=3, warmup=1) if heavy else {}
-    shape = dict(rows=r, v=v, w=w)
-    # fp32 K5-K7 run 3xTF32: their bound at its rate, and at fp32's
-    # without tensor cores beside it
-    peak = TF32X3_FLOPS if heavy else None
-    row = {"K5": dict(max_abs_err=float((sums[0] - ref_sums[0]).abs()),
-                      max_rel_err=fwd_err, **blocks(fwd, **it),
-                      plain_ms=time_ms(plain_fwd, iters=3, warmup=1),
-                      **blocks(lib_fwd, "library", **it),
-                      **dict(zip(("bound_ms", "bound_by"), loss_bound_ms(
-                          r, v, w, name, False, peak))), **shape)}
-    plain_bwd_ms = time_ms(plain_bwd, iters=2, warmup=1)
-    lib_bwd = blocks(lambda: torch.autograd.grad(
-        lib_loss, (hl, tl, bl), retain_graph=True), "library", **it)
+    it = dict(iters=3, warmup=1) if heavy and not whole else {}
+    # fp32 runs 3xTF32: the bound at its rate, and at fp32's without
+    # tensor cores beside it
+    peak = roofline.TF32X3_FLOPS if heavy else None
+    row = {fk: dict(max_abs_err=errs[fk], **timed(fwd, **it),
+                    **timed(plain_fwd, "plain", **PLAIN),
+                    **timed(lib_fwd, "library", **it),
+                    **bound(roofline.loss_s, r, v, w, False, name,
+                            peak=peak))}
+    plain_bwd = timed(lambda: plain_bwd_fn(lse, g, sums[3]), "plain",
+                      **PLAIN)
+    lib_bwd = timed(lib_bwd_fn, "library", **it)
     for k, f in bwd.items():
-        row[k] = dict(max_abs_err=bwd_abs[k], max_rel_err=bwd_err[k],
-                      **blocks(f, **it), plain_ms=plain_bwd_ms, **lib_bwd,
-                      **dict(zip(("bound_ms", "bound_by"), loss_bound_ms(
-                          r, v, w, name, True, peak))), **shape)
+        row[k] = dict(max_abs_err=errs[k], **timed(f, **it), **plain_bwd,
+                      **lib_bwd,
+                      **bound(roofline.loss_s, r, v, w, True, name,
+                              peak=peak))
     for k, x in row.items():
-        fp32_bound = loss_bound_ms(r, v, w, name, k != "K5")[0]
-        print(f"tiled loss {k} {name} R={r} V={v} W={w}: rel err "
-              f"{x['max_rel_err']:.3g} (tol "
-              f"{LOSS_FWD_TOL if k == 'K5' else tol}) {timing_text(x)}"
+        fp32_bound = bound(roofline.loss_s, r, v, w, k != fk,
+                           name)["bound_ms"]
+        print(f"{'' if whole else 'tiled '}loss {k} {name} R={r} V={v} "
+              f"W={w}: {timing_text(x)}"
               + (f"; bound at 67 TFLOP/s {fp32_bound:.5f}" if heavy else "")
               + f"; {x['bound_ms'] / x['ms']:.1%} of the bound, "
               f"{x['ms'] / x['library_ms']:.3f}x the library", flush=True)
-    # each launch's kernels: K7's two sweeps apart, at each W; K5's
-    # (both entries) only its sweep, merge and row sums; fp32 K6 / K7
+    # each launch's kernels: K4's and K7's two sweeps apart, at each W; K3's
+    # and K5's (both entries) only its sweep, merge and row sums; fp32's
     # only loss_tf32.cuh's
-    launches = [("K5", fwd), ("K5 stats", stats_fn)] if trace else []
-    if trace and not (reddit and not heavy):
+    launches = [(fk, fwd)] + ([] if whole else [("K5 stats", stats_fn)])
+    if not trace:
+        launches = []
+    elif not (reddit and not heavy):
         launches += list(bwd.items())
     for k, f in launches:
         only = (FP32_LOSS_KERNELS if heavy
                 else BF16_LOSS_KERNELS).get(k[:2])
         print(f"  per {k} launch: " + device_breakdown(
             torch, f, only=only)[1], flush=True)
-    del lib_loss, hl, tl, bl, h, t, b
+    del lib_fwd, lib_bwd_fn, h, t, b
     torch.cuda.empty_cache()
     return row
 
 
 def check_tiled_loss_kernels(torch, rng, device):
-    """K5 (loss and stats entries), K6 and K7 against the plain versions
-    at one ML-20M train batch (R=10,240, V=26,732; W=128 and 256; fp32 and
-    bf16), K5 + K6 at Reddit's vocabulary (V=335,424, W=128) at R=2,048
-    (fp32 and bf16) and at the Reddit preset's R=10,240 (fp32; the plain
-    versions in row chunks), the ``valid_ge_zero`` encoding; two runs of
-    each giving the same bits."""
-    from bert4rec_tpu_torch.ops import fused_mlm_loss as fml
+    """K5 (loss and stats entries), K6 and K7 at one ML-20M train batch
+    (R=10,240, V=26,732; W=128 and 256; fp32 and bf16), K5 + K6 at
+    Reddit's vocabulary (V=335,424, W=128) at R=2,048 (fp32 and bf16) and
+    at the Reddit preset's R=10,240 (fp32; the plain versions in row
+    chunks)."""
     cases = [(N_ROWS, ML20M_VOCAB, w, dt) for w in (128, 256)
              for dt in (torch.float32, torch.bfloat16)]
     cases += [(REDDIT_ROWS, REDDIT_VOCAB, 128, dt)
@@ -1949,41 +1413,8 @@ def check_tiled_loss_kernels(torch, rng, device):
         name = str(dtype).removeprefix("torch.")
         kernels = ({"K6": True} if v == REDDIT_VOCAB
                    else {"K6": True, "K7": False})
-        rows[(name, r, v, w)] = check_tiled_case(torch, rng, device, r, v, w,
+        rows[(name, r, v, w)] = check_loss_case(torch, rng, device, r, v, w,
                                                  dtype, kernels)
-    ws = {k: fml.workspace_bytes(k, N_ROWS, REDDIT_VOCAB, 128)
-          for k in ("K3/K4", "K5", "K6", "K7")}
-    print(f"tiled loss workspace at R={N_ROWS}, V={REDDIT_VOCAB}, W=128, as "
-          f"the library reports it: K5 {ws['K5']} bytes, K6 {ws['K6']}, K7 "
-          f"{ws['K7']} (K4's split dtable partials: {ws['K3/K4']})",
-          flush=True)
-    # the sharded loss's label encodings
-    for labels in ("sharded_fwd", "sharded"):
-        h, t, b, lab = tiled_operands(torch, rng, device, REDDIT_ROWS,
-                                      ML20M_VOCAB, 128, torch.bfloat16,
-                                      labels)
-        g = torch.ones((), device=device)
-        if labels == "sharded_fwd":
-            got = fml._launch_forward_tiled_stats(h, t, b, lab)
-            ref = fml.fused_mlm_loss_plain_stats(h, t, b, lab)
-        else:
-            lse, sums = fml.fused_mlm_loss_plain_forward(h, t, b, lab)
-            got = [x for m in (True, False) for x in fml._launch_backward_tiled(
-                h, t, b, lab, lse, g, sums[3:4], m, valid_ge_zero=True)]
-            # the one plain backward, against K6's outputs then K7's
-            ref = fml.fused_mlm_loss_plain_backward(
-                h, t, b, lab, lse, g, sums[3], valid_ge_zero=True) * 2
-        torch.cuda.synchronize()
-        err = max(rel_err(a, c) for a, c in zip(got, ref))
-        tol = LOSS_FWD_TOL if labels == "sharded_fwd" else \
-            LOSS_TOL["bfloat16"]
-        print(f"tiled loss, the sharded loss's {labels} labels (R="
-              f"{REDDIT_ROWS} V={ML20M_VOCAB} W=128 bf16): "
-              + ("K5 stats" if labels == "sharded_fwd" else
-                 "K6 and K7 with valid_ge_zero")
-              + f" rel err {err:.3g} (tol {tol})", flush=True)
-        if not err <= tol:
-            raise AssertionError(f"tiled loss with {labels} labels: {err}")
     return rows
 
 
@@ -2018,12 +1449,10 @@ def check_ml20m_training(torch, device, loader, splits, config_name,
     causal layer kernels) from the ``"sasrec"`` preprocessor's datasets,
     and ``family="temporal"`` the temporal BERT4Rec (the relative-bias
     layer kernels) from the ``"bert4rec_temporal"`` preprocessor's. Returns
-    the launch counts of the counted run, its timings, the step's peak
-    device memory, the trainer and the host batches it drew."""
-    from bert4rec_tpu_torch.ops import adamw
-    from bert4rec_tpu_torch.ops import fused_encoder_layer as fel
+    the launch counts of the counted run, the trainer and the host batches
+    it drew; with ``timed_steps`` (none at bf16 ml-20m_128, which the
+    benchmark times) the step times, idle share and breakdown print."""
     from bert4rec_tpu_torch.ops import fused_mlm_loss as fml
-    from bert4rec_tpu_torch.ops import table_gradient as tg
     from bert4rec_tpu_torch.utils.checkpoint import flatten
     train_ds, val_ds, _ = splits
     vocab = loader.tokenizer.get_vocab_size()
@@ -2059,55 +1488,26 @@ def check_ml20m_training(torch, device, loader, splits, config_name,
                       f"{(cfg.attention_dropout, cfg.output_dropout)}")
 
     # the main path: train() for ML20M_STEPS steps, counts from 0
-    counted = (fel.fused_encoder_layer, fml.fused_mlm_loss,
-               fml.fused_mlm_loss_tiled)
-    for fn in counted:
-        for attr in ("launches", "backward_launches", "causal_launches",
-                     "causal_backward_launches", "rel_launches",
-                     "rel_backward_launches", "merged_launches",
-                     "two_sweep_launches", "mma_sync_launches",
-                     "mma_sync_backward_launches", "tf32_launches",
-                     "tf32_backward_launches"):
-            if hasattr(fn, attr):
-                setattr(fn, attr, 0)
-    tg.table_gradient.launches = adamw.adamw_update.launches = 0
+    train_counts(reset=True)
     t0 = time.perf_counter()
     hist = trainer.train(train_ds, epochs=1, batch_size=STREAM_BATCH,
                          steps_per_epoch=ML20M_STEPS, seed=SEED,
                          verbose=False)
     wall = time.perf_counter() - t0
-    counts = dict(layer_fwd=fel.fused_encoder_layer.launches,
-                  layer_bwd=fel.fused_encoder_layer.backward_launches,
-                  causal_fwd=fel.fused_encoder_layer.causal_launches,
-                  causal_bwd=fel.fused_encoder_layer.causal_backward_launches,
-                  rel_fwd=fel.fused_encoder_layer.rel_launches,
-                  rel_bwd=fel.fused_encoder_layer.rel_backward_launches,
-                  K3=fml.fused_mlm_loss.launches,
-                  K4=fml.fused_mlm_loss.backward_launches,
-                  K5=fml.fused_mlm_loss_tiled.launches,
-                  K6=fml.fused_mlm_loss_tiled.merged_launches,
-                  K7=fml.fused_mlm_loss_tiled.two_sweep_launches,
-                  K10=tg.table_gradient.launches,
-                  K12=adamw.adamw_update.launches,
-                  mma_sync=fel.fused_encoder_layer.mma_sync_launches
-                  + fel.fused_encoder_layer.mma_sync_backward_launches,
-                  tf32_fwd=fel.fused_encoder_layer.tf32_launches,
-                  tf32_bwd=fel.fused_encoder_layer.tf32_backward_launches)
+    counts = train_counts()
     layer_steps = cfg.num_layers * ML20M_STEPS
     variant = {"sasrec": "causal", "temporal": "rel"}.get(family, "layer")
-    # fp32: every layer launch, forward and backward, on the 3xTF32 route
-    want = dict(layer_fwd=0, layer_bwd=0, causal_fwd=0, causal_bwd=0,
-                rel_fwd=0, rel_bwd=0, K3=0, K4=0, K5=ML20M_STEPS,
-                K6=ML20M_STEPS if kernel == "K6" else 0,
-                K7=ML20M_STEPS if kernel == "K7" else 0, K10=ML20M_STEPS,
-                K12=3 * ML20M_STEPS, mma_sync=0,
-                tf32_fwd=layer_steps if fp32 else 0,
-                tf32_bwd=layer_steps if fp32 else 0)
-    want[f"{variant}_fwd"] = want[f"{variant}_bwd"] = layer_steps
+    want = dict.fromkeys(counts, 0)
+    want.update({"K5": ML20M_STEPS, kernel: ML20M_STEPS, "K10": ML20M_STEPS,
+                 "K12": 3 * ML20M_STEPS, f"{variant}_fwd": layer_steps,
+                 f"{variant}_bwd": layer_steps})
+    if fp32:   # every layer launch, forward and backward, on 3xTF32
+        want.update(tf32_fwd=layer_steps, tf32_bwd=layer_steps)
     loss = hist.history["loss"][0]
     print(f"{label} train(): {ML20M_STEPS} steps of B={STREAM_BATCH}"
           f" from the ML-20M pipeline in {wall:.2f} s (first step "
-          f"included), epoch loss {loss:.4f}; launches {counts}", flush=True)
+          f"included), epoch loss {loss:.4f}; launches {nonzero(counts)}",
+          flush=True)
     if counts != want or not math.isfinite(loss):
         raise AssertionError(f"launches {counts}, expected {want}")
     moved = max(float((v.detach() - init[k]).abs().max())
@@ -2121,40 +1521,41 @@ def check_ml20m_training(torch, device, loader, splits, config_name,
 
     # train() again, warm: its wall time per step with the prefetch thread
     # feeding the card, against the device time of one step
-    t0 = time.perf_counter()
-    trainer.train(train_ds, epochs=1, batch_size=STREAM_BATCH,
-                  steps_per_epoch=timed_steps, seed=SEED + 1,
-                  verbose=False)
-    train_ms = (time.perf_counter() - t0) * 1e3 / timed_steps
-    step_ms = []
-    for b in host[1:11]:
-        placed = trainer._put_batch(b)
-        torch.cuda.synchronize()
+    if timed_steps:
         t0 = time.perf_counter()
-        trainer.train_step(placed)
+        trainer.train(train_ds, epochs=1, batch_size=STREAM_BATCH,
+                      steps_per_epoch=timed_steps, seed=SEED + 1,
+                      verbose=False)
+        train_ms = (time.perf_counter() - t0) * 1e3 / timed_steps
+        step_ms = []
+        for b in host[1:11]:
+            placed = trainer._put_batch(b)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            trainer.train_step(placed)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        median = sorted(step_ms)[len(step_ms) // 2]
+        device_ms, breakdown = device_breakdown(
+            torch, lambda: trainer.train_step(batch), calls=3, top=10,
+            forbid=SIMT_FP32_STEP if fp32 else LEGACY_BF16_LAYER,
+            groups={"K5": ("fwd_sweep_kernel", "loss_tiled_merge_kernel")})
+        idle = None if device_ms is None else 1 - device_ms / train_ms
         torch.cuda.synchronize()
-        step_ms.append((time.perf_counter() - t0) * 1e3)
-    median = sorted(step_ms)[len(step_ms) // 2]
-    device_ms, breakdown = device_breakdown(
-        torch, lambda: trainer.train_step(batch), calls=3, top=10,
-        forbid=SIMT_FP32_STEP if fp32 else LEGACY_BF16_LAYER,
-        groups={"K5": ("fwd_sweep_kernel", "loss_tiled_merge_kernel")})
-    idle = None if device_ms is None else 1 - device_ms / train_ms
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    trainer.train_step(batch)
-    torch.cuda.synchronize()
-    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
-    print(f"{label} train step B={STREAM_BATCH}: median {median:.3f} "
-          f"ms of 10 synchronised steps (min {min(step_ms):.3f}), "
-          f"{STREAM_BATCH / median * 1e3:.1f} examples/s; train() with "
-          f"prefetch {train_ms:.3f} ms per step over {timed_steps}, "
-          f"{STREAM_BATCH / train_ms * 1e3:.1f} examples/s; device idle "
-          f"share of train() "
-          + ("not measured" if idle is None else f"{idle:.3f}")
-          + f"; peak device memory of one step {peak_gib:.3f} GiB",
-          flush=True)
-    print(f"  one {label} train step: " + breakdown, flush=True)
+        torch.cuda.reset_peak_memory_stats()
+        trainer.train_step(batch)
+        torch.cuda.synchronize()
+        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+        print(f"{label} train step B={STREAM_BATCH}: median {median:.3f} "
+              f"ms of 10 synchronised steps (min {min(step_ms):.3f}), "
+              f"{STREAM_BATCH / median * 1e3:.1f} examples/s; train() with "
+              f"prefetch {train_ms:.3f} ms per step over {timed_steps}, "
+              f"{STREAM_BATCH / train_ms * 1e3:.1f} examples/s; device idle "
+              f"share of train() "
+              + ("not measured" if idle is None else f"{idle:.3f}")
+              + f"; peak device memory of one step {peak_gib:.3f} GiB",
+              flush=True)
+        print(f"  one {label} train step: " + breakdown, flush=True)
 
     # the eval loss of a repeated batch falls at a raised learning rate
     start = new_trainer(torch, device, params=init, config_name=config_name,
@@ -2172,9 +1573,7 @@ def check_ml20m_training(torch, device, loader, splits, config_name,
     if not after < 0.99 * before:
         raise AssertionError(f"loss did not fall on a repeated batch: "
                              f"{before} -> {after}")
-    return dict(counts=counts, kernel=kernel, step_ms=median,
-                train_ms=train_ms, device_ms=device_ms, idle=idle,
-                peak_gib=peak_gib, trainer=trainer, host=host)
+    return dict(counts=counts, kernel=kernel, trainer=trainer, host=host)
 
 
 # --------------------------------------------------------------------------- #
@@ -2334,9 +1733,8 @@ FLASH_SHAPES = ((32, 12, 512, 64), (3, 4, 130, 64), (3, 2, 1100, 64))
 FLASH_RATE = 0.2          # bert_base_512's attention dropout (bench.py:75)
 # K8's forward, max abs against the plain version. Attention context is a
 # weighted mean of values: over a full row of unit-variance scores its
-# entries are ~0.07, and rms(o) of these batches is 0.2-0.7 (printed beside
-# each reading), not of order 1 as a layer's output, for which JAX's 8e-2
-# was set. The bf16 limit sits under a tenth of rms(o).
+# entries are ~0.07, not of order 1 as a layer's output, for which JAX's
+# 8e-2 was set. The bf16 limit sits under a tenth of rms(o).
 FLASH_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 
 
@@ -2360,39 +1758,20 @@ def flash_inputs(torch, rng, device, dims, dtype):
     return q, k, v, torch.from_numpy(mask).to(device), do
 
 
-def flash_bound_ms(dims, dtype_name, backward, causal, peak=None):
-    """Least time for K8 (4 B N P D FLOP, P the (query, key) pairs: S^2,
-    or S(S+1)/2 causal; q, k, v, mask read once, o written once) or K9 (8 B
-    N P D FLOP; q, k, v, dO, mask read, dq, dk, dv written); the kernels'
-    recomputation of the scores is not counted. ``peak`` (FLOP/s) replaces
-    the dtype's: fp32 on 3xTF32 runs at most at TF32X3_FLOPS."""
-    b, n, s, d = dims
-    es = 4 if dtype_name == "float32" else 2
-    flops = (8 if backward else 4) * b * n * attention_pairs(s, causal) * d
-    nbytes = (7 if backward else 4) * b * n * s * d * es + b * s * 4
-    t_ops = flops / (peak or PEAK_FLOPS[dtype_name]) * 1e3
-    t_bytes = nbytes / HBM_BYTES_S * 1e3
-    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
-                                 else "bytes")
-
-
 def check_flash_kernels(torch, rng, device):
-    """K8 and K9 against their plain versions on strided views at
-    FLASH_SHAPES, fp32 and bf16, dropout 0 and FLASH_RATE, bidirectional
-    and causal; contiguous copies give the same bits, two K9 runs the same
-    bits, bf16 K8's keep bits the plain packing's; kernel times at both
-    rates and, at FLASH_RATE, plain and library (SDPA) times and the bound
-    (kernel and library times medians of 7 blocks of 10 calls)."""
+    """K8 and K9 on strided views at FLASH_SHAPES, fp32 (on the 3xTF32
+    route) and bf16, bidirectional and causal: kernel times at dropout 0
+    and, at FLASH_RATE, plain and library (SDPA) times and the bound; at
+    the main shape each launch's kernels by device time."""
     import torch.nn.functional as F
-    from bert4rec_tpu_torch.ops import dropout_bits
     fa = importlib.import_module("bert4rec_tpu_torch.ops.flash_attention")
     rows, rate0 = {}, {}
     for dims in FLASH_SHAPES:
+        b, n, s, d = dims
         for dtype in (torch.float32, torch.bfloat16):
             name = str(dtype).removeprefix("torch.")
             q, k, v, mask, do = flash_inputs(torch, rng, device, dims, dtype)
-            copies = [t.contiguous() for t in (q, k, v)]
-            route = fa.flash_route(dtype, dims[3])
+            route = fa.flash_route(dtype, d)
             if dtype == torch.float32 and route != "tf32":
                 raise AssertionError(f"fp32 flash attention at {dims} is "
                                      f"routed to {route}, not tf32")
@@ -2400,70 +1779,25 @@ def check_flash_kernels(torch, rng, device):
                                                   (0.0, FLASH_RATE)):
                 fwd = lambda: fa._launch_forward(  # noqa: E731
                     q, k, v, mask, 77, rate, causal, True)
-                o, saved = fwd()
+                saved = fwd()[1]
                 bwd = lambda: fa._launch_backward(  # noqa: E731
                     q, k, v, mask, do, saved, 77, rate, causal)
-                grads = bwd()
-                again = bwd()
-                o_c, saved_c = fa._launch_forward(*copies, mask, 77, rate,
-                                                  causal, True)
-                grads_c = fa._launch_backward(*copies, mask, do, saved_c, 77,
-                                              rate, causal)
-                torch.cuda.synchronize()
-                ref = fa.mha_reference(q, k, v, mask, rate, 77, causal)
-                ref_grads = fa.flash_attention_plain_backward(
-                    q, k, v, mask, do, dropout_rate=rate, seed=77,
-                    causal=causal)
-                fwd_err = float((o.float() - ref.float()).abs().max())
-                o_rms = float(ref.float().square().mean().sqrt())
-                bwd_err = max(rel_err(a, c) for a, c in zip(grads, ref_grads))
-                bwd_abs = max(float((a.float() - c.float()).abs().max())
-                              for a, c in zip(grads, ref_grads))
                 label = (f"flash attention {name} (B, N, S, D)={dims} "
                          f"dropout {rate} {'causal' if causal else 'bidir'}"
                          f" [{route}]")
-                if not (fwd_err <= FLASH_TOL[name]
-                        and bwd_err <= GRAD_TOL[name]
-                        and all(bool(torch.isfinite(g).all()) for g in grads)):
-                    raise AssertionError(
-                        f"{label}: forward err {fwd_err} (tol "
-                        f"{FLASH_TOL[name]}, rms(o) {o_rms:.3g}), backward "
-                        f"rel err {bwd_err} (tol {GRAD_TOL[name]})")
-                if not (torch.equal(o, o_c) and all(
-                        torch.equal(a, c) and torch.equal(a, e)
-                        for a, c, e in zip(grads, grads_c, again))):
-                    raise AssertionError(f"{label}: strided and contiguous "
-                                         f"operands, or two K9 runs, differ")
-                bits_note = ""
-                if dtype == torch.bfloat16 and rate > 0.0 and not causal:
-                    # a causal block leaves the tile pairs it skips unwritten
-                    want = dropout_bits.tile_keep_bits(77, *dims[:3], rate,
-                                                       device)
-                    if not torch.equal(saved[2], want):
-                        raise AssertionError(f"{label}: K8's keep bits are "
-                                             f"not the plain packing's")
-                    bits_note = ", keep bits = the plain packing's"
-                    del want
-                line = (f"{label} (all-pad row, length-1 row, strided views "
-                        f"= contiguous copies, K9 twice the same bits"
-                        f"{bits_note}): forward err {fwd_err:.3g} (tol "
-                        f"{FLASH_TOL[name]}; rms(o) {o_rms:.3g}), backward "
-                        f"rel err {bwd_err:.3g} (tol {GRAD_TOL[name]})")
-                del ref, ref_grads, grads_c, again, o_c, saved_c
-                kernel = {"fwd": time_ms_blocks(fwd),
-                          "bwd": time_ms_blocks(bwd)}
+                kernel = {"fwd": timed(fwd), "bwd": timed(bwd)}
                 if rate == 0.0:
                     rate0[(dims, name, causal)] = kernel
-                    print(line + "; " + "; ".join(
-                        f"{part}: kernel_ms={t[0]:.4f} ({t[1]:.4f}-"
-                        f"{t[2]:.4f})" for part, t in kernel.items()),
-                        flush=True)
+                    print(f"{label}: " + "; ".join(
+                        f"{part}: kernel_ms={t['ms']:.4f} ("
+                        f"{t['range'][0]:.4f}-{t['range'][1]:.4f})"
+                        for part, t in kernel.items()), flush=True)
                     continue
                 # yardstick: SDPA with the pad mask (and the triangle) as one
                 # additive mask, its own dropout, and its autograd
                 bias = torch.where(mask > 0, 0.0, -1e9)[:, None, None, :]
                 if causal:
-                    bias = bias + fa.causal_bias(dims[2], device)
+                    bias = bias + fa.causal_bias(s, device)
                 bias = bias.to(dtype)
                 ql, kl, vl = (t.detach().requires_grad_(True)
                               for t in (q, k, v))
@@ -2475,36 +1809,33 @@ def check_flash_kernels(torch, rng, device):
                 lib_out = lib_fwd()
                 lib_bwd = lambda: torch.autograd.grad(  # noqa: E731
                     lib_out, (ql, kl, vl), do, retain_graph=True)
-                lib = {"fwd": time_ms_blocks(lib_fwd),
-                       "bwd": time_ms_blocks(lib_bwd)}
+                lib = {"fwd": timed(lib_fwd, "library"),
+                       "bwd": timed(lib_bwd, "library")}
                 backend = sdpa_backend(torch, lib_bwd)
-                heavy = dict(iters=5, warmup=1)
                 plain = {"fwd": lambda: fa.mha_reference(
                              q, k, v, mask, rate, 77, causal),
                          "bwd": lambda: fa.flash_attention_plain_backward(
                              q, k, v, mask, do, dropout_rate=rate, seed=77,
                              causal=causal)}
+                errs = dict(
+                    fwd=held(label, [fwd()[0]], [plain["fwd"]()],
+                             FLASH_TOL[name], False),
+                    bwd=held(label, bwd(), plain["bwd"](), GRAD_TOL[name]))
                 row = {part: dict(
-                    max_abs_err=fwd_err if part == "fwd" else bwd_abs,
-                    ms=kernel[part][0], range=kernel[part][1:],
-                    rate0_ms=rate0[(dims, name, causal)][part][0],
-                    plain_ms=time_ms(plain[part], **heavy),
-                    library_ms=lib[part][0], library_range=lib[part][1:],
-                    **dict(zip(("bound_ms", "bound_by"), flash_bound_ms(
-                        dims, name, part == "bwd", causal,
-                        TF32X3_FLOPS if route == "tf32" else None))))
+                    max_abs_err=errs[part], **kernel[part], **lib[part],
+                    rate0_ms=rate0[(dims, name, causal)][part]["ms"],
+                    **timed(plain[part], "plain", **PLAIN),
+                    **bound(roofline.flash_s, b, n, s, d, part == "bwd",
+                            name, peak=roofline.TF32X3_FLOPS
+                            if route == "tf32" else None,
+                            extra_flops=-(8 if part == "bwd" else 4)
+                            * unpaired(b * n, s, d, causal)))
                     for part in ("fwd", "bwd")}
-                row["bwd"]["max_rel_err"] = bwd_err
                 rows[(dims, name, causal)] = row
-                print(line + "; " + "; ".join(
-                    f"{part}: kernel_ms={r['ms']:.4f} ({r['range'][0]:.4f}-"
-                    f"{r['range'][1]:.4f}; rate 0 {r['rate0_ms']:.4f}) "
-                    f"plain_ms={r['plain_ms']:.4f} library_ms="
-                    f"{r['library_ms']:.4f} ({r['library_range'][0]:.4f}-"
-                    f"{r['library_range'][1]:.4f}, SDPA backend {backend}) "
-                    f"bound_ms={r['bound_ms']:.5f} ({r['bound_by']})"
-                    for part, r in row.items()) + " (kernel and library: "
-                    "medians of 7 blocks of 10 calls)", flush=True)
+                print(f"{label}: " + "; ".join(
+                    f"{part}: {timing_text(r)}; rate 0 {r['rate0_ms']:.4f}"
+                    for part, r in row.items())
+                    + f" (SDPA backend {backend})", flush=True)
                 if dims == FLASH_SHAPES[0] and not causal:
                     forbid = SIMT_FP32_LAYER if route == "tf32" else None
                     print(f"  per {name} K8 launch: " + device_breakdown(
@@ -2512,7 +1843,7 @@ def check_flash_kernels(torch, rng, device):
                     print(f"  per {name} K9 launch: " + device_breakdown(
                         torch, bwd, forbid=forbid)[1], flush=True)
                 del lib_out, lib_bwd, ql, kl, vl, bias
-            del q, k, v, mask, do, copies
+            del q, k, v, mask, do
             torch.cuda.empty_cache()
     return rows
 
@@ -2559,40 +1890,28 @@ FLASH_COUNTERS = ("launches", "backward_launches", "causal_launches",
 
 
 def base_train_counts(torch, trainer, want, label) -> dict:
-    """The main path: every launch counter of the flash attention, layer,
-    loss, table-gradient and update kernels set to 0, ``train()`` for
-    BASE_STEPS steps, then the counts, held to ``want`` (0 for every counter
-    it does not name, but ``table.launches``: one a step, and
-    ``adamw.launches``: three a step)."""
+    """The main path: the flash attention kernels' launch counters and
+    ``train_counts``' set to 0, ``train()`` for BASE_STEPS steps, then the
+    counts, held to ``want`` (0 for every counter it does not name, but
+    K10: one a step, and K12: three a step)."""
     fa = importlib.import_module("bert4rec_tpu_torch.ops.flash_attention")
-    from bert4rec_tpu_torch.ops import adamw
-    from bert4rec_tpu_torch.ops import fused_encoder_layer as fel
-    from bert4rec_tpu_torch.ops import fused_mlm_loss as fml
-    from bert4rec_tpu_torch.ops import table_gradient as tg
-    counted = {"flash": fa.flash_attention, "layer": fel.fused_encoder_layer,
-               "loss": fml.fused_mlm_loss, "tiled": fml.fused_mlm_loss_tiled,
-               "table": tg.table_gradient, "adamw": adamw.adamw_update}
-    attrs = FLASH_COUNTERS + ("merged_launches", "two_sweep_launches")
-    for fn in counted.values():
-        for attr in attrs:
-            if hasattr(fn, attr):
-                setattr(fn, attr, 0)
+    for attr in FLASH_COUNTERS:
+        setattr(fa.flash_attention, attr, 0)
+    train_counts(reset=True)
     t0 = time.perf_counter()
     hist = trainer.train(SyntheticDataset(BASE_STEPS, seed=1,
                                           npred=BASE_PRED, seq=BASE_SEQ),
                          epochs=1, batch_size=BASE_BATCH, seed=SEED,
                          verbose=False)
     wall = time.perf_counter() - t0
-    counts = {f"{key}.{attr}": getattr(fn, attr)
-              for key, fn in counted.items() for attr in attrs
-              if hasattr(fn, attr)}
-    want = {k: want.get(k, 0) for k in counts}
-    want["table.launches"] = BASE_STEPS
-    want["adamw.launches"] = 3 * BASE_STEPS
+    counts = {**{f"flash.{a}": getattr(fa.flash_attention, a)
+                 for a in FLASH_COUNTERS}, **train_counts()}
+    want = {**dict.fromkeys(counts, 0), **want, "K10": BASE_STEPS,
+            "K12": 3 * BASE_STEPS}
     loss = hist.history["loss"][0]
     print(f"{label} train(): {BASE_STEPS} steps of B={BASE_BATCH} S="
           f"{BASE_SEQ} in {wall:.2f} s (first step included), epoch loss "
-          f"{loss:.4f}; launches {counts}", flush=True)
+          f"{loss:.4f}; launches {nonzero(counts)}", flush=True)
     if counts != want or not math.isfinite(loss):
         raise AssertionError(f"launches {counts}, expected {want}")
     return counts
@@ -2642,8 +1961,9 @@ def base_step_times(torch, trainer, batch, label, groups, forbid=None):
 
 def check_bert_base_training(torch, device):
     """``train()`` on bert_base_512: the kernel step against the plain
-    step, the launch counts of a BASE_STEPS-step run, the step times, the
-    device idle share and breakdown, a remat step, and the loss falling."""
+    step, the launch counts of a BASE_STEPS-step run, K12 on its trained
+    leaves, a remat step, and the loss falling (the benchmark times the
+    step)."""
     fa = importlib.import_module("bert4rec_tpu_torch.ops.flash_attention")
     from bert4rec_tpu_torch.utils.checkpoint import flatten
     trainer = bert_base_trainer(torch, device)
@@ -2664,12 +1984,6 @@ def check_bert_base_training(torch, device):
     want = {"flash.launches": cfg.num_layers * BASE_STEPS,
             "flash.backward_launches": cfg.num_layers * BASE_STEPS}
     counts = base_train_counts(torch, trainer, want, "bert_base_512")
-    timed = base_step_times(
-        torch, trainer, batch, "bert_base_512",
-        groups={"K8": ("flash_fwd_kernel", "attention_kernel"),
-                "K9": ("flash_bwd", "attn_bwd"),
-                "GEMMs": ("nvjet", "gemm", "cutlass", "sm90_xmma"),
-                "optimizer": ("multi_tensor", "foreach", "adamw")})
     # phase 28: K12 on the trained leaves (the last use of this trainer)
     update = check_adamw_leaves(torch, device, "bert_base_512", trainer)
     del trainer
@@ -2688,10 +2002,6 @@ def check_bert_base_training(torch, device):
         torch.cuda.synchronize()
         fwd_launches[remat] = fa.flash_attention.launches - before
         peaks[remat] = torch.cuda.max_memory_allocated() / 2 ** 30
-        if remat:
-            remat_ms = time_ms(lambda: t._grads(b, 99), iters=3, warmup=1)
-        else:
-            plain_ms = time_ms(lambda: t._grads(b, 99), iters=3, warmup=1)
         del t, b
         torch.cuda.empty_cache()
     diff = max(float((grads[True][k] - grads[False][k]).abs().max())
@@ -2699,8 +2009,7 @@ def check_bert_base_training(torch, device):
     print(f"bert_base_512 remat=True: gradients equal the remat=False "
           f"step's (max abs diff {diff:.3g}); K8 launches per step "
           f"{fwd_launches[True]} (remat=False {fwd_launches[False]}); peak "
-          f"device memory {peaks[True]:.2f} GiB against {peaks[False]:.2f}; "
-          f"forward+backward {remat_ms:.3f} ms against {plain_ms:.3f}",
+          f"device memory {peaks[True]:.2f} GiB against {peaks[False]:.2f}",
           flush=True)
     if not (diff == 0.0 and fwd_launches[True] == 2 * cfg.num_layers
             and fwd_launches[False] == cfg.num_layers
@@ -2724,7 +2033,7 @@ def check_bert_base_training(torch, device):
                              f"{before} -> {after}")
     del fast
     torch.cuda.empty_cache()
-    return dict(counts=counts, **timed, peaks=peaks, adamw=update)
+    return dict(counts=counts, peaks=peaks, adamw=update)
 
 
 def check_bert_base_fp32(torch, device):
@@ -2756,7 +2065,7 @@ def check_bert_base_fp32(torch, device):
         "launches", "backward_launches", "tf32_launches",
         "tf32_backward_launches")}
     counts = base_train_counts(torch, trainer, want, "fp32 bert_base_512")
-    timed = base_step_times(
+    step = base_step_times(
         torch, trainer, batch, "fp32 bert_base_512", forbid=SIMT_FP32_LAYER,
         groups={"K8": ("flash_fwd_tf32",),
                 "K9": ("flash_dq_tf32", "flash_dkv_tf32"),
@@ -2785,12 +2094,12 @@ def check_bert_base_fp32(torch, device):
                              f"{want_eval}), loss rel err {eval_err}")
     del trainer
     torch.cuda.empty_cache()
-    return dict(counts=counts, **timed)
+    return dict(counts=counts, **step)
 
 
 # --------------------------------------------------------------------------- #
-# phase 15: K1'' rel_bias / K2 dRel; phase 16: temporal training; phase 17:
-# the temporal learning gate
+# phase 15: K1'' rel_bias / K2 dRel (check_masked_layer); phase 16:
+# temporal training; phase 17: the temporal learning gate
 # --------------------------------------------------------------------------- #
 
 def sdpa_backend(torch, fn) -> str:
@@ -2822,142 +2131,6 @@ def sdpa_backend(torch, fn) -> str:
             if kernels else "not measured (no kernel in the trace)")
 
 
-def check_rel_layer(torch, rng, device):
-    """K1'' rel_bias and K2 dRel against their plain versions at the
-    temporal train shape (B=256, S=200, H=128, N=4, F=512): fp32 and bf16,
-    bidirectional and causal, dropout 0.1 / 0.1, a relative bias ~ N(0, 1),
-    an all-pad row and a row of length 1; dRel exactly 0 after the
-    diagonal when causal, two K2 runs with the same bits of dRel; kernel,
-    plain, library and bias-free kernel times, and the bound (the bias and
-    its gradient counted as bytes)."""
-    import numpy as np
-    from bert4rec_tpu_torch.ops import fused_encoder_layer as fel
-    from bert4rec_tpu_torch.utils.checkpoint import flatten, unflatten
-    params = random_layer(rng, device)
-    flat = fel.flat_weights(params)
-    b, seed, rates = STREAM_BATCH, 4243, CAUSAL_RATES
-    rel_bytes = 4 * b * HEADS * SEQ * SEQ
-    upper = torch.triu(torch.ones(SEQ, SEQ, dtype=torch.bool, device=device),
-                       1)
-    rows = {}
-    for dtype in (torch.float32, torch.bfloat16):
-        name = str(dtype).removeprefix("torch.")
-        for causal in (False, True):
-            x, mask, dy = causal_inputs(torch, rng, device, dtype, b)
-            rel = torch.from_numpy(rng.normal(size=(b, HEADS, SEQ, SEQ))
-                                   .astype(np.float32)).to(device)
-            kw = dict(num_heads=HEADS, attention_dropout=rates[0],
-                      output_dropout=rates[1], seed=seed, causal=causal)
-
-            def fwd(r=rel):
-                return fel._launch_forward(flat, x, mask, HEADS, seed,
-                                           *rates, True, causal=causal,
-                                           rel=r)
-
-            y, saved = fwd()
-            bare_saved = fwd(None)[1]
-
-            def bwd(r=rel):
-                return fel._launch_backward(
-                    flat, x, mask, dy, saved if r is not None else bare_saved,
-                    HEADS, seed, *rates, causal=causal, rel=r)
-
-            dx, grads = bwd()
-            torch.cuda.synchronize()
-            ref_y = fel.fused_encoder_layer_plain(params, x, mask,
-                                                  rel_bias=rel, **kw)
-            ref_dx, ref_g = fel.fused_encoder_layer_plain_backward(
-                flat, x, mask, dy, rel_bias=rel, **kw)
-            fwd_err = float((y.float() - ref_y.float()).abs().max())
-            errs = {"dx": rel_err(dx, ref_dx),
-                    **{k: rel_err(grads[k], ref_g[k]) for k in grads}}
-            bwd_err = max(errs.values())
-            above = int((grads["rel"][..., upper] != 0).sum()) if causal \
-                else 0
-            if not (fwd_err <= TOL[name] and bwd_err <= GRAD_TOL[name]
-                    and above == 0 and bool(torch.isfinite(y).all())
-                    and bool(torch.isfinite(grads["rel"]).all())):
-                raise AssertionError(
-                    f"rel layer kernels {name} causal={causal}: forward err "
-                    f"{fwd_err} (tol {TOL[name]}), backward rel err "
-                    f"{bwd_err} (tol {GRAD_TOL[name]}), {above} non-zero "
-                    f"dRel entries after the diagonal")
-            again = bwd()
-            if not (torch.equal(again[1]["rel"], grads["rel"])
-                    and torch.equal(again[0], dx)):
-                raise AssertionError("K2 dRel does not repeat its bits")
-            lflat = {k: v.detach().clone().requires_grad_(True)
-                     for k, v in flatten(params).items()}
-            xl = x.detach().requires_grad_(True)
-            rl = rel.detach().clone().requires_grad_(True)
-            y_lib = library_layer_train(unflatten(lflat), xl, mask, HEADS,
-                                        rates, causal=causal, rel=rl)
-            leaves = [xl, rl, *lflat.values()]
-            lib_bwd = lambda: torch.autograd.grad(  # noqa: E731
-                y_lib, leaves, dy, retain_graph=True)
-            # the yardsticks as a median of blocks, with the allocator's
-            # state beside them (single readings wandered 3x between runs)
-            retries = torch.cuda.memory_stats().get("num_alloc_retries", 0)
-            lib = {"fwd": time_ms_blocks(lambda: library_layer_train(
-                       params, x, mask, HEADS, rates, causal=causal,
-                       rel=rel)),
-                   "bwd": time_ms_blocks(lib_bwd)}
-            retries = torch.cuda.memory_stats().get(
-                "num_alloc_retries", 0) - retries
-            reserved = torch.cuda.memory_reserved() / 2 ** 30
-            row = dict(
-                fwd=dict(max_abs_err=fwd_err, ms=time_ms(fwd),
-                         plain_ms=time_ms(lambda: fel.fused_encoder_layer_plain(
-                             params, x, mask, rel_bias=rel, **kw)),
-                         library_ms=lib["fwd"][0],
-                         library_range=lib["fwd"][1:],
-                         bias_free_ms=time_ms(lambda: fwd(None)),
-                         **dict(zip(("bound_ms", "bound_by"), layer_bound_ms(
-                             b, name, causal=causal,
-                             extra_bytes=rel_bytes)))),
-                bwd=dict(max_abs_err=float((dx.float() - ref_dx.float())
-                                           .abs().max()),
-                         max_rel_err=bwd_err, drel_rel_err=errs["rel"],
-                         ms=time_ms(bwd),
-                         plain_ms=time_ms(
-                             lambda: fel.fused_encoder_layer_plain_backward(
-                                 flat, x, mask, dy, rel_bias=rel, **kw),
-                             iters=5),
-                         library_ms=lib["bwd"][0],
-                         library_range=lib["bwd"][1:],
-                         bias_free_ms=time_ms(lambda: bwd(None)),
-                         **dict(zip(("bound_ms", "bound_by"),
-                                    layer_bwd_bound_ms(
-                                        b, name, causal=causal,
-                                        extra_bytes=2 * rel_bytes)))))
-            backend = sdpa_backend(torch, lib_bwd)
-            rows[(name, causal)] = row
-            for part, r in row.items():
-                print(f"fused_encoder_layer rel_bias {part} causal={causal} "
-                      f"dropout {rates} {name} B={b} S={SEQ} H={HIDDEN} "
-                      f"(all-pad row, length-1 row): err "
-                      f"{r['max_abs_err']:.3g}"
-                      + (f" (rel {r['max_rel_err']:.3g}, dRel rel "
-                         f"{r['drel_rel_err']:.3g}, tol {GRAD_TOL[name]})"
-                         if part == "bwd" else f" (tol {TOL[name]})")
-                      + f" kernel_ms={r['ms']:.4f} bias_free_ms="
-                      f"{r['bias_free_ms']:.4f} plain_ms={r['plain_ms']:.4f}"
-                      f" library_ms={r['library_ms']:.4f} (median of 7 "
-                      f"blocks of 10, {r['library_range'][0]:.4f}-"
-                      f"{r['library_range'][1]:.4f}; SDPA backend {backend}; "
-                      f"{retries} allocator retries, {reserved:.2f} GiB "
-                      f"reserved) bound_ms={r['bound_ms']:.5f} "
-                      f"({r['bound_by']})", flush=True)
-            if name == "bfloat16" and not causal:
-                print("  per rel_bias forward launch: " + device_breakdown(
-                    torch, fwd, forbid=LEGACY_BF16_LAYER)[1], flush=True)
-                print("  per dRel backward launch: " + device_breakdown(
-                    torch, bwd, forbid=LEGACY_BF16_LAYER)[1], flush=True)
-            del y_lib, leaves, lflat, xl, rl, again, grads, ref_g, saved
-            torch.cuda.empty_cache()
-    return rows
-
-
 # phase 26: K10, the item table's gradient. (R, V, H, [PAD] ids, [MASK]
 # ids): ml-20m_128's batch (B=256, S=200) as PERF.md counts it, and
 # bert_base_512's (B=32, S=512, ML-1M users: ~73% padding, P=76)
@@ -2979,33 +2152,12 @@ def table_grad_ids(torch, rng, device, r, v, pad, mask):
     return torch.from_numpy(ids.astype(np.int32)).to(device)
 
 
-def time_device_ms(torch, fn, iters=10, blocks=7) -> float:
-    """Median device ms per call: each block of ``iters`` calls is queued
-    behind a sleeping kernel, so the events time the device, not the
-    host's launches."""
-    import statistics
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(blocks):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(100_000_000)
-        start.record()
-        for _ in range(iters):
-            fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / iters)
-    return statistics.median(times)
-
-
 def device_ops(torch, fn, need=()) -> dict:
     """The device operations (kernels, memsets, copies) of one call of
     ``fn`` by name, ``[count, device us]``, from torch.profiler, taken again
     if it dropped them: none, or (up to five traces, then the last is
-    returned as it is) one named by a part in ``need``."""
+    returned as it is, ``{}`` if none recorded any: not measured) one
+    named by a part in ``need``."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -3019,59 +2171,23 @@ def device_ops(torch, fn, need=()) -> dict:
                if getattr(e, "self_device_time_total", 0) > 0}
         if ops and all(any(k in name for name in ops) for k in need):
             return ops
-    if not ops:
-        raise AssertionError("the profiler recorded no device operation")
     return ops
 
 
-def check_table_grad_case(torch, rng, device, r, v, h, dtype, pad, mask):
-    """K10 at one shape against float64 sums: exact on integer-valued rows
-    (every sum is exact in fp32 there, so a dropped or doubled row shows),
-    within the kernel's chain-of-adds bound on random rows, the same bits
-    from two calls, one launch counted a call. Returns the largest error."""
-    from bert4rec_tpu_torch.ops import table_gradient as tg
-    ids = table_grad_ids(torch, rng, device, r, v, pad, mask)
-    label = f"K10 R={r} V={v} H={h} {str(dtype).removeprefix('torch.')}"
-
-    ints = torch.randint(-4, 5, (r, h), device=device).to(dtype)
-    got = tg.table_gradient(ints, ids, v)
-    want = tg.table_gradient_plain(ints.double(), ids, v)
-    if not torch.equal(got.double(), want):
-        raise AssertionError(f"{label}: integer rows not exact, max err "
-                             f"{float((got.double() - want).abs().max())}")
-    g = torch.randn((r, h), device=device).to(dtype)
-    before = tg.table_gradient.launches
-    got = tg.table_gradient(g, ids, v)
-    again = tg.table_gradient(g, ids, v)
-    if tg.table_gradient.launches - before != 2:
-        raise AssertionError(f"{label}: launches counted "
-                             f"{tg.table_gradient.launches - before} for 2")
-    if not torch.equal(got.view(torch.int32), again.view(torch.int32)):
-        raise AssertionError(f"{label}: two calls gave different bits")
-    want = tg.table_gradient_plain(g.double(), ids, v)
-    abs_sum = tg.table_gradient_plain(g.double().abs(), ids, v)
-    # the kernel's longest chain of fp32 adds: 32 in a piece, then a warp's
-    # 32 pieces, or a thread group's tiles of 32 positions (>= 8 groups)
-    # and the groups
-    tiles = -(-r // 32)
-    depth = 64 + max(32, -(-tiles // 8))
-    err = (got.double() - want).abs()
-    bound = depth * 2.0 ** -24 * abs_sum
-    if bool((err > bound).any()):
-        raise AssertionError(f"{label}: error {float(err.max()):.3g} past "
-                             f"the {depth}-add bound")
-    return float(err.max())
+def op_count(ops):
+    """The operations a ``device_ops`` trace counts; "not measured" where
+    the profiler recorded none."""
+    return sum(n for n, _ in ops.values()) if ops else "not measured"
 
 
 def check_table_gradient(torch, rng, device) -> dict:
-    """Phase 26: K10 at the two cells' shapes, with times and each
-    backward's device operations."""
+    """Phase 26: K10 at the two cells' shapes beside today's ``table[ids]``
+    backward (plain) and ``F.embedding``'s (library), and each backward's
+    device operations (ours ``b4r::table_grad``'s, no more than today's)."""
     import torch.nn.functional as F
     from bert4rec_tpu_torch.ops import table_gradient as tg
     rows = {}
     for name, (r, v, h, pad, mask) in TABLE_GRAD_SHAPES.items():
-        err = check_table_grad_case(torch, rng, device, r, v, h,
-                                    torch.bfloat16, pad, mask)
         ids = table_grad_ids(torch, rng, device, r, v, pad, mask)
         g = torch.randn((r, h), device=device).to(torch.bfloat16)
         table = torch.randn((v, h), device=device, requires_grad=True)
@@ -3082,28 +2198,26 @@ def check_table_gradient(torch, rng, device) -> dict:
         def backward(y):
             return lambda: torch.autograd.grad(y, table, g, retain_graph=True)
 
-        row = {"max_abs_err": err,
-               "ms": time_device_ms(torch, lambda: tg.table_gradient(
-                   g, ids, v)),
-               "plain_ms": time_device_ms(torch, backward(today), iters=3,
-                                          blocks=3),
-               "library_ms": time_device_ms(torch, backward(library)),
-               "bound_ms": (r * h * 2 + r * 4 + v * h * 4) / HBM_BYTES_S
-               * 1e3, "bound_by": "bytes",
-               "ops": device_ops(torch, backward(ours)),
-               "plain_ops": device_ops(torch, backward(today))}
-        n_ops = sum(n for n, _ in row["ops"].values())
-        n_plain = sum(n for n, _ in row["plain_ops"].values())
+        row = {"max_abs_err": held(
+                   f"K10 {name}", [tg.table_gradient(g, ids, v)],
+                   backward(today)(), GRAD_TOL["float32"]),
+               **timed(lambda: tg.table_gradient(g, ids, v)),
+               **timed(backward(today), "plain", **PLAIN),
+               **timed(backward(library), "library"),
+               "bound_ms": roofline._bound(0, r * h * 2 + r * 4 + v * h * 4,
+                                           1.0) * 1e3, "bound_by": "bytes",
+               "ops": device_ops(torch, backward(ours),
+                                 need=("b4r::table_grad",)),
+               "plain_ops": device_ops(torch, backward(today),
+                                       need=("indexing_backward",))}
+        n_ops, n_plain = op_count(row["ops"]), op_count(row["plain_ops"])
         if any("indexing_backward" in k for k in row["ops"]) or not any(
                 "b4r::table_grad" in k for k in row["ops"]):
             raise AssertionError(f"K10 {name}: backward ops {row['ops']}")
-        print(f"K10 {name} (R={r}, V={v}, H={h}, bf16): {row['ms']:.4f} ms "
-              f"(bound {row['bound_ms']:.4f}, bytes), plain (today's "
-              f"index backward) {row['plain_ms']:.4f} ms, library "
-              f"(F.embedding backward) {row['library_ms']:.4f} ms, max err "
-              f"{err:.3g}; backward ops {n_ops} {row['ops']} vs plain "
+        print(f"K10 {name} (R={r}, V={v}, H={h}, bf16): {timing_text(row)};"
+              f" backward ops {n_ops} {row['ops']} vs plain "
               f"{n_plain} {row['plain_ops']}", flush=True)
-        if n_ops > n_plain:
+        if row["plain_ops"] and n_ops > n_plain:
             raise AssertionError(f"K10 {name}: {n_ops} device operations "
                                  f"a backward, today's {n_plain}")
         rows[name] = row
@@ -3212,9 +2326,8 @@ def check_temporal_extras(torch, device, trainer, host_batch):
                                          cfg.temporal_attention_buckets)):
             raise AssertionError(f"table gradient {name} does not repeat "
                                  f"its bits")
-        ms[name] = time_ms(lambda: fn(bucket, g,
-                                      cfg.temporal_attention_buckets),
-                           iters=10)
+        ms[name] = time_device_ms(lambda: fn(
+            bucket, g, cfg.temporal_attention_buckets))[0]
     agree = rel_err(out["sorted"], out["onehot"])
     print(f"table gradient A/B (B={STREAM_BATCH}, N={cfg.num_attention_heads}"
           f", S={SEQ}, {cfg.temporal_attention_buckets} buckets, bits "
@@ -3293,32 +2406,18 @@ def check_oracle_gate(torch, device):
     ``train()`` call is timed; one step of the last trained model is
     traced for its device time."""
     from bert4rec_tpu_torch.evaluation import quality_harness
-    from bert4rec_tpu_torch.ops import fused_encoder_layer as fel
-    from bert4rec_tpu_torch.ops import fused_mlm_loss as fml
 
-    layer_counters = ("launches", "backward_launches", "mma_sync_launches",
-                      "mma_sync_backward_launches", "tf32_launches",
-                      "tf32_backward_launches")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_oracle_") as tmp:
         args = quality_harness.build_argparser().parse_args(
             ["--oracle", "--oracle-scale", ORACLE_SCALE, "--int8", "--out",
              tmp])
-        for attr in layer_counters:
-            setattr(fel.fused_encoder_layer, attr, 0)
-        fml.fused_mlm_loss.launches = fml.fused_mlm_loss.backward_launches = 0
+        train_counts(reset=True)
         t0 = time.perf_counter()
         with TrainCalls(torch) as recorded:
             rc = quality_harness.run_oracle(args, device=device)
         wall = time.perf_counter() - t0
         trains = [(t, w, n) for t, _, w, n in recorded.calls]
-        counts = dict(layer_fwd=fel.fused_encoder_layer.launches,
-                      layer_bwd=fel.fused_encoder_layer.backward_launches,
-                      loss_fwd=fml.fused_mlm_loss.launches,
-                      loss_bwd=fml.fused_mlm_loss.backward_launches,
-                      mma_sync=fel.fused_encoder_layer.mma_sync_launches
-                      + fel.fused_encoder_layer.mma_sync_backward_launches,
-                      tf32_fwd=fel.fused_encoder_layer.tf32_launches,
-                      tf32_bwd=fel.fused_encoder_layer.tf32_backward_launches)
+        counts = train_counts()
         with open(f"{tmp}/eval_results.json") as f:
             payload = json.load(f)
     steps = sum(n for _, _, n in trains)
@@ -3342,7 +2441,7 @@ def check_oracle_gate(torch, device):
           f"{payload['results_bayes_oracle']}; floor "
           f"{payload['results_popularity_floor']}; broken masking rate "
           f"{payload['results_broken_masking_rate']}", flush=True)
-    print(f"oracle gate launches {counts} (layers x steps = "
+    print(f"oracle gate launches {nonzero(counts)} (layers x steps = "
           f"{layers * steps}, steps {steps}); one step: device "
           + ("not measured" if idle is None else
              f"{device_ms:.3f} ms, idle share of train() {idle:.3f}")
@@ -3363,7 +2462,8 @@ def check_oracle_gate(torch, device):
         raise AssertionError(f"the int8 check failed: {int8}")
     if not (counts["tf32_fwd"] == counts["layer_fwd"] > 0
             and counts["tf32_bwd"] == counts["layer_bwd"] > 0
-            and counts["mma_sync"] == 0 and counts["loss_bwd"] > 0):
+            and counts["mma_sync_fwd"] == counts["mma_sync_bwd"] == 0
+            and counts["K4"] > 0):
         raise AssertionError(f"the oracle run's layer launches are not all "
                              f"on the 3xTF32 route: {counts}")
     if rc != 0 or not all(payload["checks"].values()):
@@ -3380,23 +2480,6 @@ def check_oracle_gate(torch, device):
 DEPLOY_BATCHES = (1, 32, 256)
 DEPLOY_EXCLUDE = 256          # the exported exclusion width
 DEPLOY_CANDIDATES = 101       # the sampled protocol's 1 + 100 negatives
-
-
-def trace_kernels(torch, fn, need, tries=3) -> list:
-    """The CUDA kernels' names in a torch.profiler trace of ``fn``, taken
-    again (the profiler can drop records) until one holds ``need``."""
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    for _ in range(tries):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        names = [_kernel_name(e.key) for e in prof.key_averages()
-                 if getattr(e, "self_device_time_total", 0) > 0]
-        if any(need in n for n in names):
-            return names
-    raise AssertionError(f"no {need} kernel in {tries} traces: {names}")
 
 
 def layer_kernels_of(names) -> list:
@@ -3586,8 +2669,8 @@ def check_deployment(torch, device):
         # the kernels one artifact call runs, and its host and device time
         # at B=32 beside the eager path's
         hist = [history() for _ in range(32)]
-        tf32 = layer_kernels_of(trace_kernels(
-            torch, lambda: rec.recommend_batch(hist), TF32_LAYER[1]))
+        tf32 = layer_kernels_of(device_ops(
+            torch, lambda: rec.recommend_batch(hist), need=TF32_LAYER[1:]))
         timing = {}
         for label, fn in (("artifact", lambda: rec.recommend_batch(hist)),
                           ("eager", lambda: eager.recommend_batch(
@@ -3938,12 +3021,11 @@ def one_at_a_time(mesh, fn):
 
 def mesh_rank(mesh, out):
     """One rank of phase 23 (run by ``tools/mesh_run.py``): the sharded loss
-    against the one-process loss and its kernels against their plain
-    versions at the shard's shape; ``train()``; top-k, the evaluations and
-    a checkpoint on the mesh. Returns what the main process compares."""
+    against the one-process loss, its kernels timed at the shard's shape;
+    ``train()``; top-k, the evaluations and a checkpoint on the mesh.
+    Returns what the main process compares."""
     import numpy as np
     import torch
-    import torch.nn.functional as F
     from bert4rec_tpu_torch.core import mesh as mesh_lib
     from bert4rec_tpu_torch.core import partitioning
     from bert4rec_tpu_torch.ops import fused_mlm_loss as fml
@@ -4003,56 +3085,39 @@ def mesh_rank(mesh, out):
     del hw, tw, bw, want, dh_want
     torch.cuda.empty_cache()
 
-    # (2) this shard's K5 stats and K6 (valid_ge_zero) launches against
-    # their plain versions on the recorded operands, each rank in turn
+    # (2) this shard's K5 stats and K6 (valid_ge_zero) launches on the
+    # recorded operands timed, each rank in turn
     def kernel_rows():
         (k5_args, _), (k6_args, k6_kw) = calls["K5"], calls["K6"]
         th, tt, tb, tlab = k5_args
-        plain_fwd, plain_stats, _ = plain_tiled(torch, fml, th, tt, tb, tlab)
+        _, plain_stats, _ = plain_tiled(torch, fml, th, tt, tb, tlab)
         _, _, plain_bwd = plain_tiled(torch, fml, *k6_args[:4])
-        stats_fn = lambda: launch["K5"](*k5_args)  # noqa: E731
-        bwd_fn = lambda: launch["K6"](*k6_args, **k6_kw)  # noqa: E731
-        got, ref = stats_fn(), plain_stats()
-        err5 = max(rel_err(a, c) for a, c in zip(got, ref))
         lse, g, nvalid = k6_args[4:7]
-        got6 = bwd_fn()
-        ref6 = plain_bwd(lse, g, nvalid[0], valid_ge_zero=True)
-        err6 = max(rel_err(a, c) for a, c in zip(got6, ref6))
-        abs6 = max(float((a - c).abs().max()) for a, c in zip(got6, ref6))
-        if not (err5 <= LOSS_FWD_TOL and err6 <= LOSS_TOL["float32"]):
-            raise AssertionError(f"rank {mesh.rank}: shard kernels against "
-                                 f"plain: K5 stats {err5}, K6 {err6}")
-        del got6, ref6
         r_, v_, w_ = th.shape[0], tt.shape[0], tt.shape[1]
-        hl, tl, bl = (x.detach().clone().requires_grad_(True)
-                      for x in (th, tt, tb))
-        lib_lab = tlab.long().clamp(min=0)
-
-        def lib_fwd():
-            logits = torch.matmul(hl, tl.T) + bl
-            return F.cross_entropy(logits, lib_lab)
-
-        lib_loss = lib_fwd()
+        label = f"mesh shard loss R={r_} V={v_} W={w_}"
+        errs = {"K5": held(label, launch["K5"](*k5_args), plain_stats(),
+                           LOSS_FWD_TOL),
+                "K6": held(label, launch["K6"](*k6_args, **k6_kw), plain_bwd(
+                    lse, g, nvalid[0], valid_ge_zero=True),
+                    LOSS_TOL["float32"])}
+        lib_fwd, lib_bwd = library_loss(torch, th, tt, tb, tlab)
         it = dict(iters=3, warmup=1)
         out_rows = {
-            "K5": dict(max_abs_err=max(float((a - c).abs().max())
-                                       for a, c in zip(got, ref)),
-                       max_rel_err=err5, **blocks(stats_fn, **it),
-                       plain_ms=time_ms(plain_stats, iters=2, warmup=1),
-                       **blocks(lib_fwd, "library", **it),
-                       **dict(zip(("bound_ms", "bound_by"), loss_bound_ms(
-                           r_, v_, w_, "float32", False, TF32X3_FLOPS)))),
-            "K6": dict(max_abs_err=abs6, max_rel_err=err6,
-                       **blocks(bwd_fn, **it),
-                       plain_ms=time_ms(lambda: plain_bwd(
-                           lse, g, nvalid[0], valid_ge_zero=True),
-                           iters=2, warmup=1),
-                       **blocks(lambda: torch.autograd.grad(
-                           lib_loss, (hl, tl, bl), retain_graph=True),
-                           "library", **it),
-                       **dict(zip(("bound_ms", "bound_by"), loss_bound_ms(
-                           r_, v_, w_, "float32", True, TF32X3_FLOPS))))}
-        del lib_loss, hl, tl, bl
+            "K5": dict(max_abs_err=errs["K5"],
+                       **timed(lambda: launch["K5"](*k5_args), **it),
+                       **timed(plain_stats, "plain", **PLAIN),
+                       **timed(lib_fwd, "library", **it),
+                       **bound(roofline.loss_s, r_, v_, w_, False, "float32",
+                               peak=roofline.TF32X3_FLOPS)),
+            "K6": dict(max_abs_err=errs["K6"],
+                       **timed(lambda: launch["K6"](*k6_args, **k6_kw), **it),
+                       **timed(lambda: plain_bwd(
+                           lse, g, nvalid[0], valid_ge_zero=True), "plain",
+                           **PLAIN),
+                       **timed(lib_bwd, "library", **it),
+                       **bound(roofline.loss_s, r_, v_, w_, True, "float32",
+                               peak=roofline.TF32X3_FLOPS))}
+        del lib_fwd, lib_bwd
         torch.cuda.empty_cache()
         return out_rows
 
@@ -4141,6 +3206,13 @@ def check_mesh(torch, device):
     dp, mp = MESH_SHAPE
     world = dp * mp
     out = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_mesh_"))
+
+    def row(x, k):   # a rank's K5 or K6 row, from its arrays
+        return {key.split("/", 1)[1]: (str(v) if key.endswith("bound_by")
+                                       else float(v) if not v.ndim
+                                       else v.tolist())
+                for key, v in x.items() if key.startswith(k + "/")}
+
     try:
         records = mesh_run.launch(
             [f"{pathlib.Path(__file__).resolve()}:mesh_rank"], data=dp,
@@ -4163,14 +3235,10 @@ def check_mesh(torch, device):
                 raise AssertionError(f"mesh rank {r}: the sharded loss "
                                      f"against one process failed")
             for k in ("K5", "K6"):
-                row = {key.split("/", 1)[1]: (str(v) if key.endswith(
-                    "bound_by") else v.tolist() if v.ndim else float(v))
-                    for key, v in x.items() if key.startswith(k + "/")}
                 print(f"mesh rank {r} {k}"
                       f"{' stats' if k == 'K5' else ' valid_ge_zero'} at the "
-                      f"shard's shape {x['shard_shape'].tolist()}: rel err "
-                      f"{row['max_rel_err']:.3g} {timing_text(row)}",
-                      flush=True)
+                      f"shard's shape {x['shard_shape'].tolist()}: "
+                      f"{timing_text(row(x, k))}", flush=True)
             print(f"mesh rank {r} train() launches: "
                   + ", ".join(f"{k.split('/', 1)[1]} {int(v)}"
                               for k, v in x.items()
@@ -4287,18 +3355,10 @@ def check_mesh(torch, device):
         shutil.rmtree(out, ignore_errors=True)
     seconds = time.perf_counter() - t_phase
     print(f"mesh phase: {seconds:.1f} s", flush=True)
-
-    def row(k):
-        x = ranks[0]
-        return {key.split("/", 1)[1]: (str(v) if key.endswith("bound_by")
-                                       else float(v) if not v.ndim
-                                       else v.tolist())
-                for key, v in x.items() if key.startswith(k + "/")}
-
     total = {k: sum(int(x[f"counts/{k}"]) for x in ranks)
              for k in ("sharded.launches", "sharded.merged_launches")}
-    return {"K5": row("K5"), "K6": row("K6"), "launches": total,
-            "seconds": seconds}
+    return {"K5": row(ranks[0], "K5"), "K6": row(ranks[0], "K6"),
+            "launches": total, "seconds": seconds}
 
 
 # --------------------------------------------------------------------------- #
@@ -4370,8 +3430,8 @@ def run_perf_guard() -> tuple:
 
 def check_tools(torch, rng, device):
     """Phase 24: ``tools.bench``'s card run (its JSON line, ``vs_baseline``
-    > 1); the kernels at the shapes only the shipped configs reach against
-    their plain versions; ``tools.config_sweep`` over all 13 configs at
+    > 1); the kernels at the shapes only the shipped configs reach, timed;
+    ``tools.config_sweep`` over all 13 configs at
     full width and depth (the nine configs no earlier phase builds held to
     the plain step first; each row's routes and launches checked);
     ``tools.serving_bench`` (p50 / p99); ``tools.perf_guard``'s ten variants
@@ -4389,8 +3449,8 @@ def check_tools(torch, rng, device):
     out["bench"] = report
     torch.cuda.empty_cache()
 
-    # the kernels at the new shapes against their plain versions, bf16,
-    # B=256 (the sweep's batch); no profiler trace of their launches: at
+    # the kernels at the new shapes, bf16, B=256 (the sweep's batch),
+    # timed; no profiler trace of their launches: at
     # the end of a long process the profiler drops records (PERF.md §7),
     # and the launch counters of the sweep show the routes
     out["layer"] = {
@@ -4400,11 +3460,10 @@ def check_tools(torch, rng, device):
             trace=False)[("bfloat16", STREAM_BATCH)]
         for key, (h, n, f, s, rates) in NEW_LAYER_SHAPES.items()}
     out["whole_table"] = {
-        w: check_loss_kernels(torch, rng, device, w=w,
-                              dtypes=(torch.bfloat16,),
-                              trace=False)["bfloat16"]
+        w: check_loss_case(torch, rng, device, N_ROWS, VOCAB, w,
+                           torch.bfloat16, {"K4": None}, trace=False)
         for w in NEW_WHOLE_TABLE_WIDTHS}
-    out["tiled"] = {key: check_tiled_case(torch, rng, device, r, v, w,
+    out["tiled"] = {key: check_loss_case(torch, rng, device, r, v, w,
                                           torch.bfloat16, kernels,
                                           trace=False)
                     for key, (r, v, w, kernels) in NEW_TILED.items()}
@@ -4910,8 +3969,8 @@ def credit_examples(record, examples, entry) -> None:
 
 def check_examples(torch, rng, device, home) -> dict:
     """Phase 25: the corpora, the five training examples, the ML-1M chain,
-    the self-contained flows, SASRec's layer kernels at its shape against
-    their plain versions, and ``run_real`` at ML-1M; its seconds."""
+    the self-contained flows, SASRec's layer kernels timed at its shape,
+    and ``run_real`` at ML-1M; its seconds."""
     t_phase = time.perf_counter()
     names = example_datasets()
     out = {"corpora_s": make_example_corpora(home, names)}
@@ -4947,9 +4006,6 @@ MOON_EMPTY = (5, 40)                     # experts with no rows
 MOON_FLASH = (64, 16, 200, 192, 128)     # B, N, S, DK, DV (causal)
 MOON_STEPS = 150                         # the counted train()'s steps
 MOON_MARKS = (1, 25, 50, 100, 150)       # steps whose router load prints
-EXPERT_TOL = 1e-2   # K11 vs plain, relative to the output's norm: both sum
-                    # the same bf16 products in fp32 in another order, which
-                    # flips bf16 roundings of g, u, dg, du by one unit
 
 
 def expert_counts(np, rows, experts, seed=0):
@@ -4961,26 +4017,6 @@ def expert_counts(np, rows, experts, seed=0):
     counts = np.floor(share / share.sum() * rows).astype(np.int64)
     counts[np.argmax(counts)] += rows - counts.sum()
     return counts
-
-
-def expert_bound_ms(rows, h, i, e, backward):
-    """K11's least time: 6 R H I operations forward (gate, up, down), 12
-    backward (dA, dx's two, the three weight gradients); bytes: forward x,
-    the bf16 weights, g, u, act written and act read, y written; backward
-    dy, x, g, u, act and the weights read, dg and du written and read twice,
-    dx written, the fp32 weight gradients written."""
-    w = 3 * e * h * i * 2
-    if backward:
-        flops = 12 * rows * h * i
-        nbytes = 2 * rows * (2 * h + 3 * i) + w + 2 * rows * i * 2 * 3 \
-            + 2 * rows * h + 2 * w
-    else:
-        flops = 6 * rows * h * i
-        nbytes = 2 * rows * (2 * h + 4 * i) + w
-    t_ops = flops / PEAK_FLOPS["bfloat16"] * 1e3
-    t_bytes = nbytes / HBM_BYTES_S * 1e3
-    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
-                                 else "bytes")
 
 
 def grouped_mm_library(torch, x, counts, wg, wu, wd, dy):
@@ -5022,12 +4058,16 @@ def grouped_mm_library(torch, x, counts, wg, wu, wd, dy):
     return fwd, bwd
 
 
+def moon_model() -> dict:
+    """The moonlight-16b-a3b_5L configuration's model keys."""
+    return json.loads(MOON_CONFIG.read_text())["model"]
+
+
 def check_expert_gemm(torch, device) -> dict:
-    """K11 forward and backward against the plain version at
-    ``MOON_EXPERT`` (Moonlight's layer at the cell's batch, skewed rows,
-    two empty experts): every output within ``EXPERT_TOL`` of its scale,
-    the empty experts' gradients 0, two backward runs the same bits; kernel,
-    plain, ``_grouped_mm`` times and the bound."""
+    """K11 forward and backward at ``MOON_EXPERT`` (Moonlight's layer at
+    the cell's batch, skewed rows, two empty experts): kernel, plain and
+    ``_grouped_mm`` times and the bound; each launch's kernels by device
+    time."""
     import numpy as np
     from bert4rec_tpu_torch.ops import expert_gemm as eg
     rows, h, i, e = MOON_EXPERT
@@ -5042,61 +4082,32 @@ def check_expert_gemm(torch, device) -> dict:
         t(e, i, h, scale=0.02)
     c32 = counts.to(torch.int32)
     fwd = lambda: eg._launch_forward(x, c32, wg, wu, wd)  # noqa: E731
-    y, g, u, act, sched = fwd()
+    _, g, u, act, sched = fwd()
     bwd = lambda: eg._launch_backward(  # noqa: E731
         dy, x, c32, wg, wu, wd, g, u, act, sched)
-    grads, again = bwd(), bwd()
-    want = eg.expert_mlp_plain_forward(x, c32, wg, wu, wd)
-    ref = eg.expert_mlp_plain_backward(dy, x, c32, wg, wu, wd, *want[1:])
-    torch.cuda.synchronize()
-    errs = {}
-    for name, a, b in zip(("y", "g", "u", "act", "dx", "dwg", "dwu", "dwd"),
-                          (y, g, u, act, *grads), (*want, *ref)):
-        errs[name] = rel_err(a, b)
-        if not (errs[name] <= EXPERT_TOL and bool(torch.isfinite(a).all())):
-            raise AssertionError(f"K11 at {MOON_EXPERT}: {name} rel err "
-                                 f"{errs[name]} (tol {EXPERT_TOL})")
-    empty = list(MOON_EMPTY)
-    if not all(bool((w[empty] == 0).all()) for w in grads[1:]):
-        raise AssertionError("K11: an empty expert's gradient is not 0")
-    if not all(torch.equal(a, b) for a, b in zip(grads, again)):
-        raise AssertionError("K11: two backward runs differ")
-    fwd_abs = max(float((a.float() - b.float()).abs().max())
-                  for a, b in zip((y, g, u, act), want))
-    bwd_abs = max(float((a.float() - b.float()).abs().max())
-                  for a, b in zip(grads, ref))
-    del want, ref, again
-    kernel = {"fwd": time_ms_blocks(fwd), "bwd": time_ms_blocks(bwd)}
-    heavy = dict(iters=3, warmup=1)
-    plain = {"fwd": time_ms(lambda: eg.expert_mlp_plain_forward(
-                 x, c32, wg, wu, wd), **heavy),
-             "bwd": time_ms(lambda: eg.expert_mlp_plain_backward(
-                 dy, x, c32, wg, wu, wd, g, u, act), **heavy)}
+    plain = {"fwd": lambda: eg.expert_mlp_plain_forward(x, c32, wg, wu, wd),
+             "bwd": lambda: eg.expert_mlp_plain_backward(
+                 dy, x, c32, wg, wu, wd, g, u, act)}
+    label = f"K11 at {MOON_EXPERT}"
+    errs = dict(fwd=held(label, fwd()[:4], plain["fwd"](), EXPERT_TOL),
+                bwd=held(label, bwd(), plain["bwd"](), EXPERT_TOL))
     lib = grouped_mm_library(torch, x, counts, wg, wu, wd, dy)
-    lib_ms = ({part: time_ms_blocks(fn) for part, fn in
-               zip(("fwd", "bwd"), lib)} if lib else {})
     row = {part: dict(
-        max_abs_err=fwd_abs if part == "fwd" else bwd_abs,
-        ms=kernel[part][0], range=kernel[part][1:], plain_ms=plain[part],
-        library_ms=lib_ms[part][0] if lib_ms else None,
-        **dict(zip(("bound_ms", "bound_by"), expert_bound_ms(
-            rows, h, i, e, part == "bwd"))))
-        for part in ("fwd", "bwd")}
+        max_abs_err=errs[part],
+        **timed(fn), **timed(plain[part], "plain", **PLAIN),
+        **(timed(lib[k], "library") if lib else {"library_ms": None}),
+        **bound(roofline_mla_moe.expert_s, rows, moon_model(), k == 1))
+        for k, (part, fn) in enumerate((("fwd", fwd), ("bwd", bwd)))}
     print(f"K11 (R, H, I, E)={MOON_EXPERT}, rows per expert "
-          f"{int(counts.max())} most, experts {empty} empty (rel errs "
-          + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
-          + f"; tol {EXPERT_TOL}; two backward runs the same bits): "
-          + "; ".join(
-              f"{part}: kernel_ms={r['ms']:.4f} ({r['range'][0]:.4f}-"
-              f"{r['range'][1]:.4f}) plain_ms={r['plain_ms']:.4f} "
-              f"library_ms={r['library_ms'] if r['library_ms'] is None else round(r['library_ms'], 4)} "  # noqa: E501
-              f"(_grouped_mm) bound_ms={r['bound_ms']:.4f} ({r['bound_by']},"
-              f" {100 * r['bound_ms'] / r['ms']:.1f}% of it)"
-              for part, r in row.items()), flush=True)
+          f"{int(counts.max())} most, experts {list(MOON_EMPTY)} empty "
+          f"(tol {EXPERT_TOL} of the scale; library: _grouped_mm): "
+          + "; ".join(f"{part}: {timing_text(r)}, "
+                      f"{100 * r['bound_ms'] / r['ms']:.1f}% of the bound"
+                      for part, r in row.items()), flush=True)
     print("  per K11 forward: " + device_breakdown(torch, fwd)[1], flush=True)
     print("  per K11 backward: " + device_breakdown(torch, bwd)[1],
           flush=True)
-    del x, dy, wg, wu, wd, y, g, u, act, grads, lib
+    del x, dy, wg, wu, wd, g, u, act, lib
     torch.cuda.empty_cache()
     return row
 
@@ -5104,8 +4115,8 @@ def check_expert_gemm(torch, device) -> dict:
 def check_mla_flash(torch, rng, device) -> dict:
     """K8 / K9 at ``MOON_FLASH`` (latent attention's 192-wide queries and
     keys against 128-wide values), causal, dropout 0, on the block's
-    strided views, against the plain versions; kernel, plain and SDPA
-    times and the bound."""
+    strided views with front-padded rows: kernel, plain and SDPA times and
+    the bound."""
     import numpy as np
     import torch.nn.functional as F
     fa = importlib.import_module("bert4rec_tpu_torch.ops.flash_attention")
@@ -5123,31 +4134,11 @@ def check_mla_flash(torch, rng, device) -> dict:
     mask = torch.from_numpy((np.arange(s)[None, :] >= s - lengths[:, None])
                             .astype(np.int32)).to(device)
     fwd = lambda: fa._launch_forward(q, k, v, mask, 0, 0.0, True, True)  # noqa: E731,E501
-    o, saved = fwd()
+    saved = fwd()[1]
     bwd = lambda: fa._launch_backward(q, k, v, mask, do, saved, 0, 0.0, True)  # noqa: E731,E501
-    grads = bwd()
-    ref = fa.mha_reference(q, k, v, mask, 0.0, 0, True)
-    ref_grads = fa.flash_attention_plain_backward(
-        q, k, v, mask, do, dropout_rate=0.0, seed=0, causal=True)
-    torch.cuda.synchronize()
-    fwd_err = float((o.float() - ref.float()).abs().max())
-    bwd_err = max(rel_err(a, c) for a, c in zip(grads, ref_grads))
-    bwd_abs = max(float((a.float() - c.float()).abs().max())
-                  for a, c in zip(grads, ref_grads))
-    label = f"flash attention bfloat16 (B, N, S, DK, DV)={MOON_FLASH} causal"
-    if not (fwd_err <= FLASH_TOL["bfloat16"]
-            and bwd_err <= GRAD_TOL["bfloat16"]
-            and [tuple(g.shape[-1:]) for g in grads] == [(dk,), (dk,), (dv,)]):
-        raise AssertionError(f"{label}: forward err {fwd_err}, backward rel "
-                             f"err {bwd_err}")
-    del ref, ref_grads
-    kernel = {"fwd": time_ms_blocks(fwd), "bwd": time_ms_blocks(bwd)}
-    heavy = dict(iters=3, warmup=1)
-    plain = {"fwd": time_ms(lambda: fa.mha_reference(
-                 q, k, v, mask, 0.0, 0, True), **heavy),
-             "bwd": time_ms(lambda: fa.flash_attention_plain_backward(
-                 q, k, v, mask, do, dropout_rate=0.0, seed=0, causal=True),
-                 **heavy)}
+    plain = {"fwd": lambda: fa.mha_reference(q, k, v, mask, 0.0, 0, True),
+             "bwd": lambda: fa.flash_attention_plain_backward(
+                 q, k, v, mask, do, dropout_rate=0.0, seed=0, causal=True)}
     bias = (torch.where(mask > 0, 0.0, -1e9)[:, None, None, :]
             + fa.causal_bias(s, device)).to(torch.bfloat16)
     ql, kl, vl = (x.detach().requires_grad_(True) for x in (q, k, v))
@@ -5158,34 +4149,22 @@ def check_mla_flash(torch, rng, device) -> dict:
     lib_out = lib_fwd()
     lib_bwd = lambda: torch.autograd.grad(  # noqa: E731
         lib_out, (ql, kl, vl), do, retain_graph=True)
-    lib = {"fwd": time_ms_blocks(lib_fwd), "bwd": time_ms_blocks(lib_bwd)}
+    lib = {"fwd": lib_fwd, "bwd": lib_bwd}
     backend = sdpa_backend(torch, lib_bwd)
-    pairs = b * n * attention_pairs(s, True)
-    heads = b * n * s
-    bounds = {
-        "fwd": (2 * pairs * (dk + dv),
-                heads * 2 * (2 * dk + 2 * dv) + b * s * 4),
-        "bwd": (4 * pairs * (dk + dv),
-                heads * (2 * (4 * dk + 3 * dv) + 8) + b * s * 4)}
-    row = {}
-    for part, (flops, nbytes) in bounds.items():
-        t_ops = flops / PEAK_FLOPS["bfloat16"] * 1e3
-        t_bytes = nbytes / HBM_BYTES_S * 1e3
-        row[part] = dict(
-            max_abs_err=fwd_err if part == "fwd" else bwd_abs,
-            ms=kernel[part][0], range=kernel[part][1:],
-            plain_ms=plain[part], library_ms=lib[part][0],
-            bound_ms=max(t_ops, t_bytes),
-            bound_by="operations" if t_ops >= t_bytes else "bytes")
-    print(f"{label}: forward err {fwd_err:.3g} (tol {FLASH_TOL['bfloat16']}),"
-          f" backward rel err {bwd_err:.3g} (tol {GRAD_TOL['bfloat16']}); "
-          + "; ".join(
-              f"{part}: kernel_ms={r['ms']:.4f} ({r['range'][0]:.4f}-"
-              f"{r['range'][1]:.4f}) plain_ms={r['plain_ms']:.4f} "
-              f"library_ms={r['library_ms']:.4f} (SDPA backend {backend}) "
-              f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']})"
-              for part, r in row.items()), flush=True)
-    del q, k, v, do, o, saved, grads, lib_out, lib_bwd, ql, kl, vl, bias
+    label = f"flash attention at {MOON_FLASH}"
+    errs = dict(fwd=held(label, [fwd()[0]], [plain["fwd"]()],
+                         FLASH_TOL["bfloat16"], False),
+                bwd=held(label, bwd(), plain["bwd"](), GRAD_TOL["bfloat16"]))
+    row = {part: dict(max_abs_err=errs[part],
+                      **timed(fn), **timed(plain[part], "plain", **PLAIN),
+                      **timed(lib[part], "library"),
+                      **bound(roofline_mla_moe.flash_s, moon_model(), b,
+                              part == "bwd"))
+           for part, fn in (("fwd", fwd), ("bwd", bwd))}
+    print(f"flash attention bfloat16 (B, N, S, DK, DV)={MOON_FLASH} causal: "
+          + "; ".join(f"{part}: {timing_text(r)}" for part, r in row.items())
+          + f" (SDPA backend {backend})", flush=True)
+    del q, k, v, do, saved, lib_out, lib_bwd, ql, kl, vl, bias
     torch.cuda.empty_cache()
     return row
 
@@ -5269,7 +4248,6 @@ def check_moonlight_training(torch, device) -> dict:
     mla_moe.route, trainer.train_step = recorded_route, recorded_step
     mla_moe.routing_counts.reset()
     before = counters()
-    t0 = time.perf_counter()
     try:
         hist = trainer.train(ds, epochs=1, batch_size=batch,
                              steps_per_epoch=MOON_STEPS, seed=SEED,
@@ -5280,7 +4258,6 @@ def check_moonlight_training(torch, device) -> dict:
         # instance is a cycle that holds the trainer's 30 GB)
         mla_moe.route = route
         del trainer.train_step
-    wall = time.perf_counter() - t0
     got = dict(zip(("K11", "K11_backward", "flash", "flash_backward", "K10",
                     "K12"), (a - b for a, b in zip(counters(), before))))
     want = dict(K11=moe_layers * MOON_STEPS,
@@ -5302,8 +4279,8 @@ def check_moonlight_training(torch, device) -> dict:
     mean_share = torch.stack(means).view(len(MOON_MARKS), moe_layers).cpu()
     pad = float(torch.stack(pads).mean())
     print(f"moonlight train() (moonlight-16b-a3b_5L, B={batch}, the cell's "
-          f"AdamW, {MOON_STEPS} steps in {wall:.1f} s, peak {peak} B with "
-          f"{held} B held before): launches {got} (want {want}), routing "
+          f"AdamW, {MOON_STEPS} steps, peak {peak} B with {held} B held "
+          f"before): launches {got} (want {want}), routing "
           f"{routing}, epoch loss {losses}, [PAD] share {pad:.3f}",
           flush=True)
     for layer in range(moe_layers):
@@ -5332,8 +4309,6 @@ def check_moonlight_training(torch, device) -> dict:
 ADAMW_COUNT = 150         # the optimizer count of the timed updates
 ADAMW_KERNELS = ("adamw_sumsq_kernel", "adamw_leaf_sums_kernel",
                  "adamw_update_kernel")
-ADAMW_HELD = 1 << 28      # past these elements only some leaves are held
-                          # against the plain chain (its copies take room)
 
 
 def host_ms(torch, fn, calls=10) -> float:
@@ -5352,11 +4327,8 @@ def host_ms(torch, fn, calls=10) -> float:
 
 def check_adamw_leaves(torch, device, name, trainer) -> dict:
     """K12 on a trained cell's own params and moments with random fp32
-    gradients (as the trainer hands them) at ``ADAMW_COUNT``: each leaf's
-    sum of squares against float64, the update of the leaves held (all of
-    them up to ``ADAMW_HELD`` elements, else the largest and the eight
-    smallest) against the plain chain under the kernels' norm, two calls'
-    bits; then device ms of K12, the plain chain and
+    gradients (as the trainer hands them) at ``ADAMW_COUNT``: device ms of
+    K12, the plain chain and
     ``torch._fused_adamw_`` (library: AdamW without the clip, timed only)
     against the 32-byte bound, each call's host ms, and the device
     operations of a call."""
@@ -5374,60 +4346,30 @@ def check_adamw_leaves(torch, device, name, trainer) -> dict:
     decay = [bool(opt.decay_mask(k)) for k in paths]
     hyper = opt.hyper(ADAMW_COUNT)
     elements = sum(t.numel() for t in p)
+    # one update against the plain chain on the eight smallest leaves and
+    # the largest (copies of all would not fit beside moonlight_5L's),
+    # the chain clipping by K12's norm; the card tests' limits: params
+    # within 1e-7 + lr 1e-5, the 1e-7 one unit in the last place past 1,
+    # moments within 1e-6 of their leaf's largest
     order = sorted(range(len(p)), key=lambda i: p[i].numel())
-    held = (order if elements <= ADAMW_HELD
-            else sorted(set(order[:8] + order[-1:])))
-    copies = [[x[i].clone() for i in held] for x in (p, m, v)]
-    seen = []
-
-    def hook(sums):
-        seen.append(torch.stack(sums))
-        return seen[-1].sum()
-
-    before = adamw.adamw_update.launches
-    adamw.adamw_update(p, g, m, v, decay, hyper, sq_norm=hook)
-    torch.cuda.synchronize()
-    if adamw.adamw_update.launches - before != 3:
-        raise AssertionError(f"K12 {name}: "
-                             f"{adamw.adamw_update.launches - before} "
-                             f"launches for one update")
-    sums = seen[0].double()
-    want = torch.stack([t.double().square().sum() for t in g])
-    sum_err = float(((sums - want).abs() / want).max())
-    sq = float(seen[0].sum())
-    adamw.adamw_update_plain(
-        copies[0], [g[i] for i in held], copies[1], copies[2],
-        [decay[i] for i in held], hyper,
-        sq_norm=lambda s: torch.tensor(sq, device=device))
-    # params: the optax test's 1e-7 + lr 1e-5, its 1e-7 one unit in the
-    # last place past 1; moments: against their leaf's largest
-    p_err, p_ok = 0.0, True
-    for i, c in zip(held, copies[0]):
-        err = (p[i] - c).abs()
+    some = order[:8] + order[-1:]
+    want = [[x[i].clone() for i in some] for x in (p, m, v)]
+    norm = []
+    adamw.adamw_update(p, g, m, v, decay, hyper, sq_norm=lambda sums: (
+        norm.append(torch.stack(sums).sum()) or norm[0]))
+    adamw.adamw_update_plain(want[0], [g[i] for i in some], *want[1:],
+                             [decay[i] for i in some], hyper,
+                             sq_norm=lambda _: norm[0])
+    for i, c in zip(some, want[0]):
         ulp = torch.nextafter(c.abs(), torch.full_like(c, math.inf)) - c.abs()
-        p_ok &= bool((err <= ulp.clamp_min(1e-7) + hyper.lr * 1e-5).all())
-        p_err = max(p_err, float(err.max()))
-    mv_err = max(float((x[i] - c).abs().max() / c.abs().max())
-                 for x, cs in ((m, copies[1]), (v, copies[2]))
-                 for i, c in zip(held, cs))
-    del copies
-    if not (sum_err <= 1e-5 and p_ok and mv_err <= 1e-6):
-        raise AssertionError(f"K12 {name}: leaf sums rel err {sum_err:.3g},"
-                             f" params {p_err:.3g}, moments {mv_err:.3g}")
-    start = [[t.clone() for t in x] for x in (p, m, v)] \
-        if elements <= ADAMW_HELD else None
-    if start is not None:
-        runs = []
-        for _ in range(2):
-            for x, s0 in zip((p, m, v), start):
-                for t, s in zip(x, s0):
-                    t.copy_(s)
-            adamw.adamw_update(p, g, m, v, decay, hyper)
-            runs.append([t.clone() for x in (p, m, v) for t in x])
-        torch.cuda.synchronize()
-        if not all(torch.equal(a, b) for a, b in zip(*runs)):
-            raise AssertionError(f"K12 {name}: two calls gave other bits")
-        del runs, start
+        if not bool(((p[i] - c).abs() <= ulp.clamp_min(1e-7)
+                     + hyper.lr * 1e-5).all()):
+            raise AssertionError(f"K12 {name}: leaf {paths[i]} off the "
+                                 f"plain chain's params")
+    held(f"K12 {name} moments", [x[i] for x in (m, v) for i in some],
+         want[1] + want[2], 1e-6)
+    p_err = max(float((p[i] - c).abs().max()) for i, c in zip(some, want[0]))
+    del want
 
     def kernel():
         adamw.adamw_update(p, g, m, v, decay, hyper)
@@ -5443,31 +4385,23 @@ def check_adamw_leaves(torch, device, name, trainer) -> dict:
                             weight_decay=opt.weight_decay, eps=opt.eps,
                             amsgrad=False, maximize=False)
 
-    row = {"leaves": len(p), "elements": elements,
-           "max_abs_err": p_err, "sum_rel_err": sum_err,
-           "moment_rel_err": mv_err,
-           "ms": time_device_ms(torch, kernel),
-           "plain_ms": time_device_ms(torch, plain, iters=3, blocks=3),
-           "library_ms": time_device_ms(torch, library),
-           "bound_ms": 32 * elements / HBM_BYTES_S * 1e3, "bound_by": "bytes",
+    row = {"leaves": len(p), "elements": elements, "max_abs_err": p_err,
+           **timed(kernel), **timed(plain, "plain", **PLAIN),
+           **timed(library, "library"), "bound_by": "bytes",
+           "bound_ms": roofline._bound(0, 32 * elements, 1.0) * 1e3,
            "host_ms": host_ms(torch, kernel),
            "plain_host_ms": host_ms(torch, plain, calls=5),
            "ops": device_ops(torch, kernel, need=ADAMW_KERNELS),
-           "plain_ops": sum(n for n, _ in device_ops(torch, plain).values())}
-    n_ops = sum(n for n, _ in row["ops"].values())
+           "plain_ops": device_ops(torch, plain)}
     dropped = [k for k in ADAMW_KERNELS
                if not any(k in op for op in row["ops"])]
     print(f"K12 {name} ({len(p)} leaves, {elements} elements, fp32 g): "
-          f"{row['ms']:.4f} ms (bound {row['bound_ms']:.4f}, bytes: "
-          f"{100 * row['bound_ms'] / row['ms']:.1f}%), plain chain "
-          f"{row['plain_ms']:.4f} ms, library (torch._fused_adamw_, no "
-          f"clip) {row['library_ms']:.4f} ms; host ms a call {row['host_ms']:.3f}"
-          f" (plain {row['plain_host_ms']:.3f}); {n_ops} device operations "
-          f"a call {row['ops']} (plain: {row['plain_ops']}; not in the "
-          f"profiler's trace: {dropped or 'none'}); leaf "
-          f"sums rel err {sum_err:.3g}, params max err {p_err:.3g} over "
-          f"{len(held)} leaves held, moments {mv_err:.3g} of their leaf's "
-          f"largest", flush=True)
+          f"{timing_text(row)}, {100 * row['bound_ms'] / row['ms']:.1f}% of "
+          f"the bound (library: torch._fused_adamw_, no clip); host ms a "
+          f"call {row['host_ms']:.3f} (plain {row['plain_host_ms']:.3f}); "
+          f"device operations a call {op_count(row['ops'])} {row['ops']} "
+          f"(plain: {op_count(row['plain_ops'])}; not in the profiler's "
+          f"trace: {dropped or 'none'})", flush=True)
     del g, steps
     return row
 
@@ -5547,10 +4481,12 @@ def run(torch, home) -> int:
     rng = np.random.default_rng(SEED)
     layer_rows = check_fused_layer(torch, rng, device)
     launches, stream_launches = check_serving(torch, rng, device)
-    check_dropout_masks(torch, device)
     table_rows = check_table_gradient(torch, rng, device)
     train_rows = check_layer_training(torch, rng, device)
-    loss_rows = check_loss_kernels(torch, rng, device)
+    # phase 5's K3 / K4 at one train batch's rows, ml-1m_128's table
+    loss_rows = {str(dt).removeprefix("torch."): check_loss_case(
+        torch, rng, device, N_ROWS, VOCAB, HIDDEN, dt, {"K4": None})
+        for dt in (torch.float32, torch.bfloat16)}
     counts = check_training(torch, device)["counts"]
     # ml-20m_256's layer width: H=256, 8 heads, F=1024, dropout 0.1
     wide_rows = check_layer_training(
@@ -5558,9 +4494,12 @@ def run(torch, home) -> int:
         cases=[(torch.bfloat16, STREAM_BATCH)])
     loader, splits, _ = check_pipeline(home)
     tiled_rows = check_tiled_loss_kernels(torch, rng, device)
-    ml20m = {name: check_ml20m_training(torch, device, loader, splits, name)
-             for name in ("ml-20m_128", "ml-20m_256")}
-    causal_rows = check_causal_layer(torch, rng, device)
+    # bf16 ml-20m_128 untimed: benchmark/ times the ml20m_128.train cell
+    ml20m = {name: check_ml20m_training(
+        torch, device, loader, splits, name,
+        timed_steps=ML20M_TIMED_STEPS if name == "ml-20m_256" else 0)
+        for name in ("ml-20m_128", "ml-20m_256")}
+    causal_rows = check_masked_layer(torch, rng, device)
     sasrec_loader, sasrec_splits = check_sasrec_pipeline()
     sasrec = check_ml20m_training(torch, device, sasrec_loader,
                                   sasrec_splits, "ml-20m_128",
@@ -5572,7 +4511,7 @@ def run(torch, home) -> int:
     torch.cuda.empty_cache()
     flash_rows = check_flash_kernels(torch, rng, device)
     base = check_bert_base_training(torch, device)
-    rel_rows = check_rel_layer(torch, rng, device)
+    rel_rows = check_masked_layer(torch, rng, device, rel=True)
     t_loader, t_splits = check_temporal_pipeline()
     temporal = check_ml20m_training(torch, device, t_loader, t_splits,
                                     "ml-20m_128", family="temporal",
@@ -5650,59 +4589,53 @@ def run(torch, home) -> int:
     rel_row = rel_rows[("bfloat16", False)]   # the temporal path's variant
     c_temp = temporal["counts"]
     loss_py = "bert4rec_tpu/ops/fused_mlm_loss.py"
+    k1, k2 = (f"bert4rec_tpu/ops/fused_encoder_layer.py:{n}"
+              for n in (241, 265))
+    k8, k9 = (f"bert4rec_tpu/ops/flash_attention.py:{n}" for n in (126, 141))
     record = {"kernels": [
         # what the server runs: fp32, B=32 (the HTTP burst's batches, with
         # the deployment phase's artifact call at B=32) and B=256
         # (recommend_stream's, with its artifact call at B=256)
-        entry("fused_encoder_layer", tf32_src,
-              "bert4rec_tpu/ops/fused_encoder_layer.py:241",
+        entry("fused_encoder_layer", tf32_src, k1,
               launches + deployed["launches"][32],
               layer_rows[("float32", 32)]),
-        entry("fused_encoder_layer_b256", tf32_src,
-              "bert4rec_tpu/ops/fused_encoder_layer.py:241",
+        entry("fused_encoder_layer_b256", tf32_src, k1,
               stream_launches + deployed["launches"][STREAM_BATCH],
               layer_rows[("float32", STREAM_BATCH)]),
         # with the sweep's ml-1m_128, ml-20m_128 and reddit_128 (phase 24)
-        entry("fused_encoder_layer_dropout", wgmma_src,
-              "bert4rec_tpu/ops/fused_encoder_layer.py:241",
-              counts["layer_fwd"]
+        entry("fused_encoder_layer_dropout", wgmma_src, k1, counts["layer_fwd"]
               + swept(sweep, "layer_fwd", h=128, f=512, s=SEQ),
               train_row["fwd"]),
-        entry("fused_encoder_layer_backward", wgmma_src,
-              "bert4rec_tpu/ops/fused_encoder_layer.py:265",
+        entry("fused_encoder_layer_backward", wgmma_src, k2,
               counts["layer_bwd"]
               + swept(sweep, "layer_bwd", h=128, f=512, s=SEQ),
               train_row["bwd"]),
         # fp32 K1' / K2 (3xTF32): launches from the fp32 ml-20m_128 and
         # ml-1m_128 train() runs (the harness's ml20m and ml1m presets) and
         # the ml1m oracle gate (its forwards with the evaluations' K1)
-        entry("fused_encoder_layer_dropout_fp32", tf32_src,
-              "bert4rec_tpu/ops/fused_encoder_layer.py:241",
+        entry("fused_encoder_layer_dropout_fp32", tf32_src, k1,
               fp32_ml20m["counts"]["layer_fwd"]
               + fp32_ml1m["counts"]["layer_fwd"] + oracle["layer_fwd"],
               fp32_row["fwd"]),
-        entry("fused_encoder_layer_backward_fp32", tf32_src,
-              "bert4rec_tpu/ops/fused_encoder_layer.py:265",
+        entry("fused_encoder_layer_backward_fp32", tf32_src, k2,
               fp32_ml20m["counts"]["layer_bwd"]
               + fp32_ml1m["counts"]["layer_bwd"] + oracle["layer_bwd"],
               fp32_row["bwd"]),
         # ml-20m_256's width; launches from its train() run and the sweep's
-        entry("fused_encoder_layer_dropout_h256", wgmma_src,
-              "bert4rec_tpu/ops/fused_encoder_layer.py:241",
+        entry("fused_encoder_layer_dropout_h256", wgmma_src, k1,
               c256["layer_fwd"]
               + swept(sweep, "layer_fwd", h=256, f=1024, s=SEQ),
               wide_row["fwd"]),
-        entry("fused_encoder_layer_backward_h256", wgmma_src,
-              "bert4rec_tpu/ops/fused_encoder_layer.py:265",
+        entry("fused_encoder_layer_backward_h256", wgmma_src, k2,
               c256["layer_bwd"]
               + swept(sweep, "layer_bwd", h=256, f=1024, s=SEQ),
               wide_row["bwd"]),
         entry("fused_mlm_loss", loss_wgmma, f"{loss_py}:111",
-              counts["loss_fwd"] + swept(sweep, "K3", w=128),
-              loss_rows["bfloat16"]["fwd"]),
+              counts["K3"] + swept(sweep, "K3", w=128),
+              loss_rows["bfloat16"]["K3"]),
         entry("fused_mlm_loss_backward", loss_wgmma, f"{loss_py}:148",
-              counts["loss_bwd"] + swept(sweep, "K4", w=128),
-              loss_rows["bfloat16"]["bwd"]),
+              counts["K4"] + swept(sweep, "K4", w=128),
+              loss_rows["bfloat16"]["K4"]),
         # the vocab-tiled family; launches from the four ML-20M train()
         # runs (BERT4Rec ml-20m_128 and ml-20m_256, SASRec ml-20m_128,
         # temporal ml-20m_128) and the sweep's configs, K5 at each width
@@ -5729,38 +4662,30 @@ def run(torch, home) -> int:
         # fp32 K3 / K4 (3xTF32): launches from the fp32 ml-1m_128 train()
         # run (the harness's ml1m preset) and the ml1m oracle gate
         entry("fused_mlm_loss_fp32", "loss_tf32.cuh", f"{loss_py}:111",
-              fp32_ml1m["counts"]["loss_fwd"] + oracle["loss_fwd"],
-              loss_rows["float32"]["fwd"]),
+              fp32_ml1m["counts"]["K3"] + oracle["K3"],
+              loss_rows["float32"]["K3"]),
         entry("fused_mlm_loss_backward_fp32", "loss_tf32.cuh",
-              f"{loss_py}:148",
-              fp32_ml1m["counts"]["loss_bwd"] + oracle["loss_bwd"],
-              loss_rows["float32"]["bwd"]),
+              f"{loss_py}:148", fp32_ml1m["counts"]["K4"] + oracle["K4"],
+              loss_rows["float32"]["K4"]),
         # K1'' causal (SASRec): launches from its train() run
-        entry("fused_encoder_layer_causal", wgmma_src,
-              "bert4rec_tpu/ops/fused_encoder_layer.py:241",
+        entry("fused_encoder_layer_causal", wgmma_src, k1,
               csas["causal_fwd"], causal_row["fwd"]),
-        entry("fused_encoder_layer_causal_backward", wgmma_src,
-              "bert4rec_tpu/ops/fused_encoder_layer.py:265",
+        entry("fused_encoder_layer_causal_backward", wgmma_src, k2,
               csas["causal_bwd"], causal_row["bwd"]),
         # K8 / K9 (bert_base_512): launches from its train() run
-        entry("flash_attention", "flash_attention.cu",
-              "bert4rec_tpu/ops/flash_attention.py:126",
+        entry("flash_attention", "flash_attention.cu", k8,
               c_base["flash.launches"], flash_row["fwd"]),
-        entry("flash_attention_backward", "flash_attention.cu",
-              "bert4rec_tpu/ops/flash_attention.py:141",
+        entry("flash_attention_backward", "flash_attention.cu", k9,
               c_base["flash.backward_launches"], flash_row["bwd"]),
         # fp32 K8 / K9 (3xTF32): launches on the tf32 route from the fp32
         # bert_base_512 train() run
-        entry("flash_attention_fp32", "flash_tf32.cuh",
-              "bert4rec_tpu/ops/flash_attention.py:126",
+        entry("flash_attention_fp32", "flash_tf32.cuh", k8,
               c_base32["flash.tf32_launches"], flash_fp32["fwd"]),
-        entry("flash_attention_backward_fp32", "flash_tf32.cuh",
-              "bert4rec_tpu/ops/flash_attention.py:141",
+        entry("flash_attention_backward_fp32", "flash_tf32.cuh", k9,
               c_base32["flash.tf32_backward_launches"], flash_fp32["bwd"]),
         # K1'' rel_bias / K2 dRel (temporal ml-20m_128): launches from its
         # train() run
-        entry("fused_encoder_layer_rel", wgmma_src,
-              "bert4rec_tpu/ops/fused_encoder_layer.py:241",
+        entry("fused_encoder_layer_rel", wgmma_src, k1,
               c_temp["rel_fwd"], rel_row["fwd"]),
         entry("fused_encoder_layer_rel_backward", wgmma_src,
               "bert4rec_tpu/ops/fused_encoder_layer.py:315",
@@ -5775,25 +4700,22 @@ def run(torch, home) -> int:
               "loss_tf32.cuh", f"{loss_py}:502",
               meshed["launches"]["sharded.merged_launches"], meshed["K6"]),
     ]}
-    # phase 24: the shapes only the shipped configs reach, each held
-    # against its plain version there; launches from the sweep's configs
-    # of that shape, bf16 K1 from serving_bench
+    # phase 24: the shapes only the shipped configs reach; launches from
+    # the sweep's configs of that shape, bf16 K1 from serving_bench
     for key, (h, _, f, s, _) in NEW_LAYER_SHAPES.items():
         row = tools["layer"][key]
         record["kernels"] += [
-            entry(f"fused_encoder_layer_dropout_{key}", wgmma_src,
-                  "bert4rec_tpu/ops/fused_encoder_layer.py:241",
+            entry(f"fused_encoder_layer_dropout_{key}", wgmma_src, k1,
                   swept(sweep, "layer_fwd", h=h, f=f, s=s), row["fwd"]),
-            entry(f"fused_encoder_layer_backward_{key}", wgmma_src,
-                  "bert4rec_tpu/ops/fused_encoder_layer.py:265",
+            entry(f"fused_encoder_layer_backward_{key}", wgmma_src, k2,
                   swept(sweep, "layer_bwd", h=h, f=f, s=s), row["bwd"])]
     for w in NEW_WHOLE_TABLE_WIDTHS:
         row = tools["whole_table"][w]
         record["kernels"] += [
             entry(f"fused_mlm_loss_w{w}", loss_wgmma, f"{loss_py}:111",
-                  swept(sweep, "K3", w=w), row["fwd"]),
+                  swept(sweep, "K3", w=w), row["K3"]),
             entry(f"fused_mlm_loss_backward_w{w}", loss_wgmma,
-                  f"{loss_py}:148", swept(sweep, "K4", w=w), row["bwd"])]
+                  f"{loss_py}:148", swept(sweep, "K4", w=w), row["K4"])]
     record["kernels"] += [
         entry("fused_mlm_loss_tiled_w64", loss_wgmma, f"{loss_py}:375",
               swept(sweep, "K5", w=64), tools["tiled"]["w64"]["K5"]),
@@ -5803,8 +4725,7 @@ def run(torch, home) -> int:
         entry("fused_mlm_loss_tiled_backward_merged_w256", loss_wgmma,
               f"{loss_py}:502", swept(sweep, "K6", w=256),
               tools["tiled"]["w256"]["K6"]),
-        entry("fused_encoder_layer_bf16", wgmma_src,
-              "bert4rec_tpu/ops/fused_encoder_layer.py:241",
+        entry("fused_encoder_layer_bf16", wgmma_src, k1,
               tools["serving_launches"], layer_rows[("bfloat16", 32)])]
     # K10 at ml-20m_128's batch; launches from its counted train()
     record["kernels"].append(entry(
@@ -5823,11 +4744,9 @@ def run(torch, home) -> int:
               "no TPU kernel (the JAX package has no experts): the mla_moe "
               "block's routed SwiGLU experts",
               moon["counts"]["K11_backward"], expert_row["bwd"]),
-        entry("flash_attention_dk192_dv128", "flash_attention.cu",
-              "bert4rec_tpu/ops/flash_attention.py:126",
+        entry("flash_attention_dk192_dv128", "flash_attention.cu", k8,
               moon["counts"]["flash"], mla_row["fwd"]),
-        entry("flash_attention_dk192_dv128_backward", "flash_attention.cu",
-              "bert4rec_tpu/ops/flash_attention.py:141",
+        entry("flash_attention_dk192_dv128_backward", "flash_attention.cu", k9,
               moon["counts"]["flash_backward"], mla_row["bwd"])]
     # K12 at the leaves of phases 27 and 14; launches from their counted
     # train()
@@ -5837,8 +4756,7 @@ def run(torch, home) -> int:
               "left to XLA", n, row)
         for name, n, row in (
             ("moonlight_5L", moon["counts"]["K12"], moon["adamw"]),
-            ("bert_base_512", base["counts"]["adamw.launches"],
-             base["adamw"]))]
+            ("bert_base_512", base["counts"]["K12"], base["adamw"]))]
     credit_examples(record, examples, entry)
     idle = [k["name"] for k in record["kernels"] if not k["launches"]]
     if idle:

@@ -63,7 +63,7 @@ def cuda_device():
 @pytest.mark.cuda
 @pytest.mark.parametrize("dims", [
     (4, 24, 32, 4, 64), (3, 200, 128, 4, 512), (2, 37, 96, 4, 200),
-    (2, 130, 256, 2, 64), (1, 5, 512, 4, 96),
+    (2, 130, 256, 2, 64), (1, 5, 512, 4, 96), (256, 200, 128, 4, 512),
 ], ids=lambda d: "B{}_S{}_H{}_N{}_F{}".format(*d))
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["fp32", "bf16"])
@@ -259,14 +259,34 @@ def _rel_err(a, b):
 # difference can flip the bf16 rounding of an intermediate (ds, dhpre,
 # dattn), which moves a gradient by up to a few bf16 ulps of its scale
 GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+# the layer's weights in the JAX layout, in ``fel._W_ORDER``'s order
+_NAMES = ("attention/qkv/kernel", "attention/qkv/bias",
+          "attention/output/kernel", "attention/output/bias",
+          "attention_norm/scale", "attention_norm/bias",
+          "intermediate/kernel", "intermediate/bias", "output/kernel",
+          "output/bias", "output_norm/scale", "output_norm/bias")
+
+
+def _backward_twice(flat, xt, mt, dy, n, seed, rates, **launch):
+    """One forward launch saving for its backward, then two backward
+    launches from its saves, which must give the same bits (dx and every
+    gradient). Returns ``(y, (dx, grads))``."""
+    y, saved = fel._launch_forward(flat, xt.detach(), mt, n, seed, *rates,
+                                   True, **launch)
+    runs = [fel._launch_backward(flat, xt.detach(), mt, dy, saved, n, seed,
+                                 *rates, **launch) for _ in range(2)]
+    assert torch.equal(runs[0][0], runs[1][0])
+    assert all(torch.equal(runs[0][1][k], runs[1][1][k]) for k in runs[0][1])
+    return y, runs[0]
 
 
 # the 3xTF32 training route's shapes besides ml-1m's: the temporal gate's
-# layer (H=64, 4 heads, F=128) and ml-20m_256's width (H=256, 8 heads)
+# layer (H=64, 4 heads, F=128) and ml-20m_256's width (H=256, 8 heads); the
+# train batch (B=256) at ml-1m_128's width
 @pytest.mark.cuda
 @pytest.mark.parametrize("dims", [
     (4, 24, 32, 4, 64), (3, 200, 128, 4, 512), (2, 37, 96, 4, 200),
-    (16, 50, 64, 4, 128), (3, 200, 256, 8, 1024),
+    (16, 50, 64, 4, 128), (3, 200, 256, 8, 1024), (256, 200, 128, 4, 512),
 ], ids=lambda d: "B{}_S{}_H{}_N{}_F{}".format(*d))
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["fp32", "bf16"])
@@ -304,15 +324,10 @@ def test_fused_layer_train_kernels_match_plain(cuda_device, dims, dtype,
                                ref_y.float().cpu().numpy(), rtol=0, atol=tol)
     assert _rel_err(xt.grad, ref_dx) <= GRAD_TOL[dtype]
     got = {k: v.grad for k, v in flatten(p).items()}
-    names = dict(zip(fel._W_ORDER, [
-        "attention/qkv/kernel", "attention/qkv/bias",
-        "attention/output/kernel", "attention/output/bias",
-        "attention_norm/scale", "attention_norm/bias",
-        "intermediate/kernel", "intermediate/bias", "output/kernel",
-        "output/bias", "output_norm/scale", "output_norm/bias"]))
-    for k, path in names.items():
+    for k, path in zip(fel._W_ORDER, _NAMES):
         g = got[path].reshape(ref_g[k].shape)
         assert _rel_err(g, ref_g[k]) <= GRAD_TOL[dtype], path
+    _backward_twice(flat, xt, mt, dy, n, 12345, rates)
 
 
 @pytest.mark.cuda
@@ -471,9 +486,11 @@ def causal_mask_np(rng, b, s):
 
 
 # S = 200 (the main path: 4 key tiles, the last ragged), 130 and 65 (one
-# and two keys past a tile boundary), 64 (exactly one tile)
+# and two keys past a tile boundary), 64 (exactly one tile); the SASRec
+# train batch (B=256); sasrec_example's layer (head dim 12: fp32 on SIMT)
 CAUSAL_DIMS = [(5, 200, 128, 4, 512), (4, 130, 32, 4, 64),
-               (4, 65, 96, 4, 200), (4, 64, 64, 2, 128)]
+               (4, 65, 96, 4, 200), (4, 64, 64, 2, 128),
+               (256, 200, 128, 4, 512), (64, 16, 48, 4, 96)]
 
 
 @pytest.mark.cuda
@@ -520,25 +537,17 @@ def test_causal_layer_kernels_match_plain(cuda_device, dims, dtype, rates):
                                ref_y.float().cpu().numpy(), rtol=0, atol=tol)
     assert _rel_err(xt.grad, ref_dx) <= GRAD_TOL[dtype]
     got = {k: v.grad for k, v in flatten(p).items()}
-    for k, path in zip(fel._W_ORDER, [
-            "attention/qkv/kernel", "attention/qkv/bias",
-            "attention/output/kernel", "attention/output/bias",
-            "attention_norm/scale", "attention_norm/bias",
-            "intermediate/kernel", "intermediate/bias", "output/kernel",
-            "output/bias", "output_norm/scale", "output_norm/bias"]):
+    for k, path in zip(fel._W_ORDER, _NAMES):
         g = got[path].reshape(ref_g[k].shape)
         assert _rel_err(g, ref_g[k]) <= GRAD_TOL[dtype], path
-    y2, saved = fel._launch_forward(flat, xt.detach(), mt, n, 777, *rates,
-                                    True, causal=True)
-    runs = [fel._launch_backward(flat, xt.detach(), mt, dy, saved, n, 777,
-                                 *rates, causal=True) for _ in range(2)]
-    assert torch.equal(y2, y.detach()) and torch.equal(runs[0][0],
-                                                       runs[1][0])
+    y2, _ = _backward_twice(flat, xt, mt, dy, n, 777, rates, causal=True)
+    assert torch.equal(y2, y.detach())
 
 
 # S = 200 (the temporal path's: a partial last tile) and 130 (two keys past
-# a tile boundary), with a head dim of 32 and 8
-REL_DIMS = [(5, 200, 128, 4, 512), (4, 130, 32, 4, 64)]
+# a tile boundary), with a head dim of 32 and 8; the temporal train batch
+REL_DIMS = [(5, 200, 128, 4, 512), (4, 130, 32, 4, 64),
+            (256, 200, 128, 4, 512)]
 
 
 @pytest.mark.cuda
@@ -592,12 +601,7 @@ def test_rel_layer_kernels_match_plain(cuda_device, dims, dtype, causal):
     assert _rel_err(xt.grad, ref_dx) <= GRAD_TOL[dtype]
     assert _rel_err(rel.grad, ref_g["rel"]) <= GRAD_TOL[dtype]
     got = {k: v.grad for k, v in flatten(p).items()}
-    for k, path in zip(fel._W_ORDER, [
-            "attention/qkv/kernel", "attention/qkv/bias",
-            "attention/output/kernel", "attention/output/bias",
-            "attention_norm/scale", "attention_norm/bias",
-            "intermediate/kernel", "intermediate/bias", "output/kernel",
-            "output/bias", "output_norm/scale", "output_norm/bias"]):
+    for k, path in zip(fel._W_ORDER, _NAMES):
         g = got[path].reshape(ref_g[k].shape)
         assert _rel_err(g, ref_g[k]) <= GRAD_TOL[dtype], path
     if causal:
@@ -614,6 +618,7 @@ def test_rel_layer_kernels_match_plain(cuda_device, dims, dtype, causal):
                                  *rates, causal=causal, rel=rel.detach())
             for _ in range(2)]
     assert torch.equal(y2, y.detach())
+    assert torch.equal(runs[0][0], runs[1][0])
     assert torch.equal(runs[0][1]["rel"], runs[1][1]["rel"])
     assert torch.equal(runs[0][1]["rel"], rel.grad)
 
@@ -624,19 +629,20 @@ def test_rel_layer_kernels_match_plain(cuda_device, dims, dtype, causal):
 # against the 64-row tiles, every variant
 # --------------------------------------------------------------------------- #
 
-_NAMES = ("attention/qkv/kernel", "attention/qkv/bias",
-          "attention/output/kernel", "attention/output/bias",
-          "attention_norm/scale", "attention_norm/bias",
-          "intermediate/kernel", "intermediate/bias", "output/kernel",
-          "output/bias", "output_norm/scale", "output_norm/bias")
-
 # (B, S, H, N, F): ml-20m_256's width (head dim 32) at S = 200; head dims
 # 16, 32 (S = 1), 64 and 128 at S ragged against 64; hidden sizes short of
 # the padded 256 and 512 (head dims 48 and 96, the columns split over two
-# warpgroups at 384)
+# warpgroups at 384); the train batch (B=256) at ml-20m_256's width and at
+# the shapes only the shipped configs reach: beauty_64, ml-1m_64 /
+# ml-20m_64, steam_64, beauty_128 / steam_128, beauty_256 / steam_256 and
+# ml-1m_256
 WGMMA_DIMS = [(2, 200, 256, 8, 1024), (3, 65, 64, 4, 128), (3, 1, 128, 4, 512),
               (3, 130, 128, 2, 256), (2, 63, 256, 2, 512),
-              (3, 50, 192, 4, 200), (2, 70, 384, 4, 256)]
+              (3, 50, 192, 4, 200), (2, 70, 384, 4, 256),
+              (256, 200, 256, 8, 1024), (256, 50, 64, 2, 64),
+              (256, 200, 64, 2, 256), (256, 50, 64, 2, 256),
+              (256, 50, 128, 4, 512), (256, 50, 256, 8, 1024),
+              (256, 200, 256, 8, 512)]
 # (attention, output) dropout, causal, relative bias
 WGMMA_VARIANTS = {"rate0": ((0.0, 0.0), False, False),
                   "dropout": ((0.2, 0.5), False, False),
@@ -654,7 +660,7 @@ def test_wgmma_layer_kernels_match_plain(cuda_device, dims, variant):
     versions (forward 8e-2 absolute, backward 3e-2 of each gradient's
     scale, dRel too), with an all-pad row, a row of length 1 and a
     front-padded row; counted in their variant's counters and never in
-    the mma.sync ones."""
+    the mma.sync ones; two backward launches give the same bits."""
     b, s, h, n, f = dims
     rates, causal, has_rel = WGMMA_VARIANTS[variant]
     assert fel.kernel_route(torch.bfloat16, b, h, n, f) == "wgmma"
@@ -701,6 +707,8 @@ def test_wgmma_layer_kernels_match_plain(cuda_device, dims, variant):
         assert _rel_err(g, ref_g[k]) <= GRAD_TOL[torch.bfloat16], path
     if has_rel:
         assert _rel_err(rel.grad, ref_g["rel"]) <= GRAD_TOL[torch.bfloat16]
+    _backward_twice(flat, xt, mt, dy, n, 99, rates, causal=causal,
+                    rel=None if rel is None else rel.detach())
 
 
 @pytest.mark.cuda
@@ -775,20 +783,27 @@ def test_shape_law_routes_to_the_mma_sync_kernels(cuda_device, dims):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("rate", [0.2, 0.5])
-def test_kernel_dropout_masks_equal_plain_masks(cuda_device, rate):
+@pytest.mark.parametrize("seed,b,site0,n_sites,rows,cols", [
+    (777, 8, 0, 6, 200, 200), (2024, 32, 0, 4, 200, 200),
+    (2024, 32, 4, 2, 200, 128)], ids=["sites0-5", "attention", "outputs"])
+def test_kernel_dropout_masks_equal_plain_masks(cuda_device, rate, seed, b,
+                                                site0, n_sites, rows, cols):
+    """The CUDA hash's keep masks equal the plain version's, attention's
+    sites (S x S) and the outputs' (S x H, from site N), at the keep
+    rate."""
     from bert4rec_tpu_torch.ops import dropout_bits
-    b, n_sites, rows, cols = 8, 6, 200, 200
-    got = fel.kernel_keep_scale(777, b, 0, n_sites, rows, cols, rate,
+    got = fel.kernel_keep_scale(seed, b, site0, n_sites, rows, cols, rate,
                                 cuda_device)
-    ref = dropout_bits.keep_scale(777, b, range(n_sites), rows, cols, rate,
-                                  cuda_device)
+    ref = dropout_bits.keep_scale(seed, b, range(site0, site0 + n_sites),
+                                  rows, cols, rate, cuda_device)
     assert torch.equal(got, ref)
     assert abs(float((got > 0).float().mean()) - (1 - rate)) < 3e-3
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(10240, 3709, 128), (300, 104, 32),
-                                   (77, 61, 256)],
+                                   (77, 61, 256), (10240, 3709, 64),
+                                   (10240, 3709, 256)],
                          ids=lambda d: "R{}_V{}_W{}".format(*d))
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["fp32", "bf16"])
@@ -827,6 +842,10 @@ def test_fused_loss_kernels_match_plain(cuda_device, shape, dtype):
     for got, ref in ((hidden.grad, dh), (table.grad, dt), (bias.grad, db)):
         assert _rel_err(got, ref) <= (1e-4 if dtype == torch.float32
                                       else 2e-2)
+    g = torch.ones((), device=cuda_device)
+    runs = [fml._launch_backward(hidden.detach(), t_s, b_m, labels, lse, g,
+                                 sums[3:4]) for _ in range(2)]
+    assert all(torch.equal(a, c) for a, c in zip(*runs))
 
 
 # --------------------------------------------------------------------------- #
@@ -860,15 +879,18 @@ def _tiled_inputs(device, dtype, r, vp, w, labels="mixed"):
 # the ml-20m train shapes with ordinary labels; every label encoding at
 # the small shapes (V off every tile, W below and at the kernels' limit);
 # then each width the bf16 K6/K7 pad to (64, 128, 256) with R and V on,
-# below and past one 64-row tile; K6 at Reddit's vocabulary (R cut to
-# 2,048 so the plain logits fit), where each cluster takes many groups of
-# vocabulary tiles
+# below and past one 64-row tile; K6 at Reddit's vocabulary (R = 2,048
+# and 10,240), where each cluster takes many groups of vocabulary tiles;
+# the sharded labels at a (1, 2) mesh rank's block of Reddit's table;
+# ml-20m_64's width and steam_256's batch
 TILED_CASES = [((10240, 26732, w), "mixed") for w in (128, 256)] + [
     (shape, labels) for shape in ((300, 104, 32), (77, 61, 256), (130, 200, 40))
     for labels in ("mixed", "padding", "sharded")] + [
     ((r, vp, w), labels) for w in (64, 128, 256) for r in (1, 63, 64, 65, 130)
     for vp in (61, 65, 200) for labels in ("mixed", "padding", "sharded")] + [
-    ((2048, 335424, 128), "mixed")]
+    ((2048, 335424, 128), "mixed"), ((10240, 335424, 128), "mixed"),
+    ((2048, 26732, 128), "sharded"), ((10240, 167936, 128), "sharded"),
+    ((10240, 26732, 64), "mixed"), ((5120, 13047, 256), "mixed")]
 
 
 @pytest.mark.cuda
@@ -892,8 +914,14 @@ def test_tiled_loss_kernels_match_plain(cuda_device, shape, labels, dtype):
     lse, sums = fml._launch_forward_tiled(h, t, b, lab)
     m, s, ll = fml._launch_forward_tiled_stats(h, t, b, lab)
     torch.cuda.synchronize()
-    rlse, rsums = fml.fused_mlm_loss_plain_forward(h, t, b, lab)
-    rm, rs, rll = fml.fused_mlm_loss_plain_stats(h, t, b, lab)
+    # the plain versions over row chunks whose [rows, V] logits hold at
+    # most 2,048 x 335,424 values: per-row outputs joined, the rest summed
+    step = max(1, 2048 * 335424 // vp)
+    rows = [slice(i, i + step) for i in range(0, r, step)]
+    fwd = [fml.fused_mlm_loss_plain_forward(h[c], t, b, lab[c]) for c in rows]
+    rlse, rsums = torch.cat([f[0] for f in fwd]), sum(f[1] for f in fwd)
+    rm, rs, rll = (torch.cat(x) for x in zip(*(
+        fml.fused_mlm_loss_plain_stats(h[c], t, b, lab[c]) for c in rows)))
     tol = 1e-4 if dtype == torch.float32 else 2e-2
     fwd_tol = 1e-4 if dtype == torch.float32 else 1e-5
     assert _rel_err(lse, rlse) <= fwd_tol
@@ -908,8 +936,12 @@ def test_tiled_loss_kernels_match_plain(cuda_device, shape, labels, dtype):
         fml._launch_forward_tiled_stats(h, t, b, lab), (m, s, ll)))
     g = torch.full((), 0.5, device=cuda_device)
     nv = rsums[3:4]
-    ref = fml.fused_mlm_loss_plain_backward(h, t, b, lab, rlse, g, nv[0],
-                                            valid_ge_zero=vge0)
+    bwd = [fml.fused_mlm_loss_plain_backward(
+        h[c], t, b, lab[c], rlse[c], g, nv[0], valid_ge_zero=vge0)
+        for c in rows]
+    ref = (torch.cat([x[0] for x in bwd]), sum(x[1] for x in bwd),
+           sum(x[2] for x in bwd))
+    del bwd
     for merged in (True, False):
         got = fml._launch_backward_tiled(h, t, b, lab, lse, g, nv, merged,
                                          valid_ge_zero=vge0)
@@ -1040,62 +1072,6 @@ def test_tiled_fp32_takes_any_layout_through_a_copy(cuda_device, case,
     for a, c in zip(got, ref):
         assert a.shape == c.shape and a.is_contiguous()
         assert _rel_err(a, c) <= 1e-4
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("w,kernel,v", [
-    (128, "K6", 3000), (256, "K7", 3000), (256, "K6", 3000),
-    (128, "K7", 3000), (40, "K6", 3000), (40, "K7", 3000),
-    (64, "K5", 3000), (128, "K5", 3000), (256, "K5", 3000),
-    (128, "K5", 335424)], ids=lambda v: str(v))
-def test_tiled_fp32_launch_runs_only_the_tf32_kernels(cuda_device, w,
-                                                      kernel, v):
-    """An fp32 K6 launch runs loss_tf32.cuh's merged kernel and the ordered
-    dh reduction, an fp32 K7 launch its two sweeps (dh, then dt); neither
-    reaches the SIMT sweeps they replaced (``loss_bwd_vt_kernel``, and for
-    K7 ``loss_bwd_dh_kernel``, since gone from the source with fp32 K4's
-    SIMT tiles). An fp32 K5 launch, either entry, at each width and at
-    Reddit's vocabulary, runs only loss_tf32.cuh's forward sweep, the
-    ordered merge and (the loss entry) the row sums: no route back to the
-    SIMT tiles (``loss_tiled_fwd_kernel``, gone from the source)."""
-    from torch.profiler import ProfilerActivity, profile
-    from bert4rec_tpu_torch.ops import fused_mlm_loss as fml
-    rows = 1000
-    h, t, b, lab, _ = _tiled_inputs(cuda_device, torch.float32, rows, v, w)
-    g = torch.ones((), device=cuda_device)
-    if kernel == "K5":
-        cases = [(lambda: fml._launch_forward_tiled(h, t, b, lab),
-                  {"loss_tf32_fwd_sweep_kernel<", "loss_tiled_merge_kernel",
-                   "reduce_rows_kernel"}),
-                 (lambda: fml._launch_forward_tiled_stats(h, t, b, lab),
-                  {"loss_tf32_fwd_sweep_kernel<", "loss_tiled_merge_kernel"})]
-        allowed = ("loss_tf32_fwd_sweep_kernel<", "loss_tiled_merge_kernel",
-                   "reduce_rows_kernel")
-        forbid = ("loss_tiled_fwd_kernel", "loss_fwd_kernel")
-    else:
-        merged = kernel == "K6"
-        lse, sums = fml._launch_forward_tiled(h, t, b, lab)
-        cases = [(lambda: fml._launch_backward_tiled(
-            h, t, b, lab, lse, g, sums[3:4], merged),
-            {"loss_tf32_merged_kernel<", "reduce_rows_cast_kernel<float>"}
-            if merged else {"loss_tf32_sweep_kernel<", "false>", "true>"})]
-        allowed = ("loss_tf32", "reduce_rows_cast_kernel<float>")
-        forbid = ("loss_bwd_vt_kernel",) + (() if merged else
-                                            ("loss_bwd_dh_kernel",))
-    for fn, want in cases:
-        fn()
-        torch.cuda.synchronize()
-        for _ in range(3):   # the profiler can drop records
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                fn()
-                torch.cuda.synchronize()
-            names = [e.key for e in prof.key_averages()
-                     if getattr(e, "self_device_time_total", 0) > 0]
-            if all(any(k in n for n in names) for k in want):
-                break
-        assert not [n for n in names if any(f in n for f in forbid)], names
-        assert all(any(k in n for n in names) for k in want), names
-        assert all(any(a in n for a in allowed) for n in names), names
 
 
 @pytest.mark.cuda
@@ -1404,40 +1380,6 @@ def test_fp32_whole_table_takes_any_layout_through_a_copy(cuda_device, case):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("w", [128, 64, 256])
-def test_fp32_whole_table_launch_runs_only_the_tf32_kernels(cuda_device, w):
-    """An fp32 K3 launch runs loss_tf32.cuh's forward sweep, the ordered
-    merge and the row sums; an fp32 K4 launch fp32 K7's two sweeps (dh,
-    then dt). Neither reaches a SIMT loss kernel."""
-    from torch.profiler import ProfilerActivity, profile
-    from bert4rec_tpu_torch.ops import fused_mlm_loss as fml
-    h, t, b, lab, _ = _tiled_inputs(cuda_device, torch.float32, 1000, 3000,
-                                    w)
-    lse, sums = fml._launch_forward(h, t, b, lab)
-    g = torch.ones((), device=cuda_device)
-    cases = {
-        "K3": (lambda: fml._launch_forward(h, t, b, lab),
-               {"loss_tf32_fwd_sweep_kernel<", "loss_tiled_merge_kernel",
-                "reduce_rows_kernel"}),
-        "K4": (lambda: fml._launch_backward(h, t, b, lab, lse, g, sums[3:4]),
-               {"loss_tf32_sweep_kernel<", "false>", "true>"})}
-    for k, (fn, want) in cases.items():
-        fn()
-        torch.cuda.synchronize()
-        for _ in range(3):   # the profiler can drop records
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                fn()
-                torch.cuda.synchronize()
-            names = [e.key for e in prof.key_averages()
-                     if getattr(e, "self_device_time_total", 0) > 0]
-            if all(any(x in n for n in names) for x in want):
-                break
-        assert all(any(x in n for n in names) for x in want), (k, names)
-        assert all("loss_tf32" in n or "loss_tiled_merge_kernel" in n
-                   or "reduce_rows_kernel" in n for n in names), (k, names)
-
-
-@pytest.mark.cuda
 @pytest.mark.parametrize("r,v,splits", [(10240, 26732, 13), (2048, 335424, 64),
                                         (130, 200, 4), (1, 61, 1)])
 def test_bf16_tiled_forward_splits_the_vocabulary_by_its_law(cuda_device, r,
@@ -1516,8 +1458,9 @@ def flash_operands(device, dims, dtype, seed):
     return q, k, v, mask, do
 
 
-# the main path's shape (B=32, N=12, S=512, D=64) and a ragged one
-FLASH_DIMS = [(32, 12, 512, 64), (3, 4, 130, 64)]
+# the main path's shape (B=32, N=12, S=512, D=64), a ragged one and one
+# past JAX's MAX_FUSED_SEQ_LEN
+FLASH_DIMS = [(32, 12, 512, 64), (3, 4, 130, 64), (3, 2, 1100, 64)]
 # forward, absolute: attention context over a full row of unit-variance
 # scores is ~0.07 an entry (rms 0.2-0.7 over these batches' ragged rows), so
 # the bf16 limit is set well under it, not at the layers' 8e-2
@@ -1554,25 +1497,28 @@ def test_flash_kernels_match_plain(cuda_device, dims, dtype, rate, causal):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dims", FLASH_DIMS,
+                         ids=lambda d: "B{}_N{}_S{}_D{}".format(*d))
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["fp32", "bf16"])
 def test_flash_strided_equals_contiguous_and_backward_repeats(cuda_device,
-                                                              dtype):
+                                                              dims, dtype):
     """The projection's views and their contiguous copies give the same
-    bits; two K9 runs give the same bits; autograd counts one launch of
-    each (causal apart)."""
+    bits; two K9 runs give the same bits, dropout 0 and 0.2, causal or
+    not; autograd counts one launch of each (causal apart)."""
     fa = importlib.import_module("bert4rec_tpu_torch.ops.flash_attention")
-    q, k, v, mask, do = flash_operands(cuda_device, (3, 4, 130, 64), dtype, 5)
+    q, k, v, mask, do = flash_operands(cuda_device, dims, dtype, 5)
     cq, ck, cv = (t.contiguous() for t in (q, k, v))
     assert not q.is_contiguous() and cq.is_contiguous()
-    for causal in (False, True):
-        o1, s1 = fa._launch_forward(q, k, v, mask, 3, 0.2, causal, True)
-        o2, s2 = fa._launch_forward(cq, ck, cv, mask, 3, 0.2, causal, True)
-        g1 = fa._launch_backward(q, k, v, mask, do, s1, 3, 0.2, causal)
+    for causal, rate in ((False, 0.0), (True, 0.0), (False, 0.2),
+                         (True, 0.2)):
+        o1, s1 = fa._launch_forward(q, k, v, mask, 3, rate, causal, True)
+        o2, s2 = fa._launch_forward(cq, ck, cv, mask, 3, rate, causal, True)
+        g1 = fa._launch_backward(q, k, v, mask, do, s1, 3, rate, causal)
         g2 = fa._launch_backward(cq, ck, cv, mask, do.transpose(1, 2)
-                                 .contiguous().transpose(1, 2), s2, 3, 0.2,
+                                 .contiguous().transpose(1, 2), s2, 3, rate,
                                  causal)
-        g3 = fa._launch_backward(q, k, v, mask, do, s1, 3, 0.2, causal)
+        g3 = fa._launch_backward(q, k, v, mask, do, s1, 3, rate, causal)
         torch.cuda.synchronize()
         assert torch.equal(o1, o2)
         for a, b, c in zip(g1, g2, g3):
@@ -1846,12 +1792,13 @@ def test_flash_bf16_rejects_a_misaligned_view(cuda_device):
 
 
 @pytest.mark.cuda
-def test_flash_bf16_keep_bits_equal_the_plain_packing(cuda_device):
+@pytest.mark.parametrize("dims", FLASH_DIMS,
+                         ids=lambda d: "B{}_N{}_S{}_D{}".format(*d))
+def test_flash_bf16_keep_bits_equal_the_plain_packing(cuda_device, dims):
     """K8 writes the keep bits K9 reads in dropout_bits.tile_keep_bits'
     layout; the bf16 backward refuses to run at dropout without them."""
     from bert4rec_tpu_torch.ops import dropout_bits
     fa = importlib.import_module("bert4rec_tpu_torch.ops.flash_attention")
-    dims = (3, 4, 130, 64)
     q, k, v, mask, do = flash_operands(cuda_device, dims, torch.bfloat16, 10)
     _, saved = fa._launch_forward(q, k, v, mask, 12, 0.2, False, True)
     torch.cuda.synchronize()
@@ -1956,68 +1903,6 @@ def test_table_grad_counts_one_launch_per_backward(cuda_device):
     with torch.no_grad():
         tg.table_gather(table, ids, torch.bfloat16)
     assert tg.table_gradient.launches - before == 3
-
-
-# the benchmark cells' routes at two layers (tests/test_torch_spans.py's)
-TABLE_GRAD_ROUTES = {
-    "fused_layer": dict(hidden_size=128, num_attention_heads=4,
-                        inner_dim=512, seq=200, pred=40, batch=32),
-    "flash_attention": dict(hidden_size=768, num_attention_heads=12,
-                            inner_dim=3072, seq=512, pred=76, batch=4,
-                            use_fused_layer=False, use_fused_loss=False,
-                            use_flash_attention=True)}
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("route", sorted(TABLE_GRAD_ROUTES))
-def test_train_steps_take_the_table_grad_kernel(cuda_device, route):
-    """A traced ``train()`` holds ``b4r::table_grad`` kernels and no
-    ``indexing_backward_kernel`` (the MLM head's position gather is
-    ``torch.gather``, so the item table is the only indexed gather with a
-    gradient), and ``table_gradient.launches`` equals the steps trained.
-    The update is K12's: ``b4r::adamw`` kernels, no foreach
-    ``multi_tensor_apply_kernel``, three launches a step."""
-    from torch.profiler import ProfilerActivity, profile
-    from bert4rec_tpu_torch.core.dtypes import DTypePolicy
-    from bert4rec_tpu_torch.dataloaders.processed_dataset import (
-        MaskingConfig, ProcessedDataset)
-    from bert4rec_tpu_torch.models import BERT4RecConfig, BERT4RecModel
-    from bert4rec_tpu_torch.ops import adamw
-    from bert4rec_tpu_torch.ops import table_gradient as tg
-    from bert4rec_tpu_torch.trainers import BERT4RecTrainer
-    kw = dict(TABLE_GRAD_ROUTES[route])
-    seq, pred, batch = kw.pop("seq"), kw.pop("pred"), kw.pop("batch")
-    vocab, steps = 515, 3
-    cfg = dict(vocab_size=vocab, num_layers=2, max_sequence_length=seq,
-               max_predictions_per_seq=pred, attention_dropout=0.1,
-               output_dropout=0.1, use_fused_layer=True, use_fused_loss=True)
-    cfg.update(kw)
-    rng = np.random.default_rng(0)
-    seqs = [rng.integers(3, vocab, size=rng.integers(4, seq + 1))
-            .astype(np.int32) for _ in range(steps * batch)]
-    ds = ProcessedDataset(seqs, MaskingConfig(
-        max_seq_len=seq, max_predictions_per_seq=pred, mask_token_id=1,
-        pad_token_id=0, unk_token_id=2, masked_lm_rate=0.3), lambda: vocab)
-    t = BERT4RecTrainer(BERT4RecModel(config=BERT4RecConfig(**cfg),
-                                      dtype_policy=DTypePolicy.bf16()))
-    t.initialize_model(seed=0, device=cuda_device)
-    t.train(ds, epochs=1, batch_size=batch, verbose=False)   # builds
-    for _ in range(3):   # the profiler can drop records
-        before = tg.table_gradient.launches, adamw.adamw_update.launches
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            t.train(ds, epochs=1, batch_size=batch, verbose=False)
-            torch.cuda.synchronize()
-        names = [e.key for e in prof.key_averages()
-                 if getattr(e, "self_device_time_total", 0) > 0]
-        if any("b4r::table_grad" in n for n in names) and any(
-                "b4r::adamw" in n for n in names):
-            break
-    assert tg.table_gradient.launches - before[0] == steps
-    assert adamw.adamw_update.launches - before[1] == 3 * steps
-    assert not [n for n in names if "indexing_backward" in n], names
-    assert any("b4r::table_grad_combine" in n for n in names), names
-    assert not [n for n in names if "multi_tensor_apply" in n], names
-    assert any("adamw_update_kernel" in n for n in names), names
 
 
 # K12, the clip and AdamW update: leaves of 1, 7, 768 and 2^20 + 3 elements,
@@ -2230,49 +2115,6 @@ def test_adamw_kernels_refuse_a_strided_param(cuda_device):
         adamw.adamw_update([p[:, 0]], [g[:, 0]], [m[:, 0]], [v[:, 0]],
                            [False], hyper)
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("variant", ["plain", "causal", "rel"])
-def test_fp32_training_launch_runs_only_the_tf32_kernels(cuda_device,
-                                                        variant):
-    """An fp32 training forward with dropout (saving for its backward) and
-    its backward run csrc/layer_tf32.cu's 3xTF32 kernels (and the ordered
-    row sums) only: no SIMT layer kernel, by the profiler's kernel names.
-    It stands last in the file, after the other kernel-name tests: run
-    early, its traces left theirs, hundreds of tests later, short of
-    records (the profiler drops records in long processes)."""
-    from torch.profiler import ProfilerActivity, profile
-    _, p, xt, mt, dy, kw = _fp32_train_step(cuda_device, (4, 200, 128, 4, 512),
-                                            causal=variant == "causal",
-                                            rel=variant == "rel")
-    flat = {k: v.detach() for k, v in fel.flat_weights(p).items()}
-    launch = dict(causal=kw["causal"], rel=kw.get("rel_bias"))
-
-    def run():
-        _, saved = fel._launch_forward(flat, xt.detach(), mt, 4, 9, 0.1, 0.1,
-                                       True, **launch)
-        return fel._launch_backward(flat, xt.detach(), mt, dy, saved, 4, 9,
-                                    0.1, 0.1, **launch)
-
-    run()
-    torch.cuda.synchronize()
-    want = ("attn_tf32_kernel<", "attn_dq_tf32_kernel<",
-            "attn_dkv_tf32_kernel<", "wgrad_tf32_kernel", "ln_rows_bwd_kernel<")
-    for _ in range(3):   # the profiler can drop records
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            run()
-            torch.cuda.synchronize()
-        names = [e.key for e in prof.key_averages()
-                 if getattr(e, "self_device_time_total", 0) > 0]
-        if all(any(k in n for n in names) for k in want):
-            break
-    assert not [n for n in names
-                if any(k in n for k in SIMT_FP32_LAYER_KERNELS)], names
-    assert all(any(k in n for n in names) for k in want), names
-    layer = [n for n in names if "tf32" in n or "split" in n
-             or "ln_rows" in n or "colsum" in n]
-    assert all(any(k in n for k in TF32_LAYER_KERNELS) for n in layer), names
-
-
 # --------------------------------------------------------------------------- #
 # latent attention's K8 / K9: queries and keys of 192, values of 128
 # --------------------------------------------------------------------------- #
@@ -2424,11 +2266,12 @@ def test_expert_gemm_kernels_match_plain(cuda_device, case):
 
 
 @pytest.mark.cuda
-def test_expert_gemm_autograd_counts_and_repeats(cuda_device):
+@pytest.mark.parametrize("case", ["ragged", "moonlight"])
+def test_expert_gemm_autograd_counts_and_repeats(cuda_device, case):
     """``expert_mlp`` through autograd: one launch each way, fp32 weight
     gradients, the same bits from two runs (no atomics)."""
     from bert4rec_tpu_torch.ops import expert_gemm as eg
-    rows, h, i, counts = EXPERT_CASES["ragged"]
+    rows, h, i, counts = EXPERT_CASES[case]
     x, c, wg, wu, wd, dy = expert_operands(cuda_device, rows, h, i, counts,
                                            9)
     runs = []
@@ -2496,3 +2339,238 @@ def test_mla_moe_train_step_runs_the_kernels(cuda_device):
     counts = mla_moe.routing_counts.read()
     assert counts["routed_rows"] == 2 * 8 * 64 * 2
     assert counts["dropped_rows"] == 0
+
+
+# --------------------------------------------------------------------------- #
+# the kernels a launch runs, by the profiler's names
+# --------------------------------------------------------------------------- #
+
+def _traced(fn, want):
+    """``(names, want, out)``: the device kernels' names in a torch.profiler
+    trace of ``fn()`` after one call untraced, traced again (up to three
+    times: the profiler can drop records) while one of ``want`` is
+    missing, and what that last call returned."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            out = fn()
+            torch.cuda.synchronize()
+        names = [e.key for e in prof.key_averages()
+                 if getattr(e, "self_device_time_total", 0) > 0]
+        if all(any(k in n for n in names) for k in want):
+            break
+    return names, want, out
+
+
+def _tiled_fp32_launches(device, w, kernel, v):
+    """fp32 K5 (both entries), K6 or K7: [(launch, kernels it must run)]."""
+    from bert4rec_tpu_torch.ops import fused_mlm_loss as fml
+    h, t, b, lab, _ = _tiled_inputs(device, torch.float32, 1000, v, w)
+    if kernel == "K5":
+        return [(lambda: fml._launch_forward_tiled(h, t, b, lab),
+                 {"loss_tf32_fwd_sweep_kernel<", "loss_tiled_merge_kernel",
+                  "reduce_rows_kernel"}),
+                (lambda: fml._launch_forward_tiled_stats(h, t, b, lab),
+                 {"loss_tf32_fwd_sweep_kernel<", "loss_tiled_merge_kernel"})]
+    merged = kernel == "K6"
+    lse, sums = fml._launch_forward_tiled(h, t, b, lab)
+    g = torch.ones((), device=device)
+    return [(lambda: fml._launch_backward_tiled(
+        h, t, b, lab, lse, g, sums[3:4], merged),
+        {"loss_tf32_merged_kernel<", "reduce_rows_cast_kernel<float>"}
+        if merged else {"loss_tf32_sweep_kernel<", "false>", "true>"})]
+
+
+def _whole_table_fp32_launches(device, w):
+    """fp32 K3 and K4 at R = 1,000, V = 3,000."""
+    from bert4rec_tpu_torch.ops import fused_mlm_loss as fml
+    h, t, b, lab, _ = _tiled_inputs(device, torch.float32, 1000, 3000, w)
+    lse, sums = fml._launch_forward(h, t, b, lab)
+    g = torch.ones((), device=device)
+    return [(lambda: fml._launch_forward(h, t, b, lab),
+             {"loss_tf32_fwd_sweep_kernel<", "loss_tiled_merge_kernel",
+              "reduce_rows_kernel"}),
+            (lambda: fml._launch_backward(h, t, b, lab, lse, g, sums[3:4]),
+             {"loss_tf32_sweep_kernel<", "false>", "true>"})]
+
+
+# the benchmark cells' routes at two layers (tests/test_torch_spans.py's)
+TABLE_GRAD_ROUTES = {
+    "fused_layer": dict(hidden_size=128, num_attention_heads=4,
+                        inner_dim=512, seq=200, pred=40, batch=32),
+    "flash_attention": dict(hidden_size=768, num_attention_heads=12,
+                            inner_dim=3072, seq=512, pred=76, batch=4,
+                            use_fused_layer=False, use_fused_loss=False,
+                            use_flash_attention=True)}
+
+
+def _train_launches(device, route):
+    """A bf16 ``train()`` of three steps at ``TABLE_GRAD_ROUTES[route]``,
+    returning the K10 and K12 launches it counted."""
+    from bert4rec_tpu_torch.core.dtypes import DTypePolicy
+    from bert4rec_tpu_torch.dataloaders.processed_dataset import (
+        MaskingConfig, ProcessedDataset)
+    from bert4rec_tpu_torch.models import BERT4RecConfig, BERT4RecModel
+    from bert4rec_tpu_torch.ops import adamw
+    from bert4rec_tpu_torch.ops import table_gradient as tg
+    from bert4rec_tpu_torch.trainers import BERT4RecTrainer
+    kw = dict(TABLE_GRAD_ROUTES[route])
+    seq, pred, batch = kw.pop("seq"), kw.pop("pred"), kw.pop("batch")
+    vocab, steps = 515, 3
+    cfg = dict(vocab_size=vocab, num_layers=2, max_sequence_length=seq,
+               max_predictions_per_seq=pred, attention_dropout=0.1,
+               output_dropout=0.1, use_fused_layer=True, use_fused_loss=True)
+    cfg.update(kw)
+    rng = np.random.default_rng(0)
+    seqs = [rng.integers(3, vocab, size=rng.integers(4, seq + 1))
+            .astype(np.int32) for _ in range(steps * batch)]
+    ds = ProcessedDataset(seqs, MaskingConfig(
+        max_seq_len=seq, max_predictions_per_seq=pred, mask_token_id=1,
+        pad_token_id=0, unk_token_id=2, masked_lm_rate=0.3), lambda: vocab)
+    t = BERT4RecTrainer(BERT4RecModel(config=BERT4RecConfig(**cfg),
+                                      dtype_policy=DTypePolicy.bf16()))
+    t.initialize_model(seed=0, device=device)
+
+    def run():
+        before = tg.table_gradient.launches, adamw.adamw_update.launches
+        t.train(ds, epochs=1, batch_size=batch, verbose=False)
+        return (tg.table_gradient.launches - before[0],
+                adamw.adamw_update.launches - before[1])
+
+    return [(run, {"b4r::table_grad", "b4r::adamw"})]
+
+
+def _fp32_layer_launches(device, variant):
+    """An fp32 training forward with dropout (saving for its backward) and
+    its backward, plain, causal or with a relative bias."""
+    _, p, xt, mt, dy, kw = _fp32_train_step(device, (4, 200, 128, 4, 512),
+                                            causal=variant == "causal",
+                                            rel=variant == "rel")
+    flat = {k: v.detach() for k, v in fel.flat_weights(p).items()}
+    launch = dict(causal=kw["causal"], rel=kw.get("rel_bias"))
+
+    def run():
+        _, saved = fel._launch_forward(flat, xt.detach(), mt, 4, 9, 0.1, 0.1,
+                                       True, **launch)
+        return fel._launch_backward(flat, xt.detach(), mt, dy, saved, 4, 9,
+                                    0.1, 0.1, **launch)
+
+    return [(run, ("attn_tf32_kernel<", "attn_dq_tf32_kernel<",
+                   "attn_dkv_tf32_kernel<", "wgrad_tf32_kernel",
+                   "ln_rows_bwd_kernel<"))]
+
+
+TILED_ROUTES = [(128, "K6", 3000), (256, "K7", 3000), (256, "K6", 3000),
+                (128, "K7", 3000), (40, "K6", 3000), (40, "K7", 3000),
+                (64, "K5", 3000), (128, "K5", 3000), (256, "K5", 3000),
+                (128, "K5", 335424)]
+ROUTE_TRACES = {**{("tiled", c): (_tiled_fp32_launches, *c)
+                   for c in TILED_ROUTES},
+                **{("whole_table", w): (_whole_table_fp32_launches, w)
+                   for w in (128, 64, 256)},
+                **{("train", r): (_train_launches, r)
+                   for r in sorted(TABLE_GRAD_ROUTES)},
+                **{("fp32_layer", v): (_fp32_layer_launches, v)
+                   for v in ("plain", "causal", "rel")}}
+
+
+@pytest.fixture(scope="module", autouse=True)
+def traces():
+    """Every trace of the tests below, ``{key: [(names, want, out)]}`` by
+    ``ROUTE_TRACES``, taken at this module's first test, before any other
+    launch: in a process that had traced once and launched much since, a
+    later trace came up short of records. So no order or selection of the
+    tests moves a trace. A setup's error is kept for its test to raise."""
+    out = {}
+    if not torch.cuda.is_available():
+        return out
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for key, (setup, *args) in ROUTE_TRACES.items():
+        try:
+            out[key] = [_traced(fn, want)
+                        for fn, want in setup(torch.device("cuda"), *args)]
+        except Exception as err:   # noqa: BLE001
+            out[key] = err
+    return out
+
+
+def _read(traces, key):
+    if isinstance(traces[key], Exception):
+        raise traces[key]
+    return traces[key]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w,kernel,v", TILED_ROUTES, ids=lambda v: str(v))
+def test_tiled_fp32_launch_runs_only_the_tf32_kernels(cuda_device, traces,
+                                                      w, kernel, v):
+    """An fp32 K6 launch runs loss_tf32.cuh's merged kernel and the ordered
+    dh reduction, an fp32 K7 launch its two sweeps (dh, then dt); neither
+    reaches the SIMT sweeps they replaced (``loss_bwd_vt_kernel``, and for
+    K7 ``loss_bwd_dh_kernel``, since gone from the source with fp32 K4's
+    SIMT tiles). An fp32 K5 launch, either entry, at each width and at
+    Reddit's vocabulary, runs only loss_tf32.cuh's forward sweep, the
+    ordered merge and (the loss entry) the row sums: no route back to the
+    SIMT tiles (``loss_tiled_fwd_kernel``, gone from the source)."""
+    if kernel == "K5":
+        allowed = ("loss_tf32_fwd_sweep_kernel<", "loss_tiled_merge_kernel",
+                   "reduce_rows_kernel")
+        forbid = ("loss_tiled_fwd_kernel", "loss_fwd_kernel")
+    else:
+        allowed = ("loss_tf32", "reduce_rows_cast_kernel<float>")
+        forbid = ("loss_bwd_vt_kernel",) + (
+            () if kernel == "K6" else ("loss_bwd_dh_kernel",))
+    for names, want, _ in _read(traces, ("tiled", (w, kernel, v))):
+        assert not [n for n in names if any(f in n for f in forbid)], names
+        assert all(any(k in n for n in names) for k in want), names
+        assert all(any(a in n for a in allowed) for n in names), names
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w", [128, 64, 256])
+def test_fp32_whole_table_launch_runs_only_the_tf32_kernels(cuda_device,
+                                                           traces, w):
+    """An fp32 K3 launch runs loss_tf32.cuh's forward sweep, the ordered
+    merge and the row sums; an fp32 K4 launch fp32 K7's two sweeps (dh,
+    then dt). Neither reaches a SIMT loss kernel."""
+    for k, (names, want, _) in zip(("K3", "K4"),
+                                   _read(traces, ("whole_table", w))):
+        assert all(any(x in n for n in names) for x in want), (k, names)
+        assert all("loss_tf32" in n or "loss_tiled_merge_kernel" in n
+                   or "reduce_rows_kernel" in n for n in names), (k, names)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", sorted(TABLE_GRAD_ROUTES))
+def test_train_steps_take_the_table_grad_kernel(cuda_device, traces, route):
+    """A traced ``train()`` holds ``b4r::table_grad`` kernels and no
+    ``indexing_backward_kernel`` (the MLM head's position gather is
+    ``torch.gather``, so the item table is the only indexed gather with a
+    gradient), and ``table_gradient.launches`` equals the steps trained.
+    The update is K12's: ``b4r::adamw`` kernels, no foreach
+    ``multi_tensor_apply_kernel``, three launches a step."""
+    (names, _, moved), = _read(traces, ("train", route))
+    assert moved == (3, 3 * 3)
+    assert not [n for n in names if "indexing_backward" in n], names
+    assert any("b4r::table_grad_combine" in n for n in names), names
+    assert not [n for n in names if "multi_tensor_apply" in n], names
+    assert any("adamw_update_kernel" in n for n in names), names
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["plain", "causal", "rel"])
+def test_fp32_training_launch_runs_only_the_tf32_kernels(cuda_device,
+                                                        traces, variant):
+    """An fp32 training forward with dropout (saving for its backward) and
+    its backward run csrc/layer_tf32.cu's 3xTF32 kernels (and the ordered
+    row sums) only: no SIMT layer kernel, by the profiler's kernel
+    names."""
+    (names, want, _), = _read(traces, ("fp32_layer", variant))
+    assert not [n for n in names
+                if any(k in n for k in SIMT_FP32_LAYER_KERNELS)], names
+    assert all(any(k in n for n in names) for k in want), names
+    layer = [n for n in names if "tf32" in n or "split" in n
+             or "ln_rows" in n or "colsum" in n]
+    assert all(any(k in n for k in TF32_LAYER_KERNELS) for n in layer), names
